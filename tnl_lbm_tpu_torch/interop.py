@@ -1,0 +1,55 @@
+"""Carry what the JAX package holds over to the port's objects.
+
+Inputs are plain values and numpy arrays - what ``np.asarray`` of a JAX
+array gives - so this module needs no jax.  Tests build the JAX side and
+the port side from one spec through it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tnl_lbm_tpu_torch.models import D3Q27
+from tnl_lbm_tpu_torch.ops.collision import COLLISIONS_D3Q27
+from tnl_lbm_tpu_torch.ops.equilibrium import EQUILIBRIA
+from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
+from tnl_lbm_tpu_torch.utils.units import Lattice
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def config_from_spec(collision_id: str, eq: str, well: bool, streaming: str,
+                     dtype: str = "float32", high_precision_rho: bool = False) -> LBMConfig:
+    """LBMConfig from the ids of ``COLLISIONS_D3Q27`` / ``EQUILIBRIA``
+    (the JAX package's registries, ops/collision.py:806, ops/equilibrium.py:110)."""
+    if collision_id not in COLLISIONS_D3Q27:
+        raise NotImplementedError(f"collision {collision_id!r} is not ported yet "
+                                  f"(ported: {sorted(COLLISIONS_D3Q27)})")
+    if eq not in EQUILIBRIA:
+        raise NotImplementedError(f"equilibrium {eq!r} is not ported yet "
+                                  f"(ported: {sorted(EQUILIBRIA)})")
+    return LBMConfig(lat=D3Q27, collision=COLLISIONS_D3Q27[collision_id], eq=EQUILIBRIA[eq],
+                     streaming=streaming, well=well, compute_dtype=_DTYPES[dtype],
+                     high_precision_rho=high_precision_rho)
+
+
+def domain_from_numpy(map_arr, periodic, global_size=None, phys_dl: float = 1.0,
+                      phys_dt: float = 1.0, phys_origin=None,
+                      phys_viscosity: float = 0.0) -> Domain:
+    """Domain from a numpy GEO map (the codes are shared between the packages)."""
+    m = np.array(map_arr, dtype=np.uint8)
+    size = tuple(m.shape) if global_size is None else tuple(global_size)
+    origin = (0.0,) * len(size) if phys_origin is None else phys_origin
+    units = Lattice(global_size=size, phys_origin=origin, phys_dl=phys_dl, phys_dt=phys_dt,
+                    phys_viscosity=phys_viscosity)
+    return Domain(lat=D3Q27, units=units, map=m, periodic=tuple(periodic))
+
+
+def state_from_numpy(f, device) -> torch.Tensor:
+    """[Q, X, Y, Z] state as a contiguous tensor on ``device`` (dtype kept; a copy)."""
+    return torch.from_numpy(np.array(f, order="C", copy=True)).to(device)
+
+
+def state_to_numpy(f: torch.Tensor) -> np.ndarray:
+    return f.detach().cpu().numpy()

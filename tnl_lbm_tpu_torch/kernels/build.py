@@ -1,0 +1,108 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` into one shared library with a plain
+C interface and loaded with ``ctypes`` - seconds per build, against minutes
+for a source that includes PyTorch's headers.  The library is built at
+first use into ``build/torch_kernels/`` under the repository root, named by
+a hash of the sources and flags, so an edited source never loads a stale
+build.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("aa_even.cu", "aa_odd.cu")
+HEADERS = ("lbm_site.cuh",)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBRARY: dict = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin (needs the CUDA toolkit)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> tuple[Path, str]:
+    """Compile the kernels if this source state has no build yet.
+
+    Returns the library path and the compiler's ``-Xptxas -v`` report (read
+    back from the log of the build that produced the library).
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = _digest()
+    lib = BUILD_DIR / f"libtnl_lbm_kernels_{tag}.so"
+    log = BUILD_DIR / f"libtnl_lbm_kernels_{tag}.log"
+    if not lib.exists():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        log.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
+    return lib, log.read_text() if log.exists() else ""
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded kernel library with its C entry points typed."""
+    lib = _LIBRARY.get("lib")
+    if lib is not None:
+        return lib
+    path, _ = build_library()
+    lib = ctypes.CDLL(str(path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tnl_lbm_aa_even.argtypes = [p, p, p, p, i, i, i, f, f, f, f, i, p]
+    lib.tnl_lbm_aa_even.restype = i
+    lib.tnl_lbm_aa_odd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, f, f, i, p]
+    lib.tnl_lbm_aa_odd.restype = i
+    _LIBRARY["lib"] = lib
+    return lib
+
+
+def kernel_resources(ptxas_log: str) -> dict:
+    """Registers, spill bytes and shared memory per kernel from ``-Xptxas -v``."""
+    out: dict = {}
+    current = None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([A-Za-z_]\w*)'?", line)
+        if m:
+            current = out.setdefault(m.group(1), {"smem": 0})  # ptxas omits a zero smem
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            current["smem"] = int(m.group(1))
+    return out

@@ -1,0 +1,197 @@
+"""The A-A even/odd step: CUDA kernels on CUDA tensors, plain PyTorch on CPU tensors.
+
+Counterpart of ``tnl_lbm_tpu/kernels/fused_aa.py:make_fused_step_aa``
+(Pallas kernels ``even_kernel`` and ``_build_odd_call``).  The A-A pattern
+(reference d3q27/streaming_AA.h) alternates two parities on one state:
+
+- **even**: read same-site same-direction, collide, write the opposite
+  slots of the same site.  The CUDA kernel (``csrc/aa_even.cu``) updates
+  the state in place; so does the CPU path, so callers see one contract.
+- **odd**: read the opposite components of the neighbours, collide, push
+  to the neighbours, with edge replication at non-periodic boundaries and
+  NOTHING sites keeping their DFs.  The CUDA kernel (``csrc/aa_odd.cu``)
+  writes a new buffer.
+
+``even_step_plain`` / ``odd_step_plain`` are the plain versions: the CPU
+path and the oracle the kernels are held against on the card.  A step on
+CUDA tensors launches its kernel or raises; it never runs the plain
+version in the kernel's place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from tnl_lbm_tpu_torch.kernels.build import load_library
+from tnl_lbm_tpu_torch.kernels.fused import _prep, _stream_bc_collide
+from tnl_lbm_tpu_torch.ops import collision as col
+from tnl_lbm_tpu_torch.ops import streaming as stream
+from tnl_lbm_tpu_torch.ops.boundary import GEO
+from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
+
+#: CUDA grid limit on the y and z block indices, which carry Y and X
+_MAX_GRID_YZ = 65535
+
+
+@dataclasses.dataclass
+class CudaKernel:
+    """One hand-written kernel: its C entry point, where it lives, which
+    Pallas kernel it replaces, and how often a step launched it."""
+
+    name: str
+    source: str
+    replaces: str
+    launches: int = 0
+
+
+def _force3(force) -> tuple[float, float, float]:
+    if force is None:
+        return (0.0, 0.0, 0.0)
+    arr = force.detach().cpu().numpy() if torch.is_tensor(force) else np.asarray(force)
+    if arr.shape != (3,):
+        raise NotImplementedError(
+            "per-site force fields are not ported yet (ROADMAP A11: force_field variant)")
+    return tuple(float(v) for v in arr)
+
+
+def even_step_plain(cfg: LBMConfig, codes, do_coll_codes, f, m, nu, force):
+    """A-A even step in plain PyTorch: returns (f_new, rho, u), f untouched."""
+    opp = np.asarray(cfg.lat.opp)
+
+    def shifted(q, offs):
+        del offs  # no streaming on the even step
+        return f[q]
+
+    return _stream_bc_collide(cfg.lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
+                              out_perm=opp)
+
+
+def odd_step_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, f, m, nu, force):
+    """A-A odd step in plain PyTorch: returns (f_new, rho, u), f untouched."""
+    lat = cfg.lat
+    opp = np.asarray(lat.opp)
+    S = tuple(f.shape[1:])
+    fpad = stream.pad_halo(f, periodic)
+
+    def shifted(q, offs):
+        # odd-step read: neighbour, opposite direction (streaming_AA.h:47-60)
+        return stream._shift_slices(fpad[int(opp[q])], offs, S)
+
+    f_post, rho, u = _stream_bc_collide(lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
+                                        defer_nothing=True)
+    # push = pull of the edge/wrap-padded post-collision field
+    pushed = stream.pull(lat, stream.pad_halo(f_post, periodic), S)
+    if GEO.NOTHING in codes:
+        pushed = torch.where(m == int(GEO.NOTHING), f, pushed)
+    return pushed, rho, u
+
+
+class FusedStepAA:
+    """``step(f, nu, u_in=None, force=None, parity=0) -> (f, rho, u)``.
+
+    ``parity`` 0 is the even step (in place: the returned f is the input
+    tensor), 1 the odd step (a new tensor).  ``even`` and ``odd`` count the
+    kernel launches, ``plain_calls`` the CPU-path calls.
+    """
+
+    def __init__(self, cfg: LBMConfig, domain: Domain, device):
+        if cfg.streaming != "AA":
+            raise ValueError("make_fused_step_aa needs streaming='AA'")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.lat, self.codes, self.do_coll_codes = _prep(cfg, domain)
+        self.shape = domain.shape
+        self.periodic = domain.periodic
+        self.even = CudaKernel("tnl_lbm_aa_even", "tnl_lbm_tpu_torch/csrc/aa_even.cu",
+                               "tnl_lbm_tpu/kernels/fused_aa.py:408")
+        self.odd = CudaKernel("tnl_lbm_aa_odd", "tnl_lbm_tpu_torch/csrc/aa_odd.cu",
+                              "tnl_lbm_tpu/kernels/fused_aa.py:287")
+        self.plain_calls = 0
+        if self.device.type == "cuda":
+            self._check_kernel_config(domain)
+        self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
+
+    def _check_kernel_config(self, domain: Domain) -> None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device} requested but no CUDA device is available")
+        if self.cfg.collision is not col.collide_cum_well:
+            raise NotImplementedError("the CUDA kernels implement CUM_WELL only "
+                                      "(other collisions: ROADMAP A8)")
+        if self.cfg.compute_dtype != torch.float32:
+            raise NotImplementedError("the CUDA kernels compute in float32 only")
+        X, Y, _ = domain.shape
+        if X > _MAX_GRID_YZ or Y > _MAX_GRID_YZ:
+            raise ValueError(f"X and Y must be <= {_MAX_GRID_YZ} for the kernel grid")
+
+    def reset_counts(self) -> None:
+        self.even.launches = self.odd.launches = self.plain_calls = 0
+
+    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0):
+        if u_in is not None and np.ndim(u_in) > 1:
+            raise NotImplementedError("per-site inflow profiles are not ported yet (ROADMAP A8)")
+        if f.device.type == "cuda":
+            return self._launch(f, float(nu), _force3(force), parity)
+        self.plain_calls += 1
+        f_new, rho, u = self.plain(f, nu, force=force, parity=parity)
+        if parity == 0:
+            f.copy_(f_new)
+            return f, rho, u
+        return f_new, rho, u
+
+    def plain(self, f, nu, force=None, parity: int = 0):
+        """The step's plain PyTorch version on f's device: (f_new, rho, u),
+        f untouched.  The CPU path, and the oracle the kernels are held
+        against on the card; it counts no call."""
+        fvec = _force3(force)
+        m = self.map.to(f.device)
+        if parity == 0:
+            return even_step_plain(self.cfg, self.codes, self.do_coll_codes, f, m, nu, fvec)
+        return odd_step_plain(self.cfg, self.codes, self.do_coll_codes, self.periodic,
+                              f, m, nu, fvec)
+
+    def _launch(self, f, nu, fvec, parity):
+        if self.device.type != "cuda" or f.device != self.map.device:
+            raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
+        if f.dtype != torch.float32:
+            raise NotImplementedError("the CUDA kernels take float32 state only")
+        X, Y, Z = self.shape
+        if tuple(f.shape) != (self.lat.Q, X, Y, Z) or not f.is_contiguous():
+            raise ValueError(f"f must be a contiguous [{self.lat.Q}, {X}, {Y}, {Z}] tensor, "
+                             f"got {tuple(f.shape)}")
+        lib = load_library()
+        rho = torch.empty((X, Y, Z), dtype=f.dtype, device=f.device)
+        u = torch.empty((3, X, Y, Z), dtype=f.dtype, device=f.device)
+        stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
+        neumaier = int(self.cfg.high_precision_rho)
+        if parity == 0:
+            rc = lib.tnl_lbm_aa_even(f.data_ptr(), self.map.data_ptr(), rho.data_ptr(),
+                                     u.data_ptr(), X, Y, Z, nu, *fvec, neumaier, stream_ptr)
+            kernel, f_new = self.even, f
+        else:
+            f_new = torch.empty_like(f)
+            bits = sum(1 << a for a, p in enumerate(self.periodic) if p)
+            rc = lib.tnl_lbm_aa_odd(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
+                                    rho.data_ptr(), u.data_ptr(), X, Y, Z, bits,
+                                    int(GEO.NOTHING in self.codes), nu, *fvec, neumaier,
+                                    stream_ptr)
+            kernel = self.odd
+        if rc != 0:
+            raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
+        kernel.launches += 1
+        return f_new, rho, u
+
+
+def make_fused_step_aa(cfg: LBMConfig, domain: Domain, device,
+                       force_field: bool = False, macro_only: bool = False) -> FusedStepAA:
+    """A-A step for (cfg, domain) on ``device``: see :class:`FusedStepAA`.
+
+    The ``force_field`` (per-site force) and ``macro_only`` (u* pre-pass)
+    variants of the JAX kernels are not ported yet (ROADMAP A11).
+    """
+    if force_field or macro_only:
+        raise NotImplementedError("force_field / macro_only are not ported yet (ROADMAP A11)")
+    return FusedStepAA(cfg, domain, device)

@@ -1,0 +1,124 @@
+"""The collide-and-stream step in plain PyTorch (counterpart of
+``tnl_lbm_tpu/sim/step.py``).
+
+One call advances the lattice one time step, per site: pull streaming ->
+boundary handling -> collision -> write -> macro output (reference
+kernels.h:60-100).  All branching is mask-select over GEO codes.  This is
+the port's CPU path and its test oracle; on CUDA tensors it runs as plain
+PyTorch (``Simulation(use_fused=False)``), never as a stand-in for the
+kernels of ``kernels/fused_aa.py``.
+
+A-A pattern parity (reference d3q27/streaming_AA.h):
+- even step: read same-site same-direction, write same-site opposite;
+- odd step: read neighbor opposite-direction, write neighbor same-direction.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tnl_lbm_tpu_torch.ops import boundary as bc
+from tnl_lbm_tpu_torch.ops import moments as mom
+from tnl_lbm_tpu_torch.ops import streaming as stream
+from tnl_lbm_tpu_torch.ops.boundary import GEO
+from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
+
+#: GEO codes the port handles so far; the rest of the BC set is ROADMAP A8
+SUPPORTED_CODES = {GEO.FLUID, GEO.WALL, GEO.NOTHING}
+
+
+def check_supported(cfg: LBMConfig, domain: Domain) -> None:
+    """Raise NotImplementedError for what the port does not handle yet."""
+    unsupported = domain.codes_present() - SUPPORTED_CODES
+    if unsupported:
+        names = ", ".join(sorted(c.name for c in unsupported))
+        raise NotImplementedError(
+            f"GEO codes {names} are not ported yet (ROADMAP A8: the full BC set)")
+    if domain.bouzidi is not None:
+        raise NotImplementedError("Bouzidi curved walls are not ported yet (ROADMAP A9)")
+    if cfg.forcing_hook is not None:
+        raise NotImplementedError("forcing hooks are not ported yet (ROADMAP A11)")
+    if cfg.storage_dtype is not None:
+        raise NotImplementedError(
+            "half storage lives on the pair kernel, which is not ported yet (ROADMAP B1)")
+
+
+def as_vector(lat, arr, dtype, device) -> torch.Tensor:
+    """A [D] (or already [D, *S]) input as a tensor broadcastable to [D, *S]."""
+    a = torch.as_tensor(np.asarray(arr) if not torch.is_tensor(arr) else arr,
+                        dtype=dtype, device=device)
+    if a.ndim == 1:
+        a = a.reshape((lat.D,) + (1,) * lat.D)
+    return a
+
+
+def make_step(cfg: LBMConfig, domain: Domain):
+    """Build the per-step function for (cfg, domain).
+
+    Returns ``step(f, nu, u_in=None, force=None, parity=0) -> (f_new, rho, u)``
+    with ``parity`` the A-A parity (ignored for A-B).  ``u_in`` only enters
+    through inflow codes, none of which is ported yet.
+    """
+    check_supported(cfg, domain)
+    lat = cfg.lat
+    D = lat.D
+    S = domain.shape
+    dtype = cfg.compute_dtype
+    codes = domain.codes_present()
+    opp = np.asarray(lat.opp)
+    do_coll_codes = sorted(int(c) for c in (bc.collision_mask_codes(D) & codes))
+    maps = {}
+
+    def _map(device):
+        m = maps.get(device)
+        if m is None:
+            m = maps[device] = torch.as_tensor(domain.map.astype(np.int64), device=device)
+        return m
+
+    def step(f, nu, u_in=None, force=None, parity: int = 0):
+        del u_in
+        map_arr = _map(f.device)
+        masks = {c: map_arr == int(c) for c in codes}
+        do_coll = torch.isin(map_arr, torch.as_tensor(do_coll_codes, device=f.device))
+
+        if cfg.streaming == "AA" and parity == 0:
+            f_in = f  # even step: same site, same direction
+        elif cfg.streaming == "AA":
+            f_in = stream.pull_from(lat, stream.pad_halo(f, domain.periodic), S, opp)
+        else:
+            f_in = stream.pull(lat, stream.pad_halo(f, domain.periodic), S)
+
+        force_b = as_vector(lat, force, dtype, f.device) if force is not None else None
+        if GEO.WALL in codes:
+            f_in = bc.apply_bounce_back(lat, f_in, masks[GEO.WALL])
+
+        rho, u = mom.density_velocity(lat, f_in, force=force_b, well=cfg.well,
+                                      high_precision=cfg.high_precision_rho)
+
+        one = torch.ones((), dtype=dtype, device=f.device)
+        rho_safe = torch.where(rho == 0, one, rho)
+        f_post = cfg.collision(lat, f_in, rho_safe, u, nu, force=force_b)
+        f_post = torch.where(do_coll, f_post, f_in)
+
+        if cfg.streaming == "AA":
+            if parity == 0:
+                f_out = f_post[torch.tensor(opp.tolist(), dtype=torch.long, device=f.device)]
+            else:
+                # push = pull of the edge/wrap-padded post-collision field
+                f_out = stream.pull(lat, stream.pad_halo(f_post, domain.periodic), S)
+        else:
+            f_out = f_post
+
+        # inert ghost sites keep their previous DFs (reference bc.h:54-61,254-257)
+        if GEO.NOTHING in codes:
+            f_out = torch.where(masks[GEO.NOTHING], f, f_out)
+
+        rho_out, u_out = rho, u
+        for c in (GEO.WALL, GEO.NOTHING):
+            if c in codes:
+                rho_out = torch.where(masks[c], one, rho_out)
+                u_out = torch.where(masks[c], torch.zeros_like(u), u_out)
+        return f_out.contiguous(), rho_out, u_out
+
+    return step
