@@ -135,7 +135,7 @@ def test_cuda_direction_tables_match_descriptor():
 
 
 def _push_targets(s, c, n, periodic):
-    """Python transliteration of csrc/aa_odd.cu push_targets."""
+    """Python transliteration of csrc/lbm_site.cuh push_targets."""
     if c == 0:
         return [s]
     if periodic:

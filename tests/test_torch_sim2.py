@@ -54,13 +54,6 @@ def test_duct_profiles_match_jax():
     assert np.abs(late - ua).max() < 1e-4 * ua.max()
 
 
-def test_pair_dispatch_is_not_ported(tmp_path):
-    sim = sim_2.build(1, device="cpu", streaming="AA", use_fused=True, pair_dispatch=True,
-                      results_parent=tmp_path)
-    with pytest.raises(NotImplementedError, match="B1"):
-        sim.run()
-
-
 def test_fused_ab_is_not_ported(tmp_path):
     sim = sim_2.build(1, device="cpu", streaming="AB", use_fused=True, results_parent=tmp_path)
     with pytest.raises(NotImplementedError, match="B4"):

@@ -8,9 +8,11 @@ its function names, on torch tensors:
   port state can be compared with the JAX state after every step;
 - every entry point takes an explicit ``device``; asking for ``cuda``
   without a card raises, nothing moves to the CPU by itself;
-- the A-A even/odd kernels are hand-written CUDA C++ for Hopper
-  (``csrc/``); their plain PyTorch versions sit beside them in
-  ``kernels/fused_aa.py`` and serve CPU tensors and the tests.
+- the A-A kernels (even, odd, and the one-kernel pair with optional
+  16-bit storage) and the bandwidth probes are hand-written CUDA C++ for
+  Hopper (``csrc/``); their plain PyTorch versions sit beside them in
+  ``kernels/fused_aa.py`` and ``kernels/probes.py`` and serve CPU tensors
+  and the tests.
 
 This package never imports jax.
 """

@@ -7,7 +7,12 @@ sim_NSE/sim_2.cu:63-113, 193-257).
 
 Usage: python -m tnl_lbm_tpu_torch.apps.sim_2 RES [--device cuda|cpu]
        [--streaming AB|AA] [--use-fused] [--pair-dispatch auto|on|off]
-       [--precision single|double] [--final-time T] [--results-dir DIR]
+       [--storage full|f16|bf16] [--precision single|double] [--final-time T]
+       [--results-dir DIR]
+
+``--storage f16|bf16`` keeps the state in 16 bits between steps (half
+storage, on the one-kernel A-A pair only) and implies ``--streaming AA
+--use-fused --pair-dispatch on``.
 """
 
 from __future__ import annotations
@@ -103,6 +108,8 @@ class Sim2(Simulation):
         self.l1_history = [1.0] * 10
         self._err_idx = 0
         self.last_errors = (np.inf, np.inf)
+        #: (iterations, l1, l2) of every probe, to compare runs at one iteration
+        self.error_history = []
 
     def body_force(self, phys_time):
         if self.fx_lbm:
@@ -113,6 +120,7 @@ class Sim2(Simulation):
         """L1/L2 error vs analytic + dynamic stopping (reference sim_2.cu:193-257)."""
         l1, l2 = duct_errors(self.u[0].cpu().numpy(), self.analytical, self.domain.units)
         self.last_errors = (l1, l2)
+        self.error_history.append((self.iterations, l1, l2))
 
         prev = np.mean(self.l1_history)
         stddev = np.std(self.l1_history, ddof=1)
@@ -129,10 +137,12 @@ class Sim2(Simulation):
         )
 
 
-def build(resolution: int = 2, *, device, precision: str = "single",
+def build(resolution: int = 2, *, device, precision: str = "single", storage: str = "full",
           final_time: float = 200.0, results_parent=".", streaming: str = "AB",
           use_fused: bool = False, pair_dispatch="auto") -> Sim2:
-    """The body-force duct at ``resolution`` (lattice 32 x 32r x 32r) on ``device``."""
+    """The body-force duct at ``resolution`` (lattice 32 x 32r x 32r) on
+    ``device``; ``storage`` "f16"/"bf16" stores the state in 16 bits (it
+    needs the A-A pair path)."""
     block_size = 32
     X = block_size
     Y = Z = block_size * resolution
@@ -167,11 +177,17 @@ def build(resolution: int = 2, *, device, precision: str = "single",
         well=True,
         streaming=streaming,
         compute_dtype=torch.float64 if precision == "double" else torch.float32,
+        # half storage quantifies its accuracy cost right here: the error
+        # probes compare with the analytic solution either way
+        storage_dtype={"full": None, "f16": torch.float16, "bf16": torch.bfloat16}[storage],
     )
+    sim_id = f"sim_2_CUM_{precision}_forcing_strong_res_{resolution}_nd_1"
+    if storage != "full":
+        sim_id += f"_store_{storage}"
     sim = Sim2(
         cfg, dom,
         device=device,
-        sim_id=f"sim_2_CUM_{precision}_forcing_strong_res_{resolution}_nd_1",
+        sim_id=sim_id,
         results_parent=results_parent,
         phys_final_time=final_time,
         fx_lbm=fx_lbm,
@@ -195,14 +211,21 @@ def main(argv=None) -> Sim2:
     p.add_argument("--results-dir", default=".")
     p.add_argument("--streaming", choices=["AB", "AA"], default="AB")
     p.add_argument("--use-fused", action="store_true",
-                   help="run the CUDA A-A kernels (needs --streaming AA)")
+                   help="run the CUDA A-A kernels, per step or in pairs (needs --streaming AA)")
     p.add_argument("--pair-dispatch", choices=["auto", "on", "off"], default="auto")
+    p.add_argument("--storage", choices=["full", "f16", "bf16"], default="full",
+                   help="16-bit at-rest DF storage on the A-A pair path (FP16S; implies "
+                        "--streaming AA --use-fused --pair-dispatch on)")
     args = p.parse_args(argv)
+    if args.storage != "full":
+        # half storage exists only on the one-kernel A-A pair path
+        args.streaming, args.use_fused, args.pair_dispatch = "AA", True, "on"
 
     sim = build(
         args.resolution,
         device=args.device,
         precision=args.precision,
+        storage=args.storage,
         final_time=args.final_time,
         results_parent=args.results_dir,
         streaming=args.streaming,

@@ -29,35 +29,6 @@
 
 using namespace lbm;
 
-namespace {
-
-// Neighbour coordinate s + d on an axis of extent n: wrapped when periodic,
-// clamped to the domain otherwise (the edge-replicated halo).
-__device__ __forceinline__ int neighbour(int s, int d, int n, bool periodic) {
-  const int t = s + d;
-  if (periodic) return t < 0 ? t + n : (t >= n ? t - n : t);
-  return t < 0 ? 0 : (t >= n ? n - 1 : t);
-}
-
-// Destinations along one axis of a push from coordinate s with velocity c:
-// t0 = s + c (wrapped, or -1 when it leaves a non-periodic domain) and
-// t1 = s itself at the edge-replicated first/last layer, else -1.
-__device__ __forceinline__ void push_targets(int s, int c, int n, bool periodic,
-                                             int& t0, int& t1) {
-  t1 = -1;
-  if (c == 0) {
-    t0 = s;
-  } else if (periodic) {
-    t0 = neighbour(s, c, n, true);
-  } else {
-    const int t = s + c;
-    t0 = (t >= 0 && t < n) ? t : -1;
-    if ((c > 0 && s == 0) || (c < 0 && s == n - 1)) t1 = s;
-  }
-}
-
-}  // namespace
-
 extern "C" __global__ void __launch_bounds__(128)
 aa_odd_kernel(const float* __restrict__ f, float* __restrict__ fout,
               const uint8_t* __restrict__ map, float* __restrict__ rho_out,

@@ -1,4 +1,5 @@
-// Per-site D3Q27 logic shared by the A-A kernels (aa_even.cu, aa_odd.cu).
+// Per-site D3Q27 logic shared by the A-A kernels (aa_even.cu, aa_odd.cu,
+// aa_pair.cu).
 //
 // CUDA counterpart of the per-site code in tnl_lbm_tpu/kernels/fused.py:
 // _moments_local (moments_local), _pull_transform (pull_transform: the
@@ -341,6 +342,32 @@ struct SiteParams {
   float fx, fy, fz;  // homogeneous body force
   int neumaier;      // compensated density sum
 };
+
+// Neighbour coordinate s + d on an axis of extent n: wrapped when periodic,
+// clamped to the domain otherwise (the edge-replicated halo of pad_halo).
+__device__ __forceinline__ int neighbour(int s, int d, int n, bool periodic) {
+  const int t = s + d;
+  if (periodic) return t < 0 ? t + n : (t >= n ? t - n : t);
+  return t < 0 ? 0 : (t >= n ? n - 1 : t);
+}
+
+// Destinations along one axis of an A-A odd push from coordinate s with
+// velocity c: t0 = s + c (wrapped, or -1 when it leaves a non-periodic
+// domain) and t1 = s itself at the edge-replicated first/last layer, else
+// -1.  Every destination gets exactly one writer (aa_odd.cu).
+__device__ __forceinline__ void push_targets(int s, int c, int n, bool periodic,
+                                             int& t0, int& t1) {
+  t1 = -1;
+  if (c == 0) {
+    t0 = s;
+  } else if (periodic) {
+    t0 = neighbour(s, c, n, true);
+  } else {
+    const int t = s + c;
+    t0 = (t >= 0 && t < n) ? t : -1;
+    if ((c > 0 && s == 0) || (c < 0 && s == n - 1)) t1 = s;
+  }
+}
 
 // fused.py _stream_bc_collide for one site: f holds the pulled DFs on entry
 // and the post-collision DFs on exit; (rho, u) are the macro outputs

@@ -16,13 +16,16 @@ from tnl_lbm_tpu_torch.ops.equilibrium import EQUILIBRIA
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.utils.units import Lattice
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64, "float16": torch.float16,
+           "bfloat16": torch.bfloat16}
 
 
 def config_from_spec(collision_id: str, eq: str, well: bool, streaming: str,
-                     dtype: str = "float32", high_precision_rho: bool = False) -> LBMConfig:
+                     dtype: str = "float32", high_precision_rho: bool = False,
+                     storage: str | None = None) -> LBMConfig:
     """LBMConfig from the ids of ``COLLISIONS_D3Q27`` / ``EQUILIBRIA``
-    (the JAX package's registries, ops/collision.py:806, ops/equilibrium.py:110)."""
+    (the JAX package's registries, ops/collision.py:806, ops/equilibrium.py:110);
+    ``storage`` "float16"/"bfloat16" sets the half-storage ``storage_dtype``."""
     if collision_id not in COLLISIONS_D3Q27:
         raise NotImplementedError(f"collision {collision_id!r} is not ported yet "
                                   f"(ported: {sorted(COLLISIONS_D3Q27)})")
@@ -31,7 +34,8 @@ def config_from_spec(collision_id: str, eq: str, well: bool, streaming: str,
                                   f"(ported: {sorted(EQUILIBRIA)})")
     return LBMConfig(lat=D3Q27, collision=COLLISIONS_D3Q27[collision_id], eq=EQUILIBRIA[eq],
                      streaming=streaming, well=well, compute_dtype=_DTYPES[dtype],
-                     high_precision_rho=high_precision_rho)
+                     high_precision_rho=high_precision_rho,
+                     storage_dtype=None if storage is None else _DTYPES[storage])
 
 
 def domain_from_numpy(map_arr, periodic, global_size=None, phys_dl: float = 1.0,

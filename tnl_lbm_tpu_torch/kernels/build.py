@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` into one shared library with a plain
-C interface and loaded with ``ctypes`` - seconds per build, against minutes
-for a source that includes PyTorch's headers.  The library is built at
-first use into ``build/torch_kernels/`` under the repository root, named by
-a hash of the sources and flags, so an edited source never loads a stale
-build.  Nothing here runs at import time.
+The sources are compiled with ``nvcc`` - one process per source, all
+started together - and linked into one shared library with a plain C
+interface, loaded with ``ctypes``: seconds per build, against minutes for a
+source that includes PyTorch's headers.  The library is built at first use
+into ``build/torch_kernels/`` under the repository root, named by a hash of
+the sources and flags, so an edited source never loads a stale build.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,11 +21,11 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("aa_even.cu", "aa_odd.cu")
-HEADERS = ("lbm_site.cuh",)
+SOURCES = ("aa_even.cu", "aa_odd.cu", "aa_pair.cu", "probes.cu")
+HEADERS = ("lbm_site.cuh", "pair_window.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBRARY: dict = {}
 
@@ -56,15 +57,28 @@ def build_library() -> tuple[Path, str]:
     lib = BUILD_DIR / f"libtnl_lbm_kernels_{tag}.so"
     log = BUILD_DIR / f"libtnl_lbm_kernels_{tag}.log"
     if not lib.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            objs = [os.path.join(tmpdir, src + ".o") for src in SOURCES]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+                     for src, obj in zip(SOURCES, objs)]
+            report = []
+            for src, proc in zip(SOURCES, procs):
+                out, _ = proc.communicate()
+                report.append((src, proc.returncode, out))
+            failed = [f"{src} ({rc}):\n{out}" for src, rc, out in report if rc != 0]
+            if failed:
+                raise RuntimeError("nvcc failed for " + "\n".join(failed))
+            tmp = os.path.join(tmpdir, lib.name)
+            link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True,
+                                  text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                                   f"{link.stdout}{link.stderr}")
+            log.write_text("".join(out for _, _, out in report))
+            os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
     return lib, log.read_text() if log.exists() else ""
 
 
@@ -77,9 +91,16 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tnl_lbm_aa_even.argtypes = [p, p, p, p, i, i, i, f, f, f, f, i, p]
-    lib.tnl_lbm_aa_even.restype = i
     lib.tnl_lbm_aa_odd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, f, f, i, p]
-    lib.tnl_lbm_aa_odd.restype = i
+    lib.tnl_lbm_aa_pair.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, f, f, f, i, p]
+    lib.tnl_lbm_copy_permute.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.tnl_lbm_pair_pipeline.argtypes = [p, p, i, i, i, i, i, p]
+    lib.tnl_lbm_pair_compute_only.argtypes = [p, p, i, i, i, i, p]
+    lib.tnl_lbm_aa_pair_smem_bytes.argtypes = []
+    for fn in (lib.tnl_lbm_aa_even, lib.tnl_lbm_aa_odd, lib.tnl_lbm_aa_pair,
+               lib.tnl_lbm_copy_permute, lib.tnl_lbm_pair_pipeline,
+               lib.tnl_lbm_pair_compute_only, lib.tnl_lbm_aa_pair_smem_bytes):
+        fn.restype = i
     _LIBRARY["lib"] = lib
     return lib
 

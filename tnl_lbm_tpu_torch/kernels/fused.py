@@ -75,10 +75,11 @@ def _eq_local(lat, rho, u, kind):
     return torch.stack(rows)
 
 
-def _prep(cfg: LBMConfig, domain: Domain):
+def _prep(cfg: LBMConfig, domain: Domain, pair: bool = False):
     """Static code analysis shared by the kernels: the lattice, the GEO
-    codes present and the codes on which the collision runs."""
-    check_supported(cfg, domain)
+    codes present and the codes on which the collision runs (``pair``:
+    see ``check_supported``)."""
+    check_supported(cfg, domain, pair=pair)
     lat = cfg.lat
     if lat.D != 3:
         raise NotImplementedError("the fused kernels are for the 3D lattices")

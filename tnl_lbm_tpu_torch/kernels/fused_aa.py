@@ -1,8 +1,9 @@
-"""The A-A even/odd step: CUDA kernels on CUDA tensors, plain PyTorch on CPU tensors.
+"""The A-A steps: CUDA kernels on CUDA tensors, plain PyTorch on CPU tensors.
 
-Counterpart of ``tnl_lbm_tpu/kernels/fused_aa.py:make_fused_step_aa``
-(Pallas kernels ``even_kernel`` and ``_build_odd_call``).  The A-A pattern
-(reference d3q27/streaming_AA.h) alternates two parities on one state:
+Counterpart of ``tnl_lbm_tpu/kernels/fused_aa.py``: ``make_fused_step_aa``
+(Pallas kernels ``even_kernel`` and ``_build_odd_call``) and
+``make_fused_pair2_aa`` (the one-kernel pair).  The A-A pattern (reference
+d3q27/streaming_AA.h) alternates two parities on one state:
 
 - **even**: read same-site same-direction, collide, write the opposite
   slots of the same site.  The CUDA kernel (``csrc/aa_even.cu``) updates
@@ -11,11 +12,15 @@ Counterpart of ``tnl_lbm_tpu/kernels/fused_aa.py:make_fused_step_aa``
   to the neighbours, with edge replication at non-periodic boundaries and
   NOTHING sites keeping their DFs.  The CUDA kernel (``csrc/aa_odd.cu``)
   writes a new buffer.
+- **pair**: an even step and then an odd step in one launch
+  (``csrc/aa_pair.cu``), the intermediate kept on chip in float32, the
+  state optionally stored in float16 or bfloat16 (half storage, see
+  :class:`FusedPairAA`).  It writes a new buffer.
 
-``even_step_plain`` / ``odd_step_plain`` are the plain versions: the CPU
-path and the oracle the kernels are held against on the card.  A step on
-CUDA tensors launches its kernel or raises; it never runs the plain
-version in the kernel's place.
+``even_step_plain`` / ``odd_step_plain`` (and their composition,
+``FusedPairAA.plain``) are the plain versions: the CPU path and the oracle
+the kernels are held against on the card.  A step on CUDA tensors launches
+its kernel or raises; it never runs the plain version in the kernel's place.
 """
 
 from __future__ import annotations
@@ -37,10 +42,18 @@ from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 _MAX_GRID_YZ = 65535
 
 
+#: the pair kernel's output tile of one block (csrc/pair_window.cuh TX, TY, TZ)
+PAIR_TILE = (4, 4, 32)
+
+#: store dtype -> the ``store`` code of ``tnl_lbm_aa_pair`` and a short tag
+_STORE_CODES = {torch.float32: (0, "f32"), torch.float16: (1, "f16"),
+                torch.bfloat16: (2, "bf16")}
+
+
 @dataclasses.dataclass
 class CudaKernel:
-    """One hand-written kernel: its C entry point, where it lives, which
-    Pallas kernel it replaces, and how often a step launched it."""
+    """One hand-written kernel: its name, where it lives, which Pallas
+    kernel it replaces, and how often its wrapper launched it."""
 
     name: str
     source: str
@@ -56,6 +69,35 @@ def _force3(force) -> tuple[float, float, float]:
         raise NotImplementedError(
             "per-site force fields are not ported yet (ROADMAP A11: force_field variant)")
     return tuple(float(v) for v in arr)
+
+
+def _check_kernel_config(cfg: LBMConfig, domain: Domain, device: torch.device) -> None:
+    """Refuse, at build time, what the CUDA kernels do not implement."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but no CUDA device is available")
+    if cfg.collision is not col.collide_cum_well:
+        raise NotImplementedError("the CUDA kernels implement CUM_WELL only "
+                                  "(other collisions: ROADMAP A8)")
+    if cfg.compute_dtype != torch.float32:
+        raise NotImplementedError("the CUDA kernels compute in float32 only")
+    X, Y, _ = domain.shape
+    if X > _MAX_GRID_YZ or Y > _MAX_GRID_YZ:
+        raise ValueError(f"X and Y must be <= {_MAX_GRID_YZ} for the kernel grid")
+
+
+def _periodic_bits(periodic) -> int:
+    return sum(1 << a for a, p in enumerate(periodic) if p)
+
+
+def to_storage(f: torch.Tensor, store_dtype) -> torch.Tensor:
+    """The state in its at-rest dtype: narrowed with round-to-nearest-even,
+    or ``f`` itself when ``store_dtype`` is None or already f's dtype."""
+    return f if store_dtype is None or f.dtype == store_dtype else f.to(store_dtype)
+
+
+def from_storage(f: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """The state widened to ``compute_dtype`` (``f`` itself when it is)."""
+    return f if f.dtype == compute_dtype else f.to(compute_dtype)
 
 
 def even_step_plain(cfg: LBMConfig, codes, do_coll_codes, f, m, nu, force):
@@ -106,26 +148,14 @@ class FusedStepAA:
         self.lat, self.codes, self.do_coll_codes = _prep(cfg, domain)
         self.shape = domain.shape
         self.periodic = domain.periodic
-        self.even = CudaKernel("tnl_lbm_aa_even", "tnl_lbm_tpu_torch/csrc/aa_even.cu",
+        self.even = CudaKernel("aa_even", "tnl_lbm_tpu_torch/csrc/aa_even.cu",
                                "tnl_lbm_tpu/kernels/fused_aa.py:408")
-        self.odd = CudaKernel("tnl_lbm_aa_odd", "tnl_lbm_tpu_torch/csrc/aa_odd.cu",
+        self.odd = CudaKernel("aa_odd", "tnl_lbm_tpu_torch/csrc/aa_odd.cu",
                               "tnl_lbm_tpu/kernels/fused_aa.py:287")
         self.plain_calls = 0
         if self.device.type == "cuda":
-            self._check_kernel_config(domain)
+            _check_kernel_config(cfg, domain, self.device)
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
-
-    def _check_kernel_config(self, domain: Domain) -> None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but no CUDA device is available")
-        if self.cfg.collision is not col.collide_cum_well:
-            raise NotImplementedError("the CUDA kernels implement CUM_WELL only "
-                                      "(other collisions: ROADMAP A8)")
-        if self.cfg.compute_dtype != torch.float32:
-            raise NotImplementedError("the CUDA kernels compute in float32 only")
-        X, Y, _ = domain.shape
-        if X > _MAX_GRID_YZ or Y > _MAX_GRID_YZ:
-            raise ValueError(f"X and Y must be <= {_MAX_GRID_YZ} for the kernel grid")
 
     def reset_counts(self) -> None:
         self.even.launches = self.odd.launches = self.plain_calls = 0
@@ -173,9 +203,9 @@ class FusedStepAA:
             kernel, f_new = self.even, f
         else:
             f_new = torch.empty_like(f)
-            bits = sum(1 << a for a, p in enumerate(self.periodic) if p)
             rc = lib.tnl_lbm_aa_odd(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
-                                    rho.data_ptr(), u.data_ptr(), X, Y, Z, bits,
+                                    rho.data_ptr(), u.data_ptr(), X, Y, Z,
+                                    _periodic_bits(self.periodic),
                                     int(GEO.NOTHING in self.codes), nu, *fvec, neumaier,
                                     stream_ptr)
             kernel = self.odd
@@ -195,3 +225,125 @@ def make_fused_step_aa(cfg: LBMConfig, domain: Domain, device,
     if force_field or macro_only:
         raise NotImplementedError("force_field / macro_only are not ported yet (ROADMAP A11)")
     return FusedStepAA(cfg, domain, device)
+
+
+class FusedPairAA:
+    """``pair(f, nu, u_in=None, force=None, out=None) -> (f_new, rho, u)``.
+
+    Two A-A steps, even then odd, from an even parity.  ``f`` is the state
+    in the store dtype (``to_storage``); rho and u come from the odd step,
+    in the compute dtype (None with ``with_macro=False``).  The result goes
+    to a new tensor, or into ``out`` (a second state buffer, not ``f``),
+    so a caller can ping-pong two buffers.  ``kernel`` counts the launches
+    of this store dtype's kernel, ``plain_calls`` the CPU-path calls.
+
+    Half storage (``store_dtype`` float16 or bfloat16, FluidX3D's FP16S):
+    the state rests in 16 bits and every operation runs in float32; the
+    intermediate between the two steps is never narrowed, and NOTHING sites
+    keep their stored bits.  It needs well-conditioned (deviation) DFs.
+    """
+
+    def __init__(self, cfg: LBMConfig, domain: Domain, device, store_dtype=None,
+                 with_macro: bool = True):
+        if cfg.streaming != "AA":
+            raise ValueError("make_fused_pair2_aa needs streaming='AA'")
+        store = cfg.compute_dtype if store_dtype is None else store_dtype
+        if store != cfg.compute_dtype:
+            if store not in (torch.float16, torch.bfloat16):
+                raise ValueError(f"store_dtype must be float16/bfloat16 or the compute "
+                                 f"dtype, got {store}")
+            if not cfg.well:
+                raise ValueError("half storage needs well-conditioned (deviation) DFs: set "
+                                 "cfg.well=True so the 16-bit mantissa applies to the small "
+                                 "signal, not the O(w_q) rest-state carrier")
+        self.cfg = cfg
+        self.store_dtype = store
+        self.with_macro = with_macro
+        self.device = torch.device(device)
+        self.lat, self.codes, self.do_coll_codes = _prep(cfg, domain, pair=True)
+        self.shape = domain.shape
+        self.periodic = domain.periodic
+        self._store_code, tag = _STORE_CODES.get(store, (None, str(store)))
+        self.kernel = CudaKernel(f"aa_pair_{tag}", "tnl_lbm_tpu_torch/csrc/aa_pair.cu",
+                                 "tnl_lbm_tpu/kernels/fused_aa.py:1115")
+        self.plain_calls = 0
+        if self.device.type == "cuda":
+            _check_kernel_config(cfg, domain, self.device)
+        self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
+
+    def reset_counts(self) -> None:
+        self.kernel.launches = self.plain_calls = 0
+
+    def __call__(self, f, nu, u_in=None, force=None, out=None, bflags=None):
+        if bflags is not None:
+            raise NotImplementedError("per-shard boundary flags are not ported yet "
+                                      "(ROADMAP A13)")
+        if u_in is not None and np.ndim(u_in) > 1:
+            raise NotImplementedError("per-site inflow profiles are not ported yet (ROADMAP A8)")
+        if out is not None and (out is f or out.shape != f.shape or out.dtype != f.dtype
+                                or out.device != f.device or not out.is_contiguous()):
+            raise ValueError("out must be a second contiguous state buffer like f")
+        if f.dtype != self.store_dtype:
+            raise ValueError(f"f is {f.dtype}, the pair stores {self.store_dtype}")
+        if f.device.type == "cuda":
+            return self._launch(f, float(nu), _force3(force), out)
+        self.plain_calls += 1
+        f_new, rho, u = self.plain(f, nu, force=force)
+        if out is not None:
+            f_new = out.copy_(f_new)
+        return f_new, rho, u
+
+    def plain(self, f, nu, force=None):
+        """The pair's plain PyTorch version on f's device: the odd step of
+        the even step of the widened state, narrowed (f untouched, no call
+        counted)."""
+        fvec = _force3(force)
+        m = self.map.to(f.device)
+        fw = from_storage(f, self.cfg.compute_dtype)
+        ev, _, _ = even_step_plain(self.cfg, self.codes, self.do_coll_codes, fw, m, nu, fvec)
+        f_new, rho, u = odd_step_plain(self.cfg, self.codes, self.do_coll_codes, self.periodic,
+                                       ev, m, nu, fvec)
+        f_new = to_storage(f_new, self.store_dtype)
+        return (f_new, rho, u) if self.with_macro else (f_new, None, None)
+
+    def _launch(self, f, nu, fvec, out):
+        if self.device.type != "cuda" or f.device != self.map.device:
+            raise ValueError(f"f is on {f.device}, the pair was built for {self.device}")
+        X, Y, Z = self.shape
+        if tuple(f.shape) != (self.lat.Q, X, Y, Z) or not f.is_contiguous():
+            raise ValueError(f"f must be a contiguous [{self.lat.Q}, {X}, {Y}, {Z}] tensor, "
+                             f"got {tuple(f.shape)}")
+        lib = load_library()
+        f_new = torch.empty_like(f) if out is None else out
+        rho = u = None
+        if self.with_macro:
+            rho = torch.empty((X, Y, Z), dtype=self.cfg.compute_dtype, device=f.device)
+            u = torch.empty((3, X, Y, Z), dtype=self.cfg.compute_dtype, device=f.device)
+        stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
+        rc = lib.tnl_lbm_aa_pair(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
+                                 rho.data_ptr() if rho is not None else None,
+                                 u.data_ptr() if u is not None else None, X, Y, Z,
+                                 _periodic_bits(self.periodic), int(GEO.NOTHING in self.codes),
+                                 int(self.with_macro), self._store_code, nu, *fvec,
+                                 int(self.cfg.high_precision_rho), stream_ptr)
+        if rc != 0:
+            raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
+        self.kernel.launches += 1
+        return f_new, rho, u
+
+
+def make_fused_pair2_aa(cfg: LBMConfig, domain: Domain, device, store_dtype=None,
+                        with_macro: bool = True, *, local_shape=None, prepadded: bool = False,
+                        z_halo: int = 0) -> FusedPairAA:
+    """One-kernel A-A pair for (cfg, domain) on ``device``: see :class:`FusedPairAA`.
+
+    The JAX function's TPU knobs (``tile``, ``tiles_per_program``, ``window``,
+    ``map_mode``, ``zprofile``, ``even_band``, ``vmem_limit_mb``,
+    ``_debug_dma``) shape its padded VMEM pipeline and have no counterpart
+    here; its sharded knobs (``local_shape``, ``prepadded``, ``z_halo`` and
+    the call's ``bflags``) are not ported yet (ROADMAP A13).
+    """
+    if local_shape is not None or prepadded or z_halo:
+        raise NotImplementedError("the sharded pair (local_shape, prepadded, z_halo) is not "
+                                  "ported yet (ROADMAP A13)")
+    return FusedPairAA(cfg, domain, device, store_dtype=store_dtype, with_macro=with_macro)

@@ -30,8 +30,10 @@ class LBMConfig:
       forcing_hook: per-step forcing hook (not ported yet: refused by the steps).
       high_precision_rho: Neumaier-compensated density sum
         (reference USE_HIGH_PRECISION_RHO, d3q27/common.h:19-28).
-      storage_dtype: 16-bit at-rest DF storage of the pair kernel (not ported
-        yet: refused by the steps).  Requires well=True.
+      storage_dtype: 16-bit at-rest DF storage (torch.float16 or
+        torch.bfloat16; None stores in compute_dtype).  Only the one-kernel
+        A-A pair takes it, so it forces pair dispatch in ``Simulation``; the
+        per-step steps refuse it.  Requires well=True.
     """
 
     lat: LatticeDescriptor

@@ -11,10 +11,15 @@ Counterpart of the main-path subset of ``tnl_lbm_tpu/sim/state.py``
   the ``flag.*`` files (reference state.hpp:12-66);
 - GLUPS reporting, the NaN guard on density, the walltime limit.
 
-Steps are dispatched one at a time: the A-A even/odd CUDA kernels
-(``kernels/fused_aa.py``) with ``use_fused=True``, else the plain PyTorch
-step (``sim/step.py``).  Everything runs on the ``device`` given; asking
-for a CUDA device without one raises.
+Dispatch (``_advance``): with ``use_fused=True`` and A-A streaming, pairs
+of steps go through the one-kernel A-A pair (``make_fused_pair2_aa``) when
+pair dispatch is on, and single steps - a leftover odd step, or every step
+when pair dispatch is off - through the even/odd kernels
+(``make_fused_step_aa``); without ``use_fused`` every step is the plain
+PyTorch step (``sim/step.py``).  ``pair_dispatch="auto"`` times both
+dispatches on a CUDA device and keeps the faster; half storage
+(``cfg.storage_dtype``) forces pair dispatch.  Everything runs on the
+``device`` given; asking for a CUDA device without one raises.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tnl_lbm_tpu_torch.kernels.fused import supports
 from tnl_lbm_tpu_torch.ops import moments as mom
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig, initial_dfs
 from tnl_lbm_tpu_torch.sim.step import make_step
@@ -38,6 +44,20 @@ PROBE1 = "probe1"
 PROBE2 = "probe2"
 PROBE3 = "probe3"
 ALL_COUNTERS = (PRINT, PROBE1, PROBE2, PROBE3)
+
+
+def needs_per_step_state(fn):
+    """Mark a ``compute_before_step``/``compute_after_step`` override as
+    reading the per-step lattice state (``self.f``).
+
+    Under pair dispatch the state lives in the pair loop's own buffers for
+    a whole dispatch chunk and ``self.f`` is refreshed only after it, so a
+    hook reading ``self.f`` would not see the current state.  A marked hook
+    turns pair dispatch off (``_pair_dispatch_capable``).  Hooks that read
+    only ``self.rho``/``self.u`` (fresh after every pair) need no marker.
+    """
+    fn.needs_per_step_state = True
+    return fn
 
 
 def resolve_device(device) -> torch.device:
@@ -91,9 +111,11 @@ class Simulation:
         self.phys_final_time = phys_final_time
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
         self.use_fused = use_fused
-        #: the one-kernel A-A pair is not ported yet: "auto" resolves to
-        #: per-step dispatch, True raises (see _resolve_pair_dispatch)
+        #: True, False or "auto"; resolved to a bool at sim_init
+        #: (_resolve_pair_dispatch)
         self.pair_dispatch = pair_dispatch
+        #: (pair ms, per-step ms) of the "auto" probe, when it ran
+        self.pair_probe_ms = None
 
         self.cnt = {name: Counter() for name in ALL_COUNTERS}
         self.iterations = 0
@@ -121,6 +143,7 @@ class Simulation:
         self.log = get_logger("main")
         self.prof = get_logger("profile")
         self._step = None
+        self._pair = None
 
     # ------------------------------------------------------------------ hooks
     def update_inflow(self, phys_time: float):
@@ -162,8 +185,12 @@ class Simulation:
         return True
 
     def _build_step(self):
+        """The single-step dispatch.  It runs on the full-width state, so it
+        is built without ``storage_dtype`` (the pair loop widens the state
+        at the end of each chunk)."""
+        cfg = dataclasses.replace(self.cfg, storage_dtype=None)
         if not self.use_fused:
-            self._step = make_step(self.cfg, self.domain)
+            self._step = make_step(cfg, self.domain)
             return
         if self.cfg.streaming != "AA":
             raise NotImplementedError(
@@ -171,16 +198,99 @@ class Simulation:
                 "or use_fused=False")
         from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_step_aa
 
-        self._step = make_fused_step_aa(self.cfg, self.domain, self.device)
+        self._step = make_fused_step_aa(cfg, self.domain, self.device)
+
+    def _build_pair(self):
+        from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair2_aa
+
+        if self._pair is None:
+            self._pair = make_fused_pair2_aa(self.cfg, self.domain, self.device,
+                                             store_dtype=self.cfg.storage_dtype)
+        return self._pair
+
+    def _pair_dispatch_capable(self) -> bool:
+        """Static eligibility for the one-kernel A-A pair."""
+        return (self.use_fused
+                and self.cfg.streaming == "AA"
+                and self.cfg.forcing_hook is None
+                and self.cfg.lat.D == 3
+                and not self._hooks_need_per_step_state()
+                and supports(self.domain, self.cfg.streaming))
+
+    def _hooks_need_per_step_state(self) -> bool:
+        """True if a step hook is marked @needs_per_step_state."""
+        if getattr(self, "needs_per_step_state", False):
+            return True
+        return any(getattr(getattr(self, name), "needs_per_step_state", False)
+                   for name in ("compute_before_step", "compute_after_step"))
+
+    def _pair_dispatch_ok(self) -> bool:
+        """Pair dispatch is on: resolved at sim_init, which builds the pair
+        kernel exactly then.  O(1) - it runs once per dispatch chunk, and
+        ``_pair_dispatch_capable`` scans the whole geometry map."""
+        return self.pair_dispatch is True and self._pair is not None
 
     def _resolve_pair_dispatch(self):
-        if self.pair_dispatch is True:
-            raise NotImplementedError(
-                "pair dispatch needs the one-kernel A-A pair (B1), not ported yet")
-        if self.pair_dispatch == "auto":
-            self.log.info("pair dispatch: the one-kernel A-A pair (B1) is not ported "
-                          "yet - using per-step dispatch")
-        self.pair_dispatch = False
+        """Resolve ``pair_dispatch`` to a bool.  Half storage forces it on;
+        "auto" measures both dispatches on a CUDA device and keeps the
+        faster, and is per-step on the CPU (the plain versions are no
+        production path).  A pair kernel that fails to build or launch
+        raises: there is no fallback."""
+        if self.cfg.storage_dtype is not None:
+            # half storage exists only on the pair path; falling back to the
+            # full-width per-step kernels would ignore the precision request
+            if self.pair_dispatch is False or not self._pair_dispatch_capable():
+                raise ValueError(
+                    "cfg.storage_dtype (half storage) requires the one-kernel A-A pair "
+                    "path: use_fused=True, streaming='AA', no forcing hook or "
+                    "per-step-state hooks, pair_dispatch not False")
+            self.pair_dispatch = True
+        elif self.pair_dispatch != "auto":
+            self.pair_dispatch = bool(self.pair_dispatch)
+        elif not self._pair_dispatch_capable() or self.device.type != "cuda":
+            self.pair_dispatch = False
+        else:
+            t_pair, t_steps = self._probe_pair_dispatch()
+            self.pair_probe_ms = (t_pair * 1e3, t_steps * 1e3)
+            self.pair_dispatch = t_pair < t_steps
+            self.log.info("pair-dispatch auto-probe: pair %.3f ms/pair vs per-step "
+                          "%.3f ms/pair -> %s", t_pair * 1e3, t_steps * 1e3,
+                          "pair dispatch" if self.pair_dispatch else "per-step dispatch")
+        if self.pair_dispatch is True and self._pair_dispatch_capable():
+            self._build_pair()
+
+    def _probe_pair_dispatch(self, repeats: int = 5) -> tuple[float, float]:
+        """Best-of-``repeats`` wall time in seconds of one A-A pair through
+        (a) the pair kernel and (b) an even and an odd launch, each on a
+        copy of the state; leaves ``self.f`` untouched."""
+        from tnl_lbm_tpu_torch.kernels.fused_aa import to_storage
+
+        nu = self.domain.units.lbm_viscosity()
+        pair = self._build_pair()
+        fs = to_storage(self.f, self.cfg.storage_dtype)
+        out = torch.empty_like(fs)
+        work = torch.empty_like(self.f)
+
+        def time_pair():
+            synchronize(self.device)
+            t0 = time.perf_counter()
+            pair(fs, nu, out=out)
+            synchronize(self.device)
+            return time.perf_counter() - t0
+
+        def time_steps():
+            work.copy_(self.f)
+            synchronize(self.device)
+            t0 = time.perf_counter()
+            f1, _, _ = self._step(work, nu, parity=0)
+            self._step(f1, nu, parity=1)
+            synchronize(self.device)
+            return time.perf_counter() - t0
+
+        time_pair(), time_steps()  # warm up (first launch loads the library)
+        t_pair = min(time_pair() for _ in range(repeats))
+        t_steps = min(time_steps() for _ in range(repeats))
+        return t_pair, t_steps
 
     def sim_init(self):
         if self.flags.exists("loadstate"):
@@ -199,10 +309,41 @@ class Simulation:
         self.rho, self.u = mom.density_velocity(self.cfg.lat, self.f, well=self.cfg.well,
                                                 high_precision=self.cfg.high_precision_rho)
 
+    def _advance_pairs(self, n_pairs: int, nu: float):
+        """Advance 2 * n_pairs steps through the one-kernel A-A pair.
+
+        The pair loop owns the state: it ping-pongs two buffers in the store
+        dtype (the first is ``self.f`` itself when nothing is narrowed), so
+        the state takes two buffers, as on the per-step path.  ``self.f``
+        is None during the loop and is refreshed, widened to the compute
+        dtype, after it; ``self.rho``/``self.u`` are fresh after every pair.
+        Hooks run once per pair; a hook that reads ``self.f`` must be
+        marked @needs_per_step_state, which turns pair dispatch off.
+        """
+        from tnl_lbm_tpu_torch.kernels.fused_aa import from_storage, to_storage
+
+        fs = to_storage(self.f, self.cfg.storage_dtype)
+        self.f = None
+        spare = torch.empty_like(fs)
+        for _ in range(n_pairs):
+            u_in = self.update_inflow(self.phys_time())
+            force = self.body_force(self.phys_time())
+            self.compute_before_step()
+            f_new, self.rho, self.u = self._pair(fs, nu, u_in=u_in, force=force, out=spare)
+            fs, spare = f_new, fs
+            self.iterations += 2
+            self.compute_after_step()
+        self.f = from_storage(fs, self.cfg.compute_dtype)
+
     def _advance(self, n_steps: int):
-        """Run n_steps lattice updates, one dispatch per step."""
+        """Run n_steps lattice updates: pairs through the pair kernel when
+        pair dispatch is on and the parity is even, the rest one step per
+        dispatch."""
         nu = self.domain.units.lbm_viscosity()
         t0 = time.perf_counter()
+        if n_steps >= 2 and self.iterations % 2 == 0 and self._pair_dispatch_ok():
+            n_pairs, n_steps = divmod(n_steps, 2)
+            self._advance_pairs(n_pairs, nu)
         for _ in range(n_steps):
             u_in = self.update_inflow(self.phys_time())
             force = self.body_force(self.phys_time())
@@ -237,7 +378,9 @@ class Simulation:
     def estimate_memory_demands(self) -> dict:
         """Device-memory preflight (reference state.hpp:819-877): refuse to
         start when the state cannot fit.  Two DF buffers: the odd A-A
-        kernel and the plain steps write a new state next to the old one."""
+        kernel, the pair kernel and the plain steps write a new state next
+        to the old one (with half storage the two pair buffers are narrow,
+        so this overestimates)."""
         sites = self.domain.units.num_sites
         itemsize = torch.empty((), dtype=self.cfg.compute_dtype).element_size()
         bytes_dfs = 2 * self.cfg.lat.Q * sites * itemsize

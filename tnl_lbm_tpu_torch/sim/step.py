@@ -28,8 +28,12 @@ from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 SUPPORTED_CODES = {GEO.FLUID, GEO.WALL, GEO.NOTHING}
 
 
-def check_supported(cfg: LBMConfig, domain: Domain) -> None:
-    """Raise NotImplementedError for what the port does not handle yet."""
+def check_supported(cfg: LBMConfig, domain: Domain, pair: bool = False) -> None:
+    """Raise NotImplementedError for what the port does not handle yet.
+
+    ``pair=True`` is the check of the one-kernel A-A pair, the only step
+    that takes ``cfg.storage_dtype`` (half storage).
+    """
     unsupported = domain.codes_present() - SUPPORTED_CODES
     if unsupported:
         names = ", ".join(sorted(c.name for c in unsupported))
@@ -39,9 +43,10 @@ def check_supported(cfg: LBMConfig, domain: Domain) -> None:
         raise NotImplementedError("Bouzidi curved walls are not ported yet (ROADMAP A9)")
     if cfg.forcing_hook is not None:
         raise NotImplementedError("forcing hooks are not ported yet (ROADMAP A11)")
-    if cfg.storage_dtype is not None:
+    if cfg.storage_dtype is not None and not pair:
         raise NotImplementedError(
-            "half storage lives on the pair kernel, which is not ported yet (ROADMAP B1)")
+            "cfg.storage_dtype (half storage) needs pair dispatch: the one-kernel A-A "
+            "pair (make_fused_pair2_aa) is the only step that stores the state narrow")
 
 
 def as_vector(lat, arr, dtype, device) -> torch.Tensor:
