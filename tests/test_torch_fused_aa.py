@@ -102,6 +102,10 @@ def test_supports_reports_the_ported_codes():
     assert supports(interop.domain_from_numpy(m, periodic), "AA")
     m[2, 2, 2] = GEO.INFLOW_LEFT
     assert not supports(interop.domain_from_numpy(m, periodic), "AA")
+    # the A-B kernel takes the full 3D set
+    assert supports(interop.domain_from_numpy(m, periodic), "AB")
+    m[3, 3, 3] = GEO.FLUID_NEAR_WALL  # Bouzidi: ROADMAP A9
+    assert not supports(interop.domain_from_numpy(m, periodic), "AB")
 
 
 def test_cuda_step_without_card_raises():

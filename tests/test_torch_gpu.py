@@ -13,6 +13,7 @@ import torch
 
 from tnl_lbm_tpu_torch import interop
 from tnl_lbm_tpu_torch.kernels import probes
+from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
 from tnl_lbm_tpu_torch.kernels.fused_aa import (
     from_storage,
     make_fused_pair2_aa,
@@ -172,3 +173,131 @@ def test_pair_probes_match_plain_on_card(cuda, passes):
     tile = probes.pair_compute_only(f, passes)
     assert tile.shape == (27,) + probes.first_block((20, 36, 40))
     assert torch.equal(tile, probes.pair_compute_only_plain(f, passes))
+
+
+# ------------------------------------------------------------- A-B step (B4)
+
+def bc_box(shape):
+    """A closed box holding every GEO code of the 3D set: inflows (moment
+    and equilibrium) on x = 0, the three outflows on x = X-1, symmetry
+    planes on the y and z faces and on patches of x = 1 and x = X-2, a
+    PERIODIC-coded block, walls and NOTHING sites inside (chip_smoke.py
+    bc_box)."""
+    X, Y, Z = shape
+    m = np.zeros(shape, np.uint8)
+    m[1:-1, 0], m[1:-1, -1] = GEO.SYM_BACK, GEO.SYM_FRONT
+    m[1:-1, 1:-1, 0], m[1:-1, 1:-1, -1] = GEO.SYM_BOTTOM, GEO.SYM_TOP
+    m[0, : Y // 2], m[0, Y // 2 :] = GEO.INFLOW_LEFT, GEO.INFLOW
+    m[-1, : Y // 3], m[-1, Y // 3 : 2 * Y // 3] = GEO.OUTFLOW_EQ, GEO.OUTFLOW_RIGHT
+    m[-1, 2 * Y // 3 :] = GEO.OUTFLOW_RIGHT_INTERP
+    m[1, 1 : Y // 2, 1:-1], m[-2, Y // 2 : -1, 1:-1] = GEO.SYM_LEFT, GEO.SYM_RIGHT
+    m[X // 2 - 1 : X // 2 + 1, 2:4, 1:-1] = GEO.PERIODIC
+    m[X // 2, Y // 2 : Y // 2 + 2, Z // 3 : Z // 2] = GEO.WALL
+    m[X // 2 + 1, -3, 1:3] = GEO.NOTHING
+    return m
+
+
+def channel(kind, shape=None):
+    """(map, periodic) of the A-B geometries: the channels of the JAX
+    kernel suite (tests/test_fused_kernel.py:101, :147, :392), a box of the
+    six symmetry planes, a box with PERIODIC-coded sites, and ``bc_box``."""
+    if kind == "inflow_outflow":  # moment inflow, OUTFLOW_RIGHT (sim_1's pair)
+        m = np.zeros(shape or (8, 8, 8), np.uint8)
+        m[:, 0] = m[:, -1] = GEO.WALL
+        m[:, :, 0] = m[:, :, -1] = GEO.WALL
+        m[0, 1:-1, 1:-1], m[-1, 1:-1, 1:-1] = GEO.INFLOW_LEFT, GEO.OUTFLOW_RIGHT
+        return m, (False, False, False)
+    if kind == "interp_outflow":  # moment inflow, interpolated outflow (A-B only)
+        m = np.zeros(shape or (16, 8, 8), np.uint8)
+        m[:, 0] = m[:, -1] = GEO.WALL
+        m[:, :, 0] = m[:, :, -1] = GEO.WALL
+        m[0, 1:-1, 1:-1], m[-1, 1:-1, 1:-1] = GEO.INFLOW_LEFT, GEO.OUTFLOW_RIGHT_INTERP
+        return m, (False, False, False)
+    if kind == "eq_inflow":  # equilibrium inflow, OUTFLOW_EQ, periodic z
+        m = np.zeros(shape or (8, 8, 8), np.uint8)
+        m[:, 0] = m[:, -1] = GEO.WALL
+        m[0, 1:-1, :], m[-1, 1:-1, :] = GEO.INFLOW, GEO.OUTFLOW_EQ
+        return m, (False, False, True)
+    if kind == "sym":
+        m = np.zeros(shape or (8, 16, 8), np.uint8)
+        m[0], m[-1] = GEO.SYM_LEFT, GEO.SYM_RIGHT
+        m[1:-1, 0], m[1:-1, -1] = GEO.SYM_BACK, GEO.SYM_FRONT
+        m[1:-1, 1:-1, 0], m[1:-1, 1:-1, -1] = GEO.SYM_BOTTOM, GEO.SYM_TOP
+        return m, (False, False, False)
+    if kind == "periodic_code":
+        m = np.zeros(shape or (8, 16, 8), np.uint8)
+        m[:, 0] = m[:, -1] = GEO.WALL
+        m[2:6, 3:12] = GEO.PERIODIC
+        return m, (True, False, True)
+    assert kind == "box", kind
+    return bc_box(shape or (8, 16, 8)), (False, False, True)
+
+
+AB_KINDS = ("inflow_outflow", "interp_outflow", "eq_inflow", "sym", "periodic_code", "box")
+AB_SPECS = {"CUM_WELL": ("CUM_WELL", "EQ_WELL", True), "CUM": ("CUM", "EQ", False),
+            "CUM_INV_CUM": ("CUM", "EQ_INV_CUM", False)}
+U_IN = (0.03, 0.005, -0.004)
+
+
+@pytest.mark.parametrize("spec", sorted(AB_SPECS))
+@pytest.mark.parametrize("kind", AB_KINDS + ("box_z150",))
+def test_ab_kernel_matches_plain_on_card(cuda, kind, spec):
+    """Two A-B steps from a seeded state, each against the plain version
+    on the same input; ``box_z150`` has a Z that the block's 128 z sites
+    do not divide."""
+    m, periodic = channel("box", (24, 20, 150)) if kind == "box_z150" else channel(kind)
+    cfg = interop.config_from_spec(*AB_SPECS[spec], "AB")
+    step = make_fused_step(cfg, interop.domain_from_numpy(m, periodic), cuda)
+    f = seeded_state(cfg, m.shape, cuda, seed=11)
+    for it in range(2):
+        fk, rk, uk = step(f, 0.02, u_in=U_IN, force=(1e-5, 0.0, 0.0))
+        fp, rp, up = step.plain(f, 0.02, u_in=U_IN, force=(1e-5, 0.0, 0.0))
+        torch.cuda.synchronize()
+        assert float((fk - fp).abs().max()) <= 1e-6, f"f, step {it}"
+        assert float((rk - rp).abs().max()) <= 2e-6, f"rho, step {it}"
+        assert float((uk - up).abs().max()) <= 1e-6, f"u, step {it}"
+        f = fk
+    assert step.kernel.launches == 2 and step.plain_calls == 0
+
+
+@pytest.mark.parametrize("app", ["sim_1", "sim_2", "sim_3"])
+def test_ab_kernel_matches_plain_on_the_apps(cuda, app, tmp_path):
+    """One A-B step of each app at resolution 2 (sim_2 with A-B streaming)."""
+    import importlib
+
+    mod = importlib.import_module(f"tnl_lbm_tpu_torch.apps.{app}")
+    kw = {"streaming": "AB", "use_fused": True} if app == "sim_2" else {}
+    sim = mod.build(2, device=cuda, results_parent=tmp_path, **kw)
+    step = make_fused_step(sim.cfg, sim.domain, cuda)
+    f = seeded_state(sim.cfg, sim.domain.shape, cuda, seed=11)
+    u_in = sim.update_inflow(0.0)
+    fk, rk, uk = step(f, 0.02, u_in=u_in, force=(1e-5, 0.0, 0.0))
+    fp, rp, up = step.plain(f, 0.02, u_in=u_in, force=(1e-5, 0.0, 0.0))
+    torch.cuda.synchronize()
+    assert float((fk - fp).abs().max()) <= 1e-6
+    assert float((rk - rp).abs().max()) <= 2e-6
+    assert float((uk - up).abs().max()) <= 1e-6
+
+
+def test_ab_kernel_writes_into_out_and_rejects_bad_input(cuda):
+    m, periodic = channel("box")
+    cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AB")
+    step = make_fused_step(cfg, interop.domain_from_numpy(m, periodic), cuda)
+    f = seeded_state(cfg, m.shape, cuda)
+    out = torch.empty_like(f)
+    assert step(f, 0.02, u_in=U_IN, out=out)[0] is out
+    with pytest.raises(ValueError):
+        step(f, 0.02, out=f)
+    with pytest.raises(ValueError):
+        step(f, 0.02, u_in=torch.tensor(U_IN, device=cuda))  # no device round trip per step
+    with pytest.raises(ValueError):
+        step(torch.zeros((27, 8, 16, 9), device=cuda), 0.02)
+    with pytest.raises(NotImplementedError):
+        step(f.double(), 0.02)
+    with pytest.raises(NotImplementedError):
+        step(f, 0.02, u_in=torch.zeros((3,) + m.shape))
+    for spec in (("CUM_WELL", "EQ_WELL", False), ("CUM", "EQ_WELL", False)):
+        with pytest.raises(NotImplementedError):
+            make_fused_step(interop.config_from_spec(*spec, "AB"),
+                            interop.domain_from_numpy(m, periodic), cuda)
+    assert step.kernel.launches == 1

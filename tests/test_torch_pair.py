@@ -284,6 +284,24 @@ def test_hooks_run_once_per_pair(tmp_path):
     assert paired.f is not None and paired.f.dtype == torch.float32
 
 
+def test_pair_loop_ping_pongs_the_persistent_spare(tmp_path):
+    """A float32 pair loop keeps the state in ``f`` and the spare buffer made
+    at sim_init across chunks, allocating none; a 16-bit state keeps no
+    float32 spare."""
+    sim = make_sim(tmp_path, True, tag="f32")
+    sim.sim_init()
+    buffers = {sim.f.data_ptr(), sim._spare.data_ptr()}
+    seen = set()
+    for n in (2, 4, 2):
+        sim._advance(n)
+        assert {sim.f.data_ptr(), sim._spare.data_ptr()} == buffers
+        seen.add(sim.f.data_ptr())
+    assert seen == buffers and sim.iterations == 8 and sim._pair.plain_calls == 4
+    half = make_sim(tmp_path, True, storage="float16", tag="f16")
+    half.sim_init()
+    assert half._spare is None
+
+
 def test_needs_per_step_state_turns_pair_dispatch_off(tmp_path):
     class ReadsF(Duct):
         @needs_per_step_state

@@ -55,9 +55,27 @@ def test_duct_profiles_match_jax():
 
 
 def test_fused_ab_is_not_ported(tmp_path):
-    sim = sim_2.build(1, device="cpu", streaming="AB", use_fused=True, results_parent=tmp_path)
-    with pytest.raises(NotImplementedError, match="B4"):
+    """What of the A-B step (B4) is still not ported refuses in a run: a
+    per-site inflow profile (ROADMAP A6/A8) raises at the first step."""
+    sim = sim_2.build(1, device="cpu", streaming="AB", use_fused=True, final_time=0.05,
+                      results_parent=tmp_path)
+    sim.update_inflow = lambda phys_time: np.zeros((3,) + sim.domain.shape, np.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6/A8"):
         sim.run()
+    assert sim.iterations == 0
+
+
+def test_fused_ab_runs_b4_plain_on_cpu(tmp_path):
+    """A-B with the kernels runs the A-B step (B4): on CPU tensors its plain
+    version, every step, and the result equals the JAX A-B sim_2's."""
+    port = sim_2.build(1, device="cpu", streaming="AB", use_fused=True, final_time=0.05,
+                       results_parent=tmp_path / "port")
+    ref = jsim_2.build(1, streaming="AB", final_time=0.05, results_parent=tmp_path / "jax")
+    assert port.run() and ref.run()
+    assert port.iterations == ref.iterations > 0
+    assert port._step.plain_calls == port.iterations and port._step.kernel.launches == 0
+    assert np.abs(port.u.numpy() - np.asarray(ref.u)).max() < 1e-6
+    assert np.abs(port.rho.numpy() - np.asarray(ref.rho)).max() < 2e-6
 
 
 def test_cli_runs_on_the_device_given(tmp_path, capsys):

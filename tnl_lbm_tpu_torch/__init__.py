@@ -9,10 +9,11 @@ its function names, on torch tensors:
 - every entry point takes an explicit ``device``; asking for ``cuda``
   without a card raises, nothing moves to the CPU by itself;
 - the A-A kernels (even, odd, and the one-kernel pair with optional
-  16-bit storage) and the bandwidth probes are hand-written CUDA C++ for
-  Hopper (``csrc/``); their plain PyTorch versions sit beside them in
-  ``kernels/fused_aa.py`` and ``kernels/probes.py`` and serve CPU tensors
-  and the tests.
+  16-bit storage), the A-B step with the full 3D boundary set and the
+  bandwidth probes are hand-written CUDA C++ for Hopper (``csrc/``); their
+  plain PyTorch versions sit beside them in ``kernels/fused_aa.py``,
+  ``kernels/fused.py`` and ``kernels/probes.py`` and serve CPU tensors and
+  the tests.
 
 This package never imports jax.
 """

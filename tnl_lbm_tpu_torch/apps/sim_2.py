@@ -211,7 +211,8 @@ def main(argv=None) -> Sim2:
     p.add_argument("--results-dir", default=".")
     p.add_argument("--streaming", choices=["AB", "AA"], default="AB")
     p.add_argument("--use-fused", action="store_true",
-                   help="run the CUDA A-A kernels, per step or in pairs (needs --streaming AA)")
+                   help="run the CUDA kernels: the A-B step, or the A-A kernels per step "
+                        "or in pairs")
     p.add_argument("--pair-dispatch", choices=["auto", "on", "off"], default="auto")
     p.add_argument("--storage", choices=["full", "f16", "bf16"], default="full",
                    help="16-bit at-rest DF storage on the A-A pair path (FP16S; implies "

@@ -24,8 +24,10 @@ def config_from_spec(collision_id: str, eq: str, well: bool, streaming: str,
                      dtype: str = "float32", high_precision_rho: bool = False,
                      storage: str | None = None) -> LBMConfig:
     """LBMConfig from the ids of ``COLLISIONS_D3Q27`` / ``EQUILIBRIA``
-    (the JAX package's registries, ops/collision.py:806, ops/equilibrium.py:110);
-    ``storage`` "float16"/"bfloat16" sets the half-storage ``storage_dtype``."""
+    (the JAX package's registries, ops/collision.py:806, ops/equilibrium.py:110):
+    for example ``CUM`` with ``EQ`` or ``EQ_INV_CUM`` (well=False), or
+    ``CUM_WELL`` with ``EQ_WELL`` (well=True); ``storage`` "float16"/"bfloat16"
+    sets the half-storage ``storage_dtype``."""
     if collision_id not in COLLISIONS_D3Q27:
         raise NotImplementedError(f"collision {collision_id!r} is not ported yet "
                                   f"(ported: {sorted(COLLISIONS_D3Q27)})")

@@ -26,21 +26,22 @@ its kernel or raises; it never runs the plain version in the kernel's place.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 
 import numpy as np
 import torch
 
 from tnl_lbm_tpu_torch.kernels.build import load_library
-from tnl_lbm_tpu_torch.kernels.fused import _prep, _stream_bc_collide
-from tnl_lbm_tpu_torch.ops import collision as col
+from tnl_lbm_tpu_torch.kernels.fused import (
+    CudaKernel,
+    _check_kernel_config,
+    _force3,
+    _periodic_bits,
+    _prep,
+    _stream_bc_collide,
+)
 from tnl_lbm_tpu_torch.ops import streaming as stream
 from tnl_lbm_tpu_torch.ops.boundary import GEO
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
-
-#: CUDA grid limit on the y and z block indices, which carry Y and X
-_MAX_GRID_YZ = 65535
-
 
 #: the pair kernel's output tile of one block (csrc/pair_window.cuh TX, TY, TZ)
 PAIR_TILE = (4, 4, 32)
@@ -48,45 +49,6 @@ PAIR_TILE = (4, 4, 32)
 #: store dtype -> the ``store`` code of ``tnl_lbm_aa_pair`` and a short tag
 _STORE_CODES = {torch.float32: (0, "f32"), torch.float16: (1, "f16"),
                 torch.bfloat16: (2, "bf16")}
-
-
-@dataclasses.dataclass
-class CudaKernel:
-    """One hand-written kernel: its name, where it lives, which Pallas
-    kernel it replaces, and how often its wrapper launched it."""
-
-    name: str
-    source: str
-    replaces: str
-    launches: int = 0
-
-
-def _force3(force) -> tuple[float, float, float]:
-    if force is None:
-        return (0.0, 0.0, 0.0)
-    arr = force.detach().cpu().numpy() if torch.is_tensor(force) else np.asarray(force)
-    if arr.shape != (3,):
-        raise NotImplementedError(
-            "per-site force fields are not ported yet (ROADMAP A11: force_field variant)")
-    return tuple(float(v) for v in arr)
-
-
-def _check_kernel_config(cfg: LBMConfig, domain: Domain, device: torch.device) -> None:
-    """Refuse, at build time, what the CUDA kernels do not implement."""
-    if not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but no CUDA device is available")
-    if cfg.collision is not col.collide_cum_well:
-        raise NotImplementedError("the CUDA kernels implement CUM_WELL only "
-                                  "(other collisions: ROADMAP A8)")
-    if cfg.compute_dtype != torch.float32:
-        raise NotImplementedError("the CUDA kernels compute in float32 only")
-    X, Y, _ = domain.shape
-    if X > _MAX_GRID_YZ or Y > _MAX_GRID_YZ:
-        raise ValueError(f"X and Y must be <= {_MAX_GRID_YZ} for the kernel grid")
-
-
-def _periodic_bits(periodic) -> int:
-    return sum(1 << a for a, p in enumerate(periodic) if p)
 
 
 def to_storage(f: torch.Tensor, store_dtype) -> torch.Tensor:

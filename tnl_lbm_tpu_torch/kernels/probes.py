@@ -22,7 +22,8 @@ import ctypes
 import torch
 
 from tnl_lbm_tpu_torch.kernels.build import load_library
-from tnl_lbm_tpu_torch.kernels.fused_aa import PAIR_TILE, CudaKernel, _periodic_bits
+from tnl_lbm_tpu_torch.kernels.fused import CudaKernel, _periodic_bits
+from tnl_lbm_tpu_torch.kernels.fused_aa import PAIR_TILE
 
 Q = 27
 #: the bench duct's periodic axes (x only), for the P2a halo

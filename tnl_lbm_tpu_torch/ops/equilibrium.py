@@ -1,5 +1,6 @@
 """Equilibrium distribution functions (counterpart of
-``tnl_lbm_tpu/ops/equilibrium.py``; the quadratic and well-conditioned forms).
+``tnl_lbm_tpu/ops/equilibrium.py``; the quadratic, well-conditioned and
+inverse-cumulant forms).
 
 Both take ``rho [*S]`` and ``u [D, *S]`` and return ``f_eq [Q, *S]``.
 """
@@ -32,8 +33,37 @@ def eq_well(lat: LatticeDescriptor, rho: torch.Tensor, u: torch.Tensor) -> torch
     return torch.stack([float(lat.w[q]) * (rho * feq[q] - 1) for q in range(lat.Q)])
 
 
-#: registry keyed like the reference plugin classes (the two ported so far)
+def _product_eq(lat: LatticeDescriptor, rho: torch.Tensor, factors) -> torch.Tensor:
+    """f_eq[q] = rho * prod_a factors[a][c_qa] for the product-form
+    equilibria; ``factors[a]`` maps c in {-1, 0, +1} to the axis factor."""
+    out = []
+    for q in range(lat.Q):
+        term = rho
+        for a in range(lat.D):
+            term = term * factors[a][int(lat.c[q, a])]
+        out.append(term)
+    return torch.stack(out)
+
+
+def eq_inv_cum(lat: LatticeDescriptor, rho: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Inverse-cumulant equilibrium in factorized product form: per axis
+    phi(0, v) = (2 - 3 v^2) / 3, phi(+-1, v) = (3 v^2 +- 3 v + 1) / 6
+    (reference eq_inv_cum.h:24-52)."""
+    factors = []
+    for a in range(lat.D):
+        v = u[a]
+        factors.append({
+            0: (2 - 3 * v * v) / 3,
+            1: (3 * v * v + 3 * v + 1) / 6,
+            -1: (3 * v * v - 3 * v + 1) / 6,
+        })
+    return _product_eq(lat, rho, factors)
+
+
+#: registry keyed like the reference plugin classes (the ported subset;
+#: EQ_ENTROPIC waits with the KBC family, ROADMAP A8)
 EQUILIBRIA = {
     "EQ": eq_quadratic,
     "EQ_WELL": eq_well,
+    "EQ_INV_CUM": eq_inv_cum,
 }

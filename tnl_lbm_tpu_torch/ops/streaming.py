@@ -3,6 +3,8 @@
 - ``f`` has shape [Q, *S]; a padded array ``fpad`` has shape [Q, *(S+2)].
 - pull: f_in[q](x) = f[q](x - c_q)   (A-B streaming / A-A odd write)
 - A-A odd read: f_in[q](x) = f[opp q](x - c_q)  (``pull_from`` with opp)
+- outflow pulls at the +x boundary: ``pull_shift_x`` (OUTFLOW_RIGHT) and
+  ``pull_interp_right`` (OUTFLOW_RIGHT_INTERP)
 """
 
 from __future__ import annotations
@@ -53,3 +55,38 @@ def pull_from(lat: LatticeDescriptor, fpad: torch.Tensor, shape, src_perm) -> to
         _shift_slices(fpad[int(src_perm[q])], [-int(c) for c in lat.c[q]], shape)
         for q in range(lat.Q)
     ])
+
+
+def pull_shift_x(lat: LatticeDescriptor, fpad: torch.Tensor, shape, dx: int = -1) -> torch.Tensor:
+    """Pull with the x-offset fixed to ``dx`` for every direction: the
+    GEO_OUTFLOW_RIGHT trick ``xp = x = xm`` (reference d3q27/bc.h:64-65),
+    every direction pulled from x+dx, y-c_y, z-c_z."""
+    out = []
+    for q in range(lat.Q):
+        off = [-int(c) for c in lat.c[q]]
+        off[0] = dx
+        out.append(_shift_slices(fpad[q], off, shape))
+    return torch.stack(out)
+
+
+#: speed of sound used by the interpolated outflow (reference streaming_AB.h:214)
+SPEED_OF_SOUND = 0.5773502691896257
+
+
+def pull_interp_right(lat: LatticeDescriptor, fpad: torch.Tensor, shape) -> torch.Tensor:
+    """Geier (2015) speed-of-sound interpolated outflow at the +x boundary:
+    directions with c_x >= 0 stream normally; the incoming ones (c_x = -1)
+    blend x-1 and x instead of reading the missing x+1 neighbour
+    (reference streaming_AB.h:209-242)."""
+    cs = SPEED_OF_SOUND
+    out = []
+    for q in range(lat.Q):
+        off = [-int(c) for c in lat.c[q]]
+        if int(lat.c[q][0]) == -1:
+            off_a, off_b = list(off), list(off)
+            off_a[0], off_b[0] = -1, 0
+            out.append(cs * _shift_slices(fpad[q], off_a, shape)
+                       + (1 - cs) * _shift_slices(fpad[q], off_b, shape))
+        else:
+            out.append(_shift_slices(fpad[q], off, shape))
+    return torch.stack(out)

@@ -6,15 +6,21 @@ Counterpart of the main-path subset of ``tnl_lbm_tpu/sim/state.py``
 - lifecycle ``sim_init`` -> loop { ``_advance`` (lattice steps),
   ``_after_sim_update`` (counter-gated actions) } -> ``after_sim_finished``;
 - counters with periods in physical seconds (reference state.h:62-87) for
-  PRINT and the app probes PROBE1-3;
+  PRINT, the app probes PROBE1-3 and the VTK output: 2D plane cuts
+  (VTK2D, ``Probe2DCut``), the whole lattice (VTK3D) and strided 3D box
+  cuts (VTK3DCUT, ``Probe3DCut``), each a ``.vti`` series with a ``.pvd``
+  index (reference state.hpp:123-511, lbm_block.hpp:799-1121);
 - run directory ``results_<id>`` with flock-based double-run protection and
   the ``flag.*`` files (reference state.hpp:12-66);
 - GLUPS reporting, the NaN guard on density, the walltime limit.
 
-Dispatch (``_advance``): with ``use_fused=True`` and A-A streaming, pairs
-of steps go through the one-kernel A-A pair (``make_fused_pair2_aa``) when
-pair dispatch is on, and single steps - a leftover odd step, or every step
-when pair dispatch is off - through the even/odd kernels
+Dispatch (``_advance``): with ``use_fused=True`` and A-B streaming every
+step goes through the A-B kernel (``make_fused_step``), which writes into
+a second preallocated state buffer: the loop ping-pongs the two, so the
+state takes two buffers and a step allocates none.  With A-A streaming,
+pairs of steps go through the one-kernel A-A pair (``make_fused_pair2_aa``)
+when pair dispatch is on, and single steps - a leftover odd step, or every
+step when pair dispatch is off - through the even/odd kernels
 (``make_fused_step_aa``); without ``use_fused`` every step is the plain
 PyTorch step (``sim/step.py``).  ``pair_dispatch="auto"`` times both
 dispatches on a CUDA device and keeps the faster; half storage
@@ -31,7 +37,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tnl_lbm_tpu_torch.kernels.fused import supports
+from tnl_lbm_tpu_torch.io.series import VtiTimeSeries
+from tnl_lbm_tpu_torch.io.vtk import write_vti
+from tnl_lbm_tpu_torch.kernels.fused import make_fused_step, supports
 from tnl_lbm_tpu_torch.ops import moments as mom
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig, initial_dfs
 from tnl_lbm_tpu_torch.sim.step import make_step
@@ -43,7 +51,10 @@ PRINT = "print"
 PROBE1 = "probe1"
 PROBE2 = "probe2"
 PROBE3 = "probe3"
-ALL_COUNTERS = (PRINT, PROBE1, PROBE2, PROBE3)
+VTK2D = "vtk2d"
+VTK3D = "vtk3d"
+VTK3DCUT = "vtk3dcut"
+ALL_COUNTERS = (PRINT, VTK2D, VTK3D, PROBE1, PROBE2, PROBE3, VTK3DCUT)
 
 
 def needs_per_step_state(fn):
@@ -84,6 +95,32 @@ class Counter:
         return self.period > 0 and t >= self.count * self.period
 
 
+@dataclasses.dataclass
+class Probe2DCut:
+    """A plane cut written at every VTK2D action."""
+
+    axis: int  # 0=X, 1=Y, 2=Z
+    name: str
+    position: int
+    cycle: int = 0
+
+
+@dataclasses.dataclass
+class Probe3DCut:
+    """A strided sub-box written at every VTK3DCUT action."""
+
+    origin: tuple
+    length: tuple
+    step: int
+    name: str
+    cycle: int = 0
+
+
+def to_host(x) -> np.ndarray:
+    """A field (tensor on any device, or array) as a host numpy array."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
 class Simulation:
     """One lattice + its time loop.  Subclass and override the hooks (analog of
     the reference's virtual methods, state.h:216-229)."""
@@ -118,6 +155,8 @@ class Simulation:
         self.pair_probe_ms = None
 
         self.cnt = {name: Counter() for name in ALL_COUNTERS}
+        self.probes_2d: list[Probe2DCut] = []
+        self.probes_3d: list[Probe3DCut] = []
         self.iterations = 0
         self.start_iterations = 0
         self.terminate = False
@@ -144,6 +183,10 @@ class Simulation:
         self.prof = get_logger("profile")
         self._step = None
         self._pair = None
+        #: the second state buffer of the out-of-place dispatches' ping-pong
+        #: (the A-B kernel, the float32 pair loop), made at sim_init
+        self._spare = None
+        self._vtk_series = {}
 
     # ------------------------------------------------------------------ hooks
     def update_inflow(self, phys_time: float):
@@ -169,6 +212,19 @@ class Simulation:
     def probe3(self):
         """App-defined probe (PROBE3 counter)."""
 
+    def output_data(self, cut: tuple | None = None):
+        """name -> fields for the VTK output, as (scalars, vectors): rho and
+        the velocity in physical units.  ``cut`` (a tuple of slices over
+        the lattice axes) selects a plane or a box before the unit
+        conversion, so a cut costs no whole-lattice temporary.  Tensors stay
+        on the device; the writers copy them to the host."""
+        units = self.domain.units
+        sl = tuple(cut) if cut is not None else ()
+        scalars = {"lbm_density": self.rho[sl]}
+        vectors = {"velocity": self.u[(slice(None),) + sl]
+                   * (units.phys_dl / units.phys_dt if units.phys_dt else 1.0)}
+        return scalars, vectors
+
     # ------------------------------------------------------------- lifecycle
     def phys_time(self) -> float:
         return self.iterations * self.domain.units.phys_dt
@@ -192,13 +248,16 @@ class Simulation:
         if not self.use_fused:
             self._step = make_step(cfg, self.domain)
             return
-        if self.cfg.streaming != "AA":
-            raise NotImplementedError(
-                "the A-B fused kernel (B4) is not ported yet: use streaming='AA' "
-                "or use_fused=False")
+        if self.cfg.streaming == "AB":
+            self._step = make_fused_step(cfg, self.domain, self.device)
+            return
         from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_step_aa
 
         self._step = make_fused_step_aa(cfg, self.domain, self.device)
+
+    def _ab_kernel(self) -> bool:
+        """Every step goes through the A-B kernel, out of place."""
+        return self.use_fused and self.cfg.streaming == "AB"
 
     def _build_pair(self):
         from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair2_aa
@@ -300,6 +359,8 @@ class Simulation:
         self.f = initial_dfs(self.cfg, self.domain, self.device)
         self._initial_macro()
         self._resolve_pair_dispatch()
+        if self._ab_kernel() or (self._pair_dispatch_ok() and self.cfg.storage_dtype is None):
+            self._spare = torch.empty_like(self.f)
         self._glups_prev_time = time.time()
         self._t_wall_start = time.time()
 
@@ -313,18 +374,19 @@ class Simulation:
         """Advance 2 * n_pairs steps through the one-kernel A-A pair.
 
         The pair loop owns the state: it ping-pongs two buffers in the store
-        dtype (the first is ``self.f`` itself when nothing is narrowed), so
-        the state takes two buffers, as on the per-step path.  ``self.f``
-        is None during the loop and is refreshed, widened to the compute
-        dtype, after it; ``self.rho``/``self.u`` are fresh after every pair.
-        Hooks run once per pair; a hook that reads ``self.f`` must be
-        marked @needs_per_step_state, which turns pair dispatch off.
+        dtype, so the state takes two buffers, as on the per-step path.
+        With nothing narrowed these are ``self.f`` and the persistent
+        ``self._spare``; a 16-bit state gets its second buffer per chunk.
+        ``self.f`` is None during the loop and is refreshed, widened to the
+        compute dtype, after it; ``self.rho``/``self.u`` are fresh after
+        every pair.  Hooks run once per pair; a hook that reads ``self.f``
+        must be marked @needs_per_step_state, which turns pair dispatch off.
         """
         from tnl_lbm_tpu_torch.kernels.fused_aa import from_storage, to_storage
 
         fs = to_storage(self.f, self.cfg.storage_dtype)
         self.f = None
-        spare = torch.empty_like(fs)
+        spare = self._spare if self._spare is not None else torch.empty_like(fs)
         for _ in range(n_pairs):
             u_in = self.update_inflow(self.phys_time())
             force = self.body_force(self.phys_time())
@@ -334,6 +396,8 @@ class Simulation:
             self.iterations += 2
             self.compute_after_step()
         self.f = from_storage(fs, self.cfg.compute_dtype)
+        if self._spare is not None:
+            self._spare = spare
 
     def _advance(self, n_steps: int):
         """Run n_steps lattice updates: pairs through the pair kernel when
@@ -349,8 +413,14 @@ class Simulation:
             force = self.body_force(self.phys_time())
             parity = (self.iterations % 2) if self.cfg.streaming == "AA" else 0
             self.compute_before_step()
-            self.f, self.rho, self.u = self._step(self.f, nu, u_in=u_in, force=force,
-                                                  parity=parity)
+            if self._ab_kernel():
+                # A-B kernel: write into the spare buffer, keep the old state as the next spare
+                f_new, self.rho, self.u = self._step(self.f, nu, u_in=u_in, force=force,
+                                                     out=self._spare)
+                self._spare, self.f = self.f, f_new
+            else:
+                self.f, self.rho, self.u = self._step(self.f, nu, u_in=u_in, force=force,
+                                                      parity=parity)
             self.iterations += 1
             self.compute_after_step()
         synchronize(self.device)
@@ -359,21 +429,70 @@ class Simulation:
     # ------------------------------------------------------------- actions
     def _nan_guard(self) -> bool:
         """NaN scan of density (reference state.hpp:1166-1188); dumps the
-        macro fields to ``vtk3D/data_nan_dump.vti``."""
+        output fields to the loose file ``vtk3D/data_<cycle>_nan_dump.vti``."""
         if not bool(torch.isnan(self.rho).any()):
             return False
         self.nan_detected = True
         self.terminate = True
         self.log.error("NaN detected in density at iteration %d - dumping state", self.iterations)
-        from tnl_lbm_tpu.io.vtk import write_vti
-
-        units = self.domain.units
-        path = self.results_dir / "vtk3D" / "data_nan_dump.vti"
-        path.parent.mkdir(parents=True, exist_ok=True)
-        write_vti(path, scalars={"lbm_density": self.rho.cpu().numpy()},
-                  vectors={"velocity": self.u.cpu().numpy()},
-                  origin=units.lbm2phys_point([0] * self.cfg.lat.D), spacing=units.phys_dl)
+        self._write_vtk_3d(suffix="_nan_dump")
         return True
+
+    def _series(self, subdir: str, name: str) -> VtiTimeSeries:
+        """The .pvd-indexed stream of one output family (io/series.py)."""
+        key = (subdir, name)
+        s = self._vtk_series.get(key)
+        if s is None:
+            s = self._vtk_series[key] = VtiTimeSeries(self.results_dir / subdir, name)
+        return s
+
+    def _write_vtk_3d(self, suffix=""):
+        """The whole lattice: a VTK3D series entry, or with ``suffix`` a loose
+        diagnostic file outside the index."""
+        scalars, vectors = self.output_data()
+        scalars = {k: to_host(v) for k, v in scalars.items()}
+        vectors = {k: to_host(v) for k, v in vectors.items()}
+        units = self.domain.units
+        cycle = self.cnt[VTK3D].count
+        origin = units.lbm2phys_point([0] * self.cfg.lat.D)
+        if suffix:
+            path = self.results_dir / "vtk3D" / f"data_{cycle:06d}{suffix}.vti"
+            write_vti(path, scalars=scalars, vectors=vectors, origin=origin,
+                      spacing=units.phys_dl)
+            return
+        self._series("vtk3D", "data").append(
+            scalars=scalars, vectors=vectors, time=self.phys_time(), origin=origin,
+            spacing=units.phys_dl, cycle=cycle)
+
+    def _write_vtk_2d(self):
+        """One plane per ``Probe2DCut``: only the plane leaves the device."""
+        units = self.domain.units
+        D = self.cfg.lat.D
+        for p in self.probes_2d:
+            sl = [slice(None)] * D
+            sl[p.axis] = slice(p.position, p.position + 1)
+            start = [0] * D
+            start[p.axis] = p.position
+            scalars, vectors = self.output_data(tuple(sl))
+            self._series("vtk2D", p.name).append(
+                scalars={k: to_host(v) for k, v in scalars.items()},
+                vectors={k: to_host(v) for k, v in vectors.items()},
+                time=self.phys_time(), origin=units.lbm2phys_point([0] * D),
+                spacing=units.phys_dl, start=start, cycle=p.cycle)
+            p.cycle += 1
+
+    def _write_vtk_3dcut(self):
+        """One strided sub-box per ``Probe3DCut``."""
+        units = self.domain.units
+        for p in self.probes_3d:
+            scalars, vectors = self.output_data(
+                tuple(slice(o, o + L, p.step) for o, L in zip(p.origin, p.length)))
+            self._series("vtk3Dcut", p.name).append(
+                scalars={k: to_host(v) for k, v in scalars.items()},
+                vectors={k: to_host(v) for k, v in vectors.items()},
+                time=self.phys_time(), origin=units.lbm2phys_point(list(p.origin)),
+                spacing=units.phys_dl * p.step, cycle=p.cycle)
+            p.cycle += 1
 
     def estimate_memory_demands(self) -> dict:
         """Device-memory preflight (reference state.hpp:819-877): refuse to
@@ -465,3 +584,12 @@ class Simulation:
             if c[name].action(t):
                 c[name].count += 1
                 hook()
+        if c[VTK2D].action(t):
+            c[VTK2D].count += 1
+            self._write_vtk_2d()
+        if c[VTK3D].action(t):
+            self._write_vtk_3d()
+            c[VTK3D].count += 1
+        if c[VTK3DCUT].action(t):
+            c[VTK3DCUT].count += 1
+            self._write_vtk_3dcut()

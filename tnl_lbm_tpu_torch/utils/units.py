@@ -43,6 +43,9 @@ class Lattice:
     def lbm2phys_velocity(self, lbm_velocity: float) -> float:
         return lbm_velocity / self.phys_dt * self.phys_dl
 
+    def phys2lbm_velocity(self, phys_velocity: float) -> float:
+        return phys_velocity * self.phys_dt / self.phys_dl
+
     def phys2lbm_force(self, phys_force: float) -> float:
         return phys_force / self.phys_dl * self.phys_dt * self.phys_dt
 
