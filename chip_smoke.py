@@ -6,13 +6,18 @@ It drives the port's dispatch paths through the CUDA kernels: the A-A duct
 (D3Q27 CUM_WELL on a square duct) per step (even/odd kernels) and in pairs
 (the one-kernel pair, with the state in float32, float16 or bfloat16), and
 the A-B step (B4) with the full 3D boundary set, on the bench duct and in
-sim_1, sim_2 and sim_3.  Each phase prints result lines; any failing phase
-raises and the script exits non-zero without printing a result.
+sim_1, sim_2 and sim_3, and the coupled NSE+ADE path - the ADE step (B6)
+and the one-kernel coupled step (B7) - in sim_coupled.  Each phase prints
+result lines; any failing phase raises and the script exits non-zero
+without printing a result.
 
 1. device: the card, ``nvidia-smi`` name and power limit, torch/CUDA versions;
 2. build: compile the kernels from ``tnl_lbm_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel; registers, shared memory and spills from
-   ``-Xptxas -v``, and the pair's dynamic shared memory);
+   ``-Xptxas -v``, and the pair's dynamic shared memory; the FP32
+   operations per thread of each kernel from ``cuobjdump -sass``, FFMA
+   counted twice and every branch once, the upper bound of the operations
+   a site takes that the bound of the JSON record uses);
 3. compare, kernels against their plain PyTorch versions on the card, with
    the JAX suite's bounds (tests/test_fused_kernel.py:65-67): |df| <= 1e-6
    (for a 16-bit state ``utils.dtypes.state_agrees``: one unit in its last
@@ -34,6 +39,19 @@ raises and the script exits non-zero without printing a result.
       not divide (CUM_WELL, then CUM); then one step at 256^3 on the bench
       duct, timed over 20 launches (plain: 3 calls) beside one even and one
       odd launch and the P1 floor, GB/s at 233 B/site;
+   d. the ADE step (B6): one step from a seeded state against its plain
+      version (|dg| <= 1e-6, |dphi| <= 2e-6) on sim_coupled's res-2 ADE
+      map, on a box holding every ADEGEO code with a transfer coefficient
+      of 0.3, and on a periodic box with Z = 150, under the four
+      collisions with a scalar and a per-site nu;
+   e. the coupled step (B7): one step against its plain version and
+      against the A-B kernel then the ADE kernel on the same inputs, on
+      sim_coupled's res-2 maps and on the two boxes, per NSE variant and
+      ADE collision (f, rho, u to the A-B bounds, g and phi to B6's),
+      printing whether B7 equals B4 then B6 bit for bit; then B6, B7 and
+      B4 followed by B6 timed at 256^3 (the bench duct, with WALL faces
+      on the ADE lattice too) beside B4 and the P1 floor, GB/s at 73,
+      294 and 306 B/site;
 4. probes: the copy floor P1 at 256^3 (GB/s at 232 B/site, share of the
    published 3.35 TB/s) and the pair's memory/compute split P2a/P2b at
    256^3 with 0, 20 and 60 passes, each held against its plain version;
@@ -46,7 +64,20 @@ raises and the script exits non-zero without printing a result.
    (X*Y*Z*steps / compute time), peak memory, kernel launches (> 0),
    plain calls (0) and finite rho/u.  Last, one A-B step from sim_1's
    final state at resolution 8, the kernel against its plain version
-   with the step bounds (the launches of this compare are not counted);
+   with the step bounds (the launches of this compare are not counted).
+   Then sim_coupled at resolution 8 (512x256x256), 100 steps with
+   ``--use-fused``: ``coupled_kernel`` must be "one-kernel-AB" with 100
+   coupled launches; phi finite; on the band of y more than 100 sites from
+   the WALL_BODY walls (the JAX app's anti-bounce-back walls grow phi
+   about 1.9x per step, and in 100 steps nothing from them reaches the
+   band) rho, u and phi equal the plain steps' on a periodic X x 4 x 4
+   slab within 1e-5, phi <= 1 + 1e-3 and above zero at x = 1; one step from
+   its final state, kernel against plain (g and phi relative to the
+   largest magnitude the site's update reads, at least 1); then the same
+   run through the two-kernel path (B4 then B6, 100 launches each)
+   against the one-kernel run's fields; after
+   each run, torch.profiler over 10 more steps: device time per kernel
+   and the device's busy share of the loop;
 6. accuracy: sim_2 res 2 run to its stopping point per step and in pairs
    (f32), and with A-B streaming through the A-B kernel; each L1 error must
    lie within 5% of the L1 that the analytic start-up solution of the duct
@@ -57,10 +88,13 @@ raises and the script exits non-zero without printing a result.
    this transient near t = 5 s and is printed for comparison.  Last, sim_1
    res 2 and sim_3 res 2, 100 steps each through ``Simulation`` with the
    A-B kernel and with the plain step on the card, from the same start:
-   max |drho| and max |du| <= 1e-5.
+   max |drho| and max |du| <= 1e-5; sim_coupled res 2 likewise through
+   the coupled kernel and the plain steps, with |dphi| <= 1e-5 relative to
+   the largest |phi| within a site's reach, at least 1.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record (bound_ms: the larger
+of the bytes over the published 3.35 TB/s and the FP32 operations over
+67 TFLOP/s, at 256^3); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -88,6 +122,14 @@ PAIR_BYTES = {"f32": 233, "f16": 125, "bf16": 125}  # B/site per pair (f in + ou
 AB_BYTES = 233  # B/site per A-B step: 27 f32 in and out, the map, rho and u
 AB_UIN = (0.03, 0.005, -0.004)  # inflow velocity of the box compare
 SIM1_RES, APP_STEPS, TOL_APP = 8, 100, 1e-5
+FP32_PEAK_TFLOPS = 67.0  # H100 SXM data sheet, outside the tensor cores
+TOL_G, TOL_PHI = 1e-6, 2e-6
+NU_ADE, TCOEF, PHI_IN = 0.02, 0.3, 0.7  # the ADE compare's diffusion, transfer, inflow
+ADE_COLLISIONS = ("SRT", "MRT", "CLBM", "CLBM-RS")
+ADE_BYTES, COUPLED_BYTES, TWO_KERNEL_BYTES = 73, 294, 306  # B/site: B6, B7, B4 then B6
+COUPLED_RES = 8
+#: the y band of sim_coupled that the WALL_BODY walls cannot reach in APP_STEPS steps
+WALL_REACH = APP_STEPS
 PROBE_PASSES = (0, 20, 60)
 DEVICE = "cuda"
 
@@ -232,22 +274,58 @@ def phase_device() -> dict:
     return info
 
 
-def phase_build() -> None:
+ADE_KERNEL_NAMES = tuple(f"ade_step_{c}_kernel" for c in ("srt", "mrt", "clbm", "clbm_rs"))
+COUPLED_KERNEL_NAMES = tuple(f"coupled_{n}_{c}_kernel" for n in ("cum_well", "cum_quad", "cum_invcum")
+                             for c in ("srt", "mrt", "clbm", "clbm_rs"))
+
+
+def sass_fp32_ops(lib_path) -> dict:
+    """FP32 arithmetic instructions per thread of each kernel of the built
+    library (``cuobjdump -sass``): FADD, FMUL, MUFU and FMNMX once, FFMA
+    twice.  Every branch counts once, so for a kernel without loops this
+    bounds the operations one site takes from above."""
+    import os
+    import re
+
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    exe = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    weight = {"FADD": 1, "FADD32I": 1, "FMUL": 1, "FMUL32I": 1, "FFMA": 2, "FFMA32I": 2,
+              "MUFU": 1, "FMNMX": 1}
+    ops, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            current = m.group(1)
+            ops[current] = 0
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", line)
+        if current is not None and m:
+            ops[current] += weight.get(m.group(1), 0)
+    return ops
+
+
+def phase_build() -> dict:
+    """Build the kernels; registers per kernel, and the FP32 operations
+    per thread from the SASS."""
     from tnl_lbm_tpu_torch.kernels.build import build_library, kernel_resources, load_library
 
     t0 = time.perf_counter()
-    _, ptxas = build_library()
+    path, ptxas = build_library()
     lib = load_library()
     res = kernel_resources(ptxas)
+    ops = sass_fp32_ops(path)
     for name in ("aa_even_kernel", "aa_odd_kernel", "aa_pair_f32_kernel", "aa_pair_f16_kernel",
                  "aa_pair_bf16_kernel", "ab_step_cum_well_kernel", "ab_step_cum_quad_kernel",
                  "ab_step_cum_invcum_kernel", "copy_permute_kernel", "pair_pipeline_kernel",
-                 "pair_compute_only_kernel"):
-        if name not in res:
-            raise RuntimeError(f"no ptxas report for {name}:\n{ptxas}")
-        log("build", kernel=name, **res[name])
+                 "pair_compute_only_kernel") + ADE_KERNEL_NAMES + COUPLED_KERNEL_NAMES:
+        if name not in res or name not in ops:
+            raise RuntimeError(f"no ptxas report or SASS for {name}:\n{ptxas}")
+        log("build", kernel=name, **res[name], fp32_ops_per_thread=ops[name])
     log("build", seconds=f"{time.perf_counter() - t0:.1f}",
         pair_dynamic_smem_bytes=lib.tnl_lbm_aa_pair_smem_bytes())
+    return ops
 
 
 def phase_compare_steps() -> dict:
@@ -501,6 +579,234 @@ def phase_compare_ab(step_times: dict, floor_gbps: float) -> dict:
     return {"err": {"ab_step": max(worst_f, d[0])}, "times": {"ab_step": (ms, plain_ms)}}
 
 
+AB_SPECS = (("CUM_WELL", "EQ_WELL", True), ("CUM", "EQ", False), ("CUM", "EQ_INV_CUM", False))
+
+
+def local_scale(ref):
+    """Per site: max(1, the largest magnitude of ``ref`` (a [X, Y, Z] field
+    or its [C, X, Y, Z] components) within 2 sites along x and 1 along y
+    and z) - the operands an A-B site update reads, OUTFLOW_PE's x-2
+    included."""
+    import torch
+
+    mag = ref.abs() if ref.ndim == 3 else torch.stack([c.abs() for c in ref]).amax(0)
+    pooled = torch.nn.functional.max_pool3d(mag[None, None], kernel_size=(5, 3, 3), stride=1,
+                                            padding=(2, 1, 1))[0, 0]
+    return pooled.clamp(min=1.0)
+
+
+def scaled_diff(a, b, scale) -> float:
+    """max |a - b| / scale, one component at a time: the absolute
+    difference where the operands are at most 1 in magnitude, the relative
+    one where the WALL_BODY walls have grown them."""
+    if a.ndim == 4:
+        return max(scaled_diff(x, y, scale) for x, y in zip(a, b))
+    return float(((a.double() - b.double()).abs() / scale).max())
+
+
+def ade_box(shape):
+    """A box holding every ADEGEO code (tests/test_torch_gpu.py ade_box)."""
+    from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO as A
+
+    X, Y, Z = shape
+    m = np.zeros(shape, np.uint8)
+    m[:, 0], m[:, -1] = A.WALL, A.WALL_BODY
+    m[:, 1:-1, 0], m[:, 1:-1, -1] = A.SYM_BOTTOM, A.SYM_TOP
+    m[0, 1:-1, 1:-1] = A.INFLOW
+    m[-1, 1 : Y // 2, 1:-1], m[-1, Y // 2 : -1, 1:-1] = A.OUTFLOW_PE, A.OUTFLOW_RIGHT
+    m[1, 2:4, 2:-2], m[-2, 2:4, 2:-2] = A.SYM_LEFT, A.SYM_RIGHT
+    m[2:4, 1, 2:-2], m[2:4, -2, 2:-2] = A.SYM_BACK, A.SYM_FRONT
+    m[4, 5:11, 2:-2] = A.SOLID
+    m[2, 5:11, 2:-2], m[3, 5:11, 2:-2] = A.TRANSFER_FS, A.TRANSFER_SF
+    m[5, 5:11, 2:-2] = A.TRANSFER_SW
+    m[X // 2, Y - 4 : Y - 2, 2:4] = A.PERIODIC
+    m[X // 2 + 1, Y - 3, Z // 2] = A.NOTHING
+    return m
+
+
+def seeded_ade(shape, device, seed=3):
+    """(g, u, nu field) from a seeded phi and velocity."""
+    import torch
+
+    from tnl_lbm_tpu_torch.models import D3Q7
+    from tnl_lbm_tpu_torch.ops.equilibrium import eq_quadratic
+
+    rng = np.random.default_rng(seed)
+    phi = torch.from_numpy((0.5 + 0.1 * rng.standard_normal(shape)).astype(np.float32))
+    u = torch.from_numpy((0.02 * rng.standard_normal((3,) + shape)).astype(np.float32))
+    nu = torch.from_numpy((0.01 + 0.02 * rng.random(shape)).astype(np.float32))
+    phi, u = phi.to(device), u.to(device)
+    return eq_quadratic(D3Q7, phi, u).contiguous(), u, nu.to(device)
+
+
+def coupled_cases():
+    """(label, NSE domain, ADE domain) of the B6 and B7 compares:
+    sim_coupled's res-2 maps, the boxes of every code (NSE ``bc_box`` and
+    ADE ``ade_box``, Z = 150) and a periodic box (FLUID with a
+    PERIODIC-coded block, every axis periodic)."""
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.apps import sim_coupled
+    from tnl_lbm_tpu_torch.models import D3Q7
+    from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO
+
+    sim = sim_coupled.build(2, device=DEVICE, use_fused=True, results_parent=WORK / "compare_ade")
+    yield "sim_coupled_res2", sim.domain, sim.ade_domain
+    shape = (16, 20, 150)
+    yield ("box", interop.domain_from_numpy(bc_box(shape), (False, False, True)),
+           interop.domain_from_numpy(ade_box(shape), (False, False, True), lat=D3Q7))
+    m = np.zeros((24, 20, 150), np.uint8)
+    m[4:9, 3:9, 10:40] = ADEGEO.PERIODIC
+    yield ("periodic", interop.domain_from_numpy(np.zeros_like(m), (True,) * 3),
+           interop.domain_from_numpy(m, (True,) * 3, lat=D3Q7))
+
+
+def phase_compare_ade() -> dict:
+    """B6 against its plain version, one step per geometry, collision and
+    kind of nu."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
+
+    dev = torch.device(DEVICE)
+    worst_g = 0.0
+    for label, _, adom in coupled_cases():
+        worst = [0.0, 0.0]
+        g, u, nu_field = seeded_ade(adom.shape, dev)
+        for collision in ADE_COLLISIONS:
+            step = make_fused_ade_step(interop.ade_config_from_spec(collision), adom, dev,
+                                       variable_diffusion=True, transfer_coeff=TCOEF)
+            for nu in (NU_ADE, nu_field):
+                gk, pk = step(g, u, nu, phi_in=PHI_IN)
+                gp, pp = step.plain(g, u, nu, phi_in=PHI_IN)
+                torch.cuda.synchronize()
+                d = (max_diff(gk, gp), max_diff(pk, pp))
+                if not (d[0] <= TOL_G and d[1] <= TOL_PHI):
+                    raise RuntimeError(f"ade_step vs plain on {label}, {collision}, "
+                                       f"nu {'field' if torch.is_tensor(nu) else 'scalar'}: {d}")
+                worst = [max(a, b) for a, b in zip(worst, d)]
+        log("compare_ade", case=label, shape="x".join(map(str, adom.shape)),
+            codes="+".join(sorted(c.name for c in step.codes)), collisions=len(ADE_COLLISIONS),
+            nu="scalar+field", max_dg=worst[0], max_dphi=worst[1])
+        worst_g = max(worst_g, worst[0])
+    return {"ade_step": worst_g}
+
+
+def phase_compare_coupled() -> dict:
+    """B7 against its plain version and against B4 then B6, one step per
+    geometry, NSE variant and ADE collision, with a nu field."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
+    from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
+    from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step
+
+    dev = torch.device(DEVICE)
+    worst_state, bit_equal = 0.0, True
+    args = dict(u_in=AB_UIN, force=(FORCE_SMALL, 0.0, 0.0), phi_in=PHI_IN)
+    for label, dom, adom in coupled_cases():
+        worst = [0.0] * 5
+        g, _, nu_field = seeded_ade(dom.shape, dev)
+        for spec in AB_SPECS:
+            cfg = interop.config_from_spec(*spec, "AB")
+            f = rand_f(cfg, dom.shape, dev, seed=11)
+            b4 = make_fused_step(cfg, dom, dev)
+            for collision in ADE_COLLISIONS:
+                acfg = interop.ade_config_from_spec(collision)
+                one = make_fused_coupled_step(cfg, dom, acfg, adom, dev, variable_diffusion=True,
+                                              transfer_coeff=TCOEF)
+                b6 = make_fused_ade_step(acfg, adom, dev, variable_diffusion=True,
+                                         transfer_coeff=TCOEF)
+                k = one(f, g, NU, nu_field, **args)
+                p = one.plain(f, g, NU, nu_field, **args)
+                f2, r2, u2 = b4(f, NU, u_in=args["u_in"], force=args["force"])
+                g2, p2 = b6(g, u2, nu_field, phi_in=PHI_IN)
+                two = (f2, g2, r2, u2, p2)
+                torch.cuda.synchronize()
+                for ref in (p, two):
+                    d = [max_diff(a, b) for a, b in zip(k, ref)]  # f, g, rho, u, phi
+                    if not (d[0] <= TOL_F and d[1] <= TOL_G and d[2] <= TOL_RHO
+                            and d[3] <= TOL_U and d[4] <= TOL_PHI):
+                        raise RuntimeError(f"coupled_ab on {label}, {spec[0]}/{spec[1]}, "
+                                           f"{collision}: {d}")
+                    worst = [max(a, b) for a, b in zip(worst, d)]
+                bit_equal &= all(torch.equal(a, b) for a, b in zip(k, two))
+        log("compare_coupled", case=label, shape="x".join(map(str, dom.shape)),
+            instances=len(AB_SPECS) * len(ADE_COLLISIONS), max_df=worst[0], max_dg=worst[1],
+            max_drho=worst[2], max_du=worst[3], max_dphi=worst[4],
+            b7_equals_b4_then_b6_bitwise=bit_equal)
+        worst_state = max(worst_state, worst[0], worst[1])
+    return {"coupled_ab": worst_state, "bit_equal": bit_equal}
+
+
+def coupled_bench():
+    """The bench duct with an ADE lattice: WALL on the y and z faces of
+    both lattices, periodic x; CUM_WELL and CLBM."""
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.models import D3Q7
+    from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO
+
+    cfg, dom = flagship(BENCH_SHAPE, streaming="AB")
+    m = np.zeros(BENCH_SHAPE, np.uint8)
+    m[:, 0] = m[:, -1] = ADEGEO.WALL
+    m[:, :, 0] = m[:, :, -1] = ADEGEO.WALL
+    return cfg, dom, interop.ade_config_from_spec("CLBM"), interop.domain_from_numpy(
+        m, (True, False, False), lat=D3Q7)
+
+
+def phase_time_coupled(floor_gbps: float) -> dict:
+    """B6, B7 and B4 then B6 at 256^3: one step of B6 and B7 against their
+    plain versions, then timed beside B4 and the P1 floor of this call."""
+    import torch
+
+    from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
+    from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
+    from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step
+
+    dev = torch.device(DEVICE)
+    cfg, dom, acfg, adom = coupled_bench()
+    b4, b6 = make_fused_step(cfg, dom, dev), make_fused_ade_step(acfg, adom, dev)
+    b7 = make_fused_coupled_step(cfg, dom, acfg, adom, dev)
+    force = (FORCE_BENCH, 0.0, 0.0)
+    f0 = rand_f(cfg, dom.shape, dev, seed=7)
+    g0, u0, _ = seeded_ade(dom.shape, dev)
+    d6 = [max_diff(a, b) for a, b in zip(b6(g0, u0, NU_ADE), b6.plain(g0, u0, NU_ADE))]
+    d7 = [max_diff(a, b) for a, b in zip(b7(f0, g0, NU, NU_ADE, force=force),
+                                         b7.plain(f0, g0, NU, NU_ADE, force=force))]
+    torch.cuda.empty_cache()
+    if not (d6[0] <= TOL_G and d6[1] <= TOL_PHI and d7[0] <= TOL_F and d7[1] <= TOL_G
+            and d7[2] <= TOL_RHO and d7[3] <= TOL_U and d7[4] <= TOL_PHI):
+        raise RuntimeError(f"B6 / B7 vs plain at 256^3 out of tolerance: {d6}, {d7}")
+    fo, go = torch.empty_like(f0), torch.empty_like(g0)
+
+    def two():
+        _, _, u = b4(f0, NU, force=force, out=fo)
+        b6(g0, u, NU_ADE, out=go)
+
+    ms = {
+        "ab_step": time_ms(lambda: b4(f0, NU, force=force, out=fo), reps=20),
+        "ade_step": time_ms(lambda: b6(g0, u0, NU_ADE, out=go), reps=20),
+        "coupled_ab": time_ms(lambda: b7(f0, g0, NU, NU_ADE, force=force, out_f=fo, out_g=go),
+                              reps=20),
+        "ab_then_ade": time_ms(two, reps=20),
+    }
+    plain = {"ade_step": time_ms(lambda: b6.plain(g0, u0, NU_ADE), reps=3),
+             "coupled_ab": time_ms(lambda: b7.plain(f0, g0, NU, NU_ADE, force=force), reps=3)}
+    del f0, g0, u0, fo, go
+    torch.cuda.empty_cache()
+    for name, nbytes in (("ab_step", AB_BYTES), ("ade_step", ADE_BYTES),
+                         ("coupled_ab", COUPLED_BYTES), ("ab_then_ade", TWO_KERNEL_BYTES)):
+        rate = gbps(nbytes, ms[name])
+        log("time_coupled", kernel=name, shape="256^3", ms=f"{ms[name]:.4f}",
+            plain_ms=f"{plain[name]:.2f}" if name in plain else "n/a",
+            **{f"gbps_{nbytes}B": f"{rate:.1f}"}, share_of_p1_floor=f"{rate / floor_gbps:.3f}")
+    log("time_coupled", b7_over_b4_then_b6=f"{ms['coupled_ab'] / ms['ab_then_ade']:.3f}",
+        max_dg_b6=d6[0], max_dphi_b6=d6[1], max_df_b7=d7[0], max_dg_b7=d7[1])
+    return {"times": {k: (ms[k], plain[k]) for k in plain},
+            "err": {"ade_step": d6[0], "coupled_ab": max(d7[0], d7[1])}}
+
+
 def counting_from_init(sim):
     """Set the launch and plain-call counts and the peak-memory mark to 0 at
     the end of ``sim_init``, just before the stepping loop.  A subclass and
@@ -511,8 +817,9 @@ def counting_from_init(sim):
     class Counted(type(sim)):
         def sim_init(self):
             super().sim_init()
-            for k in (self._step, self._pair):
-                if k is not None:
+            for k in (self._step, self._pair, getattr(self, "_ade_step", None),
+                      getattr(self, "_coupled_step", None)):
+                if hasattr(k, "reset_counts"):
                     k.reset_counts()
             torch.cuda.reset_peak_memory_stats()
 
@@ -543,6 +850,9 @@ def bench_sim(pair_dispatch, storage=None, steps: int | None = None, streaming="
 def kernel_launches(sim) -> dict:
     """Launch counts of the kernels a Simulation dispatched to."""
     step = sim._step
+    if hasattr(sim, "coupled_kernel"):
+        return {"ab": step.kernel.launches, "ade": sim._ade_step.kernel.launches,
+                "coupled": sim._coupled_step.kernel.launches if sim._coupled_step else 0}
     if hasattr(step, "even"):
         launches = {"even": step.even.launches, "odd": step.odd.launches}
         launches["pair"] = sim._pair.kernel.launches if sim._pair else 0
@@ -557,7 +867,8 @@ def report_main(sim, label: str) -> dict:
     ms_step = sim._compute_time / steps * 1e3
     mlups = float(np.prod(sim.domain.shape)) * steps / sim._compute_time / 1e6
     finite = bool(torch.isfinite(sim.rho).all()) and bool(torch.isfinite(sim.u).all())
-    plain = sim._step.plain_calls + (sim._pair.plain_calls if sim._pair else 0)
+    plain = sum(getattr(k, "plain_calls", 0) for k in (
+        sim._step, sim._pair, getattr(sim, "_ade_step", None), getattr(sim, "_coupled_step", None)))
     launches = kernel_launches(sim)
     log("main", path=label, shape="x".join(map(str, sim.domain.shape)), steps=steps,
         ms_per_step=f"{ms_step:.4f}", mlups=f"{mlups:.1f}",
@@ -611,12 +922,194 @@ def phase_main_path() -> dict:
     launches = report_main(sim, f"sim_1_res{SIM1_RES}")
     if sim.iterations != APP_STEPS or launches["ab"] != APP_STEPS:
         raise RuntimeError("sim_1 did not run every step through the A-B kernel")
-    # the JSON record counts the launches of both A-B main paths
-    kernels["ab_step"] = dataclasses.replace(ab, launches=ab.launches + launches["ab"])
+    sim1_launches = launches["ab"]
     err = {"ab_step": sim1_kernel_vs_plain(sim)}
     del sim
     torch.cuda.empty_cache()
+
+    coupled = coupled_main_path()
+    kernels.update(coupled["kernels"])
+    err.update(coupled["err"])
+    # the JSON record counts the launches of every A-B main path
+    kernels["ab_step"] = dataclasses.replace(
+        ab, launches=ab.launches + sim1_launches + coupled["ab_launches"])
     return {"kernels": kernels, "err": err}
+
+
+def coupled_main_path() -> dict:
+    """sim_coupled at COUPLED_RES through its ``build`` with ``--use-fused``,
+    APP_STEPS steps through the coupled kernel, then through the two-kernel
+    path (B4 then B6), each counted from the end of sim_init."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim_coupled
+
+    out, final, slab = {"kernels": {}, "err": {}}, None, None
+    for dispatch in ("auto", "two-kernel"):
+        label = f"sim_coupled_res{COUPLED_RES}_{dispatch}"
+        sim = sim_coupled.build(COUPLED_RES, device=DEVICE, use_fused=True,
+                                results_parent=WORK / "main" / dispatch)
+        sim.coupled_dispatch = dispatch
+        sim.phys_final_time = APP_STEPS * sim.domain.units.phys_dt
+        if not counting_from_init(sim).run():
+            raise RuntimeError(f"{label} failed (NaN or refused)")
+        launches = report_main(sim, label)
+        want = ({"coupled": APP_STEPS, "ab": 0, "ade": 0} if dispatch == "auto"
+                else {"coupled": 0, "ab": APP_STEPS, "ade": APP_STEPS})
+        expected_kernel = "one-kernel-AB" if dispatch == "auto" else "two-kernel"
+        if (sim.coupled_kernel != expected_kernel or launches != want
+                or sim.iterations != APP_STEPS):
+            raise RuntimeError(f"{label}: coupled_kernel {sim.coupled_kernel!r}, launches "
+                               f"{launches} after {sim.iterations} steps")
+        slab = plume_slab(sim) if slab is None else slab
+        check_plume(sim, label, slab)
+        if dispatch == "auto":
+            out["kernels"]["coupled_ab"] = dataclasses.replace(sim._coupled_step.kernel)
+            out["err"]["coupled_ab"] = coupled_kernel_vs_plain_at(sim)
+            final = (sim.rho.clone(), sim.u.clone(), sim.phi.clone())
+            sim._spare, sim._g_spare = torch.empty_like(sim.f), torch.empty_like(sim.g)
+        else:
+            out["kernels"]["ade_step"] = dataclasses.replace(sim._ade_step.kernel)
+            out["ab_launches"] = launches["ab"]
+            same = all(torch.equal(a, b) for a, b in zip(final, (sim.rho, sim.u, sim.phi)))
+            d = (max_diff(final[0], sim.rho), max_diff(final[1], sim.u),
+                 scaled_diff(sim.phi, final[2], local_scale(final[2])))
+            log("main", path=label, compare="two-kernel vs one-kernel final fields",
+                max_drho=d[0], max_du=d[1], max_dphi_scaled=d[2], bit_equal=same)
+            if not (d[0] <= TOL_APP and d[1] <= TOL_APP and d[2] <= TOL_APP):
+                raise RuntimeError(f"{label}: the two coupled paths disagree: {d}")
+        profile_loop(sim, label)
+        del sim
+        torch.cuda.empty_cache()
+    return out
+
+
+def plume_slab(sim):
+    """The reference of sim_coupled's middle: the same units, collisions,
+    inflow and outflow on an X x 4 x 4 slab periodic in y and z, APP_STEPS
+    plain steps on the card.  A site more than APP_STEPS sites from the
+    walls takes, in APP_STEPS steps, only what the slab's sites take."""
+    from tnl_lbm_tpu_torch.apps.sim_coupled import SimCoupled
+    from tnl_lbm_tpu_torch.models import D3Q7, D3Q27
+    from tnl_lbm_tpu_torch.ops.boundary import GEO
+    from tnl_lbm_tpu_torch.sim.config import Domain
+    from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO
+    from tnl_lbm_tpu_torch.utils.units import Lattice
+
+    X = sim.domain.shape[0]
+    u0 = sim.domain.units
+    units = Lattice(global_size=(X, 4, 4), phys_origin=(0.0, 0.0, 0.0), phys_dl=u0.phys_dl,
+                    phys_dt=u0.phys_dt, phys_viscosity=u0.phys_viscosity)
+    m = np.zeros((X, 4, 4), np.uint8)
+    m[0], m[-1] = GEO.INFLOW, GEO.OUTFLOW_EQ
+    ma = np.zeros((X, 4, 4), np.uint8)
+    ma[0], ma[-1] = ADEGEO.INFLOW, ADEGEO.OUTFLOW_PE
+    per = (False, True, True)
+    slab = SimCoupled(sim.cfg, Domain(lat=D3Q27, units=units, map=m, periodic=per), sim.ade_cfg,
+                      Domain(lat=D3Q7, units=units, map=ma, periodic=per),
+                      ade_diffusion=sim.ade_diffusion, phi_inflow=sim.phi_inflow, device=DEVICE,
+                      sim_id="plume_slab", results_parent=WORK / "main" / "slab",
+                      phys_final_time=APP_STEPS * units.phys_dt, use_fused=False)
+    slab.lbm_inflow_vx = sim.lbm_inflow_vx
+    if not slab.run() or slab.iterations != APP_STEPS or slab.coupled_kernel != "plain":
+        raise RuntimeError("the plume slab reference failed")
+    return slab
+
+
+def profile_loop(sim, label: str, steps: int = 10) -> None:
+    """Where the time of a Simulation's loop goes: after 5 warm-up steps,
+    ``steps`` steps unprofiled (host clock, ending in a synchronize), then
+    ``steps`` under torch.profiler - device time per kernel, and the share
+    of the profiled host time the device was busy.  Runs past the checked
+    state; a run's own checks come first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sim._advance(5)
+    t0 = time.perf_counter()
+    sim._advance(steps)
+    unprofiled = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim._advance(steps)
+        wall = (time.perf_counter() - t0) * 1e3
+    device = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            device[e.key] = us / 1e3
+    busy = sum(device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:4]
+    log("profile", path=label, steps=steps, unprofiled_ms_per_step=f"{unprofiled / steps:.4f}",
+        profiled_ms_per_step=f"{wall / steps:.4f}", device_ms_per_step=f"{busy / steps:.4f}",
+        device_busy_share=f"{busy / wall:.4f}" if wall else "n/a",
+        **{f"device_ms_{k[:40]}": f"{v / steps:.4f}" for k, v in top})
+
+
+def check_plume(sim, label: str, slab) -> None:
+    """phi finite everywhere.  On the y band more than WALL_REACH sites from
+    the WALL_BODY walls (whose anti-bounce-back grows phi; a site moves
+    information one site per step), rho, u and phi equal, within TOL_APP,
+    the plain steps' on a periodic slab (``plume_slab``), phi <= 1 + 1e-3,
+    and phi has risen above zero at x = 1.  The step front at the inlet
+    undershoots below zero (CLBM at omega 1.92); its minimum is printed."""
+    import torch
+
+    Y, Z = sim.ade_domain.shape[1:]
+    band = sim.phi[:, WALL_REACH + 1 : Y - WALL_REACH - 1]
+    lo, hi = float(band.min()), float(band.max())
+    inlet = float(band[1].max())
+    finite = bool(torch.isfinite(sim.phi).all())
+    mid = (slice(None), Y // 2, Z // 2)
+    d = (max_diff(sim.rho[mid], slab.rho[:, 0, 0]), max_diff(sim.u[(slice(None),) + mid],
+                                                             slab.u[:, :, 0, 0]),
+         max_diff(sim.phi[mid], slab.phi[:, 0, 0]))
+    spread = max_diff(band, band[:, :1].expand_as(band))
+    log("main", path=label, phi_finite=finite, max_abs_phi=float(sim.phi.abs().max()),
+        band_y=f"{WALL_REACH + 1}..{Y - WALL_REACH - 2}", band_phi_min=lo, band_phi_max=hi,
+        band_phi_max_x1=inlet, band_spread_in_y=spread, slab_max_drho=d[0], slab_max_du=d[1],
+        slab_max_dphi=d[2], max_abs_u=float(sim.u.abs().max()))
+    if not (finite and hi <= 1 + 1e-3 and inlet > 0 and all(x <= TOL_APP for x in d)):
+        raise RuntimeError(f"{label}: phi not finite, out of range on the band, or the band "
+                           f"differs from the slab reference: {d}")
+
+
+def coupled_kernel_vs_plain_at(sim) -> float:
+    """One coupled step from the main path's final state: a fresh coupled
+    kernel wrapper against its plain version on the card; f, rho, u to the
+    step bounds, g and phi relative to ``local_scale`` of the state (the
+    walls have grown phi).  The spare buffers are freed first; the plain version's
+    peak memory is reported.  Returns max |df|."""
+    import torch
+
+    from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step
+
+    t = sim.phys_time()
+    u_in, force = sim.update_inflow(t), sim.body_force(t)
+    nu, phi_in = sim.domain.units.lbm_viscosity(), float(sim.phi_inflow)
+    sim._spare = sim._g_spare = None
+    torch.cuda.empty_cache()
+    step = make_fused_coupled_step(sim.cfg, sim.domain, sim.ade_cfg, sim.ade_domain, DEVICE)
+    k = step(sim.f, sim.g, nu, sim._nu_ade, u_in=u_in, force=force, phi_in=phi_in)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    p = step.plain(sim.f, sim.g, nu, sim._nu_ade, u_in=u_in, force=force, phi_in=phi_in)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated()
+    scale = local_scale(sim.g)
+    d = (max_diff(k[0], p[0]), max_diff(k[2], p[2]), max_diff(k[3], p[3]),
+         scaled_diff(k[1], p[1], scale), scaled_diff(k[4], p[4], scale))
+    log("main", path=f"sim_coupled_res{COUPLED_RES}", compare="kernel vs plain, one step from "
+        "the final state", shape="x".join(map(str, sim.domain.shape)), max_df=d[0],
+        max_drho=d[1], max_du=d[2], max_dg_scaled=d[3], max_dphi_scaled=d[4],
+        plain_peak_gb=f"{plain_peak / 1e9:.3f}",
+        plain_temporaries_gb=f"{(plain_peak - base) / 1e9:.3f}")
+    del k, p
+    torch.cuda.empty_cache()
+    if not (d[0] <= TOL_F and d[1] <= TOL_RHO and d[2] <= TOL_U and d[3] <= TOL_G
+            and d[4] <= TOL_PHI):
+        raise RuntimeError(f"coupled_ab vs plain on sim_coupled res {COUPLED_RES}: {d}")
+    return d[0]
 
 
 def sim1_main_path():
@@ -749,6 +1242,34 @@ def phase_accuracy() -> None:
                            f"solution's {l1_ref:e}")
     for app in ("sim_1", "sim_3"):
         app_kernel_vs_plain(app)
+    coupled_app_kernel_vs_plain()
+
+
+def coupled_app_kernel_vs_plain() -> None:
+    """sim_coupled at resolution 2, APP_STEPS steps through the coupled
+    kernel and through the plain steps on the card, from the same start;
+    phi is held relative to ``local_scale`` of the plain run's phi, since
+    the walls grow it."""
+    from tnl_lbm_tpu_torch.apps import sim_coupled
+
+    runs = {}
+    for fused in (True, False):
+        sim = sim_coupled.build(2, device=DEVICE, use_fused=fused,
+                                results_parent=WORK / "accuracy" / f"sim_coupled_{fused}")
+        sim.phys_final_time = APP_STEPS * sim.domain.units.phys_dt
+        if not sim.run() or sim.iterations != APP_STEPS:
+            raise RuntimeError(f"sim_coupled res 2 (use_fused={fused}) failed")
+        runs[fused] = sim
+    k, p = runs[True], runs[False]
+    d = (max_diff(k.rho, p.rho), max_diff(k.u, p.u),
+         scaled_diff(k.phi, p.phi, local_scale(p.phi)))
+    step = k._coupled_step
+    log("accuracy", path="sim_coupled_res2", steps=APP_STEPS, coupled_kernel=k.coupled_kernel,
+        max_drho=d[0], max_du=d[1], max_dphi_scaled=d[2], max_abs_phi=float(p.phi.abs().max()),
+        launches=step.kernel.launches, plain_calls=step.plain_calls)
+    if not (all(x <= TOL_APP for x in d) and step.kernel.launches == APP_STEPS
+            and step.plain_calls == 0 and p.coupled_kernel == "plain"):
+        raise RuntimeError(f"sim_coupled res 2: kernel vs plain over {APP_STEPS} steps: {d}")
 
 
 def app_kernel_vs_plain(name: str) -> None:
@@ -778,6 +1299,41 @@ def app_kernel_vs_plain(name: str) -> None:
                            f"drho {d_rho}, du {d_u}")
 
 
+def kernel_footprints(ops: dict) -> dict:
+    """(bytes per site, FP32 operations per site) of each kernel at its
+    timed 256^3 inputs: the bytes it must move (each input read once, each
+    output written once) and the SASS count of ``phase_build`` (the pair:
+    an even plus an odd step per site; P2: the affine passes, 2 operations
+    per DF)."""
+    from tnl_lbm_tpu_torch.kernels.fused_aa import PAIR_TILE
+
+    even, odd = ops["aa_even_kernel"], ops["aa_odd_kernel"]
+    affine = 2 * 27 * 20  # PROBE_PASSES' timed entry: 20 passes
+    sites = float(np.prod(BENCH_SHAPE))
+    block0 = 27 * 4 * (np.prod([t + 2 for t in PAIR_TILE]) + np.prod(PAIR_TILE))
+    return {
+        "aa_even": (233, even), "aa_odd": (233, odd),
+        "aa_pair_f32": (PAIR_BYTES["f32"], even + odd),
+        "aa_pair_f16": (PAIR_BYTES["f16"], even + odd),
+        "aa_pair_bf16": (PAIR_BYTES["bf16"], even + odd),
+        "ab_step": (AB_BYTES, ops["ab_step_cum_well_kernel"]),
+        "copy_permute": (232, ops["copy_permute_kernel"]),
+        "pair_pipeline": (216, affine),
+        "pair_compute_only": (block0 / sites, affine),
+        "ade_step": (ADE_BYTES, ops["ade_step_clbm_kernel"]),
+        "coupled_ab": (COUPLED_BYTES, ops["coupled_cum_well_clbm_kernel"]),
+    }
+
+
+def bound(bytes_per_site: float, ops_per_site: float) -> tuple[float, str]:
+    """The least time in ms at 256^3: bytes over the published HBM rate or
+    FP32 operations over the published FP32 rate, whichever is larger."""
+    sites = float(np.prod(BENCH_SHAPE))
+    t_bytes = bytes_per_site * sites / (HBM_PEAK_GBPS * 1e9) * 1e3
+    t_ops = ops_per_site * sites / (FP32_PEAK_TFLOPS * 1e12) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def main() -> int:
     if not (ROOT / "tnl_lbm_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -790,24 +1346,35 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     shutil.rmtree(WORK, ignore_errors=True)
     device = phase_device()
-    phase_build()
+    ops = phase_build()
     steps = phase_compare_steps()
     pairs = phase_compare_pairs(steps["times"])
     probe = phase_probes()
-    ab = phase_compare_ab(steps["times"], gbps(232, probe["times"]["copy_permute"][0]))
+    floor = gbps(232, probe["times"]["copy_permute"][0])
+    ab = phase_compare_ab(steps["times"], floor)
+    ade_err = phase_compare_ade()
+    coupled_err = phase_compare_coupled()
+    timed = phase_time_coupled(floor)
     main_path = phase_main_path()
     kernels = main_path["kernels"]
     phase_accuracy()
     err = {**steps["err"], **pairs["err"], **probe["err"], **ab["err"]}
-    err["ab_step"] = max(err["ab_step"], main_path["err"]["ab_step"])
-    times = {**steps["times"], **pairs["times"], **probe["times"], **ab["times"]}
+    for key in ("ab_step", "ade_step", "coupled_ab"):
+        err[key] = max(err.get(key, 0.0), main_path["err"].get(key, 0.0),
+                       timed["err"].get(key, 0.0), ade_err.get(key, 0.0),
+                       coupled_err.get(key, 0.0))
+    times = {**steps["times"], **pairs["times"], **probe["times"], **ab["times"],
+             **timed["times"]}
     kernels.update(probe["kernels"])
-    record = {"kernels": [
-        {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-         "launches": k.launches, "max_abs_err": err[key], "ms": times[key][0],
-         "plain_ms": times[key][1]}
-        for key, k in kernels.items()
-    ]}
+    footprint = kernel_footprints(ops)
+    record = {"kernels": []}
+    for key, k in kernels.items():
+        bound_ms, bound_by = bound(*footprint[key])
+        record["kernels"].append(
+            {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+             "launches": k.launches, "max_abs_err": err[key], "ms": times[key][0],
+             "plain_ms": times[key][1], "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": None})
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                              "count": device["count"]}}))

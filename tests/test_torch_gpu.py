@@ -301,3 +301,171 @@ def test_ab_kernel_writes_into_out_and_rejects_bad_input(cuda):
             make_fused_step(interop.config_from_spec(*spec, "AB"),
                             interop.domain_from_numpy(m, periodic), cuda)
     assert step.kernel.launches == 1
+
+
+# ------------------------------------------------- ADE step (B6), coupled (B7)
+
+def ade_box(shape=(8, 16, 8)):
+    """A box holding every ADEGEO code: WALL and WALL_BODY on the y faces,
+    symmetry planes on the z faces and on patches of x = 1, x = X-2 and
+    y = 1, y = Y-2, INFLOW on x = 0, OUTFLOW_PE and OUTFLOW_RIGHT on
+    x = X-1, a solid slab behind TRANSFER_FS/SF/SW interfaces, a
+    PERIODIC-coded block and a NOTHING site."""
+    from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO as A
+
+    X, Y, Z = shape
+    m = np.zeros(shape, np.uint8)
+    m[:, 0], m[:, -1] = A.WALL, A.WALL_BODY
+    m[:, 1:-1, 0], m[:, 1:-1, -1] = A.SYM_BOTTOM, A.SYM_TOP
+    m[0, 1:-1, 1:-1] = A.INFLOW
+    m[-1, 1 : Y // 2, 1:-1], m[-1, Y // 2 : -1, 1:-1] = A.OUTFLOW_PE, A.OUTFLOW_RIGHT
+    m[1, 2:4, 2:-2], m[-2, 2:4, 2:-2] = A.SYM_LEFT, A.SYM_RIGHT
+    m[2:4, 1, 2:-2], m[2:4, -2, 2:-2] = A.SYM_BACK, A.SYM_FRONT
+    m[4, 5:11, 2:-2] = A.SOLID
+    m[2, 5:11, 2:-2], m[3, 5:11, 2:-2] = A.TRANSFER_FS, A.TRANSFER_SF
+    m[5, 5:11, 2:-2] = A.TRANSFER_SW
+    m[X // 2, Y - 4 : Y - 2, 2:4] = A.PERIODIC
+    m[X // 2 + 1, Y - 3, Z // 2] = A.NOTHING
+    return m
+
+
+def ade_case(kind, shape=None):
+    """(ADE map, periodic) of the B6 geometries: ``ade_box``, the periodic
+    box (FLUID with a PERIODIC-coded block, periodic on every axis) and
+    sim_coupled's channel (WALL_BODY walls, INFLOW, OUTFLOW_PE, periodic z)."""
+    from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO as A
+
+    if kind == "box":
+        return ade_box(shape or (8, 16, 8)), (False, False, True)
+    m = np.zeros(shape or (8, 16, 8), np.uint8)
+    if kind == "periodic":
+        m[2:5, 3:9, 1:4] = A.PERIODIC
+        return m, (True, True, True)
+    assert kind == "channel", kind
+    m[:, 0] = m[:, -1] = A.WALL_BODY
+    m[0], m[-1] = A.INFLOW, A.OUTFLOW_PE
+    return m, (False, False, True)
+
+
+ADE_KINDS = ("box", "periodic", "channel")
+ADE_COLLISIONS = ("SRT", "MRT", "CLBM", "CLBM-RS")
+TCOEF, PHI_IN = 0.3, 0.7
+
+
+def seeded_ade(shape, device, seed=3):
+    """(g, u, nu field) from a seeded phi and velocity."""
+    from tnl_lbm_tpu_torch.models import D3Q7
+    from tnl_lbm_tpu_torch.ops.equilibrium import eq_quadratic
+
+    rng = np.random.default_rng(seed)
+    phi = torch.from_numpy((0.5 + 0.1 * rng.standard_normal(shape)).astype(np.float32))
+    u = torch.from_numpy((0.02 * rng.standard_normal((3,) + shape)).astype(np.float32))
+    nu = torch.from_numpy((0.01 + 0.02 * rng.random(shape)).astype(np.float32))
+    g = eq_quadratic(D3Q7, phi, u).contiguous()
+    return g.to(device), u.to(device), nu.to(device)
+
+
+@pytest.mark.parametrize("nu_kind", ["scalar", "field"])
+@pytest.mark.parametrize("collision", ADE_COLLISIONS)
+@pytest.mark.parametrize("kind", ADE_KINDS)
+def test_ade_kernel_matches_plain_on_card(cuda, kind, collision, nu_kind):
+    """Two ADE steps, each against the plain version on the same input."""
+    from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
+
+    m, periodic = ade_case(kind)
+    dom = interop.domain_from_numpy(m, periodic, lat=interop.D3Q7)
+    step = make_fused_ade_step(interop.ade_config_from_spec(collision), dom, cuda,
+                               variable_diffusion=nu_kind == "field", transfer_coeff=TCOEF)
+    g, u, nu_field = seeded_ade(m.shape, cuda)
+    nu = nu_field if nu_kind == "field" else 0.02
+    for it in range(2):
+        gk, pk = step(g, u, nu, phi_in=PHI_IN)
+        gp, pp = step.plain(g, u, nu, phi_in=PHI_IN)
+        torch.cuda.synchronize()
+        assert float((gk - gp).abs().max()) <= 1e-6, f"g, step {it}"
+        assert float((pk - pp).abs().max()) <= 2e-6, f"phi, step {it}"
+        g = gk
+    assert step.kernel.launches == 2 and step.plain_calls == 0
+
+
+def coupled_cases():
+    """(label, NSE map, NSE periodic, ADE map, ADE periodic) of the B7
+    compare: sim_coupled's channel maps and ``bc_box`` beside ``ade_box``."""
+    from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO as A
+
+    shape = (16, 16, 12)
+    mn = np.zeros(shape, np.uint8)
+    mn[:, 0] = mn[:, -1] = GEO.WALL
+    mn[0, 1:-1], mn[-1, 1:-1] = GEO.INFLOW, GEO.OUTFLOW_EQ
+    ma = np.zeros(shape, np.uint8)
+    ma[:, 0] = ma[:, -1] = A.WALL_BODY
+    ma[0], ma[-1] = A.INFLOW, A.OUTFLOW_PE
+    yield "channel", mn, (False, False, True), ma, (False, False, True)
+    yield "box", bc_box((8, 16, 8)), (False, False, True), ade_box((8, 16, 8)), (False, False, True)
+
+
+@pytest.mark.parametrize("collision", ADE_COLLISIONS)
+@pytest.mark.parametrize("spec", sorted(AB_SPECS))
+def test_coupled_kernel_matches_plain_on_card(cuda, spec, collision):
+    """Two coupled steps per geometry against the plain version and against
+    the A-B kernel then the ADE kernel, with a per-site nu field."""
+    from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
+    from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step
+
+    cfg = interop.config_from_spec(*AB_SPECS[spec], "AB")
+    acfg = interop.ade_config_from_spec(collision)
+    for label, mn, pn, ma, pa in coupled_cases():
+        dom = interop.domain_from_numpy(mn, pn)
+        adom = interop.domain_from_numpy(ma, pa, lat=interop.D3Q7)
+        one = make_fused_coupled_step(cfg, dom, acfg, adom, cuda, variable_diffusion=True,
+                                      transfer_coeff=TCOEF)
+        b4 = make_fused_step(cfg, dom, cuda)
+        b6 = make_fused_ade_step(acfg, adom, cuda, variable_diffusion=True, transfer_coeff=TCOEF)
+        f = seeded_state(cfg, mn.shape, cuda, seed=11)
+        g, _, nu_field = seeded_ade(mn.shape, cuda)
+        for it in range(2):
+            args = dict(u_in=U_IN, force=(1e-5, 0.0, 0.0))
+            fk, gk, rk, uk, pk = one(f, g, 0.02, nu_field, phi_in=PHI_IN, **args)
+            fp, gp, rp, up, pp = one.plain(f, g, 0.02, nu_field, phi_in=PHI_IN, **args)
+            f2, r2, u2 = b4(f, 0.02, **args)
+            g2, p2 = b6(g, u2, nu_field, phi_in=PHI_IN)
+            torch.cuda.synchronize()
+            for ref in ((fp, rp, up, gp, pp), (f2, r2, u2, g2, p2)):
+                d = [float((a - b).abs().max()) for a, b in zip((fk, rk, uk, gk, pk), ref)]
+                assert d[0] <= 1e-6 and d[1] <= 2e-6 and d[2] <= 1e-6, (label, it, d)
+                assert d[3] <= 1e-6 and d[4] <= 2e-6, (label, it, d)
+            f, g = fk, gk
+        assert one.kernel.launches == 2 and one.plain_calls == 0
+
+
+def test_ade_and_coupled_kernels_write_into_out_and_reject_bad_input(cuda):
+    from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
+    from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step
+
+    m, periodic = ade_case("box")
+    adom = interop.domain_from_numpy(m, periodic, lat=interop.D3Q7)
+    acfg = interop.ade_config_from_spec("CLBM")
+    step = make_fused_ade_step(acfg, adom, cuda)
+    g, u, nu_field = seeded_ade(m.shape, cuda)
+    out = torch.empty_like(g)
+    assert step(g, u, 0.02, out=out)[0] is out
+    with pytest.raises(ValueError):
+        step(g, u, 0.02, out=g)
+    with pytest.raises(ValueError):
+        step(g, u, nu_field)  # a field needs variable_diffusion=True
+    with pytest.raises(ValueError):
+        step(g, u, 0.02, phi_in=torch.tensor(1.0, device=cuda))
+    with pytest.raises(ValueError):
+        step(g, u[:, :-1].contiguous(), 0.02)
+    with pytest.raises(NotImplementedError):
+        step(g.double(), u, 0.02)
+    cfg = interop.config_from_spec("CUM", "EQ", False, "AB")
+    one = make_fused_coupled_step(cfg, interop.domain_from_numpy(bc_box(m.shape), periodic),
+                                  acfg, adom, cuda)
+    f = seeded_state(cfg, m.shape, cuda)
+    outs = torch.empty_like(f), torch.empty_like(g)
+    res = one(f, g, 0.02, 0.02, out_f=outs[0], out_g=outs[1])
+    assert res[0] is outs[0] and res[1] is outs[1]
+    with pytest.raises(ValueError):
+        one(f, g, 0.02, 0.02, out_g=g)
+    assert step.kernel.launches == 1 and one.kernel.launches == 1

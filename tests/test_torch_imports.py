@@ -17,7 +17,10 @@ PORT_MODULES = sorted(
 def test_every_port_module_is_listed():
     for name in ("tnl_lbm_tpu_torch.apps.sim_2", "tnl_lbm_tpu_torch.kernels.fused_aa",
                  "tnl_lbm_tpu_torch.kernels.build", "tnl_lbm_tpu_torch.sim.state",
-                 "tnl_lbm_tpu_torch.interop"):
+                 "tnl_lbm_tpu_torch.interop", "tnl_lbm_tpu_torch.sim.coupled",
+                 "tnl_lbm_tpu_torch.sim.step_ade", "tnl_lbm_tpu_torch.kernels.fused_ade",
+                 "tnl_lbm_tpu_torch.kernels.fused_coupled", "tnl_lbm_tpu_torch.ops.collision_ade",
+                 "tnl_lbm_tpu_torch.apps.sim_coupled"):
         assert name in PORT_MODULES
 
 

@@ -9,11 +9,12 @@ its function names, on torch tensors:
 - every entry point takes an explicit ``device``; asking for ``cuda``
   without a card raises, nothing moves to the CPU by itself;
 - the A-A kernels (even, odd, and the one-kernel pair with optional
-  16-bit storage), the A-B step with the full 3D boundary set and the
+  16-bit storage), the A-B step with the full 3D boundary set, the D3Q7
+  advection-diffusion step, the one-kernel coupled NSE+ADE step and the
   bandwidth probes are hand-written CUDA C++ for Hopper (``csrc/``); their
   plain PyTorch versions sit beside them in ``kernels/fused_aa.py``,
-  ``kernels/fused.py`` and ``kernels/probes.py`` and serve CPU tensors and
-  the tests.
+  ``kernels/fused.py``, ``kernels/fused_ade.py``, ``kernels/fused_coupled.py``
+  and ``kernels/probes.py`` and serve CPU tensors and the tests.
 
 This package never imports jax.
 """

@@ -10,9 +10,9 @@
 // c_x = -1 components blend x-1 and x by the speed of sound), the WALL
 // swap and the symmetry mirrors, take the moments, apply the post-moment
 // BCs (lbm_site.cuh ab_boundary), collide where the code collides and pass
-// the DFs through elsewhere.  NOTHING sites keep their stored DFs; WALL
-// and NOTHING sites report rho = 1, u = 0.  The result goes out of place
-// into a second buffer (the A-B double buffer).
+// the DFs through elsewhere (lbm_site.cuh ab_site).  NOTHING sites keep
+// their stored DFs; WALL and NOTHING sites report rho = 1, u = 0.  The
+// result goes out of place into a second buffer (the A-B double buffer).
 //
 // Collision and equilibrium kind are template parameters: <WELL, EQ> is
 // <true, EQ_WELL> for CUM_WELL, <false, EQ_QUAD> and <false, EQ_INVCUM>
@@ -35,90 +35,8 @@
 
 using namespace lbm;
 
-// speed of sound of the interpolated outflow (streaming.py SPEED_OF_SOUND)
-// and 1 - it, each rounded once to float
-constexpr float CS = 0.5773502691896257f;
-constexpr float ONE_MINUS_CS = 0.4226497308103743f;
 // threads per block, along z
 constexpr int THREADS = 128;
-
-namespace {
-
-template <bool WELL, int EQ>
-__device__ __forceinline__ void ab_step_body(const float* __restrict__ f,
-                                             float* __restrict__ fout,
-                                             const uint8_t* __restrict__ map,
-                                             float* __restrict__ rho_out,
-                                             float* __restrict__ u_out, int Y, int Z,
-                                             int periodic_bits, const ABParams& p) {
-  const int z = blockIdx.x * blockDim.x + threadIdx.x;
-  if (z >= Z) return;
-  const int X = gridDim.z;
-  const int x = blockIdx.z, y = blockIdx.y;
-  const int64_t N = (int64_t)X * Y * Z;
-  const int64_t site = ((int64_t)x * Y + y) * Z + z;
-  const bool px = periodic_bits & 1, py = periodic_bits & 2, pz = periodic_bits & 4;
-  const int64_t sx = (int64_t)Y * Z, sy = Z;
-
-  const uint8_t m = map[site];
-  float v[Q];
-  if (m == GEO_NOTHING) {
-    // inert ghost site: its stored DFs, rho = 1, u = 0
-#pragma unroll
-    for (int q = 0; q < Q; ++q) fout[q * N + site] = f[q * N + site];
-    rho_out[site] = 1.0f;
-    u_out[site] = 0.0f;
-    u_out[N + site] = 0.0f;
-    u_out[2 * N + site] = 0.0f;
-    return;
-  }
-  const bool row_inside = x > 0 && x < X - 1 && y > 0 && y < Y - 1;
-  if (row_inside) {
-#pragma unroll
-    for (int q = 0; q < Q; ++q)
-      v[q] = f[q * N + site - cx(q) * sx - cy(q) * sy + (neighbour(z, -cz(q), Z, pz) - z)];
-  } else {
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int nx = neighbour(x, -cx(q), X, px);
-      const int ny = neighbour(y, -cy(q), Y, py);
-      const int nz = neighbour(z, -cz(q), Z, pz);
-      v[q] = f[q * N + ((int64_t)nx * Y + ny) * Z + nz];
-    }
-  }
-  if (m == GEO_OUTFLOW_RIGHT || m == GEO_OUTFLOW_RIGHT_INTERP) {
-    // the outflow pull rules read x-1 (and x) in place of x - c_x
-    const int64_t xm = neighbour(x, -1, X, px);
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int64_t yz = (int64_t)neighbour(y, -cy(q), Y, py) * Z + neighbour(z, -cz(q), Z, pz);
-      const float from_xm = f[q * N + xm * sx + yz];
-      if (m == GEO_OUTFLOW_RIGHT)
-        v[q] = from_xm;
-      else if (cx(q) == -1)
-        v[q] = CS * from_xm + ONE_MINUS_CS * f[q * N + (int64_t)x * sx + yz];
-    }
-  }
-  pull_transform_ab(v, m);
-
-  float rho, ux, uy, uz;
-  moments_local<WELL>(v, p.fx, p.fy, p.fz, p.neumaier != 0, rho, ux, uy, uz);
-  ab_boundary<WELL, EQ>(v, m, p, rho, ux, uy, uz);
-  if (collides(m)) collide_cum<WELL>(v, rho == 0.0f ? 1.0f : rho, ux, uy, uz, p.omega1);
-
-#pragma unroll
-  for (int q = 0; q < Q; ++q) fout[q * N + site] = v[q];
-  if (m == GEO_WALL) {
-    rho = 1.0f;
-    ux = uy = uz = 0.0f;
-  }
-  rho_out[site] = rho;
-  u_out[site] = ux;
-  u_out[N + site] = uy;
-  u_out[2 * N + site] = uz;
-}
-
-}  // namespace
 
 // One kernel per (collision, equilibrium kind); named so that the
 // -Xptxas -v report can be read per instance.
@@ -127,7 +45,11 @@ __device__ __forceinline__ void ab_step_body(const float* __restrict__ f,
       NAME(const float* __restrict__ f, float* __restrict__ fout,                            \
            const uint8_t* __restrict__ map, float* __restrict__ rho, float* __restrict__ u,  \
            int Y, int Z, int periodic_bits, ABParams p) {                                    \
-    ab_step_body<WELL, EQ>(f, fout, map, rho, u, Y, Z, periodic_bits, p);                    \
+    const int z = blockIdx.x * blockDim.x + threadIdx.x;                                     \
+    if (z >= Z) return;                                                                      \
+    float ux, uy, uz;                                                                        \
+    ab_site<WELL, EQ>(f, fout, map, rho, u, blockIdx.z, blockIdx.y, z, gridDim.z, Y, Z,      \
+                      periodic_bits, p, ux, uy, uz);                                         \
   }
 
 AB_STEP_KERNEL(ab_step_cum_well_kernel, true, EQ_WELL)

@@ -1,12 +1,14 @@
 // Per-site D3Q27 logic shared by the A-A kernels (aa_even.cu, aa_odd.cu,
-// aa_pair.cu) and the A-B kernel (ab_step.cu).
+// aa_pair.cu), the A-B kernel (ab_step.cu) and the coupled kernel
+// (coupled_ab.cu).
 //
 // CUDA counterpart of the per-site code in tnl_lbm_tpu/kernels/fused.py:
 // _moments_local (moments_local), _eq_local (eq_q), _pull_transform
 // (pull_transform: the WALL bounce-back swap; sym_mirror), the post-moment
 // BCs of _stream_bc_collide (ab_boundary, with the Eichler moment inflow of
 // tnl_lbm_tpu/ops/boundary.py inflow_left_moment_bc), _stream_bc_collide
-// for the A-A kernels (stream_bc_collide), and the zero-folded cumulant
+// for the A-A kernels (stream_bc_collide) and for the A-B step (ab_site),
+// and the zero-folded cumulant
 // cascade of tnl_lbm_tpu/ops/collision.py:collide_cum, with well=True
 // (collide_cum<true>, CUM_WELL) and without (collide_cum<false>, CUM: total
 // DFs, no weight offsets).
@@ -623,6 +625,92 @@ __device__ __forceinline__ void ab_boundary(float (&f)[Q], uint8_t m, const ABPa
     default:
       break;
   }
+}
+
+// speed of sound of the interpolated outflow (streaming.py SPEED_OF_SOUND)
+// and 1 - it, each rounded once to float
+constexpr float CS = 0.5773502691896257f;
+constexpr float ONE_MINUS_CS = 0.4226497308103743f;
+
+// One A-B site update of D3Q27 (fused.py _stream_bc_collide with the pull
+// of make_fused_step), shared by the A-B step (ab_step.cu) and the coupled
+// step (coupled_ab.cu): pull f_q from x - c_q (wrapped on periodic axes,
+// clamped to the edge site otherwise), the outflow pull rules, the WALL
+// swap and the symmetry mirrors, the moments, the post-moment BCs and the
+// collision where the code collides.  Writes fout, rho_out and u_out at
+// the site and returns the velocity it reported in (ux, uy, uz): NOTHING
+// sites keep their stored DFs, WALL and NOTHING sites report rho = 1, u = 0.
+// A row away from the x and y faces takes a short path with plain offsets;
+// only z needs the wrap/clamp rule there.  Offsets are 64-bit.
+template <bool WELL, int EQ>
+__device__ __forceinline__ void ab_site(const float* __restrict__ f, float* __restrict__ fout,
+                                        const uint8_t* __restrict__ map,
+                                        float* __restrict__ rho_out, float* __restrict__ u_out,
+                                        int x, int y, int z, int X, int Y, int Z,
+                                        int periodic_bits, const ABParams& p,
+                                        float& ux, float& uy, float& uz) {
+  const int64_t N = (int64_t)X * Y * Z;
+  const int64_t site = ((int64_t)x * Y + y) * Z + z;
+  const bool px = periodic_bits & 1, py = periodic_bits & 2, pz = periodic_bits & 4;
+  const int64_t sx = (int64_t)Y * Z, sy = Z;
+
+  const uint8_t m = map[site];
+  float v[Q];
+  if (m == GEO_NOTHING) {
+    // inert ghost site: its stored DFs, rho = 1, u = 0
+#pragma unroll
+    for (int q = 0; q < Q; ++q) fout[q * N + site] = f[q * N + site];
+    rho_out[site] = 1.0f;
+    u_out[site] = 0.0f;
+    u_out[N + site] = 0.0f;
+    u_out[2 * N + site] = 0.0f;
+    ux = uy = uz = 0.0f;
+    return;
+  }
+  const bool row_inside = x > 0 && x < X - 1 && y > 0 && y < Y - 1;
+  if (row_inside) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      v[q] = f[q * N + site - cx(q) * sx - cy(q) * sy + (neighbour(z, -cz(q), Z, pz) - z)];
+  } else {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int nx = neighbour(x, -cx(q), X, px);
+      const int ny = neighbour(y, -cy(q), Y, py);
+      const int nz = neighbour(z, -cz(q), Z, pz);
+      v[q] = f[q * N + ((int64_t)nx * Y + ny) * Z + nz];
+    }
+  }
+  if (m == GEO_OUTFLOW_RIGHT || m == GEO_OUTFLOW_RIGHT_INTERP) {
+    // the outflow pull rules read x-1 (and x) in place of x - c_x
+    const int64_t xm = neighbour(x, -1, X, px);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int64_t yz = (int64_t)neighbour(y, -cy(q), Y, py) * Z + neighbour(z, -cz(q), Z, pz);
+      const float from_xm = f[q * N + xm * sx + yz];
+      if (m == GEO_OUTFLOW_RIGHT)
+        v[q] = from_xm;
+      else if (cx(q) == -1)
+        v[q] = CS * from_xm + ONE_MINUS_CS * f[q * N + (int64_t)x * sx + yz];
+    }
+  }
+  pull_transform_ab(v, m);
+
+  float rho;
+  moments_local<WELL>(v, p.fx, p.fy, p.fz, p.neumaier != 0, rho, ux, uy, uz);
+  ab_boundary<WELL, EQ>(v, m, p, rho, ux, uy, uz);
+  if (collides(m)) collide_cum<WELL>(v, rho == 0.0f ? 1.0f : rho, ux, uy, uz, p.omega1);
+
+#pragma unroll
+  for (int q = 0; q < Q; ++q) fout[q * N + site] = v[q];
+  if (m == GEO_WALL) {
+    rho = 1.0f;
+    ux = uy = uz = 0.0f;
+  }
+  rho_out[site] = rho;
+  u_out[site] = ux;
+  u_out[N + site] = uy;
+  u_out[2 * N + site] = uz;
 }
 
 }  // namespace lbm

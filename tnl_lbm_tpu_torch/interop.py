@@ -10,8 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tnl_lbm_tpu_torch.models import D3Q27
+from tnl_lbm_tpu_torch.models import D3Q7, D3Q27
 from tnl_lbm_tpu_torch.ops.collision import COLLISIONS_D3Q27
+from tnl_lbm_tpu_torch.ops.collision_ade import COLLISIONS_D3Q7
 from tnl_lbm_tpu_torch.ops.equilibrium import EQUILIBRIA
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.utils.units import Lattice
@@ -40,16 +41,29 @@ def config_from_spec(collision_id: str, eq: str, well: bool, streaming: str,
                      storage_dtype=None if storage is None else _DTYPES[storage])
 
 
+def ade_config_from_spec(collision_id: str, streaming: str = "AB",
+                         dtype: str = "float32") -> LBMConfig:
+    """D3Q7 advection-diffusion LBMConfig from an id of ``COLLISIONS_D3Q7``
+    (the JAX package's registry, ops/collision_ade.py:124: SRT, MRT, CLBM,
+    CLBM-RS) with the quadratic equilibrium, as the JAX package builds it."""
+    if collision_id not in COLLISIONS_D3Q7:
+        raise NotImplementedError(f"ADE collision {collision_id!r} is not in "
+                                  f"{sorted(COLLISIONS_D3Q7)}")
+    return LBMConfig(lat=D3Q7, collision=COLLISIONS_D3Q7[collision_id],
+                     eq=EQUILIBRIA["EQ"], streaming=streaming, compute_dtype=_DTYPES[dtype])
+
+
 def domain_from_numpy(map_arr, periodic, global_size=None, phys_dl: float = 1.0,
                       phys_dt: float = 1.0, phys_origin=None,
-                      phys_viscosity: float = 0.0) -> Domain:
-    """Domain from a numpy GEO map (the codes are shared between the packages)."""
+                      phys_viscosity: float = 0.0, lat=D3Q27) -> Domain:
+    """Domain from a numpy code map on lattice ``lat`` (GEO codes for D3Q27,
+    ADEGEO codes for D3Q7; the integers are shared between the packages)."""
     m = np.array(map_arr, dtype=np.uint8)
     size = tuple(m.shape) if global_size is None else tuple(global_size)
     origin = (0.0,) * len(size) if phys_origin is None else phys_origin
     units = Lattice(global_size=size, phys_origin=origin, phys_dl=phys_dl, phys_dt=phys_dt,
                     phys_viscosity=phys_viscosity)
-    return Domain(lat=D3Q27, units=units, map=m, periodic=tuple(periodic))
+    return Domain(lat=lat, units=units, map=m, periodic=tuple(periodic))
 
 
 def state_from_numpy(f, device) -> torch.Tensor:

@@ -62,7 +62,7 @@ class Domain:
 
     lat: LatticeDescriptor
     units: Lattice
-    map: np.ndarray  # [*S] uint8 of GEO codes
+    map: np.ndarray  # [*S] uint8 of GEO codes (ADEGEO codes on a D3Q7 lattice)
     periodic: tuple[bool, ...] | None = None
     bouzidi: np.ndarray | None = None  # Bouzidi thetas (D2Q9; not ported yet)
 
@@ -80,6 +80,14 @@ class Domain:
         return tuple(self.units.global_size)
 
     def codes_present(self) -> set:
+        """The codes in the map: ``ADEGEO`` members on the D3Q7 advection-
+        diffusion lattice, ``GEO`` members otherwise.  The two tables give
+        the same integers other meanings (ADEGEO.WALL_BODY = 2 is
+        GEO.INFLOW)."""
+        if self.lat.Q == 7:
+            from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO
+
+            return {ADEGEO(int(c)) for c in np.unique(self.map)}
         return {GEO(int(c)) for c in np.unique(self.map)}
 
 
