@@ -120,12 +120,10 @@ HBM_PEAK_GBPS = 3350.0  # H100 SXM data sheet
 STORES = ("f32", "f16", "bf16")
 PAIR_BYTES = {"f32": 233, "f16": 125, "bf16": 125}  # B/site per pair (f in + out, map, rho/u)
 AB_BYTES = 233  # B/site per A-B step: 27 f32 in and out, the map, rho and u
-AB_UIN = (0.03, 0.005, -0.004)  # inflow velocity of the box compare
 SIM1_RES, APP_STEPS, TOL_APP = 8, 100, 1e-5
 FP32_PEAK_TFLOPS = 67.0  # H100 SXM data sheet, outside the tensor cores
 TOL_G, TOL_PHI = 1e-6, 2e-6
-NU_ADE, TCOEF, PHI_IN = 0.02, 0.3, 0.7  # the ADE compare's diffusion, transfer, inflow
-ADE_COLLISIONS = ("SRT", "MRT", "CLBM", "CLBM-RS")
+NU_ADE = 0.02  # the ADE timing's diffusion
 ADE_BYTES, COUPLED_BYTES, TWO_KERNEL_BYTES = 73, 294, 306  # B/site: B6, B7, B4 then B6
 COUPLED_RES = 8
 #: the y band of sim_coupled that the WALL_BODY walls cannot reach in APP_STEPS steps
@@ -178,27 +176,6 @@ def max_diff(a, b) -> float:
     if a.ndim == 4:
         return max(max_diff(x, y) for x, y in zip(a, b))
     return float((a.double() - b.double()).abs().max())
-
-
-def bc_box(shape):
-    """A closed box holding every GEO code of the 3D set: inflows (moment
-    and equilibrium) on x = 0, the three outflows on x = X-1, symmetry
-    planes on the y and z faces and on patches of x = 1 and x = X-2, a
-    PERIODIC-coded block, walls and NOTHING sites inside."""
-    from tnl_lbm_tpu_torch.ops.boundary import GEO
-
-    X, Y, Z = shape
-    m = np.zeros(shape, np.uint8)
-    m[1:-1, 0], m[1:-1, -1] = GEO.SYM_BACK, GEO.SYM_FRONT
-    m[1:-1, 1:-1, 0], m[1:-1, 1:-1, -1] = GEO.SYM_BOTTOM, GEO.SYM_TOP
-    m[0, : Y // 2], m[0, Y // 2 :] = GEO.INFLOW_LEFT, GEO.INFLOW
-    m[-1, : Y // 3], m[-1, Y // 3 : 2 * Y // 3] = GEO.OUTFLOW_EQ, GEO.OUTFLOW_RIGHT
-    m[-1, 2 * Y // 3 :] = GEO.OUTFLOW_RIGHT_INTERP
-    m[1, 1 : Y // 2, 1:-1], m[-2, Y // 2 : -1, 1:-1] = GEO.SYM_LEFT, GEO.SYM_RIGHT
-    m[X // 2 - 1 : X // 2 + 1, 2:4, 1:-1] = GEO.PERIODIC
-    m[X // 2, Y // 2 : Y // 2 + 2, Z // 3 : Z // 2] = GEO.WALL
-    m[X // 2 + 1, -3, 1:3] = GEO.NOTHING
-    return m
 
 
 def read_vti(path) -> dict:
@@ -517,6 +494,7 @@ def ab_cases():
 
     from tnl_lbm_tpu_torch import interop
     from tnl_lbm_tpu_torch.apps import sim_1, sim_2, sim_3
+    from torch_cases import U_IN, bc_box
 
     dev = torch.device(DEVICE)
     where = WORK / "compare_ab"
@@ -527,7 +505,7 @@ def ab_cases():
         yield f"{app.__name__.rsplit('.', 1)[1]}_res2", sim.cfg, sim.domain, sim.update_inflow(0.0)
     box = interop.domain_from_numpy(bc_box((24, 20, 150)), (False, False, True))
     for spec in (("CUM_WELL", "EQ_WELL", True), ("CUM", "EQ", False)):
-        yield f"box_{spec[0]}", interop.config_from_spec(*spec, "AB"), box, AB_UIN
+        yield f"box_{spec[0]}", interop.config_from_spec(*spec, "AB"), box, U_IN
 
 
 def phase_compare_ab(step_times: dict, floor_gbps: float) -> dict:
@@ -579,22 +557,6 @@ def phase_compare_ab(step_times: dict, floor_gbps: float) -> dict:
     return {"err": {"ab_step": max(worst_f, d[0])}, "times": {"ab_step": (ms, plain_ms)}}
 
 
-AB_SPECS = (("CUM_WELL", "EQ_WELL", True), ("CUM", "EQ", False), ("CUM", "EQ_INV_CUM", False))
-
-
-def local_scale(ref):
-    """Per site: max(1, the largest magnitude of ``ref`` (a [X, Y, Z] field
-    or its [C, X, Y, Z] components) within 2 sites along x and 1 along y
-    and z) - the operands an A-B site update reads, OUTFLOW_PE's x-2
-    included."""
-    import torch
-
-    mag = ref.abs() if ref.ndim == 3 else torch.stack([c.abs() for c in ref]).amax(0)
-    pooled = torch.nn.functional.max_pool3d(mag[None, None], kernel_size=(5, 3, 3), stride=1,
-                                            padding=(2, 1, 1))[0, 0]
-    return pooled.clamp(min=1.0)
-
-
 def scaled_diff(a, b, scale) -> float:
     """max |a - b| / scale, one component at a time: the absolute
     difference where the operands are at most 1 in magnitude, the relative
@@ -604,60 +566,25 @@ def scaled_diff(a, b, scale) -> float:
     return float(((a.double() - b.double()).abs() / scale).max())
 
 
-def ade_box(shape):
-    """A box holding every ADEGEO code (tests/test_torch_gpu.py ade_box)."""
-    from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO as A
-
-    X, Y, Z = shape
-    m = np.zeros(shape, np.uint8)
-    m[:, 0], m[:, -1] = A.WALL, A.WALL_BODY
-    m[:, 1:-1, 0], m[:, 1:-1, -1] = A.SYM_BOTTOM, A.SYM_TOP
-    m[0, 1:-1, 1:-1] = A.INFLOW
-    m[-1, 1 : Y // 2, 1:-1], m[-1, Y // 2 : -1, 1:-1] = A.OUTFLOW_PE, A.OUTFLOW_RIGHT
-    m[1, 2:4, 2:-2], m[-2, 2:4, 2:-2] = A.SYM_LEFT, A.SYM_RIGHT
-    m[2:4, 1, 2:-2], m[2:4, -2, 2:-2] = A.SYM_BACK, A.SYM_FRONT
-    m[4, 5:11, 2:-2] = A.SOLID
-    m[2, 5:11, 2:-2], m[3, 5:11, 2:-2] = A.TRANSFER_FS, A.TRANSFER_SF
-    m[5, 5:11, 2:-2] = A.TRANSFER_SW
-    m[X // 2, Y - 4 : Y - 2, 2:4] = A.PERIODIC
-    m[X // 2 + 1, Y - 3, Z // 2] = A.NOTHING
-    return m
-
-
-def seeded_ade(shape, device, seed=3):
-    """(g, u, nu field) from a seeded phi and velocity."""
-    import torch
-
-    from tnl_lbm_tpu_torch.models import D3Q7
-    from tnl_lbm_tpu_torch.ops.equilibrium import eq_quadratic
-
-    rng = np.random.default_rng(seed)
-    phi = torch.from_numpy((0.5 + 0.1 * rng.standard_normal(shape)).astype(np.float32))
-    u = torch.from_numpy((0.02 * rng.standard_normal((3,) + shape)).astype(np.float32))
-    nu = torch.from_numpy((0.01 + 0.02 * rng.random(shape)).astype(np.float32))
-    phi, u = phi.to(device), u.to(device)
-    return eq_quadratic(D3Q7, phi, u).contiguous(), u, nu.to(device)
-
-
 def coupled_cases():
     """(label, NSE domain, ADE domain) of the B6 and B7 compares:
     sim_coupled's res-2 maps, the boxes of every code (NSE ``bc_box`` and
     ADE ``ade_box``, Z = 150) and a periodic box (FLUID with a
-    PERIODIC-coded block, every axis periodic)."""
+    PERIODIC-coded block, every axis periodic), the geometries of
+    tests/torch_cases.py at these shapes."""
     from tnl_lbm_tpu_torch import interop
     from tnl_lbm_tpu_torch.apps import sim_coupled
     from tnl_lbm_tpu_torch.models import D3Q7
-    from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO
+    from torch_cases import ade_case, channel
 
     sim = sim_coupled.build(2, device=DEVICE, use_fused=True, results_parent=WORK / "compare_ade")
     yield "sim_coupled_res2", sim.domain, sim.ade_domain
     shape = (16, 20, 150)
-    yield ("box", interop.domain_from_numpy(bc_box(shape), (False, False, True)),
-           interop.domain_from_numpy(ade_box(shape), (False, False, True), lat=D3Q7))
-    m = np.zeros((24, 20, 150), np.uint8)
-    m[4:9, 3:9, 10:40] = ADEGEO.PERIODIC
-    yield ("periodic", interop.domain_from_numpy(np.zeros_like(m), (True,) * 3),
-           interop.domain_from_numpy(m, (True,) * 3, lat=D3Q7))
+    yield ("box", interop.domain_from_numpy(*channel("box", shape)),
+           interop.domain_from_numpy(*ade_case("box", shape), lat=D3Q7))
+    m, periodic = ade_case("periodic", (24, 20, 150))
+    yield ("periodic", interop.domain_from_numpy(np.zeros_like(m), periodic),
+           interop.domain_from_numpy(m, periodic, lat=D3Q7))
 
 
 def phase_compare_ade() -> dict:
@@ -667,6 +594,7 @@ def phase_compare_ade() -> dict:
 
     from tnl_lbm_tpu_torch import interop
     from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
+    from torch_cases import ADE_COLLISIONS, PHI_IN, TCOEF, seeded_ade
 
     dev = torch.device(DEVICE)
     worst_g = 0.0
@@ -701,14 +629,15 @@ def phase_compare_coupled() -> dict:
     from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
     from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
     from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step
+    from torch_cases import AB_SPECS, ADE_COLLISIONS, PHI_IN, TCOEF, U_IN, seeded_ade
 
     dev = torch.device(DEVICE)
     worst_state, bit_equal = 0.0, True
-    args = dict(u_in=AB_UIN, force=(FORCE_SMALL, 0.0, 0.0), phi_in=PHI_IN)
+    args = dict(u_in=U_IN, force=(FORCE_SMALL, 0.0, 0.0), phi_in=PHI_IN)
     for label, dom, adom in coupled_cases():
         worst = [0.0] * 5
         g, _, nu_field = seeded_ade(dom.shape, dev)
-        for spec in AB_SPECS:
+        for spec in AB_SPECS.values():
             cfg = interop.config_from_spec(*spec, "AB")
             f = rand_f(cfg, dom.shape, dev, seed=11)
             b4 = make_fused_step(cfg, dom, dev)
@@ -763,6 +692,7 @@ def phase_time_coupled(floor_gbps: float) -> dict:
     from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
     from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
     from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step
+    from torch_cases import seeded_ade
 
     dev = torch.device(DEVICE)
     cfg, dom, acfg, adom = coupled_bench()
@@ -936,6 +866,21 @@ def phase_main_path() -> dict:
     return {"kernels": kernels, "err": err}
 
 
+def two_kernel(sim):
+    """Drop the coupled kernel at the end of ``sim_init``: ``_advance`` then
+    runs the A-B step (B4) and the ADE step (B6) that ``sim_init`` built -
+    the JAX package's "two-kernel" path, which the port's own rules never
+    pick.  A subclass, as in ``counting_from_init``."""
+
+    class TwoKernel(type(sim)):
+        def sim_init(self):
+            super().sim_init()
+            self._coupled_step, self.coupled_kernel = None, "two-kernel"
+
+    sim.__class__ = TwoKernel
+    return sim
+
+
 def coupled_main_path() -> dict:
     """sim_coupled at COUPLED_RES through its ``build`` with ``--use-fused``,
     APP_STEPS steps through the coupled kernel, then through the two-kernel
@@ -943,27 +888,28 @@ def coupled_main_path() -> dict:
     import torch
 
     from tnl_lbm_tpu_torch.apps import sim_coupled
+    from torch_cases import local_scale
 
     out, final, slab = {"kernels": {}, "err": {}}, None, None
-    for dispatch in ("auto", "two-kernel"):
+    for dispatch in ("one-kernel-AB", "two-kernel"):
         label = f"sim_coupled_res{COUPLED_RES}_{dispatch}"
         sim = sim_coupled.build(COUPLED_RES, device=DEVICE, use_fused=True,
                                 results_parent=WORK / "main" / dispatch)
-        sim.coupled_dispatch = dispatch
+        if dispatch == "two-kernel":
+            two_kernel(sim)
         sim.phys_final_time = APP_STEPS * sim.domain.units.phys_dt
         if not counting_from_init(sim).run():
             raise RuntimeError(f"{label} failed (NaN or refused)")
         launches = report_main(sim, label)
-        want = ({"coupled": APP_STEPS, "ab": 0, "ade": 0} if dispatch == "auto"
+        want = ({"coupled": APP_STEPS, "ab": 0, "ade": 0} if dispatch == "one-kernel-AB"
                 else {"coupled": 0, "ab": APP_STEPS, "ade": APP_STEPS})
-        expected_kernel = "one-kernel-AB" if dispatch == "auto" else "two-kernel"
-        if (sim.coupled_kernel != expected_kernel or launches != want
+        if (sim.coupled_kernel != dispatch or launches != want
                 or sim.iterations != APP_STEPS):
             raise RuntimeError(f"{label}: coupled_kernel {sim.coupled_kernel!r}, launches "
                                f"{launches} after {sim.iterations} steps")
         slab = plume_slab(sim) if slab is None else slab
         check_plume(sim, label, slab)
-        if dispatch == "auto":
+        if dispatch == "one-kernel-AB":
             out["kernels"]["coupled_ab"] = dataclasses.replace(sim._coupled_step.kernel)
             out["err"]["coupled_ab"] = coupled_kernel_vs_plain_at(sim)
             final = (sim.rho.clone(), sim.u.clone(), sim.phi.clone())
@@ -1082,6 +1028,7 @@ def coupled_kernel_vs_plain_at(sim) -> float:
     import torch
 
     from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step
+    from torch_cases import local_scale
 
     t = sim.phys_time()
     u_in, force = sim.update_inflow(t), sim.body_force(t)
@@ -1251,6 +1198,7 @@ def coupled_app_kernel_vs_plain() -> None:
     phi is held relative to ``local_scale`` of the plain run's phi, since
     the walls grow it."""
     from tnl_lbm_tpu_torch.apps import sim_coupled
+    from torch_cases import local_scale
 
     runs = {}
     for fused in (True, False):
@@ -1343,7 +1291,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    # the package, and the geometries shared with the tests (tests/torch_cases.py)
+    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     shutil.rmtree(WORK, ignore_errors=True)
     device = phase_device()
     ops = phase_build()

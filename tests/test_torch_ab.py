@@ -34,7 +34,7 @@ from tnl_lbm_tpu_torch.sim import make_step
 from tnl_lbm_tpu_torch.sim.state import Simulation
 
 from test_torch_fused_aa import _switch_table
-from test_torch_gpu import AB_KINDS, AB_SPECS, U_IN, channel
+from torch_cases import AB_KINDS, AB_SPECS, U_IN, channel
 from test_torch_step import jax_side
 
 CSRC = Path(__file__).resolve().parents[1] / "tnl_lbm_tpu_torch" / "csrc"

@@ -11,7 +11,7 @@ from tnl_lbm_tpu_torch import interop
 from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
 
 from test_torch_ab import FORCE, NU, close, spec_of, start_state
-from test_torch_gpu import U_IN, channel
+from torch_cases import U_IN, channel
 from test_torch_step import jax_side
 
 

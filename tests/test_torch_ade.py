@@ -30,7 +30,7 @@ from tnl_lbm_tpu_torch.ops.boundary import GEO
 from tnl_lbm_tpu_torch.sim import step_ade as psa
 from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO
 
-from test_torch_gpu import ADE_COLLISIONS, ADE_KINDS, PHI_IN, TCOEF, ade_box, ade_case
+from torch_cases import ADE_COLLISIONS, ADE_KINDS, PHI_IN, TCOEF, ade_box, ade_case
 
 NU = 0.02
 

@@ -37,7 +37,7 @@ from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step
 from tnl_lbm_tpu_torch.sim.coupled import CoupledSimulation
 from tnl_lbm_tpu_torch.sim.state import VTK2D
 
-from test_torch_gpu import AB_SPECS, PHI_IN, TCOEF, U_IN, coupled_cases
+from torch_cases import AB_SPECS, PHI_IN, TCOEF, U_IN, coupled_cases, local_scale
 
 NU, FORCE = 0.02, (1e-5, 0.0, 0.0)
 
@@ -111,7 +111,7 @@ class PeriodicCoupled(CoupledSimulation):
         return np.array([1e-4, 0.0, 0.0])
 
 
-def coupled_pair(tmp_path, tag, streaming, use_fused, transfer=False):
+def coupled_pair(tmp_path, tag, streaming, use_fused, transfer=False, cls=PeriodicCoupled):
     """The JAX and the port CoupledSimulation on one small periodic config
     (tests/test_ade.py:271), neither initialised."""
     n = 8
@@ -130,10 +130,9 @@ def coupled_pair(tmp_path, tag, streaming, use_fused, transfer=False):
                    results_parent=tmp_path, use_fused=use_fused)
     cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, streaming)
     acfg = interop.ade_config_from_spec("CLBM", streaming)
-    port = PeriodicCoupled(cfg, interop.domain_from_numpy(mn, per, phys_viscosity=0.02), acfg,
-                           interop.domain_from_numpy(ma, per, lat=interop.D3Q7),
-                           device="cpu", sim_id=f"p_{tag}", results_parent=tmp_path,
-                           use_fused=use_fused)
+    port = cls(cfg, interop.domain_from_numpy(mn, per, phys_viscosity=0.02), acfg,
+               interop.domain_from_numpy(ma, per, lat=interop.D3Q7), device="cpu",
+               sim_id=f"p_{tag}", results_parent=tmp_path, use_fused=use_fused)
     return ref, port
 
 
@@ -158,23 +157,25 @@ def test_coupled_kernel_choice_matches_jax(tmp_path, streaming, use_fused, trans
     assert port.coupled_kernel == {"xla": "plain"}.get(ref.coupled_kernel, ref.coupled_kernel)
 
 
-def test_two_kernel_path_runs_b4_then_b6(tmp_path, monkeypatch):
-    """Where the coupled kernel is refused at build time, or with
-    coupled_dispatch="two-kernel", use_fused runs the A-B step then the ADE
-    step, with the one-kernel path's result."""
+class TwoKernelCoupled(PeriodicCoupled):
+    """Drops the coupled kernel after ``sim_init``, as chip_smoke.py does to
+    hold B7 against B4 then B6: ``_advance`` then runs the A-B step and the
+    ADE step that ``sim_init`` built."""
+
+    def sim_init(self):
+        super().sim_init()
+        self._coupled_step, self.coupled_kernel = None, "two-kernel"
+
+
+def test_two_kernel_path_runs_b4_then_b6(tmp_path):
+    """With the coupled kernel dropped, use_fused runs the A-B step then the
+    ADE step in the same ping-pong buffers, with the one-kernel path's
+    result bit for bit."""
     _, one = coupled_pair(tmp_path, "one", "AB", True, transfer=True)
+    _, two = coupled_pair(tmp_path, "two", "AB", True, transfer=True, cls=TwoKernelCoupled)
     one.sim_init()
-    monkeypatch.setattr("tnl_lbm_tpu_torch.sim.coupled.make_fused_coupled_step",
-                        fused_coupled.make_fused_coupled_step_aa)
-    _, two = coupled_pair(tmp_path, "two", "AB", True, transfer=True)
     two.sim_init()
     assert (one.coupled_kernel, two.coupled_kernel) == ("one-kernel-AB", "two-kernel")
-    monkeypatch.undo()
-    _, asked = coupled_pair(tmp_path, "asked", "AB", True, transfer=True)
-    asked.coupled_dispatch = "two-kernel"
-    asked.sim_init()
-    assert asked.coupled_kernel == "two-kernel" and asked._coupled_step is None
-    asked._lock.release()
     buffers = {id(two.f), id(two._spare), id(two.g), id(two._g_spare)}
     one._advance(3)
     two._advance(3)
@@ -227,6 +228,49 @@ def test_sim_coupled_steps_match_jax(tmp_path, use_fused):
         assert d[0] < 2e-6 and d[1] < 1e-6 and d[2] < 2e-6, (it, d)
     assert float(port.phi[1].max()) > 0
     assert port.coupled_kernel == ("one-kernel-AB" if use_fused else "plain")
+    ref._lock.release()
+    port._lock.release()
+
+
+WALL_STEPS = 20
+
+
+def test_sim_coupled_wall_growth_and_inlet_undershoot_match_jax(tmp_path):
+    """The JAX app's own faults, seen in the port alike: phi at the
+    WALL_BODY walls grows about 1.9x per step, and the inlet's step front
+    undershoots below zero where the walls cannot reach yet.  Each of
+    WALL_STEPS steps starts the port (B7's plain version) from the JAX
+    app's state: f, rho and u are held to the step bounds, g and phi to
+    them relative to ``local_scale`` of the input g."""
+    port, ref = build_both(tmp_path, True)
+    assert ref.can_compute() and port.can_compute()
+    ref.sim_init()
+    port.sim_init()
+    Y = ref.ade_domain.shape[1]
+    walls, band_min = [], []
+    for it in range(1, WALL_STEPS + 1):
+        port.f = torch.from_numpy(np.array(ref.f))
+        port.g = torch.from_numpy(np.array(ref.g))
+        scale = local_scale(port.g)
+        ref._advance(1)
+        port._advance(1)
+        d = diffs((ref.f, ref.rho, ref.u), (port.f, port.rho, port.u))
+        assert d[0] < 1e-6 and d[1] < 2e-6 and d[2] < 1e-6, (it, d)
+        for name, bound in (("g", 1e-6), ("phi", 2e-6)):
+            a, b = torch.from_numpy(np.array(getattr(ref, name))), getattr(port, name)
+            rel = float(((a.double() - b.double()).abs() / scale).max())
+            assert rel < bound, (it, name, rel)
+        phi_j, phi_p = np.asarray(ref.phi), port.phi.numpy()
+        walls.append([float(np.abs(p[:, [0, -1]]).max()) for p in (phi_j, phi_p)])
+        if it < Y // 2 - 1:  # y it+1 .. Y-it-2: out of the walls' reach after it steps
+            band = (slice(None), slice(it + 1, Y - it - 1))
+            band_min.append([float(p[band].min()) for p in (phi_j, phi_p)])
+    walls, band_min = np.array(walls), np.array(band_min)
+    rates = walls[-5:] / walls[-6:-1]
+    assert walls[-1, 0] > 1e3 and ((rates > 1.8) & (rates < 2.0)).all(), (walls, rates)
+    np.testing.assert_allclose(walls[:, 1], walls[:, 0], rtol=2e-6)
+    assert band_min[:, 0].min() < -0.05, band_min
+    np.testing.assert_allclose(band_min[:, 1], band_min[:, 0], rtol=0, atol=2e-6)
     ref._lock.release()
     port._lock.release()
 

@@ -11,14 +11,18 @@ diffusion coefficient may be a per-site field.
 ``sim_init`` picks the coupled path by the JAX package's rules
 (``coupled_kernel``):
 
-- ``"one-kernel-AB"``: ``use_fused`` with A-B streaming on both lattices of
-  one grid - every step is one launch of the coupled kernel (B7,
+- ``"one-kernel-AB"``: ``use_fused`` (A-B streaming on both lattices of one
+  grid) - every step is one launch of the coupled kernel (B7,
   ``kernels/fused_coupled.py``);
-- ``"two-kernel"``: ``use_fused`` where the coupled kernel is not built,
-  or with ``coupled_dispatch="two-kernel"`` - the A-B step (B4) then the
-  ADE step (B6);
 - ``"plain"`` (the JAX package's ``"xla"``): without ``use_fused``, the
   plain steps ``sim/step.py`` and ``sim/step_ade.py``.
+
+The JAX package's third path, ``"two-kernel"`` (the A-B step, B4, then the
+ADE step, B6), is its fallback where the coupled kernel is not built: a
+forcing hook, or the A-A pair with transfer codes.  The port refuses those
+configs (ROADMAP A11, B8), so ``sim_init`` never picks it.  ``_advance``
+still runs B4 then B6 when ``_coupled_step`` is dropped after ``sim_init``:
+that is how B7 is held against the two launches.
 
 The kernel paths ping-pong two preallocated f buffers and two g buffers.
 A-A streaming with ``use_fused`` (the A-A coupled pair, ROADMAP B8), a
@@ -32,7 +36,7 @@ import time
 import numpy as np
 import torch
 
-from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step, supports_ade
+from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
 from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.sim.state import Simulation, synchronize
@@ -44,18 +48,11 @@ class CoupledSimulation(Simulation):
 
     def __init__(self, cfg: LBMConfig, domain: Domain, ade_cfg: LBMConfig, ade_domain: Domain,
                  ade_diffusion=1e-3, transfer_coeff: float = 0.0,
-                 phi_inflow: float | None = None, plan=None, coupled_dispatch: str = "auto",
-                 **kw):
+                 phi_inflow: float | None = None, plan=None, **kw):
         if plan is not None:
             raise NotImplementedError("the sharded coupled lattices are not ported yet "
                                       "(ROADMAP A13)")
-        if coupled_dispatch not in ("auto", "two-kernel"):
-            raise ValueError(f"coupled_dispatch must be 'auto' or 'two-kernel', got "
-                             f"{coupled_dispatch!r}")
         super().__init__(cfg, domain, **kw)
-        #: "auto" (the JAX package's rule) or "two-kernel" (B4 then B6 even
-        #: where the coupled kernel would run)
-        self.coupled_dispatch = coupled_dispatch
         self.ade_cfg = ade_cfg
         self.ade_domain = ade_domain
         self.ade_diffusion = ade_diffusion
@@ -69,8 +66,8 @@ class CoupledSimulation(Simulation):
         self._coupled_step = None
         #: the second g buffer of the kernel paths' ping-pong
         self._g_spare = None
-        #: which coupled path sim_init selected: "one-kernel-AB", "two-kernel"
-        #: or "plain" (the JAX package's "xla")
+        #: which coupled path sim_init selected: "one-kernel-AB" or "plain" (the
+        #: JAX package's "xla")
         self.coupled_kernel = None
 
     def initial_phi(self):
@@ -104,25 +101,13 @@ class CoupledSimulation(Simulation):
             self._ade_step = make_ade_step(self.ade_cfg, self.ade_domain)
             self.coupled_kernel = "plain"
             return
-        self._ade_step = make_fused_ade_step(self.ade_cfg, self.ade_domain, self.device,
-                                             variable_diffusion=variable,
-                                             transfer_coeff=float(self.transfer_coeff))
-        if (self.coupled_dispatch == "auto" and self.cfg.forcing_hook is None
-                and supports_ade(self.ade_domain)
-                and self.cfg.streaming == self.ade_cfg.streaming
-                and tuple(self.domain.shape) == tuple(self.ade_domain.shape)):
-            # both halves in one kernel: the NSE velocity never round-trips
-            # through memory (reference kernels.h:102-176)
-            try:
-                self._coupled_step = make_fused_coupled_step(
-                    self.cfg, self.domain, self.ade_cfg, self.ade_domain, self.device,
-                    variable_diffusion=variable, transfer_coeff=float(self.transfer_coeff))
-                self.coupled_kernel = "one-kernel-AB"
-            except NotImplementedError as exc:
-                self.log.warning("coupled one-kernel path unavailable (%s); running the "
-                                 "two-kernel path (the A-B step, then the ADE step)", exc)
-        if self.coupled_kernel is None:
-            self.coupled_kernel = "two-kernel"
+        kw = dict(variable_diffusion=variable, transfer_coeff=float(self.transfer_coeff))
+        self._ade_step = make_fused_ade_step(self.ade_cfg, self.ade_domain, self.device, **kw)
+        # both halves in one kernel: the NSE velocity never round-trips
+        # through memory (reference kernels.h:102-176)
+        self._coupled_step = make_fused_coupled_step(self.cfg, self.domain, self.ade_cfg,
+                                                     self.ade_domain, self.device, **kw)
+        self.coupled_kernel = "one-kernel-AB"
         self._g_spare = torch.empty_like(self.g)
 
     def _advance(self, n_steps: int):
@@ -142,6 +127,7 @@ class CoupledSimulation(Simulation):
                 self._spare, self.f = self.f, f
                 self._g_spare, self.g = self.g, g
             elif self.use_fused:
+                # the two-kernel path: B4, then B6 on the u it stored
                 f, self.rho, self.u = self._step(self.f, nu, u_in=u_in, force=force,
                                                  out=self._spare)
                 self._spare, self.f = self.f, f
