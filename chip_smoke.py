@@ -6,8 +6,10 @@ It drives the port's dispatch paths through the CUDA kernels: the A-A duct
 (D3Q27 CUM_WELL on a square duct) per step (even/odd kernels) and in pairs
 (the one-kernel pair, with the state in float32, float16 or bfloat16), and
 the A-B step (B4) with the full 3D boundary set, on the bench duct and in
-sim_1, sim_2 and sim_3, and the coupled NSE+ADE path - the ADE step (B6)
-and the one-kernel coupled step (B7) - in sim_coupled.  Each phase prints
+sim_1, sim_2 and sim_3; the A-A even/odd kernels (B2, B3) with the 3D set
+and the three variants in sim_1 ``--streaming AA``; the coupled NSE+ADE
+path - the ADE step (B6), the one-kernel coupled step (B7) and, with A-A
+streaming, the A-A coupled pair (B8) - in sim_coupled.  Each phase prints
 result lines; any failing phase raises and the script exits non-zero
 without printing a result.
 
@@ -24,7 +26,11 @@ without printing a result.
    place plus 2e-8, and at most 0.1% of the elements different at all),
    |drho| <= 2e-6, |du| <= 1e-6:
    a. even/odd: sim_2's res-2 duct (32x64x64, WALL + NOTHING, periodic x),
-      4 alternating steps; then one step of each at 256^3, timed;
+      4 alternating steps; then one step of each at 256^3, timed, the odd
+      step's lean CUM_WELL instance beside the full-set one; then a box of
+      every A-A code with Z = 150, per variant (CUM_WELL; CUM with
+      eq_quadratic or eq_inv_cum), 4 alternating steps each from the same
+      input on both sides;
    b. pair, per store dtype: two pairs on the res-2 duct, each from the
       same input on both sides, and for a 16-bit state the float32 kernel's
       output on the widened input, narrowed, equal to the 16-bit kernel's
@@ -51,7 +57,13 @@ without printing a result.
       printing whether B7 equals B4 then B6 bit for bit; then B6, B7 and
       B4 followed by B6 timed at 256^3 (the bench duct, with WALL faces
       on the ADE lattice too) beside B4 and the P1 floor, GB/s at 73,
-      294 and 306 B/site;
+      294 and 306 B/site; then B8, even and odd parity from the same input,
+      against its plain version and its NSE fields against B2/B3 run alone
+      (bit-equality printed) on sim_coupled's res-2 A-A maps, a box whose
+      NSE and ADE NOTHING sites differ and the periodic box, per NSE
+      variant and ADE collision with a nu field; B8 even and odd timed at
+      256^3 on the coupled bench duct under A-A beside B2 + B3, GB/s at 294
+      B/site;
 4. probes: the copy floor P1 at 256^3 (GB/s at 232 B/site, share of the
    published 3.35 TB/s) and the pair's memory/compute split P2a/P2b at
    256^3 with 0, 20 and 60 passes, each held against its plain version;
@@ -75,9 +87,16 @@ without printing a result.
    its final state, kernel against plain (g and phi relative to the
    largest magnitude the site's update reads, at least 1); then the same
    run through the two-kernel path (B4 then B6, 100 launches each)
-   against the one-kernel run's fields; after
+   against the one-kernel run's fields, then with ``--streaming AA``
+   through B8 ("one-kernel-AA", 50 even and 50 odd launches, the band held
+   to an A-A slab, one even and one odd parity from the final state kernel
+   vs plain, ms/step, MLUPS and peak memory beside the A-B run's); after
    each run, torch.profiler over 10 more steps: device time per kernel
-   and the device's busy share of the loop;
+   and the device's busy share of the loop.  Also sim_1 at resolution 8
+   with ``--streaming AA``, 100 steps through B2/B3, and the kernel vs
+   plain check of one even and one odd step from a res-4 run's final
+   state (the plain A-A step's temporaries at res 8 would not fit beside
+   the run);
 6. accuracy: sim_2 res 2 run to its stopping point per step and in pairs
    (f32), and with A-B streaming through the A-B kernel; each L1 error must
    lie within 5% of the L1 that the analytic start-up solution of the duct
@@ -88,9 +107,10 @@ without printing a result.
    this transient near t = 5 s and is printed for comparison.  Last, sim_1
    res 2 and sim_3 res 2, 100 steps each through ``Simulation`` with the
    A-B kernel and with the plain step on the card, from the same start:
-   max |drho| and max |du| <= 1e-5; sim_coupled res 2 likewise through
-   the coupled kernel and the plain steps, with |dphi| <= 1e-5 relative to
-   the largest |phi| within a site's reach, at least 1.
+   max |drho| and max |du| <= 1e-5, and sim_1 res 2 A-A through B2/B3;
+   sim_coupled res 2 likewise through the coupled kernel and the plain
+   steps, A-B (B7) and A-A (B8), with |dphi| <= 1e-5 relative to the
+   largest |phi| within a site's reach, at least 1.
 
 The line before the last is the kernels' JSON record (bound_ms: the larger
 of the bytes over the published 3.35 TB/s and the FP32 operations over
@@ -121,6 +141,7 @@ STORES = ("f32", "f16", "bf16")
 PAIR_BYTES = {"f32": 233, "f16": 125, "bf16": 125}  # B/site per pair (f in + out, map, rho/u)
 AB_BYTES = 233  # B/site per A-B step: 27 f32 in and out, the map, rho and u
 SIM1_RES, APP_STEPS, TOL_APP = 8, 100, 1e-5
+SIM1_AA_PLAIN_RES = 4  # sim_1 A-A kernel vs plain: the plain step's temporaries at res 8 exceed the card
 FP32_PEAK_TFLOPS = 67.0  # H100 SXM data sheet, outside the tensor cores
 TOL_G, TOL_PHI = 1e-6, 2e-6
 NU_ADE = 0.02  # the ADE timing's diffusion
@@ -252,8 +273,12 @@ def phase_device() -> dict:
 
 
 ADE_KERNEL_NAMES = tuple(f"ade_step_{c}_kernel" for c in ("srt", "mrt", "clbm", "clbm_rs"))
-COUPLED_KERNEL_NAMES = tuple(f"coupled_{n}_{c}_kernel" for n in ("cum_well", "cum_quad", "cum_invcum")
+NSE_VARIANTS = ("cum_well", "cum_quad", "cum_invcum")
+COUPLED_KERNEL_NAMES = tuple(f"coupled_{n}_{c}_kernel" for n in NSE_VARIANTS
                              for c in ("srt", "mrt", "clbm", "clbm_rs"))
+AA_KERNEL_NAMES = tuple(f"aa_{p}_{n}_kernel" for p in ("even", "odd") for n in NSE_VARIANTS)
+COUPLED_AA_KERNEL_NAMES = tuple(f"coupled_aa_{p}_{n}_{c}_kernel" for p in ("even", "odd")
+                                for n in NSE_VARIANTS for c in ("srt", "mrt", "clbm", "clbm_rs"))
 
 
 def sass_fp32_ops(lib_path) -> dict:
@@ -293,10 +318,12 @@ def phase_build() -> dict:
     lib = load_library()
     res = kernel_resources(ptxas)
     ops = sass_fp32_ops(path)
-    for name in ("aa_even_kernel", "aa_odd_kernel", "aa_pair_f32_kernel", "aa_pair_f16_kernel",
-                 "aa_pair_bf16_kernel", "ab_step_cum_well_kernel", "ab_step_cum_quad_kernel",
-                 "ab_step_cum_invcum_kernel", "copy_permute_kernel", "pair_pipeline_kernel",
-                 "pair_compute_only_kernel") + ADE_KERNEL_NAMES + COUPLED_KERNEL_NAMES:
+    names = (("aa_odd_kernel", "aa_pair_f32_kernel", "aa_pair_f16_kernel",
+              "aa_pair_bf16_kernel", "ab_step_cum_well_kernel", "ab_step_cum_quad_kernel",
+              "ab_step_cum_invcum_kernel", "copy_permute_kernel", "pair_pipeline_kernel",
+              "pair_compute_only_kernel") + AA_KERNEL_NAMES + ADE_KERNEL_NAMES
+             + COUPLED_KERNEL_NAMES + COUPLED_AA_KERNEL_NAMES)
+    for name in names:
         if name not in res or name not in ops:
             raise RuntimeError(f"no ptxas report or SASS for {name}:\n{ptxas}")
         log("build", kernel=name, **res[name], fp32_ops_per_thread=ops[name])
@@ -338,9 +365,10 @@ def phase_compare_steps() -> dict:
     if not (worst[0] <= TOL_F and worst[1] <= TOL_RHO and worst[2] <= TOL_U):
         raise RuntimeError(f"kernel vs plain out of tolerance: {worst}")
 
-    # one step of each kernel against its plain version at the bench shape
+    # one step of each kernel against its plain version at the bench shape;
+    # the odd step's lean CUM_WELL instance is timed beside the full-set one
     cfg, dom = flagship(BENCH_SHAPE)
-    step = make_fused_step_aa(cfg, dom, dev)
+    step, full = make_fused_step_aa(cfg, dom, dev), make_fused_step_aa(cfg, dom, dev, lean=False)
     bench_force = (FORCE_BENCH, 0.0, 0.0)
     f0 = rand_f(cfg, dom.shape, dev, seed=7)
     times = {}
@@ -354,13 +382,54 @@ def phase_compare_steps() -> dict:
         err[name] = max(err[name], d[0])
         fw = f0.clone()
         ms = time_ms(lambda: step(fw, NU, force=bench_force, parity=parity), reps=20)
+        lean = {}
+        if parity == 1:  # the odd step's lean instance beside its full CUM_WELL one
+            lean["full_cum_well_instance_ms"] = "%.4f" % time_ms(
+                lambda: full(fw, NU, force=bench_force, parity=parity), reps=20)
         plain_ms = time_ms(lambda: step.plain(f0, NU, force=bench_force, parity=parity), reps=3)
         del fw
         torch.cuda.empty_cache()
         times[name] = (ms, plain_ms)
-        log("compare", kernel=name, shape="256^3", max_df=d[0], max_drho=d[1], max_du=d[2],
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}", gbps_216B=f"{gbps(216, ms):.1f}")
+        log("compare", kernel=name, shape="256^3", variant=step.variant, max_df=d[0],
+            max_drho=d[1], max_du=d[2], ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}",
+            gbps_216B=f"{gbps(216, ms):.1f}", **lean)
     return {"err": err, "times": times}
+
+
+def phase_compare_aa_codes() -> float:
+    """The even/odd kernels on a box of every A-A code with a Z that the
+    block's 128 z sites do not divide, per variant (CUM_WELL; CUM with
+    eq_quadratic; CUM with eq_inv_cum): 4 alternating steps, each kernel
+    step against the plain version on the same input.  Returns max |df|."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_step_aa
+    from torch_cases import AB_SPECS, U_IN, aa_box
+
+    dev = torch.device(DEVICE)
+    dom = interop.domain_from_numpy(aa_box((24, 20, 150)), (False, False, True))
+    force = (FORCE_SMALL, 0.0, 0.0)
+    worst_f = 0.0
+    for spec in AB_SPECS.values():
+        cfg = interop.config_from_spec(*spec, "AA")
+        step = make_fused_step_aa(cfg, dom, dev)
+        f = rand_f(cfg, dom.shape, dev, seed=11)
+        worst = [0.0, 0.0, 0.0]
+        for it in range(4):
+            fp, rp, up = step.plain(f, NU, u_in=U_IN, force=force, parity=it % 2)
+            f, rk, uk = step(f.clone(), NU, u_in=U_IN, force=force, parity=it % 2)
+            torch.cuda.synchronize()
+            worst = [max(a, b) for a, b in zip(worst, (max_diff(f, fp), max_diff(rk, rp),
+                                                       max_diff(uk, up)))]
+        log("compare_aa_codes", variant=f"{spec[0]}/{spec[1]}", shape="x".join(map(str, dom.shape)),
+            codes="+".join(sorted(c.name for c in step.codes)), steps=4, max_df=worst[0],
+            max_drho=worst[1], max_du=worst[2], launches_even=step.even.launches,
+            launches_odd=step.odd.launches)
+        if not (worst[0] <= TOL_F and worst[1] <= TOL_RHO and worst[2] <= TOL_U):
+            raise RuntimeError(f"A-A kernels vs plain on the every-code box, {spec}: {worst}")
+        worst_f = max(worst_f, worst[0])
+    return worst_f
 
 
 def phase_compare_pairs(step_times: dict) -> dict:
@@ -737,6 +806,126 @@ def phase_time_coupled(floor_gbps: float) -> dict:
             "err": {"ade_step": d6[0], "coupled_ab": max(d7[0], d7[1])}}
 
 
+def coupled_aa_cases():
+    """(label, NSE domain, ADE domain) of the B8 compare: sim_coupled's
+    res-2 A-A maps, then tests/torch_cases.py's ``coupled_aa_cases`` with
+    Z = 150, which the block's 128 z sites do not divide."""
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.apps import sim_coupled
+    from tnl_lbm_tpu_torch.models import D3Q7
+    import torch_cases
+
+    sim = sim_coupled.build(2, device=DEVICE, use_fused=True, streaming="AA",
+                            results_parent=WORK / "compare_aa")
+    yield "sim_coupled_res2_AA", sim.domain, sim.ade_domain
+    for label, mn, pn, ma, pa in torch_cases.coupled_aa_cases((16, 20, 150)):
+        yield (label, interop.domain_from_numpy(mn, pn),
+               interop.domain_from_numpy(ma, pa, lat=D3Q7))
+
+
+def phase_compare_coupled_aa() -> dict:
+    """B8 against its plain version per geometry, NSE variant and ADE
+    collision, with a nu field: the even then the odd parity, each from the
+    same input on both sides; and its NSE fields against the A-A step
+    kernels (B2, B3) run alone, bit-equality printed."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_step_aa
+    from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step_aa
+    from torch_cases import AB_SPECS, ADE_COLLISIONS, PHI_IN, U_IN, seeded_ade
+
+    dev = torch.device(DEVICE)
+    err, bit_equal = {"coupled_aa_even": 0.0, "coupled_aa_odd": 0.0}, True
+    args = dict(u_in=U_IN, force=(FORCE_SMALL, 0.0, 0.0))
+    for label, dom, adom in coupled_aa_cases():
+        worst = [0.0] * 5
+        g0, _, nu_field = seeded_ade(dom.shape, dev)
+        for spec in AB_SPECS.values():
+            cfg = interop.config_from_spec(*spec, "AA")
+            f0 = rand_f(cfg, dom.shape, dev, seed=11)
+            alone = make_fused_step_aa(cfg, dom, dev, lean=False)  # B8's NSE instance
+            for collision in ADE_COLLISIONS:
+                pair = make_fused_coupled_step_aa(cfg, dom, interop.ade_config_from_spec(
+                    collision, "AA"), adom, dev, variable_diffusion=True)
+                f, g = f0, g0
+                for parity, name in ((0, "coupled_aa_even"), (1, "coupled_aa_odd")):
+                    p = pair.plain(f, g, NU, nu_field, phi_in=PHI_IN, parity=parity, **args)
+                    a = alone(f.clone(), NU, parity=parity, **args)
+                    k = pair(f.clone(), g.clone(), NU, nu_field, phi_in=PHI_IN, parity=parity,
+                             **args)
+                    torch.cuda.synchronize()
+                    d = [max_diff(x, y) for x, y in zip(k, p)]  # f, g, rho, u, phi
+                    if not (d[0] <= TOL_F and d[1] <= TOL_G and d[2] <= TOL_RHO
+                            and d[3] <= TOL_U and d[4] <= TOL_PHI):
+                        raise RuntimeError(f"{name} on {label}, {spec[0]}/{spec[1]}, "
+                                           f"{collision}: {d}")
+                    da = [max_diff(x, y) for x, y in zip((k[0], k[2], k[3]), a)]
+                    if not (da[0] <= TOL_F and da[1] <= TOL_RHO and da[2] <= TOL_U):
+                        raise RuntimeError(f"{name} NSE fields vs B2/B3 on {label}: {da}")
+                    bit_equal &= all(torch.equal(x, y) for x, y in zip((k[0], k[2], k[3]), a))
+                    worst = [max(x, y) for x, y in zip(worst, d)]
+                    err[name] = max(err[name], d[0], d[1])
+                    f, g = k[0], k[1]
+        log("compare_coupled_aa", case=label, shape="x".join(map(str, dom.shape)),
+            instances=len(AB_SPECS) * len(ADE_COLLISIONS), parities="even+odd",
+            nse_codes="+".join(sorted(c.name for c in dom.codes_present())),
+            ade_codes="+".join(sorted(c.name for c in adom.codes_present())), max_df=worst[0],
+            max_dg=worst[1], max_drho=worst[2], max_du=worst[3], max_dphi=worst[4],
+            b8_nse_equals_b2_b3_bitwise=bit_equal)
+    return {"err": err, "bit_equal": bit_equal}
+
+
+def phase_time_coupled_aa(step_times: dict, floor_gbps: float) -> dict:
+    """B8 even and odd at 256^3 (the coupled bench duct under A-A, scalar
+    nu): one launch of each against its plain version, then timed beside
+    B2 + B3 of this call and the P1 floor, GB/s at 294 B/site."""
+    import torch
+
+    from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step_aa
+    from torch_cases import seeded_ade
+
+    dev = torch.device(DEVICE)
+    cfg, dom, acfg, adom = coupled_bench()
+    cfg, acfg = (dataclasses.replace(c, streaming="AA") for c in (cfg, acfg))
+    pair = make_fused_coupled_step_aa(cfg, dom, acfg, adom, dev)
+    force = (FORCE_BENCH, 0.0, 0.0)
+    f0 = rand_f(cfg, dom.shape, dev, seed=7)
+    g0, _, _ = seeded_ade(dom.shape, dev)
+    fo, go = torch.empty_like(f0), torch.empty_like(g0)
+    times, err = {}, {}
+    for parity, name in ((0, "coupled_aa_even"), (1, "coupled_aa_odd")):
+        k = pair(f0.clone(), g0.clone(), NU, NU_ADE, force=force, parity=parity)
+        p = pair.plain(f0, g0, NU, NU_ADE, force=force, parity=parity)
+        d = [max_diff(a, b) for a, b in zip(k, p)]
+        del k, p
+        torch.cuda.empty_cache()
+        if not (d[0] <= TOL_F and d[1] <= TOL_G and d[2] <= TOL_RHO and d[3] <= TOL_U
+                and d[4] <= TOL_PHI):
+            raise RuntimeError(f"{name} vs plain at 256^3 out of tolerance: {d}")
+        fw, gw = f0.clone(), g0.clone()
+        ms = time_ms(lambda: pair(fw, gw, NU, NU_ADE, force=force, parity=parity, out_f=fo,
+                                  out_g=go), reps=20)
+        plain_ms = time_ms(lambda: pair.plain(f0, g0, NU, NU_ADE, force=force, parity=parity),
+                           reps=3)
+        del fw, gw
+        torch.cuda.empty_cache()
+        times[name], err[name] = (ms, plain_ms), max(d[0], d[1])
+        rate = gbps(COUPLED_BYTES, ms)
+        log("time_coupled_aa", kernel=name, shape="256^3", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.2f}", **{f"gbps_{COUPLED_BYTES}B": f"{rate:.1f}"},
+            share_of_p1_floor=f"{rate / floor_gbps:.3f}",
+            step_kernel_ms=f"{step_times['aa_even' if parity == 0 else 'aa_odd'][0]:.4f}",
+            max_df=d[0], max_dg=d[1], max_drho=d[2], max_du=d[3], max_dphi=d[4])
+    del f0, g0, fo, go
+    torch.cuda.empty_cache()
+    pair_ms = times["coupled_aa_even"][0] + times["coupled_aa_odd"][0]
+    steps_ms = step_times["aa_even"][0] + step_times["aa_odd"][0]
+    log("time_coupled_aa", b8_pair_ms=f"{pair_ms:.4f}", b2_plus_b3_ms=f"{steps_ms:.4f}",
+        b8_over_b2_b3=f"{pair_ms / steps_ms:.3f}")
+    return {"times": times, "err": err}
+
+
 def counting_from_init(sim):
     """Set the launch and plain-call counts and the peak-memory mark to 0 at
     the end of ``sim_init``, just before the stepping loop.  A subclass and
@@ -780,6 +969,10 @@ def bench_sim(pair_dispatch, storage=None, steps: int | None = None, streaming="
 def kernel_launches(sim) -> dict:
     """Launch counts of the kernels a Simulation dispatched to."""
     step = sim._step
+    if hasattr(sim, "coupled_kernel") and sim.cfg.streaming == "AA":
+        pair = sim._coupled_step
+        return {"even": step.even.launches, "odd": step.odd.launches,
+                "coupled_even": pair.even.launches, "coupled_odd": pair.odd.launches}
     if hasattr(sim, "coupled_kernel"):
         return {"ab": step.kernel.launches, "ade": sim._ade_step.kernel.launches,
                 "coupled": sim._coupled_step.kernel.launches if sim._coupled_step else 0}
@@ -790,19 +983,27 @@ def kernel_launches(sim) -> dict:
     return {"ab": step.kernel.launches}
 
 
+def run_figures(sim) -> tuple[float, float, float]:
+    """(ms/step, MLUPS, peak GB) of a Simulation's counted run."""
+    import torch
+
+    steps = sim.iterations
+    return (sim._compute_time / steps * 1e3,
+            float(np.prod(sim.domain.shape)) * steps / sim._compute_time / 1e6,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
 def report_main(sim, label: str) -> dict:
     import torch
 
     steps = sim.iterations
-    ms_step = sim._compute_time / steps * 1e3
-    mlups = float(np.prod(sim.domain.shape)) * steps / sim._compute_time / 1e6
     finite = bool(torch.isfinite(sim.rho).all()) and bool(torch.isfinite(sim.u).all())
     plain = sum(getattr(k, "plain_calls", 0) for k in (
         sim._step, sim._pair, getattr(sim, "_ade_step", None), getattr(sim, "_coupled_step", None)))
+    ms_step, mlups, peak_gb = run_figures(sim)
     launches = kernel_launches(sim)
     log("main", path=label, shape="x".join(map(str, sim.domain.shape)), steps=steps,
-        ms_per_step=f"{ms_step:.4f}", mlups=f"{mlups:.1f}",
-        max_memory_allocated_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        ms_per_step=f"{ms_step:.4f}", mlups=f"{mlups:.1f}", max_memory_allocated_gb=f"{peak_gb:.3f}",
         **{f"launches_{k}": v for k, v in launches.items()}, plain_calls=plain, finite=finite)
     if plain != 0 or not finite:
         raise RuntimeError(f"{label}: called the plain version or produced non-finite output")
@@ -857,6 +1058,21 @@ def phase_main_path() -> dict:
     del sim
     torch.cuda.empty_cache()
 
+    sim = sim1_main_path("AA")
+    launches = report_main(sim, f"sim_1_res{SIM1_RES}_AA")
+    half = APP_STEPS // 2
+    if (sim.iterations != APP_STEPS or sim._pair is not None
+            or launches != {"even": half, "odd": APP_STEPS - half, "pair": 0}):
+        raise RuntimeError(f"sim_1 A-A did not run every step through B2/B3: {launches}")
+    log("main", path=f"sim_1_res{SIM1_RES}_AA", variant=sim._step.variant,
+        codes="+".join(sorted(c.name for c in sim._step.codes)))
+    for name in ("aa_even", "aa_odd"):
+        kernels[name] = dataclasses.replace(kernels[name], launches=kernels[name].launches
+                                            + launches[name[3:]])
+    del sim
+    torch.cuda.empty_cache()
+    err.update(sim1_aa_kernel_vs_plain())
+
     coupled = coupled_main_path()
     kernels.update(coupled["kernels"])
     err.update(coupled["err"])
@@ -884,16 +1100,19 @@ def two_kernel(sim):
 def coupled_main_path() -> dict:
     """sim_coupled at COUPLED_RES through its ``build`` with ``--use-fused``,
     APP_STEPS steps through the coupled kernel, then through the two-kernel
-    path (B4 then B6), each counted from the end of sim_init."""
+    path (B4 then B6), then with ``--streaming AA`` through the A-A coupled
+    pair (B8), each counted from the end of sim_init."""
     import torch
 
     from tnl_lbm_tpu_torch.apps import sim_coupled
     from torch_cases import local_scale
 
-    out, final, slab = {"kernels": {}, "err": {}}, None, None
-    for dispatch in ("one-kernel-AB", "two-kernel"):
+    out, final, slabs, figures = {"kernels": {}, "err": {}}, None, {}, {}
+    half = APP_STEPS // 2
+    for dispatch in ("one-kernel-AB", "two-kernel", "one-kernel-AA"):
         label = f"sim_coupled_res{COUPLED_RES}_{dispatch}"
-        sim = sim_coupled.build(COUPLED_RES, device=DEVICE, use_fused=True,
+        streaming = "AA" if dispatch == "one-kernel-AA" else "AB"
+        sim = sim_coupled.build(COUPLED_RES, device=DEVICE, use_fused=True, streaming=streaming,
                                 results_parent=WORK / "main" / dispatch)
         if dispatch == "two-kernel":
             two_kernel(sim)
@@ -901,20 +1120,24 @@ def coupled_main_path() -> dict:
         if not counting_from_init(sim).run():
             raise RuntimeError(f"{label} failed (NaN or refused)")
         launches = report_main(sim, label)
-        want = ({"coupled": APP_STEPS, "ab": 0, "ade": 0} if dispatch == "one-kernel-AB"
-                else {"coupled": 0, "ab": APP_STEPS, "ade": APP_STEPS})
+        figures[dispatch] = run_figures(sim)
+        want = {"one-kernel-AB": {"coupled": APP_STEPS, "ab": 0, "ade": 0},
+                "two-kernel": {"coupled": 0, "ab": APP_STEPS, "ade": APP_STEPS},
+                "one-kernel-AA": {"even": 0, "odd": 0, "coupled_even": half,
+                                  "coupled_odd": APP_STEPS - half}}[dispatch]
         if (sim.coupled_kernel != dispatch or launches != want
                 or sim.iterations != APP_STEPS):
             raise RuntimeError(f"{label}: coupled_kernel {sim.coupled_kernel!r}, launches "
                                f"{launches} after {sim.iterations} steps")
-        slab = plume_slab(sim) if slab is None else slab
-        check_plume(sim, label, slab)
+        if streaming not in slabs:
+            slabs[streaming] = plume_slab(sim)
+        check_plume(sim, label, slabs[streaming])
         if dispatch == "one-kernel-AB":
             out["kernels"]["coupled_ab"] = dataclasses.replace(sim._coupled_step.kernel)
             out["err"]["coupled_ab"] = coupled_kernel_vs_plain_at(sim)
             final = (sim.rho.clone(), sim.u.clone(), sim.phi.clone())
             sim._spare, sim._g_spare = torch.empty_like(sim.f), torch.empty_like(sim.g)
-        else:
+        elif dispatch == "two-kernel":
             out["kernels"]["ade_step"] = dataclasses.replace(sim._ade_step.kernel)
             out["ab_launches"] = launches["ab"]
             same = all(torch.equal(a, b) for a, b in zip(final, (sim.rho, sim.u, sim.phi)))
@@ -924,6 +1147,17 @@ def coupled_main_path() -> dict:
                 max_drho=d[0], max_du=d[1], max_dphi_scaled=d[2], bit_equal=same)
             if not (d[0] <= TOL_APP and d[1] <= TOL_APP and d[2] <= TOL_APP):
                 raise RuntimeError(f"{label}: the two coupled paths disagree: {d}")
+        else:
+            for parity in ("even", "odd"):
+                out["kernels"][f"coupled_aa_{parity}"] = dataclasses.replace(
+                    getattr(sim._coupled_step, parity))
+            out["err"].update(coupled_aa_kernel_vs_plain_at(sim))
+            ab, aa = figures["one-kernel-AB"], figures[dispatch]
+            log("main", path=label, beside="one-kernel-AB of this call",
+                ms_per_step_aa=f"{aa[0]:.4f}", ms_per_step_ab=f"{ab[0]:.4f}",
+                mlups_aa=f"{aa[1]:.1f}", mlups_ab=f"{ab[1]:.1f}", peak_gb_aa=f"{aa[2]:.3f}",
+                peak_gb_ab=f"{ab[2]:.3f}", aa_over_ab_time=f"{aa[0] / ab[0]:.3f}")
+            sim._spare, sim._g_spare = torch.empty_like(sim.f), torch.empty_like(sim.g)
         profile_loop(sim, label)
         del sim
         torch.cuda.empty_cache()
@@ -932,9 +1166,11 @@ def coupled_main_path() -> dict:
 
 def plume_slab(sim):
     """The reference of sim_coupled's middle: the same units, collisions,
-    inflow and outflow on an X x 4 x 4 slab periodic in y and z, APP_STEPS
-    plain steps on the card.  A site more than APP_STEPS sites from the
-    walls takes, in APP_STEPS steps, only what the slab's sites take."""
+    streaming, inflow and outflow (A-A: OUTFLOW_RIGHT for the A-B-only
+    OUTFLOW_PE, as the app) on an X x 4 x 4 slab periodic in y and z,
+    APP_STEPS plain steps on the card.  A site more than APP_STEPS sites
+    from the walls takes, in APP_STEPS steps, only what the slab's sites
+    take."""
     from tnl_lbm_tpu_torch.apps.sim_coupled import SimCoupled
     from tnl_lbm_tpu_torch.models import D3Q7, D3Q27
     from tnl_lbm_tpu_torch.ops.boundary import GEO
@@ -949,12 +1185,13 @@ def plume_slab(sim):
     m = np.zeros((X, 4, 4), np.uint8)
     m[0], m[-1] = GEO.INFLOW, GEO.OUTFLOW_EQ
     ma = np.zeros((X, 4, 4), np.uint8)
-    ma[0], ma[-1] = ADEGEO.INFLOW, ADEGEO.OUTFLOW_PE
+    streaming = sim.ade_cfg.streaming
+    ma[0], ma[-1] = ADEGEO.INFLOW, ADEGEO.OUTFLOW_RIGHT if streaming == "AA" else ADEGEO.OUTFLOW_PE
     per = (False, True, True)
     slab = SimCoupled(sim.cfg, Domain(lat=D3Q27, units=units, map=m, periodic=per), sim.ade_cfg,
                       Domain(lat=D3Q7, units=units, map=ma, periodic=per),
                       ade_diffusion=sim.ade_diffusion, phi_inflow=sim.phi_inflow, device=DEVICE,
-                      sim_id="plume_slab", results_parent=WORK / "main" / "slab",
+                      sim_id=f"plume_slab_{streaming}", results_parent=WORK / "main" / "slab",
                       phys_final_time=APP_STEPS * units.phys_dt, use_fused=False)
     slab.lbm_inflow_vx = sim.lbm_inflow_vx
     if not slab.run() or slab.iterations != APP_STEPS or slab.coupled_kernel != "plain":
@@ -1059,21 +1296,72 @@ def coupled_kernel_vs_plain_at(sim) -> float:
     return d[0]
 
 
-def sim1_main_path():
-    """sim_1 at SIM1_RES through its ``build``, APP_STEPS A-B steps with its
-    own probes (VTK3D, the whole lattice, is switched off: one cycle is
-    1.1 GB of files), then one more VTK2D cycle from the final state, read
-    back and held against the fields on the card."""
+def coupled_aa_kernel_vs_plain_at(sim) -> dict:
+    """From the A-A main path's final state (an even parity next), one even
+    and then one odd parity of a fresh B8 wrapper against its plain version
+    on the card, each from the same input on both sides: f, rho, u to the
+    step bounds, g and phi relative to ``local_scale`` of the input g.  The
+    spare buffers are freed first; the plain versions' peak memory is
+    reported.  Returns max(|df|, |dg|) per kernel."""
     import torch
 
+    from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step_aa
+    from torch_cases import local_scale
+
+    t = sim.phys_time()
+    u_in, force = sim.update_inflow(t), sim.body_force(t)
+    nu, phi_in = sim.domain.units.lbm_viscosity(), float(sim.phi_inflow)
+    sim._spare = sim._g_spare = None
+    torch.cuda.empty_cache()
+    step = make_fused_coupled_step_aa(sim.cfg, sim.domain, sim.ade_cfg, sim.ade_domain, DEVICE)
+    f, g, err = sim.f, sim.g, {}
+    for parity, name in ((sim.iterations % 2, "coupled_aa_even"),
+                         (1 - sim.iterations % 2, "coupled_aa_odd")):
+        args = dict(u_in=u_in, force=force, phi_in=phi_in, parity=parity)
+        k = step(f.clone(), g.clone(), nu, sim._nu_ade, **args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        p = step.plain(f, g, nu, sim._nu_ade, **args)
+        torch.cuda.synchronize()
+        plain_peak = torch.cuda.max_memory_allocated()
+        scale = local_scale(g)
+        d = (max_diff(k[0], p[0]), max_diff(k[2], p[2]), max_diff(k[3], p[3]),
+             scaled_diff(k[1], p[1], scale), scaled_diff(k[4], p[4], scale))
+        log("main", path=f"sim_coupled_res{COUPLED_RES}_AA", compare="kernel vs plain, from "
+            "the final state", kernel=name, shape="x".join(map(str, sim.domain.shape)),
+            max_df=d[0], max_drho=d[1], max_du=d[2], max_dg_scaled=d[3], max_dphi_scaled=d[4],
+            plain_peak_gb=f"{plain_peak / 1e9:.3f}",
+            plain_temporaries_gb=f"{(plain_peak - base) / 1e9:.3f}")
+        del p, scale
+        torch.cuda.empty_cache()
+        if not (d[0] <= TOL_F and d[1] <= TOL_RHO and d[2] <= TOL_U and d[3] <= TOL_G
+                and d[4] <= TOL_PHI):
+            raise RuntimeError(f"{name} vs plain on sim_coupled res {COUPLED_RES}: {d}")
+        err[name] = max(d[0], d[3])
+        f, g = k[0], k[1]
+        del k
+    return err
+
+
+def sim1_main_path(streaming: str = "AB", resolution: int = SIM1_RES, counted: bool = True):
+    """sim_1 at ``resolution`` through its ``build`` with ``streaming`` (A-B:
+    the A-B kernel; A-A: the even and odd kernels), APP_STEPS steps with
+    its own probes (VTK3D, the whole lattice, is switched off: one cycle is
+    1.1 GB of files at res 8), then one more VTK2D cycle from the final
+    state, read back and held against the fields on the card."""
     from tnl_lbm_tpu_torch.apps import sim_1
     from tnl_lbm_tpu_torch.sim.state import VTK3D
 
-    sim = sim_1.build(SIM1_RES, device=DEVICE, results_parent=WORK / "main")
+    where = WORK / "main" if streaming == "AB" else WORK / "main" / f"sim_1_{streaming}"
+    sim = sim_1.build(resolution, device=DEVICE, streaming=streaming,
+                      results_parent=where / f"res{resolution}")
     sim.phys_final_time = APP_STEPS * sim.domain.units.phys_dt
     sim.cnt[VTK3D].period = -1.0
-    if not counting_from_init(sim).run():
-        raise RuntimeError(f"sim_1 res {SIM1_RES} failed (NaN or refused)")
+    if counted:
+        counting_from_init(sim)
+    if not sim.run():
+        raise RuntimeError(f"sim_1 res {resolution} {streaming} failed (NaN or refused)")
     sim._write_vtk_2d()
     for p in sim.probes_2d:
         got = read_vti(sim.results_dir / "vtk2D" / f"{p.name}_{p.cycle - 1:06d}.vti")
@@ -1085,9 +1373,48 @@ def sim1_main_path():
         if not (np.array_equal(got["lbm_density"], want_rho)
                 and np.array_equal(got["velocity"], want_u)):
             raise RuntimeError(f"sim_1 VTK2D cut {p.name} read back differs from the card's")
-        log("main", path=f"sim_1_res{SIM1_RES}", vtk2d=p.name, cycles=p.cycle,
+        log("main", path=f"sim_1_res{resolution}_{streaming}", vtk2d=p.name, cycles=p.cycle,
             read_back="equal", plane="x".join(map(str, want_rho.shape)))
     return sim
+
+
+def sim1_aa_kernel_vs_plain(resolution: int = SIM1_AA_PLAIN_RES) -> dict:
+    """sim_1 with A-A streaming at ``resolution``, APP_STEPS steps through
+    the even and odd kernels, then from its final state one even and then
+    one odd step of a fresh A-A step wrapper against its plain version on
+    the card, each from the same input, with the step bounds.  At res 8 the
+    plain A-A step's whole-array temporaries would not fit beside the run
+    (the plain A-B step peaked at 73.3 GB there), so this runs at res 4.
+    Returns max |df| per kernel."""
+    import torch
+
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_step_aa
+
+    sim = sim1_main_path("AA", resolution, counted=False)
+    t = sim.phys_time()
+    u_in, force = sim.update_inflow(t), sim.body_force(t)
+    f, nu = sim.f, sim.domain.units.lbm_viscosity()
+    step = make_fused_step_aa(sim.cfg, sim.domain, DEVICE)
+    err = {}
+    for parity, name in ((sim.iterations % 2, "aa_even"), (1 - sim.iterations % 2, "aa_odd")):
+        fk, rk, uk = step(f.clone(), nu, u_in=u_in, force=force, parity=parity)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fp, rp, up = step.plain(f, nu, u_in=u_in, force=force, parity=parity)
+        torch.cuda.synchronize()
+        plain_peak = torch.cuda.max_memory_allocated()
+        d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+        log("main", path=f"sim_1_res{resolution}_AA", compare="kernel vs plain, from the final "
+            f"state (res {resolution})", kernel=name, shape="x".join(map(str, sim.domain.shape)),
+            max_df=d[0], max_drho=d[1], max_du=d[2], plain_peak_gb=f"{plain_peak / 1e9:.3f}",
+            plain_temporaries_gb=f"{(plain_peak - base) / 1e9:.3f}", variant=step.variant)
+        del fp, rp, up
+        torch.cuda.empty_cache()
+        if not (d[0] <= TOL_F and d[1] <= TOL_RHO and d[2] <= TOL_U):
+            raise RuntimeError(f"{name} vs plain on sim_1 res {resolution} A-A: {d}")
+        err[name], f = d[0], fk
+    return err
 
 
 def sim1_kernel_vs_plain(sim) -> float:
@@ -1187,89 +1514,99 @@ def phase_accuracy() -> None:
             or sim._step.kernel.launches <= 0):
         raise RuntimeError(f"sim_2 res 2 A-B: L1 {l1:e} not within 5% of the start-up "
                            f"solution's {l1_ref:e}")
-    for app in ("sim_1", "sim_3"):
-        app_kernel_vs_plain(app)
-    coupled_app_kernel_vs_plain()
+    for app, streaming in (("sim_1", "AB"), ("sim_3", "AB"), ("sim_1", "AA")):
+        app_kernel_vs_plain(app, streaming)
+    for streaming in ("AB", "AA"):
+        coupled_app_kernel_vs_plain(streaming)
 
 
-def coupled_app_kernel_vs_plain() -> None:
-    """sim_coupled at resolution 2, APP_STEPS steps through the coupled
-    kernel and through the plain steps on the card, from the same start;
-    phi is held relative to ``local_scale`` of the plain run's phi, since
-    the walls grow it."""
+def coupled_app_kernel_vs_plain(streaming: str) -> None:
+    """sim_coupled at resolution 2 with ``streaming``, APP_STEPS steps
+    through the coupled kernel (B7; A-A: B8) and through the plain steps on
+    the card, from the same start; phi is held relative to ``local_scale``
+    of the plain run's phi, since the A-B walls grow it."""
     from tnl_lbm_tpu_torch.apps import sim_coupled
     from torch_cases import local_scale
 
     runs = {}
     for fused in (True, False):
-        sim = sim_coupled.build(2, device=DEVICE, use_fused=fused,
-                                results_parent=WORK / "accuracy" / f"sim_coupled_{fused}")
+        sim = sim_coupled.build(2, device=DEVICE, use_fused=fused, streaming=streaming,
+                                results_parent=WORK / "accuracy" / f"sim_coupled_{streaming}_{fused}")
         sim.phys_final_time = APP_STEPS * sim.domain.units.phys_dt
         if not sim.run() or sim.iterations != APP_STEPS:
-            raise RuntimeError(f"sim_coupled res 2 (use_fused={fused}) failed")
+            raise RuntimeError(f"sim_coupled res 2 {streaming} (use_fused={fused}) failed")
         runs[fused] = sim
     k, p = runs[True], runs[False]
     d = (max_diff(k.rho, p.rho), max_diff(k.u, p.u),
          scaled_diff(k.phi, p.phi, local_scale(p.phi)))
-    step = k._coupled_step
-    log("accuracy", path="sim_coupled_res2", steps=APP_STEPS, coupled_kernel=k.coupled_kernel,
-        max_drho=d[0], max_du=d[1], max_dphi_scaled=d[2], max_abs_phi=float(p.phi.abs().max()),
-        launches=step.kernel.launches, plain_calls=step.plain_calls)
-    if not (all(x <= TOL_APP for x in d) and step.kernel.launches == APP_STEPS
+    step, launches = k._coupled_step, sum(kernel_launches(k).values())
+    log("accuracy", path=f"sim_coupled_res2_{streaming}", steps=APP_STEPS,
+        coupled_kernel=k.coupled_kernel, max_drho=d[0], max_du=d[1], max_dphi_scaled=d[2],
+        max_abs_phi=float(p.phi.abs().max()), launches=launches, plain_calls=step.plain_calls)
+    if not (all(x <= TOL_APP for x in d) and launches == APP_STEPS
+            and k.coupled_kernel == f"one-kernel-{streaming}"
             and step.plain_calls == 0 and p.coupled_kernel == "plain"):
-        raise RuntimeError(f"sim_coupled res 2: kernel vs plain over {APP_STEPS} steps: {d}")
+        raise RuntimeError(f"sim_coupled res 2 {streaming}: kernel vs plain over {APP_STEPS} "
+                           f"steps: {d}")
 
 
-def app_kernel_vs_plain(name: str) -> None:
-    """An app at resolution 2, APP_STEPS steps through the A-B kernel and
-    through the plain step on the card, from the same initial state."""
+def app_kernel_vs_plain(name: str, streaming: str) -> None:
+    """An app at resolution 2 with ``streaming``, APP_STEPS steps through the
+    kernels (A-B: B4; A-A: B2 and B3) and through the plain step on the
+    card, from the same initial state."""
     import importlib
 
     import torch
 
     app = importlib.import_module(f"tnl_lbm_tpu_torch.apps.{name}")
     runs = {}
+    kw = {"streaming": streaming} if streaming == "AA" else {}  # sim_3 is A-B only
     for fused in (True, False):
         sim = app.build(2, device=DEVICE, use_fused=fused,
-                        results_parent=WORK / "accuracy" / f"{name}_{fused}")
+                        results_parent=WORK / "accuracy" / f"{name}_{streaming}_{fused}", **kw)
         sim.phys_final_time = APP_STEPS * sim.domain.units.phys_dt
         if not sim.run() or sim.iterations != APP_STEPS:
-            raise RuntimeError(f"{name} res 2 (use_fused={fused}) failed")
+            raise RuntimeError(f"{name} res 2 {streaming} (use_fused={fused}) failed")
         runs[fused] = sim
     k, p = runs[True], runs[False]
     d_rho, d_u = max_diff(k.rho, p.rho), max_diff(k.u, p.u)
     moved = float(k.u.abs().max())
-    log("accuracy", path=f"{name}_res2", steps=APP_STEPS, max_drho=d_rho, max_du=d_u,
-        max_abs_u=moved, launches=k._step.kernel.launches, plain_calls=k._step.plain_calls)
+    launches = sum(kernel_launches(k).values())
+    log("accuracy", path=f"{name}_res2_{streaming}", steps=APP_STEPS, max_drho=d_rho,
+        max_du=d_u, max_abs_u=moved, launches=launches, plain_calls=k._step.plain_calls)
     if not (d_rho <= TOL_APP and d_u <= TOL_APP and torch.isfinite(k.u).all() and moved > 0
-            and k._step.kernel.launches == APP_STEPS and k._step.plain_calls == 0):
-        raise RuntimeError(f"{name} res 2: kernel vs plain over {APP_STEPS} steps: "
-                           f"drho {d_rho}, du {d_u}")
+            and launches == APP_STEPS and k._step.plain_calls == 0):
+        raise RuntimeError(f"{name} res 2 {streaming}: kernel vs plain over {APP_STEPS} "
+                           f"steps: drho {d_rho}, du {d_u}")
 
 
 def kernel_footprints(ops: dict) -> dict:
     """(bytes per site, FP32 operations per site) of each kernel at its
     timed 256^3 inputs: the bytes it must move (each input read once, each
     output written once) and the SASS count of ``phase_build`` (the pair:
-    an even plus an odd step per site; P2: the affine passes, 2 operations
-    per DF)."""
+    two of the lean CUM_WELL site updates it shares with the odd kernel's
+    FLUID/WALL/NOTHING instance, per site; P2: the affine passes, 2
+    operations per DF)."""
     from tnl_lbm_tpu_torch.kernels.fused_aa import PAIR_TILE
 
-    even, odd = ops["aa_even_kernel"], ops["aa_odd_kernel"]
+    even, odd = ops["aa_even_cum_well_kernel"], ops["aa_odd_kernel"]
+    pair = 2 * odd
     affine = 2 * 27 * 20  # PROBE_PASSES' timed entry: 20 passes
     sites = float(np.prod(BENCH_SHAPE))
     block0 = 27 * 4 * (np.prod([t + 2 for t in PAIR_TILE]) + np.prod(PAIR_TILE))
     return {
         "aa_even": (233, even), "aa_odd": (233, odd),
-        "aa_pair_f32": (PAIR_BYTES["f32"], even + odd),
-        "aa_pair_f16": (PAIR_BYTES["f16"], even + odd),
-        "aa_pair_bf16": (PAIR_BYTES["bf16"], even + odd),
+        "aa_pair_f32": (PAIR_BYTES["f32"], pair),
+        "aa_pair_f16": (PAIR_BYTES["f16"], pair),
+        "aa_pair_bf16": (PAIR_BYTES["bf16"], pair),
         "ab_step": (AB_BYTES, ops["ab_step_cum_well_kernel"]),
         "copy_permute": (232, ops["copy_permute_kernel"]),
         "pair_pipeline": (216, affine),
         "pair_compute_only": (block0 / sites, affine),
         "ade_step": (ADE_BYTES, ops["ade_step_clbm_kernel"]),
         "coupled_ab": (COUPLED_BYTES, ops["coupled_cum_well_clbm_kernel"]),
+        "coupled_aa_even": (COUPLED_BYTES, ops["coupled_aa_even_cum_well_clbm_kernel"]),
+        "coupled_aa_odd": (COUPLED_BYTES, ops["coupled_aa_odd_cum_well_clbm_kernel"]),
     }
 
 
@@ -1297,6 +1634,7 @@ def main() -> int:
     device = phase_device()
     ops = phase_build()
     steps = phase_compare_steps()
+    aa_codes_err = phase_compare_aa_codes()
     pairs = phase_compare_pairs(steps["times"])
     probe = phase_probes()
     floor = gbps(232, probe["times"]["copy_permute"][0])
@@ -1304,16 +1642,21 @@ def main() -> int:
     ade_err = phase_compare_ade()
     coupled_err = phase_compare_coupled()
     timed = phase_time_coupled(floor)
+    coupled_aa = phase_compare_coupled_aa()
+    timed_aa = phase_time_coupled_aa(steps["times"], floor)
     main_path = phase_main_path()
     kernels = main_path["kernels"]
     phase_accuracy()
     err = {**steps["err"], **pairs["err"], **probe["err"], **ab["err"]}
-    for key in ("ab_step", "ade_step", "coupled_ab"):
+    for key in ("aa_even", "aa_odd"):
+        err[key] = max(err[key], aa_codes_err, main_path["err"][key])
+    for key in ("ab_step", "ade_step", "coupled_ab", "coupled_aa_even", "coupled_aa_odd"):
         err[key] = max(err.get(key, 0.0), main_path["err"].get(key, 0.0),
                        timed["err"].get(key, 0.0), ade_err.get(key, 0.0),
-                       coupled_err.get(key, 0.0))
+                       coupled_err.get(key, 0.0), coupled_aa["err"].get(key, 0.0),
+                       timed_aa["err"].get(key, 0.0))
     times = {**steps["times"], **pairs["times"], **probe["times"], **ab["times"],
-             **timed["times"]}
+             **timed["times"], **timed_aa["times"]}
     kernels.update(probe["kernels"])
     footprint = kernel_footprints(ops)
     record = {"kernels": []}

@@ -40,7 +40,10 @@ from test_torch_step import jax_side
 CSRC = Path(__file__).resolve().parents[1] / "tnl_lbm_tpu_torch" / "csrc"
 NU = 0.02
 FORCE = (1e-5, 0.0, 0.0)
-AA_CODES = {GEO.FLUID, GEO.WALL, GEO.NOTHING}
+#: the codes of the A-A even/odd kernels: the 3D set but the A-B-only interpolated outflow
+AA_CODES = {GEO.FLUID, GEO.WALL, GEO.INFLOW, GEO.INFLOW_LEFT, GEO.OUTFLOW_EQ, GEO.OUTFLOW_RIGHT,
+            GEO.PERIODIC, GEO.NOTHING, GEO.SYM_TOP, GEO.SYM_BOTTOM, GEO.SYM_LEFT, GEO.SYM_RIGHT,
+            GEO.SYM_BACK, GEO.SYM_FRONT}
 
 
 def seeded(shape, seed=0):

@@ -8,7 +8,16 @@ its plain version on CPU tensors, go through the same seeded inputs as the
 JAX functions; B6's plain version is held once against the JAX Pallas
 kernel in interpret mode, as tests/test_ade.py runs it.  Bounds per step:
 |dg| < 1e-6, |dphi| < 2e-6.
+
+The JAX plain ADE step reads an A-A odd step's OUTFLOW_RIGHT sites from
+the site's own slot at x-1, where its A-A Pallas kernel, the port's plain
+step and the A-A coupled kernel read the opposite slot, as every other
+A-A odd read does.  The A-A comparisons run the JAX step with that read
+made the opposite slot's (``read_opp_at_aa_outflow``); the difference
+itself is asserted once.
 """
+
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +28,7 @@ from tnl_lbm_tpu.kernels import fused_ade as jfa
 from tnl_lbm_tpu.models import D3Q7
 from tnl_lbm_tpu.ops import collision_ade as jcade
 from tnl_lbm_tpu.ops import equilibrium as jeq
+from tnl_lbm_tpu.ops import streaming as jstream
 from tnl_lbm_tpu.sim import Domain as JDomain
 from tnl_lbm_tpu.sim import LBMConfig as JConfig
 from tnl_lbm_tpu.sim import step_ade as jsa
@@ -60,6 +70,22 @@ def port_side(collision, m, periodic, streaming="AB"):
 
 def diff(j, p) -> float:
     return float(np.abs(np.asarray(j) - p.numpy()).max())
+
+
+def read_opp_at_aa_outflow(monkeypatch):
+    """For the rest of the calling test, the JAX plain ADE step's
+    OUTFLOW_RIGHT pull reads the opposite slot at x-1, the A-A odd read of
+    its Pallas kernel (module docstring).  Only ``step_ade``'s view of the
+    streaming module changes, so only A-A ADE steps may be built under it."""
+
+    def pull_shift_x_opp(lat, fpad, shape, dx=-1):
+        return jnp.stack([jstream._shift_slices(fpad[int(lat.opp[q])],
+                                                [dx] + [-int(c) for c in lat.c[q][1:]], shape)
+                          for q in range(lat.Q)])
+
+    patched = types.SimpleNamespace(**vars(jstream))
+    patched.pull_shift_x = pull_shift_x_opp
+    monkeypatch.setattr(jsa, "stream", patched)
 
 
 # ------------------------------------------------------------------- ops
@@ -129,11 +155,14 @@ def aa_box():
 
 @pytest.mark.parametrize("collision", ADE_COLLISIONS)
 @pytest.mark.parametrize("streaming", ["AB", "AA"])
-def test_make_ade_step_matches_jax(streaming, collision):
+def test_make_ade_step_matches_jax(streaming, collision, monkeypatch):
     """Four steps (A-A: both parities twice) on every code, with transfer
-    links and a per-site diffusion field."""
+    links and a per-site diffusion field; A-A against the JAX step with the
+    opposite-slot outflow read (module docstring)."""
     m = ade_box() if streaming == "AB" else aa_box()
     periodic = (False, False, True)
+    if streaming == "AA":
+        read_opp_at_aa_outflow(monkeypatch)
     jcfg, jdom = jax_side(collision, m, periodic, streaming)
     cfg, dom = port_side(collision, m, periodic, streaming)
     jstep, pstep = jsa.make_ade_step(jcfg, jdom), psa.make_ade_step(cfg, dom)
@@ -148,6 +177,26 @@ def test_make_ade_step_matches_jax(streaming, collision):
                        parity=it % 2)
         assert diff(gj, gp) < 1e-6, f"g, step {it}"
         assert diff(pj, pp) < 2e-6, f"phi, step {it}"
+
+
+def test_jax_plain_ade_step_reads_own_slot_at_aa_outflow(monkeypatch):
+    """One A-A odd step from the same g: the port's plain step equals the
+    JAX plain step with the opposite-slot outflow read everywhere, and the
+    unchanged JAX step everywhere but the two x planes the outflow sites
+    push to, where phi differs at the OUTFLOW_RIGHT sites."""
+    m, periodic = aa_box(), (False, False, True)
+    g, u, nu = seeded(m.shape)
+    gp, pp = psa.make_ade_step(*port_side("CLBM", m, periodic, "AA"))(
+        torch.from_numpy(g), torch.from_numpy(u), torch.from_numpy(nu), phi_in=PHI_IN, parity=1)
+    args = (jnp.asarray(g), jnp.asarray(u), jnp.asarray(nu))
+    jcfg, jdom = jax_side("CLBM", m, periodic, "AA")
+    gj, pj = jsa.make_ade_step(jcfg, jdom)(*args, phi_in=PHI_IN, parity=1)
+    assert diff(gj[:, :-2], gp[:, :-2]) < 1e-6 and diff(pj[:-1], pp[:-1]) < 2e-6
+    outflow = m[-1] == ADEGEO.OUTFLOW_RIGHT
+    assert float(np.abs(np.asarray(pj)[-1] - pp.numpy()[-1])[outflow].min()) > 1e-4
+    read_opp_at_aa_outflow(monkeypatch)
+    gj, pj = jsa.make_ade_step(jcfg, jdom)(*args, phi_in=PHI_IN, parity=1)
+    assert diff(gj, gp) < 1e-6 and diff(pj, pp) < 2e-6
 
 
 def test_make_ade_step_refuses_outflow_pe_under_aa():
@@ -234,7 +283,7 @@ def test_fused_ade_wrapper_contract():
         step(g, u, NU, out=g)
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         pfa.make_fused_ade_step(cfg, dom, "cpu", prepadded=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
+    with pytest.raises(NotImplementedError, match="make_fused_coupled_step_aa"):
         pfa.make_fused_ade_step(interop.ade_config_from_spec("SRT", "AA"), dom, "cpu")
     with pytest.raises(NotImplementedError):
         interop.ade_config_from_spec("TRT")

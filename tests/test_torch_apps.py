@@ -139,10 +139,13 @@ def test_app_options_that_raise(tmp_path):
         sim_1.main(["1", "--device", "cpu", "--sharded", "--results-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         sim_3.main(["1", "--device", "cpu", "--sharded", "--results-dir", str(tmp_path)])
-    # the A-A kernels take FLUID/WALL/NOTHING only; the plain A-A step runs
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        sim_1.main(["1", "--device", "cpu", "--streaming", "AA", "--final-time", "0.001",
-                    "--results-dir", str(tmp_path / "aa")])
+    # A-A with the kernels runs through the even/odd kernels' plain versions
+    # here (the pair refuses sim_1's codes); the plain A-A step runs too
+    sim = sim_1.main(["1", "--device", "cpu", "--streaming", "AA", "--use-fused",
+                      "--final-time", "0.001", "--results-dir", str(tmp_path / "aa")])
+    assert sim.iterations == 10 and sim.pair_dispatch is False and sim._pair is None
+    assert sim._step.plain_calls == 10 and sim._step.even.launches == sim._step.odd.launches == 0
+    assert torch.isfinite(sim.u).all() and float(sim.u[0].max()) > 0
     sim = sim_1.main(["1", "--device", "cpu", "--streaming", "AA", "--no-fused",
                       "--final-time", "0.001", "--results-dir", str(tmp_path / "aa_plain")])
     assert sim.iterations == 10 and torch.isfinite(sim.u).all()

@@ -37,7 +37,8 @@ from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step
 from tnl_lbm_tpu_torch.sim.coupled import CoupledSimulation
 from tnl_lbm_tpu_torch.sim.state import VTK2D
 
-from torch_cases import AB_SPECS, PHI_IN, TCOEF, U_IN, coupled_cases, local_scale
+from test_torch_ade import read_opp_at_aa_outflow
+from torch_cases import AB_SPECS, PHI_IN, TCOEF, U_IN, coupled_cases, local_scale, seeded_ade
 
 NU, FORCE = 0.02, (1e-5, 0.0, 0.0)
 
@@ -141,16 +142,17 @@ def coupled_pair(tmp_path, tag, streaming, use_fused, transfer=False, cls=Period
     ("AA", True, False), ("AA", True, True)])
 def test_coupled_kernel_choice_matches_jax(tmp_path, streaming, use_fused, transfer):
     """The port picks the JAX CoupledSimulation's path ("xla" is the port's
-    "plain"); where the JAX one picks the A-A coupled pair, or degrades to its
-    two-kernel path with the ADE half on XLA, the port raises naming B8."""
+    "plain"), the A-A coupled pair included; where the JAX one degrades to
+    its two-kernel path with the ADE half unfused (the A-A pair with
+    transfer codes), the port raises naming the reason and the A-B path."""
     ref, port = coupled_pair(tmp_path, f"{streaming}{use_fused}{transfer}", streaming,
                              use_fused, transfer)
     assert ref.can_compute()
     ref.sim_init()
     ref._lock.release()
-    if streaming == "AA" and use_fused:
-        assert ref.coupled_kernel in ("one-kernel-AA", "two-kernel")
-        with pytest.raises(NotImplementedError, match="ROADMAP B8"):
+    if streaming == "AA" and use_fused and transfer:
+        assert ref.coupled_kernel == "two-kernel"
+        with pytest.raises(NotImplementedError, match="neighbours' phi.*A-B coupled kernel"):
             port.sim_init()
         return
     port.sim_init()
@@ -190,10 +192,10 @@ def test_two_kernel_path_runs_b4_then_b6(tmp_path):
 
 # ------------------------------------------------------------ sim_coupled
 
-def build_both(tmp_path, use_fused):
-    return (sim_coupled.build(1, device="cpu", use_fused=use_fused,
+def build_both(tmp_path, use_fused, streaming="AB"):
+    return (sim_coupled.build(1, device="cpu", use_fused=use_fused, streaming=streaming,
                               results_parent=tmp_path / "port"),
-            jsim.build(1, results_parent=tmp_path / "jax"))
+            jsim.build(1, results_parent=tmp_path / "jax", streaming=streaming))
 
 
 def test_sim_coupled_build_matches_jax(tmp_path):
@@ -235,17 +237,23 @@ def test_sim_coupled_steps_match_jax(tmp_path, use_fused):
 WALL_STEPS = 20
 
 
-def test_sim_coupled_wall_growth_and_inlet_undershoot_match_jax(tmp_path):
-    """The JAX app's own faults, seen in the port alike: phi at the
-    WALL_BODY walls grows about 1.9x per step, and the inlet's step front
-    undershoots below zero where the walls cannot reach yet.  Each of
-    WALL_STEPS steps starts the port (B7's plain version) from the JAX
-    app's state: f, rho and u are held to the step bounds, g and phi to
-    them relative to ``local_scale`` of the input g."""
-    port, ref = build_both(tmp_path, True)
+def wall_growth_against_jax(tmp_path, streaming, monkeypatch):
+    """WALL_STEPS steps of sim_coupled res 1 through the port's coupled
+    kernel's plain version (B7 on A-B, B8 on A-A) and the JAX app's plain
+    path, each port step started from the JAX app's state: f, rho and u
+    held to the step bounds, g and phi to them relative to ``local_scale``
+    of the input g.  On A-A the JAX plain ADE step reads OUTFLOW_RIGHT
+    sites from the opposite slot, as B8 does (tests/test_torch_ade.py
+    ``read_opp_at_aa_outflow``).  Returns the histories, per step [JAX,
+    port], of max |phi| on the walls past the inlet plane and of the
+    minimum of phi on the y band the walls cannot reach yet."""
+    if streaming == "AA":
+        read_opp_at_aa_outflow(monkeypatch)
+    port, ref = build_both(tmp_path, True, streaming)
     assert ref.can_compute() and port.can_compute()
     ref.sim_init()
     port.sim_init()
+    assert port.coupled_kernel == f"one-kernel-{streaming}"
     Y = ref.ade_domain.shape[1]
     walls, band_min = [], []
     for it in range(1, WALL_STEPS + 1):
@@ -261,18 +269,40 @@ def test_sim_coupled_wall_growth_and_inlet_undershoot_match_jax(tmp_path):
             rel = float(((a.double() - b.double()).abs() / scale).max())
             assert rel < bound, (it, name, rel)
         phi_j, phi_p = np.asarray(ref.phi), port.phi.numpy()
-        walls.append([float(np.abs(p[:, [0, -1]]).max()) for p in (phi_j, phi_p)])
+        walls.append([float(np.abs(p[1:, [0, -1]]).max()) for p in (phi_j, phi_p)])
         if it < Y // 2 - 1:  # y it+1 .. Y-it-2: out of the walls' reach after it steps
             band = (slice(None), slice(it + 1, Y - it - 1))
             band_min.append([float(p[band].min()) for p in (phi_j, phi_p)])
-    walls, band_min = np.array(walls), np.array(band_min)
+    ref._lock.release()
+    port._lock.release()
+    return np.array(walls), np.array(band_min)
+
+
+def test_sim_coupled_wall_growth_and_inlet_undershoot_match_jax(tmp_path, monkeypatch):
+    """The JAX app's own faults, seen in the port alike: phi at the
+    WALL_BODY walls grows about 1.9x per step, and the inlet's step front
+    undershoots below zero where the walls cannot reach yet (the port's
+    side: B7's plain version; ``wall_growth_against_jax``)."""
+    walls, band_min = wall_growth_against_jax(tmp_path, "AB", monkeypatch)
     rates = walls[-5:] / walls[-6:-1]
     assert walls[-1, 0] > 1e3 and ((rates > 1.8) & (rates < 2.0)).all(), (walls, rates)
     np.testing.assert_allclose(walls[:, 1], walls[:, 0], rtol=2e-6)
     assert band_min[:, 0].min() < -0.05, band_min
     np.testing.assert_allclose(band_min[:, 1], band_min[:, 0], rtol=0, atol=2e-6)
-    ref._lock.release()
-    port._lock.release()
+
+
+def test_sim_coupled_aa_walls_stay_bounded_unlike_ab(tmp_path, monkeypatch):
+    """Under A-A streaming, through B8's plain version, the WALL_BODY walls
+    do not grow as on A-B: |phi| on them peaks below 0.2 and decays, below
+    half its peak over the last two steps of WALL_STEPS (on A-B it passes
+    1e3), while the inlet front undershoots as on A-B; the port agrees with
+    the JAX app's A-A run."""
+    walls, band_min = wall_growth_against_jax(tmp_path, "AA", monkeypatch)
+    peak = walls[:, 0].max()
+    assert 0 < peak < 0.2 and walls[-2:, 0].max() < peak / 2, walls
+    np.testing.assert_allclose(walls[:, 1], walls[:, 0], rtol=2e-6)
+    assert band_min[:, 0].min() < -0.05, band_min
+    np.testing.assert_allclose(band_min[:, 1], band_min[:, 0], rtol=0, atol=2e-6)
 
 
 def test_sim_coupled_vtk2d_with_phi_matches_jax_byte_for_byte(tmp_path):
@@ -310,17 +340,30 @@ def test_sim_coupled_cli_runs_on_the_cpu(tmp_path):
 def test_sim_coupled_options_that_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         sim_coupled.main(["1", "--device", "cpu", "--sharded", "--results-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        sim_coupled.main(["1", "--device", "cpu", "--streaming", "AA", "--use-fused",
-                          "--final-time", "0.001", "--results-dir", str(tmp_path / "aa")])
+    # A-A with the kernels: the A-A coupled pair (B8), its plain version here
+    fused = sim_coupled.main(["1", "--device", "cpu", "--streaming", "AA", "--use-fused",
+                              "--final-time", "0.002", "--results-dir", str(tmp_path / "aa")])
+    assert fused.iterations == 4 and fused.coupled_kernel == "one-kernel-AA"
+    assert fused._coupled_step.plain_calls == 4
+    assert fused._coupled_step.even.launches == fused._coupled_step.odd.launches == 0
     sim = sim_coupled.main(["1", "--device", "cpu", "--streaming", "AA", "--final-time",
                             "0.002", "--results-dir", str(tmp_path / "aa_plain")])
     assert sim.iterations == 4 and sim.coupled_kernel == "plain"
+    # one semantics: the plain steps and B8's plain version agree everywhere,
+    # the ADE outflow included, from a seeded g whose phi reaches it
+    f0, g0 = fused.f.clone(), seeded_ade(tuple(sim.ade_domain.shape), "cpu")[0]
+    for run in (fused, sim):
+        run.f, run.g = f0.clone(), g0.clone()
+        run._advance(2)
+    assert fused.iterations == sim.iterations == 6
+    for name, bound in (("f", 1e-6), ("g", 1e-6), ("phi", 2e-6)):
+        d = float((getattr(fused, name) - getattr(sim, name)).abs().max())
+        assert d < bound, (name, d)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         sim.checkpoint_arrays_extra()
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        fused_coupled.make_fused_coupled_step_aa(sim.cfg, sim.domain, sim.ade_cfg,
-                                                 sim.ade_domain, "cpu")
+    step = fused_coupled.make_fused_coupled_step_aa(sim.cfg, sim.domain, sim.ade_cfg,
+                                                    sim.ade_domain, "cpu")
+    assert step.plain_calls == 0 and step.even.launches == step.odd.launches == 0
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         CoupledSimulation(sim.cfg, sim.domain, sim.ade_cfg, sim.ade_domain, plan=object(),
                           device="cpu", results_parent=tmp_path / "plan")

@@ -100,7 +100,12 @@ def test_unported_variants_raise():
 def test_supports_reports_the_ported_codes():
     m, periodic = geometry("duct")
     assert supports(interop.domain_from_numpy(m, periodic), "AA")
+    assert supports(interop.domain_from_numpy(m, periodic), "AA", pair=True)
     m[2, 2, 2] = GEO.INFLOW_LEFT
+    # the even/odd kernels take it, the pair does not
+    assert supports(interop.domain_from_numpy(m, periodic), "AA")
+    assert not supports(interop.domain_from_numpy(m, periodic), "AA", pair=True)
+    m[2, 2, 3] = GEO.OUTFLOW_RIGHT_INTERP  # A-B only
     assert not supports(interop.domain_from_numpy(m, periodic), "AA")
     # the A-B kernel takes the full 3D set
     assert supports(interop.domain_from_numpy(m, periodic), "AB")

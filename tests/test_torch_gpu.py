@@ -31,9 +31,12 @@ from torch_cases import (
     PHI_IN,
     TCOEF,
     U_IN,
+    aa_box,
+    ade_aa_box,
     ade_case,
     bc_box,
     channel,
+    coupled_aa_cases,
     coupled_cases,
     seeded_ade,
 )
@@ -99,8 +102,9 @@ def test_kernel_rejects_bad_input(cuda):
         step(torch.zeros((27, 8, 8, 16), device=cuda).transpose(2, 3), 0.02, parity=1)
     with pytest.raises(NotImplementedError):
         step(torch.zeros((27, 8, 16, 8), device=cuda, dtype=torch.float64), 0.02, parity=0)
-    with pytest.raises(NotImplementedError):
-        make_fused_step_aa(interop.config_from_spec("CUM", "EQ", False, "AA"), dom, cuda)
+    with pytest.raises(NotImplementedError):  # CUM_WELL's cascade on total DFs: no instance
+        make_fused_step_aa(interop.config_from_spec("CUM_WELL", "EQ_WELL", False, "AA"), dom,
+                           cuda)
     assert step.even.launches == step.odd.launches == 0
 
 
@@ -346,3 +350,106 @@ def test_ade_and_coupled_kernels_write_into_out_and_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         one(f, g, 0.02, 0.02, out_g=g)
     assert step.kernel.launches == 1 and one.kernel.launches == 1
+
+
+# ------------------------------------ A-A steps with every code (B2, B3), B8
+
+@pytest.mark.parametrize("spec", sorted(AB_SPECS))
+def test_aa_kernels_match_plain_on_every_code(cuda, spec):
+    """Four alternating A-A steps on a box of every A-A code with Z = 150,
+    which the block's 128 z sites do not divide; each step's kernel output
+    against the plain version on the same input."""
+    m, periodic = aa_box((24, 20, 150)), (False, False, True)
+    cfg = interop.config_from_spec(*AB_SPECS[spec], "AA")
+    step = make_fused_step_aa(cfg, interop.domain_from_numpy(m, periodic), cuda)
+    assert step.variant == {"CUM_WELL": 0, "CUM": 1, "CUM_INV_CUM": 2}[spec]
+    f = seeded_state(cfg, m.shape, cuda, seed=11)
+    for it in range(4):
+        fp, rp, up = step.plain(f, 0.02, u_in=U_IN, force=(1e-5, 0.0, 0.0), parity=it % 2)
+        fk, rk, uk = step(f.clone(), 0.02, u_in=U_IN, force=(1e-5, 0.0, 0.0), parity=it % 2)
+        torch.cuda.synchronize()
+        assert float((fk - fp).abs().max()) <= 1e-6, f"f, step {it}"
+        assert float((rk - rp).abs().max()) <= 2e-6, f"rho, step {it}"
+        assert float((uk - up).abs().max()) <= 1e-6, f"u, step {it}"
+        f = fk
+    assert step.even.launches == 2 and step.odd.launches == 2 and step.plain_calls == 0
+
+
+def test_aa_lean_instance_equals_full_cum_well_on_the_duct(cuda):
+    """On a FLUID/WALL/NOTHING map the lean CUM_WELL instance (no boundary
+    switch) and the full one give the same state within the step bound."""
+    cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AA")
+    dom = interop.domain_from_numpy(duct((16, 24, 40), True), (True, False, False))
+    lean, full = make_fused_step_aa(cfg, dom, cuda), make_fused_step_aa(cfg, dom, cuda, lean=False)
+    assert (lean.variant, full.variant) == (3, 0)
+    f = seeded_state(cfg, (16, 24, 40), cuda)
+    for parity in (0, 1):
+        a = lean(f.clone(), 0.02, force=(1e-5, 0.0, 0.0), parity=parity)
+        b = full(f.clone(), 0.02, force=(1e-5, 0.0, 0.0), parity=parity)
+        torch.cuda.synchronize()
+        for x, y, bound in zip(a, b, (1e-6, 2e-6, 1e-6)):
+            assert float((x - y).abs().max()) <= bound, parity
+
+
+@pytest.mark.parametrize("collision", ADE_COLLISIONS)
+@pytest.mark.parametrize("spec", sorted(AB_SPECS))
+def test_coupled_aa_kernel_matches_plain_on_card(cuda, spec, collision):
+    """Four alternating parities of B8 per geometry with a per-site nu field:
+    each against the plain version on the same input, and the NSE fields
+    against the A-A step kernels (B2, B3) run alone, within the step bounds
+    (bit-equality is printed, not required: the compilations may contract
+    multiply-adds differently)."""
+    from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step_aa
+
+    cfg = interop.config_from_spec(*AB_SPECS[spec], "AA")
+    acfg = interop.ade_config_from_spec(collision, "AA")
+    for label, mn, pn, ma, pa in coupled_aa_cases():
+        dom = interop.domain_from_numpy(mn, pn)
+        adom = interop.domain_from_numpy(ma, pa, lat=interop.D3Q7)
+        pair = make_fused_coupled_step_aa(cfg, dom, acfg, adom, cuda, variable_diffusion=True)
+        alone = make_fused_step_aa(cfg, dom, cuda, lean=False)  # B8's NSE instance
+        f = seeded_state(cfg, mn.shape, cuda, seed=11)
+        g, _, nu_field = seeded_ade(mn.shape, cuda)
+        same = True
+        for it in range(4):
+            args = dict(u_in=U_IN, force=(1e-5, 0.0, 0.0), parity=it % 2)
+            p = pair.plain(f, g, 0.02, nu_field, phi_in=PHI_IN, **args)
+            fa, ra, ua = alone(f.clone(), 0.02, **args)
+            k = pair(f.clone(), g.clone(), 0.02, nu_field, phi_in=PHI_IN, **args)
+            torch.cuda.synchronize()
+            for ref in (p[:1] + p[2:4], (fa, ra, ua)):
+                d = [float((a - b).abs().max()) for a, b in zip((k[0], k[2], k[3]), ref)]
+                assert d[0] <= 1e-6 and d[1] <= 2e-6 and d[2] <= 1e-6, (label, it, d)
+            d = [float((k[i] - p[i]).abs().max()) for i in (1, 4)]
+            assert d[0] <= 1e-6 and d[1] <= 2e-6, (label, it, d)
+            same &= all(torch.equal(a, b) for a, b in zip((k[0], k[2], k[3]), (fa, ra, ua)))
+            f, g = k[0], k[1]
+        print(f"{label} {spec} {collision}: B8 NSE fields equal B2/B3's bit for bit: {same}")
+        assert pair.even.launches == 2 and pair.odd.launches == 2 and pair.plain_calls == 0
+
+
+def test_coupled_aa_kernel_in_place_and_out(cuda):
+    """The even kernel updates f and g in place; the odd kernel writes the
+    second buffers; NOTHING sites of either map keep their DFs."""
+    from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step_aa
+
+    shape = (8, 16, 40)
+    mn, ma, per = aa_box(shape), ade_aa_box(shape), (False, False, True)
+    cfg = interop.config_from_spec("CUM", "EQ", False, "AA")
+    pair = make_fused_coupled_step_aa(cfg, interop.domain_from_numpy(mn, per),
+                                      interop.ade_config_from_spec("SRT", "AA"),
+                                      interop.domain_from_numpy(ma, per, lat=interop.D3Q7), cuda)
+    f0 = seeded_state(cfg, shape, cuda)
+    g0, _, _ = seeded_ade(shape, cuda)
+    f, g = f0.clone(), g0.clone()
+    fe, ge, _, _, _ = pair(f, g, 0.02, 0.02, parity=0)
+    assert fe is f and ge is g
+    outs = torch.empty_like(f), torch.empty_like(g)
+    fo, go, _, _, _ = pair(f, g, 0.02, 0.02, parity=1, out_f=outs[0], out_g=outs[1])
+    assert fo is outs[0] and go is outs[1]
+    for state, ref, mask in ((fo, f0, mn == GEO.NOTHING), (go, g0, ma == 10)):
+        keep = torch.as_tensor(mask, device=cuda)
+        assert keep.any() and torch.equal(state[:, keep], ref[:, keep])
+    with pytest.raises(ValueError):
+        pair(f, g, 0.02, 0.02, parity=1, out_f=f)
+    assert pair.even.launches == 1 and pair.odd.launches == 1

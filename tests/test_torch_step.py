@@ -110,17 +110,17 @@ def test_initial_dfs_matches_jax():
 
 @pytest.mark.parametrize("code", [GEO.INFLOW, GEO.OUTFLOW_EQ, GEO.SYM_TOP, GEO.PERIODIC])
 def test_unported_codes_raise(code):
-    """The plain step takes the full 3D set now; the A-A kernels (B2, B3,
-    B1) still refuse everything beyond FLUID/WALL/NOTHING."""
+    """The plain step and the A-A even/odd kernels (B2, B3) take the A-A
+    codes; the pair (B1) still refuses everything beyond FLUID/WALL/NOTHING."""
     from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair2_aa, make_fused_step_aa
 
     m, periodic = geometry("duct")
     m[3, 3, 3] = int(code)
     cfg, dom = interop.config_from_spec(**spec("AA")), interop.domain_from_numpy(m, periodic)
     make_step(cfg, dom)
-    for make in (make_fused_step_aa, make_fused_pair2_aa):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            make(cfg, dom, "cpu")
+    assert code in make_fused_step_aa(cfg, dom, "cpu").codes
+    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+        make_fused_pair2_aa(cfg, dom, "cpu")
 
 
 def test_unported_collision_and_config_raise():

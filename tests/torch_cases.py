@@ -40,6 +40,14 @@ def bc_box(shape):
     return m
 
 
+def aa_box(shape):
+    """``bc_box`` with OUTFLOW_RIGHT in place of the A-B-only interpolated
+    outflow: every code the A-A even/odd kernels take."""
+    m = bc_box(shape)
+    m[m == GEO.OUTFLOW_RIGHT_INTERP] = GEO.OUTFLOW_RIGHT
+    return m
+
+
 def channel(kind, shape=None):
     """(map, periodic) of the A-B geometries: the channels of the JAX
     kernel suite (tests/test_fused_kernel.py:101, :147, :392), a box of the
@@ -126,6 +134,43 @@ def seeded_ade(shape, device, seed=3):
     nu = torch.from_numpy((0.01 + 0.02 * rng.random(shape)).astype(np.float32))
     g = eq_quadratic(D3Q7, phi, u).contiguous()
     return g.to(device), u.to(device), nu.to(device)
+
+
+def ade_aa_box(shape=(8, 16, 8)):
+    """``ade_box`` for the A-A coupled pair: SOLID in place of the transfer
+    codes, OUTFLOW_RIGHT in place of OUTFLOW_PE (the pair refuses both),
+    and a NOTHING block of its own, where ``aa_box`` has fluid: the two
+    lattices' NOTHING sites differ."""
+    A = ADEGEO
+    m = ade_box(shape)
+    m[np.isin(m, [int(c) for c in (A.TRANSFER_FS, A.TRANSFER_SF, A.TRANSFER_SW)])] = A.SOLID
+    m[m == A.OUTFLOW_PE] = A.OUTFLOW_RIGHT
+    X, Y, Z = shape
+    m[2:4, Y // 2 - 1 : Y // 2 + 1, Z // 2] = A.NOTHING
+    return m
+
+
+def sim_coupled_aa_maps(shape):
+    """sim_coupled's maps under A-A streaming at ``shape``: NSE walls on the
+    y faces, INFLOW and OUTFLOW_EQ; ADE WALL_BODY walls, INFLOW and
+    OUTFLOW_RIGHT (the app's stand-in for the A-B-only OUTFLOW_PE);
+    periodic z.  (mn, pn, ma, pa)."""
+    mn = np.zeros(shape, np.uint8)
+    mn[:, 0] = mn[:, -1] = GEO.WALL
+    mn[0, 1:-1], mn[-1, 1:-1] = GEO.INFLOW, GEO.OUTFLOW_EQ
+    ma, pa = ade_case("channel", shape)
+    ma[ma == int(ADEGEO.OUTFLOW_PE)] = ADEGEO.OUTFLOW_RIGHT
+    return mn, (False, False, True), ma, pa
+
+
+def coupled_aa_cases(shape=(16, 16, 12)):
+    """(label, NSE map, NSE periodic, ADE map, ADE periodic) of the B8
+    compare at ``shape``: sim_coupled's A-A channel, ``aa_box`` beside
+    ``ade_aa_box`` (their NOTHING sites differ) and the periodic box."""
+    yield ("channel",) + sim_coupled_aa_maps(shape)
+    yield "box", aa_box(shape), (False, False, True), ade_aa_box(shape), (False, False, True)
+    m, periodic = ade_case("periodic", shape)
+    yield "periodic", np.zeros_like(m), periodic, m, periodic
 
 
 def coupled_cases():

@@ -7,11 +7,13 @@ solid walls with an extra NOTHING ghost layer, a wall with a rectangular
 hole at x ~ 0.2 m, three 2D cuts and a strided 3D box cut.
 
 Usage: python -m tnl_lbm_tpu_torch.apps.sim_1 [RES] [--device cuda|cpu]
-       [--streaming AB|AA] [--no-fused] [--final-time T] [--results-dir DIR]
+       [--streaming AB|AA] [--use-fused | --no-fused] [--final-time T]
+       [--results-dir DIR]
 
-The default A-B streaming with the kernels runs the A-B kernel (B4); A-A
-with the kernels is refused (its kernels take FLUID/WALL/NOTHING only,
-ROADMAP A8), A-A with ``--no-fused`` runs the plain step.
+The kernels run by default (``--use-fused`` says so explicitly): A-B
+streaming through the A-B kernel (B4), A-A through the even and odd
+kernels (B2, B3; the pair takes FLUID/WALL/NOTHING only, so "auto" never
+picks it for this map).  ``--no-fused`` runs the plain step.
 """
 
 from __future__ import annotations
@@ -115,7 +117,10 @@ def main(argv=None) -> Sim1:
     p.add_argument("--final-time", type=float, default=1.0)
     p.add_argument("--results-dir", default=".")
     p.add_argument("--streaming", choices=["AB", "AA"], default="AB")
-    p.add_argument("--no-fused", action="store_true", help="run the plain PyTorch step")
+    fused = p.add_mutually_exclusive_group()
+    fused.add_argument("--use-fused", action="store_true",
+                       help="run the CUDA kernels (the default)")
+    fused.add_argument("--no-fused", action="store_true", help="run the plain PyTorch step")
     p.add_argument("--sharded", action="store_true",
                    help="shard the lattice over the cards (not ported yet: ROADMAP A13)")
     p.add_argument("--pair-dispatch", choices=["auto", "on", "off"], default="auto",

@@ -10,9 +10,10 @@ condition and the outflow uses Peclet extrapolation.  Lattice
 Usage: python -m tnl_lbm_tpu_torch.apps.sim_coupled [RES] [--device cuda|cpu]
        [--use-fused] [--streaming AB|AA] [--final-time T] [--results-dir DIR]
 
-With ``--use-fused`` and A-B streaming both lattices advance in one
-launch of the coupled kernel (B7) per step; A-A with ``--use-fused`` (the
-A-A coupled pair) and ``--sharded`` are not ported yet and raise.
+With ``--use-fused`` both lattices advance in one launch per step: of the
+coupled kernel (B7) with A-B streaming, of the A-A coupled pair's kernel of
+the step's parity (B8) with ``--streaming AA``.  ``--sharded`` is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -102,7 +103,7 @@ def main(argv=None) -> SimCoupled:
     p.add_argument("--final-time", type=float, default=1.0)
     p.add_argument("--results-dir", default=".")
     p.add_argument("--use-fused", action="store_true",
-                   help="run the CUDA kernels (A-B: the coupled kernel)")
+                   help="run the CUDA kernels (the coupled kernel of the streaming pattern)")
     p.add_argument("--streaming", choices=["AB", "AA"], default="AB")
     p.add_argument("--sharded", action="store_true",
                    help="shard both lattices over the cards (not ported yet: ROADMAP A13)")

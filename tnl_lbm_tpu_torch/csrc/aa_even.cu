@@ -1,12 +1,21 @@
-// A-A even step for D3Q27 CUM_WELL in float32, one thread per site.
+// A-A even step for D3Q27 in float32 with the 3D boundary set, one thread
+// per site.
 //
 // Replaces the Pallas kernel of tnl_lbm_tpu/kernels/fused_aa.py
-// make_fused_step_aa (even_kernel, pallas_call at :408).  Per site: read
-// the 27 DFs of the site itself (same site, same direction, reference
-// streaming_AA.h:16-45), apply the WALL swap, take the moments, collide,
+// make_fused_step_aa (even_kernel, pallas_call at :408).  Per site
+// (lbm_site.cuh aa_even_site): read the 27 DFs of the site itself (same
+// site, same direction, reference streaming_AA.h:16-45), apply the WALL
+// swap and the symmetry mirrors, take the moments, apply the post-moment
+// BCs (INFLOW, INFLOW_LEFT, OUTFLOW_EQ, OUTFLOW_RIGHT; every pull rule of
+// the even step reads the site itself), collide where the code collides,
 // and write the result to the opposite slots of the same site; NOTHING
 // sites keep their DFs.  Each thread reads and writes only its own site,
 // so the update is in place on the one state buffer.
+//
+// Instances: the three of the A-B step (CUM_WELL; CUM with eq_quadratic;
+// CUM with eq_inv_cum).  A map of FLUID, WALL and NOTHING only runs the
+// CUM_WELL one too: on the even step the boundary switch measured no cost
+// (the odd step keeps a lean instance, aa_odd.cu).
 //
 // Bound: HBM bytes.  Per site and step 27 f32 are read and 27 written
 // (216 B), plus the 1-byte map read and the 16 B of rho and u.  The design
@@ -22,38 +31,44 @@
 
 using namespace lbm;
 
-extern "C" __global__ void __launch_bounds__(128)
-aa_even_kernel(float* __restrict__ f, const uint8_t* __restrict__ map,
-               float* __restrict__ rho_out, float* __restrict__ u_out,
-               int Y, int Z, SiteParams p) {
-  const int z = blockIdx.x * blockDim.x + threadIdx.x;
-  if (z >= Z) return;
-  const int64_t N = (int64_t)gridDim.z * Y * Z;
-  const int64_t site = ((int64_t)blockIdx.z * Y + blockIdx.y) * Z + z;
+// threads per block, along z
+constexpr int THREADS = 128;
 
-  const uint8_t m = map[site];
-  float rho = 1.0f, ux = 0.0f, uy = 0.0f, uz = 0.0f;
-  if (m != GEO_NOTHING) {
-    float v[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) v[q] = f[q * N + site];
-    stream_bc_collide(v, m, p, rho, ux, uy, uz);
-#pragma unroll
-    for (int q = 0; q < Q; ++q) f[q * N + site] = v[opp(q)];
+// One kernel per instance, named so that the -Xptxas -v report can be read
+// per instance.
+#define AA_EVEN_KERNEL(NAME, WELL, EQ)                                                        \
+  extern "C" __global__ void __launch_bounds__(THREADS)                                      \
+      NAME(float* __restrict__ f, const uint8_t* __restrict__ map, float* __restrict__ rho,  \
+           float* __restrict__ u, int Y, int Z, ABParams p) {                                \
+    const int z = blockIdx.x * blockDim.x + threadIdx.x;                                      \
+    if (z >= Z) return;                                                                       \
+    const int64_t N = (int64_t)gridDim.z * Y * Z;                                             \
+    const int64_t site = ((int64_t)blockIdx.z * Y + blockIdx.y) * Z + z;                      \
+    float ux, uy, uz;                                                                         \
+    aa_even_site<WELL, EQ>(f, map, rho, u, site, N, p, ux, uy, uz);                           \
   }
-  rho_out[site] = rho;
-  u_out[site] = ux;
-  u_out[N + site] = uy;
-  u_out[2 * N + site] = uz;
-}
 
-// Launches on `stream`; returns cudaGetLastError() of the launch.
-extern "C" int tnl_lbm_aa_even(float* f, const uint8_t* map, float* rho, float* u,
-                               int X, int Y, int Z, float nu, float fx, float fy, float fz,
-                               int neumaier, void* stream) {
-  const SiteParams p{1.0f / (3.0f * nu + 0.5f), fx, fy, fz, neumaier};
-  const int block = Z >= 128 ? 128 : ((Z + 31) / 32) * 32;
+AA_EVEN_KERNEL(aa_even_cum_well_kernel, true, EQ_WELL)
+AA_EVEN_KERNEL(aa_even_cum_quad_kernel, false, EQ_QUAD)
+AA_EVEN_KERNEL(aa_even_cum_invcum_kernel, false, EQ_INVCUM)
+
+// Launches on `stream`; returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for an unknown variant.  variant: 0 CUM_WELL,
+// 1 CUM with the quadratic equilibrium, 2 CUM with the inverse-cumulant one
+// (as tnl_lbm_ab_step), 3 CUM_WELL on a FLUID/WALL/NOTHING map (the
+// CUM_WELL instance).
+extern "C" int tnl_lbm_aa_even(float* f, const uint8_t* map, float* rho, float* u, int X, int Y,
+                               int Z, int variant, float nu, float fx, float fy, float fz,
+                               float uin_x, float uin_y, float uin_z, int neumaier,
+                               void* stream) {
+  using Kernel = void (*)(float*, const uint8_t*, float*, float*, int, int, ABParams);
+  static const Kernel kernels[4] = {aa_even_cum_well_kernel, aa_even_cum_quad_kernel,
+                                    aa_even_cum_invcum_kernel, aa_even_cum_well_kernel};
+  if (variant < 0 || variant > 3) return static_cast<int>(cudaErrorInvalidValue);
+  const ABParams p{1.0f / (3.0f * nu + 0.5f), fx, fy, fz, uin_x, uin_y, uin_z, neumaier};
+  const int block = Z >= THREADS ? THREADS : ((Z + 31) / 32) * 32;
   const dim3 grid((Z + block - 1) / block, Y, X);
-  aa_even_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(f, map, rho, u, Y, Z, p);
+  kernels[variant]<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(f, map, rho, u, Y, Z,
+                                                                          p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,10 @@
 // Per-site D3Q7 advection-diffusion (ADE) update, shared by the ADE step
-// (ade_step.cu) and the coupled NSE+ADE step (coupled_ab.cu).
+// (ade_step.cu) and the coupled NSE+ADE steps (coupled_ab.cu, and the A-A
+// pair's coupled_aa.cu).
 //
 // CUDA counterpart of tnl_lbm_tpu/kernels/fused_ade.py _ade_tile_body (the
-// A-B pattern) with the four D3Q7 collisions of
+// A-B pattern, and the A-A parities of fused_coupled.py
+// make_fused_coupled_step_aa) with the four D3Q7 collisions of
 // tnl_lbm_tpu/ops/collision_ade.py; their plain PyTorch versions are
 // tnl_lbm_tpu_torch/kernels/fused_ade.py _ade_tile_body and
 // tnl_lbm_tpu_torch/ops/collision_ade.py.  One thread owns one site; its 7
@@ -142,14 +144,18 @@ struct ADEParams {
 
 // The ADE update of one site, in the order of _ade_tile_body.  read(q, dx,
 // dy, dz) returns the stored (pre-streaming) g_q at the site offset by
-// (dx, dy, dz), wrapped or clamped; g gets the post-collision DFs, phi the
-// concentration.  tflags is the site's packed interface bits (bit q-1: the
-// link in direction q crosses the phase boundary).
-template <int COLL, class Read>
+// (dx, dy, dz), wrapped or clamped - for an A-A step, the parity's read:
+// the site's own g_q whatever the offset (even), or g_opp(q) at the offset
+// (odd); g gets the post-collision DFs, phi the concentration.  tflags is
+// the site's packed interface bits (bit q-1: the link in direction q
+// crosses the phase boundary).  A NOTHING site gets its stored DFs, or
+// with DEFER_NOTHING (an A-A odd step, which restores NOTHING sites after
+// its push) its pulled DFs uncollided, and phi = 0.
+template <int COLL, bool DEFER_NOTHING = false, class Read>
 __device__ __forceinline__ void ade_site_update(float (&g)[AQ], float& phi, const Read& read,
                                                 uint8_t m, uint32_t tflags, float ux, float uy,
                                                 float uz, float omega, const ADEParams& p) {
-  if (m == ADE_NOTHING) {
+  if (!DEFER_NOTHING && m == ADE_NOTHING) {
     // inert ghost site: its stored DFs, phi = 0
 #pragma unroll
     for (int q = 0; q < AQ; ++q) g[q] = read(q, 0, 0, 0);
@@ -235,6 +241,7 @@ __device__ __forceinline__ void ade_site_update(float (&g)[AQ], float& phi, cons
     for (int q = 0; q < AQ; ++q) g[q] = ade_eq(q, phi, ux, uy, uz);
   }
   if (ade_collides(m)) ade_collide<COLL>(g, phi, ux, uy, uz, omega);
+  if (DEFER_NOTHING && m == ADE_NOTHING) phi = 0.0f;
 }
 
 // The ADE site at (x, y, z) of an [X, Y, Z] lattice: reads its stored g
@@ -268,6 +275,95 @@ __device__ __forceinline__ void ade_site(const float* __restrict__ g, float* __r
   ade_site_update<COLL>(v, phi, read, m, tf, ux, uy, uz, omega, p);
 #pragma unroll
   for (int q = 0; q < AQ; ++q) gout[q * N + site] = v[q];
+  phi_out[site] = phi;
+}
+
+// ----------------------------------------------------- A-A parities
+
+// One A-A even ADE site (fused_coupled.py even_kernel's ADE half;
+// reference d3q7 streaming_AA): read the site's own 7 DFs, same direction,
+// for every pull rule; update them advected by (ux, uy, uz); write them to
+// the opposite slots of the same site, in place.  NOTHING sites keep their
+// stored DFs and report phi = 0.  Transfer codes are refused by the
+// caller: they would need the neighbours' phi.
+template <int COLL>
+__device__ __forceinline__ void ade_aa_even_site(float* __restrict__ g,
+                                                 const uint8_t* __restrict__ map,
+                                                 const float* __restrict__ nu_field,
+                                                 float* __restrict__ phi_out, int64_t site,
+                                                 int64_t N, const ADEParams& p, float ux,
+                                                 float uy, float uz) {
+  const uint8_t m = map[site];
+  const float omega = nu_field ? 1.0f / (0.5f + 4.0f * nu_field[site]) : p.omega;
+  const auto read = [&](int q, int, int, int) { return g[q * N + site]; };
+  float v[AQ];
+  float phi;
+  ade_site_update<COLL>(v, phi, read, m, 0u, ux, uy, uz, omega, p);
+  if (m != ADE_NOTHING) {
+#pragma unroll
+    for (int q = 0; q < AQ; ++q) g[q * N + site] = v[aopp(q)];
+  }
+  phi_out[site] = phi;
+}
+
+// The destinations of an A-A odd push of D3Q7 direction q from site s at
+// (x, y, z): q moves along one axis only, where push_targets gives the
+// neighbour s + c_q and, at an edge-replicated first or last layer, s
+// itself; the rest direction stays at s.  Calls push(q, destination) for
+// each: one writer per destination.
+template <class Push>
+__device__ __forceinline__ void ade_push(int q, int64_t site, int x, int y, int z, int X, int Y,
+                                         int Z, int periodic_bits, const Push& push) {
+  const int a = q == 0 ? 0 : (q - 1) / 2;
+  const int s = a == 0 ? x : (a == 1 ? y : z);
+  const int n = a == 0 ? X : (a == 1 ? Y : Z);
+  const int64_t stride = a == 0 ? (int64_t)Y * Z : (a == 1 ? (int64_t)Z : 1);
+  int t0, t1;
+  push_targets(s, acq(q, a), n, (periodic_bits >> a) & 1, t0, t1);
+  if (t0 >= 0) push(q, site + (t0 - s) * stride);
+  if (t1 >= 0) push(q, site + (t1 - s) * stride);
+}
+
+// One A-A odd ADE site (fused_coupled.py odd_kernel's ADE half), out of
+// place from g into gout: pull g_in[q] = g[aopp q](s - c_q) (OUTFLOW_RIGHT
+// from x-1), update advected by (ux, uy, uz) with the site's own nu, and
+// push with ade_push.  NOTHING sites pass their pulled DFs on uncollided;
+// pushes aimed at a NOTHING destination of this lattice's map are dropped
+// and the site's own thread restores its stored DFs.  (A short path with
+// plain x and y offsets away from the faces, as aa_odd_site has, measured
+// no faster here.)
+template <int COLL>
+__device__ __forceinline__ void ade_aa_odd_site(const float* __restrict__ g,
+                                                float* __restrict__ gout,
+                                                const uint8_t* __restrict__ map,
+                                                const float* __restrict__ nu_field,
+                                                float* __restrict__ phi_out, int x, int y, int z,
+                                                int X, int Y, int Z, int periodic_bits,
+                                                bool has_nothing, const ADEParams& p, float ux,
+                                                float uy, float uz) {
+  const int64_t N = (int64_t)X * Y * Z;
+  const int64_t site = ((int64_t)x * Y + y) * Z + z;
+  const bool px = periodic_bits & 1, py = periodic_bits & 2, pz = periodic_bits & 4;
+  const auto read = [&](int q, int dx, int dy, int dz) {
+    const int nx = neighbour(x, dx, X, px);
+    const int ny = neighbour(y, dy, Y, py);
+    const int nz = neighbour(z, dz, Z, pz);
+    return g[aopp(q) * N + ((int64_t)nx * Y + ny) * Z + nz];
+  };
+  const uint8_t m = map[site];
+  const float omega = nu_field ? 1.0f / (0.5f + 4.0f * nu_field[site]) : p.omega;
+  float v[AQ];
+  float phi;
+  ade_site_update<COLL, true>(v, phi, read, m, 0u, ux, uy, uz, omega, p);
+  const auto push = [&](int q, int64_t dst) {
+    if (!(has_nothing && map[dst] == ADE_NOTHING)) gout[q * N + dst] = v[q];
+  };
+#pragma unroll
+  for (int q = 0; q < AQ; ++q) ade_push(q, site, x, y, z, X, Y, Z, periodic_bits, push);
+  if (m == ADE_NOTHING) {
+#pragma unroll
+    for (int q = 0; q < AQ; ++q) gout[q * N + site] = g[q * N + site];
+  }
   phi_out[site] = phi;
 }
 

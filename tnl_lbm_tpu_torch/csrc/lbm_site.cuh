@@ -1,14 +1,15 @@
 // Per-site D3Q27 logic shared by the A-A kernels (aa_even.cu, aa_odd.cu,
-// aa_pair.cu), the A-B kernel (ab_step.cu) and the coupled kernel
-// (coupled_ab.cu).
+// aa_pair.cu), the A-B kernel (ab_step.cu) and the coupled kernels
+// (coupled_ab.cu, coupled_aa.cu).
 //
 // CUDA counterpart of the per-site code in tnl_lbm_tpu/kernels/fused.py:
 // _moments_local (moments_local), _eq_local (eq_q), _pull_transform
 // (pull_transform: the WALL bounce-back swap; sym_mirror), the post-moment
 // BCs of _stream_bc_collide (ab_boundary, with the Eichler moment inflow of
 // tnl_lbm_tpu/ops/boundary.py inflow_left_moment_bc), _stream_bc_collide
-// for the A-A kernels (stream_bc_collide) and for the A-B step (ab_site),
-// and the zero-folded cumulant
+// on FLUID/WALL/NOTHING maps (stream_bc_collide, the pair's) and with the
+// full 3D set (site_collide) for the A-B step (ab_site) and the A-A even
+// and odd steps (aa_even_site, aa_odd_site), and the zero-folded cumulant
 // cascade of tnl_lbm_tpu/ops/collision.py:collide_cum, with well=True
 // (collide_cum<true>, CUM_WELL) and without (collide_cum<false>, CUM: total
 // DFs, no weight offsets).
@@ -32,8 +33,9 @@ namespace lbm {
 
 constexpr int Q = 27;
 
-// GEO codes (tnl_lbm_tpu/ops/boundary.py).  The A-A kernels handle FLUID,
-// WALL and NOTHING; the A-B kernel the whole 3D set.
+// GEO codes (tnl_lbm_tpu/ops/boundary.py).  The A-B kernel handles the
+// whole 3D set, the A-A even and odd kernels all of it but
+// OUTFLOW_RIGHT_INTERP, the pair FLUID, WALL and NOTHING.
 constexpr uint8_t GEO_FLUID = 0;
 constexpr uint8_t GEO_WALL = 1;
 constexpr uint8_t GEO_INFLOW = 2;
@@ -449,10 +451,12 @@ __device__ __forceinline__ void push_targets(int s, int c, int n, bool periodic,
   }
 }
 
-// fused.py _stream_bc_collide for one site: f holds the pulled DFs on entry
-// and the post-collision DFs on exit; (rho, u) are the macro outputs
-// (WALL and NOTHING sites report rho = 1, u = 0).
-__device__ __forceinline__ void stream_bc_collide(float (&f)[Q], uint8_t m, const SiteParams& p,
+// fused.py _stream_bc_collide for one site of a FLUID/WALL/NOTHING map,
+// CUM_WELL: f holds the pulled DFs on entry and the post-collision DFs on
+// exit; (rho, u) are the macro outputs (WALL and NOTHING sites report
+// rho = 1, u = 0).  P is SiteParams or ABParams.
+template <class P>
+__device__ __forceinline__ void stream_bc_collide(float (&f)[Q], uint8_t m, const P& p,
                                                   float& rho, float& ux, float& uy, float& uz) {
   pull_transform(f, m);
   moments_local<true>(f, p.fx, p.fy, p.fz, p.neumaier != 0, rho, ux, uy, uz);
@@ -627,6 +631,26 @@ __device__ __forceinline__ void ab_boundary(float (&f)[Q], uint8_t m, const ABPa
   }
 }
 
+// fused.py _stream_bc_collide for one site after the pull, with the full
+// 3D boundary set: the pull-side transforms (WALL swap, symmetry mirrors),
+// the moments, the post-moment BCs and the collision where the code
+// collides.  v holds the pulled DFs on entry and the post-collision DFs on
+// exit (NOTHING sites pass theirs through); (rho, u) are the macro
+// outputs, WALL and NOTHING sites report rho = 1, u = 0.  The outflow pull
+// rules are reads, done by the caller.
+template <bool WELL, int EQ>
+__device__ __forceinline__ void site_collide(float (&v)[Q], uint8_t m, const ABParams& p,
+                                             float& rho, float& ux, float& uy, float& uz) {
+  pull_transform_ab(v, m);
+  moments_local<WELL>(v, p.fx, p.fy, p.fz, p.neumaier != 0, rho, ux, uy, uz);
+  ab_boundary<WELL, EQ>(v, m, p, rho, ux, uy, uz);
+  if (collides(m)) collide_cum<WELL>(v, rho == 0.0f ? 1.0f : rho, ux, uy, uz, p.omega1);
+  if (m == GEO_WALL || m == GEO_NOTHING) {
+    rho = 1.0f;
+    ux = uy = uz = 0.0f;
+  }
+}
+
 // speed of sound of the interpolated outflow (streaming.py SPEED_OF_SOUND)
 // and 1 - it, each rounded once to float
 constexpr float CS = 0.5773502691896257f;
@@ -694,18 +718,144 @@ __device__ __forceinline__ void ab_site(const float* __restrict__ f, float* __re
         v[q] = CS * from_xm + ONE_MINUS_CS * f[q * N + (int64_t)x * sx + yz];
     }
   }
-  pull_transform_ab(v, m);
-
   float rho;
-  moments_local<WELL>(v, p.fx, p.fy, p.fz, p.neumaier != 0, rho, ux, uy, uz);
-  ab_boundary<WELL, EQ>(v, m, p, rho, ux, uy, uz);
-  if (collides(m)) collide_cum<WELL>(v, rho == 0.0f ? 1.0f : rho, ux, uy, uz, p.omega1);
-
+  site_collide<WELL, EQ>(v, m, p, rho, ux, uy, uz);
 #pragma unroll
   for (int q = 0; q < Q; ++q) fout[q * N + site] = v[q];
-  if (m == GEO_WALL) {
-    rho = 1.0f;
-    ux = uy = uz = 0.0f;
+  rho_out[site] = rho;
+  u_out[site] = ux;
+  u_out[N + site] = uy;
+  u_out[2 * N + site] = uz;
+}
+
+// ---------------------------------------------------------------- A-A steps
+
+// One A-A even site update of D3Q27 (fused_aa.py even_kernel, reference
+// streaming_AA.h:16-45), shared by the even step (aa_even.cu) and the
+// coupled even step (coupled_aa.cu): read the site's own 27 DFs, same
+// direction - every pull rule reads the site itself, as the JAX kernel's
+// shifted() ignores its offsets - update them as the A-B step does, and
+// write them to the opposite slots of the same site, in place.  NOTHING
+// sites keep their stored DFs.  Writes rho_out and u_out and returns the
+// reported velocity in (ux, uy, uz).
+template <bool WELL, int EQ>
+__device__ __forceinline__ void aa_even_site(float* __restrict__ f,
+                                             const uint8_t* __restrict__ map,
+                                             float* __restrict__ rho_out,
+                                             float* __restrict__ u_out, int64_t site, int64_t N,
+                                             const ABParams& p, float& ux, float& uy,
+                                             float& uz) {
+  const uint8_t m = map[site];
+  float rho = 1.0f;
+  ux = uy = uz = 0.0f;
+  if (m != GEO_NOTHING) {
+    float v[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) v[q] = f[q * N + site];
+    site_collide<WELL, EQ>(v, m, p, rho, ux, uy, uz);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) f[q * N + site] = v[opp(q)];
+  }
+  rho_out[site] = rho;
+  u_out[site] = ux;
+  u_out[N + site] = uy;
+  u_out[2 * N + site] = uz;
+}
+
+// One A-A odd site update of D3Q27 (fused_aa.py odd_kernel, reference
+// streaming_AA.h:47-76), shared by the odd step (aa_odd.cu) and the
+// coupled odd step (coupled_aa.cu), out of place from f into fout.  Pull
+// f_in[q] = f[opp q](s - c_q), wrapped on periodic axes and clamped
+// otherwise; OUTFLOW_RIGHT pulls f[opp q](x-1, y - c_y, z - c_z) (the JAX
+// odd kernel's shifted() at the A-B rule's offsets).  Update as the A-B
+// step does, then push f_post[q] to the neighbours: the JAX step defines
+// the push as f_out = pull(pad_halo(f_post)) with edge replication on the
+// non-periodic axes, so destination x takes component q from the unique
+// source clamp(x - c_q) (a wrap on periodic axes).  Read as a scatter,
+// source s writes q to s + c_q when that lies in the domain and, on every
+// non-periodic axis where s is the first layer and c = +1 or the last
+// layer and c = -1, also to the layer s itself: up to 8 destinations at a
+// corner, each destination with exactly one writer.  NOTHING sites pass
+// their pulled DFs on uncollided, as the plain step does; pushes aimed at
+// a NOTHING destination are dropped and its own thread restores its
+// stored DFs.  Writes rho_out and u_out and returns the reported velocity.
+// A row away from the x and y faces (all but a thin shell) takes a short
+// path with plain x and y offsets; only z needs the wrap/clamp and
+// edge-replication rules there.  LEAN is CUM_WELL on a map of FLUID, WALL
+// and NOTHING only: the pair's stream_bc_collide, without the boundary
+// switch and the outflow read.  Offsets are 64-bit.
+template <bool WELL, int EQ, bool LEAN>
+__device__ __forceinline__ void aa_odd_site(const float* __restrict__ f, float* __restrict__ fout,
+                                            const uint8_t* __restrict__ map,
+                                            float* __restrict__ rho_out,
+                                            float* __restrict__ u_out, int x, int y, int z, int X,
+                                            int Y, int Z, int periodic_bits, bool has_nothing,
+                                            const ABParams& p, float& ux, float& uy, float& uz) {
+  const int64_t N = (int64_t)X * Y * Z;
+  const int64_t site = ((int64_t)x * Y + y) * Z + z;
+  const bool px = periodic_bits & 1, py = periodic_bits & 2, pz = periodic_bits & 4;
+  const bool row_inside = x > 0 && x < X - 1 && y > 0 && y < Y - 1;
+  const int64_t sx = (int64_t)Y * Z, sy = Z;
+
+  float v[Q];
+  if (row_inside) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      v[q] = f[opp(q) * N + site - cx(q) * sx - cy(q) * sy + (neighbour(z, -cz(q), Z, pz) - z)];
+  } else {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int nx = neighbour(x, -cx(q), X, px);
+      const int ny = neighbour(y, -cy(q), Y, py);
+      const int nz = neighbour(z, -cz(q), Z, pz);
+      v[q] = f[opp(q) * N + ((int64_t)nx * Y + ny) * Z + nz];
+    }
+  }
+  const uint8_t m = map[site];
+  if (!LEAN && m == GEO_OUTFLOW_RIGHT) {
+    const int64_t xm = neighbour(x, -1, X, px);
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      v[q] = f[opp(q) * N + xm * sx + (int64_t)neighbour(y, -cy(q), Y, py) * Z +
+               neighbour(z, -cz(q), Z, pz)];
+  }
+  float rho;
+  if constexpr (LEAN) stream_bc_collide(v, m, p, rho, ux, uy, uz);
+  else site_collide<WELL, EQ>(v, m, p, rho, ux, uy, uz);
+
+  // pushes aimed at a NOTHING site are dropped: its own thread restores it
+  auto push = [&](int q, int64_t dst) {
+    if (!(has_nothing && map[dst] == GEO_NOTHING)) fout[q * N + dst] = v[q];
+  };
+  if (row_inside) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      int tz0, tz1;
+      push_targets(z, cz(q), Z, pz, tz0, tz1);
+      const int64_t row = site - z + cx(q) * sx + cy(q) * sy;
+      if (tz0 >= 0) push(q, row + tz0);
+      if (tz1 >= 0) push(q, row + tz1);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      int tx[2], ty[2], tz[2];
+      push_targets(x, cx(q), X, px, tx[0], tx[1]);
+      push_targets(y, cy(q), Y, py, ty[0], ty[1]);
+      push_targets(z, cz(q), Z, pz, tz[0], tz[1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            if (tx[i] >= 0 && ty[j] >= 0 && tz[k] >= 0)
+              push(q, ((int64_t)tx[i] * Y + ty[j]) * Z + tz[k]);
+    }
+  }
+  if (m == GEO_NOTHING) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) fout[q * N + site] = f[q * N + site];
   }
   rho_out[site] = rho;
   u_out[site] = ux;

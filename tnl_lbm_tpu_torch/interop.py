@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tnl_lbm_tpu_torch.models import D3Q7, D3Q27
+from tnl_lbm_tpu_torch.models import D2Q9, D3Q7, D3Q27
 from tnl_lbm_tpu_torch.ops.collision import COLLISIONS_D3Q27
 from tnl_lbm_tpu_torch.ops.collision_ade import COLLISIONS_D3Q7
 from tnl_lbm_tpu_torch.ops.equilibrium import EQUILIBRIA
@@ -53,11 +53,26 @@ def ade_config_from_spec(collision_id: str, streaming: str = "AB",
                      eq=EQUILIBRIA["EQ"], streaming=streaming, compute_dtype=_DTYPES[dtype])
 
 
+_LATTICES = {lat.name: lat for lat in (D2Q9, D3Q7, D3Q27)}
+
+
+def port_lattice(lat):
+    """The port's own descriptor of the velocity set ``lat`` names: a JAX
+    descriptor (or the port's) maps by its name, so that the port never
+    holds the JAX package's objects."""
+    try:
+        return _LATTICES[lat.name]
+    except (AttributeError, KeyError):
+        raise ValueError(f"no lattice of the port is named {getattr(lat, 'name', lat)!r}") from None
+
+
 def domain_from_numpy(map_arr, periodic, global_size=None, phys_dl: float = 1.0,
                       phys_dt: float = 1.0, phys_origin=None,
                       phys_viscosity: float = 0.0, lat=D3Q27) -> Domain:
-    """Domain from a numpy code map on lattice ``lat`` (GEO codes for D3Q27,
-    ADEGEO codes for D3Q7; the integers are shared between the packages)."""
+    """Domain from a numpy code map on lattice ``lat`` (the port's or the JAX
+    package's descriptor: ``port_lattice``; GEO codes for D3Q27, ADEGEO
+    codes for D3Q7; the integers are shared between the packages)."""
+    lat = port_lattice(lat)
     m = np.array(map_arr, dtype=np.uint8)
     size = tuple(m.shape) if global_size is None else tuple(global_size)
     origin = (0.0,) * len(size) if phys_origin is None else phys_origin

@@ -39,11 +39,18 @@ _MAX_GRID_YZ = 65535
 
 #: GEO codes the A-B kernel (B4) handles: the full 3D set (JAX fused.py:40-46)
 AB_CODES = frozenset(SUPPORTED_CODES)
-#: GEO codes the A-A kernels (B2, B3, B1) handle so far; the rest is ROADMAP A8
-AA_CODES = frozenset({GEO.FLUID, GEO.WALL, GEO.NOTHING})
+#: GEO codes the A-A even/odd kernels (B2, B3, and B8's NSE half) handle:
+#: the 3D set but OUTFLOW_RIGHT_INTERP, which is A-B only (JAX fused_aa.py:353-358)
+AA_CODES = AB_CODES - {GEO.OUTFLOW_RIGHT_INTERP}
+#: GEO codes the one-kernel A-A pair (B1) handles so far; the rest is ROADMAP B1
+PAIR_CODES = frozenset({GEO.FLUID, GEO.WALL, GEO.NOTHING})
 
-#: ``tnl_lbm_ab_step`` variant per (well, equilibrium kind)
+#: ``tnl_lbm_ab_step`` / ``tnl_lbm_aa_even`` / ``tnl_lbm_aa_odd`` variant per
+#: (well, equilibrium kind)
 _AB_VARIANTS = {(True, "well"): 0, (False, "quad"): 1, (False, "invcum"): 2}
+#: the A-A kernels' variant for CUM_WELL on a map of PAIR_CODES: the odd step's lean
+#: instance without the boundary switch (the even step runs its CUM_WELL instance)
+_AA_LEAN_VARIANT = 3
 
 
 @dataclasses.dataclass
@@ -57,16 +64,20 @@ class CudaKernel:
     launches: int = 0
 
 
-def kernel_codes(streaming: str) -> frozenset:
-    """The GEO codes the kernels of a streaming pattern handle."""
+def kernel_codes(streaming: str, pair: bool = False) -> frozenset:
+    """The GEO codes the kernels of a streaming pattern handle (``pair``:
+    the one-kernel A-A pair's)."""
+    if pair:
+        return PAIR_CODES
     return AA_CODES if streaming == "AA" else AB_CODES
 
 
-def supports(domain: Domain, streaming: str = "AB") -> bool:
+def supports(domain: Domain, streaming: str = "AB", pair: bool = False) -> bool:
     """True when the kernels of ``streaming`` handle every GEO code present:
-    the full set for the A-B kernel, FLUID/WALL/NOTHING for the A-A kernels
-    (never OUTFLOW_RIGHT_INTERP, which is A-B only).  Scans the host map."""
-    return domain.codes_present() <= kernel_codes(streaming)
+    the full set for the A-B kernel, all but OUTFLOW_RIGHT_INTERP for the
+    A-A even/odd kernels, FLUID/WALL/NOTHING for the pair.  Scans the host
+    map."""
+    return domain.codes_present() <= kernel_codes(streaming, pair)
 
 
 def host_vector3(value, what: str, roadmap: str) -> tuple[float, float, float]:
@@ -110,22 +121,26 @@ def _eq_kind(cfg: LBMConfig) -> str:
                               f"ported (eq_entropic: ROADMAP A8)")
 
 
-def _check_kernel_config(cfg: LBMConfig, domain: Domain, device: torch.device) -> None:
-    """Refuse, at build time, what the CUDA kernels do not implement."""
+def _check_kernel_config(cfg: LBMConfig, domain: Domain, device: torch.device,
+                         pair: bool = False) -> None:
+    """Refuse, at build time, what the CUDA kernels do not implement: the
+    A-B step and the A-A even/odd steps take the three variants of
+    ``_AB_VARIANTS``, the pair (``pair``) CUM_WELL only."""
     if not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but no CUDA device is available")
     well_cascade = cfg.collision is col.collide_cum_well
-    if cfg.streaming == "AA":
+    if pair:
         if not well_cascade:
-            raise NotImplementedError("the A-A CUDA kernels implement CUM_WELL only "
-                                      "(other collisions: ROADMAP A8)")
+            raise NotImplementedError("the A-A pair kernel implements CUM_WELL only "
+                                      "(other collisions: ROADMAP B1)")
     else:
+        kind = "A-A" if cfg.streaming == "AA" else "A-B"
         if not (well_cascade or cfg.collision is col.collide_cum):
-            raise NotImplementedError("the A-B CUDA kernel implements CUM and CUM_WELL only "
-                                      "(other collisions: ROADMAP A8)")
+            raise NotImplementedError(f"the {kind} CUDA kernels implement CUM and CUM_WELL only "
+                                      f"(other collisions: ROADMAP A8)")
         if (cfg.well, _eq_kind(cfg)) not in _AB_VARIANTS or well_cascade != cfg.well:
             raise NotImplementedError(
-                f"the A-B CUDA kernel takes CUM_WELL with well=True, or CUM with "
+                f"the {kind} CUDA kernels take CUM_WELL with well=True, or CUM with "
                 f"eq_quadratic / eq_inv_cum and well=False; got well={cfg.well}, "
                 f"equilibrium kind {_eq_kind(cfg)!r}")
     if cfg.compute_dtype != torch.float32:
@@ -187,21 +202,32 @@ def _eq_local(lat, rho, u, kind):
 def _prep(cfg: LBMConfig, domain: Domain, pair: bool = False):
     """Static code analysis shared by the kernels, done once at build time:
     the lattice, the GEO codes present and the codes on which the collision
-    runs (``pair``: see ``check_supported``).  The A-A kernels refuse the
-    codes beyond FLUID/WALL/NOTHING."""
+    runs (``pair``: the one-kernel A-A pair, see ``check_supported``).  The
+    pair refuses the codes beyond FLUID/WALL/NOTHING; the A-A pattern
+    refuses OUTFLOW_RIGHT_INTERP (``check_supported``)."""
     codes = domain.codes_present()
     check_supported(cfg, domain, pair=pair, codes=codes)
     lat = cfg.lat
     if lat.D != 3:
         raise NotImplementedError("the fused kernels are for the 3D lattices")
-    extra = codes - kernel_codes(cfg.streaming)
+    extra = codes - kernel_codes(cfg.streaming, pair)
     if extra:
         names = ", ".join(sorted(c.name for c in extra))
         raise NotImplementedError(
-            f"the A-A kernels handle FLUID, WALL and NOTHING only; GEO codes {names} on "
-            f"A-A kernels are ROADMAP A8 (the A-B kernel and the plain step take them)")
+            f"the A-A pair kernel handles FLUID, WALL and NOTHING only; GEO codes {names} "
+            f"in the pair are ROADMAP B1 (the A-A even/odd kernels take them)")
     do_coll_codes = sorted(int(c) for c in (bc.collision_mask_codes(3) & codes))
     return lat, codes, do_coll_codes
+
+
+def aa_variant(cfg: LBMConfig, codes, lean: bool = True) -> int:
+    """The A-A even/odd kernels' variant for (cfg, the codes present):
+    ``_AA_LEAN_VARIANT`` for CUM_WELL on a map of FLUID/WALL/NOTHING when
+    ``lean``, else the A-B step's variant."""
+    variant = _AB_VARIANTS[(cfg.well, _eq_kind(cfg))]
+    if lean and variant == 0 and codes <= PAIR_CODES:
+        return _AA_LEAN_VARIANT
+    return variant
 
 
 def _pull_transform(lat, codes, shifted, masks):

@@ -17,6 +17,12 @@ d3q27/streaming_AA.h) alternates two parities on one state:
   state optionally stored in float16 or bfloat16 (half storage, see
   :class:`FusedPairAA`).  It writes a new buffer.
 
+The even and odd steps take the A-B step's boundary set but
+OUTFLOW_RIGHT_INTERP (JAX ``fused_aa.py`` runs ``_stream_bc_collide`` on the
+A-B config) and its three variants: CUM_WELL, CUM with ``eq_quadratic``,
+CUM with ``eq_inv_cum``.  The pair takes FLUID/WALL/NOTHING and CUM_WELL
+(``kernels/fused.py PAIR_CODES``; the rest is ROADMAP B1).
+
 ``even_step_plain`` / ``odd_step_plain`` (and their composition,
 ``FusedPairAA.plain``) are the plain versions: the CPU path and the oracle
 the kernels are held against on the card.  A step on CUDA tensors launches
@@ -38,6 +44,8 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     _periodic_bits,
     _prep,
     _stream_bc_collide,
+    _u_in3,
+    aa_variant,
 )
 from tnl_lbm_tpu_torch.ops import streaming as stream
 from tnl_lbm_tpu_torch.ops.boundary import GEO
@@ -62,19 +70,22 @@ def from_storage(f: torch.Tensor, compute_dtype) -> torch.Tensor:
     return f if f.dtype == compute_dtype else f.to(compute_dtype)
 
 
-def even_step_plain(cfg: LBMConfig, codes, do_coll_codes, f, m, nu, force):
-    """A-A even step in plain PyTorch: returns (f_new, rho, u), f untouched."""
+def even_step_plain(cfg: LBMConfig, codes, do_coll_codes, f, m, nu, force,
+                    u_in=(0.0, 0.0, 0.0)):
+    """A-A even step in plain PyTorch: returns (f_new, rho, u), f untouched.
+    ``force`` and ``u_in`` are 3 scalars each."""
     opp = np.asarray(cfg.lat.opp)
 
     def shifted(q, offs):
-        del offs  # no streaming on the even step
+        del offs  # no streaming on the even step: every pull rule reads the site
         return f[q]
 
     return _stream_bc_collide(cfg.lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
-                              out_perm=opp)
+                              u_in=u_in, out_perm=opp)
 
 
-def odd_step_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, f, m, nu, force):
+def odd_step_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, f, m, nu, force,
+                   u_in=(0.0, 0.0, 0.0)):
     """A-A odd step in plain PyTorch: returns (f_new, rho, u), f untouched."""
     lat = cfg.lat
     opp = np.asarray(lat.opp)
@@ -86,7 +97,7 @@ def odd_step_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, f, m, nu, for
         return stream._shift_slices(fpad[int(opp[q])], offs, S)
 
     f_post, rho, u = _stream_bc_collide(lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
-                                        defer_nothing=True)
+                                        u_in=u_in, defer_nothing=True)
     # push = pull of the edge/wrap-padded post-collision field
     pushed = stream.pull(lat, stream.pad_halo(f_post, periodic), S)
     if GEO.NOTHING in codes:
@@ -98,11 +109,15 @@ class FusedStepAA:
     """``step(f, nu, u_in=None, force=None, parity=0) -> (f, rho, u)``.
 
     ``parity`` 0 is the even step (in place: the returned f is the input
-    tensor), 1 the odd step (a new tensor).  ``even`` and ``odd`` count the
-    kernel launches, ``plain_calls`` the CPU-path calls.
+    tensor), 1 the odd step (a new tensor).  ``u_in`` and ``force`` are
+    homogeneous [3] vectors, given as host values.  ``even`` and ``odd``
+    count the kernel launches, ``plain_calls`` the CPU-path calls.
+    ``lean=False`` keeps the kernels' full-set CUM_WELL instance on a map of
+    FLUID/WALL/NOTHING, where the odd step would take its lean one
+    (``kernels/fused.py aa_variant``).
     """
 
-    def __init__(self, cfg: LBMConfig, domain: Domain, device):
+    def __init__(self, cfg: LBMConfig, domain: Domain, device, lean: bool = True):
         if cfg.streaming != "AA":
             raise ValueError("make_fused_step_aa needs streaming='AA'")
         self.cfg = cfg
@@ -117,35 +132,38 @@ class FusedStepAA:
         self.plain_calls = 0
         if self.device.type == "cuda":
             _check_kernel_config(cfg, domain, self.device)
+            self.variant = aa_variant(cfg, self.codes, lean)
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:
         self.even.launches = self.odd.launches = self.plain_calls = 0
 
     def __call__(self, f, nu, u_in=None, force=None, parity: int = 0):
-        if u_in is not None and np.ndim(u_in) > 1:
-            raise NotImplementedError("per-site inflow profiles are not ported yet (ROADMAP A8)")
+        uvec, fvec = _u_in3(u_in), _force3(force)
         if f.device.type == "cuda":
-            return self._launch(f, float(nu), _force3(force), parity)
+            return self._launch(f, float(nu), fvec, uvec, parity)
         self.plain_calls += 1
-        f_new, rho, u = self.plain(f, nu, force=force, parity=parity)
+        f_new, rho, u = self._plain(f, nu, fvec, uvec, parity)
         if parity == 0:
             f.copy_(f_new)
             return f, rho, u
         return f_new, rho, u
 
-    def plain(self, f, nu, force=None, parity: int = 0):
+    def plain(self, f, nu, u_in=None, force=None, parity: int = 0):
         """The step's plain PyTorch version on f's device: (f_new, rho, u),
         f untouched.  The CPU path, and the oracle the kernels are held
         against on the card; it counts no call."""
-        fvec = _force3(force)
+        return self._plain(f, nu, _force3(force), _u_in3(u_in), parity)
+
+    def _plain(self, f, nu, fvec, uvec, parity):
         m = self.map.to(f.device)
         if parity == 0:
-            return even_step_plain(self.cfg, self.codes, self.do_coll_codes, f, m, nu, fvec)
+            return even_step_plain(self.cfg, self.codes, self.do_coll_codes, f, m, nu, fvec,
+                                   uvec)
         return odd_step_plain(self.cfg, self.codes, self.do_coll_codes, self.periodic,
-                              f, m, nu, fvec)
+                              f, m, nu, fvec, uvec)
 
-    def _launch(self, f, nu, fvec, parity):
+    def _launch(self, f, nu, fvec, uvec, parity):
         if self.device.type != "cuda" or f.device != self.map.device:
             raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
         if f.dtype != torch.float32:
@@ -161,15 +179,16 @@ class FusedStepAA:
         neumaier = int(self.cfg.high_precision_rho)
         if parity == 0:
             rc = lib.tnl_lbm_aa_even(f.data_ptr(), self.map.data_ptr(), rho.data_ptr(),
-                                     u.data_ptr(), X, Y, Z, nu, *fvec, neumaier, stream_ptr)
+                                     u.data_ptr(), X, Y, Z, self.variant, nu, *fvec, *uvec,
+                                     neumaier, stream_ptr)
             kernel, f_new = self.even, f
         else:
             f_new = torch.empty_like(f)
             rc = lib.tnl_lbm_aa_odd(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
                                     rho.data_ptr(), u.data_ptr(), X, Y, Z,
                                     _periodic_bits(self.periodic),
-                                    int(GEO.NOTHING in self.codes), nu, *fvec, neumaier,
-                                    stream_ptr)
+                                    int(GEO.NOTHING in self.codes), self.variant, nu, *fvec,
+                                    *uvec, neumaier, stream_ptr)
             kernel = self.odd
         if rc != 0:
             raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
@@ -177,8 +196,8 @@ class FusedStepAA:
         return f_new, rho, u
 
 
-def make_fused_step_aa(cfg: LBMConfig, domain: Domain, device,
-                       force_field: bool = False, macro_only: bool = False) -> FusedStepAA:
+def make_fused_step_aa(cfg: LBMConfig, domain: Domain, device, force_field: bool = False,
+                       macro_only: bool = False, lean: bool = True) -> FusedStepAA:
     """A-A step for (cfg, domain) on ``device``: see :class:`FusedStepAA`.
 
     The ``force_field`` (per-site force) and ``macro_only`` (u* pre-pass)
@@ -186,7 +205,7 @@ def make_fused_step_aa(cfg: LBMConfig, domain: Domain, device,
     """
     if force_field or macro_only:
         raise NotImplementedError("force_field / macro_only are not ported yet (ROADMAP A11)")
-    return FusedStepAA(cfg, domain, device)
+    return FusedStepAA(cfg, domain, device, lean=lean)
 
 
 class FusedPairAA:
@@ -230,7 +249,7 @@ class FusedPairAA:
                                  "tnl_lbm_tpu/kernels/fused_aa.py:1115")
         self.plain_calls = 0
         if self.device.type == "cuda":
-            _check_kernel_config(cfg, domain, self.device)
+            _check_kernel_config(cfg, domain, self.device, pair=True)
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:

@@ -13,8 +13,8 @@ time into one bit-field per site (bit q-1: link q crosses the interface).
 ``_ade_tile_body`` is the per-site logic on whole arrays, with
 ``shifted(q, (ox, oy, oz))`` reading component q at the given site offsets;
 its CUDA form is ``ade_site_update`` in ``csrc/ade_site.cuh``, shared by the
-ADE kernel (``csrc/ade_step.cu``) and the coupled kernel
-(``csrc/coupled_ab.cu``, ``kernels/fused_coupled.py``).
+ADE kernel (``csrc/ade_step.cu``) and the coupled kernels
+(``csrc/coupled_ab.cu``, ``csrc/coupled_aa.cu``, ``kernels/fused_coupled.py``).
 
 :class:`FusedStepADE` launches ``csrc/ade_step.cu`` on CUDA tensors and
 runs its plain version on CPU tensors; it never runs the plain version in
@@ -106,8 +106,8 @@ def _ade_tile_body(lat, codes, sym_codes, do_coll_codes, collide, use_local_eq, 
     components before the NOTHING restore (an A-A even step writes
     opposite-direction, d3q7/streaming_AA.h); ``defer_nothing=True`` skips
     the NOTHING restore (an A-A odd step applies it at the destination
-    site after the push).  Both wait for the A-A coupled pair (ROADMAP
-    B8).  Returns (f_post, phi).
+    site after the push); the A-A coupled pair uses both
+    (``kernels/fused_coupled.py ade_aa_plain``).  Returns (f_post, phi).
     """
     opp = np.asarray(lat.opp)
     masks = {c: (m == int(c)) for c in codes}
@@ -226,8 +226,9 @@ class FusedStepADE:
         if lat.D != 3 or lat.Q != 7:
             raise ValueError("the ADE step is for the D3Q7 lattice")
         if cfg.streaming != "AB":
-            raise NotImplementedError("the ADE kernel implements the A-B pattern (the A-A "
-                                      "coupled pair: ROADMAP B8)")
+            raise NotImplementedError("the ADE kernel implements the A-B pattern; A-A ADE "
+                                      "steps run in the A-A coupled pair "
+                                      "(make_fused_coupled_step_aa)")
         self.codes = domain.codes_present()
         if not self.codes <= SUPPORTED_ADE_CODES:
             raise NotImplementedError(f"unsupported ADE codes {self.codes - SUPPORTED_ADE_CODES}")

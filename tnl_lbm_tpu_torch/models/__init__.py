@@ -1,5 +1,5 @@
-"""Lattice velocity sets: the JAX package's jax-free descriptors, re-exported."""
+"""Lattice velocity sets (the port's own, ``models/descriptors.py``)."""
 
-from tnl_lbm_tpu.models.descriptors import D2Q9, D3Q7, D3Q27, LatticeDescriptor
+from tnl_lbm_tpu_torch.models.descriptors import D2Q9, D3Q7, D3Q27, LatticeDescriptor
 
 __all__ = ["LatticeDescriptor", "D3Q27", "D2Q9", "D3Q7"]

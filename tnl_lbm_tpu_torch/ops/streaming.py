@@ -57,15 +57,19 @@ def pull_from(lat: LatticeDescriptor, fpad: torch.Tensor, shape, src_perm) -> to
     ])
 
 
-def pull_shift_x(lat: LatticeDescriptor, fpad: torch.Tensor, shape, dx: int = -1) -> torch.Tensor:
+def pull_shift_x(lat: LatticeDescriptor, fpad: torch.Tensor, shape, dx: int = -1,
+                 src_perm=None) -> torch.Tensor:
     """Pull with the x-offset fixed to ``dx`` for every direction: the
     GEO_OUTFLOW_RIGHT trick ``xp = x = xm`` (reference d3q27/bc.h:64-65),
-    every direction pulled from x+dx, y-c_y, z-c_z."""
+    every direction pulled from x+dx, y-c_y, z-c_z.  ``src_perm`` permutes
+    the source direction as in :func:`pull_from` (``lat.opp``: the A-A odd
+    step's outflow read)."""
     out = []
     for q in range(lat.Q):
         off = [-int(c) for c in lat.c[q]]
         off[0] = dx
-        out.append(_shift_slices(fpad[q], off, shape))
+        src = q if src_perm is None else int(src_perm[q])
+        out.append(_shift_slices(fpad[src], off, shape))
     return torch.stack(out)
 
 

@@ -11,22 +11,28 @@ diffusion coefficient may be a per-site field.
 ``sim_init`` picks the coupled path by the JAX package's rules
 (``coupled_kernel``):
 
-- ``"one-kernel-AB"``: ``use_fused`` (A-B streaming on both lattices of one
-  grid) - every step is one launch of the coupled kernel (B7,
+- ``"one-kernel-AB"``: ``use_fused`` with A-B streaming on both lattices of
+  one grid - every step is one launch of the coupled kernel (B7,
   ``kernels/fused_coupled.py``);
+- ``"one-kernel-AA"``: ``use_fused`` with A-A streaming on both lattices -
+  every step is one launch of the A-A coupled pair's kernel of its parity
+  (B8): the even parity updates f and g in place, the odd one writes the
+  second buffers;
 - ``"plain"`` (the JAX package's ``"xla"``): without ``use_fused``, the
   plain steps ``sim/step.py`` and ``sim/step_ade.py``.
 
 The JAX package's third path, ``"two-kernel"`` (the A-B step, B4, then the
 ADE step, B6), is its fallback where the coupled kernel is not built: a
-forcing hook, or the A-A pair with transfer codes.  The port refuses those
-configs (ROADMAP A11, B8), so ``sim_init`` never picks it.  ``_advance``
-still runs B4 then B6 when ``_coupled_step`` is dropped after ``sim_init``:
-that is how B7 is held against the two launches.
+forcing hook, or the A-A pair with transfer codes, where its ADE half runs
+unfused.  The port refuses those configs (a forcing hook names ROADMAP
+A11; the A-A pair's refusal names its reason), since a plain step on the
+card is no path, so ``sim_init`` never picks it.  ``_advance`` still runs
+B4 then B6 when ``_coupled_step`` is dropped after ``sim_init`` on the A-B
+path: that is how B7 is held against the two launches.
 
 The kernel paths ping-pong two preallocated f buffers and two g buffers.
-A-A streaming with ``use_fused`` (the A-A coupled pair, ROADMAP B8), a
-sharded plan (ROADMAP A13) and checkpoints (ROADMAP A6) raise.
+Mixed patterns with ``use_fused``, a sharded plan (ROADMAP A13) and
+checkpoints (ROADMAP A6) raise.
 """
 
 from __future__ import annotations
@@ -37,7 +43,10 @@ import numpy as np
 import torch
 
 from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
-from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step
+from tnl_lbm_tpu_torch.kernels.fused_coupled import (
+    make_fused_coupled_step,
+    make_fused_coupled_step_aa,
+)
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.sim.state import Simulation, synchronize
 from tnl_lbm_tpu_torch.sim.step_ade import make_ade_step, transfer_direction_flags
@@ -66,8 +75,8 @@ class CoupledSimulation(Simulation):
         self._coupled_step = None
         #: the second g buffer of the kernel paths' ping-pong
         self._g_spare = None
-        #: which coupled path sim_init selected: "one-kernel-AB" or "plain" (the
-        #: JAX package's "xla")
+        #: which coupled path sim_init selected: "one-kernel-AB", "one-kernel-AA"
+        #: or "plain" (the JAX package's "xla")
         self.coupled_kernel = None
 
     def initial_phi(self):
@@ -79,10 +88,16 @@ class CoupledSimulation(Simulation):
         raise NotImplementedError("checkpoints are not ported yet (ROADMAP A6); the coupled "
                                   "run would save g beside f")
 
+    def _pair_dispatch_capable(self) -> bool:
+        """Never: the coupled loop advances both lattices one step at a time."""
+        return False
+
     def sim_init(self):
-        if self.use_fused and "AA" in (self.cfg.streaming, self.ade_cfg.streaming):
-            raise NotImplementedError("A-A streaming with use_fused needs the A-A coupled pair, "
-                                      "which is not ported yet (ROADMAP B8)")
+        if self.use_fused and self.cfg.streaming != self.ade_cfg.streaming:
+            raise NotImplementedError(
+                f"use_fused needs one streaming pattern on both lattices (the coupled kernels "
+                f"advance both in one launch); got NSE {self.cfg.streaming}, ADE "
+                f"{self.ade_cfg.streaming}")
         super().sim_init()
         lat, dt = self.ade_cfg.lat, self.ade_cfg.compute_dtype
         phi0 = torch.as_tensor(self.initial_phi(), dtype=dt, device=self.device).contiguous()
@@ -101,13 +116,23 @@ class CoupledSimulation(Simulation):
             self._ade_step = make_ade_step(self.ade_cfg, self.ade_domain)
             self.coupled_kernel = "plain"
             return
-        kw = dict(variable_diffusion=variable, transfer_coeff=float(self.transfer_coeff))
-        self._ade_step = make_fused_ade_step(self.ade_cfg, self.ade_domain, self.device, **kw)
         # both halves in one kernel: the NSE velocity never round-trips
         # through memory (reference kernels.h:102-176)
-        self._coupled_step = make_fused_coupled_step(self.cfg, self.domain, self.ade_cfg,
-                                                     self.ade_domain, self.device, **kw)
-        self.coupled_kernel = "one-kernel-AB"
+        if self.cfg.streaming == "AA":
+            # the A-A pair refuses transfer codes (naming the A-B path) where
+            # the JAX package falls back to two kernels with its ADE half unfused
+            self._coupled_step = make_fused_coupled_step_aa(
+                self.cfg, self.domain, self.ade_cfg, self.ade_domain, self.device,
+                variable_diffusion=variable)
+            self.coupled_kernel = "one-kernel-AA"
+            self._spare = torch.empty_like(self.f)
+        else:
+            kw = dict(variable_diffusion=variable, transfer_coeff=float(self.transfer_coeff))
+            self._ade_step = make_fused_ade_step(self.ade_cfg, self.ade_domain, self.device,
+                                                 **kw)
+            self._coupled_step = make_fused_coupled_step(self.cfg, self.domain, self.ade_cfg,
+                                                         self.ade_domain, self.device, **kw)
+            self.coupled_kernel = "one-kernel-AB"
         self._g_spare = torch.empty_like(self.g)
 
     def _advance(self, n_steps: int):
@@ -119,13 +144,15 @@ class CoupledSimulation(Simulation):
         for _ in range(n_steps):
             u_in = self.update_inflow(self.phys_time())
             force = self.body_force(self.phys_time())
+            parity = (self.iterations % 2) if self.cfg.streaming == "AA" else 0
             self.compute_before_step()
             if self._coupled_step is not None:
                 f, g, self.rho, self.u, self.phi = self._coupled_step(
                     self.f, self.g, nu, nu_ade, u_in=u_in, force=force, phi_in=phi_in,
-                    out_f=self._spare, out_g=self._g_spare)
-                self._spare, self.f = self.f, f
-                self._g_spare, self.g = self.g, g
+                    parity=parity, out_f=self._spare, out_g=self._g_spare)
+                if f is not self.f:  # out of place: the old state is the next spare
+                    self._spare, self.f = self.f, f
+                    self._g_spare, self.g = self.g, g
             elif self.use_fused:
                 # the two-kernel path: B4, then B6 on the u it stored
                 f, self.rho, self.u = self._step(self.f, nu, u_in=u_in, force=force,
@@ -135,7 +162,6 @@ class CoupledSimulation(Simulation):
                                              out=self._g_spare)
                 self._g_spare, self.g = self.g, g
             else:
-                parity = (self.iterations % 2) if self.cfg.streaming == "AA" else 0
                 self.f, self.rho, self.u = self._step(self.f, nu, u_in=u_in, force=force,
                                                       parity=parity)
                 self.g, self.phi = self._ade_step(

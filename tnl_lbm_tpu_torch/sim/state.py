@@ -20,8 +20,9 @@ a second preallocated state buffer: the loop ping-pongs the two, so the
 state takes two buffers and a step allocates none.  With A-A streaming,
 pairs of steps go through the one-kernel A-A pair (``make_fused_pair2_aa``)
 when pair dispatch is on, and single steps - a leftover odd step, or every
-step when pair dispatch is off - through the even/odd kernels
-(``make_fused_step_aa``); without ``use_fused`` every step is the plain
+step when pair dispatch is off or the pair refuses the map or collision -
+through the even/odd kernels (``make_fused_step_aa``); without
+``use_fused`` every step is the plain
 PyTorch step (``sim/step.py``).  ``pair_dispatch="auto"`` times both
 dispatches on a CUDA device and keeps the faster; half storage
 (``cfg.storage_dtype``) forces pair dispatch.  Everything runs on the
@@ -41,6 +42,7 @@ from tnl_lbm_tpu_torch.io.series import VtiTimeSeries
 from tnl_lbm_tpu_torch.io.vtk import write_vti
 from tnl_lbm_tpu_torch.kernels.fused import make_fused_step, supports
 from tnl_lbm_tpu_torch.ops import moments as mom
+from tnl_lbm_tpu_torch.ops.collision import collide_cum_well
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig, initial_dfs
 from tnl_lbm_tpu_torch.sim.step import make_step
 from tnl_lbm_tpu_torch.utils.fileutils import FileLock, Flags, mkdir_p
@@ -268,13 +270,16 @@ class Simulation:
         return self._pair
 
     def _pair_dispatch_capable(self) -> bool:
-        """Static eligibility for the one-kernel A-A pair."""
+        """Static eligibility for the one-kernel A-A pair: its own code set
+        (FLUID/WALL/NOTHING) and collision (CUM_WELL), narrower than the
+        even/odd kernels'; a map or config the pair refuses runs per step."""
         return (self.use_fused
                 and self.cfg.streaming == "AA"
                 and self.cfg.forcing_hook is None
                 and self.cfg.lat.D == 3
+                and self.cfg.collision is collide_cum_well
                 and not self._hooks_need_per_step_state()
-                and supports(self.domain, self.cfg.streaming))
+                and supports(self.domain, self.cfg.streaming, pair=True))
 
     def _hooks_need_per_step_state(self) -> bool:
         """True if a step hook is marked @needs_per_step_state."""

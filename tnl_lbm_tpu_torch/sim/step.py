@@ -103,14 +103,9 @@ def make_step(cfg: LBMConfig, domain: Domain):
             f_in = stream.pull(lat, fpad, S)
         if GEO.OUTFLOW_RIGHT in codes:
             # pull every direction from x-1 (reference bc.h:64-65)
-            if cfg.streaming == "AA":
-                f_or = torch.stack([
-                    stream._shift_slices(fpad[int(opp[q])],
-                                         [-1] + [-int(c) for c in lat.c[q][1:]], S)
-                    for q in range(lat.Q)])
-            else:
-                f_or = stream.pull_shift_x(lat, fpad, S, dx=-1)
-            f_in = torch.where(masks[GEO.OUTFLOW_RIGHT], f_or, f_in)
+            src = opp if cfg.streaming == "AA" else None
+            f_in = torch.where(masks[GEO.OUTFLOW_RIGHT],
+                               stream.pull_shift_x(lat, fpad, S, dx=-1, src_perm=src), f_in)
         if GEO.OUTFLOW_RIGHT_INTERP in codes:
             f_in = torch.where(masks[GEO.OUTFLOW_RIGHT_INTERP],
                                stream.pull_interp_right(lat, fpad, S), f_in)

@@ -154,8 +154,12 @@ def make_ade_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=Non
             else:
                 f_in = stream.pull(lat, gpad, S)
             if ADEGEO.OUTFLOW_RIGHT in codes:
+                # every direction from x-1, from the slot the pattern reads (A-A
+                # odd: the opposite one, as the NSE step and B8 read it; the JAX
+                # plain ADE step reads the site's own slot there)
+                src = opp if cfg.streaming == "AA" else None
                 f_in = torch.where(masks[ADEGEO.OUTFLOW_RIGHT],
-                                   stream.pull_shift_x(lat, gpad, S, dx=-1), f_in)
+                                   stream.pull_shift_x(lat, gpad, S, dx=-1, src_perm=src), f_in)
             if ADEGEO.OUTFLOW_PE in codes:
                 f_in = torch.where(masks[ADEGEO.OUTFLOW_PE],
                                    _pull_offset(lat, g, periodic, S, -1), f_in)
