@@ -9,9 +9,10 @@ the A-B step (B4) with the full 3D boundary set, on the bench duct and in
 sim_1, sim_2 and sim_3; the A-A even/odd kernels (B2, B3) with the 3D set
 and the three variants in sim_1 ``--streaming AA``; the coupled NSE+ADE
 path - the ADE step (B6), the one-kernel coupled step (B7) and, with A-A
-streaming, the A-A coupled pair (B8) - in sim_coupled.  Each phase prints
-result lines; any failing phase raises and the script exits non-zero
-without printing a result.
+streaming, the A-A coupled pair (B8) - in sim_coupled; the D2Q9 step (B5)
+with the Bouzidi curved walls in sim2d_1, sim2d_2 and sim2d_3, held to the
+TPU-measured golden KE corpus.  Each phase prints result lines; any failing
+phase raises and the script exits non-zero without printing a result.
 
 1. device: the card, ``nvidia-smi`` name and power limit, torch/CUDA versions;
 2. build: compile the kernels from ``tnl_lbm_tpu_torch/csrc`` (one ``nvcc``
@@ -97,7 +98,37 @@ without printing a result.
    plain check of one even and one odd step from a res-4 run's final
    state (the plain A-A step's temporaries at res 8 would not fit beside
    the run);
-6. accuracy: sim_2 res 2 run to its stopping point per step and in pairs
+6. the 2D slice (after the main paths; the D2Q9 kernel's bounds as the
+   step compares'):
+   a. compare_2d: B5 against its plain version at 37 x 150 (neither a
+      multiple of the block) on sim2d_2's channel, the channel with a WALL
+      block in a Bouzidi ring (seeded thetas in (0.05, 0.95) on the links
+      that hit it, -1 on the others), the periodic-x channel and a box of
+      every code B5 takes with ring sites on the domain edge; SRT and CLBM,
+      force absent and present, the inflow as a vector and as a [2, 1, Y]
+      profile on the card; one step from the same input, then 4 chained
+      steps on each side compared at the end;
+   b. golden_2d: sim2d_3 at resolution 1 to t = 0.4 (1440 steps) through
+      B5 on all 108 rows of tests/golden/geometry_ke_values_tpu.csv, the
+      geometries written by scripts/make_golden_geometries.py; the 12 rows
+      the JAX suite samples within 1e-4 relative; the worst row over the
+      108 and the count beyond 1e-4 printed; 1440 launches and 0 plain
+      calls per row;
+   c. apps_2d: sim2d_3 res 2 (geometry 1's disk scaled by 2 in a seeded
+      ring), sim2d_1 res 4 with ``--use-fused`` (its VTK2D cut read back)
+      and sim2d_2 res 1 on geometry 1 with Bouzidi (the statistics state
+      machine compressed, from step 150), each through B5 and through the
+      plain step on the card from the same start: rho and u within 1e-5,
+      sim2d_2's accumulators, counts, events and TKE too;
+   d. time_2d: sim2d_3's channel at resolution 64 (8192 x 2048, the site
+      count of 256^3) with geometry 1's disk scaled by 64 in a seeded
+      ring: 200 steps through ``Simulation`` (MLUPS, peak memory), the
+      profiler's busy share over 10 more; on the state after the 200, B5
+      timed in three windows of 20 launches (the median; the card's clocks
+      beside them) and against its plain version (one step; plain: 3
+      calls, its peak memory), GB/s at the 85 B/site this data needs
+      (plus the ring's thetas and the profile) against P1;
+7. accuracy: sim_2 res 2 run to its stopping point per step and in pairs
    (f32), and with A-B streaming through the A-B kernel; each L1 error must
    lie within 5% of the L1 that the analytic start-up solution of the duct
    (``sim_2.duct_startup_ux``) has at the same iteration.  Then
@@ -114,7 +145,9 @@ without printing a result.
 
 The line before the last is the kernels' JSON record (bound_ms: the larger
 of the bytes over the published 3.35 TB/s and the FP32 operations over
-67 TFLOP/s, at 256^3); the last line is ``{"ok": true, "device": {...}}``.
+67 TFLOP/s, at 256^3 sites; B5's launches: the golden sweep, the three 2D
+apps' kernel runs and the res-64 run); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -151,6 +184,18 @@ COUPLED_RES = 8
 WALL_REACH = APP_STEPS
 PROBE_PASSES = (0, 20, 60)
 DEVICE = "cuda"
+#: the D2Q9 step (B5): 9 f32 in and out, the map, rho and u (B/site); the
+#: thetas and the profile are added per run, at the sites that read them
+B5_BYTES = 85
+D2Q9_KERNEL_NAMES = ("d2q9_srt_kernel", "d2q9_srt_force_kernel", "d2q9_clbm_kernel")
+#: sim2d_3's channel at resolution 64: 8192 x 2048, the site count of 256^3
+TIME_2D_RES = 64
+#: the rows of the golden corpus that the JAX suite samples
+#: (tests/test_geometry_pipeline.py:138-143), (geometry, Bouzidi)
+GOLDEN_SAMPLED = ((1, True), (4, True), (4, False), (6, True), (9, False), (14, True),
+                  (18, False), (23, True), (29, False), (33, True), (41, True), (54, False))
+TOL_GOLDEN = 1e-4  # relative (tests/test_geometry_pipeline.py:151-154)
+GOLDEN_STEPS = 1440  # resolution 1 to the corpus' final time 0.4
 
 
 def log(phase: str, **fields) -> None:
@@ -322,7 +367,7 @@ def phase_build() -> dict:
               "aa_pair_bf16_kernel", "ab_step_cum_well_kernel", "ab_step_cum_quad_kernel",
               "ab_step_cum_invcum_kernel", "copy_permute_kernel", "pair_pipeline_kernel",
               "pair_compute_only_kernel") + AA_KERNEL_NAMES + ADE_KERNEL_NAMES
-             + COUPLED_KERNEL_NAMES + COUPLED_AA_KERNEL_NAMES)
+             + COUPLED_KERNEL_NAMES + COUPLED_AA_KERNEL_NAMES + D2Q9_KERNEL_NAMES)
     for name in names:
         if name not in res or name not in ops:
             raise RuntimeError(f"no ptxas report or SASS for {name}:\n{ptxas}")
@@ -980,7 +1025,7 @@ def kernel_launches(sim) -> dict:
         launches = {"even": step.even.launches, "odd": step.odd.launches}
         launches["pair"] = sim._pair.kernel.launches if sim._pair else 0
         return launches
-    return {"ab": step.kernel.launches}
+    return {"d2q9" if sim.cfg.lat.D == 2 else "ab": step.kernel.launches}
 
 
 def run_figures(sim) -> tuple[float, float, float]:
@@ -1203,28 +1248,34 @@ def profile_loop(sim, label: str, steps: int = 10) -> None:
     """Where the time of a Simulation's loop goes: after 5 warm-up steps,
     ``steps`` steps unprofiled (host clock, ending in a synchronize), then
     ``steps`` under torch.profiler - device time per kernel, and the share
-    of the profiled host time the device was busy.  Runs past the checked
-    state; a run's own checks come first."""
+    of the profiled host time the device was busy.  The kernel events the
+    profiler recorded are printed beside the launches the wrappers counted
+    in the window: where it recorded fewer, its device time and busy share
+    read low.  Runs past the checked state; a run's own checks come first."""
     from torch.profiler import ProfilerActivity, profile
 
     sim._advance(5)
     t0 = time.perf_counter()
     sim._advance(steps)
     unprofiled = (time.perf_counter() - t0) * 1e3
+    launched = sum(kernel_launches(sim).values())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sim._advance(steps)
         wall = (time.perf_counter() - t0) * 1e3
-    device = {}
+    launched = sum(kernel_launches(sim).values()) - launched
+    device, count = {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
         if us > 0:
-            device[e.key] = us / 1e3
+            device[e.key], count[e.key] = us / 1e3, e.count
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:4]
     log("profile", path=label, steps=steps, unprofiled_ms_per_step=f"{unprofiled / steps:.4f}",
         profiled_ms_per_step=f"{wall / steps:.4f}", device_ms_per_step=f"{busy / steps:.4f}",
         device_busy_share=f"{busy / wall:.4f}" if wall else "n/a",
+        kernel_events=sum(count[k] for k in count if k.endswith("_kernel")),
+        launches_in_window=launched,
         **{f"device_ms_{k[:40]}": f"{v / steps:.4f}" for k, v in top})
 
 
@@ -1579,11 +1630,300 @@ def app_kernel_vs_plain(name: str, streaming: str) -> None:
         raise RuntimeError(f"{name} res 2 {streaming}: kernel vs plain over {APP_STEPS} "
                            f"steps: drho {d_rho}, du {d_u}")
 
+# ------------------------------------------------------------------ 2D slice
 
-def kernel_footprints(ops: dict) -> dict:
+def golden_geometries() -> Path:
+    """The golden corpus' 54 geometry files (scripts/make_golden_geometries.py),
+    written once per call of the script."""
+    out = WORK / "golden_geos"
+    if not (out / "54.txt").exists():
+        subprocess.run([sys.executable, str(ROOT / "scripts" / "make_golden_geometries.py"),
+                        str(out)], check=True, capture_output=True)
+    return out
+
+
+def check_2d(label: str, d) -> None:
+    if not (d[0] <= TOL_F and d[1] <= TOL_RHO and d[2] <= TOL_U):
+        raise RuntimeError(f"d2q9_step vs plain on {label} out of tolerance: {d}")
+
+
+def phase_compare_2d() -> float:
+    """B5 against its plain version on the card: each ``case_2d`` geometry at
+    37 x 150 (neither a multiple of the block: the channel, the channel with
+    a WALL block in a Bouzidi ring of seeded thetas in (0.05, 0.95) and -1
+    links, the periodic-x channel, the box of every code with ring sites on
+    the y = 0 edge), SRT and CLBM, force absent and present, the inflow as
+    a vector and as a [2, 1, Y] profile on the card: one step from a seeded
+    state on both sides, then 4 chained steps on each side, compared at the
+    end.  Returns max |df|."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
+    from torch_cases import (D2_COLLISIONS, D2_KINDS, FORCE_2D, U_IN_2D, case_2d,
+                             parabolic_2d, seeded_2d)
+
+    shape = (37, 150)
+    prof = torch.tensor(parabolic_2d(shape[1]), dtype=torch.float32, device=DEVICE)
+    worst = 0.0
+    for kind in D2_KINDS:
+        m, periodic, bz = case_2d(kind, shape)
+        for collision in D2_COLLISIONS:
+            cfg = interop.config_2d_from_spec(collision)
+            dom = interop.domain_from_numpy(m, periodic, lat=cfg.lat, bouzidi=bz)
+            step = make_fused_step_2d(cfg, dom, DEVICE)
+            d1, d4 = [0.0] * 3, [0.0] * 3
+            for force in (None, FORCE_2D):
+                for u_in in (U_IN_2D, prof):
+                    fk = fp = seeded_2d(cfg, shape, DEVICE, seed=11)
+                    for it in range(4):
+                        fk, rk, uk = step(fk, NU, u_in=u_in, force=force)
+                        fp, rp, up = step.plain(fp, NU, u_in=u_in, force=force)
+                        d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+                        check_2d(f"{kind} {collision} step {it}", d)
+                        acc = d1 if it == 0 else d4
+                        acc[:] = [max(a, b) for a, b in zip(acc, d)]
+            torch.cuda.synchronize()
+            log("compare_2d", case=kind, collision=collision, shape="x".join(map(str, shape)),
+                codes="+".join(sorted(c.name for c in step.codes)),
+                ring_links=0 if bz is None else int((bz >= 0).sum()),
+                max_df_1=d1[0], max_drho_1=d1[1], max_du_1=d1[2],
+                max_df_4=d4[0], max_drho_4=d4[1], max_du_4=d4[2], launches=step.kernel.launches)
+            worst = max(worst, d1[0], d4[0])
+    return worst
+
+
+def phase_golden_2d() -> dict:
+    """sim2d_3 at resolution 1 to the final time 0.4 through B5 on all 108
+    rows of the TPU-measured golden corpus (tests/golden/): the 12 rows the
+    JAX suite samples must lie within 1e-4 relative; the worst deviation
+    over the 108 and the count beyond 1e-4 are printed.  Each row runs with
+    its counts set to 0 at the end of sim_init: 1440 launches, 0 plain
+    calls."""
+    import csv
+
+    from tnl_lbm_tpu_torch.apps import sim2d_3
+
+    geos = golden_geometries()
+    with open(ROOT / "tests" / "golden" / "geometry_ke_values_tpu.csv") as fh:
+        golden = {(r["geometry"], r["bouzidi"]): float(r["value"]) for r in csv.DictReader(fh)}
+    rel, launches, kernel = {}, 0, None
+    t0 = time.perf_counter()
+    for (name, bouzidi), want in golden.items():
+        where = WORK / "golden" / bouzidi
+        sim = counting_from_init(sim2d_3.build(
+            1, str(geos / name), bouzidi == "on", final_time=0.4, results_parent=where,
+            values_dir=where / "values", use_fused=True, device=DEVICE))
+        if not sim.run():
+            raise RuntimeError(f"sim2d_3 on {name} (Bouzidi {bouzidi}) failed")
+        step = sim._step
+        if (sim.iterations != GOLDEN_STEPS or step.kernel.launches != GOLDEN_STEPS
+                or step.plain_calls):
+            raise RuntimeError(f"sim2d_3 on {name}: {sim.iterations} steps, "
+                               f"{step.kernel.launches} launches, {step.plain_calls} plain calls")
+        value = float(sim.value_path.read_text())
+        rel[(name, bouzidi)] = abs(value - want) / abs(want)
+        launches += step.kernel.launches
+        kernel = step.kernel
+        del sim
+    wall = time.perf_counter() - t0
+    worst_row = max(rel, key=rel.get)
+    sampled = {f"{g}_{'on' if b else 'off'}": rel[(f"{g}.txt", "on" if b else "off")]
+               for g, b in GOLDEN_SAMPLED}
+    beyond = sorted(k for k, v in rel.items() if v > TOL_GOLDEN)
+    log("golden_2d", rows=len(rel), steps_per_row=GOLDEN_STEPS, launches=launches, plain_calls=0,
+        wall_s=f"{wall:.1f}", worst_rel=rel[worst_row], worst_row="_".join(worst_row),
+        rows_beyond_tol=len(beyond), beyond=beyond or "none",
+        sampled_worst_rel=max(sampled.values()))
+    log("golden_2d", **{f"rel_{k}": f"{v:.3e}" for k, v in sampled.items()})
+    if max(sampled.values()) > TOL_GOLDEN:
+        raise RuntimeError(f"golden rows beyond 1e-4 relative: {sampled}")
+    return {"kernel": dataclasses.replace(kernel, launches=launches)}
+
+
+def app_2d_runs(build, label: str, prepare):
+    """(kernel run, plain run) of a 2D app's ``build(use_fused, where)``
+    on the card from the same start (``prepare`` edits the built run before
+    it starts: its geometry, its final time); the kernel run counted from
+    sim_init."""
+    runs = []
+    for fused in (True, False):
+        sim = build(fused, WORK / "apps_2d" / f"{label}_{'kernel' if fused else 'plain'}")
+        prepare(sim)
+        if fused:
+            counting_from_init(sim)
+        if not sim.run():
+            raise RuntimeError(f"{label} (use_fused={fused}) failed")
+        runs.append(sim)
+    return runs
+
+
+def compare_app_2d(label: str, k, p, **extra) -> float:
+    """max |drho| and |du| of the kernel and plain runs within TOL_APP, B5's
+    launches one per step, no plain call; returns max |du|."""
+    import torch
+
+    d_rho, d_u = max_diff(k.rho, p.rho), max_diff(k.u, p.u)
+    launches, plain = k._step.kernel.launches, k._step.plain_calls
+    log("apps_2d", path=label, shape="x".join(map(str, k.domain.shape)), steps=k.iterations,
+        max_drho=d_rho, max_du=d_u, max_abs_u=float(k.u.abs().max()), launches=launches,
+        plain_calls=plain, **extra)
+    if not (d_rho <= TOL_APP and d_u <= TOL_APP and bool(torch.isfinite(k.u).all())
+            and launches == k.iterations == p.iterations and plain == 0):
+        raise RuntimeError(f"{label}: kernel vs plain run: drho {d_rho}, du {d_u}, "
+                           f"{launches} launches, {plain} plain calls")
+    return d_u
+
+
+def phase_apps_2d() -> dict:
+    """The three 2D apps through B5, each against the plain step's run on
+    the card from the same start: sim2d_3 at resolution 2 (256 x 64) with
+    geometry 1's disk scaled by 2 in a ring of seeded thetas, 100 steps;
+    sim2d_1 at resolution 4 with ``--use-fused``, 100 steps, then one VTK2D
+    cycle of its cut at X/2 read back and held against the card's fields;
+    sim2d_2 at resolution 1 on geometry 1 with Bouzidi, the statistics state
+    machine compressed as tests/test_sim2d_2.py:24-33 compresses it, with
+    the window moved to step 150 so that the inflow has reached the ROI:
+    the accumulators, the counts and the exported TKE against the plain
+    run's (TKE within 1e-5 relative).  Returns B5's launches and max |du|."""
+    from tnl_lbm_tpu_torch.apps import sim2d_1, sim2d_2, sim2d_3
+    from tnl_lbm_tpu_torch.sim.state import VTK2D
+    from torch_cases import compress_statistics, timing_disk_2d
+
+    def app_steps(sim):
+        sim.phys_final_time = APP_STEPS * sim.domain.units.phys_dt
+
+    def disk_and_steps(sim):
+        timing_disk_2d(sim.domain)
+        app_steps(sim)
+
+    k, p = app_2d_runs(lambda fused, where: sim2d_3.build(
+        2, None, results_parent=where, values_dir=where / "values", use_fused=fused,
+        device=DEVICE), "sim2d_3_res2", disk_and_steps)
+    err = compare_app_2d("sim2d_3_res2_disk", k, p, ke_kernel=k.ke_value, ke_plain=p.ke_value,
+                         codes="+".join(sorted(c.name for c in k._step.codes)))
+    launches = k._step.kernel.launches
+
+    k, p = app_2d_runs(lambda fused, where: sim2d_1.build(
+        4, results_parent=where, use_fused=fused, device=DEVICE), "sim2d_1_res4", app_steps)
+    k._write_vtk_2d()
+    probe = k.probes_2d[0]
+    got = read_vti(k.results_dir / "vtk2D" / f"{probe.name}_{probe.cycle - 1:06d}.vti")
+    scalars, vectors = k.output_data((slice(probe.position, probe.position + 1), slice(None)))
+    same = (np.array_equal(got["lbm_density"][..., 0], scalars["lbm_density"].cpu().numpy())
+            and np.array_equal(got["velocity"][:2, ..., 0], vectors["velocity"].cpu().numpy()))
+    if not same or k.cnt[VTK2D].count < 1:
+        raise RuntimeError("sim2d_1: the VTK2D cut read back differs from the card's fields")
+    err = max(err, compare_app_2d("sim2d_1_res4", k, p, vtk2d=probe.name, cycles=probe.cycle,
+                                  read_back="equal"))
+    launches += k._step.kernel.launches
+
+    geo = str(golden_geometries() / "1.txt")
+    k, p = app_2d_runs(lambda fused, where: sim2d_2.build(
+        1, geo, results_parent=where, value_path=str(where / "tke"), use_fused=fused,
+        device=DEVICE), "sim2d_2_res1", lambda sim: compress_statistics(sim, 150))
+    tke = (k.integrate_tke_roi(), p.integrate_tke_roi())
+    d_acc = max(max_diff(getattr(k, n), getattr(p, n))
+                for n in ("sum_v", "frozen_mean", "sum_up2", "sum_upmag"))
+    same = all(getattr(k, n) == getattr(p, n) for n in (
+        "iterations", "mean_samples", "fluc_samples", "means_frozen", "flucs_frozen",
+        "tke_value_written")) and [r["event"] for r in k.csv_rows] == [r["event"] for r in p.csv_rows]
+    err = max(err, compare_app_2d("sim2d_2_res1_geometry1", k, p, tke_kernel=tke[0],
+                                  tke_plain=tke[1], max_d_accumulators=d_acc,
+                                  mean_samples=k.mean_samples, fluc_samples=k.fluc_samples))
+    if not (same and k.tke_value_written and tke[1] > 0
+            and abs(tke[0] - tke[1]) <= TOL_APP * tke[1] and d_acc <= TOL_APP):
+        raise RuntimeError(f"sim2d_2: the statistics differ from the plain run's: TKE {tke}, "
+                           f"accumulators {d_acc}")
+    launches += k._step.kernel.launches
+    return {"launches": launches, "err": err}
+
+
+def card_state() -> str:
+    """The card's SM and memory clocks, power draw and temperature now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+
+
+def phase_time_2d(floor_gbps: float) -> dict:
+    """sim2d_3's channel at resolution 64 (8192 x 2048, the site count of
+    256^3) with geometry 1's disk scaled by 64 (centre (2048, 1024), radius
+    256) in a one-site Bouzidi ring of seeded thetas: 200 steps through
+    ``Simulation`` (counted from sim_init: ms/step, MLUPS, peak memory),
+    torch.profiler over 10 more (the device's busy share), and on the state
+    after the 200 B5 timed in three windows of 20 launches (the first right
+    after the loop, before the profiler; ms is their median, the card's
+    clocks, power and temperature read before the first and after the
+    last), then against its plain version (one step from the same input,
+    step bounds; 3 calls timed, peak memory).  GB/s at the bytes this run's
+    data needs, against the P1 floor of this call."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim2d_3
+    from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
+    from tnl_lbm_tpu_torch.ops.boundary import GEO
+    from torch_cases import timing_disk_2d
+
+    where = WORK / "time_2d"
+    sim = sim2d_3.build(TIME_2D_RES, None, results_parent=where, values_dir=where / "values",
+                        device=DEVICE)
+    timing_disk_2d(sim.domain)
+    sim.phys_final_time = BENCH_STEPS * sim.domain.units.phys_dt
+    counting_from_init(sim)
+    if not sim.run():
+        raise RuntimeError("sim2d_3 res 64 failed")
+    launches = report_main(sim, f"sim2d_3_res{TIME_2D_RES}")["d2q9"]
+    if launches != BENCH_STEPS:
+        raise RuntimeError(f"sim2d_3 res 64: {launches} B5 launches for {BENCH_STEPS} steps")
+    kernel = dataclasses.replace(sim._step.kernel)
+    dom = sim.domain
+    X, Y = dom.shape
+    near = int((dom.map == GEO.FLUID_NEAR_WALL).sum())
+    bytes_site = B5_BYTES + (32 * near + 8 * Y) / (X * Y)  # thetas at the ring, the profile once
+    evolved = sim.iterations
+    f, nu, u_in = sim.f.clone(), dom.units.lbm_viscosity(), sim.update_inflow(sim.phys_time())
+    step = make_fused_step_2d(sim.cfg, dom, DEVICE)
+    out = torch.empty_like(f)
+    before = card_state()
+    windows = [time_ms(lambda: step(f, nu, u_in=u_in, out=out), reps=20)]
+    profile_loop(sim, f"sim2d_3_res{TIME_2D_RES}")
+    sim._spare = sim.rho = sim.u = sim.f = None
+    torch.cuda.empty_cache()
+    windows += [time_ms(lambda: step(f, nu, u_in=u_in, out=out), reps=20) for _ in range(2)]
+    after = card_state()
+    ms = float(np.median(windows))
+    fk, rk, uk = step(f, nu, u_in=u_in)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fp, rp, up = step.plain(f, nu, u_in=u_in)
+    torch.cuda.synchronize()
+    plain_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+    check_2d("sim2d_3 res 64", d)
+    del fk, rk, uk, fp, rp, up
+    torch.cuda.empty_cache()
+    plain_ms = time_ms(lambda: step.plain(f, nu, u_in=u_in), reps=3)
+    rate = gbps(bytes_site, ms)
+    log("time_2d", kernel="d2q9_step", shape=f"{X}x{Y}", evolved_steps=evolved,
+        near_wall_sites=near, bytes_per_site=f"{bytes_site:.4f}", max_df=d[0], max_drho=d[1],
+        max_du=d[2], ms=f"{ms:.4f}", windows_ms="/".join(f"{w:.4f}" for w in windows),
+        card_before=repr(before), card_after=repr(after), plain_ms=f"{plain_ms:.2f}",
+        plain_temporaries_gb=f"{plain_gb:.3f}", gbps=f"{rate:.1f}",
+        share_of_p1_floor=f"{rate / floor_gbps:.3f}",
+        share_of_3350=f"{rate / HBM_PEAK_GBPS:.3f}", mlups_kernel=f"{X * Y / ms / 1e3:.1f}")
+    del sim, f, out
+    torch.cuda.empty_cache()
+    return {"kernel": kernel, "err": d[0], "time": (ms, plain_ms), "bytes": bytes_site}
+
+
+def kernel_footprints(ops: dict, b5_bytes: float) -> dict:
     """(bytes per site, FP32 operations per site) of each kernel at its
-    timed 256^3 inputs: the bytes it must move (each input read once, each
-    output written once) and the SASS count of ``phase_build`` (the pair:
+    timed 256^3 inputs (B5: 8192 x 2048, as many sites, ``b5_bytes`` per
+    site from the timed run's data): the bytes it must move (each input
+    read once, each output written once) and the SASS count of
+    ``phase_build`` (B5: its CLBM instance, the one timed; the pair:
     two of the lean CUM_WELL site updates it shares with the odd kernel's
     FLUID/WALL/NOTHING instance, per site; P2: the affine passes, 2
     operations per DF)."""
@@ -1607,6 +1947,7 @@ def kernel_footprints(ops: dict) -> dict:
         "coupled_ab": (COUPLED_BYTES, ops["coupled_cum_well_clbm_kernel"]),
         "coupled_aa_even": (COUPLED_BYTES, ops["coupled_aa_even_cum_well_clbm_kernel"]),
         "coupled_aa_odd": (COUPLED_BYTES, ops["coupled_aa_odd_cum_well_clbm_kernel"]),
+        "d2q9_step": (b5_bytes, ops["d2q9_clbm_kernel"]),
     }
 
 
@@ -1646,8 +1987,16 @@ def main() -> int:
     timed_aa = phase_time_coupled_aa(steps["times"], floor)
     main_path = phase_main_path()
     kernels = main_path["kernels"]
+    compare_2d_err = phase_compare_2d()
+    golden = phase_golden_2d()
+    apps_2d = phase_apps_2d()
+    timed_2d = phase_time_2d(floor)
+    kernels["d2q9_step"] = dataclasses.replace(
+        timed_2d["kernel"], launches=golden["kernel"].launches + apps_2d["launches"]
+        + timed_2d["kernel"].launches)
     phase_accuracy()
-    err = {**steps["err"], **pairs["err"], **probe["err"], **ab["err"]}
+    err = {**steps["err"], **pairs["err"], **probe["err"], **ab["err"],
+           "d2q9_step": max(compare_2d_err, timed_2d["err"])}
     for key in ("aa_even", "aa_odd"):
         err[key] = max(err[key], aa_codes_err, main_path["err"][key])
     for key in ("ab_step", "ade_step", "coupled_ab", "coupled_aa_even", "coupled_aa_odd"):
@@ -1656,9 +2005,9 @@ def main() -> int:
                        coupled_err.get(key, 0.0), coupled_aa["err"].get(key, 0.0),
                        timed_aa["err"].get(key, 0.0))
     times = {**steps["times"], **pairs["times"], **probe["times"], **ab["times"],
-             **timed["times"], **timed_aa["times"]}
+             **timed["times"], **timed_aa["times"], "d2q9_step": timed_2d["time"]}
     kernels.update(probe["kernels"])
-    footprint = kernel_footprints(ops)
+    footprint = kernel_footprints(ops, timed_2d["bytes"])
     record = {"kernels": []}
     for key, k in kernels.items():
         bound_ms, bound_by = bound(*footprint[key])

@@ -109,7 +109,7 @@ def test_supports_reports_the_ported_codes():
     assert not supports(interop.domain_from_numpy(m, periodic), "AA")
     # the A-B kernel takes the full 3D set
     assert supports(interop.domain_from_numpy(m, periodic), "AB")
-    m[3, 3, 3] = GEO.FLUID_NEAR_WALL  # Bouzidi: ROADMAP A9
+    m[3, 3, 3] = GEO.FLUID_NEAR_WALL  # Bouzidi curved walls are D2Q9 only
     assert not supports(interop.domain_from_numpy(m, periodic), "AB")
 
 

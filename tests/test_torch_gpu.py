@@ -14,6 +14,7 @@ import torch
 from tnl_lbm_tpu_torch import interop
 from tnl_lbm_tpu_torch.kernels import probes
 from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
+from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
 from tnl_lbm_tpu_torch.kernels.fused_aa import (
     from_storage,
     make_fused_pair2_aa,
@@ -28,16 +29,23 @@ from torch_cases import (
     AB_SPECS,
     ADE_COLLISIONS,
     ADE_KINDS,
+    D2_COLLISIONS,
+    D2_KINDS,
+    FORCE_2D,
     PHI_IN,
     TCOEF,
     U_IN,
+    U_IN_2D,
     aa_box,
     ade_aa_box,
     ade_case,
     bc_box,
+    case_2d,
     channel,
     coupled_aa_cases,
     coupled_cases,
+    parabolic_2d,
+    seeded_2d,
     seeded_ade,
 )
 
@@ -453,3 +461,58 @@ def test_coupled_aa_kernel_in_place_and_out(cuda):
     with pytest.raises(ValueError):
         pair(f, g, 0.02, 0.02, parity=1, out_f=f)
     assert pair.even.launches == 1 and pair.odd.launches == 1
+
+
+# ------------------------------------------------------------ D2Q9 step (B5)
+
+@pytest.mark.parametrize("forced", [False, True], ids=["noforce", "force"])
+@pytest.mark.parametrize("uin_kind", ["profile", "vector"])
+@pytest.mark.parametrize("collision", D2_COLLISIONS)
+@pytest.mark.parametrize("kind", D2_KINDS)
+def test_d2q9_kernel_matches_plain_on_card(cuda, kind, collision, uin_kind, forced):
+    """Four chained B5 steps, each against the plain version on the same
+    input, at 37 x 150 (neither a multiple of the block); the profile sits
+    on the card and is read through its strides."""
+    m, periodic, bz = case_2d(kind, (37, 150))
+    cfg = interop.config_2d_from_spec(collision)
+    step = make_fused_step_2d(cfg, interop.domain_from_numpy(m, periodic, lat=cfg.lat,
+                                                             bouzidi=bz), cuda)
+    u_in = (torch.tensor(parabolic_2d(150), dtype=torch.float32, device=cuda)
+            if uin_kind == "profile" else U_IN_2D)
+    force = FORCE_2D if forced else None
+    f = seeded_2d(cfg, m.shape, cuda, seed=11)
+    for it in range(4):
+        fk, rk, uk = step(f, 0.02, u_in=u_in, force=force)
+        fp, rp, up = step.plain(f, 0.02, u_in=u_in, force=force)
+        torch.cuda.synchronize()
+        assert float((fk - fp).abs().max()) <= 1e-6, f"f, step {it}"
+        assert float((rk - rp).abs().max()) <= 2e-6, f"rho, step {it}"
+        assert float((uk - up).abs().max()) <= 1e-6, f"u, step {it}"
+        f = fk
+    assert step.kernel.launches == 4 and step.plain_calls == 0
+
+
+def test_d2q9_kernel_counts_writes_into_out_and_refuses(cuda):
+    m, periodic, bz = case_2d("bouzidi", (16, 16))
+    cfg = interop.config_2d_from_spec("CLBM")
+    dom = interop.domain_from_numpy(m, periodic, lat=cfg.lat, bouzidi=bz)
+    step = make_fused_step_2d(cfg, dom, cuda)
+    f = seeded_2d(cfg, m.shape, cuda)
+    out = torch.empty_like(f)
+    assert step(f, 0.02, u_in=U_IN_2D, out=out)[0] is out
+    step.plain(f, 0.02, u_in=U_IN_2D)
+    assert step.kernel.launches == 1 and step.plain_calls == 0
+    with pytest.raises(ValueError):
+        step(f, 0.02, out=f)
+    with pytest.raises(ValueError):
+        step(f, 0.02, force=torch.tensor(FORCE_2D, device=cuda))  # no device round trip
+    with pytest.raises(ValueError):
+        step(torch.zeros((9, 16, 17), device=cuda), 0.02)
+    with pytest.raises(NotImplementedError):
+        step(f.double(), 0.02)
+    with pytest.raises(ValueError):  # a step built for the CPU launches nothing on the card
+        make_fused_step_2d(cfg, dom, "cpu")(f, 0.02)
+    aa = interop.config_2d_from_spec("CLBM", streaming="AA")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_fused_step_2d(aa, dom, cuda)
+    assert step.kernel.launches == 1

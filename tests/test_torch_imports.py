@@ -21,7 +21,10 @@ def test_every_port_module_is_listed():
                  "tnl_lbm_tpu_torch.interop", "tnl_lbm_tpu_torch.sim.coupled",
                  "tnl_lbm_tpu_torch.sim.step_ade", "tnl_lbm_tpu_torch.kernels.fused_ade",
                  "tnl_lbm_tpu_torch.kernels.fused_coupled", "tnl_lbm_tpu_torch.ops.collision_ade",
-                 "tnl_lbm_tpu_torch.apps.sim_coupled", "tnl_lbm_tpu_torch.models.descriptors"):
+                 "tnl_lbm_tpu_torch.apps.sim_coupled", "tnl_lbm_tpu_torch.models.descriptors",
+                 "tnl_lbm_tpu_torch.ops.collision_2d", "tnl_lbm_tpu_torch.io.geometry",
+                 "tnl_lbm_tpu_torch.kernels.fused_2d", "tnl_lbm_tpu_torch.apps.sim2d_1",
+                 "tnl_lbm_tpu_torch.apps.sim2d_2", "tnl_lbm_tpu_torch.apps.sim2d_3"):
         assert name in PORT_MODULES
 
 

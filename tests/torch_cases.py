@@ -195,3 +195,126 @@ def local_scale(ref):
     pooled = torch.nn.functional.max_pool3d(mag[None, None], kernel_size=(5, 3, 3), stride=1,
                                             padding=(2, 1, 1))[0, 0]
     return pooled.clamp(min=1.0)
+
+
+# ------------------------------------------------------------------ D2Q9
+
+D2_COLLISIONS = ("SRT", "CLBM")
+D2_KINDS = ("channel", "bouzidi", "periodic", "box")
+FORCE_2D = (1e-5, 2e-6)
+U_IN_2D = (0.03, 0.004)
+
+
+def bouzidi_ring(m, solid, seed=0, lo=0.05, hi=0.95):
+    """Mark the FLUID sites of ``m`` that have a site of ``solid`` among
+    their 8 neighbours FLUID_NEAR_WALL (in place), and return the [8, X, Y]
+    thetas: each link q of a ring site whose upstream site x - c_q lies in
+    ``solid`` gets a seeded theta in (lo, hi) - both branches of the
+    interpolation - and every other link -1 (plain streaming)."""
+    from tnl_lbm_tpu_torch.models import D2Q9
+
+    X, Y = m.shape
+    pad = np.pad(solid, 1)
+    near = np.zeros_like(solid)
+    upstream = []
+    for q in range(1, D2Q9.Q):
+        cx, cy = (int(c) for c in D2Q9.c[q])
+        up = pad[1 - cx : 1 - cx + X, 1 - cy : 1 - cy + Y]  # solid at x - c_q
+        upstream.append(up)
+        near |= up
+    ring = near & (m == GEO.FLUID)
+    m[ring] = GEO.FLUID_NEAR_WALL
+    rng = np.random.default_rng(seed)
+    bz = np.full((8,) + m.shape, -1.0, np.float32)
+    for q, up in enumerate(upstream):
+        hit = ring & up
+        bz[q][hit] = rng.uniform(lo, hi, int(hit.sum())).astype(np.float32)
+    return bz
+
+
+def disk(shape, center, radius):
+    """The sites strictly within ``radius`` of ``center`` (the golden
+    geometries' disks, scripts/make_golden_geometries.py)."""
+    xs, ys = np.meshgrid(np.arange(shape[0]), np.arange(shape[1]), indexing="ij")
+    return np.hypot(xs - center[0], ys - center[1]) < radius
+
+
+def case_2d(kind, shape=(16, 16), seed=0):
+    """(map, periodic, thetas or None) of the D2Q9 compares: sim2d_2's
+    channel (JAX tests/test_fused_2d.py:16-33: INFLOW, OUTFLOW_RIGHT, walls
+    and NOTHING rows), the same with a WALL block inside a Bouzidi ring, the
+    periodic-x channel between walls of the body-force runs, and a box of
+    every code B5 takes, with an obstacle on the fluid part of the y = 0 edge
+    whose ring sites there read clamped neighbours."""
+    X, Y = shape
+    m = np.zeros(shape, np.uint8)
+    if kind == "periodic":
+        m[:, 0] = m[:, -1] = GEO.WALL
+        return m, (True, False), None
+    if kind in ("channel", "bouzidi"):
+        m[:, 1] = m[:, Y - 2] = GEO.WALL
+        m[:, 0] = m[:, Y - 1] = GEO.NOTHING
+        m[0, 2 : Y - 2] = GEO.INFLOW
+        m[X - 1, 2 : Y - 2] = GEO.OUTFLOW_RIGHT
+        if kind == "channel":
+            return m, (False, False), None
+        solid = np.zeros(shape, bool)
+        solid[4:6, 5:9] = True
+        m[solid] = GEO.WALL
+        return m, (False, False), bouzidi_ring(m, solid, seed)
+    assert kind == "box", kind
+    m[:, Y - 1] = GEO.WALL
+    m[: X // 2, 0] = GEO.NOTHING
+    m[0, 1 : Y // 2], m[0, Y // 2 : Y - 1] = GEO.INFLOW, GEO.OUTFLOW_EQ
+    m[X - 1, 1 : Y - 1] = GEO.OUTFLOW_RIGHT
+    m[X // 2, Y // 2] = GEO.NOTHING
+    solid = disk(shape, (X // 3, Y // 2), max(2.5, Y / 8)) | disk(shape, (2 * X // 3, 0), 2.5)
+    m[solid] = GEO.WALL
+    return m, (False, False), bouzidi_ring(m, solid, seed)
+
+
+def parabolic_2d(Y, umax=0.05):
+    """sim2d_2's inflow profile shape as a [2, 1, Y] float64 array."""
+    s = np.clip((np.arange(Y) - 1) / max(Y - 3, 1), 0.0, 1.0)
+    prof = np.zeros((2, 1, Y))
+    prof[0, 0] = umax * 4 * s * (1 - s)
+    return prof
+
+
+def seeded_2d(cfg, shape, device, seed=0):
+    """A seeded near-equilibrium D2Q9 state (JAX tests/test_fused_2d.py:36-40)."""
+    rng = np.random.default_rng(seed)
+    rho = torch.from_numpy((1 + 0.01 * rng.standard_normal(shape)).astype(np.float32))
+    u = torch.from_numpy((0.02 * rng.standard_normal((2,) + shape)).astype(np.float32))
+    return cfg.eq(cfg.lat, rho, u).float().contiguous().to(device)
+
+
+def timing_disk_2d(dom, seed=0):
+    """sim2d_3's channel ``dom`` at resolution r with geometry 1's disk
+    (scripts/make_golden_geometries.py: centre (32, 16), radius 4) scaled by
+    r, as WALL, in a one-site Bouzidi ring (``bouzidi_ring``); sets
+    ``dom.bouzidi``."""
+    X, Y = dom.shape
+    r = X // 128
+    solid = disk(dom.shape, (32 * r, 16 * r), 4 * r)
+    dom.map[solid] = GEO.WALL
+    dom.bouzidi = bouzidi_ring(dom.map, solid, seed)
+    return dom
+
+
+def compress_statistics(sim, start: int = 2):
+    """sim2d_2's statistics state machine in a few dozen steps from step
+    ``start`` (JAX tests/test_sim2d_2.py:24-33 uses start = 2): the mean
+    accumulates for 8 steps and freezes at its deadline, fluctuations
+    accumulate after 2 more, every check counts as stable, and the TKE is
+    exported on the second; the run ends by step start + 58."""
+    dt = sim.domain.units.phys_dt
+    sim.steps_per_dispatch = 1
+    sim.stats_start_time = start * dt
+    sim.stats_end_time = (start + 8) * dt     # deadline freeze (skip stabilization)
+    sim.mean_min_time = 1e9                   # never stabilize via the check
+    sim.fluc_min_time = 2 * dt
+    sim.fluc_check_period = dt
+    sim.fluc_stable_required = 2
+    sim.fluc_rel_tol = 1e9                    # any check counts as stable
+    sim.phys_final_time = (start + 58) * dt

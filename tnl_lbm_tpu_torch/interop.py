@@ -12,6 +12,7 @@ import torch
 
 from tnl_lbm_tpu_torch.models import D2Q9, D3Q7, D3Q27
 from tnl_lbm_tpu_torch.ops.collision import COLLISIONS_D3Q27
+from tnl_lbm_tpu_torch.ops.collision_2d import COLLISIONS_D2Q9
 from tnl_lbm_tpu_torch.ops.collision_ade import COLLISIONS_D3Q7
 from tnl_lbm_tpu_torch.ops.equilibrium import EQUILIBRIA
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
@@ -53,6 +54,17 @@ def ade_config_from_spec(collision_id: str, streaming: str = "AB",
                      eq=EQUILIBRIA["EQ"], streaming=streaming, compute_dtype=_DTYPES[dtype])
 
 
+def config_2d_from_spec(collision_id: str, streaming: str = "AB") -> LBMConfig:
+    """D2Q9 LBMConfig from an id of ``COLLISIONS_D2Q9`` (the JAX package's
+    registry, ops/collision_2d.py:117: SRT, CLBM) with the quadratic
+    equilibrium on total DFs (well=False), as the JAX 2D apps build it."""
+    if collision_id not in COLLISIONS_D2Q9:
+        raise NotImplementedError(f"D2Q9 collision {collision_id!r} is not in "
+                                  f"{sorted(COLLISIONS_D2Q9)}")
+    return LBMConfig(lat=D2Q9, collision=COLLISIONS_D2Q9[collision_id], eq=EQUILIBRIA["EQ"],
+                     streaming=streaming)
+
+
 _LATTICES = {lat.name: lat for lat in (D2Q9, D3Q7, D3Q27)}
 
 
@@ -68,21 +80,23 @@ def port_lattice(lat):
 
 def domain_from_numpy(map_arr, periodic, global_size=None, phys_dl: float = 1.0,
                       phys_dt: float = 1.0, phys_origin=None,
-                      phys_viscosity: float = 0.0, lat=D3Q27) -> Domain:
+                      phys_viscosity: float = 0.0, lat=D3Q27, bouzidi=None) -> Domain:
     """Domain from a numpy code map on lattice ``lat`` (the port's or the JAX
-    package's descriptor: ``port_lattice``; GEO codes for D3Q27, ADEGEO
-    codes for D3Q7; the integers are shared between the packages)."""
+    package's descriptor: ``port_lattice``; GEO codes for D3Q27 and D2Q9,
+    ADEGEO codes for D3Q7; the integers are shared between the packages),
+    with the [8, X, Y] Bouzidi thetas of a D2Q9 map (a float32 copy)."""
     lat = port_lattice(lat)
     m = np.array(map_arr, dtype=np.uint8)
     size = tuple(m.shape) if global_size is None else tuple(global_size)
     origin = (0.0,) * len(size) if phys_origin is None else phys_origin
     units = Lattice(global_size=size, phys_origin=origin, phys_dl=phys_dl, phys_dt=phys_dt,
                     phys_viscosity=phys_viscosity)
-    return Domain(lat=lat, units=units, map=m, periodic=tuple(periodic))
+    bz = None if bouzidi is None else np.array(bouzidi, dtype=np.float32)
+    return Domain(lat=lat, units=units, map=m, periodic=tuple(periodic), bouzidi=bz)
 
 
 def state_from_numpy(f, device) -> torch.Tensor:
-    """[Q, X, Y, Z] state as a contiguous tensor on ``device`` (dtype kept; a copy)."""
+    """[Q, *S] state as a contiguous tensor on ``device`` (dtype kept; a copy)."""
     return torch.from_numpy(np.array(f, order="C", copy=True)).to(device)
 
 

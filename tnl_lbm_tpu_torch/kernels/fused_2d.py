@@ -1,0 +1,224 @@
+"""The D2Q9 A-B step (B5): the 2D boundary set with the Bouzidi curved walls
+and per-site inflow profiles, SRT or CLBM.
+
+Counterpart of ``tnl_lbm_tpu/kernels/fused_2d.py`` ``make_fused_step_2d``.
+:class:`FusedStep2D` launches ``csrc/d2q9_step.cu`` on CUDA tensors and runs
+its plain version on CPU tensors: ``kernels/fused.py`` ``_stream_bc_collide``
+(the per-site logic of the fused kernels, on whole arrays) with the D2Q9
+collisions of ``ops/collision_2d.py``.  It never runs the plain version in
+the kernel's place.  The JAX kernel holds the whole field in VMEM, which
+bounds it to 409 600 sites (``supports_2d``'s VMEM estimate); one thread
+per site has no such bound, so the estimate is not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from tnl_lbm_tpu_torch.kernels.build import load_library
+from tnl_lbm_tpu_torch.kernels.fused import CudaKernel, _stream_bc_collide
+from tnl_lbm_tpu_torch.ops import boundary as bc
+from tnl_lbm_tpu_torch.ops import collision_2d as col2
+from tnl_lbm_tpu_torch.ops import equilibrium as eqlib
+from tnl_lbm_tpu_torch.ops import streaming as stream
+from tnl_lbm_tpu_torch.ops.boundary import GEO
+from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
+
+#: GEO codes the D2Q9 kernel handles (JAX fused_2d.py:31-34)
+SUPPORTED_CODES_2D = frozenset({GEO.FLUID, GEO.WALL, GEO.NOTHING, GEO.INFLOW, GEO.OUTFLOW_EQ,
+                                GEO.OUTFLOW_RIGHT, GEO.FLUID_NEAR_WALL})
+#: ``tnl_lbm_d2q9_step`` variant per (collision, a force was passed)
+_VARIANTS = {(col2.collide_srt_2d, False): 0, (col2.collide_srt_2d, True): 1,
+             (col2.collide_clbm_2d, False): 2, (col2.collide_clbm_2d, True): 2}
+#: CUDA grid limit on the y block index, which carries X
+_MAX_GRID_Y = 65535
+
+
+def _refusal(cfg: LBMConfig, domain: Domain, codes=None) -> str | None:
+    """Why the D2Q9 kernel does not take (cfg, domain), or None: it takes
+    D2Q9 A-B steps with SRT or CLBM, ``eq_quadratic`` on total DFs, float32,
+    no forcing hook and the codes of ``SUPPORTED_CODES_2D``."""
+    if cfg.lat.name != "D2Q9":
+        return f"lattice {cfg.lat.name}, not D2Q9"
+    if cfg.streaming != "AB":
+        return f"streaming {cfg.streaming!r} (the kernel is A-B)"
+    if cfg.well or cfg.eq is not eqlib.eq_quadratic:
+        return "an equilibrium other than eq_quadratic on total DFs (well=False)"
+    if (cfg.collision, False) not in _VARIANTS:
+        return f"collision {getattr(cfg.collision, '__name__', cfg.collision)} (SRT and CLBM only)"
+    if cfg.compute_dtype != torch.float32 or cfg.storage_dtype is not None:
+        return "a state other than float32"
+    if cfg.forcing_hook is not None:
+        return "a forcing hook"
+    codes = domain.codes_present() if codes is None else codes
+    extra = codes - SUPPORTED_CODES_2D
+    if extra:
+        return "GEO codes " + ", ".join(sorted(c.name for c in extra))
+    return None
+
+
+def supports_2d(cfg: LBMConfig, domain: Domain) -> bool:
+    """True when the D2Q9 kernel takes (cfg, domain) (JAX fused_2d.py:41-56,
+    without its VMEM-fit bound).  Scans the host map."""
+    return _refusal(cfg, domain) is None
+
+
+def _vector2(value, what: str) -> tuple[float, float]:
+    """A [2] host vector as two float32-rounded floats; None is zero."""
+    if value is None:
+        return (0.0, 0.0)
+    if torch.is_tensor(value):
+        if value.device.type != "cpu":
+            raise ValueError(f"{what} must be given as host values, not a tensor on {value.device}")
+        value = value.detach().numpy()
+    arr = np.asarray(value)
+    if arr.shape != (2,):
+        if what == "force" and arr.ndim > 1:
+            raise NotImplementedError("a per-site force is B5's force_field variant, not ported "
+                                      "yet (ROADMAP A11)")
+        raise ValueError(f"{what} must be a [2] vector, got shape {arr.shape}")
+    return tuple(float(v) for v in arr.astype(np.float32))
+
+
+class FusedStep2D:
+    """``step(f, nu, u_in=None, force=None, parity=0, out=None) -> (f_new, rho, u)``.
+
+    One D2Q9 A-B step out of place: into a new tensor, or into ``out`` (a
+    second state buffer, not ``f``), so a caller can ping-pong two buffers.
+    ``force`` is a [2] host vector; SRT adds Guo's term only when a force is
+    passed, as the JAX kernel does.  ``u_in`` is None, a [2] host vector, or
+    a profile broadcastable to [2, X, Y] (sim2d_2's parabolic [2, 1, Y]); a
+    profile already on the kernel's device is read in place through its
+    strides, one on the host is copied there at each call.  ``parity`` is
+    accepted for the common step contract and ignored.  ``kernel`` counts
+    the launches, ``plain_calls`` the CPU-path calls.
+    """
+
+    def __init__(self, cfg: LBMConfig, domain: Domain, device):
+        codes = domain.codes_present()
+        reason = _refusal(cfg, domain, codes)
+        if reason is not None:
+            raise NotImplementedError(
+                f"the D2Q9 step kernel (B5) does not take {reason}; the JAX driver runs its "
+                f"XLA step there, the port raises (ROADMAP §C: no plain fallback on the card)")
+        self.cfg = cfg
+        self.lat = cfg.lat
+        self.device = torch.device(device)
+        self.codes = codes
+        self.do_coll_codes = sorted(int(c) for c in (bc.collision_mask_codes(2) & codes))
+        self.shape = domain.shape
+        self.periodic = domain.periodic
+        self.kernel = CudaKernel("d2q9_step", "tnl_lbm_tpu_torch/csrc/d2q9_step.cu",
+                                 "tnl_lbm_tpu/kernels/fused_2d.py:244")
+        self.plain_calls = 0
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"device {device} requested but no CUDA device is available")
+            if self.shape[0] > _MAX_GRID_Y:
+                raise ValueError(f"X must be <= {_MAX_GRID_Y} for the kernel grid")
+        self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
+        self.thetas = None
+        if GEO.FLUID_NEAR_WALL in codes and domain.bouzidi is not None:
+            self.thetas = torch.as_tensor(np.ascontiguousarray(domain.bouzidi, np.float32),
+                                          device=self.device)
+
+    def reset_counts(self) -> None:
+        self.kernel.launches = self.plain_calls = 0
+
+    def _profile(self, u_in, device):
+        """(the profile as a [2, X, Y] view on ``device``, or None for a
+        vector; the vector (ux, uy))."""
+        if u_in is None:
+            return None, (0.0, 0.0)
+        if not torch.is_tensor(u_in) or u_in.device.type == "cpu":
+            arr = np.asarray(u_in.detach() if torch.is_tensor(u_in) else u_in)
+            if arr.ndim == 1:
+                return None, _vector2(arr, "inflow velocity")
+            u_in = torch.as_tensor(arr, device=device)
+        elif u_in.device != device:
+            raise ValueError(f"the inflow profile is on {u_in.device}, f on {device}")
+        prof = u_in.to(torch.float32)
+        if prof.ndim == 1:
+            prof = prof.reshape(2, 1, 1)
+        return prof.expand((2,) + tuple(self.shape)), (0.0, 0.0)
+
+    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None):
+        del parity
+        fvec = _vector2(force, "force")
+        if out is not None and (out is f or out.shape != f.shape or out.dtype != f.dtype
+                                or out.device != f.device or not out.is_contiguous()):
+            raise ValueError("out must be a second contiguous state buffer like f")
+        prof, uvec = self._profile(u_in, f.device)
+        if f.device.type == "cuda":
+            return self._launch(f, float(nu), fvec, force is not None, prof, uvec, out)
+        self.plain_calls += 1
+        f_new, rho, u = self._plain(f, nu, fvec, force is not None, prof, uvec)
+        if out is not None:
+            f_new = out.copy_(f_new)
+        return f_new, rho, u
+
+    def plain(self, f, nu, u_in=None, force=None):
+        """The step's plain PyTorch version on f's device: (f_new, rho, u),
+        f untouched.  The CPU path, and the oracle the kernel is held
+        against on the card; it counts no call."""
+        prof, uvec = self._profile(u_in, f.device)
+        return self._plain(f, nu, _vector2(force, "force"), force is not None, prof, uvec)
+
+    def _plain(self, f, nu, fvec, has_force, prof, uvec):
+        S = tuple(f.shape[1:])
+        fpad = stream.pad_halo(f, self.periodic)
+
+        def shifted(q, offs):
+            return stream._shift_slices(fpad[q], offs, S)
+
+        force_col = (torch.tensor(fvec, dtype=f.dtype, device=f.device).reshape(2, 1, 1)
+                     if has_force else None)
+        thetas = None if self.thetas is None else self.thetas.to(f.device)
+        return _stream_bc_collide(self.lat, self.cfg, self.codes, self.do_coll_codes, shifted,
+                                  self.map.to(f.device), nu, fvec,
+                                  u_in=uvec if prof is None else prof, thetas=thetas,
+                                  collision_force=force_col)
+
+    def _launch(self, f, nu, fvec, has_force, prof, uvec, out):
+        if self.device.type != "cuda" or f.device != self.map.device:
+            raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
+        if f.dtype != torch.float32:
+            raise NotImplementedError("the CUDA kernels take float32 state only")
+        X, Y = self.shape
+        if tuple(f.shape) != (self.lat.Q, X, Y) or not f.is_contiguous():
+            raise ValueError(f"f must be a contiguous [{self.lat.Q}, {X}, {Y}] tensor, "
+                             f"got {tuple(f.shape)}")
+        lib = load_library()
+        f_new = torch.empty_like(f) if out is None else out
+        rho = torch.empty((X, Y), dtype=f.dtype, device=f.device)
+        u = torch.empty((2, X, Y), dtype=f.dtype, device=f.device)
+        bz = 0 if self.thetas is None else self.thetas.data_ptr()
+        uin, strides = (0, (0, 0, 0)) if prof is None else (prof.data_ptr(), prof.stride())
+        variant = _VARIANTS[(self.cfg.collision, has_force)]
+        stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
+        rc = lib.tnl_lbm_d2q9_step(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(), bz, uin,
+                                   *strides, rho.data_ptr(), u.data_ptr(), X, Y,
+                                   sum(1 << a for a, p in enumerate(self.periodic) if p), variant,
+                                   nu, *fvec, *uvec, stream_ptr)
+        if rc != 0:
+            raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
+        self.kernel.launches += 1
+        return f_new, rho, u
+
+
+def make_fused_step_2d(cfg: LBMConfig, domain: Domain, device, force_field: bool = False,
+                       local_shape=None) -> FusedStep2D:
+    """D2Q9 A-B step for (cfg, domain) on ``device``: see :class:`FusedStep2D`.
+    Raises NotImplementedError for a config that :func:`supports_2d`
+    refuses.  Not ported yet: ``force_field``, the per-site [2, X, Y]
+    force of the 2D forcing hooks (ROADMAP A11), and ``local_shape``, the
+    sharded path's block with its halo ring (ROADMAP A13)."""
+    if force_field:
+        raise NotImplementedError("B5's force_field variant is not ported yet (ROADMAP A11)")
+    if local_shape is not None:
+        raise NotImplementedError("B5's local_shape (the sharded 2D step) is not ported yet "
+                                  "(ROADMAP A13)")
+    return FusedStep2D(cfg, domain, device)

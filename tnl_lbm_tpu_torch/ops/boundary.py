@@ -141,14 +141,15 @@ def apply_moment_bcs(lat: LatticeDescriptor, codes, masks, f_in, rho, u, u_in, e
     plain versions.
 
     ``codes`` are the GEO codes present and ``masks`` their site masks;
-    ``u_in`` is 3 scalars or a [3, ...] tensor broadcastable to ``u``;
+    ``u_in`` is D scalars or a [D, ...] tensor broadcastable to ``u`` (a
+    per-site inflow profile);
     ``eq(rho, u)`` is the equilibrium in the storage's convention.  With
     ``well`` storage the moment inflow works on total DFs: the weights are
     added before it and subtracted after.  Returns (f_in, rho, u).
     """
     one = torch.ones((), dtype=f_in.dtype, device=f_in.device)
     if GEO.INFLOW_LEFT in codes or GEO.INFLOW in codes:
-        u_in_field = torch.stack([torch.zeros_like(rho) + u_in[a] for a in range(3)])
+        u_in_field = torch.stack([torch.zeros_like(rho) + u_in[a] for a in range(lat.D)])
     if GEO.INFLOW_LEFT in codes:
         w = torch.tensor(lat.w.tolist(), dtype=f_in.dtype, device=f_in.device)
         w = w.reshape((lat.Q,) + (1,) * (f_in.ndim - 1))

@@ -5,6 +5,7 @@
 - A-A odd read: f_in[q](x) = f[opp q](x - c_q)  (``pull_from`` with opp)
 - outflow pulls at the +x boundary: ``pull_shift_x`` (OUTFLOW_RIGHT) and
   ``pull_interp_right`` (OUTFLOW_RIGHT_INTERP)
+- the Bouzidi curved-wall pull at FLUID_NEAR_WALL sites: ``bouzidi``
 """
 
 from __future__ import annotations
@@ -94,3 +95,29 @@ def pull_interp_right(lat: LatticeDescriptor, fpad: torch.Tensor, shape) -> torc
         else:
             out.append(_shift_slices(fpad[q], off, shape))
     return torch.stack(out)
+
+
+def bouzidi(lat: LatticeDescriptor, shifted, f_in: torch.Tensor, thetas) -> torch.Tensor:
+    """Bouzidi two-branch curved-wall interpolation (D2Q9, reference
+    d2q9/bc.h:61-87,140-167), from the pre-streaming DFs.
+
+    ``shifted(q, offsets)`` reads pre-streaming component q at the site
+    offsets (wrapped or clamped as the pull is); ``f_in`` holds the pulled
+    DFs; ``thetas[q-1]`` is the normalized wall distance along the link
+    toward opp(q):
+
+    - theta <= 1/2: f_q = 2 theta f_opp(x) + (1 - 2 theta) f_opp(x + c_q);
+    - theta > 1/2: f_q = (1 - w) f_q(x) + w f_opp(x), w = 1/(2 max(theta, 1/4));
+    - theta < 0: the pulled value (the link does not hit the wall).
+    """
+    here = (0,) * lat.D
+    rows = [f_in[0]]
+    for q in range(1, lat.Q):
+        qo = int(lat.opp[q])
+        th = thetas[q - 1]
+        f_opp = shifted(qo, here)
+        small = 2 * th * f_opp + (1 - 2 * th) * shifted(qo, tuple(int(c) for c in lat.c[q]))
+        w = 0.5 / torch.clamp(th, min=0.25)
+        large = (1 - w) * shifted(q, here) + w * f_opp
+        rows.append(torch.where(th < 0, f_in[q], torch.where(th <= 0.5, small, large)))
+    return torch.stack(rows)

@@ -64,7 +64,9 @@ class Domain:
     units: Lattice
     map: np.ndarray  # [*S] uint8 of GEO codes (ADEGEO codes on a D3Q7 lattice)
     periodic: tuple[bool, ...] | None = None
-    bouzidi: np.ndarray | None = None  # Bouzidi thetas (D2Q9; not ported yet)
+    #: Bouzidi thetas [8, X, Y] per incoming direction q (index q-1) of a
+    #: D2Q9 lattice, read at FLUID_NEAR_WALL sites (``io/geometry.py``)
+    bouzidi: np.ndarray | None = None
 
     def __post_init__(self):
         if self.periodic is None:
@@ -74,6 +76,13 @@ class Domain:
             raise ValueError(f"map shape {self.map.shape} != lattice size {self.units.global_size}")
         if len(self.periodic) != self.lat.D:
             raise ValueError("periodic needs one flag per axis")
+        if self.bouzidi is not None:
+            if self.lat.name != "D2Q9":
+                raise NotImplementedError("Bouzidi curved walls are D2Q9 only (reference "
+                                          "d2q9/bc.h); got a " + self.lat.name + " domain")
+            want = (self.lat.Q - 1,) + self.shape
+            if np.shape(self.bouzidi) != want:
+                raise ValueError(f"bouzidi shape {np.shape(self.bouzidi)} != {want}")
 
     @property
     def shape(self) -> tuple[int, ...]:

@@ -15,9 +15,11 @@ Counterpart of the main-path subset of ``tnl_lbm_tpu/sim/state.py``
 - GLUPS reporting, the NaN guard on density, the walltime limit.
 
 Dispatch (``_advance``): with ``use_fused=True`` and A-B streaming every
-step goes through the A-B kernel (``make_fused_step``), which writes into
-a second preallocated state buffer: the loop ping-pongs the two, so the
-state takes two buffers and a step allocates none.  With A-A streaming,
+step goes through the A-B kernel (``make_fused_step``; on a D2Q9 lattice
+the D2Q9 kernel, ``make_fused_step_2d``, which raises for a config it does
+not take), which writes into a second preallocated state buffer: the loop
+ping-pongs the two, so the state takes two buffers and a step allocates
+none.  With A-A streaming,
 pairs of steps go through the one-kernel A-A pair (``make_fused_pair2_aa``)
 when pair dispatch is on, and single steps - a leftover odd step, or every
 step when pair dispatch is off or the pair refuses the map or collision -
@@ -41,6 +43,7 @@ import torch
 from tnl_lbm_tpu_torch.io.series import VtiTimeSeries
 from tnl_lbm_tpu_torch.io.vtk import write_vti
 from tnl_lbm_tpu_torch.kernels.fused import make_fused_step, supports
+from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
 from tnl_lbm_tpu_torch.ops import moments as mom
 from tnl_lbm_tpu_torch.ops.collision import collide_cum_well
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig, initial_dfs
@@ -192,7 +195,9 @@ class Simulation:
 
     # ------------------------------------------------------------------ hooks
     def update_inflow(self, phys_time: float):
-        """Inflow velocity ([D] or [D,*S]) for this step, or None."""
+        """Inflow velocity for this step, or None: a [D] vector, or a
+        profile broadcastable to [D, *S] (a tensor on the run's device
+        reaches the kernel without a copy)."""
         return None
 
     def body_force(self, phys_time: float):
@@ -249,6 +254,11 @@ class Simulation:
         cfg = dataclasses.replace(self.cfg, storage_dtype=None)
         if not self.use_fused:
             self._step = make_step(cfg, self.domain)
+            return
+        if self.cfg.lat.D == 2:
+            # a D2Q9 config the kernel refuses raises, where the JAX driver
+            # runs its XLA step (ROADMAP §C)
+            self._step = make_fused_step_2d(cfg, self.domain, self.device)
             return
         if self.cfg.streaming == "AB":
             self._step = make_fused_step(cfg, self.domain, self.device)

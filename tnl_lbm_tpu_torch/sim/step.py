@@ -31,6 +31,16 @@ SUPPORTED_CODES = {
     GEO.OUTFLOW_RIGHT_INTERP, GEO.PERIODIC, GEO.NOTHING,
     GEO.SYM_TOP, GEO.SYM_BOTTOM, GEO.SYM_LEFT, GEO.SYM_RIGHT, GEO.SYM_BACK, GEO.SYM_FRONT,
 }
+#: GEO codes of the D2Q9 BC set (reference d2q9/bc.h:6-214): the 3D set but
+#: the Eichler moment inflow and the y-facing symmetry planes, with the
+#: Bouzidi curved walls (FLUID_NEAR_WALL)
+SUPPORTED_CODES_D2Q9 = (SUPPORTED_CODES - {GEO.INFLOW_LEFT, GEO.SYM_BACK, GEO.SYM_FRONT}
+                        | {GEO.FLUID_NEAR_WALL})
+
+
+def supported_codes(lat) -> set:
+    """The GEO codes the plain step handles on lattice ``lat``."""
+    return SUPPORTED_CODES_D2Q9 if lat.name == "D2Q9" else SUPPORTED_CODES
 
 
 def check_supported(cfg: LBMConfig, domain: Domain, pair: bool = False, codes=None) -> None:
@@ -41,15 +51,14 @@ def check_supported(cfg: LBMConfig, domain: Domain, pair: bool = False, codes=No
     step that takes ``cfg.storage_dtype`` (half storage).
     """
     codes = domain.codes_present() if codes is None else codes
-    unsupported = codes - SUPPORTED_CODES
+    unsupported = codes - supported_codes(cfg.lat)
     if unsupported:
         names = ", ".join(sorted(c.name for c in unsupported))
         raise NotImplementedError(
-            f"GEO codes {names} are not ported yet (ROADMAP A8/A9: Bouzidi and transfer tags)")
+            f"GEO codes {names} are not handled on a {cfg.lat.name} lattice (Bouzidi curved "
+            f"walls are D2Q9 only; the transfer tags belong to the ADE lattice: ROADMAP A8)")
     if cfg.streaming == "AA" and GEO.OUTFLOW_RIGHT_INTERP in codes:
         raise NotImplementedError("OUTFLOW_RIGHT_INTERP requires the A-B pattern")
-    if domain.bouzidi is not None:
-        raise NotImplementedError("Bouzidi curved walls are not ported yet (ROADMAP A9)")
     if cfg.forcing_hook is not None:
         raise NotImplementedError("forcing hooks are not ported yet (ROADMAP A11)")
     if cfg.storage_dtype is not None and not pair:
@@ -59,7 +68,8 @@ def check_supported(cfg: LBMConfig, domain: Domain, pair: bool = False, codes=No
 
 
 def as_vector(lat, arr, dtype, device) -> torch.Tensor:
-    """A [D] (or already [D, *S]) input as a tensor broadcastable to [D, *S]."""
+    """A [D] vector, or a [D, ...] field broadcastable to [D, *S] (a per-site
+    inflow profile), as a tensor broadcastable to [D, *S]."""
     a = torch.as_tensor(np.asarray(arr) if not torch.is_tensor(arr) else arr,
                         dtype=dtype, device=device)
     if a.ndim == 1:
@@ -72,8 +82,10 @@ def make_step(cfg: LBMConfig, domain: Domain):
 
     Returns ``step(f, nu, u_in=None, force=None, parity=0) -> (f_new, rho, u)``
     with ``parity`` the A-A parity (ignored for A-B).  ``u_in`` (a [D]
-    vector) feeds the INFLOW and INFLOW_LEFT codes, ``force`` is the
-    homogeneous body force.
+    vector or a per-site profile broadcastable to [D, *S]) feeds the INFLOW
+    and INFLOW_LEFT codes, ``force`` is the homogeneous body force.  On a
+    D2Q9 lattice FLUID_NEAR_WALL sites take the Bouzidi pull with
+    ``domain.bouzidi``'s thetas (none given: they stream plainly).
     """
     check_supported(cfg, domain)
     lat = cfg.lat
@@ -84,16 +96,20 @@ def make_step(cfg: LBMConfig, domain: Domain):
     opp = np.asarray(lat.opp)
     do_coll_codes = sorted(int(c) for c in (bc.collision_mask_codes(D) & codes))
     sym_codes = [c for c in codes if c in bc.sym_table(D)]
+    bouzidi = GEO.FLUID_NEAR_WALL in codes and domain.bouzidi is not None
     maps = {}
 
     def _map(device):
+        """(map, thetas) on ``device``, made once."""
         m = maps.get(device)
         if m is None:
-            m = maps[device] = torch.as_tensor(domain.map.astype(np.int64), device=device)
+            bz = (torch.as_tensor(np.asarray(domain.bouzidi), dtype=dtype, device=device)
+                  if bouzidi else None)
+            m = maps[device] = (torch.as_tensor(domain.map.astype(np.int64), device=device), bz)
         return m
 
-    def _stream_in(f, parity, masks):
-        """Post-streaming DFs at every site, with the outflow pull rules."""
+    def _stream_in(f, parity, masks, thetas):
+        """Post-streaming DFs at every site, with the outflow and Bouzidi pull rules."""
         if cfg.streaming == "AA" and parity == 0:
             return f  # even step: same site, same direction
         fpad = stream.pad_halo(f, domain.periodic)
@@ -109,14 +125,20 @@ def make_step(cfg: LBMConfig, domain: Domain):
         if GEO.OUTFLOW_RIGHT_INTERP in codes:
             f_in = torch.where(masks[GEO.OUTFLOW_RIGHT_INTERP],
                                stream.pull_interp_right(lat, fpad, S), f_in)
+        if thetas is not None:
+            def shifted(q, offs):
+                return stream._shift_slices(fpad[q], offs, S)
+
+            f_in = torch.where(masks[GEO.FLUID_NEAR_WALL],
+                               stream.bouzidi(lat, shifted, f_in, thetas), f_in)
         return f_in
 
     def step(f, nu, u_in=None, force=None, parity: int = 0):
-        map_arr = _map(f.device)
+        map_arr, thetas = _map(f.device)
         masks = {c: map_arr == int(c) for c in codes}
         do_coll = torch.isin(map_arr, torch.as_tensor(do_coll_codes, device=f.device))
 
-        f_in = _stream_in(f, parity, masks)
+        f_in = _stream_in(f, parity, masks, thetas)
         u_in_b = as_vector(lat, u_in, dtype, f.device) if u_in is not None else None
         force_b = as_vector(lat, force, dtype, f.device) if force is not None else None
 
