@@ -11,8 +11,12 @@ and the three variants in sim_1 ``--streaming AA``; the coupled NSE+ADE
 path - the ADE step (B6), the one-kernel coupled step (B7) and, with A-A
 streaming, the A-A coupled pair (B8) - in sim_coupled; the D2Q9 step (B5)
 with the Bouzidi curved walls in sim2d_1, sim2d_2 and sim2d_3, held to the
-TPU-measured golden KE corpus.  Each phase prints result lines; any failing
-phase raises and the script exits non-zero without printing a result.
+TPU-measured golden KE corpus; the forcing-hook path - the non-Newtonian
+force through the one-kernel NN step (B10) or the pipeline of the u* pass
+(the macro_only variants of B4, B2/B3), the NN force kernel (B9) and the
+force_field variants (B4, B2/B3, B5) - in ``Simulation`` and
+``CoupledSimulation``.  Each phase prints result lines; any failing phase
+raises and the script exits non-zero without printing a result.
 
 1. device: the card, ``nvidia-smi`` name and power limit, torch/CUDA versions;
 2. build: compile the kernels from ``tnl_lbm_tpu_torch/csrc`` (one ``nvcc``
@@ -128,7 +132,38 @@ phase raises and the script exits non-zero without printing a result.
       beside them) and against its plain version (one step; plain: 3
       calls, its peak memory), GB/s at the 85 B/site this data needs
       (plus the ring's thetas and the profile) against P1;
-7. accuracy: sim_2 res 2 run to its stopping point per step and in pairs
+7. the forcing-hook slice (``phase_compare_hooked`` right after the build,
+   the rest after the 3D main paths; the 2D run after the 2D slice):
+   a. compare_hooked: B9 (Carreau-Yasuda and Casson, the hook wrapped as
+      the domain and not; |dF| <= 1e-6 of max |F|), B10 (A-B, A-A even and
+      odd, 4 chained steps; the hook wrapping z where the domain does not)
+      on a wall duct, a periodic box with a ragged Z and a closed box with
+      an obstacle; the force_field and macro_only variants of B4 and B2/B3
+      on those and on the boxes of every code; B5's force_field variant on
+      the 2D channels - each against its plain version with the step bounds;
+   b. main_hooked: the 256^3 bench duct with ``CarreauYasuda(0.1, 1, 2,
+      0.5)`` (scripts/bench_hooked.py), an evolved state (100 one-kernel
+      A-B steps from rest), then 100 steps each through ``Simulation``: A-B
+      and A-A on the one-kernel route (the hook wrapped as the domain) and
+      on the pipeline (the hook without ``periodic``), each with ms/step,
+      MLUPS, peak memory, launches (every step through its route, 0 plain
+      calls), the sampled phase times, the profiler's busy share over 10
+      more steps, one step from the final state against the plain hooked
+      step, the route's kernels timed (20
+      launches; plain: 3 calls) with GB/s and registers, and on the
+      one-kernel routes the pipeline with the same hook held to B10;
+   c. blunt: the Carreau-Yasuda channel of JAX
+      tests/test_non_newtonian.py:42-78 (4 x 4 x 21, CUM_WELL f32) through
+      B10 and its Newtonian twin through B4, 3000 + 1 steps: the shape
+      factor must drop by more than 0.01, and each lie within 1e-3 of the
+      JAX XLA step's value;
+   d. coupled_hooked: sim_coupled res 2 with the hook ("two-kernel": the
+      hooked A-B step, then B6), 100 steps against the plain coupled run,
+      and one step against the plain steps;
+   e. hooked_2d: sim2d_3's res-64 channel with the hook, 100 steps (the
+      plain u* pass and hook, then B5's force_field variant), one step
+      against the plain hooked step, B5's force_field variant timed;
+8. accuracy: sim_2 res 2 run to its stopping point per step and in pairs
    (f32), and with A-B streaming through the A-B kernel; each L1 error must
    lie within 5% of the L1 that the analytic start-up solution of the duct
    (``sim_2.duct_startup_ux``) has at the same iteration.  Then
@@ -367,14 +402,16 @@ def phase_build() -> dict:
               "aa_pair_bf16_kernel", "ab_step_cum_well_kernel", "ab_step_cum_quad_kernel",
               "ab_step_cum_invcum_kernel", "copy_permute_kernel", "pair_pipeline_kernel",
               "pair_compute_only_kernel") + AA_KERNEL_NAMES + ADE_KERNEL_NAMES
-             + COUPLED_KERNEL_NAMES + COUPLED_AA_KERNEL_NAMES + D2Q9_KERNEL_NAMES)
+             + COUPLED_KERNEL_NAMES + COUPLED_AA_KERNEL_NAMES + D2Q9_KERNEL_NAMES
+             + NN_KERNEL_NAMES)
     for name in names:
         if name not in res or name not in ops:
             raise RuntimeError(f"no ptxas report or SASS for {name}:\n{ptxas}")
         log("build", kernel=name, **res[name], fp32_ops_per_thread=ops[name])
     log("build", seconds=f"{time.perf_counter() - t0:.1f}",
-        pair_dynamic_smem_bytes=lib.tnl_lbm_aa_pair_smem_bytes())
-    return ops
+        pair_dynamic_smem_bytes=lib.tnl_lbm_aa_pair_smem_bytes(),
+        nn_step_dynamic_smem_bytes=lib.tnl_lbm_nn_step_smem_bytes())
+    return {"ops": ops, "res": res}
 
 
 def phase_compare_steps() -> dict:
@@ -1014,6 +1051,11 @@ def bench_sim(pair_dispatch, storage=None, steps: int | None = None, streaming="
 def kernel_launches(sim) -> dict:
     """Launch counts of the kernels a Simulation dispatched to."""
     step = sim._step
+    if hasattr(step, "route"):  # a hooked step: every kernel of its routes, by name
+        launches = {k.name: k.launches for w in step.kernels for k in cuda_kernels(w)}
+        if hasattr(sim, "coupled_kernel"):
+            launches["ade"] = sim._ade_step.kernel.launches
+        return launches
     if hasattr(sim, "coupled_kernel") and sim.cfg.streaming == "AA":
         pair = sim._coupled_step
         return {"even": step.even.launches, "odd": step.odd.launches,
@@ -1918,15 +1960,654 @@ def phase_time_2d(floor_gbps: float) -> dict:
     return {"kernel": kernel, "err": d[0], "time": (ms, plain_ms), "bytes": bytes_site}
 
 
-def kernel_footprints(ops: dict, b5_bytes: float) -> dict:
+# ------------------------------------------------------- the forcing-hook slice
+
+#: B9 per site: rho and u read, the map, F written (B/site)
+NN_BYTES = 29
+#: a force_field step: the step's bytes and the [3] f32 force read
+FF_BYTES = AB_BYTES + 12
+#: the u* pass (macro_only): 27 f32 read, the map, rho and u written
+MACRO_BYTES = 125
+#: B5's force_field variant: the [2] f32 force read beside the step's bytes
+B5_FF_EXTRA = 8
+HOOKED_STEPS = 100
+#: the least max |df| by which the hook must move one step from the seeded
+#: 256^3 state, 100 times the step bound
+HOOK_EFFECT_MIN = 100 * TOL_F
+#: the bench duct's rheology (scripts/bench_hooked.py:56-69)
+NN_BENCH_MODEL = "cy"
+#: the JSON keys of the slice's kernels, with the ptxas/SASS instance each one's
+#: figures come from (the CUM_WELL instances; B5's CLBM one, as sim2d_3 runs it)
+NN_INSTANCES = {
+    "nn_force": "nn_force_kernel",
+    "nn_step_ab": "nn_step_ab_cum_well_kernel",
+    "nn_step_even": "nn_step_even_cum_well_kernel",
+    "nn_step_odd": "nn_step_odd_cum_well_kernel",
+    "ab_step_force_field": "ab_step_force_field_cum_well_kernel",
+    "ab_step_macro_only": "ab_macro_well_kernel",
+    "aa_even_force_field": "aa_even_force_field_cum_well_kernel",
+    "aa_even_macro_only": "aa_even_macro_well_kernel",
+    "aa_odd_force_field": "aa_odd_force_field_cum_well_kernel",
+    "aa_odd_macro_only": "aa_odd_macro_well_kernel",
+    "d2q9_step_force_field": "d2q9_clbm_force_field_kernel",
+}
+NN_KERNEL_NAMES = tuple(NN_INSTANCES.values()) + tuple(
+    f"nn_step_{m}_{n}_kernel" for m in ("ab", "even", "odd") for n in ("cum_quad", "cum_invcum")
+) + tuple(f"{p}_force_field_{n}_kernel" for p in ("ab_step", "aa_even", "aa_odd")
+          for n in ("cum_quad", "cum_invcum")) + (
+    "ab_macro_total_kernel", "aa_even_macro_total_kernel", "aa_odd_macro_total_kernel",
+    "d2q9_srt_force_field_kernel")
+
+
+def check_step(label: str, d) -> None:
+    """(|df|, |drho|, |du|) within the step bounds, or raise."""
+    if not (d[0] <= TOL_F and d[1] <= TOL_RHO and d[2] <= TOL_U):
+        raise RuntimeError(f"{label} out of tolerance: {d}")
+
+
+def nn_force_diff(fk, fp, label: str) -> tuple:
+    """(max |dF|, max |dF| / max |F|, max |F|) of B9 against its plain
+    version, or raise beyond TOL_F relative to max |F| (or at F = 0)."""
+    scale = float(fp.abs().max())
+    d = max_diff(fk, fp)
+    if not (scale > 0 and d <= TOL_F * scale):
+        raise RuntimeError(f"{label}: |dF| {d}, max |F| {scale}")
+    return d, d / scale, scale
+
+
+def cuda_kernels(wrapper) -> list:
+    """The CudaKernel records of a kernel wrapper (``kernel``, or the
+    ``ab``/``even``/``odd`` of the per-parity wrappers)."""
+    from tnl_lbm_tpu_torch.kernels.fused import CudaKernel
+
+    return [k for k in (getattr(wrapper, a, None) for a in ("kernel", "ab", "even", "odd"))
+            if isinstance(k, CudaKernel)]
+
+
+def hooked_cfg(cfg, model: str, periodic):
+    """``cfg`` with the non-Newtonian hook of ``NN_MODELS[model]`` wrapped as
+    ``periodic`` (None: edge-replicated on every axis)."""
+    from tnl_lbm_tpu_torch.ops.non_newtonian import make_nn_forcing_hook
+    from torch_cases import NN_MODELS
+
+    return dataclasses.replace(cfg, forcing_hook=make_nn_forcing_hook(NN_MODELS[model],
+                                                                      periodic=periodic))
+
+
+def seeded_field(shape, seed: int, scale: float = 1e-5):
+    """A seeded per-site force [D, *S] on the card."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(DEVICE)
+
+
+def phase_compare_hooked() -> dict:
+    """The slice's kernels against their plain versions on the card, small
+    and seeded, on the wall duct (periodic x), the periodic box with a
+    ragged Z and the closed box with an obstacle (tests/torch_cases.py
+    nn_case), as the JAX suite varies them:
+
+    - B9 with Carreau-Yasuda and with Casson, the hook's periodicity equal
+      to the domain's and not: |dF| <= 1e-6 of max |F|;
+    - B10, A-B and A-A (even, odd), 4 chained steps on each side, each
+      step to the step bounds; on the duct also with the hook wrapping z
+      where the domain does not (the DF reads and the stencil keep two
+      flags);
+    - the force_field and macro_only variants of B4 and B2/B3 (CUM_WELL and
+      CUM with eq_inv_cum) on the duct, the periodic box and the box of
+      every code (A-B: ``bc_box``; A-A: ``aa_box``), one step from the same
+      input, a seeded per-site force plus a homogeneous one;
+    - B5's force_field variant (SRT and CLBM) on the 2D channel, the
+      channel with a Bouzidi ring and the periodic channel, one step and 4
+      chained steps.
+    Returns max |df| per JSON key (B9: |dF|; macro_only: the larger of
+    |drho| and |du|) under "err", and B9's largest |dF| / max |F| under
+    "nn_force_rel"."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
+    from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_step_aa
+    from tnl_lbm_tpu_torch.kernels.fused_nn import make_nn_force_kernel
+    from tnl_lbm_tpu_torch.kernels.fused_nn_step import make_fused_nn_step
+    from tnl_lbm_tpu_torch.models import D2Q9
+    from torch_cases import (
+        NN_KINDS,
+        NN_MODELS,
+        U_IN,
+        aa_box,
+        bc_box,
+        case_2d,
+        nn_case,
+        nn_state,
+        seeded_2d,
+    )
+
+    dev = torch.device(DEVICE)
+    err, rel = dict.fromkeys(NN_INSTANCES, 0.0), 0.0
+    force = (FORCE_SMALL, 0.0, 0.0)
+
+    def on_card(arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    for kind in NN_KINDS:
+        m, periodic, _, _ = nn_case(kind)
+        dom = interop.domain_from_numpy(m, periodic)
+        rho, u = on_card(nn_state(dom.shape, seed=3))
+        other = None if any(periodic) else (True, True, False)
+        for model in ("cy", "casson"):
+            for per in (periodic, other):
+                b9 = make_nn_force_kernel(NN_MODELS[model], dom, dev, periodic=per)
+                fk, fp = b9(rho, u, NU), b9.plain(rho, u, NU)
+                torch.cuda.synchronize()
+                d = nn_force_diff(fk, fp, f"nn_force vs plain on {kind}/{model}/{per}")
+                log("compare_hooked", kernel="nn_force", case=kind, model=model,
+                    hook_periodic=repr(per), max_dF=d[0], max_dF_relative=d[1], max_F=d[2])
+                err["nn_force"] = max(err["nn_force"], d[0])
+                rel = max(rel, d[1])
+
+    for kind in NN_KINDS:
+        m, periodic, model, hook_per = nn_case(kind)
+        dom = interop.domain_from_numpy(m, periodic)
+        rho, u = on_card(nn_state(dom.shape, seed=5))
+        for streaming in ("AB", "AA"):
+            for per in (hook_per,) + (((True, False, True),) if kind == "duct" else ()):
+                cfg = hooked_cfg(interop.config_from_spec("CUM_WELL", "EQ_WELL", True,
+                                                          streaming), model, per)
+                step = make_fused_nn_step(cfg, dom, NN_MODELS[model], per, dev)
+                fk = cfg.eq(cfg.lat, rho, u).float().contiguous()
+                fp = fk.clone()
+                for it in range(4):
+                    parity = it % 2 if streaming == "AA" else 0
+                    fk, rk, uk = step(fk, NU, force=force, parity=parity)
+                    fp, rp, up = step.plain(fp, NU, force=force, parity=parity)
+                    d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+                    key = ("nn_step_ab" if streaming == "AB"
+                           else ("nn_step_even", "nn_step_odd")[parity])
+                    log("compare_hooked", kernel=key, case=kind, hook_periodic=repr(per), step=it,
+                        max_df=d[0], max_drho=d[1], max_du=d[2])
+                    check_step(f"{key} vs plain on {kind}/{per} step {it}", d)
+                    err[key] = max(err[key], d[0])
+
+    for label, m, periodic in (("duct",) + nn_case("duct")[:2],
+                               ("periodic",) + nn_case("periodic")[:2],
+                               ("box", bc_box((24, 20, 150)), (False, False, True))):
+        for streaming in ("AB", "AA"):
+            mm = aa_box((24, 20, 150)) if label == "box" and streaming == "AA" else m
+            dom = interop.domain_from_numpy(mm, periodic)
+            u_in = U_IN if label == "box" else None
+            field = seeded_field((3,) + dom.shape, seed=9)
+            for spec in (("CUM_WELL", "EQ_WELL", True), ("CUM", "EQ_INV_CUM", False)):
+                cfg = interop.config_from_spec(*spec, streaming)
+                f = rand_f(cfg, dom.shape, dev, seed=13)
+                build = make_fused_step if streaming == "AB" else make_fused_step_aa
+                ff, macro = build(cfg, dom, dev, force_field=True), build(cfg, dom, dev,
+                                                                           macro_only=True)
+                for parity in ((0,) if streaming == "AB" else (0, 1)):
+                    prefix = "ab_step" if streaming == "AB" else ("aa_even", "aa_odd")[parity]
+                    fk, rk, uk = ff(f.clone(), NU, u_in=u_in, force=field, force_add=force,
+                                    parity=parity)
+                    fp, rp, up = ff.plain(f, NU, u_in=u_in, force=field, force_add=force,
+                                          parity=parity)
+                    d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+                    log("compare_hooked", kernel=f"{prefix}_force_field", case=label,
+                        variant=spec[0] + "/" + spec[1], max_df=d[0], max_drho=d[1], max_du=d[2])
+                    check_step(f"{prefix}_force_field vs plain on {label}", d)
+                    err[f"{prefix}_force_field"] = max(err[f"{prefix}_force_field"], d[0])
+                    rk, uk = macro(f, NU, force=force, parity=parity)
+                    rp, up = macro.plain(f, NU, force=force, parity=parity)
+                    d = (0.0, max_diff(rk, rp), max_diff(uk, up))
+                    log("compare_hooked", kernel=f"{prefix}_macro_only", case=label,
+                        variant=spec[0] + "/" + spec[1], max_drho=d[1], max_du=d[2])
+                    check_step(f"{prefix}_macro_only vs plain on {label}", d)
+                    err[f"{prefix}_macro_only"] = max(err[f"{prefix}_macro_only"], d[1], d[2])
+
+    for kind in ("channel", "bouzidi", "periodic"):
+        m, periodic, bz = case_2d(kind, shape=(37, 150))
+        dom = interop.domain_from_numpy(m, periodic, lat=D2Q9, bouzidi=bz)
+        field = seeded_field((2,) + dom.shape, seed=17)
+        for coll in ("SRT", "CLBM"):
+            cfg = interop.config_2d_from_spec(coll)
+            step = make_fused_step_2d(cfg, dom, dev, force_field=True)
+            fk = seeded_2d(cfg, dom.shape, dev, seed=4)
+            fp = fk.clone()
+            for it in range(4):
+                fk, rk, uk = step(fk, NU, u_in=(0.03, 0.0), force=field, force_add=(1e-5, 0.0))
+                fp, rp, up = step.plain(fp, NU, u_in=(0.03, 0.0), force=field,
+                                        force_add=(1e-5, 0.0))
+                d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+                check_step(f"d2q9_step_force_field vs plain on {kind}/{coll} step {it}", d)
+                err["d2q9_step_force_field"] = max(err["d2q9_step_force_field"], d[0])
+            log("compare_hooked", kernel="d2q9_step_force_field", case=kind, collision=coll,
+                steps=4, max_df=d[0], max_drho=d[1], max_du=d[2])
+    return {"err": err, "nn_force_rel": rel}
+
+
+def nn_bench_sim(streaming: str, single: bool, start=None, label: str = ""):
+    """``Simulation`` on the 256^3 bench duct with the Carreau-Yasuda hook of
+    scripts/bench_hooked.py, HOOKED_STEPS steps with ``use_fused``, counted
+    from the end of sim_init.  ``single``: the hook wrapped as the domain
+    (the one-kernel route, B10); else built without ``periodic``
+    (scripts/profile_hooked.py:32), which runs the pipeline.  ``start``: the
+    state the run starts from (an evolved one)."""
+    import torch
+
+    from tnl_lbm_tpu_torch.sim.state import Simulation
+
+    class HookedDuct(Simulation):
+        def body_force(self, phys_time):
+            return np.array([FORCE_BENCH, 0.0, 0.0])
+
+        def sim_init(self):
+            super().sim_init()
+            if start is not None:
+                self.f.copy_(start)
+                self._initial_macro()
+
+    cfg, dom = flagship(BENCH_SHAPE, streaming=streaming)
+    cfg = hooked_cfg(cfg, NN_BENCH_MODEL, dom.periodic if single else None)
+    sim = counting_from_init(HookedDuct(
+        cfg, dom, device=DEVICE, sim_id=f"hooked_duct_{label or streaming}",
+        results_parent=WORK / "main_hooked", phys_final_time=HOOKED_STEPS * dom.units.phys_dt,
+        steps_per_dispatch=10, use_fused=True))
+    sim.sample_phases_at_finish = False
+    if not sim.run():
+        raise RuntimeError(f"hooked main path {label} failed (NaN or refused)")
+    torch.cuda.synchronize()
+    return sim
+
+
+def hooked_vs_plain(step, f, force, parity: int, label: str, state: str) -> tuple:
+    """One hooked step from ``f`` against the plain hooked step on the card
+    (the step bounds), and the hook's effect on that step: max |df| between
+    the plain hooked step and the plain step without the hook.  On the
+    seeded state the effect must reach HOOK_EFFECT_MIN, so that a route
+    whose NN force were wrong or missing fails the step bounds; on the
+    final state of a run it is logged only (the CY force is near 1e-6
+    there).  The input is cloned for the in-place A-A even pipeline.
+    Returns (|df|, |drho|, |du|)."""
+    import torch
+
+    from tnl_lbm_tpu_torch.sim.step import make_step
+
+    fk, rk, uk = step(f.clone(), NU, force=force, parity=parity)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fp, rp, up = step.plain(f, NU, force=force, parity=parity)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+    del fk, rk, uk, rp, up
+    newtonian = make_step(dataclasses.replace(step.cfg, forcing_hook=None), step.domain)
+    effect = max_diff(fp, newtonian(f, NU, force=force, parity=parity)[0])
+    log("main_hooked", path=label, compare=f"kernel vs plain hooked step, from the {state} state",
+        parity=parity, max_df=d[0], max_drho=d[1], max_du=d[2], hook_effect_max_df=effect,
+        plain_temporaries_gb=f"{peak / 1e9:.3f}")
+    check_step(f"{label}: kernel vs plain from the {state} state", d)
+    if state == "seeded" and not effect >= HOOK_EFFECT_MIN:
+        raise RuntimeError(f"{label}: the hook moves the seeded step by {effect} only")
+    return d
+
+
+def pipeline_parts_vs_plain(step, f, force, parity: int, label: str, state: str):
+    """The pipeline's u* pass (macro_only) and B9 at 256^3 on the state
+    ``f`` against their plain versions, B9 on the plain u*: ({JSON key:
+    max |d|}, B9's |dF| / max |F|)."""
+    fb = np.array(force, np.float32)
+    prefix = "ab_step" if step.cfg.streaming == "AB" else ("aa_even", "aa_odd")[parity]
+    rk, uk = step.macro(f, NU, force=fb, parity=parity)
+    rp, up = step.macro.plain(f, NU, force=fb, parity=parity)
+    d = (0.0, max_diff(rk, rp), max_diff(uk, up))
+    check_step(f"{label}: {prefix}_macro_only vs plain from the {state} state", d)
+    del rk, uk
+    dF = nn_force_diff(step.nn_force(rp, up, NU), step.nn_force.plain(rp, up, NU),
+                       f"{label}: nn_force vs plain from the {state} state")
+    log("main_hooked", path=label, compare=f"u* pass and B9 vs plain, from the {state} state",
+        parity=parity, max_drho=d[1], max_du=d[2], max_dF=dF[0], max_dF_relative=dF[1],
+        max_F=dF[2])
+    return {f"{prefix}_macro_only": max(d[1], d[2]), "nn_force": dF[0]}, dF[1]
+
+
+def time_hooked_kernels(step, f, force, parity: int, floor_gbps: float, res: dict) -> dict:
+    """Each kernel of a hooked step's route at 256^3 on the state ``f``
+    (CUDA events over 20 launches; plain versions over 3 calls), GB/s at
+    its bytes against the P1 floor of this call, its registers.  Returns
+    {JSON key: (ms, plain ms)}."""
+    import torch
+
+    times, fb = {}, np.array(force, np.float32)
+    if step.route == "single_kernel":
+        k = step.nn_single
+        key = ("nn_step_ab" if step.cfg.streaming == "AB"
+               else ("nn_step_even", "nn_step_odd")[parity])
+        out = torch.empty_like(f)
+        times[key] = (time_ms(lambda: k(f, NU, force=force, parity=parity, out=out), reps=20),
+                      time_ms(lambda: k.plain(f, NU, force=force, parity=parity), reps=3))
+        del out
+        bytes_site = {key: AB_BYTES}
+    else:
+        prefix = "ab_step" if step.cfg.streaming == "AB" else ("aa_even", "aa_odd")[parity]
+        rho0, u0 = step.macro(f, NU, force=fb, parity=parity)
+        extra = step.nn_force(rho0, u0, NU)
+        work = f.clone()
+        times[f"{prefix}_macro_only"] = (
+            time_ms(lambda: step.macro(f, NU, force=fb, parity=parity), reps=20),
+            time_ms(lambda: step.macro.plain(f, NU, force=fb, parity=parity), reps=3))
+        times["nn_force"] = (time_ms(lambda: step.nn_force(rho0, u0, NU), reps=20),
+                             time_ms(lambda: step.nn_force.plain(rho0, u0, NU), reps=3))
+        ff = step.base
+        kw = dict(force=extra, force_add=fb, parity=parity)
+        times[f"{prefix}_force_field"] = (
+            time_ms(lambda: ff(work, NU, **kw), reps=20),
+            time_ms(lambda: ff.plain(f, NU, **kw), reps=3))
+        # what force_add saves: the body force summed into the hook's field
+        # in one PyTorch call, as the pipeline would run it without
+        fb_site = torch.as_tensor(fb, device=f.device).view(3, 1, 1, 1)
+        summed = torch.empty_like(extra)
+        add_ms = time_ms(lambda: torch.add(extra, fb_site, out=summed), reps=20)
+        log("time_hooked", op="hook field + body force, one torch.add (force_add's saving)",
+            shape="256^3", parity=parity, ms=f"{add_ms:.4f}")
+        del work, extra, rho0, u0, summed
+        bytes_site = {f"{prefix}_macro_only": MACRO_BYTES, "nn_force": NN_BYTES,
+                      f"{prefix}_force_field": FF_BYTES}
+    torch.cuda.empty_cache()
+    for key, (ms, plain_ms) in times.items():
+        rate = gbps(bytes_site[key], ms)
+        log("time_hooked", kernel=key, shape="256^3", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}",
+            bytes_per_site=bytes_site[key], gbps=f"{rate:.1f}",
+            share_of_p1_floor=f"{rate / floor_gbps:.3f}",
+            registers=res.get(NN_INSTANCES[key], {}).get("registers"))
+    return times
+
+
+def phase_main_hooked(floor_gbps: float, res: dict) -> dict:
+    """The hooked main path at 256^3 (the bench duct with
+    ``CarreauYasuda(0.1, 1.0, 2.0, 0.5)``, scripts/bench_hooked.py): an
+    evolved state from HOOKED_STEPS steps of the one-kernel A-B route from
+    rest, then from it, HOOKED_STEPS steps each through ``Simulation`` with
+    ``use_fused``: (i) A-B, one kernel (B10 ab); (ii) A-A, one kernel (B10
+    even/odd); (iii) A-B pipeline (the hook without ``periodic``: B4's u*
+    pass, B9, B4's force_field); (iv) A-A pipeline (B2/B3's).  Each: ms/step,
+    MLUPS, peak memory, launches (every step through its route's kernels,
+    0 plain calls), the sampled phase times, torch.profiler over 10 more
+    steps (``profile_loop``); then one step from the final state against
+    the plain hooked step, the route's kernels timed, and for
+    the one-kernel routes the pipeline (``single_kernel=False``, the same
+    hook) held to B10 from the same state.  Each check is made again from a
+    seeded 256^3 state (u at 0.02 per site), where the CY force is large
+    (HOOK_EFFECT_MIN), so that the 256^3 gates can tell a wrong NN force;
+    on the pipelines the u* pass and B9 are also held to their plain
+    versions from both states."""
+    import torch
+
+    from tnl_lbm_tpu_torch.kernels.hooked import make_hooked_fused_step
+
+    warm = nn_bench_sim("AB", True, label="evolve")
+    evolved = warm.f.clone()
+    log("main_hooked", path="evolve", steps=warm.iterations,
+        launches=kernel_launches(warm)["nn_step_ab"])
+    del warm
+    torch.cuda.empty_cache()
+    half = HOOKED_STEPS // 2
+    want = {
+        "ab_single": {"nn_step_ab": HOOKED_STEPS},
+        "aa_single": {"nn_step_even": half, "nn_step_odd": HOOKED_STEPS - half},
+        "ab_pipeline": {"ab_step_macro_only": HOOKED_STEPS, "nn_force": HOOKED_STEPS,
+                        "ab_step_force_field": HOOKED_STEPS},
+        "aa_pipeline": {"aa_even_macro_only": half, "aa_odd_macro_only": HOOKED_STEPS - half,
+                        "nn_force": HOOKED_STEPS, "aa_even_force_field": half,
+                        "aa_odd_force_field": HOOKED_STEPS - half},
+    }
+    seeded = rand_f(flagship(BENCH_SHAPE)[0], BENCH_SHAPE, DEVICE, seed=21)
+    kernels, err, times, mlups, rel = {}, {}, {}, {}, 0.0
+    for label, want_l in want.items():
+        streaming, single = label[:2].upper(), label.endswith("single")
+        sim = nn_bench_sim(streaming, single, start=evolved, label=label)
+        launches = report_main(sim, f"hooked_{label}")
+        ran = {k: v for k, v in launches.items() if v}
+        if ran != want_l or sim._step.route != ("single_kernel" if single else "pipeline"):
+            raise RuntimeError(f"hooked {label}: route {sim._step.route}, launches {launches}")
+        mlups[label] = run_figures(sim)[1]
+        for w in sim._step.kernels:
+            for k in cuda_kernels(w):
+                if k.name in want_l:
+                    prev = kernels.get(k.name)
+                    kernels[k.name] = dataclasses.replace(
+                        k, launches=k.launches + (prev.launches if prev else 0))
+        phases = sim.sample_phase_timers()
+        log("main_hooked", path=label, **{f"phase_{k}_ms": f"{v:.4f}" for k, v in phases.items()})
+        profile_loop(sim, f"hooked_{label}")
+        force = sim.body_force(0.0)
+        f = sim.f
+        sim._spare = None
+        torch.cuda.empty_cache()
+        parities = (0,) if streaming == "AB" else (0, 1)
+        for parity in parities:
+            other = ("odd", "even")[parity] if streaming == "AA" else None
+            # the kernels whose output is f; macro_only and B9 are held apart
+            f_keys = [k for k in want_l if "macro_only" not in k and k != "nn_force"
+                      and (other is None or other not in k)]
+            for state, f0 in (("final", f), ("seeded", seeded)):
+                e = hooked_vs_plain(sim._step, f0, force, parity, f"hooked_{label}", state)[0]
+                for key in f_keys:
+                    err[key] = max(err.get(key, 0.0), e)
+                if not single:
+                    parts, r = pipeline_parts_vs_plain(sim._step, f0, force, parity,
+                                                       f"hooked_{label}", state)
+                    for key, v in parts.items():
+                        err[key] = max(err.get(key, 0.0), v)
+                    rel = max(rel, r)
+            times.update(time_hooked_kernels(sim._step, f, force, parity, floor_gbps, res))
+        if single:
+            pipe = make_hooked_fused_step(sim.cfg, sim.domain, DEVICE, single_kernel=False)
+            for parity in parities:
+                for state, f0 in (("final", f), ("seeded", seeded)):
+                    fk, rk, uk = sim._step(f0.clone(), NU, force=force, parity=parity)
+                    fp, rp, up = pipe(f0.clone(), NU, force=force, parity=parity)
+                    d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+                    log("main_hooked", path=label, compare="one kernel vs pipeline, same hook",
+                        state=state, parity=parity, max_df=d[0], max_drho=d[1], max_du=d[2])
+                    check_step(f"hooked {label}: one kernel vs pipeline from the {state} state",
+                               d)
+                    del fk, rk, uk, fp, rp, up
+            del pipe
+        del sim, f
+        torch.cuda.empty_cache()
+    log("main_hooked", **{f"mlups_{k}": f"{v:.1f}" for k, v in mlups.items()},
+        single_over_pipeline_ab=f"{mlups['ab_single'] / mlups['ab_pipeline']:.3f}",
+        single_over_pipeline_aa=f"{mlups['aa_single'] / mlups['aa_pipeline']:.3f}")
+    return {"kernels": kernels, "err": err, "times": times, "nn_force_rel": rel}
+
+
+def phase_blunt() -> None:
+    """The physics gate: shear thinning blunts the channel profile.  The
+    channel of JAX tests/test_non_newtonian.py:42-78 (4 x 4 x 21, walls on
+    the z faces, periodic x and y, nu 0.05, force 5e-6), CUM_WELL in
+    float32, BLUNT_STEPS steps from rest and one more through
+    ``Simulation``: the Newtonian run through B4, the Carreau-Yasuda one
+    (nu0 0.5, lambda 500, a 2, n 0.3, the hook wrapped as the domain)
+    through B10 - a domain smaller than B10's tile, with a ragged Z.  The
+    shape factor of the CY run must lie more than 0.01 below the Newtonian
+    one, and each within 1e-3 of the JAX XLA step's value."""
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.ops.non_newtonian import make_nn_forcing_hook
+    from tnl_lbm_tpu_torch.sim.state import Simulation
+    from torch_cases import (
+        BLUNT_FORCE,
+        BLUNT_JAX,
+        BLUNT_MODEL,
+        BLUNT_NU,
+        BLUNT_STEPS,
+        blunt_channel,
+        shape_factor,
+    )
+
+    class Channel(Simulation):
+        def body_force(self, phys_time):
+            return np.array(BLUNT_FORCE)
+
+    m, periodic = blunt_channel()
+    dom = interop.domain_from_numpy(m, periodic, phys_viscosity=BLUNT_NU)
+    if abs(dom.units.lbm_viscosity() - BLUNT_NU) > 1e-12:
+        raise RuntimeError(f"the channel's lattice viscosity is {dom.units.lbm_viscosity()}")
+    base = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AB")
+    factors = {}
+    for label, hook in (("newtonian", None),
+                        ("carreau_yasuda", make_nn_forcing_hook(BLUNT_MODEL, periodic=periodic))):
+        sim = counting_from_init(Channel(
+            dataclasses.replace(base, forcing_hook=hook), dom, device=DEVICE,
+            sim_id=f"blunt_{label}", results_parent=WORK / "blunt",
+            phys_final_time=(BLUNT_STEPS + 1) * dom.units.phys_dt, use_fused=True))
+        sim.sample_phases_at_finish = False
+        if not sim.run():
+            raise RuntimeError(f"blunt channel {label} failed")
+        launches = report_main(sim, f"blunt_{label}")
+        key = "ab" if hook is None else "nn_step_ab"
+        if {k: v for k, v in launches.items() if v} != {key: BLUNT_STEPS + 1}:
+            raise RuntimeError(f"blunt channel {label}: launches {launches}")
+        factors[label] = shape_factor(sim.u[0, 0, 0].cpu().numpy())
+        log("blunt", run=label, shape_factor=f"{factors[label]:.6f}",
+            jax_xla=f"{BLUNT_JAX[label]:.5f}", kernel="B10" if hook else "B4")
+    drop = factors["newtonian"] - factors["carreau_yasuda"]
+    log("blunt", drop=f"{drop:.6f}", gate="> 0.01", jax_drop="0.01302")
+    if not drop > 0.01 or any(abs(factors[k] - BLUNT_JAX[k]) > 1e-3 for k in factors):
+        raise RuntimeError(f"blunted profile: {factors} (JAX {BLUNT_JAX})")
+
+
+def phase_coupled_hooked() -> dict:
+    """sim_coupled at resolution 2 with the Carreau-Yasuda hook (wrapped as
+    its domain): ``coupled_kernel`` "two-kernel", APP_STEPS steps through
+    the hooked A-B step then B6 and through the plain steps on the card,
+    from the same start (rho, u within TOL_APP, phi relative to its local
+    magnitude); then one step from the kernel run's final state, the hooked
+    step and B6 against the plain hooked step and the plain ADE step (f,
+    rho, u to the step bounds, g and phi to the ADE step's relative to the
+    local magnitude).  Returns the launches per JSON key."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim_coupled
+    from tnl_lbm_tpu_torch.sim.step_ade import make_ade_step, transfer_direction_flags
+    from torch_cases import local_scale
+
+    runs = {}
+    for fused in (True, False):
+        sim = sim_coupled.build(2, device=DEVICE, use_fused=fused,
+                                results_parent=WORK / "coupled_hooked" / str(fused))
+        sim.cfg = hooked_cfg(sim.cfg, NN_BENCH_MODEL, sim.domain.periodic)
+        sim.phys_final_time = APP_STEPS * sim.domain.units.phys_dt
+        sim.sample_phases_at_finish = False
+        if not counting_from_init(sim).run():
+            raise RuntimeError(f"sim_coupled res 2 with a hook (use_fused={fused}) failed")
+        runs[fused] = sim
+    k, p = runs[True], runs[False]
+    launches = kernel_launches(k)
+    if (k.coupled_kernel != "two-kernel" or launches.get("ade") != APP_STEPS
+            or sum(v for n, v in launches.items() if n != "ade") < APP_STEPS
+            or k._step.plain_calls != 0):
+        raise RuntimeError(f"sim_coupled with a hook: {k.coupled_kernel}, {launches}")
+    scale = local_scale(p.phi)
+    d = (max_diff(k.rho, p.rho), max_diff(k.u, p.u), scaled_diff(k.phi, p.phi, scale))
+    log("coupled_hooked", path="sim_coupled_res2", route=k._step.route, steps=APP_STEPS,
+        max_drho=d[0], max_du=d[1], max_dphi_scaled=d[2],
+        **{f"launches_{n}": v for n, v in launches.items()})
+    if not (d[0] <= TOL_APP and d[1] <= TOL_APP and d[2] <= TOL_APP):
+        raise RuntimeError(f"sim_coupled with a hook: kernel vs plain run {d}")
+    t = k.phys_time()
+    u_in, force = k.update_inflow(t), k.body_force(t)
+    nu = k.domain.units.lbm_viscosity()
+    fk, rk, uk = k._step(k.f.clone(), nu, u_in=u_in, force=force)
+    gk, phik = k._ade_step(k.g, uk, k._nu_ade, phi_in=float(k.phi_inflow))
+    fp, rp, up = k._step.plain(k.f, nu, u_in=u_in, force=force)
+    gp, phip = make_ade_step(k.ade_cfg, k.ade_domain)(
+        k.g, up, k._nu_ade, phi_in=float(k.phi_inflow),
+        transfer_dirs=torch.as_tensor(transfer_direction_flags(k.ade_cfg.lat, k.ade_domain.map),
+                                      device=DEVICE),
+        transfer_coeff=k.transfer_coeff)
+    scale = local_scale(k.g)
+    d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up), scaled_diff(gk, gp, scale),
+         scaled_diff(phik, phip, scale))
+    log("coupled_hooked", compare="hooked A-B step then B6 vs plain, one step", max_df=d[0],
+        max_drho=d[1], max_du=d[2], max_dg_scaled=d[3], max_dphi_scaled=d[4])
+    if not (d[0] <= TOL_F and d[1] <= TOL_RHO and d[2] <= TOL_U and d[3] <= TOL_G
+            and d[4] <= TOL_PHI):
+        raise RuntimeError(f"sim_coupled with a hook: one step kernel vs plain {d}")
+    return launches
+
+
+def phase_hooked_2d(floor_gbps: float) -> dict:
+    """The 2D hooked path: sim2d_3's res-64 timing channel (as phase
+    time_2d) with the Carreau-Yasuda hook wrapped as its domain,
+    HOOKED_STEPS steps through ``Simulation``: the plain u* pass and the
+    hook as tensor ops (as the JAX package runs them in XLA), then B5's
+    force_field variant, every step; one step from the final state against
+    the plain hooked step; B5's force_field variant timed there (20
+    launches; plain over 3 calls), GB/s at the bytes this data needs."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim2d_3
+    from tnl_lbm_tpu_torch.ops.boundary import GEO
+    from torch_cases import timing_disk_2d
+
+    where = WORK / "hooked_2d"
+    sim = sim2d_3.build(TIME_2D_RES, None, results_parent=where, values_dir=where / "values",
+                        device=DEVICE)
+    timing_disk_2d(sim.domain)
+    sim.cfg = hooked_cfg(sim.cfg, NN_BENCH_MODEL, sim.domain.periodic)
+    sim.phys_final_time = HOOKED_STEPS * sim.domain.units.phys_dt
+    sim.sample_phases_at_finish = False
+    if not counting_from_init(sim).run():
+        raise RuntimeError("sim2d_3 res 64 with a hook failed")
+    launches = report_main(sim, f"hooked_sim2d_3_res{TIME_2D_RES}")
+    if launches != {"d2q9_step_force_field": HOOKED_STEPS}:
+        raise RuntimeError(f"the 2D hooked path: launches {launches}")
+    kernel = dataclasses.replace(sim._step.base.kernel)
+    phases = sim.sample_phase_timers()
+    log("hooked_2d", **{f"phase_{k}_ms": f"{v:.4f}" for k, v in phases.items()})
+    dom, step = sim.domain, sim._step
+    t = sim.phys_time()
+    f, nu, u_in = sim.f.clone(), dom.units.lbm_viscosity(), sim.update_inflow(t)
+    force = sim.body_force(t)
+    sim._spare = sim.rho = sim.u = sim.f = None
+    torch.cuda.empty_cache()
+    fk, rk, uk = step(f, nu, u_in=u_in, force=force)
+    fp, rp, up = step.plain(f, nu, u_in=u_in, force=force)
+    d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+    log("hooked_2d", compare="kernel vs plain hooked step, from the final state", max_df=d[0],
+        max_drho=d[1], max_du=d[2])
+    check_step("hooked sim2d_3: kernel vs plain", d)
+    del fk, rk, uk, fp, rp, up
+    rho0, u0, fluid = step._ustar(f, force, 0)
+    extra = step._hook(rho0, u0, nu, fluid, None)
+    del rho0, u0, fluid
+    torch.cuda.empty_cache()
+    X, Y = dom.shape
+    near = int((dom.map == GEO.FLUID_NEAR_WALL).sum())
+    bytes_site = B5_BYTES + B5_FF_EXTRA + (32 * near + 8 * Y) / (X * Y)
+    out = torch.empty_like(f)
+    kw = dict(u_in=u_in, force=extra, force_add=force)
+    ms = time_ms(lambda: step.base(f, nu, out=out, **kw), reps=20)
+    plain_ms = time_ms(lambda: step.base.plain(f, nu, **kw), reps=3)
+    rate = gbps(bytes_site, ms)
+    log("hooked_2d", kernel="d2q9_step_force_field", shape=f"{X}x{Y}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.2f}", bytes_per_site=f"{bytes_site:.4f}", gbps=f"{rate:.1f}",
+        share_of_p1_floor=f"{rate / floor_gbps:.3f}")
+    del sim, f, out, extra
+    torch.cuda.empty_cache()
+    return {"kernel": kernel, "err": d[0], "time": (ms, plain_ms), "bytes": bytes_site}
+
+
+def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
     """(bytes per site, FP32 operations per site) of each kernel at its
-    timed 256^3 inputs (B5: 8192 x 2048, as many sites, ``b5_bytes`` per
-    site from the timed run's data): the bytes it must move (each input
-    read once, each output written once) and the SASS count of
-    ``phase_build`` (B5: its CLBM instance, the one timed; the pair:
-    two of the lean CUM_WELL site updates it shares with the odd kernel's
-    FLUID/WALL/NOTHING instance, per site; P2: the affine passes, 2
-    operations per DF)."""
+    timed 256^3 inputs (B5: 8192 x 2048, as many sites, ``b5_bytes`` and
+    ``b5_ff_bytes`` per site from the timed runs' data): the bytes it must
+    move (each input read once, each output written once) and the SASS
+    count of ``phase_build`` (B5: its CLBM instances, the ones timed; the
+    pair: two of the lean CUM_WELL site updates it shares with the odd
+    kernel's FLUID/WALL/NOTHING instance, per site; P2: the affine passes,
+    2 operations per DF; the slice's kernels: their CUM_WELL instances)."""
     from tnl_lbm_tpu_torch.kernels.fused_aa import PAIR_TILE
 
     even, odd = ops["aa_even_cum_well_kernel"], ops["aa_odd_kernel"]
@@ -1948,6 +2629,14 @@ def kernel_footprints(ops: dict, b5_bytes: float) -> dict:
         "coupled_aa_even": (COUPLED_BYTES, ops["coupled_aa_even_cum_well_clbm_kernel"]),
         "coupled_aa_odd": (COUPLED_BYTES, ops["coupled_aa_odd_cum_well_clbm_kernel"]),
         "d2q9_step": (b5_bytes, ops["d2q9_clbm_kernel"]),
+        "nn_force": (NN_BYTES, ops[NN_INSTANCES["nn_force"]]),
+        **{f"nn_step_{m}": (AB_BYTES, ops[NN_INSTANCES[f"nn_step_{m}"]])
+           for m in ("ab", "even", "odd")},
+        **{f"{p}_force_field": (FF_BYTES, ops[NN_INSTANCES[f"{p}_force_field"]])
+           for p in ("ab_step", "aa_even", "aa_odd")},
+        **{f"{p}_macro_only": (MACRO_BYTES, ops[NN_INSTANCES[f"{p}_macro_only"]])
+           for p in ("ab_step", "aa_even", "aa_odd")},
+        "d2q9_step_force_field": (b5_ff_bytes, ops[NN_INSTANCES["d2q9_step_force_field"]]),
     }
 
 
@@ -1973,7 +2662,9 @@ def main() -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     shutil.rmtree(WORK, ignore_errors=True)
     device = phase_device()
-    ops = phase_build()
+    built = phase_build()
+    ops = built["ops"]
+    hooked_cmp = phase_compare_hooked()
     steps = phase_compare_steps()
     aa_codes_err = phase_compare_aa_codes()
     pairs = phase_compare_pairs(steps["times"])
@@ -1987,6 +2678,12 @@ def main() -> int:
     timed_aa = phase_time_coupled_aa(steps["times"], floor)
     main_path = phase_main_path()
     kernels = main_path["kernels"]
+    hooked = phase_main_hooked(floor, built["res"])
+    kernels.update(hooked["kernels"])
+    phase_blunt()
+    for name, n in phase_coupled_hooked().items():
+        if name in kernels:
+            kernels[name] = dataclasses.replace(kernels[name], launches=kernels[name].launches + n)
     compare_2d_err = phase_compare_2d()
     golden = phase_golden_2d()
     apps_2d = phase_apps_2d()
@@ -1994,6 +2691,8 @@ def main() -> int:
     kernels["d2q9_step"] = dataclasses.replace(
         timed_2d["kernel"], launches=golden["kernel"].launches + apps_2d["launches"]
         + timed_2d["kernel"].launches)
+    hooked_2d = phase_hooked_2d(floor)
+    kernels["d2q9_step_force_field"] = hooked_2d["kernel"]
     phase_accuracy()
     err = {**steps["err"], **pairs["err"], **probe["err"], **ab["err"],
            "d2q9_step": max(compare_2d_err, timed_2d["err"])}
@@ -2004,18 +2703,25 @@ def main() -> int:
                        timed["err"].get(key, 0.0), ade_err.get(key, 0.0),
                        coupled_err.get(key, 0.0), coupled_aa["err"].get(key, 0.0),
                        timed_aa["err"].get(key, 0.0))
+    for key, e in hooked_cmp["err"].items():
+        err[key] = max(e, hooked["err"].get(key, 0.0))
+    nn_force_rel = max(hooked_cmp["nn_force_rel"], hooked["nn_force_rel"])
+    err["d2q9_step_force_field"] = max(err["d2q9_step_force_field"], hooked_2d["err"])
     times = {**steps["times"], **pairs["times"], **probe["times"], **ab["times"],
-             **timed["times"], **timed_aa["times"], "d2q9_step": timed_2d["time"]}
+             **timed["times"], **timed_aa["times"], "d2q9_step": timed_2d["time"],
+             **hooked["times"], "d2q9_step_force_field": hooked_2d["time"]}
     kernels.update(probe["kernels"])
-    footprint = kernel_footprints(ops, timed_2d["bytes"])
+    footprint = kernel_footprints(ops, timed_2d["bytes"], hooked_2d["bytes"])
     record = {"kernels": []}
     for key, k in kernels.items():
         bound_ms, bound_by = bound(*footprint[key])
+        entry = {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+                 "launches": k.launches, "max_abs_err": err[key]}
+        if key == "nn_force":  # |dF| above; its gate is relative to max |F|
+            entry["max_rel_err"] = nn_force_rel
         record["kernels"].append(
-            {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-             "launches": k.launches, "max_abs_err": err[key], "ms": times[key][0],
-             "plain_ms": times[key][1], "bound_ms": bound_ms, "bound_by": bound_by,
-             "library_ms": None})
+            {**entry, "ms": times[key][0], "plain_ms": times[key][1], "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None})
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                              "count": device["count"]}}))

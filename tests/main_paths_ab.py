@@ -7,9 +7,12 @@ Runs ``chip_smoke.py``'s loops of this checkout against the package and the
 kernels of ``<checkout root>`` (built there): the 256^3 bench duct per step
 (A-A, B2/B3) and through the A-B step (B4), 200 steps each; sim_1 at
 resolution 8 (B4, 100 steps); sim_coupled at resolution 8 through the
-coupled step (B7, 100 steps).  Prints one JSON line, path -> MLUPS.  Run it
-in turns within one call (parent, change, change, parent) and compare only
-within that call.  Needs one CUDA card.
+coupled step (B7, 100 steps); where the checkout's package has the hooked
+path (``kernels/hooked.py``), the 256^3 bench duct with the Carreau-Yasuda
+hook through its one-kernel route (B10) and its pipeline, A-B and A-A, 100
+steps each.  Prints one JSON line, path -> MLUPS.  Run it in turns within
+one call (parent, change, change, parent) and compare only within that
+call.  Needs one CUDA card.
 """
 
 import importlib.util
@@ -42,10 +45,16 @@ def main() -> int:
             raise RuntimeError("sim_coupled res 8 failed")
         return sim
 
+    runs = [("per_step", lambda: cs.bench_sim(False)),
+            ("ab_step", lambda: cs.bench_sim(False, streaming="AB")),
+            ("sim_1_res8", cs.sim1_main_path), ("sim_coupled_res8", coupled)]
+    if (root / "tnl_lbm_tpu_torch" / "kernels" / "hooked.py").exists():
+        runs += [(f"hooked_{s.lower()}_{route}",
+                  lambda s=s, route=route: cs.nn_bench_sim(s, route == "single",
+                                                           label=f"{s}_{route}"))
+                 for s in ("AB", "AA") for route in ("single", "pipeline")]
     mlups = {}
-    for label, run in (("per_step", lambda: cs.bench_sim(False)),
-                       ("ab_step", lambda: cs.bench_sim(False, streaming="AB")),
-                       ("sim_1_res8", cs.sim1_main_path), ("sim_coupled_res8", coupled)):
+    for label, run in runs:
         sim = run()
         cs.report_main(sim, label)
         mlups[label] = cs.run_figures(sim)[1]

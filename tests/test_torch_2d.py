@@ -11,6 +11,7 @@ both branches of the interpolation and plain streaming run at ring sites.
 """
 
 import csv
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -178,13 +179,17 @@ def test_b5_refuses_what_it_does_not_take():
         assert not supports_2d(c, d)
         with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP §C"):
             make_fused_step_2d(c, d, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        make_fused_step_2d(cfg, dom, "cpu", force_field=True)
+    assert make_fused_step_2d(cfg, dom, "cpu", force_field=True).kernel.name == \
+        "d2q9_step_force_field"
+    hooked = dataclasses.replace(cfg, forcing_hook=lambda lat, rho, u, nu, fluid: u)
+    assert not supports_2d(hooked, dom)
+    with pytest.raises(NotImplementedError, match="make_hooked_fused_step"):
+        make_fused_step_2d(hooked, dom, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         make_fused_step_2d(cfg, dom, "cpu", local_shape=(8, 8))
     step = make_fused_step_2d(cfg, dom, "cpu")
     f = torch.zeros((9, 16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(NotImplementedError, match="force_field"):
         step(f, NU, force=np.zeros((2, 16, 16), np.float32))
     with pytest.raises(ValueError, match="second contiguous state buffer"):
         step(f, NU, out=f)

@@ -206,18 +206,22 @@ def test_ab_step_refuses_what_it_does_not_implement(monkeypatch):
     m, periodic = channel("box")
     dom = interop.domain_from_numpy(m, periodic)
     cfg = interop.config_from_spec(**spec_of("CUM_WELL", "AB"))
-    for kw, item in (({"force_field": True}, "A11"), ({"macro_only": True}, "A11"),
-                     ({"prepadded": True}, "A13"), ({"local_shape": m.shape}, "A13"),
+    for kw, item in (({"prepadded": True}, "A13"), ({"local_shape": m.shape}, "A13"),
                      ({"with_macro": False}, "A7")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             make_fused_step(cfg, dom, "cpu", **kw)
+    for kw, name in (({"force_field": True}, "ab_step_force_field"),
+                     ({"macro_only": True}, "ab_step_macro_only")):
+        assert make_fused_step(cfg, dom, "cpu", **kw).kernel.name == name
+    with pytest.raises(ValueError, match="exclude"):
+        make_fused_step(cfg, dom, "cpu", force_field=True, macro_only=True)
     with pytest.raises(ValueError):
         make_fused_step(interop.config_from_spec(**spec_of("CUM_WELL", "AA")), dom, "cpu")
     step = make_fused_step(cfg, dom, "cpu")
     f = torch.zeros((27,) + m.shape)
     with pytest.raises(NotImplementedError, match="ROADMAP A6/A8"):
         step(f, NU, u_in=np.zeros((3,) + m.shape))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(NotImplementedError, match="force_field"):
         step(f, NU, force=np.zeros((3,) + m.shape))
     with pytest.raises(ValueError):
         step(f, NU, out=f)

@@ -84,9 +84,12 @@ def test_even_step_updates_in_place_and_odd_returns_new_state():
 def test_unported_variants_raise():
     m, periodic = geometry("duct")
     cfg, dom = interop.config_from_spec(**spec("AA")), interop.domain_from_numpy(m, periodic)
-    for kw in ({"force_field": True}, {"macro_only": True}):
-        with pytest.raises(NotImplementedError):
-            make_fused_step_aa(cfg, dom, "cpu", **kw)
+    for kw, suffix in (({"force_field": True}, "_force_field"),
+                       ({"macro_only": True}, "_macro_only")):
+        variant = make_fused_step_aa(cfg, dom, "cpu", **kw)
+        assert (variant.even.name, variant.odd.name) == ("aa_even" + suffix, "aa_odd" + suffix)
+    with pytest.raises(ValueError, match="exclude"):
+        make_fused_step_aa(cfg, dom, "cpu", force_field=True, macro_only=True)
     with pytest.raises(ValueError):
         make_fused_step_aa(interop.config_from_spec(**spec("AB")), dom, "cpu")
     step = make_fused_step_aa(cfg, dom, "cpu")

@@ -516,3 +516,156 @@ def test_d2q9_kernel_counts_writes_into_out_and_refuses(cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_fused_step_2d(aa, dom, cuda)
     assert step.kernel.launches == 1
+
+
+# ------------------------------------------------------ the forcing-hook slice
+
+def nn_inputs(shape, device, seed):
+    from torch_cases import nn_state
+
+    return [torch.from_numpy(a).to(device) for a in nn_state(shape, seed)]
+
+
+@pytest.mark.parametrize("model", ["cy", "casson"])
+@pytest.mark.parametrize("kind", ["duct", "periodic", "obstacle"])
+def test_nn_force_kernel_matches_plain_on_card(cuda, kind, model):
+    """B9 against its plain version (the hook on tensors), the hook wrapped
+    as the domain and not: |dF| <= 1e-6 of max |F|."""
+    from tnl_lbm_tpu_torch.kernels.fused_nn import make_nn_force_kernel
+    from torch_cases import NN_MODELS, nn_case
+
+    m, periodic, _, _ = nn_case(kind)
+    dom = interop.domain_from_numpy(m, periodic)
+    rho, u = nn_inputs(dom.shape, cuda, seed=3)
+    for per in (periodic, None if any(periodic) else (True, True, False)):
+        b9 = make_nn_force_kernel(NN_MODELS[model], dom, cuda, periodic=per)
+        fk, fp = b9(rho, u, 0.02), b9.plain(rho, u, 0.02)
+        torch.cuda.synchronize()
+        scale = float(fp.abs().max())
+        assert scale > 0 and float((fk - fp).abs().max()) <= 1e-6 * scale, per
+        assert b9.kernel.launches == 1 and b9.plain_calls == 0
+
+
+@pytest.mark.parametrize("streaming", ["AB", "AA"])
+@pytest.mark.parametrize("kind", ["duct", "periodic", "obstacle", "blunt"])
+def test_nn_step_kernel_matches_plain_on_card(cuda, kind, streaming):
+    """B10 (A-B; A-A even and odd) against the plain hooked step, 4 chained
+    steps, each to the step bounds; "blunt" is the 4 x 4 x 21 channel,
+    smaller than the kernel's tile."""
+    import dataclasses
+
+    from tnl_lbm_tpu_torch.kernels.fused_nn_step import make_fused_nn_step
+    from tnl_lbm_tpu_torch.ops.non_newtonian import make_nn_forcing_hook
+    from torch_cases import NN_MODELS, blunt_channel, nn_case
+
+    if kind == "blunt":
+        (m, periodic), model = blunt_channel(), "cy"
+        hook_per = periodic
+    else:
+        m, periodic, model, hook_per = nn_case(kind)
+    dom = interop.domain_from_numpy(m, periodic)
+    cfg = dataclasses.replace(interop.config_from_spec("CUM_WELL", "EQ_WELL", True, streaming),
+                              forcing_hook=make_nn_forcing_hook(NN_MODELS[model],
+                                                                periodic=hook_per))
+    step = make_fused_nn_step(cfg, dom, NN_MODELS[model], hook_per, cuda)
+    rho, u = nn_inputs(dom.shape, cuda, seed=5)
+    fk = cfg.eq(cfg.lat, rho, u).float().contiguous()
+    fp = fk.clone()
+    for it in range(4):
+        parity = it % 2 if streaming == "AA" else 0
+        fk, rk, uk = step(fk, 0.02, force=(1e-5, 0.0, 0.0), parity=parity)
+        fp, rp, up = step.plain(fp, 0.02, force=(1e-5, 0.0, 0.0), parity=parity)
+        torch.cuda.synchronize()
+        assert float((fk - fp).abs().max()) <= 1e-6, f"f, step {it}"
+        assert float((rk - rp).abs().max()) <= 2e-6, f"rho, step {it}"
+        assert float((uk - up).abs().max()) <= 1e-6, f"u, step {it}"
+    assert step.ab.launches + step.even.launches + step.odd.launches == 4
+
+
+@pytest.mark.parametrize("spec", [("CUM_WELL", "EQ_WELL", True), ("CUM", "EQ", False),
+                                  ("CUM", "EQ_INV_CUM", False)], ids=["well", "quad", "invcum"])
+@pytest.mark.parametrize("streaming", ["AB", "AA"])
+def test_variants_match_plain_on_card(cuda, streaming, spec):
+    """The force_field (a seeded per-site force plus a homogeneous one) and
+    macro_only variants of B4 and B2/B3 against their plain versions, on a
+    box of every code of the pattern, one step from the same input."""
+    from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
+
+    m = (bc_box if streaming == "AB" else aa_box)((24, 20, 150))
+    dom = interop.domain_from_numpy(m, (False, False, True))
+    cfg = interop.config_from_spec(*spec, streaming)
+    build = make_fused_step if streaming == "AB" else make_fused_step_aa
+    ff, macro = build(cfg, dom, cuda, force_field=True), build(cfg, dom, cuda, macro_only=True)
+    f = seeded_state(cfg, dom.shape, cuda)
+    rng = np.random.default_rng(9)
+    field = torch.from_numpy((1e-5 * rng.standard_normal((3,) + dom.shape)).astype(
+        np.float32)).to(cuda)
+    for parity in ((0,) if streaming == "AB" else (0, 1)):
+        kw = dict(u_in=U_IN, force=field, force_add=(1e-5, 0.0, 0.0), parity=parity)
+        fk, rk, uk = ff(f.clone(), 0.02, **kw)
+        fp, rp, up = ff.plain(f, 0.02, **kw)
+        rk0, uk0 = macro(f, 0.02, force=(1e-5, 0.0, 0.0), parity=parity)
+        rp0, up0 = macro.plain(f, 0.02, force=(1e-5, 0.0, 0.0), parity=parity)
+        torch.cuda.synchronize()
+        assert float((fk - fp).abs().max()) <= 1e-6
+        assert float((rk - rp).abs().max()) <= 2e-6 and float((uk - up).abs().max()) <= 1e-6
+        assert float((rk0 - rp0).abs().max()) <= 2e-6
+        assert float((uk0 - up0).abs().max()) <= 1e-6
+    assert ff.plain_calls == macro.plain_calls == 0
+
+
+@pytest.mark.parametrize("collision", D2_COLLISIONS)
+@pytest.mark.parametrize("kind", ["channel", "bouzidi", "periodic"])
+def test_d2q9_force_field_matches_plain_on_card(cuda, kind, collision):
+    """B5's force_field variant against its plain version, 4 chained steps."""
+    m, periodic, bz = case_2d(kind, shape=(37, 150))
+    from tnl_lbm_tpu_torch.models import D2Q9
+
+    dom = interop.domain_from_numpy(m, periodic, lat=D2Q9, bouzidi=bz)
+    cfg = interop.config_2d_from_spec(collision)
+    step = make_fused_step_2d(cfg, dom, cuda, force_field=True)
+    rng = np.random.default_rng(17)
+    field = torch.from_numpy((1e-5 * rng.standard_normal((2,) + dom.shape)).astype(
+        np.float32)).to(cuda)
+    fk = seeded_2d(cfg, dom.shape, cuda, seed=4)
+    fp = fk.clone()
+    for it in range(4):
+        fk, rk, uk = step(fk, 0.02, u_in=(0.03, 0.0), force=field, force_add=(1e-5, 0.0))
+        fp, rp, up = step.plain(fp, 0.02, u_in=(0.03, 0.0), force=field, force_add=(1e-5, 0.0))
+        torch.cuda.synchronize()
+        assert float((fk - fp).abs().max()) <= 1e-6, f"f, step {it}"
+        assert float((rk - rp).abs().max()) <= 2e-6 and float((uk - up).abs().max()) <= 1e-6
+    assert step.kernel.launches == 4 and step.plain_calls == 0
+
+
+@pytest.mark.parametrize("streaming", ["AB", "AA"])
+def test_hooked_routes_agree_on_card(cuda, streaming):
+    """On the wall duct with the hook wrapped as the domain, the one-kernel
+    route (B10) and the pipeline (u* pass, B9, force_field) compute the
+    same hooked step: each against the other and against the plain hooked
+    step, both parities."""
+    import dataclasses
+
+    from tnl_lbm_tpu_torch.kernels.hooked import make_hooked_fused_step
+    from tnl_lbm_tpu_torch.ops.non_newtonian import make_nn_forcing_hook
+    from torch_cases import NN_MODELS, nn_case
+
+    m, periodic, model, per = nn_case("duct")
+    dom = interop.domain_from_numpy(m, periodic)
+    cfg = dataclasses.replace(interop.config_from_spec("CUM_WELL", "EQ_WELL", True, streaming),
+                              forcing_hook=make_nn_forcing_hook(NN_MODELS[model], periodic=per))
+    single = make_hooked_fused_step(cfg, dom, cuda)
+    pipe = make_hooked_fused_step(cfg, dom, cuda, single_kernel=False)
+    assert (single.route, pipe.route) == ("single_kernel", "pipeline")
+    rho, u = nn_inputs(dom.shape, cuda, seed=6)
+    f = cfg.eq(cfg.lat, rho, u).float().contiguous()
+    for parity in ((0,) if streaming == "AB" else (0, 1)):
+        a = single(f.clone(), 0.02, force=(1e-5, 0.0, 0.0), parity=parity)
+        b = pipe(f.clone(), 0.02, force=(1e-5, 0.0, 0.0), parity=parity)
+        p = single.plain(f, 0.02, force=(1e-5, 0.0, 0.0), parity=parity)
+        torch.cuda.synchronize()
+        for x, y in ((a, b), (a, p), (b, p)):
+            assert float((x[0] - y[0]).abs().max()) <= 1e-6
+            assert float((x[1] - y[1]).abs().max()) <= 2e-6
+            assert float((x[2] - y[2]).abs().max()) <= 1e-6
+    assert single.plain_calls == pipe.plain_calls == 0

@@ -24,7 +24,9 @@ def test_every_port_module_is_listed():
                  "tnl_lbm_tpu_torch.apps.sim_coupled", "tnl_lbm_tpu_torch.models.descriptors",
                  "tnl_lbm_tpu_torch.ops.collision_2d", "tnl_lbm_tpu_torch.io.geometry",
                  "tnl_lbm_tpu_torch.kernels.fused_2d", "tnl_lbm_tpu_torch.apps.sim2d_1",
-                 "tnl_lbm_tpu_torch.apps.sim2d_2", "tnl_lbm_tpu_torch.apps.sim2d_3"):
+                 "tnl_lbm_tpu_torch.apps.sim2d_2", "tnl_lbm_tpu_torch.apps.sim2d_3",
+                 "tnl_lbm_tpu_torch.ops.non_newtonian", "tnl_lbm_tpu_torch.kernels.fused_nn",
+                 "tnl_lbm_tpu_torch.kernels.fused_nn_step", "tnl_lbm_tpu_torch.kernels.hooked"):
         assert name in PORT_MODULES
 
 

@@ -1,6 +1,7 @@
 """Geometries, seeded states and constants shared by the port's tests and
 ``chip_smoke.py``: the A-B boxes and channels, the ADE boxes, the coupled
-cases, and the local magnitude that a diverging field is compared against.
+cases, the local magnitude that a diverging field is compared against, and
+the non-Newtonian cases (the hooked slice).
 
 Imports no jax: ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` run where
 it is not installed.
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 
 from tnl_lbm_tpu_torch.ops.boundary import GEO
+from tnl_lbm_tpu_torch.ops.non_newtonian import Casson, CarreauYasuda
 from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO
 
 AB_KINDS = ("inflow_outflow", "interp_outflow", "eq_inflow", "sym", "periodic_code", "box")
@@ -318,3 +320,64 @@ def compress_statistics(sim, start: int = 2):
     sim.fluc_stable_required = 2
     sim.fluc_rel_tol = 1e9                    # any check counts as stable
     sim.phys_final_time = (start + 58) * dt
+
+
+# ------------------------------------------------------------ non-Newtonian
+
+#: the rheologies of the JAX suite (tests/test_non_newtonian.py:127-155,
+#: tests/test_fused_nn_step.py:53-100) and of scripts/bench_hooked.py:56-69
+NN_MODELS = {"cy": CarreauYasuda(nu0=0.1, lam=1.0, a=2.0, n=0.5),
+             "casson": Casson(k0=0.05, k1=0.02),
+             "cy_obstacle": CarreauYasuda(nu0=0.08, lam=2.0, a=1.7, n=0.6)}
+NN_KINDS = ("duct", "periodic", "obstacle")
+#: the blunted-profile channel (JAX tests/test_non_newtonian.py:42-78) with
+#: its hook wrapped as the domain: the shape factor u_x[Z//2] / mean(u_x[1:-1])
+#: at x = y = 0 after 3000 steps from rest (and one more, whose u is read),
+#: CUM_WELL in float32; the JAX XLA step gives these for the Newtonian and
+#: the Carreau-Yasuda run
+BLUNT_SHAPE, BLUNT_NU, BLUNT_FORCE, BLUNT_STEPS = (4, 4, 21), 0.05, (5e-6, 0.0, 0.0), 3000
+BLUNT_MODEL = CarreauYasuda(nu0=0.5, lam=500.0, a=2.0, n=0.3)
+BLUNT_JAX = {"newtonian": 1.49760, "carreau_yasuda": 1.48458}
+
+
+def nn_case(kind, shape=None):
+    """(map, domain periodic, model name, hook periodic) of the NN compares:
+    the wall duct with a periodic x (walls on the y and z faces, CY), the
+    fully periodic fluid box with a ragged Z (Casson) and the closed box
+    with an interior obstacle and no periodic axis (CY, the hook's default
+    edge replication)."""
+    if kind == "duct":
+        m = np.zeros(shape or (12, 20, 40), np.uint8)
+        m[:, 0] = m[:, -1] = GEO.WALL
+        m[:, :, 0] = m[:, :, -1] = GEO.WALL
+        return m, (True, False, False), "cy", (True, False, False)
+    if kind == "periodic":
+        return np.zeros(shape or (8, 16, 37), np.uint8), (True, True, True), "casson", \
+            (True, True, True)
+    assert kind == "obstacle", kind
+    m = np.zeros(shape or (12, 20, 40), np.uint8)
+    m[:, 4:6, 3:5] = GEO.WALL
+    m[5:7, 12:15, 20:24] = GEO.WALL
+    return m, (False, False, False), "cy_obstacle", None
+
+
+def nn_state(shape, seed=0):
+    """Seeded (rho, u) as float32 numpy arrays (JAX
+    tests/test_fused_nn_step.py:31-33: u at 0.03)."""
+    rng = np.random.default_rng(seed)
+    return ((1 + 0.01 * rng.standard_normal(shape)).astype(np.float32),
+            (0.03 * rng.standard_normal((len(shape),) + tuple(shape))).astype(np.float32))
+
+
+def blunt_channel():
+    """(map, periodic) of the blunted-profile channel: walls on the z faces,
+    periodic x and y."""
+    m = np.zeros(BLUNT_SHAPE, np.uint8)
+    m[:, :, 0] = m[:, :, -1] = GEO.WALL
+    return m, (True, True, False)
+
+
+def shape_factor(ux) -> float:
+    """u_x[Z//2] / mean(u_x[1:-1]) of a profile along z (1.5 for a parabola)."""
+    ux = np.asarray(ux, np.float64)
+    return float(ux[len(ux) // 2] / ux[1:-1].mean())

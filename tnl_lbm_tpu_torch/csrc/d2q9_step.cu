@@ -265,48 +265,81 @@ __device__ __forceinline__ void site(const float* __restrict__ f, float* __restr
   u_out[N + s] = uy;
 }
 
+// One site of the force_field variant: the site's force from ff [2, X, Y]
+// added to the homogeneous one, for the moments and Guo's term.
+template <int COLL, bool FORCE>
+__device__ __forceinline__ void site_ff(const float* __restrict__ f, float* __restrict__ fout,
+                                        const uint8_t* __restrict__ map,
+                                        const float* __restrict__ ff,
+                                        float* __restrict__ rho_out, float* __restrict__ u_out,
+                                        int x, int y, int X, int Y, int periodic_bits,
+                                        const Params& p0) {
+  const int64_t N = (int64_t)X * Y;
+  const int64_t s = (int64_t)x * Y + y;
+  Params p = p0;
+  p.fx = p0.fx + ff[s];
+  p.fy = p0.fy + ff[N + s];
+  site<COLL, FORCE>(f, fout, map, rho_out, u_out, x, y, X, Y, periodic_bits, p);
+}
+
 }  // namespace d2q9
 
-// One kernel per (collision, force); named so that the -Xptxas -v report can
-// be read per instance.  CLBM takes the force through u alone, so it has one.
-#define D2Q9_KERNEL(NAME, COLL, FORCE)                                                       \
+// One kernel per (collision, force, per-site force); named so that the
+// -Xptxas -v report can be read per instance.  CLBM takes the force through
+// u alone, so it has one without a per-site force.  The force_field
+// instances (JAX fused_2d.py:80-90, 134-146, the carrier of the 2D forcing
+// hooks) read the per-site force: 8 B/site more, 93 B/site with the 85 B
+// of the step.
+#define D2Q9_KERNEL(NAME, COLL, FORCE, FF)                                                   \
   extern "C" __global__ void __launch_bounds__(d2q9::THREADS)                               \
       NAME(const float* __restrict__ f, float* __restrict__ fout,                            \
-           const uint8_t* __restrict__ map, float* __restrict__ rho, float* __restrict__ u,  \
-           int X, int Y, int periodic_bits, d2q9::Params p) {                                \
+           const uint8_t* __restrict__ map, const float* __restrict__ ff,                    \
+           float* __restrict__ rho, float* __restrict__ u, int X, int Y, int periodic_bits,  \
+           d2q9::Params p) {                                                                 \
     const int y = blockIdx.x * blockDim.x + threadIdx.x;                                     \
     if (y >= Y) return;                                                                      \
-    d2q9::site<COLL, FORCE>(f, fout, map, rho, u, blockIdx.y, y, X, Y, periodic_bits, p);    \
+    if constexpr (FF)                                                                        \
+      d2q9::site_ff<COLL, FORCE>(f, fout, map, ff, rho, u, blockIdx.y, y, X, Y,              \
+                                 periodic_bits, p);                                          \
+    else                                                                                     \
+      d2q9::site<COLL, FORCE>(f, fout, map, rho, u, blockIdx.y, y, X, Y, periodic_bits, p);  \
   }
 
-D2Q9_KERNEL(d2q9_srt_kernel, d2q9::SRT, false)
-D2Q9_KERNEL(d2q9_srt_force_kernel, d2q9::SRT, true)
-D2Q9_KERNEL(d2q9_clbm_kernel, d2q9::CLBM, false)
+D2Q9_KERNEL(d2q9_srt_kernel, d2q9::SRT, false, false)
+D2Q9_KERNEL(d2q9_srt_force_kernel, d2q9::SRT, true, false)
+D2Q9_KERNEL(d2q9_clbm_kernel, d2q9::CLBM, false, false)
+D2Q9_KERNEL(d2q9_srt_force_field_kernel, d2q9::SRT, true, true)
+D2Q9_KERNEL(d2q9_clbm_force_field_kernel, d2q9::CLBM, false, true)
 
 // Launches on `stream`; returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for an unknown variant.  pbits (periodic axes): bit 0
-// x, bit 1 y.  variant: 0 SRT, 1 SRT with Guo forcing, 2 CLBM.  uin: the
-// inflow profile with its strides in elements (component, x, y), or null for
-// the vector (uin_x, uin_y); bz: the thetas [8, X, Y] or null.
-extern "C" int tnl_lbm_d2q9_step(const float* f, float* fout, const uint8_t* map, const float* bz,
-                                 const float* uin, long long uin_sc, long long uin_sx,
-                                 long long uin_sy, float* rho, float* u, int X, int Y, int pbits,
-                                 int variant, float nu, float fx, float fy, float uin_x,
-                                 float uin_y, void* stream) {
-  using Kernel = void (*)(const float*, float*, const uint8_t*, float*, float*, int, int, int,
-                          d2q9::Params);
+// x, bit 1 y.  variant: 0 SRT, 1 SRT with Guo forcing, 2 CLBM, 3 SRT with a
+// per-site force (Guo's term with it), 4 CLBM with a per-site force (ff:
+// the force [2, X, Y], added to (fx, fy)).  uin: the inflow profile with its
+// strides in elements (component, x, y), or null for the vector (uin_x,
+// uin_y); bz: the thetas [8, X, Y] or null.
+extern "C" int tnl_lbm_d2q9_step(const float* f, float* fout, const uint8_t* map, const float* ff,
+                                 const float* bz, const float* uin, long long uin_sc,
+                                 long long uin_sx, long long uin_sy, float* rho, float* u, int X,
+                                 int Y, int pbits, int variant, float nu, float fx, float fy,
+                                 float uin_x, float uin_y, void* stream) {
+  using Kernel = void (*)(const float*, float*, const uint8_t*, const float*, float*, float*, int,
+                          int, int, d2q9::Params);
   Kernel kernel;
   switch (variant) {
     case 0: kernel = d2q9_srt_kernel; break;
     case 1: kernel = d2q9_srt_force_kernel; break;
     case 2: kernel = d2q9_clbm_kernel; break;
+    case 3: kernel = d2q9_srt_force_field_kernel; break;
+    case 4: kernel = d2q9_clbm_force_field_kernel; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (variant >= 3 && ff == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const d2q9::Params p{1.0f / (3.0f * nu + 0.5f), fx, fy, uin_x, uin_y, uin,
                        uin_sc, uin_sx, uin_sy, bz};
   const int block = Y >= d2q9::THREADS ? d2q9::THREADS : ((Y + 31) / 32) * 32;
   const dim3 grid((Y + block - 1) / block, X);
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(f, fout, map, rho, u, X, Y,
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(f, fout, map, ff, rho, u, X, Y,
                                                                  pbits, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,8 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("aa_even.cu", "aa_odd.cu", "aa_pair.cu", "ab_step.cu", "ade_step.cu", "coupled_ab.cu",
-           "coupled_aa.cu", "d2q9_step.cu", "probes.cu")
-HEADERS = ("lbm_site.cuh", "pair_window.cuh", "ade_site.cuh")
+           "coupled_aa.cu", "d2q9_step.cu", "nn_force.cu", "nn_step.cu", "probes.cu")
+HEADERS = ("lbm_site.cuh", "pair_window.cuh", "ade_site.cuh", "nn_site.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -91,21 +91,25 @@ def load_library() -> ctypes.CDLL:
     path, _ = build_library()
     lib = ctypes.CDLL(str(path))
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.tnl_lbm_aa_even.argtypes = [p] * 4 + [i] * 4 + [f] * 7 + [i, p]
-    lib.tnl_lbm_aa_odd.argtypes = [p] * 5 + [i] * 6 + [f] * 7 + [i, p]
+    lib.tnl_lbm_aa_even.argtypes = [p] * 5 + [i] * 5 + [f] * 7 + [i, p]
+    lib.tnl_lbm_aa_odd.argtypes = [p] * 6 + [i] * 7 + [f] * 7 + [i, p]
     lib.tnl_lbm_aa_pair.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, f, f, f, i, p]
-    lib.tnl_lbm_ab_step.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, f, f, f, f, f, i, p]
+    lib.tnl_lbm_ab_step.argtypes = [p] * 6 + [i] * 6 + [f] * 7 + [i, p]
     lib.tnl_lbm_ade_step.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, p]
     lib.tnl_lbm_coupled_ab.argtypes = [p] * 11 + [i] * 7 + [f] * 7 + [i] + [f] * 3 + [p]
     lib.tnl_lbm_coupled_aa.argtypes = [p] * 10 + [i] * 10 + [f] * 7 + [i] + [f] * 2 + [p]
-    lib.tnl_lbm_d2q9_step.argtypes = [p] * 5 + [ll] * 3 + [p, p] + [i] * 4 + [f] * 5 + [p]
+    lib.tnl_lbm_d2q9_step.argtypes = [p] * 6 + [ll] * 3 + [p, p] + [i] * 4 + [f] * 5 + [p]
+    lib.tnl_lbm_nn_force.argtypes = [p] * 4 + [i] * 5 + [f] * 7 + [p]
+    lib.tnl_lbm_nn_step.argtypes = [p] * 5 + [i] * 8 + [f] * 7 + [i, i] + [f] * 6 + [p]
+    lib.tnl_lbm_nn_step_smem_bytes.argtypes = []
     lib.tnl_lbm_copy_permute.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.tnl_lbm_pair_pipeline.argtypes = [p, p, i, i, i, i, i, p]
     lib.tnl_lbm_pair_compute_only.argtypes = [p, p, i, i, i, i, p]
     lib.tnl_lbm_aa_pair_smem_bytes.argtypes = []
     for fn in (lib.tnl_lbm_aa_even, lib.tnl_lbm_aa_odd, lib.tnl_lbm_aa_pair, lib.tnl_lbm_ab_step,
                lib.tnl_lbm_ade_step, lib.tnl_lbm_coupled_ab, lib.tnl_lbm_coupled_aa,
-               lib.tnl_lbm_d2q9_step, lib.tnl_lbm_copy_permute,
+               lib.tnl_lbm_d2q9_step, lib.tnl_lbm_nn_force, lib.tnl_lbm_nn_step,
+               lib.tnl_lbm_nn_step_smem_bytes, lib.tnl_lbm_copy_permute,
                lib.tnl_lbm_pair_pipeline, lib.tnl_lbm_pair_compute_only,
                lib.tnl_lbm_aa_pair_smem_bytes):
         fn.restype = i

@@ -94,16 +94,16 @@ def host_vector3(value, what: str, roadmap: str) -> tuple[float, float, float]:
         value = value.detach().numpy()
     arr = np.asarray(value)
     if arr.shape != (3,):
-        raise NotImplementedError(f"per-site {what} fields are not ported yet ({roadmap})")
+        raise NotImplementedError(f"a per-site {what} field is not taken here ({roadmap})")
     return tuple(float(v) for v in arr.astype(np.float32))
 
 
 def _force3(force) -> tuple[float, float, float]:
-    return host_vector3(force, "force", "ROADMAP A11: force_field variant")
+    return host_vector3(force, "force", "the force_field variants take one")
 
 
 def _u_in3(u_in) -> tuple[float, float, float]:
-    return host_vector3(u_in, "inflow velocity", "ROADMAP A6/A8: inflow profiles")
+    return host_vector3(u_in, "inflow velocity", "inflow profiles: ROADMAP A6/A8")
 
 
 def _periodic_bits(periodic) -> int:
@@ -211,6 +211,10 @@ def _prep(cfg: LBMConfig, domain: Domain, pair: bool = False):
     refuses OUTFLOW_RIGHT_INTERP (``check_supported``)."""
     codes = domain.codes_present()
     check_supported(cfg, domain, pair=pair, codes=codes)
+    if cfg.forcing_hook is not None:
+        raise NotImplementedError("a config with a forcing hook runs through "
+                                  "kernels/hooked.py make_hooked_fused_step, which builds "
+                                  "these kernels on the config without it")
     lat = cfg.lat
     if lat.D != 3:
         raise NotImplementedError("the fused kernels are for the 3D lattices")
@@ -275,11 +279,15 @@ def _pull_transform(lat, codes, shifted, masks, thetas=None):
 
 def _stream_bc_collide(lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
                        u_in=(0.0, 0.0, 0.0), out_perm=None, defer_nothing=False, thetas=None,
-                       collision_force=None):
+                       collision_force=None, macro_only=False):
     """Pull-stream + BC mask-selects + collision on whole arrays.
 
-    ``m`` is the int map of the sites computed, ``force`` D scalars,
-    ``u_in`` D scalars or a [D, ...] profile broadcastable to the sites.
+    ``m`` is the int map of the sites computed, ``force`` D scalars or D
+    per-site fields (the force_field variants), ``u_in`` D scalars or a
+    [D, ...] profile broadcastable to the sites.  ``macro_only=True`` is the
+    u* pre-pass (reference kernels.h:178-218): it returns (None, rho, u),
+    the moments of the pulled and wall/symmetry-transformed DFs with the
+    homogeneous force, before the inflow/outflow macro overrides.
     ``out_perm`` permutes the output components before the NOTHING restore
     (the A-A even step writes opposite-direction, streaming_AA.h:16-45);
     ``defer_nothing=True`` skips the restore - the A-A odd step applies it
@@ -292,6 +300,8 @@ def _stream_bc_collide(lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
     masks = {c: (m == int(c)) for c in codes}
     f_in = _pull_transform(lat, codes, shifted, masks, thetas)
     rho, u = _moments_local(lat, f_in, force, cfg.well, high_precision=cfg.high_precision_rho)
+    if macro_only:
+        return None, rho, u
 
     f_in, rho, u = bc.apply_moment_bcs(lat, codes, masks, f_in, rho, u, u_in,
                                        lambda r, v: _eq_local(lat, r, v, _eq_kind(cfg)), cfg.well)
@@ -318,6 +328,40 @@ def _stream_bc_collide(lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
     return f_post, rho_out, u_out
 
 
+#: the ``mode`` argument of ``tnl_lbm_ab_step`` / ``tnl_lbm_aa_even`` / ``tnl_lbm_aa_odd``:
+#: the step, the step with a per-site force (force_field), the u* pre-pass (macro_only)
+MODE_STEP, MODE_FORCE_FIELD, MODE_MACRO_ONLY = 0, 1, 2
+
+
+def variant_mode(force_field: bool, macro_only: bool) -> tuple[int, str]:
+    """(the C ``mode``, the kernel-name suffix) of a step variant."""
+    if force_field and macro_only:
+        raise ValueError("force_field and macro_only exclude each other")
+    if force_field:
+        return MODE_FORCE_FIELD, "_force_field"
+    return (MODE_MACRO_ONLY, "_macro_only") if macro_only else (MODE_STEP, "")
+
+
+def check_force_field(field, D: int, shape, device) -> torch.Tensor:
+    """The per-site force of a force_field step: a contiguous float32
+    [D, *S] tensor on ``device``, as the kernel reads it."""
+    want = (D,) + tuple(shape)
+    if (not torch.is_tensor(field) or tuple(field.shape) != want
+            or field.dtype != torch.float32 or field.device != device
+            or not field.is_contiguous()):
+        got = (tuple(field.shape), field.dtype, field.device) if torch.is_tensor(field) else field
+        raise ValueError(f"a force_field step takes its force as a contiguous float32 {want} "
+                         f"tensor on {device}, got {got}")
+    return field
+
+
+def site_force(field, fadd):
+    """The per-site force the force_field variants apply: the homogeneous
+    ``fadd`` (D float32 values) plus the field, as the plain hooked step
+    adds the hook's output to the body force."""
+    return [fadd[a] + field[a] for a in range(field.shape[0])]
+
+
 class FusedStepAB:
     """``step(f, nu, u_in=None, force=None, parity=0, out=None) -> (f_new, rho, u)``.
 
@@ -327,9 +371,21 @@ class FusedStepAB:
     and ``force`` are homogeneous [3] vectors, given as host values;
     ``parity`` is accepted for the common step contract and ignored.
     ``kernel`` counts the launches, ``plain_calls`` the CPU-path calls.
+
+    Variants (JAX ``make_fused_step``'s flags), each its own kernel instance:
+
+    - ``force_field``: ``force`` is a per-site [3, X, Y, Z] float32 tensor on
+      f's device, read at each site in place of the homogeneous force; a
+      [3] host vector ``force_add`` is added to it at every site (the
+      hooked pipeline's body force, so that no pass sums the two);
+    - ``macro_only``: the u* pre-pass - ``step(f, nu, u_in=None,
+      force=None) -> (rho0, u0)``: pull, the outflow pull rules, the WALL
+      swap and the symmetry mirrors, the moments with the homogeneous
+      force; no collision, no f output, no inflow/outflow macro override.
     """
 
-    def __init__(self, cfg: LBMConfig, domain: Domain, device):
+    def __init__(self, cfg: LBMConfig, domain: Domain, device, force_field: bool = False,
+                 macro_only: bool = False):
         if cfg.streaming != "AB":
             raise ValueError("make_fused_step needs streaming='AB'")
         self.cfg = cfg
@@ -337,7 +393,9 @@ class FusedStepAB:
         self.lat, self.codes, self.do_coll_codes = _prep(cfg, domain)
         self.shape = domain.shape
         self.periodic = domain.periodic
-        self.kernel = CudaKernel("ab_step", "tnl_lbm_tpu_torch/csrc/ab_step.cu",
+        self.force_field, self.macro_only = force_field, macro_only
+        self._mode, suffix = variant_mode(force_field, macro_only)
+        self.kernel = CudaKernel("ab_step" + suffix, "tnl_lbm_tpu_torch/csrc/ab_step.cu",
                                  "tnl_lbm_tpu/kernels/fused.py:585")
         self.plain_calls = 0
         if self.device.type == "cuda":
@@ -348,38 +406,59 @@ class FusedStepAB:
     def reset_counts(self) -> None:
         self.kernel.launches = self.plain_calls = 0
 
-    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None):
+    def _forces(self, f, force, force_add):
+        """(the per-site field or None, the homogeneous three floats)."""
+        if self.force_field:
+            return check_force_field(force, 3, self.shape, f.device), _force3(force_add)
+        if force_add is not None:
+            raise ValueError("force_add belongs to the force_field variant")
+        return None, _force3(force)
+
+    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None,
+                 force_add=None):
         del parity
-        uvec, fvec = _u_in3(u_in), _force3(force)
-        if out is not None and (out is f or out.shape != f.shape or out.dtype != f.dtype
-                                or out.device != f.device or not out.is_contiguous()):
-            raise ValueError("out must be a second contiguous state buffer like f")
+        field, fvec = self._forces(f, force, force_add)
+        uvec = _u_in3(u_in)
+        if out is not None and (self.macro_only or out is f or out.shape != f.shape
+                                or out.dtype != f.dtype or out.device != f.device
+                                or not out.is_contiguous()):
+            raise ValueError("out must be a second contiguous state buffer like f "
+                             "(and the u* pass writes no state)")
         if f.device.type == "cuda":
-            return self._launch(f, float(nu), fvec, uvec, out)
+            return self._launch(f, float(nu), field, fvec, uvec, out)
         self.plain_calls += 1
-        f_new, rho, u = self._plain(f, nu, fvec, uvec)
+        f_new, rho, u = self._plain(f, nu, fvec, uvec, field)
+        if self.macro_only:
+            return rho, u
         if out is not None:
             f_new = out.copy_(f_new)
         return f_new, rho, u
 
-    def plain(self, f, nu, u_in=None, force=None):
+    def plain(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None):
         """The step's plain PyTorch version on f's device: (f_new, rho, u),
-        f untouched.  The CPU path, and the oracle the kernel is held
+        or (rho0, u0) for the u* pass; f untouched (``parity`` is ignored,
+        as by the step).  The CPU path, and the oracle the kernel is held
         against on the card; it counts no call."""
-        return self._plain(f, nu, _force3(force), _u_in3(u_in))
+        del parity
+        field, fvec = self._forces(f, force, force_add)
+        f_new, rho, u = self._plain(f, nu, fvec, _u_in3(u_in), field)
+        return (rho, u) if self.macro_only else (f_new, rho, u)
 
-    def _plain(self, f, nu, fvec, uvec):
-        """The step on ``pad_halo``-pulled whole arrays; f untouched."""
+    def _plain(self, f, nu, fvec, uvec, field=None):
+        """The step on ``pad_halo``-pulled whole arrays (``field``: the
+        force_field variant's per-site force); f untouched."""
         S = tuple(f.shape[1:])
         fpad = stream.pad_halo(f, self.periodic)
 
         def shifted(q, offs):
             return stream._shift_slices(fpad[q], offs, S)
 
+        force = fvec if field is None else site_force(field, fvec)
         return _stream_bc_collide(self.lat, self.cfg, self.codes, self.do_coll_codes, shifted,
-                                  self.map.to(f.device), nu, fvec, u_in=uvec)
+                                  self.map.to(f.device), nu, force, u_in=uvec,
+                                  macro_only=self.macro_only)
 
-    def _launch(self, f, nu, fvec, uvec, out):
+    def _launch(self, f, nu, field, fvec, uvec, out):
         if self.device.type != "cuda" or f.device != self.map.device:
             raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
         if f.dtype != torch.float32:
@@ -389,37 +468,38 @@ class FusedStepAB:
             raise ValueError(f"f must be a contiguous [{self.lat.Q}, {X}, {Y}, {Z}] tensor, "
                              f"got {tuple(f.shape)}")
         lib = load_library()
-        f_new = torch.empty_like(f) if out is None else out
+        f_new = None
+        if not self.macro_only:
+            f_new = torch.empty_like(f) if out is None else out
         rho = torch.empty((X, Y, Z), dtype=f.dtype, device=f.device)
         u = torch.empty((3, X, Y, Z), dtype=f.dtype, device=f.device)
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
-        rc = lib.tnl_lbm_ab_step(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
+        rc = lib.tnl_lbm_ab_step(f.data_ptr(), None if f_new is None else f_new.data_ptr(),
+                                 self.map.data_ptr(), None if field is None else field.data_ptr(),
                                  rho.data_ptr(), u.data_ptr(), X, Y, Z,
-                                 _periodic_bits(self.periodic), self._variant, nu, *fvec, *uvec,
-                                 int(self.cfg.high_precision_rho), stream_ptr)
+                                 _periodic_bits(self.periodic), self._variant, self._mode, nu,
+                                 *fvec, *uvec, int(self.cfg.high_precision_rho), stream_ptr)
         if rc != 0:
             raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
         self.kernel.launches += 1
-        return f_new, rho, u
+        return (rho, u) if self.macro_only else (f_new, rho, u)
 
 
 def make_fused_step(cfg: LBMConfig, domain: Domain, device, with_macro: bool = True,
                     prepadded: bool = False, local_shape=None, force_field: bool = False,
                     macro_only: bool = False) -> FusedStepAB:
-    """A-B step for (cfg, domain) on ``device``: see :class:`FusedStepAB`.
+    """A-B step for (cfg, domain) on ``device``: see :class:`FusedStepAB`,
+    with its ``force_field`` and ``macro_only`` variants.
 
     The JAX function's TPU knobs (``tile``, ``tiles_per_program``) shape
-    its VMEM windows and have no counterpart here.  Its variants are not
-    ported yet: ``force_field`` and ``macro_only`` (ROADMAP A11),
+    its VMEM windows and have no counterpart here.  Not ported yet:
     ``prepadded`` and ``local_shape`` (the sharded path, ROADMAP A13), and
     ``with_macro=False``, the benchmark variant without the rho/u writes
     (ROADMAP A7).
     """
-    if force_field or macro_only:
-        raise NotImplementedError("force_field / macro_only are not ported yet (ROADMAP A11)")
     if prepadded or local_shape is not None:
         raise NotImplementedError("prepadded / local_shape (the sharded A-B step) are not "
                                   "ported yet (ROADMAP A13)")
     if not with_macro:
         raise NotImplementedError("with_macro=False is not ported yet (ROADMAP A7)")
-    return FusedStepAB(cfg, domain, device)
+    return FusedStepAB(cfg, domain, device, force_field=force_field, macro_only=macro_only)

@@ -19,7 +19,12 @@ import numpy as np
 import torch
 
 from tnl_lbm_tpu_torch.kernels.build import load_library
-from tnl_lbm_tpu_torch.kernels.fused import CudaKernel, _stream_bc_collide
+from tnl_lbm_tpu_torch.kernels.fused import (
+    CudaKernel,
+    _stream_bc_collide,
+    check_force_field,
+    site_force,
+)
 from tnl_lbm_tpu_torch.ops import boundary as bc
 from tnl_lbm_tpu_torch.ops import collision_2d as col2
 from tnl_lbm_tpu_torch.ops import equilibrium as eqlib
@@ -33,6 +38,8 @@ SUPPORTED_CODES_2D = frozenset({GEO.FLUID, GEO.WALL, GEO.NOTHING, GEO.INFLOW, GE
 #: ``tnl_lbm_d2q9_step`` variant per (collision, a force was passed)
 _VARIANTS = {(col2.collide_srt_2d, False): 0, (col2.collide_srt_2d, True): 1,
              (col2.collide_clbm_2d, False): 2, (col2.collide_clbm_2d, True): 2}
+#: its force_field variant per collision: the per-site force (SRT with Guo's term)
+_FF_VARIANTS = {col2.collide_srt_2d: 3, col2.collide_clbm_2d: 4}
 #: CUDA grid limit on the y block index, which carries X
 _MAX_GRID_Y = 65535
 
@@ -40,7 +47,8 @@ _MAX_GRID_Y = 65535
 def _refusal(cfg: LBMConfig, domain: Domain, codes=None) -> str | None:
     """Why the D2Q9 kernel does not take (cfg, domain), or None: it takes
     D2Q9 A-B steps with SRT or CLBM, ``eq_quadratic`` on total DFs, float32,
-    no forcing hook and the codes of ``SUPPORTED_CODES_2D``."""
+    no forcing hook (``kernels/hooked.py`` builds the force_field variant
+    on the config without it) and the codes of ``SUPPORTED_CODES_2D``."""
     if cfg.lat.name != "D2Q9":
         return f"lattice {cfg.lat.name}, not D2Q9"
     if cfg.streaming != "AB":
@@ -52,7 +60,7 @@ def _refusal(cfg: LBMConfig, domain: Domain, codes=None) -> str | None:
     if cfg.compute_dtype != torch.float32 or cfg.storage_dtype is not None:
         return "a state other than float32"
     if cfg.forcing_hook is not None:
-        return "a forcing hook"
+        return "a forcing hook (make_hooked_fused_step runs it)"
     codes = domain.codes_present() if codes is None else codes
     extra = codes - SUPPORTED_CODES_2D
     if extra:
@@ -77,8 +85,8 @@ def _vector2(value, what: str) -> tuple[float, float]:
     arr = np.asarray(value)
     if arr.shape != (2,):
         if what == "force" and arr.ndim > 1:
-            raise NotImplementedError("a per-site force is B5's force_field variant, not ported "
-                                      "yet (ROADMAP A11)")
+            raise NotImplementedError("a per-site force goes to B5's force_field variant "
+                                      "(make_fused_step_2d(force_field=True))")
         raise ValueError(f"{what} must be a [2] vector, got shape {arr.shape}")
     return tuple(float(v) for v in arr.astype(np.float32))
 
@@ -95,9 +103,14 @@ class FusedStep2D:
     strides, one on the host is copied there at each call.  ``parity`` is
     accepted for the common step contract and ignored.  ``kernel`` counts
     the launches, ``plain_calls`` the CPU-path calls.
+
+    ``force_field`` (JAX ``make_fused_step_2d``'s flag, the carrier of the
+    2D forcing hooks): ``force`` is a per-site [2, X, Y] float32 tensor on
+    f's device, plus the [2] host vector ``force_add`` at every site; SRT
+    always adds Guo's term with that per-site force.
     """
 
-    def __init__(self, cfg: LBMConfig, domain: Domain, device):
+    def __init__(self, cfg: LBMConfig, domain: Domain, device, force_field: bool = False):
         codes = domain.codes_present()
         reason = _refusal(cfg, domain, codes)
         if reason is not None:
@@ -111,7 +124,9 @@ class FusedStep2D:
         self.do_coll_codes = sorted(int(c) for c in (bc.collision_mask_codes(2) & codes))
         self.shape = domain.shape
         self.periodic = domain.periodic
-        self.kernel = CudaKernel("d2q9_step", "tnl_lbm_tpu_torch/csrc/d2q9_step.cu",
+        self.force_field = force_field
+        self.kernel = CudaKernel("d2q9_step" + ("_force_field" if force_field else ""),
+                                 "tnl_lbm_tpu_torch/csrc/d2q9_step.cu",
                                  "tnl_lbm_tpu/kernels/fused_2d.py:244")
         self.plain_calls = 0
         if self.device.type == "cuda":
@@ -145,44 +160,59 @@ class FusedStep2D:
             prof = prof.reshape(2, 1, 1)
         return prof.expand((2,) + tuple(self.shape)), (0.0, 0.0)
 
-    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None):
+    def _forces(self, f, force, force_add):
+        """(the per-site field or None, the homogeneous two floats)."""
+        if self.force_field:
+            return check_force_field(force, 2, self.shape, f.device), _vector2(force_add,
+                                                                                "force")
+        if force_add is not None:
+            raise ValueError("force_add belongs to the force_field variant")
+        return None, _vector2(force, "force")
+
+    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None,
+                 force_add=None):
         del parity
-        fvec = _vector2(force, "force")
+        field, fvec = self._forces(f, force, force_add)
         if out is not None and (out is f or out.shape != f.shape or out.dtype != f.dtype
                                 or out.device != f.device or not out.is_contiguous()):
             raise ValueError("out must be a second contiguous state buffer like f")
         prof, uvec = self._profile(u_in, f.device)
         if f.device.type == "cuda":
-            return self._launch(f, float(nu), fvec, force is not None, prof, uvec, out)
+            return self._launch(f, float(nu), field, fvec, force is not None, prof, uvec, out)
         self.plain_calls += 1
-        f_new, rho, u = self._plain(f, nu, fvec, force is not None, prof, uvec)
+        f_new, rho, u = self._plain(f, nu, field, fvec, force is not None, prof, uvec)
         if out is not None:
             f_new = out.copy_(f_new)
         return f_new, rho, u
 
-    def plain(self, f, nu, u_in=None, force=None):
+    def plain(self, f, nu, u_in=None, force=None, force_add=None):
         """The step's plain PyTorch version on f's device: (f_new, rho, u),
         f untouched.  The CPU path, and the oracle the kernel is held
         against on the card; it counts no call."""
         prof, uvec = self._profile(u_in, f.device)
-        return self._plain(f, nu, _vector2(force, "force"), force is not None, prof, uvec)
+        field, fvec = self._forces(f, force, force_add)
+        return self._plain(f, nu, field, fvec, force is not None, prof, uvec)
 
-    def _plain(self, f, nu, fvec, has_force, prof, uvec):
+    def _plain(self, f, nu, field, fvec, has_force, prof, uvec):
         S = tuple(f.shape[1:])
         fpad = stream.pad_halo(f, self.periodic)
 
         def shifted(q, offs):
             return stream._shift_slices(fpad[q], offs, S)
 
-        force_col = (torch.tensor(fvec, dtype=f.dtype, device=f.device).reshape(2, 1, 1)
-                     if has_force else None)
+        if field is not None:
+            fvec = site_force(field, fvec)
+            force_col = torch.stack(fvec)
+        else:
+            force_col = (torch.tensor(fvec, dtype=f.dtype, device=f.device).reshape(2, 1, 1)
+                         if has_force else None)
         thetas = None if self.thetas is None else self.thetas.to(f.device)
         return _stream_bc_collide(self.lat, self.cfg, self.codes, self.do_coll_codes, shifted,
                                   self.map.to(f.device), nu, fvec,
                                   u_in=uvec if prof is None else prof, thetas=thetas,
                                   collision_force=force_col)
 
-    def _launch(self, f, nu, fvec, has_force, prof, uvec, out):
+    def _launch(self, f, nu, field, fvec, has_force, prof, uvec, out):
         if self.device.type != "cuda" or f.device != self.map.device:
             raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
         if f.dtype != torch.float32:
@@ -197,9 +227,12 @@ class FusedStep2D:
         u = torch.empty((2, X, Y), dtype=f.dtype, device=f.device)
         bz = 0 if self.thetas is None else self.thetas.data_ptr()
         uin, strides = (0, (0, 0, 0)) if prof is None else (prof.data_ptr(), prof.stride())
-        variant = _VARIANTS[(self.cfg.collision, has_force)]
+        if field is None:
+            variant, ff = _VARIANTS[(self.cfg.collision, has_force)], None
+        else:
+            variant, ff = _FF_VARIANTS[self.cfg.collision], field.data_ptr()
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
-        rc = lib.tnl_lbm_d2q9_step(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(), bz, uin,
+        rc = lib.tnl_lbm_d2q9_step(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(), ff, bz, uin,
                                    *strides, rho.data_ptr(), u.data_ptr(), X, Y,
                                    sum(1 << a for a, p in enumerate(self.periodic) if p), variant,
                                    nu, *fvec, *uvec, stream_ptr)
@@ -213,12 +246,10 @@ def make_fused_step_2d(cfg: LBMConfig, domain: Domain, device, force_field: bool
                        local_shape=None) -> FusedStep2D:
     """D2Q9 A-B step for (cfg, domain) on ``device``: see :class:`FusedStep2D`.
     Raises NotImplementedError for a config that :func:`supports_2d`
-    refuses.  Not ported yet: ``force_field``, the per-site [2, X, Y]
-    force of the 2D forcing hooks (ROADMAP A11), and ``local_shape``, the
-    sharded path's block with its halo ring (ROADMAP A13)."""
-    if force_field:
-        raise NotImplementedError("B5's force_field variant is not ported yet (ROADMAP A11)")
+    refuses.  ``force_field`` builds the per-site-force variant.  Not
+    ported yet: ``local_shape``, the sharded path's block with its halo
+    ring (ROADMAP A13)."""
     if local_shape is not None:
         raise NotImplementedError("B5's local_shape (the sharded 2D step) is not ported yet "
                                   "(ROADMAP A13)")
-    return FusedStep2D(cfg, domain, device)
+    return FusedStep2D(cfg, domain, device, force_field=force_field)

@@ -46,6 +46,9 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     _stream_bc_collide,
     _u_in3,
     aa_variant,
+    check_force_field,
+    site_force,
+    variant_mode,
 )
 from tnl_lbm_tpu_torch.ops import streaming as stream
 from tnl_lbm_tpu_torch.ops.boundary import GEO
@@ -71,9 +74,10 @@ def from_storage(f: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 
 def even_step_plain(cfg: LBMConfig, codes, do_coll_codes, f, m, nu, force,
-                    u_in=(0.0, 0.0, 0.0)):
+                    u_in=(0.0, 0.0, 0.0), macro_only: bool = False):
     """A-A even step in plain PyTorch: returns (f_new, rho, u), f untouched.
-    ``force`` and ``u_in`` are 3 scalars each."""
+    ``force`` is 3 scalars or 3 per-site fields, ``u_in`` 3 scalars;
+    ``macro_only`` returns the u* moments (None, rho0, u0)."""
     opp = np.asarray(cfg.lat.opp)
 
     def shifted(q, offs):
@@ -81,12 +85,14 @@ def even_step_plain(cfg: LBMConfig, codes, do_coll_codes, f, m, nu, force,
         return f[q]
 
     return _stream_bc_collide(cfg.lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
-                              u_in=u_in, out_perm=opp)
+                              u_in=u_in, out_perm=opp, macro_only=macro_only)
 
 
 def odd_step_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, f, m, nu, force,
-                   u_in=(0.0, 0.0, 0.0)):
-    """A-A odd step in plain PyTorch: returns (f_new, rho, u), f untouched."""
+                   u_in=(0.0, 0.0, 0.0), macro_only: bool = False):
+    """A-A odd step in plain PyTorch: returns (f_new, rho, u), f untouched
+    (``macro_only``: (None, rho0, u0)).  Each site collides with its own
+    force; the push then edge-replicates the post-collision field."""
     lat = cfg.lat
     opp = np.asarray(lat.opp)
     S = tuple(f.shape[1:])
@@ -97,7 +103,9 @@ def odd_step_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, f, m, nu, for
         return stream._shift_slices(fpad[int(opp[q])], offs, S)
 
     f_post, rho, u = _stream_bc_collide(lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
-                                        u_in=u_in, defer_nothing=True)
+                                        u_in=u_in, defer_nothing=True, macro_only=macro_only)
+    if macro_only:
+        return None, rho, u
     # push = pull of the edge/wrap-padded post-collision field
     pushed = stream.pull(lat, stream.pad_halo(f_post, periodic), S)
     if GEO.NOTHING in codes:
@@ -115,9 +123,24 @@ class FusedStepAA:
     ``lean=False`` keeps the kernels' full-set CUM_WELL instance on a map of
     FLUID/WALL/NOTHING, where the odd step would take its lean one
     (``kernels/fused.py aa_variant``).
+
+    Variants (JAX ``make_fused_step_aa``'s flags), each its own instance of
+    both kernels; neither has a lean instance, so they take the full-set
+    CUM_WELL one:
+
+    - ``force_field``: ``force`` is a per-site [3, X, Y, Z] float32 tensor on
+      f's device plus the [3] host vector ``force_add`` at every site.  The
+      odd step collides each site with the force of that site and pushes
+      as the plain odd step does, so the edge-replicated layers carry the
+      edge site's own post-collision DFs, which reproduces the JAX kernel's
+      edge-replicated force ring (``_pad_force_ring``) with no ring tensor;
+    - ``macro_only``: the u* pre-pass, ``step(...) -> (rho0, u0)``, the
+      parity's read, the WALL swap, the symmetry mirrors and the moments
+      with the homogeneous force; f is not written.
     """
 
-    def __init__(self, cfg: LBMConfig, domain: Domain, device, lean: bool = True):
+    def __init__(self, cfg: LBMConfig, domain: Domain, device, lean: bool = True,
+                 force_field: bool = False, macro_only: bool = False):
         if cfg.streaming != "AA":
             raise ValueError("make_fused_step_aa needs streaming='AA'")
         self.cfg = cfg
@@ -125,45 +148,61 @@ class FusedStepAA:
         self.lat, self.codes, self.do_coll_codes = _prep(cfg, domain)
         self.shape = domain.shape
         self.periodic = domain.periodic
-        self.even = CudaKernel("aa_even", "tnl_lbm_tpu_torch/csrc/aa_even.cu",
+        self.force_field, self.macro_only = force_field, macro_only
+        self._mode, suffix = variant_mode(force_field, macro_only)
+        self.even = CudaKernel("aa_even" + suffix, "tnl_lbm_tpu_torch/csrc/aa_even.cu",
                                "tnl_lbm_tpu/kernels/fused_aa.py:408")
-        self.odd = CudaKernel("aa_odd", "tnl_lbm_tpu_torch/csrc/aa_odd.cu",
+        self.odd = CudaKernel("aa_odd" + suffix, "tnl_lbm_tpu_torch/csrc/aa_odd.cu",
                               "tnl_lbm_tpu/kernels/fused_aa.py:287")
         self.plain_calls = 0
         if self.device.type == "cuda":
             _check_kernel_config(cfg, domain, self.device)
-            self.variant = aa_variant(cfg, self.codes, lean)
+            self.variant = aa_variant(cfg, self.codes, lean and not (force_field or macro_only))
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:
         self.even.launches = self.odd.launches = self.plain_calls = 0
 
-    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0):
-        uvec, fvec = _u_in3(u_in), _force3(force)
+    def _forces(self, f, force, force_add):
+        """(the per-site field or None, the homogeneous three floats)."""
+        if self.force_field:
+            return check_force_field(force, 3, self.shape, f.device), _force3(force_add)
+        if force_add is not None:
+            raise ValueError("force_add belongs to the force_field variant")
+        return None, _force3(force)
+
+    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None):
+        field, fvec = self._forces(f, force, force_add)
+        uvec = _u_in3(u_in)
         if f.device.type == "cuda":
-            return self._launch(f, float(nu), fvec, uvec, parity)
+            return self._launch(f, float(nu), field, fvec, uvec, parity)
         self.plain_calls += 1
-        f_new, rho, u = self._plain(f, nu, fvec, uvec, parity)
+        f_new, rho, u = self._plain(f, nu, fvec, uvec, parity, field)
+        if self.macro_only:
+            return rho, u
         if parity == 0:
             f.copy_(f_new)
             return f, rho, u
         return f_new, rho, u
 
-    def plain(self, f, nu, u_in=None, force=None, parity: int = 0):
+    def plain(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None):
         """The step's plain PyTorch version on f's device: (f_new, rho, u),
-        f untouched.  The CPU path, and the oracle the kernels are held
-        against on the card; it counts no call."""
-        return self._plain(f, nu, _force3(force), _u_in3(u_in), parity)
+        or (rho0, u0) for the u* pass; f untouched.  The CPU path, and the
+        oracle the kernels are held against on the card; it counts no call."""
+        field, fvec = self._forces(f, force, force_add)
+        f_new, rho, u = self._plain(f, nu, fvec, _u_in3(u_in), parity, field)
+        return (rho, u) if self.macro_only else (f_new, rho, u)
 
-    def _plain(self, f, nu, fvec, uvec, parity):
+    def _plain(self, f, nu, fvec, uvec, parity, field=None):
         m = self.map.to(f.device)
+        force = fvec if field is None else site_force(field, fvec)
         if parity == 0:
-            return even_step_plain(self.cfg, self.codes, self.do_coll_codes, f, m, nu, fvec,
-                                   uvec)
+            return even_step_plain(self.cfg, self.codes, self.do_coll_codes, f, m, nu, force,
+                                   uvec, macro_only=self.macro_only)
         return odd_step_plain(self.cfg, self.codes, self.do_coll_codes, self.periodic,
-                              f, m, nu, fvec, uvec)
+                              f, m, nu, force, uvec, macro_only=self.macro_only)
 
-    def _launch(self, f, nu, fvec, uvec, parity):
+    def _launch(self, f, nu, field, fvec, uvec, parity):
         if self.device.type != "cuda" or f.device != self.map.device:
             raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
         if f.dtype != torch.float32:
@@ -177,35 +216,33 @@ class FusedStepAA:
         u = torch.empty((3, X, Y, Z), dtype=f.dtype, device=f.device)
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
         neumaier = int(self.cfg.high_precision_rho)
+        ff = None if field is None else field.data_ptr()
         if parity == 0:
-            rc = lib.tnl_lbm_aa_even(f.data_ptr(), self.map.data_ptr(), rho.data_ptr(),
-                                     u.data_ptr(), X, Y, Z, self.variant, nu, *fvec, *uvec,
-                                     neumaier, stream_ptr)
+            rc = lib.tnl_lbm_aa_even(f.data_ptr(), self.map.data_ptr(), ff, rho.data_ptr(),
+                                     u.data_ptr(), X, Y, Z, self.variant, self._mode, nu, *fvec,
+                                     *uvec, neumaier, stream_ptr)
             kernel, f_new = self.even, f
         else:
-            f_new = torch.empty_like(f)
-            rc = lib.tnl_lbm_aa_odd(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
-                                    rho.data_ptr(), u.data_ptr(), X, Y, Z,
-                                    _periodic_bits(self.periodic),
-                                    int(GEO.NOTHING in self.codes), self.variant, nu, *fvec,
-                                    *uvec, neumaier, stream_ptr)
+            f_new = None if self.macro_only else torch.empty_like(f)
+            rc = lib.tnl_lbm_aa_odd(f.data_ptr(), None if f_new is None else f_new.data_ptr(),
+                                    self.map.data_ptr(), ff, rho.data_ptr(), u.data_ptr(),
+                                    X, Y, Z, _periodic_bits(self.periodic),
+                                    int(GEO.NOTHING in self.codes), self.variant, self._mode,
+                                    nu, *fvec, *uvec, neumaier, stream_ptr)
             kernel = self.odd
         if rc != 0:
             raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
         kernel.launches += 1
-        return f_new, rho, u
+        return (rho, u) if self.macro_only else (f_new, rho, u)
 
 
 def make_fused_step_aa(cfg: LBMConfig, domain: Domain, device, force_field: bool = False,
                        macro_only: bool = False, lean: bool = True) -> FusedStepAA:
-    """A-A step for (cfg, domain) on ``device``: see :class:`FusedStepAA`.
-
-    The ``force_field`` (per-site force) and ``macro_only`` (u* pre-pass)
-    variants of the JAX kernels are not ported yet (ROADMAP A11).
-    """
-    if force_field or macro_only:
-        raise NotImplementedError("force_field / macro_only are not ported yet (ROADMAP A11)")
-    return FusedStepAA(cfg, domain, device, lean=lean)
+    """A-A step for (cfg, domain) on ``device``: see :class:`FusedStepAA`,
+    with its ``force_field`` (per-site force) and ``macro_only`` (u*
+    pre-pass) variants."""
+    return FusedStepAA(cfg, domain, device, lean=lean, force_field=force_field,
+                       macro_only=macro_only)
 
 
 class FusedPairAA:

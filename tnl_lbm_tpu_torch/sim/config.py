@@ -27,7 +27,10 @@ class LBMConfig:
       streaming: "AB" (pull, double buffer) or "AA" (single buffer, parity steps).
       well: DFs stored as deviations from lattice weights (well-conditioned).
       compute_dtype: torch dtype of DFs and macro fields.
-      forcing_hook: per-step forcing hook (not ported yet: refused by the steps).
+      forcing_hook: per-step forcing hook ``hook(lat, rho, u, nu, fluid_mask)
+        -> force [D, *S]`` (the non-Newtonian force of ops/non_newtonian.py;
+        reference kernels.h:92, nonNewtonian.h:393-): the plain step adds it
+        to the body force, the kernels run it through kernels/hooked.py.
       high_precision_rho: Neumaier-compensated density sum
         (reference USE_HIGH_PRECISION_RHO, d3q27/common.h:19-28).
       storage_dtype: 16-bit at-rest DF storage (torch.float16 or

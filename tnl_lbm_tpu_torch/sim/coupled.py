@@ -19,16 +19,18 @@ diffusion coefficient may be a per-site field.
   (B8): the even parity updates f and g in place, the odd one writes the
   second buffers;
 - ``"plain"`` (the JAX package's ``"xla"``): without ``use_fused``, the
-  plain steps ``sim/step.py`` and ``sim/step_ade.py``.
+  plain steps ``sim/step.py`` and ``sim/step_ade.py``;
+- ``"two-kernel"``: ``use_fused`` with a forcing hook (the non-Newtonian
+  force) under A-B - the hooked A-B step (``kernels/hooked.py``: the
+  one-kernel NN step or its pipeline) then the ADE step (B6) on the
+  velocity it wrote (JAX ``sim/coupled.py:153-180``).
 
-The JAX package's third path, ``"two-kernel"`` (the A-B step, B4, then the
-ADE step, B6), is its fallback where the coupled kernel is not built: a
-forcing hook, or the A-A pair with transfer codes, where its ADE half runs
-unfused.  The port refuses those configs (a forcing hook names ROADMAP
-A11; the A-A pair's refusal names its reason), since a plain step on the
-card is no path, so ``sim_init`` never picks it.  ``_advance`` still runs
-B4 then B6 when ``_coupled_step`` is dropped after ``sim_init`` on the A-B
-path: that is how B7 is held against the two launches.
+The JAX package also falls back to "two-kernel" for the A-A pair with
+transfer codes and for a hook under A-A, where its ADE half runs unfused
+(B6 is A-B only).  The port refuses both, since a plain step on the card is
+no path.  ``_advance`` runs B4 then B6 too when ``_coupled_step`` is
+dropped after ``sim_init`` on the A-B path: that is how B7 is held against
+the two launches.
 
 The kernel paths ping-pong two preallocated f buffers and two g buffers.
 Mixed patterns with ``use_fused``, a sharded plan (ROADMAP A13) and
@@ -116,6 +118,18 @@ class CoupledSimulation(Simulation):
             self._ade_step = make_ade_step(self.ade_cfg, self.ade_domain)
             self.coupled_kernel = "plain"
             return
+        if self.cfg.forcing_hook is not None:
+            # the hooked NSE step (built by Simulation._build_step), then B6
+            if self.cfg.streaming == "AA":
+                raise NotImplementedError(
+                    "a forcing hook under A-A has no kernel path: the JAX driver runs its "
+                    "ADE half plain there (B6 is A-B only)")
+            self._ade_step = make_fused_ade_step(
+                self.ade_cfg, self.ade_domain, self.device, variable_diffusion=variable,
+                transfer_coeff=float(self.transfer_coeff))
+            self.coupled_kernel = "two-kernel"
+            self._g_spare = torch.empty_like(self.g)
+            return
         # both halves in one kernel: the NSE velocity never round-trips
         # through memory (reference kernels.h:102-176)
         if self.cfg.streaming == "AA":
@@ -154,9 +168,9 @@ class CoupledSimulation(Simulation):
                     self._spare, self.f = self.f, f
                     self._g_spare, self.g = self.g, g
             elif self.use_fused:
-                # the two-kernel path: B4, then B6 on the u it stored
+                # the two-kernel path: B4 (or the hooked A-B step), then B6 on the u it stored
                 f, self.rho, self.u = self._step(self.f, nu, u_in=u_in, force=force,
-                                                 out=self._spare)
+                                                 out=self._spare, **self._hook_kwargs())
                 self._spare, self.f = self.f, f
                 g, self.phi = self._ade_step(self.g, self.u, nu_ade, phi_in=phi_in,
                                              out=self._g_spare)

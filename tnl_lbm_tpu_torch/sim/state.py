@@ -19,7 +19,10 @@ step goes through the A-B kernel (``make_fused_step``; on a D2Q9 lattice
 the D2Q9 kernel, ``make_fused_step_2d``, which raises for a config it does
 not take), which writes into a second preallocated state buffer: the loop
 ping-pongs the two, so the state takes two buffers and a step allocates
-none.  With A-A streaming,
+none.  A config with a forcing hook (the non-Newtonian force) runs
+``make_hooked_fused_step`` (``kernels/hooked.py``): the one-kernel NN step
+or the u*/hook/force-field pipeline; ``sample_phase_timers`` times its
+phases.  With A-A streaming,
 pairs of steps go through the one-kernel A-A pair (``make_fused_pair2_aa``)
 when pair dispatch is on, and single steps - a leftover odd step, or every
 step when pair dispatch is off or the pair refuses the map or collision -
@@ -255,6 +258,14 @@ class Simulation:
         if not self.use_fused:
             self._step = make_step(cfg, self.domain)
             return
+        if self.cfg.forcing_hook is not None:
+            # the non-Newtonian / IBM force: u* pass + hook + force-field
+            # kernel, or the one-kernel NN step (reference kernels.h:92,
+            # 178-218); a 2D config the D2Q9 kernel refuses raises there
+            from tnl_lbm_tpu_torch.kernels.hooked import make_hooked_fused_step
+
+            self._step = make_hooked_fused_step(cfg, self.domain, self.device)
+            return
         if self.cfg.lat.D == 2:
             # a D2Q9 config the kernel refuses raises, where the JAX driver
             # runs its XLA step (ROADMAP §C)
@@ -423,6 +434,7 @@ class Simulation:
         if n_steps >= 2 and self.iterations % 2 == 0 and self._pair_dispatch_ok():
             n_pairs, n_steps = divmod(n_steps, 2)
             self._advance_pairs(n_pairs, nu)
+        kw = self._hook_kwargs()
         for _ in range(n_steps):
             u_in = self.update_inflow(self.phys_time())
             force = self.body_force(self.phys_time())
@@ -431,15 +443,41 @@ class Simulation:
             if self._ab_kernel():
                 # A-B kernel: write into the spare buffer, keep the old state as the next spare
                 f_new, self.rho, self.u = self._step(self.f, nu, u_in=u_in, force=force,
-                                                     out=self._spare)
+                                                     out=self._spare, **kw)
                 self._spare, self.f = self.f, f_new
             else:
                 self.f, self.rho, self.u = self._step(self.f, nu, u_in=u_in, force=force,
-                                                      parity=parity)
+                                                      parity=parity, **kw)
             self.iterations += 1
             self.compute_after_step()
         synchronize(self.device)
         self._compute_time += time.perf_counter() - t0
+
+    def _hook_kwargs(self) -> dict:
+        """The step's ``hook_consts`` argument: a hook's constant arrays
+        (IBM's) are handed to every step (JAX ``state.py``: ``hook_consts``)."""
+        consts = getattr(self.cfg.forcing_hook, "consts", None)
+        return {} if consts is None else {"hook_consts": consts}
+
+    def sample_phase_timers(self, repeats: int = 3) -> dict | None:
+        """Per-phase times of the hooked step on the current state, in ms
+        (``HookedStep.phase_times``: the u* pass, the hook and the main
+        kernel, or the one-kernel NN step), logged to the profile log - the
+        analog of the reference's IBM phase-timing JSON
+        (lagrange_3D.hpp:368-378,856-859).  None when the step has no
+        phases (no hook, or the plain step).  Its launches count as any
+        other."""
+        pt = getattr(self._step, "phase_times", None)
+        if pt is None or self.f is None:
+            return None
+        force = self.body_force(self.phys_time())
+        parity = (self.iterations % 2) if self.cfg.streaming == "AA" else 0
+        out = pt(self.f, self.domain.units.lbm_viscosity(), force=force, parity=parity,
+                 repeats=repeats)
+        line = ", ".join(f"{k} {v:.4f} ms" for k, v in out.items())
+        self.prof.info("hooked phases (sampled): %s", line)
+        self.log.info("hooked phases (sampled): %s", line)
+        return out
 
     # ------------------------------------------------------------- actions
     def _nan_guard(self) -> bool:
@@ -544,6 +582,10 @@ class Simulation:
         self._glups_prev_time = now
 
     def after_sim_finished(self):
+        #: one sampled phase breakdown per hooked run; opt out by setting
+        #: sample_phases_at_finish = False before run()
+        if getattr(self, "sample_phases_at_finish", True):
+            self.sample_phase_timers()
         wall = time.time() - self._t_wall_start
         it = self.iterations - self.start_iterations
         sites = self.domain.units.num_sites

@@ -59,8 +59,6 @@ def check_supported(cfg: LBMConfig, domain: Domain, pair: bool = False, codes=No
             f"walls are D2Q9 only; the transfer tags belong to the ADE lattice: ROADMAP A8)")
     if cfg.streaming == "AA" and GEO.OUTFLOW_RIGHT_INTERP in codes:
         raise NotImplementedError("OUTFLOW_RIGHT_INTERP requires the A-B pattern")
-    if cfg.forcing_hook is not None:
-        raise NotImplementedError("forcing hooks are not ported yet (ROADMAP A11)")
     if cfg.storage_dtype is not None and not pair:
         raise NotImplementedError(
             "cfg.storage_dtype (half storage) needs pair dispatch: the one-kernel A-A "
@@ -80,12 +78,21 @@ def as_vector(lat, arr, dtype, device) -> torch.Tensor:
 def make_step(cfg: LBMConfig, domain: Domain):
     """Build the per-step function for (cfg, domain).
 
-    Returns ``step(f, nu, u_in=None, force=None, parity=0) -> (f_new, rho, u)``
-    with ``parity`` the A-A parity (ignored for A-B).  ``u_in`` (a [D]
-    vector or a per-site profile broadcastable to [D, *S]) feeds the INFLOW
-    and INFLOW_LEFT codes, ``force`` is the homogeneous body force.  On a
-    D2Q9 lattice FLUID_NEAR_WALL sites take the Bouzidi pull with
-    ``domain.bouzidi``'s thetas (none given: they stream plainly).
+    Returns ``step(f, nu, u_in=None, force=None, parity=0, hook_consts=None)
+    -> (f_new, rho, u)`` with ``parity`` the A-A parity (ignored for A-B).
+    ``u_in`` (a [D] vector or a per-site profile broadcastable to [D, *S])
+    feeds the INFLOW and INFLOW_LEFT codes, ``force`` is the body force (a
+    [D] vector or a [D, *S] field).  On a D2Q9 lattice FLUID_NEAR_WALL
+    sites take the Bouzidi pull with ``domain.bouzidi``'s thetas (none
+    given: they stream plainly).
+
+    With ``cfg.forcing_hook`` (a non-Newtonian or IBM force) the step
+    evaluates ``hook(lat, rho0, u0, nu, fluid[, consts=hook_consts])`` on
+    the u* moments - the streamed, wall/symmetry-transformed moments with
+    the body force - and adds its output to the body force of the final
+    moments and the collision.  ``step.ustar(f, force=None, parity=0) ->
+    (rho0, u0, fluid)`` is that u* pass alone (reference kernels.h:178-218),
+    the first phase of ``kernels/hooked.py``'s pipeline.
     """
     check_supported(cfg, domain)
     lat = cfg.lat
@@ -133,21 +140,39 @@ def make_step(cfg: LBMConfig, domain: Domain):
                                stream.bouzidi(lat, shifted, f_in, thetas), f_in)
         return f_in
 
-    def step(f, nu, u_in=None, force=None, parity: int = 0):
-        map_arr, thetas = _map(f.device)
-        masks = {c: map_arr == int(c) for c in codes}
-        do_coll = torch.isin(map_arr, torch.as_tensor(do_coll_codes, device=f.device))
-
+    def _transformed(f, parity, masks, thetas):
+        """The pulled DFs after the pure f transforms (WALL swap, symmetry mirrors)."""
         f_in = _stream_in(f, parity, masks, thetas)
-        u_in_b = as_vector(lat, u_in, dtype, f.device) if u_in is not None else None
-        force_b = as_vector(lat, force, dtype, f.device) if force is not None else None
-
-        # pure f transforms
         if GEO.WALL in codes:
             f_in = bc.apply_bounce_back(lat, f_in, masks[GEO.WALL])
         for c in sym_codes:
             axis, sign = bc.sym_table(D)[c]
             f_in = bc.apply_symmetry(lat, f_in, masks[c], axis, sign)
+        return f_in
+
+    def _fluid(masks, device):
+        m = masks.get(GEO.FLUID)
+        return m if m is not None else torch.zeros(S, dtype=torch.bool, device=device)
+
+    def step(f, nu, u_in=None, force=None, parity: int = 0, hook_consts=None):
+        map_arr, thetas = _map(f.device)
+        masks = {c: map_arr == int(c) for c in codes}
+        do_coll = torch.isin(map_arr, torch.as_tensor(do_coll_codes, device=f.device))
+
+        f_in = _transformed(f, parity, masks, thetas)
+        u_in_b = as_vector(lat, u_in, dtype, f.device) if u_in is not None else None
+        force_b = as_vector(lat, force, dtype, f.device) if force is not None else None
+
+        # the forcing hook (e.g. the non-Newtonian div(S) force), evaluated on
+        # the u* moments and folded into the total force of the final moments
+        # and the collision
+        hook = cfg.forcing_hook
+        if hook is not None:
+            rho0, u0 = mom.density_velocity(lat, f_in, force=force_b, well=cfg.well,
+                                            high_precision=cfg.high_precision_rho)
+            kw = {"consts": hook_consts} if getattr(hook, "consts", None) is not None else {}
+            extra = hook(lat, rho0, u0, nu, _fluid(masks, f.device), **kw)
+            force_b = extra if force_b is None else force_b + extra
 
         rho, u = mom.density_velocity(lat, f_in, force=force_b, well=cfg.well,
                                       high_precision=cfg.high_precision_rho)
@@ -180,4 +205,17 @@ def make_step(cfg: LBMConfig, domain: Domain):
                 u_out = torch.where(masks[c], torch.zeros_like(u), u_out)
         return f_out.contiguous(), rho_out, u_out
 
+    def ustar(f, force=None, parity: int = 0):
+        """The u* pass: (rho0, u0, fluid) - the moments with the body force
+        of the pulled, wall/symmetry-transformed DFs, before the
+        inflow/outflow macro overrides (the hook's input in ``step``)."""
+        map_arr, thetas = _map(f.device)
+        masks = {c: map_arr == int(c) for c in codes}
+        f_in = _transformed(f, parity, masks, thetas)
+        force_b = as_vector(lat, force, dtype, f.device) if force is not None else None
+        rho0, u0 = mom.density_velocity(lat, f_in, force=force_b, well=cfg.well,
+                                        high_precision=cfg.high_precision_rho)
+        return rho0, u0, _fluid(masks, f.device)
+
+    step.ustar = ustar
     return step
