@@ -15,8 +15,11 @@ TPU-measured golden KE corpus; the forcing-hook path - the non-Newtonian
 force through the one-kernel NN step (B10) or the pipeline of the u* pass
 (the macro_only variants of B4, B2/B3), the NN force kernel (B9) and the
 force_field variants (B4, B2/B3, B5) - in ``Simulation`` and
-``CoupledSimulation``.  Each phase prints result lines; any failing phase
-raises and the script exits non-zero without printing a result.
+``CoupledSimulation``; the port's benchmark entry (``python -m
+tnl_lbm_tpu_torch.bench``) through the one-kernel pair (B1) and the
+two-kernel pair (B1b); the site-major A-B step (B4s) and the window probes
+(P3, P4).  Each phase prints result lines; any failing phase raises and the
+script exits non-zero without printing a result.
 
 1. device: the card, ``nvidia-smi`` name and power limit, torch/CUDA versions;
 2. build: compile the kernels from ``tnl_lbm_tpu_torch/csrc`` (one ``nvcc``
@@ -72,6 +75,19 @@ raises and the script exits non-zero without printing a result.
 4. probes: the copy floor P1 at 256^3 (GB/s at 232 B/site, share of the
    published 3.35 TB/s) and the pair's memory/compute split P2a/P2b at
    256^3 with 0, 20 and 60 passes, each held against its plain version;
+   the element pipeline P3 (scripts/probe_element_pipeline.py's four
+   (tile, passes) variants) and the window copy P4 (the six covering
+   windows of scripts/probe_dma_align.py, each through 4-byte loads,
+   16-byte loads and TMA) on a padded [27, 260, 272, 256] state, their
+   interiors bit-equal to the plain versions', and P4's seventh window,
+   which does not cover its tile, raising; then all timed;
+   layouts (after 3c): the two-kernel A-A pair B1b on sim_2's res-2 duct
+   and on the box of every A-A code per variant, two pairs from the same
+   input on both sides, each kernel on its own too and the even kernel's
+   ring equal to ``pad_halo`` bit for bit; at 256^3 against its plain
+   version and timed (pair, even, odd) beside B1 and B2 + B3; the
+   site-major A-B step B4s on 3c's cases (dummy components zero), then at
+   256^3 against its plain version and timed beside B4;
 5. main paths, each with the launch counts set to 0 just before it and read
    just after: ``Simulation`` on the 256^3 bench duct, 200 per-step A-A
    dispatches; ``pair_dispatch="auto"`` (the probe's choice and both
@@ -101,7 +117,10 @@ raises and the script exits non-zero without printing a result.
    with ``--streaming AA``, 100 steps through B2/B3, and the kernel vs
    plain check of one even and one odd step from a res-4 run's final
    state (the plain A-A step's temporaries at res 8 would not fit beside
-   the run);
+   the run); then the benchmark entry (``tnl_lbm_tpu_torch.bench``'s
+   ``main``, its JSON line parsed): pair2 in f32, f16 and bf16 and pair
+   (B1b), 50 timed pairs each from the rest state at 256^3, every kernel's
+   launch count > 0 and no plain call;
 6. the 2D slice (after the main paths; the D2Q9 kernel's bounds as the
    step compares'):
    a. compare_2d: B5 against its plain version at 37 x 150 (neither a
@@ -181,8 +200,14 @@ raises and the script exits non-zero without printing a result.
 The line before the last is the kernels' JSON record (bound_ms: the larger
 of the bytes over the published 3.35 TB/s and the FP32 operations over
 67 TFLOP/s, at 256^3 sites; B5's launches: the golden sweep, the three 2D
-apps' kernel runs and the res-64 run); the last line is
-``{"ok": true, "device": {...}}``.
+apps' kernel runs and the res-64 run; B1b's: the bench entry's; B4s's and
+the probes': their timings'; library_ms: P4's function as one PyTorch
+call, ``interior(fpad).contiguous()``, and null where no single PyTorch
+call computes a kernel's function; B1b's two entries also give the pair's
+time, ``pair_ms``, and its least-work bound, ``pair_bound_ms``: B1's 233
+B/site); the last line is ``{"ok": true, "device": {...}}``.  The
+script's total time and that of the P3/P4, layouts and bench-entry phases
+are logged before them.
 """
 
 from __future__ import annotations
@@ -208,6 +233,7 @@ HBM_PEAK_GBPS = 3350.0  # H100 SXM data sheet
 STORES = ("f32", "f16", "bf16")
 PAIR_BYTES = {"f32": 233, "f16": 125, "bf16": 125}  # B/site per pair (f in + out, map, rho/u)
 AB_BYTES = 233  # B/site per A-B step: 27 f32 in and out, the map, rho and u
+SITEMAJOR_BYTES = 253  # B4s: 27 f32 in, 32 out (the zero dummies), the map, rho and u
 SIM1_RES, APP_STEPS, TOL_APP = 8, 100, 1e-5
 SIM1_AA_PLAIN_RES = 4  # sim_1 A-A kernel vs plain: the plain step's temporaries at res 8 exceed the card
 FP32_PEAK_TFLOPS = 67.0  # H100 SXM data sheet, outside the tensor cores
@@ -218,6 +244,9 @@ COUPLED_RES = 8
 #: the y band of sim_coupled that the WALL_BODY walls cannot reach in APP_STEPS steps
 WALL_REACH = APP_STEPS
 PROBE_PASSES = (0, 20, 60)
+#: the P3 variant and the P4 window of the JSON record: 20 passes as P2's,
+#: and the script's status-quo window (y_off 0, ty + 16 rows, dst_off 0)
+ELEMENT_TIMED, WINDOW_TIMED = (8, 32, 20), (0, 48, 0)
 DEVICE = "cuda"
 #: the D2Q9 step (B5): 9 f32 in and out, the map, rho and u (B/site); the
 #: thetas and the profile are added per run, at the sites that read them
@@ -254,20 +283,15 @@ def rand_f(cfg, shape, device, seed=0):
 
 
 def flagship(shape, storage=None, streaming="AA"):
-    """The bench duct: walls on the y and z faces, periodic in x
-    (__graft_entry__.py:17-44), with lattice viscosity NU."""
-    import dataclasses
+    """The bench duct of the port's benchmark entry (``bench.flagship``:
+    walls on the y and z faces, periodic in x, lattice viscosity NU), with
+    ``streaming`` and, for "f16" / "bf16", half storage."""
+    from tnl_lbm_tpu_torch import bench
 
-    from tnl_lbm_tpu_torch import interop
-    from tnl_lbm_tpu_torch.ops.boundary import GEO
-
-    m = np.zeros(shape, np.uint8)
-    m[:, 0] = m[:, -1] = GEO.WALL
-    m[:, :, 0] = m[:, :, -1] = GEO.WALL
-    cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, streaming)
+    cfg, dom = bench.flagship(shape)
+    cfg = dataclasses.replace(cfg, streaming=streaming)
     if storage not in (None, "f32"):
         cfg = dataclasses.replace(cfg, storage_dtype=store_dtype(storage))
-    dom = interop.domain_from_numpy(m, (True, False, False), phys_viscosity=NU)
     return cfg, dom
 
 
@@ -359,6 +383,11 @@ COUPLED_KERNEL_NAMES = tuple(f"coupled_{n}_{c}_kernel" for n in NSE_VARIANTS
 AA_KERNEL_NAMES = tuple(f"aa_{p}_{n}_kernel" for p in ("even", "odd") for n in NSE_VARIANTS)
 COUPLED_AA_KERNEL_NAMES = tuple(f"coupled_aa_{p}_{n}_{c}_kernel" for p in ("even", "odd")
                                 for n in NSE_VARIANTS for c in ("srt", "mrt", "clbm", "clbm_rs"))
+LAYOUT_KERNEL_NAMES = (("aa_pair_pad_odd_kernel",)
+                       + tuple(f"aa_pair_pad_{p}_{n}_kernel" for p in ("even", "odd")
+                               for n in NSE_VARIANTS)
+                       + tuple(f"ab_step_sitemajor_{n}_kernel" for n in NSE_VARIANTS))
+WINDOW_KERNEL_NAMES = tuple(f"window_copy_{load}_kernel" for load in ("ld4", "ld16", "tma"))
 
 
 def sass_fp32_ops(lib_path) -> dict:
@@ -401,7 +430,8 @@ def phase_build() -> dict:
     names = (("aa_odd_kernel", "aa_pair_f32_kernel", "aa_pair_f16_kernel",
               "aa_pair_bf16_kernel", "ab_step_cum_well_kernel", "ab_step_cum_quad_kernel",
               "ab_step_cum_invcum_kernel", "copy_permute_kernel", "pair_pipeline_kernel",
-              "pair_compute_only_kernel") + AA_KERNEL_NAMES + ADE_KERNEL_NAMES
+              "pair_compute_only_kernel", "element_pipeline_kernel") + LAYOUT_KERNEL_NAMES
+             + WINDOW_KERNEL_NAMES + AA_KERNEL_NAMES + ADE_KERNEL_NAMES
              + COUPLED_KERNEL_NAMES + COUPLED_AA_KERNEL_NAMES + D2Q9_KERNEL_NAMES
              + NN_KERNEL_NAMES)
     for name in names:
@@ -584,8 +614,8 @@ def phase_compare_pairs(step_times: dict) -> dict:
 
 
 def phase_probes() -> dict:
-    """P1 and P2 at 256^3 against their plain versions, then timed with the
-    launch counts set to 0 just before."""
+    """P1-P4 at 256^3 against their plain versions (P4's uncovering window
+    must raise), then timed with the launch counts set to 0 just before."""
     import torch
 
     from tnl_lbm_tpu_torch.kernels import probes
@@ -602,8 +632,36 @@ def phase_probes() -> dict:
         err["pair_pipeline"] = max(err.get("pair_pipeline", 0.0), d)
         d = max_diff(probes.pair_compute_only(f, passes), probes.pair_compute_only_plain(f, passes))
         err["pair_compute_only"] = max(err.get("pair_compute_only", 0.0), d)
+    X, Y, Z = BENCH_SHAPE
+    t_window = time.perf_counter()
+    fpad = torch.randn((27, X + 4, Y + 16, Z), device=dev,
+                       generator=torch.Generator(dev).manual_seed(4))
+    for tx, ty, passes in probes.ELEMENT_VARIANTS:  # the interiors, bit for bit
+        got = probes.element_pipeline(fpad, tx, ty, passes)
+        want = probes.element_pipeline_plain(fpad, tx, ty, passes)
+        if not torch.equal(probes.interior(got), probes.interior(want)):
+            raise RuntimeError(f"element_pipeline ({tx}, {ty}, {passes}) is not its plain "
+                               f"version's interior bit for bit")
+        del got, want
+    covering = [v for v in probes.DMA_VARIANTS if probes.window_covers(v[0], v[1], v[3])]
+    for y_off, wy, label, dst_off in probes.DMA_VARIANTS:
+        if (y_off, wy, label, dst_off) not in covering:
+            try:
+                probes.window_copy(fpad, y_off, wy, dst_off)
+            except ValueError as exc:
+                log("probes", window=repr(label), covers=False, raises=repr(str(exc)[:60]))
+                continue
+            raise RuntimeError(f"window_copy {label!r} does not cover its tile and did not raise")
+        for load in probes.LOADS:
+            if not torch.equal(probes.window_copy(fpad, y_off, wy, dst_off, load),
+                               probes.window_copy_plain(fpad, y_off, wy, dst_off)):
+                raise RuntimeError(f"window_copy {label!r} ({load}) is not the interior")
+    for name in ("element_pipeline",) + tuple(name for _, name in probes.LOADS.values()):
+        err[name] = 0.0  # bit-equal interiors, checked above
+    t_window = time.perf_counter() - t_window
     torch.cuda.synchronize()
-    log("probes", compare="kernel vs plain at 256^3", **{f"max_abs_err_{k}": v for k, v in err.items()})
+    log("probes", compare="kernel vs plain at 256^3", covering_windows=len(covering),
+        **{f"max_abs_err_{k}": v for k, v in err.items()})
     if any(v != 0.0 for v in err.values()):
         raise RuntimeError(f"probe kernels disagree with their plain versions: {err}")
 
@@ -631,11 +689,44 @@ def phase_probes() -> dict:
             plain_ms=f"{co_plain_ms:.3f}")
     del f
     torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    for tx, ty, passes in probes.ELEMENT_VARIANTS:
+        ms = time_ms(lambda: probes.element_pipeline(fpad, tx, ty, passes), reps=20)
+        plain_ms = time_ms(lambda: probes.element_pipeline_plain(fpad, tx, ty, passes), reps=3)
+        if (tx, ty, passes) == ELEMENT_TIMED:
+            times["element_pipeline"] = (ms, plain_ms)
+        script_bytes = 27 * 4 * ((tx + 4) * (ty + 16) / (tx * ty) + 1)  # the script's GB count
+        log("probes", kernel="element_pipeline", tile=f"{tx}x{ty}", passes=passes,
+            zchunk=probes.element_zchunk(tx, ty, Z), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+            gbps_216B=f"{gbps(216, ms):.1f}", gbps_script=f"{gbps(script_bytes, ms):.1f}")
+    library = {}  # P4's function as one PyTorch call: the interior, made contiguous
+    for y_off, wy, label, dst_off in covering:
+        line = {}
+        timed = (y_off, wy, dst_off) == WINDOW_TIMED
+        if timed:
+            library_ms = time_ms(lambda: probes.interior(fpad).contiguous(), reps=20)
+            line["library_ms"] = f"{library_ms:.4f}"
+        for load, (_, name) in probes.LOADS.items():
+            ms = time_ms(lambda: probes.window_copy(fpad, y_off, wy, dst_off, load), reps=20)
+            line[f"{load}_ms"] = f"{ms:.4f}"
+            if timed:
+                plain_ms = time_ms(lambda: probes.window_copy_plain(fpad, y_off, wy, dst_off),
+                                   reps=3)
+                times[name] = (ms, plain_ms)
+                library[name] = library_ms
+        script_bytes = 27 * 4 * (20 * wy / (16 * 32) + 1)
+        log("probes", kernel="window_copy", window=repr(label), y_off=y_off, wy=wy,
+            dst_off=dst_off, **line, gbps_216B_tma=f"{gbps(216, float(line['tma_ms'])):.1f}",
+            gbps_script_tma=f"{gbps(script_bytes, float(line['tma_ms'])):.1f}")
+    del fpad
+    torch.cuda.empty_cache()
+    t_window += time.perf_counter() - t_start
     counts = {k: v.launches for k, v in probes.KERNELS.items()}
     log("probes", launches=counts)
     if min(counts.values()) <= 0:
         raise RuntimeError("a probe kernel was not launched")
-    return {"err": err, "times": times, "kernels": dict(probes.KERNELS)}
+    return {"err": err, "times": times, "library": library, "kernels": dict(probes.KERNELS),
+            "window_seconds": t_window}
 
 
 def ab_cases():
@@ -706,6 +797,200 @@ def phase_compare_ab(step_times: dict, floor_gbps: float) -> dict:
         odd_ms=f"{step_times['aa_odd'][0]:.4f}", gbps_233B=f"{rate:.1f}",
         share_of_p1_floor=f"{rate / floor_gbps:.3f}", mlups_kernel=f"{np.prod(BENCH_SHAPE) / ms / 1e3:.1f}")
     return {"err": {"ab_step": max(worst_f, d[0])}, "times": {"ab_step": (ms, plain_ms)}}
+
+
+def b1b_bytes(shape) -> tuple[float, float]:
+    """Bytes per site the two-kernel pair's kernels must move at ``shape``:
+    even (f in, the map, the padded buffer out) and odd (the buffer and the
+    map in, f2, rho and u out)."""
+    X, Y, _ = shape
+    ring = (X + 2) * (Y + 2) / (X * Y)
+    return 108 + 1 + 108 * ring, 108 * ring + 1 + 108 + 16
+
+
+def pad_pair_cases():
+    """(label, cfg, domain, u_in) of the two-kernel pair's compare: sim_2's
+    res-2 duct and the box of every A-A code per variant."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.apps import sim_2
+    from torch_cases import AB_SPECS, U_IN, aa_box
+
+    sim = sim_2.build(2, device=torch.device(DEVICE), streaming="AA", use_fused=True,
+                      results_parent=WORK / "compare_layouts")
+    yield "sim_2_res2", sim.cfg, sim.domain, None
+    box = interop.domain_from_numpy(aa_box((24, 20, 150)), (False, False, True))
+    for name, spec in AB_SPECS.items():
+        yield f"aa_box_{name}", interop.config_from_spec(*spec, "AA"), box, U_IN
+
+
+def pad_pair_vs_plain(pair, f, force, u_in=None) -> tuple:
+    """One two-kernel pair from f against its plain version on the same
+    input, each kernel on its own too (the odd kernel and its plain version
+    on the even kernel's buffer); raises when the ring is not ``pad_halo``
+    of the buffer's interior bit for bit.  Returns (the pair's max |df|,
+    |drho|, |du|, the even kernel's |df|, the odd kernel's |df|, the pair's
+    output)."""
+    import torch
+
+    from tnl_lbm_tpu_torch.ops.streaming import pad_halo
+
+    fpad = pair.even_step(f, NU, u_in, force)
+    if not torch.equal(fpad, pad_halo(fpad[:, 1:-1, 1:-1], pair.periodic[:2])):
+        raise RuntimeError("the even kernel's ring is not pad_halo of its output")
+    d_even = max_diff(fpad, pair.plain_even_step(f, NU, u_in, force))
+    f2, rho, u = pair.odd_step(fpad, NU, u_in, force)
+    d_odd = max_diff(f2, pair.plain_odd_step(fpad, NU, u_in, force)[0])
+    del fpad
+    fp, rp, up = pair.plain(f, NU, u_in, force)
+    d = (max_diff(f2, fp), max_diff(rho, rp), max_diff(u, up))
+    return d + (d_even, d_odd, f2)
+
+
+def phase_layouts(times: dict, floor_gbps: float) -> dict:
+    """The layout variants: the two-kernel A-A pair (B1b) and the site-major
+    A-B step (B4s) against their plain versions on small cases, then at
+    256^3 against their plain versions and timed beside the one-kernel
+    pair (B1) and one even plus one odd launch (B2 + B3), and beside the
+    A-B step (B4).  B4s's launch count is its timing's."""
+    import torch
+
+    from tnl_lbm_tpu_torch.kernels.fused import (
+        from_sitemajor,
+        make_fused_step_sitemajor,
+        to_sitemajor,
+    )
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair_aa
+
+    dev = torch.device(DEVICE)
+    force = (FORCE_SMALL, 0.0, 0.0)
+    err = {"aa_pair_pad_even": 0.0, "aa_pair_pad_odd": 0.0, "ab_step_sitemajor": 0.0}
+    out_times = {}
+    for label, cfg, dom, u_in in pad_pair_cases():
+        pair = make_fused_pair_aa(cfg, dom, dev)
+        f = rand_f(cfg, dom.shape, dev, seed=5)
+        worst = [0.0] * 5
+        for _ in range(2):
+            *d, f = pad_pair_vs_plain(pair, f, force, u_in)
+            worst = [max(a, b) for a, b in zip(worst, d)]
+        log("layouts", kernel="aa_pair_pad", case=label, shape="x".join(map(str, dom.shape)),
+            variant=pair.variant, pairs=2, max_df=worst[0], max_drho=worst[1],
+            max_du=worst[2], max_df_even=worst[3], max_df_odd=worst[4], ring_exact=True)
+        if not (max(worst[0], worst[3], worst[4]) <= TOL_F and worst[1] <= TOL_RHO
+                and worst[2] <= TOL_U):
+            raise RuntimeError(f"aa_pair_pad vs plain on {label} out of tolerance: {worst}")
+        err["aa_pair_pad_even"] = max(err["aa_pair_pad_even"], worst[3], worst[0])
+        err["aa_pair_pad_odd"] = max(err["aa_pair_pad_odd"], worst[4], worst[0])
+
+    cfg, dom = flagship(BENCH_SHAPE)
+    pair = make_fused_pair_aa(cfg, dom, dev)
+    bench_force = (FORCE_BENCH, 0.0, 0.0)
+    f0 = rand_f(cfg, dom.shape, dev, seed=7)
+    d = pad_pair_vs_plain(pair, f0, bench_force)[:5]
+    torch.cuda.empty_cache()
+    if not (max(d[0], d[3], d[4]) <= TOL_F and d[1] <= TOL_RHO and d[2] <= TOL_U):
+        raise RuntimeError(f"aa_pair_pad vs plain at 256^3 out of tolerance: {d}")
+    err["aa_pair_pad_even"] = max(err["aa_pair_pad_even"], d[3], d[0])
+    err["aa_pair_pad_odd"] = max(err["aa_pair_pad_odd"], d[4], d[0])
+    fpad = pair.even_step(f0, NU, force=bench_force)
+    pair_ms = time_ms(lambda: pair(f0, NU, force=bench_force), reps=20)
+    even_ms = time_ms(lambda: pair.even_step(f0, NU, force=bench_force), reps=20)
+    odd_ms = time_ms(lambda: pair.odd_step(fpad, NU, force=bench_force), reps=20)
+    even_plain = time_ms(lambda: pair.plain_even_step(f0, NU, force=bench_force), reps=3)
+    odd_plain = time_ms(lambda: pair.plain_odd_step(fpad, NU, force=bench_force), reps=3)
+    del f0, fpad
+    torch.cuda.empty_cache()
+    out_times["aa_pair_pad_even"] = (even_ms, even_plain)
+    out_times["aa_pair_pad_odd"] = (odd_ms, odd_plain)
+    b_even, b_odd = b1b_bytes(BENCH_SHAPE)
+    two_steps = times["aa_even"][0] + times["aa_odd"][0]
+    log("layouts", kernel="aa_pair_pad", shape="256^3", variant=pair.variant, max_df=d[0],
+        max_drho=d[1], max_du=d[2], max_df_even=d[3], max_df_odd=d[4], pair_ms=f"{pair_ms:.4f}",
+        even_ms=f"{even_ms:.4f}", odd_ms=f"{odd_ms:.4f}", even_plain_ms=f"{even_plain:.2f}",
+        odd_plain_ms=f"{odd_plain:.2f}", b1_pair_ms=f"{times['aa_pair_f32'][0]:.4f}",
+        b2_plus_b3_ms=f"{two_steps:.4f}",
+        over_b1=f"{pair_ms / times['aa_pair_f32'][0]:.3f}",
+        over_b2_b3=f"{pair_ms / two_steps:.3f}",
+        gbps_even=f"{gbps(b_even, even_ms):.1f}", gbps_odd=f"{gbps(b_odd, odd_ms):.1f}",
+        gbps_233B_pair=f"{gbps(233, pair_ms):.1f}",
+        share_of_233B_bound=f"{gbps(233, pair_ms) / HBM_PEAK_GBPS:.3f}",
+        share_of_p1_floor=f"{gbps(b_even + b_odd, pair_ms) / floor_gbps:.3f}")
+
+    for label, cfg, dom, u_in in ab_cases():
+        step = make_fused_step_sitemajor(cfg, dom, dev)
+        fs = to_sitemajor(rand_f(cfg, dom.shape, dev, seed=11))
+        fk, rk, uk = step(fs, NU, u_in=u_in, force=force)
+        fp, rp, up = step.plain(fs, NU, u_in=u_in, force=force)
+        torch.cuda.synchronize()
+        d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+        zero = bool((fk[:, :, 27:] == 0).all())
+        log("layouts", kernel="ab_step_sitemajor", case=label, shape="x".join(map(str, dom.shape)),
+            max_df=d[0], max_drho=d[1], max_du=d[2], dummies_zero=zero)
+        if not (zero and d[0] <= TOL_F and d[1] <= TOL_RHO and d[2] <= TOL_U):
+            raise RuntimeError(f"ab_step_sitemajor vs plain on {label}: {d}, dummies zero {zero}")
+        err["ab_step_sitemajor"] = max(err["ab_step_sitemajor"], d[0])
+
+    cfg, dom = flagship(BENCH_SHAPE, streaming="AB")
+    step = make_fused_step_sitemajor(cfg, dom, dev)
+    fs = to_sitemajor(rand_f(cfg, dom.shape, dev, seed=7))
+    fk, rk, uk = step(fs, NU, force=bench_force)
+    fp, rp, up = step.plain(fs, NU, force=bench_force)
+    d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+    zero = bool((fk[:, :, 27:] == 0).all())
+    del fk, rk, uk, fp, rp, up
+    torch.cuda.empty_cache()
+    if not (zero and d[0] <= TOL_F and d[1] <= TOL_RHO and d[2] <= TOL_U):
+        raise RuntimeError(f"ab_step_sitemajor vs plain at 256^3: {d}, dummies zero {zero}")
+    err["ab_step_sitemajor"] = max(err["ab_step_sitemajor"], d[0])
+    step.reset_counts()
+    ms = time_ms(lambda: step(fs, NU, force=bench_force), reps=20)
+    plain_ms = time_ms(lambda: step.plain(fs, NU, force=bench_force), reps=3)
+    del fs
+    torch.cuda.empty_cache()
+    out_times["ab_step_sitemajor"] = (ms, plain_ms)
+    log("layouts", kernel="ab_step_sitemajor", shape="256^3", max_df=d[0], max_drho=d[1],
+        max_du=d[2], ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}",
+        ab_step_ms=f"{times['ab_step'][0]:.4f}", over_b4=f"{ms / times['ab_step'][0]:.3f}",
+        gbps_253B=f"{gbps(SITEMAJOR_BYTES, ms):.1f}",
+        share_of_p1_floor=f"{gbps(SITEMAJOR_BYTES, ms) / floor_gbps:.3f}",
+        launches=step.kernel.launches)
+    if step.kernel.launches <= 0:
+        raise RuntimeError("ab_step_sitemajor was not launched")
+    return {"err": err, "times": out_times, "pair_ms": pair_ms,
+            "kernels": {"aa_pair_pad_even": pair.even, "aa_pair_pad_odd": pair.odd,
+                        "ab_step_sitemajor": step.kernel}}
+
+
+def phase_bench() -> dict:
+    """The port's benchmark entry (``python -m tnl_lbm_tpu_torch.bench``),
+    run in this process through its ``main`` and read from the JSON line it
+    prints: the one-kernel pair (B1) per store dtype and the two-kernel
+    pair (B1b).  Each run counts its kernels' launches from 0; every one
+    must be > 0.  Returns kernel name -> launches."""
+    import contextlib
+    import io
+
+    from tnl_lbm_tpu_torch import bench
+
+    launches = {}
+    for kernel, storage in (("pair2", "f32"), ("pair2", "f16"), ("pair2", "bf16"),
+                            ("pair", "f32")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench.main(["--kernel", kernel, "--storage", storage])
+        lines = buf.getvalue().strip().splitlines()
+        rec = json.loads(lines[-1])
+        log("bench", kernel=kernel, storage=storage, mlups=rec["value"],
+            bound_mlups=rec["bound_mlups"], share_of_bound=rec["share_of_bound"],
+            launches=rec["launches"], plain_calls=rec["plain_calls"], seconds=rec["seconds"],
+            device=repr(rec["device"]), nvidia_smi=repr(rec["nvidia_smi"]))
+        if (len(lines) != 1 or min(rec["launches"].values()) <= 0 or rec["plain_calls"] != 0
+                or not rec["value"] > 0):
+            raise RuntimeError(f"bench {kernel} {storage}: {lines}")
+        for name, n in rec["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
 
 
 def scaled_diff(a, b, scale) -> float:
@@ -1749,7 +2034,7 @@ def phase_golden_2d() -> dict:
     geos = golden_geometries()
     with open(ROOT / "tests" / "golden" / "geometry_ke_values_tpu.csv") as fh:
         golden = {(r["geometry"], r["bouzidi"]): float(r["value"]) for r in csv.DictReader(fh)}
-    rel, launches, kernel = {}, 0, None
+    rel, launches, kernel, rel_launch = {}, 0, None, {}
     t0 = time.perf_counter()
     for (name, bouzidi), want in golden.items():
         where = WORK / "golden" / bouzidi
@@ -1767,8 +2052,10 @@ def phase_golden_2d() -> dict:
         rel[(name, bouzidi)] = abs(value - want) / abs(want)
         launches += step.kernel.launches
         kernel = step.kernel
+        if not rel_launch:
+            rel_launch = golden_launch_ms(sim)
         del sim
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - rel_launch["seconds"]
     worst_row = max(rel, key=rel.get)
     sampled = {f"{g}_{'on' if b else 'off'}": rel[(f"{g}.txt", "on" if b else "off")]
                for g, b in GOLDEN_SAMPLED}
@@ -1778,9 +2065,41 @@ def phase_golden_2d() -> dict:
         rows_beyond_tol=len(beyond), beyond=beyond or "none",
         sampled_worst_rel=max(sampled.values()))
     log("golden_2d", **{f"rel_{k}": f"{v:.3e}" for k, v in sampled.items()})
+    log("golden_2d", kernel="d2q9_step", shape="128x32", **{k: f"{v:.5f}" for k, v in
+                                                          rel_launch.items()})
     if max(sampled.values()) > TOL_GOLDEN:
         raise RuntimeError(f"golden rows beyond 1e-4 relative: {sampled}")
     return {"kernel": dataclasses.replace(kernel, launches=launches)}
+
+
+def golden_launch_ms(sim) -> dict:
+    """B5 at the golden sweep's 128 x 32 on a finished row's state: ms per
+    launch from CUDA events over 200 back-to-back launches (the host's
+    dispatch included, as the sweep pays it), the device time per kernel
+    event of torch.profiler over 50 more, and the bound (85 B/site over
+    3.35 TB/s).  The launches are another step's, not the row's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
+
+    t0 = time.perf_counter()
+    step = make_fused_step_2d(sim.cfg, sim.domain, DEVICE)
+    f, nu = sim.f.clone(), sim.domain.units.lbm_viscosity()
+    u_in, out = sim.update_inflow(sim.phys_time()), torch.empty_like(f)
+    event_ms = time_ms(lambda: step(f, nu, u_in=u_in, out=out), reps=200)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            step(f, nu, u_in=u_in, out=out)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.key.startswith("d2q9_")]
+    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+             for e in events)
+    count = sum(e.count for e in events)
+    sites = float(np.prod(sim.domain.shape))
+    return {"event_ms_per_launch": event_ms, "device_ms_per_event": us / 1e3 / max(count, 1),
+            "kernel_events": count, "bound_ms": B5_BYTES * sites / (HBM_PEAK_GBPS * 1e9) * 1e3,
+            "seconds": time.perf_counter() - t0}
 
 
 def app_2d_runs(build, label: str, prepare):
@@ -2624,6 +2943,11 @@ def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
         "copy_permute": (232, ops["copy_permute_kernel"]),
         "pair_pipeline": (216, affine),
         "pair_compute_only": (block0 / sites, affine),
+        "element_pipeline": (216, 2 * 27 * ELEMENT_TIMED[2]),
+        **{name: (216, 0) for name in ("window_copy", "window_copy_ld4", "window_copy_ld16")},
+        "aa_pair_pad_even": (b1b_bytes(BENCH_SHAPE)[0], ops["aa_pair_pad_even_cum_well_kernel"]),
+        "aa_pair_pad_odd": (b1b_bytes(BENCH_SHAPE)[1], ops["aa_pair_pad_odd_kernel"]),
+        "ab_step_sitemajor": (SITEMAJOR_BYTES, ops["ab_step_sitemajor_cum_well_kernel"]),
         "ade_step": (ADE_BYTES, ops["ade_step_clbm_kernel"]),
         "coupled_ab": (COUPLED_BYTES, ops["coupled_cum_well_clbm_kernel"]),
         "coupled_aa_even": (COUPLED_BYTES, ops["coupled_aa_even_cum_well_clbm_kernel"]),
@@ -2661,6 +2985,7 @@ def main() -> int:
     # the package, and the geometries shared with the tests (tests/torch_cases.py)
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     shutil.rmtree(WORK, ignore_errors=True)
+    t_start = time.perf_counter()
     device = phase_device()
     built = phase_build()
     ops = built["ops"]
@@ -2671,6 +2996,9 @@ def main() -> int:
     probe = phase_probes()
     floor = gbps(232, probe["times"]["copy_permute"][0])
     ab = phase_compare_ab(steps["times"], floor)
+    t_layouts = time.perf_counter()
+    layouts = phase_layouts({**steps["times"], **pairs["times"], **ab["times"]}, floor)
+    t_layouts = time.perf_counter() - t_layouts
     ade_err = phase_compare_ade()
     coupled_err = phase_compare_coupled()
     timed = phase_time_coupled(floor)
@@ -2678,6 +3006,17 @@ def main() -> int:
     timed_aa = phase_time_coupled_aa(steps["times"], floor)
     main_path = phase_main_path()
     kernels = main_path["kernels"]
+    t_bench = time.perf_counter()
+    bench_launches = phase_bench()
+    t_bench = time.perf_counter() - t_bench
+    kernels["ab_step_sitemajor"] = layouts["kernels"]["ab_step_sitemajor"]
+    for key in ("aa_pair_pad_even", "aa_pair_pad_odd"):  # B1b's launches: the bench entry's
+        k = layouts["kernels"][key]
+        kernels[key] = dataclasses.replace(k, launches=bench_launches[k.name])
+    for store in STORES:
+        k = kernels[f"aa_pair_{store}"]
+        kernels[f"aa_pair_{store}"] = dataclasses.replace(
+            k, launches=k.launches + bench_launches[k.name])
     hooked = phase_main_hooked(floor, built["res"])
     kernels.update(hooked["kernels"])
     phase_blunt()
@@ -2694,7 +3033,7 @@ def main() -> int:
     hooked_2d = phase_hooked_2d(floor)
     kernels["d2q9_step_force_field"] = hooked_2d["kernel"]
     phase_accuracy()
-    err = {**steps["err"], **pairs["err"], **probe["err"], **ab["err"],
+    err = {**steps["err"], **pairs["err"], **probe["err"], **ab["err"], **layouts["err"],
            "d2q9_step": max(compare_2d_err, timed_2d["err"])}
     for key in ("aa_even", "aa_odd"):
         err[key] = max(err[key], aa_codes_err, main_path["err"][key])
@@ -2708,6 +3047,7 @@ def main() -> int:
     nn_force_rel = max(hooked_cmp["nn_force_rel"], hooked["nn_force_rel"])
     err["d2q9_step_force_field"] = max(err["d2q9_step_force_field"], hooked_2d["err"])
     times = {**steps["times"], **pairs["times"], **probe["times"], **ab["times"],
+             **layouts["times"],
              **timed["times"], **timed_aa["times"], "d2q9_step": timed_2d["time"],
              **hooked["times"], "d2q9_step_force_field": hooked_2d["time"]}
     kernels.update(probe["kernels"])
@@ -2719,9 +3059,17 @@ def main() -> int:
                  "launches": k.launches, "max_abs_err": err[key]}
         if key == "nn_force":  # |dF| above; its gate is relative to max |F|
             entry["max_rel_err"] = nn_force_rel
+        if key in ("aa_pair_pad_even", "aa_pair_pad_odd"):  # the pair against its least work
+            entry["pair_ms"] = layouts["pair_ms"]
+            entry["pair_bound_ms"] = bound(*footprint["aa_pair_f32"])[0]
         record["kernels"].append(
             {**entry, "ms": times[key][0], "plain_ms": times[key][1], "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": None})
+             "bound_by": bound_by, "library_ms": probe["library"].get(key)})
+    total = time.perf_counter() - t_start
+    added = probe["window_seconds"] + t_layouts + t_bench
+    log("time", total_seconds=f"{total:.1f}", window_probes_seconds=f"{probe['window_seconds']:.1f}",
+        layouts_seconds=f"{t_layouts:.1f}", bench_seconds=f"{t_bench:.1f}",
+        added_share=f"{added / total:.3f}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                              "count": device["count"]}}))

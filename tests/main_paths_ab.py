@@ -12,14 +12,19 @@ path (``kernels/hooked.py``), the 256^3 bench duct with the Carreau-Yasuda
 hook through its one-kernel route (B10) and its pipeline, A-B and A-A, 100
 steps each.  Prints one JSON line, path -> MLUPS.  Run it in turns within
 one call (parent, change, change, parent) and compare only within that
-call.  Needs one CUDA card.
+call.  The duct is built here from the checkout's own ``interop``, so a
+checkout without the benchmark entry (``tnl_lbm_tpu_torch/bench.py``)
+runs the same loops.  Needs one CUDA card.
 """
 
+import dataclasses
 import importlib.util
 import json
 import shutil
 import sys
 from pathlib import Path
+
+import numpy as np
 
 
 def main() -> int:
@@ -36,6 +41,23 @@ def main() -> int:
     from tnl_lbm_tpu_torch.kernels.build import load_library
 
     load_library()  # build this checkout's kernels before any loop is timed
+
+    def flagship(shape, storage=None, streaming="AA"):
+        """``chip_smoke.flagship``'s duct (walls on the y and z faces,
+        periodic in x) from this checkout's ``interop``."""
+        from tnl_lbm_tpu_torch import interop
+        from tnl_lbm_tpu_torch.ops.boundary import GEO
+
+        m = np.zeros(shape, np.uint8)
+        m[:, 0] = m[:, -1] = GEO.WALL
+        m[:, :, 0] = m[:, :, -1] = GEO.WALL
+        cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, streaming)
+        if storage not in (None, "f32"):
+            cfg = dataclasses.replace(cfg, storage_dtype=cs.store_dtype(storage))
+        dom = interop.domain_from_numpy(m, (True, False, False), phys_viscosity=cs.NU)
+        return cfg, dom
+
+    cs.flagship = flagship
 
     def coupled():
         sim = sim_coupled.build(cs.COUPLED_RES, device=cs.DEVICE, use_fused=True,

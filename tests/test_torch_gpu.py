@@ -669,3 +669,122 @@ def test_hooked_routes_agree_on_card(cuda, streaming):
             assert float((x[1] - y[1]).abs().max()) <= 2e-6
             assert float((x[2] - y[2]).abs().max()) <= 1e-6
     assert single.plain_calls == pipe.plain_calls == 0
+
+
+# ------------------------------------- the layout variants (B1b, B4s) and P3/P4
+
+@pytest.mark.parametrize("spec", sorted(AB_SPECS))
+@pytest.mark.parametrize("kind", ["torus", "duct", "aa_box"])
+def test_two_kernel_pair_matches_plain_on_card(cuda, kind, spec):
+    """Two pairs of the two-kernel A-A pair (B1b) on a box no block divides,
+    each against its plain version on the same input; each kernel alone too
+    (the odd one on the even one's buffer), and the buffer's ring is
+    ``pad_halo`` of its interior bit for bit."""
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair_aa
+    from tnl_lbm_tpu_torch.ops.streaming import pad_halo
+
+    shape = (20, 36, 40)
+    if kind == "aa_box":
+        m, periodic, u_in = aa_box(shape), (False, False, True), U_IN
+    else:
+        m = duct(shape, nothing=True) if kind == "duct" else np.zeros(shape, np.uint8)
+        m[7, 9, 11] = GEO.NOTHING
+        periodic = (True, True, True) if kind == "torus" else (True, False, False)
+        u_in = None
+    cfg = interop.config_from_spec(*AB_SPECS[spec], "AA")
+    pair = make_fused_pair_aa(cfg, interop.domain_from_numpy(m, periodic), cuda)
+    f = seeded_state(cfg, shape, cuda)
+    force = (1e-5, 0.0, 0.0)
+    for it in range(2):
+        fpad = pair.even_step(f, 0.02, u_in, force)
+        assert torch.equal(fpad, pad_halo(fpad[:, 1:-1, 1:-1], periodic[:2])), f"ring, pair {it}"
+        assert float((fpad - pair.plain_even_step(f, 0.02, u_in, force)).abs().max()) <= 1e-6
+        f2, rho, u = pair.odd_step(fpad, 0.02, u_in, force)
+        assert float((f2 - pair.plain_odd_step(fpad, 0.02, u_in, force)[0]).abs().max()) <= 1e-6
+        fk, rk, uk = pair(f, 0.02, u_in, force)
+        fp, rp, up = pair.plain(f, 0.02, u_in, force)
+        torch.cuda.synchronize()
+        assert torch.equal(fk, f2) and torch.equal(rk, rho) and torch.equal(uk, u)
+        assert float((fk - fp).abs().max()) <= 1e-6, f"f, pair {it}"
+        assert float((rk - rp).abs().max()) <= 2e-6 and float((uk - up).abs().max()) <= 1e-6
+        f = fk
+    assert pair.even.launches == pair.odd.launches == 4 and pair.plain_calls == 0
+
+
+def test_two_kernel_pair_without_macro_and_refusals(cuda):
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair_aa
+
+    cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AA")
+    dom = interop.domain_from_numpy(duct((8, 16, 8), True), (True, False, False))
+    f = seeded_state(cfg, (8, 16, 8), cuda)
+    full, bare = make_fused_pair_aa(cfg, dom, cuda), make_fused_pair_aa(cfg, dom, cuda, False)
+    f2, rho, u = bare(f, 0.02)
+    assert rho is None and u is None and torch.equal(f2, full(f, 0.02)[0])
+    with pytest.raises(ValueError):
+        bare(f.half(), 0.02)
+    with pytest.raises(ValueError):
+        bare.odd_step(f, 0.02)  # an unpadded state
+
+
+@pytest.mark.parametrize("spec", sorted(AB_SPECS))
+@pytest.mark.parametrize("kind", ["inflow_outflow", "interp_outflow", "sym", "box"])
+def test_sitemajor_step_matches_plain_on_card(cuda, kind, spec):
+    """Two site-major A-B steps (B4s), each against its plain version on the
+    same input, with the five dummy components zero; equal to B4 on the
+    state in the [Q, X, Y, Z] layout."""
+    from tnl_lbm_tpu_torch.kernels.fused import (
+        from_sitemajor,
+        make_fused_step_sitemajor,
+        to_sitemajor,
+    )
+
+    m, periodic = channel(kind)
+    dom = interop.domain_from_numpy(m, periodic)
+    cfg = interop.config_from_spec(*AB_SPECS[spec], "AB")
+    step = make_fused_step_sitemajor(cfg, dom, cuda)
+    ab = make_fused_step(cfg, dom, cuda)
+    fs = to_sitemajor(seeded_state(cfg, m.shape, cuda))
+    for it in range(2):
+        fk, rk, uk = step(fs, 0.02, u_in=U_IN, force=(1e-5, 0.0, 0.0))
+        fp, rp, up = step.plain(fs, 0.02, u_in=U_IN, force=(1e-5, 0.0, 0.0))
+        fa, ra, ua = ab(from_sitemajor(fs, 27), 0.02, u_in=U_IN, force=(1e-5, 0.0, 0.0))
+        torch.cuda.synchronize()
+        assert bool((fk[:, :, 27:] == 0).all())
+        assert float((fk - fp).abs().max()) <= 1e-6, f"f, step {it}"
+        assert float((rk - rp).abs().max()) <= 2e-6 and float((uk - up).abs().max()) <= 1e-6
+        assert float((from_sitemajor(fk, 27) - fa).abs().max()) <= 1e-6
+        fs = fk
+    assert step.kernel.launches == 2 and step.plain_calls == 0
+
+
+@pytest.mark.parametrize("variant", [(8, 32, 0), (8, 32, 20), (16, 32, 0)])
+def test_element_pipeline_matches_plain_on_card(cuda, variant):
+    tx, ty, passes = variant
+    fpad = torch.randn((27, 32 + 4, 64 + 16, 48), device=cuda)
+    got = probes.element_pipeline(fpad, tx, ty, passes)
+    want = probes.element_pipeline_plain(fpad, tx, ty, passes)
+    assert torch.equal(probes.interior(got), probes.interior(want))
+
+
+@pytest.mark.parametrize("load", ["ld4", "ld16", "tma"])
+def test_window_copy_matches_plain_on_card(cuda, load):
+    fpad = torch.randn((27, 32 + 4, 64 + 16, 24), device=cuda)
+    for y_off, wy, label, dst_off in probes.DMA_VARIANTS:
+        if probes.window_covers(y_off, wy, dst_off):
+            got = probes.window_copy(fpad, y_off, wy, dst_off, load)
+            assert torch.equal(got, probes.interior(fpad)), label
+        else:
+            with pytest.raises(ValueError, match="does not cover"):
+                probes.window_copy(fpad, y_off, wy, dst_off, load)
+
+
+@pytest.mark.parametrize("kernel", ["pair2", "pair"])
+def test_bench_entry_on_card(cuda, kernel, capsys):
+    import json
+
+    from tnl_lbm_tpu_torch import bench
+
+    bench.main(["--kernel", kernel])
+    rec = json.loads(capsys.readouterr().out.strip())
+    assert rec["device"] == torch.cuda.get_device_name(0) and rec["value"] > 0
+    assert rec["bound_mlups"] > rec["value"] and min(rec["launches"].values()) == 51

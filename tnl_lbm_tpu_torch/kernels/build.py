@@ -21,8 +21,9 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("aa_even.cu", "aa_odd.cu", "aa_pair.cu", "ab_step.cu", "ade_step.cu", "coupled_ab.cu",
-           "coupled_aa.cu", "d2q9_step.cu", "nn_force.cu", "nn_step.cu", "probes.cu")
+SOURCES = ("aa_even.cu", "aa_odd.cu", "aa_pair.cu", "aa_pair_pad.cu", "ab_step.cu",
+           "ab_step_sitemajor.cu", "ade_step.cu", "coupled_ab.cu", "coupled_aa.cu",
+           "d2q9_step.cu", "nn_force.cu", "nn_step.cu", "probes.cu")
 HEADERS = ("lbm_site.cuh", "pair_window.cuh", "ade_site.cuh", "nn_site.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -94,7 +95,10 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_aa_even.argtypes = [p] * 5 + [i] * 5 + [f] * 7 + [i, p]
     lib.tnl_lbm_aa_odd.argtypes = [p] * 6 + [i] * 7 + [f] * 7 + [i, p]
     lib.tnl_lbm_aa_pair.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, f, f, f, i, p]
+    lib.tnl_lbm_aa_pair_pad_even.argtypes = [p] * 3 + [i] * 5 + [f] * 7 + [i, p]
+    lib.tnl_lbm_aa_pair_pad_odd.argtypes = [p] * 5 + [i] * 6 + [f] * 7 + [i, p]
     lib.tnl_lbm_ab_step.argtypes = [p] * 6 + [i] * 6 + [f] * 7 + [i, p]
+    lib.tnl_lbm_ab_step_sitemajor.argtypes = [p] * 5 + [i] * 5 + [f] * 7 + [i, p]
     lib.tnl_lbm_ade_step.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, p]
     lib.tnl_lbm_coupled_ab.argtypes = [p] * 11 + [i] * 7 + [f] * 7 + [i] + [f] * 3 + [p]
     lib.tnl_lbm_coupled_aa.argtypes = [p] * 10 + [i] * 10 + [f] * 7 + [i] + [f] * 2 + [p]
@@ -106,7 +110,12 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_pair_pipeline.argtypes = [p, p, i, i, i, i, i, p]
     lib.tnl_lbm_pair_compute_only.argtypes = [p, p, i, i, i, i, p]
     lib.tnl_lbm_aa_pair_smem_bytes.argtypes = []
-    for fn in (lib.tnl_lbm_aa_even, lib.tnl_lbm_aa_odd, lib.tnl_lbm_aa_pair, lib.tnl_lbm_ab_step,
+    lib.tnl_lbm_element_pipeline.argtypes = [p, p] + [i] * 7 + [p]
+    lib.tnl_lbm_window_copy.argtypes = [p, p] + [i] * 7 + [p]
+    for fn in (lib.tnl_lbm_aa_even, lib.tnl_lbm_aa_odd, lib.tnl_lbm_aa_pair,
+               lib.tnl_lbm_aa_pair_pad_even, lib.tnl_lbm_aa_pair_pad_odd, lib.tnl_lbm_ab_step,
+               lib.tnl_lbm_ab_step_sitemajor, lib.tnl_lbm_element_pipeline,
+               lib.tnl_lbm_window_copy,
                lib.tnl_lbm_ade_step, lib.tnl_lbm_coupled_ab, lib.tnl_lbm_coupled_aa,
                lib.tnl_lbm_d2q9_step, lib.tnl_lbm_nn_force, lib.tnl_lbm_nn_step,
                lib.tnl_lbm_nn_step_smem_bytes, lib.tnl_lbm_copy_permute,

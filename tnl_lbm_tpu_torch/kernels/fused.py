@@ -15,7 +15,8 @@ offsets - the only layout-dependent piece, supplied by the caller.
 
 :class:`FusedStepAB` launches ``csrc/ab_step.cu`` on CUDA tensors and runs
 its plain version on CPU tensors; it never runs the plain version in the
-kernel's place.
+kernel's place.  :class:`FusedStepSiteMajor` is the same step on the
+site-major layout [X, Y, QPAD, Z] (``csrc/ab_step_sitemajor.cu``).
 """
 
 from __future__ import annotations
@@ -503,3 +504,141 @@ def make_fused_step(cfg: LBMConfig, domain: Domain, device, with_macro: bool = T
     if not with_macro:
         raise NotImplementedError("with_macro=False is not ported yet (ROADMAP A7)")
     return FusedStepAB(cfg, domain, device, force_field=force_field, macro_only=macro_only)
+
+
+#: components per site of the site-major layout: Q padded to 32 with zeros
+QPAD = 32
+
+
+def to_sitemajor(f: torch.Tensor) -> torch.Tensor:
+    """[Q, X, Y, Z] -> [X, Y, QPAD, Z], the dummy components zero-filled."""
+    Q, X, Y, Z = f.shape
+    fs = f.new_zeros((X, Y, QPAD, Z))
+    fs[:, :, :Q] = f.permute(1, 2, 0, 3)
+    return fs
+
+
+def from_sitemajor(fs: torch.Tensor, Q: int) -> torch.Tensor:
+    """[X, Y, QPAD, Z] -> [Q, X, Y, Z] (contiguous)."""
+    return fs[:, :, :Q].permute(2, 0, 1, 3).contiguous()
+
+
+class FusedStepSiteMajor:
+    """``step(fs, nu, u_in=None, force=None, parity=0, map_arr_in=None) -> (fs_new, rho, u)``.
+
+    The A-B step (B4's update, boundary set and variants) on the
+    site-major layout [X, Y, QPAD, Z] of ``to_sitemajor`` (JAX
+    ``make_fused_step_sitemajor``, B4s): a new state whose five dummy
+    components are zero, rho [X, Y, Z] and u [3, X, Y, Z] (None with
+    ``with_macro=False``).  ``map_arr_in`` replaces the domain's map for
+    this call (a [X, Y, Z] map of the codes the domain has).  ``kernel``
+    counts the launches, ``plain_calls`` the CPU-path calls.
+    """
+
+    def __init__(self, cfg: LBMConfig, domain: Domain, device, with_macro: bool = True):
+        if cfg.streaming != "AB":
+            raise ValueError("make_fused_step_sitemajor needs streaming='AB'")
+        self.cfg = cfg
+        self.with_macro = with_macro
+        self.device = torch.device(device)
+        self.lat, self.codes, self.do_coll_codes = _prep(cfg, domain)
+        self.shape = domain.shape
+        self.periodic = domain.periodic
+        self.kernel = CudaKernel("ab_step_sitemajor", "tnl_lbm_tpu_torch/csrc/ab_step_sitemajor.cu",
+                                 "tnl_lbm_tpu/kernels/fused.py:732")
+        self.plain_calls = 0
+        if self.device.type == "cuda":
+            _check_kernel_config(cfg, domain, self.device)
+            self._variant = _AB_VARIANTS[(cfg.well, _eq_kind(cfg))]
+        self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
+
+    def reset_counts(self) -> None:
+        self.kernel.launches = self.plain_calls = 0
+
+    def _map(self, fs, map_arr_in):
+        if map_arr_in is None:
+            return self.map
+        m = torch.as_tensor(np.asarray(map_arr_in) if not torch.is_tensor(map_arr_in)
+                            else map_arr_in).to(device=fs.device, dtype=torch.uint8)
+        if tuple(m.shape) != tuple(self.shape):
+            raise ValueError(f"map_arr_in must be {list(self.shape)}, got {tuple(m.shape)}")
+        return m.contiguous()
+
+    def _check(self, fs) -> None:
+        X, Y, Z = self.shape
+        if tuple(fs.shape) != (X, Y, QPAD, Z) or not fs.is_contiguous():
+            raise ValueError(f"fs must be a contiguous [{X}, {Y}, {QPAD}, {Z}] tensor, "
+                             f"got {tuple(fs.shape)}")
+        if fs.dtype != self.cfg.compute_dtype:
+            raise ValueError(f"fs is {fs.dtype}, the step computes in {self.cfg.compute_dtype}")
+
+    def __call__(self, fs, nu, u_in=None, force=None, parity: int = 0, map_arr_in=None):
+        del parity
+        self._check(fs)
+        m = self._map(fs, map_arr_in)
+        if fs.device.type == "cuda":
+            return self._launch(fs, float(nu), _force3(force), _u_in3(u_in), m)
+        self.plain_calls += 1
+        return self._plain(fs, nu, u_in, force, m)
+
+    def plain(self, fs, nu, u_in=None, force=None, parity: int = 0, map_arr_in=None):
+        """The step's plain PyTorch version on fs's device: ``from_sitemajor``,
+        B4's plain step, ``to_sitemajor``; fs untouched, no call counted."""
+        del parity
+        self._check(fs)
+        return self._plain(fs, nu, u_in, force, self._map(fs, map_arr_in))
+
+    def _plain(self, fs, nu, u_in, force, m):
+        f = from_sitemajor(fs, self.lat.Q)
+        fpad = stream.pad_halo(f, self.periodic)
+        S = tuple(f.shape[1:])
+
+        def shifted(q, offs):
+            return stream._shift_slices(fpad[q], offs, S)
+
+        f_new, rho, u = _stream_bc_collide(self.lat, self.cfg, self.codes, self.do_coll_codes,
+                                           shifted, m.to(fs.device), nu, _force3(force),
+                                           u_in=_u_in3(u_in))
+        fs_new = to_sitemajor(f_new)
+        return (fs_new, rho, u) if self.with_macro else (fs_new, None, None)
+
+    def _launch(self, fs, nu, fvec, uvec, m):
+        if self.device.type != "cuda" or fs.device != self.map.device:
+            raise ValueError(f"fs is on {fs.device}, the step was built for {self.device}")
+        if fs.dtype != torch.float32:
+            raise NotImplementedError("the CUDA kernels take float32 state only")
+        X, Y, Z = self.shape
+        lib = load_library()
+        fs_new = torch.empty_like(fs)
+        rho = u = None
+        if self.with_macro:
+            rho = torch.empty((X, Y, Z), dtype=fs.dtype, device=fs.device)
+            u = torch.empty((3, X, Y, Z), dtype=fs.dtype, device=fs.device)
+        stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(fs.device).cuda_stream)
+        rc = lib.tnl_lbm_ab_step_sitemajor(fs.data_ptr(), fs_new.data_ptr(), m.data_ptr(),
+                                           None if rho is None else rho.data_ptr(),
+                                           None if u is None else u.data_ptr(), X, Y, Z,
+                                           _periodic_bits(self.periodic), self._variant, nu,
+                                           *fvec, *uvec, int(self.cfg.high_precision_rho),
+                                           stream_ptr)
+        if rc != 0:
+            raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
+        self.kernel.launches += 1
+        return fs_new, rho, u
+
+
+def make_fused_step_sitemajor(cfg: LBMConfig, domain: Domain, device, with_macro: bool = True,
+                              force_field: bool = False,
+                              macro_only: bool = False) -> FusedStepSiteMajor:
+    """A-B step on the site-major layout for (cfg, domain) on ``device``: see
+    :class:`FusedStepSiteMajor`.
+
+    The JAX function's TPU knobs (``tile``, ``tiles_per_program``) shape its
+    DMA windows and have no counterpart here.  It has no ``force_field`` or
+    ``macro_only`` variant, and neither has the port's (both raise).
+    """
+    if force_field or macro_only:
+        raise NotImplementedError("the site-major A-B step (B4s) has no force_field or "
+                                  "macro_only variant: the JAX make_fused_step_sitemajor has "
+                                  "neither (make_fused_step has both)")
+    return FusedStepSiteMajor(cfg, domain, device, with_macro=with_macro)

@@ -16,6 +16,10 @@ d3q27/streaming_AA.h) alternates two parities on one state:
   (``csrc/aa_pair.cu``), the intermediate kept on chip in float32, the
   state optionally stored in float16 or bfloat16 (half storage, see
   :class:`FusedPairAA`).  It writes a new buffer.
+- **two-kernel pair** (:class:`FusedPairAATwoKernel`, ``csrc/aa_pair_pad.cu``):
+  the even step writes its result into a buffer padded by one site in x
+  and y, ring included, and the odd step pulls from it.  It takes the
+  even/odd steps' codes and variants.
 
 The even and odd steps take the A-B step's boundary set but
 OUTFLOW_RIGHT_INTERP (JAX ``fused_aa.py`` runs ``_stream_bc_collide`` on the
@@ -365,3 +369,142 @@ def make_fused_pair2_aa(cfg: LBMConfig, domain: Domain, device, store_dtype=None
         raise NotImplementedError("the sharded pair (local_shape, prepadded, z_halo) is not "
                                   "ported yet (ROADMAP A13)")
     return FusedPairAA(cfg, domain, device, store_dtype=store_dtype, with_macro=with_macro)
+
+
+class FusedPairAATwoKernel:
+    """``pair(f, nu, u_in=None, force=None) -> (f2, rho, u)``: two A-A steps,
+    even then odd, in two launches (JAX ``make_fused_pair_aa``, B1b).
+
+    ``even_step(f, ...)`` writes the even step's result into a new
+    [Q, X+2, Y+2, Z] buffer whose one-site ring in x and y equals
+    ``pad_halo`` of that result (wrapped on periodic axes, edge-replicated
+    otherwise), so no halo-fill pass runs between the launches;
+    ``odd_step(fpad, ...)`` pulls from it and pushes into a new [Q, X, Y, Z]
+    state, with rho and u of this step (None with ``with_macro=False``).
+    ``f`` is never written.  ``u_in`` and ``force`` are homogeneous [3]
+    vectors given as host values.  ``even`` and ``odd`` count the launches
+    of the two kernels, ``plain_calls`` the CPU-path calls.  The codes and
+    variants are the A-A even/odd steps' (all but OUTFLOW_RIGHT_INTERP;
+    CUM_WELL, CUM with eq_quadratic or eq_inv_cum); on a map of FLUID, WALL
+    and NOTHING the odd kernel runs its lean CUM_WELL instance.
+    """
+
+    def __init__(self, cfg: LBMConfig, domain: Domain, device, with_macro: bool = True):
+        if cfg.streaming != "AA":
+            raise ValueError("make_fused_pair_aa needs streaming='AA'")
+        self.cfg = cfg
+        self.with_macro = with_macro
+        self.device = torch.device(device)
+        self.lat, self.codes, self.do_coll_codes = _prep(cfg, domain)
+        self.shape = domain.shape
+        self.periodic = domain.periodic
+        src = "tnl_lbm_tpu_torch/csrc/aa_pair_pad.cu"
+        self.even = CudaKernel("aa_pair_pad_even", src, "tnl_lbm_tpu/kernels/fused_aa.py:1274")
+        self.odd = CudaKernel("aa_pair_pad_odd", src, "tnl_lbm_tpu/kernels/fused_aa.py:287")
+        self.plain_calls = 0
+        self.variant = None  # the kernels' instance, on a CUDA device
+        if self.device.type == "cuda":
+            _check_kernel_config(cfg, domain, self.device)
+            self.variant = aa_variant(cfg, self.codes)
+        self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
+
+    def reset_counts(self) -> None:
+        self.even.launches = self.odd.launches = self.plain_calls = 0
+
+    @property
+    def padded_shape(self) -> tuple[int, int, int, int]:
+        X, Y, Z = self.shape
+        return (self.lat.Q, X + 2, Y + 2, Z)
+
+    def __call__(self, f, nu, u_in=None, force=None):
+        if f.device.type == "cuda":
+            return self.odd_step(self.even_step(f, nu, u_in, force), nu, u_in, force)
+        self.plain_calls += 1
+        return self.plain(f, nu, u_in, force)
+
+    def plain(self, f, nu, u_in=None, force=None):
+        """The pair's plain PyTorch version on f's device: ``even_step_plain``
+        then ``odd_step_plain`` (through the padded buffer); f untouched, no
+        call counted."""
+        return self.plain_odd_step(self.plain_even_step(f, nu, u_in, force), nu, u_in, force)
+
+    def plain_even_step(self, f, nu, u_in=None, force=None):
+        """The even kernel's plain version: the padded buffer, its ring
+        ``pad_halo`` of the even step's result."""
+        self._check(f, (self.lat.Q,) + tuple(self.shape))
+        ev, _, _ = even_step_plain(self.cfg, self.codes, self.do_coll_codes, f,
+                                   self.map.to(f.device), nu, _force3(force), _u_in3(u_in))
+        return stream.pad_halo(ev, self.periodic[:2])
+
+    def plain_odd_step(self, fpad, nu, u_in=None, force=None):
+        """The odd kernel's plain version: ``odd_step_plain`` of the buffer's
+        interior (whose ``pad_halo`` is the ring the kernel reads)."""
+        self._check(fpad, self.padded_shape)
+        f2, rho, u = odd_step_plain(self.cfg, self.codes, self.do_coll_codes, self.periodic,
+                                    fpad[:, 1:-1, 1:-1], self.map.to(fpad.device), nu,
+                                    _force3(force), _u_in3(u_in))
+        return (f2, rho, u) if self.with_macro else (f2, None, None)
+
+    def _check(self, f, shape) -> None:
+        if tuple(f.shape) != tuple(shape) or not f.is_contiguous():
+            raise ValueError(f"expected a contiguous {list(shape)} tensor, got {tuple(f.shape)}")
+        if f.dtype != self.cfg.compute_dtype:
+            raise ValueError(f"f is {f.dtype}, the pair computes in {self.cfg.compute_dtype}")
+
+    def _launch_prep(self, f, shape):
+        if self.device.type != "cuda" or f.device != self.map.device:
+            raise ValueError(f"f is on {f.device}, the pair was built for {self.device}")
+        self._check(f, shape)
+        return load_library(), ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
+
+    def even_step(self, f, nu, u_in=None, force=None):
+        """The even kernel (plain version on CPU tensors): f -> the padded buffer."""
+        if f.device.type != "cuda":
+            return self.plain_even_step(f, nu, u_in, force)
+        lib, stream_ptr = self._launch_prep(f, (self.lat.Q,) + tuple(self.shape))
+        X, Y, Z = self.shape
+        fpad = torch.empty(self.padded_shape, dtype=f.dtype, device=f.device)
+        rc = lib.tnl_lbm_aa_pair_pad_even(f.data_ptr(), fpad.data_ptr(), self.map.data_ptr(),
+                                          X, Y, Z, _periodic_bits(self.periodic), self.variant,
+                                          float(nu), *_force3(force), *_u_in3(u_in),
+                                          int(self.cfg.high_precision_rho), stream_ptr)
+        if rc != 0:
+            raise RuntimeError(f"{self.even.name} launch failed: CUDA error {rc}")
+        self.even.launches += 1
+        return fpad
+
+    def odd_step(self, fpad, nu, u_in=None, force=None):
+        """The odd kernel (plain version on CPU tensors): the padded buffer
+        -> (f2, rho, u)."""
+        if fpad.device.type != "cuda":
+            return self.plain_odd_step(fpad, nu, u_in, force)
+        lib, stream_ptr = self._launch_prep(fpad, self.padded_shape)
+        X, Y, Z = self.shape
+        f2 = torch.empty((self.lat.Q, X, Y, Z), dtype=fpad.dtype, device=fpad.device)
+        rho = u = None
+        if self.with_macro:
+            rho = torch.empty((X, Y, Z), dtype=fpad.dtype, device=fpad.device)
+            u = torch.empty((3, X, Y, Z), dtype=fpad.dtype, device=fpad.device)
+        rc = lib.tnl_lbm_aa_pair_pad_odd(fpad.data_ptr(), f2.data_ptr(), self.map.data_ptr(),
+                                         None if rho is None else rho.data_ptr(),
+                                         None if u is None else u.data_ptr(), X, Y, Z,
+                                         _periodic_bits(self.periodic),
+                                         int(GEO.NOTHING in self.codes), self.variant, float(nu),
+                                         *_force3(force), *_u_in3(u_in),
+                                         int(self.cfg.high_precision_rho), stream_ptr)
+        if rc != 0:
+            raise RuntimeError(f"{self.odd.name} launch failed: CUDA error {rc}")
+        self.odd.launches += 1
+        return f2, rho, u
+
+
+def make_fused_pair_aa(cfg: LBMConfig, domain: Domain, device,
+                       with_macro: bool = True) -> FusedPairAATwoKernel:
+    """Two-kernel A-A pair for (cfg, domain) on ``device``: see
+    :class:`FusedPairAATwoKernel`.
+
+    The JAX function's TPU knobs (``tile_even``, ``k_even``, ``tile_odd``,
+    ``k_odd``) shape its VMEM tiles and have no counterpart here, nor has
+    its ``Z % 128 == 0`` condition (its even kernel's output DMA).
+    """
+    return FusedPairAATwoKernel(cfg, domain, device, with_macro=with_macro)
