@@ -42,10 +42,13 @@ script exits non-zero without printing a result.
    b. pair, per store dtype: two pairs on the res-2 duct, each from the
       same input on both sides, and for a 16-bit state the float32 kernel's
       output on the widened input, narrowed, equal to the 16-bit kernel's
-      bit for bit (the narrowing rounds to nearest even exactly); then one
-      pair at 256^3, checked the same ways and timed beside one
-      even plus one odd launch, with effective GB/s at 233 B/site per pair
-      (125 B/site with 16-bit storage);
+      bit for bit (the narrowing rounds to nearest even exactly); the same
+      on PAIR_BOXES (shapes no column tile or x segment divides, X shorter
+      than a segment, a z extent read without staging, NOTHING sites, three
+      periodic combinations); then one pair at 256^3, checked the same ways
+      and timed beside one even plus one odd launch, with effective GB/s at
+      233 B/site per pair (125 B/site with 16-bit storage), and the kernel's
+      launch geometry (shared memory, stages, x segments);
    c. the A-B step, after phase 4 so that it is timed beside P1: one step
       from a seeded random state on sim_2 res 2 A-B (CUM_WELL), sim_1 res 2
       (CUM, eq_inv_cum), sim_3 res 2 (CUM, eq_quadratic) and a box holding
@@ -80,7 +83,9 @@ script exits non-zero without printing a result.
    windows of scripts/probe_dma_align.py, each through 4-byte loads,
    16-byte loads and TMA) on a padded [27, 260, 272, 256] state, their
    interiors bit-equal to the plain versions', and P4's seventh window,
-   which does not cover its tile, raising; then all timed;
+   which does not cover its tile, raising; then all timed, P4's library
+   call (``interior(fpad).contiguous()``) before and after each covering
+   window's three loads, with the ring's plane buffers;
    layouts (after 3c): the two-kernel A-A pair B1b on sim_2's res-2 duct
    and on the box of every A-A code per variant, two pairs from the same
    input on both sides, each kernel on its own too and the even kernel's
@@ -90,8 +95,10 @@ script exits non-zero without printing a result.
    256^3 against its plain version and timed beside B4;
 5. main paths, each with the launch counts set to 0 just before it and read
    just after: ``Simulation`` on the 256^3 bench duct, 200 per-step A-A
-   dispatches; ``pair_dispatch="auto"`` (the probe's choice and both
-   times); 200 steps in pairs with the state in f32, f16 and bf16; 200
+   dispatches; ``pair_dispatch="auto"`` (the probe's choice and its two
+   times beside the pair and even + odd kernels on CUDA events, here and on
+   sim_2 res 2: where the routes differ by more than 10% the choice must be
+   the faster); 200 steps in pairs with the state in f32, f16 and bf16; 200
    A-B steps; sim_1 at resolution 8 (1024x256x256), 100 A-B steps, with
    one VTK2D cycle written and read back.  Each gives ms/step, MLUPS
    (X*Y*Z*steps / compute time), peak memory, kernel launches (> 0),
@@ -205,7 +212,8 @@ the probes': their timings'; library_ms: P4's function as one PyTorch
 call, ``interior(fpad).contiguous()``, and null where no single PyTorch
 call computes a kernel's function; B1b's two entries also give the pair's
 time, ``pair_ms``, and its least-work bound, ``pair_bound_ms``: B1's 233
-B/site); the last line is ``{"ok": true, "device": {...}}``.  The
+B/site; B1's entries also give its registers, shared memory and stages);
+the last line is ``{"ok": true, "device": {...}}``.  The
 script's total time and that of the P3/P4, layouts and bench-entry phases
 are logged before them.
 """
@@ -555,7 +563,7 @@ def phase_compare_pairs(step_times: dict) -> dict:
 
     dev = torch.device(DEVICE)
     two_steps_ms = step_times["aa_even"][0] + step_times["aa_odd"][0]
-    err, times = {}, {}
+    err, times, geometry = {}, {}, {}
     for store in STORES:
         dtype = store_dtype(store)
         name = f"aa_pair_{store}"
@@ -579,7 +587,8 @@ def phase_compare_pairs(step_times: dict) -> dict:
             f = fk
         log("compare", kernel=name, shape="x".join(map(str, sim.domain.shape)), pairs=2,
             max_df=worst[0], max_drho=worst[1], max_du=worst[2], share_f_differing=worst[3],
-            narrowing_exact=True, launches=pair.kernel.launches)
+            narrowing_exact=True, launches=pair.kernel.launches, geometry=pair.geometry())
+        err[name] = max(worst[0], pair_boxes(store))
 
         cfg, dom = flagship(BENCH_SHAPE)
         pair = make_fused_pair2_aa(cfg, dom, dev, store_dtype=dtype)
@@ -598,19 +607,67 @@ def phase_compare_pairs(step_times: dict) -> dict:
                                f"to nearest even")
         del fk, rk, uk
         torch.cuda.empty_cache()
-        err[name] = max(worst[0], d[0])
+        err[name] = max(err[name], d[0])
         out = torch.empty_like(f0)
         ms = time_ms(lambda: pair(f0, NU, force=bench_force, out=out), reps=20)
         plain_ms = time_ms(lambda: pair.plain(f0, NU, force=bench_force), reps=3)
         del f0, out
         torch.cuda.empty_cache()
         times[name] = (ms, plain_ms)
-        log("compare", kernel=name, shape="256^3", max_df=d[0], max_drho=d[1], max_du=d[2],
+        geometry[name] = pair.geometry()
+        log("compare", kernel=name, shape="256^3", geometry=geometry[name],
+            max_df=d[0], max_drho=d[1], max_du=d[2],
             share_f_differing=d[3], narrowing_exact=True, ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.2f}", even_plus_odd_ms=f"{two_steps_ms:.4f}",
             pair_over_two_launches=f"{ms / two_steps_ms:.3f}",
             **{f"gbps_{PAIR_BYTES[store]}B": f"{gbps(PAIR_BYTES[store], ms):.1f}"})
-    return {"err": err, "times": times}
+    return {"err": err, "times": times, "geometry": geometry}
+
+
+#: boxes of the pair compare (tests/test_torch_gpu.py): (shape, periodic, NOTHING
+#: sites, x segment); none divided by a column tile, the first two by no
+#: segment of 7, the third shorter than its segment, the fourth with a z
+#: extent of no whole 16-byte pieces (read without staging)
+PAIR_BOXES = tuple(((20, 36, 40), per, True, seg)
+                   for per in ((True, False, False), (False, False, False), (True, True, True))
+                   for seg in (None, 7)) + (((5, 13, 48), (True, False, True), True, 8),
+                                            ((9, 11, 45), (True, False, True), True, None))
+
+
+def pair_boxes(store: str) -> float:
+    """Two pairs on each of PAIR_BOXES, kernel against plain and, in 16 bits,
+    against the float32 kernel narrowed; returns the largest |df|."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair2_aa, to_storage
+    from tnl_lbm_tpu_torch.ops.boundary import GEO
+    from tnl_lbm_tpu_torch.utils.dtypes import state_agrees
+
+    dev, dtype, worst = torch.device(DEVICE), store_dtype(store), 0.0
+    cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AA")
+    for shape, periodic, nothing, seg in PAIR_BOXES:
+        m = np.zeros(shape, np.uint8)
+        if periodic != (True, True, True):
+            m[:, 0] = m[:, -1] = GEO.WALL
+            m[:, :, 0] = m[:, :, -1] = GEO.WALL
+        if nothing:
+            m[shape[0] // 2, 3, 4] = GEO.NOTHING
+        dom = interop.domain_from_numpy(m, periodic)
+        pair = make_fused_pair2_aa(cfg, dom, dev, store_dtype=dtype, seg_len=seg)
+        f = to_storage(rand_f(cfg, shape, dev, seed=9), dtype)
+        for it in range(2):
+            fk, rk, uk = pair(f, NU, force=(FORCE_SMALL, 0.0, 0.0))
+            fp, rp, up = pair.plain(f, NU, force=(FORCE_SMALL, 0.0, 0.0))
+            d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+            if not (state_agrees(fk, fp, dtype) and d[1] <= TOL_RHO and d[2] <= TOL_U
+                    and narrowing_exact(cfg, dom, f, fk, rk, uk, (FORCE_SMALL, 0.0, 0.0))):
+                raise RuntimeError(f"aa_pair_{store} on the box {shape} {periodic} (segments "
+                                   f"{seg}), pair {it}: {d}")
+            worst = max(worst, d[0])
+            f = fk
+    log("compare", kernel=f"aa_pair_{store}", boxes=len(PAIR_BOXES), pairs=2, max_df=worst)
+    return worst
 
 
 def phase_probes() -> dict:
@@ -619,7 +676,6 @@ def phase_probes() -> dict:
     import torch
 
     from tnl_lbm_tpu_torch.kernels import probes
-    from tnl_lbm_tpu_torch.kernels.fused_aa import PAIR_TILE
 
     dev = torch.device(DEVICE)
     f = torch.randn((27,) + BENCH_SHAPE, device=dev, generator=torch.Generator(dev).manual_seed(3))
@@ -673,7 +729,8 @@ def phase_probes() -> dict:
     floor = gbps(232, ms)
     log("probes", kernel="copy_permute", shape="256^3", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
         gbps_232B=f"{floor:.1f}", share_of_3350=f"{floor / HBM_PEAK_GBPS:.3f}")
-    window_reads = np.prod([t + 2 for t in PAIR_TILE]) / np.prod(PAIR_TILE)  # sites read per site
+    tile = probes.PROBE_TILE
+    window_reads = np.prod([t + 2 for t in tile]) / np.prod(tile)  # sites read per site
     for passes in PROBE_PASSES:
         ms = time_ms(lambda: probes.pair_pipeline(f, passes), reps=20)
         plain_ms = time_ms(lambda: probes.pair_pipeline_plain(f, passes), reps=3)
@@ -700,24 +757,29 @@ def phase_probes() -> dict:
             zchunk=probes.element_zchunk(tx, ty, Z), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
             gbps_216B=f"{gbps(216, ms):.1f}", gbps_script=f"{gbps(script_bytes, ms):.1f}")
     library = {}  # P4's function as one PyTorch call: the interior, made contiguous
-    for y_off, wy, label, dst_off in covering:
-        line = {}
+    for y_off, wy, label, dst_off in covering:  # the call timed before and after the loads
+        line = {"library_ms": time_ms(lambda: probes.interior(fpad).contiguous(), reps=20)}
         timed = (y_off, wy, dst_off) == WINDOW_TIMED
-        if timed:
-            library_ms = time_ms(lambda: probes.interior(fpad).contiguous(), reps=20)
-            line["library_ms"] = f"{library_ms:.4f}"
         for load, (_, name) in probes.LOADS.items():
             ms = time_ms(lambda: probes.window_copy(fpad, y_off, wy, dst_off, load), reps=20)
-            line[f"{load}_ms"] = f"{ms:.4f}"
+            line[f"{load}_ms"] = ms
             if timed:
                 plain_ms = time_ms(lambda: probes.window_copy_plain(fpad, y_off, wy, dst_off),
                                    reps=3)
                 times[name] = (ms, plain_ms)
+        line["library_after_ms"] = time_ms(lambda: probes.interior(fpad).contiguous(), reps=20)
+        library_ms = min(line["library_ms"], line["library_after_ms"])
+        if timed:
+            for _, name in probes.LOADS.values():
                 library[name] = library_ms
         script_bytes = 27 * 4 * (20 * wy / (16 * 32) + 1)
         log("probes", kernel="window_copy", window=repr(label), y_off=y_off, wy=wy,
-            dst_off=dst_off, **line, gbps_216B_tma=f"{gbps(216, float(line['tma_ms'])):.1f}",
-            gbps_script_tma=f"{gbps(script_bytes, float(line['tma_ms'])):.1f}")
+            dst_off=dst_off, stages=probes.window_stages(Z, wy, dst_off),
+            **{k: f"{v:.4f}" for k, v in line.items()},
+            tma_over_library=f"{line['tma_ms'] / library_ms:.3f}",
+            ld16_over_library=f"{line['ld16_ms'] / library_ms:.3f}",
+            gbps_216B_tma=f"{gbps(216, line['tma_ms']):.1f}",
+            gbps_script_tma=f"{gbps(script_bytes, line['tma_ms']):.1f}")
     del fpad
     torch.cuda.empty_cache()
     t_window += time.perf_counter() - t_start
@@ -1382,6 +1444,46 @@ def report_main(sim, label: str) -> dict:
     return launches
 
 
+def auto_choice(sim, label: str) -> None:
+    """The "auto" probe's two times (``Simulation.pair_probe_ms``) beside the
+    pair kernel and one even plus one odd launch timed again on CUDA events,
+    each route chained 20 times from a seeded state of the sim's shape as a
+    run dispatches it (the pair ping-pongs two buffers); where the routes
+    differ by more than 10% (small lattices are launch-bound and noisy), the
+    probe must have picked the faster."""
+    import torch
+
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair2_aa, make_fused_step_aa
+
+    dev, chain = torch.device(DEVICE), 20
+    force = (FORCE_BENCH, 0.0, 0.0)
+    pair = make_fused_pair2_aa(sim.cfg, sim.domain, dev)
+    step = make_fused_step_aa(sim.cfg, sim.domain, dev)
+    f = rand_f(sim.cfg, sim.domain.shape, dev, seed=7)
+    bufs, work = [f.clone(), torch.empty_like(f)], [f]
+
+    def pairs():
+        for k in range(chain):
+            pair(bufs[k % 2], NU, force=force, out=bufs[1 - k % 2])
+
+    def steps():
+        for _ in range(chain):
+            f1, _, _ = step(work[0], NU, force=force, parity=0)
+            work[0], _, _ = step(f1, NU, force=force, parity=1)
+
+    k_pair = time_ms(pairs, reps=2) / chain
+    k_steps = time_ms(steps, reps=2) / chain
+    t_pair, t_steps = sim.pair_probe_ms
+    agrees = abs(k_pair / k_steps - 1) <= 0.1 or bool(sim.pair_dispatch) == (k_pair < k_steps)
+    log("main", path="auto", shape=label, chose="pair" if sim.pair_dispatch else "per_step",
+        probe_pair_ms=f"{t_pair:.4f}", probe_per_step_ms=f"{t_steps:.4f}",
+        kernel_pair_ms=f"{k_pair:.4f}", kernel_even_plus_odd_ms=f"{k_steps:.4f}",
+        agrees=agrees)
+    if not agrees:
+        raise RuntimeError(f"auto at {label} chose {'pair' if sim.pair_dispatch else 'per-step'} "
+                           f"though the kernels take {k_pair:.4f} ms (pair) and {k_steps:.4f} ms")
+
+
 def phase_main_path() -> dict:
     """Per-step dispatch, the "auto" probe, then pair dispatch per store dtype."""
     import torch
@@ -1395,12 +1497,18 @@ def phase_main_path() -> dict:
     torch.cuda.empty_cache()
 
     sim = bench_sim("auto", steps=20)
-    t_pair, t_steps = sim.pair_probe_ms
     launches = report_main(sim, "auto")
-    log("main", path="auto", chose="pair" if sim.pair_dispatch else "per_step",
-        probe_pair_ms=f"{t_pair:.4f}", probe_per_step_ms=f"{t_steps:.4f}")
+    auto_choice(sim, "256^3")
     if launches["pair" if sim.pair_dispatch else "even"] <= 0:
         raise RuntimeError("the auto path did not run through the dispatch it chose")
+    del sim
+    torch.cuda.empty_cache()
+    from tnl_lbm_tpu_torch.apps import sim_2
+
+    sim = sim_2.build(2, device=torch.device(DEVICE), streaming="AA", use_fused=True,
+                      results_parent=WORK / "auto_res2")
+    sim.sim_init()
+    auto_choice(sim, "sim_2_res2")
     del sim
     torch.cuda.empty_cache()
 
@@ -2927,13 +3035,13 @@ def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
     pair: two of the lean CUM_WELL site updates it shares with the odd
     kernel's FLUID/WALL/NOTHING instance, per site; P2: the affine passes,
     2 operations per DF; the slice's kernels: their CUM_WELL instances)."""
-    from tnl_lbm_tpu_torch.kernels.fused_aa import PAIR_TILE
+    from tnl_lbm_tpu_torch.kernels.probes import PROBE_TILE
 
     even, odd = ops["aa_even_cum_well_kernel"], ops["aa_odd_kernel"]
     pair = 2 * odd
     affine = 2 * 27 * 20  # PROBE_PASSES' timed entry: 20 passes
     sites = float(np.prod(BENCH_SHAPE))
-    block0 = 27 * 4 * (np.prod([t + 2 for t in PAIR_TILE]) + np.prod(PAIR_TILE))
+    block0 = 27 * 4 * (np.prod([t + 2 for t in PROBE_TILE]) + np.prod(PROBE_TILE))
     return {
         "aa_even": (233, even), "aa_odd": (233, odd),
         "aa_pair_f32": (PAIR_BYTES["f32"], pair),
@@ -3059,6 +3167,10 @@ def main() -> int:
                  "launches": k.launches, "max_abs_err": err[key]}
         if key == "nn_force":  # |dF| above; its gate is relative to max |F|
             entry["max_rel_err"] = nn_force_rel
+        if key.startswith("aa_pair_") and key[8:] in STORES:  # the pair's resources at 256^3
+            geo = pairs["geometry"][key]
+            entry.update(registers=built["res"][f"{key}_kernel"]["registers"],
+                         smem_bytes=geo["smem_bytes"], stages=geo["stages"])
         if key in ("aa_pair_pad_even", "aa_pair_pad_odd"):  # the pair against its least work
             entry["pair_ms"] = layouts["pair_ms"]
             entry["pair_bound_ms"] = bound(*footprint["aa_pair_f32"])[0]

@@ -10,7 +10,12 @@ resolution 8 (B4, 100 steps); sim_coupled at resolution 8 through the
 coupled step (B7, 100 steps); where the checkout's package has the hooked
 path (``kernels/hooked.py``), the 256^3 bench duct with the Carreau-Yasuda
 hook through its one-kernel route (B10) and its pipeline, A-B and A-A, 100
-steps each.  Prints one JSON line, path -> MLUPS.  Run it in turns within
+steps each; the pair paths: the 256^3 duct in pairs (B1) with the state in
+f32, f16 and bf16, 200 steps each, sim_2 at resolution 2 in pairs (2000
+steps), the benchmark entry (``python -m tnl_lbm_tpu_torch.bench``, pair2)
+per store dtype, and the pair kernel itself at 256^3 per store dtype (CUDA
+events over 20 pairs from a seeded state).  Prints one JSON line: path ->
+MLUPS, and the pair kernel's ms per store dtype.  Run it in turns within
 one call (parent, change, change, parent) and compare only within that
 call.  The duct is built here from the checkout's own ``interop``, so a
 checkout without the benchmark entry (``tnl_lbm_tpu_torch/bench.py``)
@@ -75,14 +80,65 @@ def main() -> int:
                   lambda s=s, route=route: cs.nn_bench_sim(s, route == "single",
                                                            label=f"{s}_{route}"))
                  for s in ("AB", "AA") for route in ("single", "pipeline")]
+    runs += [(f"pair_{store}", lambda store=store: cs.bench_sim(True, storage=store))
+             for store in cs.STORES]
+
+    def sim2_pairs():
+        from tnl_lbm_tpu_torch.apps import sim_2
+
+        sim = sim_2.build(2, device=cs.DEVICE, streaming="AA", use_fused=True,
+                          pair_dispatch=True, results_parent=cs.WORK / "sim2")
+        sim.phys_final_time = 2000 * sim.domain.units.phys_dt
+        if not cs.counting_from_init(sim).run():
+            raise RuntimeError("sim_2 res 2 in pairs failed")
+        return sim
+
+    runs.append(("sim_2_res2_pairs", sim2_pairs))
     mlups = {}
     for label, run in runs:
         sim = run()
         cs.report_main(sim, label)
         mlups[label] = cs.run_figures(sim)[1]
         del sim
-    print(json.dumps({"root": str(root), "mlups": mlups}))
+    mlups.update(bench_entry())
+    print(json.dumps({"root": str(root), "mlups": mlups, "pair_ms": pair_kernel_ms(cs, flagship)}))
     return 0
+
+
+def bench_entry() -> dict:
+    """The checkout's benchmark entry, pair2 per store dtype: its MLUPS."""
+    import contextlib
+    import io
+
+    from tnl_lbm_tpu_torch import bench
+
+    out = {}
+    for store in ("f32", "f16", "bf16"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench.main(["--kernel", "pair2", "--storage", store])
+        out[f"bench_pair2_{store}"] = json.loads(buf.getvalue().strip().splitlines()[-1])["value"]
+    return out
+
+
+def pair_kernel_ms(cs, flagship) -> dict:
+    """The checkout's pair kernel at 256^3 per store dtype, ms per pair."""
+    import torch
+
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair2_aa, to_storage
+
+    out = {}
+    cfg, dom = flagship(cs.BENCH_SHAPE)
+    f32 = cs.rand_f(cfg, dom.shape, cs.DEVICE, seed=7)
+    for store in cs.STORES:
+        pair = make_fused_pair2_aa(cfg, dom, cs.DEVICE, store_dtype=cs.store_dtype(store))
+        f = to_storage(f32, cs.store_dtype(store))
+        res = torch.empty_like(f)
+        out[store] = cs.time_ms(lambda: pair(f, cs.NU, force=(cs.FORCE_BENCH, 0.0, 0.0), out=res),
+                                reps=20)
+        del f, res
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -7,6 +7,8 @@ runs on a machine without it:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -123,31 +125,24 @@ def seeded_state(cfg, shape, device, seed=5):
     return cfg.eq(cfg.lat, rho, u).contiguous()
 
 
-@pytest.mark.parametrize("store", [torch.float32, torch.float16, torch.bfloat16],
-                         ids=["f32", "f16", "bf16"])
-@pytest.mark.parametrize("nothing", [True, False], ids=["nothing", "walls"])
-@pytest.mark.parametrize("periodic", [(True, False, False), (False, False, False),
-                                      (True, True, True)], ids=["periodic_x", "closed", "torus"])
-def test_pair_kernel_matches_plain_on_card(cuda, store, nothing, periodic):
-    """Two pairs on a 20x36x40 box, which no block divides; each pair's
-    kernel output against the plain version on the same input.  A 16-bit
-    kernel's output is also the float32 kernel's on the widened input,
-    narrowed, bit for bit: widening is exact, so that holds the narrowing
-    to round-to-nearest-even exactly."""
-    shape = (20, 36, 40)
-    m = duct(shape, nothing)
-    if nothing:
-        m[7, 9, 11] = GEO.NOTHING
-    if periodic == (True, True, True):
-        m[:] = GEO.FLUID
-        m[3, 4, 5] = GEO.NOTHING if nothing else GEO.WALL
+STORES = pytest.mark.parametrize("store", [torch.float32, torch.float16, torch.bfloat16],
+                                 ids=["f32", "f16", "bf16"])
+PERIODIC = list(itertools.product([False, True], repeat=3))
+
+
+def pairs_match_plain(cuda, m, periodic, store, seg_len=None, n_pairs=2):
+    """``n_pairs`` pairs of the kernel from a seeded state, each against the
+    plain version on the same input and, narrowed, the float32 kernel's
+    output on the widened input bit for bit (widening is exact, so that
+    holds the narrowing to round-to-nearest-even exactly).  Returns the
+    final state and the input."""
     cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AA")
     dom = interop.domain_from_numpy(m, periodic)
-    pair = make_fused_pair2_aa(cfg, dom, cuda, store_dtype=store)
-    wide = make_fused_pair2_aa(cfg, dom, cuda)
-    f = to_storage(seeded_state(cfg, shape, cuda), store)
+    pair = make_fused_pair2_aa(cfg, dom, cuda, store_dtype=store, seg_len=seg_len)
+    wide = make_fused_pair2_aa(cfg, dom, cuda, seg_len=seg_len)
+    f = to_storage(seeded_state(cfg, m.shape, cuda), store)
     f0 = f.clone()
-    for it in range(2):
+    for it in range(n_pairs):
         fk, rk, uk = pair(f, 0.02, force=(1e-5, 0.0, 0.0))
         fp, rp, up = pair.plain(f, 0.02, force=(1e-5, 0.0, 0.0))
         fw, rw, uw = wide(from_storage(f, torch.float32), 0.02, force=(1e-5, 0.0, 0.0))
@@ -159,10 +154,90 @@ def test_pair_kernel_matches_plain_on_card(cuda, store, nothing, periodic):
         assert torch.equal(to_storage(fw, store), fk), f"narrowing, pair {it}"
         assert torch.equal(rw, rk) and torch.equal(uw, uk), f"macro, pair {it}"
         f = fk
-    assert pair.kernel.launches == 2 and pair.plain_calls == 0
+    assert pair.kernel.launches == n_pairs and pair.plain_calls == 0
+    return f, f0
+
+
+@STORES
+@pytest.mark.parametrize("nothing", [True, False], ids=["nothing", "walls"])
+@pytest.mark.parametrize("periodic", PERIODIC,
+                         ids=["".join("p" if p else "c" for p in per) for per in PERIODIC])
+@pytest.mark.parametrize("seg_len", [None, 7], ids=["auto_segments", "segments_of_7"])
+def test_pair_kernel_matches_plain_on_card(cuda, store, nothing, periodic, seg_len):
+    """Two pairs on a 20x36x40 box, which no column tile divides (and, in
+    segments of 7, no x segment), per periodic combination; each pair's
+    kernel output against the plain version on the same input, and a 16-bit
+    kernel's output against the float32 kernel's narrowed."""
+    shape = (20, 36, 40)
+    m = duct(shape, nothing)
+    if nothing:
+        m[7, 9, 11] = GEO.NOTHING
+    if periodic == (True, True, True):
+        m[:] = GEO.FLUID
+        m[3, 4, 5] = GEO.NOTHING if nothing else GEO.WALL
+    f, f0 = pairs_match_plain(cuda, m, periodic, store, seg_len)
     if nothing:  # NOTHING sites keep their stored bits
         keep = torch.as_tensor(m == GEO.NOTHING, device=cuda)
         assert torch.equal(f[:, keep], f0[:, keep])
+
+
+@STORES
+@pytest.mark.parametrize("box", [((5, 13, 48), 8), ((9, 11, 45), None), ((6, 10, 36), 4)],
+                         ids=["x_below_one_segment", "odd_z_unstaged", "z36_16bit_unstaged"])
+def test_pair_kernel_small_boxes_on_card(cuda, store, box):
+    """X shorter than one segment; a z extent that is no whole number of
+    16-byte pieces (read straight from global memory, no staging); with
+    NOTHING sites and walls, periodic along x and z."""
+    shape, seg_len = box
+    m = duct(shape, True)
+    m[shape[0] // 2, 3, 4] = GEO.NOTHING
+    pairs_match_plain(cuda, m, (True, False, True), store, seg_len)
+
+
+@pytest.mark.parametrize("case", ["sim2_res2", "duct_96"])
+def test_pair_dispatch_probe_agrees_with_kernel_times(cuda, case, tmp_path):
+    """``pair_dispatch="auto"`` picks the pair where its kernel, chained as a
+    run dispatches it, is faster than one even plus one odd launch on CUDA
+    events (either within 10%: small lattices are launch-bound and noisy)."""
+    from tnl_lbm_tpu_torch import bench
+    from tnl_lbm_tpu_torch.apps import sim_2
+    from tnl_lbm_tpu_torch.sim.state import Simulation
+
+    if case == "sim2_res2":
+        sim = sim_2.build(2, device=cuda, streaming="AA", use_fused=True, results_parent=tmp_path)
+    else:
+        cfg, dom = bench.flagship((96, 96, 96))
+        sim = Simulation(cfg, dom, device=cuda, results_parent=tmp_path, use_fused=True,
+                         pair_dispatch="auto", phys_final_time=dom.units.phys_dt)
+    sim.sim_init()
+    t_pair, t_steps = sim.pair_probe_ms
+    pair = make_fused_pair2_aa(sim.cfg, sim.domain, cuda)
+    step = make_fused_step_aa(sim.cfg, sim.domain, cuda)
+    f = seeded_state(sim.cfg, sim.domain.shape, cuda)
+    bufs, work, chain = [f.clone(), torch.empty_like(f)], [f], 20
+
+    def pairs():
+        for k in range(chain):
+            pair(bufs[k % 2], 0.02, out=bufs[1 - k % 2])
+
+    def steps():
+        for _ in range(chain):
+            f1, _, _ = step(work[0], 0.02, parity=0)
+            work[0], _, _ = step(f1, 0.02, parity=1)
+
+    def timed(fn):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / chain
+
+    k_pair, k_steps = timed(pairs), timed(steps)
+    assert t_pair > 0 and t_steps > 0
+    if abs(k_pair / k_steps - 1) > 0.1:
+        assert sim.pair_dispatch is (k_pair < k_steps), (t_pair, t_steps, k_pair, k_steps)
 
 
 def test_pair_kernel_writes_into_out_and_rejects_bad_input(cuda):
@@ -766,9 +841,13 @@ def test_element_pipeline_matches_plain_on_card(cuda, variant):
     assert torch.equal(probes.interior(got), probes.interior(want))
 
 
+@pytest.mark.parametrize("Z", [24, 256])
 @pytest.mark.parametrize("load", ["ld4", "ld16", "tma"])
-def test_window_copy_matches_plain_on_card(cuda, load):
-    fpad = torch.randn((27, 32 + 4, 64 + 16, 24), device=cuda)
+def test_window_copy_matches_plain_on_card(cuda, load, Z):
+    """Every covering window of the script (wy 48, 40 and 36) through the
+    pipelined load path equals the interior bit for bit, with 4 plane
+    buffers (Z = 24) and with 2 or 3 (Z = 256); variant 7 raises."""
+    fpad = torch.randn((27, 32 + 4, 64 + 16, Z), device=cuda)
     for y_off, wy, label, dst_off in probes.DMA_VARIANTS:
         if probes.window_covers(y_off, wy, dst_off):
             got = probes.window_copy(fpad, y_off, wy, dst_off, load)

@@ -7,7 +7,8 @@ interpret mode) at the JAX kernel suite's bounds, |df| < 1e-6,
 |drho| < 2e-6, |du| < 1e-6; with half storage against the JAX pair in
 interpret mode, within one unit in the last place of the store dtype.
 Then the pair dispatch of ``Simulation`` and sim_2's ``--storage``, and
-the window rule of ``csrc/aa_pair.cu`` transliterated into numpy.
+the schedule of ``csrc/aa_pair.cu`` (column tiles, x segments, the ring of
+even-output slots and the staged input rows) transliterated into numpy.
 """
 
 import itertools
@@ -24,7 +25,8 @@ from tnl_lbm_tpu.sim import make_step as j_make_step
 from tnl_lbm_tpu_torch import interop
 from tnl_lbm_tpu_torch.apps import sim_2
 from tnl_lbm_tpu_torch.kernels.fused_aa import (
-    PAIR_TILE,
+    PAIR_COLUMN,
+    PAIR_STAGES,
     from_storage,
     make_fused_pair2_aa,
     make_fused_step_aa,
@@ -359,13 +361,24 @@ def test_sim2_storage_runs_the_pair_path(tmp_path, capsys):
     assert sim.error_history and np.isfinite(sim.last_errors).all()
 
 
-# ------------------------------------------ window rule of csrc/aa_pair.cu
+# ------------------------------------- the schedule of csrc/aa_pair.cu
 
 
-def _tile_constants():
-    src = (CSRC / "pair_window.cuh").read_text()
-    m = re.search(r"constexpr int TX = (\d+), TY = (\d+), TZ = (\d+);", src)
-    return tuple(int(v) for v in m.groups())
+def _march_constants() -> dict:
+    """The kernel's integer constants, read from csrc/pair_march.cuh (each a
+    number, or a sum or product of the ones before it)."""
+    src = (CSRC / "pair_march.cuh").read_text()
+    consts: dict = {}
+    for decl in re.findall(r"^constexpr int ([^;]+);", src, re.M):
+        for item in decl.split(","):
+            name, expr = (v.strip() for v in item.split("=", 1))
+            if re.fullmatch(r"[\w +*/()-]+", expr) and "sizeof" not in expr:
+                # C's integer division is Python's floor division on these
+                try:
+                    consts[name] = eval(expr.replace("/", "//"), {}, dict(consts))  # noqa: S307
+                except NameError:  # built on a byte count
+                    pass
+    return consts
 
 
 def _neighbour(s, d, n, periodic):
@@ -376,28 +389,188 @@ def _neighbour(s, d, n, periodic):
     return 0 if t < 0 else (n - 1 if t >= n else t)
 
 
-@pytest.mark.parametrize("periodic", [(True, True, True), (True, False, False),
-                                      (False, False, False)], ids=["torus", "duct", "walls"])
+def _march(shape, periodic, seg_len, dtype, seed=4):
+    """Run csrc/aa_pair.cu's schedule in numpy, block by block: the copies
+    of ``issue`` into byte-level stages, the even warps' staged reads and
+    ring writes (a seeded stand-in for the even output), the odd warps'
+    ring reads.  The two kinds of warps hand planes over through barriers:
+    even plane i waits for odd plane i - 3 (``odd_done``), odd plane o for
+    even plane o + 1 (``planes_done``).  The model runs the even warps as far
+    ahead as that allows, so a group rewritten before its last reader read
+    it shows as a wrong plane, and the reuse events record each group's and
+    stage's last reader beside its next writer.  Each barrier wait is held
+    to the phase it must see (mbarrier.try_wait.parity: the parity of that
+    phase, and no later phase complete).  Returns (times each site
+    was the odd warps', the largest odd read against pad_halo of the even
+    output, the reuse events)."""
+    k = _march_constants()
+    TY, TZ, NST, G, H = k["TY"], k["TZ"], k["NSTAGES"], k["GROUP"], k["HANDOFF"]
+    PG, ZG, MG = k["P_GROUPS"], k["Z_GROUPS"], k["M_GROUPS"]
+    WY, WZ = TY + 2, TZ + 2
+    WS = WY * WZ
+    X, Y, Z = shape
+    px, py, pz = periodic
+    lat = interop.config_from_spec(**spec("AA")).lat
+    cx, cy, cz = (np.asarray(lat.c)[:, a].astype(int) for a in range(3))
+    opp = np.asarray(lat.opp)
+    slot = 3 * (cy + 1) + (cz + 1)
+    rng = np.random.default_rng(seed)
+    f = rng.standard_normal((27,) + shape).astype(dtype)  # the stored state
+    ev = rng.standard_normal((27,) + shape).astype(np.float32)  # stands in for even(f)
+    pad = pstream.pad_halo(torch.from_numpy(ev), periodic).numpy()
+    isz = np.dtype(dtype).itemsize
+    VEC = 16 // isz
+    RB = 16 + ((TZ * isz + 4 + 15) // 16) * 16  # row_bytes<S>
+    HI = 16 + TZ * isz  # hi_halo_byte<S>
+    fbytes = f.reshape(-1).view(np.uint8)
+    N, YZ = X * Y * Z, Y * Z
+    odd_count = np.zeros(shape, np.int64)
+    worst = 0.0
+    events = []  # (what, buffer, written at, previous content last read at)
+    nzt = -(-Z // TZ)
+    for col in range(-(-Y // TY) * nzt):
+        y0, z0 = (col // nzt) * TY, (col % nzt) * TZ
+        ny, nz = min(TY, Y - y0), min(TZ, Z - z0)
+        zlo, zhi = _neighbour(z0 - 1, 0, Z, pz), _neighbour(z0 - 1, nz + 1, Z, pz)
+        t = np.arange(k["EVEN_THREADS"])  # one window site each
+        lyw, lzw = t // WZ, t % WZ
+        on = (t < WS) & (lyw <= ny + 1) & (lzw <= nz + 1)
+        t_on = t[on]
+        yg = np.array([_neighbour(y0 - 1, v, Y, py) for v in lyw[on]])
+        zg = np.array([_neighbour(z0 - 1, v, Z, pz) for v in lzw[on]])
+        half = 2 * (zg & 1) if isz == 2 else 0
+        soff = lyw[on] * RB + np.where(lzw[on] == 0, half,
+                                       np.where(lzw[on] == nz + 1, HI + half,
+                                                16 + (lzw[on] - 1) * isz))
+        ry = np.arange(WY)[: ny + 2]
+        rowy = np.array([_neighbour(y0 - 1, v, Y, py) for v in ry])
+        ly, lz = np.divmod(np.arange(k["TILE_SITES"]), TZ)
+        mine = (ly < ny) & (lz < nz)
+        ly, lz = ly[mine], lz[mine]
+        wc = (ly + 1) * WZ + lz + 1
+        for xs in range(0, X, seg_len):
+            xe = min(xs + seg_len, X)
+            n_even = xe - xs + 2
+            ring = np.full((PG + ZG + MG, G, WS), np.nan, np.float32)
+            ring_read = {}  # buffer -> iteration of the last read of its content
+            stages = [None] * NST
+            stage_read = {}
+            done = {"full": [0] * NST, "planes": [0] * H, "odd": [0] * H}  # completed phases
+
+            def issue(j):
+                xg = _neighbour(xs - 1, j, X, px)
+                st = np.full(27 * WY * RB, 0xEE, np.uint8)
+                rows = (np.arange(27)[:, None] * WY + ry[None, :]).ravel()  # q WY + ry
+                base = (np.arange(27)[:, None] * N + xg * YZ + rowy[None, :] * Z).ravel()
+                src = (base + z0)[:, None] * isz + np.arange(nz * isz)  # the bulk copy
+                st[(rows * RB + 16)[:, None] + np.arange(nz * isz)] = fbytes[src]
+                for at, zh in ((0, zlo), (HI, zhi)):  # the halo words
+                    e = base + zh
+                    if isz == 2:
+                        e = e & ~1
+                    st[(rows * RB + at)[:, None] + np.arange(4)] = fbytes[e[:, None] * isz
+                                                                          + np.arange(4)]
+                # issued at even plane j - 1, after every even warp read plane j - 2
+                events.append(("stage", j % NST, j - 2, stage_read.get(j % NST, -(10**9))))
+                stages[j % NST] = (j, st)
+                done["full"][j % NST] += 1
+
+            for j in range(min(NST - 1, n_even)):
+                issue(j)
+            odd_planes = range(1, n_even - 1)
+
+            def wait(kind, k, parity, n):
+                # mbarrier.try_wait.parity: the barrier's n-th phase (its
+                # parity given) has completed and no later one has
+                assert parity == n % 2 and done[kind][k] == n + 1, (kind, k, parity, n)
+
+            order, done_odd, i = [], 0, 0  # even as far ahead as odd_done allows
+            while i < n_even or done_odd < len(odd_planes):
+                if i < n_even and (i < 4 or done_odd >= i - 3):
+                    order.append(("even", i))
+                    i += 1
+                else:
+                    o = odd_planes[done_odd]
+                    assert i > o + 1  # planes_done(o + 1)
+                    order.append(("odd", o))
+                    done_odd += 1
+            for kind, i in order:
+                if kind == "even":
+                    if i + NST - 1 < n_even:
+                        issue(i + NST - 1)  # after every even warp read plane i - 1
+                    if i >= 4:  # the kernel's waits, as written there
+                        wait("odd", (i - 4) % H, ((i - 4) // H) & 1, (i - 4) // H)
+                    wait("full", i % NST, (i // NST) & 1, i // NST)
+                    xg = _neighbour(xs - 1, i, X, px)
+                    plane, st = stages[i % NST]
+                    assert plane == i
+                    got = np.stack([st[(q * WY * RB + soff)[:, None] + np.arange(isz)]
+                                    .reshape(-1).view(dtype) for q in range(27)])
+                    np.testing.assert_array_equal(got, f[:, xg, yg, zg])
+                    stage_read[i % NST] = i
+                    bufs = (i % PG, PG + i % ZG, PG + ZG + i % MG)
+                    for r in range(27):
+                        buf = bufs[0] if cx[r] > 0 else (bufs[1] if cx[r] == 0 else bufs[2])
+                        ring[buf, slot[r], t_on] = ev[r, xg, yg, zg]
+                    for buf in bufs:  # the wait covers readers up to odd plane i - 3
+                        events.append(("ring", buf, i - 3, ring_read.get(buf, -(10**9))))
+                    done["planes"][i % H] += 1
+                else:
+                    o = i
+                    wait("planes", (o + 1) % H, ((o + 1) // H) & 1, (o + 1) // H)
+                    x = xs + o - 1
+                    y, z = y0 + ly, z0 + lz
+                    bufs = ((o + 1) % PG, PG + o % ZG, PG + ZG + (o - 1) % MG)
+                    for q in range(27):
+                        r = opp[q]
+                        buf = bufs[0] if cx[r] > 0 else (bufs[1] if cx[r] == 0 else bufs[2])
+                        got = ring[buf, slot[r], wc - cy[q] * WZ - cz[q]]
+                        want = pad[r, x + 1 - cx[q], y + 1 - cy[q], z + 1 - cz[q]]
+                        worst = max(worst, float(np.abs(got - want).max()))
+                        ring_read[buf] = o
+                    odd_count[x, y, z] += 1
+                    done["odd"][(o - 1) % H] += 1
+    return odd_count, worst, events
+
+
+_PERIODIC = list(itertools.product([False, True], repeat=3))
+
+
+@pytest.mark.parametrize("periodic", _PERIODIC,
+                         ids=["".join("p" if p else "c" for p in per) for per in _PERIODIC])
 def test_pair_window_equals_pad_halo(periodic):
-    """Each block's window (its tile + a one-site halo, wrap or clamp per
-    axis: csrc/pair_window.cuh window_site) is the matching slice of
-    pad_halo, which the odd step reads; the masked tiles cover every site
-    once on a shape no tile divides."""
-    tile = _tile_constants()
-    assert tile == PAIR_TILE
-    shape = (tile[0] + 3, 2 * tile[1] + 1, tile[2] + 5)
-    rng = np.random.default_rng(4)
-    arr = rng.standard_normal((1,) + shape).astype(np.float32)
-    padded = pstream.pad_halo(torch.from_numpy(arr), periodic)[0].numpy()
-    covered = np.zeros(shape, np.int64)
-    for b in itertools.product(*(range(-(-n // t)) for n, t in zip(shape, tile))):
-        origin = [bi * t for bi, t in zip(b, tile)]
-        valid = [min(t, n - o) for t, n, o in zip(tile, shape, origin)]
-        win = np.full([v + 2 for v in valid], np.nan, np.float32)
-        for lw in itertools.product(*(range(v + 2) for v in valid)):
-            g = [_neighbour(o - 1, l, n, p) for o, l, n, p in zip(origin, lw, shape, periodic)]
-            win[lw] = arr[(0,) + tuple(g)]
-        want = padded[tuple(slice(o, o + v + 2) for o, v in zip(origin, valid))]
-        np.testing.assert_array_equal(win, want)
-        covered[tuple(slice(o, o + v) for o, v in zip(origin, valid))] += 1
-    assert (covered == 1).all()
+    """The pair kernel's schedule (csrc/aa_pair.cu, constants read from
+    csrc/pair_march.cuh) on a shape that no column tile and no x segment
+    divides, per periodic combination: every site is the odd sub-step's
+    exactly once; every odd pull, taken from the ring of even-output slots,
+    is pad_halo of the even output at s - c_q, which the odd step reads;
+    each ring group is overwritten only after its last reader arrived on the
+    barrier its writer waits for, each stage only after the even warps read
+    it; and the staged rows (16-byte
+    pieces, the z-halo words) give the even sub-step the input at its window
+    site, bit for bit, in float32 and, with its halo words, in float16."""
+    k = _march_constants()
+    assert (k["TY"], k["TZ"]) == PAIR_COLUMN and k["NSTAGES"] == PAIR_STAGES
+    assert (k["P_GROUPS"], k["Z_GROUPS"], k["M_GROUPS"], k["GROUP"]) == (2, 3, 4, 9)
+    assert k["EVEN_THREADS"] >= k["WSITES"] and k["EVEN_THREADS"] % 32 == 0
+    assert k["THREADS"] == k["EVEN_THREADS"] + k["TILE_SITES"] and k["HANDOFF"] >= 4
+    shape = (7, PAIR_COLUMN[0] + 3, PAIR_COLUMN[1] + 8)  # 11 rows, 40 z sites
+    for dtype, seg_len in ((np.float32, 3), (np.float16, 5)):
+        count, worst, events = _march(shape, periodic, seg_len, dtype)
+        assert (count == 1).all(), dtype
+        assert worst == 0.0, dtype
+        assert all(read <= covered for _, _, covered, read in events), dtype
+
+
+def test_pair_segments_cover_x_when_x_is_shorter_than_a_segment():
+    count, worst, events = _march((3, 5, 8), (True, False, True), 8, np.float32)
+    assert (count == 1).all() and worst == 0.0
+    assert all(read <= covered for _, _, covered, read in events)
+
+
+def test_pair_seg_len_is_validated():
+    with pytest.raises(ValueError, match="seg_len"):
+        port_pair("duct", seg_len=0)
+    pair = port_pair("duct", seg_len=2)
+    f = interop.state_from_numpy(rand_f(jax_side(spec("AA"), *geometry("duct"))[0]), "cpu")
+    assert torch.equal(pair(f, NU)[0], port_pair("duct")(f, NU)[0])

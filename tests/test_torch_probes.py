@@ -7,6 +7,7 @@ Pallas kernel body: ``scripts/profile_floor.py:24-33`` (P1) and
 Both sides round every float32 operation, so they agree bit for bit.
 """
 
+import re
 from pathlib import Path
 
 import numpy as np
@@ -69,14 +70,23 @@ def test_pair_compute_only_plain_matches_pallas_body(shape):
     tile = probes.pair_compute_only(torch.from_numpy(f), 20)
     bx, by, bz = probes.first_block(shape)
     assert tile.shape == (Q, bx, by, bz) == (Q,) + tuple(min(t, n) for t, n in
-                                                        zip(probes.PAIR_TILE, shape))
+                                                        zip(probes.PROBE_TILE, shape))
     # only the first block's output is defined (the first program's)
     np.testing.assert_array_equal(tile.numpy(), np_passes(f[:, :bx, :by, :bz], 20))
 
 
 def test_probes_share_the_pair_kernel_geometry():
-    src = (Path(probes.__file__).resolve().parents[1] / "csrc" / "probes.cu").read_text()
+    """P2a/P2b keep the geometry of the first one-kernel pair (whose times
+    they explain): pair_window.cuh's tile, which ``PROBE_TILE`` mirrors.
+    The pair itself now takes its geometry from pair_march.cuh."""
+    csrc = Path(probes.__file__).resolve().parents[1] / "csrc"
+    src = (csrc / "probes.cu").read_text()
     assert '#include "pair_window.cuh"' in src and "window_site(" in src
+    m = re.search(r"constexpr int TX = (\d+), TY = (\d+), TZ = (\d+);",
+                  (csrc / "pair_window.cuh").read_text())
+    assert tuple(int(v) for v in m.groups()) == probes.PROBE_TILE
+    pair_src = (csrc / "aa_pair.cu").read_text()
+    assert '#include "pair_march.cuh"' in pair_src and "pair_window.cuh" not in pair_src
 
 
 def test_probes_refuse_bad_state():

@@ -8,46 +8,77 @@
 // sub-step; even and odd are the per-step kernels' functions (aa_even.cu,
 // aa_odd.cu) and their plain versions even_step_plain / odd_step_plain.
 //
-// Design (pair_window.cuh).  A block owns an output tile of 4 x 4 x 32
-// sites (z fastest).  It runs the even sub-step on the tile and its
-// one-site halo (the window) and keeps that output in shared memory as
-// float32 structure of arrays, ev[q][window site], so the intermediate
-// never touches HBM and is never rounded to the store type
-// (fused_aa.py:987-999).  Window sites outside a non-periodic domain take
-// the even output of the clamped site, and periodic axes wrap: that is
-// pad_halo of the even output, what the odd sub-step reads
-// (fused_aa.py:1001-1025; along z the clamp at the true extent of
-// _zshift).  The even output sits in the post-permutation slot order
-// (out_perm = opp), so the odd read is aa_odd.cu's, ev[opp q](s - c_q).
-// NOTHING sites keep their DFs through the even sub-step.  After one
-// barrier the odd sub-step runs on the tile's own sites and scatters with
-// aa_odd.cu's one-writer rule (push_targets), so the odd ring is not
-// recomputed; pushes aimed at NOTHING sites are dropped and those sites
-// write their even output back (fused_aa.py:1064-1069), which narrows to
-// the stored bits exactly.  Blocks read their neighbours' sites, so the
-// kernel reads f_in and writes a second buffer.  Only the final store
-// narrows, with round-to-nearest-even like torch's .to().
+// Design (pair_march.cuh): an x-marching pipeline.  A block owns a y-z
+// column tile of 8 x 32 sites and a segment of at most 16 x planes, and
+// walks it plane by plane.  Its warps have one role each.  11 even warps run
+// the even sub-step on window plane i (the tile and its one-site y-z halo:
+// 340 sites, one thread each, 1.33 collisions per tile site); 8 odd warps
+// run the odd sub-step on the tile's 256 sites of plane o, once even plane
+// o + 1 is written.  The two hand planes over through mbarriers, not a
+// block-wide barrier: the odd warps wait on `planes_done` of plane o + 1,
+// the even warps on `odd_done` of plane i - 3 before they overwrite what it
+// read, so the even warps run up to three planes ahead and every thread
+// collides one site per plane.  The even output stays in shared memory as
+// float32 and is never rounded to the store type (fused_aa.py:987-999).  It
+// goes to a ring that keeps of each plane only the slots a later odd pull
+// reads, until that pull has read them (pair_march.cuh): 81 values per
+// window site in 110 KB.  Window sites outside a non-periodic domain take
+// the even output of the clamped site and periodic axes wrap: pad_halo of
+// the even output, what the odd sub-step reads (fused_aa.py:1001-1025).  The
+// even output sits in the post-permutation slot order (out_perm = opp), so
+// the odd read is aa_odd.cu's, ev[opp q](s - c_q).  NOTHING sites keep
+// their DFs through the even sub-step.  The odd sub-step scatters with
+// aa_odd.cu's one-writer rule (push_targets; sites away from every face in
+// straight-line stores); pushes aimed at NOTHING sites are dropped and
+// those sites copy their stored bits to the output, which is their even
+// output narrowed (fused_aa.py:1064-1069).  Blocks read their neighbours'
+// sites, so the kernel reads f_in and writes a second buffer.  Only the
+// final store narrows, with round-to-nearest-even like torch's .to().
+//
+// Staging: input plane i + 1 is copied into shared memory while the even
+// warps work on plane i (and the odd warps on earlier planes), through two
+// stages, each completed on its own mbarrier.  Each of a plane's 270 window
+// rows (27 components x 10 y rows, the y-halo rows' addresses wrapped or
+// clamped per row) is one thread's: the row's 32 interior elements as one
+// 1D bulk copy (TMA, 128 or 64 contiguous bytes, counted on the barrier's
+// transaction count), each of its two z-halo elements, whose addresses wrap
+// or clamp per element, as the 4-byte word that holds it (cp.async).  Not a
+// tiled tensor map: it fills out-of-domain boxes with zeros where the
+// window needs the wrap or the clamp, and its inner box would be 34 floats,
+// not a multiple of 16 bytes.  Every even thread's
+// cp.async.mbarrier.arrive.noinc arrives on the stage's barrier once its
+// copies landed, and a named barrier of the even warps orders each refill
+// after the reads of the stage.  A state whose z extent is not a whole
+// number of 16-byte pieces, or that is not 16-byte aligned, is read
+// straight from global memory by the even warps (no staging; the same
+// function, slower).
 //
 // Bound: HBM bytes, one read and one write of f per two steps (216 B/site
-// in float32, 108 B with 16-bit storage), plus the map and, for the odd
-// sub-step, 16 B of rho and u.  Loads and stores are coalesced along z.
-// The window re-reads 1224 / 512 = 2.4x the tile's sites (mostly from L2)
-// and recomputes the even collision as often.  The window's 132 KB of
-// shared memory leave one block of 512 threads per SM, whose loads and
-// arithmetic do not overlap; a design that marches along x with a ring of
-// three window planes recomputes only 1.3x, but without asynchronous
-// copies it measured slower on an H100.  Offsets are 64-bit; partial tiles
-// are masked.
+// in float32, 108 B with 16-bit storage), plus the map and 16 B of rho and
+// u; the collisions' FP32 operations take less at the card's peak rate.
+// What holds it on an H100 (PERF.md, kernels/pair_ablation.py): issue
+// slots.  Its 2.33 collisions per site (1.33 even, the window's halo, plus
+// two planes per segment of 16) run at 19 warps per SM; the even warps
+// alone take two thirds of the kernel's time, and the odd warps' work adds
+// to it rather than hiding behind it.  In float32 the 27 scalar stores a
+// site cost a quarter of the kernel when the collisions are left out.  The
+// ring and two float32 stages take 198 KB (16-bit: 163 KB): one block of
+// 608 threads per SM, 96 registers a thread, some of it spilled.  Offsets into a state
+// are 64-bit; offsets within one plane (Y Z < 2^31 sites) are 32-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <climits>
+#include <cstdint>
+
 #include "lbm_site.cuh"
-#include "pair_window.cuh"
+#include "pair_march.cuh"
 
 using namespace lbm;
-using namespace lbm::pair;
+using namespace lbm::march;
 
 namespace {
 
@@ -66,92 +97,286 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// One bulk copy (TMA) of `bytes` from global to shared memory, completing
+// on `bar` (whose transaction count this thread raised first).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Arrives on `bar` once all of this thread's earlier cp.async copies landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// A plain arrive: releases this thread's earlier shared-memory writes.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
 template <typename S>
 __device__ __forceinline__ void aa_pair_body(const S* __restrict__ f, S* __restrict__ fout,
                                              const uint8_t* __restrict__ map,
                                              float* __restrict__ rho_out,
                                              float* __restrict__ u_out, int X, int Y, int Z,
                                              int periodic_bits, int has_nothing,
-                                             int with_macro, SiteParams p) {
-  extern __shared__ float ev[];  // [Q][WSITES]
-  const int64_t N = (int64_t)X * Y * Z;
+                                             int with_macro, int seg_len, int staged,
+                                             SiteParams p) {
+  constexpr int RB = row_bytes<S>(), SB = stage_bytes<S>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // [RING_GROUPS][GROUP][WSITES]
+  uint8_t* codes = smem + RING_BYTES;            // [CODE_PLANES][WSITES]
+  unsigned char* stages = smem + STAGE_OFFSET;   // [NSTAGES][Q][WY][RB]
+  __shared__ uint64_t full[NSTAGES];  // stage landed: EVEN_THREADS arrivals and its bytes
 
-  // ---- even sub-step on the window: same-site read, opposite-slot result
-  for (int w = threadIdx.x; w < WSITES; w += THREADS) {
-    const int64_t site = window_site(w, blockIdx.x, blockIdx.y, blockIdx.z, X, Y, Z,
-                                     periodic_bits);
-    if (site < 0) continue;
-    const uint8_t m = map[site];
-    float v[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) v[q] = widen(f[q * N + site]);
-    if (m == GEO_NOTHING) {
-#pragma unroll
-      for (int q = 0; q < Q; ++q) ev[q * WSITES + w] = v[q];
-    } else {
-      float rho, ux, uy, uz;
-      stream_bc_collide(v, m, p, rho, ux, uy, uz);
-#pragma unroll
-      for (int q = 0; q < Q; ++q) ev[q * WSITES + w] = v[opp(q)];
+  const bool px = periodic_bits & 1, py = periodic_bits & 2, pz = periodic_bits & 4;
+  const int64_t YZ = (int64_t)Y * Z, N = X * YZ;
+  // block b: column tile b mod ncol of segment b / ncol, so the blocks that
+  // run together walk the same x and share their halo rows in L2
+  const int nzt = (Z + TZ - 1) / TZ, ncol = ((Y + TY - 1) / TY) * nzt;
+  const int col = blockIdx.x % ncol, seg = blockIdx.x / ncol;
+  const int y0 = (col / nzt) * TY, z0 = (col % nzt) * TZ;
+  const int ny = min(TY, Y - y0), nz = min(TZ, Z - z0);
+  const int xs = seg * seg_len, xe = min(xs + seg_len, X);
+  const int n_even = xe - xs + 2;  // even planes xs - 1 .. xe
+  const int t = threadIdx.x;
+  const int zlo = neighbour(z0 - 1, 0, Z, pz), zhi = neighbour(z0 - 1, nz + 1, Z, pz);
+
+  __shared__ uint64_t planes_done[HANDOFF];  // even plane i written: EVEN_THREADS arrivals
+  __shared__ uint64_t odd_done[HANDOFF];     // odd plane o read: ODD_THREADS arrivals at o - 1
+  if (t == 0) {
+    for (int s = 0; s < NSTAGES; ++s) mbar_init(&full[s], EVEN_THREADS);
+    for (int k = 0; k < HANDOFF; ++k) {
+      mbar_init(&planes_done[k], EVEN_THREADS);
+      mbar_init(&odd_done[k], ODD_THREADS);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // ---- odd sub-step on the tile's own sites: neighbour pull, collide, push
-  const TileSite t;
-  const int x = blockIdx.z * TX + t.lx, y = blockIdx.y * TY + t.ly, z = blockIdx.x * TZ + t.lz;
-  if (x >= X || y >= Y || z >= Z) return;
-  const bool px = periodic_bits & 1, py = periodic_bits & 2, pz = periodic_bits & 4;
-  const int64_t sx = (int64_t)Y * Z, sy = Z;
-  const int64_t site = x * sx + y * sy + z;
-  float v[Q];
-#pragma unroll
-  for (int q = 0; q < Q; ++q)
-    v[q] = ev[opp(q) * WSITES + t.w - cx(q) * (WY * WZ) - cy(q) * WZ - cz(q)];
-  const uint8_t m = map[site];
-  float rho, ux, uy, uz;
-  stream_bc_collide(v, m, p, rho, ux, uy, uz);
+  if (t < EVEN_THREADS) {
+    // ================= even warps: window plane i, for i = 0 .. n_even - 1
+    // This thread's window site: its y-z offset within a plane, its stage
+    // offset and whether it exists.
+    const int lyw = t / WZ, lzw = t % WZ;
+    const bool on = t < WSITES && lyw <= ny + 1 && lzw <= nz + 1;
+    const int zg = neighbour(z0 - 1, lzw, Z, pz);
+    const int yz = neighbour(y0 - 1, lyw, Y, py) * Z + zg;  // Y Z < 2^31
+    const int half = sizeof(S) == 2 ? 2 * (zg & 1) : 0;     // a halo's half in its word
+    const int soff = lyw * RB + (lzw == 0 ? half
+                                          : (lzw == nz + 1 ? hi_halo_byte<S>() + half
+                                                           : 16 + (lzw - 1) * (int)sizeof(S)));
+    // Staged rows: thread t < Q WY copies row t (component t / WY, window
+    // row t % WY) of every plane: its interior as one bulk copy, its two
+    // z-halo words by cp.async.
+    const bool copier = t < Q * WY && t % WY <= ny + 1;
+    auto issue = [&](int j) {
+      uint64_t* bar = &full[j % NSTAGES];
+      if (copier) {
+        const S* src = f + neighbour(xs - 1, j, X, px) * YZ + (int64_t)(t / WY) * N +
+                       neighbour(y0 - 1, t % WY, Y, py) * (int64_t)Z;
+        unsigned char* dst = stages + (j % NSTAGES) * SB + t * RB;
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the last reads
+        bulk_copy(dst + 16, src + z0, nz * (uint32_t)sizeof(S), bar);
+        const S* lo = src + zlo;
+        const S* hi = src + zhi;
+        if (sizeof(S) == 2) {  // the aligned words that hold the halo elements
+          lo = reinterpret_cast<const S*>(reinterpret_cast<uintptr_t>(lo) & ~uintptr_t(3));
+          hi = reinterpret_cast<const S*>(reinterpret_cast<uintptr_t>(hi) & ~uintptr_t(3));
+        }
+        cp_async4(dst, lo);
+        cp_async4(dst + hi_halo_byte<S>(), hi);
+      }
+      cp_async_arrive(bar);
+    };
+    if (staged)
+      for (int j = 0; j < NSTAGES - 1 && j < n_even; ++j) issue(j);
+    uint8_t mnext = on ? map[neighbour(xs - 1, 0, X, px) * YZ + yz] : GEO_NOTHING;
 
-  // pushes aimed at a NOTHING site are dropped: its own thread restores it
-  auto push = [&](int q, int64_t dst) {
-    if (!(has_nothing && map[dst] == GEO_NOTHING)) fout[q * N + dst] = narrow<S>(v[q]);
-  };
-  // rows away from the x and y faces: only z needs the edge-replication rule
-  if (x > 0 && x < X - 1 && y > 0 && y < Y - 1) {
+    for (int i = 0; i < n_even; ++i) {
+      if (staged && i + NSTAGES - 1 < n_even) {
+        // every even thread has read the stage that plane i + 1 refills
+        if (i > 0) asm volatile("bar.sync 1, %0;\n" ::"r"(EVEN_THREADS) : "memory");
+        issue(i + NSTAGES - 1);
+      }
+      // the ring groups and codes that plane i overwrites were last read by
+      // odd plane i - 3
+      if (i >= 4) mbar_wait(&odd_done[(i - 4) % HANDOFF], ((i - 4) / HANDOFF) & 1);
+      if (on) {
+        // same-site read, opposite-slot result
+        if (staged) mbar_wait(&full[i % NSTAGES], (i / NSTAGES) & 1);
+        const uint8_t m = mnext;
+        if (i + 1 < n_even) mnext = map[neighbour(xs - 1, i + 1, X, px) * YZ + yz];
+        float v[Q];
+        if (staged) {
+          const unsigned char* st = stages + (i % NSTAGES) * SB + soff;
 #pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      int tz0, tz1;
-      push_targets(z, cz(q), Z, pz, tz0, tz1);
-      const int64_t row = site - z + cx(q) * sx + cy(q) * sy;
-      if (tz0 >= 0) push(q, row + tz0);
-      if (tz1 >= 0) push(q, row + tz1);
+          for (int q = 0; q < Q; ++q)
+            v[q] = widen(*reinterpret_cast<const S*>(st + q * WY * RB));
+        } else {
+          int64_t n = N;
+          asm volatile("" : "+l"(n));  // no 27 component offsets kept across the loop
+          const S* src = f + neighbour(xs - 1, i, X, px) * YZ + yz;
+#pragma unroll
+          for (int q = 0; q < Q; ++q, src += n) v[q] = widen(*src);
+        }
+        float* ringP = ring + (i % P_GROUPS) * GROUP * WSITES;
+        float* ringZ = ring + (P_GROUPS + i % Z_GROUPS) * GROUP * WSITES;
+        float* ringM = ring + (P_GROUPS + Z_GROUPS + i % M_GROUPS) * GROUP * WSITES;
+        if (m == GEO_NOTHING) {  // its DFs as they are
+#pragma unroll
+          for (int r = 0; r < Q; ++r) {
+            float* grp = cx(r) > 0 ? ringP : (cx(r) == 0 ? ringZ : ringM);
+            grp[group_slot(r) * WSITES + t] = v[r];
+          }
+        } else {
+          float rho, ux, uy, uz;
+          stream_bc_collide(v, m, p, rho, ux, uy, uz);
+#pragma unroll
+          for (int r = 0; r < Q; ++r) {
+            float* grp = cx(r) > 0 ? ringP : (cx(r) == 0 ? ringZ : ringM);
+            grp[group_slot(r) * WSITES + t] = v[opp(r)];
+          }
+        }
+        codes[(i % CODE_PLANES) * WSITES + t] = m;
+      } else if (staged) {
+        mbar_wait(&full[i % NSTAGES], (i / NSTAGES) & 1);  // keep the phases in step
+      }
+      mbar_arrive(&planes_done[i % HANDOFF]);  // releases this thread's ring writes
     }
-  } else {
+    return;
+  }
+
+  // ================= odd warps: plane o = 1 .. n_even - 2 (x = xs + o - 1),
+  // once even plane o + 1 is written
+  const int ot = t - EVEN_THREADS, ly = ot / TZ, lz = ot % TZ;
+  const int wc = (ly + 1) * WZ + lz + 1;
+  const bool mine = ly < ny && lz < nz;
+  const int y = y0 + ly, z = z0 + lz;
+  for (int o = 1; o + 1 < n_even; ++o) {
+    mbar_wait(&planes_done[(o + 1) % HANDOFF], ((o + 1) / HANDOFF) & 1);
+    if (mine) {
+      // neighbour pull, collide, push
+      const int x = xs + o - 1;
+      const int64_t site = (int64_t)x * YZ + (int64_t)y * Z + z;
+      const float* ringP = ring + ((o + 1) % P_GROUPS) * GROUP * WSITES;
+      const float* ringZ = ring + (P_GROUPS + o % Z_GROUPS) * GROUP * WSITES;
+      const float* ringM = ring + (P_GROUPS + Z_GROUPS + (o - 1) % M_GROUPS) * GROUP * WSITES;
+      float v[Q];
 #pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      int tx[2], ty[2], tz[2];
-      push_targets(x, cx(q), X, px, tx[0], tx[1]);
-      push_targets(y, cy(q), Y, py, ty[0], ty[1]);
-      push_targets(z, cz(q), Z, pz, tz[0], tz[1]);
+      for (int q = 0; q < Q; ++q) {
+        const int r = opp(q);
+        const float* grp = cx(r) > 0 ? ringP : (cx(r) == 0 ? ringZ : ringM);
+        v[q] = grp[group_slot(r) * WSITES + wc - cy(q) * WZ - cz(q)];
+      }
+      const uint8_t m = codes[(o % CODE_PLANES) * WSITES + wc];
+      mbar_arrive(&odd_done[(o - 1) % HANDOFF]);  // the ring is read: the even warps may go on
+      float rho, ux, uy, uz;
+      stream_bc_collide(v, m, p, rho, ux, uy, uz);
+
+      // The strides, opaque to the compiler inside the iteration: the 27
+      // component offsets are then formed as the pushes go, not kept in
+      // registers across the plane loop.
+      int64_t n = N, sxv = YZ, syv = Z;
+      int sx32 = (int)YZ, sy32 = Z;  // neighbour deltas within a component: |d| <= Y Z + Z + 1
+      asm volatile("" : "+l"(n), "+l"(sxv), "+l"(syv), "+r"(sx32), "+r"(sy32));
+      // pushes aimed at a NOTHING site are dropped: its own thread restores it
+      S* fq = fout;  // component q's plane
+      auto push = [&](int q, int64_t dst) {
+        if (!(has_nothing && map[dst] == GEO_NOTHING)) fq[dst] = narrow<S>(v[q]);
+      };
+      const bool xy_inner = x > 0 && x < X - 1 && y > 0 && y < Y - 1;
+      if (xy_inner && z > 0 && z < Z - 1) {
+        // every push lands at site + c_q: straight-line stores, no branches
+        // when the map holds no NOTHING site
+        S* fs = fout + site;
+        if (has_nothing) {
+          const uint8_t* ms = map + site;
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+          for (int q = 0; q < Q; ++q, fs += n) {
+            const int d = cx(q) * sx32 + cy(q) * sy32 + cz(q);
+            if (ms[d] != GEO_NOTHING) fs[d] = narrow<S>(v[q]);
+          }
+        } else {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+          for (int q = 0; q < Q; ++q, fs += n)
+            fs[cx(q) * sx32 + cy(q) * sy32 + cz(q)] = narrow<S>(v[q]);
+        }
+      } else if (xy_inner) {
+        // rows away from the x and y faces: only z needs the edge-replication rule
 #pragma unroll
-          for (int k = 0; k < 2; ++k)
-            if (tx[i] >= 0 && ty[j] >= 0 && tz[k] >= 0)
-              push(q, ((int64_t)tx[i] * Y + ty[j]) * Z + tz[k]);
+        for (int q = 0; q < Q; ++q, fq += n) {
+          int tz0, tz1;
+          push_targets(z, cz(q), Z, pz, tz0, tz1);
+          const int64_t row = site - z + cx(q) * sxv + cy(q) * syv;
+          if (tz0 >= 0) push(q, row + tz0);
+          if (tz1 >= 0) push(q, row + tz1);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < Q; ++q, fq += n) {
+          int tx[2], ty[2], tz[2];
+          push_targets(x, cx(q), X, px, tx[0], tx[1]);
+          push_targets(y, cy(q), Y, py, ty[0], ty[1]);
+          push_targets(z, cz(q), Z, pz, tz[0], tz[1]);
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int b = 0; b < 2; ++b)
+#pragma unroll
+              for (int c = 0; c < 2; ++c)
+                if (tx[a] >= 0 && ty[b] >= 0 && tz[c] >= 0)
+                  push(q, ((int64_t)tx[a] * Y + ty[b]) * Z + tz[c]);
+        }
+      }
+      if (m == GEO_NOTHING) {  // its even output is its input: the stored bits
+        const S* src = f + site;
+        S* dst = fout + site;
+#pragma unroll
+        for (int q = 0; q < Q; ++q, src += n, dst += n) *dst = *src;
+      }
+      if (with_macro) {
+        rho_out[site] = rho;
+        u_out[site] = ux;
+        u_out[N + site] = uy;
+        u_out[2 * N + site] = uz;
+      }
+    } else {
+      mbar_arrive(&odd_done[(o - 1) % HANDOFF]);
     }
-  }
-  if (m == GEO_NOTHING) {
-#pragma unroll
-    for (int q = 0; q < Q; ++q) fout[q * N + site] = narrow<S>(ev[q * WSITES + t.w]);
-  }
-  if (with_macro) {
-    rho_out[site] = rho;
-    u_out[site] = ux;
-    u_out[N + site] = uy;
-    u_out[2 * N + site] = uz;
   }
 }
 
@@ -161,9 +386,10 @@ __device__ __forceinline__ void aa_pair_body(const S* __restrict__ f, S* __restr
   extern "C" __global__ void __launch_bounds__(THREADS, 1)                                  \
       NAME(const S* __restrict__ f, S* __restrict__ fout, const uint8_t* __restrict__ map,  \
            float* __restrict__ rho, float* __restrict__ u, int X, int Y, int Z,             \
-           int periodic_bits, int has_nothing, int with_macro, SiteParams p) {              \
+           int periodic_bits, int has_nothing, int with_macro, int seg_len, int staged,     \
+           SiteParams p) {                                                                  \
     aa_pair_body<S>(f, fout, map, rho, u, X, Y, Z, periodic_bits, has_nothing, with_macro, \
-                    p);                                                                     \
+                    seg_len, staged, p);                                                    \
   }
 
 AA_PAIR_KERNEL(aa_pair_f32_kernel, float)
@@ -174,50 +400,98 @@ namespace {
 
 template <typename S>
 using PairKernel = void (*)(const S*, S*, const uint8_t*, float*, float*, int, int, int, int,
-                            int, int, SiteParams);
+                            int, int, int, int, SiteParams);
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// The x segment length: at most SEG_MAX planes, and short enough that the
+// blocks fill the card when the column tiles alone do not.
+int auto_seg_len(int X, int Y, int Z) {
+  const int cols = column_tiles(Y, Z);
+  const int segs = std::max(1, std::min(X, (sm_count() + cols - 1) / cols));
+  return std::min(SEG_MAX, (X + segs - 1) / segs);
+}
+
+int store_smem(int store) {
+  return store == 0 ? smem_bytes<float>() : smem_bytes<__half>();
+}
 
 template <typename S>
 int launch(PairKernel<S> kernel, const void* f, void* fout, const uint8_t* map, float* rho,
            float* u, int X, int Y, int Z, int periodic_bits, int has_nothing, int with_macro,
-           const SiteParams& p, cudaStream_t stream) {
-  static bool opted_in = false;  // the window needs more than the 48 KB default
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
-  }
-  kernel<<<grid(X, Y, Z), THREADS, SMEM_BYTES, stream>>>(
+           int seg_len, const SiteParams& p, cudaStream_t stream) {
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<S>());
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  if ((int64_t)Y * Z > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);  // 32-bit plane offsets
+  if (seg_len <= 0) seg_len = auto_seg_len(X, Y, Z);
+  constexpr int VEC = 16 / (int)sizeof(S);
+  const int staged = Z % VEC == 0 && reinterpret_cast<uintptr_t>(f) % 16 == 0;
+  const int blocks = column_tiles(Y, Z) * ((X + seg_len - 1) / seg_len);
+  kernel<<<blocks, THREADS, smem_bytes<S>(), stream>>>(
       static_cast<const S*>(f), static_cast<S*>(fout), map, rho, u, X, Y, Z, periodic_bits,
-      has_nothing, with_macro, p);
+      has_nothing, with_macro, seg_len, staged, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Dynamic shared memory of one block (the window), in bytes.
-extern "C" int tnl_lbm_aa_pair_smem_bytes() { return SMEM_BYTES; }
+// Dynamic shared memory of one float32 block (ring, codes and stages), in bytes.
+extern "C" int tnl_lbm_aa_pair_smem_bytes() { return smem_bytes<float>(); }
+
+// The launch geometry for a store code and a shape: out[0] dynamic shared
+// memory per block (bytes), [1] stages, [2] TY, [3] TZ, [4] the automatic
+// x segment length, [5] segments, [6] column tiles, [7] 1 if a state of
+// this shape (16-byte aligned) is staged.
+extern "C" int tnl_lbm_aa_pair_info(int store, int X, int Y, int Z, int* out) {
+  const int seg = auto_seg_len(X, Y, Z);
+  const int vec = store == 0 ? 4 : 8;
+  const int vals[8] = {store_smem(store), NSTAGES, TY, TZ, seg, (X + seg - 1) / seg,
+                       column_tiles(Y, Z), Z % vec == 0};
+  for (int k = 0; k < 8; ++k) out[k] = vals[k];
+  return 0;
+}
 
 // Launches on `stream`; returns the CUDA error of the launch (0 on success).
 // store: 0 float32, 1 float16, 2 bfloat16.  periodic_bits: bit 0 x, 1 y,
-// 2 z.  rho and u may be null when with_macro is 0.
-extern "C" int tnl_lbm_aa_pair(const void* f, void* fout, const uint8_t* map, float* rho,
-                               float* u, int X, int Y, int Z, int periodic_bits,
-                               int has_nothing, int with_macro, int store, float nu, float fx,
-                               float fy, float fz, int neumaier, void* stream) {
+// 2 z.  rho and u may be null when with_macro is 0.  seg_len: the x
+// segment of one block, or 0 for the automatic one.
+extern "C" int tnl_lbm_aa_pair_segmented(const void* f, void* fout, const uint8_t* map,
+                                         float* rho, float* u, int X, int Y, int Z,
+                                         int periodic_bits, int has_nothing, int with_macro,
+                                         int store, float nu, float fx, float fy, float fz,
+                                         int neumaier, int seg_len, void* stream) {
   const SiteParams p{1.0f / (3.0f * nu + 0.5f), fx, fy, fz, neumaier};
   const auto s = static_cast<cudaStream_t>(stream);
   switch (store) {
     case 0:
       return launch<float>(aa_pair_f32_kernel, f, fout, map, rho, u, X, Y, Z, periodic_bits,
-                           has_nothing, with_macro, p, s);
+                           has_nothing, with_macro, seg_len, p, s);
     case 1:
       return launch<__half>(aa_pair_f16_kernel, f, fout, map, rho, u, X, Y, Z, periodic_bits,
-                            has_nothing, with_macro, p, s);
+                            has_nothing, with_macro, seg_len, p, s);
     case 2:
       return launch<__nv_bfloat16>(aa_pair_bf16_kernel, f, fout, map, rho, u, X, Y, Z,
-                                   periodic_bits, has_nothing, with_macro, p, s);
+                                   periodic_bits, has_nothing, with_macro, seg_len, p, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The pair with the automatic x segment.
+extern "C" int tnl_lbm_aa_pair(const void* f, void* fout, const uint8_t* map, float* rho,
+                               float* u, int X, int Y, int Z, int periodic_bits,
+                               int has_nothing, int with_macro, int store, float nu, float fx,
+                               float fy, float fz, int neumaier, void* stream) {
+  return tnl_lbm_aa_pair_segmented(f, fout, map, rho, u, X, Y, Z, periodic_bits, has_nothing,
+                                   with_macro, store, nu, fx, fy, fz, neumaier, 0, stream);
 }

@@ -9,16 +9,16 @@
 //
 // pair_pipeline_kernel and pair_compute_only_kernel replace
 // scripts/probe_pair2_pipeline.py make (:20, pallas_call :73) and
-// make_compute_only (:113, pallas_call :151).  They keep aa_pair.cu's grid,
-// tile and one-site halo window (pair_window.cuh; wrap or clamp, as there)
-// and replace its two collisions with `passes` rounds of
-// x * 1.000001 + 1e-12 on the window's interior.  pair_pipeline loads every
-// window into shared memory and writes every interior: the pair's memory
-// traffic.  pair_compute_only loads and writes only block 0's tile; the
-// other blocks compute on whatever their shared memory holds and store the
-// result back to it: the pair's grid and arithmetic with no traffic.
-// Multiply and add round separately (no FMA contraction), as the plain
-// versions do.
+// make_compute_only (:113, pallas_call :151).  They keep the grid, tile and
+// one-site halo window of the first one-kernel pair (pair_window.cuh: a
+// 4 x 4 x 32 tile, wrap or clamp), whose times they explain, and replace
+// its two collisions with `passes` rounds of x * 1.000001 + 1e-12 on the
+// window's interior.  pair_pipeline loads every window into shared memory
+// and writes every interior: that pair's memory traffic.  pair_compute_only
+// loads and writes only block 0's tile; the other blocks compute on
+// whatever their shared memory holds and store the result back to it: that
+// pair's grid and arithmetic with no traffic.  Multiply and add round
+// separately (no FMA contraction), as the plain versions do.
 //
 // element_pipeline_kernel replaces scripts/probe_element_pipeline.py make
 // (Pallas kernel at :21, pallas_call at :32): every (tx, ty) tile of a
@@ -39,18 +39,23 @@
 // (Pallas kernel at :23, pallas_call at :50): tiles of TX x TY = 16 x 32
 // sites; each block copies its [TX+4, wy, Z] window of one component,
 // whose y rows start at j TY + y_off, one x plane at a time into shared
-// memory at row dst_off, then writes the plane's interior rows - those of
+// memory at row dst_off, and writes each plane's interior rows - those of
 // fpad[:, 2:X+2, 8:Y+8, :] - to the [27, X, Y, Z] output.  On the TPU a y
 // offset moved the window's start within an (8, 128) tile, which its DMA
 // engine may refuse.  On this card a y offset moves the window by whole
 // rows of Z * 4 bytes, so it changes no 16-byte alignment: the variants
 // differ only in the window's size.  What the probe measures here is the
-// load path: LOAD_4B (plain 4-byte loads), LOAD_16B (16-byte loads) or
-// LOAD_TMA (one bulk copy of the plane's wy Z floats, completed on an
-// mbarrier).  The stores and the output are the same in all three.
-// Bound: HBM bytes, the interior read once and written once (216 B/site).
+// load path: LOAD_4B (4-byte cp.async), LOAD_16B (16-byte cp.async) or
+// LOAD_TMA (one bulk copy of the plane's wy Z contiguous floats).  The
+// planes go through a ring of 2-4 plane buffers with a full and an empty
+// mbarrier each (window_copy below), so later planes' copies are in flight
+// while a plane's interior is stored; the stores (16-byte, every thread)
+// and the output are the same in all three.  Bound: HBM bytes, the
+// interior read once and written once (216 B/site).
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "lbm_site.cuh"
 #include "pair_window.cuh"
@@ -146,6 +151,10 @@ constexpr int WTHREADS = 256;
 constexpr int ATX = 16, ATY = 32;
 // dynamic shared memory the window probes may ask for
 constexpr int WINDOW_SMEM_MAX = 200 * 1024;
+// a window copy block's plane buffers: one block per SM, its ring as deep
+// as fits (4 planes at wy = 48 measured 4% faster than 2 planes for each of
+// two blocks on an H100)
+constexpr int WINDOW_RING_BUDGET = WINDOW_SMEM_MAX;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -213,71 +222,115 @@ element_pipeline_kernel(const float* __restrict__ fpad, float* __restrict__ out,
 }
 
 constexpr int LOAD_4B = 0, LOAD_16B = 1, LOAD_TMA = 2;
+// plane buffers of a window copy block, at most
+constexpr int WSTAGES_MAX = 4;
 
-// grid (X / 16, Y / 32, 27); dynamic shared memory: (dst_off + wy) Z floats.
-// fpad: [27, X+4, Y+16, Z], out: [27, X, Y, Z]; Z % 4 == 0, and the window
-// covers its tile's interior rows (the wrapper checks).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Arrives on `bar` once all of this thread's earlier cp.async copies landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// grid (X / 16, Y / 32, 27); dynamic shared memory: `stages` plane buffers
+// of (dst_off + wy) Z floats.  fpad: [27, X+4, Y+16, Z], out: [27, X, Y, Z];
+// Z % 4 == 0, and the window covers its tile's interior rows (the wrapper
+// checks).
+//
+// The block walks its TX + 4 window planes through a ring of `stages`
+// plane buffers (4 at the script's sizes, one block per SM), each with a
+// full and an empty mbarrier: the copy of plane k + stages is issued as
+// soon as plane k's interior has been stored, so stages - 1 planes are in
+// flight while a plane is stored.  Full barriers
+// complete on cp.async.mbarrier.arrive.noinc (every thread's 4- or 16-byte
+// copies) or on the bulk copy's complete_tx (TMA: one thread arrives with
+// the plane's bytes and issues one cp.async.bulk); empty barriers complete
+// when every thread has stored its share of the interior.  Odd x tiles walk
+// their planes backwards, so the two halo planes that neighbouring tiles
+// share are read by both at about the same time (from L2 the second time).
 template <int LOAD>
 __device__ __forceinline__ void window_copy(const float* __restrict__ fpad,
                                             float* __restrict__ out, int X, int Y, int Z,
-                                            int y_off, int wy, int dst_off) {
+                                            int y_off, int wy, int dst_off, int stages) {
   extern __shared__ float4 smem4[];
-  __shared__ uint64_t bar;
+  __shared__ uint64_t full[WSTAGES_MAX], empty[WSTAGES_MAX];
   float* buf = reinterpret_cast<float*>(smem4);
   const int XP = X + 4, YP = Y + 16, q = blockIdx.z;
   const int i = blockIdx.x, j = blockIdx.y;
-  const int n = wy * Z;  // floats per plane, contiguous in fpad
-  float* dst = buf + dst_off * Z;
-  // the interior rows sit at dst_off + (8 - y_off) of the buffer
-  const float4* interior = reinterpret_cast<const float4*>(buf + (dst_off + 8 - y_off) * Z);
-  if (LOAD == LOAD_TMA && threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(&bar)), "r"(1u)
-                 : "memory");
+  const int n = wy * Z;                // floats per window plane, contiguous in fpad
+  const int stride = (dst_off + wy) * Z;  // floats per plane buffer
+  const int interior = (dst_off + 8 - y_off) * Z;  // the tile's rows in a buffer
+  constexpr int PLANES = ATX + 4;
+  const bool backwards = i & 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], LOAD == LOAD_TMA ? 1u : WTHREADS);
+      mbar_init(&empty[s], WTHREADS);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  uint32_t parity = 0;
-  for (int lx = 0; lx < ATX + 4; ++lx) {
+
+  // copies walk step k (window plane lx) into buffer k % stages
+  auto produce = [&](int k) {
+    const int s = k % stages, lx = backwards ? PLANES - 1 - k : k;
+    if (k >= stages && (LOAD != LOAD_TMA || threadIdx.x == 0))
+      mbar_wait(smem_addr(&empty[s]), (k / stages - 1) & 1);
     const float* src = fpad + (((int64_t)q * XP + i * ATX + lx) * YP + j * ATY + y_off) * Z;
+    float* dst = buf + s * stride + dst_off * Z;
     if constexpr (LOAD == LOAD_4B) {
-      for (int k = threadIdx.x; k < n; k += WTHREADS) dst[k] = src[k];
-      __syncthreads();
+      for (int k4 = threadIdx.x; k4 < n; k4 += WTHREADS) cp_async4(dst + k4, src + k4);
+      cp_async_arrive(&full[s]);
     } else if constexpr (LOAD == LOAD_16B) {
-      const float4* s4 = reinterpret_cast<const float4*>(src);
-      float4* d4 = reinterpret_cast<float4*>(dst);
-      for (int k = threadIdx.x; k < n / 4; k += WTHREADS) d4[k] = s4[k];
-      __syncthreads();
-    } else {
-      const uint32_t b = smem_addr(&bar);
-      if (threadIdx.x == 0) {
-        const uint32_t bytes = static_cast<uint32_t>(n) * 4u;
-        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
-                     "r"(bytes)
-                     : "memory");
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-            "[%3];\n" ::"r"(smem_addr(dst)),
-            "l"(src), "r"(bytes), "r"(b)
-            : "memory");
-      }
-      mbar_wait(b, parity);
-      parity ^= 1u;
+      for (int k4 = threadIdx.x; k4 < n / 4; k4 += WTHREADS)
+        cp_async16(dst + 4 * k4, src + 4 * k4);
+      cp_async_arrive(&full[s]);
+    } else if (threadIdx.x == 0) {
+      const uint32_t b = smem_addr(&full[s]), bytes = static_cast<uint32_t>(n) * 4u;
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the generic reads
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+                   "r"(bytes)
+                   : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];\n" ::"r"(smem_addr(dst)),
+          "l"(src), "r"(bytes), "r"(b)
+          : "memory");
     }
+  };
+
+  for (int k = 0; k < stages && k < PLANES; ++k) produce(k);
+  for (int k = 0; k < PLANES; ++k) {
+    const int s = k % stages, lx = backwards ? PLANES - 1 - k : k;
+    mbar_wait(smem_addr(&full[s]), (k / stages) & 1);
     if (lx >= 2 && lx < ATX + 2) {
+      const float4* src = reinterpret_cast<const float4*>(buf + s * stride + interior);
       float4* o = reinterpret_cast<float4*>(
           out + (((int64_t)q * X + i * ATX + lx - 2) * Y + j * ATY) * Z);
-      for (int k = threadIdx.x; k < ATY * Z / 4; k += WTHREADS) o[k] = interior[k];
+      for (int k4 = threadIdx.x; k4 < ATY * Z / 4; k4 += WTHREADS) o[k4] = src[k4];
     }
-    __syncthreads();  // the next plane overwrites the buffer
-    if constexpr (LOAD == LOAD_TMA) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(&empty[s]);
+    if (k + stages < PLANES) produce(k + stages);
   }
 }
 
 #define WINDOW_COPY_KERNEL(NAME, LOAD)                                                        \
   extern "C" __global__ void __launch_bounds__(WTHREADS)                                     \
       NAME(const float* __restrict__ fpad, float* __restrict__ out, int X, int Y, int Z,      \
-           int y_off, int wy, int dst_off) {                                                  \
-    window_copy<LOAD>(fpad, out, X, Y, Z, y_off, wy, dst_off);                                \
+           int y_off, int wy, int dst_off, int stages) {                                      \
+    window_copy<LOAD>(fpad, out, X, Y, Z, y_off, wy, dst_off, stages);                        \
   }
 
 WINDOW_COPY_KERNEL(window_copy_ld4_kernel, LOAD_4B)
@@ -338,13 +391,28 @@ extern "C" int tnl_lbm_element_pipeline(const float* fpad, float* out, int X, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// load: 0 plain 4-byte loads, 1 16-byte loads, 2 a bulk copy (TMA).  fpad:
+namespace {
+
+// Plane buffers of a window copy block: as many as fit its budget, at least
+// 2 and at most WSTAGES_MAX.
+int window_stages(int Z, int wy, int dst_off) {
+  const int plane = (dst_off + wy) * Z * (int)sizeof(float);
+  return std::max(2, std::min(WSTAGES_MAX, WINDOW_RING_BUDGET / std::max(plane, 1)));
+}
+
+}  // namespace
+
+extern "C" int tnl_lbm_window_copy_stages(int Z, int wy, int dst_off) {
+  return window_stages(Z, wy, dst_off);
+}
+
+// load: 0 4-byte cp.async, 1 16-byte cp.async, 2 bulk copies (TMA).  fpad:
 // [27, X+4, Y+16, Z], out: [27, X, Y, Z]; X % 16 == 0, Y % 32 == 0,
 // Z % 4 == 0, 0 <= y_off <= 8, y_off + wy <= 48 and 8 - y_off + 32 <= wy
 // (the window covers its tile; the wrapper checks and names the fault).
 extern "C" int tnl_lbm_window_copy(const float* fpad, float* out, int X, int Y, int Z,
                                    int y_off, int wy, int dst_off, int load, void* stream) {
-  using Kernel = void (*)(const float*, float*, int, int, int, int, int, int);
+  using Kernel = void (*)(const float*, float*, int, int, int, int, int, int, int);
   static const Kernel kernels[3] = {window_copy_ld4_kernel, window_copy_ld16_kernel,
                                     window_copy_tma_kernel};
   static const cudaError_t opted[3] = {
@@ -353,11 +421,12 @@ extern "C" int tnl_lbm_window_copy(const float* fpad, float* out, int X, int Y, 
       opt_in(reinterpret_cast<const void*>(window_copy_tma_kernel), WINDOW_SMEM_MAX)};
   if (load < 0 || load > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (opted[load] != cudaSuccess) return static_cast<int>(opted[load]);
-  const int smem = (dst_off + wy) * Z * (int)sizeof(float);
+  const int stages = window_stages(Z, wy, dst_off);
+  const int smem = stages * (dst_off + wy) * Z * (int)sizeof(float);
   if (smem > WINDOW_SMEM_MAX || X % ATX != 0 || Y % ATY != 0 || Z % 4 != 0 || y_off < 0 ||
       y_off > 8 || dst_off < 0 || y_off + wy > ATY + 16 || 8 - y_off + ATY > wy)
     return static_cast<int>(cudaErrorInvalidValue);
   kernels[load]<<<dim3(X / ATX, Y / ATY, Q), WTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      fpad, out, X, Y, Z, y_off, wy, dst_off);
+      fpad, out, X, Y, Z, y_off, wy, dst_off, stages);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,10 @@ d3q27/streaming_AA.h) alternates two parities on one state:
   NOTHING sites keeping their DFs.  The CUDA kernel (``csrc/aa_odd.cu``)
   writes a new buffer.
 - **pair**: an even step and then an odd step in one launch
-  (``csrc/aa_pair.cu``), the intermediate kept on chip in float32, the
-  state optionally stored in float16 or bfloat16 (half storage, see
+  (``csrc/aa_pair.cu``): column tiles march along x, the even output of
+  each plane kept on chip in float32 in a ring of the slots later odd pulls
+  read, the input planes staged ahead by bulk copies (TMA); the state
+  optionally stored in float16 or bfloat16 (half storage, see
   :class:`FusedPairAA`).  It writes a new buffer.
 - **two-kernel pair** (:class:`FusedPairAATwoKernel`, ``csrc/aa_pair_pad.cu``):
   the even step writes its result into a buffer padded by one site in x
@@ -58,8 +60,13 @@ from tnl_lbm_tpu_torch.ops import streaming as stream
 from tnl_lbm_tpu_torch.ops.boundary import GEO
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 
-#: the pair kernel's output tile of one block (csrc/pair_window.cuh TX, TY, TZ)
-PAIR_TILE = (4, 4, 32)
+#: the pair kernel's y-z column tile of one block and its staged input
+#: planes (csrc/pair_march.cuh TY, TZ, NSTAGES)
+PAIR_COLUMN = (8, 32)
+PAIR_STAGES = 2
+#: keys of :meth:`FusedPairAA.geometry` (csrc/aa_pair.cu tnl_lbm_aa_pair_info)
+_GEOMETRY_KEYS = ("smem_bytes", "stages", "ty", "tz", "seg_len", "segments", "columns",
+                  "staged")
 
 #: store dtype -> the ``store`` code of ``tnl_lbm_aa_pair`` and a short tag
 _STORE_CODES = {torch.float32: (0, "f32"), torch.float16: (1, "f16"),
@@ -263,10 +270,14 @@ class FusedPairAA:
     the state rests in 16 bits and every operation runs in float32; the
     intermediate between the two steps is never narrowed, and NOTHING sites
     keep their stored bits.  It needs well-conditioned (deviation) DFs.
+
+    ``seg_len`` is the x extent each block of the kernel marches (None: the
+    kernel's own choice, 16 planes, fewer where the column tiles alone do
+    not fill the card); the result does not depend on it.
     """
 
     def __init__(self, cfg: LBMConfig, domain: Domain, device, store_dtype=None,
-                 with_macro: bool = True):
+                 with_macro: bool = True, seg_len: int | None = None):
         if cfg.streaming != "AA":
             raise ValueError("make_fused_pair2_aa needs streaming='AA'")
         store = cfg.compute_dtype if store_dtype is None else store_dtype
@@ -281,6 +292,9 @@ class FusedPairAA:
         self.cfg = cfg
         self.store_dtype = store
         self.with_macro = with_macro
+        if seg_len is not None and seg_len < 1:
+            raise ValueError(f"seg_len must be a positive number of x planes, got {seg_len}")
+        self.seg_len = seg_len
         self.device = torch.device(device)
         self.lat, self.codes, self.do_coll_codes = _prep(cfg, domain, pair=True)
         self.shape = domain.shape
@@ -295,6 +309,22 @@ class FusedPairAA:
 
     def reset_counts(self) -> None:
         self.kernel.launches = self.plain_calls = 0
+
+    def geometry(self) -> dict:
+        """The kernel's launch geometry for this shape and store dtype:
+        shared memory per block, stages, column tile, x segment length and
+        count, column tiles, and whether a 16-byte aligned state is staged
+        (CUDA only; the x segment is the kernel's own choice unless
+        ``seg_len`` is set)."""
+        if self.device.type != "cuda":
+            raise ValueError("the pair kernel's geometry exists on a CUDA device only")
+        out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
+        load_library().tnl_lbm_aa_pair_info(self._store_code, *self.shape, out)
+        geo = dict(zip(_GEOMETRY_KEYS, out))
+        if self.seg_len is not None:
+            X = self.shape[0]
+            geo.update(seg_len=self.seg_len, segments=-(-X // self.seg_len))
+        return geo
 
     def __call__(self, f, nu, u_in=None, force=None, out=None, bflags=None):
         if bflags is not None:
@@ -342,12 +372,16 @@ class FusedPairAA:
             rho = torch.empty((X, Y, Z), dtype=self.cfg.compute_dtype, device=f.device)
             u = torch.empty((3, X, Y, Z), dtype=self.cfg.compute_dtype, device=f.device)
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
-        rc = lib.tnl_lbm_aa_pair(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
-                                 rho.data_ptr() if rho is not None else None,
-                                 u.data_ptr() if u is not None else None, X, Y, Z,
-                                 _periodic_bits(self.periodic), int(GEO.NOTHING in self.codes),
-                                 int(self.with_macro), self._store_code, nu, *fvec,
-                                 int(self.cfg.high_precision_rho), stream_ptr)
+        args = (f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
+                rho.data_ptr() if rho is not None else None,
+                u.data_ptr() if u is not None else None, X, Y, Z,
+                _periodic_bits(self.periodic), int(GEO.NOTHING in self.codes),
+                int(self.with_macro), self._store_code, nu, *fvec,
+                int(self.cfg.high_precision_rho))
+        if self.seg_len is None:
+            rc = lib.tnl_lbm_aa_pair(*args, stream_ptr)
+        else:
+            rc = lib.tnl_lbm_aa_pair_segmented(*args, self.seg_len, stream_ptr)
         if rc != 0:
             raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
         self.kernel.launches += 1
@@ -356,8 +390,9 @@ class FusedPairAA:
 
 def make_fused_pair2_aa(cfg: LBMConfig, domain: Domain, device, store_dtype=None,
                         with_macro: bool = True, *, local_shape=None, prepadded: bool = False,
-                        z_halo: int = 0) -> FusedPairAA:
-    """One-kernel A-A pair for (cfg, domain) on ``device``: see :class:`FusedPairAA`.
+                        z_halo: int = 0, seg_len: int | None = None) -> FusedPairAA:
+    """One-kernel A-A pair for (cfg, domain) on ``device``: see :class:`FusedPairAA`
+    (``seg_len``: the kernel's x segment, a knob of the port's own).
 
     The JAX function's TPU knobs (``tile``, ``tiles_per_program``, ``window``,
     ``map_mode``, ``zprofile``, ``even_band``, ``vmem_limit_mb``,
@@ -368,7 +403,8 @@ def make_fused_pair2_aa(cfg: LBMConfig, domain: Domain, device, store_dtype=None
     if local_shape is not None or prepadded or z_halo:
         raise NotImplementedError("the sharded pair (local_shape, prepadded, z_halo) is not "
                                   "ported yet (ROADMAP A13)")
-    return FusedPairAA(cfg, domain, device, store_dtype=store_dtype, with_macro=with_macro)
+    return FusedPairAA(cfg, domain, device, store_dtype=store_dtype, with_macro=with_macro,
+                       seg_len=seg_len)
 
 
 class FusedPairAATwoKernel:

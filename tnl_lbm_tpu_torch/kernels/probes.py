@@ -9,7 +9,8 @@ oracle it is held against on the card.
 
 - :func:`copy_permute` (P1): the even step's I/O with no collision, the
   card's copy floor for the A-A kernels.
-- :func:`pair_pipeline` (P2a): the one-kernel pair's tiles and halo windows
+- :func:`pair_pipeline` (P2a): the first one-kernel pair's 4x4x32 tiles and
+  halo windows (``PROBE_TILE``; the pair now marches column tiles along x)
   with an affine map in place of the collisions: its memory half.
 - :func:`pair_compute_only` (P2b): the same grid and arithmetic with only
   block 0's window loaded and only its tile stored: its compute half.
@@ -17,8 +18,9 @@ oracle it is held against on the card.
   state staged through shared memory with ``cp.async``, the affine passes
   on each tile's interior: do copies and compute overlap?
 - :func:`window_copy` (P4): window copies at y offsets into shared memory
-  at a row offset, the interior tile written out, through plain 4-byte
-  loads, 16-byte loads or TMA.
+  at a row offset, the interior tile written out, through 4-byte or
+  16-byte ``cp.async`` or TMA bulk copies, pipelined through a ring of
+  plane buffers (:func:`window_stages` of them).
 
 ``KERNELS`` holds one launch count per probe (P4: per load path).
 """
@@ -31,9 +33,11 @@ import torch
 
 from tnl_lbm_tpu_torch.kernels.build import load_library
 from tnl_lbm_tpu_torch.kernels.fused import CudaKernel, _periodic_bits
-from tnl_lbm_tpu_torch.kernels.fused_aa import PAIR_TILE
 
 Q = 27
+#: P2a/P2b's output tile of one block (csrc/pair_window.cuh TX, TY, TZ): the
+#: first one-kernel pair's, which the probes explain
+PROBE_TILE = (4, 4, 32)
 #: the bench duct's periodic axes (x only), for the P2a halo
 _BENCH_PERIODIC_BITS = _periodic_bits((True, False, False))
 
@@ -154,8 +158,8 @@ def pair_pipeline(f, passes: int):
 
 
 def first_block(shape) -> tuple[int, int, int]:
-    """Extent of the pair kernel's block 0: its tile, clipped to the domain."""
-    return tuple(min(t, n) for t, n in zip(PAIR_TILE, shape))
+    """Extent of the probes' block 0: its tile, clipped to the domain."""
+    return tuple(min(t, n) for t, n in zip(PROBE_TILE, shape))
 
 
 def pair_compute_only_plain(f, passes: int):
@@ -259,13 +263,20 @@ def window_copy_plain(fpad, y_off: int, wy: int, dst_off: int = 0):
     return interior(fpad).contiguous()
 
 
+def window_stages(Z: int, wy: int, dst_off: int = 0) -> int:
+    """The plane buffers of one window_copy block (CUDA only): as many as
+    fit in 200 KB of shared memory (one block per SM), 2 to 4."""
+    return load_library().tnl_lbm_window_copy_stages(Z, wy, dst_off)
+
+
 def window_copy(fpad, y_off: int, wy: int, dst_off: int = 0, load: str = "tma"):
     """P4: each [27, TX+4, wy, Z] window from y row ``j TY + y_off`` copied
     into shared memory at row ``dst_off``, its interior tile written out ->
     ``fpad[:, 2:X+2, 8:Y+8, :]`` as a new [27, X, Y, Z] tensor.  ``load``:
-    "ld4" (plain 4-byte loads), "ld16" (16-byte loads) or "tma" (one bulk
-    copy per window plane).  A window that does not cover its tile raises
-    (never read from stale shared memory)."""
+    "ld4" (4-byte ``cp.async``), "ld16" (16-byte ``cp.async``) or "tma" (one
+    bulk copy per window plane), each plane's copy in flight while earlier
+    planes are stored.  A window that does not cover its tile raises (never
+    read from stale shared memory)."""
     X, Y, Z = _window_check(fpad, y_off, wy, dst_off)
     if load not in LOADS:
         raise ValueError(f"load must be one of {sorted(LOADS)}, got {load!r}")

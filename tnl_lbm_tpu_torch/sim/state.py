@@ -345,37 +345,52 @@ class Simulation:
             self._build_pair()
 
     def _probe_pair_dispatch(self, repeats: int = 5) -> tuple[float, float]:
-        """Best-of-``repeats`` wall time in seconds of one A-A pair through
-        (a) the pair kernel and (b) an even and an odd launch, each on a
-        copy of the state; leaves ``self.f`` untouched."""
+        """Device seconds per pair of (a) the pair kernel and (b) an even and
+        an odd launch, from CUDA events around ``repeats`` chained pairs of
+        each, after one chain of warm-up, each route on its own copy of a
+        seeded near-equilibrium state (rho 1 +- 0.01, |u| ~ 0.02); the pair
+        ping-pongs two buffers as ``_advance_pairs`` does.  Not the run's own
+        state: at rest every DF deviation is zero, and there the pair kernel
+        ran 13% slower than on a developed flow on an H100, the even and odd
+        kernels 4% (PERF.md), which decided the dispatch of a whole run on
+        its first step.  ``self.f`` is untouched."""
         from tnl_lbm_tpu_torch.kernels.fused_aa import to_storage
 
         nu = self.domain.units.lbm_viscosity()
         pair = self._build_pair()
-        fs = to_storage(self.f, self.cfg.storage_dtype)
-        out = torch.empty_like(fs)
-        work = torch.empty_like(self.f)
+        rng = np.random.default_rng(0)
+        shape = self.domain.shape
+        rho = torch.from_numpy((1 + 0.01 * rng.standard_normal(shape)).astype(np.float32))
+        u = torch.from_numpy((0.02 * rng.standard_normal((3,) + shape)).astype(np.float32))
+        state = self.cfg.eq(self.cfg.lat, rho.to(self.device), u.to(self.device))
+        state = state.to(self.f.dtype).contiguous()
+        del rho, u
+        bufs = [to_storage(state, self.cfg.storage_dtype).clone(), None]
+        bufs[1] = torch.empty_like(bufs[0])
+        work = [state]
 
-        def time_pair():
-            synchronize(self.device)
-            t0 = time.perf_counter()
-            pair(fs, nu, out=out)
-            synchronize(self.device)
-            return time.perf_counter() - t0
+        def pairs():
+            for k in range(repeats):
+                pair(bufs[k % 2], nu, out=bufs[1 - k % 2])
+            if repeats % 2:
+                bufs.reverse()
 
-        def time_steps():
-            work.copy_(self.f)
-            synchronize(self.device)
-            t0 = time.perf_counter()
-            f1, _, _ = self._step(work, nu, parity=0)
-            self._step(f1, nu, parity=1)
-            synchronize(self.device)
-            return time.perf_counter() - t0
+        def steps():
+            for _ in range(repeats):
+                f1, _, _ = self._step(work[0], nu, parity=0)
+                work[0], _, _ = self._step(f1, nu, parity=1)
 
-        time_pair(), time_steps()  # warm up (first launch loads the library)
-        t_pair = min(time_pair() for _ in range(repeats))
-        t_steps = min(time_steps() for _ in range(repeats))
-        return t_pair, t_steps
+        def timed(fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) * 1e-3 / repeats
+
+        pairs(), steps()  # warm up (the first launch loads the library)
+        return timed(pairs), timed(steps)
 
     def sim_init(self):
         if self.flags.exists("loadstate"):
