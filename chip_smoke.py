@@ -96,9 +96,9 @@ script exits non-zero without printing a result.
 5. main paths, each with the launch counts set to 0 just before it and read
    just after: ``Simulation`` on the 256^3 bench duct, 200 per-step A-A
    dispatches; ``pair_dispatch="auto"`` (the probe's choice and its two
-   times beside the pair and even + odd kernels on CUDA events, here and on
-   sim_2 res 2: where the routes differ by more than 10% the choice must be
-   the faster); 200 steps in pairs with the state in f32, f16 and bf16; 200
+   times beside both routes timed again by its helper over longer chains,
+   here and on sim_2 res 2: where the routes differ by more than 10% the
+   choice must be the faster); 200 steps in pairs with the state in f32, f16 and bf16; 200
    A-B steps; sim_1 at resolution 8 (1024x256x256), 100 A-B steps, with
    one VTK2D cycle written and read back.  Each gives ms/step, MLUPS
    (X*Y*Z*steps / compute time), peak memory, kernel launches (> 0),
@@ -1446,42 +1446,20 @@ def report_main(sim, label: str) -> dict:
 
 def auto_choice(sim, label: str) -> None:
     """The "auto" probe's two times (``Simulation.pair_probe_ms``) beside the
-    pair kernel and one even plus one odd launch timed again on CUDA events,
-    each route chained 20 times from a seeded state of the sim's shape as a
-    run dispatches it (the pair ping-pongs two buffers); where the routes
-    differ by more than 10% (small lattices are launch-bound and noisy), the
-    probe must have picked the faster."""
-    import torch
-
-    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair2_aa, make_fused_step_aa
-
-    dev, chain = torch.device(DEVICE), 20
-    force = (FORCE_BENCH, 0.0, 0.0)
-    pair = make_fused_pair2_aa(sim.cfg, sim.domain, dev)
-    step = make_fused_step_aa(sim.cfg, sim.domain, dev)
-    f = rand_f(sim.cfg, sim.domain.shape, dev, seed=7)
-    bufs, work = [f.clone(), torch.empty_like(f)], [f]
-
-    def pairs():
-        for k in range(chain):
-            pair(bufs[k % 2], NU, force=force, out=bufs[1 - k % 2])
-
-    def steps():
-        for _ in range(chain):
-            f1, _, _ = step(work[0], NU, force=force, parity=0)
-            work[0], _, _ = step(f1, NU, force=force, parity=1)
-
-    k_pair = time_ms(pairs, reps=2) / chain
-    k_steps = time_ms(steps, reps=2) / chain
+    same two routes timed again by the probe's own helper
+    (``Simulation.time_pair_routes``) over longer chains, 5 chains of 20
+    pairs each; where the routes differ there by more than 10% (small
+    lattices are launch-bound and noisy), the probe must have picked the
+    faster."""
     t_pair, t_steps = sim.pair_probe_ms
+    k_pair, k_steps = sim.time_pair_routes(pairs=20, chains=5)
     agrees = abs(k_pair / k_steps - 1) <= 0.1 or bool(sim.pair_dispatch) == (k_pair < k_steps)
     log("main", path="auto", shape=label, chose="pair" if sim.pair_dispatch else "per_step",
         probe_pair_ms=f"{t_pair:.4f}", probe_per_step_ms=f"{t_steps:.4f}",
-        kernel_pair_ms=f"{k_pair:.4f}", kernel_even_plus_odd_ms=f"{k_steps:.4f}",
-        agrees=agrees)
+        long_pair_ms=f"{k_pair:.4f}", long_per_step_ms=f"{k_steps:.4f}", agrees=agrees)
     if not agrees:
         raise RuntimeError(f"auto at {label} chose {'pair' if sim.pair_dispatch else 'per-step'} "
-                           f"though the kernels take {k_pair:.4f} ms (pair) and {k_steps:.4f} ms")
+                           f"though the routes take {k_pair:.4f} ms (pair) and {k_steps:.4f} ms")
 
 
 def phase_main_path() -> dict:

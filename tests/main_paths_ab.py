@@ -12,9 +12,11 @@ path (``kernels/hooked.py``), the 256^3 bench duct with the Carreau-Yasuda
 hook through its one-kernel route (B10) and its pipeline, A-B and A-A, 100
 steps each; the pair paths: the 256^3 duct in pairs (B1) with the state in
 f32, f16 and bf16, 200 steps each, sim_2 at resolution 2 in pairs (2000
-steps), the benchmark entry (``python -m tnl_lbm_tpu_torch.bench``, pair2)
-per store dtype, and the pair kernel itself at 256^3 per store dtype (CUDA
-events over 20 pairs from a seeded state).  Prints one JSON line: path ->
+steps) and with "auto" dispatch (its choice and its probe's two times
+beside), the benchmark entry (``python -m tnl_lbm_tpu_torch.bench``, pair2)
+per store dtype, and the pair kernel itself on sim_2's resolution-2 duct
+and at 256^3 per store dtype (CUDA events over 50 or 20 pairs from a seeded
+state).  Prints one JSON line: path ->
 MLUPS, and the pair kernel's ms per store dtype.  Run it in turns within
 one call (parent, change, change, parent) and compare only within that
 call.  The duct is built here from the checkout's own ``interop``, so a
@@ -83,25 +85,29 @@ def main() -> int:
     runs += [(f"pair_{store}", lambda store=store: cs.bench_sim(True, storage=store))
              for store in cs.STORES]
 
-    def sim2_pairs():
+    def sim2(pair_dispatch, tag):
         from tnl_lbm_tpu_torch.apps import sim_2
 
         sim = sim_2.build(2, device=cs.DEVICE, streaming="AA", use_fused=True,
-                          pair_dispatch=True, results_parent=cs.WORK / "sim2")
+                          pair_dispatch=pair_dispatch, results_parent=cs.WORK / tag)
         sim.phys_final_time = 2000 * sim.domain.units.phys_dt
         if not cs.counting_from_init(sim).run():
-            raise RuntimeError("sim_2 res 2 in pairs failed")
+            raise RuntimeError(f"sim_2 res 2 ({tag}) failed")
         return sim
 
-    runs.append(("sim_2_res2_pairs", sim2_pairs))
-    mlups = {}
+    runs += [("sim_2_res2_pairs", lambda: sim2(True, "sim2")),
+             ("sim_2_res2_auto", lambda: sim2("auto", "sim2_auto"))]
+    mlups, chose = {}, {}
     for label, run in runs:
         sim = run()
         cs.report_main(sim, label)
         mlups[label] = cs.run_figures(sim)[1]
+        if label.endswith("_auto"):
+            chose[label] = ("pair" if sim.pair_dispatch else "per_step", sim.pair_probe_ms)
         del sim
     mlups.update(bench_entry())
-    print(json.dumps({"root": str(root), "mlups": mlups, "pair_ms": pair_kernel_ms(cs, flagship)}))
+    print(json.dumps({"root": str(root), "mlups": mlups, "auto": chose,
+                      "pair_ms": pair_kernel_ms(cs, flagship)}))
     return 0
 
 
@@ -122,12 +128,20 @@ def bench_entry() -> dict:
 
 
 def pair_kernel_ms(cs, flagship) -> dict:
-    """The checkout's pair kernel at 256^3 per store dtype, ms per pair."""
+    """The checkout's pair kernel on sim_2's resolution-2 duct in f32 and at
+    256^3 per store dtype, ms per pair."""
     import torch
 
     from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair2_aa, to_storage
 
-    out = {}
+    from tnl_lbm_tpu_torch.apps import sim_2
+
+    small = sim_2.build(2, device=cs.DEVICE, streaming="AA", use_fused=True,
+                        results_parent=cs.WORK / "sim2_kernel")
+    pair = make_fused_pair2_aa(small.cfg, small.domain, cs.DEVICE)
+    f = cs.rand_f(small.cfg, small.domain.shape, cs.DEVICE, seed=7)
+    res = torch.empty_like(f)
+    out = {"sim_2_res2_f32": cs.time_ms(lambda: pair(f, cs.NU, out=res), reps=50)}
     cfg, dom = flagship(cs.BENCH_SHAPE)
     f32 = cs.rand_f(cfg, dom.shape, cs.DEVICE, seed=7)
     for store in cs.STORES:

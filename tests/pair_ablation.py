@@ -1,6 +1,6 @@
 """Where the one-kernel A-A pair (B1) and the P4 window copy spend their time.
 
-    python -m tnl_lbm_tpu_torch.kernels.pair_ablation [--out DIR]
+    python tests/pair_ablation.py [--out DIR]
 
 Builds variants of ``csrc/aa_pair.cu`` and ``csrc/probes.cu`` by text
 substitution on the sources of this checkout (one ``nvcc`` each, all
@@ -12,9 +12,10 @@ they compare on one card:
   in); without the odd warps' 27 pushes a site; without both; the even
   warps alone (the odd warps only hand their planes back); the stage copies
   alone; without staging (the even warps read global memory); the kernel
-  at x segments of 8, 32 and 64 planes against its own 16.
-- B1 on sim_2's resolution-2 duct (32 x 64 x 64, f32): the kernel at x
-  segments of 1, 2, 4, 8, 16 and 32 planes (its own rule picks 4 there).
+  at x segments of 8, 16 and 64 planes against its own 32.
+- B1 on sim_2's resolution-2 duct (32 x 64 x 64, f32, NOTHING sites on its
+  faces): the variants above at the kernel's own x segment (4 planes there),
+  and the kernel at x segments of 1, 2, 4, 8, 16 and 32 planes.
 - P4 (wy = 48 and 36, each load path): the ring of up to 4 plane buffers
   with one block per SM; 2 plane buffers each for two blocks per SM; every
   block walking its planes forwards; beside ``interior(fpad).contiguous()``.
@@ -31,17 +32,22 @@ import ctypes
 import json
 import shutil
 import subprocess
+import sys
 from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from tnl_lbm_tpu_torch.kernels.build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc, kernel_resources
 
 COLLIDE = "stream_bc_collide(v, m, p, rho, ux, uy, uz);"
 MOMENTS = "rho = v[0]; ux = v[1]; uy = v[2]; uz = v[3];"
-PUSH = "fs[cx(q) * sx32 + cy(q) * sy32 + cz(q)] = narrow<S>(v[q]);"
+PUSHES = ("fs[cx(q) * sx32 + cy(q) * sy32 + cz(q)] = narrow<S>(v[q]);",  # straight lines
+          "fs[d + fz.delta(cz(q))] = val;", "fs[d] = val;",  # a z face
+          "fs[dx + dy + dz] = val;", "fs[(r & 1 ? 0 : dx)")  # an x or y face
 EVEN_WORK = "      if (on) {\n        // same-site read, opposite-slot result"
 ODD_WORK = "    if (mine) {\n      // neighbour pull, collide, push"
 STAGED = "const int staged = Z % VEC == 0"
-RING_BUDGET = "constexpr int WINDOW_RING_BUDGET = WINDOW_SMEM_MAX;"
+RING_BUDGET = "WINDOW_SMEM_MAX / std::max(plane, 1)"
 BACKWARDS = "const bool backwards = i & 1;"
 
 
@@ -55,12 +61,12 @@ def _swap(src: str, *pairs) -> str:
 
 def pair_variants(src: str) -> dict:
     no_collide = (COLLIDE, MOMENTS)
-    no_push = (PUSH, "if (v[q] == 12345.0f) " + PUSH)
+    no_push = [(push, "if (v[q] == 12345.0f) " + push) for push in PUSHES]
     return {
         "kernel": src,
         "no_collisions": _swap(src, no_collide),
-        "no_pushes": _swap(src, no_push),
-        "no_pushes_no_collisions": _swap(src, no_collide, no_push),
+        "no_pushes": _swap(src, *no_push),
+        "no_pushes_no_collisions": _swap(src, no_collide, *no_push),
         "even_warps_only": _swap(src, (ODD_WORK, ODD_WORK.replace("(mine)", "(false && mine)"))),
         "stage_copies_only": _swap(src, (ODD_WORK, ODD_WORK.replace("(mine)", "(false && mine)")),
                                    (EVEN_WORK, EVEN_WORK.replace("(on)", "(false && on)"))),
@@ -71,7 +77,7 @@ def pair_variants(src: str) -> dict:
 def window_variants(src: str) -> dict:
     return {"ring_one_block": src,
             "ring_2_two_blocks": _swap(src, (RING_BUDGET, RING_BUDGET.replace(
-                "WINDOW_SMEM_MAX;", "113 * 1024;"))),
+                "WINDOW_SMEM_MAX", "113 * 1024"))),
             "forwards": _swap(src, (BACKWARDS, "const bool backwards = false;"))}
 
 
@@ -148,7 +154,7 @@ def main(argv=None) -> int:
         state = to_storage(f32, dtype)
         out = torch.empty_like(state)
         code, tag = _STORE_CODES[dtype]
-        runs = [(name, 0) for name in pair_libs] + [("kernel", seg) for seg in (8, 32, 64)]
+        runs = [(name, 0) for name in pair_libs] + [("kernel", seg) for seg in (8, 16, 64)]
         for name, seg in runs:
             lib, res = pair_libs[name]
             stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -181,6 +187,21 @@ def main(argv=None) -> int:
     u = torch.from_numpy((0.02 * rng.standard_normal((3,) + sshape)).astype(np.float32)).to(dev)
     fs = small.cfg.eq(small.cfg.lat, rho, u).float().contiguous()
     out = torch.empty_like(fs)
+    geo = torch.as_tensor(np.ascontiguousarray(small.domain.map, np.uint8), device=dev)
+    r_out, u_out = torch.empty(sshape, device=dev), torch.empty((3,) + sshape, device=dev)
+    for name, (lib, _) in pair_libs.items():
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+        def call(lib=lib, stream=stream):
+            rc = lib.tnl_lbm_aa_pair_segmented(
+                fs.data_ptr(), out.data_ptr(), geo.data_ptr(), r_out.data_ptr(), u_out.data_ptr(),
+                *sshape, _periodic_bits(small.domain.periodic), 1, 1, 0, 0.02, 1e-6, 0.0, 0.0, 0,
+                0, stream)
+            if rc != 0:
+                raise RuntimeError(f"aa_pair {name}: CUDA error {rc}")
+
+        print(json.dumps({"kernel": "aa_pair_f32", "shape": list(sshape), "variant": name,
+                          "seg_len": "auto", "ms": time_ms(call, reps=50)}), flush=True)
     for seg in (1, 2, 4, 8, 16, 32):
         pair = make_fused_pair2_aa(small.cfg, small.domain, dev, seg_len=seg)
         print(json.dumps({"kernel": "aa_pair_f32", "shape": list(sshape), "seg_len": seg,

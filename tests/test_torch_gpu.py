@@ -196,9 +196,10 @@ def test_pair_kernel_small_boxes_on_card(cuda, store, box):
 
 @pytest.mark.parametrize("case", ["sim2_res2", "duct_96"])
 def test_pair_dispatch_probe_agrees_with_kernel_times(cuda, case, tmp_path):
-    """``pair_dispatch="auto"`` picks the pair where its kernel, chained as a
-    run dispatches it, is faster than one even plus one odd launch on CUDA
-    events (either within 10%: small lattices are launch-bound and noisy)."""
+    """``pair_dispatch="auto"`` picks the pair where the probe's own helper,
+    timing both routes again over longer chains (5 chains of 20 pairs), finds
+    it faster than one even plus one odd launch (either within 10%: small
+    lattices are launch-bound and noisy)."""
     from tnl_lbm_tpu_torch import bench
     from tnl_lbm_tpu_torch.apps import sim_2
     from tnl_lbm_tpu_torch.sim.state import Simulation
@@ -211,30 +212,7 @@ def test_pair_dispatch_probe_agrees_with_kernel_times(cuda, case, tmp_path):
                          pair_dispatch="auto", phys_final_time=dom.units.phys_dt)
     sim.sim_init()
     t_pair, t_steps = sim.pair_probe_ms
-    pair = make_fused_pair2_aa(sim.cfg, sim.domain, cuda)
-    step = make_fused_step_aa(sim.cfg, sim.domain, cuda)
-    f = seeded_state(sim.cfg, sim.domain.shape, cuda)
-    bufs, work, chain = [f.clone(), torch.empty_like(f)], [f], 20
-
-    def pairs():
-        for k in range(chain):
-            pair(bufs[k % 2], 0.02, out=bufs[1 - k % 2])
-
-    def steps():
-        for _ in range(chain):
-            f1, _, _ = step(work[0], 0.02, parity=0)
-            work[0], _, _ = step(f1, 0.02, parity=1)
-
-    def timed(fn):
-        fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / chain
-
-    k_pair, k_steps = timed(pairs), timed(steps)
+    k_pair, k_steps = sim.time_pair_routes(pairs=20, chains=5)
     assert t_pair > 0 and t_steps > 0
     if abs(k_pair / k_steps - 1) > 0.1:
         assert sim.pair_dispatch is (k_pair < k_steps), (t_pair, t_steps, k_pair, k_steps)

@@ -389,11 +389,25 @@ def _neighbour(s, d, n, periodic):
     return 0 if t < 0 else (n - 1 if t >= n else t)
 
 
+def _push_targets(s, c, n, periodic):
+    """numpy transliteration of csrc/lbm_site.cuh push_targets over an
+    array of coordinates: (t0, t1), -1 where there is no target."""
+    none = np.full_like(s, -1)
+    if c == 0:
+        return s, none
+    if periodic:
+        return (s + c) % n, none
+    t = s + c
+    t0 = np.where((t >= 0) & (t < n), t, -1)
+    return t0, np.where((c > 0) & (s == 0) | (c < 0) & (s == n - 1), s, -1)
+
+
 def _march(shape, periodic, seg_len, dtype, seed=4):
     """Run csrc/aa_pair.cu's schedule in numpy, block by block: the copies
-    of ``issue`` into byte-level stages, the even warps' staged reads and
-    ring writes (a seeded stand-in for the even output), the odd warps'
-    ring reads.  The two kinds of warps hand planes over through barriers:
+    of ``issue`` into byte-level stages, the even warps' staged reads, ring
+    and code writes (a seeded stand-in for the even output, a seeded map of
+    FLUID, WALL and NOTHING codes) and their copies of NOTHING tile sites,
+    the odd warps' ring reads and the codes their pushes read.  The two kinds of warps hand planes over through barriers:
     even plane i waits for odd plane i - 3 (``odd_done``), odd plane o for
     even plane o + 1 (``planes_done``).  The model runs the even warps as far
     ahead as that allows, so a group rewritten before its last reader read
@@ -402,10 +416,11 @@ def _march(shape, periodic, seg_len, dtype, seed=4):
     to the phase it must see (mbarrier.try_wait.parity: the parity of that
     phase, and no later phase complete).  Returns (times each site
     was the odd warps', the largest odd read against pad_halo of the even
-    output, the reuse events)."""
+    output, the reuse events), and asserts that every push reads its
+    target's code and that the even warps copy each NOTHING site once."""
     k = _march_constants()
     TY, TZ, NST, G, H = k["TY"], k["TZ"], k["NSTAGES"], k["GROUP"], k["HANDOFF"]
-    PG, ZG, MG = k["P_GROUPS"], k["Z_GROUPS"], k["M_GROUPS"]
+    PG, ZG, MG, CP = k["P_GROUPS"], k["Z_GROUPS"], k["M_GROUPS"], k["CODE_PLANES"]
     WY, WZ = TY + 2, TZ + 2
     WS = WY * WZ
     X, Y, Z = shape
@@ -418,6 +433,8 @@ def _march(shape, periodic, seg_len, dtype, seed=4):
     f = rng.standard_normal((27,) + shape).astype(dtype)  # the stored state
     ev = rng.standard_normal((27,) + shape).astype(np.float32)  # stands in for even(f)
     pad = pstream.pad_halo(torch.from_numpy(ev), periodic).numpy()
+    geo = rng.choice(np.array([GEO.FLUID, GEO.WALL, GEO.NOTHING], np.uint8), shape)
+    copied = np.zeros(shape, np.int64)  # NOTHING sites the even warps wrote
     isz = np.dtype(dtype).itemsize
     VEC = 16 // isz
     RB = 16 + ((TZ * isz + 4 + 15) // 16) * 16  # row_bytes<S>
@@ -455,6 +472,8 @@ def _march(shape, periodic, seg_len, dtype, seed=4):
             ring_read = {}  # buffer -> iteration of the last read of its content
             stages = [None] * NST
             stage_read = {}
+            codes = np.full((CP, WS), 0xEE, np.uint8)
+            code_read = {}  # code plane -> last odd plane whose pushes read it
             done = {"full": [0] * NST, "planes": [0] * H, "odd": [0] * H}  # completed phases
 
             def issue(j):
@@ -514,6 +533,13 @@ def _march(shape, periodic, seg_len, dtype, seed=4):
                         ring[buf, slot[r], t_on] = ev[r, xg, yg, zg]
                     for buf in bufs:  # the wait covers readers up to odd plane i - 3
                         events.append(("ring", buf, i - 3, ring_read.get(buf, -(10**9))))
+                    # odd plane i - 3 arrived, so odd plane i - 4 has pushed
+                    events.append(("codes", i % CP, i - 4, code_read.get(i % CP, -(10**9))))
+                    codes[i % CP, t_on] = geo[xg, yg, zg]
+                    inner = ((lyw[on] >= 1) & (lyw[on] <= ny) & (lzw[on] >= 1) & (lzw[on] <= nz)
+                             & (geo[xg, yg, zg] == GEO.NOTHING))
+                    if 1 <= i <= n_even - 2:  # a NOTHING tile site of an odd plane
+                        copied[xg, yg[inner], zg[inner]] += 1
                     done["planes"][i % H] += 1
                 else:
                     o = i
@@ -529,7 +555,24 @@ def _march(shape, periodic, seg_len, dtype, seed=4):
                         worst = max(worst, float(np.abs(got - want).max()))
                         ring_read[buf] = o
                     odd_count[x, y, z] += 1
+                    assert (codes[o % CP, wc] == geo[x, y, z]).all()
                     done["odd"][(o - 1) % H] += 1
+                    # the pushes, after the arrive: a target's code is the
+                    # window's at offset c_q (s + c_q, wrapped) or 0 (the
+                    # site itself, replicated at a closed face)
+                    for q in range(27):
+                        tx = _push_targets(np.full_like(y, x), cx[q], X, px)
+                        ty = _push_targets(y, cy[q], Y, py)
+                        tz = _push_targets(z, cz[q], Z, pz)
+                        for a, b, c in itertools.product((0, 1), repeat=3):
+                            ok = (tx[a] >= 0) & (ty[b] >= 0) & (tz[c] >= 0)
+                            dx, dy, dz = (0 if a else cx[q]), (0 if b else cy[q]), (0 if c else cz[q])
+                            got = codes[(o + dx) % CP, wc + dy * WZ + dz]
+                            want = geo[tx[a][ok], ty[b][ok], tz[c][ok]]
+                            np.testing.assert_array_equal(got[ok], want)
+                    for dx in (-1, 0, 1):
+                        code_read[(o + dx) % CP] = o
+    np.testing.assert_array_equal(copied, geo == GEO.NOTHING)
     return odd_count, worst, events
 
 
@@ -546,7 +589,9 @@ def test_pair_window_equals_pad_halo(periodic):
     is pad_halo of the even output at s - c_q, which the odd step reads;
     each ring group is overwritten only after its last reader arrived on the
     barrier its writer waits for, each stage only after the even warps read
-    it; and the staged rows (16-byte
+    it, each plane of codes only after the last pushes that read it; every
+    push reads its target's code and every NOTHING site is copied once by
+    the even warps; and the staged rows (16-byte
     pieces, the z-halo words) give the even sub-step the input at its window
     site, bit for bit, in float32 and, with its halo words, in float16."""
     k = _march_constants()

@@ -9,7 +9,7 @@
 // aa_odd.cu) and their plain versions even_step_plain / odd_step_plain.
 //
 // Design (pair_march.cuh): an x-marching pipeline.  A block owns a y-z
-// column tile of 8 x 32 sites and a segment of at most 16 x planes, and
+// column tile of 8 x 32 sites and a segment of at most 32 x planes, and
 // walks it plane by plane.  Its warps have one role each.  11 even warps run
 // the even sub-step on window plane i (the tile and its one-site y-z halo:
 // 340 sites, one thread each, 1.33 collisions per tile site); 8 odd warps
@@ -28,10 +28,12 @@
 // even output sits in the post-permutation slot order (out_perm = opp), so
 // the odd read is aa_odd.cu's, ev[opp q](s - c_q).  NOTHING sites keep
 // their DFs through the even sub-step.  The odd sub-step scatters with
-// aa_odd.cu's one-writer rule (push_targets; sites away from every face in
-// straight-line stores); pushes aimed at NOTHING sites are dropped and
-// those sites copy their stored bits to the output, which is their even
-// output narrowed (fused_aa.py:1064-1069).  Blocks read their neighbours'
+// aa_odd.cu's one-writer rule (push_targets, one path per warp: a warp whose
+// sites are all away from the faces in straight-line stores, one with a
+// site on a z face by z's edge rule alone, any other by all three axes'); pushes aimed at NOTHING sites are dropped (the
+// target's code comes from the window's codes in shared memory) and the
+// even warps copy those sites' stored bits to the output, which is their
+// even output narrowed (fused_aa.py:1064-1069).  Blocks read their neighbours'
 // sites, so the kernel reads f_in and writes a second buffer.  Only the
 // final store narrows, with round-to-nearest-even like torch's .to().
 //
@@ -56,14 +58,15 @@
 // Bound: HBM bytes, one read and one write of f per two steps (216 B/site
 // in float32, 108 B with 16-bit storage), plus the map and 16 B of rho and
 // u; the collisions' FP32 operations take less at the card's peak rate.
-// What holds it on an H100 (PERF.md, kernels/pair_ablation.py): issue
-// slots.  Its 2.33 collisions per site (1.33 even, the window's halo, plus
-// two planes per segment of 16) run at 19 warps per SM; the even warps
-// alone take two thirds of the kernel's time, and the odd warps' work adds
-// to it rather than hiding behind it.  In float32 the 27 scalar stores a
-// site cost a quarter of the kernel when the collisions are left out.  The
-// ring and two float32 stages take 198 KB (16-bit: 163 KB): one block of
-// 608 threads per SM, 96 registers a thread, some of it spilled.  Offsets into a state
+// What holds it on an H100 (PERF.md, tests/pair_ablation.py): issue slots
+// and the staging.  It runs 2.41 collisions a site at 256^3 (the even
+// sub-step on 340 / 256 of the tile and 34 of each 32 planes, the odd one
+// once) at 19 warps per SM; the even warps alone take three quarters of the
+// kernel's time.  The same kernel with the even warps reading global memory
+// instead of the stages ran 9-13% faster there, so the stages' per-plane
+// barrier and copies cost more than they hide.  The ring and two float32
+// stages take 198 KB (16-bit: 164 KB): one block of 608 threads per SM, 96
+// registers a thread, a few bytes of it spilled.  Offsets into a state
 // are 64-bit; offsets within one plane (Y Z < 2^31 sites) are 32-bit.
 
 #include <cuda_bf16.h>
@@ -145,6 +148,29 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   }
+}
+
+// One axis of a push from coordinate s of n (push_targets): the step to
+// s - 1 and to s + 1, wrapped on a periodic axis (in elements of `stride`),
+// whether it exists, and whether a push along -1 / +1 also lands on s (a
+// closed face's edge replication).
+struct Face {
+  int64_t lo, hi;
+  bool lo_ok, hi_ok, lo_rep, hi_rep;
+  __device__ __forceinline__ bool ok(int c) const { return c == 0 || (c < 0 ? lo_ok : hi_ok); }
+  __device__ __forceinline__ int64_t delta(int c) const { return c == 0 ? 0 : (c < 0 ? lo : hi); }
+  __device__ __forceinline__ int rep(int c) const { return c != 0 && (c < 0 ? lo_rep : hi_rep); }
+};
+
+__device__ __forceinline__ Face face(int s, int n, bool periodic, int64_t stride) {
+  Face a;
+  a.lo = (s > 0 ? -1 : n - 1) * stride;
+  a.hi = (s < n - 1 ? 1 : 1 - n) * stride;
+  a.lo_ok = s > 0 || periodic;
+  a.hi_ok = s < n - 1 || periodic;
+  a.lo_rep = !periodic && s == n - 1;
+  a.hi_rep = !periodic && s == 0;
+  return a;
 }
 
 template <typename S>
@@ -262,6 +288,13 @@ __device__ __forceinline__ void aa_pair_body(const S* __restrict__ f, S* __restr
             float* grp = cx(r) > 0 ? ringP : (cx(r) == 0 ? ringZ : ringM);
             grp[group_slot(r) * WSITES + t] = v[r];
           }
+          if (i >= 1 && i + 1 < n_even && lyw >= 1 && lyw <= ny && lzw >= 1 && lzw <= nz) {
+            // a tile site of an odd plane: no push lands on it, and its
+            // output is its even output narrowed, the stored bits
+            S* dst = fout + (int64_t)(xs + i - 1) * YZ + yz;
+#pragma unroll
+            for (int q = 0; q < Q; ++q) dst[q * N] = narrow<S>(v[q]);
+          }
         } else {
           float rho, ux, uy, uz;
           stream_bc_collide(v, m, p, rho, ux, uy, uz);
@@ -286,11 +319,18 @@ __device__ __forceinline__ void aa_pair_body(const S* __restrict__ f, S* __restr
   const int wc = (ly + 1) * WZ + lz + 1;
   const bool mine = ly < ny && lz < nz;
   const int y = y0 + ly, z = z0 + lz;
+  const bool y_inner = y > 0 && y < Y - 1, z_inner = z > 0 && z < Z - 1;
   for (int o = 1; o + 1 < n_even; ++o) {
     mbar_wait(&planes_done[(o + 1) % HANDOFF], ((o + 1) / HANDOFF) & 1);
+    const int x = xs + o - 1;
+    // the push path is the warp's: straight lines where every site is away
+    // from the faces, z's edge rule alone where every site is away from the
+    // x and y faces, else all three axes'
+    const bool warp_xy_inner = __all_sync(0xffffffffu, !mine || (y_inner && x > 0 && x < X - 1));
+    const bool warp_inner = __all_sync(0xffffffffu, !mine || (y_inner && z_inner && x > 0 &&
+                                                              x < X - 1));
     if (mine) {
       // neighbour pull, collide, push
-      const int x = xs + o - 1;
       const int64_t site = (int64_t)x * YZ + (int64_t)y * Z + z;
       const float* ringP = ring + ((o + 1) % P_GROUPS) * GROUP * WSITES;
       const float* ringZ = ring + (P_GROUPS + o % Z_GROUPS) * GROUP * WSITES;
@@ -310,63 +350,60 @@ __device__ __forceinline__ void aa_pair_body(const S* __restrict__ f, S* __restr
       // The strides, opaque to the compiler inside the iteration: the 27
       // component offsets are then formed as the pushes go, not kept in
       // registers across the plane loop.
-      int64_t n = N, sxv = YZ, syv = Z;
+      int64_t n = N;
       int sx32 = (int)YZ, sy32 = Z;  // neighbour deltas within a component: |d| <= Y Z + Z + 1
-      asm volatile("" : "+l"(n), "+l"(sxv), "+l"(syv), "+r"(sx32), "+r"(sy32));
-      // pushes aimed at a NOTHING site are dropped: its own thread restores it
-      S* fq = fout;  // component q's plane
-      auto push = [&](int q, int64_t dst) {
-        if (!(has_nothing && map[dst] == GEO_NOTHING)) fq[dst] = narrow<S>(v[q]);
+      asm volatile("" : "+l"(n), "+r"(sx32), "+r"(sy32));
+      // pushes aimed at a NOTHING site are dropped: the even warps wrote
+      // its output.  A target's code is the window's at the push's offset
+      // (dx, dy, dz), from plane o + dx: wrapped as the target is, and in
+      // shared memory, so no push waits on a global load.
+      auto kept = [&](int dx, int dy, int dz) {
+        return !has_nothing ||
+               codes[((o + dx) % CODE_PLANES) * WSITES + wc + dy * WZ + dz] != GEO_NOTHING;
       };
-      const bool xy_inner = x > 0 && x < X - 1 && y > 0 && y < Y - 1;
-      if (xy_inner && z > 0 && z < Z - 1) {
+      S* fs = fout + site;  // component q's plane at this site
+      if (warp_inner) {
         // every push lands at site + c_q: straight-line stores, no branches
         // when the map holds no NOTHING site
-        S* fs = fout + site;
         if (has_nothing) {
-          const uint8_t* ms = map + site;
 #pragma unroll
-          for (int q = 0; q < Q; ++q, fs += n) {
-            const int d = cx(q) * sx32 + cy(q) * sy32 + cz(q);
-            if (ms[d] != GEO_NOTHING) fs[d] = narrow<S>(v[q]);
-          }
+          for (int q = 0; q < Q; ++q, fs += n)
+            if (kept(cx(q), cy(q), cz(q))) fs[cx(q) * sx32 + cy(q) * sy32 + cz(q)] = narrow<S>(v[q]);
         } else {
 #pragma unroll
           for (int q = 0; q < Q; ++q, fs += n)
             fs[cx(q) * sx32 + cy(q) * sy32 + cz(q)] = narrow<S>(v[q]);
         }
-      } else if (xy_inner) {
-        // rows away from the x and y faces: only z needs the edge-replication rule
+      } else if (warp_xy_inner) {
+        // a warp with a site on a z face: z's edge rule (push_targets)
+        const Face fz = face(z, Z, pz, 1);
 #pragma unroll
-        for (int q = 0; q < Q; ++q, fq += n) {
-          int tz0, tz1;
-          push_targets(z, cz(q), Z, pz, tz0, tz1);
-          const int64_t row = site - z + cx(q) * sxv + cy(q) * syv;
-          if (tz0 >= 0) push(q, row + tz0);
-          if (tz1 >= 0) push(q, row + tz1);
+        for (int q = 0; q < Q; ++q, fs += n) {
+          const int d = cx(q) * sx32 + cy(q) * sy32;
+          const S val = narrow<S>(v[q]);
+          if (fz.ok(cz(q)) && kept(cx(q), cy(q), cz(q))) fs[d + fz.delta(cz(q))] = val;
+          if (fz.rep(cz(q)) && kept(cx(q), cy(q), 0)) fs[d] = val;  // replicated on s
         }
       } else {
+        // a warp with a site on an x or y face, all its lanes on one path
+        // (push_targets): along each axis the push lands at s + c, wrapped
+        // on a periodic axis, where that exists, and at a closed face whose
+        // outer neighbour would push inwards also on s itself (the edge
+        // replication), so a push has up to 8 targets: its primary one and,
+        // on the face sites only, those with the replicated axes at s.
+        const Face fx = face(x, X, px, YZ), fy = face(y, Y, py, Z), fz = face(z, Z, pz, 1);
 #pragma unroll
-        for (int q = 0; q < Q; ++q, fq += n) {
-          int tx[2], ty[2], tz[2];
-          push_targets(x, cx(q), X, px, tx[0], tx[1]);
-          push_targets(y, cy(q), Y, py, ty[0], ty[1]);
-          push_targets(z, cz(q), Z, pz, tz[0], tz[1]);
-#pragma unroll
-          for (int a = 0; a < 2; ++a)
-#pragma unroll
-            for (int b = 0; b < 2; ++b)
-#pragma unroll
-              for (int c = 0; c < 2; ++c)
-                if (tx[a] >= 0 && ty[b] >= 0 && tz[c] >= 0)
-                  push(q, ((int64_t)tx[a] * Y + ty[b]) * Z + tz[c]);
+        for (int q = 0; q < Q; ++q, fs += n) {
+          const bool okx = fx.ok(cx(q)), oky = fy.ok(cy(q)), okz = fz.ok(cz(q));
+          const int64_t dx = fx.delta(cx(q)), dy = fy.delta(cy(q)), dz = fz.delta(cz(q));
+          const int rep = fx.rep(cx(q)) | fy.rep(cy(q)) << 1 | fz.rep(cz(q)) << 2;
+          const S val = narrow<S>(v[q]);
+          if (okx && oky && okz && kept(cx(q), cy(q), cz(q))) fs[dx + dy + dz] = val;
+          for (int r = rep; r; r = (r - 1) & rep)  // the targets with the axes of r at s
+            if ((r & 1 || okx) && (r & 2 || oky) && (r & 4 || okz) &&
+                kept(r & 1 ? 0 : cx(q), r & 2 ? 0 : cy(q), r & 4 ? 0 : cz(q)))
+              fs[(r & 1 ? 0 : dx) + (r & 2 ? 0 : dy) + (r & 4 ? 0 : dz)] = val;
         }
-      }
-      if (m == GEO_NOTHING) {  // its even output is its input: the stored bits
-        const S* src = f + site;
-        S* dst = fout + site;
-#pragma unroll
-        for (int q = 0; q < Q; ++q, src += n, dst += n) *dst = *src;
       }
       if (with_macro) {
         rho_out[site] = rho;

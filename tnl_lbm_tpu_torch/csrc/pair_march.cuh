@@ -21,8 +21,11 @@
 // (Z(i), i mod 3) and four -1 groups (M(i), i mod 4): 9 groups of 9 float32
 // slots, 81 values per window site; the group even plane i overwrites was
 // last read by odd plane i - 3, which it waits for.  Within a group, slot r
-// sits at 3 (c_y + 1) + (c_z + 1).  The site codes of three planes ride
-// along.
+// sits at 3 (c_y + 1) + (c_z + 1).  The site codes of the window ride along
+// in CODE_PLANES planes: odd plane o reads those of planes o - 1 .. o + 1 for
+// its pushes after it released the ring, so the codes even plane i
+// overwrites (plane i - 5) were last read by odd plane i - 4, finished
+// before odd plane i - 3 released.
 //
 // The stages.  NSTAGES input planes of the window, each [Q][WY] rows of
 // ROW bytes: a word holding the low z halo (z0 - 1, wrapped or clamped), 12
@@ -51,16 +54,16 @@ constexpr int EVEN_THREADS = 352;            // 11 warps, one thread per window 
 constexpr int ODD_THREADS = TILE_SITES;      // 8 warps, one thread per tile site
 constexpr int THREADS = EVEN_THREADS + ODD_THREADS;  // 608: 96 registers a thread
 constexpr int NSTAGES = 2;                   // staged input planes, one in flight
-constexpr int SEG_MAX = 16;                  // x planes a block marches at most
+constexpr int SEG_MAX = 32;                  // x planes a block marches at most
 constexpr int GROUP = 9;                     // slots of one c_x class
 constexpr int P_GROUPS = 2, Z_GROUPS = 3, M_GROUPS = 4;  // c_x = +1, 0, -1
 constexpr int RING_GROUPS = P_GROUPS + Z_GROUPS + M_GROUPS;  // 9
 constexpr int RING_BYTES = RING_GROUPS * GROUP * WSITES * (int)sizeof(float);  // 110,160
-constexpr int CODE_PLANES = 3;
+constexpr int CODE_PLANES = 5;
 constexpr int HANDOFF = 4;                   // plane barriers between the even and odd warps
 constexpr int CODE_BYTES = CODE_PLANES * WSITES;
 // the stages start 128-byte aligned after the ring and the codes
-constexpr int STAGE_OFFSET = (RING_BYTES + CODE_BYTES + 127) / 128 * 128;  // 111,232
+constexpr int STAGE_OFFSET = (RING_BYTES + CODE_BYTES + 127) / 128 * 128;  // 111,872
 
 // Bytes of one staged row for storage type S: 160 (float32), 96 (16-bit).
 template <typename S>
@@ -71,7 +74,7 @@ template <typename S>
 __host__ __device__ constexpr int hi_halo_byte() { return 16 + TZ * (int)sizeof(S); }
 template <typename S>
 __host__ __device__ constexpr int stage_bytes() { return Q * WY * row_bytes<S>(); }
-// Dynamic shared memory of one block: 197,632 B (float32), 163,072 B (16-bit).
+// Dynamic shared memory of one block: 198,272 B (float32), 163,712 B (16-bit).
 template <typename S>
 __host__ __device__ constexpr int smem_bytes() {
   return STAGE_OFFSET + NSTAGES * stage_bytes<S>();

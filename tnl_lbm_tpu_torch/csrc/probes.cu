@@ -151,10 +151,6 @@ constexpr int WTHREADS = 256;
 constexpr int ATX = 16, ATY = 32;
 // dynamic shared memory the window probes may ask for
 constexpr int WINDOW_SMEM_MAX = 200 * 1024;
-// a window copy block's plane buffers: one block per SM, its ring as deep
-// as fits (4 planes at wy = 48 measured 4% faster than 2 planes for each of
-// two blocks on an H100)
-constexpr int WINDOW_RING_BUDGET = WINDOW_SMEM_MAX;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -393,11 +389,12 @@ extern "C" int tnl_lbm_element_pipeline(const float* fpad, float* out, int X, in
 
 namespace {
 
-// Plane buffers of a window copy block: as many as fit its budget, at least
-// 2 and at most WSTAGES_MAX.
+// Plane buffers of a window copy block: one block per SM, its ring as deep
+// as fits (4 planes at wy = 48 measured 4% faster than 2 planes for each of
+// two blocks on an H100), at least 2 and at most WSTAGES_MAX.
 int window_stages(int Z, int wy, int dst_off) {
   const int plane = (dst_off + wy) * Z * (int)sizeof(float);
-  return std::max(2, std::min(WSTAGES_MAX, WINDOW_RING_BUDGET / std::max(plane, 1)));
+  return std::max(2, std::min(WSTAGES_MAX, WINDOW_SMEM_MAX / std::max(plane, 1)));
 }
 
 }  // namespace

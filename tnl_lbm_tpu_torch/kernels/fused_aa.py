@@ -272,7 +272,7 @@ class FusedPairAA:
     keep their stored bits.  It needs well-conditioned (deviation) DFs.
 
     ``seg_len`` is the x extent each block of the kernel marches (None: the
-    kernel's own choice, 16 planes, fewer where the column tiles alone do
+    kernel's own choice, 32 planes, fewer where the column tiles alone do
     not fill the card); the result does not depend on it.
     """
 

@@ -335,25 +335,27 @@ class Simulation:
         elif not self._pair_dispatch_capable() or self.device.type != "cuda":
             self.pair_dispatch = False
         else:
-            t_pair, t_steps = self._probe_pair_dispatch()
-            self.pair_probe_ms = (t_pair * 1e3, t_steps * 1e3)
+            self.pair_probe_ms = self.time_pair_routes()
+            t_pair, t_steps = self.pair_probe_ms
             self.pair_dispatch = t_pair < t_steps
-            self.log.info("pair-dispatch auto-probe: pair %.3f ms/pair vs per-step "
-                          "%.3f ms/pair -> %s", t_pair * 1e3, t_steps * 1e3,
+            self.log.info("pair-dispatch auto-probe: pair %.4f ms/pair vs per-step "
+                          "%.4f ms/pair -> %s", t_pair, t_steps,
                           "pair dispatch" if self.pair_dispatch else "per-step dispatch")
         if self.pair_dispatch is True and self._pair_dispatch_capable():
             self._build_pair()
 
-    def _probe_pair_dispatch(self, repeats: int = 5) -> tuple[float, float]:
-        """Device seconds per pair of (a) the pair kernel and (b) an even and
-        an odd launch, from CUDA events around ``repeats`` chained pairs of
-        each, after one chain of warm-up, each route on its own copy of a
-        seeded near-equilibrium state (rho 1 +- 0.01, |u| ~ 0.02); the pair
-        ping-pongs two buffers as ``_advance_pairs`` does.  Not the run's own
-        state: at rest every DF deviation is zero, and there the pair kernel
-        ran 13% slower than on a developed flow on an H100, the even and odd
-        kernels 4% (PERF.md), which decided the dispatch of a whole run on
-        its first step.  ``self.f`` is untouched."""
+    def time_pair_routes(self, pairs: int = 10, chains: int = 5) -> tuple[float, float]:
+        """Milliseconds per pair of (a) the pair kernel and (b) an even and an
+        odd launch, as a run dispatches them (the pair ping-pongs two
+        buffers; the steps go through this run's step): the median, over
+        ``chains`` chains of ``pairs`` pairs of each route, the two routes
+        in turn after one chain each of warm-up, of CUDA events around a
+        chain, so the host's launch time counts where it exceeds the
+        kernels'.  Each route runs on its own copy of a seeded
+        near-equilibrium state (rho 1 +- 0.01, |u| ~ 0.02), not the run's:
+        at rest every DF deviation is zero, and there the pair kernel ran
+        13% slower than on a developed flow on an H100 (PERF.md).  The
+        "auto" dispatch's probe; ``self.f`` is untouched."""
         from tnl_lbm_tpu_torch.kernels.fused_aa import to_storage
 
         nu = self.domain.units.lbm_viscosity()
@@ -369,14 +371,14 @@ class Simulation:
         bufs[1] = torch.empty_like(bufs[0])
         work = [state]
 
-        def pairs():
-            for k in range(repeats):
+        def run_pairs():
+            for k in range(pairs):
                 pair(bufs[k % 2], nu, out=bufs[1 - k % 2])
-            if repeats % 2:
+            if pairs % 2:
                 bufs.reverse()
 
-        def steps():
-            for _ in range(repeats):
+        def run_steps():
+            for _ in range(pairs):
                 f1, _, _ = self._step(work[0], nu, parity=0)
                 work[0], _, _ = self._step(f1, nu, parity=1)
 
@@ -387,10 +389,11 @@ class Simulation:
             fn()
             end.record()
             end.synchronize()
-            return start.elapsed_time(end) * 1e-3 / repeats
+            return start.elapsed_time(end) / pairs
 
-        pairs(), steps()  # warm up (the first launch loads the library)
-        return timed(pairs), timed(steps)
+        run_pairs(), run_steps()  # warm up (the first launch loads the library)
+        times = [(timed(run_pairs), timed(run_steps)) for _ in range(chains)]
+        return tuple(float(np.median(t)) for t in zip(*times))
 
     def sim_init(self):
         if self.flags.exists("loadstate"):
