@@ -429,6 +429,7 @@ def phase_build() -> dict:
     """Build the kernels; registers per kernel, and the FP32 operations
     per thread from the SASS."""
     from tnl_lbm_tpu_torch.kernels.build import build_library, kernel_resources, load_library
+    from tnl_lbm_tpu_torch.kernels.fused_nn import nn_geometry
 
     t0 = time.perf_counter()
     path, ptxas = build_library()
@@ -446,10 +447,12 @@ def phase_build() -> dict:
         if name not in res or name not in ops:
             raise RuntimeError(f"no ptxas report or SASS for {name}:\n{ptxas}")
         log("build", kernel=name, **res[name], fp32_ops_per_thread=ops[name])
+    nn_geo = {key: nn_geometry(kind, BENCH_SHAPE) for kind, key in ((0, "nn_force"),
+                                                                     (1, "nn_step"))}
     log("build", seconds=f"{time.perf_counter() - t0:.1f}",
         pair_dynamic_smem_bytes=lib.tnl_lbm_aa_pair_smem_bytes(),
-        nn_step_dynamic_smem_bytes=lib.tnl_lbm_nn_step_smem_bytes())
-    return {"ops": ops, "res": res}
+        **{f"{key}_geometry_256": json.dumps(g) for key, g in nn_geo.items()})
+    return {"ops": ops, "res": res, "nn_geometry": nn_geo}
 
 
 def phase_compare_steps() -> dict:
@@ -1447,19 +1450,28 @@ def report_main(sim, label: str) -> dict:
 def auto_choice(sim, label: str) -> None:
     """The "auto" probe's two times (``Simulation.pair_probe_ms``) beside the
     same two routes timed again by the probe's own helper
-    (``Simulation.time_pair_routes``) over longer chains, 5 chains of 20
-    pairs each; where the routes differ there by more than 10% (small
-    lattices are launch-bound and noisy), the probe must have picked the
-    faster."""
+    (``Simulation.time_pair_chains``) over longer chains, 5 chains of 20
+    pairs each; where those chains separate the routes (every chain of one
+    faster than every chain of the other, the medians more than 10% apart:
+    ``torch_cases.separated_faster``), the probe must have picked the
+    faster.  Small lattices are launch-bound: there the chains overlap and
+    the check gives no verdict, which it logs."""
+    from torch_cases import chain_range, separated_faster
+
     t_pair, t_steps = sim.pair_probe_ms
-    k_pair, k_steps = sim.time_pair_routes(pairs=20, chains=5)
-    agrees = abs(k_pair / k_steps - 1) <= 0.1 or bool(sim.pair_dispatch) == (k_pair < k_steps)
+    c_pair, c_steps = sim.time_pair_chains(pairs=20, chains=5)
+    faster = separated_faster(c_pair, c_steps)
+    agrees = faster is None or bool(sim.pair_dispatch) == (faster == 0)
     log("main", path="auto", shape=label, chose="pair" if sim.pair_dispatch else "per_step",
         probe_pair_ms=f"{t_pair:.4f}", probe_per_step_ms=f"{t_steps:.4f}",
-        long_pair_ms=f"{k_pair:.4f}", long_per_step_ms=f"{k_steps:.4f}", agrees=agrees)
+        long_pair_ms=f"{np.median(c_pair):.4f}", long_per_step_ms=f"{np.median(c_steps):.4f}",
+        long_pair_ms_range=chain_range(c_pair), long_per_step_ms_range=chain_range(c_steps),
+        separated=("none", "pair", "per_step")[0 if faster is None else faster + 1],
+        agrees=agrees)
     if not agrees:
         raise RuntimeError(f"auto at {label} chose {'pair' if sim.pair_dispatch else 'per-step'} "
-                           f"though the routes take {k_pair:.4f} ms (pair) and {k_steps:.4f} ms")
+                           f"though every chain of the other route was faster: pair "
+                           f"{chain_range(c_pair)} ms, per-step {chain_range(c_steps)} ms")
 
 
 def phase_main_path() -> dict:
@@ -3149,6 +3161,11 @@ def main() -> int:
             geo = pairs["geometry"][key]
             entry.update(registers=built["res"][f"{key}_kernel"]["registers"],
                          smem_bytes=geo["smem_bytes"], stages=geo["stages"])
+        if key == "nn_force" or key.startswith("nn_step_"):  # the march's resources at 256^3
+            geo = built["nn_geometry"]["nn_force" if key == "nn_force" else "nn_step"]
+            r = built["res"][NN_INSTANCES[key]]
+            entry.update(registers=r["registers"], spill_stores=r.get("spill_stores", 0),
+                         smem_bytes=geo["smem_bytes"], seg_len=geo["seg_len"])
         if key in ("aa_pair_pad_even", "aa_pair_pad_odd"):  # the pair against its least work
             entry["pair_ms"] = layouts["pair_ms"]
             entry["pair_bound_ms"] = bound(*footprint["aa_pair_f32"])[0]

@@ -619,3 +619,17 @@ def test_pair_seg_len_is_validated():
     pair = port_pair("duct", seg_len=2)
     f = interop.state_from_numpy(rand_f(jax_side(spec("AA"), *geometry("duct"))[0]), "cpu")
     assert torch.equal(pair(f, NU)[0], port_pair("duct")(f, NU)[0])
+
+
+def test_auto_check_decides_on_separated_chains_only():
+    """The check of the "auto" probe (chip_smoke.py auto_choice and its GPU
+    test) gives a verdict only where every chain of one route is faster
+    than every chain of the other and the medians differ by more than 10%."""
+    from torch_cases import separated_faster
+
+    assert separated_faster([2.59, 2.58, 2.60], [2.86, 2.87, 2.85]) == 0  # 256^3, PERF.md
+    assert separated_faster([2.86, 2.87, 2.85], [2.59, 2.58, 2.60]) == 1
+    # res 2, launch-bound: overlapping chains, whatever the medians say
+    assert separated_faster([0.075, 0.090, 0.071], [0.059, 0.080, 0.060]) is None
+    # separated, but within 10%
+    assert separated_faster([0.0429, 0.0431], [0.0452, 0.0455]) is None

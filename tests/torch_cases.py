@@ -381,3 +381,27 @@ def shape_factor(ux) -> float:
     """u_x[Z//2] / mean(u_x[1:-1]) of a profile along z (1.5 for a parabola)."""
     ux = np.asarray(ux, np.float64)
     return float(ux[len(ux) // 2] / ux[1:-1].mean())
+
+
+#: the gap between two routes' medians above which a pick of the slower one
+#: is a fault of the "auto" probe
+ROUTE_GAP = 0.1
+
+
+def separated_faster(a, b, gap=ROUTE_GAP):
+    """Which of two routes is faster where their own chain times (ms lists)
+    separate them: 0 (a) or 1 (b) when every chain of that route is faster
+    than every chain of the other and the medians differ by more than
+    ``gap``; None otherwise (overlapping chains: launch-bound noise, no
+    verdict)."""
+    ma, mb = float(np.median(a)), float(np.median(b))
+    if max(a) < min(b) and mb > ma * (1 + gap):
+        return 0
+    if max(b) < min(a) and ma > mb * (1 + gap):
+        return 1
+    return None
+
+
+def chain_range(chains) -> str:
+    """'min-max' of chain times in ms."""
+    return f"{min(chains):.4f}-{max(chains):.4f}"

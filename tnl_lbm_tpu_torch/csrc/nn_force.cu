@@ -17,14 +17,20 @@
 // _pad1(u) and its separate _pad1(S) edge replication.  The hook's
 // periodicity is its own, independent of the domain's.
 //
-// Design (nn_site.cuh, the tile B10 shares): a block of 256 threads owns a
-// 4 x 8 x 32 tile, z fastest; it loads u and the mask on the tile and a
-// 2-site ring into shared memory at the canonical coordinates, evaluates S
-// on the tile and a 1-site ring there, and writes F of the tile sites.
+// Design (nn_site.cuh, the march B10 shares): a block of 256 threads owns an
+// 8 x 32 y-z column tile and walks an x segment of at most 32 planes, one
+// step a plane: it reads u and the mask of the incoming plane on the tile
+// and a 2-site y-z ring, at the canonical coordinates, evaluates S on the
+// plane two behind it (the tile and a 1-site ring) and writes F of the
+// plane four behind it.  A step's loads are issued into registers before
+// its S and F are evaluated and land in the u ring after them, so the load
+// latency hides behind the step's arithmetic; one block barrier a step.
+// 69 424 B of shared memory: three blocks per SM.
 //
 // Bound: HBM bytes.  Per site rho (4 B) and u (12 B) and the map (1 B) are
-// read once and F (12 B) written: 29 B/site.  The rings read u 3.375 times
-// per site, mostly from L2; the loads of a warp are runs along z.
+// read once and F (12 B) written: 29 B/site.  The u ring reads u 1.69 times
+// per site (432 slots for 256 sites) plus 4 planes per segment, the slots
+// beyond the tile mostly from L2; a warp's loads are runs along z.
 
 #include <cuda_runtime.h>
 
@@ -33,50 +39,89 @@
 #include "lbm_site.cuh"
 #include "nn_site.cuh"
 
-extern "C" __global__ void __launch_bounds__(nn::TILE_THREADS)
+extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_SM)
     nn_force_kernel(const float* __restrict__ rho, const float* __restrict__ u,
                     const uint8_t* __restrict__ map, float* __restrict__ F, int X, int Y, int Z,
-                    int nn_bits, nn::Rheology r) {
-  extern __shared__ float smem[];
-  const nn::Tile t = nn::tile(smem, X, Y, Z, nn_bits);
-  const int64_t N = (int64_t)X * Y * Z;
-  for (int i = threadIdx.x; i < nn::NU_SLOTS; i += blockDim.x) {
-    int c[3], j;
-    nn::u_slot(t, i, c, j);
-    const int64_t s = ((int64_t)c[0] * Y + c[1]) * Z + c[2];
+                    int nn_bits, int seg_len, nn::Rheology r) {
+  extern __shared__ __align__(16) float smem[];
+  const nn::March m = nn::march(smem, false, X, Y, Z, nn_bits, seg_len);
+  const int64_t YZ = (int64_t)Y * Z, N = X * YZ;
+  const int L = m.xe - m.xs;
+  int ly, lz;
+  const bool mine = nn::tile_site(m, ly, lz);
+  const int64_t tile_yz = (int64_t)(m.y0 + ly) * Z + m.z0 + lz;
+  for (int j = 0; j < L + nn::F_LAG + 2; ++j) {
+    // u and the mask of plane j, loaded now and stored after S and F
+    const bool load = j < L + 4;
+    float uv[nn::U_PER_THREAD][3];
+    bool fl[nn::U_PER_THREAD];
+    if (load) {
+      const int64_t xo = (int64_t)nn::plane_x(m, j) * YZ;
 #pragma unroll
-    for (int b = 0; b < 3; ++b) t.u[b * nn::NU_SLOTS + i] = u[b * N + s];
-    t.fluid[i] = map[s] == lbm::GEO_FLUID;
-  }
-  __syncthreads();
-  nn::tile_strain(t);
-  __syncthreads();
-  for (int j = threadIdx.x; j < nn::NT; j += blockDim.x) {
-    int c[3];
-    if (!nn::tile_site(t, j, c)) continue;
-    const int64_t s = ((int64_t)c[0] * Y + c[1]) * Z + c[2];
-    float out[3];
-    nn::tile_force(t, r, j, rho[s], out);
+      for (int k = 0; k < nn::U_PER_THREAD; ++k) {
+        const int i = nn::u_slot_of(threadIdx.x, k);
+        if (i >= nn::U_SLOTS) continue;
+        const int yz = m.uyz[i];
+        const int64_t s = xo + (yz >> 16) * Z + (yz & 0xffff);
 #pragma unroll
-    for (int b = 0; b < 3; ++b) F[b * N + s] = out[b];
+        for (int b = 0; b < 3; ++b) uv[k][b] = u[b * N + s];
+        fl[k] = map[s] == lbm::GEO_FLUID;
+      }
+    }
+    const int q = j - nn::S_LAG;
+    if (q >= 1 && q <= L + 2) nn::strain_plane(m, q);
+    const int p = j - nn::F_LAG;
+    if (p >= 2 && p <= L + 1 && mine) {
+      const int x = m.xs + p - 2;
+      const int64_t s = x * YZ + tile_yz;
+      float out[3];
+      nn::force_at(m, r, p, x, ly, lz, rho[s], out);
+#pragma unroll
+      for (int b = 0; b < 3; ++b) F[b * N + s] = out[b];
+    }
+    if (load) {
+#pragma unroll
+      for (int k = 0; k < nn::U_PER_THREAD; ++k) {
+        const int i = nn::u_slot_of(threadIdx.x, k);
+        if (i < nn::U_SLOTS) nn::put_u(m, j, i, uv[k][0], uv[k][1], uv[k][2], fl[k]);
+      }
+    }
+    __syncthreads();
   }
 }
 
 // Launches on `stream`; returns cudaGetLastError() of the launch.  nn_bits:
 // the hook's periodic axes (bit 0 x, bit 1 y, bit 2 z); model 0
-// Carreau-Yasuda (nu0 - nu, lambda, a, (n - 1) / a), 1 Casson (k0, k1).
+// Carreau-Yasuda (nu0 - nu, lambda, a, (n - 1) / a), 1 Casson (k0, k1);
+// seg_len: the x segment of one block, or 0 for the automatic one.
 extern "C" int tnl_lbm_nn_force(const float* rho, const float* u, const uint8_t* map, float* F,
                                 int X, int Y, int Z, int nn_bits, int model, float nu,
                                 float nu0_minus_nu, float lam, float a, float expo, float k0,
-                                float k1, void* stream) {
+                                float k1, int seg_len, void* stream) {
   if (model != nn::CARREAU_YASUDA && model != nn::CASSON)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (Y > 65535 || Z > 65535) return static_cast<int>(cudaErrorInvalidValue);  // y << 16 | z
   const nn::Rheology r{model, nu, nu0_minus_nu, lam, a, expo, k0, k1};
-  const cudaError_t err = cudaFuncSetAttribute(
-      nn_force_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, nn::TILE_SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Z + nn::TZ - 1) / nn::TZ, (Y + nn::TY - 1) / nn::TY, (X + nn::TX - 1) / nn::TX);
-  nn_force_kernel<<<grid, nn::TILE_THREADS, nn::TILE_SMEM_BYTES,
-                    static_cast<cudaStream_t>(stream)>>>(rho, u, map, F, X, Y, Z, nn_bits, r);
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      nn_force_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, nn::FORCE_SMEM_BYTES);
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  if (seg_len <= 0) seg_len = nn::auto_seg_len(X, Y, Z, nn::FORCE_BLOCKS_PER_SM);
+  const int blocks = nn::column_tiles(Y, Z) * ((X + seg_len - 1) / seg_len);
+  nn_force_kernel<<<blocks, nn::THREADS, nn::FORCE_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      rho, u, map, F, X, Y, Z, nn_bits, seg_len, r);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch geometry of B9 (kind 0) or B10 (kind 1) at a shape: out[0]
+// dynamic shared memory per block (bytes), [1] TY, [2] TZ, [3] the
+// automatic x segment, [4] segments, [5] column tiles, [6] the launch's
+// blocks per SM.
+extern "C" int tnl_lbm_nn_info(int kind, int X, int Y, int Z, int* out) {
+  if (kind != 0 && kind != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int bps = kind == 0 ? nn::FORCE_BLOCKS_PER_SM : nn::STEP_BLOCKS_PER_SM;
+  const int seg = nn::auto_seg_len(X, Y, Z, bps);
+  const int vals[7] = {kind == 0 ? nn::FORCE_SMEM_BYTES : nn::STEP_SMEM_BYTES, nn::TY, nn::TZ, seg,
+                       (X + seg - 1) / seg, nn::column_tiles(Y, Z), bps};
+  for (int k = 0; k < 7; ++k) out[k] = vals[k];
+  return 0;
 }

@@ -1,6 +1,6 @@
 // The non-Newtonian stencil shared by the NN force kernel (nn_force.cu, B9)
 // and the one-kernel NN step (nn_step.cu, B10): the per-site formulas and the
-// shared-memory tile both kernels evaluate them on.
+// x-marching plane pipeline both kernels evaluate them on.
 //
 // CUDA counterpart of tnl_lbm_tpu_torch/ops/non_newtonian.py (the plain
 // version of both kernels): the wall-aware derivative (_wall_aware_derivative,
@@ -18,21 +18,40 @@
 // into one fused multiply-add; powf and sqrtf are the accurate ones (no
 // fast math).
 //
-// The tile: a block owns TX x TY x TZ sites, z fastest.  Its kernel fills u
-// and the fluid mask on the tile and a 2-site ring in shared memory, each
-// slot at its global coordinate wrapped or clamped under the hook's
-// periodicity (the value at an out-of-domain slot is that of the clamped
-// site: clamp the coordinate, never the value); tile_strain then evaluates
-// S on the tile and a 1-site ring, where a slot outside the domain on a
-// non-periodic axis of the hook takes S at the clamped coordinate (the
-// hook's edge replication of S); tile_force gives F at a tile site.  u is
-// read 3.375 times per site over the rings, (TX+4)(TY+4)(TZ+4) / (TX TY TZ),
-// mostly from L2.  Shared memory: u (3 floats) and the mask on 8 x 12 x 36
-// slots, S (6 floats) on 6 x 10 x 34, rho on the 1024 tile sites: 97 984 B,
-// two blocks of 256 threads per SM in the 228 KB of an H100 SM.
+// The march.  A block owns a y-z column tile of TY x TZ sites (z fastest,
+// one thread a site) and an x segment [xs, xe) of at most SEG_MAX planes,
+// and walks it plane by plane, one step per plane with one block barrier.
+// Step j, for the planes p = 0 .. L + 3 of x = xs - 2 + p (L = xe - xs):
+//
+//   - u of plane j on the tile and its 2-site y-z ring (UY x UZ slots), and
+//     the fluid mask, into a ring of U_PLANES planes: each slot at its
+//     coordinate wrapped or clamped under the hook's periodicity (the value
+//     at an out-of-domain slot is that of the clamped site: clamp the
+//     coordinate, never the value).  B9 reads u; B10 computes u* (and rho
+//     of the tile sites, into a ring of RHO_PLANES planes);
+//   - S of plane j - S_LAG on the tile and its 1-site y-z ring (SY x SZ
+//     slots), into a ring of S_PLANES planes, from the u planes on either
+//     side.  A slot outside the domain on a non-periodic y or z axis of the
+//     hook takes S at the clamped coordinate (the hook's edge replication of
+//     S): it reads the u slots around the clamped one;
+//   - F of plane j - F_LAG on the tile; along x its S neighbours are the
+//     planes on either side, clamped to the plane itself at a closed face of
+//     the hook (the same edge replication, taken by the reader).
+//
+// The lags let one step's three parts run between the same two barriers:
+// each ring plane a step writes was last read in an earlier step (the CPU
+// model in tests/test_torch_nn_march.py checks every lifetime).  Each u, S
+// and mask value is computed once per plane and block; the redundant work
+// left is the y-z ring, UY UZ / (TY TZ) = 1.69 u slots and SY SZ / (TY TZ)
+// = 1.33 S slots a site, and 4 extra u planes per segment.  The
+// coordinates of a thread's slots within a plane are fixed for the whole
+// march, so each is computed once, before it.
 
 #pragma once
 
+#include <cuda_runtime.h>
+
+#include <algorithm>
 #include <cstdint>
 
 #include "lbm_site.cuh"
@@ -128,17 +147,35 @@ __device__ __forceinline__ void force(const Rheology& r, SAt s_at, FlAt fl_at, b
   }
 }
 
-// ---------------------------------------------------------------- the tile
+// ---------------------------------------------------------------- the march
 
-constexpr int TX = 4, TY = 8, TZ = 32;
-constexpr int TILE_THREADS = 256;
-constexpr int UY = TY + 4, UZ = TZ + 4, NU_SLOTS = (TX + 4) * UY * UZ;
-constexpr int SY = TY + 2, SZ = TZ + 2, NS_SLOTS = (TX + 2) * SY * SZ;
-constexpr int NT = TX * TY * TZ;
-constexpr int TILE_SMEM_BYTES = (3 * NU_SLOTS + 6 * NS_SLOTS + NT) * 4 + NU_SLOTS;
+constexpr int TY = 8, TZ = 32;              // column tile
+constexpr int THREADS = TY * TZ;            // one thread per tile site: 256
+constexpr int UY = TY + 4, UZ = TZ + 4;     // u plane: the tile and a 2-site ring
+constexpr int U_SLOTS = UY * UZ;            // 432
+constexpr int SY = TY + 2, SZ = TZ + 2;     // S plane: the tile and a 1-site ring
+constexpr int S_SLOTS = SY * SZ;            // 340
+constexpr int U_PER_THREAD = (U_SLOTS + THREADS - 1) / THREADS;  // 2
+constexpr int S_PER_THREAD = (S_SLOTS + THREADS - 1) / THREADS;  // 2
+constexpr int S_LAG = 2;                    // step j evaluates S of plane j - 2
+constexpr int F_LAG = 4;                    // and F of plane j - 4
+constexpr int U_PLANES = 6, S_PLANES = 4, RHO_PLANES = 5;
+constexpr int SEG_MAX = 32;                 // x planes a block marches at most
+constexpr int STEP_BLOCKS_PER_SM = 2;       // B10's launch bound
+constexpr int FORCE_BLOCKS_PER_SM = 3;      // B9's
+// Dynamic shared memory: u [U_PLANES][3][U_SLOTS] and S [S_PLANES][6][S_SLOTS]
+// floats, B10's rho [RHO_PLANES][THREADS], the slot tables (the canonical y
+// and z of each u slot, the u slot each S slot reads around), then the mask
+// [U_PLANES][U_SLOTS] bytes.  B9 69 424 B (three blocks per SM), B10 74 544 B
+// (two).
+constexpr int RING_FLOATS = U_PLANES * 3 * U_SLOTS + S_PLANES * 6 * S_SLOTS;
+constexpr int TABLE_INTS = U_SLOTS + S_SLOTS;
+constexpr int FORCE_SMEM_BYTES = (RING_FLOATS + TABLE_INTS) * 4 + U_PLANES * U_SLOTS;
+constexpr int STEP_SMEM_BYTES =
+    (RING_FLOATS + RHO_PLANES * THREADS + TABLE_INTS) * 4 + U_PLANES * U_SLOTS;
 
 // g wrapped (periodic) or clamped into [0, n).
-__device__ __forceinline__ int canonical(int g, int n, bool periodic) {
+__host__ __device__ __forceinline__ int canonical(int g, int n, bool periodic) {
   if (periodic) {
     const int t = g % n;
     return t < 0 ? t + n : t;
@@ -147,93 +184,172 @@ __device__ __forceinline__ int canonical(int g, int n, bool periodic) {
 }
 
 // g clamped into [0, n) on a non-periodic axis, kept on a periodic one.
-__device__ __forceinline__ int clamped(int g, int n, bool periodic) {
+__host__ __device__ __forceinline__ int clamped(int g, int n, bool periodic) {
   return periodic ? g : (g < 0 ? 0 : (g >= n ? n - 1 : g));
 }
 
-// Slot strides along axis a of the u region and of the S region.
-__device__ __forceinline__ int ustride(int a) { return a == 0 ? UY * UZ : (a == 1 ? UZ : 1); }
-__device__ __forceinline__ int sstride(int a) { return a == 0 ? SY * SZ : (a == 1 ? SZ : 1); }
+// The column tiles of a Y x Z plane.
+__host__ __device__ __forceinline__ int column_tiles(int Y, int Z) {
+  return ((Y + TY - 1) / TY) * ((Z + TZ - 1) / TZ);
+}
 
-// A block's tile, its shared arrays carved from the dynamic shared memory.
-struct Tile {
-  float* u;        // [3][NU_SLOTS]: u of each slot of the tile + 2 ring
-  float* S;        // [6][NS_SLOTS]: S of each slot of the tile + 1 ring
-  float* rho;      // [NT]: rho of the tile sites (B10's u* pass)
-  uint8_t* fluid;  // [NU_SLOTS]: map == FLUID of each slot of the u region
-  int o[3];        // the tile's first site
-  int n[3];        // X, Y, Z
+// The SMs of the current device (132, an H100 SXM's, where it cannot be read).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// The x segment of one block: at most SEG_MAX planes, and short enough that
+// the blocks fill the card (blocks_per_sm on every SM) when the column
+// tiles alone do not.
+inline int auto_seg_len(int X, int Y, int Z, int blocks_per_sm) {
+  const int cols = column_tiles(Y, Z);
+  const int segs = std::max(1, std::min(X, (sm_count() * blocks_per_sm + cols - 1) / cols));
+  return std::min(SEG_MAX, (X + segs - 1) / segs);
+}
+
+// A block's march: its rings and slot tables carved from the dynamic shared
+// memory, its tile and its segment.  The slot tables hold what is fixed for
+// the whole march, so that no thread keeps it in registers across the site
+// update.
+struct March {
+  float* u;        // [U_PLANES][3][U_SLOTS]
+  float* S;        // [S_PLANES][6][S_SLOTS]
+  float* rho;      // [RHO_PLANES][THREADS] (B10)
+  int* uyz;        // [U_SLOTS]: canonical y << 16 | z of each u slot
+  int* scu;        // [S_SLOTS]: the u slot at which each S slot's S is taken
+  uint8_t* fluid;  // [U_PLANES][U_SLOTS]: map == FLUID
+  int y0, z0;      // the tile's first site
+  int xs, xe;      // the segment
+  int X, Y, Z;
   bool per[3];     // the hook's periodic axes
 };
 
-__device__ __forceinline__ Tile tile(float* smem, int X, int Y, int Z, int nn_bits) {
-  Tile t;
-  t.u = smem;
-  t.S = t.u + 3 * NU_SLOTS;
-  t.rho = t.S + 6 * NS_SLOTS;
-  t.fluid = reinterpret_cast<uint8_t*>(t.rho + NT);
-  t.o[0] = blockIdx.z * TX;
-  t.o[1] = blockIdx.y * TY;
-  t.o[2] = blockIdx.x * TZ;
-  t.n[0] = X;
-  t.n[1] = Y;
-  t.n[2] = Z;
-  t.per[0] = nn_bits & 1;
-  t.per[1] = nn_bits & 2;
-  t.per[2] = nn_bits & 4;
-  return t;
+// u slot k of thread t: the first pass in order, the second from the end of
+// the S slots' second pass, so that the threads with two u slots are not
+// those with two S slots.
+__device__ __forceinline__ int u_slot_of(int t, int k) { return k * THREADS + t; }
+__device__ __forceinline__ int s_slot_of(int t, int k) {
+  return k == 0 ? t : k * THREADS + (THREADS - 1 - t);
 }
 
-// The canonical global coordinate c of u slot i, and the index j of the
-// tile site it is (-1 on the ring).
-__device__ __forceinline__ void u_slot(const Tile& t, int i, int (&c)[3], int& j) {
-  const int l[3] = {i / (UZ * UY), (i / UZ) % UY, i % UZ};
-  const int T[3] = {TX, TY, TZ};
-  bool in_tile = true;
+// The block's march; fills the slot tables and ends in a block barrier.
+__device__ __forceinline__ March march(void* smem, bool with_rho, int X, int Y, int Z,
+                                       int nn_bits, int seg_len) {
+  March m;
+  m.u = static_cast<float*>(smem);
+  m.S = m.u + U_PLANES * 3 * U_SLOTS;
+  m.rho = m.S + S_PLANES * 6 * S_SLOTS;
+  m.uyz = reinterpret_cast<int*>(m.rho + (with_rho ? RHO_PLANES * THREADS : 0));
+  m.scu = m.uyz + U_SLOTS;
+  m.fluid = reinterpret_cast<uint8_t*>(m.scu + S_SLOTS);
+  m.X = X;
+  m.Y = Y;
+  m.Z = Z;
+  m.per[0] = nn_bits & 1;
+  m.per[1] = nn_bits & 2;
+  m.per[2] = nn_bits & 4;
+  // block b: column tile b mod ncol of segment b / ncol, so the blocks that
+  // run together walk the same x and share their ring rows in L2
+  const int nzt = (Z + TZ - 1) / TZ, ncol = column_tiles(Y, Z);
+  const int col = blockIdx.x % ncol, seg = blockIdx.x / ncol;
+  m.y0 = (col / nzt) * TY;
+  m.z0 = (col % nzt) * TZ;
+  m.xs = seg * seg_len;
+  m.xe = min(m.xs + seg_len, X);
+  for (int i = threadIdx.x; i < U_SLOTS; i += THREADS)
+    m.uyz[i] = canonical(m.y0 + i / UZ - 2, Y, m.per[1]) << 16 |
+               canonical(m.z0 + i % UZ - 2, Z, m.per[2]);
+  for (int i = threadIdx.x; i < S_SLOTS; i += THREADS)
+    m.scu[i] = (clamped(m.y0 + i / SZ - 1, Y, m.per[1]) - m.y0 + 2) * UZ +
+               (clamped(m.z0 + i % SZ - 1, Z, m.per[2]) - m.z0 + 2);
+  __syncthreads();
+  return m;
+}
+
+// The tile site of this thread: (ly, lz), and whether it lies in the domain.
+__device__ __forceinline__ bool tile_site(const March& m, int& ly, int& lz) {
+  ly = threadIdx.x / TZ;
+  lz = threadIdx.x % TZ;
+  return m.y0 + ly < m.Y && m.z0 + lz < m.Z;
+}
+
+// The canonical x of plane p (x = xs - 2 + p) under the hook's periodicity.
+__device__ __forceinline__ int plane_x(const March& m, int p) {
+  return canonical(m.xs - 2 + p, m.X, m.per[0]);
+}
+
+// The tile site of u slot i (-1 on the ring).
+__device__ __forceinline__ int u_tile_site(int i) {
+  const int ly = i / UZ - 2, lz = i % UZ - 2;
+  return ly >= 0 && ly < TY && lz >= 0 && lz < TZ ? ly * TZ + lz : -1;
+}
+
+// u of slot i of plane p (its ring plane) and its fluidity.
+__device__ __forceinline__ void put_u(const March& m, int p, int i, float ux, float uy,
+                                      float uz, bool fluid) {
+  float* u = m.u + (p % U_PLANES) * 3 * U_SLOTS + i;
+  u[0] = ux;
+  u[U_SLOTS] = uy;
+  u[2 * U_SLOTS] = uz;
+  m.fluid[(p % U_PLANES) * U_SLOTS + i] = fluid;
+}
+
+// S of plane q (1 <= q) on this thread's S slots, from u planes q - 1 .. q + 1.
+__device__ __forceinline__ void strain_plane(const March& m, int q) {
+  const float* u[3];
+  const uint8_t* fl[3];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    c[a] = canonical(t.o[a] + l[a] - 2, t.n[a], t.per[a]);
-    in_tile = in_tile && l[a] >= 2 && l[a] < T[a] + 2;
+  for (int d = 0; d < 3; ++d) {
+    u[d] = m.u + ((q - 1 + d) % U_PLANES) * 3 * U_SLOTS;
+    fl[d] = m.fluid + ((q - 1 + d) % U_PLANES) * U_SLOTS;
   }
-  j = in_tile ? ((l[0] - 2) * TY + (l[1] - 2)) * TZ + (l[2] - 2) : -1;
-}
-
-// S on the tile + 1 ring from u and the mask (after a __syncthreads that
-// follows their fill).
-__device__ __forceinline__ void tile_strain(const Tile& t) {
-  for (int i = threadIdx.x; i < NS_SLOTS; i += blockDim.x) {
-    const int l[3] = {i / (SZ * SY), (i / SZ) % SY, i % SZ};
-    int c = 0;
+  float* Sq = m.S + (q % S_PLANES) * 6 * S_SLOTS;
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
-      c += (clamped(t.o[a] + l[a] - 1, t.n[a], t.per[a]) - t.o[a] + 2) * ustride(a);
+  for (int k = 0; k < S_PER_THREAD; ++k) {
+    const int i = s_slot_of(threadIdx.x, k);
+    if (i >= S_SLOTS) continue;
+    const int c = m.scu[i];
+    // neighbour s along axis a: x from the planes, y and z within one
+    auto at = [&](int a, int s) { return a == 0 ? 1 + s : 1; };
+    auto off = [&](int a, int s) { return a == 1 ? s * UZ : (a == 2 ? s : 0); };
     float S[6];
-    strain([&](int b, int a, int s) { return t.u[b * NU_SLOTS + c + s * ustride(a)]; },
-           [&](int a, int s) { return t.fluid[c + s * ustride(a)] != 0; }, S);
+    strain([&](int b, int a, int s) { return u[at(a, s)][b * U_SLOTS + c + off(a, s)]; },
+           [&](int a, int s) { return fl[at(a, s)][c + off(a, s)] != 0; }, S);
 #pragma unroll
-    for (int k = 0; k < 6; ++k) t.S[k * NS_SLOTS + i] = S[k];
+    for (int e = 0; e < 6; ++e) Sq[e * S_SLOTS + i] = S[e];
   }
 }
 
-// The global coordinate c of tile site j; false when it lies outside the
-// domain (a ragged tile).
-__device__ __forceinline__ bool tile_site(const Tile& t, int j, int (&c)[3]) {
-  c[0] = t.o[0] + j / (TZ * TY);
-  c[1] = t.o[1] + (j / TZ) % TY;
-  c[2] = t.o[2] + j % TZ;
-  return c[0] < t.n[0] && c[1] < t.n[1] && c[2] < t.n[2];
-}
-
-// F at tile site j with density rho (after a __syncthreads that follows
-// tile_strain).
-__device__ __forceinline__ void tile_force(const Tile& t, const Rheology& r, int j, float rho,
-                                           float (&F)[3]) {
-  const int lx = j / (TZ * TY), ly = (j / TZ) % TY, lz = j % TZ;
-  const int cs = ((lx + 1) * SY + (ly + 1)) * SZ + (lz + 1);
-  const int cu = ((lx + 2) * UY + (ly + 2)) * UZ + (lz + 2);
-  force(r, [&](int k, int a, int s) { return t.S[k * NS_SLOTS + cs + s * sstride(a)]; },
-        [&](int a, int s) { return t.fluid[cu + s * ustride(a)] != 0; }, t.fluid[cu] != 0, rho,
-        F);
+// F at tile site (ly, lz) of plane p (x = xs - 2 + p, in the domain) with
+// density rho.
+__device__ __forceinline__ void force_at(const March& m, const Rheology& r, int p, int x, int ly,
+                                         int lz, float rho, float (&F)[3]) {
+  // along x the S neighbours of a closed face are the face plane itself
+  const int pm = (!m.per[0] && x == 0) ? p : p - 1;
+  const int pp = (!m.per[0] && x == m.X - 1) ? p : p + 1;
+  const float* S[3] = {m.S + (pm % S_PLANES) * 6 * S_SLOTS, m.S + (p % S_PLANES) * 6 * S_SLOTS,
+                       m.S + (pp % S_PLANES) * 6 * S_SLOTS};
+  const uint8_t* fl[3] = {m.fluid + ((p - 1) % U_PLANES) * U_SLOTS,
+                          m.fluid + (p % U_PLANES) * U_SLOTS,
+                          m.fluid + ((p + 1) % U_PLANES) * U_SLOTS};
+  const int cs = (ly + 1) * SZ + (lz + 1);
+  const int cu = (ly + 2) * UZ + (lz + 2);
+  auto at = [&](int a, int s) { return a == 0 ? 1 + s : 1; };
+  force(r,
+        [&](int k, int a, int s) {
+          return S[at(a, s)][k * S_SLOTS + cs + (a == 1 ? s * SZ : (a == 2 ? s : 0))];
+        },
+        [&](int a, int s) {
+          return fl[at(a, s)][cu + (a == 1 ? s * UZ : (a == 2 ? s : 0))] != 0;
+        },
+        fl[1][cu] != 0, rho, F);
 }
 
 }  // namespace nn

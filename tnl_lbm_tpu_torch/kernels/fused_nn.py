@@ -25,6 +25,8 @@ from tnl_lbm_tpu_torch.sim.config import Domain
 
 #: the ``model`` codes of the C entries (csrc/nn_site.cuh)
 _MODELS = {CarreauYasuda: 0, Casson: 1}
+#: keys of :func:`nn_geometry` (csrc/nn_force.cu tnl_lbm_nn_info)
+_GEOMETRY_KEYS = ("smem_bytes", "ty", "tz", "seg_len", "segments", "columns", "blocks_per_sm")
 
 
 def rheology_args(model, nu) -> tuple:
@@ -47,18 +49,46 @@ def nn_bits(periodic) -> int:
     return _periodic_bits(periodic or (False, False, False))
 
 
+def check_seg_len(seg_len):
+    """``seg_len`` as given, or ValueError unless it is None or a positive
+    number of x planes."""
+    if seg_len is not None and seg_len < 1:
+        raise ValueError(f"seg_len must be a positive number of x planes, got {seg_len}")
+    return seg_len
+
+
+def nn_geometry(kind: int, shape, seg_len=None) -> dict:
+    """The launch geometry of B9 (``kind`` 0) or B10 (1) at ``shape``:
+    shared memory per block, column tile, x segment length and count,
+    column tiles and the launch's blocks per SM (the x segment is the
+    kernel's own choice unless ``seg_len`` is set).  Needs the kernel
+    library (a CUDA machine)."""
+    out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
+    rc = load_library().tnl_lbm_nn_info(kind, *shape, out)
+    if rc != 0:
+        raise RuntimeError(f"tnl_lbm_nn_info failed: {rc}")
+    geo = dict(zip(_GEOMETRY_KEYS, out))
+    if seg_len is not None:
+        geo.update(seg_len=seg_len, segments=-(-shape[0] // seg_len))
+    return geo
+
+
 class NNForce:
     """``force(rho, u, nu) -> F [3, X, Y, Z]``: the NN body force of a
     Carreau-Yasuda or Casson ``model`` on a D3Q27 domain, with the stencil
     periodicity ``periodic``.  ``kernel`` counts the launches,
-    ``plain_calls`` the CPU-path calls."""
+    ``plain_calls`` the CPU-path calls.  ``seg_len`` is the x extent each
+    block of the kernel marches (None: the kernel's own choice); the result
+    does not depend on it."""
 
-    def __init__(self, model, domain: Domain, device, periodic=None):
+    def __init__(self, model, domain: Domain, device, periodic=None,
+                 seg_len: int | None = None):
         if domain.lat.D != 3:
             raise NotImplementedError("the NN force kernel is 3D; a 2D hook runs as plain "
                                       "tensor ops (kernels/hooked.py)")
         rheology_args(model, 0.0)  # refuses another model at build time
         self.model = model
+        self.seg_len = check_seg_len(seg_len)
         self.periodic = None if periodic is None else tuple(bool(p) for p in periodic)
         self.device = torch.device(device)
         self.shape = domain.shape
@@ -75,6 +105,10 @@ class NNForce:
 
     def reset_counts(self) -> None:
         self.kernel.launches = self.plain_calls = 0
+
+    def geometry(self) -> dict:
+        """The kernel's launch geometry at this shape (:func:`nn_geometry`)."""
+        return nn_geometry(0, self.shape, self.seg_len)
 
     def __call__(self, rho, u, nu):
         if rho.device.type == "cuda":
@@ -103,17 +137,20 @@ class NNForce:
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(rho.device).cuda_stream)
         rc = lib.tnl_lbm_nn_force(rho.data_ptr(), u.data_ptr(), self.map.data_ptr(),
                                   out.data_ptr(), X, Y, Z, nn_bits(self.periodic),
-                                  *rheology_args(self.model, nu), stream_ptr)
+                                  *rheology_args(self.model, nu), self.seg_len or 0,
+                                  stream_ptr)
         if rc != 0:
             raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
         self.kernel.launches += 1
         return out
 
 
-def make_nn_force_kernel(model, domain: Domain, device, periodic=None) -> NNForce:
-    """The NN force of ``model`` on ``domain``: see :class:`NNForce`.  The
+def make_nn_force_kernel(model, domain: Domain, device, periodic=None,
+                         seg_len: int | None = None) -> NNForce:
+    """The NN force of ``model`` on ``domain``: see :class:`NNForce`
+    (``seg_len``: the kernel's x segment, a knob of the port's own).  The
     JAX function's ``dtype`` is the kernel's float32 and its static
     ``fluid_mask`` is ``map == FLUID``, read by the kernel from the map;
     its TPU knobs (``tile``, ``tiles_per_program``) shape VMEM windows and
     have no counterpart here."""
-    return NNForce(model, domain, device, periodic=periodic)
+    return NNForce(model, domain, device, periodic=periodic, seg_len=seg_len)

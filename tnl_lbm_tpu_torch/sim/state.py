@@ -346,12 +346,18 @@ class Simulation:
 
     def time_pair_routes(self, pairs: int = 10, chains: int = 5) -> tuple[float, float]:
         """Milliseconds per pair of (a) the pair kernel and (b) an even and an
+        odd launch, as a run dispatches them: the median of each route's
+        chains in :meth:`time_pair_chains`."""
+        return tuple(float(np.median(t)) for t in self.time_pair_chains(pairs, chains))
+
+    def time_pair_chains(self, pairs: int = 10, chains: int = 5) -> tuple[list, list]:
+        """Milliseconds per pair of (a) the pair kernel and (b) an even and an
         odd launch, as a run dispatches them (the pair ping-pongs two
-        buffers; the steps go through this run's step): the median, over
+        buffers; the steps go through this run's step), per chain:
         ``chains`` chains of ``pairs`` pairs of each route, the two routes
-        in turn after one chain each of warm-up, of CUDA events around a
-        chain, so the host's launch time counts where it exceeds the
-        kernels'.  Each route runs on its own copy of a seeded
+        in turn after one chain each of warm-up, each timed with CUDA events
+        around the chain, so the host's launch time counts where it exceeds
+        the kernels'.  Each route runs on its own copy of a seeded
         near-equilibrium state (rho 1 +- 0.01, |u| ~ 0.02), not the run's:
         at rest every DF deviation is zero, and there the pair kernel ran
         13% slower than on a developed flow on an H100 (PERF.md).  The
@@ -393,7 +399,7 @@ class Simulation:
 
         run_pairs(), run_steps()  # warm up (the first launch loads the library)
         times = [(timed(run_pairs), timed(run_steps)) for _ in range(chains)]
-        return tuple(float(np.median(t)) for t in zip(*times))
+        return tuple(list(t) for t in zip(*times))
 
     def sim_init(self):
         if self.flags.exists("loadstate"):
