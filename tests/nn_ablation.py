@@ -10,21 +10,25 @@ variant, all started together, into ``build/nn_ablation/`` or ``--out``)
 and times each at 256^3 on the hooked bench duct on CUDA events, every
 variant in the same process, so that they compare on one card:
 
-- B10 (A-B, A-A even, A-A odd): the kernel; at one block per SM (255
-  registers, no spill); with 16 x 32 column tiles (512 threads, one block
-  per SM); the kernel at x segments of 8, 16 and 64 planes against its own
-  32.  A-B only: the tile sites' DFs kept in shared memory from their u*
-  pull for the site update (one block per SM) in place of the second pull;
-  without the site update (F is computed and stored); the site update alone
-  (no u*, no S, F = 0); the u* pass alone.
-- B9: the kernel; with each plane's loads stored into the ring before the
-  step's S and F (not prefetched past them); with 16 x 32 column tiles; at
-  x segments of 8, 16 and 64; the loads and stores alone (no S, no F).
+- B10 (A-B, A-A even, A-A odd): the kernel; every warp in the same order
+  (u*, S, then the update) in place of every other warp updating first
+  (unstaggered); u* of a thread's two u slots unrolled (both slots' pulls in
+  flight); 16 x 32 column tiles (512 threads, one block per SM), and that
+  unstaggered and unrolled; the kernel at x segments of 16 and 64 planes
+  against its own 32; without the site update (u*, S and F alone) and the
+  site update alone (no u*, no S, F = 0).
+- B9: the kernel; the mask and rho loaded in the step that uses them in
+  place of a step before (unprefetched); u copied one plane ahead and three
+  (a ring one plane deeper) in place of two; 16 x 32 column tiles (one
+  block per SM); x segments of 8, 16 and 64; the copies, loads and stores
+  alone (no S, no F).
 
 Every variant that keeps the function is first checked bit-equal to the
 committed kernel (the package's build); variants that drop work compute
-wrong values and are timed only.  Prints the card's name and power limit
-first, then one JSON line per variant.  Needs one CUDA card and nvcc.
+wrong values and are timed only.  The hooked pipeline (u* pass, B9,
+force_field step) is timed on the same state per mode, the yardstick of
+the one-kernel route.  Prints the card's name and power limit first, then
+one JSON line per variant.  Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -43,58 +47,19 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from tnl_lbm_tpu_torch.kernels.build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc, kernel_resources
 
 # anchors in the sources (edit them together with the kernels)
-BLOCKS_STEP = "constexpr int STEP_BLOCKS_PER_SM = 2;"
-BLOCKS_FORCE = "constexpr int FORCE_BLOCKS_PER_SM = 3;"
 TILE = "constexpr int TY = 8, TZ = 32;"
-STEP_SMEM = "    (RING_FLOATS + RHO_PLANES * THREADS + TABLE_INTS) * 4 + U_PLANES * U_SLOTS;"
-USTAR_PASS = "    if (j < L + 4) {\n      const int x = nn::plane_x(mr, j);"
-TRANSFORM = "        pull_transform_ab(v, m);\n        float r, ux, uy, uz;"
-STRAIN_STEP = "    if (q >= 1 && q <= L + 2) nn::strain_plane(mr, q);"
-STRAIN_FORCE = "    if (q >= 1 && q <= L + 2) nn::strain_plane(m, q);"
-UPDATE = "    if (p >= 2 && p <= L + 1 && nn::tile_site(mr, ly, lz)) {"
-FORCE_STEP = ("      nn::force_at(mr, P.r, p, x, ly, lz, mr.rho[(p % nn::RHO_PLANES) * nn::THREADS"
-              " + threadIdx.x],\n                   F);")
-FORCE_B9 = "      nn::force_at(m, r, p, x, ly, lz, rho[s], out);"
-AB_SITE = ("        ab_site<WELL, EQ>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits, ps,"
-           " ux, uy,\n                          uz);")
-PUT = ("    if (load) {\n#pragma unroll\n      for (int k = 0; k < nn::U_PER_THREAD; ++k) {\n"
-       "        const int i = nn::u_slot_of(threadIdx.x, k);\n"
-       "        if (i < nn::U_SLOTS) nn::put_u(")
-B9_Q = "    const int q = j - nn::S_LAG;\n    if (q >= 1 && q <= L + 2) nn::strain_plane(m, q);"
-
-# the tile sites' DFs in shared memory, after the mask: [RHO_PLANES][Q][THREADS]
-DFS = "reinterpret_cast<float*>(mr.fluid + nn::U_PLANES * nn::U_SLOTS)"
-KEEP_STORE = f"""        {{
-          const int ts0 = nn::u_tile_site(i);
-          if (ts0 >= 0) {{
-            float* d = {DFS} + (j % nn::RHO_PLANES) * Q * nn::THREADS + ts0;
-#pragma unroll
-            for (int q = 0; q < Q; ++q) d[q * nn::THREADS] = v[q];
-          }}
-        }}
-"""
-KEEP_UPDATE = f"""        {{
-          const int64_t site = ((int64_t)x * Y + y) * Z + z;
-          const uint8_t m = map[site];
-          float r = 1.0f;
-          ux = uy = uz = 0.0f;
-          if (m == GEO_NOTHING) {{
-#pragma unroll
-            for (int q = 0; q < Q; ++q) fout[q * N + site] = f[q * N + site];
-          }} else {{
-            const float* d = {DFS} + (p % nn::RHO_PLANES) * Q * nn::THREADS + threadIdx.x;
-            float v[Q];
-#pragma unroll
-            for (int q = 0; q < Q; ++q) v[q] = d[q * nn::THREADS];
-            site_collide<WELL, EQ>(v, m, ps, r, ux, uy, uz);
-#pragma unroll
-            for (int q = 0; q < Q; ++q) fout[q * N + site] = v[q];
-          }}
-          rho_out[site] = r;
-          u_out[site] = ux;
-          u_out[N + site] = uy;
-          u_out[2 * N + site] = uz;
-        }}"""
+BLOCKS = ("constexpr int STEP_BLOCKS_PER_SM = 2;", "constexpr int FORCE_BLOCKS_PER_SM = 3;")
+RINGS = "constexpr int U_PLANES = 6, S_PLANES = 4, RHO_PLANES = 5;"
+AHEAD = "constexpr int U_AHEAD = 2;"
+STAGGER = "const bool update_first = (t / 32) & 1;"
+U_LOOP = "#pragma unroll 1\n          for (int k = 0; k < U_PASSES; ++k) {"
+USTAR_PASS = "        if (j < L + 4) {\n          const int xu"
+STRAIN_STEP = "        if (q >= 1 && q <= L + 2) nn::strain_plane<nn::THREADS>(mr, q, t);"
+UPDATE = "      if (p < 2 || p > L + 1 || !mine) continue;"
+FORCE_STEP = "      float F[3];\n      nn::force_at("
+MASK_NEXT = "    load_mask(j + 1, fl_next);\n    const float rho_next = load_rho(j + 1);"
+STRAIN_FORCE = "    if (q >= 1 && q <= L + 2) nn::strain_plane<nn::THREADS>(m, q, threadIdx.x);"
+FORCE_B9 = "      nn::force_at(m, r, p, m.xs + p - 2, ly, lz, rho_s, out);"
 
 
 def _swap(src: str, *pairs) -> str:
@@ -118,47 +83,51 @@ def variants(site: str, step: str, force: str) -> dict:
     """name -> (nn_site.cuh, nn_step.cu, nn_force.cu, what it keeps: "same"
     or "dropped work")."""
     step = well_only(step)
-    tile16 = (_swap(site, (TILE, TILE.replace("TY = 8", "TY = 16")),
-                    (BLOCKS_STEP, BLOCKS_STEP.replace("2", "1")),
-                    (BLOCKS_FORCE, BLOCKS_FORCE.replace("3", "1"))), step, force, "same")
-    keep_site = _swap(site, (BLOCKS_STEP, BLOCKS_STEP.replace("2", "1")),
-                      (STEP_SMEM, STEP_SMEM.replace(";", " + RHO_PLANES * 27 * THREADS * 4;")))
-    keep_step = _swap(step, (TRANSFORM, KEEP_STORE + TRANSFORM), (AB_SITE, KEEP_UPDATE))
-    no_force_step = (FORCE_STEP, "      F[0] = F[1] = F[2] = 0.0f;")
+    off = lambda anchor, cond: (anchor, anchor.replace(cond, "false && " + cond, 1))  # noqa: E731
+    tile16 = _swap(site, (TILE, TILE.replace("TY = 8", "TY = 16")),
+                   *((b, b.replace(b[-2], "1")) for b in BLOCKS))
+    unstaggered = _swap(step, (STAGGER, "const bool update_first = false;"))
+    unrolled = _swap(step, (U_LOOP, U_LOOP.replace("unroll 1", "unroll")))
     return {
         "kernel": (site, step, force, "same"),
-        "one_block_per_sm": (_swap(site, (BLOCKS_STEP, BLOCKS_STEP.replace("2", "1"))), step,
-                             force, "same"),
-        "tile_16x32": tile16,
-        "keep_dfs": (keep_site, keep_step, force, "same"),
-        "no_update": (site, _swap(step, (AB_SITE, "        rho_out[((int64_t)x * Y + y) * Z + z]"
-                                                  " = ps.fx + ps.fy + ps.fz;")), force,
+        "unstaggered": (site, unstaggered, force, "same"),
+        "u_unrolled": (site, unrolled, force, "same"),
+        "tile_16x32": (tile16, step, force, "same"),
+        "tile_16x32_unstaggered": (tile16, unstaggered, force, "same"),
+        "tile_16x32_u_unrolled": (tile16, unrolled, force, "same"),
+        "no_update": (site, _swap(step, (UPDATE, "      if (true) continue;")), force,
                       "dropped work"),
-        "update_only": (site, _swap(step, (USTAR_PASS, USTAR_PASS.replace("(j <", "(false && j <")),
-                                    (STRAIN_STEP, STRAIN_STEP.replace("(q >=", "(false && q >=")),
-                                    no_force_step), force, "dropped work"),
-        "ustar_only": (site, _swap(step, (STRAIN_STEP, STRAIN_STEP.replace("(q >=", "(false && q >=")),
-                                   (UPDATE, UPDATE.replace("(p >=", "(false && p >="))), force,
-                       "dropped work"),
-        "b9_unprefetched": (site, step, _swap(force, (PUT, PUT.replace("if (load)", "if (false)")),
-                                              (B9_Q, PUT.replace("nn::put_u(", "nn::put_u(m, j, i, "
-                                                                 "uv[k][0], uv[k][1], uv[k][2], "
-                                                                 "fl[k]);\n      }\n    }\n")
-                                               + B9_Q)), "same"),
-        "b9_memory_only": (site, step, _swap(force, (STRAIN_FORCE, STRAIN_FORCE.replace(
-            "(q >=", "(false && q >=")), (FORCE_B9, "      out[0] = rho[s];\n      out[1] = out[2]"
-                                                    " = 0.0f;")), "dropped work"),
+        "update_only": (site, _swap(step, off(USTAR_PASS, "j < L + 4"),
+                                    off(STRAIN_STEP, "q >= 1"),
+                                    (FORCE_STEP, "      float F[3] = {0.0f, 0.0f, 0.0f};\n"
+                                                 "      if (false) nn::force_at(")),
+                        force, "dropped work"),
+        "b9_unprefetched": (site, step, _swap(force, (MASK_NEXT, "    load_mask(j, fl);\n"
+                                                                 "    rho_s = load_rho(j);\n"
+                                                                 "    const float rho_next = 0.0f;")),
+                            "same"),
+        "b9_ahead_1": (_swap(site, (AHEAD, AHEAD.replace("2", "1"))), step, force, "same"),
+        "b9_ahead_3": (_swap(site, (AHEAD, AHEAD.replace("2", "3")),
+                             (RINGS, RINGS.replace("U_PLANES = 6", "U_PLANES = 7"))), step, force,
+                       "same"),
+        "b9_tile_16x32": (tile16, step, force, "same"),
+        "b9_memory_only": (site, step, _swap(force, off(STRAIN_FORCE, "q >= 1"),
+                                             (FORCE_B9, "      out[0] = rho_s;\n      out[1] = out[2]"
+                                                        " = 0.0f;")), "dropped work"),
     }
 
 
 # which kernels each variant is timed on
-B10_MODES = {"kernel": (0, 1, 2), "one_block_per_sm": (0, 1, 2), "tile_16x32": (0, 1, 2),
-             "keep_dfs": (0,), "no_update": (0,), "update_only": (0,), "ustar_only": (0,)}
-B9_VARIANTS = ("kernel", "tile_16x32", "b9_unprefetched", "b9_memory_only")
+B10_MODES = {name: (0, 1, 2) for name in ("kernel", "unstaggered", "u_unrolled", "tile_16x32",
+                                           "tile_16x32_unstaggered", "tile_16x32_u_unrolled",
+                                           "no_update", "update_only")}
+B9_VARIANTS = ("kernel", "b9_unprefetched", "b9_ahead_1", "b9_ahead_3", "b9_tile_16x32",
+               "b9_memory_only")
 
 
 def build(out: Path, table: dict) -> dict:
-    """name -> (library, ptxas resources, kind) of every variant."""
+    """name -> (library, ptxas resources, kind) of every variant that builds;
+    a variant that does not is reported and left out."""
     procs = {}
     for name, (site, step, force, kind) in table.items():
         d = out / name
@@ -175,7 +144,8 @@ def build(out: Path, table: dict) -> dict:
     for name, (d, kind, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            print(json.dumps({"variant": name, "build": "failed", "log": log[-2000:]}), flush=True)
+            continue
         libs[name] = (ctypes.CDLL(str(d / "lib.so")), kernel_resources(log), kind)
     return libs
 
@@ -205,6 +175,7 @@ def main(argv=None) -> int:
     from tnl_lbm_tpu_torch.kernels.build import load_library
     from tnl_lbm_tpu_torch.kernels.fused import _periodic_bits
     from tnl_lbm_tpu_torch.kernels.fused_nn import nn_bits, rheology_args
+    from tnl_lbm_tpu_torch.kernels.hooked import make_hooked_fused_step
     from tnl_lbm_tpu_torch.ops.boundary import GEO
     from tnl_lbm_tpu_torch.ops.non_newtonian import CarreauYasuda, make_nn_forcing_hook
 
@@ -252,13 +223,27 @@ def main(argv=None) -> int:
             raise RuntimeError(f"nn_step: CUDA error {rc}")
 
     modes = ("ab", "even", "odd")
+    # the pipeline's step on the same state (u* pass, B9, force_field step),
+    # the one-kernel route's yardstick
+    for streaming, parity in (("AB", 0), ("AA", 0), ("AA", 1)):
+        pcfg = dataclasses.replace(cfg, streaming=streaming)
+        pipe = make_hooked_fused_step(pcfg, dom, dev, single_kernel=False)
+        work = f0.clone()
+        out = torch.empty_like(f0) if streaming == "AB" else None
+        ms = time_ms(lambda: pipe(work, nu, force=force, parity=parity, out=out))
+        print(json.dumps({"kernel": "pipeline", "mode": modes[parity + (streaming == "AA")],
+                          "ms": ms}), flush=True)
+        del pipe, work, out
+    torch.cuda.empty_cache()
     ref = {}
     for mode in range(3):
         b10(load_library(), mode, 0)
         ref[mode] = (fout.clone(), r_out.clone(), u_out.clone())
     runs = [(name, mode, 0) for name, ms in B10_MODES.items() for mode in ms]
-    runs += [("kernel", mode, seg) for seg in (8, 16, 64) for mode in range(3)]
+    runs += [("kernel", mode, seg) for seg in (16, 64) for mode in range(3)]
     for name, mode, seg in runs:
+        if name not in libs:
+            continue
         lib, res, what = libs[name]
         b10(lib, mode, seg)
         torch.cuda.synchronize()
@@ -286,6 +271,8 @@ def main(argv=None) -> int:
     b9(load_library(), 0)
     want = F.clone()
     for name, seg in [(n, 0) for n in B9_VARIANTS] + [("kernel", s) for s in (8, 16, 64)]:
+        if name not in libs:
+            continue
         lib, res, what = libs[name]
         b9(lib, seg)
         torch.cuda.synchronize()

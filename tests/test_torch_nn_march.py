@@ -67,64 +67,69 @@ def wall_aware(gp, gm, c, flp, flm):
                     np.where(flp, gp - c, np.where(flm, c - gm, 0.0)))
 
 
-def thread_slots(slots, per_thread, slot_of):
-    """Each thread's slots of one plane (nn_site.cuh u_slot_of, s_slot_of),
-    those below ``slots``, in thread order."""
-    t = np.arange(K["THREADS"])
-    got = np.concatenate([slot_of(t, k) for k in range(per_thread)])
+def thread_slots(slots, NT, slot_of):
+    """The slots of one plane that NT threads take (nn_site.cuh passes,
+    u_slot_of, s_slot_of), in thread order."""
+    t = np.arange(NT)
+    got = np.concatenate([slot_of(t, k, NT) for k in range(-(-slots // NT))])
     return got[got < slots]
 
 
-def u_slot_of(t, k):
-    return k * K["THREADS"] + t
+def u_slot_of(t, k, NT):
+    return k * NT + t
 
 
-def s_slot_of(t, k):
-    return t if k == 0 else k * K["THREADS"] + (K["THREADS"] - 1 - t)
+def s_slot_of(t, k, NT):
+    return t if k == 0 else k * NT + (NT - 1 - t)
 
 
 class Ring:
     """A ring of planes in shared memory: which plane each holds, the step
-    that wrote it and the last step that read it."""
+    whose barrier makes it readable and the last step that read it."""
 
     def __init__(self, name, planes, shape):
         self.name = name
         self.data = np.full((planes,) + shape, np.nan)
         self.plane = [None] * planes
-        self.written = [None] * planes
-        self.last_read = [-1] * planes
-        self.events = []  # (ring, written at, previous content last read at)
+        self.ready = [None] * planes
+        self.last_read = [-(10**9)] * planes
+        self.events = []  # (ring, written from step, previous content last read at)
 
-    def write(self, p, step, value):
+    def write(self, p, step, value, ready=None):
+        """Plane p written from ``step`` on (an async copy lands by the
+        barrier of step ``ready``; a store by its own step's)."""
         b = p % len(self.plane)
         self.events.append((self.name, step, self.last_read[b]))
         self.data[b] = value
-        self.plane[b], self.written[b], self.last_read[b] = p, step, -1
+        self.plane[b], self.ready[b] = p, step if ready is None else ready
+        self.last_read[b] = -(10**9)
 
     def read(self, p, step):
         b = p % len(self.plane)
-        # the plane is there, written before the barrier that ended an
+        # the plane is there, made readable by the barrier that ended an
         # earlier step (one block barrier a step, none within)
-        assert self.plane[b] == p and self.written[b] < step, (self.name, p, step)
+        assert self.plane[b] == p and self.ready[b] < step, (self.name, p, step)
         self.last_read[b] = max(self.last_read[b], step)
         return self.data[b]
 
 
-def march(u, rho, fluid, hook_per, seg_len, model):
+def march(u, rho, fluid, hook_per, seg_len, model, kernel="force"):
     """The march of nn_site.cuh over every block: F [3, X, Y, Z], how often
     each site was the tile's, and each ring's (write step, previous
-    content's last read step) events.  ``u`` and ``rho`` are the u ring's
-    and the rho ring's sources (B9: u and rho; B10: u* and rho0), float64."""
+    content's last read step) events.  ``u`` and ``rho`` are the sources of
+    the u ring and of F's rho, float64.  ``kernel`` "force" is B9's march: u
+    staged by async copies U_AHEAD planes ahead, rho from global memory, F
+    stored by the step; "step" is B10's: u* and rho0 computed into their
+    rings in the step, F taken by the site update in the same step."""
     TY, TZ, UY, UZ, SY, SZ = (K[n] for n in ("TY", "TZ", "UY", "UZ", "SY", "SZ"))
-    SL, FL = K["S_LAG"], K["F_LAG"]
+    SL, FL, UA = K["S_LAG"], K["F_LAG"], K["U_AHEAD"]
     X, Y, Z = fluid.shape
     px, py, pz = hook_per
     F = np.full((3, X, Y, Z), np.nan)
     count = np.zeros((X, Y, Z), np.int64)
     events = []
-    u_slots = thread_slots(K["U_SLOTS"], K["U_PER_THREAD"], u_slot_of)
-    s_slots = thread_slots(K["S_SLOTS"], K["S_PER_THREAD"], s_slot_of)
-    assert sorted(u_slots) == list(range(UY * UZ)) and sorted(s_slots) == list(range(SY * SZ))
+    assert sorted(thread_slots(K["U_SLOTS"], K["THREADS"], u_slot_of)) == list(range(UY * UZ))
+    assert sorted(thread_slots(K["S_SLOTS"], K["THREADS"], s_slot_of)) == list(range(SY * SZ))
     nzt = -(-Z // TZ)
     for col in range(-(-Y // TY) * nzt):
         y0, z0 = (col // nzt) * TY, (col % nzt) * TZ
@@ -136,32 +141,47 @@ def march(u, rho, fluid, hook_per, seg_len, model):
         sz = clamped(z0 + np.arange(SZ) - 1, Z, pz) - z0 + 2
         ly, lz = np.arange(TY), np.arange(TZ)
         mine_y, mine_z = y0 + ly < Y, z0 + lz < Z
+        yy, zz = (y0 + ly)[mine_y], (z0 + lz)[mine_z]
         for xs in range(0, X, seg_len):
             L = min(xs + seg_len, X) - xs
             ru = Ring("u", K["U_PLANES"], (3, UY, UZ))
             rf = Ring("mask", K["U_PLANES"], (UY, UZ))
             rs = Ring("S", K["S_PLANES"], (6, SY, SZ))
             rr = Ring("rho", K["RHO_PLANES"], (TY, TZ))
+
+            def u_plane(p):
+                return u[:, canonical(xs - 2 + p, X, px)][:, uy][:, :, uz]
+
+            if kernel == "force":  # the copies issued before step 0
+                for p in range(UA):
+                    ru.write(p, p - UA, u_plane(p), ready=p)
             for j in range(L + FL + 2):
-                if j < L + 4:  # u, the mask and rho of plane j
+                if kernel == "force" and j + UA < L + 4:  # u of plane j + U_AHEAD, copied
+                    ru.write(j + UA, j, u_plane(j + UA), ready=j + UA)
+                if j < L + 4:  # u* (B10), the mask and rho0 (B10) of plane j
                     x = canonical(xs - 2 + j, X, px)
-                    ru.write(j, j, u[:, x][:, uy][:, :, uz])
+                    if kernel == "step":
+                        ru.write(j, j, u_plane(j))
+                        rr.write(j, j, rho[x][uy[2:2 + TY]][:, uz[2:2 + TZ]])
                     rf.write(j, j, fluid[x][uy][:, uz])
-                    rr.write(j, j, rho[x][uy[2:2 + TY]][:, uz[2:2 + TZ]])
                 q = j - SL
                 if 1 <= q <= L + 2:  # S of plane q
                     up = [ru.read(q + d, j) for d in (-1, 0, 1)]
                     fp = [rf.read(q + d, j) for d in (-1, 0, 1)]
                     rs.write(q, j, strain(up, fp, sy, sz))
                 p = j - FL
-                if 2 <= p <= L + 1:  # F of plane p
-                    x = xs + p - 2
+                if 2 <= p <= L + 1:  # F of plane p (x = xs + k)
+                    k = p - 2
+                    x = xs + k
                     pm = p if (not px and x == 0) else p - 1
                     pp = p if (not px and x == X - 1) else p + 1
                     S = [rs.read(pm, j), rs.read(p, j), rs.read(pp, j)]
                     fl = [rf.read(p + d, j) for d in (-1, 0, 1)]
-                    Fp = force(S, fl, rr.read(p, j), model)
-                    yy, zz = (y0 + ly)[mine_y], (z0 + lz)[mine_z]
+                    if kernel == "force":  # rho from global memory
+                        rho_p = rho[x][canonical(y0 + ly, Y, py)][:, canonical(z0 + lz, Z, pz)]
+                    else:  # rho0 from its ring
+                        rho_p = rr.read(p, j)
+                    Fp = force(S, fl, rho_p, model)
                     F[:, x, yy[:, None], zz[None, :]] = Fp[:, mine_y][:, :, mine_z]
                     count[x, yy[:, None], zz[None, :]] += 1
             for r in (ru, rf, rs, rr):
@@ -236,19 +256,23 @@ def seeded_map(shape, seed):
     return rng.choice(np.array([GEO.FLUID] * 6 + [GEO.WALL, GEO.INFLOW], np.uint8), shape)
 
 
+#: the marches the model runs: B9's and B10's
+MARCHES = ("force", "step")
+
+
 def check_march(shape, hook_per, seg_len, model, seed=3):
     m = seeded_map(shape, seed)
     rho, u = (a.astype(np.float64) for a in nn_state(shape, seed))
     fluid = m == GEO.FLUID
-    F, count, events = march(u, rho, fluid, hook_per, seg_len, model)
-    assert (count == 1).all()
-    # every ring plane rewritten only after the barrier that ended its last
-    # reader's step
-    assert all(read < written for _, written, read in events), \
-        [e for e in events if e[2] >= e[1]][:5]
     want = plain_hook(model, hook_per, rho, u, fluid)
-    np.testing.assert_allclose(F, want, rtol=0, atol=1e-12 * np.abs(want).max())
-    return F
+    for kernel in MARCHES:
+        F, count, events = march(u, rho, fluid, hook_per, seg_len, model, kernel)
+        assert (count == 1).all(), kernel
+        # every ring plane rewritten only after the barrier that ended its
+        # last reader's step
+        assert all(read < written for _, written, read in events), \
+            [e for e in events if e[2] >= e[1]][:5]
+        np.testing.assert_allclose(F, want, rtol=0, atol=1e-12 * np.abs(want).max())
 
 
 _PERIODIC = list(itertools.product([False, True], repeat=3))
@@ -260,8 +284,6 @@ def test_march_constants():
     assert K["THREADS"] == K["TY"] * K["TZ"] and K["THREADS"] % 32 == 0
     assert (K["UY"], K["UZ"], K["SY"], K["SZ"]) == (K["TY"] + 4, K["TZ"] + 4, K["TY"] + 2,
                                                     K["TZ"] + 2)
-    assert K["U_PER_THREAD"] * K["THREADS"] >= K["U_SLOTS"]
-    assert K["S_PER_THREAD"] * K["THREADS"] >= K["S_SLOTS"]
     assert (K["FORCE_SMEM_BYTES"], K["STEP_SMEM_BYTES"]) == (69424, 74544)
     assert K["STEP_BLOCKS_PER_SM"] * K["STEP_SMEM_BYTES"] <= 227 * 1024
     assert K["FORCE_BLOCKS_PER_SM"] * K["FORCE_SMEM_BYTES"] <= 227 * 1024
@@ -347,22 +369,25 @@ def test_march_uses_the_hooks_periodicity_for_b10():
     rho0, u0, fluid = step.ustar(f, force=(1e-5, 0.0, 0.0))
     rho0, u0 = rho0.double().numpy(), u0.double().numpy()
     fluid = fluid.numpy()
-    F, count, events = march(u0, rho0, fluid, hook_per, 4, NN_MODELS[model])
-    assert (count == 1).all() and all(read < written for _, written, read in events)
     want = plain_hook(NN_MODELS[model], hook_per, rho0, u0, fluid)
+    F, count, events = march(u0, rho0, fluid, hook_per, 4, NN_MODELS[model], "step")
+    assert (count == 1).all() and all(read < written for _, written, read in events)
     np.testing.assert_allclose(F, want, rtol=0, atol=1e-12 * np.abs(want).max())
     other = plain_hook(NN_MODELS[model], periodic, rho0, u0, fluid)
     assert np.abs(other - want).max() > 1e-3 * np.abs(want).max()  # the flags differ
 
 
-def test_march_ring_too_shallow_is_caught(monkeypatch):
-    """A u ring one plane shallower than the header's would let step j
-    overwrite the mask plane that F of plane j - F_LAG still reads: the
-    model's lifetime check catches it."""
-    monkeypatch.setitem(K, "U_PLANES", K["U_PLANES"] - 1)
-    shape = (7, 5, 8)
+@pytest.mark.parametrize("const, kernel", [("U_PLANES", "step"), ("U_AHEAD", "force")])
+def test_march_with_a_ring_too_shallow_or_a_copy_too_far_ahead_is_caught(monkeypatch, const,
+                                                                         kernel):
+    """A u ring one plane shallower than the header's (step j would overwrite
+    the mask plane that F of plane j - F_LAG still reads) and u copied one
+    plane further ahead in a ring of the same depth (the copy would land on
+    a plane S still reads): the model catches each."""
+    monkeypatch.setitem(K, const, K[const] + (1 if const == "U_AHEAD" else -1))
+    shape = (9, 5, 8)
     rho, u = (a.astype(np.float64) for a in nn_state(shape, 1))
     fluid = np.ones(shape, bool)
     with pytest.raises(AssertionError):
-        F, _, events = march(u, rho, fluid, (True, False, False), 4, NN_MODELS["cy"])
+        F, _, events = march(u, rho, fluid, (True, False, False), 6, NN_MODELS["cy"], kernel)
         assert all(read < written for _, written, read in events)

@@ -19,13 +19,15 @@
 //
 // Design (nn_site.cuh, the march B10 shares): a block of 256 threads owns an
 // 8 x 32 y-z column tile and walks an x segment of at most 32 planes, one
-// step a plane: it reads u and the mask of the incoming plane on the tile
-// and a 2-site y-z ring, at the canonical coordinates, evaluates S on the
-// plane two behind it (the tile and a 1-site ring) and writes F of the
-// plane four behind it.  A step's loads are issued into registers before
-// its S and F are evaluated and land in the u ring after them, so the load
-// latency hides behind the step's arithmetic; one block barrier a step.
-// 69 424 B of shared memory: three blocks per SM.
+// step a plane and one block barrier a step: it evaluates S on the plane two
+// behind the incoming one (the tile and a 1-site ring) and writes F of the
+// plane four behind it.  u of the tile and its 2-site y-z ring, at the
+// canonical coordinates, is staged into the u ring by 4-byte cp.async
+// copies issued two planes ahead, so two planes of loads are in flight
+// behind each step's arithmetic; the fluid mask of a plane and rho of the
+// next F sites are loaded into registers one step before they are stored
+// or used, so no step waits on a load.  69 424 B of shared memory: three
+// blocks per SM.
 //
 // Bound: HBM bytes.  Per site rho (4 B) and u (12 B) and the map (1 B) are
 // read once and F (12 B) written: 29 B/site.  The u ring reads u 1.69 times
@@ -39,6 +41,8 @@
 #include "lbm_site.cuh"
 #include "nn_site.cuh"
 
+constexpr int U_PASSES = nn::passes(nn::U_SLOTS, nn::THREADS);  // u slots a thread: 2
+
 extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_SM)
     nn_force_kernel(const float* __restrict__ rho, const float* __restrict__ u,
                     const uint8_t* __restrict__ map, float* __restrict__ F, int X, int Y, int Z,
@@ -48,44 +52,69 @@ extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_S
   const int64_t YZ = (int64_t)Y * Z, N = X * YZ;
   const int L = m.xe - m.xs;
   int ly, lz;
-  const bool mine = nn::tile_site(m, ly, lz);
+  const bool mine = nn::tile_site(m, threadIdx.x, ly, lz);
   const int64_t tile_yz = (int64_t)(m.y0 + ly) * Z + m.z0 + lz;
-  for (int j = 0; j < L + nn::F_LAG + 2; ++j) {
-    // u and the mask of plane j, loaded now and stored after S and F
-    const bool load = j < L + 4;
-    float uv[nn::U_PER_THREAD][3];
-    bool fl[nn::U_PER_THREAD];
-    if (load) {
-      const int64_t xo = (int64_t)nn::plane_x(m, j) * YZ;
+  // u of plane p copied into its ring plane as this thread's next group
+  auto copy_u = [&](int p) {
+    if (p < L + 4) {
+      const int64_t xo = (int64_t)nn::plane_x(m, p) * YZ;
+      float* dst = m.u + (p % nn::U_PLANES) * 3 * nn::U_SLOTS;
 #pragma unroll
-      for (int k = 0; k < nn::U_PER_THREAD; ++k) {
-        const int i = nn::u_slot_of(threadIdx.x, k);
+      for (int k = 0; k < U_PASSES; ++k) {
+        const int i = nn::u_slot_of<nn::THREADS>(threadIdx.x, k);
         if (i >= nn::U_SLOTS) continue;
         const int yz = m.uyz[i];
-        const int64_t s = xo + (yz >> 16) * Z + (yz & 0xffff);
+        const float* src = u + xo + (yz >> 16) * Z + (yz & 0xffff);
 #pragma unroll
-        for (int b = 0; b < 3; ++b) uv[k][b] = u[b * N + s];
-        fl[k] = map[s] == lbm::GEO_FLUID;
+        for (int b = 0; b < 3; ++b) nn::cp_async4(dst + b * nn::U_SLOTS + i, src + b * N);
       }
     }
+    nn::cp_async_commit();
+  };
+  // the fluidity of this thread's u slots of plane p, and rho of its tile
+  // site at the F of step j (plane j - F_LAG), loaded a step before use
+  auto load_mask = [&](int p, bool (&fl)[U_PASSES]) {
+    if (p >= L + 4) return;
+    const int64_t xo = (int64_t)nn::plane_x(m, p) * YZ;
+#pragma unroll
+    for (int k = 0; k < U_PASSES; ++k) {
+      const int i = nn::u_slot_of<nn::THREADS>(threadIdx.x, k);
+      if (i >= nn::U_SLOTS) continue;
+      const int yz = m.uyz[i];
+      fl[k] = map[xo + (yz >> 16) * Z + (yz & 0xffff)] == lbm::GEO_FLUID;
+    }
+  };
+  auto forced = [&](int j) { return j - nn::F_LAG >= 2 && j - nn::F_LAG <= L + 1 && mine; };
+  auto site = [&](int j) { return (m.xs + j - nn::F_LAG - 2) * YZ + tile_yz; };
+  auto load_rho = [&](int j) { return forced(j) ? rho[site(j)] : 0.0f; };
+  for (int p = 0; p < nn::U_AHEAD; ++p) copy_u(p);
+  bool fl[U_PASSES], fl_next[U_PASSES];
+  load_mask(0, fl);
+  float rho_s = load_rho(0);
+  for (int j = 0; j < L + nn::F_LAG + 2; ++j) {
+    copy_u(j + nn::U_AHEAD);
+    load_mask(j + 1, fl_next);
+    const float rho_next = load_rho(j + 1);
     const int q = j - nn::S_LAG;
-    if (q >= 1 && q <= L + 2) nn::strain_plane(m, q);
-    const int p = j - nn::F_LAG;
-    if (p >= 2 && p <= L + 1 && mine) {
-      const int x = m.xs + p - 2;
-      const int64_t s = x * YZ + tile_yz;
+    if (q >= 1 && q <= L + 2) nn::strain_plane<nn::THREADS>(m, q, threadIdx.x);
+    if (forced(j)) {
+      const int p = j - nn::F_LAG;
       float out[3];
-      nn::force_at(m, r, p, x, ly, lz, rho[s], out);
+      nn::force_at(m, r, p, m.xs + p - 2, ly, lz, rho_s, out);
 #pragma unroll
-      for (int b = 0; b < 3; ++b) F[b * N + s] = out[b];
+      for (int b = 0; b < 3; ++b) F[b * N + site(j)] = out[b];
     }
-    if (load) {
+    if (j < L + 4) {  // the mask of plane j, loaded in the step before
 #pragma unroll
-      for (int k = 0; k < nn::U_PER_THREAD; ++k) {
-        const int i = nn::u_slot_of(threadIdx.x, k);
-        if (i < nn::U_SLOTS) nn::put_u(m, j, i, uv[k][0], uv[k][1], uv[k][2], fl[k]);
+      for (int k = 0; k < U_PASSES; ++k) {
+        const int i = nn::u_slot_of<nn::THREADS>(threadIdx.x, k);
+        if (i < nn::U_SLOTS) m.fluid[(j % nn::U_PLANES) * nn::U_SLOTS + i] = fl[k];
       }
     }
+#pragma unroll
+    for (int k = 0; k < U_PASSES; ++k) fl[k] = fl_next[k];
+    rho_s = rho_next;
+    nn::cp_async_wait<nn::U_AHEAD>();  // this thread's copies of u of plane j have landed
     __syncthreads();
   }
 }

@@ -150,18 +150,17 @@ __device__ __forceinline__ void force(const Rheology& r, SAt s_at, FlAt fl_at, b
 // ---------------------------------------------------------------- the march
 
 constexpr int TY = 8, TZ = 32;              // column tile
-constexpr int THREADS = TY * TZ;            // one thread per tile site: 256
+constexpr int THREADS = TY * TZ;            // one thread per tile site: 256 (B9's block)
 constexpr int UY = TY + 4, UZ = TZ + 4;     // u plane: the tile and a 2-site ring
 constexpr int U_SLOTS = UY * UZ;            // 432
 constexpr int SY = TY + 2, SZ = TZ + 2;     // S plane: the tile and a 1-site ring
 constexpr int S_SLOTS = SY * SZ;            // 340
-constexpr int U_PER_THREAD = (U_SLOTS + THREADS - 1) / THREADS;  // 2
-constexpr int S_PER_THREAD = (S_SLOTS + THREADS - 1) / THREADS;  // 2
 constexpr int S_LAG = 2;                    // step j evaluates S of plane j - 2
 constexpr int F_LAG = 4;                    // and F of plane j - 4
 constexpr int U_PLANES = 6, S_PLANES = 4, RHO_PLANES = 5;
+constexpr int U_AHEAD = 2;                  // B9 copies u of plane j + 2 in step j
 constexpr int SEG_MAX = 32;                 // x planes a block marches at most
-constexpr int STEP_BLOCKS_PER_SM = 2;       // B10's launch bound
+constexpr int STEP_BLOCKS_PER_SM = 2;       // B10's launch bound: 128 registers a thread
 constexpr int FORCE_BLOCKS_PER_SM = 3;      // B9's
 // Dynamic shared memory: u [U_PLANES][3][U_SLOTS] and S [S_PLANES][6][S_SLOTS]
 // floats, B10's rho [RHO_PLANES][THREADS], the slot tables (the canonical y
@@ -173,6 +172,29 @@ constexpr int TABLE_INTS = U_SLOTS + S_SLOTS;
 constexpr int FORCE_SMEM_BYTES = (RING_FLOATS + TABLE_INTS) * 4 + U_PLANES * U_SLOTS;
 constexpr int STEP_SMEM_BYTES =
     (RING_FLOATS + RHO_PLANES * THREADS + TABLE_INTS) * 4 + U_PLANES * U_SLOTS;
+
+// ------------------------------------------------------------ async copies
+// (the same PTX as aa_pair.cu's cp_async4)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A 4-byte copy from global to shared memory, in this thread's open group.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // g wrapped (periodic) or clamped into [0, n).
 __host__ __device__ __forceinline__ int canonical(int g, int n, bool periodic) {
@@ -231,22 +253,27 @@ struct March {
   bool per[3];     // the hook's periodic axes
 };
 
-// u slot k of thread t: the first pass in order, the second from the end of
-// the S slots' second pass, so that the threads with two u slots are not
-// those with two S slots.
-__device__ __forceinline__ int u_slot_of(int t, int k) { return k * THREADS + t; }
+// The passes of NT threads over n slots, and slot pass k of thread t: u
+// slots in order, S slots in order on the first pass and from the end on
+// the next, so that the threads with two u slots are not those with two S
+// slots.
+__host__ __device__ constexpr int passes(int n, int NT) { return (n + NT - 1) / NT; }
+template <int NT>
+__device__ __forceinline__ int u_slot_of(int t, int k) { return k * NT + t; }
+template <int NT>
 __device__ __forceinline__ int s_slot_of(int t, int k) {
-  return k == 0 ? t : k * THREADS + (THREADS - 1 - t);
+  return k == 0 ? t : k * NT + (NT - 1 - t);
 }
 
-// The block's march; fills the slot tables and ends in a block barrier.
-__device__ __forceinline__ March march(void* smem, bool with_rho, int X, int Y, int Z,
-                                       int nn_bits, int seg_len) {
+// The block's march (step: B10's, with the rho ring); fills the slot
+// tables and ends in a block barrier.
+__device__ __forceinline__ March march(void* smem, bool step, int X, int Y, int Z, int nn_bits,
+                                       int seg_len) {
   March m;
   m.u = static_cast<float*>(smem);
   m.S = m.u + U_PLANES * 3 * U_SLOTS;
   m.rho = m.S + S_PLANES * 6 * S_SLOTS;
-  m.uyz = reinterpret_cast<int*>(m.rho + (with_rho ? RHO_PLANES * THREADS : 0));
+  m.uyz = reinterpret_cast<int*>(m.rho + (step ? RHO_PLANES * THREADS : 0));
   m.scu = m.uyz + U_SLOTS;
   m.fluid = reinterpret_cast<uint8_t*>(m.scu + S_SLOTS);
   m.X = X;
@@ -263,20 +290,20 @@ __device__ __forceinline__ March march(void* smem, bool with_rho, int X, int Y, 
   m.z0 = (col % nzt) * TZ;
   m.xs = seg * seg_len;
   m.xe = min(m.xs + seg_len, X);
-  for (int i = threadIdx.x; i < U_SLOTS; i += THREADS)
+  for (int i = threadIdx.x; i < U_SLOTS; i += blockDim.x)
     m.uyz[i] = canonical(m.y0 + i / UZ - 2, Y, m.per[1]) << 16 |
                canonical(m.z0 + i % UZ - 2, Z, m.per[2]);
-  for (int i = threadIdx.x; i < S_SLOTS; i += THREADS)
+  for (int i = threadIdx.x; i < S_SLOTS; i += blockDim.x)
     m.scu[i] = (clamped(m.y0 + i / SZ - 1, Y, m.per[1]) - m.y0 + 2) * UZ +
                (clamped(m.z0 + i % SZ - 1, Z, m.per[2]) - m.z0 + 2);
   __syncthreads();
   return m;
 }
 
-// The tile site of this thread: (ly, lz), and whether it lies in the domain.
-__device__ __forceinline__ bool tile_site(const March& m, int& ly, int& lz) {
-  ly = threadIdx.x / TZ;
-  lz = threadIdx.x % TZ;
+// Tile site t: (ly, lz), and whether it lies in the domain.
+__device__ __forceinline__ bool tile_site(const March& m, int t, int& ly, int& lz) {
+  ly = t / TZ;
+  lz = t % TZ;
   return m.y0 + ly < m.Y && m.z0 + lz < m.Z;
 }
 
@@ -301,8 +328,10 @@ __device__ __forceinline__ void put_u(const March& m, int p, int i, float ux, fl
   m.fluid[(p % U_PLANES) * U_SLOTS + i] = fluid;
 }
 
-// S of plane q (1 <= q) on this thread's S slots, from u planes q - 1 .. q + 1.
-__device__ __forceinline__ void strain_plane(const March& m, int q) {
+// S of plane q (1 <= q) on the S slots of thread t of NT, from u planes
+// q - 1 .. q + 1.
+template <int NT>
+__device__ __forceinline__ void strain_plane(const March& m, int q, int t) {
   const float* u[3];
   const uint8_t* fl[3];
 #pragma unroll
@@ -312,8 +341,8 @@ __device__ __forceinline__ void strain_plane(const March& m, int q) {
   }
   float* Sq = m.S + (q % S_PLANES) * 6 * S_SLOTS;
 #pragma unroll
-  for (int k = 0; k < S_PER_THREAD; ++k) {
-    const int i = s_slot_of(threadIdx.x, k);
+  for (int k = 0; k < passes(S_SLOTS, NT); ++k) {
+    const int i = s_slot_of<NT>(t, k);
     if (i >= S_SLOTS) continue;
     const int c = m.scu[i];
     // neighbour s along axis a: x from the planes, y and z within one
