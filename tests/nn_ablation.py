@@ -10,18 +10,17 @@ variant, all started together, into ``build/nn_ablation/`` or ``--out``)
 and times each at 256^3 on the hooked bench duct on CUDA events, every
 variant in the same process, so that they compare on one card:
 
-- B10 (A-B, A-A even, A-A odd): the kernel; every warp in the same order
-  (u*, S, then the update) in place of every other warp updating first
-  (unstaggered); u* of a thread's two u slots unrolled (both slots' pulls in
-  flight); 16 x 32 column tiles (512 threads, one block per SM), and that
-  unstaggered and unrolled; the kernel at x segments of 16 and 64 planes
-  against its own 32; without the site update (u*, S and F alone) and the
-  site update alone (no u*, no S, F = 0).
-- B9: the kernel; the mask and rho loaded in the step that uses them in
-  place of a step before (unprefetched); u copied one plane ahead and three
-  (a ring one plane deeper) in place of two; 16 x 32 column tiles (one
-  block per SM); x segments of 8, 16 and 64; the copies, loads and stores
-  alone (no S, no F).
+- B10 (A-B, A-A even, A-A odd): the kernel (16 x 32 column tiles, one
+  block of 512 threads per SM); 8 x 32 tiles at two blocks of 256 threads
+  per SM; u* of a thread's two u slots unrolled (both slots' pulls in
+  flight); the kernel at x segments of 16 and 64 planes against its own
+  32; without the site update (u*, S and F alone) and the site update
+  alone (no u*, no S, F = 0).
+- B9: the kernel (8 x 32 tiles, three blocks per SM); the mask and rho
+  loaded in the step that uses them in place of a step before
+  (unprefetched); u copied one plane ahead and three (a ring one plane
+  deeper) in place of two; 16 x 32 tiles (one block per SM); x segments of
+  8, 16 and 64; the copies, loads and stores alone (no S, no F).
 
 Every variant that keeps the function is first checked bit-equal to the
 committed kernel (the package's build); variants that drop work compute
@@ -47,19 +46,27 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from tnl_lbm_tpu_torch.kernels.build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc, kernel_resources
 
 # anchors in the sources (edit them together with the kernels)
-TILE = "constexpr int TY = 8, TZ = 32;"
-BLOCKS = ("constexpr int STEP_BLOCKS_PER_SM = 2;", "constexpr int FORCE_BLOCKS_PER_SM = 3;")
+FORCE_TY = "constexpr int FORCE_TY = 8;"
+STEP_TY = "constexpr int STEP_TY = 16;"
+STEP_BLOCKS = "constexpr int STEP_BLOCKS_PER_SM = 1;"
+FORCE_BLOCKS = "constexpr int FORCE_BLOCKS_PER_SM = 3;"
 RINGS = "constexpr int U_PLANES = 6, S_PLANES = 4, RHO_PLANES = 5;"
 AHEAD = "constexpr int U_AHEAD = 2;"
-STAGGER = "const bool update_first = (t / 32) & 1;"
-U_LOOP = "#pragma unroll 1\n          for (int k = 0; k < U_PASSES; ++k) {"
-USTAR_PASS = "        if (j < L + 4) {\n          const int xu"
-STRAIN_STEP = "        if (q >= 1 && q <= L + 2) nn::strain_plane<nn::THREADS>(mr, q, t);"
-UPDATE = "      if (p < 2 || p > L + 1 || !mine) continue;"
+U_LOOP = "#pragma unroll 1\n      for (int k = 0; k < Geo::U_PASSES; ++k) {"
+USTAR_PASS = "    if (j < L + 4) {\n      const int x = nn::plane_x(mr, j);"
+STRAIN_STEP = "    if (q >= 1 && q <= L + 2) nn::strain_plane(mr, q, threadIdx.x);"
+UPDATE = "      ABParams ps = P.p;"
+AB_SITE = ("        ab_site<WELL, EQ>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits, ps,"
+           " ux, uy,\n                          uz);")
+ODD_SITE = ("        aa_odd_site<WELL, EQ, false>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z,"
+            " P.pbits,\n                                     P.has_nothing != 0, ps, ux, uy, uz);")
+EVEN_SITE = "        if (m == GEO_NOTHING) {"
 FORCE_STEP = "      float F[3];\n      nn::force_at("
 MASK_NEXT = "    load_mask(j + 1, fl_next);\n    const float rho_next = load_rho(j + 1);"
-STRAIN_FORCE = "    if (q >= 1 && q <= L + 2) nn::strain_plane<nn::THREADS>(m, q, threadIdx.x);"
+STRAIN_FORCE = "    if (q >= 1 && q <= L + 2) nn::strain_plane(m, q, threadIdx.x);"
 FORCE_B9 = "      nn::force_at(m, r, p, m.xs + p - 2, ly, lz, rho_s, out);"
+#: what stands in for a site update that is dropped: F kept alive
+NO_SITE = "        rho_out[((int64_t)x * Y + y) * Z + z] = ps.fx + ps.fy + ps.fz;"
 
 
 def _swap(src: str, *pairs) -> str:
@@ -84,19 +91,16 @@ def variants(site: str, step: str, force: str) -> dict:
     or "dropped work")."""
     step = well_only(step)
     off = lambda anchor, cond: (anchor, anchor.replace(cond, "false && " + cond, 1))  # noqa: E731
-    tile16 = _swap(site, (TILE, TILE.replace("TY = 8", "TY = 16")),
-                   *((b, b.replace(b[-2], "1")) for b in BLOCKS))
-    unstaggered = _swap(step, (STAGGER, "const bool update_first = false;"))
-    unrolled = _swap(step, (U_LOOP, U_LOOP.replace("unroll 1", "unroll")))
+    no_update = _swap(step, (AB_SITE, NO_SITE), (ODD_SITE, NO_SITE),
+                      (EVEN_SITE, "        if (true) {\n          fout[site] = ps.fx + ps.fy + ps.fz;\n"
+                                  "        } else if (m == GEO_NOTHING) {"))
     return {
         "kernel": (site, step, force, "same"),
-        "unstaggered": (site, unstaggered, force, "same"),
-        "u_unrolled": (site, unrolled, force, "same"),
-        "tile_16x32": (tile16, step, force, "same"),
-        "tile_16x32_unstaggered": (tile16, unstaggered, force, "same"),
-        "tile_16x32_u_unrolled": (tile16, unrolled, force, "same"),
-        "no_update": (site, _swap(step, (UPDATE, "      if (true) continue;")), force,
-                      "dropped work"),
+        "tile_8x32": (_swap(site, (STEP_TY, STEP_TY.replace("16", "8")),
+                            (STEP_BLOCKS, STEP_BLOCKS.replace("1", "2"))), step, force, "same"),
+        "u_unrolled": (site, _swap(step, (U_LOOP, U_LOOP.replace("unroll 1", "unroll"))), force,
+                       "same"),
+        "no_update": (site, no_update, force, "dropped work"),
         "update_only": (site, _swap(step, off(USTAR_PASS, "j < L + 4"),
                                     off(STRAIN_STEP, "q >= 1"),
                                     (FORCE_STEP, "      float F[3] = {0.0f, 0.0f, 0.0f};\n"
@@ -110,7 +114,9 @@ def variants(site: str, step: str, force: str) -> dict:
         "b9_ahead_3": (_swap(site, (AHEAD, AHEAD.replace("2", "3")),
                              (RINGS, RINGS.replace("U_PLANES = 6", "U_PLANES = 7"))), step, force,
                        "same"),
-        "b9_tile_16x32": (tile16, step, force, "same"),
+        "b9_tile_16x32": (_swap(site, (FORCE_TY, FORCE_TY.replace("8", "16")),
+                                (FORCE_BLOCKS, FORCE_BLOCKS.replace("3", "1"))), step, force,
+                          "same"),
         "b9_memory_only": (site, step, _swap(force, off(STRAIN_FORCE, "q >= 1"),
                                              (FORCE_B9, "      out[0] = rho_s;\n      out[1] = out[2]"
                                                         " = 0.0f;")), "dropped work"),
@@ -118,9 +124,8 @@ def variants(site: str, step: str, force: str) -> dict:
 
 
 # which kernels each variant is timed on
-B10_MODES = {name: (0, 1, 2) for name in ("kernel", "unstaggered", "u_unrolled", "tile_16x32",
-                                           "tile_16x32_unstaggered", "tile_16x32_u_unrolled",
-                                           "no_update", "update_only")}
+B10_MODES = {name: (0, 1, 2) for name in ("kernel", "tile_8x32", "u_unrolled", "no_update",
+                                           "update_only")}
 B9_VARIANTS = ("kernel", "b9_unprefetched", "b9_ahead_1", "b9_ahead_3", "b9_tile_16x32",
                "b9_memory_only")
 

@@ -52,6 +52,23 @@ def march_constants() -> dict:
 K = march_constants()
 
 
+def tile(kernel):
+    """The column tile of B9 ("force") or B10 ("step"): nn_site.cuh Tile."""
+    TY, TZ = K["FORCE_TY" if kernel == "force" else "STEP_TY"], K["TZ"]
+    return dict(TY=TY, TZ=TZ, THREADS=TY * TZ, UY=TY + 4, UZ=TZ + 4, SY=TY + 2, SZ=TZ + 2,
+                U_SLOTS=(TY + 4) * (TZ + 4), S_SLOTS=(TY + 2) * (TZ + 2))
+
+
+def smem_bytes(kernel):
+    """nn_site.cuh Tile::smem_bytes: the u and S rings, B10's rho ring, the
+    slot tables (4-byte words), then the mask bytes."""
+    G = tile(kernel)
+    words = (K["U_PLANES"] * 3 * G["U_SLOTS"] + K["S_PLANES"] * 6 * G["S_SLOTS"]
+             + (K["RHO_PLANES"] * G["THREADS"] if kernel == "step" else 0)
+             + G["U_SLOTS"] + G["S_SLOTS"])
+    return 4 * words + K["U_PLANES"] * G["U_SLOTS"]
+
+
 def canonical(g, n, periodic):
     """nn_site.cuh canonical over an array: wrapped or clamped into [0, n)."""
     return np.mod(g, n) if periodic else np.clip(g, 0, n - 1)
@@ -121,15 +138,16 @@ def march(u, rho, fluid, hook_per, seg_len, model, kernel="force"):
     staged by async copies U_AHEAD planes ahead, rho from global memory, F
     stored by the step; "step" is B10's: u* and rho0 computed into their
     rings in the step, F taken by the site update in the same step."""
-    TY, TZ, UY, UZ, SY, SZ = (K[n] for n in ("TY", "TZ", "UY", "UZ", "SY", "SZ"))
+    G = tile(kernel)
+    TY, TZ, UY, UZ, SY, SZ = (G[n] for n in ("TY", "TZ", "UY", "UZ", "SY", "SZ"))
     SL, FL, UA = K["S_LAG"], K["F_LAG"], K["U_AHEAD"]
     X, Y, Z = fluid.shape
     px, py, pz = hook_per
     F = np.full((3, X, Y, Z), np.nan)
     count = np.zeros((X, Y, Z), np.int64)
     events = []
-    assert sorted(thread_slots(K["U_SLOTS"], K["THREADS"], u_slot_of)) == list(range(UY * UZ))
-    assert sorted(thread_slots(K["S_SLOTS"], K["THREADS"], s_slot_of)) == list(range(SY * SZ))
+    assert sorted(thread_slots(G["U_SLOTS"], G["THREADS"], u_slot_of)) == list(range(UY * UZ))
+    assert sorted(thread_slots(G["S_SLOTS"], G["THREADS"], s_slot_of)) == list(range(SY * SZ))
     nzt = -(-Z // TZ)
     for col in range(-(-Y // TY) * nzt):
         y0, z0 = (col // nzt) * TY, (col % nzt) * TZ
@@ -215,7 +233,7 @@ def force(S, fl, rho, model):
     """F [3, TY, TZ] of one plane's tile from S planes (x - 1, x, x + 1),
     read at the tile's S slots, the masks of planes x - 1 .. x + 1 at its
     u slots and rho (nn_site.cuh force_at)."""
-    TY, TZ = K["TY"], K["TZ"]
+    TY, TZ = S[1].shape[1] - 2, S[1].shape[2] - 2
     ys, zs = slice(1, 1 + TY), slice(1, 1 + TZ)
     yu, zu = slice(2, 2 + TY), slice(2, 2 + TZ)
 
@@ -280,13 +298,16 @@ _PERIODIC = list(itertools.product([False, True], repeat=3))
 
 def test_march_constants():
     """The header's geometry: one thread a tile site, rings as deep as the
-    lags need, and the shared memory the doc states."""
-    assert K["THREADS"] == K["TY"] * K["TZ"] and K["THREADS"] % 32 == 0
-    assert (K["UY"], K["UZ"], K["SY"], K["SZ"]) == (K["TY"] + 4, K["TZ"] + 4, K["TY"] + 2,
-                                                    K["TZ"] + 2)
-    assert (K["FORCE_SMEM_BYTES"], K["STEP_SMEM_BYTES"]) == (69424, 74544)
-    assert K["STEP_BLOCKS_PER_SM"] * K["STEP_SMEM_BYTES"] <= 227 * 1024
-    assert K["FORCE_BLOCKS_PER_SM"] * K["FORCE_SMEM_BYTES"] <= 227 * 1024
+    lags need, and the shared memory the doc states, within an SM's at the
+    blocks per SM of each kernel's launch bound (B9 8 x 32 at three, B10
+    16 x 32 at one)."""
+    assert (K["FORCE_TY"], K["STEP_TY"], K["TZ"]) == (8, 16, 32)
+    assert (smem_bytes("force"), smem_bytes("step")) == (69424, 130480)
+    for kernel, blocks in (("force", K["FORCE_BLOCKS_PER_SM"]), ("step", K["STEP_BLOCKS_PER_SM"])):
+        assert tile(kernel)["THREADS"] % 32 == 0
+        assert blocks * (smem_bytes(kernel) + 1024) <= 228 * 1024
+        assert blocks * tile(kernel)["THREADS"] * 128 <= 65536 or kernel == "force"
+    assert K["U_PLANES"] >= K["U_AHEAD"] + K["S_LAG"] + 2  # a copy lands on a plane S has read
 
 
 @pytest.mark.parametrize("hook_per", _PERIODIC,
@@ -298,7 +319,7 @@ def test_march_force_equals_the_plain_hook(hook_per):
     ring plane lives from its writer's barrier to its last reader's, and F
     through the rings equals the plain hook, a closed axis clamping the
     coordinate of u, of the mask and of S."""
-    shape = (11, K["TY"] + 3, K["TZ"] + 8)
+    shape = (11, K["STEP_TY"] + 3, K["TZ"] + 8)
     check_march(shape, hook_per, 4, NN_MODELS["cy"])
 
 
@@ -316,9 +337,15 @@ def test_march_slots_hold_their_coordinates(hook_per):
     """Each u, mask and S slot of every plane a block keeps holds the value
     at its coordinate wrapped or clamped under the hook's periodicity (S on
     every plane in the domain or across a periodic x; the S of a closed x
-    face's outer plane is never read)."""
-    TY, TZ, UY, UZ, SY, SZ = (K[n] for n in ("TY", "TZ", "UY", "UZ", "SY", "SZ"))
-    shape = (6, TY + 3, TZ + 5)
+    face's outer plane is never read), for both kernels' tiles."""
+    for kernel in MARCHES:
+        check_slots(kernel, hook_per)
+
+
+def check_slots(kernel, hook_per):
+    G = tile(kernel)
+    TY, TZ, UY, UZ, SY, SZ = (G[n] for n in ("TY", "TZ", "UY", "UZ", "SY", "SZ"))
+    shape = (6, K["STEP_TY"] + 3, TZ + 5)
     X, Y, Z = shape
     rho, u = (a.astype(np.float64) for a in nn_state(shape, 5))
     fluid = seeded_map(shape, 5) == GEO.FLUID

@@ -10,47 +10,45 @@
 // Its plain version is the plain hooked step (sim/step.py with
 // ops/non_newtonian.py make_nn_forcing_hook).
 //
-// Design: the x-marching plane pipeline of nn_site.cuh, shared with B9, with
-// warp roles.  A block owns an 8 x 32 y-z column tile (z fastest) and walks
-// an x segment of at most 32 planes.  Its 16 warps have one role each:
+// Design: the x-marching plane pipeline of nn_site.cuh, shared with B9.  A
+// block of 512 threads owns a 16 x 32 y-z column tile (z fastest, one
+// thread a tile site) and walks an x segment of at most 32 planes; step j
+// does three things and ends in one block barrier:
 //
-// - 8 stencil warps (one thread a tile site) march step j, one barrier of
-//   theirs a step:
-//   1. u* of plane j on the tile and its 2-site y-z ring, into the u ring:
-//      each slot's coordinate is wrapped or clamped under the hook's
-//      periodicity (nn_bits) - the value at an out-of-domain slot is the
-//      u* of the clamped site, never a pull at an outside coordinate - and
-//      that site's DFs are read with the mode's rule under the domain's
-//      periodicity (pbits: the A-B pull, the even step's own DFs, the odd
-//      step's opposite pull, with the outflow pull rules), transformed
-//      (WALL swap, symmetry mirrors) and summed with the homogeneous force
-//      (lbm_site.cuh ab_pull, aa_odd_pull, macro_site's moments).  The
-//      fluid mask (map == FLUID) of each slot and rho0 of the tile sites go
-//      to their rings too.
-//   2. S of plane j - 2 on the tile and its 1-site ring (nn_site.cuh
-//      strain_plane).
-//   3. F_nn = 2 (nu_eff - nu) rho0 div S of plane j - 4 on FLUID sites
-//      (nn_site.cuh force_at), into a ring of F_PLANES planes of F.
-// - 8 update warps (one thread a tile site) take plane after plane of F
-//   through full / empty mbarriers, up to F_PLANES planes behind the
-//   stencil warps, and run the site update of the mode with the total
-//   force F + F_nn, as the plain step's second moments and collision do:
-//   lbm_site.cuh ab_site (A-B), the even update out of place (A-B's site
-//   update, written to the opposite slots of a second buffer: an in-place
-//   even step would race with the ring reads of the neighbouring blocks),
-//   aa_odd_site (A-A odd: each thread collides its own site with its own
-//   force and pushes; the JAX kernel's collision ring is a TPU tiling
-//   artefact, not ported).  NOTHING sites keep their DFs, WALL and NOTHING
-//   report rho = 1, u = 0.
+// 1. u* of plane j on the tile and its 2-site y-z ring, into the u ring:
+//    each slot's coordinate is wrapped or clamped under the hook's
+//    periodicity (nn_bits) - the value at an out-of-domain slot is the u*
+//    of the clamped site, never a pull at an outside coordinate - and that
+//    site's DFs are read with the mode's rule under the domain's
+//    periodicity (pbits: the A-B pull, the even step's own DFs, the odd
+//    step's opposite pull, with the outflow pull rules), transformed (WALL
+//    swap, symmetry mirrors) and summed with the homogeneous force
+//    (lbm_site.cuh ab_pull, aa_odd_pull, macro_site's moments).  The fluid
+//    mask (map == FLUID) of each slot and rho0 of the tile sites go to
+//    their rings too.
+// 2. S of plane j - 2 on the tile and its 1-site ring (nn_site.cuh
+//    strain_plane).
+// 3. Per tile site of plane j - 4: F_nn = 2 (nu_eff - nu) rho0 div S on
+//    FLUID sites (nn_site.cuh force_at); the site update of the mode then
+//    runs with the total force F + F_nn, as the plain step's second moments
+//    and collision do: lbm_site.cuh ab_site (A-B), the even update out of
+//    place (A-B's site update, written to the opposite slots of a second
+//    buffer: an in-place even step would race with the ring reads of the
+//    neighbouring blocks), aa_odd_site (A-A odd: each thread collides its
+//    own site with its own force and pushes; the JAX kernel's collision ring
+//    is a TPU tiling artefact, not ported).  NOTHING sites keep their DFs,
+//    WALL and NOTHING report rho = 1, u = 0.
 //
-// The u* pulls of the stencil warps overlap the update warps' collisions.
-// The site update pulls the tile site's DFs again, at least four planes
-// after the u* pull read them, mostly from L2 (tests/nn_ablation.py times
-// keeping them in shared memory instead).  u* is computed once per slot and
-// plane: 1.69 pulls a site on the 12 x 36 slots of a plane, and 4 extra
-// planes per segment; the cube tile this replaces pulled 3.375 times a site
-// before its update pulled again.  86 832 B of shared memory and 512
-// threads at most 128 registers each: one block per SM.
+// u* is computed once per slot and plane: 1.41 pulls a site on the 20 x 36
+// slots of a plane, and 4 extra planes per segment; the cube tile this
+// replaces pulled 3.375 times a site.  The site update pulls the tile
+// site's DFs again, four planes after its u* pull read them, mostly from
+// L2 (keeping them in shared memory instead leaves room for one block of
+// 8 warps per SM, which ran slower: PERF.md).  130 480 B of shared memory
+// and 128 registers a thread: one block of 512 threads per SM.  Where the
+// time goes (tests/nn_ablation.py): the u*, S and F parts and the site
+// update add up, each about as costly as the pipeline kernel that does the
+// same work alone.
 //
 // Bound: HBM bytes.  Per site the step must read 27 f32 and the map and
 // write 27 f32 and rho and u: 233 B/site, the A-B step's.  The ring's pulls
@@ -69,7 +67,8 @@ using namespace lbm;
 constexpr int MODE_AB = 0;
 constexpr int MODE_EVEN = 1;
 constexpr int MODE_ODD = 2;
-constexpr int U_PASSES = nn::passes(nn::U_SLOTS, nn::THREADS);  // u slots a thread: 2
+constexpr int TY = nn::STEP_TY;
+using Geo = nn::Tile<TY>;
 
 struct NNStepParams {
   ABParams p;        // omega, homogeneous force, inflow, neumaier
@@ -87,57 +86,48 @@ __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
                                               float* __restrict__ u_out, int X, int Y, int Z,
                                               int seg_len, const NNStepParams& P) {
   extern __shared__ __align__(16) float smem[];
-  const nn::March mr = nn::march(smem, true, X, Y, Z, P.nn_bits, seg_len);
+  const nn::March<TY> mr = nn::march<TY>(smem, true, X, Y, Z, P.nn_bits, seg_len);
   const int64_t YZ = (int64_t)Y * Z, N = X * YZ;
   const int L = mr.xe - mr.xs;
-  const int t = threadIdx.x;
-  int ly, lz;
-  const bool mine = nn::tile_site(mr, t, ly, lz);
-  const int y = mr.y0 + ly, z = mr.z0 + lz;
-  // Every other warp runs the site update first in each step, so that one
-  // half's loads overlap the other half's collisions.
-  const bool update_first = (t / 32) & 1;
   for (int j = 0; j < L + nn::F_LAG + 2; ++j) {
-    for (int part = 0; part < 2; ++part) {
-      if ((part == 0) != update_first) {
-        // 1. u* of plane j, at the canonical coordinates
-        if (j < L + 4) {
-          const int xu = nn::plane_x(mr, j);
+    // 1. u* of plane j, at the canonical coordinates
+    if (j < L + 4) {
+      const int x = nn::plane_x(mr, j);
 #pragma unroll 1
-          for (int k = 0; k < U_PASSES; ++k) {
-            const int i = nn::u_slot_of<nn::THREADS>(t, k);
-            if (i >= nn::U_SLOTS) break;
-            const int yu = mr.uyz[i] >> 16, zu = mr.uyz[i] & 0xffff;
-            const int64_t site = xu * YZ + (int64_t)yu * Z + zu;
-            const uint8_t m = map[site];
-            float v[Q];
-            if constexpr (MODE == MODE_AB) {
-              ab_pull(f, m, xu, yu, zu, X, Y, Z, P.pbits, v);
-            } else if constexpr (MODE == MODE_ODD) {
-              aa_odd_pull<false>(f, m, xu, yu, zu, X, Y, Z, P.pbits, v);
-            } else {
+      for (int k = 0; k < Geo::U_PASSES; ++k) {
+        const int i = nn::u_slot_of<TY>(threadIdx.x, k);
+        if (i >= Geo::U_SLOTS) break;
+        const int y = mr.uyz[i] >> 16, z = mr.uyz[i] & 0xffff;
+        const int64_t site = x * YZ + (int64_t)y * Z + z;
+        const uint8_t m = map[site];
+        float v[Q];
+        if constexpr (MODE == MODE_AB) {
+          ab_pull(f, m, x, y, z, X, Y, Z, P.pbits, v);
+        } else if constexpr (MODE == MODE_ODD) {
+          aa_odd_pull<false>(f, m, x, y, z, X, Y, Z, P.pbits, v);
+        } else {
 #pragma unroll
-              for (int q = 0; q < Q; ++q) v[q] = f[q * N + site];
-            }
-            pull_transform_ab(v, m);
-            float r, ux, uy, uz;
-            moments_local<WELL>(v, P.p.fx, P.p.fy, P.p.fz, P.p.neumaier != 0, r, ux, uy, uz);
-            nn::put_u(mr, j, i, ux, uy, uz, m == GEO_FLUID);
-            const int ts = nn::u_tile_site(i);
-            if (ts >= 0) mr.rho[(j % nn::RHO_PLANES) * nn::THREADS + ts] = r;
-          }
+          for (int q = 0; q < Q; ++q) v[q] = f[q * N + site];
         }
-        // 2. S of plane j - 2
-        const int q = j - nn::S_LAG;
-        if (q >= 1 && q <= L + 2) nn::strain_plane<nn::THREADS>(mr, q, t);
-        continue;
+        pull_transform_ab(v, m);
+        float r, ux, uy, uz;
+        moments_local<WELL>(v, P.p.fx, P.p.fy, P.p.fz, P.p.neumaier != 0, r, ux, uy, uz);
+        nn::put_u(mr, j, i, ux, uy, uz, m == GEO_FLUID);
+        const int ts = nn::u_tile_site<TY>(i);
+        if (ts >= 0) mr.rho[(j % nn::RHO_PLANES) * Geo::THREADS + ts] = r;
       }
-      // 3. the NN force and the site update of the mode at plane j - 4
-      const int p = j - nn::F_LAG;
-      if (p < 2 || p > L + 1 || !mine) continue;
-      const int x = mr.xs + p - 2;
+    }
+    // 2. S of plane j - 2
+    const int q = j - nn::S_LAG;
+    if (q >= 1 && q <= L + 2) nn::strain_plane(mr, q, threadIdx.x);
+    // 3. the NN force and the site update of the mode at plane j - 4
+    const int p = j - nn::F_LAG;
+    int ly, lz;
+    if (p >= 2 && p <= L + 1 && nn::tile_site(mr, threadIdx.x, ly, lz)) {
+      const int x = mr.xs + p - 2, y = mr.y0 + ly, z = mr.z0 + lz;
       float F[3];
-      nn::force_at(mr, P.r, p, x, ly, lz, mr.rho[(p % nn::RHO_PLANES) * nn::THREADS + t], F);
+      nn::force_at(mr, P.r, p, x, ly, lz,
+                   mr.rho[(p % nn::RHO_PLANES) * Geo::THREADS + threadIdx.x], F);
       ABParams ps = P.p;
       ps.fx = P.p.fx + F[0];
       ps.fy = P.p.fy + F[1];
@@ -179,7 +169,7 @@ __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
 // One kernel per (collision, equilibrium kind, mode), named so that the
 // -Xptxas -v report can be read per instance.
 #define NN_STEP_KERNEL(NAME, WELL, EQ, MODE)                                                  \
-  extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::STEP_BLOCKS_PER_SM)       \
+  extern "C" __global__ void __launch_bounds__(Geo::THREADS, nn::STEP_BLOCKS_PER_SM)         \
       NAME(const float* __restrict__ f, float* __restrict__ fout,                             \
            const uint8_t* __restrict__ map, float* __restrict__ rho, float* __restrict__ u,   \
            int X, int Y, int Z, int seg_len, NNStepParams P) {                                \
@@ -222,16 +212,16 @@ extern "C" int tnl_lbm_nn_step(const float* f, float* fout, const uint8_t* map, 
   if (Y > 65535 || Z > 65535) return static_cast<int>(cudaErrorInvalidValue);  // y << 16 | z
   const Kernel kernel = kernels[mode][variant];
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, nn::STEP_SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo::smem_bytes(true));
   if (err != cudaSuccess) return static_cast<int>(err);
   const NNStepParams P{{1.0f / (3.0f * nu + 0.5f), fx, fy, fz, uin_x, uin_y, uin_z, neumaier},
                        {model, nu, nu0_minus_nu, lam, a, expo, k0, k1},
                        pbits,
                        nn_bits,
                        has_nothing};
-  if (seg_len <= 0) seg_len = nn::auto_seg_len(X, Y, Z, nn::STEP_BLOCKS_PER_SM);
-  const int blocks = nn::column_tiles(Y, Z) * ((X + seg_len - 1) / seg_len);
-  kernel<<<blocks, nn::THREADS, nn::STEP_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  if (seg_len <= 0) seg_len = nn::auto_seg_len<TY>(X, Y, Z, nn::STEP_BLOCKS_PER_SM);
+  const int blocks = nn::column_tiles<TY>(Y, Z) * ((X + seg_len - 1) / seg_len);
+  kernel<<<blocks, Geo::THREADS, Geo::smem_bytes(true), static_cast<cudaStream_t>(stream)>>>(
       f, fout, map, rho, u, X, Y, Z, seg_len, P);
   return static_cast<int>(cudaGetLastError());
 }
