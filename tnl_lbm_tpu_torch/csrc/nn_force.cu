@@ -24,10 +24,9 @@
 // plane four behind it.  u of the tile and its 2-site y-z ring, at the
 // canonical coordinates, is staged into the u ring by 4-byte cp.async
 // copies issued two planes ahead, so two planes of loads are in flight
-// behind each step's arithmetic; the fluid mask of a plane and rho of the
-// next F sites are loaded into registers one step before they are stored
-// or used, so no step waits on a load.  69 424 B of shared memory: three
-// blocks per SM.
+// behind each step's arithmetic; the fluid mask of the incoming plane is
+// loaded into registers and stored after the step's S and F.  69 424 B of
+// shared memory: three blocks per SM.
 //
 // Bound: HBM bytes.  Per site rho (4 B) and u (12 B) and the map (1 B) are
 // read once and F (12 B) written: 29 B/site.  The u ring reads u 1.69 times
@@ -73,49 +72,41 @@ extern "C" __global__ void __launch_bounds__(Geo::THREADS, nn::FORCE_BLOCKS_PER_
     }
     nn::cp_async_commit();
   };
-  // the fluidity of this thread's u slots of plane p, and rho of its tile
-  // site at the F of step j (plane j - F_LAG), loaded a step before use
-  auto load_mask = [&](int p, bool (&fl)[U_PASSES]) {
-    if (p >= L + 4) return;
-    const int64_t xo = (int64_t)nn::plane_x(m, p) * YZ;
-#pragma unroll
-    for (int k = 0; k < U_PASSES; ++k) {
-      const int i = nn::u_slot_of<TY>(threadIdx.x, k);
-      if (i >= Geo::U_SLOTS) continue;
-      const int yz = m.uyz[i];
-      fl[k] = map[xo + (yz >> 16) * Z + (yz & 0xffff)] == lbm::GEO_FLUID;
-    }
-  };
-  auto forced = [&](int j) { return j - nn::F_LAG >= 2 && j - nn::F_LAG <= L + 1 && mine; };
-  auto site = [&](int j) { return (m.xs + j - nn::F_LAG - 2) * YZ + tile_yz; };
-  auto load_rho = [&](int j) { return forced(j) ? rho[site(j)] : 0.0f; };
   for (int p = 0; p < nn::U_AHEAD; ++p) copy_u(p);
-  bool fl[U_PASSES], fl_next[U_PASSES];
-  load_mask(0, fl);
-  float rho_s = load_rho(0);
   for (int j = 0; j < L + nn::F_LAG + 2; ++j) {
     copy_u(j + nn::U_AHEAD);
-    load_mask(j + 1, fl_next);
-    const float rho_next = load_rho(j + 1);
+    // the mask of plane j, loaded now and stored after S and F
+    const bool load = j < L + 4;
+    bool fl[U_PASSES];
+    if (load) {
+      const int64_t xo = (int64_t)nn::plane_x(m, j) * YZ;
+#pragma unroll
+      for (int k = 0; k < U_PASSES; ++k) {
+        const int i = nn::u_slot_of<TY>(threadIdx.x, k);
+        if (i >= Geo::U_SLOTS) continue;
+        const int yz = m.uyz[i];
+        fl[k] = map[xo + (yz >> 16) * Z + (yz & 0xffff)] == lbm::GEO_FLUID;
+      }
+    }
+    const int p = j - nn::F_LAG;
+    const bool force = p >= 2 && p <= L + 1 && mine;
+    const int64_t s = (m.xs + p - 2) * YZ + tile_yz;
+    const float rho_s = force ? rho[s] : 0.0f;
     const int q = j - nn::S_LAG;
     if (q >= 1 && q <= L + 2) nn::strain_plane(m, q, threadIdx.x);
-    if (forced(j)) {
-      const int p = j - nn::F_LAG;
+    if (force) {
       float out[3];
       nn::force_at(m, r, p, m.xs + p - 2, ly, lz, rho_s, out);
 #pragma unroll
-      for (int b = 0; b < 3; ++b) F[b * N + site(j)] = out[b];
+      for (int b = 0; b < 3; ++b) F[b * N + s] = out[b];
     }
-    if (j < L + 4) {  // the mask of plane j, loaded in the step before
+    if (load) {
 #pragma unroll
       for (int k = 0; k < U_PASSES; ++k) {
         const int i = nn::u_slot_of<TY>(threadIdx.x, k);
         if (i < Geo::U_SLOTS) m.fluid[(j % nn::U_PLANES) * Geo::U_SLOTS + i] = fl[k];
       }
     }
-#pragma unroll
-    for (int k = 0; k < U_PASSES; ++k) fl[k] = fl_next[k];
-    rho_s = rho_next;
     nn::cp_async_wait<nn::U_AHEAD>();  // this thread's copies of u of plane j have landed
     __syncthreads();
   }

@@ -78,6 +78,57 @@ struct NNStepParams {
   int has_nothing;   // a NOTHING site is present (the odd push drops onto it)
 };
 
+// 3. The NN force and the site update of the mode at this thread's tile
+// site of plane p of the march, if that plane is one of the segment's.
+template <bool WELL, int EQ, int MODE>
+__device__ __forceinline__ void update_plane(const nn::March<TY>& mr, int p, int L,
+                                             const float* __restrict__ f,
+                                             float* __restrict__ fout,
+                                             const uint8_t* __restrict__ map,
+                                             float* __restrict__ rho_out,
+                                             float* __restrict__ u_out, int X, int Y, int Z,
+                                             const NNStepParams& P) {
+  int ly, lz;
+  if (p < 2 || p > L + 1 || !nn::tile_site(mr, threadIdx.x, ly, lz)) return;
+  const int64_t N = (int64_t)X * Y * Z;
+  const int x = mr.xs + p - 2, y = mr.y0 + ly, z = mr.z0 + lz;
+  float F[3];
+  nn::force_at(mr, P.r, p, x, ly, lz, mr.rho[(p % nn::RHO_PLANES) * Geo::THREADS + threadIdx.x],
+               F);
+  ABParams ps = P.p;
+  ps.fx = P.p.fx + F[0];
+  ps.fy = P.p.fy + F[1];
+  ps.fz = P.p.fz + F[2];
+  float ux, uy, uz;
+  if constexpr (MODE == MODE_AB) {
+    ab_site<WELL, EQ>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits, ps, ux, uy, uz);
+  } else if constexpr (MODE == MODE_ODD) {
+    aa_odd_site<WELL, EQ, false>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits,
+                                 P.has_nothing != 0, ps, ux, uy, uz);
+  } else {
+    // the even update out of place: same site, opposite slots
+    const int64_t site = ((int64_t)x * Y + y) * Z + z;
+    const uint8_t m = map[site];
+    float r = 1.0f;
+    ux = uy = uz = 0.0f;
+    if (m == GEO_NOTHING) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) fout[q * N + site] = f[q * N + site];
+    } else {
+      float v[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) v[q] = f[q * N + site];
+      site_collide<WELL, EQ>(v, m, ps, r, ux, uy, uz);
+#pragma unroll
+      for (int q = 0; q < Q; ++q) fout[q * N + site] = v[opp(q)];
+    }
+    rho_out[site] = r;
+    u_out[site] = ux;
+    u_out[N + site] = uy;
+    u_out[2 * N + site] = uz;
+  }
+}
+
 template <bool WELL, int EQ, int MODE>
 __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
                                               float* __restrict__ fout,
@@ -120,48 +171,9 @@ __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
     // 2. S of plane j - 2
     const int q = j - nn::S_LAG;
     if (q >= 1 && q <= L + 2) nn::strain_plane(mr, q, threadIdx.x);
-    // 3. the NN force and the site update of the mode at plane j - 4
-    const int p = j - nn::F_LAG;
-    int ly, lz;
-    if (p >= 2 && p <= L + 1 && nn::tile_site(mr, threadIdx.x, ly, lz)) {
-      const int x = mr.xs + p - 2, y = mr.y0 + ly, z = mr.z0 + lz;
-      float F[3];
-      nn::force_at(mr, P.r, p, x, ly, lz,
-                   mr.rho[(p % nn::RHO_PLANES) * Geo::THREADS + threadIdx.x], F);
-      ABParams ps = P.p;
-      ps.fx = P.p.fx + F[0];
-      ps.fy = P.p.fy + F[1];
-      ps.fz = P.p.fz + F[2];
-      float ux, uy, uz;
-      if constexpr (MODE == MODE_AB) {
-        ab_site<WELL, EQ>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits, ps, ux, uy,
-                          uz);
-      } else if constexpr (MODE == MODE_ODD) {
-        aa_odd_site<WELL, EQ, false>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits,
-                                     P.has_nothing != 0, ps, ux, uy, uz);
-      } else {
-        // the even update out of place: same site, opposite slots
-        const int64_t site = ((int64_t)x * Y + y) * Z + z;
-        const uint8_t m = map[site];
-        float r = 1.0f;
-        ux = uy = uz = 0.0f;
-        if (m == GEO_NOTHING) {
-#pragma unroll
-          for (int q = 0; q < Q; ++q) fout[q * N + site] = f[q * N + site];
-        } else {
-          float v[Q];
-#pragma unroll
-          for (int q = 0; q < Q; ++q) v[q] = f[q * N + site];
-          site_collide<WELL, EQ>(v, m, ps, r, ux, uy, uz);
-#pragma unroll
-          for (int q = 0; q < Q; ++q) fout[q * N + site] = v[opp(q)];
-        }
-        rho_out[site] = r;
-        u_out[site] = ux;
-        u_out[N + site] = uy;
-        u_out[2 * N + site] = uz;
-      }
-    }
+    // 3. F and the site update of plane j - 4
+    update_plane<WELL, EQ, MODE>(mr, j - nn::F_LAG, L, f, fout, map, rho_out, u_out, X, Y, Z,
+                                 P);
     __syncthreads();
   }
 }
