@@ -12,11 +12,10 @@ variant in the same process, so that they compare on one card:
 
 - B10 (A-B, A-A even, A-A odd): the kernel (16 x 32 column tiles, one
   block of 512 threads per SM); 8 x 32 tiles at two blocks of 256 threads
-  per SM; every other warp running the site update before u* and S in each
-  step (staggered); u* of a thread's two u slots unrolled (both slots'
-  pulls in flight); the kernel at x segments of 16 and 64 planes against
-  its own 32; without the site update (u*, S and F alone) and the site
-  update alone (no u*, no S, F = 0).
+  per SM; u* of a thread's two u slots unrolled (both slots' pulls in
+  flight); the kernel at x segments of 16 and 64 planes against its own
+  32; without the site update (u*, S and F alone) and the site update
+  alone (no u*, no S, F = 0).
 - B9: the kernel (8 x 32 tiles, three blocks per SM); u loaded into
   registers in the step and stored after its S and F in place of the
   copies two planes ahead (unstaged); copies one plane ahead and three (a
@@ -47,34 +46,31 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from tnl_lbm_tpu_torch.kernels.build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc, kernel_resources
 
 # anchors in the sources (edit them together with the kernels)
-FORCE_TY = "constexpr int FORCE_TY = 8;"
-STEP_TY = "constexpr int STEP_TY = 16;"
+FORCE_TY = "#define NN_TY 8 "
+STEP_TY = "#define NN_TY 16 "
 STEP_BLOCKS = "constexpr int STEP_BLOCKS_PER_SM = 1;"
 FORCE_BLOCKS = "constexpr int FORCE_BLOCKS_PER_SM = 3;"
 RINGS = "constexpr int U_PLANES = 6, S_PLANES = 4, RHO_PLANES = 5;"
 AHEAD = "constexpr int U_AHEAD = 2;"
-U_LOOP = "#pragma unroll 1\n      for (int k = 0; k < Geo::U_PASSES; ++k) {"
+U_LOOP = "#pragma unroll 1\n      for (int k = 0; k < nn::U_PER_THREAD; ++k) {"
 USTAR_PASS = "    if (j < L + 4) {\n      const int x = nn::plane_x(mr, j);"
-STRAIN_STEP = "    if (q >= 1 && q <= L + 2) nn::strain_plane(mr, q, threadIdx.x);"
-UPDATE_CALL = ("    update_plane<WELL, EQ, MODE>(mr, j - nn::F_LAG, L, f, fout, map, rho_out, u_out,"
-               " X, Y, Z,\n                                 P);")
-STEP_START = "    // 1. u* of plane j, at the canonical coordinates"
-AB_SITE = ("    ab_site<WELL, EQ>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits, ps, ux,"
-           " uy, uz);")
-ODD_SITE = ("    aa_odd_site<WELL, EQ, false>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits,"
-            "\n                                 P.has_nothing != 0, ps, ux, uy, uz);")
-EVEN_SITE = "    if (m == GEO_NOTHING) {"
-FORCE_STEP = "  float F[3];\n  nn::force_at("
-COPY = ("#pragma unroll\n        for (int b = 0; b < 3; ++b) nn::cp_async4(dst + b * Geo::U_SLOTS + i,"
+STRAIN_STEP = "    if (q >= 1 && q <= L + 2) nn::strain_plane(mr, q);"
+AB_SITE = ("        ab_site<WELL, EQ>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits, ps,"
+           " ux, uy,\n                          uz);")
+ODD_SITE = ("        aa_odd_site<WELL, EQ, false>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z,"
+            " P.pbits,\n                                     P.has_nothing != 0, ps, ux, uy, uz);")
+EVEN_SITE = "        if (m == GEO_NOTHING) {"
+FORCE_STEP = "      float F[3];\n      nn::force_at("
+COPY = ("#pragma unroll\n        for (int b = 0; b < 3; ++b) nn::cp_async4(dst + b * nn::U_SLOTS + i,"
         " src + b * N);")
 MASK_DECL = "    bool fl[U_PASSES];"
 MASK_LOAD = "        fl[k] = map[xo + (yz >> 16) * Z + (yz & 0xffff)] == lbm::GEO_FLUID;"
-MASK_STORE = ("        if (i < Geo::U_SLOTS) m.fluid[(j % nn::U_PLANES) * Geo::U_SLOTS + i] ="
+MASK_STORE = ("        if (i < nn::U_SLOTS) m.fluid[(j % nn::U_PLANES) * nn::U_SLOTS + i] ="
               " fl[k];")
-STRAIN_FORCE = "    if (q >= 1 && q <= L + 2) nn::strain_plane(m, q, threadIdx.x);"
+STRAIN_FORCE = "    if (q >= 1 && q <= L + 2) nn::strain_plane(m, q);"
 FORCE_B9 = "      nn::force_at(m, r, p, m.xs + p - 2, ly, lz, rho_s, out);"
 #: what stands in for a site update that is dropped: F kept alive
-NO_SITE = "    rho_out[((int64_t)x * Y + y) * Z + z] = ps.fx + ps.fy + ps.fz;"
+NO_SITE = "        rho_out[((int64_t)x * Y + y) * Z + z] = ps.fx + ps.fy + ps.fz;"
 
 
 def _swap(src: str, *pairs) -> str:
@@ -100,26 +96,19 @@ def variants(site: str, step: str, force: str) -> dict:
     step = well_only(step)
     off = lambda anchor, cond: (anchor, anchor.replace(cond, "false && " + cond, 1))  # noqa: E731
     no_update = _swap(step, (AB_SITE, NO_SITE), (ODD_SITE, NO_SITE),
-                      (EVEN_SITE, "    if (true) {\n      fout[site] = ps.fx + ps.fy + ps.fz;\n"
-                                  "    } else if (m == GEO_NOTHING) {"))
+                      (EVEN_SITE, "        if (true) {\n          fout[site] = ps.fx + ps.fy + ps.fz;\n"
+                                  "        } else if (m == GEO_NOTHING) {"))
     return {
         "kernel": (site, step, force, "same"),
-        "tile_8x32": (_swap(site, (STEP_TY, STEP_TY.replace("16", "8")),
-                            (STEP_BLOCKS, STEP_BLOCKS.replace("1", "2"))), step, force, "same"),
-        "staggered": (site, _swap(step, (UPDATE_CALL, "@END@"),
-                                  (STEP_START, "    if ((threadIdx.x / 32) & 1)\n  "
-                                               + UPDATE_CALL.replace("\n", "\n  ") + "\n"
-                                               + STEP_START),
-                                  ("@END@", "    if (!((threadIdx.x / 32) & 1))\n  "
-                                            + UPDATE_CALL.replace("\n", "\n  "))),
-                      force, "same"),
+        "tile_8x32": (_swap(site, (STEP_BLOCKS, STEP_BLOCKS.replace("1", "2"))),
+                      _swap(step, (STEP_TY, STEP_TY.replace("16", "8"))), force, "same"),
         "u_unrolled": (site, _swap(step, (U_LOOP, U_LOOP.replace("unroll 1", "unroll"))), force,
                        "same"),
         "no_update": (site, no_update, force, "dropped work"),
         "update_only": (site, _swap(step, off(USTAR_PASS, "j < L + 4"),
                                     off(STRAIN_STEP, "q >= 1"),
-                                    (FORCE_STEP, "  float F[3] = {0.0f, 0.0f, 0.0f};\n"
-                                                 "  if (false) nn::force_at(")),
+                                    (FORCE_STEP, "      float F[3] = {0.0f, 0.0f, 0.0f};\n"
+                                                 "      if (false) nn::force_at(")),
                         force, "dropped work"),
         "b9_unstaged": (site, step, _swap(
             force, (COPY, "        (void)dst, (void)src;"),
@@ -127,15 +116,14 @@ def variants(site: str, step: str, force: str) -> dict:
             (MASK_LOAD, "#pragma unroll\n        for (int b = 0; b < 3; ++b)\n"
                         "          uv[k][b] = u[b * N + xo + (yz >> 16) * Z + (yz & 0xffff)];\n"
                         + MASK_LOAD),
-            (MASK_STORE, "        if (i < Geo::U_SLOTS) nn::put_u(m, j, i, uv[k][0], uv[k][1],"
+            (MASK_STORE, "        if (i < nn::U_SLOTS) nn::put_u(m, j, i, uv[k][0], uv[k][1],"
                          " uv[k][2], fl[k]);")), "same"),
         "b9_ahead_1": (_swap(site, (AHEAD, AHEAD.replace("2", "1"))), step, force, "same"),
         "b9_ahead_3": (_swap(site, (AHEAD, AHEAD.replace("2", "3")),
                              (RINGS, RINGS.replace("U_PLANES = 6", "U_PLANES = 7"))), step, force,
                        "same"),
-        "b9_tile_16x32": (_swap(site, (FORCE_TY, FORCE_TY.replace("8", "16")),
-                                (FORCE_BLOCKS, FORCE_BLOCKS.replace("3", "1"))), step, force,
-                          "same"),
+        "b9_tile_16x32": (_swap(site, (FORCE_BLOCKS, FORCE_BLOCKS.replace("3", "1"))), step,
+                          _swap(force, (FORCE_TY, FORCE_TY.replace("8", "16"))), "same"),
         "b9_memory_only": (site, step, _swap(force, off(STRAIN_FORCE, "q >= 1"),
                                              (FORCE_B9, "      out[0] = rho_s;\n      out[1] = out[2]"
                                                         " = 0.0f;")), "dropped work"),
@@ -143,8 +131,8 @@ def variants(site: str, step: str, force: str) -> dict:
 
 
 # which kernels each variant is timed on
-B10_MODES = {name: (0, 1, 2) for name in ("kernel", "tile_8x32", "staggered", "u_unrolled",
-                                           "no_update", "update_only")}
+B10_MODES = {name: (0, 1, 2) for name in ("kernel", "tile_8x32", "u_unrolled", "no_update",
+                                           "update_only")}
 B9_VARIANTS = ("kernel", "b9_unstaged", "b9_ahead_1", "b9_ahead_3", "b9_tile_16x32",
                "b9_memory_only")
 

@@ -36,12 +36,14 @@ CSRC = Path(__file__).resolve().parents[1] / "tnl_lbm_tpu_torch" / "csrc"
 NU = 0.02
 
 
-def march_constants() -> dict:
+def march_constants(kernel) -> dict:
     """The integer constants of csrc/nn_site.cuh (each a number, or an
-    expression of the ones before it)."""
-    src = (CSRC / "nn_site.cuh").read_text()
-    consts: dict = {}
-    for decl in re.findall(r"^constexpr int ([^;]+);", src, re.M):
+    expression of the ones before it) as ``kernel`` includes it: the column
+    tile's height NN_TY is the including source's (nn_force.cu for B9,
+    "force"; nn_step.cu for B10, "step")."""
+    source = (CSRC / f"nn_{kernel}.cu").read_text()
+    consts = {"NN_TY": int(re.search(r"^#define NN_TY (\d+)", source, re.M).group(1))}
+    for decl in re.findall(r"^constexpr int ([^;]+);", (CSRC / "nn_site.cuh").read_text(), re.M):
         for item in decl.split(","):
             name, expr = (v.strip() for v in item.split("=", 1))
             # C's integer division is Python's floor division on these
@@ -49,24 +51,15 @@ def march_constants() -> dict:
     return consts
 
 
-K = march_constants()
+#: the constants each kernel compiles with; K holds those they share
+KERNEL_K = {kernel: march_constants(kernel) for kernel in ("force", "step")}
+K = KERNEL_K["force"]
 
 
 def tile(kernel):
-    """The column tile of B9 ("force") or B10 ("step"): nn_site.cuh Tile."""
-    TY, TZ = K["FORCE_TY" if kernel == "force" else "STEP_TY"], K["TZ"]
-    return dict(TY=TY, TZ=TZ, THREADS=TY * TZ, UY=TY + 4, UZ=TZ + 4, SY=TY + 2, SZ=TZ + 2,
-                U_SLOTS=(TY + 4) * (TZ + 4), S_SLOTS=(TY + 2) * (TZ + 2))
-
-
-def smem_bytes(kernel):
-    """nn_site.cuh Tile::smem_bytes: the u and S rings, B10's rho ring, the
-    slot tables (4-byte words), then the mask bytes."""
-    G = tile(kernel)
-    words = (K["U_PLANES"] * 3 * G["U_SLOTS"] + K["S_PLANES"] * 6 * G["S_SLOTS"]
-             + (K["RHO_PLANES"] * G["THREADS"] if kernel == "step" else 0)
-             + G["U_SLOTS"] + G["S_SLOTS"])
-    return 4 * words + K["U_PLANES"] * G["U_SLOTS"]
+    """The column tile of B9 ("force") or B10 ("step")."""
+    return {n: KERNEL_K[kernel][n] for n in ("TY", "TZ", "THREADS", "UY", "UZ", "SY", "SZ",
+                                             "U_SLOTS", "S_SLOTS")}
 
 
 def canonical(g, n, periodic):
@@ -301,12 +294,16 @@ def test_march_constants():
     lags need, and the shared memory the doc states, within an SM's at the
     blocks per SM of each kernel's launch bound (B9 8 x 32 at three, B10
     16 x 32 at one)."""
-    assert (K["FORCE_TY"], K["STEP_TY"], K["TZ"]) == (8, 16, 32)
-    assert (smem_bytes("force"), smem_bytes("step")) == (69424, 130480)
-    for kernel, blocks in (("force", K["FORCE_BLOCKS_PER_SM"]), ("step", K["STEP_BLOCKS_PER_SM"])):
-        assert tile(kernel)["THREADS"] % 32 == 0
-        assert blocks * (smem_bytes(kernel) + 1024) <= 228 * 1024
-        assert blocks * tile(kernel)["THREADS"] * 128 <= 65536 or kernel == "force"
+    force, step = KERNEL_K["force"], KERNEL_K["step"]
+    assert (force["TY"], step["TY"], K["TZ"]) == (8, 16, 32)
+    assert (force["FORCE_SMEM_BYTES"], step["STEP_SMEM_BYTES"]) == (69424, 130480)
+    for k, smem, blocks in ((force, "FORCE_SMEM_BYTES", "FORCE_BLOCKS_PER_SM"),
+                            (step, "STEP_SMEM_BYTES", "STEP_BLOCKS_PER_SM")):
+        assert k["THREADS"] == k["TY"] * k["TZ"] and k["THREADS"] % 32 == 0
+        assert (k["UY"], k["UZ"], k["SY"], k["SZ"]) == (k["TY"] + 4, k["TZ"] + 4, k["TY"] + 2,
+                                                        k["TZ"] + 2)
+        assert k[blocks] * (k[smem] + 1024) <= 228 * 1024
+    assert step["STEP_BLOCKS_PER_SM"] * step["THREADS"] * 128 <= 65536  # 128 registers a thread
     assert K["U_PLANES"] >= K["U_AHEAD"] + K["S_LAG"] + 2  # a copy lands on a plane S has read
 
 
@@ -319,7 +316,7 @@ def test_march_force_equals_the_plain_hook(hook_per):
     ring plane lives from its writer's barrier to its last reader's, and F
     through the rings equals the plain hook, a closed axis clamping the
     coordinate of u, of the mask and of S."""
-    shape = (11, K["STEP_TY"] + 3, K["TZ"] + 8)
+    shape = (11, KERNEL_K["step"]["TY"] + 3, K["TZ"] + 8)
     check_march(shape, hook_per, 4, NN_MODELS["cy"])
 
 
@@ -345,7 +342,7 @@ def test_march_slots_hold_their_coordinates(hook_per):
 def check_slots(kernel, hook_per):
     G = tile(kernel)
     TY, TZ, UY, UZ, SY, SZ = (G[n] for n in ("TY", "TZ", "UY", "UZ", "SY", "SZ"))
-    shape = (6, K["STEP_TY"] + 3, TZ + 5)
+    shape = (6, KERNEL_K["step"]["TY"] + 3, TZ + 5)
     X, Y, Z = shape
     rho, u = (a.astype(np.float64) for a in nn_state(shape, 5))
     fluid = seeded_map(shape, 5) == GEO.FLUID

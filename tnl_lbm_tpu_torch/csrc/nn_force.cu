@@ -38,36 +38,36 @@
 #include <cstdint>
 
 #include "lbm_site.cuh"
+
+#define NN_TY 8  // the column tile: 8 x 32 sites, one thread each
 #include "nn_site.cuh"
 
-constexpr int TY = nn::FORCE_TY;
-using Geo = nn::Tile<TY>;
-constexpr int U_PASSES = Geo::U_PASSES;
+constexpr int U_PASSES = nn::U_PER_THREAD;  // u slots a thread: 2
 
-extern "C" __global__ void __launch_bounds__(Geo::THREADS, nn::FORCE_BLOCKS_PER_SM)
+extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_SM)
     nn_force_kernel(const float* __restrict__ rho, const float* __restrict__ u,
                     const uint8_t* __restrict__ map, float* __restrict__ F, int X, int Y, int Z,
                     int nn_bits, int seg_len, nn::Rheology r) {
   extern __shared__ __align__(16) float smem[];
-  const nn::March<TY> m = nn::march<TY>(smem, false, X, Y, Z, nn_bits, seg_len);
+  const nn::March m = nn::march(smem, false, X, Y, Z, nn_bits, seg_len);
   const int64_t YZ = (int64_t)Y * Z, N = X * YZ;
   const int L = m.xe - m.xs;
   int ly, lz;
-  const bool mine = nn::tile_site(m, threadIdx.x, ly, lz);
+  const bool mine = nn::tile_site(m, ly, lz);
   const int64_t tile_yz = (int64_t)(m.y0 + ly) * Z + m.z0 + lz;
   // u of plane p copied into its ring plane as this thread's next group
   auto copy_u = [&](int p) {
     if (p < L + 4) {
       const int64_t xo = (int64_t)nn::plane_x(m, p) * YZ;
-      float* dst = m.u + (p % nn::U_PLANES) * 3 * Geo::U_SLOTS;
+      float* dst = m.u + (p % nn::U_PLANES) * 3 * nn::U_SLOTS;
 #pragma unroll
       for (int k = 0; k < U_PASSES; ++k) {
-        const int i = nn::u_slot_of<TY>(threadIdx.x, k);
-        if (i >= Geo::U_SLOTS) continue;
+        const int i = nn::u_slot_of(threadIdx.x, k);
+        if (i >= nn::U_SLOTS) continue;
         const int yz = m.uyz[i];
         const float* src = u + xo + (yz >> 16) * Z + (yz & 0xffff);
 #pragma unroll
-        for (int b = 0; b < 3; ++b) nn::cp_async4(dst + b * Geo::U_SLOTS + i, src + b * N);
+        for (int b = 0; b < 3; ++b) nn::cp_async4(dst + b * nn::U_SLOTS + i, src + b * N);
       }
     }
     nn::cp_async_commit();
@@ -82,8 +82,8 @@ extern "C" __global__ void __launch_bounds__(Geo::THREADS, nn::FORCE_BLOCKS_PER_
       const int64_t xo = (int64_t)nn::plane_x(m, j) * YZ;
 #pragma unroll
       for (int k = 0; k < U_PASSES; ++k) {
-        const int i = nn::u_slot_of<TY>(threadIdx.x, k);
-        if (i >= Geo::U_SLOTS) continue;
+        const int i = nn::u_slot_of(threadIdx.x, k);
+        if (i >= nn::U_SLOTS) continue;
         const int yz = m.uyz[i];
         fl[k] = map[xo + (yz >> 16) * Z + (yz & 0xffff)] == lbm::GEO_FLUID;
       }
@@ -93,7 +93,7 @@ extern "C" __global__ void __launch_bounds__(Geo::THREADS, nn::FORCE_BLOCKS_PER_
     const int64_t s = (m.xs + p - 2) * YZ + tile_yz;
     const float rho_s = force ? rho[s] : 0.0f;
     const int q = j - nn::S_LAG;
-    if (q >= 1 && q <= L + 2) nn::strain_plane(m, q, threadIdx.x);
+    if (q >= 1 && q <= L + 2) nn::strain_plane(m, q);
     if (force) {
       float out[3];
       nn::force_at(m, r, p, m.xs + p - 2, ly, lz, rho_s, out);
@@ -103,8 +103,8 @@ extern "C" __global__ void __launch_bounds__(Geo::THREADS, nn::FORCE_BLOCKS_PER_
     if (load) {
 #pragma unroll
       for (int k = 0; k < U_PASSES; ++k) {
-        const int i = nn::u_slot_of<TY>(threadIdx.x, k);
-        if (i < Geo::U_SLOTS) m.fluid[(j % nn::U_PLANES) * Geo::U_SLOTS + i] = fl[k];
+        const int i = nn::u_slot_of(threadIdx.x, k);
+        if (i < nn::U_SLOTS) m.fluid[(j % nn::U_PLANES) * nn::U_SLOTS + i] = fl[k];
       }
     }
     nn::cp_async_wait<nn::U_AHEAD>();  // this thread's copies of u of plane j have landed
@@ -125,32 +125,25 @@ extern "C" int tnl_lbm_nn_force(const float* rho, const float* u, const uint8_t*
   if (Y > 65535 || Z > 65535) return static_cast<int>(cudaErrorInvalidValue);  // y << 16 | z
   const nn::Rheology r{model, nu, nu0_minus_nu, lam, a, expo, k0, k1};
   static const cudaError_t opted = cudaFuncSetAttribute(
-      nn_force_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo::smem_bytes(false));
+      nn_force_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, nn::FORCE_SMEM_BYTES);
   if (opted != cudaSuccess) return static_cast<int>(opted);
-  if (seg_len <= 0) seg_len = nn::auto_seg_len<TY>(X, Y, Z, nn::FORCE_BLOCKS_PER_SM);
-  const int blocks = nn::column_tiles<TY>(Y, Z) * ((X + seg_len - 1) / seg_len);
+  if (seg_len <= 0) seg_len = nn::auto_seg_len(X, Y, Z, nn::FORCE_BLOCKS_PER_SM);
+  const int blocks = nn::column_tiles(Y, Z) * ((X + seg_len - 1) / seg_len);
   const auto s = static_cast<cudaStream_t>(stream);
-  nn_force_kernel<<<blocks, Geo::THREADS, Geo::smem_bytes(false), s>>>(
+  nn_force_kernel<<<blocks, nn::THREADS, nn::FORCE_SMEM_BYTES, s>>>(
       rho, u, map, F, X, Y, Z, nn_bits, seg_len, r);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch geometry of B9 (kind 0) or B10 (kind 1) at a shape: out[0]
-// dynamic shared memory per block (bytes), [1] TY, [2] TZ, [3] the
-// automatic x segment, [4] segments, [5] column tiles, [6] the launch's
-// blocks per SM.
-extern "C" int tnl_lbm_nn_info(int kind, int X, int Y, int Z, int* out) {
-  using S = nn::Tile<nn::STEP_TY>;
-  if (kind != 0 && kind != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int seg = kind == 0 ? nn::auto_seg_len<TY>(X, Y, Z, nn::FORCE_BLOCKS_PER_SM)
-                            : nn::auto_seg_len<nn::STEP_TY>(X, Y, Z, nn::STEP_BLOCKS_PER_SM);
-  const int vals[7] = {kind == 0 ? Geo::smem_bytes(false) : S::smem_bytes(true),
-                       kind == 0 ? TY : nn::STEP_TY,
-                       nn::TZ,
-                       seg,
-                       (X + seg - 1) / seg,
-                       kind == 0 ? nn::column_tiles<TY>(Y, Z) : nn::column_tiles<nn::STEP_TY>(Y, Z),
-                       kind == 0 ? nn::FORCE_BLOCKS_PER_SM : nn::STEP_BLOCKS_PER_SM};
+// The launch geometry of B9 at a shape: out[0] dynamic shared memory per
+// block (bytes), [1] TY, [2] TZ, [3] the automatic x segment, [4] segments,
+// [5] column tiles, [6] the launch's blocks per SM.
+extern "C" int tnl_lbm_nn_force_info(int X, int Y, int Z, int* out) {
+  const int seg = nn::auto_seg_len(X, Y, Z, nn::FORCE_BLOCKS_PER_SM);
+  const int vals[7] = {nn::FORCE_SMEM_BYTES, nn::TY,
+                       nn::TZ,               seg,
+                       (X + seg - 1) / seg,  nn::column_tiles(Y, Z),
+                       nn::FORCE_BLOCKS_PER_SM};
   for (int k = 0; k < 7; ++k) out[k] = vals[k];
   return 0;
 }

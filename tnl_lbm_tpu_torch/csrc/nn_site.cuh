@@ -149,9 +149,19 @@ __device__ __forceinline__ void force(const Rheology& r, SAt s_at, FlAt fl_at, b
 
 // ---------------------------------------------------------------- the march
 
-constexpr int TZ = 32;                      // the column tile's z extent
-constexpr int FORCE_TY = 8;                 // B9's tile: 8 x 32, 256 threads
-constexpr int STEP_TY = 16;                 // B10's: 16 x 32, 512 threads
+// The column tile's height is the including kernel's: NN_TY, 8 in B9
+// (nn_force.cu), 16 in B10 (nn_step.cu).
+#ifndef NN_TY
+#error "define NN_TY, the column tile's height, before including nn_site.cuh"
+#endif
+constexpr int TY = NN_TY, TZ = 32;          // column tile
+constexpr int THREADS = TY * TZ;            // one thread per tile site: 256 (B9), 512 (B10)
+constexpr int UY = TY + 4, UZ = TZ + 4;     // u plane: the tile and a 2-site ring
+constexpr int U_SLOTS = UY * UZ;            // 432 (B9), 720 (B10)
+constexpr int SY = TY + 2, SZ = TZ + 2;     // S plane: the tile and a 1-site ring
+constexpr int S_SLOTS = SY * SZ;            // 340 (B9), 612 (B10)
+constexpr int U_PER_THREAD = (U_SLOTS + THREADS - 1) / THREADS;  // 2
+constexpr int S_PER_THREAD = (S_SLOTS + THREADS - 1) / THREADS;  // 2
 constexpr int S_LAG = 2;                    // step j evaluates S of plane j - 2
 constexpr int F_LAG = 4;                    // and F of plane j - 4
 constexpr int U_PLANES = 6, S_PLANES = 4, RHO_PLANES = 5;
@@ -159,28 +169,16 @@ constexpr int U_AHEAD = 2;                  // B9 copies u of plane j + 2 in ste
 constexpr int SEG_MAX = 32;                 // x planes a block marches at most
 constexpr int STEP_BLOCKS_PER_SM = 1;       // B10's launch bound: 128 registers a thread
 constexpr int FORCE_BLOCKS_PER_SM = 3;      // B9's
-
-// A TY x TZ column tile, one thread a tile site: its u plane (the tile and
-// a 2-site y-z ring) and its S plane (the tile and a 1-site ring).  Dynamic
-// shared memory: u [U_PLANES][3][U_SLOTS] and S [S_PLANES][6][S_SLOTS]
+// Dynamic shared memory: u [U_PLANES][3][U_SLOTS] and S [S_PLANES][6][S_SLOTS]
 // floats, B10's rho [RHO_PLANES][THREADS], the slot tables (the canonical y
 // and z of each u slot, the u slot each S slot reads around), then the mask
 // [U_PLANES][U_SLOTS] bytes: B9 69 424 B at 8 x 32 (three blocks per SM),
 // B10 130 480 B at 16 x 32 (one).
-template <int TY>
-struct Tile {
-  static constexpr int THREADS = TY * TZ;
-  static constexpr int UY = TY + 4, UZ = TZ + 4, U_SLOTS = UY * UZ;
-  static constexpr int SY = TY + 2, SZ = TZ + 2, S_SLOTS = SY * SZ;
-  static constexpr int U_PASSES = (U_SLOTS + THREADS - 1) / THREADS;  // u slots a thread: 2
-  static constexpr int S_PASSES = (S_SLOTS + THREADS - 1) / THREADS;  // S slots a thread: 2
-  static constexpr int RING_FLOATS = U_PLANES * 3 * U_SLOTS + S_PLANES * 6 * S_SLOTS;
-  static constexpr int TABLE_INTS = U_SLOTS + S_SLOTS;
-  static constexpr int smem_bytes(bool step) {
-    return (RING_FLOATS + (step ? RHO_PLANES * THREADS : 0) + TABLE_INTS) * 4 +
-           U_PLANES * U_SLOTS;
-  }
-};
+constexpr int RING_FLOATS = U_PLANES * 3 * U_SLOTS + S_PLANES * 6 * S_SLOTS;
+constexpr int TABLE_INTS = U_SLOTS + S_SLOTS;
+constexpr int FORCE_SMEM_BYTES = (RING_FLOATS + TABLE_INTS) * 4 + U_PLANES * U_SLOTS;
+constexpr int STEP_SMEM_BYTES =
+    (RING_FLOATS + RHO_PLANES * THREADS + TABLE_INTS) * 4 + U_PLANES * U_SLOTS;
 
 // ------------------------------------------------------------ async copies
 // (the same PTX as aa_pair.cu's cp_async4)
@@ -220,7 +218,6 @@ __host__ __device__ __forceinline__ int clamped(int g, int n, bool periodic) {
 }
 
 // The column tiles of a Y x Z plane.
-template <int TY>
 __host__ __device__ __forceinline__ int column_tiles(int Y, int Z) {
   return ((Y + TY - 1) / TY) * ((Z + TZ - 1) / TZ);
 }
@@ -240,9 +237,8 @@ inline int sm_count() {
 // The x segment of one block: at most SEG_MAX planes, and short enough that
 // the blocks fill the card (blocks_per_sm on every SM) when the column
 // tiles alone do not.
-template <int TY>
 inline int auto_seg_len(int X, int Y, int Z, int blocks_per_sm) {
-  const int cols = column_tiles<TY>(Y, Z);
+  const int cols = column_tiles(Y, Z);
   const int segs = std::max(1, std::min(X, (sm_count() * blocks_per_sm + cols - 1) / cols));
   return std::min(SEG_MAX, (X + segs - 1) / segs);
 }
@@ -251,7 +247,6 @@ inline int auto_seg_len(int X, int Y, int Z, int blocks_per_sm) {
 // memory, its tile and its segment.  The slot tables hold what is fixed for
 // the whole march, so that no thread keeps it in registers across the site
 // update.
-template <int TY>
 struct March {
   float* u;        // [U_PLANES][3][U_SLOTS]
   float* S;        // [S_PLANES][6][S_SLOTS]
@@ -265,30 +260,24 @@ struct March {
   bool per[3];     // the hook's periodic axes
 };
 
-// Slot pass k of thread t: u slots in order, S slots in order on the first
-// pass and from the end on the next, so that the threads with two u slots
-// are not those with two S slots.
-template <int TY>
-__device__ __forceinline__ int u_slot_of(int t, int k) { return k * Tile<TY>::THREADS + t; }
-template <int TY>
+// u slot k of thread t: the first pass in order, the second from the end of
+// the S slots' second pass, so that the threads with two u slots are not
+// those with two S slots.
+__device__ __forceinline__ int u_slot_of(int t, int k) { return k * THREADS + t; }
 __device__ __forceinline__ int s_slot_of(int t, int k) {
-  constexpr int NT = Tile<TY>::THREADS;
-  return k == 0 ? t : k * NT + (NT - 1 - t);
+  return k == 0 ? t : k * THREADS + (THREADS - 1 - t);
 }
 
-// The block's march (step: B10's, with the rho ring); fills the slot
-// tables and ends in a block barrier.
-template <int TY>
-__device__ __forceinline__ March<TY> march(void* smem, bool step, int X, int Y, int Z,
-                                           int nn_bits, int seg_len) {
-  using T = Tile<TY>;
-  March<TY> m;
+// The block's march; fills the slot tables and ends in a block barrier.
+__device__ __forceinline__ March march(void* smem, bool with_rho, int X, int Y, int Z,
+                                       int nn_bits, int seg_len) {
+  March m;
   m.u = static_cast<float*>(smem);
-  m.S = m.u + U_PLANES * 3 * T::U_SLOTS;
-  m.rho = m.S + S_PLANES * 6 * T::S_SLOTS;
-  m.uyz = reinterpret_cast<int*>(m.rho + (step ? RHO_PLANES * T::THREADS : 0));
-  m.scu = m.uyz + T::U_SLOTS;
-  m.fluid = reinterpret_cast<uint8_t*>(m.scu + T::S_SLOTS);
+  m.S = m.u + U_PLANES * 3 * U_SLOTS;
+  m.rho = m.S + S_PLANES * 6 * S_SLOTS;
+  m.uyz = reinterpret_cast<int*>(m.rho + (with_rho ? RHO_PLANES * THREADS : 0));
+  m.scu = m.uyz + U_SLOTS;
+  m.fluid = reinterpret_cast<uint8_t*>(m.scu + S_SLOTS);
   m.X = X;
   m.Y = Y;
   m.Z = Z;
@@ -297,49 +286,43 @@ __device__ __forceinline__ March<TY> march(void* smem, bool step, int X, int Y, 
   m.per[2] = nn_bits & 4;
   // block b: column tile b mod ncol of segment b / ncol, so the blocks that
   // run together walk the same x and share their ring rows in L2
-  const int nzt = (Z + TZ - 1) / TZ, ncol = column_tiles<TY>(Y, Z);
+  const int nzt = (Z + TZ - 1) / TZ, ncol = column_tiles(Y, Z);
   const int col = blockIdx.x % ncol, seg = blockIdx.x / ncol;
   m.y0 = (col / nzt) * TY;
   m.z0 = (col % nzt) * TZ;
   m.xs = seg * seg_len;
   m.xe = min(m.xs + seg_len, X);
-  for (int i = threadIdx.x; i < T::U_SLOTS; i += T::THREADS)
-    m.uyz[i] = canonical(m.y0 + i / T::UZ - 2, Y, m.per[1]) << 16 |
-               canonical(m.z0 + i % T::UZ - 2, Z, m.per[2]);
-  for (int i = threadIdx.x; i < T::S_SLOTS; i += T::THREADS)
-    m.scu[i] = (clamped(m.y0 + i / T::SZ - 1, Y, m.per[1]) - m.y0 + 2) * T::UZ +
-               (clamped(m.z0 + i % T::SZ - 1, Z, m.per[2]) - m.z0 + 2);
+  for (int i = threadIdx.x; i < U_SLOTS; i += THREADS)
+    m.uyz[i] = canonical(m.y0 + i / UZ - 2, Y, m.per[1]) << 16 |
+               canonical(m.z0 + i % UZ - 2, Z, m.per[2]);
+  for (int i = threadIdx.x; i < S_SLOTS; i += THREADS)
+    m.scu[i] = (clamped(m.y0 + i / SZ - 1, Y, m.per[1]) - m.y0 + 2) * UZ +
+               (clamped(m.z0 + i % SZ - 1, Z, m.per[2]) - m.z0 + 2);
   __syncthreads();
   return m;
 }
 
-// Tile site t: (ly, lz), and whether it lies in the domain.
-template <int TY>
-__device__ __forceinline__ bool tile_site(const March<TY>& m, int t, int& ly, int& lz) {
-  ly = t / TZ;
-  lz = t % TZ;
+// The tile site of this thread: (ly, lz), and whether it lies in the domain.
+__device__ __forceinline__ bool tile_site(const March& m, int& ly, int& lz) {
+  ly = threadIdx.x / TZ;
+  lz = threadIdx.x % TZ;
   return m.y0 + ly < m.Y && m.z0 + lz < m.Z;
 }
 
 // The canonical x of plane p (x = xs - 2 + p) under the hook's periodicity.
-template <int TY>
-__device__ __forceinline__ int plane_x(const March<TY>& m, int p) {
+__device__ __forceinline__ int plane_x(const March& m, int p) {
   return canonical(m.xs - 2 + p, m.X, m.per[0]);
 }
 
 // The tile site of u slot i (-1 on the ring).
-template <int TY>
 __device__ __forceinline__ int u_tile_site(int i) {
-  constexpr int UZ = Tile<TY>::UZ;
   const int ly = i / UZ - 2, lz = i % UZ - 2;
   return ly >= 0 && ly < TY && lz >= 0 && lz < TZ ? ly * TZ + lz : -1;
 }
 
 // u of slot i of plane p (its ring plane) and its fluidity.
-template <int TY>
-__device__ __forceinline__ void put_u(const March<TY>& m, int p, int i, float ux, float uy,
+__device__ __forceinline__ void put_u(const March& m, int p, int i, float ux, float uy,
                                       float uz, bool fluid) {
-  constexpr int U_SLOTS = Tile<TY>::U_SLOTS;
   float* u = m.u + (p % U_PLANES) * 3 * U_SLOTS + i;
   u[0] = ux;
   u[U_SLOTS] = uy;
@@ -347,59 +330,53 @@ __device__ __forceinline__ void put_u(const March<TY>& m, int p, int i, float ux
   m.fluid[(p % U_PLANES) * U_SLOTS + i] = fluid;
 }
 
-// S of plane q (1 <= q) on the S slots of thread t, from u planes q - 1 ..
-// q + 1.
-template <int TY>
-__device__ __forceinline__ void strain_plane(const March<TY>& m, int q, int t) {
-  using T = Tile<TY>;
+// S of plane q (1 <= q) on this thread's S slots, from u planes q - 1 .. q + 1.
+__device__ __forceinline__ void strain_plane(const March& m, int q) {
   const float* u[3];
   const uint8_t* fl[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    u[d] = m.u + ((q - 1 + d) % U_PLANES) * 3 * T::U_SLOTS;
-    fl[d] = m.fluid + ((q - 1 + d) % U_PLANES) * T::U_SLOTS;
+    u[d] = m.u + ((q - 1 + d) % U_PLANES) * 3 * U_SLOTS;
+    fl[d] = m.fluid + ((q - 1 + d) % U_PLANES) * U_SLOTS;
   }
-  float* Sq = m.S + (q % S_PLANES) * 6 * T::S_SLOTS;
+  float* Sq = m.S + (q % S_PLANES) * 6 * S_SLOTS;
 #pragma unroll
-  for (int k = 0; k < T::S_PASSES; ++k) {
-    const int i = s_slot_of<TY>(t, k);
-    if (i >= T::S_SLOTS) continue;
+  for (int k = 0; k < S_PER_THREAD; ++k) {
+    const int i = s_slot_of(threadIdx.x, k);
+    if (i >= S_SLOTS) continue;
     const int c = m.scu[i];
     // neighbour s along axis a: x from the planes, y and z within one
     auto at = [&](int a, int s) { return a == 0 ? 1 + s : 1; };
-    auto off = [&](int a, int s) { return a == 1 ? s * T::UZ : (a == 2 ? s : 0); };
+    auto off = [&](int a, int s) { return a == 1 ? s * UZ : (a == 2 ? s : 0); };
     float S[6];
-    strain([&](int b, int a, int s) { return u[at(a, s)][b * T::U_SLOTS + c + off(a, s)]; },
+    strain([&](int b, int a, int s) { return u[at(a, s)][b * U_SLOTS + c + off(a, s)]; },
            [&](int a, int s) { return fl[at(a, s)][c + off(a, s)] != 0; }, S);
 #pragma unroll
-    for (int e = 0; e < 6; ++e) Sq[e * T::S_SLOTS + i] = S[e];
+    for (int e = 0; e < 6; ++e) Sq[e * S_SLOTS + i] = S[e];
   }
 }
 
 // F at tile site (ly, lz) of plane p (x = xs - 2 + p, in the domain) with
 // density rho.
-template <int TY>
-__device__ __forceinline__ void force_at(const March<TY>& m, const Rheology& r, int p, int x,
-                                         int ly, int lz, float rho, float (&F)[3]) {
-  using T = Tile<TY>;
+__device__ __forceinline__ void force_at(const March& m, const Rheology& r, int p, int x, int ly,
+                                         int lz, float rho, float (&F)[3]) {
   // along x the S neighbours of a closed face are the face plane itself
   const int pm = (!m.per[0] && x == 0) ? p : p - 1;
   const int pp = (!m.per[0] && x == m.X - 1) ? p : p + 1;
-  const float* S[3] = {m.S + (pm % S_PLANES) * 6 * T::S_SLOTS,
-                       m.S + (p % S_PLANES) * 6 * T::S_SLOTS,
-                       m.S + (pp % S_PLANES) * 6 * T::S_SLOTS};
-  const uint8_t* fl[3] = {m.fluid + ((p - 1) % U_PLANES) * T::U_SLOTS,
-                          m.fluid + (p % U_PLANES) * T::U_SLOTS,
-                          m.fluid + ((p + 1) % U_PLANES) * T::U_SLOTS};
-  const int cs = (ly + 1) * T::SZ + (lz + 1);
-  const int cu = (ly + 2) * T::UZ + (lz + 2);
+  const float* S[3] = {m.S + (pm % S_PLANES) * 6 * S_SLOTS, m.S + (p % S_PLANES) * 6 * S_SLOTS,
+                       m.S + (pp % S_PLANES) * 6 * S_SLOTS};
+  const uint8_t* fl[3] = {m.fluid + ((p - 1) % U_PLANES) * U_SLOTS,
+                          m.fluid + (p % U_PLANES) * U_SLOTS,
+                          m.fluid + ((p + 1) % U_PLANES) * U_SLOTS};
+  const int cs = (ly + 1) * SZ + (lz + 1);
+  const int cu = (ly + 2) * UZ + (lz + 2);
   auto at = [&](int a, int s) { return a == 0 ? 1 + s : 1; };
   force(r,
         [&](int k, int a, int s) {
-          return S[at(a, s)][k * T::S_SLOTS + cs + (a == 1 ? s * T::SZ : (a == 2 ? s : 0))];
+          return S[at(a, s)][k * S_SLOTS + cs + (a == 1 ? s * SZ : (a == 2 ? s : 0))];
         },
         [&](int a, int s) {
-          return fl[at(a, s)][cu + (a == 1 ? s * T::UZ : (a == 2 ? s : 0))] != 0;
+          return fl[at(a, s)][cu + (a == 1 ? s * UZ : (a == 2 ? s : 0))] != 0;
         },
         fl[1][cu] != 0, rho, F);
 }

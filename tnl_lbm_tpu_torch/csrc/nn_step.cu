@@ -60,6 +60,8 @@
 #include <cstdint>
 
 #include "lbm_site.cuh"
+
+#define NN_TY 16  // the column tile: 16 x 32 sites, one thread each
 #include "nn_site.cuh"
 
 using namespace lbm;
@@ -67,8 +69,6 @@ using namespace lbm;
 constexpr int MODE_AB = 0;
 constexpr int MODE_EVEN = 1;
 constexpr int MODE_ODD = 2;
-constexpr int TY = nn::STEP_TY;
-using Geo = nn::Tile<TY>;
 
 struct NNStepParams {
   ABParams p;        // omega, homogeneous force, inflow, neumaier
@@ -78,57 +78,6 @@ struct NNStepParams {
   int has_nothing;   // a NOTHING site is present (the odd push drops onto it)
 };
 
-// 3. The NN force and the site update of the mode at this thread's tile
-// site of plane p of the march, if that plane is one of the segment's.
-template <bool WELL, int EQ, int MODE>
-__device__ __forceinline__ void update_plane(const nn::March<TY>& mr, int p, int L,
-                                             const float* __restrict__ f,
-                                             float* __restrict__ fout,
-                                             const uint8_t* __restrict__ map,
-                                             float* __restrict__ rho_out,
-                                             float* __restrict__ u_out, int X, int Y, int Z,
-                                             const NNStepParams& P) {
-  int ly, lz;
-  if (p < 2 || p > L + 1 || !nn::tile_site(mr, threadIdx.x, ly, lz)) return;
-  const int64_t N = (int64_t)X * Y * Z;
-  const int x = mr.xs + p - 2, y = mr.y0 + ly, z = mr.z0 + lz;
-  float F[3];
-  nn::force_at(mr, P.r, p, x, ly, lz, mr.rho[(p % nn::RHO_PLANES) * Geo::THREADS + threadIdx.x],
-               F);
-  ABParams ps = P.p;
-  ps.fx = P.p.fx + F[0];
-  ps.fy = P.p.fy + F[1];
-  ps.fz = P.p.fz + F[2];
-  float ux, uy, uz;
-  if constexpr (MODE == MODE_AB) {
-    ab_site<WELL, EQ>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits, ps, ux, uy, uz);
-  } else if constexpr (MODE == MODE_ODD) {
-    aa_odd_site<WELL, EQ, false>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits,
-                                 P.has_nothing != 0, ps, ux, uy, uz);
-  } else {
-    // the even update out of place: same site, opposite slots
-    const int64_t site = ((int64_t)x * Y + y) * Z + z;
-    const uint8_t m = map[site];
-    float r = 1.0f;
-    ux = uy = uz = 0.0f;
-    if (m == GEO_NOTHING) {
-#pragma unroll
-      for (int q = 0; q < Q; ++q) fout[q * N + site] = f[q * N + site];
-    } else {
-      float v[Q];
-#pragma unroll
-      for (int q = 0; q < Q; ++q) v[q] = f[q * N + site];
-      site_collide<WELL, EQ>(v, m, ps, r, ux, uy, uz);
-#pragma unroll
-      for (int q = 0; q < Q; ++q) fout[q * N + site] = v[opp(q)];
-    }
-    rho_out[site] = r;
-    u_out[site] = ux;
-    u_out[N + site] = uy;
-    u_out[2 * N + site] = uz;
-  }
-}
-
 template <bool WELL, int EQ, int MODE>
 __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
                                               float* __restrict__ fout,
@@ -137,7 +86,7 @@ __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
                                               float* __restrict__ u_out, int X, int Y, int Z,
                                               int seg_len, const NNStepParams& P) {
   extern __shared__ __align__(16) float smem[];
-  const nn::March<TY> mr = nn::march<TY>(smem, true, X, Y, Z, P.nn_bits, seg_len);
+  const nn::March mr = nn::march(smem, true, X, Y, Z, P.nn_bits, seg_len);
   const int64_t YZ = (int64_t)Y * Z, N = X * YZ;
   const int L = mr.xe - mr.xs;
   for (int j = 0; j < L + nn::F_LAG + 2; ++j) {
@@ -145,9 +94,9 @@ __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
     if (j < L + 4) {
       const int x = nn::plane_x(mr, j);
 #pragma unroll 1
-      for (int k = 0; k < Geo::U_PASSES; ++k) {
-        const int i = nn::u_slot_of<TY>(threadIdx.x, k);
-        if (i >= Geo::U_SLOTS) break;
+      for (int k = 0; k < nn::U_PER_THREAD; ++k) {
+        const int i = nn::u_slot_of(threadIdx.x, k);
+        if (i >= nn::U_SLOTS) break;
         const int y = mr.uyz[i] >> 16, z = mr.uyz[i] & 0xffff;
         const int64_t site = x * YZ + (int64_t)y * Z + z;
         const uint8_t m = map[site];
@@ -164,16 +113,55 @@ __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
         float r, ux, uy, uz;
         moments_local<WELL>(v, P.p.fx, P.p.fy, P.p.fz, P.p.neumaier != 0, r, ux, uy, uz);
         nn::put_u(mr, j, i, ux, uy, uz, m == GEO_FLUID);
-        const int ts = nn::u_tile_site<TY>(i);
-        if (ts >= 0) mr.rho[(j % nn::RHO_PLANES) * Geo::THREADS + ts] = r;
+        const int ts = nn::u_tile_site(i);
+        if (ts >= 0) mr.rho[(j % nn::RHO_PLANES) * nn::THREADS + ts] = r;
       }
     }
     // 2. S of plane j - 2
     const int q = j - nn::S_LAG;
-    if (q >= 1 && q <= L + 2) nn::strain_plane(mr, q, threadIdx.x);
-    // 3. F and the site update of plane j - 4
-    update_plane<WELL, EQ, MODE>(mr, j - nn::F_LAG, L, f, fout, map, rho_out, u_out, X, Y, Z,
-                                 P);
+    if (q >= 1 && q <= L + 2) nn::strain_plane(mr, q);
+    // 3. the NN force and the site update of the mode at plane j - 4
+    const int p = j - nn::F_LAG;
+    int ly, lz;
+    if (p >= 2 && p <= L + 1 && nn::tile_site(mr, ly, lz)) {
+      const int x = mr.xs + p - 2, y = mr.y0 + ly, z = mr.z0 + lz;
+      float F[3];
+      nn::force_at(mr, P.r, p, x, ly, lz, mr.rho[(p % nn::RHO_PLANES) * nn::THREADS + threadIdx.x],
+                   F);
+      ABParams ps = P.p;
+      ps.fx = P.p.fx + F[0];
+      ps.fy = P.p.fy + F[1];
+      ps.fz = P.p.fz + F[2];
+      float ux, uy, uz;
+      if constexpr (MODE == MODE_AB) {
+        ab_site<WELL, EQ>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits, ps, ux, uy,
+                          uz);
+      } else if constexpr (MODE == MODE_ODD) {
+        aa_odd_site<WELL, EQ, false>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits,
+                                     P.has_nothing != 0, ps, ux, uy, uz);
+      } else {
+        // the even update out of place: same site, opposite slots
+        const int64_t site = ((int64_t)x * Y + y) * Z + z;
+        const uint8_t m = map[site];
+        float r = 1.0f;
+        ux = uy = uz = 0.0f;
+        if (m == GEO_NOTHING) {
+#pragma unroll
+          for (int q = 0; q < Q; ++q) fout[q * N + site] = f[q * N + site];
+        } else {
+          float v[Q];
+#pragma unroll
+          for (int q = 0; q < Q; ++q) v[q] = f[q * N + site];
+          site_collide<WELL, EQ>(v, m, ps, r, ux, uy, uz);
+#pragma unroll
+          for (int q = 0; q < Q; ++q) fout[q * N + site] = v[opp(q)];
+        }
+        rho_out[site] = r;
+        u_out[site] = ux;
+        u_out[N + site] = uy;
+        u_out[2 * N + site] = uz;
+      }
+    }
     __syncthreads();
   }
 }
@@ -181,7 +169,7 @@ __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
 // One kernel per (collision, equilibrium kind, mode), named so that the
 // -Xptxas -v report can be read per instance.
 #define NN_STEP_KERNEL(NAME, WELL, EQ, MODE)                                                  \
-  extern "C" __global__ void __launch_bounds__(Geo::THREADS, nn::STEP_BLOCKS_PER_SM)         \
+  extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::STEP_BLOCKS_PER_SM)          \
       NAME(const float* __restrict__ f, float* __restrict__ fout,                             \
            const uint8_t* __restrict__ map, float* __restrict__ rho, float* __restrict__ u,   \
            int X, int Y, int Z, int seg_len, NNStepParams P) {                                \
@@ -224,16 +212,29 @@ extern "C" int tnl_lbm_nn_step(const float* f, float* fout, const uint8_t* map, 
   if (Y > 65535 || Z > 65535) return static_cast<int>(cudaErrorInvalidValue);  // y << 16 | z
   const Kernel kernel = kernels[mode][variant];
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo::smem_bytes(true));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, nn::STEP_SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const NNStepParams P{{1.0f / (3.0f * nu + 0.5f), fx, fy, fz, uin_x, uin_y, uin_z, neumaier},
                        {model, nu, nu0_minus_nu, lam, a, expo, k0, k1},
                        pbits,
                        nn_bits,
                        has_nothing};
-  if (seg_len <= 0) seg_len = nn::auto_seg_len<TY>(X, Y, Z, nn::STEP_BLOCKS_PER_SM);
-  const int blocks = nn::column_tiles<TY>(Y, Z) * ((X + seg_len - 1) / seg_len);
-  kernel<<<blocks, Geo::THREADS, Geo::smem_bytes(true), static_cast<cudaStream_t>(stream)>>>(
+  if (seg_len <= 0) seg_len = nn::auto_seg_len(X, Y, Z, nn::STEP_BLOCKS_PER_SM);
+  const int blocks = nn::column_tiles(Y, Z) * ((X + seg_len - 1) / seg_len);
+  kernel<<<blocks, nn::THREADS, nn::STEP_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       f, fout, map, rho, u, X, Y, Z, seg_len, P);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch geometry of B10 at a shape: out[0] dynamic shared memory per
+// block (bytes), [1] TY, [2] TZ, [3] the automatic x segment, [4] segments,
+// [5] column tiles, [6] the launch's blocks per SM.
+extern "C" int tnl_lbm_nn_step_info(int X, int Y, int Z, int* out) {
+  const int seg = nn::auto_seg_len(X, Y, Z, nn::STEP_BLOCKS_PER_SM);
+  const int vals[7] = {nn::STEP_SMEM_BYTES,  nn::TY,
+                       nn::TZ,               seg,
+                       (X + seg - 1) / seg,  nn::column_tiles(Y, Z),
+                       nn::STEP_BLOCKS_PER_SM};
+  for (int k = 0; k < 7; ++k) out[k] = vals[k];
+  return 0;
 }

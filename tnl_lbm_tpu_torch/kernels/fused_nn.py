@@ -25,7 +25,8 @@ from tnl_lbm_tpu_torch.sim.config import Domain
 
 #: the ``model`` codes of the C entries (csrc/nn_site.cuh)
 _MODELS = {CarreauYasuda: 0, Casson: 1}
-#: keys of :func:`nn_geometry` (csrc/nn_force.cu tnl_lbm_nn_info)
+#: keys of :func:`nn_geometry` (csrc/nn_force.cu tnl_lbm_nn_force_info, csrc/nn_step.cu
+#: tnl_lbm_nn_step_info)
 _GEOMETRY_KEYS = ("smem_bytes", "ty", "tz", "seg_len", "segments", "columns", "blocks_per_sm")
 
 
@@ -63,10 +64,9 @@ def nn_geometry(kind: int, shape, seg_len=None) -> dict:
     column tiles and the launch's blocks per SM (the x segment is the
     kernel's own choice unless ``seg_len`` is set).  Needs the kernel
     library (a CUDA machine)."""
+    lib = load_library()
     out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
-    rc = load_library().tnl_lbm_nn_info(kind, *shape, out)
-    if rc != 0:
-        raise RuntimeError(f"tnl_lbm_nn_info failed: {rc}")
+    (lib.tnl_lbm_nn_force_info, lib.tnl_lbm_nn_step_info)[kind](*shape, out)
     geo = dict(zip(_GEOMETRY_KEYS, out))
     if seg_len is not None:
         geo.update(seg_len=seg_len, segments=-(-shape[0] // seg_len))
