@@ -31,7 +31,12 @@
 // Bound: HBM bytes.  Per site rho (4 B) and u (12 B) and the map (1 B) are
 // read once and F (12 B) written: 29 B/site.  The u ring reads u 1.69 times
 // per site (432 slots for 256 sites) plus 4 planes per segment, the slots
-// beyond the tile mostly from L2; a warp's loads are runs along z.
+// beyond the tile mostly from L2; a warp's loads are runs along z.  What
+// holds it on an H100 (PERF.md, tests/nn_ablation.py): the S and F
+// arithmetic and its shared-memory reads take about half of its time and
+// the march's loads, stores and barriers the other half, one after the
+// other; the copies two planes ahead neither gain nor cost against loads in
+// the step.
 
 #include <cuda_runtime.h>
 

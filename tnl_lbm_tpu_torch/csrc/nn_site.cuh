@@ -19,16 +19,18 @@
 // fast math).
 //
 // The march.  A block owns a y-z column tile of TY x TZ sites (z fastest,
-// one thread a site) and an x segment [xs, xe) of at most SEG_MAX planes,
-// and walks it plane by plane, one step per plane with one block barrier.
-// Step j, for the planes p = 0 .. L + 3 of x = xs - 2 + p (L = xe - xs):
+// one thread a site; TY is the including kernel's NN_TY: B9 8, B10 16) and
+// an x segment [xs, xe) of at most SEG_MAX planes, and walks it plane by
+// plane, one step per plane ending in one block barrier.  Step j, for the
+// planes p = 0 .. L + 3 of x = xs - 2 + p (L = xe - xs):
 //
 //   - u of plane j on the tile and its 2-site y-z ring (UY x UZ slots), and
 //     the fluid mask, into a ring of U_PLANES planes: each slot at its
 //     coordinate wrapped or clamped under the hook's periodicity (the value
 //     at an out-of-domain slot is that of the clamped site: clamp the
-//     coordinate, never the value).  B9 reads u; B10 computes u* (and rho
-//     of the tile sites, into a ring of RHO_PLANES planes);
+//     coordinate, never the value).  B9 copies u (U_AHEAD planes ahead);
+//     B10 computes u* (and rho of the tile sites, into a ring of RHO_PLANES
+//     planes);
 //   - S of plane j - S_LAG on the tile and its 1-site y-z ring (SY x SZ
 //     slots), into a ring of S_PLANES planes, from the u planes on either
 //     side.  A slot outside the domain on a non-periodic y or z axis of the
@@ -42,10 +44,10 @@
 // each ring plane a step writes was last read in an earlier step (the CPU
 // model in tests/test_torch_nn_march.py checks every lifetime).  Each u, S
 // and mask value is computed once per plane and block; the redundant work
-// left is the y-z ring, UY UZ / (TY TZ) = 1.69 u slots and SY SZ / (TY TZ)
-// = 1.33 S slots a site, and 4 extra u planes per segment.  The
-// coordinates of a thread's slots within a plane are fixed for the whole
-// march, so each is computed once, before it.
+// left is the y-z ring, UY UZ / (TY TZ) u slots a site (1.69 at 8 x 32,
+// 1.41 at 16 x 32) and SY SZ / (TY TZ) S slots (1.33, 1.20), and 4 extra u
+// planes per segment.  The coordinates of a thread's slots within a plane
+// are fixed for the whole march, so each is computed once, before it.
 
 #pragma once
 

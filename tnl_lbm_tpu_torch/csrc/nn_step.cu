@@ -45,10 +45,12 @@
 // site's DFs again, four planes after its u* pull read them, mostly from
 // L2 (keeping them in shared memory instead leaves room for one block of
 // 8 warps per SM, which ran slower: PERF.md).  130 480 B of shared memory
-// and 128 registers a thread: one block of 512 threads per SM.  Where the
-// time goes (tests/nn_ablation.py): the u*, S and F parts and the site
-// update add up, each about as costly as the pipeline kernel that does the
-// same work alone.
+// and 128 registers a thread (the A-B and odd instances spill a few dozen
+// bytes): one block of 512 threads per SM.  Where the time goes
+// (tests/nn_ablation.py): the u*, S and F parts and the site update add up,
+// each about as costly as the pipeline kernel that does the same work
+// alone, so the one-kernel step is slower than the pipeline on the A-B and
+// odd steps and faster on the even step (PERF.md).
 //
 // Bound: HBM bytes.  Per site the step must read 27 f32 and the map and
 // write 27 f32 and rho and u: 233 B/site, the A-B step's.  The ring's pulls
