@@ -13,7 +13,8 @@ variant in the same process, so that they compare on one card:
 - B10 (A-B, A-A even, A-A odd): the kernel (16 x 32 column tiles, one
   block of 512 threads per SM); 8 x 32 tiles at two blocks of 256 threads
   per SM; 12 x 32 tiles (one block of 384 threads, up to 168 registers a
-  thread); u* of a thread's two u slots unrolled (both slots' pulls in
+  thread); 8 x 32 tiles at three blocks per SM and 12 x 32 at two (up to 85
+  registers a thread, 24 warps); u* of a thread's two u slots unrolled (both slots' pulls in
   flight); the kernel at x segments of 16 and 64 planes against its own
   32; without the site update (u*, S and F alone) and the site update
   alone (no u*, no S, F = 0).
@@ -104,6 +105,11 @@ def variants(site: str, step: str, force: str) -> dict:
         "tile_8x32": (_swap(site, (STEP_BLOCKS, STEP_BLOCKS.replace("1", "2"))),
                       _swap(step, (STEP_TY, STEP_TY.replace("16", "8"))), force, "same"),
         "tile_12x32": (site, _swap(step, (STEP_TY, STEP_TY.replace("16", "12"))), force, "same"),
+        "tile_8x32_3_blocks": (_swap(site, (STEP_BLOCKS, STEP_BLOCKS.replace("1", "3"))),
+                               _swap(step, (STEP_TY, STEP_TY.replace("16", "8"))), force, "same"),
+        "tile_12x32_2_blocks": (_swap(site, (STEP_BLOCKS, STEP_BLOCKS.replace("1", "2"))),
+                                _swap(step, (STEP_TY, STEP_TY.replace("16", "12"))), force,
+                                "same"),
         "u_unrolled": (site, _swap(step, (U_LOOP, U_LOOP.replace("unroll 1", "unroll"))), force,
                        "same"),
         "no_update": (site, no_update, force, "dropped work"),
@@ -133,8 +139,9 @@ def variants(site: str, step: str, force: str) -> dict:
 
 
 # which kernels each variant is timed on
-B10_MODES = {name: (0, 1, 2) for name in ("kernel", "tile_8x32", "tile_12x32", "u_unrolled",
-                                           "no_update", "update_only")}
+B10_MODES = {name: (0, 1, 2) for name in ("kernel", "tile_8x32", "tile_12x32",
+                                           "tile_8x32_3_blocks", "tile_12x32_2_blocks",
+                                           "u_unrolled", "no_update", "update_only")}
 B9_VARIANTS = ("kernel", "b9_unstaged", "b9_ahead_1", "b9_ahead_3", "b9_tile_16x32",
                "b9_memory_only")
 

@@ -262,9 +262,9 @@ struct March {
   bool per[3];     // the hook's periodic axes
 };
 
-// u slot k of thread t: the first pass in order, the second from the end of
-// the S slots' second pass, so that the threads with two u slots are not
-// those with two S slots.
+// Slot pass k of thread t: u slots in order; S slots in order on the first
+// pass and from the end on the second, so that the threads with two u slots
+// are not those with two S slots.
 __device__ __forceinline__ int u_slot_of(int t, int k) { return k * THREADS + t; }
 __device__ __forceinline__ int s_slot_of(int t, int k) {
   return k == 0 ? t : k * THREADS + (THREADS - 1 - t);
