@@ -18,11 +18,9 @@ variant in the same process, so that they compare on one card:
   flight); the kernel at x segments of 16 and 64 planes against its own
   32; without the site update (u*, S and F alone) and the site update
   alone (no u*, no S, F = 0).
-- B9: the kernel (8 x 32 tiles, three blocks per SM); u loaded into
-  registers in the step and stored after its S and F in place of the
-  copies two planes ahead (unstaged); copies one plane ahead and three (a
-  ring one plane deeper); 16 x 32 tiles (one block per SM); x segments of
-  8, 16 and 64; the copies, loads and stores alone (no S, no F).
+- B9: the kernel (8 x 32 tiles, three blocks per SM); 16 x 32 tiles (one
+  block per SM); x segments of 8, 16 and 64; the loads and stores alone
+  (no S, no F).
 
 Every variant that keeps the function is first checked bit-equal to the
 committed kernel (the package's build); variants that drop work compute
@@ -52,8 +50,6 @@ FORCE_TY = "#define NN_TY 8 "
 STEP_TY = "#define NN_TY 16 "
 STEP_BLOCKS = "constexpr int STEP_BLOCKS_PER_SM = 1;"
 FORCE_BLOCKS = "constexpr int FORCE_BLOCKS_PER_SM = 3;"
-RINGS = "constexpr int U_PLANES = 6, S_PLANES = 4, RHO_PLANES = 5;"
-AHEAD = "constexpr int U_AHEAD = 2;"
 U_LOOP = "#pragma unroll 1\n      for (int k = 0; k < nn::U_PER_THREAD; ++k) {"
 USTAR_PASS = "    if (j < L + 4) {\n      const int x = nn::plane_x(mr, j);"
 STRAIN_STEP = "    if (q >= 1 && q <= L + 2) nn::strain_plane(mr, q);"
@@ -63,12 +59,6 @@ ODD_SITE = ("        aa_odd_site<WELL, EQ, false>(f, fout, map, rho_out, u_out, 
             " P.pbits,\n                                     P.has_nothing != 0, ps, ux, uy, uz);")
 EVEN_SITE = "        if (m == GEO_NOTHING) {"
 FORCE_STEP = "      float F[3];\n      nn::force_at("
-COPY = ("#pragma unroll\n        for (int b = 0; b < 3; ++b) nn::cp_async4(dst + b * nn::U_SLOTS + i,"
-        " src + b * N);")
-MASK_DECL = "    bool fl[U_PASSES];"
-MASK_LOAD = "        fl[k] = map[xo + (yz >> 16) * Z + (yz & 0xffff)] == lbm::GEO_FLUID;"
-MASK_STORE = ("        if (i < nn::U_SLOTS) m.fluid[(j % nn::U_PLANES) * nn::U_SLOTS + i] ="
-              " fl[k];")
 STRAIN_FORCE = "    if (q >= 1 && q <= L + 2) nn::strain_plane(m, q);"
 FORCE_B9 = "      nn::force_at(m, r, p, m.xs + p - 2, ly, lz, rho_s, out);"
 #: what stands in for a site update that is dropped: F kept alive
@@ -98,7 +88,8 @@ def variants(site: str, step: str, force: str) -> dict:
     step = well_only(step)
     off = lambda anchor, cond: (anchor, anchor.replace(cond, "false && " + cond, 1))  # noqa: E731
     no_update = _swap(step, (AB_SITE, NO_SITE), (ODD_SITE, NO_SITE),
-                      (EVEN_SITE, "        if (true) {\n          fout[site] = ps.fx + ps.fy + ps.fz;\n"
+                      (EVEN_SITE, "        if (true) {\n"
+                                  "          fout[site] = ps.fx + ps.fy + ps.fz;\n"
                                   "        } else if (m == GEO_NOTHING) {"))
     return {
         "kernel": (site, step, force, "same"),
@@ -118,23 +109,12 @@ def variants(site: str, step: str, force: str) -> dict:
                                     (FORCE_STEP, "      float F[3] = {0.0f, 0.0f, 0.0f};\n"
                                                  "      if (false) nn::force_at(")),
                         force, "dropped work"),
-        "b9_unstaged": (site, step, _swap(
-            force, (COPY, "        (void)dst, (void)src;"),
-            (MASK_DECL, MASK_DECL + "\n    float uv[U_PASSES][3];"),
-            (MASK_LOAD, "#pragma unroll\n        for (int b = 0; b < 3; ++b)\n"
-                        "          uv[k][b] = u[b * N + xo + (yz >> 16) * Z + (yz & 0xffff)];\n"
-                        + MASK_LOAD),
-            (MASK_STORE, "        if (i < nn::U_SLOTS) nn::put_u(m, j, i, uv[k][0], uv[k][1],"
-                         " uv[k][2], fl[k]);")), "same"),
-        "b9_ahead_1": (_swap(site, (AHEAD, AHEAD.replace("2", "1"))), step, force, "same"),
-        "b9_ahead_3": (_swap(site, (AHEAD, AHEAD.replace("2", "3")),
-                             (RINGS, RINGS.replace("U_PLANES = 6", "U_PLANES = 7"))), step, force,
-                       "same"),
         "b9_tile_16x32": (_swap(site, (FORCE_BLOCKS, FORCE_BLOCKS.replace("3", "1"))), step,
                           _swap(force, (FORCE_TY, FORCE_TY.replace("8", "16"))), "same"),
         "b9_memory_only": (site, step, _swap(force, off(STRAIN_FORCE, "q >= 1"),
-                                             (FORCE_B9, "      out[0] = rho_s;\n      out[1] = out[2]"
-                                                        " = 0.0f;")), "dropped work"),
+                                             (FORCE_B9, "      out[0] = rho_s;\n"
+                                                        "      out[1] = out[2] = 0.0f;")),
+                           "dropped work"),
     }
 
 
@@ -142,8 +122,7 @@ def variants(site: str, step: str, force: str) -> dict:
 B10_MODES = {name: (0, 1, 2) for name in ("kernel", "tile_8x32", "tile_12x32",
                                            "tile_8x32_3_blocks", "tile_12x32_2_blocks",
                                            "u_unrolled", "no_update", "update_only")}
-B9_VARIANTS = ("kernel", "b9_unstaged", "b9_ahead_1", "b9_ahead_3", "b9_tile_16x32",
-               "b9_memory_only")
+B9_VARIANTS = ("kernel", "b9_tile_16x32", "b9_memory_only")
 
 
 def build(out: Path, table: dict) -> dict:

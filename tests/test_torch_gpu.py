@@ -647,19 +647,20 @@ def test_nn_kernels_match_plain_on_x_segments(cuda, X, seg_len):
     last planes of every segment against the plain versions."""
     import dataclasses
 
-    from tnl_lbm_tpu_torch.kernels.fused_nn import make_nn_force_kernel
+    from tnl_lbm_tpu_torch.kernels.fused_nn import make_nn_force_kernel, nn_geometry
     from tnl_lbm_tpu_torch.kernels.fused_nn_step import make_fused_nn_step
     from tnl_lbm_tpu_torch.ops.non_newtonian import make_nn_forcing_hook
     from torch_cases import NN_MODELS, nn_case
 
     m, periodic, model, per = nn_case("duct", shape=(X, 20, 40))
     dom = interop.domain_from_numpy(m, periodic)
+    for kind in (0, 1):  # the automatic segments cover X
+        geo = nn_geometry(kind, dom.shape)
+        assert geo["segments"] == -(-X // geo["seg_len"]) and geo["seg_len"] <= 32
     rho, u = nn_inputs(dom.shape, cuda, seed=8)
     for hook_per in (per, None):
         b9 = make_nn_force_kernel(NN_MODELS[model], dom, cuda, periodic=hook_per,
                                   seg_len=seg_len)
-        geo = b9.geometry()
-        assert geo["segments"] == -(-X // geo["seg_len"])
         fk, fp = b9(rho, u, 0.02), b9.plain(rho, u, 0.02)
         torch.cuda.synchronize()
         scale = float(fp.abs().max())

@@ -105,13 +105,12 @@ class Ring:
         self.last_read = [-(10**9)] * planes
         self.events = []  # (ring, written from step, previous content last read at)
 
-    def write(self, p, step, value, ready=None):
-        """Plane p written from ``step`` on (an async copy lands by the
-        barrier of step ``ready``; a store by its own step's)."""
+    def write(self, p, step, value):
+        """Plane p stored in ``step``, readable after that step's barrier."""
         b = p % len(self.plane)
         self.events.append((self.name, step, self.last_read[b]))
         self.data[b] = value
-        self.plane[b], self.ready[b] = p, step if ready is None else ready
+        self.plane[b], self.ready[b] = p, step
         self.last_read[b] = -(10**9)
 
     def read(self, p, step):
@@ -127,13 +126,13 @@ def march(u, rho, fluid, hook_per, seg_len, model, kernel="force"):
     """The march of nn_site.cuh over every block: F [3, X, Y, Z], how often
     each site was the tile's, and each ring's (write step, previous
     content's last read step) events.  ``u`` and ``rho`` are the sources of
-    the u ring and of F's rho, float64.  ``kernel`` "force" is B9's march: u
-    staged by async copies U_AHEAD planes ahead, rho from global memory, F
-    stored by the step; "step" is B10's: u* and rho0 computed into their
-    rings in the step, F taken by the site update in the same step."""
+    the u ring and of F's rho, float64.  ``kernel`` "force" is B9's march:
+    rho from global memory, F stored by the step; "step" is B10's: rho0
+    from its ring, F taken by the site update in the same step.  Both store
+    u (B10: u*) of the incoming plane in the step."""
     G = tile(kernel)
     TY, TZ, UY, UZ, SY, SZ = (G[n] for n in ("TY", "TZ", "UY", "UZ", "SY", "SZ"))
-    SL, FL, UA = K["S_LAG"], K["F_LAG"], K["U_AHEAD"]
+    SL, FL = K["S_LAG"], K["F_LAG"]
     X, Y, Z = fluid.shape
     px, py, pz = hook_per
     F = np.full((3, X, Y, Z), np.nan)
@@ -159,22 +158,13 @@ def march(u, rho, fluid, hook_per, seg_len, model, kernel="force"):
             rf = Ring("mask", K["U_PLANES"], (UY, UZ))
             rs = Ring("S", K["S_PLANES"], (6, SY, SZ))
             rr = Ring("rho", K["RHO_PLANES"], (TY, TZ))
-
-            def u_plane(p):
-                return u[:, canonical(xs - 2 + p, X, px)][:, uy][:, :, uz]
-
-            if kernel == "force":  # the copies issued before step 0
-                for p in range(UA):
-                    ru.write(p, p - UA, u_plane(p), ready=p)
             for j in range(L + FL + 2):
-                if kernel == "force" and j + UA < L + 4:  # u of plane j + U_AHEAD, copied
-                    ru.write(j + UA, j, u_plane(j + UA), ready=j + UA)
-                if j < L + 4:  # u* (B10), the mask and rho0 (B10) of plane j
+                if j < L + 4:  # u (B10: u*), the mask and rho0 (B10) of plane j
                     x = canonical(xs - 2 + j, X, px)
-                    if kernel == "step":
-                        ru.write(j, j, u_plane(j))
-                        rr.write(j, j, rho[x][uy[2:2 + TY]][:, uz[2:2 + TZ]])
+                    ru.write(j, j, u[:, x][:, uy][:, :, uz])
                     rf.write(j, j, fluid[x][uy][:, uz])
+                    if kernel == "step":
+                        rr.write(j, j, rho[x][uy[2:2 + TY]][:, uz[2:2 + TZ]])
                 q = j - SL
                 if 1 <= q <= L + 2:  # S of plane q
                     up = [ru.read(q + d, j) for d in (-1, 0, 1)]
@@ -304,7 +294,6 @@ def test_march_constants():
                                                         k["TZ"] + 2)
         assert k[blocks] * (k[smem] + 1024) <= 228 * 1024
     assert step["STEP_BLOCKS_PER_SM"] * step["THREADS"] * 128 <= 65536  # 128 registers a thread
-    assert K["U_PLANES"] >= K["U_AHEAD"] + K["S_LAG"] + 2  # a copy lands on a plane S has read
 
 
 @pytest.mark.parametrize("hook_per", _PERIODIC,
@@ -401,14 +390,12 @@ def test_march_uses_the_hooks_periodicity_for_b10():
     assert np.abs(other - want).max() > 1e-3 * np.abs(want).max()  # the flags differ
 
 
-@pytest.mark.parametrize("const, kernel", [("U_PLANES", "step"), ("U_AHEAD", "force")])
-def test_march_with_a_ring_too_shallow_or_a_copy_too_far_ahead_is_caught(monkeypatch, const,
-                                                                         kernel):
-    """A u ring one plane shallower than the header's (step j would overwrite
-    the mask plane that F of plane j - F_LAG still reads) and u copied one
-    plane further ahead in a ring of the same depth (the copy would land on
-    a plane S still reads): the model catches each."""
-    monkeypatch.setitem(K, const, K[const] + (1 if const == "U_AHEAD" else -1))
+@pytest.mark.parametrize("kernel", MARCHES)
+def test_march_with_a_ring_too_shallow_is_caught(monkeypatch, kernel):
+    """A u ring one plane shallower than the header's would let step j
+    overwrite the mask plane that F of plane j - F_LAG still reads: the
+    model's lifetime check catches it."""
+    monkeypatch.setitem(K, "U_PLANES", K["U_PLANES"] - 1)
     shape = (9, 5, 8)
     rho, u = (a.astype(np.float64) for a in nn_state(shape, 1))
     fluid = np.ones(shape, bool)

@@ -19,14 +19,12 @@
 //
 // Design (nn_site.cuh, the march B10 shares): a block of 256 threads owns an
 // 8 x 32 y-z column tile and walks an x segment of at most 32 planes, one
-// step a plane and one block barrier a step: it evaluates S on the plane two
-// behind the incoming one (the tile and a 1-site ring) and writes F of the
-// plane four behind it.  u of the tile and its 2-site y-z ring, at the
-// canonical coordinates, is staged into the u ring by 4-byte cp.async
-// copies issued two planes ahead, so two planes of loads are in flight
-// behind each step's arithmetic; the fluid mask of the incoming plane is
-// loaded into registers and stored after the step's S and F.  69 424 B of
-// shared memory: three blocks per SM.
+// step a plane and one block barrier a step: it loads u and the mask of the
+// incoming plane on the tile and a 2-site y-z ring, at the canonical
+// coordinates, into registers, evaluates S on the plane two behind (the
+// tile and a 1-site ring) and F of the plane four behind, then stores the
+// loaded plane into the u ring, so the loads are in flight behind the
+// step's arithmetic.  69 424 B of shared memory: three blocks per SM.
 //
 // Bound: HBM bytes.  Per site rho (4 B) and u (12 B) and the map (1 B) are
 // read once and F (12 B) written: 29 B/site.  The u ring reads u 1.69 times
@@ -35,8 +33,7 @@
 // holds it on an H100 (PERF.md, tests/nn_ablation.py): the S and F
 // arithmetic and its shared-memory reads take about half of its time and
 // the march's loads, stores and barriers the other half, one after the
-// other; the copies two planes ahead neither gain nor cost against loads in
-// the step.
+// other; staging u by cp.async two planes ahead gained nothing.
 
 #include <cuda_runtime.h>
 
@@ -47,7 +44,6 @@
 #define NN_TY 8  // the column tile: 8 x 32 sites, one thread each
 #include "nn_site.cuh"
 
-constexpr int U_PASSES = nn::U_PER_THREAD;  // u slots a thread: 2
 
 extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_SM)
     nn_force_kernel(const float* __restrict__ rho, const float* __restrict__ u,
@@ -60,37 +56,22 @@ extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_S
   int ly, lz;
   const bool mine = nn::tile_site(m, ly, lz);
   const int64_t tile_yz = (int64_t)(m.y0 + ly) * Z + m.z0 + lz;
-  // u of plane p copied into its ring plane as this thread's next group
-  auto copy_u = [&](int p) {
-    if (p < L + 4) {
-      const int64_t xo = (int64_t)nn::plane_x(m, p) * YZ;
-      float* dst = m.u + (p % nn::U_PLANES) * 3 * nn::U_SLOTS;
-#pragma unroll
-      for (int k = 0; k < U_PASSES; ++k) {
-        const int i = nn::u_slot_of(threadIdx.x, k);
-        if (i >= nn::U_SLOTS) continue;
-        const int yz = m.uyz[i];
-        const float* src = u + xo + (yz >> 16) * Z + (yz & 0xffff);
-#pragma unroll
-        for (int b = 0; b < 3; ++b) nn::cp_async4(dst + b * nn::U_SLOTS + i, src + b * N);
-      }
-    }
-    nn::cp_async_commit();
-  };
-  for (int p = 0; p < nn::U_AHEAD; ++p) copy_u(p);
   for (int j = 0; j < L + nn::F_LAG + 2; ++j) {
-    copy_u(j + nn::U_AHEAD);
-    // the mask of plane j, loaded now and stored after S and F
+    // u and the mask of plane j, loaded now and stored after S and F
     const bool load = j < L + 4;
-    bool fl[U_PASSES];
+    float uv[nn::U_PER_THREAD][3];
+    bool fl[nn::U_PER_THREAD];
     if (load) {
       const int64_t xo = (int64_t)nn::plane_x(m, j) * YZ;
 #pragma unroll
-      for (int k = 0; k < U_PASSES; ++k) {
+      for (int k = 0; k < nn::U_PER_THREAD; ++k) {
         const int i = nn::u_slot_of(threadIdx.x, k);
         if (i >= nn::U_SLOTS) continue;
         const int yz = m.uyz[i];
-        fl[k] = map[xo + (yz >> 16) * Z + (yz & 0xffff)] == lbm::GEO_FLUID;
+        const int64_t s = xo + (yz >> 16) * Z + (yz & 0xffff);
+#pragma unroll
+        for (int b = 0; b < 3; ++b) uv[k][b] = u[b * N + s];
+        fl[k] = map[s] == lbm::GEO_FLUID;
       }
     }
     const int p = j - nn::F_LAG;
@@ -107,12 +88,11 @@ extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_S
     }
     if (load) {
 #pragma unroll
-      for (int k = 0; k < U_PASSES; ++k) {
+      for (int k = 0; k < nn::U_PER_THREAD; ++k) {
         const int i = nn::u_slot_of(threadIdx.x, k);
-        if (i < nn::U_SLOTS) m.fluid[(j % nn::U_PLANES) * nn::U_SLOTS + i] = fl[k];
+        if (i < nn::U_SLOTS) nn::put_u(m, j, i, uv[k][0], uv[k][1], uv[k][2], fl[k]);
       }
     }
-    nn::cp_async_wait<nn::U_AHEAD>();  // this thread's copies of u of plane j have landed
     __syncthreads();
   }
 }

@@ -28,9 +28,8 @@
 //     the fluid mask, into a ring of U_PLANES planes: each slot at its
 //     coordinate wrapped or clamped under the hook's periodicity (the value
 //     at an out-of-domain slot is that of the clamped site: clamp the
-//     coordinate, never the value).  B9 copies u (U_AHEAD planes ahead);
-//     B10 computes u* (and rho of the tile sites, into a ring of RHO_PLANES
-//     planes);
+//     coordinate, never the value).  B9 reads u; B10 computes u* (and rho
+//     of the tile sites, into a ring of RHO_PLANES planes);
 //   - S of plane j - S_LAG on the tile and its 1-site y-z ring (SY x SZ
 //     slots), into a ring of S_PLANES planes, from the u planes on either
 //     side.  A slot outside the domain on a non-periodic y or z axis of the
@@ -167,7 +166,6 @@ constexpr int S_PER_THREAD = (S_SLOTS + THREADS - 1) / THREADS;  // 2
 constexpr int S_LAG = 2;                    // step j evaluates S of plane j - 2
 constexpr int F_LAG = 4;                    // and F of plane j - 4
 constexpr int U_PLANES = 6, S_PLANES = 4, RHO_PLANES = 5;
-constexpr int U_AHEAD = 2;                  // B9 copies u of plane j + 2 in step j
 constexpr int SEG_MAX = 32;                 // x planes a block marches at most
 constexpr int STEP_BLOCKS_PER_SM = 1;       // B10's launch bound: 128 registers a thread
 constexpr int FORCE_BLOCKS_PER_SM = 3;      // B9's
@@ -181,29 +179,6 @@ constexpr int TABLE_INTS = U_SLOTS + S_SLOTS;
 constexpr int FORCE_SMEM_BYTES = (RING_FLOATS + TABLE_INTS) * 4 + U_PLANES * U_SLOTS;
 constexpr int STEP_SMEM_BYTES =
     (RING_FLOATS + RHO_PLANES * THREADS + TABLE_INTS) * 4 + U_PLANES * U_SLOTS;
-
-// ------------------------------------------------------------ async copies
-// (the same PTX as aa_pair.cu's cp_async4)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// A 4-byte copy from global to shared memory, in this thread's open group.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // g wrapped (periodic) or clamped into [0, n).
 __host__ __device__ __forceinline__ int canonical(int g, int n, bool periodic) {

@@ -58,19 +58,15 @@ def check_seg_len(seg_len):
     return seg_len
 
 
-def nn_geometry(kind: int, shape, seg_len=None) -> dict:
+def nn_geometry(kind: int, shape) -> dict:
     """The launch geometry of B9 (``kind`` 0) or B10 (1) at ``shape``:
-    shared memory per block, column tile, x segment length and count,
-    column tiles and the launch's blocks per SM (the x segment is the
-    kernel's own choice unless ``seg_len`` is set).  Needs the kernel
-    library (a CUDA machine)."""
+    shared memory per block, column tile, the automatic x segment length
+    and count, column tiles and the launch's blocks per SM.  Needs the
+    kernel library (a CUDA machine)."""
     lib = load_library()
     out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
     (lib.tnl_lbm_nn_force_info, lib.tnl_lbm_nn_step_info)[kind](*shape, out)
-    geo = dict(zip(_GEOMETRY_KEYS, out))
-    if seg_len is not None:
-        geo.update(seg_len=seg_len, segments=-(-shape[0] // seg_len))
-    return geo
+    return dict(zip(_GEOMETRY_KEYS, out))
 
 
 class NNForce:
@@ -105,10 +101,6 @@ class NNForce:
 
     def reset_counts(self) -> None:
         self.kernel.launches = self.plain_calls = 0
-
-    def geometry(self) -> dict:
-        """The kernel's launch geometry at this shape (:func:`nn_geometry`)."""
-        return nn_geometry(0, self.shape, self.seg_len)
 
     def __call__(self, rho, u, nu):
         if rho.device.type == "cuda":

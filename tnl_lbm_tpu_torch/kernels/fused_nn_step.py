@@ -34,7 +34,7 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     host_vector3,
     kernel_codes,
 )
-from tnl_lbm_tpu_torch.kernels.fused_nn import check_seg_len, nn_bits, nn_geometry, rheology_args
+from tnl_lbm_tpu_torch.kernels.fused_nn import check_seg_len, nn_bits, rheology_args
 from tnl_lbm_tpu_torch.ops.boundary import GEO
 from tnl_lbm_tpu_torch.ops.non_newtonian import make_nn_forcing_hook
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
@@ -106,10 +106,6 @@ class FusedNNStep:
 
     def reset_counts(self) -> None:
         self.ab.launches = self.even.launches = self.odd.launches = self.plain_calls = 0
-
-    def geometry(self) -> dict:
-        """The kernel's launch geometry at this shape (``fused_nn.nn_geometry``)."""
-        return nn_geometry(1, self.shape, self.seg_len)
 
     def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None):
         parity = parity if self.streaming == "AA" else 0
