@@ -638,29 +638,22 @@ def test_nn_step_kernel_matches_plain_on_card(cuda, kind, streaming):
     assert step.ab.launches + step.even.launches + step.odd.launches == 4
 
 
-@pytest.mark.parametrize("seg_len", [5, None], ids=["seg5", "auto"])
-@pytest.mark.parametrize("X", [12, 3], ids=["x12", "x3"])
-def test_nn_kernels_match_plain_on_x_segments(cuda, X, seg_len):
-    """B9 and B10 (A-B; A-A even and odd) on the wall duct with X = 12 (not a
-    multiple of a 5-plane segment) and X = 3 (shorter than any segment),
-    the hook wrapped as the domain and, for B9, not: the march's first and
-    last planes of every segment against the plain versions."""
+def nn_kernels_match_plain(cuda, shape, n_steps=2):
+    """B9 and B10 (A-B; A-A even and odd) on the wall duct of ``shape``
+    against their plain versions, the hook wrapped as the domain and, for
+    B9, not; ``n_steps`` chained steps of B10 per pattern."""
     import dataclasses
 
-    from tnl_lbm_tpu_torch.kernels.fused_nn import make_nn_force_kernel, nn_geometry
+    from tnl_lbm_tpu_torch.kernels.fused_nn import make_nn_force_kernel
     from tnl_lbm_tpu_torch.kernels.fused_nn_step import make_fused_nn_step
     from tnl_lbm_tpu_torch.ops.non_newtonian import make_nn_forcing_hook
     from torch_cases import NN_MODELS, nn_case
 
-    m, periodic, model, per = nn_case("duct", shape=(X, 20, 40))
+    m, periodic, model, per = nn_case("duct", shape=shape)
     dom = interop.domain_from_numpy(m, periodic)
-    for kind in (0, 1):  # the automatic segments cover X
-        geo = nn_geometry(kind, dom.shape)
-        assert geo["segments"] == -(-X // geo["seg_len"]) and geo["seg_len"] <= 32
     rho, u = nn_inputs(dom.shape, cuda, seed=8)
     for hook_per in (per, None):
-        b9 = make_nn_force_kernel(NN_MODELS[model], dom, cuda, periodic=hook_per,
-                                  seg_len=seg_len)
+        b9 = make_nn_force_kernel(NN_MODELS[model], dom, cuda, periodic=hook_per)
         fk, fp = b9(rho, u, 0.02), b9.plain(rho, u, 0.02)
         torch.cuda.synchronize()
         scale = float(fp.abs().max())
@@ -669,10 +662,10 @@ def test_nn_kernels_match_plain_on_x_segments(cuda, X, seg_len):
         cfg = dataclasses.replace(
             interop.config_from_spec("CUM_WELL", "EQ_WELL", True, streaming),
             forcing_hook=make_nn_forcing_hook(NN_MODELS[model], periodic=per))
-        step = make_fused_nn_step(cfg, dom, NN_MODELS[model], per, cuda, seg_len=seg_len)
+        step = make_fused_nn_step(cfg, dom, NN_MODELS[model], per, cuda)
         fk = cfg.eq(cfg.lat, rho, u).float().contiguous()
         fp = fk.clone()
-        for it in range(2):
+        for it in range(n_steps):
             parity = it % 2 if streaming == "AA" else 0
             fk, rk, uk = step(fk, 0.02, force=(1e-5, 0.0, 0.0), parity=parity)
             fp, rp, up = step.plain(fp, 0.02, force=(1e-5, 0.0, 0.0), parity=parity)
@@ -681,6 +674,32 @@ def test_nn_kernels_match_plain_on_x_segments(cuda, X, seg_len):
             assert float((rk - rp).abs().max()) <= 2e-6, f"{streaming} rho, step {it}"
             assert float((uk - up).abs().max()) <= 1e-6, f"{streaming} u, step {it}"
         assert step.plain_calls == 0
+
+
+@pytest.mark.parametrize("shape", [(13, 176, 128), (3, 400, 352)], ids=["ragged", "x3"])
+def test_nn_kernels_match_plain_on_x_segments(cuda, shape):
+    """B9 and B10 where their own segment rule gives a last segment shorter
+    than the others (X = 13 on a plane of 44 B10 and 88 B9 column tiles) and
+    one segment shorter than SEG_MAX that covers X = 3 (a plane of more
+    column tiles than the card runs at once): the march's first and last
+    planes of every segment against the plain versions."""
+    from tnl_lbm_tpu_torch.kernels.fused_nn import nn_geometry
+
+    X = shape[0]
+    for kind in (0, 1):
+        geo = nn_geometry(kind, shape)
+        assert geo["segments"] == -(-X // geo["seg_len"]) and geo["seg_len"] <= 32
+        if X == 3:
+            assert geo["segments"] == 1, geo
+        else:
+            assert geo["segments"] > 1 and X % geo["seg_len"] != 0, geo
+    nn_kernels_match_plain(cuda, shape)
+
+
+def test_nn_kernels_match_plain_on_a_tall_plane(cuda):
+    """B9 and B10 with Y above 32767, where a slot's y no longer fits in the
+    low 15 bits of its packed y << 16 | z table entry."""
+    nn_kernels_match_plain(cuda, (3, 33000, 5))
 
 
 @pytest.mark.parametrize("spec", [("CUM_WELL", "EQ_WELL", True), ("CUM", "EQ", False),

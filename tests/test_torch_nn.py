@@ -380,27 +380,6 @@ def test_per_site_force_takes_the_pipeline_and_b10_refuses_it():
                            NN_MODELS[model], per, "cpu")
 
 
-@pytest.mark.parametrize("streaming", ["AB", "AA"])
-def test_nn_kernels_take_a_segment_length(streaming):
-    """``seg_len`` (the x planes each block of B9 and B10 marches) must be a
-    positive count; it leaves the result as it is."""
-    _, _, cfg, dom, model, per = hooked_pair("duct", streaming)
-    for bad in (0, -3):
-        with pytest.raises(ValueError, match="seg_len"):
-            make_nn_force_kernel(NN_MODELS[model], dom, "cpu", periodic=per, seg_len=bad)
-        with pytest.raises(ValueError, match="seg_len"):
-            make_fused_nn_step(cfg, dom, NN_MODELS[model], per, "cpu", seg_len=bad)
-    rho, u = (torch.from_numpy(a) for a in nn_state(dom.shape, seed=2))
-    b9 = make_nn_force_kernel(NN_MODELS[model], dom, "cpu", periodic=per, seg_len=3)
-    assert torch.equal(b9(rho, u, NU),
-                       make_nn_force_kernel(NN_MODELS[model], dom, "cpu", periodic=per)(rho, u, NU))
-    b10 = make_fused_nn_step(cfg, dom, NN_MODELS[model], per, "cpu", seg_len=3)
-    f = cfg.eq(cfg.lat, rho, u).float().contiguous()
-    assert b10.seg_len == 3 and torch.equal(
-        b10(f, NU, force=FORCE)[0],
-        make_fused_nn_step(cfg, dom, NN_MODELS[model], per, "cpu")(f, NU, force=FORCE)[0])
-
-
 @pytest.mark.parametrize("case", ["AB", "AA", "2D"])
 def test_hooked_step_on_cuda_without_a_card_raises(case):
     """A hooked step for device="cuda" on a box without a card raises, as

@@ -296,6 +296,30 @@ def test_march_constants():
     assert step["STEP_BLOCKS_PER_SM"] * step["THREADS"] * 128 <= 65536  # 128 registers a thread
 
 
+@pytest.mark.parametrize("kernel", MARCHES)
+def test_slot_table_holds_every_coordinate_the_guard_admits(kernel):
+    """Each u slot's canonical (y, z) is packed as y << 16 | z into the
+    header's table type, and the C entry refuses a Y or Z above its guard:
+    up to the guard every y and z comes back from the packed entry, and its
+    in-plane offset y Z + z stays in the plane (a signed table would turn
+    every y from 32768 on negative)."""
+    header = (CSRC / "nn_site.cuh").read_text()
+    kind = re.search(r"^\s+(\w+)\* uyz;", header, re.M).group(1)
+    dtype = {"unsigned": np.uint32, "int": np.int32}[kind]
+    guard = re.search(r"if \(Y > (\d+) \|\| Z > (\d+)\)", (CSRC / f"nn_{kernel}.cu").read_text())
+    Y, Z = int(guard.group(1)), int(guard.group(2))
+    y = np.arange(Y, dtype=np.int64)
+    for z in (0, Z - 1):
+        with np.errstate(over="ignore"):
+            packed = (y.astype(dtype) << dtype(16)) | dtype(z)
+        got_y, got_z = (packed >> dtype(16)).astype(np.int64), (packed & dtype(0xFFFF)).astype(
+            np.int64)
+        np.testing.assert_array_equal(got_y, y)
+        assert (got_z == z).all()
+        offset = got_y * Z + got_z
+        assert offset.min() >= 0 and offset.max() < Y * Z
+
+
 @pytest.mark.parametrize("hook_per", _PERIODIC,
                          ids=["".join("p" if p else "c" for p in per) for per in _PERIODIC])
 def test_march_force_equals_the_plain_hook(hook_per):

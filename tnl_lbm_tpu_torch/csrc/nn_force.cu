@@ -67,8 +67,8 @@ extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_S
       for (int k = 0; k < nn::U_PER_THREAD; ++k) {
         const int i = nn::u_slot_of(threadIdx.x, k);
         if (i >= nn::U_SLOTS) continue;
-        const int yz = m.uyz[i];
-        const int64_t s = xo + (yz >> 16) * Z + (yz & 0xffff);
+        const unsigned yz = m.uyz[i];
+        const int64_t s = xo + (int64_t)(yz >> 16) * Z + (yz & 0xffff);
 #pragma unroll
         for (int b = 0; b < 3; ++b) uv[k][b] = u[b * N + s];
         fl[k] = map[s] == lbm::GEO_FLUID;
@@ -99,36 +99,27 @@ extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_S
 
 // Launches on `stream`; returns cudaGetLastError() of the launch.  nn_bits:
 // the hook's periodic axes (bit 0 x, bit 1 y, bit 2 z); model 0
-// Carreau-Yasuda (nu0 - nu, lambda, a, (n - 1) / a), 1 Casson (k0, k1);
-// seg_len: the x segment of one block, or 0 for the automatic one.
+// Carreau-Yasuda (nu0 - nu, lambda, a, (n - 1) / a), 1 Casson (k0, k1).
 extern "C" int tnl_lbm_nn_force(const float* rho, const float* u, const uint8_t* map, float* F,
                                 int X, int Y, int Z, int nn_bits, int model, float nu,
                                 float nu0_minus_nu, float lam, float a, float expo, float k0,
-                                float k1, int seg_len, void* stream) {
+                                float k1, void* stream) {
   if (model != nn::CARREAU_YASUDA && model != nn::CASSON)
     return static_cast<int>(cudaErrorInvalidValue);
   if (Y > 65535 || Z > 65535) return static_cast<int>(cudaErrorInvalidValue);  // y << 16 | z
   const nn::Rheology r{model, nu, nu0_minus_nu, lam, a, expo, k0, k1};
-  static const cudaError_t opted = cudaFuncSetAttribute(
+  const cudaError_t err = cudaFuncSetAttribute(
       nn_force_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, nn::FORCE_SMEM_BYTES);
-  if (opted != cudaSuccess) return static_cast<int>(opted);
-  if (seg_len <= 0) seg_len = nn::auto_seg_len(X, Y, Z, nn::FORCE_BLOCKS_PER_SM);
-  const int blocks = nn::column_tiles(Y, Z) * ((X + seg_len - 1) / seg_len);
-  const auto s = static_cast<cudaStream_t>(stream);
-  nn_force_kernel<<<blocks, nn::THREADS, nn::FORCE_SMEM_BYTES, s>>>(
-      rho, u, map, F, X, Y, Z, nn_bits, seg_len, r);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const nn::Launch l = nn::launch(X, Y, Z, nn::FORCE_BLOCKS_PER_SM);
+  nn_force_kernel<<<l.blocks, nn::THREADS, nn::FORCE_SMEM_BYTES,
+                    static_cast<cudaStream_t>(stream)>>>(rho, u, map, F, X, Y, Z, nn_bits,
+                                                         l.seg_len, r);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch geometry of B9 at a shape: out[0] dynamic shared memory per
-// block (bytes), [1] TY, [2] TZ, [3] the automatic x segment, [4] segments,
-// [5] column tiles, [6] the launch's blocks per SM.
-extern "C" int tnl_lbm_nn_force_info(int X, int Y, int Z, int* out) {
-  const int seg = nn::auto_seg_len(X, Y, Z, nn::FORCE_BLOCKS_PER_SM);
-  const int vals[7] = {nn::FORCE_SMEM_BYTES, nn::TY,
-                       nn::TZ,               seg,
-                       (X + seg - 1) / seg,  nn::column_tiles(Y, Z),
-                       nn::FORCE_BLOCKS_PER_SM};
-  for (int k = 0; k < 7; ++k) out[k] = vals[k];
-  return 0;
+// B9's launch geometry at a shape (nn_site.cuh launch_info), for
+// tnl_lbm_nn_info in nn_step.cu.
+int nn_force_info(int X, int Y, int Z, int* out) {
+  return nn::launch_info(X, Y, Z, nn::FORCE_BLOCKS_PER_SM, nn::FORCE_SMEM_BYTES, out);
 }

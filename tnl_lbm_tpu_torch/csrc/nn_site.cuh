@@ -200,7 +200,7 @@ __host__ __device__ __forceinline__ int column_tiles(int Y, int Z) {
 }
 
 // The SMs of the current device (132, an H100 SXM's, where it cannot be read).
-inline int sm_count() {
+static inline int sm_count() {
   static int n = 0;
   if (n == 0) {
     int dev = 0;
@@ -211,13 +211,31 @@ inline int sm_count() {
   return n;
 }
 
-// The x segment of one block: at most SEG_MAX planes, and short enough that
-// the blocks fill the card (blocks_per_sm on every SM) when the column
-// tiles alone do not.
-inline int auto_seg_len(int X, int Y, int Z, int blocks_per_sm) {
+// The launch of the including kernel at a shape.  A block's x segment is at
+// most SEG_MAX planes, and short enough that the blocks fill the card
+// (blocks_per_sm on every SM) when the column tiles alone do not: down to
+// one plane on a small lattice, whose few blocks then march 7 steps each
+// (tests/nn_ablation.py: on four lattices from 4 x 4 x 21 to 128 x 64 x 64
+// the rule's choice ran as fast as the fastest of 1, 2, 4 and 8 planes).
+// Static: each source that includes the header has its own tile height.
+struct Launch {
+  int seg_len, segments, blocks;
+};
+static inline Launch launch(int X, int Y, int Z, int blocks_per_sm) {
   const int cols = column_tiles(Y, Z);
   const int segs = std::max(1, std::min(X, (sm_count() * blocks_per_sm + cols - 1) / cols));
-  return std::min(SEG_MAX, (X + segs - 1) / segs);
+  const int seg = std::min(SEG_MAX, (X + segs - 1) / segs);
+  const int n = (X + seg - 1) / seg;
+  return {seg, n, cols * n};
+}
+
+// The launch geometry that tnl_lbm_nn_info (nn_step.cu) reports, into out.
+static inline int launch_info(int X, int Y, int Z, int blocks_per_sm, int smem_bytes, int* out) {
+  const Launch l = launch(X, Y, Z, blocks_per_sm);
+  const int vals[7] = {smem_bytes, TY, TZ, l.seg_len, l.segments, column_tiles(Y, Z),
+                       blocks_per_sm};
+  for (int k = 0; k < 7; ++k) out[k] = vals[k];
+  return 0;
 }
 
 // A block's march: its rings and slot tables carved from the dynamic shared
@@ -228,7 +246,7 @@ struct March {
   float* u;        // [U_PLANES][3][U_SLOTS]
   float* S;        // [S_PLANES][6][S_SLOTS]
   float* rho;      // [RHO_PLANES][THREADS] (B10)
-  int* uyz;        // [U_SLOTS]: canonical y << 16 | z of each u slot
+  unsigned* uyz;   // [U_SLOTS]: canonical y << 16 | z of each u slot
   int* scu;        // [S_SLOTS]: the u slot at which each S slot's S is taken
   uint8_t* fluid;  // [U_PLANES][U_SLOTS]: map == FLUID
   int y0, z0;      // the tile's first site
@@ -252,8 +270,8 @@ __device__ __forceinline__ March march(void* smem, bool with_rho, int X, int Y, 
   m.u = static_cast<float*>(smem);
   m.S = m.u + U_PLANES * 3 * U_SLOTS;
   m.rho = m.S + S_PLANES * 6 * S_SLOTS;
-  m.uyz = reinterpret_cast<int*>(m.rho + (with_rho ? RHO_PLANES * THREADS : 0));
-  m.scu = m.uyz + U_SLOTS;
+  m.uyz = reinterpret_cast<unsigned*>(m.rho + (with_rho ? RHO_PLANES * THREADS : 0));
+  m.scu = reinterpret_cast<int*>(m.uyz + U_SLOTS);
   m.fluid = reinterpret_cast<uint8_t*>(m.scu + S_SLOTS);
   m.X = X;
   m.Y = Y;
@@ -270,8 +288,8 @@ __device__ __forceinline__ March march(void* smem, bool with_rho, int X, int Y, 
   m.xs = seg * seg_len;
   m.xe = min(m.xs + seg_len, X);
   for (int i = threadIdx.x; i < U_SLOTS; i += THREADS)
-    m.uyz[i] = canonical(m.y0 + i / UZ - 2, Y, m.per[1]) << 16 |
-               canonical(m.z0 + i % UZ - 2, Z, m.per[2]);
+    m.uyz[i] = unsigned(canonical(m.y0 + i / UZ - 2, Y, m.per[1])) << 16 |
+               unsigned(canonical(m.z0 + i % UZ - 2, Z, m.per[2]));
   for (int i = threadIdx.x; i < S_SLOTS; i += THREADS)
     m.scu[i] = (clamped(m.y0 + i / SZ - 1, Y, m.per[1]) - m.y0 + 2) * UZ +
                (clamped(m.z0 + i % SZ - 1, Z, m.per[2]) - m.z0 + 2);

@@ -193,14 +193,13 @@ NN_STEP_KERNEL(nn_step_odd_cum_invcum_kernel, false, EQ_INVCUM, MODE_ODD)
 // A-B, 1 A-A even, 2 A-A odd (fout: a second buffer in every mode).
 // variant as tnl_lbm_ab_step.  pbits: the domain's periodic axes, nn_bits
 // the hook's (bit 0 x, bit 1 y, bit 2 z).  model 0 Carreau-Yasuda (nu0 - nu,
-// lambda, a, (n - 1) / a), 1 Casson (k0, k1).  seg_len: the x segment of
-// one block, or 0 for the automatic one.
+// lambda, a, (n - 1) / a), 1 Casson (k0, k1).
 extern "C" int tnl_lbm_nn_step(const float* f, float* fout, const uint8_t* map, float* rho,
                                float* u, int X, int Y, int Z, int pbits, int nn_bits,
                                int has_nothing, int variant, int mode, float nu, float fx,
                                float fy, float fz, float uin_x, float uin_y, float uin_z,
                                int neumaier, int model, float nu0_minus_nu, float lam, float a,
-                               float expo, float k0, float k1, int seg_len, void* stream) {
+                               float expo, float k0, float k1, void* stream) {
   using Kernel = void (*)(const float*, float*, const uint8_t*, float*, float*, int, int, int,
                           int, NNStepParams);
   static const Kernel kernels[3][3] = {
@@ -221,22 +220,20 @@ extern "C" int tnl_lbm_nn_step(const float* f, float* fout, const uint8_t* map, 
                        pbits,
                        nn_bits,
                        has_nothing};
-  if (seg_len <= 0) seg_len = nn::auto_seg_len(X, Y, Z, nn::STEP_BLOCKS_PER_SM);
-  const int blocks = nn::column_tiles(Y, Z) * ((X + seg_len - 1) / seg_len);
-  kernel<<<blocks, nn::THREADS, nn::STEP_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      f, fout, map, rho, u, X, Y, Z, seg_len, P);
+  const nn::Launch l = nn::launch(X, Y, Z, nn::STEP_BLOCKS_PER_SM);
+  kernel<<<l.blocks, nn::THREADS, nn::STEP_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      f, fout, map, rho, u, X, Y, Z, l.seg_len, P);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch geometry of B10 at a shape: out[0] dynamic shared memory per
-// block (bytes), [1] TY, [2] TZ, [3] the automatic x segment, [4] segments,
-// [5] column tiles, [6] the launch's blocks per SM.
-extern "C" int tnl_lbm_nn_step_info(int X, int Y, int Z, int* out) {
-  const int seg = nn::auto_seg_len(X, Y, Z, nn::STEP_BLOCKS_PER_SM);
-  const int vals[7] = {nn::STEP_SMEM_BYTES,  nn::TY,
-                       nn::TZ,               seg,
-                       (X + seg - 1) / seg,  nn::column_tiles(Y, Z),
-                       nn::STEP_BLOCKS_PER_SM};
-  for (int k = 0; k < 7; ++k) out[k] = vals[k];
-  return 0;
+int nn_force_info(int X, int Y, int Z, int* out);  // nn_force.cu
+
+// The launch geometry of B9 (kind 0) or B10 (kind 1) at a shape: out[0]
+// dynamic shared memory per block (bytes), [1] TY, [2] TZ, [3] the x
+// segment, [4] segments, [5] column tiles, [6] blocks per SM.
+extern "C" int tnl_lbm_nn_info(int kind, int X, int Y, int Z, int* out) {
+  if (kind == 0) return nn_force_info(X, Y, Z, out);
+  if (kind == 1)
+    return nn::launch_info(X, Y, Z, nn::STEP_BLOCKS_PER_SM, nn::STEP_SMEM_BYTES, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -106,10 +106,9 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_coupled_ab.argtypes = [p] * 11 + [i] * 7 + [f] * 7 + [i] + [f] * 3 + [p]
     lib.tnl_lbm_coupled_aa.argtypes = [p] * 10 + [i] * 10 + [f] * 7 + [i] + [f] * 2 + [p]
     lib.tnl_lbm_d2q9_step.argtypes = [p] * 6 + [ll] * 3 + [p, p] + [i] * 4 + [f] * 5 + [p]
-    lib.tnl_lbm_nn_force.argtypes = [p] * 4 + [i] * 5 + [f] * 7 + [i, p]
-    lib.tnl_lbm_nn_step.argtypes = [p] * 5 + [i] * 8 + [f] * 7 + [i, i] + [f] * 6 + [i, p]
-    lib.tnl_lbm_nn_force_info.argtypes = [i, i, i, p]
-    lib.tnl_lbm_nn_step_info.argtypes = [i, i, i, p]
+    lib.tnl_lbm_nn_force.argtypes = [p] * 4 + [i] * 5 + [f] * 7 + [p]
+    lib.tnl_lbm_nn_step.argtypes = [p] * 5 + [i] * 8 + [f] * 7 + [i, i] + [f] * 6 + [p]
+    lib.tnl_lbm_nn_info.argtypes = [i, i, i, i, p]
     lib.tnl_lbm_copy_permute.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.tnl_lbm_pair_pipeline.argtypes = [p, p, i, i, i, i, i, p]
     lib.tnl_lbm_pair_compute_only.argtypes = [p, p, i, i, i, i, p]
@@ -125,8 +124,7 @@ def load_library() -> ctypes.CDLL:
                lib.tnl_lbm_window_copy,
                lib.tnl_lbm_ade_step, lib.tnl_lbm_coupled_ab, lib.tnl_lbm_coupled_aa,
                lib.tnl_lbm_d2q9_step, lib.tnl_lbm_nn_force, lib.tnl_lbm_nn_step,
-               lib.tnl_lbm_nn_force_info, lib.tnl_lbm_nn_step_info,
-               lib.tnl_lbm_copy_permute,
+               lib.tnl_lbm_nn_info, lib.tnl_lbm_copy_permute,
                lib.tnl_lbm_pair_pipeline, lib.tnl_lbm_pair_compute_only,
                lib.tnl_lbm_aa_pair_smem_bytes):
         fn.restype = i

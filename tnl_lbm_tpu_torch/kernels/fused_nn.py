@@ -25,8 +25,7 @@ from tnl_lbm_tpu_torch.sim.config import Domain
 
 #: the ``model`` codes of the C entries (csrc/nn_site.cuh)
 _MODELS = {CarreauYasuda: 0, Casson: 1}
-#: keys of :func:`nn_geometry` (csrc/nn_force.cu tnl_lbm_nn_force_info, csrc/nn_step.cu
-#: tnl_lbm_nn_step_info)
+#: keys of :func:`nn_geometry` (csrc/nn_step.cu tnl_lbm_nn_info)
 _GEOMETRY_KEYS = ("smem_bytes", "ty", "tz", "seg_len", "segments", "columns", "blocks_per_sm")
 
 
@@ -50,22 +49,15 @@ def nn_bits(periodic) -> int:
     return _periodic_bits(periodic or (False, False, False))
 
 
-def check_seg_len(seg_len):
-    """``seg_len`` as given, or ValueError unless it is None or a positive
-    number of x planes."""
-    if seg_len is not None and seg_len < 1:
-        raise ValueError(f"seg_len must be a positive number of x planes, got {seg_len}")
-    return seg_len
-
-
 def nn_geometry(kind: int, shape) -> dict:
     """The launch geometry of B9 (``kind`` 0) or B10 (1) at ``shape``:
-    shared memory per block, column tile, the automatic x segment length
-    and count, column tiles and the launch's blocks per SM.  Needs the
-    kernel library (a CUDA machine)."""
+    shared memory per block, column tile, the x segment length and count,
+    column tiles and the launch's blocks per SM.  Needs the kernel library
+    (a CUDA machine)."""
     lib = load_library()
     out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
-    (lib.tnl_lbm_nn_force_info, lib.tnl_lbm_nn_step_info)[kind](*shape, out)
+    if lib.tnl_lbm_nn_info(kind, *shape, out) != 0:
+        raise ValueError(f"kind must be 0 (B9) or 1 (B10), got {kind}")
     return dict(zip(_GEOMETRY_KEYS, out))
 
 
@@ -73,18 +65,14 @@ class NNForce:
     """``force(rho, u, nu) -> F [3, X, Y, Z]``: the NN body force of a
     Carreau-Yasuda or Casson ``model`` on a D3Q27 domain, with the stencil
     periodicity ``periodic``.  ``kernel`` counts the launches,
-    ``plain_calls`` the CPU-path calls.  ``seg_len`` is the x extent each
-    block of the kernel marches (None: the kernel's own choice); the result
-    does not depend on it."""
+    ``plain_calls`` the CPU-path calls."""
 
-    def __init__(self, model, domain: Domain, device, periodic=None,
-                 seg_len: int | None = None):
+    def __init__(self, model, domain: Domain, device, periodic=None):
         if domain.lat.D != 3:
             raise NotImplementedError("the NN force kernel is 3D; a 2D hook runs as plain "
                                       "tensor ops (kernels/hooked.py)")
         rheology_args(model, 0.0)  # refuses another model at build time
         self.model = model
-        self.seg_len = check_seg_len(seg_len)
         self.periodic = None if periodic is None else tuple(bool(p) for p in periodic)
         self.device = torch.device(device)
         self.shape = domain.shape
@@ -129,20 +117,17 @@ class NNForce:
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(rho.device).cuda_stream)
         rc = lib.tnl_lbm_nn_force(rho.data_ptr(), u.data_ptr(), self.map.data_ptr(),
                                   out.data_ptr(), X, Y, Z, nn_bits(self.periodic),
-                                  *rheology_args(self.model, nu), self.seg_len or 0,
-                                  stream_ptr)
+                                  *rheology_args(self.model, nu), stream_ptr)
         if rc != 0:
             raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
         self.kernel.launches += 1
         return out
 
 
-def make_nn_force_kernel(model, domain: Domain, device, periodic=None,
-                         seg_len: int | None = None) -> NNForce:
-    """The NN force of ``model`` on ``domain``: see :class:`NNForce`
-    (``seg_len``: the kernel's x segment, a knob of the port's own).  The
+def make_nn_force_kernel(model, domain: Domain, device, periodic=None) -> NNForce:
+    """The NN force of ``model`` on ``domain``: see :class:`NNForce`.  The
     JAX function's ``dtype`` is the kernel's float32 and its static
     ``fluid_mask`` is ``map == FLUID``, read by the kernel from the map;
     its TPU knobs (``tile``, ``tiles_per_program``) shape VMEM windows and
     have no counterpart here."""
-    return NNForce(model, domain, device, periodic=periodic, seg_len=seg_len)
+    return NNForce(model, domain, device, periodic=periodic)

@@ -34,7 +34,7 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     host_vector3,
     kernel_codes,
 )
-from tnl_lbm_tpu_torch.kernels.fused_nn import check_seg_len, nn_bits, rheology_args
+from tnl_lbm_tpu_torch.kernels.fused_nn import nn_bits, rheology_args
 from tnl_lbm_tpu_torch.ops.boundary import GEO
 from tnl_lbm_tpu_torch.ops.non_newtonian import make_nn_forcing_hook
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
@@ -66,13 +66,10 @@ class FusedNNStep:
     tensor or into ``out`` (a second state buffer, not ``f``).  ``force``
     and ``u_in`` are homogeneous [3] host vectors; a per-site force raises
     (the hooked pipeline takes one).  ``ab``, ``even`` and ``odd`` count
-    the launches, ``plain_calls`` the CPU-path calls.  ``seg_len`` is the x
-    extent each block of the kernel marches (None: the kernel's own
-    choice); the result does not depend on it.
+    the launches, ``plain_calls`` the CPU-path calls.
     """
 
-    def __init__(self, cfg: LBMConfig, domain: Domain, model, nn_periodic, device,
-                 seg_len: int | None = None):
+    def __init__(self, cfg: LBMConfig, domain: Domain, model, nn_periodic, device):
         hook = cfg.forcing_hook
         if hook is not None and getattr(hook, "nn_model", None) is None:
             raise ValueError("the NN step computes a make_nn_forcing_hook hook, not this one")
@@ -84,7 +81,6 @@ class FusedNNStep:
         plain_cfg = dataclasses.replace(cfg, forcing_hook=None)
         self.lat, self.codes, _ = _prep(plain_cfg, domain)
         rheology_args(model, 0.0)  # refuses another model at build time
-        self.seg_len = check_seg_len(seg_len)
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
@@ -150,7 +146,7 @@ class FusedNNStep:
                                  _periodic_bits(self.periodic), nn_bits(self.nn_periodic),
                                  int(GEO.NOTHING in self.codes), self._variant, mode, nu32,
                                  *fvec, *uvec, int(self.cfg.high_precision_rho), kind, *consts,
-                                 self.seg_len or 0, stream_ptr)
+                                 stream_ptr)
         kernel = (self.ab, self.even, self.odd)[mode]
         if rc != 0:
             raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
@@ -160,10 +156,9 @@ class FusedNNStep:
 
 def make_fused_nn_step(cfg: LBMConfig, domain: Domain, model, nn_periodic, device,
                        with_macro: bool = True, prepadded: bool = False,
-                       local_shape=None, seg_len: int | None = None) -> FusedNNStep:
+                       local_shape=None) -> FusedNNStep:
     """Single-kernel NN step for (cfg, domain) on ``device``: see
-    :class:`FusedNNStep` (``seg_len``: the kernel's x segment, a knob of the
-    port's own).  The JAX function's TPU knobs (``tile``,
+    :class:`FusedNNStep`.  The JAX function's TPU knobs (``tile``,
     ``tiles_per_program``, ``vmem_budget``) shape its VMEM windows and have
     no counterpart here.  Not ported yet: ``prepadded`` and ``local_shape``
     (the sharded NN step, ROADMAP A13) and ``with_macro=False`` (ROADMAP
@@ -173,4 +168,4 @@ def make_fused_nn_step(cfg: LBMConfig, domain: Domain, model, nn_periodic, devic
                                   "ported yet (ROADMAP A13)")
     if not with_macro:
         raise NotImplementedError("with_macro=False is not ported yet (ROADMAP A7)")
-    return FusedNNStep(cfg, domain, model, nn_periodic, device, seg_len=seg_len)
+    return FusedNNStep(cfg, domain, model, nn_periodic, device)
