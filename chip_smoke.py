@@ -203,6 +203,23 @@ script exits non-zero without printing a result.
    sim_coupled res 2 likewise through the coupled kernel and the plain
    steps, A-B (B7) and A-A (B8), with |dphi| <= 1e-5 relative to the
    largest |phi| within a site's reach, at least 1.
+9. dispatch_and_checkpoint (after the 2D hooked run, before the accuracy
+   runs): the driver's chunked dispatch, which the main paths above already
+   take (a chunk the gate admits runs once eagerly, is captured as a CUDA
+   graph per start buffer, then replayed, each replay adding its launches
+   to the counts), held to the same chunks run eagerly from the same state
+   and buffers, bit for bit with the same launches, on one golden row's B5
+   (sim2d_3 res 1, and with the hook: the plain u* pass and hook, then B5's
+   force_field variant), sim_2 res 2 in pairs (f32 and f16), per step and A-B
+   (both statistics windows on), sim_1 res 2 A-A and the 256^3 hooked duct
+   on both routes, A-B and A-A; checkpoint round trips (3 chunks, a
+   background ``save_state``, a run resumed from it and 3 more chunks,
+   against 6 uninterrupted, bit for bit) on sim_2 res 2 in pairs and A-B
+   with the statistics, sim_coupled res 2 (g and phi) and sim2d_2 res 1 (its
+   running sum); then, in turns, the golden sweep's wall per row and B5's
+   ms per launch through ``Simulation._advance`` with the graph and eager,
+   and sim_2 res 2's MLUPS in pairs and per step with the graph and per
+   step from Python.
 
 The line before the last is the kernels' JSON record (bound_ms: the larger
 of the bytes over the published 3.35 TB/s and the FP32 operations over
@@ -268,6 +285,9 @@ GOLDEN_SAMPLED = ((1, True), (4, True), (4, False), (6, True), (9, False), (14, 
                   (18, False), (23, True), (29, False), (33, True), (41, True), (54, False))
 TOL_GOLDEN = 1e-4  # relative (tests/test_geometry_pipeline.py:151-154)
 GOLDEN_STEPS = 1440  # resolution 1 to the corpus' final time 0.4
+#: the golden row's 20-step chunks replayed from a graph: all but the eager
+#: warm-up and the captured one
+GOLDEN_REPLAYS = GOLDEN_STEPS // 20 - 2
 
 
 def log(phase: str, **fields) -> None:
@@ -1434,10 +1454,10 @@ def report_main(sim, label: str) -> dict:
     import torch
 
     steps = sim.iterations
+    ms_step, mlups, peak_gb = run_figures(sim)  # before the checks' own temporaries
     finite = bool(torch.isfinite(sim.rho).all()) and bool(torch.isfinite(sim.u).all())
     plain = sum(getattr(k, "plain_calls", 0) for k in (
         sim._step, sim._pair, getattr(sim, "_ade_step", None), getattr(sim, "_coupled_step", None)))
-    ms_step, mlups, peak_gb = run_figures(sim)
     launches = kernel_launches(sim)
     log("main", path=label, shape="x".join(map(str, sim.domain.shape)), steps=steps,
         ms_per_step=f"{ms_step:.4f}", mlups=f"{mlups:.1f}", max_memory_allocated_gb=f"{peak_gb:.3f}",
@@ -2124,7 +2144,8 @@ def phase_golden_2d() -> dict:
     JAX suite samples must lie within 1e-4 relative; the worst deviation
     over the 108 and the count beyond 1e-4 are printed.  Each row runs with
     its counts set to 0 at the end of sim_init: 1440 launches, 0 plain
-    calls."""
+    calls, and its 20-step chunks replayed from a CUDA graph after the first
+    (eager) and the second (captured)."""
     import csv
 
     from tnl_lbm_tpu_torch.apps import sim2d_3
@@ -2132,7 +2153,7 @@ def phase_golden_2d() -> dict:
     geos = golden_geometries()
     with open(ROOT / "tests" / "golden" / "geometry_ke_values_tpu.csv") as fh:
         golden = {(r["geometry"], r["bouzidi"]): float(r["value"]) for r in csv.DictReader(fh)}
-    rel, launches, kernel, rel_launch = {}, 0, None, {}
+    rel, launches, kernel, rel_launch, replays = {}, 0, None, {}, 0
     t0 = time.perf_counter()
     for (name, bouzidi), want in golden.items():
         where = WORK / "golden" / bouzidi
@@ -2143,9 +2164,11 @@ def phase_golden_2d() -> dict:
             raise RuntimeError(f"sim2d_3 on {name} (Bouzidi {bouzidi}) failed")
         step = sim._step
         if (sim.iterations != GOLDEN_STEPS or step.kernel.launches != GOLDEN_STEPS
-                or step.plain_calls):
+                or step.plain_calls or sim.graph_replays < GOLDEN_REPLAYS):
             raise RuntimeError(f"sim2d_3 on {name}: {sim.iterations} steps, "
-                               f"{step.kernel.launches} launches, {step.plain_calls} plain calls")
+                               f"{step.kernel.launches} launches, {step.plain_calls} plain calls, "
+                               f"{sim.graph_replays} graph replays")
+        replays += sim.graph_replays
         value = float(sim.value_path.read_text())
         rel[(name, bouzidi)] = abs(value - want) / abs(want)
         launches += step.kernel.launches
@@ -2159,7 +2182,7 @@ def phase_golden_2d() -> dict:
                for g, b in GOLDEN_SAMPLED}
     beyond = sorted(k for k, v in rel.items() if v > TOL_GOLDEN)
     log("golden_2d", rows=len(rel), steps_per_row=GOLDEN_STEPS, launches=launches, plain_calls=0,
-        wall_s=f"{wall:.1f}", worst_rel=rel[worst_row], worst_row="_".join(worst_row),
+        graph_replays=replays, wall_s=f"{wall:.1f}", worst_rel=rel[worst_row], worst_row="_".join(worst_row),
         rows_beyond_tol=len(beyond), beyond=beyond or "none",
         sampled_worst_rel=max(sampled.values()))
     log("golden_2d", **{f"rel_{k}": f"{v:.3e}" for k, v in sampled.items()})
@@ -2602,13 +2625,14 @@ def phase_compare_hooked() -> dict:
     return {"err": err, "nn_force_rel": rel}
 
 
-def nn_bench_sim(streaming: str, single: bool, start=None, label: str = ""):
+def nn_bench_sim(streaming: str, single: bool, start=None, label: str = "", run: bool = True):
     """``Simulation`` on the 256^3 bench duct with the Carreau-Yasuda hook of
     scripts/bench_hooked.py, HOOKED_STEPS steps with ``use_fused``, counted
     from the end of sim_init.  ``single``: the hook wrapped as the domain
     (the one-kernel route, B10); else built without ``periodic``
     (scripts/profile_hooked.py:32), which runs the pipeline.  ``start``: the
-    state the run starts from (an evolved one)."""
+    state the run starts from (an evolved one).  ``run=False`` returns the
+    run built and not started."""
     import torch
 
     from tnl_lbm_tpu_torch.sim.state import Simulation
@@ -2630,6 +2654,8 @@ def nn_bench_sim(streaming: str, single: bool, start=None, label: str = ""):
         results_parent=WORK / "main_hooked", phys_final_time=HOOKED_STEPS * dom.units.phys_dt,
         steps_per_dispatch=10, use_fused=True))
     sim.sample_phases_at_finish = False
+    if not run:
+        return sim
     if not sim.run():
         raise RuntimeError(f"hooked main path {label} failed (NaN or refused)")
     torch.cuda.synchronize()
@@ -3016,6 +3042,287 @@ def phase_hooked_2d(floor_gbps: float) -> dict:
     return {"kernel": kernel, "err": d[0], "time": (ms, plain_ms), "bytes": bytes_site}
 
 
+# ------------------------------------------------------------ dispatch
+
+#: chunks per replay-against-eager compare, and golden rows per timing turn
+DISPATCH_CHUNKS, SWEEP_ROWS = 3, 6
+#: steps of sim_2 res 2 per timed run (as tests/main_paths_ab.py runs it)
+SIM2_TIMED_STEPS = 2000
+#: chunks each side of a checkpoint round trip
+ROUNDTRIP_CHUNKS = 3
+STAT_FIELDS = ("vm", "vm2", "vm_b", "vm2_b")
+
+
+def chunk_fields(sim, extra=()) -> dict:
+    """Copies of a run's state, rho, u, statistics windows and ``extra``."""
+    names = ("f", "rho", "u") + tuple(extra) + STAT_FIELDS
+    return {n: getattr(sim, n).clone() for n in names if getattr(sim, n, None) is not None}
+
+
+def eager_chunks(sim):
+    """The run's admitted chunks without a graph: the same chunk function,
+    eager (an instance attribute over ``_graph_chunk``)."""
+    sim._graph_chunk = sim._chunk
+    return sim
+
+
+def per_step_only(sim):
+    """The run without the chunked dispatch: the gate refuses every chunk,
+    as the JAX tests turn the scan off (tests/test_scan_dispatch.py:49-58)."""
+    sim._scan_chunk_args = lambda n, uin0=None: None
+    return sim
+
+
+def replay_vs_eager(sim, label: str, chunks: int = DISPATCH_CHUNKS) -> dict:
+    """From the run's current state (its chunks warmed and captured),
+    ``chunks`` dispatch chunks replayed from CUDA graphs, then from the
+    same state and buffers the same chunks run eagerly: every field must be
+    equal bit for bit.  The replays must add the launches the eager chunks
+    make."""
+    from tnl_lbm_tpu_torch.kernels.fused import kernel_counters
+
+    k = sim.steps_per_dispatch
+    start, bufs = chunk_fields(sim), (sim.f, sim._spare)
+    counts = (sim.iterations, sim.stat_counter, sim.stat2_counter)
+    kernels = kernel_counters(sim._step, sim._pair)
+    before, replays = [x.launches for x in kernels], sim.graph_replays
+    for _ in range(chunks):
+        sim._advance(k)
+    graph_launches = [x.launches - b for x, b in zip(kernels, before)]
+    replayed = sim.graph_replays - replays
+    graph = chunk_fields(sim)
+    sim.f, sim._spare = bufs
+    for n, t in start.items():
+        getattr(sim, n).copy_(t)
+    sim.iterations, sim.stat_counter, sim.stat2_counter = counts
+    before = [x.launches for x in kernels]
+    eager_chunks(sim)
+    try:
+        for _ in range(chunks):
+            sim._advance(k)
+    finally:
+        del sim._graph_chunk
+    eager_launches = [x.launches - b for x, b in zip(kernels, before)]
+    diffs = {n: max_diff(graph[n], getattr(sim, n)) for n in graph}
+    log("dispatch", route=label, shape="x".join(map(str, sim.domain.shape)), steps=chunks * k,
+        replays=replayed, graphs=len(sim._graphs), launches=sum(graph_launches),
+        **{f"max_d{n}": d for n, d in diffs.items()},
+        bit_equal=all(d == 0 for d in diffs.values()))
+    if replayed != chunks or graph_launches != eager_launches or sum(eager_launches) <= 0:
+        raise RuntimeError(f"{label}: {replayed} replays of {chunks} chunks, launches "
+                           f"{graph_launches} replayed against {eager_launches} eager")
+    if any(d != 0 for d in diffs.values()):
+        raise RuntimeError(f"{label}: the graph replay differs from the eager chunk: {diffs}")
+    return diffs
+
+
+def warmed(sim, stats: bool = False):
+    """sim_init (with both statistics windows when ``stats``), then three
+    chunks: the eager warm-up and a capture from each buffer."""
+    sim.collect_stats = sim.collect_stats2 = stats
+    sim.sample_phases_at_finish = False
+    sim.sim_init()
+    for _ in range(3):
+        sim._advance(sim.steps_per_dispatch)
+    return sim
+
+
+def dispatch_routes():
+    """(label, build) of each route whose graph is held to its eager chunk."""
+    from tnl_lbm_tpu_torch.apps import sim2d_3, sim_1, sim_2
+
+    geo = str(golden_geometries() / "1.txt")
+    where = WORK / "dispatch"
+
+    def sim2(tag, **kw):
+        return lambda: warmed(sim_2.build(2, device=DEVICE, use_fused=True,
+                                          results_parent=where / tag, **kw), stats=True)
+
+    def golden(tag, hooked=False):
+        sim = sim2d_3.build(1, geo, True, final_time=0.4, results_parent=where / tag,
+                            values_dir=where / tag / "values", device=DEVICE)
+        if hooked:  # the plain u* pass and hook as tensor ops, then B5's force_field
+            sim.cfg = hooked_cfg(sim.cfg, NN_BENCH_MODEL, sim.domain.periodic)
+        return warmed(sim)
+
+    return (
+        ("golden_b5_sim2d_3_res1", lambda: golden("golden")),
+        ("hooked_b5_sim2d_3_res1", lambda: golden("hooked_2d", hooked=True)),
+        ("sim_2_res2_pairs_f32", sim2("pairs_f32", streaming="AA", pair_dispatch=True)),
+        ("sim_2_res2_pairs_f16", sim2("pairs_f16", streaming="AA", storage="f16")),
+        ("sim_2_res2_per_step", sim2("per_step", streaming="AA", pair_dispatch=False)),
+        ("sim_2_res2_ab", sim2("ab", streaming="AB")),
+        ("sim_1_res2_aa", lambda: warmed(sim_1.build(2, device=DEVICE, streaming="AA",
+                                                     results_parent=where / "sim_1"))),
+        *((f"hooked_256_{s.lower()}_{'single' if single else 'pipeline'}",
+           lambda s=s, single=single: warmed(nn_bench_sim(
+               s, single, label=f"dispatch_{s}_{single}", run=False)))
+          for s in ("AB", "AA") for single in (True, False)),
+    )
+
+
+def checkpoint_roundtrip(label: str, build, extra=()) -> None:
+    """ROUNDTRIP_CHUNKS chunks, ``save_state(background=True)``, a new run
+    of the same build resuming from it and ROUNDTRIP_CHUNKS more chunks,
+    against 2 x ROUNDTRIP_CHUNKS uninterrupted chunks: f, rho, u, the
+    statistics and ``extra`` bit for bit."""
+    from tnl_lbm_tpu_torch.io import native
+
+    def advance(sim, chunks):
+        for _ in range(chunks):
+            sim._advance(sim.steps_per_dispatch)
+
+    whole = build("whole")
+    whole.sim_init()
+    advance(whole, 2 * ROUNDTRIP_CHUNKS)
+    want = chunk_fields(whole, extra)
+    del whole
+    cut = build("cut")
+    cut.sim_init()
+    advance(cut, ROUNDTRIP_CHUNKS)
+    t0 = time.perf_counter()
+    cut.save_state(background=True)
+    t_save = time.perf_counter() - t0
+    native.flush()
+    resumed = build("cut")
+    resumed.sim_init()
+    if resumed.start_iterations != cut.iterations or native.errors():
+        raise RuntimeError(f"{label}: resumed at {resumed.start_iterations} of {cut.iterations} "
+                           f"({native.errors()} background writes failed)")
+    advance(resumed, ROUNDTRIP_CHUNKS)
+    got = chunk_fields(resumed, extra)
+    diffs = {n: max_diff(want[n], got[n]) for n in want}
+    log("checkpoint", path=label, iterations=resumed.iterations, saved_at=cut.iterations,
+        save_call_ms=f"{t_save * 1e3:.1f}", arrays="+".join(sorted(got)),
+        bit_equal=all(d == 0 for d in diffs.values()) and got.keys() == want.keys())
+    if got.keys() != want.keys() or any(d != 0 for d in diffs.values()):
+        raise RuntimeError(f"{label}: the resumed run differs from the uninterrupted one: {diffs}")
+
+
+def sweep_row_seconds(rows, chunked: bool) -> list:
+    """Wall seconds of each golden row (sim2d_3 res 1 to t = 0.4, its
+    build and run) with the chunked dispatch or per step."""
+    from tnl_lbm_tpu_torch.apps import sim2d_3
+
+    geos, out = golden_geometries(), []
+    for name in rows:
+        where = WORK / "sweep_timing" / f"{name}_{chunked}_{time.perf_counter_ns()}"
+        t0 = time.perf_counter()
+        sim = sim2d_3.build(1, str(geos / name), True, final_time=0.4, results_parent=where,
+                            values_dir=where / "values", device=DEVICE)
+        if not chunked:
+            per_step_only(sim)
+        if not sim.run() or sim.iterations != GOLDEN_STEPS:
+            raise RuntimeError(f"golden row {name} failed")
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def b5_launch_ms(chunked: bool) -> float:
+    """B5 at 128 x 32 in sim2d_3's run: ms per launch from CUDA events over
+    20 chunks of 20 steps through ``_advance``, the graph replayed or the
+    chunk eager."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim2d_3
+
+    where = WORK / "sweep_timing" / f"b5_{chunked}_{time.perf_counter_ns()}"
+    sim = warmed(sim2d_3.build(1, str(golden_geometries() / "1.txt"), True, final_time=10.0,
+                               results_parent=where, values_dir=where / "values",
+                               device=DEVICE))
+    if not chunked:
+        eager_chunks(sim)
+    return time_ms(lambda: sim._advance(20), reps=20) / 20
+
+
+def sim2_mlups(pair_dispatch, chunked: bool) -> float:
+    """sim_2 res 2 A-A through ``run``, SIM2_TIMED_STEPS steps: MLUPS."""
+    from tnl_lbm_tpu_torch.apps import sim_2
+
+    tag = f"{'pairs' if pair_dispatch else 'per_step'}_{'graph' if chunked else 'eager'}"
+    sim = sim_2.build(2, device=DEVICE, streaming="AA", use_fused=True,
+                      pair_dispatch=pair_dispatch,
+                      results_parent=WORK / "sim2_timing" / f"{tag}_{time.perf_counter_ns()}")
+    sim.phys_final_time = SIM2_TIMED_STEPS * sim.domain.units.phys_dt
+    if not chunked:
+        per_step_only(sim)
+    if not counting_from_init(sim).run():
+        raise RuntimeError(f"sim_2 res 2 ({tag}) failed")
+    return run_figures(sim)[1]
+
+
+def phase_dispatch_and_checkpoint() -> dict:
+    """The chunked dispatch as CUDA graphs and the checkpoints, on the card.
+
+    Replay against eager: each route of ``dispatch_routes`` warmed (one
+    eager chunk, a capture from each buffer), then DISPATCH_CHUNKS chunks
+    from its graphs held to the same chunks run eagerly from the same
+    state, bit for bit, with the same launches.  Round trips: sim_2 res 2
+    in pairs and A-B (both statistics windows on), sim_coupled res 2 (g
+    too) and sim2d_2 res 1 (its accumulators, the statistics from step 2)
+    through a background checkpoint, bit for bit.  Timings, in turns: the
+    golden sweep's wall per row and B5's ms per launch with the graph and
+    eager, and sim_2 res 2's MLUPS in pairs and per step, graph and per
+    step from Python."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim2d_2, sim_2, sim_coupled
+    from torch_cases import compress_statistics
+
+    t0 = time.perf_counter()
+    for label, build in dispatch_routes():
+        sim = build()
+        replay_vs_eager(sim, label)
+        del sim
+        torch.cuda.empty_cache()
+
+    def sim2(streaming, **kw):
+        def build(tag):
+            sim = sim_2.build(2, device=DEVICE, use_fused=True, streaming=streaming,
+                              results_parent=WORK / "roundtrip" / f"sim_2_{streaming}" / tag,
+                              **kw)
+            sim.collect_stats = sim.collect_stats2 = True
+            return sim
+        return build
+
+    def coupled(tag):
+        return sim_coupled.build(2, use_fused=True, device=DEVICE,
+                                 results_parent=WORK / "roundtrip" / "coupled" / tag)
+
+    def stats_2d(tag):
+        sim = sim2d_2.build(1, str(golden_geometries() / "1.txt"), device=DEVICE,
+                            results_parent=WORK / "roundtrip" / "sim2d_2" / tag)
+        compress_statistics(sim)
+        return sim
+
+    checkpoint_roundtrip("sim_2_res2_pairs", sim2("AA", pair_dispatch=True))
+    checkpoint_roundtrip("sim_2_res2_ab", sim2("AB"))
+    checkpoint_roundtrip("sim_coupled_res2", coupled, extra=("g", "phi"))
+    checkpoint_roundtrip("sim2d_2_res1", stats_2d, extra=("sum_v",))
+    t_checks = time.perf_counter() - t0
+
+    csv_rows = sorted(p.name for p in golden_geometries().glob("*.txt"))[:SWEEP_ROWS]
+    walls = {}
+    for chunked in (True, False, False, True):
+        walls.setdefault(chunked, []).extend(sweep_row_seconds(csv_rows[:SWEEP_ROWS // 2],
+                                                               chunked))
+    launch = {c: [b5_launch_ms(c) for _ in range(2)] for c in (True, False)}
+    mlups = {}
+    for pair in (True, False):
+        for chunked in (True, False, False, True):
+            mlups.setdefault((pair, chunked), []).append(sim2_mlups(pair, chunked))
+    log("dispatch_timing", card=card_state(),
+        sweep_row_s_graph=f"{np.median(walls[True]):.4f}",
+        sweep_row_s_per_step=f"{np.median(walls[False]):.4f}",
+        sweep_rows=len(walls[True]),
+        b5_ms_per_launch_graph=f"{np.median(launch[True]):.5f}",
+        b5_ms_per_launch_eager=f"{np.median(launch[False]):.5f}",
+        **{f"sim_2_res2_{'pairs' if p else 'per_step'}_{'graph' if c else 'python'}_mlups":
+           "/".join(f"{m:.1f}" for m in v) for (p, c), v in mlups.items()},
+        checks_seconds=f"{t_checks:.1f}", seconds=f"{time.perf_counter() - t0:.1f}")
+    return {"walls": walls, "launch": launch, "mlups": mlups}
+
+
 def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
     """(bytes per site, FP32 operations per site) of each kernel at its
     timed 256^3 inputs (B5: 8192 x 2048, as many sites, ``b5_bytes`` and
@@ -3130,6 +3437,9 @@ def main() -> int:
         + timed_2d["kernel"].launches)
     hooked_2d = phase_hooked_2d(floor)
     kernels["d2q9_step_force_field"] = hooked_2d["kernel"]
+    t_dispatch = time.perf_counter()
+    phase_dispatch_and_checkpoint()
+    t_dispatch = time.perf_counter() - t_dispatch
     phase_accuracy()
     err = {**steps["err"], **pairs["err"], **probe["err"], **ab["err"], **layouts["err"],
            "d2q9_step": max(compare_2d_err, timed_2d["err"])}
@@ -3176,7 +3486,7 @@ def main() -> int:
     added = probe["window_seconds"] + t_layouts + t_bench
     log("time", total_seconds=f"{total:.1f}", window_probes_seconds=f"{probe['window_seconds']:.1f}",
         layouts_seconds=f"{t_layouts:.1f}", bench_seconds=f"{t_bench:.1f}",
-        added_share=f"{added / total:.3f}")
+        dispatch_and_checkpoint_seconds=f"{t_dispatch:.1f}", added_share=f"{added / total:.3f}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                              "count": device["count"]}}))

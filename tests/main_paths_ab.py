@@ -11,13 +11,17 @@ coupled step (B7, 100 steps); where the checkout's package has the hooked
 path (``kernels/hooked.py``), the 256^3 bench duct with the Carreau-Yasuda
 hook through its one-kernel route (B10) and its pipeline, A-B and A-A, 100
 steps each; the pair paths: the 256^3 duct in pairs (B1) with the state in
-f32, f16 and bf16, 200 steps each, sim_2 at resolution 2 in pairs (2000
-steps) and with "auto" dispatch (its choice and its probe's two times
-beside), the benchmark entry (``python -m tnl_lbm_tpu_torch.bench``, pair2)
-per store dtype, and the pair kernel itself on sim_2's resolution-2 duct
-and at 256^3 per store dtype (CUDA events over 50 or 20 pairs from a seeded
-state).  Prints one JSON line: path ->
-MLUPS, and the pair kernel's ms per store dtype.  Run it in turns within
+f32, f16 and bf16, 200 steps each, sim_2 at resolution 2 in pairs, per
+step (2000 steps each) and with "auto" dispatch (its choice and its
+probe's two times beside), the benchmark entry (``python -m
+tnl_lbm_tpu_torch.bench``, pair2) per store dtype, the pair kernel itself
+on sim_2's resolution-2 duct and at 256^3 per store dtype (CUDA events over
+50 or 20 pairs from a seeded state), and 12 rows of the golden sweep
+(sim2d_3 res 1, 1440 steps: wall seconds per row, and B5's ms per launch
+through ``Simulation._advance``).  Prints one JSON line: path -> MLUPS and
+peak memory (GB, ``max_memory_allocated`` from the end of sim_init), the
+graph replays and graphs kept per path where the checkout has them, the
+golden rows, and the pair kernel's ms per store dtype.  Run it in turns within
 one call (parent, change, change, parent) and compare only within that
 call.  The duct is built here from the checkout's own ``interop``, so a
 checkout without the benchmark entry (``tnl_lbm_tpu_torch/bench.py``)
@@ -96,19 +100,38 @@ def main() -> int:
         return sim
 
     runs += [("sim_2_res2_pairs", lambda: sim2(True, "sim2")),
+             ("sim_2_res2_per_step", lambda: sim2(False, "sim2_step")),
              ("sim_2_res2_auto", lambda: sim2("auto", "sim2_auto"))]
-    mlups, chose = {}, {}
+    mlups, chose, peak, graphs = {}, {}, {}, {}
     for label, run in runs:
         sim = run()
+        _, mlups[label], peak[label] = cs.run_figures(sim)  # before report_main's checks
         cs.report_main(sim, label)
-        mlups[label] = cs.run_figures(sim)[1]
+        if hasattr(sim, "graph_replays"):  # a checkout with the chunked dispatch
+            graphs[label] = (sim.graph_replays, len(sim._graphs))
         if label.endswith("_auto"):
             chose[label] = ("pair" if sim.pair_dispatch else "per_step", sim.pair_probe_ms)
         del sim
     mlups.update(bench_entry())
-    print(json.dumps({"root": str(root), "mlups": mlups, "auto": chose,
-                      "pair_ms": pair_kernel_ms(cs, flagship)}))
+    print(json.dumps({"root": str(root), "mlups": mlups, "peak_gb": peak, "graphs": graphs,
+                      "auto": chose,
+                      "golden": golden_sweep(cs), "pair_ms": pair_kernel_ms(cs, flagship)}))
     return 0
+
+
+def golden_sweep(cs) -> dict:
+    """The golden sweep's rows as the checkout's sim2d_3 runs them: wall
+    seconds per row (build and run, 1440 steps at 128 x 32) over
+    GOLDEN_ROWS rows, and B5's ms per launch from CUDA events over 20
+    dispatches of 20 steps through ``Simulation._advance``."""
+    rows = sorted(p.name for p in cs.golden_geometries().glob("*.txt"))[:GOLDEN_ROWS]
+    walls = cs.sweep_row_seconds(rows, chunked=True)
+    return {"rows": len(walls), "row_s_median": float(np.median(walls)),
+            "row_s": walls, "b5_ms_per_launch": cs.b5_launch_ms(chunked=True)}
+
+
+#: golden rows timed per checkout
+GOLDEN_ROWS = 12
 
 
 def bench_entry() -> dict:

@@ -372,8 +372,13 @@ def test_sim2d_2_matches_jax(tmp_path, geos):
         assert_close(getattr(ref, name), getattr(port, name), 1e-5, name)
     tke_p, tke_j = (float((tmp_path / f"tke_{s}").read_text()) for s in ("port", "jax"))
     assert tke_p > 0 and abs(tke_p - tke_j) <= 1e-5 * tke_j
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        port.checkpoint_arrays_extra()
+    # the checkpoint's extra arrays: the JAX app's names and values
+    extra, ref_extra = port.checkpoint_arrays_extra(), ref.checkpoint_arrays_extra()
+    assert sorted(extra) == sorted(ref_extra) == [f"s2d2_{n}" for n in
+                                                  ("frozen_mean", "sum_up2", "sum_upmag", "sum_v")]
+    for name, v in extra.items():
+        assert v is getattr(port, name[5:]), name
+        assert_close(ref_extra[name], v, 1e-5, name)
     # one state in both: the output fields, written as VTK, byte for byte
     for name in ("rho", "u", "sum_v", "frozen_mean", "sum_up2", "sum_upmag"):
         setattr(port, name, torch.from_numpy(np.array(getattr(ref, name))))

@@ -219,7 +219,7 @@ def test_ab_step_refuses_what_it_does_not_implement(monkeypatch):
         make_fused_step(interop.config_from_spec(**spec_of("CUM_WELL", "AA")), dom, "cpu")
     step = make_fused_step(cfg, dom, "cpu")
     f = torch.zeros((27,) + m.shape)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6/A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         step(f, NU, u_in=np.zeros((3,) + m.shape))
     with pytest.raises(NotImplementedError, match="force_field"):
         step(f, NU, force=np.zeros((3,) + m.shape))

@@ -359,8 +359,9 @@ def test_sim_coupled_options_that_raise(tmp_path):
     for name, bound in (("f", 1e-6), ("g", 1e-6), ("phi", 2e-6)):
         d = float((getattr(fused, name) - getattr(sim, name)).abs().max())
         assert d < bound, (name, d)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        sim.checkpoint_arrays_extra()
+    # a checkpoint saves g beside f (JAX sim/coupled.py:55-58)
+    assert sim.checkpoint_arrays_extra().keys() == {"g"}
+    assert sim.checkpoint_arrays_extra()["g"] is sim.g
     step = fused_coupled.make_fused_coupled_step_aa(sim.cfg, sim.domain, sim.ade_cfg,
                                                     sim.ade_domain, "cpu")
     assert step.plain_calls == 0 and step.even.launches == step.odd.launches == 0

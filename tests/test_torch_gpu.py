@@ -912,3 +912,108 @@ def test_bench_entry_on_card(cuda, kernel, capsys):
     rec = json.loads(capsys.readouterr().out.strip())
     assert rec["device"] == torch.cuda.get_device_name(0) and rec["value"] > 0
     assert rec["bound_mlups"] > rec["value"] and min(rec["launches"].values()) == 51
+
+
+# ----------------------------------------- the chunked dispatch as CUDA graphs
+
+def driver_run(case, where, stats=True):
+    """A small ``Simulation`` on the card through one route: B5 on a D2Q9
+    channel, B4 on sim_2's duct under A-B, B2/B3 per step and B1 in pairs
+    under A-A; 8-step chunks with a body force, both statistics windows on
+    (``stats``)."""
+    from tnl_lbm_tpu_torch.sim.state import Simulation
+
+    force = FORCE_2D if case == "b5" else (1e-5, 0.0, 0.0)
+
+    class Run(Simulation):
+        def body_force(self, phys_time):
+            return np.asarray(force)
+
+        def update_inflow(self, phys_time):
+            return np.asarray(U_IN_2D) if case == "b5" else None
+
+    if case == "b5":
+        m, periodic, bz = case_2d("channel", (37, 40))
+        cfg = interop.config_2d_from_spec("CLBM")
+        dom = interop.domain_from_numpy(m, periodic, lat=cfg.lat, bouzidi=bz, phys_viscosity=0.02)
+    else:
+        streaming = "AB" if case == "b4" else "AA"
+        cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, streaming)
+        dom = interop.domain_from_numpy(duct((16, 24, 20), True), (True, False, False),
+                                        phys_viscosity=0.02)
+    sim = Run(cfg, dom, device="cuda", sim_id=case, results_parent=where, steps_per_dispatch=8,
+              use_fused=True, pair_dispatch=case == "b1")
+    sim.collect_stats = sim.collect_stats2 = stats
+    sim.sim_init()
+    return sim
+
+
+def fields(sim):
+    return {n: getattr(sim, n).clone() for n in ("f", "rho", "u", "vm", "vm2", "vm_b", "vm2_b")
+            if getattr(sim, n) is not None}
+
+
+@pytest.mark.parametrize("case", ["b5", "b4", "b2_b3", "b1"])
+def test_graph_replay_equals_eager_chunk_and_counts_its_launches(cuda, tmp_path, case):
+    """After the eager warm-up and a capture from each buffer, chunks
+    replayed from CUDA graphs equal the same chunks run eagerly from the
+    same state, bit for bit (f, rho, u, both statistics windows), and each
+    replay adds the launches the eager chunk makes to the kernel's count."""
+    from tnl_lbm_tpu_torch.kernels.fused import kernel_counters
+
+    sim = driver_run(case, tmp_path)
+    for _ in range(3):
+        sim._advance(8)
+    assert sim.graph_replays >= 1 and len(sim._graphs) >= 1
+    start, bufs, it = fields(sim), (sim.f, sim._spare), sim.iterations
+    counts = (sim.stat_counter, sim.stat2_counter)
+    kernels = kernel_counters(sim._step, sim._pair)
+    before, replays = [k.launches for k in kernels], sim.graph_replays
+    for _ in range(2):
+        sim._advance(8)
+    assert sim.graph_replays == replays + 2
+    replayed = [k.launches - b for k, b in zip(kernels, before)]
+    graph = fields(sim)
+    sim.f, sim._spare = bufs
+    for n, t in start.items():
+        getattr(sim, n).copy_(t)
+    sim.iterations, (sim.stat_counter, sim.stat2_counter) = it, counts
+    before = [k.launches for k in kernels]
+    sim._graph_chunk = sim._chunk
+    for _ in range(2):
+        sim._advance(8)
+    eager = [k.launches - b for k, b in zip(kernels, before)]
+    assert replayed == eager and sum(eager) == (8 if case == "b1" else 16)
+    for n, t in graph.items():
+        assert torch.equal(t, getattr(sim, n)), n
+    assert sum(getattr(w, "plain_calls", 0) for w in (sim._step, sim._pair)) == 0
+
+
+def test_checkpoint_round_trip_on_the_card_is_bit_exact(cuda, tmp_path):
+    """Three chunks in pairs, a background checkpoint, a resumed run of
+    three more chunks, against six uninterrupted: bit for bit."""
+    from tnl_lbm_tpu_torch.io import native
+
+    whole = driver_run("b1", tmp_path / "whole")
+    for _ in range(6):
+        whole._advance(8)
+    cut = driver_run("b1", tmp_path / "cut")
+    for _ in range(3):
+        cut._advance(8)
+    cut.save_state(background=True)
+    native.flush()
+    resumed = driver_run("b1", tmp_path / "cut")
+    assert resumed.start_iterations == 24 and native.errors() == 0
+    for _ in range(3):
+        resumed._advance(8)
+    for n, t in fields(whole).items():
+        assert torch.equal(t, getattr(resumed, n)), n
+
+
+def test_native_writer_writes_and_flushes_beside_the_card(cuda, tmp_path):
+    from tnl_lbm_tpu_torch.io import native
+
+    data = torch.arange(1 << 16, dtype=torch.float32, device="cuda").cpu().numpy().tobytes()
+    native.write_blob_async(tmp_path / "x.bin", data)
+    native.flush()
+    assert (tmp_path / "x.bin").read_bytes() == data and native.errors() == 0

@@ -27,7 +27,8 @@ def test_every_port_module_is_listed():
                  "tnl_lbm_tpu_torch.apps.sim2d_2", "tnl_lbm_tpu_torch.apps.sim2d_3",
                  "tnl_lbm_tpu_torch.ops.non_newtonian", "tnl_lbm_tpu_torch.kernels.fused_nn",
                  "tnl_lbm_tpu_torch.kernels.fused_nn_step", "tnl_lbm_tpu_torch.kernels.hooked",
-                 "tnl_lbm_tpu_torch.bench", "tnl_lbm_tpu_torch.kernels.probes"):
+                 "tnl_lbm_tpu_torch.bench", "tnl_lbm_tpu_torch.kernels.probes",
+                 "tnl_lbm_tpu_torch.io.native", "tnl_lbm_tpu_torch.sim.checkpoint"):
         assert name in PORT_MODULES
 
 

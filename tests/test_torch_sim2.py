@@ -56,11 +56,11 @@ def test_duct_profiles_match_jax():
 
 def test_fused_ab_is_not_ported(tmp_path):
     """What of the A-B step (B4) is still not ported refuses in a run: a
-    per-site inflow profile (ROADMAP A6/A8) raises at the first step."""
+    per-site inflow profile (ROADMAP A8) raises at the first step."""
     sim = sim_2.build(1, device="cpu", streaming="AB", use_fused=True, final_time=0.05,
                       results_parent=tmp_path)
     sim.update_inflow = lambda phys_time: np.zeros((3,) + sim.domain.shape, np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6/A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         sim.run()
     assert sim.iterations == 0
 

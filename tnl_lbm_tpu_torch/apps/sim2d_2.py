@@ -306,9 +306,21 @@ class Sim2D2(ParabolicInflow, Simulation):
     def probe1(self):
         self.write_stats_snapshot("periodic")
 
-    def checkpoint_arrays_extra(self):
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP A6); the run would "
-                                  "save its statistics accumulators beside f")
+    # ---------------------------------------------------------- checkpoint
+    def checkpoint_arrays_extra(self) -> dict:
+        """The statistics accumulators, saved beside f (JAX app's names)."""
+        return {f"s2d2_{name}": getattr(self, name)
+                for name in ("sum_v", "frozen_mean", "sum_up2", "sum_upmag")
+                if getattr(self, name) is not None}
+
+    def sim_init(self):
+        super().sim_init()
+        restored = self._restored_arrays
+        if restored:
+            for name in ("sum_v", "frozen_mean", "sum_up2", "sum_upmag"):
+                if f"s2d2_{name}" in restored:
+                    setattr(self, name, torch.as_tensor(restored[f"s2d2_{name}"]).to(
+                        device=self.device, dtype=self.cfg.compute_dtype).contiguous())
 
 
 def build(resolution: int = 1, object_file: str | None = None, enable_bouzidi: bool = True,

@@ -66,6 +66,53 @@ class CudaKernel:
     launches: int = 0
 
 
+def kernel_counters(*wrappers) -> list:
+    """The CudaKernel records of kernel wrappers: their ``kernel``/``ab``/
+    ``even``/``odd`` attributes, and those of a hooked step's ``kernels``."""
+    out = []
+    for w in wrappers:
+        if w is None:
+            continue
+        out += [v for v in vars(w).values() if isinstance(v, CudaKernel)]
+        for sub in getattr(w, "kernels", None) or ():
+            out += kernel_counters(sub)
+    return out
+
+
+def check_out(out, f) -> None:
+    """``out`` (None, or the buffer a step writes its state into) must be a
+    second contiguous buffer like ``f``."""
+    if out is not None and (out is f or out.shape != f.shape or out.dtype != f.dtype
+                            or out.device != f.device or not out.is_contiguous()):
+        raise ValueError("out must be a second contiguous state buffer like f")
+
+
+def macro_buffers(macro_out, shape, D: int, dtype, device):
+    """(rho, u) for a launch to write: the caller's pair (``macro_out``,
+    checked: contiguous [*S] and [D, *S] of ``dtype`` on ``device``), or two
+    new tensors.  Fixed buffers let a replayed CUDA graph write the same
+    addresses on every step."""
+    shape = tuple(shape)
+    if macro_out is None:
+        return (torch.empty(shape, dtype=dtype, device=device),
+                torch.empty((D,) + shape, dtype=dtype, device=device))
+    rho, u = macro_out
+    for t, want in ((rho, shape), (u, (D,) + shape)):
+        if (tuple(t.shape) != want or t.dtype != dtype or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"macro_out must hold contiguous {dtype} tensors of {want} on "
+                             f"{device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    return rho, u
+
+
+def into(macro_out, rho, u):
+    """The plain path's (rho, u), copied into ``macro_out`` when given."""
+    if macro_out is None:
+        return rho, u
+    macro_buffers(macro_out, rho.shape, u.shape[0], rho.dtype, rho.device)
+    return macro_out[0].copy_(rho), macro_out[1].copy_(u)
+
+
 def kernel_codes(streaming: str, pair: bool = False) -> frozenset:
     """The GEO codes the kernels of a streaming pattern handle (``pair``:
     the one-kernel A-A pair's)."""
@@ -104,7 +151,7 @@ def _force3(force) -> tuple[float, float, float]:
 
 
 def _u_in3(u_in) -> tuple[float, float, float]:
-    return host_vector3(u_in, "inflow velocity", "inflow profiles: ROADMAP A6/A8")
+    return host_vector3(u_in, "inflow velocity", "inflow profiles: ROADMAP A8")
 
 
 def _periodic_bits(periodic) -> int:
@@ -364,11 +411,13 @@ def site_force(field, fadd):
 
 
 class FusedStepAB:
-    """``step(f, nu, u_in=None, force=None, parity=0, out=None) -> (f_new, rho, u)``.
+    """``step(f, nu, u_in=None, force=None, parity=0, out=None, macro_out=None)
+    -> (f_new, rho, u)``.
 
     One A-B step (pull, the full 3D BC set, CUM_WELL or CUM) out of place:
     the result goes to a new tensor, or into ``out`` (a second state
-    buffer, not ``f``), so a caller can ping-pong two buffers.  ``u_in``
+    buffer, not ``f``), so a caller can ping-pong two buffers; rho and u
+    go to new tensors, or into ``macro_out`` (a pair of buffers).  ``u_in``
     and ``force`` are homogeneous [3] vectors, given as host values;
     ``parity`` is accepted for the common step contract and ignored.
     ``kernel`` counts the launches, ``plain_calls`` the CPU-path calls.
@@ -416,19 +465,18 @@ class FusedStepAB:
         return None, _force3(force)
 
     def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None,
-                 force_add=None):
+                 force_add=None, macro_out=None):
         del parity
         field, fvec = self._forces(f, force, force_add)
         uvec = _u_in3(u_in)
-        if out is not None and (self.macro_only or out is f or out.shape != f.shape
-                                or out.dtype != f.dtype or out.device != f.device
-                                or not out.is_contiguous()):
-            raise ValueError("out must be a second contiguous state buffer like f "
-                             "(and the u* pass writes no state)")
+        if out is not None and self.macro_only:
+            raise ValueError("the u* pass writes no state")
+        check_out(out, f)
         if f.device.type == "cuda":
-            return self._launch(f, float(nu), field, fvec, uvec, out)
+            return self._launch(f, float(nu), field, fvec, uvec, out, macro_out)
         self.plain_calls += 1
         f_new, rho, u = self._plain(f, nu, fvec, uvec, field)
+        rho, u = into(macro_out, rho, u)
         if self.macro_only:
             return rho, u
         if out is not None:
@@ -459,7 +507,7 @@ class FusedStepAB:
                                   self.map.to(f.device), nu, force, u_in=uvec,
                                   macro_only=self.macro_only)
 
-    def _launch(self, f, nu, field, fvec, uvec, out):
+    def _launch(self, f, nu, field, fvec, uvec, out, macro_out):
         if self.device.type != "cuda" or f.device != self.map.device:
             raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
         if f.dtype != torch.float32:
@@ -472,8 +520,7 @@ class FusedStepAB:
         f_new = None
         if not self.macro_only:
             f_new = torch.empty_like(f) if out is None else out
-        rho = torch.empty((X, Y, Z), dtype=f.dtype, device=f.device)
-        u = torch.empty((3, X, Y, Z), dtype=f.dtype, device=f.device)
+        rho, u = macro_buffers(macro_out, (X, Y, Z), 3, f.dtype, f.device)
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
         rc = lib.tnl_lbm_ab_step(f.data_ptr(), None if f_new is None else f_new.data_ptr(),
                                  self.map.data_ptr(), None if field is None else field.data_ptr(),

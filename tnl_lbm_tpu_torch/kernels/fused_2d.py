@@ -23,6 +23,9 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     CudaKernel,
     _stream_bc_collide,
     check_force_field,
+    check_out,
+    into,
+    macro_buffers,
     site_force,
 )
 from tnl_lbm_tpu_torch.ops import boundary as bc
@@ -92,10 +95,12 @@ def _vector2(value, what: str) -> tuple[float, float]:
 
 
 class FusedStep2D:
-    """``step(f, nu, u_in=None, force=None, parity=0, out=None) -> (f_new, rho, u)``.
+    """``step(f, nu, u_in=None, force=None, parity=0, out=None, macro_out=None)
+    -> (f_new, rho, u)``.
 
     One D2Q9 A-B step out of place: into a new tensor, or into ``out`` (a
-    second state buffer, not ``f``), so a caller can ping-pong two buffers.
+    second state buffer, not ``f``), so a caller can ping-pong two buffers;
+    rho and u into new tensors, or into ``macro_out`` (a pair of buffers).
     ``force`` is a [2] host vector; SRT adds Guo's term only when a force is
     passed, as the JAX kernel does.  ``u_in`` is None, a [2] host vector, or
     a profile broadcastable to [2, X, Y] (sim2d_2's parabolic [2, 1, Y]); a
@@ -170,20 +175,19 @@ class FusedStep2D:
         return None, _vector2(force, "force")
 
     def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None,
-                 force_add=None):
+                 force_add=None, macro_out=None):
         del parity
         field, fvec = self._forces(f, force, force_add)
-        if out is not None and (out is f or out.shape != f.shape or out.dtype != f.dtype
-                                or out.device != f.device or not out.is_contiguous()):
-            raise ValueError("out must be a second contiguous state buffer like f")
+        check_out(out, f)
         prof, uvec = self._profile(u_in, f.device)
         if f.device.type == "cuda":
-            return self._launch(f, float(nu), field, fvec, force is not None, prof, uvec, out)
+            return self._launch(f, float(nu), field, fvec, force is not None, prof, uvec, out,
+                                macro_out)
         self.plain_calls += 1
         f_new, rho, u = self._plain(f, nu, field, fvec, force is not None, prof, uvec)
         if out is not None:
             f_new = out.copy_(f_new)
-        return f_new, rho, u
+        return (f_new, *into(macro_out, rho, u))
 
     def plain(self, f, nu, u_in=None, force=None, force_add=None):
         """The step's plain PyTorch version on f's device: (f_new, rho, u),
@@ -212,7 +216,7 @@ class FusedStep2D:
                                   u_in=uvec if prof is None else prof, thetas=thetas,
                                   collision_force=force_col)
 
-    def _launch(self, f, nu, field, fvec, has_force, prof, uvec, out):
+    def _launch(self, f, nu, field, fvec, has_force, prof, uvec, out, macro_out):
         if self.device.type != "cuda" or f.device != self.map.device:
             raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
         if f.dtype != torch.float32:
@@ -223,8 +227,7 @@ class FusedStep2D:
                              f"got {tuple(f.shape)}")
         lib = load_library()
         f_new = torch.empty_like(f) if out is None else out
-        rho = torch.empty((X, Y), dtype=f.dtype, device=f.device)
-        u = torch.empty((2, X, Y), dtype=f.dtype, device=f.device)
+        rho, u = macro_buffers(macro_out, (X, Y), 2, f.dtype, f.device)
         bz = 0 if self.thetas is None else self.thetas.data_ptr()
         uin, strides = (0, (0, 0, 0)) if prof is None else (prof.data_ptr(), prof.stride())
         if field is None:

@@ -53,6 +53,9 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     _u_in3,
     aa_variant,
     check_force_field,
+    check_out,
+    into,
+    macro_buffers,
     site_force,
     variant_mode,
 )
@@ -125,10 +128,13 @@ def odd_step_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, f, m, nu, for
 
 
 class FusedStepAA:
-    """``step(f, nu, u_in=None, force=None, parity=0) -> (f, rho, u)``.
+    """``step(f, nu, u_in=None, force=None, parity=0, out=None, macro_out=None)
+    -> (f, rho, u)``.
 
     ``parity`` 0 is the even step (in place: the returned f is the input
-    tensor), 1 the odd step (a new tensor).  ``u_in`` and ``force`` are
+    tensor, and ``out`` is not used), 1 the odd step (a new tensor, or
+    ``out``, a second state buffer).  rho and u go to new tensors, or into
+    ``macro_out`` (a pair of buffers).  ``u_in`` and ``force`` are
     homogeneous [3] vectors, given as host values.  ``even`` and ``odd``
     count the kernel launches, ``plain_calls`` the CPU-path calls.
     ``lean=False`` keeps the kernels' full-set CUM_WELL instance on a map of
@@ -182,18 +188,25 @@ class FusedStepAA:
             raise ValueError("force_add belongs to the force_field variant")
         return None, _force3(force)
 
-    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None):
+    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None,
+                 out=None, macro_out=None):
         field, fvec = self._forces(f, force, force_add)
         uvec = _u_in3(u_in)
+        if out is not None and self.macro_only:
+            raise ValueError("the u* pass writes no state")
+        check_out(out, f)
         if f.device.type == "cuda":
-            return self._launch(f, float(nu), field, fvec, uvec, parity)
+            return self._launch(f, float(nu), field, fvec, uvec, parity, out, macro_out)
         self.plain_calls += 1
         f_new, rho, u = self._plain(f, nu, fvec, uvec, parity, field)
+        rho, u = into(macro_out, rho, u)
         if self.macro_only:
             return rho, u
         if parity == 0:
             f.copy_(f_new)
             return f, rho, u
+        if out is not None:
+            f_new = out.copy_(f_new)
         return f_new, rho, u
 
     def plain(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None):
@@ -213,7 +226,7 @@ class FusedStepAA:
         return odd_step_plain(self.cfg, self.codes, self.do_coll_codes, self.periodic,
                               f, m, nu, force, uvec, macro_only=self.macro_only)
 
-    def _launch(self, f, nu, field, fvec, uvec, parity):
+    def _launch(self, f, nu, field, fvec, uvec, parity, out, macro_out):
         if self.device.type != "cuda" or f.device != self.map.device:
             raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
         if f.dtype != torch.float32:
@@ -223,8 +236,7 @@ class FusedStepAA:
             raise ValueError(f"f must be a contiguous [{self.lat.Q}, {X}, {Y}, {Z}] tensor, "
                              f"got {tuple(f.shape)}")
         lib = load_library()
-        rho = torch.empty((X, Y, Z), dtype=f.dtype, device=f.device)
-        u = torch.empty((3, X, Y, Z), dtype=f.dtype, device=f.device)
+        rho, u = macro_buffers(macro_out, (X, Y, Z), 3, f.dtype, f.device)
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
         neumaier = int(self.cfg.high_precision_rho)
         ff = None if field is None else field.data_ptr()
@@ -234,7 +246,7 @@ class FusedStepAA:
                                      *uvec, neumaier, stream_ptr)
             kernel, f_new = self.even, f
         else:
-            f_new = None if self.macro_only else torch.empty_like(f)
+            f_new = None if self.macro_only else (torch.empty_like(f) if out is None else out)
             rc = lib.tnl_lbm_aa_odd(f.data_ptr(), None if f_new is None else f_new.data_ptr(),
                                     self.map.data_ptr(), ff, rho.data_ptr(), u.data_ptr(),
                                     X, Y, Z, _periodic_bits(self.periodic),
@@ -257,11 +269,12 @@ def make_fused_step_aa(cfg: LBMConfig, domain: Domain, device, force_field: bool
 
 
 class FusedPairAA:
-    """``pair(f, nu, u_in=None, force=None, out=None) -> (f_new, rho, u)``.
+    """``pair(f, nu, u_in=None, force=None, out=None, macro_out=None) -> (f_new, rho, u)``.
 
     Two A-A steps, even then odd, from an even parity.  ``f`` is the state
     in the store dtype (``to_storage``); rho and u come from the odd step,
-    in the compute dtype (None with ``with_macro=False``).  The result goes
+    in the compute dtype (None with ``with_macro=False``), in new tensors
+    or in ``macro_out`` (a pair of buffers).  The result goes
     to a new tensor, or into ``out`` (a second state buffer, not ``f``),
     so a caller can ping-pong two buffers.  ``kernel`` counts the launches
     of this store dtype's kernel, ``plain_calls`` the CPU-path calls.
@@ -326,23 +339,25 @@ class FusedPairAA:
             geo.update(seg_len=self.seg_len, segments=-(-X // self.seg_len))
         return geo
 
-    def __call__(self, f, nu, u_in=None, force=None, out=None, bflags=None):
+    def __call__(self, f, nu, u_in=None, force=None, out=None, bflags=None, macro_out=None):
         if bflags is not None:
             raise NotImplementedError("per-shard boundary flags are not ported yet "
                                       "(ROADMAP A13)")
         if u_in is not None and np.ndim(u_in) > 1:
             raise NotImplementedError("per-site inflow profiles are not ported yet (ROADMAP A8)")
-        if out is not None and (out is f or out.shape != f.shape or out.dtype != f.dtype
-                                or out.device != f.device or not out.is_contiguous()):
-            raise ValueError("out must be a second contiguous state buffer like f")
+        check_out(out, f)
+        if macro_out is not None and not self.with_macro:
+            raise ValueError("a pair built with_macro=False writes no rho and u")
         if f.dtype != self.store_dtype:
             raise ValueError(f"f is {f.dtype}, the pair stores {self.store_dtype}")
         if f.device.type == "cuda":
-            return self._launch(f, float(nu), _force3(force), out)
+            return self._launch(f, float(nu), _force3(force), out, macro_out)
         self.plain_calls += 1
         f_new, rho, u = self.plain(f, nu, force=force)
         if out is not None:
             f_new = out.copy_(f_new)
+        if self.with_macro:
+            rho, u = into(macro_out, rho, u)
         return f_new, rho, u
 
     def plain(self, f, nu, force=None):
@@ -358,7 +373,7 @@ class FusedPairAA:
         f_new = to_storage(f_new, self.store_dtype)
         return (f_new, rho, u) if self.with_macro else (f_new, None, None)
 
-    def _launch(self, f, nu, fvec, out):
+    def _launch(self, f, nu, fvec, out, macro_out):
         if self.device.type != "cuda" or f.device != self.map.device:
             raise ValueError(f"f is on {f.device}, the pair was built for {self.device}")
         X, Y, Z = self.shape
@@ -369,8 +384,7 @@ class FusedPairAA:
         f_new = torch.empty_like(f) if out is None else out
         rho = u = None
         if self.with_macro:
-            rho = torch.empty((X, Y, Z), dtype=self.cfg.compute_dtype, device=f.device)
-            u = torch.empty((3, X, Y, Z), dtype=self.cfg.compute_dtype, device=f.device)
+            rho, u = macro_buffers(macro_out, (X, Y, Z), 3, self.cfg.compute_dtype, f.device)
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
         args = (f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
                 rho.data_ptr() if rho is not None else None,

@@ -62,9 +62,9 @@ def nn_geometry(kind: int, shape) -> dict:
 
 
 class NNForce:
-    """``force(rho, u, nu) -> F [3, X, Y, Z]``: the NN body force of a
-    Carreau-Yasuda or Casson ``model`` on a D3Q27 domain, with the stencil
-    periodicity ``periodic``.  ``kernel`` counts the launches,
+    """``force(rho, u, nu, out=None) -> F [3, X, Y, Z]``: the NN body force of
+    a Carreau-Yasuda or Casson ``model`` on a D3Q27 domain, with the stencil
+    periodicity ``periodic``, in a new tensor or in ``out``.  ``kernel`` counts the launches,
     ``plain_calls`` the CPU-path calls."""
 
     def __init__(self, model, domain: Domain, device, periodic=None):
@@ -90,11 +90,12 @@ class NNForce:
     def reset_counts(self) -> None:
         self.kernel.launches = self.plain_calls = 0
 
-    def __call__(self, rho, u, nu):
+    def __call__(self, rho, u, nu, out=None):
         if rho.device.type == "cuda":
-            return self._launch(rho, u, float(nu))
+            return self._launch(rho, u, float(nu), out)
         self.plain_calls += 1
-        return self.plain(rho, u, nu)
+        F = self.plain(rho, u, nu)
+        return F if out is None else out.copy_(F)
 
     def plain(self, rho, u, nu):
         """The plain version on rho's device: the forcing hook of
@@ -103,7 +104,7 @@ class NNForce:
         fluid = self.map.to(rho.device) == int(GEO.FLUID)
         return self.hook(D3Q27, rho, u, nu, fluid)
 
-    def _launch(self, rho, u, nu):
+    def _launch(self, rho, u, nu, out):
         X, Y, Z = self.shape
         if rho.device != self.map.device or u.device != rho.device:
             raise ValueError(f"rho/u are on {rho.device}/{u.device}, the kernel was built for "
@@ -113,7 +114,12 @@ class NNForce:
                 raise ValueError(f"the NN force kernel takes contiguous float32 {shape} "
                                  f"tensors, got {tuple(t.shape)} {t.dtype}")
         lib = load_library()
-        out = torch.empty((3, X, Y, Z), dtype=torch.float32, device=rho.device)
+        if out is None:
+            out = torch.empty((3, X, Y, Z), dtype=torch.float32, device=rho.device)
+        elif (tuple(out.shape) != (3, X, Y, Z) or out.dtype != torch.float32
+              or out.device != rho.device or not out.is_contiguous()):
+            raise ValueError(f"out must be a contiguous float32 (3, {X}, {Y}, {Z}) tensor on "
+                             f"{rho.device}")
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(rho.device).cuda_stream)
         rc = lib.tnl_lbm_nn_force(rho.data_ptr(), u.data_ptr(), self.map.data_ptr(),
                                   out.data_ptr(), X, Y, Z, nn_bits(self.periodic),

@@ -31,8 +31,11 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     _periodic_bits,
     _prep,
     _u_in3,
+    check_out,
     host_vector3,
+    into,
     kernel_codes,
+    macro_buffers,
 )
 from tnl_lbm_tpu_torch.kernels.fused_nn import nn_bits, rheology_args
 from tnl_lbm_tpu_torch.ops.boundary import GEO
@@ -59,11 +62,13 @@ def supports(cfg: LBMConfig, domain: Domain, nn_periodic) -> bool:
 
 
 class FusedNNStep:
-    """``step(f, nu, u_in=None, force=None, parity=0, out=None) -> (f_new, rho, u)``.
+    """``step(f, nu, u_in=None, force=None, parity=0, out=None, macro_out=None)
+    -> (f_new, rho, u)``.
 
     One hooked step with the non-Newtonian force of ``model`` (stencil
     periodicity ``nn_periodic``), out of place in every mode: into a new
-    tensor or into ``out`` (a second state buffer, not ``f``).  ``force``
+    tensor or into ``out`` (a second state buffer, not ``f``); rho and u
+    into new tensors or into ``macro_out`` (a pair of buffers).  ``force``
     and ``u_in`` are homogeneous [3] host vectors; a per-site force raises
     (the hooked pipeline takes one).  ``ab``, ``even`` and ``odd`` count
     the launches, ``plain_calls`` the CPU-path calls.
@@ -103,21 +108,20 @@ class FusedNNStep:
     def reset_counts(self) -> None:
         self.ab.launches = self.even.launches = self.odd.launches = self.plain_calls = 0
 
-    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None):
+    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None,
+                 macro_out=None):
         parity = parity if self.streaming == "AA" else 0
         # a homogeneous [3] force only (JAX fused_nn_step.py:589-590)
         fvec = host_vector3(force, "force", "the hooked pipeline takes one")
         uvec = _u_in3(u_in)
-        if out is not None and (out is f or out.shape != f.shape or out.dtype != f.dtype
-                                or out.device != f.device or not out.is_contiguous()):
-            raise ValueError("out must be a second contiguous state buffer like f")
+        check_out(out, f)
         if f.device.type == "cuda":
-            return self._launch(f, float(nu), fvec, uvec, parity, out)
+            return self._launch(f, float(nu), fvec, uvec, parity, out, macro_out)
         self.plain_calls += 1
         f_new, rho, u = self.plain(f, nu, u_in=u_in, force=force, parity=parity)
         if out is not None:
             f_new = out.copy_(f_new)
-        return f_new, rho, u
+        return (f_new, *into(macro_out, rho, u))
 
     def plain(self, f, nu, u_in=None, force=None, parity: int = 0):
         """The plain hooked step on f's device: (f_new, rho, u), f
@@ -125,7 +129,7 @@ class FusedNNStep:
         return self._plain_step(f, nu, u_in=u_in, force=force,
                                 parity=parity if self.streaming == "AA" else 0)
 
-    def _launch(self, f, nu, fvec, uvec, parity, out):
+    def _launch(self, f, nu, fvec, uvec, parity, out, macro_out):
         if self.device.type != "cuda" or f.device != self.map.device:
             raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
         if f.dtype != torch.float32:
@@ -136,8 +140,7 @@ class FusedNNStep:
                              f"got {tuple(f.shape)}")
         lib = load_library()
         f_new = torch.empty_like(f) if out is None else out
-        rho = torch.empty((X, Y, Z), dtype=f.dtype, device=f.device)
-        u = torch.empty((3, X, Y, Z), dtype=f.dtype, device=f.device)
+        rho, u = macro_buffers(macro_out, (X, Y, Z), 3, f.dtype, f.device)
         mode = _MODES[(self.streaming, parity)]
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
         kind, nu32, *consts = rheology_args(self.model, nu)

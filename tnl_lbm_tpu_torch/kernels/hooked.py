@@ -55,14 +55,17 @@ def _is_field(force) -> bool:
 
 
 class HookedStep:
-    """``step(f, nu, u_in=None, force=None, parity=0, out=None, hook_consts=None)
-    -> (f_new, rho, u)``: one hooked step, matching ``sim.step.make_step(cfg,
-    domain)`` (the plain hooked step, :meth:`plain`) to float tolerance.
+    """``step(f, nu, u_in=None, force=None, parity=0, out=None, hook_consts=None,
+    macro_out=None) -> (f_new, rho, u)``: one hooked step, matching
+    ``sim.step.make_step(cfg, domain)`` (the plain hooked step,
+    :meth:`plain`) to float tolerance.
 
     ``force`` is the body force, a [D] host vector or a [D, *S] field on
     f's device; the hook's output is added to it.  ``out`` (a second state
-    buffer) is taken where the route writes out of place: the A-B and 2D
-    steps and the single-kernel route.  ``route`` names the route built;
+    buffer) is where a step that writes out of place puts the state: the
+    A-B and 2D steps, the single-kernel route and the A-A pipeline's odd
+    parity (its even parity updates f in place); rho and u of the step go
+    into ``macro_out`` (a pair of buffers) when given.  ``route`` names the route built;
     ``kernels`` lists the kernel wrappers of the routes, whose counts
     ``reset_counts`` zeroes and ``plain_calls`` sums.
     """
@@ -118,14 +121,12 @@ class HookedStep:
         return self.nn_single is not None and not _is_field(force)
 
     def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None,
-                 hook_consts=None):
+                 hook_consts=None, macro_out=None):
         if self._single(force):
-            return self.nn_single(f, nu, u_in=u_in, force=force, parity=parity, out=out)
-        if out is not None and self.cfg.streaming == "AA":
-            raise ValueError("the A-A pipeline updates the even parity in place and writes "
-                             "the odd one to a new buffer; it takes no out")
+            return self.nn_single(f, nu, u_in=u_in, force=force, parity=parity, out=out,
+                                  macro_out=macro_out)
         extra = self._extra(f, nu, force, parity, hook_consts)
-        return self._main(f, nu, u_in, force, parity, extra, out)
+        return self._main(f, nu, u_in, force, parity, extra, out, macro_out)
 
     def _ustar(self, f, force, parity):
         """Phase 1: (rho0, u0, fluid)."""
@@ -155,12 +156,11 @@ class HookedStep:
             extra = torch.as_tensor(force, dtype=extra.dtype, device=extra.device) + extra
         return extra.contiguous()
 
-    def _main(self, f, nu, u_in, force, parity, extra, out):
+    def _main(self, f, nu, u_in, force, parity, extra, out, macro_out=None):
         """Phase 3: the force_field kernel, the body force added at every site."""
         force_add = None if (force is None or _is_field(force)) else force
-        kw = {} if self.cfg.streaming == "AA" else {"out": out}
         return self.base(f, nu, u_in=u_in, force=extra, force_add=force_add, parity=parity,
-                         **kw)
+                         out=out, macro_out=macro_out)
 
     def plain(self, f, nu, u_in=None, force=None, parity: int = 0, hook_consts=None):
         """The plain hooked step (``sim/step.py``) on f's device: the oracle

@@ -67,18 +67,34 @@ def collision_mask_codes(D: int):
     return codes
 
 
+_CONSTS: dict = {}
+
+
+def lattice_const(key: tuple, values, dtype, device) -> torch.Tensor:
+    """A small constant of the lattice (an index or weight list) as a tensor
+    on ``device``, made once: a CUDA graph capturing these operators may copy
+    nothing from the host."""
+    k = (key, dtype, str(device))
+    t = _CONSTS.get(k)
+    if t is None:
+        t = _CONSTS[k] = torch.tensor(values, dtype=dtype, device=device)
+    return t
+
+
 def apply_bounce_back(lat: LatticeDescriptor, f: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Full-way bounce back: f[q] <- f[opp(q)] on masked sites
     (reference d3q27/bc.h:150-163)."""
-    opp = torch.tensor(lat.opp.tolist(), dtype=torch.long, device=f.device)
+    opp = lattice_const(("opp", lat.name), lat.opp.tolist(), torch.long, f.device)
     return torch.where(mask, f[opp], f)
 
 
 def apply_symmetry(lat: LatticeDescriptor, f: torch.Tensor, mask: torch.Tensor,
                    axis: int, removed_sign: int) -> torch.Tensor:
     """Mirror components with c[axis] == removed_sign on masked sites."""
-    mirror = torch.tensor(lat.mirror(axis).tolist(), dtype=torch.long, device=f.device)
-    qsel = torch.tensor((lat.c[:, axis] == removed_sign).tolist(), device=f.device)
+    mirror = lattice_const(("mirror", lat.name, axis), lat.mirror(axis).tolist(), torch.long,
+                           f.device)
+    qsel = lattice_const(("qsel", lat.name, axis, removed_sign),
+                         (lat.c[:, axis] == removed_sign).tolist(), torch.bool, f.device)
     qsel = qsel.reshape((lat.Q,) + (1,) * (f.ndim - 1))
     return torch.where(mask & qsel, f[mirror], f)
 
@@ -151,7 +167,7 @@ def apply_moment_bcs(lat: LatticeDescriptor, codes, masks, f_in, rho, u, u_in, e
     if GEO.INFLOW_LEFT in codes or GEO.INFLOW in codes:
         u_in_field = torch.stack([torch.zeros_like(rho) + u_in[a] for a in range(lat.D)])
     if GEO.INFLOW_LEFT in codes:
-        w = torch.tensor(lat.w.tolist(), dtype=f_in.dtype, device=f_in.device)
+        w = lattice_const(("w", lat.name), lat.w.tolist(), f_in.dtype, f_in.device)
         w = w.reshape((lat.Q,) + (1,) * (f_in.ndim - 1))
         f_il, rho_il = inflow_left_moment_bc(lat, f_in + w if well else f_in, u_in)
         if well:

@@ -52,8 +52,8 @@ class Casson:
         sg = torch.sqrt(gamma)
         safe = torch.clamp_min(sg, 1e-10)
         nu_c = (self.k0 + self.k1 * sg) ** 2 / safe
-        return torch.where(sg > 1e-10, nu_c, torch.as_tensor(nu, dtype=gamma.dtype,
-                                                               device=gamma.device))
+        return torch.where(sg > 1e-10, nu_c, nu if torch.is_tensor(nu) else
+                           torch.full_like(nu_c, nu))
 
 
 def _pad1(field: torch.Tensor, D: int, periodic=None) -> torch.Tensor:

@@ -33,8 +33,11 @@ dropped after ``sim_init`` on the A-B path: that is how B7 is held against
 the two launches.
 
 The kernel paths ping-pong two preallocated f buffers and two g buffers.
-Mixed patterns with ``use_fused``, a sharded plan (ROADMAP A13) and
-checkpoints (ROADMAP A6) raise.
+Mixed patterns with ``use_fused`` and a sharded plan (ROADMAP A13) raise.
+A checkpoint saves g beside f (``checkpoint_arrays_extra``), and a resumed
+run takes g from it and phi as its density (JAX ``sim/coupled.py:55-67``).
+The coupled loop advances one step per dispatch, as the JAX one does: it
+has no chunked dispatch.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from tnl_lbm_tpu_torch.kernels.fused_coupled import (
     make_fused_coupled_step,
     make_fused_coupled_step_aa,
 )
+from tnl_lbm_tpu_torch.ops import moments as mom
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.sim.state import Simulation, synchronize
 from tnl_lbm_tpu_torch.sim.step_ade import make_ade_step, transfer_direction_flags
@@ -87,8 +91,9 @@ class CoupledSimulation(Simulation):
                           device=self.device)
 
     def checkpoint_arrays_extra(self):
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP A6); the coupled "
-                                  "run would save g beside f")
+        # the ADE lattice must survive a checkpoint/resume cycle too
+        # (the reference saves every DF buffer, state.hpp:677-727)
+        return {"g": self.g} if self.g is not None else {}
 
     def _pair_dispatch_capable(self) -> bool:
         """Never: the coupled loop advances both lattices one step at a time."""
@@ -102,10 +107,16 @@ class CoupledSimulation(Simulation):
                 f"{self.ade_cfg.streaming}")
         super().sim_init()
         lat, dt = self.ade_cfg.lat, self.ade_cfg.compute_dtype
-        phi0 = torch.as_tensor(self.initial_phi(), dtype=dt, device=self.device).contiguous()
-        u0 = torch.zeros((3,) + tuple(self.ade_domain.shape), dtype=dt, device=self.device)
-        self.g = self.ade_cfg.eq(lat, phi0, u0).to(dt).contiguous()
-        self.phi = phi0
+        restored = self._restored_arrays
+        if restored is not None and "g" in restored:
+            self.g = torch.as_tensor(np.ascontiguousarray(restored["g"])).to(
+                device=self.device, dtype=dt).contiguous()
+            self.phi = mom.density(lat, self.g).contiguous()
+        else:
+            phi0 = torch.as_tensor(self.initial_phi(), dtype=dt, device=self.device).contiguous()
+            u0 = torch.zeros((3,) + tuple(self.ade_domain.shape), dtype=dt, device=self.device)
+            self.g = self.ade_cfg.eq(lat, phi0, u0).to(dt).contiguous()
+            self.phi = phi0
         variable = not np.isscalar(self.ade_diffusion)
         self._nu_ade = (torch.as_tensor(np.asarray(self.ade_diffusion), dtype=dt,
                                         device=self.device).contiguous()
@@ -139,7 +150,6 @@ class CoupledSimulation(Simulation):
                 self.cfg, self.domain, self.ade_cfg, self.ade_domain, self.device,
                 variable_diffusion=variable)
             self.coupled_kernel = "one-kernel-AA"
-            self._spare = torch.empty_like(self.f)
         else:
             kw = dict(variable_diffusion=variable, transfer_coeff=float(self.transfer_coeff))
             self._ade_step = make_fused_ade_step(self.ade_cfg, self.ade_domain, self.device,

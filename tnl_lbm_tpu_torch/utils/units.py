@@ -40,6 +40,10 @@ class Lattice:
     def lbm2phys_point(self, p) -> np.ndarray:
         return np.asarray(self.phys_origin) + (np.asarray(p, dtype=np.float64) - 0.5) * self.phys_dl
 
+    def phys2lbm_x(self, x, axis: int = 0):
+        """A physical coordinate along ``axis`` in lattice sites (the 1D line probes)."""
+        return (x - self.phys_origin[axis]) / self.phys_dl + 0.5
+
     def lbm2phys_velocity(self, lbm_velocity: float) -> float:
         return lbm_velocity / self.phys_dt * self.phys_dl
 
