@@ -221,6 +221,25 @@ script exits non-zero without printing a result.
    and sim_2 res 2's MLUPS in pairs and per step with the graph and per
    step from Python.
 
+10. ibm (after the coupled hooked run): sim_ibm at resolution 4
+   (384x128x128, a cylinder of 25 098 points, phi2 "modified": the
+   point-space ELLPACK operator), 200 steps through the hooked A-B pipeline
+   (B4 macro_only, the IBM solve as tensor ops, B4 force_field with the
+   inflow vector; 200 launches of each, no plain call): its setup (points,
+   spacing, operator space, unique nodes, build seconds), ms/step from the
+   host clock and the median of per-step CUDA-event times, MLUPS, the
+   sampled phase split, the CG iterations and residual over the steps (min
+   / median / max), peak memory, the drag line, finite rho and u, and
+   torch.profiler's device time of B4 and of the hook per step; one step
+   from the run's final state and one from the flow at the inflow velocity,
+   kernel against plain hooked step with the CG pinned (8 iterations) at
+   the step bounds; sim_ibm res 2, 100 steps through the kernels and
+   through the plain hooked step, CG pinned, rho and u within 1e-5, and
+   the kernel run in 10-step chunks (eager: the hook reads the host, so no
+   graph) within 1e-5 of it; one row of the IBM table (phi2, 4 096 points
+   on 96^3, both methods; ``python -m tnl_lbm_tpu_torch.ibm_tables``).
+   B4's two instances add the res-4 run's launches to the record.
+
 The line before the last is the kernels' JSON record (bound_ms: the larger
 of the bytes over the published 3.35 TB/s and the FP32 operations over
 67 TFLOP/s, at 256^3 sites; B5's launches: the golden sweep, the three 2D
@@ -2075,6 +2094,225 @@ def app_kernel_vs_plain(name: str, streaming: str) -> None:
         raise RuntimeError(f"{name} res 2 {streaming}: kernel vs plain over {APP_STEPS} "
                            f"steps: drho {d_rho}, du {d_u}")
 
+# ------------------------------------------------------------------ IBM slice
+
+IBM_RES = 4  # sim_ibm at 384x128x128 with 25 098 points
+IBM_STEPS = 200
+IBM_PINNED = 8  # CG iterations of the pinned kernel-vs-plain checks
+IBM_TABLE = ("phi2", 96, 4096, 10)  # dirac, n, points, steps of the table row
+
+
+def ibm_sim(res: int, label: str, steps: int, use_fused: bool = True, pinned: bool = False,
+            steps_per_dispatch: int = 1, timed: bool = False):
+    """sim_ibm at ``res`` on the card, ``steps`` steps from the app's start,
+    counted from the end of sim_init; ``pinned``: CG at IBM_PINNED
+    iterations with a tolerance it never reaches; ``timed``: CUDA events
+    around each step and the step's CG iterations and residual kept
+    (``sim.step_log``: (start, end, iterations, residual))."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim_ibm
+
+    t0 = time.perf_counter()
+    sim = sim_ibm.build(res, device=DEVICE, use_fused=use_fused,
+                        results_parent=WORK / "ibm" / label)
+    build_s = time.perf_counter() - t0
+    if timed:
+        class Timed(type(sim)):
+            def _one_step(self, *args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                super()._one_step(*args)
+                end.record()
+                self.step_log.append((start, end, self.ibm.last_cg_iters,
+                                      self.ibm.last_cg_residual))
+
+        sim.__class__ = Timed
+        sim.step_log = []
+    if pinned:
+        sim.ibm.max_iters, sim.ibm.tol = IBM_PINNED, 1e-30
+    sim.steps_per_dispatch = steps_per_dispatch
+    sim.phys_final_time = steps * sim.domain.units.phys_dt
+    sim.sample_phases_at_finish = False
+    sim = counting_from_init(sim)
+    if not sim.run() or sim.iterations != steps:
+        raise RuntimeError(f"sim_ibm res {res} {label} failed ({sim.iterations} steps)")
+    torch.cuda.synchronize()
+    sim.build_seconds = build_s
+    return sim
+
+
+def ibm_log_lines(sim, kind: str) -> list:
+    """The JSON records of one kind in a run's log_ibm."""
+    import re
+
+    text = (sim.results_dir / "log_ibm").read_text()
+    return [json.loads(x) for x in re.findall(r'(\{"ibm": "%s".*\})' % kind, text)]
+
+
+def ibm_profile(sim, steps: int = 10) -> dict:
+    """torch.profiler over ``steps`` more steps: device ms per step of the
+    two B4 instances and of everything else (the hook's kernels), kernel
+    events per step, and the profiled host ms per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sim._advance(2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim._advance(steps)
+        wall = (time.perf_counter() - t0) * 1e3
+    b4 = hook = 0.0
+    events = 0
+    for e in prof.key_averages():
+        # the device's own events only: an aten op's row repeats its kernels' time
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if us <= 0:
+            continue
+        events += e.count
+        if e.key.startswith(("ab_macro", "ab_step_force_field")):
+            b4 += us / 1e3
+        else:
+            hook += us / 1e3
+    return {"profiled_ms_per_step": wall / steps, "b4_device_ms_per_step": b4 / steps,
+            "hook_device_ms_per_step": hook / steps, "device_events_per_step": events / steps,
+            "device_busy_share": (b4 + hook) / wall}
+
+
+def ibm_kernel_vs_plain(sim, f, label: str, state: str) -> tuple:
+    """One hooked step from ``f`` through the kernel route and through the
+    plain hooked step on the card, CG pinned, at the step bounds; and the
+    hook's effect (the plain step with the hook against the plain step
+    without it).  From the "flowing" state (the inflow velocity at every
+    site, where the cylinder holds the whole flow back) the effect must
+    reach HOOK_EFFECT_MIN, so that a wrong force fails the bounds; from a
+    run's final state it is logged only."""
+    import torch
+
+    from tnl_lbm_tpu_torch.sim.step import make_step
+
+    ibm, step = sim.ibm, sim._step
+    ibm.max_iters, ibm.tol = IBM_PINNED, 1e-30
+    consts = sim.cfg.forcing_hook.consts
+    nu, u_in = sim.domain.units.lbm_viscosity(), sim.update_inflow(sim.phys_time())
+    fk, rk, uk = step(f.clone(), nu, u_in=u_in, hook_consts=consts)
+    k_iters = ibm.last_cg_iters
+    fp, rp, up = step.plain(f, nu, u_in=u_in, hook_consts=consts)
+    p_iters = ibm.last_cg_iters
+    torch.cuda.synchronize()
+    d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+    del fk, rk, uk, rp, up
+    newtonian = make_step(dataclasses.replace(sim.cfg, forcing_hook=None), sim.domain)
+    effect = max_diff(fp, newtonian(f, nu, u_in=u_in)[0])
+    log("ibm", path=label, compare=f"kernel vs plain hooked step, from the {state} state",
+        cg_iterations=f"{k_iters}/{p_iters}", max_df=d[0], max_drho=d[1], max_du=d[2],
+        hook_effect_max_df=effect)
+    check_step(f"{label}: kernel vs plain hooked step from the {state} state", d)
+    if not (k_iters == p_iters == IBM_PINNED
+            and (state != "flowing" or effect >= HOOK_EFFECT_MIN)):
+        raise RuntimeError(f"{label} from the {state} state: CG {k_iters}/{p_iters}, "
+                           f"hook effect {effect}")
+    return d
+
+
+def phase_ibm() -> dict:
+    """The immersed-boundary slice: sim_ibm at resolution 4 (384x128x128,
+    25 098 points, phi2 "modified": the point-space ELLPACK operator)
+    through the hooked pipeline, IBM_STEPS steps per step: B4 macro_only,
+    the IBM solve as tensor ops, B4 force_field with the inflow vector.
+    Its setup, ms/step (the host clock around the loop, and the median of
+    per-step CUDA-event times), MLUPS, the sampled phase split, the CG
+    iterations and residual over the steps (min / median / max), peak
+    memory, the drag line, finite rho and u, the profiler's split of device
+    time between B4 and the hook; then one step from its final state and
+    one from the flow at the inflow velocity, kernel against plain, CG
+    pinned.  Then sim_ibm res 2, APP_STEPS steps
+    through the kernels and through the plain hooked step, CG pinned, rho
+    and u within TOL_APP; the same kernel run with steps_per_dispatch=10
+    (eager chunks: the hook reads the host) against it; and one row of the
+    IBM table (IBM_TABLE, both methods).  Returns the res-4 run's launches
+    by kernel name."""
+    import torch
+
+    from tnl_lbm_tpu_torch import ibm_tables
+
+    sim = ibm_sim(IBM_RES, "res4", IBM_STEPS, timed=True)
+    ibm = sim.ibm
+    setup = ibm_log_lines(sim, "setup")[-1]
+    matrices = ibm_log_lines(sim, "constructMatrices")[-1]
+    log("ibm", path="sim_ibm_res4", shape="x".join(map(str, sim.domain.shape)),
+        points=setup["points"], min_spacing=setup["min_spacing"],
+        max_spacing=setup["max_spacing"], method=ibm.method, space=ibm.space,
+        unique_nodes=ibm.u, ell_width=ibm.E_idx.shape[1] if ibm.E_idx is not None else None,
+        build_seconds=f"{sim.build_seconds:.3f}", operators_seconds=matrices["wall_s"])
+    launches = report_main(sim, "sim_ibm_res4")
+    want = {"ab_step_macro_only": IBM_STEPS, "ab_step_force_field": IBM_STEPS}
+    if {k: v for k, v in launches.items() if v} != want or sim._step.route != "pipeline":
+        raise RuntimeError(f"sim_ibm res 4: route {sim._step.route}, launches {launches}")
+    step_ms = [s.elapsed_time(e) for s, e, _, _ in sim.step_log]
+    iters = [it for _, _, it, _ in sim.step_log]
+    resid = [r for _, _, _, r in sim.step_log]
+    drag = ibm_log_lines(sim, "integrateForce")[-1]
+    ms, mlups, peak = run_figures(sim)
+    log("ibm", path="sim_ibm_res4", steps=sim.iterations, ms_per_step=f"{ms:.4f}",
+        mlups=f"{mlups:.1f}", median_step_event_ms=f"{np.median(step_ms):.4f}",
+        min_step_event_ms=f"{min(step_ms):.4f}", max_step_event_ms=f"{max(step_ms):.4f}",
+        cg_iterations_min_median_max=f"{min(iters)}/{np.median(iters):g}/{max(iters)}",
+        cg_residual_min_median_max=f"{min(resid):.3e}/{np.median(resid):.3e}/{max(resid):.3e}",
+        max_memory_allocated_gb=f"{peak:.3f}", drag_iteration=drag["iteration"],
+        fx=drag["fx"], fy=drag["fy"], fz=drag["fz"])
+    if not (np.isfinite([drag["fx"], drag["fy"], drag["fz"]]).all() and max(resid) <= ibm.tol):
+        raise RuntimeError(f"sim_ibm res 4: drag {drag}, CG residuals up to {max(resid)}")
+    phases = sim.sample_phase_timers()
+    log("ibm", path="sim_ibm_res4", **{f"phase_{k}_ms": f"{v:.4f}" for k, v in phases.items()})
+    prof = ibm_profile(sim)
+    log("ibm", path="sim_ibm_res4", **{k: f"{v:.4f}" for k, v in prof.items()},
+        hook_host_ms_per_step=f"{phases['hook'] - prof['hook_device_ms_per_step']:.4f}")
+    del sim.step_log
+    sim._spare = None
+    torch.cuda.empty_cache()
+    ibm_kernel_vs_plain(sim, sim.f, "sim_ibm_res4", "final")
+    from tnl_lbm_tpu_torch.sim.config import initial_dfs
+
+    flowing = initial_dfs(sim.cfg, sim.domain, DEVICE, u0=(sim.lbm_inflow_vx, 0.0, 0.0))
+    ibm_kernel_vs_plain(sim, flowing, "sim_ibm_res4", "flowing")
+    del sim, ibm, flowing
+    torch.cuda.empty_cache()
+
+    kernel = ibm_sim(2, "res2_kernel", APP_STEPS, pinned=True)
+    plain = ibm_sim(2, "res2_plain", APP_STEPS, use_fused=False, pinned=True)
+    chunked = ibm_sim(2, "res2_chunked", APP_STEPS, pinned=True, steps_per_dispatch=10)
+    d = (max_diff(kernel.rho, plain.rho), max_diff(kernel.u, plain.u))
+    dc = (max_diff(chunked.f, kernel.f), max_diff(chunked.rho, kernel.rho),
+          max_diff(chunked.u, kernel.u))
+    runs = {"kernel": kernel, "chunked": chunked}
+    counts = {k: sum(kernel_launches(s).values()) for k, s in runs.items()}
+    log("ibm", path="sim_ibm_res2", steps=APP_STEPS, kernel_vs_plain_max_drho=d[0],
+        kernel_vs_plain_max_du=d[1], chunked_vs_per_step_max_df=dc[0],
+        chunked_vs_per_step_max_drho=dc[1], chunked_vs_per_step_max_du=dc[2],
+        chunked_bit_equal=all(x == 0 for x in dc), chunked_graph_replays=chunked.graph_replays,
+        launches_per_step_run=counts["kernel"], launches_chunked=counts["chunked"],
+        max_abs_u=float(kernel.u.abs().max()))
+    if not (all(x <= TOL_APP for x in d + dc) and chunked.graph_replays == 0
+            and counts == {"kernel": 2 * APP_STEPS, "chunked": 2 * APP_STEPS}
+            and kernel._step.plain_calls == chunked._step.plain_calls == 0
+            and bool(torch.isfinite(kernel.u).all())):
+        raise RuntimeError(f"sim_ibm res 2: kernel vs plain {d}, chunked vs per step {dc}, "
+                           f"launches {counts}, replays {chunked.graph_replays}")
+    del kernel, plain, chunked, runs
+    torch.cuda.empty_cache()
+
+    dirac, n, points, steps = IBM_TABLE
+    for method in ("modified", "original"):
+        row = ibm_tables.run_case(dirac, method, n, points, steps, DEVICE)
+        log("ibm_table", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                            for k, v in row.items()}, n=n, steps=steps)
+    return launches
+
+
 # ------------------------------------------------------------------ 2D slice
 
 def golden_geometries() -> Path:
@@ -3428,6 +3666,10 @@ def main() -> int:
     for name, n in phase_coupled_hooked().items():
         if name in kernels:
             kernels[name] = dataclasses.replace(kernels[name], launches=kernels[name].launches + n)
+    t_ibm = time.perf_counter()
+    for name, n in phase_ibm().items():  # B4's macro_only and force_field instances
+        kernels[name] = dataclasses.replace(kernels[name], launches=kernels[name].launches + n)
+    t_ibm = time.perf_counter() - t_ibm
     compare_2d_err = phase_compare_2d()
     golden = phase_golden_2d()
     apps_2d = phase_apps_2d()
@@ -3486,7 +3728,8 @@ def main() -> int:
     added = probe["window_seconds"] + t_layouts + t_bench
     log("time", total_seconds=f"{total:.1f}", window_probes_seconds=f"{probe['window_seconds']:.1f}",
         layouts_seconds=f"{t_layouts:.1f}", bench_seconds=f"{t_bench:.1f}",
-        dispatch_and_checkpoint_seconds=f"{t_dispatch:.1f}", added_share=f"{added / total:.3f}")
+        dispatch_and_checkpoint_seconds=f"{t_dispatch:.1f}", ibm_seconds=f"{t_ibm:.1f}",
+        added_share=f"{added / total:.3f}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                              "count": device["count"]}}))

@@ -10,7 +10,8 @@ resolution 8 (B4, 100 steps); sim_coupled at resolution 8 through the
 coupled step (B7, 100 steps); where the checkout's package has the hooked
 path (``kernels/hooked.py``), the 256^3 bench duct with the Carreau-Yasuda
 hook through its one-kernel route (B10) and its pipeline, A-B and A-A, 100
-steps each; the pair paths: the 256^3 duct in pairs (B1) with the state in
+steps each; where it has the IBM slice (``ibm/``), sim_ibm at resolution 4
+(the hooked A-B pipeline with the IBM solve, 200 steps); the pair paths: the 256^3 duct in pairs (B1) with the state in
 f32, f16 and bf16, 200 steps each, sim_2 at resolution 2 in pairs, per
 step (2000 steps each) and with "auto" dispatch (its choice and its
 probe's two times beside), the benchmark entry (``python -m
@@ -86,6 +87,8 @@ def main() -> int:
                   lambda s=s, route=route: cs.nn_bench_sim(s, route == "single",
                                                            label=f"{s}_{route}"))
                  for s in ("AB", "AA") for route in ("single", "pipeline")]
+    if (root / "tnl_lbm_tpu_torch" / "ibm").exists():
+        runs.append(("sim_ibm_res4", lambda: cs.ibm_sim(cs.IBM_RES, "res4", cs.IBM_STEPS)))
     runs += [(f"pair_{store}", lambda store=store: cs.bench_sim(True, storage=store))
              for store in cs.STORES]
 

@@ -103,13 +103,17 @@ def test_flagship_is_the_graft_entry_duct():
 
 
 def test_entry_points_default_to_the_card():
-    """Every app's ``--device`` defaults to cuda, and ``Simulation`` takes
-    no default device: no entry point picks the CPU on its own."""
+    """Every app's ``--device`` defaults to cuda, and ``Simulation`` and
+    ``IBM`` take no default device: no entry point picks the CPU on its own."""
+    from tnl_lbm_tpu_torch.ibm import IBM
+
     apps = sorted((ROOT / "tnl_lbm_tpu_torch" / "apps").glob("sim*.py"))
-    assert len(apps) == 7
-    for path in apps + [ROOT / "tnl_lbm_tpu_torch" / "bench.py"]:
+    assert len(apps) == 8
+    for path in apps + [ROOT / "tnl_lbm_tpu_torch" / name for name in ("bench.py",
+                                                                         "ibm_tables.py")]:
         src = path.read_text()
         assert re.search(r'add_argument\("--device", default="cuda"', src), path.name
-    device = inspect.signature(Simulation.__init__).parameters["device"]
-    assert device.kind is inspect.Parameter.KEYWORD_ONLY
-    assert device.default is inspect.Parameter.empty
+    for cls in (Simulation, IBM):
+        device = inspect.signature(cls.__init__).parameters["device"]
+        assert device.kind is inspect.Parameter.KEYWORD_ONLY
+        assert device.default is inspect.Parameter.empty

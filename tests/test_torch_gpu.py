@@ -1017,3 +1017,120 @@ def test_native_writer_writes_and_flushes_beside_the_card(cuda, tmp_path):
     native.write_blob_async(tmp_path / "x.bin", data)
     native.flush()
     assert (tmp_path / "x.bin").read_bytes() == data and native.errors() == 0
+
+
+# ------------------------------------------------------------------ IBM
+
+IBM_GRID = (24, 16, 16)
+#: case -> (sphere centre, radius, spacing, method, dirac): each operator
+#: space of the solver - point-space ELLPACK A, node-space Gram B,
+#: point-space ELLPACK G, the matrix-free Gram (clipped stencils)
+IBM_CASES = {
+    "A": ((10.0, 8.0, 8.0), 4.0, 1.2, "modified", "phi2"),
+    "B": ((10.0, 8.0, 8.0), 5.0, 0.35, "original", "phi2"),
+    "G": ((10.0, 8.0, 8.0), 4.0, 1.2, "original", "phi3"),
+    "free": ((10.0, 8.0, 1.0), 3.0, 1.2, "original", "phi2"),
+}
+IBM_PINNED = 8  # CG iterations of the pinned solves
+TOL_IBM_F = 1e-5  # relative to max |F|
+
+
+def ibm_case(name, device):
+    from tnl_lbm_tpu_torch.ibm import IBM
+    from tnl_lbm_tpu_torch.ibm.generators import points_sphere
+    from tnl_lbm_tpu_torch.utils.units import Lattice
+
+    center, radius, sigma, method, dirac = IBM_CASES[name]
+    units = Lattice(global_size=IBM_GRID, phys_origin=(0, 0, 0), phys_dl=1.0, phys_dt=1.0,
+                    phys_viscosity=0.05)
+    return IBM(units, points_sphere(center, radius, sigma), dirac=dirac, method=method,
+               max_iters=IBM_PINNED, tol=1e-30, device=device)
+
+
+def ibm_inputs(device, seed=3):
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor((rng.standard_normal((3,) + IBM_GRID) * 0.01).astype(np.float32))
+    rho = torch.as_tensor((1 + 0.01 * rng.standard_normal(IBM_GRID)).astype(np.float32))
+    return u.to(device), rho.to(device)
+
+
+@pytest.mark.parametrize("name", sorted(IBM_CASES))
+def test_ibm_solve_on_the_card_matches_the_cpu(cuda, name):
+    """The solver built and run on the card against the same solver on the
+    CPU: the same structure, the forces of the compact and the generic
+    path within 1e-5 of max |F|, CG pinned."""
+    card, host = ibm_case(name, cuda), ibm_case(name, "cpu")
+    assert (card.space, card.method, card.u) == (host.space, host.method, host.u)
+    assert card.weights.device.type == "cuda" and card.uflat.device.type == "cuda"
+    for key in ("uflat", "uid", "E_idx"):
+        a, b = getattr(card, key), getattr(host, key)
+        assert (a is None) == (b is None) and (a is None or torch.equal(a.cpu(), b)), key
+    u, rho = ibm_inputs("cpu")
+    for generic in (False, True):
+        cc, ch = card.hook_consts(), host.hook_consts()
+        if generic:
+            cc["uflat"] = ch["uflat"] = None
+        want = host.compute_forces(u, rho, consts=ch)
+        got = card.compute_forces(u.to(cuda), rho.to(cuda), consts=cc)
+        assert got.device.type == "cuda" and card.last_cg_iters == host.last_cg_iters == IBM_PINNED
+        scale = float(want.abs().max())
+        assert scale > 0 and float((got.cpu() - want).abs().max()) <= TOL_IBM_F * scale
+
+
+def test_ibm_node_solve_ignores_the_callers_tf32(cuda):
+    """The node-space products run in full float32 whatever the caller set:
+    with TF32 allowed the forces equal those without, bit for bit, and the
+    caller's setting is back afterwards."""
+    ibm = ibm_case("B", cuda)
+    assert ibm.space == "node"
+    u, rho = ibm_inputs(cuda)
+    want = ibm.compute_forces(u, rho)
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        got = ibm.compute_forces(u, rho)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert torch.equal(got, want)
+
+
+def sim_ibm_run(res, device, results, steps, use_fused=True, steps_per_dispatch=1):
+    """sim_ibm at ``res`` for ``steps`` steps from the app's start, CG pinned."""
+    from tnl_lbm_tpu_torch.apps import sim_ibm
+
+    sim = sim_ibm.build(res, device=device, results_parent=results, use_fused=use_fused)
+    sim.ibm.max_iters, sim.ibm.tol = IBM_PINNED, 1e-30
+    sim.steps_per_dispatch = steps_per_dispatch
+    sim.phys_final_time = (steps - 0.5) * sim.domain.units.phys_dt
+    sim.sample_phases_at_finish = False
+    assert sim.run() and sim.iterations == steps
+    return sim
+
+
+def test_sim_ibm_kernel_route_matches_the_plain_step(cuda, tmp_path):
+    """sim_ibm res 2 through the hooked pipeline (B4 macro_only, the IBM
+    solve, B4 force_field) against the plain hooked step on the card, 100
+    steps, CG pinned: rho and u within the apps' 1e-5."""
+    kernel = sim_ibm_run(2, cuda, tmp_path / "kernel", 100)
+    plain = sim_ibm_run(2, cuda, tmp_path / "plain", 100, use_fused=False)
+    assert kernel._step.route == "pipeline" and kernel._step.plain_calls == 0
+    assert [k.kernel.launches for k in kernel._step.kernels] == [100, 100]
+    for name in ("rho", "u"):
+        a, b = getattr(kernel, name), getattr(plain, name)
+        assert bool(torch.isfinite(a).all()) and float((a - b).abs().max()) <= 1e-5, name
+
+
+def test_sim_ibm_in_chunks_equals_the_run_per_step(cuda, tmp_path):
+    """An IBM run with steps_per_dispatch=10 takes the eager chunk on the
+    card (the hook reads the host: no graph is captured), every step
+    through the kernels, and equals the run per step within 1e-5 (the
+    point-space scatter adds with atomics, so bit equality is not promised)."""
+    chunked = sim_ibm_run(2, cuda, tmp_path / "chunked", 100, steps_per_dispatch=10)
+    per_step = sim_ibm_run(2, cuda, tmp_path / "per_step", 100)
+    assert chunked.graph_replays == 0 and not chunked._graphs
+    assert [k.kernel.launches for k in chunked._step.kernels] == [100, 100]
+    assert chunked._step.plain_calls == 0
+    for name in ("f", "rho", "u"):
+        a, b = getattr(chunked, name), getattr(per_step, name)
+        assert float((a - b).abs().max()) <= 1e-5, name

@@ -28,7 +28,10 @@ def test_every_port_module_is_listed():
                  "tnl_lbm_tpu_torch.ops.non_newtonian", "tnl_lbm_tpu_torch.kernels.fused_nn",
                  "tnl_lbm_tpu_torch.kernels.fused_nn_step", "tnl_lbm_tpu_torch.kernels.hooked",
                  "tnl_lbm_tpu_torch.bench", "tnl_lbm_tpu_torch.kernels.probes",
-                 "tnl_lbm_tpu_torch.io.native", "tnl_lbm_tpu_torch.sim.checkpoint"):
+                 "tnl_lbm_tpu_torch.io.native", "tnl_lbm_tpu_torch.sim.checkpoint",
+                 "tnl_lbm_tpu_torch.ibm.lagrange", "tnl_lbm_tpu_torch.ibm.sparse",
+                 "tnl_lbm_tpu_torch.ibm.dirac", "tnl_lbm_tpu_torch.ibm.generators",
+                 "tnl_lbm_tpu_torch.apps.sim_ibm", "tnl_lbm_tpu_torch.ibm_tables"):
         assert name in PORT_MODULES
 
 

@@ -102,3 +102,22 @@ def state_from_numpy(f, device) -> torch.Tensor:
 
 def state_to_numpy(f: torch.Tensor) -> np.ndarray:
     return f.detach().cpu().numpy()
+
+
+#: the index arrays of an IBM consts dict (int64 on the port's side)
+_IBM_INDEX_KEYS = ("nodes", "uflat", "uid", "unodes", "E_idx")
+
+
+def ibm_consts_from_numpy(consts: dict, device) -> dict:
+    """The port's IBM consts (``IBM.hook_consts``) from the JAX package's:
+    ``w``, ``nodes``, ``uflat``, ``uid``, ``unodes``, ``B``, ``E_idx``,
+    ``E_val``, ``diag`` and ``Wt_vp`` as numpy arrays or None.  Index
+    arrays become int64 tensors, the rest float32, all on ``device``."""
+    out = {}
+    for key, a in consts.items():
+        if a is None:
+            out[key] = None
+            continue
+        dtype = torch.int64 if key in _IBM_INDEX_KEYS else torch.float32
+        out[key] = torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return out

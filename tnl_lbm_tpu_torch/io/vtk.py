@@ -92,3 +92,18 @@ def write_vti(path, scalars: dict | None = None, vectors: dict | None = None,
             fh.write(raw)
         fh.write(footer)
     os.replace(tmp, path)
+
+
+def write_points_vtk(path, points: np.ndarray, time: float | None = None) -> None:
+    """Legacy VTK POLYDATA point cloud (reference vtk_writer.h:5-48); the
+    JAX package's ``write_points_vtk`` byte for byte."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    pts = np.asarray(points, dtype=np.float64).reshape(-1, 3)
+    with open(path, "w") as fh:
+        fh.write("# vtk DataFile Version 3.0\n")
+        fh.write(f"time {time}\n" if time is not None else "points\n")
+        fh.write("ASCII\nDATASET POLYDATA\n")
+        fh.write(f"POINTS {len(pts)} double\n")
+        for p in pts:
+            fh.write(f"{p[0]} {p[1]} {p[2]}\n")

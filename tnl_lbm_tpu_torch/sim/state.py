@@ -49,7 +49,9 @@ no per-step hook, even A-A parity, the same inflow and force at every
 step) runs as one chunk (``_advance_scan``): on a CUDA device the kernel
 routes capture it once as a CUDA graph per start buffer and input values
 and replay it after that, the counterpart of the JAX scan's one device
-program; elsewhere the same chunk runs eagerly.
+program; elsewhere the same chunk runs eagerly, and so does a chunk whose
+forcing hook reads the host (the IBM solve): there alone the chunk is not
+one device program where the JAX scan is.
 """
 
 from __future__ import annotations
@@ -798,10 +800,12 @@ class Simulation:
         steps from an even A-A parity; the statistics take their samples
         inside the chunk.  On a CUDA device the kernel routes run it as a
         CUDA graph (:meth:`_graph_chunk`), the counterpart of the JAX
-        package's one ``lax.scan`` program; elsewhere, and for the plain
-        step, it runs eagerly."""
+        package's one ``lax.scan`` program, unless the forcing hook reads
+        the host (``hook.reads_host``: the IBM solve reads its CG condition,
+        which no capture can); elsewhere, for such a hook, and for the
+        plain step, it runs eagerly."""
         s1, s2 = self.collect_stats, self.collect_stats2
-        if self.device.type == "cuda" and self.use_fused:
+        if self._chunk_as_graph():
             self._graph_chunk(n_steps, nu, u_in, force, pairs, s1, s2)
         else:
             self._chunk(n_steps, nu, u_in, force, pairs, s1, s2)
@@ -811,6 +815,12 @@ class Simulation:
         if s2:
             self.stat2_counter += samples
         self.iterations += n_steps
+
+    def _chunk_as_graph(self) -> bool:
+        """True if a chunk runs as a CUDA graph: the kernel routes on a CUDA
+        device, with no forcing hook that reads the host during a step."""
+        return (self.device.type == "cuda" and self.use_fused
+                and not getattr(self.cfg.forcing_hook, "reads_host", False))
 
     def _chunk(self, n_steps, nu, u_in, force, pairs, s1, s2):
         """The chunk's device work, and nothing else on the host but the
