@@ -83,9 +83,14 @@ script exits non-zero without printing a result.
    windows of scripts/probe_dma_align.py, each through 4-byte loads,
    16-byte loads and TMA) on a padded [27, 260, 272, 256] state, their
    interiors bit-equal to the plain versions', and P4's seventh window,
-   which does not cover its tile, raising; then all timed, P4's library
-   call (``interior(fpad).contiguous()``) before and after each covering
-   window's three loads, with the ring's plane buffers;
+   which does not cover its tile, raising; then all timed, P3's four
+   variants with their march geometry and, beside the passes-0 ones, P3's
+   function at 0 passes as one PyTorch call (the interior copied into a
+   padded buffer) before and after; whether P3 hides its passes (its time
+   at 20 and 60 passes less its time at 0, against P2b's compute-only time
+   at as many passes); P4's library call (``interior(fpad).contiguous()``)
+   before and after each covering window's three loads, with the ring's
+   plane buffers;
    layouts (after 3c): the two-kernel A-A pair B1b on sim_2's res-2 duct
    and on the box of every A-A code per variant, two pairs from the same
    input on both sides, each kernel on its own too and the even kernel's
@@ -139,17 +144,28 @@ script exits non-zero without printing a result.
       profile on the card; one step from the same input, then 4 chained
       steps on each side compared at the end;
    b. golden_2d: sim2d_3 at resolution 1 to t = 0.4 (1440 steps) through
-      B5 on all 108 rows of tests/golden/geometry_ke_values_tpu.csv, the
-      geometries written by scripts/make_golden_geometries.py; the 12 rows
-      the JAX suite samples within 1e-4 relative; the worst row over the
-      108 and the count beyond 1e-4 printed; 1440 launches and 0 plain
-      calls per row;
+      B5's resident chunk on all 108 rows of
+      tests/golden/geometry_ke_values_tpu.csv, the geometries written by
+      scripts/make_golden_geometries.py; the 12 rows the JAX suite samples
+      within 1e-4 relative; the worst row over the 108 and the count beyond
+      1e-4 printed; 72 resident launches of 20 steps, no per-step launch
+      and 0 plain calls per row; geometry 1 with Bouzidi again with B5 per
+      step, bit for bit the resident run (KE value, f, rho, u); on its
+      state, B5's two routes at 128 x 32: 20 step launches against one
+      chunk bit for bit, the chunk against its plain version, ms per launch
+      and per step of both, the chunk's sync floor and its time at
+      clusters of 4, 8 and 16 blocks; then a row's host time in parts
+      (build, sim_init, the eager chunk, the capture, the replays, the KE)
+      with the cyclic collector running and frozen, and its full
+      collections;
    c. apps_2d: sim2d_3 res 2 (geometry 1's disk scaled by 2 in a seeded
       ring), sim2d_1 res 4 with ``--use-fused`` (its VTK2D cut read back)
       and sim2d_2 res 1 on geometry 1 with Bouzidi (the statistics state
       machine compressed, from step 150), each through B5 and through the
       plain step on the card from the same start: rho and u within 1e-5,
-      sim2d_2's accumulators, counts, events and TKE too;
+      sim2d_2's accumulators, counts, events and TKE too; every step
+      through B5, per launch or in a resident chunk (sim2d_3 res 2, and
+      sim2d_2's chunks without a statistics window);
    d. time_2d: sim2d_3's channel at resolution 64 (8192 x 2048, the site
       count of 256^3) with geometry 1's disk scaled by 64 in a seeded
       ring: 200 steps through ``Simulation`` (MLUPS, peak memory), the
@@ -216,10 +232,12 @@ script exits non-zero without printing a result.
    background ``save_state``, a run resumed from it and 3 more chunks,
    against 6 uninterrupted, bit for bit) on sim_2 res 2 in pairs and A-B
    with the statistics, sim_coupled res 2 (g and phi) and sim2d_2 res 1 (its
-   running sum); then, in turns, the golden sweep's wall per row and B5's
-   ms per launch through ``Simulation._advance`` with the graph and eager,
-   and sim_2 res 2's MLUPS in pairs and per step with the graph and per
-   step from Python.
+   running sum); then, in turns, the golden sweep's wall per row through
+   the resident chunk, B5 per step from its graph and per step from
+   Python, B5's ms per step through ``Simulation._advance`` with the
+   resident chunk replayed from its graph or launched directly and B5 per
+   step from its graph or eager, and sim_2 res 2's MLUPS in pairs and per
+   step with the graph and per step from Python.
 
 10. ibm (after the coupled hooked run): sim_ibm at resolution 4
    (384x128x128, a cylinder of 25 098 points, phi2 "modified": the
@@ -242,8 +260,11 @@ script exits non-zero without printing a result.
 
 The line before the last is the kernels' JSON record (bound_ms: the larger
 of the bytes over the published 3.35 TB/s and the FP32 operations over
-67 TFLOP/s, at 256^3 sites; B5's launches: the golden sweep, the three 2D
-apps' kernel runs and the res-64 run; B1b's: the bench entry's; B4s's and
+67 TFLOP/s, at 256^3 sites; B5's launches: the three 2D apps' kernel runs
+and the res-64 run; B5's resident chunk at the golden sweep's 128 x 32,
+20 steps a launch (its bound: the bytes once or the CLBM site update's
+operations 20 times, whichever is larger), its launches the golden
+sweep's and the 2D apps', with its ms per step, sync floor and cluster; B1b's: the bench entry's; B4s's and
 the probes': their timings'; library_ms: P4's function as one PyTorch
 call, ``interior(fpad).contiguous()``, and null where no single PyTorch
 call computes a kernel's function; B1b's two entries also give the pair's
@@ -295,7 +316,9 @@ DEVICE = "cuda"
 #: the D2Q9 step (B5): 9 f32 in and out, the map, rho and u (B/site); the
 #: thetas and the profile are added per run, at the sites that read them
 B5_BYTES = 85
-D2Q9_KERNEL_NAMES = ("d2q9_srt_kernel", "d2q9_srt_force_kernel", "d2q9_clbm_kernel")
+D2Q9_KERNEL_NAMES = ("d2q9_srt_kernel", "d2q9_srt_force_kernel", "d2q9_clbm_kernel",
+                     "d2q9_chunk_srt_kernel", "d2q9_chunk_srt_force_kernel",
+                     "d2q9_chunk_clbm_kernel", "d2q9_chunk_sync_floor_kernel")
 #: sim2d_3's channel at resolution 64: 8192 x 2048, the site count of 256^3
 TIME_2D_RES = 64
 #: the rows of the golden corpus that the JAX suite samples
@@ -304,9 +327,13 @@ GOLDEN_SAMPLED = ((1, True), (4, True), (4, False), (6, True), (9, False), (14, 
                   (18, False), (23, True), (29, False), (33, True), (41, True), (54, False))
 TOL_GOLDEN = 1e-4  # relative (tests/test_geometry_pipeline.py:151-154)
 GOLDEN_STEPS = 1440  # resolution 1 to the corpus' final time 0.4
+#: sim2d_3's dispatch chunk: one launch of B5's resident chunk at 128 x 32
+GOLDEN_CHUNK = 20
 #: the golden row's 20-step chunks replayed from a graph: all but the eager
 #: warm-up and the captured one
-GOLDEN_REPLAYS = GOLDEN_STEPS // 20 - 2
+GOLDEN_REPLAYS = GOLDEN_STEPS // GOLDEN_CHUNK - 2
+#: cluster sizes the resident chunk is timed at beside its default
+CHUNK_CLUSTERS = (4, 8, 16)
 
 
 def log(phase: str, **fields) -> None:
@@ -773,11 +800,13 @@ def phase_probes() -> dict:
         gbps_232B=f"{floor:.1f}", share_of_3350=f"{floor / HBM_PEAK_GBPS:.3f}")
     tile = probes.PROBE_TILE
     window_reads = np.prod([t + 2 for t in tile]) / np.prod(tile)  # sites read per site
+    compute_only = {}
     for passes in PROBE_PASSES:
         ms = time_ms(lambda: probes.pair_pipeline(f, passes), reps=20)
         plain_ms = time_ms(lambda: probes.pair_pipeline_plain(f, passes), reps=3)
         co_ms = time_ms(lambda: probes.pair_compute_only(f, passes), reps=20)
         co_plain_ms = time_ms(lambda: probes.pair_compute_only_plain(f, passes), reps=3)
+        compute_only[passes] = co_ms
         if passes == 20:
             times["pair_pipeline"] = (ms, plain_ms)
             times["pair_compute_only"] = (co_ms, co_plain_ms)
@@ -789,16 +818,34 @@ def phase_probes() -> dict:
     del f
     torch.cuda.empty_cache()
     t_start = time.perf_counter()
+    library, element = {}, {}
+    copy_out = torch.empty_like(fpad)  # P3 at 0 passes as one PyTorch call: the interior copied
+
+    def interior_copy():
+        return probes.interior(copy_out).copy_(probes.interior(fpad))
+
     for tx, ty, passes in probes.ELEMENT_VARIANTS:
+        line = {"library_ms": time_ms(interior_copy, reps=20)} if passes == 0 else {}
         ms = time_ms(lambda: probes.element_pipeline(fpad, tx, ty, passes), reps=20)
         plain_ms = time_ms(lambda: probes.element_pipeline_plain(fpad, tx, ty, passes), reps=3)
+        element[(tx, ty, passes)] = ms
         if (tx, ty, passes) == ELEMENT_TIMED:
             times["element_pipeline"] = (ms, plain_ms)
+        if passes == 0:
+            line["library_after_ms"] = time_ms(interior_copy, reps=20)
+            library.setdefault("element_pipeline", min(line.values()))
+            line["over_library"] = f"{ms / min(line.values()):.3f}"
         script_bytes = 27 * 4 * ((tx + 4) * (ty + 16) / (tx * ty) + 1)  # the script's GB count
         log("probes", kernel="element_pipeline", tile=f"{tx}x{ty}", passes=passes,
-            zchunk=probes.element_zchunk(tx, ty, Z), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
-            gbps_216B=f"{gbps(216, ms):.1f}", gbps_script=f"{gbps(script_bytes, ms):.1f}")
-    library = {}  # P4's function as one PyTorch call: the interior, made contiguous
+            **probes.element_geometry(tx, ty, X, Z), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+            gbps_216B=f"{gbps(216, ms):.1f}", gbps_script=f"{gbps(script_bytes, ms):.1f}",
+            **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in line.items()})
+    del copy_out
+    for passes in PROBE_PASSES[1:]:  # does P3 hide its passes under its copies?
+        added = element[(8, 32, passes)] - element[(8, 32, 0)]
+        log("probes", overlap=f"element_pipeline 8x32, {passes} passes",
+            added_ms=f"{added:.4f}", compute_only_ms=f"{compute_only[passes]:.4f}",
+            hidden_share=f"{1 - added / compute_only[passes]:.3f}")
     for y_off, wy, label, dst_off in covering:  # the call timed before and after the loads
         line = {"library_ms": time_ms(lambda: probes.interior(fpad).contiguous(), reps=20)}
         timed = (y_off, wy, dst_off) == WINDOW_TIMED
@@ -1408,7 +1455,7 @@ def counting_from_init(sim):
         def sim_init(self):
             super().sim_init()
             for k in (self._step, self._pair, getattr(self, "_ade_step", None),
-                      getattr(self, "_coupled_step", None)):
+                      getattr(self, "_coupled_step", None), getattr(self, "_resident", None)):
                 if hasattr(k, "reset_counts"):
                     k.reset_counts()
             torch.cuda.reset_peak_memory_stats()
@@ -1456,7 +1503,11 @@ def kernel_launches(sim) -> dict:
         launches = {"even": step.even.launches, "odd": step.odd.launches}
         launches["pair"] = sim._pair.kernel.launches if sim._pair else 0
         return launches
-    return {"d2q9" if sim.cfg.lat.D == 2 else "ab": step.kernel.launches}
+    if sim.cfg.lat.D == 2:  # B5 per step, and its resident chunk's launches and steps
+        chunk = getattr(sim, "_resident", None)
+        return {"d2q9": step.kernel.launches, "d2q9_chunk": chunk.kernel.launches if chunk else 0,
+                "d2q9_chunk_steps": chunk.steps if chunk else 0}
+    return {"ab": step.kernel.launches}
 
 
 def run_figures(sim) -> tuple[float, float, float]:
@@ -1476,7 +1527,8 @@ def report_main(sim, label: str) -> dict:
     ms_step, mlups, peak_gb = run_figures(sim)  # before the checks' own temporaries
     finite = bool(torch.isfinite(sim.rho).all()) and bool(torch.isfinite(sim.u).all())
     plain = sum(getattr(k, "plain_calls", 0) for k in (
-        sim._step, sim._pair, getattr(sim, "_ade_step", None), getattr(sim, "_coupled_step", None)))
+        sim._step, sim._pair, getattr(sim, "_ade_step", None), getattr(sim, "_coupled_step", None),
+        getattr(sim, "_resident", None)))
     launches = kernel_launches(sim)
     log("main", path=label, shape="x".join(map(str, sim.domain.shape)), steps=steps,
         ms_per_step=f"{ms_step:.4f}", mlups=f"{mlups:.1f}", max_memory_allocated_gb=f"{peak_gb:.3f}",
@@ -2376,89 +2428,311 @@ def phase_compare_2d() -> float:
     return worst
 
 
-def phase_golden_2d() -> dict:
+def per_step_route(sim):
+    """The 2D run with B5 per step: no resident chunk (the route sim_init
+    would pick is refused before it runs)."""
+    sim._resolve_resident_chunk = lambda: None
+    return sim
+
+
+def golden_run(name: str, bouzidi: str, where: Path, per_step: bool = False):
+    """One counted golden row: sim2d_3 at resolution 1 on geometry ``name``
+    to t = 0.4, run; through its route, or B5 per step."""
+    from tnl_lbm_tpu_torch.apps import sim2d_3
+
+    sim = sim2d_3.build(1, str(golden_geometries() / name), bouzidi == "on", final_time=0.4,
+                        results_parent=where, values_dir=where / "values", use_fused=True,
+                        device=DEVICE)
+    if per_step:
+        per_step_route(sim)
+    if not counting_from_init(sim).run():
+        raise RuntimeError(f"sim2d_3 on {name} (Bouzidi {bouzidi}) failed")
+    return sim
+
+
+def phase_golden_2d(ops: dict) -> dict:
     """sim2d_3 at resolution 1 to the final time 0.4 through B5 on all 108
     rows of the TPU-measured golden corpus (tests/golden/): the 12 rows the
     JAX suite samples must lie within 1e-4 relative; the worst deviation
     over the 108 and the count beyond 1e-4 are printed.  Each row runs with
-    its counts set to 0 at the end of sim_init: 1440 launches, 0 plain
-    calls, and its 20-step chunks replayed from a CUDA graph after the first
-    (eager) and the second (captured)."""
+    its counts set to 0 at the end of sim_init: its 1440 steps through B5's
+    routes - 72 launches of the resident chunk (20 steps each), no per-step
+    launch - and 0 plain calls, its chunks replayed from a CUDA graph after
+    the first (eager) and the second (captured).  Geometry 1 with Bouzidi
+    is run again with B5 per step: f, rho, u and the KE value bit for bit
+    the resident run's.  Then ``golden_launch_ms`` (both routes timed on a
+    finished row's state) and ``golden_row_split`` (the host time of a
+    row's parts, with the collector as it runs and frozen)."""
     import csv
 
-    from tnl_lbm_tpu_torch.apps import sim2d_3
-
-    geos = golden_geometries()
     with open(ROOT / "tests" / "golden" / "geometry_ke_values_tpu.csv") as fh:
         golden = {(r["geometry"], r["bouzidi"]): float(r["value"]) for r in csv.DictReader(fh)}
-    rel, launches, kernel, rel_launch, replays = {}, 0, None, {}, 0
+    rel, launches, chunk, kept, replays = {}, 0, None, None, 0
     t0 = time.perf_counter()
     for (name, bouzidi), want in golden.items():
-        where = WORK / "golden" / bouzidi
-        sim = counting_from_init(sim2d_3.build(
-            1, str(geos / name), bouzidi == "on", final_time=0.4, results_parent=where,
-            values_dir=where / "values", use_fused=True, device=DEVICE))
-        if not sim.run():
-            raise RuntimeError(f"sim2d_3 on {name} (Bouzidi {bouzidi}) failed")
-        step = sim._step
-        if (sim.iterations != GOLDEN_STEPS or step.kernel.launches != GOLDEN_STEPS
-                or step.plain_calls or sim.graph_replays < GOLDEN_REPLAYS):
-            raise RuntimeError(f"sim2d_3 on {name}: {sim.iterations} steps, "
-                               f"{step.kernel.launches} launches, {step.plain_calls} plain calls, "
-                               f"{sim.graph_replays} graph replays")
+        sim = golden_run(name, bouzidi, WORK / "golden" / bouzidi)
+        per, chunks, chunk_steps, plain = b5_routes(sim)
+        if (sim.iterations != GOLDEN_STEPS or per != 0 or chunk_steps != GOLDEN_STEPS
+                or chunks != GOLDEN_STEPS // GOLDEN_CHUNK or plain
+                or sim.graph_replays < GOLDEN_REPLAYS):
+            raise RuntimeError(f"sim2d_3 on {name}: {sim.iterations} steps, {per} per-step "
+                               f"launches, {chunks} resident launches of {chunk_steps} steps, "
+                               f"{plain} plain calls, {sim.graph_replays} graph replays")
         replays += sim.graph_replays
-        value = float(sim.value_path.read_text())
-        rel[(name, bouzidi)] = abs(value - want) / abs(want)
-        launches += step.kernel.launches
-        kernel = step.kernel
-        if not rel_launch:
-            rel_launch = golden_launch_ms(sim)
+        value = sim.value_path.read_text()
+        rel[(name, bouzidi)] = abs(float(value) - want) / abs(want)
+        launches += chunks
+        chunk = sim._resident.kernel
+        if (name, bouzidi) == ("1.txt", "on"):
+            kept = (value, *(t.clone() for t in (sim.f, sim.rho, sim.u)))
         del sim
-    wall = time.perf_counter() - t0 - rel_launch["seconds"]
+    wall = time.perf_counter() - t0
+    per_step = golden_run("1.txt", "on", WORK / "golden" / "per_step", per_step=True)
+    if b5_routes(per_step)[:3] != (GOLDEN_STEPS, 0, 0):
+        raise RuntimeError(f"golden row per step: {b5_routes(per_step)}")
+    same = [kept[0] == per_step.value_path.read_text()] + [
+        torch_equal(a, b) for a, b in zip(kept[1:], (per_step.f, per_step.rho, per_step.u))]
+    log("golden_2d", row="1.txt_on", routes="resident chunk vs per step",
+        bit_equal_value_f_rho_u="/".join(map(str, same)), value=kept[0].strip())
+    if not all(same):
+        raise RuntimeError(f"golden row 1 (Bouzidi): the resident chunk's run differs from the "
+                           f"per-step run: value, f, rho, u equal {same}")
+    timing = golden_launch_ms(per_step, ops)
+    del per_step
     worst_row = max(rel, key=rel.get)
     sampled = {f"{g}_{'on' if b else 'off'}": rel[(f"{g}.txt", "on" if b else "off")]
                for g, b in GOLDEN_SAMPLED}
     beyond = sorted(k for k, v in rel.items() if v > TOL_GOLDEN)
-    log("golden_2d", rows=len(rel), steps_per_row=GOLDEN_STEPS, launches=launches, plain_calls=0,
-        graph_replays=replays, wall_s=f"{wall:.1f}", worst_rel=rel[worst_row], worst_row="_".join(worst_row),
+    log("golden_2d", rows=len(rel), steps_per_row=GOLDEN_STEPS, resident_launches=launches,
+        per_step_launches=0, plain_calls=0, graph_replays=replays, wall_s=f"{wall:.1f}",
+        worst_rel=rel[worst_row], worst_row="_".join(worst_row),
         rows_beyond_tol=len(beyond), beyond=beyond or "none",
         sampled_worst_rel=max(sampled.values()))
     log("golden_2d", **{f"rel_{k}": f"{v:.3e}" for k, v in sampled.items()})
-    log("golden_2d", kernel="d2q9_step", shape="128x32", **{k: f"{v:.5f}" for k, v in
-                                                          rel_launch.items()})
     if max(sampled.values()) > TOL_GOLDEN:
         raise RuntimeError(f"golden rows beyond 1e-4 relative: {sampled}")
-    return {"kernel": dataclasses.replace(kernel, launches=launches)}
+    rows = sorted(golden_geometries().glob("*.txt"))[:SPLIT_ROWS]
+    golden_row_split([p.name for p in rows], "chip_smoke")
+    return {"chunk": dataclasses.replace(chunk, launches=launches), **timing}
 
 
-def golden_launch_ms(sim) -> dict:
-    """B5 at the golden sweep's 128 x 32 on a finished row's state: ms per
-    launch from CUDA events over 200 back-to-back launches (the host's
-    dispatch included, as the sweep pays it), the device time per kernel
-    event of torch.profiler over 50 more, and the bound (85 B/site over
-    3.35 TB/s).  The launches are another step's, not the row's."""
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+#: golden rows whose parts ``golden_row_split`` times, per setting
+SPLIT_ROWS = 12
+
+
+def timed_parts(sim):
+    """The run's class with its sim_init, each ``_advance`` and
+    after_sim_finished timed on the host clock into ``sim.row_times`` (a
+    subclass, as ``counting_from_init``, so no closure holds the run)."""
+
+    class Timed(type(sim)):
+        def sim_init(self):
+            t0 = time.perf_counter()
+            super().sim_init()
+            self.row_times["sim_init"] = time.perf_counter() - t0
+
+        def _build_step(self):
+            t0 = time.perf_counter()
+            super()._build_step()
+            self.row_times["init_step"] = time.perf_counter() - t0
+
+        def estimate_memory_demands(self):
+            t0 = time.perf_counter()
+            out = super().estimate_memory_demands()
+            self.row_times["init_memory"] = time.perf_counter() - t0
+            return out
+
+        def _advance(self, n_steps):
+            t0 = time.perf_counter()
+            super()._advance(n_steps)
+            self.row_times["chunks"].append(time.perf_counter() - t0)
+
+        def after_sim_finished(self):
+            t0 = time.perf_counter()
+            super().after_sim_finished()
+            self.row_times["finish"] = time.perf_counter() - t0
+
+    sim.__class__ = Timed
+    sim.row_times = {"chunks": []}
+    return sim
+
+
+def golden_row_split(rows, label: str) -> dict:
+    """A golden row's host seconds in parts, over ``rows`` (geometry files,
+    with Bouzidi): the build (``sim2d_3.build``: the geometry file, the
+    domain, the run directory and its logs), sim_init, the first chunk
+    (eager), the second (its capture, then its replay), the other 70
+    chunks (replays, the KE loop's counter actions between them in "rest")
+    and after_sim_finished (the KE and its file); of sim_init, the step's
+    build and the memory estimate (``torch.cuda.mem_get_info``).  Beside
+    them, the cyclic collector's full (generation 2) collections during the
+    rows and their ms, its longest collection of any generation, the objects
+    it tracks and the log handlers of the runs' logger.
+    Twice: with the collector as it runs, then with the heap so far frozen
+    (``gc.freeze``: a full collection then skips it); medians and maxima in
+    ms.  The rows' launches are not counted."""
+    import collections
+    import gc
+    import logging
+
+    from tnl_lbm_tpu_torch.apps import sim2d_3
+
+    full, started, longest = [], [0.0], [0.0]
+
+    def on_gc(phase, info):
+        now = time.perf_counter()
+        if phase == "start":
+            started[0] = now
+        else:
+            longest[0] = max(longest[0], now - started[0])
+        if info["generation"] == 2:
+            if phase == "start":
+                full.append([now, None])
+            elif full and full[-1][1] is None:
+                full[-1][1] = now
+
+    out = {}
+    gc.callbacks.append(on_gc)
+    try:
+        for frozen in (False, True):
+            if frozen:
+                gc.freeze()
+            parts, n0, w0 = collections.defaultdict(list), len(full), len(full)
+            longest[0] = 0.0
+            for name in rows:
+                where = WORK / "golden_split" / f"{name}_{frozen}_{time.perf_counter_ns()}"
+                t0 = time.perf_counter()
+                sim = sim2d_3.build(1, str(golden_geometries() / name), True, final_time=0.4,
+                                    results_parent=where, values_dir=where / "values",
+                                    device=DEVICE)
+                t_build = time.perf_counter() - t0
+                timed_parts(sim)
+                t1 = time.perf_counter()
+                if not sim.run():
+                    raise RuntimeError(f"golden row {name} failed")
+                t_run = time.perf_counter() - t1
+                p, c = sim.row_times, sim.row_times["chunks"]
+                parts["build"].append(t_build)
+                parts["sim_init"].append(p["sim_init"])
+                parts["init_step"].append(p["init_step"])
+                parts["init_memory"].append(p["init_memory"])
+                parts["eager"].append(c[0])
+                parts["capture"].append(c[1])
+                parts["replays"].append(sum(c[2:]))
+                parts["ke"].append(p["finish"])
+                parts["rest"].append(t_run - p["sim_init"] - sum(c) - p["finish"])
+                parts["row"].append(t_build + t_run)
+                parts["gc_full"].append(sum(b - a for a, b in full[n0:] if b is not None))
+                n0 = len(full)
+                del sim
+            handlers = len(logging.getLogger("tnl_lbm_tpu_torch.main").handlers)
+            stats = {f"{k}_ms": f"{np.median(v) * 1e3:.3f}/{max(v) * 1e3:.3f}"
+                     for k, v in parts.items()}
+            log("golden_split", label=label, gc="frozen" if frozen else "running",
+                rows=len(rows), **stats, gc_full_collections=len(full) - w0,
+                gc_longest_ms=f"{longest[0] * 1e3:.3f}",
+                gc_tracked_objects=len(gc.get_objects()), log_handlers=handlers)
+            out[frozen] = {k: list(v) for k, v in parts.items()}
+    finally:
+        gc.callbacks.remove(on_gc)
+        gc.unfreeze()
+    return out
+
+
+def golden_launch_ms(sim, ops: dict) -> dict:
+    """B5's two routes at the golden sweep's 128 x 32 on a finished row's
+    state (the launches are another step's and chunk's, not the row's).
+    Per step: ms per launch from CUDA events over 200 back-to-back
+    launches (the host's dispatch included, as a per-step sweep pays it)
+    and the device time per kernel event of torch.profiler over 50 more.
+    The resident chunk of GOLDEN_CHUNK steps: 20 launches of the step
+    kernel and one chunk from the same state must agree bit for bit, and
+    the chunk its plain version within TOL_APP; ms per launch and per step
+    (CUDA events over 50 launches), its device time per kernel event
+    (profiler over 20), the sync floor per step (the kernel with the site
+    update taken out), each at the default cluster and at CHUNK_CLUSTERS;
+    the plain version's ms; the bound (85 B/site, the ring's thetas and the
+    profile over 3.35 TB/s; or the SASS FP32 operations of the CLBM site
+    update x GOLDEN_CHUNK steps over 67 TFLOP/s, whichever is larger)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
+    from tnl_lbm_tpu_torch.kernels.fused_2d import FusedChunk2D, make_fused_step_2d
+    from tnl_lbm_tpu_torch.ops.boundary import GEO
+
+    def device_ms(fn, prefix, reps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.key.startswith(prefix)]
+        us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                 for e in events)
+        count = sum(e.count for e in events)
+        return us / 1e3 / max(count, 1), count
 
     t0 = time.perf_counter()
+    n = GOLDEN_CHUNK
     step = make_fused_step_2d(sim.cfg, sim.domain, DEVICE)
     f, nu = sim.f.clone(), sim.domain.units.lbm_viscosity()
     u_in, out = sim.update_inflow(sim.phys_time()), torch.empty_like(f)
     event_ms = time_ms(lambda: step(f, nu, u_in=u_in, out=out), reps=200)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
-            step(f, nu, u_in=u_in, out=out)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.key.startswith("d2q9_")]
-    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-             for e in events)
-    count = sum(e.count for e in events)
-    sites = float(np.prod(sim.domain.shape))
-    return {"event_ms_per_launch": event_ms, "device_ms_per_event": us / 1e3 / max(count, 1),
-            "kernel_events": count, "bound_ms": B5_BYTES * sites / (HBM_PEAK_GBPS * 1e9) * 1e3,
-            "seconds": time.perf_counter() - t0}
+    step_dev, step_events = device_ms(lambda: step(f, nu, u_in=u_in, out=out), "d2q9_", 50)
+
+    chunk = FusedChunk2D(step)
+    a, b = f.clone(), torch.empty_like(f)
+    for _ in range(n):
+        fs, rs, us = step(a, nu, u_in=u_in, out=b)
+        a, b = fs, a
+    fk, rk, uk = chunk(f, nu, n, u_in=u_in)
+    fp, rp, up = chunk.plain(f, nu, n, u_in=u_in)
+    torch.cuda.synchronize()
+    bit_equal = all(torch_equal(x, y) for x, y in ((fk, fs), (rk, rs), (uk, us)))
+    d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+    if not bit_equal or max(d) > TOL_APP:
+        raise RuntimeError(f"the resident chunk at 128x32: bit-equal to {n} launches "
+                           f"{bit_equal}, against its plain version {d}")
+    plain_ms = time_ms(lambda: chunk.plain(f, nu, n, u_in=u_in), reps=3)
+    g, spare = f.clone(), torch.empty_like(f)
+    per_cluster = {}
+    for cluster in sorted({chunk.cluster, *CHUNK_CLUSTERS}):
+        c = FusedChunk2D(step, cluster=cluster)
+        ms = time_ms(lambda: c(g, nu, n, u_in=u_in, out=spare), reps=50)
+        floor = time_ms(lambda: c.sync_floor(g, n, spare), reps=50)
+        per_cluster[cluster] = {"ms_per_launch": ms, "ms_per_step": ms / n,
+                                "sync_floor_ms_per_step": floor / n, **c.geometry()}
+        log("golden_chunk", shape="128x32", steps=n, **{k: (f"{v:.6f}" if isinstance(v, float)
+                                                            else v)
+                                                        for k, v in per_cluster[cluster].items()})
+    chunk_dev, chunk_events = device_ms(lambda: chunk(g, nu, n, u_in=u_in, out=spare),
+                                        "d2q9_chunk", 20)
+    mine = per_cluster[chunk.cluster]
+    dom = sim.domain
+    X, Y = dom.shape
+    sites = X * Y
+    near = int((dom.map == GEO.FLUID_NEAR_WALL).sum())
+    t_bytes = (B5_BYTES * sites + 32 * near + 8 * Y) / (HBM_PEAK_GBPS * 1e9) * 1e3
+    t_ops = ops["d2q9_clbm_kernel"] * n * sites / (FP32_PEAK_TFLOPS * 1e12) * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    res = {"step_event_ms_per_launch": event_ms, "step_device_ms_per_event": step_dev,
+           "step_kernel_events": step_events,
+           "step_bound_ms": B5_BYTES * sites / (HBM_PEAK_GBPS * 1e9) * 1e3,
+           "chunk_ms_per_launch": mine["ms_per_launch"], "chunk_ms_per_step": mine["ms_per_step"],
+           "chunk_device_ms_per_event": chunk_dev, "chunk_kernel_events": chunk_events,
+           "sync_floor_ms_per_step": mine["sync_floor_ms_per_step"], "chunk_plain_ms": plain_ms,
+           "chunk_bound_ms": bound_ms, "chunk_bound_by": bound_by,
+           "chunk_max_df": d[0], "chunk_max_drho": d[1], "chunk_max_du": d[2],
+           "cluster": chunk.cluster, "seconds": time.perf_counter() - t0}
+    log("golden_2d", kernel="d2q9_step+d2q9_chunk", shape="128x32", card=card_state(),
+        bit_equal_chunk_vs_launches=bit_equal,
+        **{k: (f"{v:.6f}" if isinstance(v, float) else v) for k, v in res.items()})
+    return {"timing": res, "per_cluster": per_cluster}
 
 
 def app_2d_runs(build, label: str, prepare):
@@ -2478,20 +2752,31 @@ def app_2d_runs(build, label: str, prepare):
     return runs
 
 
+def b5_routes(sim) -> tuple[int, int, int, int]:
+    """(B5's per-step launches, its resident chunk's launches and steps, the
+    plain calls of both) of a counted 2D run."""
+    chunk = getattr(sim, "_resident", None)
+    return (sim._step.kernel.launches, chunk.kernel.launches if chunk else 0,
+            chunk.steps if chunk else 0,
+            sim._step.plain_calls + (chunk.plain_calls if chunk else 0))
+
+
 def compare_app_2d(label: str, k, p, **extra) -> float:
-    """max |drho| and |du| of the kernel and plain runs within TOL_APP, B5's
-    launches one per step, no plain call; returns max |du|."""
+    """max |drho| and |du| of the kernel and plain runs within TOL_APP, every
+    step through B5 (a per-step launch or a step of a resident chunk), no
+    plain call; returns max |du|."""
     import torch
 
     d_rho, d_u = max_diff(k.rho, p.rho), max_diff(k.u, p.u)
-    launches, plain = k._step.kernel.launches, k._step.plain_calls
+    launches, chunks, chunk_steps, plain = b5_routes(k)
     log("apps_2d", path=label, shape="x".join(map(str, k.domain.shape)), steps=k.iterations,
         max_drho=d_rho, max_du=d_u, max_abs_u=float(k.u.abs().max()), launches=launches,
-        plain_calls=plain, **extra)
+        resident_launches=chunks, resident_steps=chunk_steps, plain_calls=plain, **extra)
     if not (d_rho <= TOL_APP and d_u <= TOL_APP and bool(torch.isfinite(k.u).all())
-            and launches == k.iterations == p.iterations and plain == 0):
+            and launches + chunk_steps == k.iterations == p.iterations and plain == 0):
         raise RuntimeError(f"{label}: kernel vs plain run: drho {d_rho}, du {d_u}, "
-                           f"{launches} launches, {plain} plain calls")
+                           f"{launches} launches and {chunk_steps} resident steps, {plain} "
+                           f"plain calls")
     return d_u
 
 
@@ -2505,7 +2790,10 @@ def phase_apps_2d() -> dict:
     machine compressed as tests/test_sim2d_2.py:24-33 compresses it, with
     the window moved to step 150 so that the inflow has reached the ROI:
     the accumulators, the counts and the exported TKE against the plain
-    run's (TKE within 1e-5 relative).  Returns B5's launches and max |du|."""
+    run's (TKE within 1e-5 relative).  sim2d_3 res 2 runs its chunks through
+    B5's resident chunk, sim2d_2 those without a statistics window, sim2d_1
+    res 4 (512 x 128, over the size rule) every step per launch.  Returns
+    B5's launches, its resident chunk's, and max |du|."""
     from tnl_lbm_tpu_torch.apps import sim2d_1, sim2d_2, sim2d_3
     from tnl_lbm_tpu_torch.sim.state import VTK2D
     from torch_cases import compress_statistics, timing_disk_2d
@@ -2522,7 +2810,7 @@ def phase_apps_2d() -> dict:
         device=DEVICE), "sim2d_3_res2", disk_and_steps)
     err = compare_app_2d("sim2d_3_res2_disk", k, p, ke_kernel=k.ke_value, ke_plain=p.ke_value,
                          codes="+".join(sorted(c.name for c in k._step.codes)))
-    launches = k._step.kernel.launches
+    launches, chunks = b5_routes(k)[:2]
 
     k, p = app_2d_runs(lambda fused, where: sim2d_1.build(
         4, results_parent=where, use_fused=fused, device=DEVICE), "sim2d_1_res4", app_steps)
@@ -2537,6 +2825,7 @@ def phase_apps_2d() -> dict:
     err = max(err, compare_app_2d("sim2d_1_res4", k, p, vtk2d=probe.name, cycles=probe.cycle,
                                   read_back="equal"))
     launches += k._step.kernel.launches
+    chunks += b5_routes(k)[1]
 
     geo = str(golden_geometries() / "1.txt")
     k, p = app_2d_runs(lambda fused, where: sim2d_2.build(
@@ -2556,7 +2845,10 @@ def phase_apps_2d() -> dict:
         raise RuntimeError(f"sim2d_2: the statistics differ from the plain run's: TKE {tke}, "
                            f"accumulators {d_acc}")
     launches += k._step.kernel.launches
-    return {"launches": launches, "err": err}
+    chunks += b5_routes(k)[1]
+    if chunks <= 0:
+        raise RuntimeError("no 2D app took B5's resident chunk")
+    return {"launches": launches, "chunk_launches": chunks, "err": err}
 
 
 def card_state() -> str:
@@ -2564,6 +2856,25 @@ def card_state() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+
+
+def time_2d_sim(label: str = "time_2d"):
+    """sim2d_3's channel at resolution 64 (8192 x 2048) with geometry 1's
+    disk scaled by 64 in a seeded Bouzidi ring, BENCH_STEPS steps through
+    ``Simulation`` (B5 per step: the lattice is over the resident chunk's
+    size rule), counted from sim_init."""
+    from tnl_lbm_tpu_torch.apps import sim2d_3
+    from torch_cases import timing_disk_2d
+
+    where = WORK / label
+    sim = sim2d_3.build(TIME_2D_RES, None, results_parent=where, values_dir=where / "values",
+                        device=DEVICE)
+    timing_disk_2d(sim.domain)
+    sim.phys_final_time = BENCH_STEPS * sim.domain.units.phys_dt
+    counting_from_init(sim)
+    if not sim.run():
+        raise RuntimeError("sim2d_3 res 64 failed")
+    return sim
 
 
 def phase_time_2d(floor_gbps: float) -> dict:
@@ -2580,19 +2891,10 @@ def phase_time_2d(floor_gbps: float) -> dict:
     data needs, against the P1 floor of this call."""
     import torch
 
-    from tnl_lbm_tpu_torch.apps import sim2d_3
     from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
     from tnl_lbm_tpu_torch.ops.boundary import GEO
-    from torch_cases import timing_disk_2d
 
-    where = WORK / "time_2d"
-    sim = sim2d_3.build(TIME_2D_RES, None, results_parent=where, values_dir=where / "values",
-                        device=DEVICE)
-    timing_disk_2d(sim.domain)
-    sim.phys_final_time = BENCH_STEPS * sim.domain.units.phys_dt
-    counting_from_init(sim)
-    if not sim.run():
-        raise RuntimeError("sim2d_3 res 64 failed")
+    sim = time_2d_sim()
     launches = report_main(sim, f"sim2d_3_res{TIME_2D_RES}")["d2q9"]
     if launches != BENCH_STEPS:
         raise RuntimeError(f"sim2d_3 res 64: {launches} B5 launches for {BENCH_STEPS} steps")
@@ -3322,7 +3624,7 @@ def replay_vs_eager(sim, label: str, chunks: int = DISPATCH_CHUNKS) -> dict:
     k = sim.steps_per_dispatch
     start, bufs = chunk_fields(sim), (sim.f, sim._spare)
     counts = (sim.iterations, sim.stat_counter, sim.stat2_counter)
-    kernels = kernel_counters(sim._step, sim._pair)
+    kernels = kernel_counters(sim._step, sim._pair, getattr(sim, "_resident", None))
     before, replays = [x.launches for x in kernels], sim.graph_replays
     for _ in range(chunks):
         sim._advance(k)
@@ -3376,15 +3678,18 @@ def dispatch_routes():
         return lambda: warmed(sim_2.build(2, device=DEVICE, use_fused=True,
                                           results_parent=where / tag, **kw), stats=True)
 
-    def golden(tag, hooked=False):
+    def golden(tag, hooked=False, per_step=False):
         sim = sim2d_3.build(1, geo, True, final_time=0.4, results_parent=where / tag,
                             values_dir=where / tag / "values", device=DEVICE)
+        if per_step:
+            per_step_route(sim)
         if hooked:  # the plain u* pass and hook as tensor ops, then B5's force_field
             sim.cfg = hooked_cfg(sim.cfg, NN_BENCH_MODEL, sim.domain.periodic)
         return warmed(sim)
 
     return (
-        ("golden_b5_sim2d_3_res1", lambda: golden("golden")),
+        ("golden_b5_chunk_sim2d_3_res1", lambda: golden("golden")),
+        ("golden_b5_per_step_sim2d_3_res1", lambda: golden("golden_per_step", per_step=True)),
         ("hooked_b5_sim2d_3_res1", lambda: golden("hooked_2d", hooked=True)),
         ("sim_2_res2_pairs_f32", sim2("pairs_f32", streaming="AA", pair_dispatch=True)),
         ("sim_2_res2_pairs_f16", sim2("pairs_f16", streaming="AA", storage="f16")),
@@ -3437,9 +3742,10 @@ def checkpoint_roundtrip(label: str, build, extra=()) -> None:
         raise RuntimeError(f"{label}: the resumed run differs from the uninterrupted one: {diffs}")
 
 
-def sweep_row_seconds(rows, chunked: bool) -> list:
+def sweep_row_seconds(rows, chunked: bool, per_step: bool = False) -> list:
     """Wall seconds of each golden row (sim2d_3 res 1 to t = 0.4, its
-    build and run) with the chunked dispatch or per step."""
+    build and run) with the chunked dispatch (through the run's route, or
+    B5 per step with ``per_step``) or per step from Python."""
     from tnl_lbm_tpu_torch.apps import sim2d_3
 
     geos, out = golden_geometries(), []
@@ -3448,6 +3754,8 @@ def sweep_row_seconds(rows, chunked: bool) -> list:
         t0 = time.perf_counter()
         sim = sim2d_3.build(1, str(geos / name), True, final_time=0.4, results_parent=where,
                             values_dir=where / "values", device=DEVICE)
+        if per_step:
+            per_step_route(sim)
         if not chunked:
             per_step_only(sim)
         if not sim.run() or sim.iterations != GOLDEN_STEPS:
@@ -3456,18 +3764,20 @@ def sweep_row_seconds(rows, chunked: bool) -> list:
     return out
 
 
-def b5_launch_ms(chunked: bool) -> float:
-    """B5 at 128 x 32 in sim2d_3's run: ms per launch from CUDA events over
-    20 chunks of 20 steps through ``_advance``, the graph replayed or the
-    chunk eager."""
-    import torch
-
+def b5_launch_ms(chunked: bool, per_step: bool = False) -> float:
+    """B5 at 128 x 32 in sim2d_3's run: ms per step from CUDA events over
+    20 chunks of 20 steps through ``_advance``: the run's route (B5's
+    resident chunk where the checkout has it, else a launch per step) or B5
+    per step (``per_step``); the chunk replayed from its graph or run
+    eagerly (a resident chunk: one direct launch)."""
     from tnl_lbm_tpu_torch.apps import sim2d_3
 
     where = WORK / "sweep_timing" / f"b5_{chunked}_{time.perf_counter_ns()}"
-    sim = warmed(sim2d_3.build(1, str(golden_geometries() / "1.txt"), True, final_time=10.0,
-                               results_parent=where, values_dir=where / "values",
-                               device=DEVICE))
+    sim = sim2d_3.build(1, str(golden_geometries() / "1.txt"), True, final_time=10.0,
+                        results_parent=where, values_dir=where / "values", device=DEVICE)
+    if per_step:
+        per_step_route(sim)
+    warmed(sim)
     if not chunked:
         eager_chunks(sim)
     return time_ms(lambda: sim._advance(20), reps=20) / 20
@@ -3499,9 +3809,11 @@ def phase_dispatch_and_checkpoint() -> dict:
     in pairs and A-B (both statistics windows on), sim_coupled res 2 (g
     too) and sim2d_2 res 1 (its accumulators, the statistics from step 2)
     through a background checkpoint, bit for bit.  Timings, in turns: the
-    golden sweep's wall per row and B5's ms per launch with the graph and
-    eager, and sim_2 res 2's MLUPS in pairs and per step, graph and per
-    step from Python."""
+    golden sweep's wall per row through the resident chunk, B5 per step
+    from its graph and per step from Python, and B5's ms per step through
+    ``_advance`` on four routes: the resident chunk replayed from its graph
+    or launched directly, B5 per step from its graph or eager; sim_2 res
+    2's MLUPS in pairs and per step, graph and per step from Python."""
     import torch
 
     from tnl_lbm_tpu_torch.apps import sim2d_2, sim_2, sim_coupled
@@ -3541,20 +3853,24 @@ def phase_dispatch_and_checkpoint() -> dict:
 
     csv_rows = sorted(p.name for p in golden_geometries().glob("*.txt"))[:SWEEP_ROWS]
     walls = {}
-    for chunked in (True, False, False, True):
-        walls.setdefault(chunked, []).extend(sweep_row_seconds(csv_rows[:SWEEP_ROWS // 2],
-                                                               chunked))
-    launch = {c: [b5_launch_ms(c) for _ in range(2)] for c in (True, False)}
+    sweeps = {"resident": (True, False), "per_step_graph": (True, True),
+              "per_step_python": (False, True)}
+    for route in (*sweeps, *reversed(sweeps)):
+        walls.setdefault(route, []).extend(sweep_row_seconds(csv_rows[:SWEEP_ROWS // 2],
+                                                             *sweeps[route]))
+    routes = {"resident_graph": (True, False), "resident_direct": (False, False),
+              "per_step_graph": (True, True), "per_step_eager": (False, True)}
+    launch = {r: [] for r in routes}
+    for route in (*routes, *reversed(routes)):
+        launch[route].append(b5_launch_ms(*routes[route]))
     mlups = {}
     for pair in (True, False):
         for chunked in (True, False, False, True):
             mlups.setdefault((pair, chunked), []).append(sim2_mlups(pair, chunked))
     log("dispatch_timing", card=card_state(),
-        sweep_row_s_graph=f"{np.median(walls[True]):.4f}",
-        sweep_row_s_per_step=f"{np.median(walls[False]):.4f}",
-        sweep_rows=len(walls[True]),
-        b5_ms_per_launch_graph=f"{np.median(launch[True]):.5f}",
-        b5_ms_per_launch_eager=f"{np.median(launch[False]):.5f}",
+        **{f"sweep_row_s_{r}": f"{np.median(v):.4f}" for r, v in walls.items()},
+        sweep_rows=len(walls["resident"]),
+        **{f"b5_ms_per_step_{r}": "/".join(f"{m:.5f}" for m in v) for r, v in launch.items()},
         **{f"sim_2_res2_{'pairs' if p else 'per_step'}_{'graph' if c else 'python'}_mlups":
            "/".join(f"{m:.1f}" for m in v) for (p, c), v in mlups.items()},
         checks_seconds=f"{t_checks:.1f}", seconds=f"{time.perf_counter() - t0:.1f}")
@@ -3671,12 +3987,13 @@ def main() -> int:
         kernels[name] = dataclasses.replace(kernels[name], launches=kernels[name].launches + n)
     t_ibm = time.perf_counter() - t_ibm
     compare_2d_err = phase_compare_2d()
-    golden = phase_golden_2d()
+    golden = phase_golden_2d(ops)
     apps_2d = phase_apps_2d()
     timed_2d = phase_time_2d(floor)
     kernels["d2q9_step"] = dataclasses.replace(
-        timed_2d["kernel"], launches=golden["kernel"].launches + apps_2d["launches"]
-        + timed_2d["kernel"].launches)
+        timed_2d["kernel"], launches=apps_2d["launches"] + timed_2d["kernel"].launches)
+    kernels["d2q9_chunk"] = dataclasses.replace(
+        golden["chunk"], launches=golden["chunk"].launches + apps_2d["chunk_launches"])
     hooked_2d = phase_hooked_2d(floor)
     kernels["d2q9_step_force_field"] = hooked_2d["kernel"]
     t_dispatch = time.perf_counter()
@@ -3696,17 +4013,28 @@ def main() -> int:
         err[key] = max(e, hooked["err"].get(key, 0.0))
     nn_force_rel = max(hooked_cmp["nn_force_rel"], hooked["nn_force_rel"])
     err["d2q9_step_force_field"] = max(err["d2q9_step_force_field"], hooked_2d["err"])
+    chunk_timing = golden["timing"]
+    err["d2q9_chunk"] = chunk_timing["chunk_max_df"]
     times = {**steps["times"], **pairs["times"], **probe["times"], **ab["times"],
              **layouts["times"],
              **timed["times"], **timed_aa["times"], "d2q9_step": timed_2d["time"],
-             **hooked["times"], "d2q9_step_force_field": hooked_2d["time"]}
+             **hooked["times"], "d2q9_step_force_field": hooked_2d["time"],
+             "d2q9_chunk": (chunk_timing["chunk_ms_per_launch"], chunk_timing["chunk_plain_ms"])}
     kernels.update(probe["kernels"])
     footprint = kernel_footprints(ops, timed_2d["bytes"], hooked_2d["bytes"])
     record = {"kernels": []}
     for key, k in kernels.items():
-        bound_ms, bound_by = bound(*footprint[key])
         entry = {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
                  "launches": k.launches, "max_abs_err": err[key]}
+        if key == "d2q9_chunk":  # at the golden sweep's 128 x 32, GOLDEN_CHUNK steps a launch
+            bound_ms, bound_by = chunk_timing["chunk_bound_ms"], chunk_timing["chunk_bound_by"]
+            entry.update(shape="128x32", steps_per_launch=GOLDEN_CHUNK,
+                         ms_per_step=chunk_timing["chunk_ms_per_step"],
+                         sync_floor_ms_per_step=chunk_timing["sync_floor_ms_per_step"],
+                         step_ms_per_launch_128x32=chunk_timing["step_event_ms_per_launch"],
+                         cluster=chunk_timing["cluster"])
+        else:
+            bound_ms, bound_by = bound(*footprint[key])
         if key == "nn_force":  # |dF| above; its gate is relative to max |F|
             entry["max_rel_err"] = nn_force_rel
         if key.startswith("aa_pair_") and key[8:] in STORES:  # the pair's resources at 256^3

@@ -1,13 +1,14 @@
 """MLUPS of the port's 3D main paths with the package of a given checkout,
 so that two commits can be compared on one card in one call.
 
-    python tests/main_paths_ab.py <checkout root>
+    python tests/main_paths_ab.py <checkout root> [--only path,path,...]
 
 Runs ``chip_smoke.py``'s loops of this checkout against the package and the
 kernels of ``<checkout root>`` (built there): the 256^3 bench duct per step
 (A-A, B2/B3) and through the A-B step (B4), 200 steps each; sim_1 at
 resolution 8 (B4, 100 steps); sim_coupled at resolution 8 through the
-coupled step (B7, 100 steps); where the checkout's package has the hooked
+coupled step (B7, 100 steps); sim2d_3's channel at resolution 64
+(8192 x 2048, B5 per step, 200 steps); where the checkout's package has the hooked
 path (``kernels/hooked.py``), the 256^3 bench duct with the Carreau-Yasuda
 hook through its one-kernel route (B10) and its pipeline, A-B and A-A, 100
 steps each; where it has the IBM slice (``ibm/``), sim_ibm at resolution 4
@@ -18,11 +19,13 @@ probe's two times beside), the benchmark entry (``python -m
 tnl_lbm_tpu_torch.bench``, pair2) per store dtype, the pair kernel itself
 on sim_2's resolution-2 duct and at 256^3 per store dtype (CUDA events over
 50 or 20 pairs from a seeded state), and 12 rows of the golden sweep
-(sim2d_3 res 1, 1440 steps: wall seconds per row, and B5's ms per launch
-through ``Simulation._advance``).  Prints one JSON line: path -> MLUPS and
+(sim2d_3 res 1, 1440 steps: wall seconds per row, B5's ms per step
+through ``Simulation._advance``, the row's parts).  Prints one JSON line: path -> MLUPS and
 peak memory (GB, ``max_memory_allocated`` from the end of sim_init), the
-graph replays and graphs kept per path where the checkout has them, the
-golden rows, and the pair kernel's ms per store dtype.  Run it in turns within
+graph replays and graphs kept per path where the checkout has them, B5's
+ms per launch at 8192 x 2048 on the res-64 run's final state, the golden
+rows, and the pair kernel's ms per store dtype.  ``--only`` runs the named
+paths alone ("bench", "golden" and "pair_ms" name the last three parts).  Run it in turns within
 one call (parent, change, change, parent) and compare only within that
 call.  The duct is built here from the checkout's own ``interop``, so a
 checkout without the benchmark entry (``tnl_lbm_tpu_torch/bench.py``)
@@ -41,6 +44,8 @@ import numpy as np
 
 def main() -> int:
     root = Path(sys.argv[1]).resolve()
+    # --only a,b,...: just these paths (and "bench", "golden", "pair_ms" by name)
+    only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else None
     sys.path[:0] = [str(root), str(root / "tests")]
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -81,7 +86,8 @@ def main() -> int:
 
     runs = [("per_step", lambda: cs.bench_sim(False)),
             ("ab_step", lambda: cs.bench_sim(False, streaming="AB")),
-            ("sim_1_res8", cs.sim1_main_path), ("sim_coupled_res8", coupled)]
+            ("sim_1_res8", cs.sim1_main_path), ("sim_coupled_res8", coupled),
+            ("sim2d_3_res64", cs.time_2d_sim)]
     if (root / "tnl_lbm_tpu_torch" / "kernels" / "hooked.py").exists():
         runs += [(f"hooked_{s.lower()}_{route}",
                   lambda s=s, route=route: cs.nn_bench_sim(s, route == "single",
@@ -105,8 +111,10 @@ def main() -> int:
     runs += [("sim_2_res2_pairs", lambda: sim2(True, "sim2")),
              ("sim_2_res2_per_step", lambda: sim2(False, "sim2_step")),
              ("sim_2_res2_auto", lambda: sim2("auto", "sim2_auto"))]
-    mlups, chose, peak, graphs = {}, {}, {}, {}
+    mlups, chose, peak, graphs, kernel_ms = {}, {}, {}, {}, {}
     for label, run in runs:
+        if only is not None and label not in only:
+            continue
         sim = run()
         _, mlups[label], peak[label] = cs.run_figures(sim)  # before report_main's checks
         cs.report_main(sim, label)
@@ -114,23 +122,48 @@ def main() -> int:
             graphs[label] = (sim.graph_replays, len(sim._graphs))
         if label.endswith("_auto"):
             chose[label] = ("pair" if sim.pair_dispatch else "per_step", sim.pair_probe_ms)
+        if label == "sim2d_3_res64":
+            kernel_ms[label] = b5_kernel_ms(cs, sim)
         del sim
-    mlups.update(bench_entry())
+    wanted = (lambda name: only is None or name in only)
+    if wanted("bench"):
+        mlups.update(bench_entry())
     print(json.dumps({"root": str(root), "mlups": mlups, "peak_gb": peak, "graphs": graphs,
-                      "auto": chose,
-                      "golden": golden_sweep(cs), "pair_ms": pair_kernel_ms(cs, flagship)}))
+                      "auto": chose, "b5_kernel_ms": kernel_ms,
+                      "golden": golden_sweep(cs) if wanted("golden") else None,
+                      "pair_ms": pair_kernel_ms(cs, flagship) if wanted("pair_ms") else None}))
     return 0
+
+
+def b5_kernel_ms(cs, sim) -> list:
+    """B5 at 8192 x 2048 on the run's final state: ms per launch over three
+    windows of 20 launches (CUDA events), the checkout's step kernel."""
+    import torch
+
+    from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
+
+    step = make_fused_step_2d(sim.cfg, sim.domain, cs.DEVICE)
+    f, nu = sim.f.clone(), sim.domain.units.lbm_viscosity()
+    u_in, out = sim.update_inflow(sim.phys_time()), torch.empty_like(f)
+    times = [cs.time_ms(lambda: step(f, nu, u_in=u_in, out=out), reps=20) for _ in range(3)]
+    del f, out
+    torch.cuda.empty_cache()
+    return times
 
 
 def golden_sweep(cs) -> dict:
     """The golden sweep's rows as the checkout's sim2d_3 runs them: wall
     seconds per row (build and run, 1440 steps at 128 x 32) over
-    GOLDEN_ROWS rows, and B5's ms per launch from CUDA events over 20
-    dispatches of 20 steps through ``Simulation._advance``."""
+    GOLDEN_ROWS rows, B5's ms per step from CUDA events over 20 dispatches
+    of 20 steps through ``Simulation._advance`` (the checkout's route: its
+    resident chunk where it has one), and the rows' parts with the
+    collector running and frozen (``golden_row_split``)."""
     rows = sorted(p.name for p in cs.golden_geometries().glob("*.txt"))[:GOLDEN_ROWS]
     walls = cs.sweep_row_seconds(rows, chunked=True)
+    split = cs.golden_row_split(rows, f"main_paths_ab {cs.WORK.parents[1].name}")
     return {"rows": len(walls), "row_s_median": float(np.median(walls)),
-            "row_s": walls, "b5_ms_per_launch": cs.b5_launch_ms(chunked=True)}
+            "row_s": walls, "b5_ms_per_launch": cs.b5_launch_ms(chunked=True),
+            "split_row_s": {"running": split[False]["row"], "frozen": split[True]["row"]}}
 
 
 #: golden rows timed per checkout

@@ -16,7 +16,7 @@ import torch
 from tnl_lbm_tpu_torch import interop
 from tnl_lbm_tpu_torch.kernels import probes
 from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
-from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
+from tnl_lbm_tpu_torch.kernels.fused_2d import FusedChunk2D, make_fused_step_2d
 from tnl_lbm_tpu_torch.kernels.fused_aa import (
     from_storage,
     make_fused_pair2_aa,
@@ -35,6 +35,8 @@ from torch_cases import (
     D2_KINDS,
     FORCE_2D,
     PHI_IN,
+    RESIDENT_INSTANCES,
+    RESIDENT_KINDS,
     TCOEF,
     U_IN,
     U_IN_2D,
@@ -47,6 +49,8 @@ from torch_cases import (
     coupled_aa_cases,
     coupled_cases,
     parabolic_2d,
+    resident_case_2d,
+    resident_inflow,
     seeded_2d,
     seeded_ade,
     separated_faster,
@@ -884,6 +888,118 @@ def test_element_pipeline_matches_plain_on_card(cuda, variant):
     got = probes.element_pipeline(fpad, tx, ty, passes)
     want = probes.element_pipeline_plain(fpad, tx, ty, passes)
     assert torch.equal(probes.interior(got), probes.interior(want))
+
+
+@pytest.mark.parametrize("variant", probes.ELEMENT_VARIANTS)
+def test_element_pipeline_marches_segments_on_card(cuda, variant):
+    """P3's march over several x segments (the last one short; the odd ones
+    walking backwards) and three y tiles, each of the script's four
+    variants: the interior equals the plain version's bit for bit."""
+    tx, ty, passes = variant
+    fpad = torch.randn((27, 80 + 4, 96 + 16, 20), device=cuda)
+    assert probes.element_geometry(tx, ty, 80, 20)["segments"] == 3
+    got = probes.element_pipeline(fpad, tx, ty, passes)
+    want = probes.element_pipeline_plain(fpad, tx, ty, passes)
+    torch.cuda.synchronize()
+    assert torch.equal(probes.interior(got), probes.interior(want))
+
+
+@pytest.mark.parametrize("n", [5, 20])
+@pytest.mark.parametrize("res", [1, 2])
+@pytest.mark.parametrize("kind", RESIDENT_KINDS)
+@pytest.mark.parametrize("instance", RESIDENT_INSTANCES, ids=["srt", "srt_force", "clbm"])
+def test_resident_chunk_equals_per_step_launches(cuda, instance, kind, res, n):
+    """B5's resident chunk against ``n`` launches of the step kernel from the
+    same state: f, rho and u bit for bit, the state in the buffer the
+    ping-pong leaves it in; against the plain chained steps within 1e-5.
+    sim2d_3's channel at res 1 and 2 with the disk's Bouzidi ring and the
+    profile, without thetas and with the vector, and a box periodic in x
+    and y; each instance; an odd and an even chunk."""
+    collision, forced = instance
+    m, periodic, bz = resident_case_2d(kind, res)
+    cfg = interop.config_2d_from_spec(collision)
+    step = make_fused_step_2d(cfg, interop.domain_from_numpy(m, periodic, lat=cfg.lat,
+                                                             bouzidi=bz), cuda)
+    chunk = FusedChunk2D(step)
+    u_in, force = resident_inflow(kind, m.shape[1], cuda), FORCE_2D if forced else None
+    f0 = seeded_2d(cfg, m.shape, cuda, seed=6)
+    a, b = f0.clone(), torch.empty_like(f0)
+    for _ in range(n):
+        fs, rs, us = step(a, 0.02, u_in=u_in, force=force, out=b)
+        a, b = fs, a
+    c, d = f0.clone(), torch.empty_like(f0)
+    fk, rk, uk = chunk(c, 0.02, n, u_in=u_in, force=force, out=d)
+    torch.cuda.synchronize()
+    assert fk is (d if n % 2 else c)
+    assert torch.equal(fk, fs) and torch.equal(rk, rs) and torch.equal(uk, us)
+    assert chunk.kernel.launches == 1 and chunk.steps == n and chunk.plain_calls == 0
+    fp, rp, up = chunk.plain(f0, 0.02, n, u_in=u_in, force=force)
+    for k, p in ((fk, fp), (rk, rp), (uk, up)):
+        assert float((k - p).abs().max()) <= 1e-5
+
+
+def test_resident_chunk_refuses_and_the_run_keeps_per_step(cuda, tmp_path):
+    """A lattice over the size rule: the wrapper raises, ``Simulation`` keeps
+    per-step launches (replayed from its graphs); a cluster the kernel does
+    not take raises at the launch; the geometry of 128 x 32 on the card."""
+    from tnl_lbm_tpu_torch.sim.state import Simulation
+
+    cfg = interop.config_2d_from_spec("CLBM")
+    m, periodic, _ = case_2d("channel", (640, 80))
+    dom = interop.domain_from_numpy(m, periodic, lat=cfg.lat, phys_viscosity=0.02)
+    with pytest.raises(ValueError, match="does not fit"):
+        FusedChunk2D(make_fused_step_2d(cfg, dom, cuda))
+    sim = Simulation(cfg, dom, device=cuda, sim_id="big", results_parent=tmp_path,
+                     steps_per_dispatch=8, use_fused=True)
+    sim.sim_init()
+    for _ in range(4):
+        sim._advance(8)
+    assert sim._resident is None and sim._step.kernel.launches == 32 and sim.graph_replays == 3
+    m, periodic, bz = resident_case_2d("ring", 1)
+    chunk = FusedChunk2D(make_fused_step_2d(cfg, interop.domain_from_numpy(
+        m, periodic, lat=cfg.lat, bouzidi=bz), cuda))
+    geo = chunk.geometry()
+    assert (geo["rows"], geo["threads"], geo["smem_bytes"]) == (8, 256, 26880)
+    assert geo["active_clusters"] >= 1
+    f = seeded_2d(cfg, m.shape, cuda)
+    chunk.cluster = 17
+    with pytest.raises(RuntimeError, match="launch failed"):
+        chunk(f, 0.02, 4, u_in=U_IN_2D)
+    assert chunk.kernel.launches == 0
+
+
+def test_resident_route_in_a_run_on_card(cuda, tmp_path):
+    """``Simulation`` on a D2Q9 channel without statistics takes the resident
+    chunk: chunks replayed from graphs equal the same chunks eager and the
+    per-step route's, bit for bit; a replay adds one launch and the chunk's
+    steps; the step kernel is not launched."""
+    runs = {}
+    for route in ("resident", "per_step"):
+        sim = driver_run("b5", tmp_path / route, stats=False)
+        if route == "per_step":
+            sim._resident = None
+        for _ in range(3):
+            sim._advance(8)
+        runs[route] = sim
+    sim = runs["resident"]
+    assert sim._step.kernel.launches == 0 and sim._resident.kernel.launches == 3
+    assert sim._resident.steps == 24 and sim.graph_replays == 2
+    assert torch.equal(sim.f, runs["per_step"].f) and torch.equal(sim.u, runs["per_step"].u)
+    start, bufs, it = fields(sim), (sim.f, sim._spare), sim.iterations
+    for _ in range(2):
+        sim._advance(8)
+    assert sim._resident.kernel.launches == 5 and sim._resident.steps == 40
+    graph = fields(sim)
+    sim.f, sim._spare = bufs
+    for name, t in start.items():
+        getattr(sim, name).copy_(t)
+    sim.iterations = it
+    sim._graph_chunk = sim._chunk
+    for _ in range(2):
+        sim._advance(8)
+    assert sim._resident.kernel.launches == 7 and sim._step.kernel.launches == 0
+    for name, t in graph.items():
+        assert torch.equal(t, getattr(sim, name)), name
 
 
 @pytest.mark.parametrize("Z", [24, 256])

@@ -155,6 +155,49 @@ def test_element_pipeline_plain_matches_pallas_body(variant):
     assert probes.KERNELS["element_pipeline"].launches == 0
 
 
+def np_element_march(fpad, tx, ty, passes):
+    """csrc/probes.cu element_pipeline_kernel's schedule in numpy: block (j,
+    g, q) marches over x segment g of y tile j's column, forwards or (odd
+    g) backwards, each window plane copied once into the next ring buffer,
+    the interior rows of every plane but the two halo planes at each end
+    stored; returns the output and how often each element was stored."""
+    _, XP, YP, Z = fpad.shape
+    X, Y = XP - 4, YP - 16
+    geo = probes.element_geometry(tx, ty, X, Z)
+    out = np.full_like(fpad, np.nan)
+    writes = np.zeros(fpad.shape, np.int32)
+    ring = [None] * geo["stages"]
+    for q in range(Q):
+        for g in range(geo["segments"]):
+            for j in range(Y // ty):
+                t0 = g * geo["seg_tiles"]
+                t1 = min(t0 + geo["seg_tiles"], X // tx)
+                planes, first = (t1 - t0) * tx + 4, t0 * tx
+                for k in range(planes):
+                    px = first + (planes - 1 - k if g & 1 else k)
+                    s = k % geo["stages"]
+                    ring[s] = fpad[q, px, j * ty : j * ty + ty + 16].copy()
+                    if first + 2 <= px < first + planes - 2:
+                        rows = slice(j * ty + 8, j * ty + 8 + ty)
+                        out[q, px, rows] = np_passes(ring[s][8 : 8 + ty], passes)
+                        writes[q, px, rows] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("variant", [(8, 32, 0), (8, 32, 20), (16, 32, 0)])
+def test_element_march_stores_every_interior_element_once(variant):
+    """The kernel's march (segments of ELEMENT_SEG_PLANES planes, the last
+    one short, the odd ones backwards) stores each interior element once,
+    equal to the Pallas body's tile-by-tile result, and never the ring."""
+    tx, ty, passes = variant
+    fpad = np.random.default_rng(6).standard_normal((Q, 80 + 4, 64 + 16, 4)).astype(np.float32)
+    got, writes = np_element_march(fpad, tx, ty, passes)
+    want = np_element_pipeline(fpad, tx, ty, passes)
+    assert probes.element_geometry(tx, ty, 80, 4)["segments"] == 3
+    assert (writes[:, 2:82, 8:72] == 1).all() and writes.sum() == Q * 80 * 64 * 4
+    np.testing.assert_array_equal(got[:, 2:82, 8:72], want[:, 2:82, 8:72])
+
+
 def np_window_copy(fpad, y_off, wy, dst_off):
     """probe_dma_align.py make_copy's kernel: each window copied into a
     scratch buffer at row dst_off, the interior tile read at row
@@ -212,4 +255,8 @@ def test_window_probes_refuse_bad_input():
         probes.window_copy(fpad, 0, 48, 0, "ld8")
     with pytest.raises(ValueError):
         probes.element_pipeline(fpad.double(), 8, 32, 0)
-    assert probes.element_zchunk(8, 32, 256) == 16 and probes.element_zchunk(16, 32, 256) == 8
+    assert probes.element_geometry(8, 32, 256, 256) == {"seg_tiles": 4, "segments": 8,
+                                                        "stages": 4, "plane_bytes": 49152}
+    assert probes.element_geometry(16, 32, 256, 256)["seg_tiles"] == 2
+    with pytest.raises(ValueError, match="Z % 4"):
+        probes.element_geometry(8, 32, 256, 6)

@@ -304,6 +304,41 @@ def timing_disk_2d(dom, seed=0):
     return dom
 
 
+#: the resident chunk's compares (B5, ``FusedChunk2D``): sim2d_3's channel at
+#: a resolution with geometry 1's disk in a Bouzidi ring and the inflow
+#: profile ("ring"), the same map without its thetas and with the inflow
+#: vector ("ring_plain"), and a box periodic in x and y around the disk in
+#: its ring ("periodic", no inflow)
+RESIDENT_KINDS = ("ring", "ring_plain", "periodic")
+#: its kernel instances: (collision, a body force was passed)
+RESIDENT_INSTANCES = (("SRT", False), ("SRT", True), ("CLBM", False))
+
+
+def resident_case_2d(kind, res):
+    """(map, periodic, thetas or None) of a ``RESIDENT_KINDS`` case at
+    sim2d_3's resolution ``res`` (128 res x 32 res)."""
+    from tnl_lbm_tpu_torch.apps import sim2d_3
+
+    dom = timing_disk_2d(sim2d_3.channel_domain(sim2d_3.channel_units(res), None, False))
+    if kind == "ring":
+        return dom.map, (False, False), dom.bouzidi
+    if kind == "ring_plain":
+        return dom.map, (False, False), None
+    assert kind == "periodic", kind
+    m = np.zeros(dom.shape, np.uint8)
+    solid = disk(dom.shape, (32 * res, 16 * res), 4 * res)
+    m[solid] = GEO.WALL
+    return m, (True, True), bouzidi_ring(m, solid)
+
+
+def resident_inflow(kind, Y, device):
+    """The inflow of a ``RESIDENT_KINDS`` case: sim2d_3's [2, 1, Y] profile on
+    ``device``, the vector ``U_IN_2D``, or None."""
+    if kind == "ring":
+        return torch.tensor(parabolic_2d(Y), dtype=torch.float32, device=device)
+    return U_IN_2D if kind == "ring_plain" else None
+
+
 def compress_statistics(sim, start: int = 2):
     """sim2d_2's statistics state machine in a few dozen steps from step
     ``start`` (JAX tests/test_sim2d_2.py:24-33 uses start = 2): the mean

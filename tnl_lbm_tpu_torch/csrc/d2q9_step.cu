@@ -36,10 +36,20 @@
 // a warp; a block is 128 sites of one x row, and the rows x +- 1 are re-read
 // by the neighbouring blocks through L1/L2.  The cascade runs in registers;
 // no shared memory.  Rows away from the x faces and y edges take a short
-// path with plain offsets.  The TPU kernel's whole-field-in-VMEM single
-// program and its concatenate-built shifts have no counterpart here.
-// Offsets are 64-bit.
+// path with plain offsets.  The TPU kernel's concatenate-built shifts have
+// no counterpart here.  Offsets are 64-bit.
+//
+// Its whole-field-in-VMEM single program has one on small lattices: the
+// resident chunk at the end of this file runs n steps in one launch on a
+// lattice held in the shared memory of a thread-block cluster, through the
+// same site update (`update`, over a load accessor), compiled without
+// multiply-add contraction so that it equals n per-step launches bit for
+// bit.  Bound of a chunk: its bytes once (85 B/site) or its operations (n
+// site updates), whichever is larger; at the golden sweep's 128 x 32 the
+// operations, and the time is the cluster barrier and the dependent
+// shared-memory reads of each step.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -159,50 +169,86 @@ __device__ __forceinline__ void collide_clbm(float (&f)[Q], float rho, float ux,
                   f[slot(ix, 1)], f[slot(ix, 2)]);
 }
 
-template <int COLL, bool FORCE>
-__device__ __forceinline__ void site(const float* __restrict__ f, float* __restrict__ fout,
-                                     const uint8_t* __restrict__ map, float* __restrict__ rho_out,
-                                     float* __restrict__ u_out, int x, int y, int X, int Y,
-                                     int periodic_bits, const Params& p) {
-  const int64_t N = (int64_t)X * Y;
-  const int64_t s = (int64_t)x * Y + y;
-  const bool px = periodic_bits & 1, py = periodic_bits & 2;
-  const uint8_t m = map[s];
+// Where the site update reads the pre-streaming DFs of the global state
+// [9, X, Y]: at(q, dx, dy) is f_q at (x + dx, y + dy), wrapped on periodic
+// axes and clamped to the edge site otherwise; inner(q, dx, dy) the same
+// for a site whose 8 neighbours lie inside the lattice; here(q) the site's
+// own; theta(q) its Bouzidi theta of link q (q >= 1, from bz [8, X, Y]).
+struct GlobalSrc {
+  const float* __restrict__ f;
+  const float* __restrict__ bz;
+  int64_t N, s;
+  int x, y, X, Y;
+  bool px, py;
+  __device__ __forceinline__ float theta(int q) const { return bz[(q - 1) * N + s]; }
+  __device__ __forceinline__ float at(int q, int dx, int dy) const {
+    return f[q * N + (int64_t)neighbour(x, dx, X, px) * Y + neighbour(y, dy, Y, py)];
+  }
+  __device__ __forceinline__ float inner(int q, int dx, int dy) const {
+    return f[q * N + s + dx * (int64_t)Y + dy];
+  }
+  __device__ __forceinline__ float here(int q) const { return f[q * N + s]; }
+};
+
+// The site update (steps 1-12 above) of site (x, y), global index s of N,
+// with map code m, reading the pre-streaming DFs through `src` (GlobalSrc,
+// or the resident chunk's BandSrc): the new DFs v, rho and u.  Both kernels
+// run this one body, so they do the same arithmetic in the same order; the
+// source is compiled with -fmad=false (kernels/build.py), so no multiply-add
+// is contracted in one kernel and not in the other, and the resident chunk
+// equals the per-step launches bit for bit.
+template <int COLL, bool FORCE, class Src>
+__device__ __forceinline__ void update(const Src& src, uint8_t m, int x, int y, int X, int Y,
+                                       int64_t N, int64_t s, const Params& p, float (&v)[Q],
+                                       float& rho, float& ux, float& uy) {
   if (m == GEO_NOTHING) {
     // inert ghost site: its stored DFs, rho = 1, u = 0
 #pragma unroll
-    for (int q = 0; q < Q; ++q) fout[q * N + s] = f[q * N + s];
-    rho_out[s] = 1.0f;
-    u_out[s] = 0.0f;
-    u_out[N + s] = 0.0f;
+    for (int q = 0; q < Q; ++q) v[q] = src.here(q);
+    rho = 1.0f;
+    ux = uy = 0.0f;
     return;
   }
-  auto at = [&](int q, int dx, int dy) {
-    return f[q * N + (int64_t)neighbour(x, dx, X, px) * Y + neighbour(y, dy, Y, py)];
-  };
-  float v[Q];
+  // the site's global reads first, all in flight together: the thetas of a
+  // ring site and an inflow site's profile value
+  const bool ring = m == GEO_FLUID_NEAR_WALL && p.bz != nullptr;
+  float th[Q];
+  if (ring) {
+#pragma unroll
+    for (int q = 1; q < Q; ++q) th[q] = src.theta(q);
+  }
+  float in_x = p.uin_x, in_y = p.uin_y;
+  if (m == GEO_INFLOW && p.uin != nullptr) {
+    const int64_t o = x * p.uin_sx + y * p.uin_sy;
+    in_x = p.uin[o];
+    in_y = p.uin[o + p.uin_sc];
+  }
   if (x > 0 && x < X - 1 && y > 0 && y < Y - 1) {
 #pragma unroll
-    for (int q = 0; q < Q; ++q) v[q] = f[q * N + s - cx(q) * (int64_t)Y - cy(q)];
+    for (int q = 0; q < Q; ++q) v[q] = src.inner(q, -cx(q), -cy(q));
   } else {
 #pragma unroll
-    for (int q = 0; q < Q; ++q) v[q] = at(q, -cx(q), -cy(q));
+    for (int q = 0; q < Q; ++q) v[q] = src.at(q, -cx(q), -cy(q));
   }
   if (m == GEO_OUTFLOW_RIGHT) {
 #pragma unroll
-    for (int q = 0; q < Q; ++q) v[q] = at(q, -1, -cy(q));
-  } else if (m == GEO_FLUID_NEAR_WALL && p.bz != nullptr) {
+    for (int q = 0; q < Q; ++q) v[q] = src.at(q, -1, -cy(q));
+  } else if (ring) {
+    // every read of the interpolation first, both branches' values computed
+    // and one kept (the same operations on the same values as a branch)
+    float own[Q], beyond[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) own[q] = src.here(q);
+#pragma unroll
+    for (int q = 1; q < Q; ++q) beyond[q] = src.at(opp(q), cx(q), cy(q));
 #pragma unroll
     for (int q = 1; q < Q; ++q) {
-      const float th = p.bz[(q - 1) * N + s];
-      if (th < 0.0f) continue;  // the link does not hit the wall
-      const float f_opp = f[opp(q) * N + s];
-      if (th <= 0.5f) {
-        v[q] = 2.0f * th * f_opp + (1.0f - 2.0f * th) * at(opp(q), cx(q), cy(q));
-      } else {
-        const float w = 0.5f / fmaxf(th, 0.25f);
-        v[q] = (1.0f - w) * f[q * N + s] + w * f_opp;
-      }
+      const float f_opp = own[opp(q)];
+      const float w = 0.5f / fmaxf(th[q], 0.25f);
+      const float lo = 2.0f * th[q] * f_opp + (1.0f - 2.0f * th[q]) * beyond[q];
+      const float hi = (1.0f - w) * own[q] + w * f_opp;
+      // th < 0: the link does not hit the wall
+      v[q] = th[q] < 0.0f ? v[q] : (th[q] <= 0.5f ? lo : hi);
     }
   }
   if (m == GEO_WALL) {
@@ -215,7 +261,7 @@ __device__ __forceinline__ void site(const float* __restrict__ f, float* __restr
   }
 
   // moments: sequential sums over q (fused.py _moments_local)
-  float rho = v[0];
+  rho = v[0];
 #pragma unroll
   for (int q = 1; q < Q; ++q) rho = rho + v[q];
   float jx = 0.0f, jy = 0.0f;
@@ -224,18 +270,12 @@ __device__ __forceinline__ void site(const float* __restrict__ f, float* __restr
     if (cx(q) > 0) jx = jx + v[q]; else if (cx(q) < 0) jx = jx - v[q];
     if (cy(q) > 0) jy = jy + v[q]; else if (cy(q) < 0) jy = jy - v[q];
   }
-  float ux = (jx + 0.5f * p.fx) / rho;
-  float uy = (jy + 0.5f * p.fy) / rho;
+  ux = (jx + 0.5f * p.fx) / rho;
+  uy = (jy + 0.5f * p.fy) / rho;
 
   if (m == GEO_INFLOW) {
-    if (p.uin != nullptr) {
-      const int64_t o = x * p.uin_sx + y * p.uin_sy;
-      ux = p.uin[o];
-      uy = p.uin[o + p.uin_sc];
-    } else {
-      ux = p.uin_x;
-      uy = p.uin_y;
-    }
+    ux = in_x;
+    uy = in_y;
 #pragma unroll
     for (int q = 0; q < Q; ++q) v[q] = eq_unit(q, ux, uy);
     rho = 1.0f;
@@ -258,6 +298,19 @@ __device__ __forceinline__ void site(const float* __restrict__ f, float* __restr
     rho = 1.0f;
     ux = uy = 0.0f;
   }
+}
+
+template <int COLL, bool FORCE>
+__device__ __forceinline__ void site(const float* __restrict__ f, float* __restrict__ fout,
+                                     const uint8_t* __restrict__ map, float* __restrict__ rho_out,
+                                     float* __restrict__ u_out, int x, int y, int X, int Y,
+                                     int periodic_bits, const Params& p) {
+  const int64_t N = (int64_t)X * Y;
+  const int64_t s = (int64_t)x * Y + y;
+  const GlobalSrc src{f, p.bz, N, s, x, y, X, Y, (periodic_bits & 1) != 0,
+                      (periodic_bits & 2) != 0};
+  float v[Q], rho, ux, uy;
+  update<COLL, FORCE>(src, map[s], x, y, X, Y, N, s, p, v, rho, ux, uy);
 #pragma unroll
   for (int q = 0; q < Q; ++q) fout[q * N + s] = v[q];
   rho_out[s] = rho;
@@ -342,4 +395,269 @@ extern "C" int tnl_lbm_d2q9_step(const float* f, float* fout, const uint8_t* map
   kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(f, fout, map, ff, rho, u, X, Y,
                                                                  pbits, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The resident chunk: n A-B steps in one launch on a lattice held in the
+// shared memory of one thread-block cluster (the counterpart of the TPU
+// kernel's whole field in VMEM and the JAX driver's lax.scan over it).
+//
+// One cluster of C blocks, one block per SM.  Block r owns the band of x
+// rows [r R, r R + R), R = ceil(X / C) (the last bands may be short or
+// empty), and holds two copies of the band's 9 DFs (ping-pong) and its map
+// byte: 73 B/site.  A step pulls from the current copy and writes the
+// other; the rows x +- 1 that belong to the neighbouring bands (and across
+// a periodic x, the far band) are read from their blocks' shared memory
+// through distributed shared memory (cluster.map_shared_rank), and the
+// thetas and the inflow profile through L1 from global memory.  One
+// cluster.sync() per step separates a step's writes from the next step's
+// reads (and that step's writes from this one's reads).  The band is
+// loaded from f once; the last step stores its DFs, rho and u to global
+// memory.  f is read only before the first barrier, so fout may be f.
+namespace d2q9 {
+
+namespace cg = cooperative_groups;
+
+// threads per block of the chunk, at most (one site per thread per pass)
+constexpr int CHUNK_THREADS = 512;
+// blocks per cluster, at most (16 is non-portable; H100 takes it)
+constexpr int CLUSTER_MAX = 16;
+// dynamic shared memory a chunk block may hold; the size rule of
+// kernels/fused_2d.py (RESIDENT_SMEM_BYTES) is this constant
+constexpr int CHUNK_SMEM_MAX = 200 * 1024;
+// shared memory per site: two copies of the 9 f32 DFs and the map byte,
+// and with Bouzidi thetas their 8 f32
+constexpr int CHUNK_BYTES_PER_SITE = 2 * Q * 4 + 1;
+constexpr int CHUNK_THETA_BYTES = (Q - 1) * 4;
+
+__host__ __device__ inline long long chunk_smem(int R, int Y, bool thetas) {
+  return (long long)R * Y * (CHUNK_BYTES_PER_SITE + (thetas ? CHUNK_THETA_BYTES : 0));
+}
+
+// Reads of the resident chunk: row[1 + dx] is row x + dx (wrapped or
+// clamped) of the current copy, component 0, in this block's shared memory
+// or a neighbour's; P floats per component; th the site's thetas in this
+// block's shared memory, P floats apart.
+struct BandSrc {
+  const float* row[3];
+  const float* th;
+  int P, y, Y;
+  bool py;
+  __device__ __forceinline__ float theta(int q) const { return th[(q - 1) * P]; }
+  __device__ __forceinline__ float at(int q, int dx, int dy) const {
+    return row[dx + 1][q * P + neighbour(y, dy, Y, py)];
+  }
+  __device__ __forceinline__ float inner(int q, int dx, int dy) const {
+    return row[dx + 1][q * P + y + dy];
+  }
+  __device__ __forceinline__ float here(int q) const { return row[1][q * P + y]; }
+};
+
+// SYNC_ONLY: the chunk with the site update taken out (the band loaded,
+// n cluster barriers, the loaded DFs stored): its sync floor.
+template <int COLL, bool FORCE, bool SYNC_ONLY>
+__device__ __forceinline__ void chunk(const float* f, float* fout,
+                                      const uint8_t* __restrict__ map, float* __restrict__ rho_out,
+                                      float* __restrict__ u_out, int X, int Y, int R,
+                                      int periodic_bits, int n_steps, const Params& p) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 chunk_smem4[];
+  __shared__ const float* peers[CLUSTER_MAX];
+  float* buf = reinterpret_cast<float*>(chunk_smem4);
+  const int P = R * Y;
+  float* sth = buf + 2 * Q * P;  // the band's thetas, when the lattice has them
+  uint8_t* smap = reinterpret_cast<uint8_t*>(sth + (p.bz != nullptr ? (Q - 1) * P : 0));
+  const int rank = (int)cluster.block_rank();
+  if ((int)threadIdx.x < (int)cluster.num_blocks())
+    peers[threadIdx.x] = cluster.map_shared_rank(buf, (int)threadIdx.x);
+  const int x0 = rank * R;
+  const int sites = max(0, min(R, X - x0)) * Y;
+  const int64_t N = (int64_t)X * Y, base = (int64_t)x0 * Y;
+  const bool px = (periodic_bits & 1) != 0, py = (periodic_bits & 2) != 0;
+  for (int k = threadIdx.x; k < sites; k += blockDim.x) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) buf[q * P + k] = f[q * N + base + k];
+    smap[k] = map[base + k];
+    if (p.bz != nullptr) {
+#pragma unroll
+      for (int q = 0; q < Q - 1; ++q) sth[q * P + k] = p.bz[q * N + base + k];
+    }
+  }
+  cluster.sync();  // every band (and peers) in place before a neighbour reads it
+  // Slots [0, edge) are the band's first and last rows, the only ones the
+  // neighbouring bands read and the only ones that read them; the rest are
+  // the interior rows in order.
+  const int rows = sites / max(Y, 1), edge = min(sites, 2 * Y);
+  auto band_site = [&](int k) {
+    return k < Y ? k : (k < 2 * Y ? (rows - 1) * Y + k - Y : k - Y);
+  };
+  auto step_site = [&](int j, int cur, bool last) {
+    const int lx = j / Y, y = j - lx * Y, x = x0 + lx;
+    BandSrc src;
+    src.row[1] = buf + cur + lx * Y;
+#pragma unroll
+    for (int d = -1; d <= 1; d += 2) {
+      const int xx = neighbour(x, d, X, px), o = xx / R;
+      src.row[d + 1] = peers[o] + cur + (xx - o * R) * Y;
+    }
+    src.th = sth + j;
+    src.P = P;
+    src.y = y;
+    src.Y = Y;
+    src.py = py;
+    float v[Q], rho, ux, uy;
+    if constexpr (SYNC_ONLY) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) v[q] = src.here(q);
+      rho = 1.0f;
+      ux = uy = 0.0f;
+    } else {
+      update<COLL, FORCE>(src, smap[j], x, y, X, Y, N, base + j, p, v, rho, ux, uy);
+    }
+    if (last) {
+      const int64_t s = base + j;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) fout[q * N + s] = v[q];
+      rho_out[s] = rho;
+      u_out[s] = ux;
+      u_out[N + s] = uy;
+    } else {
+      float* nxt = buf + (Q * P - cur) + j;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) nxt[q * P] = v[q];
+    }
+  };
+  // A step: the edge rows, the cluster barrier's arrival (the neighbours
+  // need nothing else of this block for this step), the interior rows while
+  // the barrier completes, then this block's own step done and the
+  // neighbours' edge rows done (the wait) before the next step reads them
+  // or overwrites what they read.
+  for (int it = 0; it < n_steps; ++it) {
+    const int cur = (it & 1) * Q * P;
+    const bool last = it == n_steps - 1, work = !SYNC_ONLY || last;
+    if (work)
+      for (int k = threadIdx.x; k < edge; k += blockDim.x) step_site(band_site(k), cur, last);
+    asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+    if (work)
+      for (int k = threadIdx.x; k < sites; k += blockDim.x)
+        if (k >= edge) step_site(band_site(k), cur, last);
+    __syncthreads();
+    asm volatile("barrier.cluster.wait;\n" ::: "memory");
+  }
+}
+
+}  // namespace d2q9
+
+// f and fout carry no __restrict__: an even chunk stores into f itself.
+#define D2Q9_CHUNK_KERNEL(NAME, COLL, FORCE, SYNC_ONLY)                                       \
+  extern "C" __global__ void __launch_bounds__(d2q9::CHUNK_THREADS, 1)                        \
+      NAME(const float* f, float* fout, const uint8_t* __restrict__ map,                       \
+           float* __restrict__ rho, float* __restrict__ u, int X, int Y, int R,                \
+           int periodic_bits, int n_steps, d2q9::Params p) {                                   \
+    d2q9::chunk<COLL, FORCE, SYNC_ONLY>(f, fout, map, rho, u, X, Y, R, periodic_bits, n_steps, \
+                                        p);                                                    \
+  }
+
+D2Q9_CHUNK_KERNEL(d2q9_chunk_srt_kernel, d2q9::SRT, false, false)
+D2Q9_CHUNK_KERNEL(d2q9_chunk_srt_force_kernel, d2q9::SRT, true, false)
+D2Q9_CHUNK_KERNEL(d2q9_chunk_clbm_kernel, d2q9::CLBM, false, false)
+D2Q9_CHUNK_KERNEL(d2q9_chunk_sync_floor_kernel, d2q9::SRT, false, true)
+
+namespace {
+
+using ChunkKernel = void (*)(const float*, float*, const uint8_t*, float*, float*, int, int, int,
+                             int, int, d2q9::Params);
+// variant 0-2 as tnl_lbm_d2q9_step's; 3 the sync floor
+const ChunkKernel CHUNK_KERNELS[4] = {d2q9_chunk_srt_kernel, d2q9_chunk_srt_force_kernel,
+                                          d2q9_chunk_clbm_kernel,
+                                          d2q9_chunk_sync_floor_kernel};
+
+// Shared memory above 48 KB and clusters above 8 blocks are opt-ins.
+cudaError_t chunk_opt_in() {
+  for (ChunkKernel k : CHUNK_KERNELS) {
+    const void* fn = reinterpret_cast<const void*>(k);
+    cudaError_t rc =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, d2q9::CHUNK_SMEM_MAX);
+    if (rc == cudaSuccess)
+      rc = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (rc != cudaSuccess) return rc;
+  }
+  return cudaSuccess;
+}
+
+// The launch of `cluster` blocks with the band R of an X x Y lattice, or an
+// error for what the kernel does not take.
+cudaError_t chunk_config(int X, int Y, int cluster, bool thetas, int* R,
+                         cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, void* stream) {
+  static const cudaError_t opted = chunk_opt_in();
+  if (opted != cudaSuccess) return opted;
+  if (X < 1 || Y < 1 || cluster < 1 || cluster > d2q9::CLUSTER_MAX)
+    return cudaErrorInvalidValue;
+  *R = (X + cluster - 1) / cluster;
+  const long long smem = d2q9::chunk_smem(*R, Y, thetas);
+  if (smem > d2q9::CHUNK_SMEM_MAX) return cudaErrorInvalidValue;
+  const int sites = *R * Y;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster, 1, 1);
+  cfg->blockDim = dim3(sites >= d2q9::CHUNK_THREADS ? d2q9::CHUNK_THREADS : (sites + 31) / 32 * 32,
+                       1, 1);
+  cfg->dynamicSmemBytes = (size_t)(smem + 15) / 16 * 16;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// n_steps (>= 1) A-B steps of the D2Q9 lattice in one cluster launch of
+// `cluster` blocks; arguments as tnl_lbm_d2q9_step's (variants 0-2; the
+// force_field variants run per step).  The state after the last step goes
+// to fout, which may be f; rho and u are the last step's.  sync_floor: the
+// sync floor kernel instead (its outputs are not a step).  Returns the CUDA
+// error of the launch: cudaErrorInvalidValue for a variant, size or
+// cluster the kernel does not take, the runtime's error where the card
+// refuses the cluster.
+extern "C" int tnl_lbm_d2q9_chunk(const float* f, float* fout, const uint8_t* map,
+                                  const float* bz, const float* uin, long long uin_sc,
+                                  long long uin_sx, long long uin_sy, float* rho, float* u, int X,
+                                  int Y, int pbits, int variant, float nu, float fx, float fy,
+                                  float uin_x, float uin_y, int n_steps, int cluster,
+                                  int sync_floor, void* stream) {
+  if (variant < 0 || variant > 2 || n_steps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int R;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t rc = chunk_config(X, Y, cluster, bz != nullptr, &R, &cfg, &attr, stream);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const d2q9::Params p{1.0f / (3.0f * nu + 0.5f), fx, fy, uin_x, uin_y, uin,
+                       uin_sc, uin_sx, uin_sy, bz};
+  rc = cudaLaunchKernelEx(&cfg, CHUNK_KERNELS[sync_floor ? 3 : variant], f, fout, map, rho, u, X,
+                          Y, R, pbits, n_steps, p);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chunk's launch geometry for an X x Y lattice (with Bouzidi thetas
+// or not) and `cluster` blocks: out[0] the band's rows R, out[1] threads
+// per block, out[2] dynamic shared memory bytes, out[3] the clusters of that
+// shape the card can hold at once (0: it cannot launch one).  Returns the
+// CUDA error.
+extern "C" int tnl_lbm_d2q9_chunk_info(int X, int Y, int cluster, int thetas, int* out) {
+  int R;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t rc = chunk_config(X, Y, cluster, thetas != 0, &R, &cfg, &attr, nullptr);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  int clusters = 0;
+  rc = cudaOccupancyMaxActiveClusters(&clusters, CHUNK_KERNELS[2], &cfg);
+  out[0] = R;
+  out[1] = (int)cfg.blockDim.x;
+  out[2] = (int)cfg.dynamicSmemBytes;
+  out[3] = clusters;
+  return static_cast<int>(rc);
 }

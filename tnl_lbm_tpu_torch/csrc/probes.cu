@@ -25,15 +25,17 @@
 // padded [27, X+4, Y+16, Z] state reads its overlapping (tx+4, ty+16)
 // window, runs `passes` rounds of the affine map on the tile's interior
 // and writes it to the same place of the output, whose ring is left
-// unwritten as the Pallas kernel leaves it.  The window is staged through
-// shared memory with cp.async, 16 bytes per copy, double-buffered over
-// z chunks (one block per tile and component), and the passes run from
-// shared memory, so the question of the script - do the staged copies and
-// the compute overlap - is asked of this card: compare passes 0, 20 and
-// 60 with pair_compute_only's compute-only time.  Bound: HBM bytes, the
-// state read once and the interior written once (216 B/site); the
-// overlapping windows read (tx+4)(ty+16)/(tx ty) times the interior, from
-// L2 where the neighbouring tiles' blocks run close together.
+// unwritten as the Pallas kernel leaves it.  Built the way Hopper stages
+// data: blocks march along x over a column of tiles, a producer lane loads
+// each window plane once by TMA into a ring of plane buffers with full and
+// empty mbarriers (P4's), and consumer warps run the passes on a plane's
+// interior while later planes are in flight (element_pipeline_kernel
+// below).  So the question of the script - do the staged copies and the
+// compute overlap - is asked of this card: compare passes 0, 20 and 60
+// with pair_compute_only's compute-only time.  Bound: HBM bytes, the state
+// read once and the interior written once (216 B/site); the windows'
+// (ty+16)/ty rows and the march's 4 halo planes per segment are read
+// beside it, from L2 where neighbouring blocks march side by side.
 //
 // window_copy_kernel<LOAD> replaces scripts/probe_dma_align.py make_copy
 // (Pallas kernel at :23, pallas_call at :50): tiles of TX x TY = 16 x 32
@@ -174,49 +176,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 }  // namespace
 
-// grid (X / tx, Y / ty, 27); dynamic shared memory: two stages of
-// (tx+4) (ty+16) zc floats.  fpad and out: [27, X+4, Y+16, Z]; Z % zc == 0,
-// zc % 4 == 0.
-extern "C" __global__ void __launch_bounds__(WTHREADS)
-element_pipeline_kernel(const float* __restrict__ fpad, float* __restrict__ out, int X, int Y,
-                        int Z, int tx, int ty, int zc, int passes) {
-  extern __shared__ float4 smem4[];
-  float* buf = reinterpret_cast<float*>(smem4);
-  const int wx = tx + 4, wy = ty + 16, XP = X + 4, YP = Y + 16;
-  const int stage = wx * wy * zc;
-  const int x0 = blockIdx.x * tx, y0 = blockIdx.y * ty;
-  const int64_t qbase = (int64_t)blockIdx.z * XP * YP * Z;
-  const int vecs = zc / 4, nvec = wx * wy * vecs, nchunks = Z / zc, nout = tx * ty * zc;
-  auto issue = [&](int c) {
-    float* dst = buf + (c & 1) * stage;
-    for (int k = threadIdx.x; k < nvec; k += WTHREADS) {
-      const int v = k % vecs, r = k / vecs;
-      const int ly = r % wy, lx = r / wy;
-      cp_async16(dst + r * zc + 4 * v,
-                 fpad + qbase + ((int64_t)(x0 + lx) * YP + (y0 + ly)) * Z + c * zc + 4 * v);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  issue(0);
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) {
-      issue(c + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    const float* win = buf + (c & 1) * stage;
-    for (int k = threadIdx.x; k < nout; k += WTHREADS) {
-      const int lz = k % zc, r = k / zc;
-      const int ly = r % ty, lx = r / ty;
-      out[qbase + ((int64_t)(x0 + 2 + lx) * YP + (y0 + 8 + ly)) * Z + c * zc + lz] =
-          affine(win[((lx + 2) * wy + (ly + 8)) * zc + lz], passes);
-    }
-    __syncthreads();  // the next issue overwrites this stage
-  }
-}
-
 constexpr int LOAD_4B = 0, LOAD_16B = 1, LOAD_TMA = 2;
 // plane buffers of a window copy block, at most
 constexpr int WSTAGES_MAX = 4;
@@ -322,6 +281,115 @@ __device__ __forceinline__ void window_copy(const float* __restrict__ fpad,
   }
 }
 
+// P3, the element pipeline, as an x march over a plane ring.  grid
+// (Y / ty, segments, 27), EPRODUCER + ECONSUMERS warps; dynamic shared
+// memory: `stages` plane buffers of (ty+16) Z floats.  fpad and out:
+// [27, X+4, Y+16, Z]; X % tx == 0, Y % ty == 0, Z % 4 == 0 (the wrapper
+// checks).
+//
+// Block (j, g, q) walks the column of y tile j of component q over x
+// segment g: tiles [g seg_tiles, g seg_tiles + seg_tiles) (fewer in the
+// last segment), so its window planes are padded x [g seg_tiles tx,
+// + n tx + 4), each loaded once - the x overlap of neighbouring windows once
+// per march, not once per tile.  One lane of the producer warp copies each
+// (ty+16) Z window plane, contiguous in fpad, with one bulk copy (TMA) into
+// the next buffer of the ring, as soon as its empty mbarrier says the
+// consumers are done with it; the full mbarrier completes on the copy's
+// bytes.  The consumer warps wait for a plane, run the passes on its
+// interior rows (8, 8 + ty) - every plane but the two halo planes at each
+// end of the march - with 16-byte loads from shared memory, store them to
+// out with 16-byte stores, and arrive on the plane's empty mbarrier.  So
+// stages - 1 planes are in flight while one is computed.  Odd segments
+// walk backwards, so the halo planes two neighbouring segments share are
+// read by both at about the same time (from L2 the second time); the
+// neighbouring y tiles of a component, adjacent block indices, march side
+// by side and share their 16 halo rows the same way.
+constexpr int EPRODUCER = 1, ECONSUMERS = 8;
+constexpr int ETHREADS = 32 * (EPRODUCER + ECONSUMERS);
+constexpr int ESTAGES_MAX = 4;
+
+extern "C" __global__ void __launch_bounds__(ETHREADS, 1)
+element_pipeline_kernel(const float* __restrict__ fpad, float* __restrict__ out, int X, int Y,
+                        int Z, int tx, int ty, int seg_tiles, int stages, int passes) {
+  extern __shared__ float4 smem4[];
+  __shared__ uint64_t full[ESTAGES_MAX], empty[ESTAGES_MAX];
+  float* buf = reinterpret_cast<float*>(smem4);
+  const int XP = X + 4, YP = Y + 16, wy = ty + 16, j = blockIdx.x, g = blockIdx.y;
+  const int q = blockIdx.z;
+  const int t0 = g * seg_tiles, t1 = min(t0 + seg_tiles, X / tx);
+  const int planes = (t1 - t0) * tx + 4, first = t0 * tx;
+  const bool backwards = g & 1;
+  const int n = wy * Z;  // floats per window plane, contiguous in fpad
+  constexpr int CONSUMER_THREADS = 32 * ECONSUMERS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1u);
+      mbar_init(&empty[s], CONSUMER_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int64_t column = (int64_t)q * XP * YP * Z + (int64_t)j * ty * Z;
+
+  if (threadIdx.x < 32 * EPRODUCER) {  // the producer: one lane issues every copy
+    if (threadIdx.x != 0) return;
+    const uint32_t bytes = static_cast<uint32_t>(n) * 4u;
+    for (int k = 0; k < planes; ++k) {
+      const int s = k % stages, px = first + (backwards ? planes - 1 - k : k);
+      if (k >= stages) {
+        mbar_wait(smem_addr(&empty[s]), (k / stages - 1) & 1);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the reads
+      }
+      const uint32_t b = smem_addr(&full[s]);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+                   "r"(bytes)
+                   : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];\n" ::"r"(smem_addr(buf + (int64_t)s * n)),
+          "l"(fpad + column + (int64_t)px * YP * Z), "r"(bytes), "r"(b)
+          : "memory");
+    }
+    return;
+  }
+
+  const int c = threadIdx.x - 32 * EPRODUCER;
+  const int n4 = ty * Z / 4;  // the interior rows of a plane, in float4
+  for (int k = 0; k < planes; ++k) {
+    const int s = k % stages, px = first + (backwards ? planes - 1 - k : k);
+    mbar_wait(smem_addr(&full[s]), (k / stages) & 1);
+    if (px >= first + 2 && px < first + planes - 2) {
+      const float4* src = reinterpret_cast<const float4*>(buf + (int64_t)s * n + 8 * Z);
+      float4* o = reinterpret_cast<float4*>(out + column + ((int64_t)px * YP + 8) * Z);
+      int i = c;
+      for (; i + CONSUMER_THREADS < n4; i += 2 * CONSUMER_THREADS) {  // two vectors at a time
+        float4 a = src[i], b = src[i + CONSUMER_THREADS];
+        for (int r = 0; r < passes; ++r) {
+          a.x = __fadd_rn(__fmul_rn(a.x, 1.000001f), 1e-12f);
+          a.y = __fadd_rn(__fmul_rn(a.y, 1.000001f), 1e-12f);
+          a.z = __fadd_rn(__fmul_rn(a.z, 1.000001f), 1e-12f);
+          a.w = __fadd_rn(__fmul_rn(a.w, 1.000001f), 1e-12f);
+          b.x = __fadd_rn(__fmul_rn(b.x, 1.000001f), 1e-12f);
+          b.y = __fadd_rn(__fmul_rn(b.y, 1.000001f), 1e-12f);
+          b.z = __fadd_rn(__fmul_rn(b.z, 1.000001f), 1e-12f);
+          b.w = __fadd_rn(__fmul_rn(b.w, 1.000001f), 1e-12f);
+        }
+        o[i] = a;
+        o[i + CONSUMER_THREADS] = b;
+      }
+      for (; i < n4; i += CONSUMER_THREADS) {
+        float4 a = src[i];
+        a.x = affine(a.x, passes);
+        a.y = affine(a.y, passes);
+        a.z = affine(a.z, passes);
+        a.w = affine(a.w, passes);
+        o[i] = a;
+      }
+    }
+    mbar_arrive(&empty[s]);
+  }
+}
+
 #define WINDOW_COPY_KERNEL(NAME, LOAD)                                                        \
   extern "C" __global__ void __launch_bounds__(WTHREADS)                                     \
       NAME(const float* __restrict__ fpad, float* __restrict__ out, int X, int Y, int Z,      \
@@ -371,19 +439,23 @@ extern "C" int tnl_lbm_pair_compute_only(const float* f, float* tile, int X, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// fpad, out: [27, X+4, Y+16, Z]; X % tx == 0, Y % ty == 0, Z % zc == 0,
-// zc % 4 == 0 and two stages within WINDOW_SMEM_MAX (the wrapper checks).
+// fpad, out: [27, X+4, Y+16, Z]; X % tx == 0, Y % ty == 0, Z % 4 == 0,
+// `stages` (2 to ESTAGES_MAX) plane buffers of (ty+16) Z floats within
+// WINDOW_SMEM_MAX, seg_tiles >= 1 (kernels/probes.py element_geometry).
 extern "C" int tnl_lbm_element_pipeline(const float* fpad, float* out, int X, int Y, int Z,
-                                        int tx, int ty, int zc, int passes, void* stream) {
+                                        int tx, int ty, int seg_tiles, int stages, int passes,
+                                        void* stream) {
   static const cudaError_t opted =
       opt_in(reinterpret_cast<const void*>(element_pipeline_kernel), WINDOW_SMEM_MAX);
   if (opted != cudaSuccess) return static_cast<int>(opted);
-  const int smem = 2 * (tx + 4) * (ty + 16) * zc * (int)sizeof(float);
-  if (smem > WINDOW_SMEM_MAX || zc % 4 != 0 || Z % zc != 0 || X % tx != 0 || Y % ty != 0)
+  const long long plane = (long long)(ty + 16) * Z * (long long)sizeof(float);
+  if (tx < 1 || ty < 1 || X % tx != 0 || Y % ty != 0 || Z % 4 != 0 || seg_tiles < 1 ||
+      stages < 2 || stages > ESTAGES_MAX || stages * plane > WINDOW_SMEM_MAX || passes < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  element_pipeline_kernel<<<dim3(X / tx, Y / ty, Q), WTHREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(fpad, out, X, Y, Z, tx, ty, zc,
-                                                                 passes);
+  const int segments = (X / tx + seg_tiles - 1) / seg_tiles;
+  element_pipeline_kernel<<<dim3(Y / ty, segments, Q), ETHREADS, (int)(stages * plane),
+                            static_cast<cudaStream_t>(stream)>>>(fpad, out, X, Y, Z, tx, ty,
+                                                                 seg_tiles, stages, passes);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,6 +29,10 @@ HEADERS = ("lbm_site.cuh", "pair_march.cuh", "pair_window.cuh", "ade_site.cuh",
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: flags of one source beside NVCC_FLAGS: the D2Q9 step and its resident
+#: chunk share one site update, compiled without multiply-add contraction so
+#: that both round every product and sum alike (bit-equal chunks)
+SOURCE_FLAGS = {"d2q9_step.cu": ("-fmad=false",)}
 
 _LIBRARY: dict = {}
 
@@ -43,6 +47,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -63,7 +68,8 @@ def build_library() -> tuple[Path, str]:
         nvcc = _nvcc()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
             objs = [os.path.join(tmpdir, src + ".o") for src in SOURCES]
-            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()), "-c", "-o",
+                                       obj, str(CSRC / src)],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True)
                      for src, obj in zip(SOURCES, objs)]
@@ -106,6 +112,9 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_coupled_ab.argtypes = [p] * 11 + [i] * 7 + [f] * 7 + [i] + [f] * 3 + [p]
     lib.tnl_lbm_coupled_aa.argtypes = [p] * 10 + [i] * 10 + [f] * 7 + [i] + [f] * 2 + [p]
     lib.tnl_lbm_d2q9_step.argtypes = [p] * 6 + [ll] * 3 + [p, p] + [i] * 4 + [f] * 5 + [p]
+    lib.tnl_lbm_d2q9_chunk.argtypes = ([p] * 5 + [ll] * 3 + [p, p] + [i] * 4 + [f] * 5
+                                       + [i] * 3 + [p])
+    lib.tnl_lbm_d2q9_chunk_info.argtypes = [i, i, i, i, p]
     lib.tnl_lbm_nn_force.argtypes = [p] * 4 + [i] * 5 + [f] * 7 + [p]
     lib.tnl_lbm_nn_step.argtypes = [p] * 5 + [i] * 8 + [f] * 7 + [i, i] + [f] * 6 + [p]
     lib.tnl_lbm_nn_info.argtypes = [i, i, i, i, p]
@@ -113,7 +122,7 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_pair_pipeline.argtypes = [p, p, i, i, i, i, i, p]
     lib.tnl_lbm_pair_compute_only.argtypes = [p, p, i, i, i, i, p]
     lib.tnl_lbm_aa_pair_smem_bytes.argtypes = []
-    lib.tnl_lbm_element_pipeline.argtypes = [p, p] + [i] * 7 + [p]
+    lib.tnl_lbm_element_pipeline.argtypes = [p, p] + [i] * 8 + [p]
     lib.tnl_lbm_window_copy.argtypes = [p, p] + [i] * 7 + [p]
     lib.tnl_lbm_window_copy_stages.argtypes = [i, i, i]
     for fn in (lib.tnl_lbm_aa_even, lib.tnl_lbm_aa_odd, lib.tnl_lbm_aa_pair,
@@ -123,7 +132,8 @@ def load_library() -> ctypes.CDLL:
                lib.tnl_lbm_ab_step_sitemajor, lib.tnl_lbm_element_pipeline,
                lib.tnl_lbm_window_copy,
                lib.tnl_lbm_ade_step, lib.tnl_lbm_coupled_ab, lib.tnl_lbm_coupled_aa,
-               lib.tnl_lbm_d2q9_step, lib.tnl_lbm_nn_force, lib.tnl_lbm_nn_step,
+               lib.tnl_lbm_d2q9_step, lib.tnl_lbm_d2q9_chunk, lib.tnl_lbm_d2q9_chunk_info,
+               lib.tnl_lbm_nn_force, lib.tnl_lbm_nn_step,
                lib.tnl_lbm_nn_info, lib.tnl_lbm_copy_permute,
                lib.tnl_lbm_pair_pipeline, lib.tnl_lbm_pair_compute_only,
                lib.tnl_lbm_aa_pair_smem_bytes):

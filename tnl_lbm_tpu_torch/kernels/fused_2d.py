@@ -9,6 +9,12 @@ collisions of ``ops/collision_2d.py``.  It never runs the plain version in
 the kernel's place.  The JAX kernel holds the whole field in VMEM, which
 bounds it to 409 600 sites (``supports_2d``'s VMEM estimate); one thread
 per site has no such bound, so the estimate is not ported.
+
+:class:`FusedChunk2D` is B5's second kernel, the counterpart of the JAX
+driver's ``lax.scan`` over that whole-field kernel: ``n`` steps in one
+launch on a lattice resident in the shared memory of one thread-block
+cluster, for lattices within ``resident_fits`` (the golden sweep's
+128 x 32).  Its plain version is ``n`` plain steps.
 """
 
 from __future__ import annotations
@@ -45,6 +51,17 @@ _VARIANTS = {(col2.collide_srt_2d, False): 0, (col2.collide_srt_2d, True): 1,
 _FF_VARIANTS = {col2.collide_srt_2d: 3, col2.collide_clbm_2d: 4}
 #: CUDA grid limit on the y block index, which carries X
 _MAX_GRID_Y = 65535
+#: the resident chunk's size rule: the shared memory one block of its
+#: cluster may hold (csrc/d2q9_step.cu CHUNK_SMEM_MAX)
+RESIDENT_SMEM_BYTES = 200 * 1024
+#: shared memory per site: two copies of the 9 float32 DFs and the map byte
+#: (csrc/d2q9_step.cu CHUNK_BYTES_PER_SITE), and on a lattice with Bouzidi
+#: thetas their 8 float32 (CHUNK_THETA_BYTES)
+RESIDENT_BYTES_PER_SITE = 2 * 9 * 4 + 1
+RESIDENT_THETA_BYTES = 8 * 4
+#: blocks of the resident chunk's cluster, one per SM, each holding a band of
+#: ceil(X / RESIDENT_CLUSTER) x rows (16: the most an H100 takes, non-portable)
+RESIDENT_CLUSTER = 16
 
 
 def _refusal(cfg: LBMConfig, domain: Domain, codes=None) -> str | None:
@@ -92,6 +109,23 @@ def _vector2(value, what: str) -> tuple[float, float]:
                                       "(make_fused_step_2d(force_field=True))")
         raise ValueError(f"{what} must be a [2] vector, got shape {arr.shape}")
     return tuple(float(v) for v in arr.astype(np.float32))
+
+
+def resident_band(shape, cluster: int = RESIDENT_CLUSTER) -> int:
+    """The x rows of one block's band in the resident chunk."""
+    return -(-int(shape[0]) // cluster)
+
+
+def resident_fits(shape, cluster: int = RESIDENT_CLUSTER, thetas: bool = False) -> bool:
+    """The size rule of the resident chunk: a block's band, at
+    ``RESIDENT_BYTES_PER_SITE`` a site (plus ``RESIDENT_THETA_BYTES`` with
+    Bouzidi thetas), fits ``RESIDENT_SMEM_BYTES`` (128 x 32 with thetas takes
+    26 880 B a block, 256 x 64 107 520 B; the largest square lattice is
+    176 x 176 with thetas, 208 x 208 without)."""
+    X, Y = (int(n) for n in shape)
+    per_site = RESIDENT_BYTES_PER_SITE + (RESIDENT_THETA_BYTES if thetas else 0)
+    return 1 <= cluster <= RESIDENT_CLUSTER and resident_band(
+        (X, Y), cluster) * Y * per_site <= RESIDENT_SMEM_BYTES
 
 
 class FusedStep2D:
@@ -216,7 +250,8 @@ class FusedStep2D:
                                   u_in=uvec if prof is None else prof, thetas=thetas,
                                   collision_force=force_col)
 
-    def _launch(self, f, nu, field, fvec, has_force, prof, uvec, out, macro_out):
+    def check_state(self, f) -> None:
+        """f must be a contiguous float32 [9, X, Y] state on the kernel's card."""
         if self.device.type != "cuda" or f.device != self.map.device:
             raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
         if f.dtype != torch.float32:
@@ -225,6 +260,14 @@ class FusedStep2D:
         if tuple(f.shape) != (self.lat.Q, X, Y) or not f.is_contiguous():
             raise ValueError(f"f must be a contiguous [{self.lat.Q}, {X}, {Y}] tensor, "
                              f"got {tuple(f.shape)}")
+
+    def pbits(self) -> int:
+        """The periodic axes as the kernels take them: bit 0 x, bit 1 y."""
+        return sum(1 << a for a, p in enumerate(self.periodic) if p)
+
+    def _launch(self, f, nu, field, fvec, has_force, prof, uvec, out, macro_out):
+        self.check_state(f)
+        X, Y = self.shape
         lib = load_library()
         f_new = torch.empty_like(f) if out is None else out
         rho, u = macro_buffers(macro_out, (X, Y), 2, f.dtype, f.device)
@@ -236,13 +279,128 @@ class FusedStep2D:
             variant, ff = _FF_VARIANTS[self.cfg.collision], field.data_ptr()
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
         rc = lib.tnl_lbm_d2q9_step(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(), ff, bz, uin,
-                                   *strides, rho.data_ptr(), u.data_ptr(), X, Y,
-                                   sum(1 << a for a, p in enumerate(self.periodic) if p), variant,
-                                   nu, *fvec, *uvec, stream_ptr)
+                                   *strides, rho.data_ptr(), u.data_ptr(), X, Y, self.pbits(),
+                                   variant, nu, *fvec, *uvec, stream_ptr)
         if rc != 0:
             raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
         self.kernel.launches += 1
         return f_new, rho, u
+
+
+class FusedChunk2D:
+    """``chunk(f, nu, n_steps, u_in=None, force=None, out=None, macro_out=None)
+    -> (f_new, rho, u)``: ``n_steps`` A-B steps of ``step`` (a
+    :class:`FusedStep2D` without ``force_field``; its map, thetas, inflow
+    and force arguments) in one launch of ``csrc/d2q9_step.cu``'s resident
+    chunk: a cluster of ``cluster`` blocks holds the lattice in its shared
+    memory for the whole chunk.
+
+    The state after the last step lands where the per-step ping-pong of f
+    and ``out`` leaves it: in ``out`` after an odd ``n_steps``, in ``f``
+    itself after an even one (``out`` None: a new tensor, f untouched); rho
+    and u are the last step's, into new tensors or ``macro_out``.  The
+    result equals ``n_steps`` launches of the step kernel bit for bit.  On
+    CPU tensors it runs ``step`` ``n_steps`` times (its plain version, each
+    counted as the step's plain call); on a CUDA tensor it launches the
+    kernel or raises, for a lattice over the size rule (``resident_fits``)
+    too.  ``kernel`` counts its launches, ``steps`` the steps they ran,
+    ``plain_calls`` the CPU-path chunks."""
+
+    def __init__(self, step: FusedStep2D, cluster: int = RESIDENT_CLUSTER):
+        if step.force_field:
+            raise NotImplementedError("the resident chunk takes the plain variants; the "
+                                      "force_field step runs per step (its hook runs between "
+                                      "steps)")
+        thetas = step.thetas is not None
+        if not resident_fits(step.shape, cluster, thetas):
+            per_site = RESIDENT_BYTES_PER_SITE + (RESIDENT_THETA_BYTES if thetas else 0)
+            raise ValueError(
+                f"a {step.shape[0]}x{step.shape[1]} lattice does not fit the resident chunk's "
+                f"cluster of {cluster} blocks: {resident_band(step.shape, cluster)} rows of "
+                f"{step.shape[1]} sites at {per_site} B a site per block, over "
+                f"{RESIDENT_SMEM_BYTES} B")
+        self.step = step
+        self.cluster = cluster
+        self.kernel = CudaKernel("d2q9_chunk", "tnl_lbm_tpu_torch/csrc/d2q9_step.cu",
+                                 "tnl_lbm_tpu/kernels/fused_2d.py:244")
+        self.steps = 0
+        self.plain_calls = 0
+
+    def reset_counts(self) -> None:
+        self.kernel.launches = self.steps = self.plain_calls = 0
+
+    def __call__(self, f, nu, n_steps: int, u_in=None, force=None, out=None, macro_out=None):
+        n = int(n_steps)
+        if n < 1:
+            raise ValueError(f"a chunk runs at least one step, got {n_steps}")
+        check_out(out, f)
+        if f.device.type != "cuda":
+            self.plain_calls += 1
+            if out is None:  # f untouched: the steps ping-pong a copy and a new buffer
+                f, out = f.clone(), torch.empty_like(f)
+            cur, nxt = f, out
+            for _ in range(n):
+                new, rho, u = self.step(cur, nu, u_in=u_in, force=force, out=nxt,
+                                        macro_out=macro_out)
+                cur, nxt = new, cur
+            return cur, rho, u
+        fout = torch.empty_like(f) if out is None else (out if n % 2 else f)
+        return self._launch(f, fout, float(nu), n, u_in, force, macro_out, sync_floor=False)
+
+    def plain(self, f, nu, n_steps: int, u_in=None, force=None):
+        """The chunk's plain version on f's device: ``n_steps`` plain steps
+        (``FusedStep2D.plain``), (f_new, rho, u), f untouched; it counts
+        nothing.  The oracle the kernel is held against on the card."""
+        for _ in range(int(n_steps)):
+            f, rho, u = self.step.plain(f, nu, u_in=u_in, force=force)
+        return f, rho, u
+
+    def sync_floor(self, f, n_steps: int, out, macro_out=None):
+        """The chunk's kernel with the site update taken out (the band
+        loaded, ``n_steps`` cluster barriers, the loaded DFs stored to
+        ``out``): the time its barriers take.  A measurement on the card,
+        not a step: it counts nothing."""
+        if f.device.type != "cuda":
+            raise ValueError("the sync floor is a measurement on the card")
+        check_out(out, f)
+        return self._launch(f, out, 0.02, int(n_steps), None, None, macro_out, sync_floor=True)
+
+    def geometry(self) -> dict:
+        """The launch on the card: the band's rows, threads and shared memory
+        per block, and how many such clusters the card holds at once (0:
+        it cannot launch one)."""
+        out = (ctypes.c_int * 4)()
+        X, Y = self.step.shape
+        rc = load_library().tnl_lbm_d2q9_chunk_info(X, Y, self.cluster,
+                                                    int(self.step.thetas is not None), out)
+        if rc != 0:
+            raise RuntimeError(f"d2q9_chunk_info failed: CUDA error {rc}")
+        return {"cluster": self.cluster, "rows": out[0], "threads": out[1],
+                "smem_bytes": out[2], "active_clusters": out[3]}
+
+    def _launch(self, f, fout, nu, n, u_in, force, macro_out, sync_floor):
+        step = self.step
+        step.check_state(f)
+        X, Y = step.shape
+        prof, uvec = step._profile(u_in, f.device)
+        fvec = _vector2(force, "force")
+        rho, u = macro_buffers(macro_out, (X, Y), 2, f.dtype, f.device)
+        bz = 0 if step.thetas is None else step.thetas.data_ptr()
+        uin, strides = (0, (0, 0, 0)) if prof is None else (prof.data_ptr(), prof.stride())
+        variant = _VARIANTS[(step.cfg.collision, force is not None)]
+        stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
+        rc = load_library().tnl_lbm_d2q9_chunk(
+            f.data_ptr(), fout.data_ptr(), step.map.data_ptr(), bz, uin, *strides,
+            rho.data_ptr(), u.data_ptr(), X, Y, step.pbits(), variant, nu, *fvec, *uvec, n,
+            self.cluster, int(sync_floor), stream_ptr)
+        if rc != 0:
+            raise RuntimeError(
+                f"{self.kernel.name} launch failed (a cluster of {self.cluster} blocks, "
+                f"{resident_band(step.shape, self.cluster)} rows each): CUDA error {rc}")
+        if not sync_floor:
+            self.kernel.launches += 1
+            self.steps += n
+        return fout, rho, u
 
 
 def make_fused_step_2d(cfg: LBMConfig, domain: Domain, device, force_field: bool = False,

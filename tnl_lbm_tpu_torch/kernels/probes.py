@@ -15,8 +15,9 @@ oracle it is held against on the card.
 - :func:`pair_compute_only` (P2b): the same grid and arithmetic with only
   block 0's window loaded and only its tile stored: its compute half.
 - :func:`element_pipeline` (P3): overlapping halo windows of a padded
-  state staged through shared memory with ``cp.async``, the affine passes
-  on each tile's interior: do copies and compute overlap?
+  state, each window plane loaded once by TMA into a ring of plane buffers
+  as blocks march along x, the affine passes on each tile's interior: do
+  copies and compute overlap?
 - :func:`window_copy` (P4): window copies at y offsets into shared memory
   at a row offset, the interior tile written out, through 4-byte or
   16-byte ``cp.async`` or TMA bulk copies, pipelined through a ring of
@@ -79,10 +80,12 @@ DMA_VARIANTS = (
 #: and the launch counter
 LOADS = {"ld4": (0, "window_copy_ld4"), "ld16": (1, "window_copy_ld16"),
          "tma": (2, "window_copy")}
-#: z extent of element_pipeline's stages: the largest of these that Z takes
-#: and whose window stage fits 40 KB (two stages, several blocks per SM)
-_ZCHUNKS = (16, 8, 4)
-_STAGE_BYTES = 40 * 1024
+#: x planes of output one element_pipeline block marches over, in whole tiles
+ELEMENT_SEG_PLANES = 32
+#: element_pipeline's ring: at most this many plane buffers (csrc/probes.cu
+#: ESTAGES_MAX), within the window probes' 200 KB of shared memory a block
+ELEMENT_STAGES_MAX = 4
+_WINDOW_SMEM = 200 * 1024
 
 
 def reset_counts() -> None:
@@ -195,13 +198,19 @@ def interior(fpad: torch.Tensor) -> torch.Tensor:
     return fpad[:, X_ORG : X_ORG + X, Y_ORG : Y_ORG + Y]
 
 
-def element_zchunk(tx: int, ty: int, Z: int) -> int:
-    """The z extent of one element_pipeline stage (see ``_ZCHUNKS``)."""
-    for zc in _ZCHUNKS:
-        if Z % zc == 0 and (tx + 4) * (ty + 16) * zc * 4 <= _STAGE_BYTES:
-            return zc
-    raise ValueError(f"element_pipeline needs Z % 4 == 0 and a ({tx + 4}, {ty + 16}) window "
-                     f"of 4 z sites within {_STAGE_BYTES} bytes; got Z = {Z}")
+def element_geometry(tx: int, ty: int, X: int, Z: int) -> dict:
+    """element_pipeline's launch: tiles per x segment (ELEMENT_SEG_PLANES
+    planes, at least one tile), segments, plane buffers in the ring (as
+    many (ty+16) Z planes as fit 200 KB, 2 to ELEMENT_STAGES_MAX) and the
+    bytes of one plane."""
+    plane = (ty + 16) * Z * 4
+    stages = min(ELEMENT_STAGES_MAX, _WINDOW_SMEM // plane)
+    if Z % 4 or stages < 2:
+        raise ValueError(f"element_pipeline needs Z % 4 == 0 and two ({ty + 16}, {Z}) window "
+                         f"planes within {_WINDOW_SMEM} bytes; got Z = {Z}")
+    seg_tiles = max(1, ELEMENT_SEG_PLANES // tx)
+    return {"seg_tiles": seg_tiles, "segments": -(-(X // tx) // seg_tiles), "stages": stages,
+            "plane_bytes": plane}
 
 
 def _element_check(fpad, tx, ty):
@@ -222,14 +231,19 @@ def element_pipeline(fpad, tx: int, ty: int, passes: int):
     """P3: ``out[:, 2:X+2, 8:Y+8, :] = affine(fpad[same], passes)`` tile by
     tile from each tile's (tx+4, ty+16) window, into a new
     [27, X+4, Y+16, Z] tensor whose ring is left unwritten (``torch.empty``),
-    as the Pallas kernel leaves it: compare ``interior(out)`` only."""
+    as the Pallas kernel leaves it: compare ``interior(out)`` only.  On the
+    card each block marches over ``element_geometry``'s x segment of a
+    column of tiles, its window planes loaded once each by TMA."""
     X, Y, Z = _element_check(fpad, tx, ty)
     if fpad.device.type != "cuda":
         return element_pipeline_plain(fpad, tx, ty, passes)
-    zc = element_zchunk(tx, ty, Z)
+    geo = element_geometry(tx, ty, X, Z)
+    if fpad.data_ptr() % 16:
+        raise ValueError("element_pipeline needs a 16-byte aligned state")
     out = torch.empty_like(fpad)
     rc = load_library().tnl_lbm_element_pipeline(fpad.data_ptr(), out.data_ptr(), X, Y, Z, tx,
-                                                 ty, zc, int(passes), _stream(fpad))
+                                                 ty, geo["seg_tiles"], geo["stages"],
+                                                 int(passes), _stream(fpad))
     _launched("element_pipeline", rc)
     return out
 
