@@ -144,28 +144,29 @@ script exits non-zero without printing a result.
       profile on the card; one step from the same input, then 4 chained
       steps on each side compared at the end;
    b. golden_2d: sim2d_3 at resolution 1 to t = 0.4 (1440 steps) through
-      B5's resident chunk on all 108 rows of
-      tests/golden/geometry_ke_values_tpu.csv, the geometries written by
-      scripts/make_golden_geometries.py; the 12 rows the JAX suite samples
-      within 1e-4 relative; the worst row over the 108 and the count beyond
-      1e-4 printed; 72 resident launches of 20 steps, no per-step launch
-      and 0 plain calls per row; geometry 1 with Bouzidi again with B5 per
-      step, bit for bit the resident run (KE value, f, rho, u); on its
-      state, B5's two routes at 128 x 32: 20 step launches against one
-      chunk bit for bit, the chunk against its plain version, ms per launch
-      and per step of both, the chunk's sync floor and its time at
-      clusters of 4, 8 and 16 blocks; then a row's host time in parts
-      (build, sim_init, the eager chunk, the capture, the replays, the KE)
-      with the cyclic collector running and frozen, and its full
-      collections;
+      B5 on all 108 rows of tests/golden/geometry_ke_values_tpu.csv, the
+      geometries written by scripts/make_golden_geometries.py; the 12 rows
+      the JAX suite samples within 1e-4 relative; the worst row over the
+      108 and the count beyond 1e-4 printed; 1440 launches and 0 plain
+      calls per row; geometry 1 with Bouzidi again with each 20-step chunk
+      one launch of B5's resident chunk (``torch_cases.resident_route``:
+      72 launches, no step launch), bit for bit the per-step run (KE
+      value, f, rho, u); on its state, B5's two kernels at 128 x 32: 20
+      step launches against one chunk bit for bit, the chunk against its
+      plain version, ms per launch and per step of both, and the chunk's
+      sync floor and clusters of 8 and 4 blocks (variants built from
+      tests/b5_chunk_ablation.py beside the library); the two routes in 10
+      alternating pairs through ``Simulation._advance`` and as whole rows;
+      then a row's host time in parts (build, sim_init, the eager chunk,
+      the capture, the replays, the KE) with the cyclic collector running
+      and frozen, and its full collections;
    c. apps_2d: sim2d_3 res 2 (geometry 1's disk scaled by 2 in a seeded
       ring), sim2d_1 res 4 with ``--use-fused`` (its VTK2D cut read back)
       and sim2d_2 res 1 on geometry 1 with Bouzidi (the statistics state
       machine compressed, from step 150), each through B5 and through the
       plain step on the card from the same start: rho and u within 1e-5,
-      sim2d_2's accumulators, counts, events and TKE too; every step
-      through B5, per launch or in a resident chunk (sim2d_3 res 2, and
-      sim2d_2's chunks without a statistics window);
+      sim2d_2's accumulators, counts, events and TKE too; one B5 launch
+      per step;
    d. time_2d: sim2d_3's channel at resolution 64 (8192 x 2048, the site
       count of 256^3) with geometry 1's disk scaled by 64 in a seeded
       ring: 200 steps through ``Simulation`` (MLUPS, peak memory), the
@@ -232,12 +233,12 @@ script exits non-zero without printing a result.
    background ``save_state``, a run resumed from it and 3 more chunks,
    against 6 uninterrupted, bit for bit) on sim_2 res 2 in pairs and A-B
    with the statistics, sim_coupled res 2 (g and phi) and sim2d_2 res 1 (its
-   running sum); then, in turns, the golden sweep's wall per row through
-   the resident chunk, B5 per step from its graph and per step from
-   Python, B5's ms per step through ``Simulation._advance`` with the
-   resident chunk replayed from its graph or launched directly and B5 per
-   step from its graph or eager, and sim_2 res 2's MLUPS in pairs and per
-   step with the graph and per step from Python.
+   running sum); then, in turns, the golden sweep's wall per row with B5
+   per step from its graph and from Python and through the resident
+   chunk, B5's ms per step through ``Simulation._advance`` per step from
+   its graph or eager and with the resident chunk replayed from its graph
+   or launched directly, and sim_2 res 2's MLUPS in pairs and per step
+   with the graph and per step from Python.
 
 10. ibm (after the coupled hooked run): sim_ibm at resolution 4
    (384x128x128, a cylinder of 25 098 points, phi2 "modified": the
@@ -261,10 +262,11 @@ script exits non-zero without printing a result.
 The line before the last is the kernels' JSON record (bound_ms: the larger
 of the bytes over the published 3.35 TB/s and the FP32 operations over
 67 TFLOP/s, at 256^3 sites; B5's launches: the three 2D apps' kernel runs
-and the res-64 run; B5's resident chunk at the golden sweep's 128 x 32,
-20 steps a launch (its bound: the bytes once or the CLBM site update's
-operations 20 times, whichever is larger), its launches the golden
-sweep's and the 2D apps', with its ms per step, sync floor and cluster; B1b's: the bench entry's; B4s's and
+and the res-64 run and the golden sweep's; B5's resident chunk at the
+golden sweep's 128 x 32, 20 steps a launch (its bound: the bytes once or
+the FP32 operations its map's sites execute 20 times, whichever is
+larger), its launches the golden row run through it, with its ms per
+step, sync floor and cluster; B1b's: the bench entry's; B4s's and
 the probes': their timings'; library_ms: P4's function as one PyTorch
 call, ``interior(fpad).contiguous()``, and null where no single PyTorch
 call computes a kernel's function; B1b's two entries also give the pair's
@@ -277,6 +279,7 @@ are logged before them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -316,9 +319,21 @@ DEVICE = "cuda"
 #: the D2Q9 step (B5): 9 f32 in and out, the map, rho and u (B/site); the
 #: thetas and the profile are added per run, at the sites that read them
 B5_BYTES = 85
+#: FP32 operations of one B5 site update by the site's class, counted from
+#: csrc/d2q9_step.cu ``update`` as written: an add, a multiply, a divide or
+#: an fmaxf is one, a negation or a select none, an expression of constants
+#: none (the compiler folds it).  Every site but NOTHING takes the moments
+#: (rho, j, u: 26); a FLUID_NEAR_WALL site with thetas the Bouzidi
+#: interpolation (8 links of 11); INFLOW and OUTFLOW_EQ the boundary
+#: equilibrium (66); FLUID, OUTFLOW_RIGHT and FLUID_NEAR_WALL the collision
+#: (CLBM: 6 forward axes of 10, the relaxation 10, 6 backward axes of 12;
+#: SRT 102, Guo's term 78 more).  What a site executes, not the SASS
+#: listing's every branch.
+B5_MOMENT_OPS, B5_RING_OPS, B5_EQ_OPS = 26, 8 * 11, 66
+B5_COLLISION_OPS = {"clbm": 6 * 10 + 10 + 6 * 12, "srt": 102, "srt_force": 102 + 78}
 D2Q9_KERNEL_NAMES = ("d2q9_srt_kernel", "d2q9_srt_force_kernel", "d2q9_clbm_kernel",
                      "d2q9_chunk_srt_kernel", "d2q9_chunk_srt_force_kernel",
-                     "d2q9_chunk_clbm_kernel", "d2q9_chunk_sync_floor_kernel")
+                     "d2q9_chunk_clbm_kernel")
 #: sim2d_3's channel at resolution 64: 8192 x 2048, the site count of 256^3
 TIME_2D_RES = 64
 #: the rows of the golden corpus that the JAX suite samples
@@ -332,8 +347,9 @@ GOLDEN_CHUNK = 20
 #: the golden row's 20-step chunks replayed from a graph: all but the eager
 #: warm-up and the captured one
 GOLDEN_REPLAYS = GOLDEN_STEPS // GOLDEN_CHUNK - 2
-#: cluster sizes the resident chunk is timed at beside its default
-CHUNK_CLUSTERS = (4, 8, 16)
+#: variants of the resident chunk (tests/b5_chunk_ablation.py) timed beside
+#: it at 128 x 32: its sync floor and the smaller clusters
+B5_VARIANTS = ("sync_floor", "cluster_8", "cluster_4")
 
 
 def log(phase: str, **fields) -> None:
@@ -492,13 +508,20 @@ def sass_fp32_ops(lib_path) -> dict:
 
 
 def phase_build() -> dict:
-    """Build the kernels; registers per kernel, and the FP32 operations
-    per thread from the SASS."""
+    """Build the kernels, and beside them B5_VARIANTS of the resident chunk
+    (tests/b5_chunk_ablation.py, one nvcc each, started first); registers
+    per kernel, and the FP32 operations per thread from the SASS."""
+    import b5_chunk_ablation as ablation
+
     from tnl_lbm_tpu_torch.kernels.build import build_library, kernel_resources, load_library
     from tnl_lbm_tpu_torch.kernels.fused_nn import nn_geometry
 
     t0 = time.perf_counter()
-    path, ptxas = build_library()
+    variants = ablation.start(WORK / "b5_variants", B5_VARIANTS)
+    try:
+        path, ptxas = build_library()
+    finally:
+        variants = ablation.finish(variants)
     lib = load_library()
     res = kernel_resources(ptxas)
     ops = sass_fp32_ops(path)
@@ -518,7 +541,7 @@ def phase_build() -> dict:
     log("build", seconds=f"{time.perf_counter() - t0:.1f}",
         pair_dynamic_smem_bytes=lib.tnl_lbm_aa_pair_smem_bytes(),
         **{f"{key}_geometry_256": json.dumps(g) for key, g in nn_geo.items()})
-    return {"ops": ops, "res": res, "nn_geometry": nn_geo}
+    return {"ops": ops, "res": res, "nn_geometry": nn_geo, "b5_variants": variants}
 
 
 def phase_compare_steps() -> dict:
@@ -1455,7 +1478,7 @@ def counting_from_init(sim):
         def sim_init(self):
             super().sim_init()
             for k in (self._step, self._pair, getattr(self, "_ade_step", None),
-                      getattr(self, "_coupled_step", None), getattr(self, "_resident", None)):
+                      getattr(self, "_coupled_step", None), getattr(self, "resident", None)):
                 if hasattr(k, "reset_counts"):
                     k.reset_counts()
             torch.cuda.reset_peak_memory_stats()
@@ -1503,10 +1526,9 @@ def kernel_launches(sim) -> dict:
         launches = {"even": step.even.launches, "odd": step.odd.launches}
         launches["pair"] = sim._pair.kernel.launches if sim._pair else 0
         return launches
-    if sim.cfg.lat.D == 2:  # B5 per step, and its resident chunk's launches and steps
-        chunk = getattr(sim, "_resident", None)
-        return {"d2q9": step.kernel.launches, "d2q9_chunk": chunk.kernel.launches if chunk else 0,
-                "d2q9_chunk_steps": chunk.steps if chunk else 0}
+    if sim.cfg.lat.D == 2:  # B5 per step, and its resident chunk's (torch_cases.resident_route)
+        chunk = getattr(sim, "resident", None)
+        return {"d2q9": step.kernel.launches, "d2q9_chunk": chunk.kernel.launches if chunk else 0}
     return {"ab": step.kernel.launches}
 
 
@@ -1528,7 +1550,7 @@ def report_main(sim, label: str) -> dict:
     finite = bool(torch.isfinite(sim.rho).all()) and bool(torch.isfinite(sim.u).all())
     plain = sum(getattr(k, "plain_calls", 0) for k in (
         sim._step, sim._pair, getattr(sim, "_ade_step", None), getattr(sim, "_coupled_step", None),
-        getattr(sim, "_resident", None)))
+        getattr(sim, "resident", None)))
     launches = kernel_launches(sim)
     log("main", path=label, shape="x".join(map(str, sim.domain.shape)), steps=steps,
         ms_per_step=f"{ms_step:.4f}", mlups=f"{mlups:.1f}", max_memory_allocated_gb=f"{peak_gb:.3f}",
@@ -2428,92 +2450,125 @@ def phase_compare_2d() -> float:
     return worst
 
 
-def per_step_route(sim):
-    """The 2D run with B5 per step: no resident chunk (the route sim_init
-    would pick is refused before it runs)."""
-    sim._resolve_resident_chunk = lambda: None
-    return sim
-
-
-def golden_run(name: str, bouzidi: str, where: Path, per_step: bool = False):
+def golden_run(name: str, bouzidi: str, where: Path, resident: bool = False):
     """One counted golden row: sim2d_3 at resolution 1 on geometry ``name``
-    to t = 0.4, run; through its route, or B5 per step."""
+    to t = 0.4, run; B5 per step, or each chunk through B5's resident chunk
+    (``resident``: ``torch_cases.resident_route``)."""
     from tnl_lbm_tpu_torch.apps import sim2d_3
+    from torch_cases import resident_route
 
     sim = sim2d_3.build(1, str(golden_geometries() / name), bouzidi == "on", final_time=0.4,
                         results_parent=where, values_dir=where / "values", use_fused=True,
                         device=DEVICE)
-    if per_step:
-        per_step_route(sim)
+    if resident:
+        resident_route(sim)
     if not counting_from_init(sim).run():
         raise RuntimeError(f"sim2d_3 on {name} (Bouzidi {bouzidi}) failed")
     return sim
 
 
-def phase_golden_2d(ops: dict) -> dict:
+def phase_golden_2d(variants: dict) -> dict:
     """sim2d_3 at resolution 1 to the final time 0.4 through B5 on all 108
     rows of the TPU-measured golden corpus (tests/golden/): the 12 rows the
     JAX suite samples must lie within 1e-4 relative; the worst deviation
     over the 108 and the count beyond 1e-4 are printed.  Each row runs with
-    its counts set to 0 at the end of sim_init: its 1440 steps through B5's
-    routes - 72 launches of the resident chunk (20 steps each), no per-step
-    launch - and 0 plain calls, its chunks replayed from a CUDA graph after
-    the first (eager) and the second (captured).  Geometry 1 with Bouzidi
-    is run again with B5 per step: f, rho, u and the KE value bit for bit
-    the resident run's.  Then ``golden_launch_ms`` (both routes timed on a
-    finished row's state) and ``golden_row_split`` (the host time of a
+    its counts set to 0 at the end of sim_init: 1440 launches of the step
+    kernel, 0 plain calls, its 20-step chunks replayed from a CUDA graph
+    after the first (eager) and the second (captured).  Geometry 1 with
+    Bouzidi is run again with each chunk one launch of B5's resident chunk
+    (72 launches, no step launch, its graphs replayed): the KE value, f, rho
+    and u bit for bit the per-step run's.  Then ``golden_launch_ms`` (the
+    kernels timed on a finished row's state), ``golden_route_pairs`` (the
+    two routes in turns) and ``golden_row_split`` (the host time of a
     row's parts, with the collector as it runs and frozen)."""
     import csv
 
     with open(ROOT / "tests" / "golden" / "geometry_ke_values_tpu.csv") as fh:
         golden = {(r["geometry"], r["bouzidi"]): float(r["value"]) for r in csv.DictReader(fh)}
-    rel, launches, chunk, kept, replays = {}, 0, None, None, 0
+    rel, launches, step_kernel, kept, replays = {}, 0, None, None, 0
     t0 = time.perf_counter()
     for (name, bouzidi), want in golden.items():
         sim = golden_run(name, bouzidi, WORK / "golden" / bouzidi)
-        per, chunks, chunk_steps, plain = b5_routes(sim)
-        if (sim.iterations != GOLDEN_STEPS or per != 0 or chunk_steps != GOLDEN_STEPS
-                or chunks != GOLDEN_STEPS // GOLDEN_CHUNK or plain
+        per, chunks, plain = b5_routes(sim)
+        if (sim.iterations != GOLDEN_STEPS or per != GOLDEN_STEPS or chunks or plain
                 or sim.graph_replays < GOLDEN_REPLAYS):
-            raise RuntimeError(f"sim2d_3 on {name}: {sim.iterations} steps, {per} per-step "
-                               f"launches, {chunks} resident launches of {chunk_steps} steps, "
+            raise RuntimeError(f"sim2d_3 on {name}: {sim.iterations} steps, {per} launches, "
                                f"{plain} plain calls, {sim.graph_replays} graph replays")
         replays += sim.graph_replays
         value = sim.value_path.read_text()
         rel[(name, bouzidi)] = abs(float(value) - want) / abs(want)
-        launches += chunks
-        chunk = sim._resident.kernel
+        launches += per
+        step_kernel = sim._step.kernel
         if (name, bouzidi) == ("1.txt", "on"):
             kept = (value, *(t.clone() for t in (sim.f, sim.rho, sim.u)))
-        del sim
+            finished = sim
+        else:
+            del sim
     wall = time.perf_counter() - t0
-    per_step = golden_run("1.txt", "on", WORK / "golden" / "per_step", per_step=True)
-    if b5_routes(per_step)[:3] != (GOLDEN_STEPS, 0, 0):
-        raise RuntimeError(f"golden row per step: {b5_routes(per_step)}")
-    same = [kept[0] == per_step.value_path.read_text()] + [
-        torch_equal(a, b) for a, b in zip(kept[1:], (per_step.f, per_step.rho, per_step.u))]
+    resident = golden_run("1.txt", "on", WORK / "golden" / "resident", resident=True)
+    routes = b5_routes(resident)
+    if routes != (0, GOLDEN_STEPS // GOLDEN_CHUNK, 0):
+        raise RuntimeError(f"golden row through the resident chunk: (step launches, chunk "
+                           f"launches, plain calls) {routes}")
+    same = [kept[0] == resident.value_path.read_text()] + [
+        torch_equal(a, b) for a, b in zip(kept[1:], (resident.f, resident.rho, resident.u))]
     log("golden_2d", row="1.txt_on", routes="resident chunk vs per step",
+        chunk_launches=routes[1], graph_replays=resident.graph_replays,
         bit_equal_value_f_rho_u="/".join(map(str, same)), value=kept[0].strip())
     if not all(same):
         raise RuntimeError(f"golden row 1 (Bouzidi): the resident chunk's run differs from the "
                            f"per-step run: value, f, rho, u equal {same}")
-    timing = golden_launch_ms(per_step, ops)
-    del per_step
+    chunk = resident.resident.kernel
+    del resident
+    timing = golden_launch_ms(finished, variants)
+    del finished
     worst_row = max(rel, key=rel.get)
     sampled = {f"{g}_{'on' if b else 'off'}": rel[(f"{g}.txt", "on" if b else "off")]
                for g, b in GOLDEN_SAMPLED}
     beyond = sorted(k for k, v in rel.items() if v > TOL_GOLDEN)
-    log("golden_2d", rows=len(rel), steps_per_row=GOLDEN_STEPS, resident_launches=launches,
-        per_step_launches=0, plain_calls=0, graph_replays=replays, wall_s=f"{wall:.1f}",
+    log("golden_2d", rows=len(rel), steps_per_row=GOLDEN_STEPS, launches=launches,
+        plain_calls=0, graph_replays=replays, wall_s=f"{wall:.1f}",
         worst_rel=rel[worst_row], worst_row="_".join(worst_row),
         rows_beyond_tol=len(beyond), beyond=beyond or "none",
         sampled_worst_rel=max(sampled.values()))
     log("golden_2d", **{f"rel_{k}": f"{v:.3e}" for k, v in sampled.items()})
     if max(sampled.values()) > TOL_GOLDEN:
         raise RuntimeError(f"golden rows beyond 1e-4 relative: {sampled}")
+    golden_route_pairs()
     rows = sorted(golden_geometries().glob("*.txt"))[:SPLIT_ROWS]
     golden_row_split([p.name for p in rows], "chip_smoke")
-    return {"chunk": dataclasses.replace(chunk, launches=launches), **timing}
+    return {"step": dataclasses.replace(step_kernel, launches=launches),
+            "chunk": dataclasses.replace(chunk), **timing}
+
+
+#: alternating pairs of ``golden_route_pairs``
+ROUTE_PAIRS = 10
+
+
+def golden_route_pairs() -> dict:
+    """B5's two routes at the golden sweep's 128 x 32 in ROUTE_PAIRS
+    alternating pairs (the first of a pair alternates): ms per step
+    through ``_advance`` (``b5_launch_ms``, graphs replayed) and the wall
+    of a whole golden row (geometry 1 with Bouzidi, ``sweep_row_seconds``),
+    each through per-step launches and through the resident chunk; the
+    pairs the resident chunk wins."""
+    for resident in (False, True):  # one of each first, untimed
+        b5_launch_ms(True, resident=resident)
+        sweep_row_seconds(["1.txt"], True, resident=resident)
+    pairs = []
+    for i in range(ROUTE_PAIRS):
+        order = (True, False) if i % 2 == 0 else (False, True)
+        adv = {r: b5_launch_ms(True, resident=r) for r in order}
+        row = {r: sweep_row_seconds(["1.txt"], True, resident=r)[0] for r in order}
+        pairs.append((adv[True], adv[False], row[True], row[False]))
+    out = {"pairs": len(pairs),
+           "advance_resident_wins": sum(a < b for a, b, _, _ in pairs),
+           "row_resident_wins": sum(c < d for _, _, c, d in pairs)}
+    for k, col in (("advance_ms_per_step_resident", 0), ("advance_ms_per_step_per_step", 1),
+                   ("row_s_resident", 2), ("row_s_per_step", 3)):
+        out[k] = "/".join(f"{p[col]:.6f}" for p in pairs)
+    log("golden_routes", card=card_state(), **out)
+    return out
 
 
 def torch_equal(a, b) -> bool:
@@ -2645,7 +2700,21 @@ def golden_row_split(rows, label: str) -> dict:
     return out
 
 
-def golden_launch_ms(sim, ops: dict) -> dict:
+def b5_step_ops(domain, collision: str, thetas: bool) -> int:
+    """FP32 operations of one B5 step over ``domain``'s map: each site's
+    class's count (B5_*_OPS), summed over the map's sites."""
+    from tnl_lbm_tpu_torch.ops.boundary import GEO
+
+    m = np.asarray(domain.map)
+    count = {code: int((m == code).sum()) for code in GEO}
+    collided = count[GEO.FLUID] + count[GEO.OUTFLOW_RIGHT] + count[GEO.FLUID_NEAR_WALL]
+    return (B5_MOMENT_OPS * (m.size - count[GEO.NOTHING])
+            + (B5_RING_OPS * count[GEO.FLUID_NEAR_WALL] if thetas else 0)
+            + B5_EQ_OPS * (count[GEO.INFLOW] + count[GEO.OUTFLOW_EQ])
+            + B5_COLLISION_OPS[collision] * collided)
+
+
+def golden_launch_ms(sim, variants: dict) -> dict:
     """B5's two routes at the golden sweep's 128 x 32 on a finished row's
     state (the launches are another step's and chunk's, not the row's).
     Per step: ms per launch from CUDA events over 200 back-to-back
@@ -2655,15 +2724,20 @@ def golden_launch_ms(sim, ops: dict) -> dict:
     kernel and one chunk from the same state must agree bit for bit, and
     the chunk its plain version within TOL_APP; ms per launch and per step
     (CUDA events over 50 launches), its device time per kernel event
-    (profiler over 20), the sync floor per step (the kernel with the site
-    update taken out), each at the default cluster and at CHUNK_CLUSTERS;
+    (profiler over 20), and so timed each of B5_VARIANTS built from
+    tests/b5_chunk_ablation.py (``variants``: the sync floor, the site
+    update taken out, read as device time per step, since its launches
+    are shorter than the wrapper's host time; clusters of 8 and 4 blocks);
     the plain version's ms; the bound (85 B/site, the ring's thetas and the
-    profile over 3.35 TB/s; or the SASS FP32 operations of the CLBM site
-    update x GOLDEN_CHUNK steps over 67 TFLOP/s, whichever is larger)."""
+    profile over 3.35 TB/s; or the FP32 operations the map's sites execute
+    (``b5_step_ops``) x GOLDEN_CHUNK steps over 67 TFLOP/s, whichever is
+    larger)."""
+    import b5_chunk_ablation as ablation
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tnl_lbm_tpu_torch.kernels.fused_2d import FusedChunk2D, make_fused_step_2d
+    from tnl_lbm_tpu_torch.ops import collision_2d as col2
     from tnl_lbm_tpu_torch.ops.boundary import GEO
 
     def device_ms(fn, prefix, reps):
@@ -2700,39 +2774,47 @@ def golden_launch_ms(sim, ops: dict) -> dict:
                            f"{bit_equal}, against its plain version {d}")
     plain_ms = time_ms(lambda: chunk.plain(f, nu, n, u_in=u_in), reps=3)
     g, spare = f.clone(), torch.empty_like(f)
-    per_cluster = {}
-    for cluster in sorted({chunk.cluster, *CHUNK_CLUSTERS}):
-        c = FusedChunk2D(step, cluster=cluster)
-        ms = time_ms(lambda: c(g, nu, n, u_in=u_in, out=spare), reps=50)
-        floor = time_ms(lambda: c.sync_floor(g, n, spare), reps=50)
-        per_cluster[cluster] = {"ms_per_launch": ms, "ms_per_step": ms / n,
-                                "sync_floor_ms_per_step": floor / n, **c.geometry()}
-        log("golden_chunk", shape="128x32", steps=n, **{k: (f"{v:.6f}" if isinstance(v, float)
-                                                            else v)
-                                                        for k, v in per_cluster[cluster].items()})
-    chunk_dev, chunk_events = device_ms(lambda: chunk(g, nu, n, u_in=u_in, out=spare),
-                                        "d2q9_chunk", 20)
-    mine = per_cluster[chunk.cluster]
+    per_variant = {}
+    for name, lib in (("kernel", None), *((v, variants[v][0]) for v in B5_VARIANTS)):
+        with (ablation.using(lib) if lib is not None else contextlib.nullcontext()):
+            ms = time_ms(lambda: chunk(g, nu, n, u_in=u_in, out=spare), reps=50)
+            dev, events = device_ms(lambda: chunk(g, nu, n, u_in=u_in, out=spare),
+                                    "d2q9_chunk", 20)
+            geo = chunk.geometry()
+        per_variant[name] = {"ms_per_launch": ms, "ms_per_step": ms / n,
+                             "device_ms_per_event": dev, "device_ms_per_step": dev / n,
+                             "kernel_events": events, **geo,
+                             "cluster": ablation.cluster_of(name)}
+        log("golden_chunk", shape="128x32", steps=n, variant=name,
+            **{k: (f"{v:.6f}" if isinstance(v, float) else v)
+               for k, v in per_variant[name].items()})
+    mine = per_variant["kernel"]
+    chunk_dev, chunk_events = mine["device_ms_per_event"], mine["kernel_events"]
     dom = sim.domain
     X, Y = dom.shape
     sites = X * Y
     near = int((dom.map == GEO.FLUID_NEAR_WALL).sum())
     t_bytes = (B5_BYTES * sites + 32 * near + 8 * Y) / (HBM_PEAK_GBPS * 1e9) * 1e3
-    t_ops = ops["d2q9_clbm_kernel"] * n * sites / (FP32_PEAK_TFLOPS * 1e12) * 1e3
+    coll = "clbm" if sim.cfg.collision is col2.collide_clbm_2d else "srt"
+    step_ops = b5_step_ops(dom, coll, step.thetas is not None)
+    t_ops = step_ops * n / (FP32_PEAK_TFLOPS * 1e12) * 1e3
     bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     res = {"step_event_ms_per_launch": event_ms, "step_device_ms_per_event": step_dev,
            "step_kernel_events": step_events,
            "step_bound_ms": B5_BYTES * sites / (HBM_PEAK_GBPS * 1e9) * 1e3,
            "chunk_ms_per_launch": mine["ms_per_launch"], "chunk_ms_per_step": mine["ms_per_step"],
            "chunk_device_ms_per_event": chunk_dev, "chunk_kernel_events": chunk_events,
-           "sync_floor_ms_per_step": mine["sync_floor_ms_per_step"], "chunk_plain_ms": plain_ms,
+           "sync_floor_ms_per_step": per_variant["sync_floor"]["device_ms_per_step"],
+           "chunk_plain_ms": plain_ms,
            "chunk_bound_ms": bound_ms, "chunk_bound_by": bound_by,
+           "chunk_bound_bytes_ms": t_bytes, "chunk_bound_ops_ms": t_ops,
+           "chunk_fp32_ops_per_step": step_ops,
            "chunk_max_df": d[0], "chunk_max_drho": d[1], "chunk_max_du": d[2],
-           "cluster": chunk.cluster, "seconds": time.perf_counter() - t0}
+           "cluster": mine["cluster"], "seconds": time.perf_counter() - t0}
     log("golden_2d", kernel="d2q9_step+d2q9_chunk", shape="128x32", card=card_state(),
         bit_equal_chunk_vs_launches=bit_equal,
         **{k: (f"{v:.6f}" if isinstance(v, float) else v) for k, v in res.items()})
-    return {"timing": res, "per_cluster": per_cluster}
+    return {"timing": res, "per_variant": per_variant}
 
 
 def app_2d_runs(build, label: str, prepare):
@@ -2752,31 +2834,29 @@ def app_2d_runs(build, label: str, prepare):
     return runs
 
 
-def b5_routes(sim) -> tuple[int, int, int, int]:
-    """(B5's per-step launches, its resident chunk's launches and steps, the
-    plain calls of both) of a counted 2D run."""
-    chunk = getattr(sim, "_resident", None)
+def b5_routes(sim) -> tuple[int, int, int]:
+    """(B5's per-step launches, its resident chunk's launches, the plain
+    calls of both) of a counted 2D run (the chunk's where the run goes
+    through ``torch_cases.resident_route``)."""
+    chunk = getattr(sim, "resident", None)
     return (sim._step.kernel.launches, chunk.kernel.launches if chunk else 0,
-            chunk.steps if chunk else 0,
             sim._step.plain_calls + (chunk.plain_calls if chunk else 0))
 
 
 def compare_app_2d(label: str, k, p, **extra) -> float:
-    """max |drho| and |du| of the kernel and plain runs within TOL_APP, every
-    step through B5 (a per-step launch or a step of a resident chunk), no
-    plain call; returns max |du|."""
+    """max |drho| and |du| of the kernel and plain runs within TOL_APP, B5's
+    launches one per step, no plain call; returns max |du|."""
     import torch
 
     d_rho, d_u = max_diff(k.rho, p.rho), max_diff(k.u, p.u)
-    launches, chunks, chunk_steps, plain = b5_routes(k)
+    launches, plain = k._step.kernel.launches, k._step.plain_calls
     log("apps_2d", path=label, shape="x".join(map(str, k.domain.shape)), steps=k.iterations,
         max_drho=d_rho, max_du=d_u, max_abs_u=float(k.u.abs().max()), launches=launches,
-        resident_launches=chunks, resident_steps=chunk_steps, plain_calls=plain, **extra)
+        plain_calls=plain, **extra)
     if not (d_rho <= TOL_APP and d_u <= TOL_APP and bool(torch.isfinite(k.u).all())
-            and launches + chunk_steps == k.iterations == p.iterations and plain == 0):
+            and launches == k.iterations == p.iterations and plain == 0):
         raise RuntimeError(f"{label}: kernel vs plain run: drho {d_rho}, du {d_u}, "
-                           f"{launches} launches and {chunk_steps} resident steps, {plain} "
-                           f"plain calls")
+                           f"{launches} launches, {plain} plain calls")
     return d_u
 
 
@@ -2790,10 +2870,7 @@ def phase_apps_2d() -> dict:
     machine compressed as tests/test_sim2d_2.py:24-33 compresses it, with
     the window moved to step 150 so that the inflow has reached the ROI:
     the accumulators, the counts and the exported TKE against the plain
-    run's (TKE within 1e-5 relative).  sim2d_3 res 2 runs its chunks through
-    B5's resident chunk, sim2d_2 those without a statistics window, sim2d_1
-    res 4 (512 x 128, over the size rule) every step per launch.  Returns
-    B5's launches, its resident chunk's, and max |du|."""
+    run's (TKE within 1e-5 relative).  Returns B5's launches and max |du|."""
     from tnl_lbm_tpu_torch.apps import sim2d_1, sim2d_2, sim2d_3
     from tnl_lbm_tpu_torch.sim.state import VTK2D
     from torch_cases import compress_statistics, timing_disk_2d
@@ -2810,7 +2887,7 @@ def phase_apps_2d() -> dict:
         device=DEVICE), "sim2d_3_res2", disk_and_steps)
     err = compare_app_2d("sim2d_3_res2_disk", k, p, ke_kernel=k.ke_value, ke_plain=p.ke_value,
                          codes="+".join(sorted(c.name for c in k._step.codes)))
-    launches, chunks = b5_routes(k)[:2]
+    launches = k._step.kernel.launches
 
     k, p = app_2d_runs(lambda fused, where: sim2d_1.build(
         4, results_parent=where, use_fused=fused, device=DEVICE), "sim2d_1_res4", app_steps)
@@ -2825,7 +2902,6 @@ def phase_apps_2d() -> dict:
     err = max(err, compare_app_2d("sim2d_1_res4", k, p, vtk2d=probe.name, cycles=probe.cycle,
                                   read_back="equal"))
     launches += k._step.kernel.launches
-    chunks += b5_routes(k)[1]
 
     geo = str(golden_geometries() / "1.txt")
     k, p = app_2d_runs(lambda fused, where: sim2d_2.build(
@@ -2845,10 +2921,7 @@ def phase_apps_2d() -> dict:
         raise RuntimeError(f"sim2d_2: the statistics differ from the plain run's: TKE {tke}, "
                            f"accumulators {d_acc}")
     launches += k._step.kernel.launches
-    chunks += b5_routes(k)[1]
-    if chunks <= 0:
-        raise RuntimeError("no 2D app took B5's resident chunk")
-    return {"launches": launches, "chunk_launches": chunks, "err": err}
+    return {"launches": launches, "err": err}
 
 
 def card_state() -> str:
@@ -3624,7 +3697,7 @@ def replay_vs_eager(sim, label: str, chunks: int = DISPATCH_CHUNKS) -> dict:
     k = sim.steps_per_dispatch
     start, bufs = chunk_fields(sim), (sim.f, sim._spare)
     counts = (sim.iterations, sim.stat_counter, sim.stat2_counter)
-    kernels = kernel_counters(sim._step, sim._pair, getattr(sim, "_resident", None))
+    kernels = kernel_counters(sim._step, sim._pair, getattr(sim, "resident", None))
     before, replays = [x.launches for x in kernels], sim.graph_replays
     for _ in range(chunks):
         sim._advance(k)
@@ -3670,6 +3743,7 @@ def warmed(sim, stats: bool = False):
 def dispatch_routes():
     """(label, build) of each route whose graph is held to its eager chunk."""
     from tnl_lbm_tpu_torch.apps import sim2d_3, sim_1, sim_2
+    from torch_cases import resident_route
 
     geo = str(golden_geometries() / "1.txt")
     where = WORK / "dispatch"
@@ -3678,18 +3752,18 @@ def dispatch_routes():
         return lambda: warmed(sim_2.build(2, device=DEVICE, use_fused=True,
                                           results_parent=where / tag, **kw), stats=True)
 
-    def golden(tag, hooked=False, per_step=False):
+    def golden(tag, hooked=False, resident=False):
         sim = sim2d_3.build(1, geo, True, final_time=0.4, results_parent=where / tag,
                             values_dir=where / tag / "values", device=DEVICE)
-        if per_step:
-            per_step_route(sim)
+        if resident:
+            resident_route(sim)
         if hooked:  # the plain u* pass and hook as tensor ops, then B5's force_field
             sim.cfg = hooked_cfg(sim.cfg, NN_BENCH_MODEL, sim.domain.periodic)
         return warmed(sim)
 
     return (
-        ("golden_b5_chunk_sim2d_3_res1", lambda: golden("golden")),
-        ("golden_b5_per_step_sim2d_3_res1", lambda: golden("golden_per_step", per_step=True)),
+        ("golden_b5_sim2d_3_res1", lambda: golden("golden")),
+        ("golden_b5_chunk_sim2d_3_res1", lambda: golden("golden_resident", resident=True)),
         ("hooked_b5_sim2d_3_res1", lambda: golden("hooked_2d", hooked=True)),
         ("sim_2_res2_pairs_f32", sim2("pairs_f32", streaming="AA", pair_dispatch=True)),
         ("sim_2_res2_pairs_f16", sim2("pairs_f16", streaming="AA", storage="f16")),
@@ -3742,10 +3816,11 @@ def checkpoint_roundtrip(label: str, build, extra=()) -> None:
         raise RuntimeError(f"{label}: the resumed run differs from the uninterrupted one: {diffs}")
 
 
-def sweep_row_seconds(rows, chunked: bool, per_step: bool = False) -> list:
+def sweep_row_seconds(rows, chunked: bool, resident: bool = False) -> list:
     """Wall seconds of each golden row (sim2d_3 res 1 to t = 0.4, its
-    build and run) with the chunked dispatch (through the run's route, or
-    B5 per step with ``per_step``) or per step from Python."""
+    build and run) with the chunked dispatch (B5 per step, or each chunk
+    through B5's resident chunk with ``resident``) or per step from
+    Python."""
     from tnl_lbm_tpu_torch.apps import sim2d_3
 
     geos, out = golden_geometries(), []
@@ -3754,8 +3829,10 @@ def sweep_row_seconds(rows, chunked: bool, per_step: bool = False) -> list:
         t0 = time.perf_counter()
         sim = sim2d_3.build(1, str(geos / name), True, final_time=0.4, results_parent=where,
                             values_dir=where / "values", device=DEVICE)
-        if per_step:
-            per_step_route(sim)
+        if resident:  # a parent checkout's torch_cases may lack it: imported here
+            from torch_cases import resident_route
+
+            resident_route(sim)
         if not chunked:
             per_step_only(sim)
         if not sim.run() or sim.iterations != GOLDEN_STEPS:
@@ -3764,19 +3841,20 @@ def sweep_row_seconds(rows, chunked: bool, per_step: bool = False) -> list:
     return out
 
 
-def b5_launch_ms(chunked: bool, per_step: bool = False) -> float:
+def b5_launch_ms(chunked: bool, resident: bool = False) -> float:
     """B5 at 128 x 32 in sim2d_3's run: ms per step from CUDA events over
-    20 chunks of 20 steps through ``_advance``: the run's route (B5's
-    resident chunk where the checkout has it, else a launch per step) or B5
-    per step (``per_step``); the chunk replayed from its graph or run
-    eagerly (a resident chunk: one direct launch)."""
+    20 chunks of 20 steps through ``_advance``: B5 per step, or each chunk
+    one launch of its resident chunk (``resident``); the chunk replayed
+    from its graph or run eagerly (a resident chunk: one direct launch)."""
     from tnl_lbm_tpu_torch.apps import sim2d_3
 
     where = WORK / "sweep_timing" / f"b5_{chunked}_{time.perf_counter_ns()}"
     sim = sim2d_3.build(1, str(golden_geometries() / "1.txt"), True, final_time=10.0,
                         results_parent=where, values_dir=where / "values", device=DEVICE)
-    if per_step:
-        per_step_route(sim)
+    if resident:
+        from torch_cases import resident_route
+
+        resident_route(sim)
     warmed(sim)
     if not chunked:
         eager_chunks(sim)
@@ -3853,13 +3931,13 @@ def phase_dispatch_and_checkpoint() -> dict:
 
     csv_rows = sorted(p.name for p in golden_geometries().glob("*.txt"))[:SWEEP_ROWS]
     walls = {}
-    sweeps = {"resident": (True, False), "per_step_graph": (True, True),
-              "per_step_python": (False, True)}
+    sweeps = {"resident": (True, True), "per_step_graph": (True, False),
+              "per_step_python": (False, False)}
     for route in (*sweeps, *reversed(sweeps)):
         walls.setdefault(route, []).extend(sweep_row_seconds(csv_rows[:SWEEP_ROWS // 2],
                                                              *sweeps[route]))
-    routes = {"resident_graph": (True, False), "resident_direct": (False, False),
-              "per_step_graph": (True, True), "per_step_eager": (False, True)}
+    routes = {"resident_graph": (True, True), "resident_direct": (False, True),
+              "per_step_graph": (True, False), "per_step_eager": (False, False)}
     launch = {r: [] for r in routes}
     for route in (*routes, *reversed(routes)):
         launch[route].append(b5_launch_ms(*routes[route]))
@@ -3987,13 +4065,13 @@ def main() -> int:
         kernels[name] = dataclasses.replace(kernels[name], launches=kernels[name].launches + n)
     t_ibm = time.perf_counter() - t_ibm
     compare_2d_err = phase_compare_2d()
-    golden = phase_golden_2d(ops)
+    golden = phase_golden_2d(built["b5_variants"])
     apps_2d = phase_apps_2d()
     timed_2d = phase_time_2d(floor)
     kernels["d2q9_step"] = dataclasses.replace(
-        timed_2d["kernel"], launches=apps_2d["launches"] + timed_2d["kernel"].launches)
-    kernels["d2q9_chunk"] = dataclasses.replace(
-        golden["chunk"], launches=golden["chunk"].launches + apps_2d["chunk_launches"])
+        timed_2d["kernel"], launches=golden["step"].launches + apps_2d["launches"]
+        + timed_2d["kernel"].launches)
+    kernels["d2q9_chunk"] = golden["chunk"]  # the golden row through resident_route
     hooked_2d = phase_hooked_2d(floor)
     kernels["d2q9_step_force_field"] = hooked_2d["kernel"]
     t_dispatch = time.perf_counter()
@@ -4029,6 +4107,8 @@ def main() -> int:
         if key == "d2q9_chunk":  # at the golden sweep's 128 x 32, GOLDEN_CHUNK steps a launch
             bound_ms, bound_by = chunk_timing["chunk_bound_ms"], chunk_timing["chunk_bound_by"]
             entry.update(shape="128x32", steps_per_launch=GOLDEN_CHUNK,
+                         path="golden row 1 (Bouzidi) with each chunk one launch of it "
+                              "(torch_cases.resident_route); Simulation runs B5 per step",
                          ms_per_step=chunk_timing["chunk_ms_per_step"],
                          sync_floor_ms_per_step=chunk_timing["sync_floor_ms_per_step"],
                          step_ms_per_launch_128x32=chunk_timing["step_event_ms_per_launch"],

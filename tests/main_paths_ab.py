@@ -155,9 +155,9 @@ def golden_sweep(cs) -> dict:
     """The golden sweep's rows as the checkout's sim2d_3 runs them: wall
     seconds per row (build and run, 1440 steps at 128 x 32) over
     GOLDEN_ROWS rows, B5's ms per step from CUDA events over 20 dispatches
-    of 20 steps through ``Simulation._advance`` (the checkout's route: its
-    resident chunk where it has one), and the rows' parts with the
-    collector running and frozen (``golden_row_split``)."""
+    of 20 steps through ``Simulation._advance`` (the checkout's route),
+    and the rows' parts with the collector running and frozen
+    (``golden_row_split``)."""
     rows = sorted(p.name for p in cs.golden_geometries().glob("*.txt"))[:GOLDEN_ROWS]
     walls = cs.sweep_row_seconds(rows, chunked=True)
     split = cs.golden_row_split(rows, f"main_paths_ab {cs.WORK.parents[1].name}")

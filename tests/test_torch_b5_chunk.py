@@ -1,14 +1,12 @@
 """B5's resident chunk (``FusedChunk2D``) on the CPU: its plain version
 against ``n`` plain steps of the D2Q9 kernel's plain version (bit for bit)
 and against the JAX package's ``n``-step scan over ``make_fused_step_2d``
-in interpret mode; the chunk route of ``Simulation`` (which runs take it,
-decided once at ``sim_init``, the buffers it leaves); the size rule and the
-constants it shares with ``csrc/d2q9_step.cu``.  The kernel itself runs on
-the card (``tests/test_torch_gpu.py``)."""
+in interpret mode; the buffers it leaves, alone and for a golden row's
+chunk in a run; the size rule, read from ``csrc/d2q9_step.cu``.  The kernel itself runs on the card
+(``tests/test_torch_gpu.py``)."""
 
 from __future__ import annotations
 
-import dataclasses
 import re
 import subprocess
 import sys
@@ -29,20 +27,15 @@ from tnl_lbm_tpu.utils import Lattice as JLattice
 from tnl_lbm_tpu_torch import interop
 from tnl_lbm_tpu_torch.apps import sim2d_3
 from tnl_lbm_tpu_torch.kernels.fused_2d import (
-    RESIDENT_BYTES_PER_SITE,
-    RESIDENT_CLUSTER,
-    RESIDENT_SMEM_BYTES,
-    RESIDENT_THETA_BYTES,
     FusedChunk2D,
     make_fused_step_2d,
     resident_band,
+    resident_bytes,
     resident_fits,
+    resident_limits,
 )
-from tnl_lbm_tpu_torch.ops.non_newtonian import CarreauYasuda, make_nn_forcing_hook
-from tnl_lbm_tpu_torch.sim import state as state_mod
-from tnl_lbm_tpu_torch.sim.state import Simulation
 
-from torch_cases import FORCE_2D, case_2d, parabolic_2d, seeded_2d
+from torch_cases import FORCE_2D, case_2d, parabolic_2d, resident_route, seeded_2d
 
 ROOT = Path(__file__).resolve().parents[1]
 NU = 0.02
@@ -150,8 +143,6 @@ def test_chunk_refuses_what_it_does_not_take():
     f = seeded_2d(cfg, SHAPE, "cpu")
     with pytest.raises(ValueError, match="at least one step"):
         chunk(f, NU, 0)
-    with pytest.raises(ValueError, match="on the card"):
-        chunk.sync_floor(f, 4, torch.empty_like(f))
     with pytest.raises(NotImplementedError, match="force_field"):
         FusedChunk2D(make_fused_step_2d(cfg, dom, "cpu", force_field=True))
     big = interop.domain_from_numpy(np.zeros((512, 512), np.uint8), (True, True), lat=cfg.lat)
@@ -160,29 +151,29 @@ def test_chunk_refuses_what_it_does_not_take():
 
 
 def test_size_rule_and_the_kernel_constants():
-    """The size rule's constants are the kernel's (csrc/d2q9_step.cu), and
-    the rule admits the golden sweep's 128 x 32 and sim2d_3 res 2 (256 x
-    64), not sim2d_3 res 64 (8192 x 2048)."""
+    """The size rule is the kernel's (csrc/d2q9_step.cu, read from the
+    source: its constants and the layout they give), and it admits the
+    golden sweep's 128 x 32 and sim2d_3 res 2 (256 x 64), not sim2d_3 res 64
+    (8192 x 2048)."""
     src = (ROOT / "tnl_lbm_tpu_torch" / "csrc" / "d2q9_step.cu").read_text()
-
-    def const(name):
-        return eval(re.search(rf"constexpr int {name} = ([^;]+);", src).group(1), {"Q": 9})
-
-    assert const("CHUNK_SMEM_MAX") == RESIDENT_SMEM_BYTES
-    assert const("CHUNK_BYTES_PER_SITE") == RESIDENT_BYTES_PER_SITE == 73
-    assert const("CHUNK_THETA_BYTES") == RESIDENT_THETA_BYTES == 32
-    assert const("CLUSTER_MAX") == RESIDENT_CLUSTER
+    lim = resident_limits()
+    for name in ("CLUSTER_MAX", "CHUNK_SMEM_MAX", "CHUNK_BYTES_PER_SITE", "CHUNK_THETA_BYTES",
+                 "CHUNK_THREADS"):
+        assert re.search(rf"constexpr int {name} = {lim[name]};", src), name
+    assert (lim["CLUSTER_MAX"], lim["CHUNK_SMEM_MAX"]) == (16, 200 * 1024)
+    assert lim["CHUNK_BYTES_PER_SITE"] == 2 * 9 * 4 + 1 and lim["CHUNK_THETA_BYTES"] == 8 * 4
     assert resident_band((128, 32)) == 8 and resident_band((130, 32)) == 9
+    assert resident_bytes((128, 32), thetas=True) == 26880
+    assert resident_bytes((256, 64), thetas=True) == 107520
     for thetas in (False, True):
         assert resident_fits((128, 32), thetas=thetas) and resident_fits((256, 64), thetas=thetas)
         assert not resident_fits((8192, 2048), thetas=thetas)
-        assert not resident_fits((128, 32), cluster=RESIDENT_CLUSTER + 1, thetas=thetas)
     assert resident_fits((208, 208)) and not resident_fits((209, 209))
     assert resident_fits((176, 176), thetas=True) and not resident_fits((177, 177), thetas=True)
     assert resident_fits((16, 2800)) and not resident_fits((17, 2800))
 
 
-# ------------------------------------------------------------------ the route
+# ------------------------------------------------- the chunk in a run
 
 def golden_sim(tmp_path, tag, geos, **kw):
     return sim2d_3.build(1, str(geos / "1.txt"), True, final_time=0.4,
@@ -198,82 +189,27 @@ def geos(tmp_path_factory):
     return out
 
 
-def test_route_is_decided_once_at_sim_init(tmp_path, geos, monkeypatch):
-    """sim2d_3 res 1 takes the resident chunk: the rule (``resident_fits``)
-    runs once, at sim_init, and never per chunk; each chunk is one chunk
-    call and ``n`` of the step's plain calls, as per step."""
-    calls = []
-    real = state_mod.resident_fits
-    monkeypatch.setattr(state_mod, "resident_fits",
-                        lambda shape, **kw: calls.append(shape) or real(shape, **kw))
-    sim = golden_sim(tmp_path, "once", geos)
-    sim.sim_init()
-    assert isinstance(sim._resident, FusedChunk2D) and calls == [(128, 32)]
-    for _ in range(3):
-        sim._advance(20)
-    assert calls == [(128, 32)] and sim._resident.plain_calls == 3
-    assert sim._step.plain_calls == 60 and sim.iterations == 60
-    log = (sim.results_dir / "log_main").read_text()
-    assert "chunk route: B5's resident chunk" in log
-
-
-def test_route_keeps_per_step_where_the_rule_says(tmp_path, geos):
-    """Per-step launches: a chunk with a statistics window on (the route is
-    still built, the chunk does not take it), a forcing hook (the hooked
-    step, no resident chunk), a lattice over the size rule, the plain step
-    without ``use_fused``, and the single steps the gate refuses."""
-    sim = golden_sim(tmp_path, "stats", geos)
-    sim.sim_init()
-    sim.collect_stats = True
-    sim._alloc_stats()
-    sim._advance(8)
-    assert sim._resident.plain_calls == 0 and sim._step.plain_calls == 8
-    sim.collect_stats = False
-    sim._advance(3)  # under the gate's 4 steps: single steps
-    assert sim._resident.plain_calls == 0 and sim._step.plain_calls == 11
-    sim._advance(4)
-    assert sim._resident.plain_calls == 1 and sim._step.plain_calls == 15
-
-    plain = golden_sim(tmp_path, "plain", geos, use_fused=False)
-    plain.sim_init()
-    assert plain._resident is None
-
-    m, periodic, bz = case_2d("channel", (640, 80))
-    cfg = interop.config_2d_from_spec("CLBM")
-    dom = interop.domain_from_numpy(m, periodic, lat=cfg.lat, bouzidi=bz, phys_viscosity=0.02)
-    big = Simulation(cfg, dom, device="cpu", sim_id="big", results_parent=tmp_path,
-                     steps_per_dispatch=8, use_fused=True)
-    big.sim_init()
-    assert not resident_fits(dom.shape) and big._resident is None
-    assert "over the size rule" in (big.results_dir / "log_main").read_text()
-
-    small = interop.domain_from_numpy(*case_2d("channel", (16, 16))[:2], lat=cfg.lat,
-                                      phys_viscosity=0.02)
-    hooked_cfg = dataclasses.replace(cfg, forcing_hook=make_nn_forcing_hook(
-        CarreauYasuda(0.1, 1.0, 2.0, 0.5), periodic=small.periodic))
-    hooked = Simulation(hooked_cfg, small, device="cpu", sim_id="hooked", results_parent=tmp_path,
-                        steps_per_dispatch=8, use_fused=True)
-    hooked.sim_init()
-    assert hooked._resident is None
-    assert "a forcing hook" in (hooked.results_dir / "log_main").read_text()
-
-
 @pytest.mark.parametrize("n", [5, 8])
 def test_route_leaves_the_per_step_buffers(tmp_path, geos, n):
-    """After a resident chunk, ``(sim.f, sim._spare)`` are the tensors the
-    per-step route leaves - swapped after an odd chunk, in place after an
-    even one - and hold the same fields bit for bit."""
+    """A golden row's chunk through the resident chunk (``resident_route``,
+    the card's checks and timings of the kernel in a run) leaves
+    ``(sim.f, sim._spare)`` as the run's per-step chunk does - swapped after
+    an odd chunk, in place after an even one - with the same fields bit for
+    bit: one chunk call, ``n`` plain steps."""
     runs = {}
     for resident in (True, False):
         sim = golden_sim(tmp_path, f"bufs_{resident}_{n}", geos)
+        if resident:
+            resident_route(sim)
         sim.sim_init()
-        if not resident:
-            sim._resident = None
         start = (sim.f, sim._spare)
         sim._advance(n)
         swapped = sim.f is start[1] and sim._spare is start[0]
         same = sim.f is start[0] and sim._spare is start[1]
         runs[resident] = (swapped, same, sim.f.clone(), sim.rho.clone(), sim.u.clone())
+        assert sim._step.plain_calls == n
+        if resident:
+            assert sim.resident.plain_calls == 1
     assert runs[True][:2] == runs[False][:2] == ((True, False) if n % 2 else (False, True))
     for a, b in zip(runs[True][2:], runs[False][2:]):
         assert torch.equal(a, b)

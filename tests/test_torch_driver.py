@@ -121,6 +121,29 @@ def seeded(shape, lat, seed=3):
     return eqlib.eq_quadratic(lat, rho, u).numpy()
 
 
+# ------------------------------------------------------ memory preflight
+
+@pytest.mark.parametrize("free_bytes,fits", [(10 ** 12, True), (10 ** 3, False)],
+                         ids=["fits", "refused"])
+def test_memory_preflight_asks_the_card_for_every_state(tmp_path, monkeypatch, free_bytes,
+                                                        fits):
+    """The preflight (reference state.hpp:819-877) asks the card for its free
+    memory whatever the state's size (a 32 x 16 channel here) and refuses a
+    state above 0.9 of it with a MemoryError that names both."""
+    sim = port_channel(tmp_path)
+    asked = []
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev: asked.append(dev) or (free_bytes, 2 * free_bytes))
+    sim.device = torch.device("cuda", 0)
+    if fits:
+        info = sim.estimate_memory_demands()
+        assert info["device_free"] == free_bytes and 0 < info["total_bytes"] < 10 ** 5
+    else:
+        with pytest.raises(MemoryError, match="would not fit"):
+            sim.estimate_memory_demands()
+    assert asked == [torch.device("cuda", 0)]
+
+
 # ------------------------------------------------------ chunk vs per step
 
 @pytest.mark.parametrize("case", ["d2q9_channel", "aa_box_force", "aa_box_pairs",

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from tnl_lbm_tpu_torch import interop
-from tnl_lbm_tpu_torch.kernels import probes
+from tnl_lbm_tpu_torch.kernels import fused_2d, probes
 from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
 from tnl_lbm_tpu_torch.kernels.fused_2d import FusedChunk2D, make_fused_step_2d
 from tnl_lbm_tpu_torch.kernels.fused_aa import (
@@ -51,6 +51,7 @@ from torch_cases import (
     parabolic_2d,
     resident_case_2d,
     resident_inflow,
+    resident_route,
     seeded_2d,
     seeded_ade,
     separated_faster,
@@ -938,10 +939,10 @@ def test_resident_chunk_equals_per_step_launches(cuda, instance, kind, res, n):
         assert float((k - p).abs().max()) <= 1e-5
 
 
-def test_resident_chunk_refuses_and_the_run_keeps_per_step(cuda, tmp_path):
-    """A lattice over the size rule: the wrapper raises, ``Simulation`` keeps
-    per-step launches (replayed from its graphs); a cluster the kernel does
-    not take raises at the launch; the geometry of 128 x 32 on the card."""
+def test_resident_chunk_refuses_and_the_run_keeps_per_step(cuda, tmp_path, monkeypatch):
+    """A lattice over the size rule: the wrapper raises, ``Simulation`` runs
+    per-step launches (replayed from its graphs); a launch the kernel's own
+    check refuses raises; the geometry of 128 x 32 on the card."""
     from tnl_lbm_tpu_torch.sim.state import Simulation
 
     cfg = interop.config_2d_from_spec("CLBM")
@@ -954,41 +955,42 @@ def test_resident_chunk_refuses_and_the_run_keeps_per_step(cuda, tmp_path):
     sim.sim_init()
     for _ in range(4):
         sim._advance(8)
-    assert sim._resident is None and sim._step.kernel.launches == 32 and sim.graph_replays == 3
+    assert sim._step.kernel.launches == 32 and sim.graph_replays == 3
     m, periodic, bz = resident_case_2d("ring", 1)
     chunk = FusedChunk2D(make_fused_step_2d(cfg, interop.domain_from_numpy(
         m, periodic, lat=cfg.lat, bouzidi=bz), cuda))
     geo = chunk.geometry()
     assert (geo["rows"], geo["threads"], geo["smem_bytes"]) == (8, 256, 26880)
-    assert geo["active_clusters"] >= 1
-    f = seeded_2d(cfg, m.shape, cuda)
-    chunk.cluster = 17
-    with pytest.raises(RuntimeError, match="launch failed"):
-        chunk(f, 0.02, 4, u_in=U_IN_2D)
+    assert geo["active_clusters"] >= 1 and geo["cluster"] == 16
+    monkeypatch.setattr(fused_2d, "resident_fits", lambda shape, thetas=False: True)
+    chunk = FusedChunk2D(make_fused_step_2d(cfg, dom, cuda))  # past the Python rule
+    with pytest.raises(RuntimeError, match="launch failed"):  # the C side refuses the launch
+        chunk(seeded_2d(cfg, dom.shape, cuda), 0.02, 4)
     assert chunk.kernel.launches == 0
 
 
 def test_resident_route_in_a_run_on_card(cuda, tmp_path):
-    """``Simulation`` on a D2Q9 channel without statistics takes the resident
-    chunk: chunks replayed from graphs equal the same chunks eager and the
-    per-step route's, bit for bit; a replay adds one launch and the chunk's
-    steps; the step kernel is not launched."""
+    """A D2Q9 channel's chunks without statistics through the resident chunk
+    (``resident_route``): chunks replayed from graphs equal the same chunks
+    eager and the run's own per-step chunks, bit for bit; a replay adds the
+    chunk's one launch; the step kernel is not launched.  ``Simulation``
+    alone launches the step kernel per step."""
     runs = {}
     for route in ("resident", "per_step"):
-        sim = driver_run("b5", tmp_path / route, stats=False)
-        if route == "per_step":
-            sim._resident = None
+        sim = driver_run("b5", tmp_path / route, stats=False, resident=route == "resident")
         for _ in range(3):
             sim._advance(8)
         runs[route] = sim
+    assert runs["per_step"]._step.kernel.launches == 24 and not hasattr(runs["per_step"],
+                                                                         "resident")
     sim = runs["resident"]
-    assert sim._step.kernel.launches == 0 and sim._resident.kernel.launches == 3
-    assert sim._resident.steps == 24 and sim.graph_replays == 2
+    assert sim._step.kernel.launches == 0 and sim.resident.kernel.launches == 3
+    assert sim.graph_replays == 2
     assert torch.equal(sim.f, runs["per_step"].f) and torch.equal(sim.u, runs["per_step"].u)
     start, bufs, it = fields(sim), (sim.f, sim._spare), sim.iterations
     for _ in range(2):
         sim._advance(8)
-    assert sim._resident.kernel.launches == 5 and sim._resident.steps == 40
+    assert sim.resident.kernel.launches == 5
     graph = fields(sim)
     sim.f, sim._spare = bufs
     for name, t in start.items():
@@ -997,7 +999,7 @@ def test_resident_route_in_a_run_on_card(cuda, tmp_path):
     sim._graph_chunk = sim._chunk
     for _ in range(2):
         sim._advance(8)
-    assert sim._resident.kernel.launches == 7 and sim._step.kernel.launches == 0
+    assert sim.resident.kernel.launches == 7 and sim._step.kernel.launches == 0
     for name, t in graph.items():
         assert torch.equal(t, getattr(sim, name)), name
 
@@ -1032,11 +1034,12 @@ def test_bench_entry_on_card(cuda, kernel, capsys):
 
 # ----------------------------------------- the chunked dispatch as CUDA graphs
 
-def driver_run(case, where, stats=True):
+def driver_run(case, where, stats=True, resident=False):
     """A small ``Simulation`` on the card through one route: B5 on a D2Q9
     channel, B4 on sim_2's duct under A-B, B2/B3 per step and B1 in pairs
     under A-A; 8-step chunks with a body force, both statistics windows on
-    (``stats``)."""
+    (``stats``); B5's chunks through its resident chunk (``resident``,
+    ``torch_cases.resident_route``)."""
     from tnl_lbm_tpu_torch.sim.state import Simulation
 
     force = FORCE_2D if case == "b5" else (1e-5, 0.0, 0.0)
@@ -1060,6 +1063,8 @@ def driver_run(case, where, stats=True):
     sim = Run(cfg, dom, device="cuda", sim_id=case, results_parent=where, steps_per_dispatch=8,
               use_fused=True, pair_dispatch=case == "b1")
     sim.collect_stats = sim.collect_stats2 = stats
+    if resident:
+        resident_route(sim)
     sim.sim_init()
     return sim
 

@@ -418,17 +418,20 @@ namespace d2q9 {
 
 namespace cg = cooperative_groups;
 
+// The chunk's size rule.  kernels/fused_2d.py (resident_limits) reads these
+// constants from this file, so they stay integer literals.
 // threads per block of the chunk, at most (one site per thread per pass)
 constexpr int CHUNK_THREADS = 512;
-// blocks per cluster, at most (16 is non-portable; H100 takes it)
+// blocks of the cluster, one per SM (16: the most an H100 takes, non-portable)
 constexpr int CLUSTER_MAX = 16;
-// dynamic shared memory a chunk block may hold; the size rule of
-// kernels/fused_2d.py (RESIDENT_SMEM_BYTES) is this constant
-constexpr int CHUNK_SMEM_MAX = 200 * 1024;
+// dynamic shared memory a chunk block may hold (200 KB)
+constexpr int CHUNK_SMEM_MAX = 204800;
 // shared memory per site: two copies of the 9 f32 DFs and the map byte,
 // and with Bouzidi thetas their 8 f32
-constexpr int CHUNK_BYTES_PER_SITE = 2 * Q * 4 + 1;
-constexpr int CHUNK_THETA_BYTES = (Q - 1) * 4;
+constexpr int CHUNK_BYTES_PER_SITE = 73;
+constexpr int CHUNK_THETA_BYTES = 32;
+static_assert(CHUNK_BYTES_PER_SITE == 2 * Q * 4 + 1 && CHUNK_THETA_BYTES == (Q - 1) * 4,
+              "the chunk's shared-memory layout");
 
 __host__ __device__ inline long long chunk_smem(int R, int Y, bool thetas) {
   return (long long)R * Y * (CHUNK_BYTES_PER_SITE + (thetas ? CHUNK_THETA_BYTES : 0));
@@ -453,9 +456,7 @@ struct BandSrc {
   __device__ __forceinline__ float here(int q) const { return row[1][q * P + y]; }
 };
 
-// SYNC_ONLY: the chunk with the site update taken out (the band loaded,
-// n cluster barriers, the loaded DFs stored): its sync floor.
-template <int COLL, bool FORCE, bool SYNC_ONLY>
+template <int COLL, bool FORCE>
 __device__ __forceinline__ void chunk(const float* f, float* fout,
                                       const uint8_t* __restrict__ map, float* __restrict__ rho_out,
                                       float* __restrict__ u_out, int X, int Y, int R,
@@ -506,14 +507,7 @@ __device__ __forceinline__ void chunk(const float* f, float* fout,
     src.Y = Y;
     src.py = py;
     float v[Q], rho, ux, uy;
-    if constexpr (SYNC_ONLY) {
-#pragma unroll
-      for (int q = 0; q < Q; ++q) v[q] = src.here(q);
-      rho = 1.0f;
-      ux = uy = 0.0f;
-    } else {
-      update<COLL, FORCE>(src, smap[j], x, y, X, Y, N, base + j, p, v, rho, ux, uy);
-    }
+    update<COLL, FORCE>(src, smap[j], x, y, X, Y, N, base + j, p, v, rho, ux, uy);
     if (last) {
       const int64_t s = base + j;
 #pragma unroll
@@ -534,13 +528,11 @@ __device__ __forceinline__ void chunk(const float* f, float* fout,
   // or overwrites what they read.
   for (int it = 0; it < n_steps; ++it) {
     const int cur = (it & 1) * Q * P;
-    const bool last = it == n_steps - 1, work = !SYNC_ONLY || last;
-    if (work)
-      for (int k = threadIdx.x; k < edge; k += blockDim.x) step_site(band_site(k), cur, last);
+    const bool last = it == n_steps - 1;
+    for (int k = threadIdx.x; k < edge; k += blockDim.x) step_site(band_site(k), cur, last);
     asm volatile("barrier.cluster.arrive;\n" ::: "memory");
-    if (work)
-      for (int k = threadIdx.x; k < sites; k += blockDim.x)
-        if (k >= edge) step_site(band_site(k), cur, last);
+    for (int k = threadIdx.x; k < sites; k += blockDim.x)
+      if (k >= edge) step_site(band_site(k), cur, last);
     __syncthreads();
     asm volatile("barrier.cluster.wait;\n" ::: "memory");
   }
@@ -549,28 +541,25 @@ __device__ __forceinline__ void chunk(const float* f, float* fout,
 }  // namespace d2q9
 
 // f and fout carry no __restrict__: an even chunk stores into f itself.
-#define D2Q9_CHUNK_KERNEL(NAME, COLL, FORCE, SYNC_ONLY)                                       \
+#define D2Q9_CHUNK_KERNEL(NAME, COLL, FORCE)                                                  \
   extern "C" __global__ void __launch_bounds__(d2q9::CHUNK_THREADS, 1)                        \
       NAME(const float* f, float* fout, const uint8_t* __restrict__ map,                       \
            float* __restrict__ rho, float* __restrict__ u, int X, int Y, int R,                \
            int periodic_bits, int n_steps, d2q9::Params p) {                                   \
-    d2q9::chunk<COLL, FORCE, SYNC_ONLY>(f, fout, map, rho, u, X, Y, R, periodic_bits, n_steps, \
-                                        p);                                                    \
+    d2q9::chunk<COLL, FORCE>(f, fout, map, rho, u, X, Y, R, periodic_bits, n_steps, p);       \
   }
 
-D2Q9_CHUNK_KERNEL(d2q9_chunk_srt_kernel, d2q9::SRT, false, false)
-D2Q9_CHUNK_KERNEL(d2q9_chunk_srt_force_kernel, d2q9::SRT, true, false)
-D2Q9_CHUNK_KERNEL(d2q9_chunk_clbm_kernel, d2q9::CLBM, false, false)
-D2Q9_CHUNK_KERNEL(d2q9_chunk_sync_floor_kernel, d2q9::SRT, false, true)
+D2Q9_CHUNK_KERNEL(d2q9_chunk_srt_kernel, d2q9::SRT, false)
+D2Q9_CHUNK_KERNEL(d2q9_chunk_srt_force_kernel, d2q9::SRT, true)
+D2Q9_CHUNK_KERNEL(d2q9_chunk_clbm_kernel, d2q9::CLBM, false)
 
 namespace {
 
 using ChunkKernel = void (*)(const float*, float*, const uint8_t*, float*, float*, int, int, int,
                              int, int, d2q9::Params);
-// variant 0-2 as tnl_lbm_d2q9_step's; 3 the sync floor
-const ChunkKernel CHUNK_KERNELS[4] = {d2q9_chunk_srt_kernel, d2q9_chunk_srt_force_kernel,
-                                          d2q9_chunk_clbm_kernel,
-                                          d2q9_chunk_sync_floor_kernel};
+// variant 0-2 as tnl_lbm_d2q9_step's
+const ChunkKernel CHUNK_KERNELS[3] = {d2q9_chunk_srt_kernel, d2q9_chunk_srt_force_kernel,
+                                      d2q9_chunk_clbm_kernel};
 
 // Shared memory above 48 KB and clusters above 8 blocks are opt-ins.
 cudaError_t chunk_opt_in() {
@@ -585,14 +574,14 @@ cudaError_t chunk_opt_in() {
   return cudaSuccess;
 }
 
-// The launch of `cluster` blocks with the band R of an X x Y lattice, or an
-// error for what the kernel does not take.
-cudaError_t chunk_config(int X, int Y, int cluster, bool thetas, int* R,
-                         cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, void* stream) {
+// The launch of a cluster of CLUSTER_MAX blocks with the band R of an X x Y
+// lattice, or an error for what the kernel does not take.
+cudaError_t chunk_config(int X, int Y, bool thetas, int* R, cudaLaunchConfig_t* cfg,
+                         cudaLaunchAttribute* attr, void* stream) {
   static const cudaError_t opted = chunk_opt_in();
   if (opted != cudaSuccess) return opted;
-  if (X < 1 || Y < 1 || cluster < 1 || cluster > d2q9::CLUSTER_MAX)
-    return cudaErrorInvalidValue;
+  if (X < 1 || Y < 1) return cudaErrorInvalidValue;
+  constexpr int cluster = d2q9::CLUSTER_MAX;
   *R = (X + cluster - 1) / cluster;
   const long long smem = d2q9::chunk_smem(*R, Y, thetas);
   if (smem > d2q9::CHUNK_SMEM_MAX) return cudaErrorInvalidValue;
@@ -614,44 +603,40 @@ cudaError_t chunk_config(int X, int Y, int cluster, bool thetas, int* R,
 
 }  // namespace
 
-// n_steps (>= 1) A-B steps of the D2Q9 lattice in one cluster launch of
-// `cluster` blocks; arguments as tnl_lbm_d2q9_step's (variants 0-2; the
-// force_field variants run per step).  The state after the last step goes
-// to fout, which may be f; rho and u are the last step's.  sync_floor: the
-// sync floor kernel instead (its outputs are not a step).  Returns the CUDA
-// error of the launch: cudaErrorInvalidValue for a variant, size or
-// cluster the kernel does not take, the runtime's error where the card
-// refuses the cluster.
+// n_steps (>= 1) A-B steps of the D2Q9 lattice in one cluster launch;
+// arguments as tnl_lbm_d2q9_step's (variants 0-2; the force_field variants
+// run per step).  The state after the last step goes to fout, which may be
+// f; rho and u are the last step's.  Returns the CUDA error of the launch:
+// cudaErrorInvalidValue for a variant or size the kernel does not take, the
+// runtime's error where the card refuses the cluster.
 extern "C" int tnl_lbm_d2q9_chunk(const float* f, float* fout, const uint8_t* map,
                                   const float* bz, const float* uin, long long uin_sc,
                                   long long uin_sx, long long uin_sy, float* rho, float* u, int X,
                                   int Y, int pbits, int variant, float nu, float fx, float fy,
-                                  float uin_x, float uin_y, int n_steps, int cluster,
-                                  int sync_floor, void* stream) {
+                                  float uin_x, float uin_y, int n_steps, void* stream) {
   if (variant < 0 || variant > 2 || n_steps < 1) return static_cast<int>(cudaErrorInvalidValue);
   int R;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t rc = chunk_config(X, Y, cluster, bz != nullptr, &R, &cfg, &attr, stream);
+  cudaError_t rc = chunk_config(X, Y, bz != nullptr, &R, &cfg, &attr, stream);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const d2q9::Params p{1.0f / (3.0f * nu + 0.5f), fx, fy, uin_x, uin_y, uin,
                        uin_sc, uin_sx, uin_sy, bz};
-  rc = cudaLaunchKernelEx(&cfg, CHUNK_KERNELS[sync_floor ? 3 : variant], f, fout, map, rho, u, X,
-                          Y, R, pbits, n_steps, p);
+  rc = cudaLaunchKernelEx(&cfg, CHUNK_KERNELS[variant], f, fout, map, rho, u, X, Y, R, pbits,
+                          n_steps, p);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The chunk's launch geometry for an X x Y lattice (with Bouzidi thetas
-// or not) and `cluster` blocks: out[0] the band's rows R, out[1] threads
-// per block, out[2] dynamic shared memory bytes, out[3] the clusters of that
-// shape the card can hold at once (0: it cannot launch one).  Returns the
-// CUDA error.
-extern "C" int tnl_lbm_d2q9_chunk_info(int X, int Y, int cluster, int thetas, int* out) {
+// or not): out[0] the band's rows R, out[1] threads per block, out[2]
+// dynamic shared memory bytes, out[3] the clusters of that shape the card
+// can hold at once (0: it cannot launch one).  Returns the CUDA error.
+extern "C" int tnl_lbm_d2q9_chunk_info(int X, int Y, int thetas, int* out) {
   int R;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t rc = chunk_config(X, Y, cluster, thetas != 0, &R, &cfg, &attr, nullptr);
+  cudaError_t rc = chunk_config(X, Y, thetas != 0, &R, &cfg, &attr, nullptr);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   int clusters = 0;
   rc = cudaOccupancyMaxActiveClusters(&clusters, CHUNK_KERNELS[2], &cfg);

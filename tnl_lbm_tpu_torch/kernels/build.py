@@ -112,9 +112,8 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_coupled_ab.argtypes = [p] * 11 + [i] * 7 + [f] * 7 + [i] + [f] * 3 + [p]
     lib.tnl_lbm_coupled_aa.argtypes = [p] * 10 + [i] * 10 + [f] * 7 + [i] + [f] * 2 + [p]
     lib.tnl_lbm_d2q9_step.argtypes = [p] * 6 + [ll] * 3 + [p, p] + [i] * 4 + [f] * 5 + [p]
-    lib.tnl_lbm_d2q9_chunk.argtypes = ([p] * 5 + [ll] * 3 + [p, p] + [i] * 4 + [f] * 5
-                                       + [i] * 3 + [p])
-    lib.tnl_lbm_d2q9_chunk_info.argtypes = [i, i, i, i, p]
+    lib.tnl_lbm_d2q9_chunk.argtypes = [p] * 5 + [ll] * 3 + [p, p] + [i] * 4 + [f] * 5 + [i, p]
+    lib.tnl_lbm_d2q9_chunk_info.argtypes = [i, i, i, p]
     lib.tnl_lbm_nn_force.argtypes = [p] * 4 + [i] * 5 + [f] * 7 + [p]
     lib.tnl_lbm_nn_step.argtypes = [p] * 5 + [i] * 8 + [f] * 7 + [i, i] + [f] * 6 + [p]
     lib.tnl_lbm_nn_info.argtypes = [i, i, i, i, p]

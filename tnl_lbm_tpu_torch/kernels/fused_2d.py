@@ -14,17 +14,22 @@ per site has no such bound, so the estimate is not ported.
 driver's ``lax.scan`` over that whole-field kernel: ``n`` steps in one
 launch on a lattice resident in the shared memory of one thread-block
 cluster, for lattices within ``resident_fits`` (the golden sweep's
-128 x 32).  Its plain version is ``n`` plain steps.
+128 x 32).  Its plain version is ``n`` plain steps.  ``Simulation`` runs
+its chunks per step: at 128 x 32 the host's dispatch of a chunk, not the
+kernel, sets the time, and the resident chunk gained nothing end to end
+(PERF.md §6).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
 
 import numpy as np
 import torch
 
-from tnl_lbm_tpu_torch.kernels.build import load_library
+from tnl_lbm_tpu_torch.kernels.build import CSRC, load_library
 from tnl_lbm_tpu_torch.kernels.fused import (
     CudaKernel,
     _stream_bc_collide,
@@ -51,17 +56,6 @@ _VARIANTS = {(col2.collide_srt_2d, False): 0, (col2.collide_srt_2d, True): 1,
 _FF_VARIANTS = {col2.collide_srt_2d: 3, col2.collide_clbm_2d: 4}
 #: CUDA grid limit on the y block index, which carries X
 _MAX_GRID_Y = 65535
-#: the resident chunk's size rule: the shared memory one block of its
-#: cluster may hold (csrc/d2q9_step.cu CHUNK_SMEM_MAX)
-RESIDENT_SMEM_BYTES = 200 * 1024
-#: shared memory per site: two copies of the 9 float32 DFs and the map byte
-#: (csrc/d2q9_step.cu CHUNK_BYTES_PER_SITE), and on a lattice with Bouzidi
-#: thetas their 8 float32 (CHUNK_THETA_BYTES)
-RESIDENT_BYTES_PER_SITE = 2 * 9 * 4 + 1
-RESIDENT_THETA_BYTES = 8 * 4
-#: blocks of the resident chunk's cluster, one per SM, each holding a band of
-#: ceil(X / RESIDENT_CLUSTER) x rows (16: the most an H100 takes, non-portable)
-RESIDENT_CLUSTER = 16
 
 
 def _refusal(cfg: LBMConfig, domain: Domain, codes=None) -> str | None:
@@ -111,21 +105,36 @@ def _vector2(value, what: str) -> tuple[float, float]:
     return tuple(float(v) for v in arr.astype(np.float32))
 
 
-def resident_band(shape, cluster: int = RESIDENT_CLUSTER) -> int:
+@functools.cache
+def resident_limits() -> dict:
+    """The resident chunk's size rule as ``csrc/d2q9_step.cu`` states it,
+    read from that source: ``CLUSTER_MAX`` blocks, each holding a band of
+    x rows in at most ``CHUNK_SMEM_MAX`` bytes of shared memory, at
+    ``CHUNK_BYTES_PER_SITE`` a site plus ``CHUNK_THETA_BYTES`` with Bouzidi
+    thetas."""
+    src = (CSRC / "d2q9_step.cu").read_text()
+    return {name: int(v) for name, v in
+            re.findall(r"constexpr int (CLUSTER_MAX|CHUNK_\w+) = (\d+);", src)}
+
+
+def resident_band(shape) -> int:
     """The x rows of one block's band in the resident chunk."""
-    return -(-int(shape[0]) // cluster)
+    return -(-int(shape[0]) // resident_limits()["CLUSTER_MAX"])
 
 
-def resident_fits(shape, cluster: int = RESIDENT_CLUSTER, thetas: bool = False) -> bool:
-    """The size rule of the resident chunk: a block's band, at
-    ``RESIDENT_BYTES_PER_SITE`` a site (plus ``RESIDENT_THETA_BYTES`` with
-    Bouzidi thetas), fits ``RESIDENT_SMEM_BYTES`` (128 x 32 with thetas takes
-    26 880 B a block, 256 x 64 107 520 B; the largest square lattice is
-    176 x 176 with thetas, 208 x 208 without)."""
-    X, Y = (int(n) for n in shape)
-    per_site = RESIDENT_BYTES_PER_SITE + (RESIDENT_THETA_BYTES if thetas else 0)
-    return 1 <= cluster <= RESIDENT_CLUSTER and resident_band(
-        (X, Y), cluster) * Y * per_site <= RESIDENT_SMEM_BYTES
+def resident_bytes(shape, thetas: bool = False) -> int:
+    """Shared memory of one block of the resident chunk (128 x 32 with
+    thetas takes 26 880 B, 256 x 64 107 520 B)."""
+    lim = resident_limits()
+    per_site = lim["CHUNK_BYTES_PER_SITE"] + (lim["CHUNK_THETA_BYTES"] if thetas else 0)
+    return resident_band(shape) * int(shape[1]) * per_site
+
+
+def resident_fits(shape, thetas: bool = False) -> bool:
+    """The size rule of the resident chunk: a block's band fits
+    ``CHUNK_SMEM_MAX`` (the largest square lattice is 176 x 176 with
+    thetas, 208 x 208 without)."""
+    return resident_bytes(shape, thetas) <= resident_limits()["CHUNK_SMEM_MAX"]
 
 
 class FusedStep2D:
@@ -292,8 +301,8 @@ class FusedChunk2D:
     -> (f_new, rho, u)``: ``n_steps`` A-B steps of ``step`` (a
     :class:`FusedStep2D` without ``force_field``; its map, thetas, inflow
     and force arguments) in one launch of ``csrc/d2q9_step.cu``'s resident
-    chunk: a cluster of ``cluster`` blocks holds the lattice in its shared
-    memory for the whole chunk.
+    chunk: a cluster of 16 blocks holds the lattice in its shared memory for
+    the whole chunk.
 
     The state after the last step lands where the per-step ping-pong of f
     and ``out`` leaves it: in ``out`` after an odd ``n_steps``, in ``f``
@@ -306,21 +315,20 @@ class FusedChunk2D:
     too.  ``kernel`` counts its launches, ``steps`` the steps they ran,
     ``plain_calls`` the CPU-path chunks."""
 
-    def __init__(self, step: FusedStep2D, cluster: int = RESIDENT_CLUSTER):
+    def __init__(self, step: FusedStep2D):
         if step.force_field:
             raise NotImplementedError("the resident chunk takes the plain variants; the "
                                       "force_field step runs per step (its hook runs between "
                                       "steps)")
         thetas = step.thetas is not None
-        if not resident_fits(step.shape, cluster, thetas):
-            per_site = RESIDENT_BYTES_PER_SITE + (RESIDENT_THETA_BYTES if thetas else 0)
+        if not resident_fits(step.shape, thetas):
+            lim = resident_limits()
             raise ValueError(
                 f"a {step.shape[0]}x{step.shape[1]} lattice does not fit the resident chunk's "
-                f"cluster of {cluster} blocks: {resident_band(step.shape, cluster)} rows of "
-                f"{step.shape[1]} sites at {per_site} B a site per block, over "
-                f"{RESIDENT_SMEM_BYTES} B")
+                f"cluster of {lim['CLUSTER_MAX']} blocks: {resident_band(step.shape)} rows of "
+                f"{step.shape[1]} sites take {resident_bytes(step.shape, thetas)} B a block, "
+                f"over {lim['CHUNK_SMEM_MAX']} B")
         self.step = step
-        self.cluster = cluster
         self.kernel = CudaKernel("d2q9_chunk", "tnl_lbm_tpu_torch/csrc/d2q9_step.cu",
                                  "tnl_lbm_tpu/kernels/fused_2d.py:244")
         self.steps = 0
@@ -345,7 +353,7 @@ class FusedChunk2D:
                 cur, nxt = new, cur
             return cur, rho, u
         fout = torch.empty_like(f) if out is None else (out if n % 2 else f)
-        return self._launch(f, fout, float(nu), n, u_in, force, macro_out, sync_floor=False)
+        return self._launch(f, fout, float(nu), n, u_in, force, macro_out)
 
     def plain(self, f, nu, n_steps: int, u_in=None, force=None):
         """The chunk's plain version on f's device: ``n_steps`` plain steps
@@ -355,30 +363,19 @@ class FusedChunk2D:
             f, rho, u = self.step.plain(f, nu, u_in=u_in, force=force)
         return f, rho, u
 
-    def sync_floor(self, f, n_steps: int, out, macro_out=None):
-        """The chunk's kernel with the site update taken out (the band
-        loaded, ``n_steps`` cluster barriers, the loaded DFs stored to
-        ``out``): the time its barriers take.  A measurement on the card,
-        not a step: it counts nothing."""
-        if f.device.type != "cuda":
-            raise ValueError("the sync floor is a measurement on the card")
-        check_out(out, f)
-        return self._launch(f, out, 0.02, int(n_steps), None, None, macro_out, sync_floor=True)
-
     def geometry(self) -> dict:
         """The launch on the card: the band's rows, threads and shared memory
         per block, and how many such clusters the card holds at once (0:
         it cannot launch one)."""
         out = (ctypes.c_int * 4)()
         X, Y = self.step.shape
-        rc = load_library().tnl_lbm_d2q9_chunk_info(X, Y, self.cluster,
-                                                    int(self.step.thetas is not None), out)
+        rc = load_library().tnl_lbm_d2q9_chunk_info(X, Y, int(self.step.thetas is not None), out)
         if rc != 0:
             raise RuntimeError(f"d2q9_chunk_info failed: CUDA error {rc}")
-        return {"cluster": self.cluster, "rows": out[0], "threads": out[1],
+        return {"cluster": resident_limits()["CLUSTER_MAX"], "rows": out[0], "threads": out[1],
                 "smem_bytes": out[2], "active_clusters": out[3]}
 
-    def _launch(self, f, fout, nu, n, u_in, force, macro_out, sync_floor):
+    def _launch(self, f, fout, nu, n, u_in, force, macro_out):
         step = self.step
         step.check_state(f)
         X, Y = step.shape
@@ -392,14 +389,14 @@ class FusedChunk2D:
         rc = load_library().tnl_lbm_d2q9_chunk(
             f.data_ptr(), fout.data_ptr(), step.map.data_ptr(), bz, uin, *strides,
             rho.data_ptr(), u.data_ptr(), X, Y, step.pbits(), variant, nu, *fvec, *uvec, n,
-            self.cluster, int(sync_floor), stream_ptr)
+            stream_ptr)
         if rc != 0:
             raise RuntimeError(
-                f"{self.kernel.name} launch failed (a cluster of {self.cluster} blocks, "
-                f"{resident_band(step.shape, self.cluster)} rows each): CUDA error {rc}")
-        if not sync_floor:
-            self.kernel.launches += 1
-            self.steps += n
+                f"{self.kernel.name} launch failed (a cluster of "
+                f"{resident_limits()['CLUSTER_MAX']} blocks, {resident_band(step.shape)} rows "
+                f"each): CUDA error {rc}")
+        self.kernel.launches += 1
+        self.steps += n
         return fout, rho, u
 
 

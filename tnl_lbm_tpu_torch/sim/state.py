@@ -52,14 +52,6 @@ and replay it after that, the counterpart of the JAX scan's one device
 program; elsewhere the same chunk runs eagerly, and so does a chunk whose
 forcing hook reads the host (the IBM solve): there alone the chunk is not
 one device program where the JAX scan is.
-
-On a D2Q9 lattice within the resident chunk's size rule
-(``kernels/fused_2d.py`` ``resident_fits``; the golden sweep's 128 x 32), a
-chunk without a statistics window runs as one launch of B5's resident
-chunk (``FusedChunk2D``: the lattice held in a thread-block cluster's shared
-memory for all its steps) in place of its per-step launches, bit for bit
-the same; the route is decided once, at ``sim_init``
-(``_resolve_resident_chunk``).
 """
 
 from __future__ import annotations
@@ -78,8 +70,7 @@ from tnl_lbm_tpu_torch.io import native
 from tnl_lbm_tpu_torch.io.series import VtiTimeSeries
 from tnl_lbm_tpu_torch.io.vtk import write_vti
 from tnl_lbm_tpu_torch.kernels.fused import kernel_counters, make_fused_step, supports
-from tnl_lbm_tpu_torch.kernels.fused_2d import (FusedChunk2D, FusedStep2D, make_fused_step_2d,
-                                                 resident_fits)
+from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
 from tnl_lbm_tpu_torch.ops import moments as mom
 from tnl_lbm_tpu_torch.ops.collision import collide_cum_well
 from tnl_lbm_tpu_torch.sim import checkpoint as ckpt
@@ -202,8 +193,6 @@ class _Graph:
     end: tuple
     launches: list
     keep: tuple
-    #: the steps its resident chunk launches run (FusedChunk2D.steps)
-    resident_steps: int = 0
 
 
 def to_host(x) -> np.ndarray:
@@ -325,8 +314,6 @@ class Simulation:
         self.prof = get_logger("profile")
         self._step = None
         self._pair = None
-        #: B5's resident chunk when this run's chunks take it (sim_init)
-        self._resident = None
         #: the second state buffer of the out-of-place launches' ping-pong
         #: (every kernel route but a 16-bit pair state's), made at sim_init
         self._spare = None
@@ -504,28 +491,6 @@ class Simulation:
         if self.pair_dispatch is True and self._pair_dispatch_capable():
             self._build_pair()
 
-    def _resolve_resident_chunk(self):
-        """B5's resident chunk (``FusedChunk2D``) when this run's dispatch
-        chunks take it, else None; decided once, here: the step is B5's
-        plain variant (a D2Q9 lattice with ``use_fused``, no forcing hook)
-        and the lattice fits the size rule (``resident_fits``).  A chunk
-        with a statistics window on still runs per step (``_chunk``); so
-        does every single step.  The route is logged on a D2Q9 run."""
-        step = self._step
-        if not self.use_fused or self.cfg.lat.D != 2:
-            return None
-        if self.cfg.forcing_hook is not None or not isinstance(step, FusedStep2D):
-            reason = "a forcing hook (its force is computed between steps)"
-        elif not resident_fits(step.shape, thetas=step.thetas is not None):
-            reason = f"{step.shape[0]}x{step.shape[1]} is over the size rule"
-        else:
-            chunk = FusedChunk2D(step)
-            self.log.info("chunk route: B5's resident chunk, one launch a chunk (a cluster of "
-                          "%d blocks)", chunk.cluster)
-            return chunk
-        self.log.info("chunk route: B5 per step (%s)", reason)
-        return None
-
     def time_pair_routes(self, pairs: int = 10, chains: int = 5) -> tuple[float, float]:
         """Milliseconds per pair of (a) the pair kernel and (b) an even and an
         odd launch, as a run dispatches them: the median of each route's
@@ -602,7 +567,6 @@ class Simulation:
                                                  device=self.device) for _ in range(2))
             else:
                 self._spare = torch.empty_like(self.f)
-        self._resident = self._resolve_resident_chunk()
         self._glups_prev_time = time.time()
         self._t_wall_start = time.time()
 
@@ -873,12 +837,6 @@ class Simulation:
                 self._stats_sample(counts=False)
             self._pair_done(wide, cur, spare)
             return
-        if self._resident is not None and not (s1 or s2):
-            f_new, _, _ = self._resident(self.f, nu, n_steps, u_in=u_in, force=force,
-                                         out=self._spare, macro_out=(self.rho, self.u))
-            if f_new is not self.f:  # an odd chunk: the state is in the spare
-                self._spare, self.f = self.f, f_new
-            return
         kw = self._hook_kwargs()
         aa = self.cfg.streaming == "AA"
         for i in range(n_steps):
@@ -914,8 +872,6 @@ class Simulation:
         self.f, self._spare = entry.end
         for kernel, n in entry.launches:
             kernel.launches += n
-        if entry.resident_steps:
-            self._resident.steps += entry.resident_steps
 
     def _buffer_key(self) -> tuple:
         """The addresses a captured chunk reads and writes: the state and its
@@ -941,9 +897,8 @@ class Simulation:
         return hit
 
     def _capture(self, key, n_steps, nu, u_in, force, pairs, s1, s2) -> _Graph:
-        kernels = kernel_counters(self._step, self._pair, self._resident)
+        kernels = kernel_counters(self._step, self._pair)
         before = [k.launches for k in kernels]
-        steps = self._resident.steps if self._resident is not None else 0
         start = (self.f, self._spare)
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
@@ -977,9 +932,7 @@ class Simulation:
         launches = [(k, k.launches - b) for k, b in zip(kernels, before) if k.launches != b]
         for k, b in zip(kernels, before):
             k.launches = b  # the capture ran nothing: a replay counts them
-        if self._resident is not None:
-            steps, self._resident.steps = self._resident.steps - steps, steps
-        entry = _Graph(graph, (self.f, self._spare), launches, (u_in, force), steps)
+        entry = _Graph(graph, (self.f, self._spare), launches, (u_in, force))
         self._graphs[key] = entry
         while len(self._graphs) > GRAPH_CACHE:
             self._graphs.popitem(last=False)
@@ -1165,20 +1118,13 @@ class Simulation:
         start when the state cannot fit.  Two DF buffers: the odd A-A
         kernel, the pair kernel and the plain steps write a new state next
         to the old one (with half storage the two pair buffers are narrow,
-        so this overestimates).  The card's free memory is asked only for a
-        state above 1/16 of its memory: the query (cudaMemGetInfo) stalled
-        35-93 ms now and then on an H100 (PERF.md §7), longer than a whole
-        golden-sweep row, and a smaller state cannot be refused by it unless
-        the card is almost full, where its allocation raises anyway."""
+        so this overestimates)."""
         sites = self.domain.units.num_sites
         itemsize = torch.empty((), dtype=self.cfg.compute_dtype).element_size()
         bytes_dfs = 2 * self.cfg.lat.Q * sites * itemsize
         bytes_macro = 2 * (1 + self.cfg.lat.D) * sites * itemsize
         total = bytes_dfs + bytes_macro + sites  # + the uint8 map
-        free = 0
-        if (self.device.type == "cuda"
-                and total > torch.cuda.get_device_properties(self.device).total_memory / 16):
-            free = torch.cuda.mem_get_info(self.device)[0]
+        free = torch.cuda.mem_get_info(self.device)[0] if self.device.type == "cuda" else 0
         info = {"total_bytes": total, "device_free": free}
         self.log.info("memory estimate: %.2f GB (device free %s)", total / 1e9,
                       f"{free / 1e9:.2f} GB" if free else "n/a")
