@@ -17,17 +17,19 @@ force through the one-kernel NN step (B10) or the pipeline of the u* pass
 force_field variants (B4, B2/B3, B5) - in ``Simulation`` and
 ``CoupledSimulation``; the port's benchmark entry (``python -m
 tnl_lbm_tpu_torch.bench``) through the one-kernel pair (B1) and the
-two-kernel pair (B1b); the site-major A-B step (B4s) and the window probes
+full-set pair (B1b); the site-major A-B step (B4s) and the window probes
 (P3, P4).  Each phase prints result lines; any failing phase raises and the
 script exits non-zero without printing a result.
 
-1. device: the card, ``nvidia-smi`` name and power limit, torch/CUDA versions;
+1. device: the card, ``nvidia-smi`` name and power limit, torch/CUDA
+   versions, its SM count and maximum SM clock (``clocks.max.sm``), and so
+   its FP32-pipe and SFU issue rates;
 2. build: compile the kernels from ``tnl_lbm_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel; registers, shared memory and spills from
-   ``-Xptxas -v``, and the pair's dynamic shared memory; the FP32
-   operations per thread of each kernel from ``cuobjdump -sass``, FFMA
-   counted twice and every branch once, the upper bound of the operations
-   a site takes that the bound of the JSON record uses);
+   ``-Xptxas -v``, and the pair's dynamic shared memory; the FP32-pipe
+   and SFU instructions per thread of each kernel from ``cuobjdump
+   -sass``, each one slot and every branch once, the upper bound of what a
+   site issues that the bound of the JSON record uses);
 3. compare, kernels against their plain PyTorch versions on the card, with
    the JAX suite's bounds (tests/test_fused_kernel.py:65-67): |df| <= 1e-6
    (for a 16-bit state ``utils.dtypes.state_agrees``: one unit in its last
@@ -76,8 +78,11 @@ script exits non-zero without printing a result.
       256^3 on the coupled bench duct under A-A beside B2 + B3, GB/s at 294
       B/site;
 4. probes: the copy floor P1 at 256^3 (GB/s at 232 B/site, share of the
-   published 3.35 TB/s) and the pair's memory/compute split P2a/P2b at
-   256^3 with 0, 20 and 60 passes, each held against its plain version;
+   published 3.35 TB/s), the march's memory half P2a through each load
+   path (the staged rows, direct reads, the TMA plane ring) bit for bit
+   and P2b at 256^3 with 0, 20 and 60 passes, held against their plain
+   versions, P2a's paths timed with GB/s at 216 B/site and at the windows'
+   bytes, their share of P1, 20 passes over 0 and B1 f32's time of 3b;
    the element pipeline P3 (scripts/probe_element_pipeline.py's four
    (tile, passes) variants) and the window copy P4 (the six covering
    windows of scripts/probe_dma_align.py, each through 4-byte loads,
@@ -91,11 +96,13 @@ script exits non-zero without printing a result.
    at as many passes); P4's library call (``interior(fpad).contiguous()``)
    before and after each covering window's three loads, with the ring's
    plane buffers;
-   layouts (after 3c): the two-kernel A-A pair B1b on sim_2's res-2 duct
-   and on the box of every A-A code per variant, two pairs from the same
-   input on both sides, each kernel on its own too and the even kernel's
-   ring equal to ``pad_halo`` bit for bit; at 256^3 against its plain
-   version and timed (pair, even, odd) beside B1 and B2 + B3; the
+   layouts (after 3c): the full-set A-A pair B1b (one launch a pair) on
+   sim_2's res-2 duct, on the box of every A-A code per variant and on
+   sim_1's A-A map at res 4, two pairs from the same input on both sides,
+   and an x segment starting at X - 1 bit for bit the same; at 256^3
+   against its plain version and timed in turns beside B1 f32, with B2 +
+   B3 of 3a beside it; on sim_1's A-A map at res 8 timed in turns beside
+   one even and one odd launch of the same instances; the
    site-major A-B step B4s on 3c's cases (dummy components zero), then at
    256^3 against its plain version and timed beside B4;
 5. main paths, each with the launch counts set to 0 just before it and read
@@ -131,7 +138,7 @@ script exits non-zero without printing a result.
    state (the plain A-A step's temporaries at res 8 would not fit beside
    the run); then the benchmark entry (``tnl_lbm_tpu_torch.bench``'s
    ``main``, its JSON line parsed): pair2 in f32, f16 and bf16 and pair
-   (B1b), 50 timed pairs each from the rest state at 256^3, every kernel's
+   (B1b, one launch a pair), 50 timed pairs each from the rest state at 256^3, every kernel's
    launch count > 0 and no plain call;
 6. the 2D slice (after the main paths; the D2Q9 kernel's bounds as the
    step compares'):
@@ -260,8 +267,10 @@ script exits non-zero without printing a result.
    B4's two instances add the res-4 run's launches to the record.
 
 The line before the last is the kernels' JSON record (bound_ms: the larger
-of the bytes over the published 3.35 TB/s and the FP32 operations over
-67 TFLOP/s, at 256^3 sites; B5's launches: the three 2D apps' kernel runs
+of the bytes over the published 3.35 TB/s and the FP32 instructions over
+the card's issue rate, one FP32-pipe slot each at 128 lanes an SM (MUFU
+one SFU slot at 16), from its SM count and maximum SM clock, at 256^3
+sites; B5's launches: the three 2D apps' kernel runs
 and the res-64 run and the golden sweep's; B5's resident chunk at the
 golden sweep's 128 x 32, 20 steps a launch (its bound: the bytes once or
 the FP32 operations its map's sites execute 20 times, whichever is
@@ -269,9 +278,11 @@ larger), its launches the golden row run through it, with its ms per
 step, sync floor and cluster; B1b's: the bench entry's; B4s's and
 the probes': their timings'; library_ms: P4's function as one PyTorch
 call, ``interior(fpad).contiguous()``, and null where no single PyTorch
-call computes a kernel's function; B1b's two entries also give the pair's
-time, ``pair_ms``, and its least-work bound, ``pair_bound_ms``: B1's 233
-B/site; B1's entries also give its registers, shared memory and stages);
+call computes a kernel's function; B1b's entry also gives the pair's
+time, ``pair_ms``, its least-work bound, ``pair_bound_ms`` (233 B/site),
+B1 f32 timed in turns with it, each instance's registers and spills and
+its sim_1 res 8 time beside B2 + B3; B1's entries also give its
+registers, shared memory and stages);
 the last line is ``{"ok": true, "device": {...}}``.  The
 script's total time and that of the P3/P4, layouts and bench-entry phases
 are logged before them.
@@ -304,7 +315,16 @@ AB_BYTES = 233  # B/site per A-B step: 27 f32 in and out, the map, rho and u
 SITEMAJOR_BYTES = 253  # B4s: 27 f32 in, 32 out (the zero dummies), the map, rho and u
 SIM1_RES, APP_STEPS, TOL_APP = 8, 100, 1e-5
 SIM1_AA_PLAIN_RES = 4  # sim_1 A-A kernel vs plain: the plain step's temporaries at res 8 exceed the card
-FP32_PEAK_TFLOPS = 67.0  # H100 SXM data sheet, outside the tensor cores
+#: lanes per SM of the FP32 pipe (every FADD, FMUL, FFMA or FMNMX one issue slot
+#: of a lane) and of the SFU (MUFU) on an H100; the card's SM count and
+#: maximum SM clock give the rates (``card_rates``)
+FP32_LANES, SFU_LANES = 128, 16
+#: SASS opcodes that take one FP32-pipe slot, and the SFU's
+FP32_PIPE_OPS = frozenset({"FADD", "FADD32I", "FMUL", "FMUL32I", "FFMA", "FFMA32I", "FMNMX",
+                           "FMNMX32I"})
+SFU_OPS = frozenset({"MUFU"})
+#: the card's issue rates (``card_rates``), set by ``phase_device``
+RATES: dict = {}
 TOL_G, TOL_PHI = 1e-6, 2e-6
 NU_ADE = 0.02  # the ADE timing's diffusion
 ADE_BYTES, COUPLED_BYTES, TWO_KERNEL_BYTES = 73, 294, 306  # B/site: B6, B7, B4 then B6
@@ -454,15 +474,36 @@ def gbps(bytes_per_site: float, ms: float) -> float:
     return bytes_per_site * float(np.prod(BENCH_SHAPE)) / (ms * 1e-3) / 1e9
 
 
+def card_rates(sms: int, max_sm_mhz: float) -> dict:
+    """FP32-pipe and SFU issue slots per second of a card with ``sms`` SMs
+    at ``max_sm_mhz``: FP32_LANES and SFU_LANES lanes per SM and clock."""
+    hz = max_sm_mhz * 1e6
+    return {"sms": sms, "max_sm_mhz": max_sm_mhz, "fp32_per_s": sms * FP32_LANES * hz,
+            "sfu_per_s": sms * SFU_LANES * hz}
+
+
+def ops_ms(fp32: float, mufu: float, rates: dict) -> float:
+    """The least time in ms for ``fp32`` FP32-pipe and ``mufu`` SFU
+    instructions (counted per lane): each pipe's count over its rate, the
+    slower pipe's."""
+    return max(fp32 / rates["fp32_per_s"], mufu / rates["sfu_per_s"]) * 1e3
+
+
 def phase_device() -> dict:
     import torch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                               check=True).stdout.strip().splitlines()[0])
+    RATES.update(card_rates(torch.cuda.get_device_properties(0).multi_processor_count, mhz))
     info = {"kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     log("device", name=repr(info["kind"]), count=info["count"], nvidia_smi=repr(smi),
-        torch=torch.__version__, cuda=torch.version.cuda)
+        torch=torch.__version__, cuda=torch.version.cuda, sms=RATES["sms"],
+        max_sm_mhz=RATES["max_sm_mhz"], fp32_slots_per_s=f"{RATES['fp32_per_s']:.4e}",
+        sfu_slots_per_s=f"{RATES['sfu_per_s']:.4e}")
     return info
 
 
@@ -473,38 +514,46 @@ COUPLED_KERNEL_NAMES = tuple(f"coupled_{n}_{c}_kernel" for n in NSE_VARIANTS
 AA_KERNEL_NAMES = tuple(f"aa_{p}_{n}_kernel" for p in ("even", "odd") for n in NSE_VARIANTS)
 COUPLED_AA_KERNEL_NAMES = tuple(f"coupled_aa_{p}_{n}_{c}_kernel" for p in ("even", "odd")
                                 for n in NSE_VARIANTS for c in ("srt", "mrt", "clbm", "clbm_rs"))
-LAYOUT_KERNEL_NAMES = (("aa_pair_pad_odd_kernel",)
-                       + tuple(f"aa_pair_pad_{p}_{n}_kernel" for p in ("even", "odd")
-                               for n in NSE_VARIANTS)
+#: B1b's instances: the full set per variant and the lean one
+FULL_PAIR_KERNEL_NAMES = (tuple(f"aa_pair_full_{n}_kernel" for n in NSE_VARIANTS)
+                          + ("aa_pair_full_lean_kernel",))
+LAYOUT_KERNEL_NAMES = (FULL_PAIR_KERNEL_NAMES
                        + tuple(f"ab_step_sitemajor_{n}_kernel" for n in NSE_VARIANTS))
+PIPELINE_KERNEL_NAMES = tuple(f"pair_pipeline_{load}_kernel"
+                              for load in ("stages", "direct", "ring"))
 WINDOW_KERNEL_NAMES = tuple(f"window_copy_{load}_kernel" for load in ("ld4", "ld16", "tma"))
 
 
-def sass_fp32_ops(lib_path) -> dict:
-    """FP32 arithmetic instructions per thread of each kernel of the built
-    library (``cuobjdump -sass``): FADD, FMUL, MUFU and FMNMX once, FFMA
-    twice.  Every branch counts once, so for a kernel without loops this
-    bounds the operations one site takes from above."""
-    import os
+def count_sass_ops(sass: str) -> dict:
+    """Per kernel of a ``cuobjdump -sass`` listing: (FP32-pipe instructions,
+    SFU instructions) per thread.  Every FADD, FMUL, FFMA and FMNMX, their
+    immediate forms too, is one slot of the FP32 pipe, whatever it
+    computes; every MUFU one of the SFU.  Every branch counts once, so for
+    a kernel without loops this bounds what one site issues from above."""
     import re
 
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    exe = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
-    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True).stdout
-    weight = {"FADD": 1, "FADD32I": 1, "FMUL": 1, "FMUL32I": 1, "FFMA": 2, "FFMA32I": 2,
-              "MUFU": 1, "FMNMX": 1}
     ops, current = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
             current = m.group(1)
-            ops[current] = 0
+            ops[current] = [0, 0]
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", line)
         if current is not None and m:
-            ops[current] += weight.get(m.group(1), 0)
-    return ops
+            ops[current][0] += m.group(1) in FP32_PIPE_OPS
+            ops[current][1] += m.group(1) in SFU_OPS
+    return {k: tuple(v) for k, v in ops.items()}
+
+
+def sass_fp32_ops(lib_path) -> dict:
+    """``count_sass_ops`` of the built library."""
+    import os
+
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    exe = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
+    return count_sass_ops(subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                                         text=True, check=True).stdout)
 
 
 def phase_build() -> dict:
@@ -527,15 +576,16 @@ def phase_build() -> dict:
     ops = sass_fp32_ops(path)
     names = (("aa_odd_kernel", "aa_pair_f32_kernel", "aa_pair_f16_kernel",
               "aa_pair_bf16_kernel", "ab_step_cum_well_kernel", "ab_step_cum_quad_kernel",
-              "ab_step_cum_invcum_kernel", "copy_permute_kernel", "pair_pipeline_kernel",
-              "pair_compute_only_kernel", "element_pipeline_kernel") + LAYOUT_KERNEL_NAMES
+              "ab_step_cum_invcum_kernel", "copy_permute_kernel", "pair_compute_only_kernel",
+              "element_pipeline_kernel") + PIPELINE_KERNEL_NAMES + LAYOUT_KERNEL_NAMES
              + WINDOW_KERNEL_NAMES + AA_KERNEL_NAMES + ADE_KERNEL_NAMES
              + COUPLED_KERNEL_NAMES + COUPLED_AA_KERNEL_NAMES + D2Q9_KERNEL_NAMES
              + NN_KERNEL_NAMES)
     for name in names:
         if name not in res or name not in ops:
             raise RuntimeError(f"no ptxas report or SASS for {name}:\n{ptxas}")
-        log("build", kernel=name, **res[name], fp32_ops_per_thread=ops[name])
+        log("build", kernel=name, **res[name], fp32_slots_per_thread=ops[name][0],
+            mufu_per_thread=ops[name][1])
     nn_geo = {key: nn_geometry(kind, BENCH_SHAPE) for kind, key in ((0, "nn_force"),
                                                                      (1, "nn_step"))}
     log("build", seconds=f"{time.perf_counter() - t0:.1f}",
@@ -762,22 +812,31 @@ def pair_boxes(store: str) -> float:
     return worst
 
 
-def phase_probes() -> dict:
-    """P1-P4 at 256^3 against their plain versions (P4's uncovering window
-    must raise), then timed with the launch counts set to 0 just before."""
+def phase_probes(b1_ms: float) -> dict:
+    """P1-P4 at 256^3 against their plain versions (P2a through each load
+    path, P4's uncovering window must raise), then timed with the launch
+    counts set to 0 just before; P2a's paths beside P1 and B1 f32's
+    ``b1_ms`` of the same call."""
     import torch
 
     from tnl_lbm_tpu_torch.kernels import probes
+    from torch_cases import march_constants
 
     dev = torch.device(DEVICE)
+    march = march_constants()
     f = torch.randn((27,) + BENCH_SHAPE, device=dev, generator=torch.Generator(dev).manual_seed(3))
     err = {}
     got, want = probes.copy_permute(f), probes.copy_permute_plain(f)
     err["copy_permute"] = max(max_diff(g, w) for g, w in zip(got, want))
     del got, want
     for passes in PROBE_PASSES:
-        d = max_diff(probes.pair_pipeline(f, passes), probes.pair_pipeline_plain(f, passes))
-        err["pair_pipeline"] = max(err.get("pair_pipeline", 0.0), d)
+        want = probes.pair_pipeline_plain(f, passes)
+        for load, (_, name) in probes.PIPELINE_LOADS.items():  # bit for bit
+            if not torch.equal(probes.pair_pipeline(f, passes, load=load), want):
+                raise RuntimeError(f"pair_pipeline ({load}, {passes} passes) is not its plain "
+                                   f"version bit for bit")
+            err[name] = 0.0
+        del want
         d = max_diff(probes.pair_compute_only(f, passes), probes.pair_compute_only_plain(f, passes))
         err["pair_compute_only"] = max(err.get("pair_compute_only", 0.0), d)
     X, Y, Z = BENCH_SHAPE
@@ -821,23 +880,37 @@ def phase_probes() -> dict:
     floor = gbps(232, ms)
     log("probes", kernel="copy_permute", shape="256^3", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
         gbps_232B=f"{floor:.1f}", share_of_3350=f"{floor / HBM_PEAK_GBPS:.3f}")
-    tile = probes.PROBE_TILE
-    window_reads = np.prod([t + 2 for t in tile]) / np.prod(tile)  # sites read per site
-    compute_only = {}
+    compute_only, pipeline = {}, {}
     for passes in PROBE_PASSES:
-        ms = time_ms(lambda: probes.pair_pipeline(f, passes), reps=20)
         plain_ms = time_ms(lambda: probes.pair_pipeline_plain(f, passes), reps=3)
+        for load, (_, name) in probes.PIPELINE_LOADS.items():
+            ms = time_ms(lambda: probes.pair_pipeline(f, passes, load=load), reps=20)
+            pipeline[(load, passes)] = ms
+            if passes == 20:
+                times[name] = (ms, plain_ms)
         co_ms = time_ms(lambda: probes.pair_compute_only(f, passes), reps=20)
         co_plain_ms = time_ms(lambda: probes.pair_compute_only_plain(f, passes), reps=3)
         compute_only[passes] = co_ms
         if passes == 20:
-            times["pair_pipeline"] = (ms, plain_ms)
             times["pair_compute_only"] = (co_ms, co_plain_ms)
-        log("probes", kernel="pair_pipeline", passes=passes, ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.3f}", gbps_216B=f"{gbps(216, ms):.1f}",
-            gbps_windows=f"{gbps(108 * (window_reads + 1), ms):.1f}")
         log("probes", kernel="pair_compute_only", passes=passes, ms=f"{co_ms:.4f}",
-            plain_ms=f"{co_plain_ms:.3f}")
+            plain_ms=f"{co_plain_ms:.3f}", pair_pipeline_plain_ms=f"{plain_ms:.3f}")
+    for load in probes.PIPELINE_LOADS:  # the march's load paths, the input to B1b and B1
+        geo = probes.pipeline_geometry(BENCH_SHAPE, load)
+        # window sites read per tile site: the y-z halo and the segment's two halo planes
+        reads = (march["WSITES"] / march["TILE_SITES"]) * (geo["seg_len"] + 2) / geo["seg_len"]
+        for passes in PROBE_PASSES:
+            ms = pipeline[(load, passes)]
+            log("probes", kernel="pair_pipeline", load=load, passes=passes, ms=f"{ms:.4f}",
+                gbps_216B=f"{gbps(216, ms):.1f}",
+                gbps_windows=f"{gbps(108 * (reads + 1), ms):.1f}",
+                share_of_p1=f"{gbps(216, ms) / floor:.3f}",
+                over_passes_0=f"{ms / pipeline[(load, 0)]:.3f}",
+                b1_f32_ms=f"{b1_ms:.4f}", window_reads_per_site=f"{reads:.4f}",
+                **({"geometry": json.dumps(geo)} if passes == 0 else {}))
+    fastest = min(probes.PIPELINE_LOADS, key=lambda load: pipeline[(load, 20)])
+    log("probes", kernel="pair_pipeline", fastest_at_20_passes=fastest,
+        default=probes.PIPELINE_DEFAULT)
     del f
     torch.cuda.empty_cache()
     t_start = time.perf_counter()
@@ -973,123 +1046,176 @@ def phase_compare_ab(step_times: dict, floor_gbps: float) -> dict:
     return {"err": {"ab_step": max(worst_f, d[0])}, "times": {"ab_step": (ms, plain_ms)}}
 
 
-def b1b_bytes(shape) -> tuple[float, float]:
-    """Bytes per site the two-kernel pair's kernels must move at ``shape``:
-    even (f in, the map, the padded buffer out) and odd (the buffer and the
-    map in, f2, rho and u out)."""
-    X, Y, _ = shape
-    ring = (X + 2) * (Y + 2) / (X * Y)
-    return 108 + 1 + 108 * ring, 108 * ring + 1 + 108 + 16
-
-
-def pad_pair_cases():
-    """(label, cfg, domain, u_in) of the two-kernel pair's compare: sim_2's
-    res-2 duct and the box of every A-A code per variant."""
+def full_pair_cases():
+    """(label, cfg, domain, u_in, force) of B1b's compare: sim_2's res-2
+    duct, the box of every A-A code per variant and sim_1's A-A map at
+    resolution SIM1_AA_PLAIN_RES (its moment inflow and OUTFLOW_RIGHT)."""
     import torch
 
     from tnl_lbm_tpu_torch import interop
-    from tnl_lbm_tpu_torch.apps import sim_2
+    from tnl_lbm_tpu_torch.apps import sim_1, sim_2
     from torch_cases import AB_SPECS, U_IN, aa_box
 
+    force = (FORCE_SMALL, 0.0, 0.0)
     sim = sim_2.build(2, device=torch.device(DEVICE), streaming="AA", use_fused=True,
                       results_parent=WORK / "compare_layouts")
-    yield "sim_2_res2", sim.cfg, sim.domain, None
+    yield "sim_2_res2", sim.cfg, sim.domain, None, force
     box = interop.domain_from_numpy(aa_box((24, 20, 150)), (False, False, True))
     for name, spec in AB_SPECS.items():
-        yield f"aa_box_{name}", interop.config_from_spec(*spec, "AA"), box, U_IN
+        yield f"aa_box_{name}", interop.config_from_spec(*spec, "AA"), box, U_IN, force
+    s1 = sim_1.build(SIM1_AA_PLAIN_RES, device=DEVICE, streaming="AA",
+                     results_parent=WORK / "compare_layouts")
+    yield (f"sim_1_res{SIM1_AA_PLAIN_RES}", s1.cfg, s1.domain, s1.update_inflow(0.0),
+           s1.body_force(0.0))
 
 
-def pad_pair_vs_plain(pair, f, force, u_in=None) -> tuple:
-    """One two-kernel pair from f against its plain version on the same
-    input, each kernel on its own too (the odd kernel and its plain version
-    on the even kernel's buffer); raises when the ring is not ``pad_halo``
-    of the buffer's interior bit for bit.  Returns (the pair's max |df|,
-    |drho|, |du|, the even kernel's |df|, the odd kernel's |df|, the pair's
-    output)."""
+def full_pair_vs_plain(pair, f, u_in, force) -> tuple:
+    """One B1b pair from f against its plain version on the same input:
+    (max |df|, |drho|, |du|, the kernel's output)."""
     import torch
 
-    from tnl_lbm_tpu_torch.ops.streaming import pad_halo
-
-    fpad = pair.even_step(f, NU, u_in, force)
-    if not torch.equal(fpad, pad_halo(fpad[:, 1:-1, 1:-1], pair.periodic[:2])):
-        raise RuntimeError("the even kernel's ring is not pad_halo of its output")
-    d_even = max_diff(fpad, pair.plain_even_step(f, NU, u_in, force))
-    f2, rho, u = pair.odd_step(fpad, NU, u_in, force)
-    d_odd = max_diff(f2, pair.plain_odd_step(fpad, NU, u_in, force)[0])
-    del fpad
+    fk, rk, uk = pair(f, NU, u_in, force)
     fp, rp, up = pair.plain(f, NU, u_in, force)
-    d = (max_diff(f2, fp), max_diff(rho, rp), max_diff(u, up))
-    return d + (d_even, d_odd, f2)
+    torch.cuda.synchronize()
+    d = (max_diff(fk, fp), max_diff(rk, rp), max_diff(uk, up))
+    del fp, rp, up
+    return d + (fk,)
 
 
-def phase_layouts(times: dict, floor_gbps: float) -> dict:
-    """The layout variants: the two-kernel A-A pair (B1b) and the site-major
+def in_turns(fns: dict, rounds: int, reps: int) -> dict:
+    """name -> the CUDA-event ms of each round, the functions timed in
+    turns (a, b, ..., then b, a, ... in the next round)."""
+    out = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            out[name].append(time_ms(fns[name], reps=reps))
+    return out
+
+
+def phase_layouts(times: dict, floor_gbps: float, res: dict) -> dict:
+    """The layout variants: the full-set A-A pair (B1b) and the site-major
     A-B step (B4s) against their plain versions on small cases, then at
     256^3 against their plain versions and timed beside the one-kernel
-    pair (B1) and one even plus one odd launch (B2 + B3), and beside the
-    A-B step (B4).  B4s's launch count is its timing's."""
+    pair (B1, in turns) and one even plus one odd launch (B2 + B3), and
+    beside the A-B step (B4); B1b again on sim_1's A-A map at res 8, timed
+    in turns beside B2 + B3 of the same instances.  B4s's launch count is
+    its timing's; ``res``: the ptxas report of phase_build."""
     import torch
 
+    from tnl_lbm_tpu_torch.apps import sim_1
     from tnl_lbm_tpu_torch.kernels.fused import (
         from_sitemajor,
         make_fused_step_sitemajor,
         to_sitemajor,
     )
-    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair_aa
+    from tnl_lbm_tpu_torch.kernels.fused_aa import (
+        make_fused_pair2_aa,
+        make_fused_pair_aa,
+        make_fused_step_aa,
+    )
 
     dev = torch.device(DEVICE)
     force = (FORCE_SMALL, 0.0, 0.0)
-    err = {"aa_pair_pad_even": 0.0, "aa_pair_pad_odd": 0.0, "ab_step_sitemajor": 0.0}
+    err = {"aa_pair_full": 0.0, "ab_step_sitemajor": 0.0}
     out_times = {}
-    for label, cfg, dom, u_in in pad_pair_cases():
+    for label, cfg, dom, u_in, fvec in full_pair_cases():
         pair = make_fused_pair_aa(cfg, dom, dev)
+        # a segment starting at X - 1 (the outflow plane), bit for bit the same
+        edge = make_fused_pair_aa(cfg, dom, dev, seg_len=max(1, dom.shape[0] - 1))
         f = rand_f(cfg, dom.shape, dev, seed=5)
-        worst = [0.0] * 5
+        worst = [0.0] * 3
         for _ in range(2):
-            *d, f = pad_pair_vs_plain(pair, f, force, u_in)
+            *d, fk = full_pair_vs_plain(pair, f, u_in, fvec)
             worst = [max(a, b) for a, b in zip(worst, d)]
-        log("layouts", kernel="aa_pair_pad", case=label, shape="x".join(map(str, dom.shape)),
-            variant=pair.variant, pairs=2, max_df=worst[0], max_drho=worst[1],
-            max_du=worst[2], max_df_even=worst[3], max_df_odd=worst[4], ring_exact=True)
-        if not (max(worst[0], worst[3], worst[4]) <= TOL_F and worst[1] <= TOL_RHO
-                and worst[2] <= TOL_U):
-            raise RuntimeError(f"aa_pair_pad vs plain on {label} out of tolerance: {worst}")
-        err["aa_pair_pad_even"] = max(err["aa_pair_pad_even"], worst[3], worst[0])
-        err["aa_pair_pad_odd"] = max(err["aa_pair_pad_odd"], worst[4], worst[0])
+            if not torch.equal(edge(f, NU, u_in, fvec)[0], fk):
+                raise RuntimeError(f"aa_pair_full on {label}: a segment at X - 1 changed f")
+            f = fk
+        del f, fk
+        torch.cuda.empty_cache()
+        log("layouts", kernel="aa_pair_full", case=label, shape="x".join(map(str, dom.shape)),
+            variant=pair.variant, pairs=2, max_df=worst[0], max_drho=worst[1], max_du=worst[2],
+            segment_at_x_minus_1="equal", launches=pair.kernel.launches,
+            geometry=json.dumps(pair.geometry()))
+        if not (worst[0] <= TOL_F and worst[1] <= TOL_RHO and worst[2] <= TOL_U):
+            raise RuntimeError(f"aa_pair_full vs plain on {label} out of tolerance: {worst}")
+        err["aa_pair_full"] = max(err["aa_pair_full"], worst[0])
 
     cfg, dom = flagship(BENCH_SHAPE)
     pair = make_fused_pair_aa(cfg, dom, dev)
+    full_set = make_fused_pair_aa(cfg, dom, dev, lean=False)  # the full-set CUM_WELL instance
+    b1 = make_fused_pair2_aa(cfg, dom, dev)
     bench_force = (FORCE_BENCH, 0.0, 0.0)
     f0 = rand_f(cfg, dom.shape, dev, seed=7)
-    d = pad_pair_vs_plain(pair, f0, bench_force)[:5]
+    d = full_pair_vs_plain(pair, f0, None, bench_force)[:3]
     torch.cuda.empty_cache()
-    if not (max(d[0], d[3], d[4]) <= TOL_F and d[1] <= TOL_RHO and d[2] <= TOL_U):
-        raise RuntimeError(f"aa_pair_pad vs plain at 256^3 out of tolerance: {d}")
-    err["aa_pair_pad_even"] = max(err["aa_pair_pad_even"], d[3], d[0])
-    err["aa_pair_pad_odd"] = max(err["aa_pair_pad_odd"], d[4], d[0])
-    fpad = pair.even_step(f0, NU, force=bench_force)
-    pair_ms = time_ms(lambda: pair(f0, NU, force=bench_force), reps=20)
-    even_ms = time_ms(lambda: pair.even_step(f0, NU, force=bench_force), reps=20)
-    odd_ms = time_ms(lambda: pair.odd_step(fpad, NU, force=bench_force), reps=20)
-    even_plain = time_ms(lambda: pair.plain_even_step(f0, NU, force=bench_force), reps=3)
-    odd_plain = time_ms(lambda: pair.plain_odd_step(fpad, NU, force=bench_force), reps=3)
-    del f0, fpad
+    if not (d[0] <= TOL_F and d[1] <= TOL_RHO and d[2] <= TOL_U):
+        raise RuntimeError(f"aa_pair_full vs plain at 256^3 out of tolerance: {d}")
+    err["aa_pair_full"] = max(err["aa_pair_full"], d[0])
+    d_full = full_pair_vs_plain(full_set, f0, None, bench_force)[:3]
+    if not (d_full[0] <= TOL_F and d_full[1] <= TOL_RHO and d_full[2] <= TOL_U):
+        raise RuntimeError(f"aa_pair_full (full set) vs plain at 256^3 out of tolerance: {d_full}")
+    err["aa_pair_full"] = max(err["aa_pair_full"], d_full[0])
+    spare = torch.empty_like(f0)
+    turns = in_turns({"aa_pair_full": lambda: pair(f0, NU, force=bench_force),
+                      "aa_pair_f32": lambda: b1(f0, NU, force=bench_force, out=spare),
+                      "full_set": lambda: full_set(f0, NU, force=bench_force)},
+                     rounds=4, reps=20)
+    pair_ms = float(np.median(turns["aa_pair_full"]))
+    plain_ms = time_ms(lambda: pair.plain(f0, NU, force=bench_force), reps=3)
+    del f0, spare
     torch.cuda.empty_cache()
-    out_times["aa_pair_pad_even"] = (even_ms, even_plain)
-    out_times["aa_pair_pad_odd"] = (odd_ms, odd_plain)
-    b_even, b_odd = b1b_bytes(BENCH_SHAPE)
+    out_times["aa_pair_full"] = (pair_ms, plain_ms)
     two_steps = times["aa_even"][0] + times["aa_odd"][0]
-    log("layouts", kernel="aa_pair_pad", shape="256^3", variant=pair.variant, max_df=d[0],
-        max_drho=d[1], max_du=d[2], max_df_even=d[3], max_df_odd=d[4], pair_ms=f"{pair_ms:.4f}",
-        even_ms=f"{even_ms:.4f}", odd_ms=f"{odd_ms:.4f}", even_plain_ms=f"{even_plain:.2f}",
-        odd_plain_ms=f"{odd_plain:.2f}", b1_pair_ms=f"{times['aa_pair_f32'][0]:.4f}",
-        b2_plus_b3_ms=f"{two_steps:.4f}",
-        over_b1=f"{pair_ms / times['aa_pair_f32'][0]:.3f}",
-        over_b2_b3=f"{pair_ms / two_steps:.3f}",
-        gbps_even=f"{gbps(b_even, even_ms):.1f}", gbps_odd=f"{gbps(b_odd, odd_ms):.1f}",
-        gbps_233B_pair=f"{gbps(233, pair_ms):.1f}",
+    b1_ms = float(np.median(turns["aa_pair_f32"]))
+    instances = {name: {k: res[name].get(k, 0) for k in ("registers", "spill_stores",
+                                                         "spill_loads")}
+                 for name in FULL_PAIR_KERNEL_NAMES}
+    log("layouts", kernel="aa_pair_full", shape="256^3", variant=pair.variant, max_df=d[0],
+        max_drho=d[1], max_du=d[2], ms=f"{pair_ms:.4f}", plain_ms=f"{plain_ms:.2f}",
+        turns_ms="/".join(f"{v:.4f}" for v in turns["aa_pair_full"]),
+        b1_f32_turns_ms="/".join(f"{v:.4f}" for v in turns["aa_pair_f32"]),
+        b2_plus_b3_ms=f"{two_steps:.4f}", over_b1=f"{pair_ms / b1_ms:.3f}",
+        full_set_turns_ms="/".join(f"{v:.4f}" for v in turns["full_set"]),
+        full_set_over_lean=f"{np.median(turns['full_set']) / pair_ms:.3f}",
+        full_set_max_df=d_full[0],
+        over_b2_b3=f"{pair_ms / two_steps:.3f}", gbps_233B=f"{gbps(233, pair_ms):.1f}",
         share_of_233B_bound=f"{gbps(233, pair_ms) / HBM_PEAK_GBPS:.3f}",
-        share_of_p1_floor=f"{gbps(b_even + b_odd, pair_ms) / floor_gbps:.3f}")
+        share_of_p1_floor=f"{gbps(233, pair_ms) / floor_gbps:.3f}",
+        geometry=json.dumps(pair.geometry()), instances=json.dumps(instances))
+
+    # sim_1's A-A map at res 8: the full set (CUM, eq_inv_cum) against B2 + B3
+    s1 = sim_1.build(SIM1_RES, device=DEVICE, streaming="AA",
+                     results_parent=WORK / "layouts_sim1")
+    cfg, dom = s1.cfg, s1.domain
+    u_in, fvec = s1.update_inflow(0.0), s1.body_force(0.0)
+    full = make_fused_pair_aa(cfg, dom, dev)
+    aa_step = make_fused_step_aa(cfg, dom, dev)
+    f0 = rand_f(cfg, dom.shape, dev, seed=9)
+    g, odd_out = f0.clone(), torch.empty_like(f0)
+    macro = (torch.empty(dom.shape, device=dev), torch.empty((3,) + dom.shape, device=dev))
+
+    def b2_b3():
+        aa_step(g, NU, u_in=u_in, force=fvec, parity=0, macro_out=macro)
+        aa_step(g, NU, u_in=u_in, force=fvec, parity=1, out=odd_out, macro_out=macro)
+
+    s1_turns = in_turns({"aa_pair_full": lambda: full(f0, NU, u_in, fvec), "b2_b3": b2_b3},
+                        rounds=4, reps=5)
+    fk = full(f0, NU, u_in, fvec)[0]
+    finite = bool(torch.isfinite(fk).all())
+    del f0, g, odd_out, macro, fk
+    torch.cuda.empty_cache()
+    s1_ms = float(np.median(s1_turns["aa_pair_full"]))
+    s1_two = float(np.median(s1_turns["b2_b3"]))
+    sites = float(np.prod(dom.shape))
+    log("layouts", kernel="aa_pair_full", case=f"sim_1_res{SIM1_RES}",
+        shape="x".join(map(str, dom.shape)), variant=full.variant, ms=f"{s1_ms:.4f}",
+        b2_plus_b3_ms=f"{s1_two:.4f}", over_b2_b3=f"{s1_ms / s1_two:.3f}",
+        turns_ms="/".join(f"{v:.4f}" for v in s1_turns["aa_pair_full"]),
+        b2_b3_turns_ms="/".join(f"{v:.4f}" for v in s1_turns["b2_b3"]),
+        bound_ms=f"{233 * sites / (HBM_PEAK_GBPS * 1e9) * 1e3:.4f}", finite=finite,
+        geometry=json.dumps(full.geometry()), launches=full.kernel.launches)
+    if not finite:
+        raise RuntimeError(f"aa_pair_full on sim_1 res {SIM1_RES}: non-finite output")
 
     for label, cfg, dom, u_in in ab_cases():
         step = make_fused_step_sitemajor(cfg, dom, dev)
@@ -1131,15 +1257,16 @@ def phase_layouts(times: dict, floor_gbps: float) -> dict:
         launches=step.kernel.launches)
     if step.kernel.launches <= 0:
         raise RuntimeError("ab_step_sitemajor was not launched")
-    return {"err": err, "times": out_times, "pair_ms": pair_ms,
-            "kernels": {"aa_pair_pad_even": pair.even, "aa_pair_pad_odd": pair.odd,
-                        "ab_step_sitemajor": step.kernel}}
+    return {"err": err, "times": out_times, "pair_ms": pair_ms, "b1_ms": b1_ms,
+            "full_set_ms": float(np.median(turns["full_set"])),
+            "sim1_ms": s1_ms, "sim1_b2_b3_ms": s1_two, "instances": instances,
+            "kernels": {"aa_pair_full": pair.kernel, "ab_step_sitemajor": step.kernel}}
 
 
 def phase_bench() -> dict:
     """The port's benchmark entry (``python -m tnl_lbm_tpu_torch.bench``),
     run in this process through its ``main`` and read from the JSON line it
-    prints: the one-kernel pair (B1) per store dtype and the two-kernel
+    prints: the one-kernel pair (B1) per store dtype and the full-set
     pair (B1b).  Each run counts its kernels' launches from 0; every one
     must be > 0.  Returns kernel name -> launches."""
     import contextlib
@@ -2730,8 +2857,8 @@ def golden_launch_ms(sim, variants: dict) -> dict:
     are shorter than the wrapper's host time; clusters of 8 and 4 blocks);
     the plain version's ms; the bound (85 B/site, the ring's thetas and the
     profile over 3.35 TB/s; or the FP32 operations the map's sites execute
-    (``b5_step_ops``) x GOLDEN_CHUNK steps over 67 TFLOP/s, whichever is
-    larger)."""
+    (``b5_step_ops``) x GOLDEN_CHUNK steps over the card's FP32 issue
+    rate, one slot each, whichever is larger)."""
     import b5_chunk_ablation as ablation
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2797,7 +2924,7 @@ def golden_launch_ms(sim, variants: dict) -> dict:
     t_bytes = (B5_BYTES * sites + 32 * near + 8 * Y) / (HBM_PEAK_GBPS * 1e9) * 1e3
     coll = "clbm" if sim.cfg.collision is col2.collide_clbm_2d else "srt"
     step_ops = b5_step_ops(dom, coll, step.thetas is not None)
-    t_ops = step_ops * n / (FP32_PEAK_TFLOPS * 1e12) * 1e3
+    t_ops = ops_ms(step_ops * n, 0, RATES)
     bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     res = {"step_event_ms_per_launch": event_ms, "step_device_ms_per_event": step_dev,
            "step_kernel_events": step_events,
@@ -3956,34 +4083,33 @@ def phase_dispatch_and_checkpoint() -> dict:
 
 
 def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
-    """(bytes per site, FP32 operations per site) of each kernel at its
-    timed 256^3 inputs (B5: 8192 x 2048, as many sites, ``b5_bytes`` and
-    ``b5_ff_bytes`` per site from the timed runs' data): the bytes it must
-    move (each input read once, each output written once) and the SASS
-    count of ``phase_build`` (B5: its CLBM instances, the ones timed; the
-    pair: two of the lean CUM_WELL site updates it shares with the odd
-    kernel's FLUID/WALL/NOTHING instance, per site; P2: the affine passes,
-    2 operations per DF; the slice's kernels: their CUM_WELL instances)."""
+    """(bytes per site, (FP32-pipe, SFU) instructions per site) of each
+    kernel at its timed 256^3 inputs (B5: 8192 x 2048, as many sites,
+    ``b5_bytes`` and ``b5_ff_bytes`` per site from the timed runs' data):
+    the bytes it must move (each input read once, each output written once)
+    and the SASS count of ``phase_build`` (B5: its CLBM instances, the ones
+    timed; the pairs: two of the lean CUM_WELL site updates they share with
+    the odd kernel's FLUID/WALL/NOTHING instance, per site; P2: the affine
+    passes, a multiply and an add per DF and pass; the slice's kernels:
+    their CUM_WELL instances)."""
     from tnl_lbm_tpu_torch.kernels.probes import PROBE_TILE
 
-    even, odd = ops["aa_even_cum_well_kernel"], ops["aa_odd_kernel"]
-    pair = 2 * odd
-    affine = 2 * 27 * 20  # PROBE_PASSES' timed entry: 20 passes
+    def twice(k):
+        return tuple(2 * v for v in ops[k])
+
+    affine = (2 * 27 * 20, 0)  # PROBE_PASSES' timed entry: 20 passes
     sites = float(np.prod(BENCH_SHAPE))
     block0 = 27 * 4 * (np.prod([t + 2 for t in PROBE_TILE]) + np.prod(PROBE_TILE))
     return {
-        "aa_even": (233, even), "aa_odd": (233, odd),
-        "aa_pair_f32": (PAIR_BYTES["f32"], pair),
-        "aa_pair_f16": (PAIR_BYTES["f16"], pair),
-        "aa_pair_bf16": (PAIR_BYTES["bf16"], pair),
+        "aa_even": (233, ops["aa_even_cum_well_kernel"]), "aa_odd": (233, ops["aa_odd_kernel"]),
+        **{f"aa_pair_{s}": (PAIR_BYTES[s], twice("aa_odd_kernel")) for s in STORES},
+        "aa_pair_full": (PAIR_BYTES["f32"], twice("aa_odd_kernel")),
         "ab_step": (AB_BYTES, ops["ab_step_cum_well_kernel"]),
         "copy_permute": (232, ops["copy_permute_kernel"]),
-        "pair_pipeline": (216, affine),
+        **{f"pair_pipeline_{load}": (216, affine) for load in ("stages", "direct", "ring")},
         "pair_compute_only": (block0 / sites, affine),
-        "element_pipeline": (216, 2 * 27 * ELEMENT_TIMED[2]),
-        **{name: (216, 0) for name in ("window_copy", "window_copy_ld4", "window_copy_ld16")},
-        "aa_pair_pad_even": (b1b_bytes(BENCH_SHAPE)[0], ops["aa_pair_pad_even_cum_well_kernel"]),
-        "aa_pair_pad_odd": (b1b_bytes(BENCH_SHAPE)[1], ops["aa_pair_pad_odd_kernel"]),
+        "element_pipeline": (216, (2 * 27 * ELEMENT_TIMED[2], 0)),
+        **{name: (216, (0, 0)) for name in ("window_copy", "window_copy_ld4", "window_copy_ld16")},
         "ab_step_sitemajor": (SITEMAJOR_BYTES, ops["ab_step_sitemajor_cum_well_kernel"]),
         "ade_step": (ADE_BYTES, ops["ade_step_clbm_kernel"]),
         "coupled_ab": (COUPLED_BYTES, ops["coupled_cum_well_clbm_kernel"]),
@@ -4001,12 +4127,14 @@ def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
     }
 
 
-def bound(bytes_per_site: float, ops_per_site: float) -> tuple[float, str]:
-    """The least time in ms at 256^3: bytes over the published HBM rate or
-    FP32 operations over the published FP32 rate, whichever is larger."""
-    sites = float(np.prod(BENCH_SHAPE))
+def bound(bytes_per_site: float, ops_per_site: tuple, sites: float | None = None,
+          rates: dict | None = None) -> tuple[float, str]:
+    """The least time in ms at ``sites`` (256^3 unless given): the bytes
+    over the published HBM rate, or the (FP32-pipe, SFU) instructions over
+    the card's issue rates (``RATES``), whichever is larger."""
+    sites = float(np.prod(BENCH_SHAPE)) if sites is None else sites
     t_bytes = bytes_per_site * sites / (HBM_PEAK_GBPS * 1e9) * 1e3
-    t_ops = ops_per_site * sites / (FP32_PEAK_TFLOPS * 1e12) * 1e3
+    t_ops = ops_ms(ops_per_site[0] * sites, ops_per_site[1] * sites, rates or RATES)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -4030,11 +4158,12 @@ def main() -> int:
     steps = phase_compare_steps()
     aa_codes_err = phase_compare_aa_codes()
     pairs = phase_compare_pairs(steps["times"])
-    probe = phase_probes()
+    probe = phase_probes(pairs["times"]["aa_pair_f32"][0])
     floor = gbps(232, probe["times"]["copy_permute"][0])
     ab = phase_compare_ab(steps["times"], floor)
     t_layouts = time.perf_counter()
-    layouts = phase_layouts({**steps["times"], **pairs["times"], **ab["times"]}, floor)
+    layouts = phase_layouts({**steps["times"], **pairs["times"], **ab["times"]}, floor,
+                            built["res"])
     t_layouts = time.perf_counter() - t_layouts
     ade_err = phase_compare_ade()
     coupled_err = phase_compare_coupled()
@@ -4047,9 +4176,8 @@ def main() -> int:
     bench_launches = phase_bench()
     t_bench = time.perf_counter() - t_bench
     kernels["ab_step_sitemajor"] = layouts["kernels"]["ab_step_sitemajor"]
-    for key in ("aa_pair_pad_even", "aa_pair_pad_odd"):  # B1b's launches: the bench entry's
-        k = layouts["kernels"][key]
-        kernels[key] = dataclasses.replace(k, launches=bench_launches[k.name])
+    k = layouts["kernels"]["aa_pair_full"]  # B1b's launches: the bench entry's
+    kernels["aa_pair_full"] = dataclasses.replace(k, launches=bench_launches[k.name])
     for store in STORES:
         k = kernels[f"aa_pair_{store}"]
         kernels[f"aa_pair_{store}"] = dataclasses.replace(
@@ -4126,9 +4254,12 @@ def main() -> int:
             r = built["res"][NN_INSTANCES[key]]
             entry.update(registers=r["registers"], spill_stores=r.get("spill_stores", 0),
                          smem_bytes=geo["smem_bytes"], seg_len=geo["seg_len"])
-        if key in ("aa_pair_pad_even", "aa_pair_pad_odd"):  # the pair against its least work
-            entry["pair_ms"] = layouts["pair_ms"]
-            entry["pair_bound_ms"] = bound(*footprint["aa_pair_f32"])[0]
+        if key == "aa_pair_full":  # the pair against its least work, its instances
+            entry.update(pair_ms=layouts["pair_ms"], pair_bound_ms=bound(*footprint[key])[0],
+                         b1_f32_ms_in_turns=layouts["b1_ms"], instances=layouts["instances"],
+                         full_set_ms_256=layouts["full_set_ms"],
+                         sim_1_res8_ms=layouts["sim1_ms"],
+                         sim_1_res8_b2_plus_b3_ms=layouts["sim1_b2_b3_ms"])
         record["kernels"].append(
             {**entry, "ms": times[key][0], "plain_ms": times[key][1], "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": probe["library"].get(key)})

@@ -58,15 +58,17 @@ def test_bench_pair2_on_cpu_prints_one_json_line(capsys, storage):
 
 
 def test_bench_pair_runs_the_two_kernel_pair_plain_version(capsys, monkeypatch):
-    from tnl_lbm_tpu_torch.kernels.fused_aa import FusedPairAATwoKernel
+    """``--kernel pair`` runs B1b, one launch per pair on the card: here its
+    plain version, once per pair, with its one launch counter at 0."""
+    from tnl_lbm_tpu_torch.kernels.fused_aa import FusedPairAAFull
 
     calls = []
-    plain = FusedPairAATwoKernel.plain
-    monkeypatch.setattr(FusedPairAATwoKernel, "plain",
+    plain = FusedPairAAFull.plain
+    monkeypatch.setattr(FusedPairAAFull, "plain",
                         lambda self, *a, **k: calls.append(1) or plain(self, *a, **k))
     rec = run_main(capsys, "--kernel", "pair")
-    assert "two-kernel pair (B1b)" in rec["metric"] and len(calls) == 11
-    assert rec["launches"] == {"aa_pair_pad_even": 0, "aa_pair_pad_odd": 0}
+    assert "full-set pair (B1b)" in rec["metric"] and len(calls) == 11
+    assert rec["launches"] == {"aa_pair_full": 0}
     assert rec["plain_calls"] == 11 and rec["value"] > 0
 
 

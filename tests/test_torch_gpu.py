@@ -256,11 +256,38 @@ def test_copy_permute_matches_plain_on_card(cuda, with_macro):
 
 @pytest.mark.parametrize("passes", [0, 20, 60])
 def test_pair_probes_match_plain_on_card(cuda, passes):
-    f = torch.randn((27, 20, 36, 40), device=cuda)
-    assert torch.equal(probes.pair_pipeline(f, passes), probes.pair_pipeline_plain(f, passes))
+    """P2a through each load path, on a shape with face tiles, partial y
+    tiles, a ragged last x segment and (for the ring) columns loaded as
+    tensor boxes, and on one with partial y and z tiles, and P2b, bit for
+    bit against their plain versions."""
+    shape = (20, 36, 100)
+    f = torch.randn((27,) + shape, device=cuda)
+    for g in (f, torch.randn((27, 40, 20, 132), device=cuda)):
+        want = probes.pair_pipeline_plain(g, passes)
+        for load in probes.PIPELINE_LOADS:
+            assert torch.equal(probes.pair_pipeline(g, passes, load=load), want), load
+    assert probes.pipeline_geometry(shape, "ring")["boxed_columns"] == 6
     tile = probes.pair_compute_only(f, passes)
-    assert tile.shape == (27,) + probes.first_block((20, 36, 40))
+    assert tile.shape == (27,) + probes.first_block(shape)
     assert torch.equal(tile, probes.pair_compute_only_plain(f, passes))
+
+
+def test_pair_pipeline_geometry_and_refusals_on_card(cuda):
+    """P2a's launch geometry (the library's) equals the one the sources'
+    constants give for the card's SM count; the staged and ring paths
+    refuse a z extent of no whole 16-byte pieces (the direct one takes it)."""
+    from torch_cases import p2a_geometry
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for shape in ((256, 256, 256), (20, 36, 100), (9, 11, 45), (1024, 256, 256)):
+        for load in probes.PIPELINE_LOADS:
+            assert probes.pipeline_geometry(shape, load) == p2a_geometry(shape, load, sms)
+    f = torch.randn((27, 9, 11, 45), device=cuda)
+    assert torch.equal(probes.pair_pipeline(f, 20, load="direct"),
+                       probes.pair_pipeline_plain(f, 20))
+    for load in ("stages", "ring"):
+        with pytest.raises(ValueError, match="Z % 4"):
+            probes.pair_pipeline(f, 20, load=load)
 
 
 # ------------------------------------------------------------- A-B step (B4)
@@ -801,12 +828,12 @@ def test_hooked_routes_agree_on_card(cuda, streaming):
 @pytest.mark.parametrize("spec", sorted(AB_SPECS))
 @pytest.mark.parametrize("kind", ["torus", "duct", "aa_box"])
 def test_two_kernel_pair_matches_plain_on_card(cuda, kind, spec):
-    """Two pairs of the two-kernel A-A pair (B1b) on a box no block divides,
-    each against its plain version on the same input; each kernel alone too
-    (the odd one on the even one's buffer), and the buffer's ring is
-    ``pad_halo`` of its interior bit for bit."""
+    """Two pairs of the full-set A-A pair (B1b, one launch each) on a box
+    no column tile divides, each against its plain version on the same
+    input, and bit for bit the same at x segments of 19 planes (the last
+    one starting at X - 1, where the box's OUTFLOW_RIGHT plane is) and of
+    one plane."""
     from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair_aa
-    from tnl_lbm_tpu_torch.ops.streaming import pad_halo
 
     shape = (20, 36, 40)
     if kind == "aa_box":
@@ -817,38 +844,58 @@ def test_two_kernel_pair_matches_plain_on_card(cuda, kind, spec):
         periodic = (True, True, True) if kind == "torus" else (True, False, False)
         u_in = None
     cfg = interop.config_from_spec(*AB_SPECS[spec], "AA")
-    pair = make_fused_pair_aa(cfg, interop.domain_from_numpy(m, periodic), cuda)
+    dom = interop.domain_from_numpy(m, periodic)
+    pair = make_fused_pair_aa(cfg, dom, cuda)
+    segmented = [make_fused_pair_aa(cfg, dom, cuda, seg_len=seg) for seg in (19, 1)]
     f = seeded_state(cfg, shape, cuda)
-    force = (1e-5, 0.0, 0.0)
+    f0, force = f.clone(), (1e-5, 0.0, 0.0)
     for it in range(2):
-        fpad = pair.even_step(f, 0.02, u_in, force)
-        assert torch.equal(fpad, pad_halo(fpad[:, 1:-1, 1:-1], periodic[:2])), f"ring, pair {it}"
-        assert float((fpad - pair.plain_even_step(f, 0.02, u_in, force)).abs().max()) <= 1e-6
-        f2, rho, u = pair.odd_step(fpad, 0.02, u_in, force)
-        assert float((f2 - pair.plain_odd_step(fpad, 0.02, u_in, force)[0]).abs().max()) <= 1e-6
         fk, rk, uk = pair(f, 0.02, u_in, force)
         fp, rp, up = pair.plain(f, 0.02, u_in, force)
         torch.cuda.synchronize()
-        assert torch.equal(fk, f2) and torch.equal(rk, rho) and torch.equal(uk, u)
         assert float((fk - fp).abs().max()) <= 1e-6, f"f, pair {it}"
         assert float((rk - rp).abs().max()) <= 2e-6 and float((uk - up).abs().max()) <= 1e-6
+        for other in segmented:
+            fs, rs, us = other(f, 0.02, u_in, force)
+            assert torch.equal(fs, fk) and torch.equal(rs, rk) and torch.equal(us, uk), \
+                other.seg_len
         f = fk
-    assert pair.even.launches == pair.odd.launches == 4 and pair.plain_calls == 0
+    assert torch.equal(pair(f0.clone(), 0.02, u_in, force)[0], pair(f0, 0.02, u_in, force)[0])
+    assert torch.equal(f0, seeded_state(cfg, shape, cuda))  # f is never written
+    assert pair.kernel.launches == 4 and pair.plain_calls == 0
 
 
 def test_two_kernel_pair_without_macro_and_refusals(cuda):
+    """B1b without rho and u writes the same state; its geometry is the
+    lean instance's on the duct (B1's 9 ring groups), and the 12-group ring
+    with the outflow pull on the box of every code and in the full-set
+    instance kept on the duct (``lean=False``, within 1e-6 of the lean one);
+    a half-precision state or another shape raises."""
     from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair_aa
 
+    from torch_cases import march_constants
+
+    k = march_constants()
     cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AA")
     dom = interop.domain_from_numpy(duct((8, 16, 8), True), (True, False, False))
     f = seeded_state(cfg, (8, 16, 8), cuda)
     full, bare = make_fused_pair_aa(cfg, dom, cuda), make_fused_pair_aa(cfg, dom, cuda, False)
     f2, rho, u = bare(f, 0.02)
     assert rho is None and u is None and torch.equal(f2, full(f, 0.02)[0])
+    assert full.variant == 3 and full.geometry()["ring_groups"] == 9
+    assert full.geometry()["smem_bytes"] == k["RING_BYTES"] + k["CODE_BYTES"]
+    full_set = make_fused_pair_aa(cfg, dom, cuda, lean=False)  # the full-set CUM_WELL instance
+    assert full_set.variant == 0 and full_set.geometry()["smem_bytes"] == k["OUT_SMEM_BYTES"]
+    for a, b in zip(full_set(f, 0.02), full(f, 0.02)):
+        assert float((a - b).abs().max()) <= 1e-6
+    box = make_fused_pair_aa(cfg, interop.domain_from_numpy(aa_box((8, 16, 12)),
+                                                            (False, False, True)), cuda)
+    assert box.variant == 0 and box.geometry()["smem_bytes"] == k["OUT_SMEM_BYTES"]
+    assert box.geometry()["ring_groups"] == 3 * k["OUT_GROUPS"]
     with pytest.raises(ValueError):
         bare(f.half(), 0.02)
     with pytest.raises(ValueError):
-        bare.odd_step(f, 0.02)  # an unpadded state
+        bare(f[:, :4].contiguous(), 0.02)  # not the domain's shape
 
 
 @pytest.mark.parametrize("spec", sorted(AB_SPECS))

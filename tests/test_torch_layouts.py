@@ -1,10 +1,11 @@
-"""The layout variants on the CPU, held against the JAX package: the
-two-kernel A-A pair (B1b, ``make_fused_pair_aa``) and the site-major A-B
-step (B4s, ``make_fused_step_sitemajor``) with its layout helpers.
+"""The layout variants on the CPU, held against the JAX package: the A-A
+pair with the even and odd steps' codes (B1b, ``make_fused_pair_aa``, one
+launch a pair on the card) and the site-major A-B step (B4s,
+``make_fused_step_sitemajor``) with its layout helpers.
 
 On CPU tensors the wrappers run their plain versions: B1b's is the even
-step's plain version, its result padded by ``pad_halo`` in x and y, then
-the odd step's plain version; B4s's is ``from_sitemajor``, B4's plain step and ``to_sitemajor``.
+step's plain version then the odd step's, on the unpadded state; B4s's is
+``from_sitemajor``, B4's plain step and ``to_sitemajor``.
 They are held against two JAX ``make_step`` A-A steps and one A-B step, at
 the JAX kernel suite's bounds per step (tests/test_fused_kernel.py:65-67):
 |df| < 1e-6, |drho| < 2e-6, |du| < 1e-6; under ``-m slow`` against the JAX
@@ -29,7 +30,6 @@ from tnl_lbm_tpu_torch import interop
 from tnl_lbm_tpu_torch.kernels import fused
 from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair_aa
 from tnl_lbm_tpu_torch.ops.boundary import GEO
-from tnl_lbm_tpu_torch.ops.streaming import pad_halo
 
 from torch_cases import AB_SPECS, U_IN, aa_box, bc_box
 
@@ -100,18 +100,20 @@ def test_two_kernel_pair_plain_matches_jax_steps(periodic):
         fj, rj, uj = jstep(fj, NU, force=jnp.asarray(FORCE), parity=1)
         fp, rp, up = pair(fp, NU, force=FORCE)
         within((fj, rj, uj), (fp, rp, up), (periodic, it))
-    assert pair.plain_calls == 2 and pair.even.launches == pair.odd.launches == 0
+    assert pair.plain_calls == 2 and pair.kernel.launches == 0
     assert np.array_equal(fp.numpy()[:, 4, 5, 6], f0[:, 4, 5, 6])  # NOTHING keeps its DFs
 
 
 @pytest.mark.parametrize("spec", sorted(AB_SPECS))
 def test_two_kernel_pair_plain_matches_jax_on_every_code(spec):
     """Two pairs on the box of every A-A code per variant, with an inflow
-    velocity; the even buffer's ring is ``pad_halo`` of its interior."""
+    velocity, against two JAX A-A steps each; the pair built without rho
+    and u gives the same state."""
     m, periodic = aa_box((8, 16, 12)), (False, False, True)
     jcfg, jdom = jax_side(spec, m, periodic, "AA")
     jstep = j_make_step(jcfg, jdom)
     pair = port_pair(spec, m, periodic)
+    bare = port_pair(spec, m, periodic, with_macro=False)
     assert GEO.OUTFLOW_RIGHT in pair.codes and GEO.INFLOW_LEFT in pair.codes
     f0 = seeded(jcfg, m.shape)
     fj, fp = jnp.asarray(f0), torch.from_numpy(f0.copy())
@@ -119,9 +121,9 @@ def test_two_kernel_pair_plain_matches_jax_on_every_code(spec):
         for parity in (0, 1):
             fj, rj, uj = jstep(fj, NU, u_in=jnp.asarray(U_IN), force=jnp.asarray(FORCE),
                                parity=parity)
-        fpad = pair.even_step(fp, NU, U_IN, FORCE)
-        assert torch.equal(fpad, pad_halo(fpad[:, 1:-1, 1:-1], periodic[:2]))
-        fp, rp, up = pair.odd_step(fpad, NU, U_IN, FORCE)
+        f2, none_rho, none_u = bare(fp, NU, U_IN, FORCE)
+        fp, rp, up = pair(fp, NU, U_IN, FORCE)
+        assert torch.equal(f2, fp) and none_rho is None and none_u is None
         within((fj, rj, uj), (fp, rp, up), (spec, it))
     assert float(np.abs(fp.numpy() - f0).max()) > 1e-5
 
@@ -134,15 +136,42 @@ def test_two_kernel_pair_refusals():
     with pytest.raises(TypeError):
         port_pair("CUM_WELL", m, periodic, tile_even=(8, 16))
     with pytest.raises(ValueError):
-        pair.odd_step(f, NU)  # not the padded buffer
+        pair(torch.zeros((27, 10, 10, 8)), NU)  # not the domain's [Q, X, Y, Z] state
     with pytest.raises(ValueError):
         pair(f.double(), NU)
+    with pytest.raises(NotImplementedError, match="A8"):
+        pair(f, NU, u_in=np.zeros((3, 8, 8, 8), np.float32))  # a per-site inflow profile
+    with pytest.raises(ValueError, match="seg_len"):
+        port_pair("CUM_WELL", m, periodic, seg_len=0)
     interp = bc_box((8, 10, 12))
     with pytest.raises(NotImplementedError, match="OUTFLOW_RIGHT_INTERP"):
         port_pair("CUM_WELL", interp, (False, False, True))
     with pytest.raises(ValueError, match="streaming='AA'"):
         make_fused_pair_aa(interop.config_from_spec(*AB_SPECS["CUM_WELL"], "AB"),
                            interop.domain_from_numpy(m, periodic), "cpu")
+
+
+def test_full_pair_plain_matches_jax_with_outflow_over_segments():
+    """An inflow-outflow channel longer than one x segment of the kernel
+    (csrc/pair_march.cuh SEG_MAX = 32 planes), moment inflow and
+    OUTFLOW_RIGHT on the x faces, CUM with eq_inv_cum as sim_1 runs: three
+    pairs against six JAX A-A steps."""
+    m = aa_box((36, 9, 10))
+    m[1:-1, 3, 4] = GEO.WALL  # a wall line along x, across the segment boundary
+    periodic = (False, False, True)
+    jcfg, jdom = jax_side("CUM_INV_CUM", m, periodic, "AA")
+    jstep = j_make_step(jcfg, jdom)
+    pair = port_pair("CUM_INV_CUM", m, periodic, seg_len=7)
+    f0 = seeded(jcfg, m.shape)
+    fj, fp = jnp.asarray(f0), torch.from_numpy(f0.copy())
+    for it in range(3):
+        for parity in (0, 1):
+            fj, rj, uj = jstep(fj, NU, u_in=jnp.asarray(U_IN), force=jnp.asarray(FORCE),
+                               parity=parity)
+        fp, rp, up = pair(fp, NU, U_IN, FORCE)
+        within((fj, rj, uj), (fp, rp, up), ("outflow channel", it))
+    out = m == GEO.OUTFLOW_RIGHT
+    assert out[-1].any() and float(np.abs(fp.numpy()[:, out] - f0[:, out]).max()) > 1e-5
 
 
 # ------------------------------------------------------------ B4s

@@ -12,8 +12,6 @@ even-output slots and the staged input rows) transliterated into numpy.
 """
 
 import itertools
-import re
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -41,8 +39,8 @@ from tnl_lbm_tpu_torch.sim.state import Simulation, needs_per_step_state
 from tnl_lbm_tpu_torch.utils.dtypes import state_agrees
 
 from test_torch_step import FORCE, NU, geometry, jax_side, rand_f, spec
+from torch_cases import CSRC, march_constants
 
-CSRC = Path(__file__).resolve().parents[1] / "tnl_lbm_tpu_torch" / "csrc"
 HALF = {"f16": (torch.float16, jnp.float16), "bf16": (torch.bfloat16, jnp.bfloat16)}
 
 
@@ -364,23 +362,6 @@ def test_sim2_storage_runs_the_pair_path(tmp_path, capsys):
 # ------------------------------------- the schedule of csrc/aa_pair.cu
 
 
-def _march_constants() -> dict:
-    """The kernel's integer constants, read from csrc/pair_march.cuh (each a
-    number, or a sum or product of the ones before it)."""
-    src = (CSRC / "pair_march.cuh").read_text()
-    consts: dict = {}
-    for decl in re.findall(r"^constexpr int ([^;]+);", src, re.M):
-        for item in decl.split(","):
-            name, expr = (v.strip() for v in item.split("=", 1))
-            if re.fullmatch(r"[\w +*/()-]+", expr) and "sizeof" not in expr:
-                # C's integer division is Python's floor division on these
-                try:
-                    consts[name] = eval(expr.replace("/", "//"), {}, dict(consts))  # noqa: S307
-                except NameError:  # built on a byte count
-                    pass
-    return consts
-
-
 def _neighbour(s, d, n, periodic):
     """Python transliteration of csrc/lbm_site.cuh neighbour."""
     t = s + d
@@ -402,7 +383,7 @@ def _push_targets(s, c, n, periodic):
     return t0, np.where((c > 0) & (s == 0) | (c < 0) & (s == n - 1), s, -1)
 
 
-def _march(shape, periodic, seg_len, dtype, seed=4):
+def _march(shape, periodic, seg_len, dtype, seed=4, outflow=False, ring_groups=None):
     """Run csrc/aa_pair.cu's schedule in numpy, block by block: the copies
     of ``issue`` into byte-level stages, the even warps' staged reads, ring
     and code writes (a seeded stand-in for the even output, a seeded map of
@@ -417,10 +398,17 @@ def _march(shape, periodic, seg_len, dtype, seed=4):
     phase, and no later phase complete).  Returns (times each site
     was the odd warps', the largest odd read against pad_halo of the even
     output, the reuse events), and asserts that every push reads its
-    target's code and that the even warps copy each NOTHING site once."""
-    k = _march_constants()
+    target's code and that the even warps copy each NOTHING site once.
+    ``outflow``: the full-set pair's schedule (csrc/aa_pair_full.cu), no
+    stages (the even warps read the state), OUTFLOW_RIGHT sites in the map
+    whose odd pulls read all 27 slots of plane o - 1, and OUT_GROUPS ring
+    groups of each class unless ``ring_groups`` gives (P, Z, M)."""
+    k = march_constants()
     TY, TZ, NST, G, H = k["TY"], k["TZ"], k["NSTAGES"], k["GROUP"], k["HANDOFF"]
     PG, ZG, MG, CP = k["P_GROUPS"], k["Z_GROUPS"], k["M_GROUPS"], k["CODE_PLANES"]
+    if outflow:
+        PG, ZG, MG = ring_groups or (k["OUT_GROUPS"],) * 3
+    staged = not outflow
     WY, WZ = TY + 2, TZ + 2
     WS = WY * WZ
     X, Y, Z = shape
@@ -433,7 +421,8 @@ def _march(shape, periodic, seg_len, dtype, seed=4):
     f = rng.standard_normal((27,) + shape).astype(dtype)  # the stored state
     ev = rng.standard_normal((27,) + shape).astype(np.float32)  # stands in for even(f)
     pad = pstream.pad_halo(torch.from_numpy(ev), periodic).numpy()
-    geo = rng.choice(np.array([GEO.FLUID, GEO.WALL, GEO.NOTHING], np.uint8), shape)
+    kinds = [GEO.FLUID, GEO.WALL, GEO.NOTHING] + ([GEO.OUTFLOW_RIGHT] if outflow else [])
+    geo = rng.choice(np.array(kinds, np.uint8), shape)
     copied = np.zeros(shape, np.int64)  # NOTHING sites the even warps wrote
     isz = np.dtype(dtype).itemsize
     VEC = 16 // isz
@@ -494,7 +483,7 @@ def _march(shape, periodic, seg_len, dtype, seed=4):
                 stages[j % NST] = (j, st)
                 done["full"][j % NST] += 1
 
-            for j in range(min(NST - 1, n_even)):
+            for j in range(min(NST - 1, n_even) if staged else 0):
                 issue(j)
             odd_planes = range(1, n_even - 1)
 
@@ -515,18 +504,19 @@ def _march(shape, periodic, seg_len, dtype, seed=4):
                     done_odd += 1
             for kind, i in order:
                 if kind == "even":
-                    if i + NST - 1 < n_even:
+                    if staged and i + NST - 1 < n_even:
                         issue(i + NST - 1)  # after every even warp read plane i - 1
                     if i >= 4:  # the kernel's waits, as written there
                         wait("odd", (i - 4) % H, ((i - 4) // H) & 1, (i - 4) // H)
-                    wait("full", i % NST, (i // NST) & 1, i // NST)
                     xg = _neighbour(xs - 1, i, X, px)
-                    plane, st = stages[i % NST]
-                    assert plane == i
-                    got = np.stack([st[(q * WY * RB + soff)[:, None] + np.arange(isz)]
-                                    .reshape(-1).view(dtype) for q in range(27)])
-                    np.testing.assert_array_equal(got, f[:, xg, yg, zg])
-                    stage_read[i % NST] = i
+                    if staged:
+                        wait("full", i % NST, (i // NST) & 1, i // NST)
+                        plane, st = stages[i % NST]
+                        assert plane == i
+                        got = np.stack([st[(q * WY * RB + soff)[:, None] + np.arange(isz)]
+                                        .reshape(-1).view(dtype) for q in range(27)])
+                        np.testing.assert_array_equal(got, f[:, xg, yg, zg])
+                        stage_read[i % NST] = i
                     bufs = (i % PG, PG + i % ZG, PG + ZG + i % MG)
                     for r in range(27):
                         buf = bufs[0] if cx[r] > 0 else (bufs[1] if cx[r] == 0 else bufs[2])
@@ -554,6 +544,16 @@ def _march(shape, periodic, seg_len, dtype, seed=4):
                         want = pad[r, x + 1 - cx[q], y + 1 - cy[q], z + 1 - cz[q]]
                         worst = max(worst, float(np.abs(got - want).max()))
                         ring_read[buf] = o
+                    out = geo[x, y, z] == GEO.OUTFLOW_RIGHT
+                    if out.any():  # every slot from plane o - 1 (x - 1, wrapped or clamped)
+                        prev = ((o - 1) % PG, PG + (o - 1) % ZG, PG + ZG + (o - 1) % MG)
+                        for q in range(27):
+                            r = opp[q]
+                            buf = prev[0] if cx[r] > 0 else (prev[1] if cx[r] == 0 else prev[2])
+                            got = ring[buf, slot[r], (wc - cy[q] * WZ - cz[q])[out]]
+                            want = pad[r, x, (y + 1 - cy[q])[out], (z + 1 - cz[q])[out]]
+                            worst = max(worst, float(np.abs(got - want).max()))
+                            ring_read[buf] = o
                     odd_count[x, y, z] += 1
                     assert (codes[o % CP, wc] == geo[x, y, z]).all()
                     done["odd"][(o - 1) % H] += 1
@@ -594,7 +594,7 @@ def test_pair_window_equals_pad_halo(periodic):
     the even warps; and the staged rows (16-byte
     pieces, the z-halo words) give the even sub-step the input at its window
     site, bit for bit, in float32 and, with its halo words, in float16."""
-    k = _march_constants()
+    k = march_constants()
     assert (k["TY"], k["TZ"]) == PAIR_COLUMN and k["NSTAGES"] == PAIR_STAGES
     assert (k["P_GROUPS"], k["Z_GROUPS"], k["M_GROUPS"], k["GROUP"]) == (2, 3, 4, 9)
     assert k["EVEN_THREADS"] >= k["WSITES"] and k["EVEN_THREADS"] % 32 == 0
@@ -605,6 +605,32 @@ def test_pair_window_equals_pad_halo(periodic):
         assert (count == 1).all(), dtype
         assert worst == 0.0, dtype
         assert all(read <= covered for _, _, covered, read in events), dtype
+
+
+@pytest.mark.parametrize("periodic", [(False, False, True), (True, False, False),
+                                      (False, True, False)], ids=["ccp", "pcc", "cpc"])
+def test_full_pair_ring_keeps_the_outflow_plane(periodic):
+    """The full-set pair's schedule (csrc/aa_pair_full.cu, the march of
+    csrc/pair_march.cuh without stages) on a map with OUTFLOW_RIGHT sites,
+    over x segments of 3 and 8 planes (a segment then starts at X - 1):
+    every site is the odd sub-step's once, every pull - an OUTFLOW_RIGHT
+    site's 27 from plane o - 1 too - is pad_halo of the even output at its
+    source, and no ring group is overwritten before its last reader
+    arrived.  Its shared memory is the 12-group ring and the codes, one
+    block of 608 threads per SM; with B1's 2 + 3 + 4 groups the outflow
+    pulls would read overwritten groups."""
+    k = march_constants()
+    assert k["OUT_GROUPS"] == 4 and k["OUT_SMEM_BYTES"] == 146_880 + 1_700 <= 227 * 1024
+    src = (CSRC / "aa_pair_full.cu").read_text()
+    assert "OUT_SMEM_BYTES" in src and "STAGED = false, OUTFLOW = true" in src
+    shape = (9, PAIR_COLUMN[0] + 3, PAIR_COLUMN[1] + 8)
+    for seg in (3, 8):
+        count, worst, events = _march(shape, periodic, seg, np.float32, outflow=True)
+        assert (count == 1).all() and worst == 0.0, seg
+        assert all(read <= covered for _, _, covered, read in events), seg
+    _, worst, events = _march(shape, periodic, 3, np.float32, outflow=True,
+                              ring_groups=(k["P_GROUPS"], k["Z_GROUPS"], k["M_GROUPS"]))
+    assert worst > 0 or any(read > covered for _, _, covered, read in events)
 
 
 def test_pair_segments_cover_x_when_x_is_shorter_than_a_segment():

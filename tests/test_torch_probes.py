@@ -58,10 +58,12 @@ def test_copy_permute_plain_matches_pallas_body(macro):
 @pytest.mark.parametrize("passes", [0, 3, 20])
 def test_pair_pipeline_plain_matches_pallas_body(passes):
     f = seeded()
-    got = probes.pair_pipeline(torch.from_numpy(f), passes)
-    # every block's columns, after the passes, land on their own sites
-    np.testing.assert_array_equal(got.numpy(), np_passes(f, passes))
+    for load in probes.PIPELINE_LOADS:  # every load path has the same function
+        got = probes.pair_pipeline(torch.from_numpy(f), passes, load=load)
+        # every block's columns, after the passes, land on their own sites
+        np.testing.assert_array_equal(got.numpy(), np_passes(f, passes))
     assert passes == 0 or not np.array_equal(got.numpy(), f)
+    assert all(probes.KERNELS[n].launches == 0 for _, n in probes.PIPELINE_LOADS.values())
 
 
 @pytest.mark.parametrize("shape", [SHAPE, (2, 3, 5)], ids=["large", "smaller_than_a_block"])
@@ -76,17 +78,57 @@ def test_pair_compute_only_plain_matches_pallas_body(shape):
 
 
 def test_probes_share_the_pair_kernel_geometry():
-    """P2a/P2b keep the geometry of the first one-kernel pair (whose times
-    they explain): pair_window.cuh's tile, which ``PROBE_TILE`` mirrors.
-    The pair itself now takes its geometry from pair_march.cuh."""
+    """P2a takes the pair's x-march geometry from pair_march.cuh, as both
+    pairs do (no copy of its constants); P2b keeps the first one-kernel
+    pair's tile (whose times it explains): pair_window.cuh's, which
+    ``PROBE_TILE`` mirrors."""
     csrc = Path(probes.__file__).resolve().parents[1] / "csrc"
     src = (csrc / "probes.cu").read_text()
-    assert '#include "pair_window.cuh"' in src and "window_site(" in src
+    assert '#include "pair_march.cuh"' in src and '#include "pair_window.cuh"' in src
+    p2a = src[src.index("namespace p2a {"):src.index("}  // namespace p2a")]
+    assert "M::TY" in p2a and "M::stage_row" in p2a and "window_site(" not in p2a
+    assert not re.search(r"constexpr int (TY|TZ|WY|WZ|SEG_MAX)\b", p2a)
+    p2b = src[src.index("pair_compute_only_kernel(const float"):]
+    assert "load_window(" in p2b and "TileSite" in p2b
     m = re.search(r"constexpr int TX = (\d+), TY = (\d+), TZ = (\d+);",
                   (csrc / "pair_window.cuh").read_text())
     assert tuple(int(v) for v in m.groups()) == probes.PROBE_TILE
-    pair_src = (csrc / "aa_pair.cu").read_text()
-    assert '#include "pair_march.cuh"' in pair_src and "pair_window.cuh" not in pair_src
+    for pair in ("aa_pair.cu", "aa_pair_full.cu"):
+        pair_src = (csrc / pair).read_text()
+        assert '#include "pair_march.cuh"' in pair_src and "pair_window.cuh" not in pair_src
+        assert "pair_march<" in pair_src
+
+
+def test_pair_pipeline_takes_the_march_geometry():
+    """P2a's load paths and launch at 256^3 on an H100's 132 SMs, from the
+    sources' constants: one block a column tile (8 x 32) and x segment (32
+    planes), the pair's 11 window and 8 tile warps and the ring's producer
+    warp; the staged rows and the direct path's two plane buffers after
+    the pair's ring and codes as in B1, four TMA plane buffers; the ring
+    takes 180 of the 256 columns by tensor boxes (those away from the y and
+    z faces).  The windows read 1.41 sites a site."""
+    from torch_cases import march_constants, p2a_geometry, source_constants
+
+    codes = source_constants("probes.cu")
+    assert {name: code for name, (code, _) in probes.PIPELINE_LOADS.items()} == {
+        "stages": codes["LOAD_STAGES"], "direct": codes["LOAD_DIRECT"],
+        "ring": codes["LOAD_RING"]}
+    assert probes.PIPELINE_DEFAULT in probes.PIPELINE_LOADS
+    for _, name in probes.PIPELINE_LOADS.values():
+        assert probes.KERNELS[name].source.endswith("csrc/probes.cu")
+    k = march_constants()
+    geo = {load: p2a_geometry((256, 256, 256), load) for load in probes.PIPELINE_LOADS}
+    assert {g["threads"] for g in geo.values()} == {640} == {k["THREADS"] + 32}
+    assert {(g["seg_len"], g["segments"], g["columns"]) for g in geo.values()} == {(32, 8, 256)}
+    assert [geo[n]["smem_bytes"] for n in ("stages", "direct", "ring")] == [198_272, 198_272,
+                                                                            173_056]
+    assert all(113 * 1024 < g["smem_bytes"] <= 227 * 1024 for g in geo.values())  # one block an SM
+    assert [geo[n]["plane_buffers"] for n in ("stages", "direct", "ring")] == [2, 2, 4]
+    assert geo["ring"]["boxed_columns"] == 30 * 6 and geo["stages"]["boxed_columns"] == 0
+    reads = k["WSITES"] / k["TILE_SITES"] * (32 + 2) / 32
+    assert abs(reads - 1.411) < 1e-3
+    with pytest.raises(ValueError, match="load must be"):
+        probes.pair_pipeline(torch.zeros((Q, 2, 2, 2)), 0, load="tma")
 
 
 def test_probes_refuse_bad_state():

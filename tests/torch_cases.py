@@ -7,6 +7,9 @@ Imports no jax: ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` run where
 it is not installed.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -477,3 +480,64 @@ def separated_faster(a, b, gap=ROUTE_GAP):
 def chain_range(chains) -> str:
     """'min-max' of chain times in ms."""
     return f"{min(chains):.4f}-{max(chains):.4f}"
+
+
+CSRC = Path(__file__).resolve().parents[1] / "tnl_lbm_tpu_torch" / "csrc"
+#: the card's streaming multiprocessors (an H100 SXM), for the x segment rule
+H100_SMS = 132
+
+
+def source_constants(name: str) -> dict:
+    """The integer constants of a kernel source under csrc/ (each a number,
+    or a sum, product or quotient of the ones before it)."""
+    consts: dict = {}
+    for decl in re.findall(r"^\s*constexpr int ([^;]+);", (CSRC / name).read_text(), re.M):
+        for item in decl.split(","):
+            if "=" not in item:
+                continue
+            key, expr = (v.strip() for v in item.split("=", 1))
+            if re.fullmatch(r"[\w +*/()-]+", expr) and "sizeof" not in expr:
+                # C's integer division is Python's floor division on these
+                try:
+                    consts[key] = eval(expr.replace("/", "//"), {}, dict(consts))  # noqa: S307
+                except NameError:  # built on a byte count
+                    pass
+    return consts
+
+
+def march_constants() -> dict:
+    """csrc/pair_march.cuh's constants, with its byte counts of float32."""
+    k = source_constants("pair_march.cuh")
+    k["ROW_BYTES"] = 16 + (k["TZ"] * 4 + 4 + 15) // 16 * 16
+    k["RING_BYTES"] = k["RING_GROUPS"] * k["GROUP"] * k["WSITES"] * 4
+    k["OUT_RING_BYTES"] = 3 * k["OUT_GROUPS"] * k["GROUP"] * k["WSITES"] * 4
+    k["OUT_SMEM_BYTES"] = k["OUT_RING_BYTES"] + k["CODE_BYTES"]
+    k["STAGE_OFFSET"] = (k["RING_BYTES"] + k["CODE_BYTES"] + 127) // 128 * 128
+    return k
+
+
+def seg_len(X: int, Y: int, Z: int, sms: int = H100_SMS) -> int:
+    """The march's automatic x segment (csrc/pair_march.cuh auto_seg_len)."""
+    k = march_constants()
+    cols = -(-Y // k["TY"]) * -(-Z // k["TZ"])
+    segs = max(1, min(X, -(-sms // cols)))
+    return min(k["SEG_MAX"], -(-X // segs))
+
+
+def p2a_geometry(shape, load: str, sms: int = H100_SMS) -> dict:
+    """P2a's launch (csrc/probes.cu tnl_lbm_pair_pipeline_info) from the
+    sources' constants: the keys of ``probes.pipeline_geometry``."""
+    k, p = march_constants(), source_constants("probes.cu")
+    X, Y, Z = shape
+    TY, TZ = k["TY"], k["TZ"]
+    seg = seg_len(X, Y, Z, sms)
+    ring_plane = -(-27 * k["WY"] * k["ROW_BYTES"] // 128) * 128
+    staged = k["STAGE_OFFSET"] + k["NSTAGES"] * 27 * k["WY"] * k["ROW_BYTES"]
+    smem = p["RING_PLANES"] * ring_plane if load == "ring" else staged
+    boxed = sum(y0 >= 1 and y0 + TY < Y and z0 >= 1 and z0 + TZ < Z
+                for y0 in range(0, Y, TY) for z0 in range(0, Z, TZ))
+    return {"smem_bytes": smem, "threads": k["THREADS"] + p["PRODUCER"], "seg_len": seg,
+            "segments": -(-X // seg), "columns": -(-Y // TY) * -(-Z // TZ),
+            "plane_buffers": {"stages": k["NSTAGES"], "direct": p["DIRECT_PLANES"],
+                              "ring": p["RING_PLANES"]}[load],
+            "boxed_columns": boxed if load == "ring" else 0}

@@ -1,7 +1,7 @@
-// Block geometry of the probes P2a and P2b (probes.cu pair_pipeline /
-// pair_compute_only).  It is the geometry of the first one-kernel A-A pair,
-// which the probes were written to explain and whose times PERF.md keeps;
-// the pair itself now marches column tiles along x (pair_march.cuh).
+// Block geometry of the probe P2b (probes.cu pair_compute_only).  It is the
+// geometry of the first one-kernel A-A pair, which the probe was written to
+// explain and whose times PERF.md keeps; the pair itself, and P2a, now march
+// column tiles along x (pair_march.cuh).
 //
 // A block owns an output tile of TX x TY x TZ sites (z fastest) and works
 // on its window: the tile plus a one-site halo, wrapped on periodic axes

@@ -7,18 +7,20 @@
 // aa_even.cu; it measures the card's floor for 27 + 27 f32 and 16 B of
 // macro per site (232 B/site).
 //
-// pair_pipeline_kernel and pair_compute_only_kernel replace
-// scripts/probe_pair2_pipeline.py make (:20, pallas_call :73) and
-// make_compute_only (:113, pallas_call :151).  They keep the grid, tile and
-// one-site halo window of the first one-kernel pair (pair_window.cuh: a
-// 4 x 4 x 32 tile, wrap or clamp), whose times they explain, and replace
-// its two collisions with `passes` rounds of x * 1.000001 + 1e-12 on the
-// window's interior.  pair_pipeline loads every window into shared memory
-// and writes every interior: that pair's memory traffic.  pair_compute_only
-// loads and writes only block 0's tile; the other blocks compute on
-// whatever their shared memory holds and store the result back to it: that
-// pair's grid and arithmetic with no traffic.  Multiply and add round
-// separately (no FMA contraction), as the plain versions do.
+// pair_pipeline_{stages,direct,ring}_kernel and pair_compute_only_kernel
+// replace scripts/probe_pair2_pipeline.py make (:20, pallas_call :73) and
+// make_compute_only (:113, pallas_call :151), with `passes` rounds of
+// x * 1.000001 + 1e-12 in place of a pair's two collisions; multiply and
+// add round separately (no FMA contraction), as the plain versions do.
+// pair_pipeline (P2a) is the memory half of the one-kernel pair's x-march
+// (pair_march.cuh: 8 x 32 column tiles, x segments, one-site y-z halo
+// windows, each window plane loaded once a segment), through one of three
+// load paths (p2a::pipeline below), the tile's interior run through the
+// passes and stored.  pair_compute_only (P2b) keeps the grid, 4 x 4 x 32
+// tile and window of the first one-kernel pair (pair_window.cuh), which no
+// longer shares P2a's: it loads and writes only block 0's tile; the other
+// blocks compute on whatever their shared memory holds and store the
+// result back to it: that pair's grid and arithmetic with no traffic.
 //
 // element_pipeline_kernel replaces scripts/probe_element_pipeline.py make
 // (Pallas kernel at :21, pallas_call at :32): every (tx, ty) tile of a
@@ -55,11 +57,14 @@
 // and the output are the same in all three.  Bound: HBM bytes, the
 // interior read once and written once (216 B/site).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
 
 #include "lbm_site.cuh"
+#include "pair_march.cuh"
 #include "pair_window.cuh"
 
 using namespace lbm;
@@ -110,20 +115,193 @@ copy_permute_kernel(const float* __restrict__ f, float* __restrict__ fout,
   }
 }
 
-extern "C" __global__ void __launch_bounds__(THREADS, 1)
-pair_pipeline_kernel(const float* __restrict__ f, float* __restrict__ fout, int X, int Y,
-                     int Z, int periodic_bits, int passes) {
-  extern __shared__ float win[];
-  load_window(f, win, blockIdx.x, blockIdx.y, blockIdx.z, X, Y, Z, periodic_bits);
-  __syncthreads();
-  const TileSite t;
-  const int x = blockIdx.z * TX + t.lx, y = blockIdx.y * TY + t.ly, z = blockIdx.x * TZ + t.lz;
-  if (x >= X || y >= Y || z >= Z) return;
-  const int64_t N = (int64_t)X * Y * Z;
-  const int64_t site = ((int64_t)x * Y + y) * Z + z;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) fout[q * N + site] = affine(win[q * WSITES + t.w], passes);
+// P2a, the march's memory half (pair_march.cuh's geometry).  Block b owns
+// the column tile b mod ncol of x segment b / ncol, as the pair's blocks
+// (aa_pair.cu), and walks its window planes xs - 1 .. xe, each loaded once,
+// with the pair's split of roles: the 11 window warps (the pair's even
+// warps) bring each plane into a ring of plane buffers by the block's load
+// path, and 8 tile warps (the odd warps), one thread per tile site, wait
+// for a plane, run the passes on the tile's 27 values of an interior plane,
+// store them and hand the buffer back.  Every buffer has a full and an
+// empty mbarrier, so the loads of later planes go on while a plane is
+// computed.  Load paths:
+//   LOAD_STAGES  the pair's staged rows (march::stage_row): each of a
+//                plane's 270 rows one bulk copy of its interior and two
+//                4-byte cp.async halo words, issued by the window threads
+//                into NSTAGES stages (B1's copies);
+//   LOAD_DIRECT  every window thread reads its site's 27 values from global
+//                memory and writes them to a [Q][WSITES] plane buffer (B1
+//                unstaged, its even warps' ring writes);
+//   LOAD_RING    RING_PLANES plane buffers (P3's ring): for a tile whose
+//                window needs no wrap or clamp, one lane of a producer warp
+//                copies each plane as one tensor-map box of 40 z x 10 y x 27
+//                components (its z range and 4 each side, 160 bytes a row:
+//                the low halo at byte 12); for any other the window warps
+//                copy the staged rows into the ring.
+// Every path runs one block per SM, as the pair: the stages and the direct
+// path's plane buffers sit after the pair's ring and codes (STAGE_OFFSET),
+// in the pair's shared memory; the ring's 4 planes exceed half an SM.
+namespace p2a {
+
+namespace M = lbm::march;
+
+constexpr int LOAD_STAGES = 0, LOAD_DIRECT = 1, LOAD_RING = 2;
+constexpr int PRODUCER = 32;                          // the ring's producer warp
+constexpr int LOADERS = M::EVEN_THREADS;              // the window warps
+constexpr int THREADS = LOADERS + M::ODD_THREADS + PRODUCER;  // 640
+constexpr int RING_PLANES = 4;
+constexpr int DIRECT_PLANES = 2;
+constexpr int DIRECT_PLANE_BYTES = Q * M::WSITES * (int)sizeof(float);  // 36,720
+constexpr int BOX_Z = M::TZ + 8;                      // 40 floats: a staged row's 160 bytes
+constexpr int RB = M::row_bytes<float>();             // 160
+constexpr int PITCH = M::WY * RB;                     // 1600: a component's rows
+constexpr int PLANE_BYTES = (Q * PITCH + 127) / 128 * 128;  // 43,264: a box, 128-byte aligned
+constexpr int LO_BOX = 12;                            // byte of z0 - 1 in a box row
+static_assert(BOX_Z * (int)sizeof(float) == RB, "a box row is a staged row");
+static_assert(M::STAGE_OFFSET + DIRECT_PLANES * DIRECT_PLANE_BYTES <= M::smem_bytes<float>(),
+              "the direct path's planes fit the pair's shared memory");
+
+__host__ __device__ constexpr int smem_bytes(int load) {
+  return load == LOAD_RING ? RING_PLANES * PLANE_BYTES : M::smem_bytes<float>();
 }
+
+template <int LOAD>
+__device__ __forceinline__ void pipeline(const float* __restrict__ f, float* __restrict__ fout,
+                                         int X, int Y, int Z, int periodic_bits, int passes,
+                                         int seg_len, const CUtensorMap* tmap) {
+  extern __shared__ __align__(128) unsigned char p2a_smem[];
+  __shared__ uint64_t full[RING_PLANES], empty[RING_PLANES];
+  const bool px = periodic_bits & 1, py = periodic_bits & 2, pz = periodic_bits & 4;
+  const int64_t YZ = (int64_t)Y * Z, N = X * YZ;
+  const int nzt = (Z + M::TZ - 1) / M::TZ, ncol = ((Y + M::TY - 1) / M::TY) * nzt;
+  const int col = blockIdx.x % ncol, seg = blockIdx.x / ncol;
+  const int y0 = (col / nzt) * M::TY, z0 = (col % nzt) * M::TZ;
+  const int ny = min(M::TY, Y - y0), nz = min(M::TZ, Z - z0);
+  const int xs = seg * seg_len, xe = min(xs + seg_len, X);
+  const int planes = xe - xs + 2;  // window planes xs - 1 .. xe
+  const int t = threadIdx.x;
+  const int zlo = neighbour(z0 - 1, 0, Z, pz), zhi = neighbour(z0 - 1, nz + 1, Z, pz);
+  const bool boxed = LOAD == LOAD_RING && ny == M::TY && nz == M::TZ && y0 >= 1 &&
+                     y0 + M::TY < Y && z0 >= 1 && z0 + M::TZ < Z;
+  constexpr int stages =
+      LOAD == LOAD_RING ? RING_PLANES : (LOAD == LOAD_DIRECT ? DIRECT_PLANES : M::NSTAGES);
+  constexpr int buf_bytes = LOAD == LOAD_RING ? PLANE_BYTES
+                            : (LOAD == LOAD_DIRECT ? DIRECT_PLANE_BYTES : M::stage_bytes<float>());
+  constexpr int lo_byte = LOAD == LOAD_RING ? LO_BOX : 0;
+  unsigned char* bufs = p2a_smem + (LOAD == LOAD_RING ? 0 : M::STAGE_OFFSET);
+  if (t == 0) {
+    for (int s = 0; s < stages; ++s) {
+      M::mbar_init(&full[s], boxed ? 1 : LOADERS);
+      M::mbar_init(&empty[s], M::ODD_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // row r of window plane j (component r / WY, window row r % WY) into its buffer
+  auto copy_row = [&](int j, int r) {
+    constexpr int comp_bytes = LOAD == LOAD_RING ? PITCH : M::WY * RB;
+    const float* src = f + neighbour(xs - 1, j, X, px) * YZ + (int64_t)(r / M::WY) * N +
+                       neighbour(y0 - 1, r % M::WY, Y, py) * (int64_t)Z;
+    unsigned char* dst = bufs + (j % stages) * buf_bytes + (r / M::WY) * comp_bytes +
+                         (r % M::WY) * RB;
+    M::stage_row<float>(dst, src, z0, nz, zlo, zhi, lo_byte, &full[j % stages]);
+  };
+
+  if (t < LOADERS) {  // ================= the window warps
+    if (boxed) return;
+    const int lyw = t / M::WZ, lzw = t % M::WZ;
+    const bool on = t < M::WSITES && lyw <= ny + 1 && lzw <= nz + 1;
+    const int yz = neighbour(y0 - 1, lyw, Y, py) * Z + neighbour(z0 - 1, lzw, Z, pz);
+    const bool copier = t < Q * M::WY && t % M::WY <= ny + 1;
+    for (int j = 0; j < planes; ++j) {
+      const int s = j % stages;
+      if (j >= stages) M::mbar_wait(&empty[s], (j / stages - 1) & 1);
+      if (LOAD != LOAD_DIRECT) {
+        if (copier) {
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the reads
+          copy_row(j, t);
+        }
+        M::cp_async_arrive(&full[s]);
+      } else {
+        if (on) {
+          const float* src = f + neighbour(xs - 1, j, X, px) * YZ + yz;
+          float* dst = reinterpret_cast<float*>(bufs + s * buf_bytes) + t;
+          float v[Q];
+#pragma unroll
+          for (int q = 0; q < Q; ++q) v[q] = src[q * N];
+#pragma unroll
+          for (int q = 0; q < Q; ++q) dst[q * M::WSITES] = v[q];
+        }
+        M::mbar_arrive(&full[s]);  // releases this thread's writes
+      }
+    }
+    return;
+  }
+
+  if (t >= LOADERS + M::ODD_THREADS) {  // ================= the ring's producer lane
+    if (!boxed || t != LOADERS + M::ODD_THREADS) return;
+    for (int j = 0; j < planes; ++j) {
+      const int s = j % stages;
+      if (j >= stages) M::mbar_wait(&empty[s], (j / stages - 1) & 1);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the reads
+      const uint32_t bar = M::smem_addr(&full[s]);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                   "r"(Q * M::WY * RB)
+                   : "memory");
+      asm volatile(
+          "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(M::smem_addr(bufs + s * PLANE_BYTES)),
+          "l"(reinterpret_cast<uint64_t>(tmap)), "r"(z0 - 4), "r"(y0 - 1),
+          "r"(neighbour(xs - 1, j, X, px)), "r"(0), "r"(bar)
+          : "memory");
+    }
+    return;
+  }
+
+  // ================= the tile warps: tile site (ly, lz) of every interior plane
+  const int ot = t - LOADERS, ly = ot / M::TZ, lz = ot % M::TZ;
+  const bool mine = ly < ny && lz < nz;
+  const int yz = (y0 + ly) * Z + z0 + lz;
+  const int lyw = ly + 1, lzw = lz + 1;  // the site in the window
+  const int off = LOAD == LOAD_DIRECT ? (lyw * M::WZ + lzw) * (int)sizeof(float)
+                                      : lyw * RB + 16 + (lzw - 1) * (int)sizeof(float);
+  constexpr int comp_bytes = LOAD == LOAD_RING ? PITCH
+                             : (LOAD == LOAD_DIRECT ? M::WSITES * (int)sizeof(float)
+                                                    : M::WY * RB);
+  for (int i = 0; i < planes; ++i) {
+    const int s = i % stages;
+    M::mbar_wait(&full[s], (i / stages) & 1);
+    if (mine && i >= 1 && i + 1 < planes) {
+      const unsigned char* src = bufs + s * buf_bytes + off;
+      float v[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) v[q] = *reinterpret_cast<const float*>(src + q * comp_bytes);
+      M::mbar_arrive(&empty[s]);  // the buffer is read
+      for (int r = 0; r < passes; ++r)  // the 27 values' passes side by side
+#pragma unroll
+        for (int q = 0; q < Q; ++q) v[q] = __fadd_rn(__fmul_rn(v[q], 1.000001f), 1e-12f);
+      float* dst = fout + (int64_t)(xs + i - 1) * YZ + yz;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) dst[q * N] = v[q];
+    } else {
+      M::mbar_arrive(&empty[s]);
+    }
+  }
+}
+
+}  // namespace p2a
+
+#define PAIR_PIPELINE_KERNEL(NAME, LOAD)                                                      \
+  extern "C" __global__ void __launch_bounds__(p2a::THREADS, 1)                              \
+      NAME(const float* __restrict__ f, float* __restrict__ fout, int X, int Y, int Z,        \
+           int periodic_bits, int passes, int seg_len, const __grid_constant__ CUtensorMap tmap) { \
+    p2a::pipeline<LOAD>(f, fout, X, Y, Z, periodic_bits, passes, seg_len, &tmap);             \
+  }
+
+PAIR_PIPELINE_KERNEL(pair_pipeline_stages_kernel, p2a::LOAD_STAGES)
+PAIR_PIPELINE_KERNEL(pair_pipeline_direct_kernel, p2a::LOAD_DIRECT)
+PAIR_PIPELINE_KERNEL(pair_pipeline_ring_kernel, p2a::LOAD_RING)
 
 // tile: [27, min(TX, X), min(TY, Y), min(TZ, Z)], block 0's tile.
 extern "C" __global__ void __launch_bounds__(THREADS, 1)
@@ -420,13 +598,104 @@ extern "C" int tnl_lbm_copy_permute(const float* f, float* fout, float* rho, flo
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static void* fn = nullptr;
+  if (fn == nullptr) {
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault) != cudaSuccess)
+      fn = nullptr;
+#endif
+  }
+  return reinterpret_cast<EncodeTiled>(fn);
+}
+
+// The [27, X, Y, Z] state as a 4D tensor map (z fastest) with boxes of
+// BOX_Z x WY x 1 x Q: a window plane's rows, every component.
+cudaError_t state_map(CUtensorMap* map, const float* f, int X, int Y, int Z) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)Z, (cuuint64_t)Y, (cuuint64_t)X, (cuuint64_t)Q};
+  const cuuint64_t strides[3] = {(cuuint64_t)Z * 4, (cuuint64_t)Y * Z * 4,
+                                 (cuuint64_t)X * Y * Z * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)p2a::BOX_Z, (cuuint32_t)march::WY, 1, (cuuint32_t)Q};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(f), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+using PipelineKernel = void (*)(const float*, float*, int, int, int, int, int, int,
+                                const CUtensorMap);
+const PipelineKernel PIPELINE[3] = {pair_pipeline_stages_kernel, pair_pipeline_direct_kernel,
+                                    pair_pipeline_ring_kernel};
+
+int boxed_columns(int Y, int Z) {
+  const int ny = (Y + march::TY - 1) / march::TY, nzt = (Z + march::TZ - 1) / march::TZ;
+  int n = 0;
+  for (int j = 0; j < ny; ++j)
+    for (int k = 0; k < nzt; ++k) {
+      const int y0 = j * march::TY, z0 = k * march::TZ;
+      n += y0 >= 1 && y0 + march::TY < Y && z0 >= 1 && z0 + march::TZ < Z;
+    }
+  return n;
+}
+
+}  // namespace
+
+// P2a's launch geometry for a load path (0 stages, 1 direct, 2 ring) and a
+// shape: out[0] dynamic shared memory per block (bytes), [1] threads per
+// block, [2] the x segment, [3] segments, [4] column tiles, [5] plane
+// buffers, [6] columns loaded as tensor boxes (the ring's; 0 for the
+// other paths).
+extern "C" int tnl_lbm_pair_pipeline_info(int load, int X, int Y, int Z, int* out) {
+  if (load < 0 || load > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int seg = march::auto_seg_len(X, Y, Z);
+  const int vals[7] = {p2a::smem_bytes(load), p2a::THREADS, seg, (X + seg - 1) / seg,
+                       march::column_tiles(Y, Z),
+                       load == p2a::LOAD_STAGES ? march::NSTAGES
+                       : (load == p2a::LOAD_RING ? p2a::RING_PLANES : p2a::DIRECT_PLANES),
+                       load == p2a::LOAD_RING ? boxed_columns(Y, Z) : 0};
+  for (int k = 0; k < 7; ++k) out[k] = vals[k];
+  return 0;
+}
+
+// load: 0 stages, 1 direct, 2 ring, over the pair's automatic x segments.
+// The stages and the ring need Z % 4 == 0 and a 16-byte aligned state.
 extern "C" int tnl_lbm_pair_pipeline(const float* f, float* fout, int X, int Y, int Z,
-                                     int periodic_bits, int passes, void* stream) {
-  static const cudaError_t opted = opt_in(reinterpret_cast<const void*>(pair_pipeline_kernel));
-  if (opted != cudaSuccess) return static_cast<int>(opted);
-  pair_pipeline_kernel<<<grid(X, Y, Z), THREADS, SMEM_BYTES,
-                         static_cast<cudaStream_t>(stream)>>>(f, fout, X, Y, Z, periodic_bits,
-                                                              passes);
+                                     int periodic_bits, int passes, int load, void* stream) {
+  static cudaError_t opted[3] = {cudaErrorNotReady, cudaErrorNotReady, cudaErrorNotReady};
+  if (load < 0 || load > 2 || passes < 0 || (int64_t)Y * Z > INT_MAX ||
+      (load != p2a::LOAD_DIRECT && (Z % 4 != 0 || reinterpret_cast<uintptr_t>(f) % 16 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (opted[load] == cudaErrorNotReady)
+    opted[load] = opt_in(reinterpret_cast<const void*>(PIPELINE[load]), p2a::smem_bytes(load));
+  if (opted[load] != cudaSuccess) return static_cast<int>(opted[load]);
+  CUtensorMap map{};
+  if (load == p2a::LOAD_RING) {
+    const cudaError_t e = state_map(&map, f, X, Y, Z);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int seg_len = march::auto_seg_len(X, Y, Z);
+  const int blocks = march::column_tiles(Y, Z) * ((X + seg_len - 1) / seg_len);
+  PIPELINE[load]<<<blocks, p2a::THREADS, p2a::smem_bytes(load),
+                   static_cast<cudaStream_t>(stream)>>>(f, fout, X, Y, Z, periodic_bits, passes,
+                                                        seg_len, map);
   return static_cast<int>(cudaGetLastError());
 }
 

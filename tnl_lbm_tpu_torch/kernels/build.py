@@ -21,7 +21,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("aa_even.cu", "aa_odd.cu", "aa_pair.cu", "aa_pair_pad.cu", "ab_step.cu",
+SOURCES = ("aa_even.cu", "aa_odd.cu", "aa_pair.cu", "aa_pair_full.cu", "ab_step.cu",
            "ab_step_sitemajor.cu", "ade_step.cu", "coupled_ab.cu", "coupled_aa.cu",
            "d2q9_step.cu", "nn_force.cu", "nn_step.cu", "probes.cu")
 HEADERS = ("lbm_site.cuh", "pair_march.cuh", "pair_window.cuh", "ade_site.cuh",
@@ -104,8 +104,8 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_aa_pair.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, f, f, f, i, p]
     lib.tnl_lbm_aa_pair_segmented.argtypes = [p] * 5 + [i] * 7 + [f] * 4 + [i, i, p]
     lib.tnl_lbm_aa_pair_info.argtypes = [i, i, i, i, p]
-    lib.tnl_lbm_aa_pair_pad_even.argtypes = [p] * 3 + [i] * 5 + [f] * 7 + [i, p]
-    lib.tnl_lbm_aa_pair_pad_odd.argtypes = [p] * 5 + [i] * 6 + [f] * 7 + [i, p]
+    lib.tnl_lbm_aa_pair_full.argtypes = [p] * 5 + [i] * 7 + [f] * 7 + [i, i, p]
+    lib.tnl_lbm_aa_pair_full_info.argtypes = [i, i, i, i, p]
     lib.tnl_lbm_ab_step.argtypes = [p] * 6 + [i] * 6 + [f] * 7 + [i, p]
     lib.tnl_lbm_ab_step_sitemajor.argtypes = [p] * 5 + [i] * 5 + [f] * 7 + [i, p]
     lib.tnl_lbm_ade_step.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, p]
@@ -118,7 +118,8 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_nn_step.argtypes = [p] * 5 + [i] * 8 + [f] * 7 + [i, i] + [f] * 6 + [p]
     lib.tnl_lbm_nn_info.argtypes = [i, i, i, i, p]
     lib.tnl_lbm_copy_permute.argtypes = [p, p, p, p, i, i, i, i, p]
-    lib.tnl_lbm_pair_pipeline.argtypes = [p, p, i, i, i, i, i, p]
+    lib.tnl_lbm_pair_pipeline.argtypes = [p, p] + [i] * 6 + [p]
+    lib.tnl_lbm_pair_pipeline_info.argtypes = [i, i, i, i, p]
     lib.tnl_lbm_pair_compute_only.argtypes = [p, p, i, i, i, i, p]
     lib.tnl_lbm_aa_pair_smem_bytes.argtypes = []
     lib.tnl_lbm_element_pipeline.argtypes = [p, p] + [i] * 8 + [p]
@@ -127,14 +128,15 @@ def load_library() -> ctypes.CDLL:
     for fn in (lib.tnl_lbm_aa_even, lib.tnl_lbm_aa_odd, lib.tnl_lbm_aa_pair,
                lib.tnl_lbm_aa_pair_segmented, lib.tnl_lbm_aa_pair_info,
                lib.tnl_lbm_window_copy_stages,
-               lib.tnl_lbm_aa_pair_pad_even, lib.tnl_lbm_aa_pair_pad_odd, lib.tnl_lbm_ab_step,
+               lib.tnl_lbm_aa_pair_full, lib.tnl_lbm_aa_pair_full_info, lib.tnl_lbm_ab_step,
                lib.tnl_lbm_ab_step_sitemajor, lib.tnl_lbm_element_pipeline,
                lib.tnl_lbm_window_copy,
                lib.tnl_lbm_ade_step, lib.tnl_lbm_coupled_ab, lib.tnl_lbm_coupled_aa,
                lib.tnl_lbm_d2q9_step, lib.tnl_lbm_d2q9_chunk, lib.tnl_lbm_d2q9_chunk_info,
                lib.tnl_lbm_nn_force, lib.tnl_lbm_nn_step,
                lib.tnl_lbm_nn_info, lib.tnl_lbm_copy_permute,
-               lib.tnl_lbm_pair_pipeline, lib.tnl_lbm_pair_compute_only,
+               lib.tnl_lbm_pair_pipeline, lib.tnl_lbm_pair_pipeline_info,
+               lib.tnl_lbm_pair_compute_only,
                lib.tnl_lbm_aa_pair_smem_bytes):
         fn.restype = i
     _LIBRARY["lib"] = lib

@@ -9,11 +9,13 @@ oracle it is held against on the card.
 
 - :func:`copy_permute` (P1): the even step's I/O with no collision, the
   card's copy floor for the A-A kernels.
-- :func:`pair_pipeline` (P2a): the first one-kernel pair's 4x4x32 tiles and
-  halo windows (``PROBE_TILE``; the pair now marches column tiles along x)
-  with an affine map in place of the collisions: its memory half.
-- :func:`pair_compute_only` (P2b): the same grid and arithmetic with only
-  block 0's window loaded and only its tile stored: its compute half.
+- :func:`pair_pipeline` (P2a): the one-kernel pair's x-march (its 8x32
+  column tiles, x segments and one-site halo windows, each window plane
+  loaded once a segment) with an affine map in place of the collisions: its
+  memory half, through one of three load paths (``PIPELINE_LOADS``).
+- :func:`pair_compute_only` (P2b): the first one-kernel pair's 4x4x32 grid
+  (``PROBE_TILE``; it no longer shares P2a's) and arithmetic with only block
+  0's window loaded and only its tile stored: that pair's compute half.
 - :func:`element_pipeline` (P3): overlapping halo windows of a padded
   state, each window plane loaded once by TMA into a ring of plane buffers
   as blocks march along x, the affine passes on each tile's interior: do
@@ -23,7 +25,7 @@ oracle it is held against on the card.
   16-byte ``cp.async`` or TMA bulk copies, pipelined through a ring of
   plane buffers (:func:`window_stages` of them).
 
-``KERNELS`` holds one launch count per probe (P4: per load path).
+``KERNELS`` holds one launch count per probe (P2a, P4: per load path).
 """
 
 from __future__ import annotations
@@ -36,17 +38,29 @@ from tnl_lbm_tpu_torch.kernels.build import load_library
 from tnl_lbm_tpu_torch.kernels.fused import CudaKernel, _periodic_bits
 
 Q = 27
-#: P2a/P2b's output tile of one block (csrc/pair_window.cuh TX, TY, TZ): the
-#: first one-kernel pair's, which the probes explain
+#: P2b's output tile of one block (csrc/pair_window.cuh TX, TY, TZ): the
+#: first one-kernel pair's, which the probe explains
 PROBE_TILE = (4, 4, 32)
+#: P2a's load paths -> the ``load`` code of ``tnl_lbm_pair_pipeline``
+#: (csrc/probes.cu p2a::LOAD_*) and the launch counter: the pair's staged rows,
+#: global reads by the window threads, a producer warp's TMA plane ring
+PIPELINE_LOADS = {"stages": (0, "pair_pipeline_stages"), "direct": (1, "pair_pipeline_direct"),
+                  "ring": (2, "pair_pipeline_ring")}
+#: P2a's default load path: the fastest at 256^3 and 20 passes on the card
+#: (PERF.md section 6)
+PIPELINE_DEFAULT = "stages"
+#: keys of :func:`pipeline_geometry` (csrc/probes.cu tnl_lbm_pair_pipeline_info)
+_PIPELINE_KEYS = ("smem_bytes", "threads", "seg_len", "segments", "columns", "plane_buffers",
+                  "boxed_columns")
 #: the bench duct's periodic axes (x only), for the P2a halo
 _BENCH_PERIODIC_BITS = _periodic_bits((True, False, False))
 
 KERNELS = {
     "copy_permute": CudaKernel("copy_permute", "tnl_lbm_tpu_torch/csrc/probes.cu",
                                "scripts/profile_floor.py:36"),
-    "pair_pipeline": CudaKernel("pair_pipeline", "tnl_lbm_tpu_torch/csrc/probes.cu",
-                                "scripts/probe_pair2_pipeline.py:73"),
+    **{name: CudaKernel(name, "tnl_lbm_tpu_torch/csrc/probes.cu",
+                        "scripts/probe_pair2_pipeline.py:73")
+       for _, name in PIPELINE_LOADS.values()},
     "pair_compute_only": CudaKernel("pair_compute_only", "tnl_lbm_tpu_torch/csrc/probes.cu",
                                     "scripts/probe_pair2_pipeline.py:151"),
     "element_pipeline": CudaKernel("element_pipeline", "tnl_lbm_tpu_torch/csrc/probes.cu",
@@ -146,22 +160,47 @@ def pair_pipeline_plain(f, passes: int):
     return affine(f, passes)
 
 
-def pair_pipeline(f, passes: int):
-    """P2a: every tile's halo window in, ``affine`` on the interior, the
-    interior out -> the new state.  The halo wraps along x and clamps along
-    y and z, as the pair's does on the bench duct."""
+def pipeline_geometry(shape, load: str = PIPELINE_DEFAULT) -> dict:
+    """P2a's launch for a [27, *shape] state (CUDA only): shared memory and
+    threads per block, the x segment and the segments, the column tiles, the
+    plane buffers in flight and the columns the ring loads as tensor boxes."""
+    code, _ = _pipeline_load(load)
+    out = (ctypes.c_int * len(_PIPELINE_KEYS))()
+    rc = load_library().tnl_lbm_pair_pipeline_info(code, *shape, out)
+    if rc != 0:
+        raise RuntimeError(f"tnl_lbm_pair_pipeline_info failed: CUDA error {rc}")
+    return dict(zip(_PIPELINE_KEYS, out))
+
+
+def _pipeline_load(load: str):
+    if load not in PIPELINE_LOADS:
+        raise ValueError(f"load must be one of {sorted(PIPELINE_LOADS)}, got {load!r}")
+    return PIPELINE_LOADS[load]
+
+
+def pair_pipeline(f, passes: int, load: str = PIPELINE_DEFAULT):
+    """P2a: the pair's x-march over ``f``'s column tiles and x segments,
+    every window plane in once, ``affine`` on the tiles' interiors, the
+    interiors out -> the new state.  The halo wraps along x and clamps
+    along y and z, as the pair's does on the bench duct.  ``load`` picks the
+    load path of ``PIPELINE_LOADS`` ("stages" and "ring" need Z % 4 == 0 and
+    a 16-byte aligned state); the result does not depend on it."""
     X, Y, Z = _check(f)
+    code, name = _pipeline_load(load)
     if f.device.type != "cuda":
         return pair_pipeline_plain(f, passes)
+    if load != "direct" and (Z % 4 or f.data_ptr() % 16):
+        raise ValueError(f"the {load!r} load path needs Z % 4 == 0 and a 16-byte aligned state")
     fout = torch.empty_like(f)
     rc = load_library().tnl_lbm_pair_pipeline(f.data_ptr(), fout.data_ptr(), X, Y, Z,
-                                              _BENCH_PERIODIC_BITS, int(passes), _stream(f))
-    _launched("pair_pipeline", rc)
+                                              _BENCH_PERIODIC_BITS, int(passes), code,
+                                              _stream(f))
+    _launched(name, rc)
     return fout
 
 
 def first_block(shape) -> tuple[int, int, int]:
-    """Extent of the probes' block 0: its tile, clipped to the domain."""
+    """Extent of P2b's block 0: its tile, clipped to the domain."""
     return tuple(min(t, n) for t, n in zip(PROBE_TILE, shape))
 
 
