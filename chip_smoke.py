@@ -1104,6 +1104,7 @@ def phase_layouts(times: dict, floor_gbps: float, res: dict) -> dict:
 
     from tnl_lbm_tpu_torch.apps import sim_1
     from tnl_lbm_tpu_torch.kernels.fused import (
+        aa_variant,
         from_sitemajor,
         make_fused_step_sitemajor,
         to_sitemajor,
@@ -1142,7 +1143,9 @@ def phase_layouts(times: dict, floor_gbps: float, res: dict) -> dict:
 
     cfg, dom = flagship(BENCH_SHAPE)
     pair = make_fused_pair_aa(cfg, dom, dev)
-    full_set = make_fused_pair_aa(cfg, dom, dev, lean=False)  # the full-set CUM_WELL instance
+    # the full-set CUM_WELL instance on the same map, launched for this comparison only
+    full_set = make_fused_pair_aa(cfg, dom, dev)
+    full_set.variant = aa_variant(cfg, full_set.codes, lean=False)
     b1 = make_fused_pair2_aa(cfg, dom, dev)
     bench_force = (FORCE_BENCH, 0.0, 0.0)
     f0 = rand_f(cfg, dom.shape, dev, seed=7)

@@ -869,8 +869,9 @@ def test_two_kernel_pair_without_macro_and_refusals(cuda):
     """B1b without rho and u writes the same state; its geometry is the
     lean instance's on the duct (B1's 9 ring groups), and the 12-group ring
     with the outflow pull on the box of every code and in the full-set
-    instance kept on the duct (``lean=False``, within 1e-6 of the lean one);
+    CUM_WELL instance launched on the duct (within 1e-6 of the lean one);
     a half-precision state or another shape raises."""
+    from tnl_lbm_tpu_torch.kernels.fused import aa_variant
     from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair_aa
 
     from torch_cases import march_constants
@@ -884,7 +885,8 @@ def test_two_kernel_pair_without_macro_and_refusals(cuda):
     assert rho is None and u is None and torch.equal(f2, full(f, 0.02)[0])
     assert full.variant == 3 and full.geometry()["ring_groups"] == 9
     assert full.geometry()["smem_bytes"] == k["RING_BYTES"] + k["CODE_BYTES"]
-    full_set = make_fused_pair_aa(cfg, dom, cuda, lean=False)  # the full-set CUM_WELL instance
+    full_set = make_fused_pair_aa(cfg, dom, cuda)
+    full_set.variant = aa_variant(cfg, full_set.codes, lean=False)  # the full-set CUM_WELL one
     assert full_set.variant == 0 and full_set.geometry()["smem_bytes"] == k["OUT_SMEM_BYTES"]
     for a, b in zip(full_set(f, 0.02), full(f, 0.02)):
         assert float((a - b).abs().max()) <= 1e-6

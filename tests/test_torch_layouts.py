@@ -151,17 +151,17 @@ def test_two_kernel_pair_refusals():
                            interop.domain_from_numpy(m, periodic), "cpu")
 
 
-def test_full_pair_plain_matches_jax_with_outflow_over_segments():
-    """An inflow-outflow channel longer than one x segment of the kernel
-    (csrc/pair_march.cuh SEG_MAX = 32 planes), moment inflow and
+def test_full_pair_plain_matches_jax_with_outflow_right():
+    """The plain pair on an inflow-outflow channel, moment inflow and
     OUTFLOW_RIGHT on the x faces, CUM with eq_inv_cum as sim_1 runs: three
-    pairs against six JAX A-A steps."""
+    pairs against six JAX A-A steps.  The plain version has no x segments;
+    the card tests hold the kernel's segments to it."""
     m = aa_box((36, 9, 10))
-    m[1:-1, 3, 4] = GEO.WALL  # a wall line along x, across the segment boundary
+    m[1:-1, 3, 4] = GEO.WALL  # a wall line along x
     periodic = (False, False, True)
     jcfg, jdom = jax_side("CUM_INV_CUM", m, periodic, "AA")
     jstep = j_make_step(jcfg, jdom)
-    pair = port_pair("CUM_INV_CUM", m, periodic, seg_len=7)
+    pair = port_pair("CUM_INV_CUM", m, periodic)
     f0 = seeded(jcfg, m.shape)
     fj, fp = jnp.asarray(f0), torch.from_numpy(f0.copy())
     for it in range(3):

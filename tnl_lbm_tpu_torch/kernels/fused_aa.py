@@ -437,15 +437,14 @@ class FusedPairAAFull:
     host values.  The codes and variants are the A-A even/odd steps' (all
     but OUTFLOW_RIGHT_INTERP; CUM_WELL, CUM with eq_quadratic or
     eq_inv_cum); on a map of FLUID, WALL and NOTHING the kernel runs its
-    lean CUM_WELL instance (``lean=False`` keeps the full-set one, as
-    :class:`FusedStepAA` does).  ``kernel`` counts the launches,
+    lean CUM_WELL instance.  ``kernel`` counts the launches,
     ``plain_calls`` the CPU-path calls; ``seg_len`` is the x extent each
     block marches (None: the kernel's own choice), which the result does not
     depend on.
     """
 
     def __init__(self, cfg: LBMConfig, domain: Domain, device, with_macro: bool = True,
-                 seg_len: int | None = None, lean: bool = True):
+                 seg_len: int | None = None):
         if cfg.streaming != "AA":
             raise ValueError("make_fused_pair_aa needs streaming='AA'")
         if seg_len is not None and seg_len < 1:
@@ -463,7 +462,7 @@ class FusedPairAAFull:
         self.variant = None  # the kernel's instance, on a CUDA device
         if self.device.type == "cuda":
             _check_kernel_config(cfg, domain, self.device)
-            self.variant = aa_variant(cfg, self.codes, lean)
+            self.variant = aa_variant(cfg, self.codes)
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:
@@ -533,15 +532,13 @@ class FusedPairAAFull:
 
 
 def make_fused_pair_aa(cfg: LBMConfig, domain: Domain, device, with_macro: bool = True,
-                       seg_len: int | None = None, lean: bool = True) -> FusedPairAAFull:
+                       seg_len: int | None = None) -> FusedPairAAFull:
     """The A-A pair with the A-A steps' codes for (cfg, domain) on
     ``device``, one launch per pair: see :class:`FusedPairAAFull`
-    (``seg_len``: the kernel's x segment, and ``lean``, knobs of the port's
-    own).
+    (``seg_len``: the kernel's x segment, a knob of the port's own).
 
     The JAX function's TPU knobs (``tile_even``, ``k_even``, ``tile_odd``,
     ``k_odd``) shape its VMEM tiles and have no counterpart here, nor has
     its ``Z % 128 == 0`` condition (its even kernel's output DMA).
     """
-    return FusedPairAAFull(cfg, domain, device, with_macro=with_macro, seg_len=seg_len,
-                           lean=lean)
+    return FusedPairAAFull(cfg, domain, device, with_macro=with_macro, seg_len=seg_len)
