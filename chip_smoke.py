@@ -93,16 +93,28 @@ script exits non-zero without printing a result.
    function at 0 passes as one PyTorch call (the interior copied into a
    padded buffer) before and after; whether P3 hides its passes (its time
    at 20 and 60 passes less its time at 0, against P2b's compute-only time
-   at as many passes); P4's library call (``interior(fpad).contiguous()``)
-   before and after each covering window's three loads, with the ring's
-   plane buffers;
+   at as many passes, and the same of P2a's three paths); P2b (the march's
+   compute half: a persistent grid over its column tiles and x segments)
+   with its launch geometry, its SASS FP32 instructions per thread beside
+   the 2 x 27 a pass and site the bound counts, and its share of the bound
+   at 0, 20 and 60 passes; P2a's function at 0 passes as one PyTorch call
+   (``out.copy_(f)``) before and after its paths; P4's library call
+   (``interior(fpad).contiguous()``) before and after each covering
+   window's three loads, with the ring's plane buffers;
    layouts (after 3c): the full-set A-A pair B1b (one launch a pair) on
    sim_2's res-2 duct, on the box of every A-A code per variant and on
    sim_1's A-A map at res 4, two pairs from the same input on both sides,
    and an x segment starting at X - 1 bit for bit the same; at 256^3
    against its plain version and timed in turns beside B1 f32, with B2 +
    B3 of 3a beside it; on sim_1's A-A map at res 8 timed in turns beside
-   one even and one odd launch of the same instances; the
+   one even and one odd launch of the same instances, then sim_1 res 8
+   ``--streaming AA`` through ``Simulation``: built with
+   ``pair_dispatch="auto"`` (the probe's two times and its pick, rechecked
+   over longer chains as on the bench duct), then a paired run (B1b) and a
+   per-step run (B2/B3) from the same start, their ``_advance`` chunks
+   (graph replays after the first three) in turns, the MLUPS of each,
+   their f, rho and u within 1e-5 of each other and the launches one a
+   pair; the
    site-major A-B step B4s on 3c's cases (dummy components zero), then at
    256^3 against its plain version and timed beside B4;
 5. main paths, each with the launch counts set to 0 just before it and read
@@ -133,7 +145,8 @@ script exits non-zero without printing a result.
    vs plain, ms/step, MLUPS and peak memory beside the A-B run's); after
    each run, torch.profiler over 10 more steps: device time per kernel
    and the device's busy share of the loop.  Also sim_1 at resolution 8
-   with ``--streaming AA``, 100 steps through B2/B3, and the kernel vs
+   with ``--streaming AA`` and pair dispatch off, 100 steps through B2/B3
+   (the pair-dispatched run is the layouts phase's), and the kernel vs
    plain check of one even and one odd step from a res-4 run's final
    state (the plain A-A step's temporaries at res 8 would not fit beside
    the run); then the benchmark entry (``tnl_lbm_tpu_torch.bench``'s
@@ -812,11 +825,20 @@ def pair_boxes(store: str) -> float:
     return worst
 
 
-def phase_probes(b1_ms: float) -> dict:
+def compute_only_bytes() -> float:
+    """P2b's bytes per site at BENCH_SHAPE: its first item read once and
+    written once, over the lattice's sites."""
+    from tnl_lbm_tpu_torch.kernels.probes import first_block
+
+    return 27 * 4 * 2 * float(np.prod(first_block(BENCH_SHAPE))) / float(np.prod(BENCH_SHAPE))
+
+
+def phase_probes(b1_ms: float, ops: dict) -> dict:
     """P1-P4 at 256^3 against their plain versions (P2a through each load
     path, P4's uncovering window must raise), then timed with the launch
     counts set to 0 just before; P2a's paths beside P1 and B1 f32's
-    ``b1_ms`` of the same call."""
+    ``b1_ms`` of the same call, P2b beside its FP32-slot bound and its
+    SASS count (``ops``: phase_build's)."""
     import torch
 
     from tnl_lbm_tpu_torch.kernels import probes
@@ -880,7 +902,13 @@ def phase_probes(b1_ms: float) -> dict:
     floor = gbps(232, ms)
     log("probes", kernel="copy_permute", shape="256^3", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
         gbps_232B=f"{floor:.1f}", share_of_3350=f"{floor / HBM_PEAK_GBPS:.3f}")
-    compute_only, pipeline = {}, {}
+    compute_only, pipeline, library = {}, {}, {}
+    p2a_out = torch.empty_like(f)  # P2a at 0 passes as one PyTorch call: f copied
+
+    def state_copy():
+        return p2a_out.copy_(f)
+
+    p2a_library = [time_ms(state_copy, reps=20)]
     for passes in PROBE_PASSES:
         plain_ms = time_ms(lambda: probes.pair_pipeline_plain(f, passes), reps=3)
         for load, (_, name) in probes.PIPELINE_LOADS.items():
@@ -893,8 +921,23 @@ def phase_probes(b1_ms: float) -> dict:
         compute_only[passes] = co_ms
         if passes == 20:
             times["pair_compute_only"] = (co_ms, co_plain_ms)
+        co_bound, co_by = bound(compute_only_bytes(), (2 * 27 * passes, 0))
         log("probes", kernel="pair_compute_only", passes=passes, ms=f"{co_ms:.4f}",
-            plain_ms=f"{co_plain_ms:.3f}", pair_pipeline_plain_ms=f"{plain_ms:.3f}")
+            plain_ms=f"{co_plain_ms:.3f}", pair_pipeline_plain_ms=f"{plain_ms:.3f}",
+            bound_ms=f"{co_bound:.4f}", bound_by=co_by,
+            share_of_bound=f"{co_bound / co_ms:.3f}", fp32_per_site=2 * 27 * passes)
+    p2a_library.append(time_ms(state_copy, reps=20))
+    del p2a_out
+    for _, name in probes.PIPELINE_LOADS.values():
+        library[name] = min(p2a_library)
+    # the SASS holds the passes' 54 FP32 instructions a round in as many copies as the
+    # unrolled loop and its remainder, on the first item's path and the slots' path
+    co_sass = ops["pair_compute_only_kernel"][0]
+    log("probes", kernel="pair_compute_only", shape="256^3",
+        geometry=json.dumps(probes.compute_only_geometry(BENCH_SHAPE)),
+        sass_fp32_per_thread=co_sass, bound_fp32_per_pass_and_site=2 * 27,
+        sass_copies_of_a_pass=f"{co_sass / (2 * 27):.3f}",
+        library_ms_p2a="/".join(f"{v:.4f}" for v in p2a_library))
     for load in probes.PIPELINE_LOADS:  # the march's load paths, the input to B1b and B1
         geo = probes.pipeline_geometry(BENCH_SHAPE, load)
         # window sites read per tile site: the y-z halo and the segment's two halo planes
@@ -908,13 +951,19 @@ def phase_probes(b1_ms: float) -> dict:
                 over_passes_0=f"{ms / pipeline[(load, 0)]:.3f}",
                 b1_f32_ms=f"{b1_ms:.4f}", window_reads_per_site=f"{reads:.4f}",
                 **({"geometry": json.dumps(geo)} if passes == 0 else {}))
+    for load in probes.PIPELINE_LOADS:  # does P2a hide its passes under its copies?
+        for passes in PROBE_PASSES[1:]:
+            added = pipeline[(load, passes)] - pipeline[(load, 0)]
+            log("probes", overlap=f"pair_pipeline {load}, {passes} passes",
+                added_ms=f"{added:.4f}", compute_only_ms=f"{compute_only[passes]:.4f}",
+                hidden_share=f"{1 - added / compute_only[passes]:.3f}")
     fastest = min(probes.PIPELINE_LOADS, key=lambda load: pipeline[(load, 20)])
     log("probes", kernel="pair_pipeline", fastest_at_20_passes=fastest,
         default=probes.PIPELINE_DEFAULT)
     del f
     torch.cuda.empty_cache()
     t_start = time.perf_counter()
-    library, element = {}, {}
+    element = {}
     copy_out = torch.empty_like(fpad)  # P3 at 0 passes as one PyTorch call: the interior copied
 
     def interior_copy():
@@ -1219,6 +1268,7 @@ def phase_layouts(times: dict, floor_gbps: float, res: dict) -> dict:
         geometry=json.dumps(full.geometry()), launches=full.kernel.launches)
     if not finite:
         raise RuntimeError(f"aa_pair_full on sim_1 res {SIM1_RES}: non-finite output")
+    dispatch = sim1_aa_dispatch()
 
     for label, cfg, dom, u_in in ab_cases():
         step = make_fused_step_sitemajor(cfg, dom, dev)
@@ -1263,7 +1313,89 @@ def phase_layouts(times: dict, floor_gbps: float, res: dict) -> dict:
     return {"err": err, "times": out_times, "pair_ms": pair_ms, "b1_ms": b1_ms,
             "full_set_ms": float(np.median(turns["full_set"])),
             "sim1_ms": s1_ms, "sim1_b2_b3_ms": s1_two, "instances": instances,
+            "sim1_dispatch": dispatch,
             "kernels": {"aa_pair_full": pair.kernel, "ab_step_sitemajor": step.kernel}}
+
+
+#: sim_1 res 8 A-A through Simulation: chunks of its steps_per_dispatch (10),
+#: the first DISPATCH_WARM of each run untimed (the eager chunk, then a capture
+#: from each of the two buffers a chunk of 5 pairs or 10 steps starts in),
+#: then DISPATCH_ROUNDS chunks of each run in turns
+DISPATCH_WARM, DISPATCH_ROUNDS = 3, 8
+
+
+def sim1_aa_dispatch() -> dict:
+    """sim_1 at SIM1_RES with ``--streaming AA`` through ``Simulation``:
+    built with ``pair_dispatch="auto"`` (the probe's two times and its
+    pick, rechecked by ``auto_choice``), then a run in pairs (B1b) and a
+    run per step (B2/B3) from the same start, their ``_advance`` chunks
+    (CUDA graph replays after DISPATCH_WARM) in turns; each run's MLUPS over its
+    timed chunks, f, rho and u of the two within TOL_APP, one B1b launch a
+    pair and none of B2/B3 on the paired run.  Returns the paired run's
+    B1b launches, counted from the end of its sim_init, and the figures."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim_1
+
+    label = f"sim_1_res{SIM1_RES}_AA"
+    sim = sim_1.build(SIM1_RES, device=DEVICE, streaming="AA", pair_dispatch="auto",
+                      results_parent=WORK / "sim1_aa_auto")
+    sim.sim_init()
+    auto_choice(sim, label)
+    chose = "pair" if sim.pair_dispatch else "per_step"
+    probe_ms = sim.pair_probe_ms
+    del sim
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for tag, pd in (("pairs", True), ("per_step", False)):
+        sim = counting_from_init(sim_1.build(SIM1_RES, device=DEVICE, streaming="AA",
+                                             pair_dispatch=pd,
+                                             results_parent=WORK / f"sim1_aa_{tag}"))
+        sim.sim_init()
+        runs[tag] = sim
+    paired, stepped = runs["pairs"], runs["per_step"]
+    if type(paired._pair).__name__ != "FusedPairAAFull" or stepped._pair is not None:
+        raise RuntimeError(f"{label}: pair dispatch built {type(paired._pair).__name__}, "
+                           f"not B1b (FusedPairAAFull)")
+    chunk = paired.steps_per_dispatch
+    seconds = {tag: 0.0 for tag in runs}
+    for r in range(DISPATCH_WARM + DISPATCH_ROUNDS):
+        for tag in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            t0 = runs[tag]._compute_time
+            runs[tag]._advance(chunk)
+            if r >= DISPATCH_WARM:
+                seconds[tag] += runs[tag]._compute_time - t0
+    steps = paired.iterations
+    sites = float(np.prod(paired.domain.shape))
+    mlups = {tag: sites * chunk * DISPATCH_ROUNDS / seconds[tag] / 1e6 for tag in runs}
+    d = {n: max_diff(getattr(paired, n), getattr(stepped, n)) for n in ("f", "rho", "u")}
+    equal = all(torch.equal(getattr(paired, n), getattr(stepped, n)) for n in ("f", "rho", "u"))
+    launches = {"pair": paired._pair.kernel.launches, "pair_even": paired._step.even.launches,
+                "pair_odd": paired._step.odd.launches, "step_even": stepped._step.even.launches,
+                "step_odd": stepped._step.odd.launches}
+    finite = all(bool(torch.isfinite(getattr(paired, n)).all()) for n in ("rho", "u"))
+    log("layouts", path=label, route="Simulation", auto_chose=chose,
+        probe_pair_ms=f"{probe_ms[0]:.4f}", probe_per_step_ms=f"{probe_ms[1]:.4f}",
+        steps=steps, timed_steps=chunk * DISPATCH_ROUNDS, mlups_pairs=f"{mlups['pairs']:.1f}",
+        mlups_per_step=f"{mlups['per_step']:.1f}",
+        pairs_over_per_step=f"{mlups['pairs'] / mlups['per_step']:.3f}",
+        graph_replays=f"{paired.graph_replays}/{stepped.graph_replays}",
+        max_df=d["f"], max_drho=d["rho"], max_du=d["u"], bit_equal=equal, finite=finite,
+        **{f"launches_{k}": v for k, v in launches.items()})
+    if not (finite and d["f"] <= TOL_APP and d["rho"] <= TOL_APP and d["u"] <= TOL_APP):
+        raise RuntimeError(f"{label}: the paired run against the per-step run: {d}, "
+                           f"finite {finite}")
+    if (launches["pair"] * 2 != steps or launches["pair_even"] or launches["pair_odd"]
+            or launches["step_even"] + launches["step_odd"] != steps):
+        raise RuntimeError(f"{label}: launches {launches} for {steps} steps a run")
+    if paired.graph_replays < DISPATCH_ROUNDS or stepped.graph_replays < DISPATCH_ROUNDS:
+        raise RuntimeError(f"{label}: the chunks did not replay their graphs")
+    b1b_launches = launches["pair"]
+    del paired, stepped, runs
+    torch.cuda.empty_cache()
+    return {"launches": b1b_launches, "mlups": mlups, "chose": chose, "probe_ms": probe_ms,
+            "max_diff": d}
 
 
 def phase_bench() -> dict:
@@ -2065,7 +2197,8 @@ def coupled_aa_kernel_vs_plain_at(sim) -> dict:
 
 def sim1_main_path(streaming: str = "AB", resolution: int = SIM1_RES, counted: bool = True):
     """sim_1 at ``resolution`` through its ``build`` with ``streaming`` (A-B:
-    the A-B kernel; A-A: the even and odd kernels), APP_STEPS steps with
+    the A-B kernel; A-A: the even and odd kernels, pair dispatch off; the
+    paired run is ``sim1_aa_dispatch``'s), APP_STEPS steps with
     its own probes (VTK3D, the whole lattice, is switched off: one cycle is
     1.1 GB of files at res 8), then one more VTK2D cycle from the final
     state, read back and held against the fields on the card."""
@@ -2073,7 +2206,7 @@ def sim1_main_path(streaming: str = "AB", resolution: int = SIM1_RES, counted: b
     from tnl_lbm_tpu_torch.sim.state import VTK3D
 
     where = WORK / "main" if streaming == "AB" else WORK / "main" / f"sim_1_{streaming}"
-    sim = sim_1.build(resolution, device=DEVICE, streaming=streaming,
+    sim = sim_1.build(resolution, device=DEVICE, streaming=streaming, pair_dispatch=False,
                       results_parent=where / f"res{resolution}")
     sim.phys_final_time = APP_STEPS * sim.domain.units.phys_dt
     sim.cnt[VTK3D].period = -1.0
@@ -2271,15 +2404,16 @@ def coupled_app_kernel_vs_plain(streaming: str) -> None:
 
 def app_kernel_vs_plain(name: str, streaming: str) -> None:
     """An app at resolution 2 with ``streaming``, APP_STEPS steps through the
-    kernels (A-B: B4; A-A: B2 and B3) and through the plain step on the
-    card, from the same initial state."""
+    kernels (A-B: B4; A-A: B2 and B3, pair dispatch off) and through the
+    plain step on the card, from the same initial state."""
     import importlib
 
     import torch
 
     app = importlib.import_module(f"tnl_lbm_tpu_torch.apps.{name}")
     runs = {}
-    kw = {"streaming": streaming} if streaming == "AA" else {}  # sim_3 is A-B only
+    # sim_3 is A-B only; the A-A run holds B2/B3 (sim_1's pairs: sim1_aa_dispatch)
+    kw = {"streaming": streaming, "pair_dispatch": False} if streaming == "AA" else {}
     for fused in (True, False):
         sim = app.build(2, device=DEVICE, use_fused=fused,
                         results_parent=WORK / "accuracy" / f"{name}_{streaming}_{fused}", **kw)
@@ -4095,14 +4229,11 @@ def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
     the odd kernel's FLUID/WALL/NOTHING instance, per site; P2: the affine
     passes, a multiply and an add per DF and pass; the slice's kernels:
     their CUM_WELL instances)."""
-    from tnl_lbm_tpu_torch.kernels.probes import PROBE_TILE
 
     def twice(k):
         return tuple(2 * v for v in ops[k])
 
     affine = (2 * 27 * 20, 0)  # PROBE_PASSES' timed entry: 20 passes
-    sites = float(np.prod(BENCH_SHAPE))
-    block0 = 27 * 4 * (np.prod([t + 2 for t in PROBE_TILE]) + np.prod(PROBE_TILE))
     return {
         "aa_even": (233, ops["aa_even_cum_well_kernel"]), "aa_odd": (233, ops["aa_odd_kernel"]),
         **{f"aa_pair_{s}": (PAIR_BYTES[s], twice("aa_odd_kernel")) for s in STORES},
@@ -4110,7 +4241,7 @@ def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
         "ab_step": (AB_BYTES, ops["ab_step_cum_well_kernel"]),
         "copy_permute": (232, ops["copy_permute_kernel"]),
         **{f"pair_pipeline_{load}": (216, affine) for load in ("stages", "direct", "ring")},
-        "pair_compute_only": (block0 / sites, affine),
+        "pair_compute_only": (compute_only_bytes(), affine),
         "element_pipeline": (216, (2 * 27 * ELEMENT_TIMED[2], 0)),
         **{name: (216, (0, 0)) for name in ("window_copy", "window_copy_ld4", "window_copy_ld16")},
         "ab_step_sitemajor": (SITEMAJOR_BYTES, ops["ab_step_sitemajor_cum_well_kernel"]),
@@ -4161,7 +4292,7 @@ def main() -> int:
     steps = phase_compare_steps()
     aa_codes_err = phase_compare_aa_codes()
     pairs = phase_compare_pairs(steps["times"])
-    probe = phase_probes(pairs["times"]["aa_pair_f32"][0])
+    probe = phase_probes(pairs["times"]["aa_pair_f32"][0], ops)
     floor = gbps(232, probe["times"]["copy_permute"][0])
     ab = phase_compare_ab(steps["times"], floor)
     t_layouts = time.perf_counter()
@@ -4179,8 +4310,9 @@ def main() -> int:
     bench_launches = phase_bench()
     t_bench = time.perf_counter() - t_bench
     kernels["ab_step_sitemajor"] = layouts["kernels"]["ab_step_sitemajor"]
-    k = layouts["kernels"]["aa_pair_full"]  # B1b's launches: the bench entry's
-    kernels["aa_pair_full"] = dataclasses.replace(k, launches=bench_launches[k.name])
+    k = layouts["kernels"]["aa_pair_full"]  # B1b's launches: the bench entry's and sim_1's
+    kernels["aa_pair_full"] = dataclasses.replace(
+        k, launches=bench_launches[k.name] + layouts["sim1_dispatch"]["launches"])
     for store in STORES:
         k = kernels[f"aa_pair_{store}"]
         kernels[f"aa_pair_{store}"] = dataclasses.replace(
@@ -4262,7 +4394,9 @@ def main() -> int:
                          b1_f32_ms_in_turns=layouts["b1_ms"], instances=layouts["instances"],
                          full_set_ms_256=layouts["full_set_ms"],
                          sim_1_res8_ms=layouts["sim1_ms"],
-                         sim_1_res8_b2_plus_b3_ms=layouts["sim1_b2_b3_ms"])
+                         sim_1_res8_b2_plus_b3_ms=layouts["sim1_b2_b3_ms"],
+                         sim_1_res8_mlups=layouts["sim1_dispatch"]["mlups"],
+                         sim_1_res8_auto=layouts["sim1_dispatch"]["chose"])
         record["kernels"].append(
             {**entry, "ms": times[key][0], "plain_ms": times[key][1], "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": probe["library"].get(key)})

@@ -140,7 +140,7 @@ def test_app_options_that_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         sim_3.main(["1", "--device", "cpu", "--sharded", "--results-dir", str(tmp_path)])
     # A-A with the kernels runs through the even/odd kernels' plain versions
-    # here (the pair refuses sim_1's codes); the plain A-A step runs too
+    # here ("auto" is per step on the CPU); the plain A-A step runs too
     sim = sim_1.main(["1", "--device", "cpu", "--streaming", "AA", "--use-fused",
                       "--final-time", "0.001", "--results-dir", str(tmp_path / "aa")])
     assert sim.iterations == 10 and sim.pair_dispatch is False and sim._pair is None

@@ -226,6 +226,32 @@ def test_pair_dispatch_probe_agrees_with_kernel_times(cuda, case, tmp_path):
         assert sim.pair_dispatch is (faster == 0), (t_pair, t_steps, c_pair, c_steps)
 
 
+def test_sim_1_pair_dispatch_equals_per_step_on_card(cuda, tmp_path):
+    """sim_1's A-A map at resolution 2 through ``Simulation``: pair dispatch
+    runs B1b (one launch a pair, the chunks replayed from CUDA graphs) and
+    equals the per-step route (B2/B3) within the step bounds after 40
+    steps."""
+    from tnl_lbm_tpu_torch.apps import sim_1
+    from tnl_lbm_tpu_torch.kernels.fused_aa import FusedPairAAFull
+
+    sims = []
+    for pd in (True, False):
+        sim = sim_1.build(2, device=cuda, streaming="AA", pair_dispatch=pd,
+                          results_parent=tmp_path / str(pd))
+        sim.sim_init()
+        for _ in range(4):
+            sim._advance(10)
+        sims.append(sim)
+    paired, stepped = sims
+    assert isinstance(paired._pair, FusedPairAAFull) and stepped._pair is None
+    assert paired._pair.kernel.launches == 20 and paired._step.even.launches == 0
+    assert stepped._step.even.launches == stepped._step.odd.launches == 20
+    assert paired.graph_replays >= 1 and paired._pair.plain_calls == 0
+    for name, tol in (("f", 1e-6), ("rho", 2e-6), ("u", 1e-6)):
+        assert float((getattr(paired, name) - getattr(stepped, name)).abs().max()) <= tol, name
+    assert torch.isfinite(paired.u).all() and float(paired.u[0].max()) > 0
+
+
 def test_pair_kernel_writes_into_out_and_rejects_bad_input(cuda):
     cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AA")
     dom = interop.domain_from_numpy(duct((8, 16, 8), True), (True, False, False))
@@ -267,9 +293,28 @@ def test_pair_probes_match_plain_on_card(cuda, passes):
         for load in probes.PIPELINE_LOADS:
             assert torch.equal(probes.pair_pipeline(g, passes, load=load), want), load
     assert probes.pipeline_geometry(shape, "ring")["boxed_columns"] == 6
-    tile = probes.pair_compute_only(f, passes)
-    assert tile.shape == (27,) + probes.first_block(shape)
-    assert torch.equal(tile, probes.pair_compute_only_plain(f, passes))
+    for g in (f, torch.randn((27, 2, 3, 5), device=cuda), torch.randn((27, 70, 9, 33),
+                                                                        device=cuda)):
+        tile = probes.pair_compute_only(g, passes)
+        assert tile.shape == (27,) + probes.first_block(tuple(g.shape[1:]))
+        assert torch.equal(tile, probes.pair_compute_only_plain(g, passes))
+
+
+def test_pair_compute_only_geometry_on_card(cuda):
+    """P2b's persistent grid: 256 threads (a column tile's plane), at least
+    four blocks resident an SM (32 warps), every resident block launched
+    but never more than the units; at 256^3 bit for bit its plain version
+    at 0, 20 and 60 passes."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for shape, units in (((256, 256, 256), 256 * 256), ((2, 3, 5), 2), ((70, 9, 33), 280)):
+        geo = probes.compute_only_geometry(shape)
+        assert geo["threads"] == 256 and geo["seg_len"] == probes.PAIR_SEG_MAX
+        assert geo["blocks_per_sm"] >= 4 and geo["units"] == units
+        assert geo["blocks"] == min(units, geo["blocks_per_sm"] * sms)
+    f = torch.randn((27, 256, 256, 256), device=cuda)
+    for passes in (0, 20, 60):
+        assert torch.equal(probes.pair_compute_only(f, passes),
+                           probes.pair_compute_only_plain(f, passes)), passes
 
 
 def test_pair_pipeline_geometry_and_refusals_on_card(cuda):
@@ -1086,7 +1131,9 @@ def test_bench_entry_on_card(cuda, kernel, capsys):
 def driver_run(case, where, stats=True, resident=False):
     """A small ``Simulation`` on the card through one route: B5 on a D2Q9
     channel, B4 on sim_2's duct under A-B, B2/B3 per step and B1 in pairs
-    under A-A; 8-step chunks with a body force, both statistics windows on
+    under A-A, B1b in pairs on the box of every A-A code (CUM with
+    eq_inv_cum, an inflow vector); 8-step chunks with a body force, both
+    statistics windows on
     (``stats``); B5's chunks through its resident chunk (``resident``,
     ``torch_cases.resident_route``)."""
     from tnl_lbm_tpu_torch.sim.state import Simulation
@@ -1098,19 +1145,23 @@ def driver_run(case, where, stats=True, resident=False):
             return np.asarray(force)
 
         def update_inflow(self, phys_time):
-            return np.asarray(U_IN_2D) if case == "b5" else None
+            return {"b5": np.asarray(U_IN_2D), "b1b": np.asarray(U_IN)}.get(case)
 
     if case == "b5":
         m, periodic, bz = case_2d("channel", (37, 40))
         cfg = interop.config_2d_from_spec("CLBM")
         dom = interop.domain_from_numpy(m, periodic, lat=cfg.lat, bouzidi=bz, phys_viscosity=0.02)
+    elif case == "b1b":
+        cfg = interop.config_from_spec(*AB_SPECS["CUM_INV_CUM"], "AA")
+        dom = interop.domain_from_numpy(aa_box((16, 24, 20)), (False, False, True),
+                                        phys_viscosity=0.02)
     else:
         streaming = "AB" if case == "b4" else "AA"
         cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, streaming)
         dom = interop.domain_from_numpy(duct((16, 24, 20), True), (True, False, False),
                                         phys_viscosity=0.02)
     sim = Run(cfg, dom, device="cuda", sim_id=case, results_parent=where, steps_per_dispatch=8,
-              use_fused=True, pair_dispatch=case == "b1")
+              use_fused=True, pair_dispatch=case in ("b1", "b1b"))
     sim.collect_stats = sim.collect_stats2 = stats
     if resident:
         resident_route(sim)
@@ -1123,7 +1174,7 @@ def fields(sim):
             if getattr(sim, n) is not None}
 
 
-@pytest.mark.parametrize("case", ["b5", "b4", "b2_b3", "b1"])
+@pytest.mark.parametrize("case", ["b5", "b4", "b2_b3", "b1", "b1b"])
 def test_graph_replay_equals_eager_chunk_and_counts_its_launches(cuda, tmp_path, case):
     """After the eager warm-up and a capture from each buffer, chunks
     replayed from CUDA graphs equal the same chunks run eagerly from the
@@ -1153,7 +1204,7 @@ def test_graph_replay_equals_eager_chunk_and_counts_its_launches(cuda, tmp_path,
     for _ in range(2):
         sim._advance(8)
     eager = [k.launches - b for k, b in zip(kernels, before)]
-    assert replayed == eager and sum(eager) == (8 if case == "b1" else 16)
+    assert replayed == eager and sum(eager) == (8 if case in ("b1", "b1b") else 16)
     for n, t in graph.items():
         assert torch.equal(t, getattr(sim, n)), n
     assert sum(getattr(w, "plain_calls", 0) for w in (sim._step, sim._pair)) == 0

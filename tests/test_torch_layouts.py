@@ -174,6 +174,30 @@ def test_full_pair_plain_matches_jax_with_outflow_right():
     assert out[-1].any() and float(np.abs(fp.numpy()[:, out] - f0[:, out]).max()) > 1e-5
 
 
+def test_full_pair_writes_into_out_and_macro_out():
+    """B1b into the caller's buffers, as pair dispatch and its CUDA graphs
+    call it: the state into ``out`` (never ``f``), rho and u into
+    ``macro_out``, the same values as new tensors; ``out=f`` and rho and u
+    of a pair built without them are refused."""
+    m, periodic = aa_box((8, 16, 12)), (False, False, True)
+    jcfg, _ = jax_side("CUM_INV_CUM", m, periodic, "AA")
+    pair = port_pair("CUM_INV_CUM", m, periodic)
+    f = torch.from_numpy(seeded(jcfg, m.shape))
+    f_before = f.clone()
+    out, rho, u = torch.empty_like(f), torch.empty(m.shape), torch.empty((3,) + m.shape)
+    got = pair(f, NU, U_IN, FORCE, out=out, macro_out=(rho, u))
+    assert got[0] is out and got[1] is rho and got[2] is u and torch.equal(f, f_before)
+    for a, b in zip(got, pair(f, NU, U_IN, FORCE)):
+        assert torch.equal(a, b)
+    assert pair.plain_calls == 2
+    with pytest.raises(ValueError, match="second contiguous state buffer"):
+        pair(f, NU, out=f)
+    with pytest.raises(ValueError, match="macro_out"):
+        pair(f, NU, macro_out=(rho, u[:2]))
+    with pytest.raises(ValueError, match="with_macro=False"):
+        port_pair("CUM_INV_CUM", m, periodic, with_macro=False)(f, NU, macro_out=(rho, u))
+
+
 # ------------------------------------------------------------ B4s
 
 def test_sitemajor_layout_equals_jax():

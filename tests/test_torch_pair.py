@@ -11,6 +11,7 @@ the schedule of ``csrc/aa_pair.cu`` (column tiles, x segments, the ring of
 even-output slots and the staged input rows) transliterated into numpy.
 """
 
+import dataclasses
 import itertools
 
 import jax.numpy as jnp
@@ -18,11 +19,15 @@ import numpy as np
 import pytest
 import torch
 
+from tnl_lbm_tpu.apps import sim_1 as jsim_1
 from tnl_lbm_tpu.models import D3Q27
 from tnl_lbm_tpu.sim import make_step as j_make_step
+from tnl_lbm_tpu.sim import state as jstate
 from tnl_lbm_tpu_torch import interop
-from tnl_lbm_tpu_torch.apps import sim_2
+from tnl_lbm_tpu_torch.apps import sim_1, sim_2
 from tnl_lbm_tpu_torch.kernels.fused_aa import (
+    FusedPairAA,
+    FusedPairAAFull,
     PAIR_COLUMN,
     PAIR_STAGES,
     from_storage,
@@ -39,7 +44,7 @@ from tnl_lbm_tpu_torch.sim.state import Simulation, needs_per_step_state
 from tnl_lbm_tpu_torch.utils.dtypes import state_agrees
 
 from test_torch_step import FORCE, NU, geometry, jax_side, rand_f, spec
-from torch_cases import CSRC, march_constants
+from torch_cases import CSRC, aa_box, bc_box, march_constants
 
 HALF = {"f16": (torch.float16, jnp.float16), "bf16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -254,18 +259,39 @@ def make_sim(tmp_path, pair_dispatch, storage=None, cls=Duct, tag="sim"):
                use_fused=True, pair_dispatch=pair_dispatch)
 
 
-@pytest.mark.parametrize("chunks", [(7,), (3, 4)], ids=["from_even", "odd_start"])
-def test_pair_dispatch_is_bit_identical_to_per_step(tmp_path, chunks):
+def sim_1_aa(tmp_path, pair_dispatch, tag="sim_1"):
+    """The port's sim_1 at resolution 1 (128 x 32 x 32) with A-A streaming:
+    CUM with eq_inv_cum, its inflow, OUTFLOW_RIGHT and the holed wall."""
+    return sim_1.build(1, device="cpu", streaming="AA", pair_dispatch=pair_dispatch,
+                       results_parent=tmp_path / tag)
+
+
+@pytest.fixture
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("case,chunks", [("duct", (7,)), ("duct", (3, 4)), ("sim_1", (7,)),
+                                         ("sim_1", (3, 4))],
+                         ids=["from_even", "odd_start", "sim_1_from_even", "sim_1_odd_start"])
+def test_pair_dispatch_is_bit_identical_to_per_step(tmp_path, one_torch_thread, case, chunks):
     """(7,): three pairs and a leftover step; (3, 4): a pair and a
     leftover step, then a chunk that starts at an odd iteration and so runs
-    per step."""
-    sims = [make_sim(tmp_path, p, tag=str(p)) for p in (True, False)]
+    per step.  On the duct the pair is B1, on sim_1's A-A map B1b."""
+    if case == "duct":
+        sims = [make_sim(tmp_path, p, tag=str(p)) for p in (True, False)]
+    else:
+        sims = [sim_1_aa(tmp_path, p, tag=str(p)) for p in (True, False)]
     for sim in sims:
         sim.sim_init()
         for n in chunks:
             sim._advance(n)
     paired, stepped = sims
     assert paired.pair_dispatch is True and stepped.pair_dispatch is False
+    assert type(paired._pair) is (FusedPairAA if case == "duct" else FusedPairAAFull)
     assert paired.iterations == stepped.iterations == 7
     for name in ("f", "rho", "u"):
         assert torch.equal(getattr(paired, name), getattr(stepped, name)), name
@@ -273,6 +299,122 @@ def test_pair_dispatch_is_bit_identical_to_per_step(tmp_path, chunks):
     assert paired._pair.plain_calls == n_pairs and paired._pair.kernel.launches == 0
     assert paired._step.plain_calls == 7 - 2 * n_pairs
     assert stepped._pair is None and stepped._step.plain_calls == 7
+
+
+#: pair dispatch's static eligibility per config, the JAX package's
+#: ``_pair_dispatch_capable``: the duct under CUM_WELL (B1) and CUM with
+#: eq_quadratic (B1b), sim_1's A-A map (B1b), a box with OUTFLOW_RIGHT_INTERP,
+#: the duct with a forcing hook, a D2Q9 channel
+CAPABLE = {"duct_cum_well": True, "duct_cum_quad": True, "sim_1": True,
+           "outflow_right_interp": False, "forcing_hook": False, "d2q9": False}
+
+
+def both_packages(tmp_path, case):
+    """(port Simulation, JAX Simulation) of one config, not initialised."""
+    from tnl_lbm_tpu.ops import non_newtonian as jnn
+    from tnl_lbm_tpu_torch.ops import non_newtonian as pnn
+
+    if case == "sim_1":
+        return (sim_1_aa(tmp_path, True),
+                jsim_1.build(1, streaming="AA", pair_dispatch=True, results_parent=tmp_path / "j"))
+    if case == "d2q9":
+        from test_torch_driver import jax_channel, port_channel
+
+        port, ref = port_channel(tmp_path), jax_channel(tmp_path)
+        port.cfg = dataclasses.replace(port.cfg, streaming="AA")
+        ref.cfg = dataclasses.replace(ref.cfg, streaming="AA")
+        ref.use_fused = True
+        return port, ref
+    if case == "outflow_right_interp":
+        m, periodic = bc_box((8, 16, 12)), (False, False, True)
+    else:
+        m, periodic = geometry("duct")
+    s = spec("AA", "CUM" if case in ("duct_cum_quad", "outflow_right_interp") else "CUM_WELL")
+    cfg, dom = interop.config_from_spec(**s), interop.domain_from_numpy(m, periodic)
+    jcfg, jdom = jax_side(s, m, periodic)
+    if case == "forcing_hook":
+        cy = (0.1, 1.0, 2.0, 0.5)
+        cfg = dataclasses.replace(cfg, forcing_hook=pnn.make_nn_forcing_hook(
+            pnn.CarreauYasuda(*cy), periodic=periodic))
+        jcfg = dataclasses.replace(jcfg, forcing_hook=jnn.make_nn_forcing_hook(
+            jnn.CarreauYasuda(*cy), periodic=periodic))
+    port = Simulation(cfg, dom, device="cpu", sim_id="port", results_parent=tmp_path,
+                      use_fused=True, pair_dispatch=True)
+    ref = jstate.Simulation(jcfg, jdom, sim_id="jax", results_parent=tmp_path, use_fused=True,
+                            pair_dispatch=True)
+    return port, ref
+
+
+@pytest.mark.parametrize("case", sorted(CAPABLE))
+def test_pair_dispatch_capability_is_the_jax_packages(tmp_path, case):
+    port, ref = both_packages(tmp_path, case)
+    assert port._pair_dispatch_capable() is ref._pair_dispatch_capable() is CAPABLE[case]
+
+
+def test_pair_dispatch_picks_b1_or_b1b_and_refuses_what_neither_builds(tmp_path):
+    """The duct under CUM_WELL keeps B1 in every store dtype; sim_1's A-A map
+    (CUM, eq_inv_cum) and the duct under CUM run B1b; half storage on the
+    box of every A-A code, and a float64 state on a B1b map, raise naming their
+    ROADMAP items rather than running per step."""
+    m, periodic = geometry("duct")
+    dom = interop.domain_from_numpy(m, periodic, phys_viscosity=NU)
+    built = {}
+    for tag, s, storage in (("b1", spec("AA"), None), ("b1_f16", spec("AA"), "float16"),
+                            ("b1b", spec("AA", "CUM"), None)):
+        sim = Simulation(interop.config_from_spec(**s, storage=storage), dom, device="cpu",
+                         sim_id=tag, results_parent=tmp_path, use_fused=True, pair_dispatch=True)
+        sim.sim_init()
+        built[tag] = sim._pair
+    assert type(built["b1"]) is type(built["b1_f16"]) is FusedPairAA
+    assert built["b1_f16"].store_dtype == torch.float16
+    assert type(built["b1b"]) is FusedPairAAFull
+    sim = sim_1_aa(tmp_path, True)
+    sim.sim_init()
+    assert type(sim._pair) is FusedPairAAFull and sim._pair_dispatch_ok()
+    assert sim._pair.codes == sim._step.codes and sim.f.dtype == torch.float32
+    half = Simulation(interop.config_from_spec(**spec("AA"), storage="bfloat16"),
+                      interop.domain_from_numpy(aa_box((8, 16, 12)), (False, False, True)),
+                      device="cpu", sim_id="half", results_parent=tmp_path, use_fused=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP B1h"):
+        half.sim_init()
+    wide = Simulation(interop.config_from_spec(**{**spec("AA", "CUM"), "dtype": "float64"}), dom,
+                      device="cpu", sim_id="f64", results_parent=tmp_path, use_fused=True,
+                      pair_dispatch=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        wide.sim_init()
+    auto = sim_1_aa(tmp_path, "auto", tag="auto")
+    auto.sim_init()
+    assert auto.pair_dispatch is False and auto._pair is None  # "auto" is per step on the CPU
+
+
+def test_sim_1_in_pairs_matches_jax_steps(tmp_path, one_torch_thread):
+    """sim_1's A-A map at resolution 1 through pair dispatch (B1b's plain
+    version), two pairs from a seeded state with the app's inflow, against
+    four JAX A-A steps of the JAX app's config and map: f, rho and u within
+    the kernel suite's per-step bounds times the steps."""
+    from test_torch_layouts import seeded
+
+    sim = sim_1_aa(tmp_path, True)
+    ref = jsim_1.build(1, streaming="AA", results_parent=tmp_path / "j")
+    assert np.array_equal(sim.domain.map, np.asarray(ref.domain.map))
+    sim.sim_init()
+    jstep = j_make_step(ref.cfg, ref.domain)
+    f0 = seeded(ref.cfg, sim.domain.shape)
+    sim.f.copy_(torch.from_numpy(f0))
+    fj = jnp.asarray(f0)
+    nu = sim.domain.units.lbm_viscosity()
+    u_in = jnp.asarray(sim.update_inflow(0.0), jnp.float32)
+    for k in range(2):
+        sim._advance(2)
+        for parity in (0, 1):
+            fj, rj, uj = jstep(fj, nu, u_in=u_in, parity=parity)
+        steps = 2 * (k + 1)
+        for name, a, b, bound in (("f", fj, sim.f, 1e-6), ("rho", rj, sim.rho, 2e-6),
+                                  ("u", uj, sim.u, 1e-6)):
+            d = float(np.abs(np.asarray(a) - b.numpy()).max())
+            assert d < bound * steps, (name, steps, d)
+    assert sim._pair.plain_calls == 2 and sim._step.plain_calls == 0
+    assert float(np.abs(sim.f.numpy() - f0).max()) > 1e-5
 
 
 def test_hooks_run_once_per_pair(tmp_path):

@@ -4,7 +4,9 @@ The JAX probe scripts fix a 256^3 TPU run and cannot be called at a small
 size, so each plain version is held against a numpy transliteration of its
 Pallas kernel body: ``scripts/profile_floor.py:24-33`` (P1) and
 ``scripts/probe_pair2_pipeline.py:58-61`` (P2a) and ``:136-140`` (P2b).
-Both sides round every float32 operation, so they agree bit for bit.
+Both sides round every float32 operation, so they agree bit for bit.  The
+schedule of P2b's persistent grid is checked in Python with the constants
+of ``csrc/pair_march.cuh``.
 """
 
 import re
@@ -15,6 +17,8 @@ import pytest
 import torch
 
 from tnl_lbm_tpu_torch.kernels import probes
+
+from torch_cases import march_constants
 
 Q = 27
 SHAPE = (6, 9, 37)  # no pair block divides it
@@ -66,33 +70,100 @@ def test_pair_pipeline_plain_matches_pallas_body(passes):
     assert all(probes.KERNELS[n].launches == 0 for _, n in probes.PIPELINE_LOADS.values())
 
 
-@pytest.mark.parametrize("shape", [SHAPE, (2, 3, 5)], ids=["large", "smaller_than_a_block"])
+@pytest.mark.parametrize("shape", [SHAPE, (2, 3, 5), (40, 11, 70)],
+                         ids=["large", "smaller_than_a_block", "longer_than_a_segment"])
 def test_pair_compute_only_plain_matches_pallas_body(shape):
+    """The Pallas body's first program loads its tile, runs the passes and
+    stores it; the port's first item is the march's first column tile
+    (TY x TZ) over its first x segment (SEG_MAX planes), clipped to the
+    domain."""
+    k = march_constants()
     f = seeded(shape)
     tile = probes.pair_compute_only(torch.from_numpy(f), 20)
     bx, by, bz = probes.first_block(shape)
-    assert tile.shape == (Q, bx, by, bz) == (Q,) + tuple(min(t, n) for t, n in
-                                                        zip(probes.PROBE_TILE, shape))
-    # only the first block's output is defined (the first program's)
+    assert (bx, by, bz) == tuple(min(t, n) for t, n in zip((k["SEG_MAX"], k["TY"], k["TZ"]),
+                                                            shape))
+    assert tile.shape == (Q, bx, by, bz)
+    # only the first item's output is defined (the first program's)
     np.testing.assert_array_equal(tile.numpy(), np_passes(f[:, :bx, :by, :bz], 20))
 
 
+def compute_only_runs(shape, blocks):
+    """csrc/probes.cu p2b::compute's schedule in Python: the units (column
+    tile planes, item by item) split into ``blocks`` equal runs, each walked
+    item by item (``Items.locate``, ``length``); returns, per block, the
+    (column, x) units it computes."""
+    k = march_constants()
+    X, Y, Z = shape
+    seg = k["SEG_MAX"]
+    ncol = -(-Y // k["TY"]) * -(-Z // k["TZ"])
+    nseg = -(-X // seg)
+    last = X - (nseg - 1) * seg
+    units = ncol * X
+    full = (nseg - 1) * ncol * seg
+
+    def locate(u):
+        if u < full:
+            return u // seg, u % seg
+        return (nseg - 1) * ncol + (u - full) // last, (u - full) % last
+
+    runs = []
+    for b in range(blocks):
+        u, u1 = units * b // blocks, units * (b + 1) // blocks
+        run = []
+        if u < u1:
+            item, plane = locate(u)
+            while u < u1:
+                length = last if item // ncol == nseg - 1 else seg
+                n = min(length - plane, u1 - u)
+                run += [(item % ncol, (item // ncol) * seg + x) for x in range(plane, plane + n)]
+                u, item, plane = u + n, item + 1, 0
+        runs.append(run)
+    return runs
+
+
+@pytest.mark.parametrize("shape,blocks", [((256, 256, 256), 132 * 5), ((40, 11, 70), 7),
+                                          ((6, 9, 37), 20), ((70, 8, 32), 3)])
+def test_compute_only_runs_cover_every_column_plane_once(shape, blocks):
+    """P2b's persistent grid: every (column tile, x plane) computed once,
+    the runs within one unit of each other, and at 256^3 the first block's
+    run starting with the whole first item (column 0, x < SEG_MAX), the
+    only one stored."""
+    k = march_constants()
+    X, Y, Z = shape
+    runs = compute_only_runs(shape, blocks)
+    ncol = -(-Y // k["TY"]) * -(-Z // k["TZ"])
+    done = [u for run in runs for u in run]
+    assert sorted(done) == [(c, x) for c in range(ncol) for x in range(X)]
+    assert len(done) == len(set(done))
+    sizes = [len(r) for r in runs]
+    assert max(sizes) - min(sizes) <= 1
+    if shape == (256, 256, 256):
+        assert runs[0][: k["SEG_MAX"]] == [(0, x) for x in range(k["SEG_MAX"])]
+        assert sizes[0] in (99, 100)
+
+
 def test_probes_share_the_pair_kernel_geometry():
-    """P2a takes the pair's x-march geometry from pair_march.cuh, as both
-    pairs do (no copy of its constants); P2b keeps the first one-kernel
-    pair's tile (whose times it explains): pair_window.cuh's, which
-    ``PROBE_TILE`` mirrors."""
+    """P2a and P2b take the pair's x-march geometry from pair_march.cuh, as
+    both pairs do (no copy of its constants): P2a its windows, P2b its
+    column tiles and x segments; the first pair's pair_window.cuh is gone
+    from the sources and the build."""
+    from tnl_lbm_tpu_torch.kernels import build
+
     csrc = Path(probes.__file__).resolve().parents[1] / "csrc"
     src = (csrc / "probes.cu").read_text()
-    assert '#include "pair_march.cuh"' in src and '#include "pair_window.cuh"' in src
+    assert '#include "pair_march.cuh"' in src and "pair_window" not in src
+    assert not (csrc / "pair_window.cuh").exists() and "pair_window.cuh" not in build.HEADERS
     p2a = src[src.index("namespace p2a {"):src.index("}  // namespace p2a")]
     assert "M::TY" in p2a and "M::stage_row" in p2a and "window_site(" not in p2a
     assert not re.search(r"constexpr int (TY|TZ|WY|WZ|SEG_MAX)\b", p2a)
-    p2b = src[src.index("pair_compute_only_kernel(const float"):]
-    assert "load_window(" in p2b and "TileSite" in p2b
-    m = re.search(r"constexpr int TX = (\d+), TY = (\d+), TZ = (\d+);",
-                  (csrc / "pair_window.cuh").read_text())
-    assert tuple(int(v) for v in m.groups()) == probes.PROBE_TILE
+    p2b = src[src.index("namespace p2b {"):src.index("}  // namespace p2b")]
+    for name in ("M::TY", "M::TZ", "M::SEG_MAX", "M::TILE_SITES"):
+        assert name in p2b, name
+    assert not re.search(r"constexpr int (TX|TY|TZ|WY|WZ|SEG_MAX|TILE_SITES)\b", p2b)
+    k = march_constants()
+    assert (probes.PAIR_SEG_MAX,) + probes.PAIR_COLUMN == (k["SEG_MAX"], k["TY"], k["TZ"])
+    assert not hasattr(probes, "PROBE_TILE")
     for pair in ("aa_pair.cu", "aa_pair_full.cu"):
         pair_src = (csrc / pair).read_text()
         assert '#include "pair_march.cuh"' in pair_src and "pair_window.cuh" not in pair_src

@@ -7,13 +7,15 @@ solid walls with an extra NOTHING ghost layer, a wall with a rectangular
 hole at x ~ 0.2 m, three 2D cuts and a strided 3D box cut.
 
 Usage: python -m tnl_lbm_tpu_torch.apps.sim_1 [RES] [--device cuda|cpu]
-       [--streaming AB|AA] [--use-fused | --no-fused] [--final-time T]
-       [--results-dir DIR]
+       [--streaming AB|AA] [--use-fused | --no-fused] [--pair-dispatch auto|on|off]
+       [--final-time T] [--results-dir DIR]
 
 The kernels run by default (``--use-fused`` says so explicitly): A-B
 streaming through the A-B kernel (B4), A-A through the even and odd
-kernels (B2, B3; the pair takes FLUID/WALL/NOTHING only, so "auto" never
-picks it for this map).  ``--no-fused`` runs the plain step.
+kernels (B2, B3) one step a launch, or in pairs through the full-set pair
+(B1b, one launch a pair) with ``--pair-dispatch on``, or where the
+default "auto" times the pair faster on a card (on the CPU "auto" runs
+per step).  ``--no-fused`` runs the plain step.
 """
 
 from __future__ import annotations

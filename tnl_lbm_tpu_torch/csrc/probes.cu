@@ -16,11 +16,13 @@
 // (pair_march.cuh: 8 x 32 column tiles, x segments, one-site y-z halo
 // windows, each window plane loaded once a segment), through one of three
 // load paths (p2a::pipeline below), the tile's interior run through the
-// passes and stored.  pair_compute_only (P2b) keeps the grid, 4 x 4 x 32
-// tile and window of the first one-kernel pair (pair_window.cuh), which no
-// longer shares P2a's: it loads and writes only block 0's tile; the other
-// blocks compute on whatever their shared memory holds and store the
-// result back to it: that pair's grid and arithmetic with no traffic.
+// passes and stored.  pair_compute_only (P2b) is its compute half on the
+// same decomposition (p2b::compute below): the passes on every site of
+// every column tile and x segment, only the first column tile's first
+// segment loaded and stored; the other sites compute on whatever their
+// shared-memory slots hold and store the result back there, as the Pallas
+// kernel's other programs compute on stale VMEM: the march's arithmetic
+// with no traffic.
 //
 // element_pipeline_kernel replaces scripts/probe_element_pipeline.py make
 // (Pallas kernel at :21, pallas_call at :32): every (tx, ty) tile of a
@@ -65,29 +67,14 @@
 
 #include "lbm_site.cuh"
 #include "pair_march.cuh"
-#include "pair_window.cuh"
 
 using namespace lbm;
-using namespace lbm::pair;
 
 namespace {
 
 __device__ __forceinline__ float affine(float x, int passes) {
   for (int i = 0; i < passes; ++i) x = __fadd_rn(__fmul_rn(x, 1.000001f), 1e-12f);
   return x;
-}
-
-// Copies block (bx, by, bz)'s window of f into win[q][window site].
-__device__ __forceinline__ void load_window(const float* __restrict__ f, float* win, int bx,
-                                            int by, int bz, int X, int Y, int Z,
-                                            int periodic_bits) {
-  const int64_t N = (int64_t)X * Y * Z;
-  for (int w = threadIdx.x; w < WSITES; w += THREADS) {
-    const int64_t site = window_site(w, bx, by, bz, X, Y, Z, periodic_bits);
-    if (site < 0) continue;
-#pragma unroll
-    for (int q = 0; q < Q; ++q) win[q * WSITES + w] = f[q * N + site];
-  }
 }
 
 }  // namespace
@@ -303,24 +290,138 @@ PAIR_PIPELINE_KERNEL(pair_pipeline_stages_kernel, p2a::LOAD_STAGES)
 PAIR_PIPELINE_KERNEL(pair_pipeline_direct_kernel, p2a::LOAD_DIRECT)
 PAIR_PIPELINE_KERNEL(pair_pipeline_ring_kernel, p2a::LOAD_RING)
 
-// tile: [27, min(TX, X), min(TY, Y), min(TZ, Z)], block 0's tile.
-extern "C" __global__ void __launch_bounds__(THREADS, 1)
+// P2b, the march's compute half (pair_march.cuh's geometry).  The march's
+// work items are its column tiles (TY x TZ) over x segments of SEG_MAX
+// planes, item k the column k mod ncol of segment k / ncol as the pair's
+// blocks; a unit is one x plane of an item, TILE_SITES sites, the units
+// numbered item by item, plane by plane.  A persistent grid of as many
+// blocks as are resident at once (at least MIN_BLOCKS an SM: 32 warps)
+// splits the units into equal runs, so the card's SMs get the same work
+// within one unit, and each block walks its run plane by plane, one thread
+// per tile site.  A thread holds its site's 27 values in registers and runs
+// the passes outside, the 27 components inside: 27 independent chains of a
+// multiply and an add, so one warp's issue never waits on its own results.
+// The sites of item 0 (the first column tile's first segment) are read from
+// f and written to `tile`; every other site starts from the thread's slot
+// of shared memory, whatever it holds, and writes its result back there,
+// both as volatile 16-byte accesses, so no block's arithmetic can be
+// dropped.  Sites beyond a partial tile compute nothing.
+namespace p2b {
+
+namespace M = lbm::march;
+
+constexpr int THREADS = M::TILE_SITES;  // 256: one thread per site of a unit
+constexpr int MIN_BLOCKS = 4;           // resident blocks an SM at least: 32 warps
+constexpr int SLOT = 28;                // floats of a thread's slot: 27 and a pad, 7 float4
+constexpr int SMEM_BYTES = THREADS * SLOT * (int)sizeof(float);  // 28,672
+static_assert(SLOT % 4 == 0 && SLOT >= Q, "a slot is whole float4s holding Q values");
+
+__device__ __forceinline__ float4 ld_slot(const float4* p) {
+  float4 v;
+  asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(M::smem_addr(p)));
+  return v;
+}
+
+__device__ __forceinline__ void st_slot(float4* p, float4 v) {
+  asm volatile("st.volatile.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(M::smem_addr(p)),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// The march's items for a shape: column tiles, segments, the units.
+struct Items {
+  int nzt, ncol, nseg, last_len;
+  int64_t units;
+  __host__ __device__ Items(int X, int Y, int Z)
+      : nzt((Z + M::TZ - 1) / M::TZ),
+        ncol(((Y + M::TY - 1) / M::TY) * nzt),
+        nseg((X + M::SEG_MAX - 1) / M::SEG_MAX),
+        last_len(X - (nseg - 1) * M::SEG_MAX),
+        units((int64_t)ncol * X) {}
+  // Item and plane within it of unit u.
+  __device__ void locate(int64_t u, int& item, int& plane) const {
+    const int64_t full = (int64_t)(nseg - 1) * ncol * M::SEG_MAX;
+    if (u < full) {
+      item = (int)(u / M::SEG_MAX);
+      plane = (int)(u % M::SEG_MAX);
+    } else {
+      item = (nseg - 1) * ncol + (int)((u - full) / last_len);
+      plane = (int)((u - full) % last_len);
+    }
+  }
+  __device__ int length(int item) const {
+    return item / ncol == nseg - 1 ? last_len : M::SEG_MAX;
+  }
+};
+
+// `passes` rounds of the affine map on the 27 values, the components inside.
+__device__ __forceinline__ void run_passes(float (&v)[SLOT], int passes) {
+#pragma unroll 4
+  for (int r = 0; r < passes; ++r)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) v[q] = __fadd_rn(__fmul_rn(v[q], 1.000001f), 1e-12f);
+}
+
+__device__ __forceinline__ void compute(const float* __restrict__ f, float* __restrict__ tile,
+                                        int X, int Y, int Z, int passes) {
+  extern __shared__ __align__(16) float4 p2b_smem[];
+  float4* slot = p2b_smem + threadIdx.x * (SLOT / 4);
+  const Items it(X, Y, Z);
+  const int64_t u1 = it.units * (blockIdx.x + 1) / gridDim.x;
+  int64_t u = it.units * blockIdx.x / gridDim.x;
+  if (u >= u1) return;
+  const int64_t YZ = (int64_t)Y * Z, N = X * YZ;
+  const int ly = threadIdx.x / M::TZ, lz = threadIdx.x % M::TZ;
+  int item, plane;
+  it.locate(u, item, plane);
+  while (u < u1) {  // the run's part of one item: planes plane .. plane + n - 1
+    const int col = item % it.ncol;
+    const int y0 = (col / it.nzt) * M::TY, z0 = (col % it.nzt) * M::TZ;
+    const int len = it.length(item) - plane;
+    const int n = u1 - u < len ? (int)(u1 - u) : len;
+    if (ly < min(M::TY, Y - y0) && lz < min(M::TZ, Z - z0)) {
+      float v[SLOT];
+      if (item == 0) {  // the first item: [Q][tx][ty][tz] of f's sites, into `tile`
+        const int ty = min(M::TY, Y), tz = min(M::TZ, Z);
+        const int64_t tn = (int64_t)min(M::SEG_MAX, X) * ty * tz;
+        for (int x = plane; x < plane + n; ++x) {
+          const float* src = f + x * YZ + (int64_t)ly * Z + lz;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) v[q] = src[q * N];
+          run_passes(v, passes);
+          float* dst = tile + ((int64_t)x * ty + ly) * tz + lz;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) dst[q * tn] = v[q];
+        }
+      } else {
+        for (int k = 0; k < n; ++k) {
+#pragma unroll
+          for (int j = 0; j < SLOT / 4; ++j) {
+            const float4 a = ld_slot(slot + j);
+            v[4 * j] = a.x, v[4 * j + 1] = a.y, v[4 * j + 2] = a.z, v[4 * j + 3] = a.w;
+          }
+          run_passes(v, passes);
+#pragma unroll
+          for (int j = 0; j < SLOT / 4; ++j)
+            st_slot(slot + j, make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]));
+        }
+      }
+    }
+    u += n;
+    ++item;
+    plane = 0;
+  }
+}
+
+}  // namespace p2b
+
+// tile: [27, min(SEG_MAX, X), min(TY, Y), min(TZ, Z)], the first item's sites.
+extern "C" __global__ void __launch_bounds__(p2b::THREADS, p2b::MIN_BLOCKS)
 pair_compute_only_kernel(const float* __restrict__ f, float* __restrict__ tile, int X, int Y,
                          int Z, int passes) {
-  extern __shared__ float win[];
-  const bool first = blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0;
-  if (first) load_window(f, win, 0, 0, 0, X, Y, Z, 0);
-  __syncthreads();
-  const TileSite t;
-  volatile float* vwin = win;  // the result stays in shared memory, as in VMEM
-#pragma unroll
-  for (int q = 0; q < Q; ++q) vwin[q * WSITES + t.w] = affine(win[q * WSITES + t.w], passes);
-  const int nx = min(TX, X), ny = min(TY, Y), nz = min(TZ, Z);
-  if (!first || t.lx >= nx || t.ly >= ny || t.lz >= nz) return;
-  const int64_t n = (int64_t)nx * ny * nz;
-  const int64_t site = ((int64_t)t.lx * ny + t.ly) * nz + t.lz;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) tile[q * n + site] = vwin[q * WSITES + t.w];
+  p2b::compute(f, tile, X, Y, Z, passes);
 }
 
 namespace {
@@ -582,7 +683,7 @@ WINDOW_COPY_KERNEL(window_copy_tma_kernel, LOAD_TMA)
 namespace {
 
 // The window needs more shared memory than the 48 KB default.
-cudaError_t opt_in(const void* kernel, int bytes = SMEM_BYTES) {
+cudaError_t opt_in(const void* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
@@ -699,11 +800,43 @@ extern "C" int tnl_lbm_pair_pipeline(const float* f, float* fout, int X, int Y, 
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+// P2b's grid: every block resident at once, at most one a unit.
+int compute_only_blocks(int64_t units, int* per_sm) {
+  static int resident = 0;
+  if (resident == 0 &&
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &resident, pair_compute_only_kernel, p2b::THREADS, p2b::SMEM_BYTES) != cudaSuccess)
+    resident = 0;
+  if (per_sm != nullptr) *per_sm = resident;
+  return (int)std::min<int64_t>(units, (int64_t)std::max(resident, 1) * march::sm_count());
+}
+
+}  // namespace
+
+// P2b's launch for a shape: out[0] threads per block, [1] dynamic shared
+// memory per block (bytes), [2] the x segment, [3] segments, [4] column
+// tiles, [5] units (column tile planes), [6] blocks, [7] resident blocks
+// an SM.
+extern "C" int tnl_lbm_pair_compute_only_info(int X, int Y, int Z, int* out) {
+  const p2b::Items it(X, Y, Z);
+  int per_sm = 0;
+  const int blocks = compute_only_blocks(it.units, &per_sm);
+  const int vals[8] = {p2b::THREADS, p2b::SMEM_BYTES, march::SEG_MAX, it.nseg, it.ncol,
+                       (int)std::min<int64_t>(it.units, INT_MAX), blocks, per_sm};
+  for (int k = 0; k < 8; ++k) out[k] = vals[k];
+  return per_sm >= p2b::MIN_BLOCKS ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
 extern "C" int tnl_lbm_pair_compute_only(const float* f, float* tile, int X, int Y, int Z,
                                          int passes, void* stream) {
-  static const cudaError_t opted = opt_in(reinterpret_cast<const void*>(pair_compute_only_kernel));
-  if (opted != cudaSuccess) return static_cast<int>(opted);
-  pair_compute_only_kernel<<<grid(X, Y, Z), THREADS, SMEM_BYTES,
+  if (passes < 0 || X < 1 || Y < 1 || Z < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const p2b::Items it(X, Y, Z);
+  int per_sm = 0;
+  const int blocks = compute_only_blocks(it.units, &per_sm);
+  if (per_sm < p2b::MIN_BLOCKS) return static_cast<int>(cudaErrorInvalidConfiguration);
+  pair_compute_only_kernel<<<blocks, p2b::THREADS, p2b::SMEM_BYTES,
                              static_cast<cudaStream_t>(stream)>>>(f, tile, X, Y, Z, passes);
   return static_cast<int>(cudaGetLastError());
 }

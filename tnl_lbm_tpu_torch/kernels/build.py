@@ -24,8 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("aa_even.cu", "aa_odd.cu", "aa_pair.cu", "aa_pair_full.cu", "ab_step.cu",
            "ab_step_sitemajor.cu", "ade_step.cu", "coupled_ab.cu", "coupled_aa.cu",
            "d2q9_step.cu", "nn_force.cu", "nn_step.cu", "probes.cu")
-HEADERS = ("lbm_site.cuh", "pair_march.cuh", "pair_window.cuh", "ade_site.cuh",
-           "nn_site.cuh")
+HEADERS = ("lbm_site.cuh", "pair_march.cuh", "ade_site.cuh", "nn_site.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -121,6 +120,7 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_pair_pipeline.argtypes = [p, p] + [i] * 6 + [p]
     lib.tnl_lbm_pair_pipeline_info.argtypes = [i, i, i, i, p]
     lib.tnl_lbm_pair_compute_only.argtypes = [p, p, i, i, i, i, p]
+    lib.tnl_lbm_pair_compute_only_info.argtypes = [i, i, i, p]
     lib.tnl_lbm_aa_pair_smem_bytes.argtypes = []
     lib.tnl_lbm_element_pipeline.argtypes = [p, p] + [i] * 8 + [p]
     lib.tnl_lbm_window_copy.argtypes = [p, p] + [i] * 7 + [p]
@@ -136,7 +136,7 @@ def load_library() -> ctypes.CDLL:
                lib.tnl_lbm_nn_force, lib.tnl_lbm_nn_step,
                lib.tnl_lbm_nn_info, lib.tnl_lbm_copy_permute,
                lib.tnl_lbm_pair_pipeline, lib.tnl_lbm_pair_pipeline_info,
-               lib.tnl_lbm_pair_compute_only,
+               lib.tnl_lbm_pair_compute_only, lib.tnl_lbm_pair_compute_only_info,
                lib.tnl_lbm_aa_pair_smem_bytes):
         fn.restype = i
     _LIBRARY["lib"] = lib

@@ -44,7 +44,8 @@ AB_CODES = frozenset(SUPPORTED_CODES)
 #: GEO codes the A-A even/odd kernels (B2, B3, and B8's NSE half) handle:
 #: the 3D set but OUTFLOW_RIGHT_INTERP, which is A-B only (JAX fused_aa.py:353-358)
 AA_CODES = AB_CODES - {GEO.OUTFLOW_RIGHT_INTERP}
-#: GEO codes the one-kernel A-A pair (B1) handles so far; the rest is ROADMAP B1
+#: GEO codes the one-kernel A-A pair (B1) handles; pair dispatch runs the full-set
+#: pair (B1b) on the other A-A maps (kernels/fused_aa.py make_dispatch_pair)
 PAIR_CODES = frozenset({GEO.FLUID, GEO.WALL, GEO.NOTHING})
 
 #: ``tnl_lbm_ab_step`` / ``tnl_lbm_aa_even`` / ``tnl_lbm_aa_odd`` variant per
@@ -170,6 +171,23 @@ def _eq_kind(cfg: LBMConfig) -> str:
                               f"ported (eq_entropic: ROADMAP A8)")
 
 
+def check_variant(cfg: LBMConfig) -> None:
+    """Refuse a collision and equilibrium that the A-B step and the A-A
+    even/odd kernels (and B1b) have no instance of: they take the three
+    variants of ``_AB_VARIANTS``.  A check of the config alone, on any
+    device."""
+    well_cascade = cfg.collision is col.collide_cum_well
+    kind = "A-A" if cfg.streaming == "AA" else "A-B"
+    if not (well_cascade or cfg.collision is col.collide_cum):
+        raise NotImplementedError(f"the {kind} CUDA kernels implement CUM and CUM_WELL only "
+                                  f"(other collisions: ROADMAP A8)")
+    if (cfg.well, _eq_kind(cfg)) not in _AB_VARIANTS or well_cascade != cfg.well:
+        raise NotImplementedError(
+            f"the {kind} CUDA kernels take CUM_WELL with well=True, or CUM with "
+            f"eq_quadratic / eq_inv_cum and well=False; got well={cfg.well}, "
+            f"equilibrium kind {_eq_kind(cfg)!r}")
+
+
 def _check_kernel_config(cfg: LBMConfig, domain: Domain, device: torch.device,
                          pair: bool = False) -> None:
     """Refuse, at build time, what the CUDA kernels do not implement: the
@@ -177,21 +195,12 @@ def _check_kernel_config(cfg: LBMConfig, domain: Domain, device: torch.device,
     ``_AB_VARIANTS``, the pair (``pair``) CUM_WELL only."""
     if not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but no CUDA device is available")
-    well_cascade = cfg.collision is col.collide_cum_well
     if pair:
-        if not well_cascade:
+        if cfg.collision is not col.collide_cum_well:
             raise NotImplementedError("the A-A pair kernel implements CUM_WELL only "
                                       "(other collisions: ROADMAP B1)")
     else:
-        kind = "A-A" if cfg.streaming == "AA" else "A-B"
-        if not (well_cascade or cfg.collision is col.collide_cum):
-            raise NotImplementedError(f"the {kind} CUDA kernels implement CUM and CUM_WELL only "
-                                      f"(other collisions: ROADMAP A8)")
-        if (cfg.well, _eq_kind(cfg)) not in _AB_VARIANTS or well_cascade != cfg.well:
-            raise NotImplementedError(
-                f"the {kind} CUDA kernels take CUM_WELL with well=True, or CUM with "
-                f"eq_quadratic / eq_inv_cum and well=False; got well={cfg.well}, "
-                f"equilibrium kind {_eq_kind(cfg)!r}")
+        check_variant(cfg)
     if cfg.compute_dtype != torch.float32:
         raise NotImplementedError("the CUDA kernels compute in float32 only "
                                   "(f64 kernels: ROADMAP A8)")
@@ -271,7 +280,8 @@ def _prep(cfg: LBMConfig, domain: Domain, pair: bool = False):
         names = ", ".join(sorted(c.name for c in extra))
         raise NotImplementedError(
             f"the A-A pair kernel handles FLUID, WALL and NOTHING only; GEO codes {names} "
-            f"in the pair are ROADMAP B1 (the A-A even/odd kernels take them)")
+            f"in the pair are ROADMAP B1 (the A-A even/odd kernels and the full-set pair, "
+            f"make_fused_pair_aa, take them)")
     do_coll_codes = sorted(int(c) for c in (bc.collision_mask_codes(3) & codes))
     return lat, codes, do_coll_codes
 

@@ -26,7 +26,9 @@ The even and odd steps take the A-B step's boundary set but
 OUTFLOW_RIGHT_INTERP (JAX ``fused_aa.py`` runs ``_stream_bc_collide`` on the
 A-B config) and its three variants: CUM_WELL, CUM with ``eq_quadratic``,
 CUM with ``eq_inv_cum``.  The pair takes FLUID/WALL/NOTHING and CUM_WELL
-(``kernels/fused.py PAIR_CODES``; the rest is ROADMAP B1).
+(``kernels/fused.py PAIR_CODES``), the full-set pair the even and odd
+steps' codes and variants, in float32; :func:`make_dispatch_pair` picks the
+one a run's pair dispatch launches.
 
 ``even_step_plain`` / ``odd_step_plain`` (and their composition,
 ``FusedPairAA.plain``) are the plain versions: the CPU path and the oracle
@@ -53,11 +55,14 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     aa_variant,
     check_force_field,
     check_out,
+    check_variant,
     into,
     macro_buffers,
     site_force,
+    supports,
     variant_mode,
 )
+from tnl_lbm_tpu_torch.ops import collision as col
 from tnl_lbm_tpu_torch.ops import streaming as stream
 from tnl_lbm_tpu_torch.ops.boundary import GEO
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
@@ -424,17 +429,20 @@ def make_fused_pair2_aa(cfg: LBMConfig, domain: Domain, device, store_dtype=None
 
 
 class FusedPairAAFull:
-    """``pair(f, nu, u_in=None, force=None) -> (f2, rho, u)``: two A-A steps,
-    even then odd, in one launch with the A-A steps' codes and variants (JAX
-    ``make_fused_pair_aa``, B1b).
+    """``pair(f, nu, u_in=None, force=None, out=None, macro_out=None) -> (f2, rho, u)``:
+    two A-A steps, even then odd, in one launch with the A-A steps' codes
+    and variants (JAX ``make_fused_pair_aa``, B1b).
 
     The kernel (``csrc/aa_pair_full.cu``) is the one-kernel pair's x-march
     (``csrc/pair_march.cuh``) over the even and odd steps' site updates: the
     even output stays on chip, and an OUTFLOW_RIGHT site's pull of every
     component from x - 1 reads the ring's whole previous plane.  rho and u
-    come from the odd step (None with ``with_macro=False``); ``f`` is never
-    written.  ``u_in`` and ``force`` are homogeneous [3] vectors given as
-    host values.  The codes and variants are the A-A even/odd steps' (all
+    come from the odd step (None with ``with_macro=False``), in new tensors
+    or in ``macro_out`` (a pair of buffers); f2 goes to a new tensor or into
+    ``out`` (a second state buffer, not ``f``, which is never written), so
+    a caller can ping-pong two buffers and a CUDA graph replay the launch
+    on fixed ones.  ``u_in`` and ``force`` are homogeneous [3] vectors given
+    as host values.  The codes and variants are the A-A even/odd steps' (all
     but OUTFLOW_RIGHT_INTERP; CUM_WELL, CUM with eq_quadratic or
     eq_inv_cum); on a map of FLUID, WALL and NOTHING the kernel runs its
     lean CUM_WELL instance.  ``kernel`` counts the launches,
@@ -483,13 +491,21 @@ class FusedPairAAFull:
             geo.update(seg_len=self.seg_len, segments=-(-self.shape[0] // self.seg_len))
         return geo
 
-    def __call__(self, f, nu, u_in=None, force=None):
+    def __call__(self, f, nu, u_in=None, force=None, out=None, macro_out=None):
         uvec, fvec = _u_in3(u_in), _force3(force)
         self._check(f)
+        check_out(out, f)
+        if macro_out is not None and not self.with_macro:
+            raise ValueError("a pair built with_macro=False writes no rho and u")
         if f.device.type == "cuda":
-            return self._launch(f, float(nu), uvec, fvec)
+            return self._launch(f, float(nu), uvec, fvec, out, macro_out)
         self.plain_calls += 1
-        return self.plain(f, nu, u_in, force)
+        f2, rho, u = self.plain(f, nu, u_in, force)
+        if out is not None:
+            f2 = out.copy_(f2)
+        if self.with_macro:
+            rho, u = into(macro_out, rho, u)
+        return f2, rho, u
 
     def plain(self, f, nu, u_in=None, force=None):
         """The pair's plain PyTorch version on f's device: ``even_step_plain``
@@ -510,14 +526,14 @@ class FusedPairAAFull:
         if f.dtype != self.cfg.compute_dtype:
             raise ValueError(f"f is {f.dtype}, the pair computes in {self.cfg.compute_dtype}")
 
-    def _launch(self, f, nu, uvec, fvec):
+    def _launch(self, f, nu, uvec, fvec, out, macro_out):
         if self.device.type != "cuda" or f.device != self.map.device:
             raise ValueError(f"f is on {f.device}, the pair was built for {self.device}")
         X, Y, Z = self.shape
-        f2 = torch.empty_like(f)
+        f2 = torch.empty_like(f) if out is None else out
         rho = u = None
         if self.with_macro:
-            rho, u = macro_buffers(None, (X, Y, Z), 3, f.dtype, f.device)
+            rho, u = macro_buffers(macro_out, (X, Y, Z), 3, f.dtype, f.device)
         rc = load_library().tnl_lbm_aa_pair_full(
             f.data_ptr(), f2.data_ptr(), self.map.data_ptr(),
             None if rho is None else rho.data_ptr(), None if u is None else u.data_ptr(),
@@ -542,3 +558,25 @@ def make_fused_pair_aa(cfg: LBMConfig, domain: Domain, device, with_macro: bool 
     its ``Z % 128 == 0`` condition (its even kernel's output DMA).
     """
     return FusedPairAAFull(cfg, domain, device, with_macro=with_macro, seg_len=seg_len)
+
+
+def make_dispatch_pair(cfg: LBMConfig, domain: Domain, device, store_dtype=None):
+    """The pair kernel that ``Simulation``'s pair dispatch runs for (cfg,
+    domain): the one-kernel pair (B1, :func:`make_fused_pair2_aa`) on a map
+    of FLUID/WALL/NOTHING under CUM_WELL, in any store dtype; the full-set
+    pair (B1b, :func:`make_fused_pair_aa`) on every other map and variant
+    the A-A steps take, in float32.  The JAX package's pair takes all of
+    them (``make_fused_pair2_aa`` refuses OUTFLOW_RIGHT_INTERP only); a
+    config neither kernel has an instance of raises, on any device."""
+    if cfg.collision is col.collide_cum_well and supports(domain, "AA", pair=True):
+        return make_fused_pair2_aa(cfg, domain, device, store_dtype=store_dtype)
+    if store_dtype is not None and store_dtype != cfg.compute_dtype:
+        raise NotImplementedError(
+            "half storage runs through the one-kernel pair, which takes FLUID, WALL and "
+            "NOTHING under CUM_WELL; the full-set pair (B1b) that takes this map or "
+            "collision has float32 instances only (16-bit B1b instances: ROADMAP B1h)")
+    check_variant(cfg)
+    if cfg.compute_dtype != torch.float32:
+        raise NotImplementedError("the full-set pair computes in float32 only "
+                                  "(f64 kernels: ROADMAP A8)")
+    return make_fused_pair_aa(cfg, domain, device)

@@ -13,9 +13,10 @@ oracle it is held against on the card.
   column tiles, x segments and one-site halo windows, each window plane
   loaded once a segment) with an affine map in place of the collisions: its
   memory half, through one of three load paths (``PIPELINE_LOADS``).
-- :func:`pair_compute_only` (P2b): the first one-kernel pair's 4x4x32 grid
-  (``PROBE_TILE``; it no longer shares P2a's) and arithmetic with only block
-  0's window loaded and only its tile stored: that pair's compute half.
+- :func:`pair_compute_only` (P2b): the affine passes on every site of the
+  march's column tiles and x segments, only the first tile's first segment
+  (``first_block``) loaded and stored: the march's compute half, on P2a's
+  decomposition.
 - :func:`element_pipeline` (P3): overlapping halo windows of a padded
   state, each window plane loaded once by TMA into a ring of plane buffers
   as blocks march along x, the affine passes on each tile's interior: do
@@ -36,11 +37,15 @@ import torch
 
 from tnl_lbm_tpu_torch.kernels.build import load_library
 from tnl_lbm_tpu_torch.kernels.fused import CudaKernel, _periodic_bits
+from tnl_lbm_tpu_torch.kernels.fused_aa import PAIR_COLUMN
 
 Q = 27
-#: P2b's output tile of one block (csrc/pair_window.cuh TX, TY, TZ): the
-#: first one-kernel pair's, which the probe explains
-PROBE_TILE = (4, 4, 32)
+#: the march's x segment (csrc/pair_march.cuh SEG_MAX): P2b's items are its
+#: column tiles (``PAIR_COLUMN``) over segments of this many planes
+PAIR_SEG_MAX = 32
+#: keys of :func:`compute_only_geometry` (csrc/probes.cu tnl_lbm_pair_compute_only_info)
+_COMPUTE_ONLY_KEYS = ("threads", "smem_bytes", "seg_len", "segments", "columns", "units",
+                      "blocks", "blocks_per_sm")
 #: P2a's load paths -> the ``load`` code of ``tnl_lbm_pair_pipeline``
 #: (csrc/probes.cu p2a::LOAD_*) and the launch counter: the pair's staged rows,
 #: global reads by the window threads, a producer warp's TMA plane ring
@@ -200,8 +205,21 @@ def pair_pipeline(f, passes: int, load: str = PIPELINE_DEFAULT):
 
 
 def first_block(shape) -> tuple[int, int, int]:
-    """Extent of P2b's block 0: its tile, clipped to the domain."""
-    return tuple(min(t, n) for t, n in zip(PROBE_TILE, shape))
+    """Extent of P2b's first item, the only one loaded and stored: the first
+    column tile's first x segment, clipped to the domain."""
+    return tuple(min(t, n) for t, n in zip((PAIR_SEG_MAX,) + PAIR_COLUMN, shape))
+
+
+def compute_only_geometry(shape) -> dict:
+    """P2b's launch for a [27, *shape] state (CUDA only): threads and shared
+    memory per block, the x segment and segments, the column tiles, the
+    units (column tile planes) its persistent grid splits, the blocks and
+    the blocks resident an SM."""
+    out = (ctypes.c_int * len(_COMPUTE_ONLY_KEYS))()
+    rc = load_library().tnl_lbm_pair_compute_only_info(*shape, out)
+    if rc != 0:
+        raise RuntimeError(f"tnl_lbm_pair_compute_only_info failed: CUDA error {rc}")
+    return dict(zip(_COMPUTE_ONLY_KEYS, out))
 
 
 def pair_compute_only_plain(f, passes: int):
@@ -210,9 +228,11 @@ def pair_compute_only_plain(f, passes: int):
 
 
 def pair_compute_only(f, passes: int):
-    """P2b: the pair grid runs ``affine`` on every tile, but only block 0
-    loads its window and stores its tile -> that tile,
-    ``[27, *first_block(shape)]``."""
+    """P2b: ``affine`` on every site of the march's column tiles and x
+    segments, but only the first item's sites are loaded and stored -> those,
+    ``[27, *first_block(shape)]``.  On the card a persistent grid splits the
+    column tile planes evenly over the resident blocks; the other sites
+    compute on what their shared-memory slots hold."""
     X, Y, Z = _check(f)
     if f.device.type != "cuda":
         return pair_compute_only_plain(f, passes)

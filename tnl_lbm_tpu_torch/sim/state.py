@@ -31,11 +31,13 @@ the D2Q9 kernel, ``make_fused_step_2d``, which raises for a config it does
 not take).  A config with a forcing hook (the non-Newtonian force) runs
 ``make_hooked_fused_step`` (``kernels/hooked.py``): the one-kernel NN step
 or the u*/hook/force-field pipeline; ``sample_phase_timers`` times its
-phases.  With A-A streaming, pairs of steps go through the one-kernel A-A
-pair (``make_fused_pair2_aa``) when pair dispatch is on, and single steps -
-a leftover odd step, or every step when pair dispatch is off or the pair
-refuses the map or collision - through the even/odd kernels
-(``make_fused_step_aa``); without ``use_fused`` every step is the plain
+phases.  With A-A streaming, pairs of steps go through one launch a pair
+when pair dispatch is on - the one-kernel pair (``make_fused_pair2_aa``,
+B1) on a FLUID/WALL/NOTHING map under CUM_WELL, the full-set pair
+(``make_fused_pair_aa``, B1b) on the other A-A maps and variants - and
+single steps - a leftover odd step, or every step when pair dispatch is
+off or the map holds a code the A-A kernels refuse - through the even/odd
+kernels (``make_fused_step_aa``); without ``use_fused`` every step is the plain
 PyTorch step (``sim/step.py``).  ``pair_dispatch="auto"`` times both
 dispatches on a CUDA device and keeps the faster; half storage
 (``cfg.storage_dtype``) forces pair dispatch.  Everything runs on the
@@ -72,7 +74,6 @@ from tnl_lbm_tpu_torch.io.vtk import write_vti
 from tnl_lbm_tpu_torch.kernels.fused import kernel_counters, make_fused_step, supports
 from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
 from tnl_lbm_tpu_torch.ops import moments as mom
-from tnl_lbm_tpu_torch.ops.collision import collide_cum_well
 from tnl_lbm_tpu_torch.sim import checkpoint as ckpt
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig, initial_dfs
 from tnl_lbm_tpu_torch.sim.step import make_step
@@ -430,24 +431,29 @@ class Simulation:
         self._step = make_fused_step_aa(cfg, self.domain, self.device)
 
     def _build_pair(self):
-        from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair2_aa
+        """The pair kernel of pair dispatch (``make_dispatch_pair``): B1 on a
+        map of FLUID/WALL/NOTHING under CUM_WELL, in the store dtype; B1b,
+        one launch a pair with the A-A codes and variants, elsewhere.  A
+        config neither has an instance of raises."""
+        from tnl_lbm_tpu_torch.kernels.fused_aa import make_dispatch_pair
 
         if self._pair is None:
-            self._pair = make_fused_pair2_aa(self.cfg, self.domain, self.device,
-                                             store_dtype=self.cfg.storage_dtype)
+            self._pair = make_dispatch_pair(self.cfg, self.domain, self.device,
+                                            store_dtype=self.cfg.storage_dtype)
         return self._pair
 
     def _pair_dispatch_capable(self) -> bool:
-        """Static eligibility for the one-kernel A-A pair: its own code set
-        (FLUID/WALL/NOTHING) and collision (CUM_WELL), narrower than the
-        even/odd kernels'; a map or config the pair refuses runs per step."""
+        """Static eligibility for pair dispatch, as the JAX package's: the
+        kernels, A-A streaming, no forcing hook, 3D, no per-step-state hook,
+        and every code of the map one the A-A kernels take.  Which pair
+        kernel runs, and whether one has an instance of the collision, is
+        ``_build_pair``'s; outside this set every step runs on its own."""
         return (self.use_fused
                 and self.cfg.streaming == "AA"
                 and self.cfg.forcing_hook is None
                 and self.cfg.lat.D == 3
-                and self.cfg.collision is collide_cum_well
                 and not self._hooks_need_per_step_state()
-                and supports(self.domain, self.cfg.streaming, pair=True))
+                and supports(self.domain, self.cfg.streaming))
 
     def _hooks_need_per_step_state(self) -> bool:
         """True if a step hook is marked @needs_per_step_state."""
