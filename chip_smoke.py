@@ -153,6 +153,20 @@ script exits non-zero without printing a result.
    ``main``, its JSON line parsed): pair2 in f32, f16 and bf16 and pair
    (B1b, one launch a pair), 50 timed pairs each from the rest state at 256^3, every kernel's
    launch count > 0 and no plain call;
+   collisions (right after the main paths above, before the bench entry):
+   the per-step kernels' instances of the other sixteen D3Q27 collisions
+   (csrc/coll_*.cu: SRT, SRT_WELL, SRT_MODIF_FORCE, BGK, BGK_WELL, MRT_LES,
+   CLBM, CLBM_WELL, KBC N1-N4 and C1-C4), each against its plain version on
+   ``bc_box((24, 20, 150))`` (one A-B step) and ``aa_box`` (one even, then
+   one odd step) with its natural equilibrium, KBC_N1 also with
+   ``eq_entropic`` and SRT with ``eq_inv_cum`` (|df| <= 1e-6, 1e-5 under
+   KBC); then each id through ``Simulation`` on the 256^3 bench duct, A-B
+   and A-A per step ("auto", which keeps per step without building a
+   pair), 100 steps each with the counts set to 0 at the end of sim_init
+   and read after (one launch a step, no pair, no plain call): MLUPS, and
+   each kernel timed over 20 launches on the run's final state and on a
+   seeded developed state, GB/s at 233 B/site against P1, registers and
+   spills;
 6. the 2D slice (after the main paths; the D2Q9 kernel's bounds as the
    step compares'):
    a. compare_2d: B5 against its plain version at 37 x 150 (neither a
@@ -295,7 +309,10 @@ call computes a kernel's function; B1b's entry also gives the pair's
 time, ``pair_ms``, its least-work bound, ``pair_bound_ms`` (233 B/site),
 B1 f32 timed in turns with it, each instance's registers and spills and
 its sim_1 res 8 time beside B2 + B3; B1's entries also give its
-registers, shared memory and stages);
+registers, shared memory and stages; the ab_step, aa_even and aa_odd
+entries list the collisions' instances: id, kernel, ms, the run's MLUPS,
+registers, spill bytes, max |df| and bound; their launches add the
+collisions' runs);
 the last line is ``{"ok": true, "device": {...}}``.  The
 script's total time and that of the P3/P4, layouts and bench-entry phases
 are logged before them.
@@ -535,27 +552,70 @@ LAYOUT_KERNEL_NAMES = (FULL_PAIR_KERNEL_NAMES
 PIPELINE_KERNEL_NAMES = tuple(f"pair_pipeline_{load}_kernel"
                               for load in ("stages", "direct", "ring"))
 WINDOW_KERNEL_NAMES = tuple(f"window_copy_{load}_kernel" for load in ("ld4", "ld16", "tma"))
+#: the instance tags of the family sources (csrc/coll_*.cu COLL_KERNELS): the KBC
+#: variants share one instance per kernel, chosen at run time
+COLLISION_TAGS = ("srt", "srt_well", "srt_modif_force", "bgk", "bgk_well", "mrt_les", "clbm",
+                  "clbm_well", "kbc")
+COLLISION_KERNEL_NAMES = tuple(f"{p}_{t}_kernel" for t in COLLISION_TAGS
+                               for p in ("ab_step", "aa_even", "aa_odd"))
+#: the per-step kernels' record entries and their pattern's prefix in the instance names
+COLLISION_KERNELS = {"ab_step": "ab_step", "aa_even": "aa_even", "aa_odd": "aa_odd"}
+COLLISION_STEPS = 100  # steps of each collision's runs on the bench duct
+COLLISION_BOX = (24, 20, 150)  # the box of every code of the compares (Z past one block)
 
 
-def count_sass_ops(sass: str) -> dict:
+def collision_tag(cid: str) -> str:
+    return "kbc" if cid.startswith("KBC") else cid.lower()
+
+
+def count_sass_ops(sass: str, subroutines: bool = True) -> dict:
     """Per kernel of a ``cuobjdump -sass`` listing: (FP32-pipe instructions,
     SFU instructions) per thread.  Every FADD, FMUL, FFMA and FMNMX, their
     immediate forms too, is one slot of the FP32 pipe, whatever it
     computes; every MUFU one of the SFU.  Every branch counts once, so for
-    a kernel without loops this bounds what one site issues from above."""
+    a kernel without loops this bounds what one site issues from above.
+    Without ``subroutines``, the code from the first target of the
+    kernel's CALLs on is left out: the slow paths of the IEEE divisions and
+    square roots, placed after the kernel's body, which only zero,
+    denormal, infinite or NaN operands take."""
     import re
 
     ops, current = {}, None
+    instr = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)\S*\s*(.*)")
+    funcs: dict = {}
     for line in sass.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
             current = m.group(1)
-            ops[current] = [0, 0]
+            funcs[current] = []
             continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", line)
-        if current is not None and m:
-            ops[current][0] += m.group(1) in FP32_PIPE_OPS
-            ops[current][1] += m.group(1) in SFU_OPS
+        if current is None:
+            continue
+        m = instr.search(line)
+        if m:
+            funcs[current].append((int(m.group(1), 16), m.group(2), m.group(3)))
+            continue
+        m = re.match(r"\s*([$.\w]+):\s*$", line)
+        if m:  # a label, as nvdisasm-style listings give them
+            funcs[current].append((None, m.group(1), ""))
+    for name, body in funcs.items():
+        ops[name] = [0, 0]
+        end = None
+        if not subroutines:
+            targets = set()
+            for _, op, rest in body:
+                if op == "CALL":
+                    t = re.search(r"0x([0-9a-f]+)|`?\(?([$.\w]+)\)?", rest)
+                    targets.add(int(t.group(1), 16) if t.group(1) else t.group(2))
+            starts = [i for i, (addr, op, _) in enumerate(body)
+                      if (addr is not None and addr in targets)
+                      or (addr is None and op in targets)]
+            end = min(starts) if starts else None
+        for addr, op, _ in body[:end]:
+            if addr is None:
+                continue
+            ops[name][0] += op in FP32_PIPE_OPS
+            ops[name][1] += op in SFU_OPS
     return {k: tuple(v) for k, v in ops.items()}
 
 
@@ -571,19 +631,32 @@ def sass_fp32_ops(lib_path) -> dict:
 
 def phase_build() -> dict:
     """Build the kernels, and beside them B5_VARIANTS of the resident chunk
-    (tests/b5_chunk_ablation.py, one nvcc each, started first); registers
-    per kernel, and the FP32 operations per thread from the SASS."""
+    (tests/b5_chunk_ablation.py) and a fluid site's work under each
+    collision of the family kernels (tests/collision_site_ops.py), one
+    nvcc each, started first; registers per kernel, and the FP32
+    operations per thread from the SASS (a fluid site's without the IEEE
+    slow paths: ``site_ops``)."""
     import b5_chunk_ablation as ablation
+    import collision_site_ops
 
     from tnl_lbm_tpu_torch.kernels.build import build_library, kernel_resources, load_library
     from tnl_lbm_tpu_torch.kernels.fused_nn import nn_geometry
 
     t0 = time.perf_counter()
     variants = ablation.start(WORK / "b5_variants", B5_VARIANTS)
+    site_build = collision_site_ops.start(WORK / "site_ops")
     try:
         path, ptxas = build_library()
     finally:
         variants = ablation.finish(variants)
+        site_sass = collision_site_ops.finish(site_build)
+    site_ops, site_all = count_sass_ops(site_sass, subroutines=False), count_sass_ops(site_sass)
+    site_ops = {cid: site_ops[collision_site_ops.kernel_name(cid)]
+                for cid in collision_site_ops.COLLISION_INSTANCES}
+    for cid, (fp32, sfu) in site_ops.items():
+        whole = site_all[collision_site_ops.kernel_name(cid)]
+        log("build", fluid_site=cid, fp32_slots=fp32, mufu=sfu, fp32_slots_with_slow_paths=whole[0],
+            mufu_with_slow_paths=whole[1])
     lib = load_library()
     res = kernel_resources(ptxas)
     ops = sass_fp32_ops(path)
@@ -593,7 +666,7 @@ def phase_build() -> dict:
               "element_pipeline_kernel") + PIPELINE_KERNEL_NAMES + LAYOUT_KERNEL_NAMES
              + WINDOW_KERNEL_NAMES + AA_KERNEL_NAMES + ADE_KERNEL_NAMES
              + COUPLED_KERNEL_NAMES + COUPLED_AA_KERNEL_NAMES + D2Q9_KERNEL_NAMES
-             + NN_KERNEL_NAMES)
+             + NN_KERNEL_NAMES + COLLISION_KERNEL_NAMES)
     for name in names:
         if name not in res or name not in ops:
             raise RuntimeError(f"no ptxas report or SASS for {name}:\n{ptxas}")
@@ -604,7 +677,8 @@ def phase_build() -> dict:
     log("build", seconds=f"{time.perf_counter() - t0:.1f}",
         pair_dynamic_smem_bytes=lib.tnl_lbm_aa_pair_smem_bytes(),
         **{f"{key}_geometry_256": json.dumps(g) for key, g in nn_geo.items()})
-    return {"ops": ops, "res": res, "nn_geometry": nn_geo, "b5_variants": variants}
+    return {"ops": ops, "res": res, "nn_geometry": nn_geo, "b5_variants": variants,
+            "site_ops": site_ops}
 
 
 def phase_compare_steps() -> dict:
@@ -1925,6 +1999,157 @@ def phase_main_path() -> dict:
     kernels["ab_step"] = dataclasses.replace(
         ab, launches=ab.launches + sim1_launches + coupled["ab_launches"])
     return {"kernels": kernels, "err": err}
+
+
+def collision_compare(cid: str, eq) -> dict:
+    """The per-step kernels' instance of a collision (``COLLISION_CASES``)
+    against the plain versions on the box of every code, from a seeded
+    state off its equilibrium: one A-B step (``bc_box``), one A-A even step
+    then one odd step (``aa_box``), each from the same input on both sides.
+    kernel -> (max |df|, |drho|, |du|)."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_step_aa
+    from torch_cases import U_IN, aa_box, bc_box, collision_spec, collision_state
+
+    out, force = {}, (1e-5, -2e-6, 3e-6)
+    for streaming, m in (("AB", bc_box(COLLISION_BOX)), ("AA", aa_box(COLLISION_BOX))):
+        cfg = interop.config_from_spec(**collision_spec(cid, streaming, eq))
+        dom = interop.domain_from_numpy(m, (False, False, True))
+        f = collision_state(cfg, COLLISION_BOX, DEVICE)
+        if streaming == "AB":
+            step = make_fused_step(cfg, dom, DEVICE)
+            runs = (("ab_step", 0),)
+        else:
+            step = make_fused_step_aa(cfg, dom, DEVICE)
+            runs = (("aa_even", 0), ("aa_odd", 1))
+        for name, parity in runs:
+            p = step.plain(f, NU, u_in=U_IN, force=force, parity=parity)
+            k = step(f.clone(), NU, u_in=U_IN, force=force, parity=parity)
+            torch.cuda.synchronize()
+            out[name] = tuple(max_diff(a, b) for a, b in zip(k, p))
+            f = k[0]
+    return out
+
+
+def collision_sim(cid: str, streaming: str):
+    """Simulation on the 256^3 bench duct under collision ``cid`` with its
+    natural equilibrium, per step (A-A: ``pair_dispatch="auto"``, which no
+    pair instance of the collision keeps per step), COLLISION_STEPS steps,
+    counted from the end of sim_init."""
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.sim.state import Simulation
+    from torch_cases import collision_spec
+
+    class BenchDuct(Simulation):
+        def body_force(self, phys_time):
+            return np.array([FORCE_BENCH, 0.0, 0.0])
+
+    _, dom = flagship(BENCH_SHAPE)
+    cfg = interop.config_from_spec(**collision_spec(cid, streaming))
+    sim = counting_from_init(BenchDuct(
+        cfg, dom, device=DEVICE, sim_id=f"collision_{cid}_{streaming}",
+        results_parent=WORK / "collisions", phys_final_time=COLLISION_STEPS * dom.units.phys_dt,
+        steps_per_dispatch=10, use_fused=True,
+        pair_dispatch="auto" if streaming == "AA" else False))
+    if not sim.run():
+        raise RuntimeError(f"the {cid} {streaming} run failed (NaN or refused)")
+    return sim
+
+
+def phase_collisions(floor_gbps: float, res: dict, ops: dict, site_ops: dict) -> dict:
+    """The rest of the D3Q27 collision set on the per-step kernels (B4, B2,
+    B3; csrc/coll_*.cu).  First each instance against its plain version on
+    the box of every code (``collision_compare``; KBC_N1 also with the
+    entropic equilibrium, SRT with the inverse-cumulant one: the run-time
+    equilibrium's other kinds); |df| over 1e-6 (KBC too), |drho| over 2e-6
+    or |du| over 1e-6 fails.  Then each id through ``Simulation`` on the
+    256^3 bench duct, A-B and A-A per step, each run's launch counts set to
+    0 at the end of sim_init and read after it: MLUPS, launches (one a
+    step, no pair), and each kernel timed on the run's final state and on a
+    seeded developed state (20 launches each on CUDA events), GB/s at 233
+    B/site against P1.  The bound: 233 B/site, or the FP32 work of the
+    duct's colliding sites (``site_ops``: a fluid site's under the id, from
+    phase_build) where that is longer.  Returns each record entry's
+    instances and the runs' launches."""
+    import torch
+
+    from tnl_lbm_tpu_torch.ops.boundary import collision_mask_codes
+    from torch_cases import COLLISION_CASES, COLLISION_IDS
+
+    t0 = time.perf_counter()
+    err = {}
+    for cid, eq in COLLISION_CASES:
+        d = collision_compare(cid, eq)
+        for name, (df, dr, du) in d.items():
+            log("collisions", kernel=name, collision=cid, eq=eq or "natural", box="24x20x150",
+                max_df=f"{df:.3e}", max_drho=f"{dr:.3e}", max_du=f"{du:.3e}")
+            if df > TOL_F or dr > TOL_RHO or du > TOL_U:
+                raise RuntimeError(f"{name} under {cid} ({eq or 'natural'}) disagrees with its "
+                                   f"plain version: {d[name]}")
+            err[(name, cid)] = max(err.get((name, cid), 0.0), df)
+    instances = {key: [] for key in COLLISION_KERNELS}
+    launches = {key: 0 for key in COLLISION_KERNELS}
+    force = (FORCE_BENCH, 0.0, 0.0)
+    for cid in COLLISION_IDS:
+        for streaming in ("AB", "AA"):
+            sim = collision_sim(cid, streaming)
+            if sim.cfg.high_precision_rho:
+                raise RuntimeError("site_ops counts the plain density sum; the run takes Neumaier's")
+            colliding = float(np.isin(sim.domain.map, sorted(collision_mask_codes(3))).mean())
+            work = tuple(v * colliding for v in site_ops[cid])
+            counted = report_main(sim, f"{cid}_{streaming}")
+            ms_step, mlups, _ = run_figures(sim)
+            step = sim._step
+            spare = torch.empty_like(sim.f)
+            if streaming == "AB":
+                if counted["ab"] != COLLISION_STEPS:
+                    raise RuntimeError(f"{cid} A-B did not run every step through B4: {counted}")
+                launches["ab_step"] += counted["ab"]
+                runs = {"ab_step": lambda f: step(f, NU, force=force, out=spare)}
+            else:
+                half = COLLISION_STEPS // 2
+                if (counted != {"even": half, "odd": COLLISION_STEPS - half, "pair": 0}
+                        or sim.pair_dispatch is not False or sim._pair is not None):
+                    raise RuntimeError(f"{cid} A-A did not run per step through B2/B3: "
+                                       f"{counted}, pair_dispatch={sim.pair_dispatch}")
+                launches["aa_even"] += counted["even"]
+                launches["aa_odd"] += counted["odd"]
+                runs = {"aa_even": lambda f: step(f, NU, force=force, parity=0),
+                        "aa_odd": lambda f: step(f, NU, force=force, parity=1, out=spare)}
+            # the run's final state (near rest after 100 steps) and a seeded developed
+            # one (rho 1 +- 0.01, |u| ~ 0.02): KBC's time depends on the data
+            developed = rand_f(sim.cfg, BENCH_SHAPE, DEVICE, seed=1)
+            timed = {key: (time_ms(lambda: fn(sim.f), 20), time_ms(lambda: fn(developed), 20))
+                     for key, fn in runs.items()}
+            for key, (ms, ms_developed) in timed.items():
+                name = f"{COLLISION_KERNELS[key]}_{collision_tag(cid)}_kernel"
+                r = res[name]
+                bound_ms, bound_by = bound(AB_BYTES, work)
+                entry = {"id": cid, "kernel": name, "ms": ms, "ms_developed": ms_developed,
+                         "mlups": mlups,
+                         "registers": r["registers"], "spill_bytes": r.get("spill_stores", 0),
+                         "max_abs_err": err[(key, cid)], "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+                instances[key].append(entry)
+                log("collisions", kernel=key, collision=cid, shape="256^3", ms=f"{ms:.4f}",
+                    ms_developed=f"{ms_developed:.4f}", gbps=f"{gbps(AB_BYTES, ms):.1f}",
+                    share_of_p1=f"{gbps(AB_BYTES, ms) / floor_gbps:.3f}",
+                    bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+                    fluid_site_fp32_slots=site_ops[cid][0], fluid_site_mufu=site_ops[cid][1],
+                    colliding_share=f"{colliding:.6f}",
+                    fp32_slots_per_thread=ops[name][0], mufu_per_thread=ops[name][1],
+                    registers=r["registers"], spill_stores=r.get("spill_stores", 0),
+                    run_mlups=f"{mlups:.1f}", run_ms_per_step=f"{ms_step:.4f}")
+            del sim, step, spare, developed
+            torch.cuda.empty_cache()
+    log("collisions", seconds=f"{time.perf_counter() - t0:.1f}", runs=2 * len(COLLISION_IDS),
+        **{f"launches_{k}": v for k, v in launches.items()}, card=card_state())
+    return {"instances": instances, "launches": launches,
+            "err": {key: max(e for (k, _), e in err.items() if k == key)
+                    for key in COLLISION_KERNELS}}
 
 
 def two_kernel(sim):
@@ -4306,6 +4531,9 @@ def main() -> int:
     timed_aa = phase_time_coupled_aa(steps["times"], floor)
     main_path = phase_main_path()
     kernels = main_path["kernels"]
+    collisions = phase_collisions(floor, built["res"], ops, built["site_ops"])
+    for key, n in collisions["launches"].items():  # the collisions' runs on the main path
+        kernels[key] = dataclasses.replace(kernels[key], launches=kernels[key].launches + n)
     t_bench = time.perf_counter()
     bench_launches = phase_bench()
     t_bench = time.perf_counter() - t_bench
@@ -4344,7 +4572,8 @@ def main() -> int:
     err = {**steps["err"], **pairs["err"], **probe["err"], **ab["err"], **layouts["err"],
            "d2q9_step": max(compare_2d_err, timed_2d["err"])}
     for key in ("aa_even", "aa_odd"):
-        err[key] = max(err[key], aa_codes_err, main_path["err"][key])
+        err[key] = max(err[key], aa_codes_err, main_path["err"][key], collisions["err"][key])
+    err["ab_step"] = max(err.get("ab_step", 0.0), collisions["err"]["ab_step"])
     for key in ("ab_step", "ade_step", "coupled_ab", "coupled_aa_even", "coupled_aa_odd"):
         err[key] = max(err.get(key, 0.0), main_path["err"].get(key, 0.0),
                        timed["err"].get(key, 0.0), ade_err.get(key, 0.0),
@@ -4389,6 +4618,8 @@ def main() -> int:
             r = built["res"][NN_INSTANCES[key]]
             entry.update(registers=r["registers"], spill_stores=r.get("spill_stores", 0),
                          smem_bytes=geo["smem_bytes"], seg_len=geo["seg_len"])
+        if key in COLLISION_KERNELS:  # the family sources' instances (csrc/coll_*.cu)
+            entry["instances"] = collisions["instances"][key]
         if key == "aa_pair_full":  # the pair against its least work, its instances
             entry.update(pair_ms=layouts["pair_ms"], pair_bound_ms=bound(*footprint[key])[0],
                          b1_f32_ms_in_turns=layouts["b1_ms"], instances=layouts["instances"],

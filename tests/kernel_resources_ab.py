@@ -6,15 +6,17 @@ it was.
 
 Builds each checkout's kernels with its own package (``build_library``, in
 a subprocess; a build that exists is reused) and compares their
-``-Xptxas -v`` reports.  Prints the kernels only one side has, one line per
-shared kernel whose resources differ, and a last line
-``REGS shared=N differing=M``.  Needs nvcc.
+``-Xptxas -v`` reports.  Prints each side's build time (``BUILD``: cold where
+the checkout had no build of its sources yet, the usual case on a fresh
+machine), the kernels only one side has, one line per shared kernel whose
+resources differ, and a last line ``REGS shared=N differing=M``.  Needs nvcc.
 """
 
 import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 BUILD = ("import json; from tnl_lbm_tpu_torch.kernels.build import build_library, "
@@ -22,8 +24,12 @@ BUILD = ("import json; from tnl_lbm_tpu_torch.kernels.build import build_library
 
 
 def resources(root: Path) -> dict:
+    built = list((root / "build" / "torch_kernels").glob("*.so"))
+    t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-c", BUILD], cwd=root, capture_output=True,
                          text=True, check=True, env={**os.environ, "PYTHONPATH": str(root)})
+    print(f"BUILD {root} seconds={time.perf_counter() - t0:.1f} "
+          f"{'(a library was there before)' if built else 'cold'}", flush=True)
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 

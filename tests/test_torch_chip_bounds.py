@@ -15,6 +15,9 @@ if str(ROOT) not in sys.path:
 
 import chip_smoke as cs  # noqa: E402
 
+if str(ROOT / "tests") not in sys.path:
+    sys.path.insert(0, str(ROOT / "tests"))
+
 SASS = """
         code for sm_90a
                 Function : toy_kernel
@@ -65,3 +68,82 @@ def test_bound_counts_issue_slots_at_the_cards_rates():
     # a slower clock (a card below its power limit's clocks) gives a longer bound
     assert cs.bound(0.0, (1080, 0), rates=cs.card_rates(132, 1755.0))[0] > 0.5417
     assert cs.ops_ms(2 * 1080 * sites, 0, rates) == pytest.approx(2 * 0.5417, rel=1e-3)
+
+
+#: a kernel whose IEEE division calls its slow path, as cuobjdump lists it
+#: with addresses (the CALL's target a number) and as nvdisasm lists it
+#: with labels (the target a name)
+CALLS = {
+    "addresses": """
+                Function : div_kernel
+        /*0000*/                   FFMA R2, R3, R4, R5 ;
+        /*0010*/                   MUFU.RCP R6, R2 ;
+        /*0020*/              @!P0 BRA 0x60 ;
+        /*0030*/                   MOV R8, 0x50 ;
+        /*0040*/                   CALL.REL.NOINC 0x90 ;
+        /*0050*/                   BRA 0x60 ;
+        /*0060*/                   FMUL R7, R6, R3 ;
+        /*0070*/                   EXIT ;
+        /*0080*/                   BRA 0x80;
+        /*0090*/                   FFMA R9, R2, R6, -1 ;
+        /*00a0*/                   MUFU.RCP R10, R9 ;
+        /*00b0*/                   FADD R9, R9, R10 ;
+        /*00c0*/                   RET.REL.NODEC R8 0x0 ;
+""",
+    "labels": """
+                Function : div_kernel
+        /*0000*/                   FFMA R2, R3, R4, R5 ;
+        /*0010*/                   MUFU.RCP R6, R2 ;
+        /*0020*/              @!P0 BRA `(.L_x_1) ;
+        /*0030*/                   MOV R8, 0x50 ;
+        /*0040*/                   CALL.REL.NOINC `($__internal_0_$__cuda_sm3x_div_rn_noftz_f32_slowpath) ;
+        /*0050*/                   BRA `(.L_x_1) ;
+.L_x_1:
+        /*0060*/                   FMUL R7, R6, R3 ;
+        /*0070*/                   EXIT ;
+.L_x_2:
+        /*0080*/                   BRA `(.L_x_2);
+        .weak           $__internal_0_$__cuda_sm3x_div_rn_noftz_f32_slowpath
+$__internal_0_$__cuda_sm3x_div_rn_noftz_f32_slowpath:
+        /*0090*/                   FFMA R9, R2, R6, -1 ;
+        /*00a0*/                   MUFU.RCP R10, R9 ;
+        /*00b0*/                   FADD R9, R9, R10 ;
+        /*00c0*/                   RET.REL.NODEC R8 `(div_kernel) ;
+""",
+}
+
+
+@pytest.mark.parametrize("listing", CALLS)
+def test_sass_counts_leave_out_the_slow_paths_on_request(listing):
+    """By default the slow path counts, as every branch does; without
+    ``subroutines`` the code from the CALL's target on is left out, and
+    the call's own block and the body after it still count."""
+    sass = CALLS[listing]
+    assert cs.count_sass_ops(sass) == {"div_kernel": (4, 2)}
+    assert cs.count_sass_ops(sass, subroutines=False) == {"div_kernel": (2, 1)}
+    assert cs.count_sass_ops(SASS, subroutines=False) == cs.count_sass_ops(SASS)
+
+
+def test_site_ops_source_has_a_kernel_per_collision_id():
+    """tests/collision_site_ops.py writes one kernel per id of
+    COLLISION_INSTANCES, with the collision type and storage its family
+    kernel instantiates and the id's KBC bits as a constant."""
+    import re
+
+    import collision_site_ops as so
+
+    from tnl_lbm_tpu_torch.kernels.fused import COLLISION_INSTANCES, WELL_COLLISIONS
+
+    types = so.family_types()
+    text = so.source()
+    kernels = re.findall(r'extern "C" __global__ void (\w+)\(.*?\n.*?\n\s*fluid_site<(\w+), '
+                         r"(\d+), (.+?)>\(", text)
+    assert len(kernels) == len(COLLISION_INSTANCES) == 16
+    for (name, well, kbc, ctype), (cid, (_, _, bits)) in zip(kernels, COLLISION_INSTANCES.items()):
+        assert name == so.kernel_name(cid)
+        assert (ctype, well == "true") == types[so.tag(cid)]
+        assert (well == "true") == (cid in WELL_COLLISIONS)
+        assert int(kbc) == bits
+    assert {int(k) for _, _, k, _ in kernels} == set(range(8))  # N1-N4, C1-C4 and the rest
+    assert "moments_local<WELL>(v, p.fx, p.fy, p.fz, false," in text
+    assert "moments_local<WELL>(v, p.fx, p.fy, p.fz, true," in so.source(neumaier=True)

@@ -30,10 +30,12 @@ from torch_cases import (
     AB_KINDS,
     AB_SPECS,
     ADE_COLLISIONS,
+    COLLISION_CASES,
     ADE_KINDS,
     D2_COLLISIONS,
     D2_KINDS,
     FORCE_2D,
+    KERNEL_TOL_F,
     PHI_IN,
     RESIDENT_INSTANCES,
     RESIDENT_KINDS,
@@ -46,6 +48,7 @@ from torch_cases import (
     bc_box,
     case_2d,
     channel,
+    collision_spec,
     coupled_aa_cases,
     coupled_cases,
     parabolic_2d,
@@ -356,6 +359,35 @@ def test_ab_kernel_matches_plain_on_card(cuda, kind, spec):
         assert float((uk - up).abs().max()) <= 1e-6, f"u, step {it}"
         f = fk
     assert step.kernel.launches == 2 and step.plain_calls == 0
+
+
+@pytest.mark.parametrize("cid,eq", COLLISION_CASES, ids=[c + (f"-{e}" if e else "")
+                                                         for c, e in COLLISION_CASES])
+def test_collision_instances_match_plain_on_card(cuda, cid, eq):
+    """Each collision of the family sources (csrc/coll_*.cu) through the
+    A-B step (two steps, on the box of every 3D code with Z = 150) and the
+    A-A even then odd steps (the box of every A-A code), each step against
+    the plain version on the same input: |df| <= 1e-6 (KBC too), |drho| <=
+    2e-6, |du| <= 1e-6."""
+    shape, force = (24, 20, 150), (1e-5, -2e-6, 3e-6)
+    for streaming, m in (("AB", bc_box(shape)), ("AA", aa_box(shape))):
+        cfg = interop.config_from_spec(**collision_spec(cid, streaming, eq))
+        dom = interop.domain_from_numpy(m, (False, False, True))
+        step = (make_fused_step if streaming == "AB" else make_fused_step_aa)(cfg, dom, cuda)
+        f = seeded_state(cfg, shape, cuda, seed=11)
+        f = f + 1e-4 * torch.randn(f.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+        for it, parity in enumerate((0, 0) if streaming == "AB" else (0, 1)):
+            fp, rp, up = step.plain(f, 0.02, u_in=U_IN, force=force, parity=parity)
+            fk, rk, uk = step(f.clone() if parity == 0 else f, 0.02, u_in=U_IN, force=force,
+                              parity=parity)
+            torch.cuda.synchronize()
+            assert float((fk - fp).abs().max()) <= KERNEL_TOL_F, (streaming, it)
+            assert float((rk - rp).abs().max()) <= 2e-6, (streaming, it)
+            assert float((uk - up).abs().max()) <= 1e-6, (streaming, it)
+            f = fk
+        counts = (step.kernel.launches,) if streaming == "AB" else (step.even.launches,
+                                                                     step.odd.launches)
+        assert counts == ((2,) if streaming == "AB" else (1, 1)) and step.plain_calls == 0
 
 
 @pytest.mark.parametrize("app", ["sim_1", "sim_2", "sim_3"])

@@ -124,8 +124,11 @@ def test_unported_codes_raise(code):
 
 
 def test_unported_collision_and_config_raise():
+    # every id of the JAX registries is ported; an id outside them raises
     with pytest.raises(NotImplementedError):
-        interop.config_from_spec("SRT", "EQ", False, "AB")
+        interop.config_from_spec("KBC_N5", "EQ", False, "AB")
+    with pytest.raises(NotImplementedError):
+        interop.config_from_spec("SRT", "EQ_SHIFTED", False, "AB")
     with pytest.raises(ValueError):
         interop.config_from_spec("CUM", "EQ", False, "XY")
 

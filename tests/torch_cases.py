@@ -21,6 +21,22 @@ AB_KINDS = ("inflow_outflow", "interp_outflow", "eq_inflow", "sym", "periodic_co
 AB_SPECS = {"CUM_WELL": ("CUM_WELL", "EQ_WELL", True), "CUM": ("CUM", "EQ", False),
             "CUM_INV_CUM": ("CUM", "EQ_INV_CUM", False)}
 U_IN = (0.03, 0.005, -0.004)
+#: the D3Q27 collisions beyond CUM and CUM_WELL, whose instances the per-step
+#: kernels (B4, B2, B3) have in the family sources (csrc/coll_*.cu)
+COLLISION_IDS = ("SRT", "SRT_WELL", "SRT_MODIF_FORCE", "BGK", "BGK_WELL", "MRT_LES", "CLBM",
+                 "CLBM_WELL") + tuple(f"KBC_{k}{n}" for k in "NC" for n in (1, 2, 3, 4))
+#: (collision id, equilibrium id) of the compares: each id with the equilibrium
+#: it takes by nature, then the run-time equilibrium's other kinds
+COLLISION_CASES = tuple((cid, None) for cid in COLLISION_IDS) + (("KBC_N1", "EQ_ENTROPIC"),
+                                                                 ("SRT", "EQ_INV_CUM"))
+#: |df| bound of a KBC step against the JAX package: its own KBC kernel bound
+#: (tests/test_fused_kernel.py:419-421); the other collisions take 1e-6
+KBC_TOL_F = 1e-5
+#: |df| bound of a per-step kernel's collision instance against its plain
+#: version on the card, KBC's too: on an NVIDIA H100 80GB HBM3 at 700 W the
+#: KBC instances read at most 3.576e-7, the others 2.384e-7 (chip_smoke.py's
+#: collisions phase)
+KERNEL_TOL_F = 1e-6
 ADE_KINDS = ("box", "periodic", "channel")
 ADE_COLLISIONS = ("SRT", "MRT", "CLBM", "CLBM-RS")
 TCOEF, PHI_IN = 0.3, 0.7
@@ -43,6 +59,36 @@ def bc_box(shape):
     m[X // 2, Y // 2 : Y // 2 + 2, Z // 3 : Z // 2] = GEO.WALL
     m[X // 2 + 1, -3, 1:3] = GEO.NOTHING
     return m
+
+
+def collision_spec(cid, streaming="AB", eq=None) -> dict:
+    """``interop.config_from_spec`` keywords of a collision id with the
+    equilibrium it takes by nature (or ``eq``): the well-conditioned one,
+    well=True, under *_WELL; eq_inv_cum (its own feq) under KBC; else the
+    quadratic one."""
+    if cid.endswith("_WELL"):
+        natural, well = "EQ_WELL", True
+    else:
+        natural, well = ("EQ_INV_CUM" if cid.startswith("KBC") else "EQ"), False
+    return dict(collision_id=cid, eq=eq or natural, well=well, streaming=streaming)
+
+
+def collision_tol_f(cid) -> float:
+    """|df| bound of a collision's plain step against the JAX package's."""
+    return KBC_TOL_F if cid.startswith("KBC") else 1e-6
+
+
+def collision_state(cfg, shape, device):
+    """The seeded input of ``chip_smoke.py``'s collision compares: cfg's
+    equilibrium at rho 1 +- 0.01 and u ~ 0.02 drawn per site (seed 5), plus
+    noise of 1e-4 (seed 7).  After the pull each site holds DFs from
+    neighbours of other rho and u, ~1e-2 off its own equilibrium."""
+    rng = np.random.default_rng(5)
+    rho = torch.from_numpy((1 + 0.01 * rng.standard_normal(shape)).astype(np.float32))
+    u = torch.from_numpy((0.02 * rng.standard_normal((3,) + shape)).astype(np.float32))
+    f = cfg.eq(cfg.lat, rho.to(device), u.to(device)).float()
+    noise = np.random.default_rng(7).standard_normal((27,) + tuple(shape)).astype(np.float32)
+    return (f + torch.from_numpy(noise * 1e-4).to(device)).contiguous()
 
 
 def aa_box(shape):

@@ -13,7 +13,7 @@
 // so the update is in place on the one state buffer.
 //
 // Instances: the three of the A-B step (CUM_WELL; CUM with eq_quadratic;
-// CUM with eq_inv_cum).  A map of FLUID, WALL and NOTHING only runs the
+// CUM with eq_inv_cum); the other D3Q27 collisions' are in coll_step.cuh.  A map of FLUID, WALL and NOTHING only runs the
 // CUM_WELL one too: on the even step the boundary switch measured no cost
 // (the odd step keeps a lean instance, aa_odd.cu).  The variants of
 // make_fused_step_aa (JAX fused_aa.py:324-500) have instances of their own:

@@ -15,7 +15,8 @@
 // into a second buffer; an in-place odd step would race at the
 // edge-replicated layers.
 //
-// Instances: the three of the A-B step (CUM_WELL; CUM with eq_quadratic;
+// Instances (the other D3Q27 collisions' are in coll_step.cuh): the three
+// of the A-B step (CUM_WELL; CUM with eq_quadratic;
 // CUM with eq_inv_cum), and CUM_WELL on a map of FLUID, WALL and NOTHING
 // only without the boundary switch (the bench duct's instance), which
 // measured 3% faster there than the full CUM_WELL one.  The variants of

@@ -16,7 +16,9 @@
 //
 // Collision and equilibrium kind are template parameters: <WELL, EQ> is
 // <true, EQ_WELL> for CUM_WELL, <false, EQ_QUAD> and <false, EQ_INVCUM>
-// for CUM with eq_quadratic and eq_inv_cum.  Two variants of make_fused_step
+// for CUM with eq_quadratic and eq_inv_cum.  The step's instances of the
+// other D3Q27 collisions are in coll_step.cuh (coll_srt.cu, coll_clbm.cu,
+// coll_kbc.cu).  Two variants of make_fused_step
 // (its force_field and macro_only flags, JAX fused.py:486-510, 636-650) are
 // instances of their own: force_field reads a per-site [3, X, Y, Z] force
 // (added to the homogeneous one, lbm_site.cuh site_params) in place of the

@@ -12,7 +12,9 @@
 // and odd steps (aa_even_site, aa_odd_site), and the zero-folded cumulant
 // cascade of tnl_lbm_tpu/ops/collision.py:collide_cum, with well=True
 // (collide_cum<true>, CUM_WELL) and without (collide_cum<false>, CUM: total
-// DFs, no weight offsets).
+// DFs, no weight offsets).  The site updates take their collision as a
+// type C with C::collide(f, rho, ux, uy, uz, p): Cum<WELL> here, the other
+// operators of the D3Q27 set in collisions.cuh.
 // The plain PyTorch versions of the same functions are in
 // tnl_lbm_tpu_torch/kernels/fused.py and tnl_lbm_tpu_torch/ops/collision.py.
 //
@@ -369,6 +371,16 @@ __device__ __forceinline__ void collide_cum(float (&f)[Q], float rho, float ux, 
                f[dir_index(ix, iy, 0)], f[dir_index(ix, iy, 1)], f[dir_index(ix, iy, 2)]);
 }
 
+// The cumulant collision as a site update takes its collision (C::collide).
+template <bool WELL>
+struct Cum {
+  template <class P>
+  __device__ __forceinline__ static void collide(float (&f)[Q], float rho, float ux, float uy,
+                                                 float uz, const P& p) {
+    collide_cum<WELL>(f, rho, ux, uy, uz, p.omega1);
+  }
+};
+
 // rho = sum_q f_q (+1 with WELL, deviation storage) and u = (j + F/2) / rho,
 // summed over q in order (fused.py _moments_local); neumaier selects the
 // compensated sum (reference USE_HIGH_PRECISION_RHO, d3q27/common.h:19-28).
@@ -471,10 +483,13 @@ __device__ __forceinline__ void stream_bc_collide(float (&f)[Q], uint8_t m, cons
 // ---------------------------------------------------------------- A-B step
 
 // Equilibrium kinds of fused.py _eq_local: quadratic, well-conditioned
-// (the deviation w (feq - 1)) and inverse-cumulant (per-axis product).
+// (the deviation w (feq - 1)), inverse-cumulant and entropic (per-axis
+// products).  EQ_DYN reads the kind at run time from CollParams::eq.
 constexpr int EQ_QUAD = 0;
 constexpr int EQ_WELL = 1;
 constexpr int EQ_INVCUM = 2;
+constexpr int EQ_ENTROPIC = 3;
+constexpr int EQ_DYN = -1;
 
 // c_q . u with the zero components left out.
 __device__ __forceinline__ float c_dot(int q, float ux, float uy, float uz) {
@@ -494,11 +509,25 @@ __device__ __forceinline__ float invcum_factor(int c, float v) {
                          : (3.0f * v * v - 3.0f * v + 1.0f) / 6.0f);
 }
 
+// One axis factor of the entropic equilibrium (equilibrium.py eq_entropic),
+// s = sqrt(1 + 3 v^2): c = 0 -> (2/3) (2 - s), c = +-1 -> (1/6) (2 - s)
+// ((2 v + s) / (1 - v))^{+-1}.  IEEE sqrt and division (no fast math).
+__device__ __forceinline__ float entropic_factor(int c, float v) {
+  const float s = sqrtf(1.0f + 3.0f * v * v);
+  const float base = 2.0f - s;
+  if (c == 0) return (2.0f / 3.0f) * base;
+  const float r = (2.0f * v + s) / (1.0f - v);
+  return c > 0 ? (1.0f / 6.0f) * base * r : (1.0f / 6.0f) * base / r;
+}
+
 // Equilibrium component q of kind EQ at (rho, u) (fused.py _eq_local).
 template <int EQ>
 __device__ __forceinline__ float eq_q(int q, float rho, float ux, float uy, float uz) {
   if constexpr (EQ == EQ_INVCUM) {
     return rho * invcum_factor(cx(q), ux) * invcum_factor(cy(q), uy) * invcum_factor(cz(q), uz);
+  } else if constexpr (EQ == EQ_ENTROPIC) {
+    return rho * entropic_factor(cx(q), ux) * entropic_factor(cy(q), uy) *
+           entropic_factor(cz(q), uz);
   } else {
     const float uu = ux * ux + uy * uy + uz * uz;
     const float cu = c_dot(q, ux, uy, uz);
@@ -579,13 +608,35 @@ struct ABParams {
   int neumaier;            // compensated density sum
 };
 
+// The params of the family instances (coll_step.cuh): ABParams, the
+// viscosity (MRT_LES and KBC read it), the equilibrium kind of an EQ_DYN
+// instance, and KBC's shear part (1 the trace, 2 the heat flux, 4 its
+// central moments).  A type of its own, so that the cumulant kernels'
+// parameters stay as they were.
+struct CollParams : ABParams {
+  float nu;
+  int eq;
+  int kbc;
+};
+
 // The post-moment boundary rules of fused.py _stream_bc_collide
 // (:313-348), per site: INFLOW_LEFT, INFLOW, OUTFLOW_EQ, OUTFLOW_RIGHT,
 // OUTFLOW_RIGHT_INTERP.  f holds the pulled and transformed DFs, (rho, u)
-// their moments; both are updated in place.
-template <bool WELL, int EQ>
-__device__ __forceinline__ void ab_boundary(float (&f)[Q], uint8_t m, const ABParams& p,
+// their moments; both are updated in place.  P is ABParams, or CollParams
+// (EQ_DYN).
+template <bool WELL, int EQ, class P>
+__device__ __forceinline__ void ab_boundary(float (&f)[Q], uint8_t m, const P& p,
                                             float& rho, float& ux, float& uy, float& uz) {
+  if constexpr (EQ == EQ_DYN) {
+    // the kind is uniform over the launch: one branch for every thread
+    if (p.eq == EQ_INVCUM)
+      ab_boundary<WELL, EQ_INVCUM>(f, m, p, rho, ux, uy, uz);
+    else if (p.eq == EQ_ENTROPIC)
+      ab_boundary<WELL, EQ_ENTROPIC>(f, m, p, rho, ux, uy, uz);
+    else
+      ab_boundary<WELL, EQ_QUAD>(f, m, p, rho, ux, uy, uz);
+    return;
+  }
   switch (m) {
     case GEO_INFLOW_LEFT: {
       // the moment BC works on total DFs: add w_q first, subtract it after
@@ -634,17 +685,18 @@ __device__ __forceinline__ void ab_boundary(float (&f)[Q], uint8_t m, const ABPa
 // fused.py _stream_bc_collide for one site after the pull, with the full
 // 3D boundary set: the pull-side transforms (WALL swap, symmetry mirrors),
 // the moments, the post-moment BCs and the collision where the code
-// collides.  v holds the pulled DFs on entry and the post-collision DFs on
-// exit (NOTHING sites pass theirs through); (rho, u) are the macro
-// outputs, WALL and NOTHING sites report rho = 1, u = 0.  The outflow pull
-// rules are reads, done by the caller.
-template <bool WELL, int EQ>
-__device__ __forceinline__ void site_collide(float (&v)[Q], uint8_t m, const ABParams& p,
+// collides (the collision C, Cum<WELL> unless named).  v holds the pulled
+// DFs on entry and the post-collision DFs on exit (NOTHING sites pass
+// theirs through); (rho, u) are the macro outputs, WALL and NOTHING sites
+// report rho = 1, u = 0.  The outflow pull rules are reads, done by the
+// caller.  P is ABParams, or the family instances' CollParams.
+template <bool WELL, int EQ, class C = Cum<WELL>, class P = ABParams>
+__device__ __forceinline__ void site_collide(float (&v)[Q], uint8_t m, const P& p,
                                              float& rho, float& ux, float& uy, float& uz) {
   pull_transform_ab(v, m);
   moments_local<WELL>(v, p.fx, p.fy, p.fz, p.neumaier != 0, rho, ux, uy, uz);
   ab_boundary<WELL, EQ>(v, m, p, rho, ux, uy, uz);
-  if (collides(m)) collide_cum<WELL>(v, rho == 0.0f ? 1.0f : rho, ux, uy, uz, p.omega1);
+  if (collides(m)) C::collide(v, rho == 0.0f ? 1.0f : rho, ux, uy, uz, p);
   if (m == GEO_WALL || m == GEO_NOTHING) {
     rho = 1.0f;
     ux = uy = uz = 0.0f;
@@ -724,13 +776,13 @@ __device__ __forceinline__ ABParams site_params(const ABParams& p, const float* 
 // wrap/clamp rule there.  Offsets are 64-bit.  The reads are ab_pull's,
 // written out here: with the call in their place B7's instances took 88
 // registers instead of 80 and ran 1.8% slower (tests/main_paths_ab.py:
-// sim_coupled res 8 lost 5-7% MLUPS).
-template <bool WELL, int EQ, bool FF = false>
+// sim_coupled res 8 lost 5-7% MLUPS).  C is the collision (site_collide).
+template <bool WELL, int EQ, bool FF = false, class C = Cum<WELL>, class P = ABParams>
 __device__ __forceinline__ void ab_site(const float* __restrict__ f, float* __restrict__ fout,
                                         const uint8_t* __restrict__ map,
                                         float* __restrict__ rho_out, float* __restrict__ u_out,
                                         int x, int y, int z, int X, int Y, int Z,
-                                        int periodic_bits, const ABParams& p,
+                                        int periodic_bits, const P& p,
                                         float& ux, float& uy, float& uz,
                                         const float* __restrict__ ff = nullptr) {
   const int64_t N = (int64_t)X * Y * Z;
@@ -780,9 +832,9 @@ __device__ __forceinline__ void ab_site(const float* __restrict__ f, float* __re
   }
   float rho;
   if constexpr (FF)
-    site_collide<WELL, EQ>(v, m, site_params(p, ff, site, N), rho, ux, uy, uz);
+    site_collide<WELL, EQ, C>(v, m, site_params(p, ff, site, N), rho, ux, uy, uz);
   else
-    site_collide<WELL, EQ>(v, m, p, rho, ux, uy, uz);
+    site_collide<WELL, EQ, C>(v, m, p, rho, ux, uy, uz);
 #pragma unroll
   for (int q = 0; q < Q; ++q) fout[q * N + site] = v[q];
   rho_out[site] = rho;
@@ -818,13 +870,14 @@ __device__ __forceinline__ void macro_site(float (&v)[Q], uint8_t m, const ABPar
 // shifted() ignores its offsets - update them as the A-B step does, and
 // write them to the opposite slots of the same site, in place.  NOTHING
 // sites keep their stored DFs.  Writes rho_out and u_out and returns the
-// reported velocity in (ux, uy, uz).  FF adds the site's force from ff.
-template <bool WELL, int EQ, bool FF = false>
+// reported velocity in (ux, uy, uz).  FF adds the site's force from ff; C
+// is the collision (site_collide).
+template <bool WELL, int EQ, bool FF = false, class C = Cum<WELL>, class P = ABParams>
 __device__ __forceinline__ void aa_even_site(float* __restrict__ f,
                                              const uint8_t* __restrict__ map,
                                              float* __restrict__ rho_out,
                                              float* __restrict__ u_out, int64_t site, int64_t N,
-                                             const ABParams& p, float& ux, float& uy,
+                                             const P& p, float& ux, float& uy,
                                              float& uz, const float* __restrict__ ff = nullptr) {
   const uint8_t m = map[site];
   float rho = 1.0f;
@@ -834,9 +887,9 @@ __device__ __forceinline__ void aa_even_site(float* __restrict__ f,
 #pragma unroll
     for (int q = 0; q < Q; ++q) v[q] = f[q * N + site];
     if constexpr (FF)
-      site_collide<WELL, EQ>(v, m, site_params(p, ff, site, N), rho, ux, uy, uz);
+      site_collide<WELL, EQ, C>(v, m, site_params(p, ff, site, N), rho, ux, uy, uz);
     else
-      site_collide<WELL, EQ>(v, m, p, rho, ux, uy, uz);
+      site_collide<WELL, EQ, C>(v, m, p, rho, ux, uy, uz);
 #pragma unroll
     for (int q = 0; q < Q; ++q) f[q * N + site] = v[opp(q)];
   }
@@ -909,14 +962,16 @@ __device__ __forceinline__ void aa_odd_pull(const float* __restrict__ f, uint8_t
 // edge-replication rules there.  LEAN is CUM_WELL on a map of FLUID, WALL
 // and NOTHING only: the pair's stream_bc_collide, without the boundary
 // switch and the outflow read.  Offsets are 64-bit.  The reads are
-// aa_odd_pull's, written out here as ab_site's are.
-template <bool WELL, int EQ, bool LEAN, bool FF = false>
+// aa_odd_pull's, written out here as ab_site's are.  C is the collision
+// (site_collide).
+template <bool WELL, int EQ, bool LEAN, bool FF = false, class C = Cum<WELL>,
+          class P = ABParams>
 __device__ __forceinline__ void aa_odd_site(const float* __restrict__ f, float* __restrict__ fout,
                                             const uint8_t* __restrict__ map,
                                             float* __restrict__ rho_out,
                                             float* __restrict__ u_out, int x, int y, int z, int X,
                                             int Y, int Z, int periodic_bits, bool has_nothing,
-                                            const ABParams& p, float& ux, float& uy, float& uz,
+                                            const P& p, float& ux, float& uy, float& uz,
                                             const float* __restrict__ ff = nullptr) {
   const int64_t N = (int64_t)X * Y * Z;
   const int64_t site = ((int64_t)x * Y + y) * Z + z;
@@ -948,8 +1003,8 @@ __device__ __forceinline__ void aa_odd_site(const float* __restrict__ f, float* 
   }
   float rho;
   if constexpr (LEAN) stream_bc_collide(v, m, p, rho, ux, uy, uz);
-  else if constexpr (FF) site_collide<WELL, EQ>(v, m, site_params(p, ff, site, N), rho, ux, uy, uz);
-  else site_collide<WELL, EQ>(v, m, p, rho, ux, uy, uz);
+  else if constexpr (FF) site_collide<WELL, EQ, C>(v, m, site_params(p, ff, site, N), rho, ux, uy, uz);
+  else site_collide<WELL, EQ, C>(v, m, p, rho, ux, uy, uz);
 
   // pushes aimed at a NOTHING site are dropped: its own thread restores it
   auto push = [&](int q, int64_t dst) {

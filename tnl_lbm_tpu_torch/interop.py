@@ -14,6 +14,7 @@ from tnl_lbm_tpu_torch.models import D2Q9, D3Q7, D3Q27
 from tnl_lbm_tpu_torch.ops.collision import COLLISIONS_D3Q27
 from tnl_lbm_tpu_torch.ops.collision_2d import COLLISIONS_D2Q9
 from tnl_lbm_tpu_torch.ops.collision_ade import COLLISIONS_D3Q7
+from tnl_lbm_tpu_torch.ops.collision_kbc import COLLISIONS_KBC
 from tnl_lbm_tpu_torch.ops.equilibrium import EQUILIBRIA
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.utils.units import Lattice
@@ -25,18 +26,19 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64, "float16": torch.
 def config_from_spec(collision_id: str, eq: str, well: bool, streaming: str,
                      dtype: str = "float32", high_precision_rho: bool = False,
                      storage: str | None = None) -> LBMConfig:
-    """LBMConfig from the ids of ``COLLISIONS_D3Q27`` / ``EQUILIBRIA``
-    (the JAX package's registries, ops/collision.py:806, ops/equilibrium.py:110):
-    for example ``CUM`` with ``EQ`` or ``EQ_INV_CUM`` (well=False), or
-    ``CUM_WELL`` with ``EQ_WELL`` (well=True); ``storage`` "float16"/"bfloat16"
-    sets the half-storage ``storage_dtype``."""
-    if collision_id not in COLLISIONS_D3Q27:
-        raise NotImplementedError(f"collision {collision_id!r} is not ported yet "
-                                  f"(ported: {sorted(COLLISIONS_D3Q27)})")
+    """LBMConfig from the ids of ``COLLISIONS_D3Q27``, ``COLLISIONS_KBC`` and
+    ``EQUILIBRIA`` (the JAX package's registries, ops/collision.py:806,
+    ops/collision_kbc.py:160, ops/equilibrium.py:110): for example ``CUM``
+    with ``EQ`` or ``EQ_INV_CUM`` (well=False), ``CUM_WELL`` with
+    ``EQ_WELL`` (well=True) or ``KBC_N1`` with ``EQ_ENTROPIC``; ``storage``
+    "float16"/"bfloat16" sets the half-storage ``storage_dtype``."""
+    collisions = {**COLLISIONS_D3Q27, **COLLISIONS_KBC}
+    if collision_id not in collisions:
+        raise NotImplementedError(f"collision {collision_id!r} is not one of the D3Q27 "
+                                  f"registries' ids ({sorted(collisions)})")
     if eq not in EQUILIBRIA:
-        raise NotImplementedError(f"equilibrium {eq!r} is not ported yet "
-                                  f"(ported: {sorted(EQUILIBRIA)})")
-    return LBMConfig(lat=D3Q27, collision=COLLISIONS_D3Q27[collision_id], eq=EQUILIBRIA[eq],
+        raise NotImplementedError(f"equilibrium {eq!r} is not one of {sorted(EQUILIBRIA)}")
+    return LBMConfig(lat=D3Q27, collision=collisions[collision_id], eq=EQUILIBRIA[eq],
                      streaming=streaming, well=well, compute_dtype=_DTYPES[dtype],
                      high_precision_rho=high_precision_rho,
                      storage_dtype=None if storage is None else _DTYPES[storage])

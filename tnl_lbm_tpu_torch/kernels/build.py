@@ -22,9 +22,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("aa_even.cu", "aa_odd.cu", "aa_pair.cu", "aa_pair_full.cu", "ab_step.cu",
-           "ab_step_sitemajor.cu", "ade_step.cu", "coupled_ab.cu", "coupled_aa.cu",
-           "d2q9_step.cu", "nn_force.cu", "nn_step.cu", "probes.cu")
-HEADERS = ("lbm_site.cuh", "pair_march.cuh", "ade_site.cuh", "nn_site.cuh")
+           "ab_step_sitemajor.cu", "ade_step.cu", "coll_clbm.cu", "coll_kbc.cu", "coll_srt.cu",
+           "coupled_ab.cu", "coupled_aa.cu", "d2q9_step.cu", "nn_force.cu", "nn_step.cu",
+           "probes.cu")
+HEADERS = ("lbm_site.cuh", "pair_march.cuh", "ade_site.cuh", "nn_site.cuh", "collisions.cuh",
+           "coll_step.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -107,6 +109,10 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_aa_pair_full_info.argtypes = [i, i, i, i, p]
     lib.tnl_lbm_ab_step.argtypes = [p] * 6 + [i] * 6 + [f] * 7 + [i, p]
     lib.tnl_lbm_ab_step_sitemajor.argtypes = [p] * 5 + [i] * 5 + [f] * 7 + [i, p]
+    for name in ("tnl_lbm_coll_srt", "tnl_lbm_coll_clbm", "tnl_lbm_coll_kbc"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i] * 4 + [p] * 5 + [i] * 5 + [f] * 7 + [i, p]
+        fn.restype = i
     lib.tnl_lbm_ade_step.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, p]
     lib.tnl_lbm_coupled_ab.argtypes = [p] * 11 + [i] * 7 + [f] * 7 + [i] + [f] * 3 + [p]
     lib.tnl_lbm_coupled_aa.argtypes = [p] * 10 + [i] * 10 + [f] * 7 + [i] + [f] * 2 + [p]

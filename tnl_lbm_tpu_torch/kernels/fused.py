@@ -32,6 +32,7 @@ from tnl_lbm_tpu_torch.ops import boundary as bc
 from tnl_lbm_tpu_torch.ops import collision as col
 from tnl_lbm_tpu_torch.ops import equilibrium as eqlib
 from tnl_lbm_tpu_torch.ops import streaming as stream
+from tnl_lbm_tpu_torch.ops.collision_kbc import COLLISIONS_KBC
 from tnl_lbm_tpu_torch.ops.boundary import GEO
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.sim.step import SUPPORTED_CODES, check_supported
@@ -48,12 +49,37 @@ AA_CODES = AB_CODES - {GEO.OUTFLOW_RIGHT_INTERP}
 #: pair (B1b) on the other A-A maps (kernels/fused_aa.py make_dispatch_pair)
 PAIR_CODES = frozenset({GEO.FLUID, GEO.WALL, GEO.NOTHING})
 
-#: ``tnl_lbm_ab_step`` / ``tnl_lbm_aa_even`` / ``tnl_lbm_aa_odd`` variant per
-#: (well, equilibrium kind)
-_AB_VARIANTS = {(True, "well"): 0, (False, "quad"): 1, (False, "invcum"): 2}
+#: the cumulant instances of ``tnl_lbm_ab_step`` / ``tnl_lbm_aa_even`` /
+#: ``tnl_lbm_aa_odd``, their C ``variant`` per (collision id, well, equilibrium
+#: kind).  B1b, B4s, B7, B8, B10 and the force_field instances have these only.
+CUM_VARIANTS = {("CUM_WELL", True, "well"): 0, ("CUM", False, "quad"): 1,
+                ("CUM", False, "invcum"): 2}
 #: the A-A kernels' variant for CUM_WELL on a map of PAIR_CODES: the odd step's lean
 #: instance without the boundary switch (the even step runs its CUM_WELL instance)
 _AA_LEAN_VARIANT = 3
+#: the one instance of the one-kernel A-A pair (B1)
+PAIR_VARIANT = ("CUM_WELL", True, "well")
+
+#: the other collisions of the per-step kernels (B4, B2, B3), in the sources of
+#: their families (``csrc/coll_srt.cu``, ``coll_clbm.cu``, ``coll_kbc.cu``): id ->
+#: (C entry, collision index within it, KBC variant bits: 1 the trace, 2 the heat
+#: flux, 4 its central moments).  Their lean instances only (mode 0).
+COLLISION_INSTANCES = {
+    "SRT": ("tnl_lbm_coll_srt", 0, 0), "SRT_MODIF_FORCE": ("tnl_lbm_coll_srt", 1, 0),
+    "SRT_WELL": ("tnl_lbm_coll_srt", 2, 0), "BGK": ("tnl_lbm_coll_srt", 3, 0),
+    "BGK_WELL": ("tnl_lbm_coll_srt", 4, 0), "MRT_LES": ("tnl_lbm_coll_clbm", 0, 0),
+    "CLBM": ("tnl_lbm_coll_clbm", 1, 0), "CLBM_WELL": ("tnl_lbm_coll_clbm", 2, 0),
+    **{f"KBC_{k}{n}": ("tnl_lbm_coll_kbc", 0, (n in (2, 4)) | 2 * (n in (3, 4)) | 4 * (k == "C"))
+       for k in "NC" for n in (1, 2, 3, 4)},
+}
+#: the collisions on deviation (well-conditioned) DFs
+WELL_COLLISIONS = frozenset({"CUM_WELL", "SRT_WELL", "BGK_WELL", "CLBM_WELL"})
+#: the C code of each equilibrium kind (``csrc/lbm_site.cuh`` EQ_*); the family
+#: instances take it at run time: the well kind under the *_WELL collisions,
+#: else quad, invcum or entropic
+EQ_CODES = {"quad": 0, "well": 1, "invcum": 2, "entropic": 3}
+#: the ROADMAP entry a kernel without an instance of a config names
+OTHER_KERNELS_ROADMAP = "ROADMAP Bcol"
 
 
 @dataclasses.dataclass
@@ -163,44 +189,99 @@ def _eq_kind(cfg: LBMConfig) -> str:
     """The in-kernel equilibrium of a config (JAX fused.py:144)."""
     if cfg.eq is eqlib.eq_inv_cum:
         return "invcum"
+    if cfg.eq is eqlib.eq_entropic:
+        return "entropic"
     if cfg.eq is eqlib.eq_well or cfg.well:
         return "well"
     if cfg.eq is eqlib.eq_quadratic:
         return "quad"
-    raise NotImplementedError(f"equilibrium {getattr(cfg.eq, '__name__', cfg.eq)} is not "
-                              f"ported (eq_entropic: ROADMAP A8)")
+    raise NotImplementedError(f"equilibrium {getattr(cfg.eq, '__name__', cfg.eq)} is not one the "
+                              f"kernels compute (eq_quadratic, eq_well, eq_inv_cum, eq_entropic)")
 
 
-def check_variant(cfg: LBMConfig) -> None:
-    """Refuse a collision and equilibrium that the A-B step and the A-A
-    even/odd kernels (and B1b) have no instance of: they take the three
-    variants of ``_AB_VARIANTS``.  A check of the config alone, on any
-    device."""
-    well_cascade = cfg.collision is col.collide_cum_well
-    kind = "A-A" if cfg.streaming == "AA" else "A-B"
-    if not (well_cascade or cfg.collision is col.collide_cum):
-        raise NotImplementedError(f"the {kind} CUDA kernels implement CUM and CUM_WELL only "
-                                  f"(other collisions: ROADMAP A8)")
-    if (cfg.well, _eq_kind(cfg)) not in _AB_VARIANTS or well_cascade != cfg.well:
+#: the registry id of each collision operator (its default equilibrium makes the
+#: bare ``collide_srt`` SRT too)
+_COLLISION_IDS = {**{fn: cid for cid, fn in {**col.COLLISIONS_D3Q27, **COLLISIONS_KBC}.items()},
+                  col.collide_srt: "SRT"}
+
+
+def collision_id(cfg: LBMConfig) -> str | None:
+    """The registry id of cfg's collision (``ops/collision.py COLLISIONS_D3Q27``,
+    ``ops/collision_kbc.py COLLISIONS_KBC``), or None for another operator."""
+    return _COLLISION_IDS.get(cfg.collision)
+
+
+def variant_key(cfg: LBMConfig) -> tuple:
+    """(collision id, well, equilibrium kind) of a config: what picks a
+    kernel's instance."""
+    return collision_id(cfg), bool(cfg.well), _eq_kind(cfg)
+
+
+def _described(cfg: LBMConfig) -> str:
+    cid, well, kind = variant_key(cfg)
+    name = cid or getattr(cfg.collision, "__name__", cfg.collision)
+    return f"{name} with well={well}, equilibrium kind {kind!r}"
+
+
+def step_instance(cfg: LBMConfig) -> tuple:
+    """The lean instance of the per-step kernels (the A-B step B4, the A-A
+    even/odd steps B2, B3) for cfg: ``("cum", variant)`` for the cumulant
+    instances of ``CUM_VARIANTS``, or ``(C entry, collision index, equilibrium
+    code, KBC bits)`` for a collision of ``COLLISION_INSTANCES``.  A check of
+    the config alone, on any device; the rest raises."""
+    key = variant_key(cfg)
+    if key in CUM_VARIANTS:
+        return "cum", CUM_VARIANTS[key]
+    cid, well, kind = key
+    kernel = "A-A even/odd" if cfg.streaming == "AA" else "A-B"
+    if cid not in COLLISION_INSTANCES:
         raise NotImplementedError(
-            f"the {kind} CUDA kernels take CUM_WELL with well=True, or CUM with "
-            f"eq_quadratic / eq_inv_cum and well=False; got well={cfg.well}, "
-            f"equilibrium kind {_eq_kind(cfg)!r}")
+            f"the {kernel} CUDA kernels take CUM_WELL with well=True, CUM with eq_quadratic or "
+            f"eq_inv_cum and well=False, and the collisions {sorted(COLLISION_INSTANCES)}; got "
+            f"{_described(cfg)} (CUM with eq_entropic: {OTHER_KERNELS_ROADMAP})")
+    wants_well = cid in WELL_COLLISIONS
+    if well != wants_well or (kind == "well") != wants_well:
+        raise NotImplementedError(
+            f"the {kernel} CUDA kernels take {cid} with "
+            + ("well=True and the well-conditioned equilibrium" if wants_well else
+               "well=False and eq_quadratic, eq_inv_cum or eq_entropic")
+            + f"; got {_described(cfg)}")
+    entry, index, kbc = COLLISION_INSTANCES[cid]
+    return entry, index, EQ_CODES[kind], kbc
 
 
-def _check_kernel_config(cfg: LBMConfig, domain: Domain, device: torch.device,
-                         pair: bool = False) -> None:
-    """Refuse, at build time, what the CUDA kernels do not implement: the
-    A-B step and the A-A even/odd steps take the three variants of
-    ``_AB_VARIANTS``, the pair (``pair``) CUM_WELL only."""
+def cum_variant(cfg: LBMConfig, kernel: str) -> int:
+    """The C variant of a kernel that has the cumulant instances only
+    (``CUM_VARIANTS``: B1b, B4s, B7, B8, B10, the force_field instances);
+    anything else raises naming ``OTHER_KERNELS_ROADMAP``.  A check of the
+    config alone, on any device."""
+    key = variant_key(cfg)
+    if key not in CUM_VARIANTS:
+        raise NotImplementedError(
+            f"{kernel} has instances of CUM_WELL with well=True and the well-conditioned "
+            f"equilibrium, and of CUM with eq_quadratic or eq_inv_cum and well=False, only; "
+            f"got {_described(cfg)} (the per-step kernels take the other collisions; on "
+            f"this kernel: {OTHER_KERNELS_ROADMAP})")
+    return CUM_VARIANTS[key]
+
+
+def check_pair_variant(cfg: LBMConfig) -> None:
+    """Refuse, on any device, a config that the one-kernel A-A pair (B1)
+    has no instance of: it has one, ``PAIR_VARIANT``."""
+    if variant_key(cfg) != PAIR_VARIANT:
+        raise NotImplementedError(
+            f"the A-A pair kernel (B1) has one instance: CUM_WELL with well=True and the "
+            f"well-conditioned equilibrium; got {_described(cfg)} (the full-set pair, "
+            f"make_fused_pair_aa, takes the other cumulant variants; other collisions: "
+            f"{OTHER_KERNELS_ROADMAP})")
+
+
+def _check_kernel_config(cfg: LBMConfig, domain: Domain, device: torch.device) -> None:
+    """Refuse, at build time on a CUDA device, what every CUDA kernel
+    refuses: no card, a compute dtype but float32, a grid too large.  Each
+    kernel checks its instances itself."""
     if not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but no CUDA device is available")
-    if pair:
-        if cfg.collision is not col.collide_cum_well:
-            raise NotImplementedError("the A-A pair kernel implements CUM_WELL only "
-                                      "(other collisions: ROADMAP B1)")
-    else:
-        check_variant(cfg)
     if cfg.compute_dtype != torch.float32:
         raise NotImplementedError("the CUDA kernels compute in float32 only "
                                   "(f64 kernels: ROADMAP A8)")
@@ -243,9 +324,12 @@ def _moments_local(lat, f_in, force, well, high_precision=False):
 
 def _eq_local(lat, rho, u, kind):
     """Equilibria with per-q scalar weights: "quad", "well" (the deviation
-    w (feq - 1)) or "invcum" (the per-axis product form); the CUDA ``eq_q``."""
+    w (feq - 1)), "invcum" or "entropic" (the per-axis product forms); the
+    CUDA ``eq_q``."""
     if kind == "invcum":
         return eqlib.eq_inv_cum(lat, rho, u)
+    if kind == "entropic":
+        return eqlib.eq_entropic(lat, rho, u)
     uu = u[0] * u[0]
     for a in range(1, lat.D):
         uu = uu + u[a] * u[a]
@@ -286,11 +370,12 @@ def _prep(cfg: LBMConfig, domain: Domain, pair: bool = False):
     return lat, codes, do_coll_codes
 
 
-def aa_variant(cfg: LBMConfig, codes, lean: bool = True) -> int:
-    """The A-A even/odd kernels' variant for (cfg, the codes present):
+def aa_variant(cfg: LBMConfig, codes, lean: bool = True, kernel: str = "B1b") -> int:
+    """The A-A cumulant kernels' variant for (cfg, the codes present):
     ``_AA_LEAN_VARIANT`` for CUM_WELL on a map of FLUID/WALL/NOTHING when
-    ``lean``, else the A-B step's variant."""
-    variant = _AB_VARIANTS[(cfg.well, _eq_kind(cfg))]
+    ``lean``, else the A-B step's variant (``cum_variant``, naming
+    ``kernel`` where it raises)."""
+    variant = cum_variant(cfg, kernel)
     if lean and variant == 0 and codes <= PAIR_CODES:
         return _AA_LEAN_VARIANT
     return variant
@@ -335,6 +420,15 @@ def _pull_transform(lat, codes, shifted, masks, thetas=None):
     return f_in
 
 
+def _force_array(force, like: torch.Tensor) -> torch.Tensor:
+    """The body force as the 3D collision takes it: D per-site fields
+    stacked, or D scalars as one [D, 1, ..., 1] tensor of ``like``'s dtype."""
+    if torch.is_tensor(force[0]):
+        return torch.stack(list(force))
+    return torch.tensor(force, dtype=like.dtype, device=like.device).reshape(
+        (len(force),) + (1,) * (like.dim() - 1))
+
+
 def _stream_bc_collide(lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
                        u_in=(0.0, 0.0, 0.0), out_perm=None, defer_nothing=False, thetas=None,
                        collision_force=None, macro_only=False):
@@ -351,8 +445,11 @@ def _stream_bc_collide(lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
     ``defer_nothing=True`` skips the restore - the A-A odd step applies it
     at the destination site, after the push.  ``thetas`` are the Bouzidi
     thetas (D2Q9); ``collision_force`` goes to the collision as its
-    ``force`` (the D2Q9 SRT's Guo term; None for the cumulant cascades,
-    which take the force through u).
+    ``force`` (the D2Q9 SRT's Guo term, None without a force).  On the 3D
+    lattice the collision takes the body force as the JAX kernel hands it
+    over (fused.py:351-355): ``force`` as one [D, 1, 1, 1] tensor, or its
+    per-site fields stacked; the cumulant cascades take it through u alone,
+    the SRT and BGK families add their forcing terms.
     """
     Q = lat.Q
     masks = {c: (m == int(c)) for c in codes}
@@ -366,6 +463,8 @@ def _stream_bc_collide(lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
 
     one = torch.ones((), dtype=f_in.dtype, device=f_in.device)
     rho_safe = torch.where(rho == 0, one, rho)
+    if collision_force is None and lat.D == 3:
+        collision_force = _force_array(force, f_in)
     f_post = cfg.collision(lat, f_in, rho_safe, u, nu, force=collision_force)
     do_coll = torch.zeros_like(m, dtype=torch.bool)
     for code in do_coll_codes:
@@ -384,6 +483,37 @@ def _stream_bc_collide(lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
             rho_out = torch.where(masks[c], one, rho_out)
             u_out = torch.where(masks[c], torch.zeros_like(u), u_out)
     return f_post, rho_out, u_out
+
+
+def kernel_instance(cfg: LBMConfig, force_field: bool, macro_only: bool, kernel: str) -> tuple:
+    """The instance of a per-step kernel (B4, B2, B3) for cfg and a step
+    variant: ``step_instance`` in the lean mode; the cumulant instances
+    only with ``force_field`` (``cum_variant``); with ``macro_only``, which
+    does not collide, the u* pass of cfg's storage (variant 0 on deviation
+    DFs, 1 on total DFs).  On any device."""
+    if force_field:
+        return "cum", cum_variant(cfg, f"the force_field instances of {kernel}")
+    if macro_only:
+        return "cum", 0 if cfg.well else 1
+    return step_instance(cfg)
+
+
+#: the ``pattern`` argument of the family sources' entries: the A-B step, the
+#: A-A even step (in place), the A-A odd step
+PATTERN_AB, PATTERN_EVEN, PATTERN_ODD = 0, 1, 2
+
+
+def launch_collision(lib, instance, pattern: int, f, fout, m, rho, u, shape, periodic,
+                     has_nothing: bool, nu: float, fvec, uvec, neumaier: int, stream_ptr) -> int:
+    """Launch a per-step kernel's instance of a collision of
+    ``COLLISION_INSTANCES`` (``instance`` from ``step_instance``) through its
+    family's C entry; returns the CUDA error code."""
+    entry, index, eq_code, kbc = instance
+    X, Y, Z = shape
+    return getattr(lib, entry)(pattern, index, eq_code, kbc, f.data_ptr(),
+                               None if fout is None else fout.data_ptr(), m.data_ptr(),
+                               rho.data_ptr(), u.data_ptr(), X, Y, Z, _periodic_bits(periodic),
+                               int(has_nothing), nu, *fvec, *uvec, neumaier, stream_ptr)
 
 
 #: the ``mode`` argument of ``tnl_lbm_ab_step`` / ``tnl_lbm_aa_even`` / ``tnl_lbm_aa_odd``:
@@ -424,7 +554,9 @@ class FusedStepAB:
     """``step(f, nu, u_in=None, force=None, parity=0, out=None, macro_out=None)
     -> (f_new, rho, u)``.
 
-    One A-B step (pull, the full 3D BC set, CUM_WELL or CUM) out of place:
+    One A-B step (pull, the full 3D BC set, the config's collision: an
+    instance of ``csrc/ab_step.cu`` for CUM_WELL and CUM, of
+    ``csrc/coll_*.cu`` for the collisions of ``COLLISION_INSTANCES``) out of place:
     the result goes to a new tensor, or into ``out`` (a second state
     buffer, not ``f``), so a caller can ping-pong two buffers; rho and u
     go to new tensors, or into ``macro_out`` (a pair of buffers).  ``u_in``
@@ -458,9 +590,9 @@ class FusedStepAB:
         self.kernel = CudaKernel("ab_step" + suffix, "tnl_lbm_tpu_torch/csrc/ab_step.cu",
                                  "tnl_lbm_tpu/kernels/fused.py:585")
         self.plain_calls = 0
+        self._instance = kernel_instance(cfg, force_field, macro_only, "the A-B step (B4)")
         if self.device.type == "cuda":
             _check_kernel_config(cfg, domain, self.device)
-            self._variant = _AB_VARIANTS[(cfg.well, _eq_kind(cfg))]
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:
@@ -532,11 +664,18 @@ class FusedStepAB:
             f_new = torch.empty_like(f) if out is None else out
         rho, u = macro_buffers(macro_out, (X, Y, Z), 3, f.dtype, f.device)
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
-        rc = lib.tnl_lbm_ab_step(f.data_ptr(), None if f_new is None else f_new.data_ptr(),
-                                 self.map.data_ptr(), None if field is None else field.data_ptr(),
-                                 rho.data_ptr(), u.data_ptr(), X, Y, Z,
-                                 _periodic_bits(self.periodic), self._variant, self._mode, nu,
-                                 *fvec, *uvec, int(self.cfg.high_precision_rho), stream_ptr)
+        neumaier = int(self.cfg.high_precision_rho)
+        if self._instance[0] == "cum":
+            rc = lib.tnl_lbm_ab_step(f.data_ptr(), None if f_new is None else f_new.data_ptr(),
+                                     self.map.data_ptr(),
+                                     None if field is None else field.data_ptr(), rho.data_ptr(),
+                                     u.data_ptr(), X, Y, Z, _periodic_bits(self.periodic),
+                                     self._instance[1], self._mode, nu, *fvec, *uvec, neumaier,
+                                     stream_ptr)
+        else:
+            rc = launch_collision(lib, self._instance, PATTERN_AB, f, f_new, self.map, rho, u,
+                                  self.shape, self.periodic, False, nu, fvec, uvec, neumaier,
+                                  stream_ptr)
         if rc != 0:
             raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
         self.kernel.launches += 1
@@ -604,9 +743,9 @@ class FusedStepSiteMajor:
         self.kernel = CudaKernel("ab_step_sitemajor", "tnl_lbm_tpu_torch/csrc/ab_step_sitemajor.cu",
                                  "tnl_lbm_tpu/kernels/fused.py:732")
         self.plain_calls = 0
+        self._variant = cum_variant(cfg, "the site-major A-B step (B4s)")
         if self.device.type == "cuda":
             _check_kernel_config(cfg, domain, self.device)
-            self._variant = _AB_VARIANTS[(cfg.well, _eq_kind(cfg))]
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:

@@ -24,8 +24,9 @@ d3q27/streaming_AA.h) alternates two parities on one state:
 
 The even and odd steps take the A-B step's boundary set but
 OUTFLOW_RIGHT_INTERP (JAX ``fused_aa.py`` runs ``_stream_bc_collide`` on the
-A-B config) and its three variants: CUM_WELL, CUM with ``eq_quadratic``,
-CUM with ``eq_inv_cum``.  The pair takes FLUID/WALL/NOTHING and CUM_WELL
+A-B config) and its collisions: CUM_WELL, CUM with ``eq_quadratic`` or
+``eq_inv_cum``, and the collisions of ``kernels/fused.py
+COLLISION_INSTANCES`` (``csrc/coll_*.cu``).  The pair takes FLUID/WALL/NOTHING and CUM_WELL
 (``kernels/fused.py PAIR_CODES``), the full-set pair the even and odd
 steps' codes and variants, in float32; :func:`make_dispatch_pair` picks the
 one a run's pair dispatch launches.
@@ -45,6 +46,9 @@ import torch
 
 from tnl_lbm_tpu_torch.kernels.build import load_library
 from tnl_lbm_tpu_torch.kernels.fused import (
+    PAIR_VARIANT,
+    PATTERN_EVEN,
+    PATTERN_ODD,
     CudaKernel,
     _check_kernel_config,
     _force3,
@@ -55,14 +59,18 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     aa_variant,
     check_force_field,
     check_out,
-    check_variant,
+    check_pair_variant,
+    collision_id,
+    cum_variant,
     into,
+    kernel_instance,
+    launch_collision,
     macro_buffers,
     site_force,
     supports,
+    variant_key,
     variant_mode,
 )
-from tnl_lbm_tpu_torch.ops import collision as col
 from tnl_lbm_tpu_torch.ops import streaming as stream
 from tnl_lbm_tpu_torch.ops.boundary import GEO
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
@@ -179,9 +187,14 @@ class FusedStepAA:
         self.odd = CudaKernel("aa_odd" + suffix, "tnl_lbm_tpu_torch/csrc/aa_odd.cu",
                               "tnl_lbm_tpu/kernels/fused_aa.py:287")
         self.plain_calls = 0
+        self._instance = kernel_instance(cfg, force_field, macro_only,
+                                         "the A-A even/odd steps (B2, B3)")
+        if self._instance[0] == "cum" and not (force_field or macro_only):
+            self._instance = ("cum", aa_variant(cfg, self.codes, lean))
+        #: the C variant of a cumulant instance, or the id of another collision
+        self.variant = self._instance[1] if self._instance[0] == "cum" else collision_id(cfg)
         if self.device.type == "cuda":
             _check_kernel_config(cfg, domain, self.device)
-            self.variant = aa_variant(cfg, self.codes, lean and not (force_field or macro_only))
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:
@@ -247,6 +260,16 @@ class FusedStepAA:
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
         neumaier = int(self.cfg.high_precision_rho)
         ff = None if field is None else field.data_ptr()
+        if self._instance[0] != "cum":
+            pattern, kernel = (PATTERN_EVEN, self.even) if parity == 0 else (PATTERN_ODD, self.odd)
+            f_new = f if parity == 0 else (torch.empty_like(f) if out is None else out)
+            rc = launch_collision(lib, self._instance, pattern, f, f_new, self.map, rho, u,
+                                  self.shape, self.periodic, GEO.NOTHING in self.codes, nu, fvec,
+                                  uvec, neumaier, stream_ptr)
+            if rc != 0:
+                raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
+            kernel.launches += 1
+            return f_new, rho, u
         if parity == 0:
             rc = lib.tnl_lbm_aa_even(f.data_ptr(), self.map.data_ptr(), ff, rho.data_ptr(),
                                      u.data_ptr(), X, Y, Z, self.variant, self._mode, nu, *fvec,
@@ -317,6 +340,7 @@ class FusedPairAA:
         self.seg_len = seg_len
         self.device = torch.device(device)
         self.lat, self.codes, self.do_coll_codes = _prep(cfg, domain, pair=True)
+        check_pair_variant(cfg)
         self.shape = domain.shape
         self.periodic = domain.periodic
         self._store_code, tag = _STORE_CODES.get(store, (None, str(store)))
@@ -324,7 +348,7 @@ class FusedPairAA:
                                  "tnl_lbm_tpu/kernels/fused_aa.py:1115")
         self.plain_calls = 0
         if self.device.type == "cuda":
-            _check_kernel_config(cfg, domain, self.device, pair=True)
+            _check_kernel_config(cfg, domain, self.device)
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:
@@ -467,10 +491,9 @@ class FusedPairAAFull:
         self.kernel = CudaKernel("aa_pair_full", "tnl_lbm_tpu_torch/csrc/aa_pair_full.cu",
                                  "tnl_lbm_tpu/kernels/fused_aa.py:1274")
         self.plain_calls = 0
-        self.variant = None  # the kernel's instance, on a CUDA device
+        self.variant = aa_variant(cfg, self.codes, kernel="the full-set A-A pair (B1b)")
         if self.device.type == "cuda":
             _check_kernel_config(cfg, domain, self.device)
-            self.variant = aa_variant(cfg, self.codes)
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:
@@ -560,23 +583,34 @@ def make_fused_pair_aa(cfg: LBMConfig, domain: Domain, device, with_macro: bool 
     return FusedPairAAFull(cfg, domain, device, with_macro=with_macro, seg_len=seg_len)
 
 
-def make_dispatch_pair(cfg: LBMConfig, domain: Domain, device, store_dtype=None):
-    """The pair kernel that ``Simulation``'s pair dispatch runs for (cfg,
-    domain): the one-kernel pair (B1, :func:`make_fused_pair2_aa`) on a map
-    of FLUID/WALL/NOTHING under CUM_WELL, in any store dtype; the full-set
-    pair (B1b, :func:`make_fused_pair_aa`) on every other map and variant
-    the A-A steps take, in float32.  The JAX package's pair takes all of
-    them (``make_fused_pair2_aa`` refuses OUTFLOW_RIGHT_INTERP only); a
-    config neither kernel has an instance of raises, on any device."""
-    if cfg.collision is col.collide_cum_well and supports(domain, "AA", pair=True):
-        return make_fused_pair2_aa(cfg, domain, device, store_dtype=store_dtype)
+def dispatch_pair_kind(cfg: LBMConfig, domain: Domain, store_dtype=None) -> str:
+    """Which pair kernel pair dispatch runs for (cfg, domain): "B1" (the
+    one-kernel pair) on a map of FLUID/WALL/NOTHING under its one instance
+    (``PAIR_VARIANT``), in any store dtype; "B1b" (the full-set pair) on
+    every other map and cumulant variant the A-A steps take, in float32.
+    A config neither has an instance of raises NotImplementedError.  Decided
+    from the config and the map, on any device; nothing is built."""
+    if variant_key(cfg) == PAIR_VARIANT and supports(domain, "AA", pair=True):
+        return "B1"
     if store_dtype is not None and store_dtype != cfg.compute_dtype:
         raise NotImplementedError(
             "half storage runs through the one-kernel pair, which takes FLUID, WALL and "
             "NOTHING under CUM_WELL; the full-set pair (B1b) that takes this map or "
             "collision has float32 instances only (16-bit B1b instances: ROADMAP B1h)")
-    check_variant(cfg)
+    cum_variant(cfg, "the full-set A-A pair (B1b)")
     if cfg.compute_dtype != torch.float32:
         raise NotImplementedError("the full-set pair computes in float32 only "
                                   "(f64 kernels: ROADMAP A8)")
+    return "B1b"
+
+
+def make_dispatch_pair(cfg: LBMConfig, domain: Domain, device, store_dtype=None):
+    """The pair kernel that ``Simulation``'s pair dispatch runs for (cfg,
+    domain), as :func:`dispatch_pair_kind` picks it: the one-kernel pair
+    (B1, :func:`make_fused_pair2_aa`) or the full-set pair (B1b,
+    :func:`make_fused_pair_aa`).  The JAX package's pair takes every A-A map
+    but OUTFLOW_RIGHT_INTERP under every collision; a config neither kernel
+    has an instance of raises, on any device."""
+    if dispatch_pair_kind(cfg, domain, store_dtype) == "B1":
+        return make_fused_pair2_aa(cfg, domain, device, store_dtype=store_dtype)
     return make_fused_pair_aa(cfg, domain, device)

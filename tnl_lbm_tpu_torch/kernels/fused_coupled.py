@@ -31,13 +31,12 @@ import torch
 
 from tnl_lbm_tpu_torch.kernels.build import load_library
 from tnl_lbm_tpu_torch.kernels.fused import (
-    _AB_VARIANTS,
     CudaKernel,
     FusedStepAB,
-    _eq_kind,
     _force3,
     _periodic_bits,
     _u_in3,
+    cum_variant,
 )
 from tnl_lbm_tpu_torch.kernels.fused_aa import FusedStepAA
 from tnl_lbm_tpu_torch.kernels.fused_ade import (
@@ -71,6 +70,7 @@ class FusedCoupledAB:
         if cfg.streaming != "AB" or ade_cfg.streaming != "AB":
             raise ValueError("the one-kernel coupled step is A-B; the A-A coupled pair is "
                              "make_fused_coupled_step_aa")
+        self._nse_variant = cum_variant(cfg, "the coupled A-B step (B7)")
         self.nse = FusedStepAB(cfg, domain, device)
         self.ade = FusedStepADE(ade_cfg, ade_domain, device,
                                 variable_diffusion=variable_diffusion,
@@ -80,8 +80,6 @@ class FusedCoupledAB:
         self.kernel = CudaKernel("coupled_ab", "tnl_lbm_tpu_torch/csrc/coupled_ab.cu",
                                  "tnl_lbm_tpu/kernels/fused_coupled.py:179")
         self.plain_calls = 0
-        if self.device.type == "cuda":
-            self._nse_variant = _AB_VARIANTS[(cfg.well, _eq_kind(cfg))]
 
     def reset_counts(self) -> None:
         self.kernel.launches = self.plain_calls = 0
@@ -216,6 +214,7 @@ class FusedCoupledAA:
         if GEO.OUTFLOW_RIGHT_INTERP in domain.codes_present():
             raise NotImplementedError("OUTFLOW_RIGHT_INTERP requires the A-B pattern; the A-B "
                                       "coupled kernel (make_fused_coupled_step) takes it")
+        cum_variant(cfg, "the A-A coupled pair (B8)")
         self.nse = FusedStepAA(cfg, domain, device, lean=False)
         # the ADE wrapper is A-B; only its checks, operands and tables are used
         self.ade = FusedStepADE(dataclasses.replace(ade_cfg, streaming="AB"), ade_domain, device,

@@ -24,14 +24,13 @@ import torch
 
 from tnl_lbm_tpu_torch.kernels.build import load_library
 from tnl_lbm_tpu_torch.kernels.fused import (
-    _AB_VARIANTS,
     CudaKernel,
     _check_kernel_config,
-    _eq_kind,
     _periodic_bits,
     _prep,
     _u_in3,
     check_out,
+    cum_variant,
     host_vector3,
     into,
     kernel_codes,
@@ -100,9 +99,9 @@ class FusedNNStep:
         self.even = CudaKernel("nn_step_even", source, replaces)
         self.odd = CudaKernel("nn_step_odd", source, replaces)
         self.plain_calls = 0
+        self._variant = cum_variant(cfg, "the one-kernel NN step (B10)")
         if self.device.type == "cuda":
             _check_kernel_config(plain_cfg, domain, self.device)
-            self._variant = _AB_VARIANTS[(cfg.well, _eq_kind(cfg))]
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from tnl_lbm_tpu_torch.kernels import fused_nn_step
-from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
+from tnl_lbm_tpu_torch.kernels.fused import cum_variant, make_fused_step
 from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
 from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_step_aa
 from tnl_lbm_tpu_torch.kernels.fused_nn import make_nn_force_kernel
@@ -83,6 +83,9 @@ class HookedStep:
         nn_model = getattr(hook, "nn_model", None)
         nn_periodic = getattr(hook, "nn_periodic", None)
         D = self.lat.D
+        if D == 3:
+            cum_variant(cfg_nohook, "the forcing-hook routes (B10; B4, B2, B3's macro_only and "
+                                    "force_field instances with B9)")
 
         self.nn_single = None
         if (single_kernel and D == 3 and nn_model is not None

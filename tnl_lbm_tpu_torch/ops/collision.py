@@ -1,16 +1,21 @@
-"""Cumulant collision operator on torch tensors (counterpart of
-``tnl_lbm_tpu/ops/collision.py``: ``central_moments``,
-``dfs_from_central_moments`` and ``collide_cum``).
+"""Collision operators of D3Q27 on torch tensors (counterpart of
+``tnl_lbm_tpu/ops/collision.py``): the improved SRT and its well-conditioned
+and modified-force forms, the factorised BGK (with its Galilean correction)
+and its well-conditioned form, the regularised MRT with Smagorinsky LES, the
+cascaded central-moment operator (CLBM) and its well-conditioned form, and
+the cumulant operator (``central_moments``, ``dfs_from_central_moments``,
+``collide_cum``).  The KBC family is ``ops/collision_kbc.py``.
 
 ``f_new = collide(lat, f, rho, u, nu, force=...)`` with ``f [Q, *S]``,
 ``rho [*S]`` and ``u [D, *S]`` from :func:`ops.moments.density_velocity`
-(already carrying the half-force correction).
+(already carrying the half-force correction) and ``force`` None or
+broadcastable to ``[D, *S]``.
 
-The cascade follows Geier et al. 2015 ("The cumulant lattice Boltzmann
-equation in three dimensions", eqs. 6-14, 51-54, 81-96) with the per-axis
-transforms written as loops over a 3x3x3 nested list of tensors.  Terms
-that are structurally zero in a configuration stay Python ``0.0`` and are
-folded out while the loops run (``_addz``/``_subz``/``_mulz``), so the
+The cumulant cascade follows Geier et al. 2015 ("The cumulant lattice
+Boltzmann equation in three dimensions", eqs. 6-14, 51-54, 81-96) with the
+per-axis transforms written as loops over a 3x3x3 nested list of tensors.
+Terms that are structurally zero in a configuration stay Python ``0.0`` and
+are folded out while the loops run (``_addz``/``_subz``/``_mulz``), so the
 arithmetic performed is the same as the JAX package's and as the
 hand-folded CUDA cascade in ``csrc/lbm_site.cuh``.
 """
@@ -19,7 +24,78 @@ from __future__ import annotations
 
 from functools import partial
 
+import numpy as np
 import torch
+
+from tnl_lbm_tpu_torch.ops import equilibrium as eqlib
+from tnl_lbm_tpu_torch.ops.contract import lattice_dot
+
+
+def forcing_terms(lat, u, force, rho):
+    """Per-direction forcing S_q = (1/cs^2) (c_q - u) . F / rho of the
+    improved SRT (reference d3q27/col_srt.h:25-52); [Q, *S]."""
+    cF = lattice_dot(lat.c, force)
+    uF = torch.sum(u * force, dim=0)
+    return float(lat.i_cs2) * (cF - uF) / rho
+
+
+def _apply_forced_relax(lat, f, feq, omega, S):
+    """f + (feq - f) omega + (1 - omega/2) S feq (reference col_srt.h:81-107)."""
+    out = f + (feq - f) * omega
+    if S is not None:
+        out = out + (1 - 0.5 * omega) * S * feq
+    return out
+
+
+def _safe(rho):
+    """rho with its zeros replaced by one (reference col_srt.h:22)."""
+    return torch.where(rho == 0, torch.ones_like(rho), rho)
+
+
+def collide_srt(lat, f, rho, u, nu, force=None, eq=eqlib.eq_quadratic):
+    """Improved SRT (Geier 2017) toward the equilibrium ``eq``, with the
+    exact per-direction forcing."""
+    omega = 1.0 / (float(lat.i_cs2) * nu + 0.5)
+    feq = eq(lat, rho, u)
+    S = None if force is None else forcing_terms(lat, u, force, _safe(rho))
+    return _apply_forced_relax(lat, f, feq, omega, S)
+
+
+def _bgk_axis_factors(v, G):
+    """The factorised equilibrium's axis factors (reference col_bgk.h:48-59)."""
+    Xz = 1.0 / 3.0 - 1 + v * v + G
+    Xp = -0.5 * (Xz + 1 + v)
+    Xm = Xp + v
+    return {0: Xz, 1: Xp, -1: Xm}
+
+
+def _bgk_galilean(lat, f, rho, u, omega, drho):
+    """The Galilean correction G_a from the second raw moments (reference
+    col_bgk.h:21-36; ``drho`` is 1 on total DFs, (rho - 1) / rho on
+    deviations, col_bgk_well.h)."""
+    G = []
+    for a in range(lat.D):
+        m2 = lattice_dot((np.asarray(lat.c)[:, a] != 0).astype(np.float64), f)
+        Dau = -omega * 0.5 * (3 * m2 / rho - drho - 3 * u[a] * u[a])
+        G.append(-3 * u[a] * u[a] * Dau * (1.0 / omega - 0.5))
+    return G
+
+
+def collide_bgk(lat, f, rho, u, nu, force=None, galilean: bool = False):
+    """BGK toward the factorised equilibrium feq_q = -rho prod_a X_a(c_qa)
+    (reference col_bgk.h:104-131), with the optional Galilean correction."""
+    omega = 1.0 / (3.0 * nu + 0.5)
+    G = _bgk_galilean(lat, f, rho, u, omega, 1) if galilean else [0.0] * lat.D
+    factors = [_bgk_axis_factors(u[a], G[a]) for a in range(lat.D)]
+    feq = []
+    for q in range(lat.Q):
+        term = -rho
+        for a in range(lat.D):
+            term = term * factors[a][int(lat.c[q, a])]
+        feq.append(term)
+    feq = torch.stack(feq)
+    S = forcing_terms(lat, u, force, rho) if force is not None else None
+    return _apply_forced_relax(lat, f, feq, omega, S)
 
 
 def _f_as_tensor(lat, f):
@@ -459,9 +535,156 @@ def collide_cum(lat, f, rho, u, nu, force=None, omega2: float = 1.0,
 collide_cum_well = partial(collide_cum, well=True)
 
 
-#: registry keyed by the reference operator ids; the other operators of
-#: ``tnl_lbm_tpu.ops.collision.COLLISIONS_D3Q27`` are still to be ported
+def collide_mrt_les(lat, f, rho, u, nu, force=None, smagorinsky_c: float = 0.0342):
+    """Regularised MRT with Smagorinsky LES (reference d3q27/col_mrt.h, id
+    "MRT_LES"): the second-moment tensor Pi relaxed at a rate set by the
+    strain magnitude, every higher moment re-equilibrated by the quadratic
+    reconstruction f_q = w_q [rho (5/2 - 3/2 |c|^2 + 3 c.u) + 9/2 c^T Pi c
+    - 3/2 tr Pi].  The reference operator carries no forcing."""
+    del force
+    c = np.asarray(lat.c, dtype=np.float64)
+    P = {}
+    for a in range(3):
+        for b in range(a, 3):
+            P[(a, b)] = lattice_dot(c[:, a] * c[:, b], f)
+    # the non-equilibrium part (reference col_mrt.h:28-33)
+    Pn = {}
+    for a in range(3):
+        for b in range(a, 3):
+            Pn[(a, b)] = P[(a, b)] - rho * (u[a] * u[b] + ((1.0 / 3.0) if a == b else 0.0))
+    Q2 = 2 * (
+        Pn[(0, 0)] ** 2 + Pn[(1, 1)] ** 2 + Pn[(2, 2)] ** 2
+        + 2 * (Pn[(0, 1)] ** 2 + Pn[(0, 2)] ** 2 + Pn[(1, 2)] ** 2)
+    )
+    tau = 3.0 * nu + 0.5
+    omega = 2.0 / (torch.sqrt(tau * tau + 2 * smagorinsky_c * 9.0 * torch.sqrt(Q2) / rho) + tau)
+    for key in P:
+        P[key] = P[key] - omega * Pn[key]
+    trP = P[(0, 0)] + P[(1, 1)] + P[(2, 2)]
+    rows = []
+    for q in range(lat.Q):
+        cq = c[q]
+        csq_q = float((cq * cq).sum())
+        cu_q = 0.0
+        for a in range(3):
+            if cq[a] != 0:
+                cu_q = cu_q + float(cq[a]) * u[a]
+        cPc_q = 0.0
+        for a in range(3):
+            for b in range(3):
+                coef = float(cq[a] * cq[b])
+                if coef != 0:
+                    cPc_q = cPc_q + coef * P[(min(a, b), max(a, b))]
+        rows.append(float(lat.w[q])
+                    * (rho * (2.5 - 1.5 * csq_q + 3 * cu_q) + 4.5 * cPc_q - 1.5 * trP))
+    return torch.stack(rows)
+
+
+def collide_srt_well(lat, f, rho, u, nu, force=None):
+    """Well-conditioned improved SRT (reference d3q27/col_srt_well.h): the
+    deviation DFs relax toward ``eq_well``; the forcing term multiplies the
+    full equilibrium, deviation plus w_q (col_srt_well.h:76)."""
+    omega = 1.0 / (float(lat.i_cs2) * nu + 0.5)
+    feq_dev = eqlib.eq_well(lat, rho, u)
+    out = f + (feq_dev - f) * omega
+    if force is not None:
+        S = forcing_terms(lat, u, force, _safe(rho))
+        out = out + (1 - 0.5 * omega) * torch.stack(
+            [S[q] * (feq_dev[q] + float(lat.w[q])) for q in range(lat.Q)])
+    return out
+
+
+def collide_bgk_well(lat, f, rho, u, nu, force=None, galilean: bool = False):
+    """Well-conditioned factorised BGK (reference d3q27/col_bgk_well.h):
+    g' = (1 - w) g + w (feq - w_q) - (1 - w/2) S (X Y Z)."""
+    omega = 1.0 / (3.0 * nu + 0.5)
+    # deviation storage: the second moment of g lacks the weights' 1/3 (col_bgk_well.h)
+    G = _bgk_galilean(lat, f, rho, u, omega, (rho - 1) / rho) if galilean else [0.0] * 3
+    factors = [_bgk_axis_factors(u[a], G[a]) for a in range(3)]
+    feq_dev, psi = [], []
+    for q in range(lat.Q):
+        term = 1.0
+        for a in range(3):
+            term = term * factors[a][int(lat.c[q, a])]
+        psi.append(term)
+        feq_dev.append(-rho * term - float(lat.w[q]))
+    feq_dev, psi = torch.stack(feq_dev), torch.stack(psi)
+    out = f + (feq_dev - f) * omega
+    if force is not None:
+        out = out - (1 - 0.5 * omega) * forcing_terms(lat, u, force, rho) * psi
+    return out
+
+
+def collide_srt_modif_force(lat, f, rho, u, nu, force=None, eq=eqlib.eq_quadratic):
+    """SRT with the classic Guo forcing added directly (reference
+    d3q27/col_srt_modif_force.h: its expanded S terms are
+    w_q [3 (c - u).F + 9 (c.u)(c.F)])."""
+    from tnl_lbm_tpu_torch.ops.collision_2d import guo_forcing  # it imports this module
+
+    omega = 1.0 / (3.0 * nu + 0.5)
+    out = f + (eq(lat, rho, u) - f) * omega
+    if force is not None:
+        out = out + (1 - 0.5 * omega) * guo_forcing(lat, u, force)
+    return out
+
+
+def collide_clbm(lat, f, rho, u, nu, force=None, well: bool = False):
+    """Cascaded (central-moment) LBM for D3Q27 (reference d3q27/col_clbm.h):
+    the cumulant operator's cascades and second-order relaxation, with the
+    velocity-derivative terms always on (col_clbm.h:138-153), and the
+    central moments of order >= 3 relaxed at unit rate to the factorised
+    equilibria (0 when odd, rho/9 for kappa_220 and its kin, rho/27 for
+    kappa_222).  ``well=True`` is deviation storage (col_clbm_well.h).
+    With a force the first-order moments are negated (trapezoidal forcing;
+    ``u`` carries F/2); without, they pass through."""
+    vx, vy, vz = u[0], u[1], u[2]
+    k = central_moments(lat, f, u, well=well)
+    k000 = k[0][0][0]
+    k200, k020, k002 = k[2][0][0], k[0][2][0], k[0][0][2]
+    k110, k101, k011 = k[1][1][0], k[1][0][1], k[0][1][1]
+    inv_rho = 1.0 / rho
+    o1 = 1.0 / (3.0 * nu + 0.5)
+    o2 = 1.0
+    # the trace deviation is (sum of the kappa_2) - rho == ksum - k000 in both storages
+    Dxu = (-o1 * 0.5 * inv_rho * (2 * k200 - k020 - k002)
+           - o2 * 0.5 * inv_rho * (k200 + k020 + k002 - k000))
+    Dyv = Dxu + 1.5 * o1 * inv_rho * (k200 - k020)
+    Dzw = Dxu + 1.5 * o1 * inv_rho * (k200 - k002)
+    eqd4 = (1 - o1) * (k200 - k020) - 3 * rho * (1 - o1 * 0.5) * (vx * vx * Dxu - vy * vy * Dyv)
+    eqd5 = (1 - o1) * (k200 - k002) - 3 * rho * (1 - o1 * 0.5) * (vx * vx * Dxu - vz * vz * Dzw)
+    eqd6 = k000 * o2 + (1 - o2) * (k200 + k020 + k002) - 3 * rho * (1 - o2 / 2) * (
+        vx * vx * Dxu + vy * vy * Dyv + vz * vz * Dzw)
+    zero = torch.zeros_like(rho)
+    ks = [[[zero] * 3 for _ in range(3)] for _ in range(3)]
+    ks[0][0][0] = k000
+    if force is None:
+        ks[1][0][0], ks[0][1][0], ks[0][0][1] = k[1][0][0], k[0][1][0], k[0][0][1]
+    else:
+        ks[1][0][0], ks[0][1][0], ks[0][0][1] = -k[1][0][0], -k[0][1][0], -k[0][0][1]
+    ks[1][1][0], ks[1][0][1], ks[0][1][1] = (1 - o1) * k110, (1 - o1) * k101, (1 - o1) * k011
+    ks[2][0][0] = (eqd4 + eqd5 + eqd6) / 3
+    ks[0][2][0] = (-2 * eqd4 + eqd5 + eqd6) / 3
+    ks[0][0][2] = (eqd4 - 2 * eqd5 + eqd6) / 3
+    # the shifted equilibria in well storage: rho/9 - 1/9 = k000/9, and so on
+    ks[2][2][0] = ks[0][2][2] = ks[2][0][2] = (k000 if well else rho) / 9.0
+    ks[2][2][2] = (k000 if well else rho) / 27.0
+    return dfs_from_central_moments(lat, ks, u, well=well)
+
+
+collide_clbm_well = partial(collide_clbm, well=True)
+
+
+#: registry keyed by the reference operator ids (the KBC family is
+#: ``ops/collision_kbc.py COLLISIONS_KBC``)
 COLLISIONS_D3Q27 = {
+    "SRT": partial(collide_srt, eq=eqlib.eq_quadratic),
+    "SRT_WELL": collide_srt_well,
+    "SRT_MODIF_FORCE": collide_srt_modif_force,
+    "BGK": collide_bgk,
+    "BGK_WELL": collide_bgk_well,
     "CUM": collide_cum,
     "CUM_WELL": collide_cum_well,
+    "MRT_LES": collide_mrt_les,
+    "CLBM": collide_clbm,
+    "CLBM_WELL": collide_clbm_well,
 }

@@ -1,8 +1,8 @@
 """Equilibrium distribution functions (counterpart of
-``tnl_lbm_tpu/ops/equilibrium.py``; the quadratic, well-conditioned and
-inverse-cumulant forms).
+``tnl_lbm_tpu/ops/equilibrium.py``: the quadratic, well-conditioned,
+inverse-cumulant and entropic forms).
 
-Both take ``rho [*S]`` and ``u [D, *S]`` and return ``f_eq [Q, *S]``.
+Each takes ``rho [*S]`` and ``u [D, *S]`` and returns ``f_eq [Q, *S]``.
 """
 
 from __future__ import annotations
@@ -60,10 +60,29 @@ def eq_inv_cum(lat: LatticeDescriptor, rho: torch.Tensor, u: torch.Tensor) -> to
     return _product_eq(lat, rho, factors)
 
 
-#: registry keyed like the reference plugin classes (the ported subset;
-#: EQ_ENTROPIC waits with the KBC family, ROADMAP A8)
+def eq_entropic(lat: LatticeDescriptor, rho: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Entropic equilibrium in sqrt product form (Karlin et al.): per axis,
+    with s = sqrt(1 + 3 v^2), psi(0, v) = (2/3) (2 - s) and
+    psi(+-1, v) = (1/6) (2 - s) ((2 v + s) / (1 - v))^{+-1}
+    (reference eq_entropic.h:90-216)."""
+    factors = []
+    for a in range(lat.D):
+        v = u[a]
+        s = torch.sqrt(1 + 3 * v * v)
+        base = 2 - s
+        ratio = (2 * v + s) / (1 - v)
+        factors.append({
+            0: (2.0 / 3.0) * base,
+            1: (1.0 / 6.0) * base * ratio,
+            -1: (1.0 / 6.0) * base / ratio,
+        })
+    return _product_eq(lat, rho, factors)
+
+
+#: registry keyed like the reference plugin classes
 EQUILIBRIA = {
     "EQ": eq_quadratic,
     "EQ_WELL": eq_well,
     "EQ_INV_CUM": eq_inv_cum,
+    "EQ_ENTROPIC": eq_entropic,
 }

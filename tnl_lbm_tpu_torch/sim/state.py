@@ -446,14 +446,27 @@ class Simulation:
         """Static eligibility for pair dispatch, as the JAX package's: the
         kernels, A-A streaming, no forcing hook, 3D, no per-step-state hook,
         and every code of the map one the A-A kernels take.  Which pair
-        kernel runs, and whether one has an instance of the collision, is
-        ``_build_pair``'s; outside this set every step runs on its own."""
+        kernel runs is ``_build_pair``'s, and "auto" asks
+        ``_pair_has_instance`` whether one has an instance of the config;
+        outside this set every step runs on its own."""
         return (self.use_fused
                 and self.cfg.streaming == "AA"
                 and self.cfg.forcing_hook is None
                 and self.cfg.lat.D == 3
                 and not self._hooks_need_per_step_state()
                 and supports(self.domain, self.cfg.streaming))
+
+    def _pair_has_instance(self) -> bool:
+        """A pair kernel has an instance of the config on this map
+        (``fused_aa.dispatch_pair_kind``): decided from the config, nothing
+        is built."""
+        from tnl_lbm_tpu_torch.kernels.fused_aa import dispatch_pair_kind
+
+        try:
+            dispatch_pair_kind(self.cfg, self.domain, self.cfg.storage_dtype)
+        except NotImplementedError:
+            return False
+        return True
 
     def _hooks_need_per_step_state(self) -> bool:
         """True if a step hook is marked @needs_per_step_state."""
@@ -487,6 +500,10 @@ class Simulation:
             self.pair_dispatch = bool(self.pair_dispatch)
         elif not self._pair_dispatch_capable() or self.device.type != "cuda":
             self.pair_dispatch = False
+        elif not self._pair_has_instance():
+            self.pair_dispatch = False
+            self.log.info("pair-dispatch auto: no pair kernel has an instance of this "
+                          "collision and equilibrium -> per-step dispatch")
         else:
             self.pair_probe_ms = self.time_pair_routes()
             t_pair, t_steps = self.pair_probe_ms
