@@ -25,11 +25,13 @@ script exits non-zero without printing a result.
    versions, its SM count and maximum SM clock (``clocks.max.sm``), and so
    its FP32-pipe and SFU issue rates;
 2. build: compile the kernels from ``tnl_lbm_tpu_torch/csrc`` (one ``nvcc``
-   per source, in parallel; registers, shared memory and spills from
-   ``-Xptxas -v``, and the pair's dynamic shared memory; the FP32-pipe
-   and SFU instructions per thread of each kernel from ``cuobjdump
-   -sass``, each one slot and every branch once, the upper bound of what a
-   site issues that the bound of the JSON record uses);
+   per source, in parallel, alone on the host's cores: the library's cold
+   build; registers, shared memory and spills from ``-Xptxas -v``, and the
+   pair's dynamic shared memory); then, beside the first compares, the
+   FP32-pipe and SFU instructions per thread of each kernel from
+   ``cuobjdump -sass`` (a subprocess), each one slot and every branch once,
+   the upper bound of what a site issues that the bound of the JSON record
+   uses, with the B5 variants and the collisions' site work (build_rest);
 3. compare, kernels against their plain PyTorch versions on the card, with
    the JAX suite's bounds (tests/test_fused_kernel.py:65-67): |df| <= 1e-6
    (for a 16-bit state ``utils.dtypes.state_agrees``: one unit in its last
@@ -161,12 +163,30 @@ script exits non-zero without printing a result.
    one odd step) with its natural equilibrium, KBC_N1 also with
    ``eq_entropic`` and SRT with ``eq_inv_cum`` (|df| <= 1e-6, 1e-5 under
    KBC); then each id through ``Simulation`` on the 256^3 bench duct, A-B
-   and A-A per step ("auto", which keeps per step without building a
-   pair), 100 steps each with the counts set to 0 at the end of sim_init
-   and read after (one launch a step, no pair, no plain call): MLUPS, and
-   each kernel timed over 20 launches on the run's final state and on a
-   seeded developed state, GB/s at 233 B/site against P1, registers and
-   spills;
+   and A-A per step (pair dispatch off), 100 steps each with the counts set
+   to 0 at the end of sim_init and read after (one launch a step, no pair,
+   no plain call): MLUPS, and each kernel timed over 20 launches on the
+   run's final state and on a seeded developed state, GB/s at 233 B/site
+   against P1, registers and spills;
+   collision_routes (after the IBM run): the same collisions and CUM with
+   ``eq_entropic`` on the kernels of the hooked routes and of pair
+   dispatch - the force_field instances of B4, B2/B3 (csrc/coll_*.cu), the
+   one-kernel NN step B10 (csrc/nn_coll_*.cu) and the full-set pair B1b
+   (csrc/pair_coll_*.cu): each instance against its plain version (the
+   force_field steps on ``bc_box((24, 20, 150))`` / ``aa_box`` with a
+   seeded per-site force of ~1e-5, B10 A-B, even and odd on the wall duct
+   with CY(0.1, 1, 2, 0.5), B1b on ``aa_box`` over several x segments) at
+   the step bounds, KBC too; each timed at 256^3 on a seeded developed
+   state (20 launches; GB/s against P1, the bound, registers, spills); then
+   under MRT_LES, KBC_N1 and SRT_MODIF_FORCE, 100 steps each through
+   ``Simulation``: the bench duct A-A with ``pair_dispatch="auto"`` (the
+   probe's two times and choice, checked against longer chains, B1b's
+   launches, MLUPS) and the hooked 256^3 duct A-B and A-A from a duct
+   profile through the plain hooked step, B10 and the pipeline with the
+   same hook, each route's f, rho and u within 1e-5 of the plain run's
+   (KBC_N1: 1e-4, the repo's KBC factor of ten);
+   last sim_ibm res 1 under MRT_LES, 20 steps, kernel against plain with
+   the CG pinned, within 1e-5;
 6. the 2D slice (after the main paths; the D2Q9 kernel's bounds as the
    step compares'):
    a. compare_2d: B5 against its plain version at 37 x 150 (neither a
@@ -312,9 +332,11 @@ its sim_1 res 8 time beside B2 + B3; B1's entries also give its
 registers, shared memory and stages; the ab_step, aa_even and aa_odd
 entries list the collisions' instances: id, kernel, ms, the run's MLUPS,
 registers, spill bytes, max |df| and bound; their launches add the
-collisions' runs);
+collisions' runs; the force_field, nn_step and aa_pair_full entries
+list the family instances of collision_routes the same way, and their
+launches add its runs);
 the last line is ``{"ok": true, "device": {...}}``.  The
-script's total time and that of the P3/P4, layouts and bench-entry phases
+script's total time, the library's cold build and each phase's seconds
 are logged before them.
 """
 
@@ -420,6 +442,25 @@ def rand_f(cfg, shape, device, seed=0):
     rho = torch.from_numpy((1 + 0.01 * rng.standard_normal(shape)).astype(np.float32))
     u = torch.from_numpy((0.02 * rng.standard_normal((3,) + shape)).astype(np.float32))
     return cfg.eq(cfg.lat, rho.to(device), u.to(device)).float().contiguous()
+
+
+#: rand_f's (rho, u) at 256^3 per seed, kept on the card: the collision
+#: phases take many configs' equilibria of the same developed state
+_DEVELOPED: dict = {}
+
+
+def developed_f(cfg, seed=1):
+    """``rand_f(cfg, BENCH_SHAPE, DEVICE, seed)`` bit for bit, its seeded
+    rho and u drawn once per seed."""
+    import torch
+
+    if seed not in _DEVELOPED:
+        rng = np.random.default_rng(seed)
+        rho = torch.from_numpy((1 + 0.01 * rng.standard_normal(BENCH_SHAPE)).astype(np.float32))
+        u = torch.from_numpy((0.02 * rng.standard_normal((3,) + BENCH_SHAPE)).astype(np.float32))
+        _DEVELOPED[seed] = (rho.to(DEVICE), u.to(DEVICE))
+    rho, u = _DEVELOPED[seed]
+    return cfg.eq(cfg.lat, rho, u).float().contiguous()
 
 
 def flagship(shape, storage=None, streaming="AA"):
@@ -619,23 +660,48 @@ def count_sass_ops(sass: str, subroutines: bool = True) -> dict:
     return {k: tuple(v) for k, v in ops.items()}
 
 
-def sass_fp32_ops(lib_path) -> dict:
-    """``count_sass_ops`` of the built library."""
+def sass_fp32_ops(lib_path, names=None) -> dict:
+    """``count_sass_ops`` of the built library: of the kernels ``names``
+    (``cuobjdump -fun``) where given and the listing holds them all, else
+    of every kernel."""
     import os
 
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     exe = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
+    if names:
+        some = subprocess.run([exe, "-sass", "-fun", ",".join(names), str(lib_path)],
+                              capture_output=True, text=True)
+        ops = count_sass_ops(some.stdout) if some.returncode == 0 else {}
+        if all(n in ops for n in names):
+            return ops
     return count_sass_ops(subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
                                          text=True, check=True).stdout)
 
 
+#: the kernels whose registers and spills the build phases log, and (but
+#: ROUTE_KERNEL_NAMES, whose bounds take ``site_ops``) their SASS counts
+def build_kernel_names() -> tuple:
+    return sass_kernel_names() + ROUTE_KERNEL_NAMES
+
+
+def sass_kernel_names() -> tuple:
+    return (("aa_odd_kernel", "aa_pair_f32_kernel", "aa_pair_f16_kernel",
+             "aa_pair_bf16_kernel", "ab_step_cum_well_kernel", "ab_step_cum_quad_kernel",
+             "ab_step_cum_invcum_kernel", "copy_permute_kernel", "pair_compute_only_kernel",
+             "element_pipeline_kernel") + PIPELINE_KERNEL_NAMES + LAYOUT_KERNEL_NAMES
+            + WINDOW_KERNEL_NAMES + AA_KERNEL_NAMES + ADE_KERNEL_NAMES
+            + COUPLED_KERNEL_NAMES + COUPLED_AA_KERNEL_NAMES + D2Q9_KERNEL_NAMES
+            + NN_KERNEL_NAMES + COLLISION_KERNEL_NAMES)
+
+
 def phase_build() -> dict:
-    """Build the kernels, and beside them B5_VARIANTS of the resident chunk
-    (tests/b5_chunk_ablation.py) and a fluid site's work under each
-    collision of the family kernels (tests/collision_site_ops.py), one
-    nvcc each, started first; registers per kernel, and the FP32
-    operations per thread from the SASS (a fluid site's without the IEEE
-    slow paths: ``site_ops``)."""
+    """Build the kernels (the library's cold build; registers, spills and
+    shared memory per kernel from ptxas) and beside them B5_VARIANTS of the
+    resident chunk (tests/b5_chunk_ablation.py) and a fluid site's work under
+    each collision of the family kernels (tests/collision_site_ops.py), one
+    nvcc each, started first; then start the library's SASS count of the
+    kernels ``sass_kernel_names`` (``sass_fp32_ops`` in a subprocess), which
+    ``phase_build_rest`` collects with the rest, beside the next phases."""
     import b5_chunk_ablation as ablation
     import collision_site_ops
 
@@ -643,13 +709,43 @@ def phase_build() -> dict:
     from tnl_lbm_tpu_torch.kernels.fused_nn import nn_geometry
 
     t0 = time.perf_counter()
-    variants = ablation.start(WORK / "b5_variants", B5_VARIANTS)
-    site_build = collision_site_ops.start(WORK / "site_ops")
-    try:
-        path, ptxas = build_library()
-    finally:
-        variants = ablation.finish(variants)
-        site_sass = collision_site_ops.finish(site_build)
+    later = {"variants": ablation.start(WORK / "b5_variants", B5_VARIANTS),
+             "site": collision_site_ops.start(WORK / "site_ops")}
+    path, ptxas = build_library()
+    seconds = time.perf_counter() - t0
+    later["sass"] = subprocess.Popen(
+        [sys.executable, "-c", "import json, sys; import chip_smoke as cs; print(json.dumps("
+         "cs.sass_fp32_ops(sys.argv[1], cs.sass_kernel_names())))", str(path)],
+        cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    lib = load_library()
+    res = kernel_resources(ptxas)
+    for name in build_kernel_names():
+        if name not in res:
+            raise RuntimeError(f"no ptxas report for {name}:\n{ptxas}")
+        log("build", kernel=name, **res[name])
+    nn_geo = {key: nn_geometry(kind, BENCH_SHAPE) for kind, key in ((0, "nn_force"),
+                                                                     (1, "nn_step"))}
+    log("build", library_seconds=f"{seconds:.1f}",
+        pair_dynamic_smem_bytes=lib.tnl_lbm_aa_pair_smem_bytes(),
+        **{f"{key}_geometry_256": json.dumps(g) for key, g in nn_geo.items()})
+    return {"res": res, "nn_geometry": nn_geo, "later": later, "seconds": seconds}
+
+
+def phase_build_rest(built: dict) -> None:
+    """Wait for what ``phase_build`` started and add it to ``built``: the B5
+    variants ("b5_variants"), the FP32 operations per thread of every kernel
+    from the library's SASS ("ops") and a fluid site's under each collision
+    without the IEEE slow paths ("site_ops")."""
+    import b5_chunk_ablation as ablation
+    import collision_site_ops
+
+    later = built.pop("later")
+    variants = ablation.finish(later["variants"])
+    site_sass = collision_site_ops.finish(later["site"])
+    out, _ = later["sass"].communicate()
+    if later["sass"].returncode != 0:
+        raise RuntimeError("the library's SASS count failed")
+    ops = {k: tuple(v) for k, v in json.loads(out.strip().splitlines()[-1]).items()}
     site_ops, site_all = count_sass_ops(site_sass, subroutines=False), count_sass_ops(site_sass)
     site_ops = {cid: site_ops[collision_site_ops.kernel_name(cid)]
                 for cid in collision_site_ops.COLLISION_INSTANCES}
@@ -657,28 +753,11 @@ def phase_build() -> dict:
         whole = site_all[collision_site_ops.kernel_name(cid)]
         log("build", fluid_site=cid, fp32_slots=fp32, mufu=sfu, fp32_slots_with_slow_paths=whole[0],
             mufu_with_slow_paths=whole[1])
-    lib = load_library()
-    res = kernel_resources(ptxas)
-    ops = sass_fp32_ops(path)
-    names = (("aa_odd_kernel", "aa_pair_f32_kernel", "aa_pair_f16_kernel",
-              "aa_pair_bf16_kernel", "ab_step_cum_well_kernel", "ab_step_cum_quad_kernel",
-              "ab_step_cum_invcum_kernel", "copy_permute_kernel", "pair_compute_only_kernel",
-              "element_pipeline_kernel") + PIPELINE_KERNEL_NAMES + LAYOUT_KERNEL_NAMES
-             + WINDOW_KERNEL_NAMES + AA_KERNEL_NAMES + ADE_KERNEL_NAMES
-             + COUPLED_KERNEL_NAMES + COUPLED_AA_KERNEL_NAMES + D2Q9_KERNEL_NAMES
-             + NN_KERNEL_NAMES + COLLISION_KERNEL_NAMES)
-    for name in names:
-        if name not in res or name not in ops:
-            raise RuntimeError(f"no ptxas report or SASS for {name}:\n{ptxas}")
-        log("build", kernel=name, **res[name], fp32_slots_per_thread=ops[name][0],
-            mufu_per_thread=ops[name][1])
-    nn_geo = {key: nn_geometry(kind, BENCH_SHAPE) for kind, key in ((0, "nn_force"),
-                                                                     (1, "nn_step"))}
-    log("build", seconds=f"{time.perf_counter() - t0:.1f}",
-        pair_dynamic_smem_bytes=lib.tnl_lbm_aa_pair_smem_bytes(),
-        **{f"{key}_geometry_256": json.dumps(g) for key, g in nn_geo.items()})
-    return {"ops": ops, "res": res, "nn_geometry": nn_geo, "b5_variants": variants,
-            "site_ops": site_ops}
+    for name in sass_kernel_names():
+        if name not in ops:
+            raise RuntimeError(f"no SASS for {name}")
+        log("build", kernel=name, fp32_slots_per_thread=ops[name][0], mufu_per_thread=ops[name][1])
+    built.update(ops=ops, site_ops=site_ops, b5_variants=variants)
 
 
 def phase_compare_steps() -> dict:
@@ -2034,11 +2113,11 @@ def collision_compare(cid: str, eq) -> dict:
     return out
 
 
-def collision_sim(cid: str, streaming: str):
+def collision_sim(cid: str, streaming: str, pair_dispatch=False):
     """Simulation on the 256^3 bench duct under collision ``cid`` with its
-    natural equilibrium, per step (A-A: ``pair_dispatch="auto"``, which no
-    pair instance of the collision keeps per step), COLLISION_STEPS steps,
-    counted from the end of sim_init."""
+    natural equilibrium, COLLISION_STEPS steps counted from the end of
+    sim_init: per step, or on A-A with ``pair_dispatch`` ("auto": the probe
+    times the full-set pair B1b against per step and keeps the faster)."""
     from tnl_lbm_tpu_torch import interop
     from tnl_lbm_tpu_torch.sim.state import Simulation
     from torch_cases import collision_spec
@@ -2050,10 +2129,10 @@ def collision_sim(cid: str, streaming: str):
     _, dom = flagship(BENCH_SHAPE)
     cfg = interop.config_from_spec(**collision_spec(cid, streaming))
     sim = counting_from_init(BenchDuct(
-        cfg, dom, device=DEVICE, sim_id=f"collision_{cid}_{streaming}",
+        cfg, dom, device=DEVICE, sim_id=f"collision_{cid}_{streaming}_{pair_dispatch}",
         results_parent=WORK / "collisions", phys_final_time=COLLISION_STEPS * dom.units.phys_dt,
         steps_per_dispatch=10, use_fused=True,
-        pair_dispatch="auto" if streaming == "AA" else False))
+        pair_dispatch=pair_dispatch if streaming == "AA" else False))
     if not sim.run():
         raise RuntimeError(f"the {cid} {streaming} run failed (NaN or refused)")
     return sim
@@ -2066,7 +2145,8 @@ def phase_collisions(floor_gbps: float, res: dict, ops: dict, site_ops: dict) ->
     entropic equilibrium, SRT with the inverse-cumulant one: the run-time
     equilibrium's other kinds); |df| over 1e-6 (KBC too), |drho| over 2e-6
     or |du| over 1e-6 fails.  Then each id through ``Simulation`` on the
-    256^3 bench duct, A-B and A-A per step, each run's launch counts set to
+    256^3 bench duct, A-B and A-A per step (pair dispatch off: the pair's
+    runs are ``phase_collision_routes``'), each run's launch counts set to
     0 at the end of sim_init and read after it: MLUPS, launches (one a
     step, no pair), and each kernel timed on the run's final state and on a
     seeded developed state (20 launches each on CUDA events), GB/s at 233
@@ -2121,7 +2201,7 @@ def phase_collisions(floor_gbps: float, res: dict, ops: dict, site_ops: dict) ->
                         "aa_odd": lambda f: step(f, NU, force=force, parity=1, out=spare)}
             # the run's final state (near rest after 100 steps) and a seeded developed
             # one (rho 1 +- 0.01, |u| ~ 0.02): KBC's time depends on the data
-            developed = rand_f(sim.cfg, BENCH_SHAPE, DEVICE, seed=1)
+            developed = developed_f(sim.cfg)
             timed = {key: (time_ms(lambda: fn(sim.f), 20), time_ms(lambda: fn(developed), 20))
                      for key, fn in runs.items()}
             for key, (ms, ms_developed) in timed.items():
@@ -2150,6 +2230,422 @@ def phase_collisions(floor_gbps: float, res: dict, ops: dict, site_ops: dict) ->
     return {"instances": instances, "launches": launches,
             "err": {key: max(e for (k, _), e in err.items() if k == key)
                     for key in COLLISION_KERNELS}}
+
+
+#: the record entries of the kernels whose family instances (csrc/coll_*.cu's
+#: force_field kernels, csrc/nn_coll_*.cu, csrc/pair_coll_*.cu) phase
+#: ``collision_routes`` holds and times, with their instances' name patterns
+ROUTE_KERNELS = {"ab_step_force_field": "ab_step_{tag}_ff_kernel",
+                 "aa_even_force_field": "aa_even_{tag}_ff_kernel",
+                 "aa_odd_force_field": "aa_odd_{tag}_ff_kernel",
+                 "nn_step_ab": "nn_step_ab_{tag}_kernel", "nn_step_even": "nn_step_even_{tag}_kernel",
+                 "nn_step_odd": "nn_step_odd_{tag}_kernel", "aa_pair_full": "aa_pair_full_{tag}_kernel"}
+#: the step's instances of CUM's family row (its eq_entropic instance; the
+#: other rows' are phase ``collisions``')
+ROUTE_LEAN_KERNELS = {"ab_step": "ab_step_{tag}_kernel", "aa_even": "aa_even_{tag}_kernel",
+                      "aa_odd": "aa_odd_{tag}_kernel"}
+#: the family rows: the per-step collisions' tags and CUM's row with the
+#: equilibrium read at run time (its eq_entropic instance)
+ROUTE_TAGS = COLLISION_TAGS + ("cum",)
+ROUTE_KERNEL_NAMES = tuple(pattern.format(tag=t) for t in ROUTE_TAGS
+                           for pattern in ROUTE_KERNELS.values()) + tuple(
+    f"{p}_cum_kernel" for p in ("ab_step", "aa_even", "aa_odd"))
+#: the collisions of the full-width runs through the hooked routes, pair
+#: dispatch and the IBM: the LES and the entropic operators (for turbulent
+#: flow), and the SRT forcing that reads the collision's total force
+ROUTE_IDS = ("MRT_LES", "KBC_N1", "SRT_MODIF_FORCE")
+ROUTE_STEPS = 100  # steps of each full-width run
+IBM_ROUTE_STEPS = 20  # steps of the IBM run under MRT_LES at sim_ibm res 1's lattice
+#: the peak u_x of the hooked duct's start: a duct profile, whose shear gives
+#: the hook's force from the first step
+ROUTE_PROFILE_U = 0.05
+#: the factor on TOL_APP of a KBC run held to its plain run: the repo's KBC
+#: bounds are ten times the others (tests/torch_cases.py KBC_TOL_F over
+#: KERNEL_TOL_F).  Over 100 steps from the duct profile the per-step A-B
+#: kernel's KBC instance drifts from its plain run as the hooked routes do,
+#: linearly, ~1e-7 in rho a step at a step's own agreement of <= 4.8e-7
+#: (PERF.md §6, collision routes)
+ROUTE_KBC_FACTOR = 10
+
+
+def route_cases() -> tuple:
+    """(id, equilibrium id or None) of the family instances' compares: the
+    per-step compares' cases and CUM with the entropic equilibrium."""
+    from torch_cases import COLLISION_CASES
+
+    return tuple(COLLISION_CASES) + (("CUM", "EQ_ENTROPIC"),)
+
+
+def route_compares() -> dict:
+    """Each family instance of the force_field steps, B10 and B1b against its
+    plain version on the card, from the same input on both sides, at the step
+    bounds (|df| <= 1e-6, KBC too; |drho| <= 2e-6; |du| <= 1e-6):
+
+    - B4's force_field instance on ``bc_box(COLLISION_BOX)`` (one A-B step),
+      B2's then B3's on ``aa_box`` (even, then odd from its output), with a
+      seeded per-site force of ~1e-5 plus a homogeneous one (``force_add``);
+      for CUM with eq_entropic the step's instances first, the same way with
+      a body force;
+    - B10, A-B, even and odd, on ``nn_case("duct")`` with CY(0.1, 1, 2, 0.5)
+      wrapped as the domain and a body force;
+    - B1b, one pair on ``aa_box`` with a body force and an inflow velocity, at
+      a shape whose x spans several of the kernel's segments.
+
+    Returns {record key: max |df|} over the cases."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair_aa, make_fused_step_aa
+    from tnl_lbm_tpu_torch.kernels.fused_nn_step import make_fused_nn_step
+    from torch_cases import NN_MODELS, U_IN, aa_box, bc_box, collision_spec, collision_state, nn_case
+
+    force = (1e-5, -2e-6, 3e-6)
+    field = seeded_field((3,) + COLLISION_BOX, seed=31)
+    nm, nper, model, hper = nn_case("duct")
+    err = {}
+
+    def check(key, cid, eq, k, p, where):
+        torch.cuda.synchronize()
+        d = tuple(max_diff(a, b) for a, b in zip(k, p))
+        log("collision_routes", kernel=key, collision=cid, eq=eq or "natural", where=where,
+            max_df=f"{d[0]:.3e}", max_drho=f"{d[1]:.3e}", max_du=f"{d[2]:.3e}")
+        if d[0] > TOL_F or d[1] > TOL_RHO or d[2] > TOL_U:
+            raise RuntimeError(f"{key} under {cid} ({eq or 'natural'}) disagrees with its plain "
+                               f"version on {where}: {d}")
+        err[key] = max(err.get(key, 0.0), d[0])
+
+    for cid, eq in route_cases():
+        for streaming, m in (("AB", bc_box(COLLISION_BOX)), ("AA", aa_box(COLLISION_BOX))):
+            cfg = interop.config_from_spec(**collision_spec(cid, streaming, eq))
+            dom = interop.domain_from_numpy(m, (False, False, True))
+            f = collision_state(cfg, COLLISION_BOX, DEVICE)
+            box = "x".join(map(str, COLLISION_BOX))
+            parities = (0,) if streaming == "AB" else (0, 1)
+            if cid == "CUM":  # the family's CUM row in the step's mode too
+                lean = (make_fused_step if streaming == "AB" else make_fused_step_aa)(
+                    cfg, dom, DEVICE)
+                g = f
+                for parity in parities:
+                    key = ("ab_step", "aa_even", "aa_odd")[parity + (streaming == "AA")]
+                    p = lean.plain(g, NU, u_in=U_IN, force=force, parity=parity)
+                    k = lean(g.clone() if parity == 0 else g, NU, u_in=U_IN, force=force,
+                             parity=parity)
+                    check(key, cid, eq, k, p, box)
+                    g = k[0]
+            ff = (make_fused_step if streaming == "AB" else make_fused_step_aa)(
+                cfg, dom, DEVICE, force_field=True)
+            if ff._instance[0] == "cum":
+                raise RuntimeError(f"{cid} took a cumulant instance: {ff._instance}")
+            kw = dict(u_in=U_IN, force=field, force_add=force)
+            for parity in parities:
+                key = ("ab_step", "aa_even", "aa_odd")[parity + (streaming == "AA")]
+                p = ff.plain(f, NU, parity=parity, **kw)
+                k = ff(f.clone() if parity == 0 else f, NU, parity=parity, **kw)
+                check(f"{key}_force_field", cid, eq, k, p, box)
+                f = k[0]
+            if streaming == "AA":
+                pair = make_fused_pair_aa(cfg, dom, DEVICE)
+                segments = pair.geometry()["segments"]
+                if segments < 2:
+                    raise RuntimeError(f"B1b's compare box spans {segments} x segment")
+                f = collision_state(cfg, COLLISION_BOX, DEVICE)
+                check("aa_pair_full", cid, eq, pair(f, NU, u_in=U_IN, force=force),
+                      pair.plain(f, NU, u_in=U_IN, force=force), f"{box} ({segments} segments)")
+            ncfg = hooked_cfg(interop.config_from_spec(**collision_spec(cid, streaming, eq)),
+                              model, hper)
+            nstep = make_fused_nn_step(ncfg, interop.domain_from_numpy(nm, nper), NN_MODELS[model],
+                                       hper, DEVICE)
+            fn = collision_state(ncfg, nm.shape, DEVICE)
+            for parity in ((0,) if streaming == "AB" else (0, 1)):
+                key = ("nn_step_ab", "nn_step_even", "nn_step_odd")[parity + (streaming == "AA")]
+                check(key, cid, eq, nstep(fn, NU, force=force, parity=parity),
+                      nstep.plain(fn, NU, force=force, parity=parity),
+                      "x".join(map(str, nm.shape)) + " duct")
+    return err
+
+
+def route_timings(floor_gbps: float, res: dict, site_ops: dict, err: dict) -> dict:
+    """Each family instance of the force_field steps, B10 and B1b at 256^3 on
+    the bench duct (the hooked one for B10: CY(0.1, 1, 2, 0.5) wrapped as the
+    domain), on a seeded developed state (rho 1 +- 0.01, |u| ~ 0.02), 20
+    launches on CUDA events each; GB/s against P1; the bound: 245 B/site
+    with the field, 233 B/site for B10 and B1b (a pair), or the FP32 slots
+    of the duct's colliding sites under the id (``site_ops``, twice for a
+    pair) where those take longer; registers and spills.  CUM with
+    eq_entropic also through the step's instances (233 B/site).  Returns
+    {record key: [instance entries]}."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair_aa, make_fused_step_aa
+    from tnl_lbm_tpu_torch.kernels.fused_nn_step import make_fused_nn_step
+    from tnl_lbm_tpu_torch.ops.boundary import collision_mask_codes
+    from torch_cases import COLLISION_IDS, NN_MODELS, collision_spec
+
+    field = seeded_field((3,) + BENCH_SHAPE, seed=33)
+    fb = np.array([FORCE_BENCH, 0.0, 0.0], np.float32)
+    instances = {key: [] for key in {**ROUTE_KERNELS, **ROUTE_LEAN_KERNELS}}
+    dom = flagship(BENCH_SHAPE)[1]  # the domain of both patterns
+    colliding = float(np.isin(dom.map, sorted(collision_mask_codes(3))).mean())
+    for cid, eq in tuple((c, None) for c in COLLISION_IDS) + (("CUM", "EQ_ENTROPIC"),):
+        tag = collision_tag(cid)
+        work = tuple(v * colliding for v in site_ops[cid]) if cid in site_ops else (0, 0)
+        for streaming in ("AB", "AA"):
+            cfg = interop.config_from_spec(**collision_spec(cid, streaming, eq))
+            developed = developed_f(cfg)
+            spare = torch.empty_like(developed)
+            ff = (make_fused_step if streaming == "AB" else make_fused_step_aa)(
+                cfg, dom, DEVICE, force_field=True)
+            nstep = make_fused_nn_step(hooked_cfg(cfg, NN_BENCH_MODEL, dom.periodic), dom,
+                                       NN_MODELS[NN_BENCH_MODEL], dom.periodic, DEVICE)
+            kw = dict(force=field, force_add=fb)
+            lean = (make_fused_step if streaming == "AB" else make_fused_step_aa)(
+                cfg, dom, DEVICE) if cid == "CUM" else None
+            if streaming == "AB":
+                runs = {"ab_step_force_field": lambda: ff(developed, NU, out=spare, **kw),
+                        "nn_step_ab": lambda: nstep(developed, NU, force=fb, out=spare)}
+                if lean is not None:
+                    runs["ab_step"] = lambda: lean(developed, NU, force=fb, out=spare)
+            else:
+                work_f = developed.clone()
+                pair = make_fused_pair_aa(cfg, dom, DEVICE)
+                runs = {"aa_even_force_field": lambda: ff(work_f, NU, parity=0, **kw),
+                        "aa_odd_force_field": lambda: ff(developed, NU, parity=1, out=spare,
+                                                         **kw),
+                        "nn_step_even": lambda: nstep(developed, NU, force=fb, parity=0,
+                                                      out=spare),
+                        "nn_step_odd": lambda: nstep(developed, NU, force=fb, parity=1,
+                                                     out=spare),
+                        "aa_pair_full": lambda: pair(developed, NU, force=fb, out=spare)}
+                if lean is not None:
+                    runs["aa_even"] = lambda: lean(work_f, NU, force=fb, parity=0)
+                    runs["aa_odd"] = lambda: lean(developed, NU, force=fb, parity=1, out=spare)
+            for key, fn in runs.items():
+                ms = time_ms(fn, 20)
+                name = {**ROUTE_KERNELS, **ROUTE_LEAN_KERNELS}[key].format(tag=tag)
+                r = res[name]
+                bytes_site = FF_BYTES if key.endswith("force_field") else AB_BYTES
+                ops_site = tuple(2 * v for v in work) if key == "aa_pair_full" else work
+                bound_ms, bound_by = bound(bytes_site, ops_site)
+                instances[key].append({
+                    "id": cid, "eq": eq or "natural", "kernel": name, "ms": ms,
+                    "registers": r["registers"], "spill_bytes": r.get("spill_stores", 0),
+                    "max_abs_err": err[key], "bound_ms": bound_ms, "bound_by": bound_by})
+                rate = gbps(bytes_site, ms)
+                log("collision_routes", kernel=name, collision=cid, eq=eq or "natural",
+                    shape="256^3", ms=f"{ms:.4f}", gbps=f"{rate:.1f}",
+                    share_of_p1=f"{rate / floor_gbps:.3f}", bound_ms=f"{bound_ms:.4f}",
+                    bound_by=bound_by, share_of_bound=f"{bound_ms / ms:.3f}",
+                    registers=r["registers"], spill_stores=r.get("spill_stores", 0))
+            del runs, ff, nstep, lean, developed, spare
+            torch.cuda.empty_cache()
+    return instances
+
+
+def route_profile(cfg, shape):
+    """The hooked duct's start: rho = 1 and a duct profile u_x =
+    ROUTE_PROFILE_U * 16 y' (1 - y') z' (1 - z') over the y-z section
+    (y', z' in [0, 1] across it), in cfg's equilibrium."""
+    import torch
+
+    X, Y, Z = shape
+    y = torch.linspace(0.0, 1.0, Y, device=DEVICE).view(1, Y, 1)
+    z = torch.linspace(0.0, 1.0, Z, device=DEVICE).view(1, 1, Z)
+    ux = (ROUTE_PROFILE_U * 16.0 * y * (1 - y) * z * (1 - z)).expand(X, Y, Z)
+    u = torch.stack([ux, torch.zeros_like(ux), torch.zeros_like(ux)])
+    return cfg.eq(cfg.lat, torch.ones(shape, device=DEVICE), u).float().contiguous()
+
+
+def route_hooked_sim(cid: str, streaming: str, route: str):
+    """``Simulation`` on the hooked 256^3 bench duct (CY(0.1, 1, 2, 0.5)
+    wrapped as the domain, scripts/bench_hooked.py:56-69) under ``cid``,
+    ROUTE_STEPS steps from ``route_profile``, counted from the end of
+    sim_init: ``route`` "plain" (the plain hooked step), "single_kernel"
+    (B10) or "pipeline" (the same hook through the u* pass, B9 and the
+    force_field step: ``single_kernel=False``)."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.kernels.hooked import make_hooked_fused_step
+    from tnl_lbm_tpu_torch.sim.state import Simulation
+    from torch_cases import collision_spec
+
+    class RouteDuct(Simulation):
+        def body_force(self, phys_time):
+            return np.array([FORCE_BENCH, 0.0, 0.0])
+
+        def _build_step(self):
+            super()._build_step()
+            if route == "pipeline":
+                self._step = make_hooked_fused_step(self.cfg, self.domain, self.device,
+                                                    single_kernel=False)
+
+        def sim_init(self):
+            super().sim_init()
+            self.f.copy_(route_profile(self.cfg, self.domain.shape))
+            self._initial_macro()
+
+    _, dom = flagship(BENCH_SHAPE, streaming=streaming)
+    cfg = hooked_cfg(interop.config_from_spec(**collision_spec(cid, streaming)), NN_BENCH_MODEL,
+                     dom.periodic)
+    sim = counting_from_init(RouteDuct(
+        cfg, dom, device=DEVICE, sim_id=f"route_{cid}_{streaming}_{route}",
+        results_parent=WORK / "collision_routes", phys_final_time=ROUTE_STEPS * dom.units.phys_dt,
+        steps_per_dispatch=10, use_fused=route != "plain"))
+    sim.sample_phases_at_finish = False
+    if not sim.run() or sim.iterations != ROUTE_STEPS:
+        raise RuntimeError(f"hooked {cid} {streaming} {route} failed ({sim.iterations} steps)")
+    torch.cuda.synchronize()
+    return sim
+
+
+def route_launches(streaming: str, route: str) -> dict:
+    """The launches of ROUTE_STEPS hooked steps through a route: one B10
+    launch a step, or one of each pipeline kernel a step (A-A: even and odd
+    by halves)."""
+    half = ROUTE_STEPS // 2
+    if route == "single_kernel":
+        return ({"nn_step_ab": ROUTE_STEPS} if streaming == "AB"
+                else {"nn_step_even": half, "nn_step_odd": ROUTE_STEPS - half})
+    if streaming == "AB":
+        return {"ab_step_macro_only": ROUTE_STEPS, "nn_force": ROUTE_STEPS,
+                "ab_step_force_field": ROUTE_STEPS}
+    return {"aa_even_macro_only": half, "aa_odd_macro_only": ROUTE_STEPS - half,
+            "nn_force": ROUTE_STEPS, "aa_even_force_field": half,
+            "aa_odd_force_field": ROUTE_STEPS - half}
+
+
+def route_runs() -> dict:
+    """The full-width runs under ROUTE_IDS, each with its launch counts set
+    to 0 at the end of sim_init and read after it:
+
+    - the 256^3 bench duct, A-A, ``pair_dispatch="auto"``: the probe times
+      the full-set pair (B1b) against per step and keeps the faster; its two
+      times, its choice, the run's launches and MLUPS;
+    - the hooked 256^3 duct, A-B and A-A: the plain hooked step, then B10
+      and the pipeline (u* pass, B9, the force_field step) with the same
+      hook, ROUTE_STEPS steps each from the same duct profile; f, rho and u
+      of each kernel route within TOL_APP of the plain run's (the apps
+      gate; KBC_N1 ROUTE_KBC_FACTOR times it), MLUPS, and each run's mean
+      rho - 1;
+    - sim_ibm res 1 under MRT_LES (the IBM through the u* pass and the
+      force_field step), IBM_ROUTE_STEPS steps through the kernels and
+      through the plain hooked step, CG pinned: rho and u within TOL_APP.
+
+    Returns {"launches": {record key: n}, "by_id": {(id, record key): n},
+    "auto": {id: (choice, pair ms, per-step ms, B1b launches, MLUPS)},
+    "mlups": {label: MLUPS}}."""
+    import torch
+
+    launches, by_id, auto, mlups = {}, {}, {}, {}
+
+    def add(key, n, cid):
+        launches[key] = launches.get(key, 0) + n
+        by_id[(cid, key)] = by_id.get((cid, key), 0) + n
+
+    for cid in ROUTE_IDS:
+        sim = collision_sim(cid, "AA", pair_dispatch="auto")
+        counted = report_main(sim, f"auto_{cid}_AA")
+        if sim.pair_probe_ms is None or sim.iterations != COLLISION_STEPS:
+            raise RuntimeError(f"{cid} A-A auto did not time the pair: {counted}")
+        chose = "pair" if sim.pair_dispatch else "per_step"
+        half = COLLISION_STEPS // 2
+        want = ({"even": 0, "odd": 0, "pair": half} if sim.pair_dispatch
+                else {"even": half, "odd": half, "pair": 0})
+        if counted != want or type(sim._pair).__name__ != "FusedPairAAFull":
+            raise RuntimeError(f"{cid} A-A auto ({chose}) ran {counted} through "
+                               f"{type(sim._pair).__name__}")
+        auto_choice(sim, f"256^3 {cid}")
+        ms_step, rate, _ = run_figures(sim)
+        t_pair, t_steps = sim.pair_probe_ms
+        auto[cid] = (chose, t_pair, t_steps, counted["pair"], rate)
+        mlups[f"auto_{cid}_AA"] = rate
+        log("collision_routes", path="auto", collision=cid, shape="256^3", chose=chose,
+            probe_pair_ms=f"{t_pair:.4f}", probe_per_step_ms=f"{t_steps:.4f}",
+            launches_pair=counted["pair"], launches_even=counted["even"],
+            launches_odd=counted["odd"], mlups=f"{rate:.1f}", ms_per_step=f"{ms_step:.4f}")
+        add("aa_pair_full", counted["pair"], cid)
+        add("aa_even", counted["even"], cid)
+        add("aa_odd", counted["odd"], cid)
+        del sim
+        torch.cuda.empty_cache()
+    for cid in ROUTE_IDS:
+        gate = TOL_APP * (ROUTE_KBC_FACTOR if cid.startswith("KBC") else 1)
+        for streaming in ("AB", "AA"):
+            plain = route_hooked_sim(cid, streaming, "plain")
+            ref = (plain.f.clone(), plain.rho.clone(), plain.u.clone())
+            mlups[f"hooked_{cid}_{streaming}_plain"] = run_figures(plain)[1]
+            plain_mass = float(plain.rho.double().mean() - 1)
+            del plain
+            torch.cuda.empty_cache()
+            for route in ("single_kernel", "pipeline"):
+                sim = route_hooked_sim(cid, streaming, route)
+                counted = report_main(sim, f"hooked_{cid}_{streaming}_{route}")
+                ran = {k: v for k, v in counted.items() if v}
+                if sim._step.route != route or ran != route_launches(streaming, route):
+                    raise RuntimeError(f"hooked {cid} {streaming}: route {sim._step.route}, "
+                                       f"launches {counted}")
+                d = (max_diff(sim.f, ref[0]), max_diff(sim.rho, ref[1]), max_diff(sim.u, ref[2]))
+                rate = run_figures(sim)[1]
+                mlups[f"hooked_{cid}_{streaming}_{route}"] = rate
+                log("collision_routes", path="hooked_duct", collision=cid, streaming=streaming,
+                    route=route, shape="256^3", steps=sim.iterations, mlups=f"{rate:.1f}",
+                    plain_mlups=f"{mlups[f'hooked_{cid}_{streaming}_plain']:.1f}",
+                    max_df_vs_plain_run=f"{d[0]:.3e}", max_drho_vs_plain_run=f"{d[1]:.3e}",
+                    max_du_vs_plain_run=f"{d[2]:.3e}", gate=gate,
+                    mean_rho_minus_1=f"{float(sim.rho.double().mean() - 1):.3e}",
+                    plain_mean_rho_minus_1=f"{plain_mass:.3e}",
+                    **{f"launches_{k}": v for k, v in counted.items() if v})
+                if max(d) > gate:
+                    raise RuntimeError(f"hooked {cid} {streaming} {route} vs the plain run: {d}")
+                for key, n in counted.items():
+                    add(key, n, cid)
+                del sim
+                torch.cuda.empty_cache()
+            del ref
+            torch.cuda.empty_cache()
+    kernel = ibm_sim(1, "route_mrt_les_kernel", IBM_ROUTE_STEPS, pinned=True, collision="MRT_LES")
+    counted = report_main(kernel, "ibm_res1_MRT_LES")
+    plain = ibm_sim(1, "route_mrt_les_plain", IBM_ROUTE_STEPS, use_fused=False, pinned=True,
+                    collision="MRT_LES")
+    d = (max_diff(kernel.rho, plain.rho), max_diff(kernel.u, plain.u))
+    rate = run_figures(kernel)[1]
+    mlups["ibm_res1_MRT_LES"] = rate
+    log("collision_routes", path="sim_ibm_res1", collision="MRT_LES",
+        shape="x".join(map(str, kernel.domain.shape)), steps=kernel.iterations,
+        max_drho_vs_plain_run=f"{d[0]:.3e}", max_du_vs_plain_run=f"{d[1]:.3e}",
+        mlups=f"{rate:.1f}", **{f"launches_{k}": v for k, v in counted.items() if v})
+    if max(d) > TOL_APP or counted.get("ab_step_force_field") != IBM_ROUTE_STEPS:
+        raise RuntimeError(f"sim_ibm res 1 under MRT_LES: kernel vs plain {d}, {counted}")
+    if kernel._step.base._instance[0] == "cum":
+        raise RuntimeError("sim_ibm under MRT_LES ran a cumulant instance")
+    for key, n in counted.items():
+        add(key, n, "MRT_LES")
+    del kernel, plain
+    torch.cuda.empty_cache()
+    return {"launches": launches, "by_id": by_id, "auto": auto, "mlups": mlups}
+
+
+def phase_collision_routes(floor_gbps: float, res: dict, site_ops: dict) -> dict:
+    """The rest of the D3Q27 collision set on the force_field steps (B4,
+    B2/B3; csrc/coll_*.cu), the one-kernel NN step (B10; csrc/nn_coll_*.cu)
+    and the full-set pair (B1b; csrc/pair_coll_*.cu): ``route_compares``,
+    ``route_timings`` and ``route_runs``.  Returns the record entries'
+    instances, errors and launches."""
+    t0 = time.perf_counter()
+    err = route_compares()
+    instances = route_timings(floor_gbps, res, site_ops, err)
+    _DEVELOPED.clear()  # the last of the 256^3 timings on the developed state
+    runs = route_runs()
+    for key, entries in instances.items():  # each instance's launches on the main paths
+        for e in entries:
+            e["launches"] = runs["by_id"].get((e["id"], key), 0)
+    log("collision_routes", seconds=f"{time.perf_counter() - t0:.1f}",
+        **{f"launches_{k}": v for k, v in runs["launches"].items()}, card=card_state())
+    runs.pop("by_id")
+    return {"instances": instances, "err": err, **runs}
 
 
 def two_kernel(sim):
@@ -2666,19 +3162,24 @@ IBM_TABLE = ("phi2", 96, 4096, 10)  # dirac, n, points, steps of the table row
 
 
 def ibm_sim(res: int, label: str, steps: int, use_fused: bool = True, pinned: bool = False,
-            steps_per_dispatch: int = 1, timed: bool = False):
+            steps_per_dispatch: int = 1, timed: bool = False, collision: str | None = None):
     """sim_ibm at ``res`` on the card, ``steps`` steps from the app's start,
     counted from the end of sim_init; ``pinned``: CG at IBM_PINNED
     iterations with a tolerance it never reaches; ``timed``: CUDA events
     around each step and the step's CG iterations and residual kept
-    (``sim.step_log``: (start, end, iterations, residual))."""
+    (``sim.step_log``: (start, end, iterations, residual)); ``collision``:
+    an id of ``COLLISIONS_D3Q27`` in place of the app's CUM (the app's
+    quadratic equilibrium and total DFs kept)."""
     import torch
 
     from tnl_lbm_tpu_torch.apps import sim_ibm
+    from tnl_lbm_tpu_torch.ops.collision import COLLISIONS_D3Q27
 
     t0 = time.perf_counter()
     sim = sim_ibm.build(res, device=DEVICE, use_fused=use_fused,
                         results_parent=WORK / "ibm" / label)
+    if collision is not None:
+        sim.cfg = dataclasses.replace(sim.cfg, collision=COLLISIONS_D3Q27[collision])
     build_s = time.perf_counter() - t0
     if timed:
         class Timed(type(sim)):
@@ -4497,6 +4998,30 @@ def bound(bytes_per_site: float, ops_per_site: tuple, sites: float | None = None
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: seconds per phase of this run, by function name (``timed_phases``)
+PHASE_SECONDS: dict = {}
+
+
+def timed_phases() -> None:
+    """Wrap every ``phase_*`` function of this module so that its seconds
+    add to PHASE_SECONDS, which the last log line reports."""
+    import functools
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+        return timed
+
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = wrap(name[6:], fn)
+
+
 def main() -> int:
     if not (ROOT / "tnl_lbm_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -4509,14 +5034,16 @@ def main() -> int:
     # the package, and the geometries shared with the tests (tests/torch_cases.py)
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     shutil.rmtree(WORK, ignore_errors=True)
+    timed_phases()
     t_start = time.perf_counter()
     device = phase_device()
     built = phase_build()
-    ops = built["ops"]
     hooked_cmp = phase_compare_hooked()
     steps = phase_compare_steps()
     aa_codes_err = phase_compare_aa_codes()
     pairs = phase_compare_pairs(steps["times"])
+    phase_build_rest(built)
+    ops = built["ops"]
     probe = phase_probes(pairs["times"]["aa_pair_f32"][0], ops)
     floor = gbps(232, probe["times"]["copy_permute"][0])
     ab = phase_compare_ab(steps["times"], floor)
@@ -4555,6 +5082,11 @@ def main() -> int:
     for name, n in phase_ibm().items():  # B4's macro_only and force_field instances
         kernels[name] = dataclasses.replace(kernels[name], launches=kernels[name].launches + n)
     t_ibm = time.perf_counter() - t_ibm
+    t_routes = time.perf_counter()
+    routes = phase_collision_routes(floor, built["res"], built["site_ops"])
+    for name, n in routes["launches"].items():  # the routes' runs on the main path
+        kernels[name] = dataclasses.replace(kernels[name], launches=kernels[name].launches + n)
+    t_routes = time.perf_counter() - t_routes
     compare_2d_err = phase_compare_2d()
     golden = phase_golden_2d(built["b5_variants"])
     apps_2d = phase_apps_2d()
@@ -4583,6 +5115,8 @@ def main() -> int:
         err[key] = max(e, hooked["err"].get(key, 0.0))
     nn_force_rel = max(hooked_cmp["nn_force_rel"], hooked["nn_force_rel"])
     err["d2q9_step_force_field"] = max(err["d2q9_step_force_field"], hooked_2d["err"])
+    for key, e in routes["err"].items():
+        err[key] = max(err.get(key, 0.0), e)
     chunk_timing = golden["timing"]
     err["d2q9_chunk"] = chunk_timing["chunk_max_df"]
     times = {**steps["times"], **pairs["times"], **probe["times"], **ab["times"],
@@ -4619,10 +5153,15 @@ def main() -> int:
             entry.update(registers=r["registers"], spill_stores=r.get("spill_stores", 0),
                          smem_bytes=geo["smem_bytes"], seg_len=geo["seg_len"])
         if key in COLLISION_KERNELS:  # the family sources' instances (csrc/coll_*.cu)
-            entry["instances"] = collisions["instances"][key]
+            entry["instances"] = collisions["instances"][key] + routes["instances"][key]
+        if key in ROUTE_KERNELS and key != "aa_pair_full":  # the family instances
+            entry["instances"] = routes["instances"][key]
         if key == "aa_pair_full":  # the pair against its least work, its instances
             entry.update(pair_ms=layouts["pair_ms"], pair_bound_ms=bound(*footprint[key])[0],
-                         b1_f32_ms_in_turns=layouts["b1_ms"], instances=layouts["instances"],
+                         b1_f32_ms_in_turns=layouts["b1_ms"],
+                         instances=layouts["instances"],
+                         family_instances=routes["instances"][key],
+                         auto_256=routes["auto"],
                          full_set_ms_256=layouts["full_set_ms"],
                          sim_1_res8_ms=layouts["sim1_ms"],
                          sim_1_res8_b2_plus_b3_ms=layouts["sim1_b2_b3_ms"],
@@ -4636,7 +5175,9 @@ def main() -> int:
     log("time", total_seconds=f"{total:.1f}", window_probes_seconds=f"{probe['window_seconds']:.1f}",
         layouts_seconds=f"{t_layouts:.1f}", bench_seconds=f"{t_bench:.1f}",
         dispatch_and_checkpoint_seconds=f"{t_dispatch:.1f}", ibm_seconds=f"{t_ibm:.1f}",
+        collision_routes_seconds=f"{t_routes:.1f}", build_seconds=f"{built['seconds']:.1f}",
         added_share=f"{added / total:.3f}")
+    log("time", **{f"{k}_seconds": f"{v:.1f}" for k, v in PHASE_SECONDS.items()})
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                              "count": device["count"]}}))

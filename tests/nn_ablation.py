@@ -64,10 +64,11 @@ FORCE_BLOCKS = "constexpr int FORCE_BLOCKS_PER_SM = 3;"
 U_LOOP = "#pragma unroll 1\n      for (int k = 0; k < nn::U_PER_THREAD; ++k) {"
 USTAR_PASS = "    if (j < L + 4) {\n      const int x = nn::plane_x(mr, j);"
 STRAIN_STEP = "    if (q >= 1 && q <= L + 2) nn::strain_plane(mr, q);"
-AB_SITE = ("        ab_site<WELL, EQ>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits, ps,"
-           " ux, uy,\n                          uz);")
-ODD_SITE = ("        aa_odd_site<WELL, EQ, false>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z,"
-            " P.pbits,\n                                     P.has_nothing != 0, ps, ux, uy, uz);")
+AB_SITE = ("        ab_site<WELL, EQ, false, C>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z,"
+           " P.pbits, ps,\n                                    ux, uy, uz);")
+ODD_SITE = ("        aa_odd_site<WELL, EQ, false, false, C>(f, fout, map, rho_out, u_out, x, y, z,"
+            " X, Y, Z,\n                                               P.pbits, P.has_nothing !="
+            " 0, ps, ux, uy, uz);")
 EVEN_SITE = "        if (m == GEO_NOTHING) {"
 FORCE_STEP = "      float F[3];\n      nn::force_at("
 STRAIN_FORCE = "    if (q >= 1 && q <= L + 2) nn::strain_plane(m, q);"

@@ -15,10 +15,12 @@ moves a step of the card's compare input far past the kernel's bound.
 (c) KBC_N1 with ``EQ_ENTROPIC`` through the A-B step against the JAX Pallas
 kernel in interpret mode.
 (d) The refusals of the kernels that have no instance of these
-collisions: B1 (and its variant check), B1b, B4s, B7, B8, B10, B4's
-force_field instances and the forcing-hook routes.  (e) ``Simulation``'s
-"auto" pair dispatch stays per step for such a config without building a
-pair; an explicit ``pair_dispatch=True`` raises.
+collisions, B1 (and its variant check), B4s, B7 and B8; the kernels that
+have them, B1b (and pair dispatch), the force_field instances of B4 and
+B2/B3, B10 and the forcing-hook routes, build and pick the family instance.
+(e) ``Simulation``'s "auto" pair dispatch stays per step for a config that
+no pair kernel takes (float64) without building a pair; an explicit
+``pair_dispatch=True`` raises.
 """
 
 import dataclasses
@@ -281,9 +283,11 @@ def duct():
 
 
 def test_pair_b1_takes_its_one_instance_only():
-    """B1 refuses, on the CPU, a CUM_WELL config whose well flag or
-    equilibrium its kernel does not compute, and so does pair dispatch,
-    which no longer hands it such a config; its one instance builds."""
+    """B1 refuses, on the CPU, a config it has no instance of: a CUM_WELL
+    config whose well flag or equilibrium its kernel does not compute, which
+    pair dispatch refuses too (no kernel has one), and another collision,
+    which pair dispatch hands to B1b on B1's own map; its one instance
+    builds."""
     m, periodic = duct()
     dom = interop.domain_from_numpy(m, periodic)
     for bad in (("CUM_WELL", "EQ", False), ("CUM_WELL", "EQ_INV_CUM", False),
@@ -291,7 +295,11 @@ def test_pair_b1_takes_its_one_instance_only():
         cfg = interop.config_from_spec(*bad, "AA")
         with pytest.raises(NotImplementedError, match="B1"):
             make_fused_pair2_aa(cfg, dom, "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP Bcol"):
+        if bad[0] == "SRT_WELL":
+            assert dispatch_pair_kind(cfg, dom) == "B1b"
+            assert type(make_dispatch_pair(cfg, dom, "cpu")).__name__ == "FusedPairAAFull"
+            continue
+        with pytest.raises(NotImplementedError, match=r"\(B1b\) has no instance"):
             make_dispatch_pair(cfg, dom, "cpu")
     good = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AA")
     assert dispatch_pair_kind(good, dom) == "B1"
@@ -327,8 +335,8 @@ def _other_kernels(cid):
     }
 
 
-REFUSING = ("B1", "B1b", "B1b dispatch", "B4s", "B4 force_field", "B2/B3 force_field", "B7",
-            "B8", "B10", "hooked")
+REFUSING = ("B1", "B4s", "B7", "B8")
+TAKING = ("B1b", "B1b dispatch", "B4 force_field", "B2/B3 force_field", "B10", "hooked")
 
 
 @pytest.mark.parametrize("kernel", REFUSING)
@@ -345,12 +353,39 @@ def test_kernels_without_the_instance_refuse_on_any_device(kernel, cid):
     assert cid in COLLISION_INSTANCES and step_instance(ab)[0].startswith("tnl_lbm_coll_")
 
 
+def _instances(built):
+    """The family instances a built kernel wrapper (or hooked step) picked."""
+    if hasattr(built, "kernels"):  # a hooked step: its routes' wrappers
+        return [i for k in built.kernels for i in _instances(k)]
+    inst = getattr(built, "_instance", None)
+    return [] if inst is None or inst[0] == "cum" else [inst]
+
+
+@pytest.mark.parametrize("kernel", TAKING)
+@pytest.mark.parametrize("cid", ("SRT", "CLBM_WELL", "KBC_C4"))
+def test_kernels_with_the_instance_build_and_pick_the_family_instance(kernel, cid):
+    """Each kernel that has the family instances builds on the CPU for a new
+    collision and picks its row: the per-step kernels' (entry, collision
+    index, equilibrium code, KBC bits), under the kernel's own entry."""
+    built = _other_kernels(cid)[kernel]()
+    want = step_instance(interop.config_from_spec(**spec(cid, "AB")))
+    got = _instances(built)
+    assert got and all(i == want for i in got), (got, want)
+    if kernel == "hooked":
+        assert built.route == "single_kernel" and built.nn_single._variant is None
+    if kernel.startswith("B1b"):
+        assert type(built).__name__ == "FusedPairAAFull" and built.variant == cid
+        assert pfused.family_entry(want, "pair") == want[0].replace("_coll_", "_pair_coll_")
+
+
 @pytest.mark.parametrize("bad", [("SRT", "EQ_WELL", False), ("SRT_WELL", "EQ", False),
-                                 ("KBC_N1", "EQ", True), ("CUM", "EQ_ENTROPIC", False)])
+                                 ("KBC_N1", "EQ", True), ("CUM", "EQ_WELL", False)])
 def test_per_step_kernels_refuse_a_storage_the_collision_does_not_take(bad):
     """The well flag stays tied to the collision: *_WELL with well=True and
     the well equilibrium, the rest with well=False and the quadratic,
-    inverse-cumulant or entropic one; CUM keeps its three instances."""
+    inverse-cumulant or entropic one; CUM keeps its four instances (the
+    entropic one in the family sources), none on the well equilibrium
+    without well=True."""
     with pytest.raises(NotImplementedError):
         step_instance(interop.config_from_spec(*bad, "AB"))
 
@@ -363,13 +398,15 @@ class Duct(Simulation):
 
 
 def test_auto_pair_dispatch_stays_per_step_without_a_pair_instance(tmp_path, monkeypatch):
-    """With no pair kernel having the config's instance, "auto" keeps
-    per-step dispatch from the config alone: it neither builds a pair nor
-    times one (the device type is set to "cuda" so that the probe's branch
-    is reached on the CPU).  An explicit ``pair_dispatch=True`` raises."""
+    """With no pair kernel having the config's instance (SRT_WELL computed
+    in float64: the pairs compute in float32), "auto" keeps per-step
+    dispatch from the config alone: it neither builds a pair nor times one
+    (the device type is set to "cuda" so that the probe's branch is reached
+    on the CPU).  An explicit ``pair_dispatch=True`` raises.  In float32 the
+    full-set pair (B1b) has the instance."""
     m, periodic = duct()
     dom = interop.domain_from_numpy(m, periodic, phys_viscosity=NU)
-    cfg = interop.config_from_spec(**spec("SRT_WELL", "AA"))
+    cfg = interop.config_from_spec(**spec("SRT_WELL", "AA"), dtype="float64")
 
     def build(pair_dispatch, tag):
         return Duct(cfg, dom, device="cpu", sim_id=tag, results_parent=tmp_path,
@@ -382,8 +419,10 @@ def test_auto_pair_dispatch_stays_per_step_without_a_pair_instance(tmp_path, mon
     assert sim._pair_dispatch_capable() and not sim._pair_has_instance()
     sim._resolve_pair_dispatch()
     assert sim.pair_dispatch is False and sim._pair is None
-    with pytest.raises(NotImplementedError, match="ROADMAP Bcol"):
+    with pytest.raises(NotImplementedError, match="float32 only"):
         build(True, "explicit").sim_init()
-    well = Duct(interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AA"), dom, device="cpu",
-                sim_id="cum_well", results_parent=tmp_path, phys_final_time=1.0, use_fused=True)
-    assert well._pair_has_instance()
+    for tag, spec32 in (("cum_well", ("CUM_WELL", "EQ_WELL", True, "AA")),
+                        ("srt_well", ("SRT_WELL", "EQ_WELL", True, "AA"))):
+        sim32 = Duct(interop.config_from_spec(*spec32), dom, device="cpu", sim_id=tag,
+                     results_parent=tmp_path, phys_final_time=1.0, use_fused=True)
+        assert sim32._pair_has_instance()

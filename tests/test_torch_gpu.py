@@ -390,6 +390,95 @@ def test_collision_instances_match_plain_on_card(cuda, cid, eq):
         assert counts == ((2,) if streaming == "AB" else (1, 1)) and step.plain_calls == 0
 
 
+#: the collision cases of the force_field, B10 and B1b family instances: the
+#: per-step compares' and CUM with the entropic equilibrium
+ROUTE_CASES = COLLISION_CASES + (("CUM", "EQ_ENTROPIC"),)
+ROUTE_IDS = [c + (f"-{e}" if e else "") for c, e in ROUTE_CASES]
+
+
+def _close(k, p, label):
+    torch.cuda.synchronize()
+    d = tuple(float((a - b).abs().max()) for a, b in zip(k, p))
+    assert d[0] <= KERNEL_TOL_F and d[1] <= 2e-6 and d[2] <= 1e-6, (label, d)
+
+
+@pytest.mark.parametrize("cid,eq", ROUTE_CASES, ids=ROUTE_IDS)
+def test_collision_routes_force_field_and_pair_match_plain_on_card(cuda, cid, eq):
+    """Each collision's force_field instances (B4 A-B on the box of every 3D
+    code, B2/B3 even then odd on the box of every A-A code, Z = 150) with a
+    seeded per-site force of ~1e-5 and a homogeneous one, and its full-set
+    pair (B1b, the box of every A-A code over several x segments), each
+    against its plain version on the same input at the step bounds; CUM
+    with eq_entropic also through the step's instances (its family row)."""
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair_aa
+
+    shape, force = (24, 20, 150), (1e-5, -2e-6, 3e-6)
+    rng = np.random.default_rng(13)
+    field = torch.from_numpy((1e-5 * rng.standard_normal((3,) + shape)).astype(np.float32))
+    field = field.to(cuda)
+    kw = dict(u_in=U_IN, force=field, force_add=force)
+    for streaming, m in (("AB", bc_box(shape)), ("AA", aa_box(shape))):
+        cfg = interop.config_from_spec(**collision_spec(cid, streaming, eq))
+        dom = interop.domain_from_numpy(m, (False, False, True))
+        step = (make_fused_step if streaming == "AB" else make_fused_step_aa)(
+            cfg, dom, cuda, force_field=True)
+        assert step._instance[0] != "cum"
+        f = seeded_state(cfg, shape, cuda, seed=11)
+        f = f + 1e-4 * torch.randn(f.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+        if cid == "CUM":
+            lean = (make_fused_step if streaming == "AB" else make_fused_step_aa)(cfg, dom, cuda)
+            g = f
+            for parity in ((0,) if streaming == "AB" else (0, 1)):
+                p = lean.plain(g, 0.02, u_in=U_IN, force=force, parity=parity)
+                k = lean(g.clone() if parity == 0 else g, 0.02, u_in=U_IN, force=force,
+                         parity=parity)
+                _close(k, p, (streaming, "step", parity))
+                g = k[0]
+        for parity in ((0,) if streaming == "AB" else (0, 1)):
+            p = step.plain(f, 0.02, parity=parity, **kw)
+            k = step(f.clone() if parity == 0 else f, 0.02, parity=parity, **kw)
+            _close(k, p, (streaming, "force_field", parity))
+            f = k[0]
+        if streaming == "AA":
+            pair = make_fused_pair_aa(cfg, dom, cuda)
+            assert pair.geometry()["segments"] >= 2
+            p = pair.plain(f, 0.02, u_in=U_IN, force=force)
+            _close(pair(f, 0.02, u_in=U_IN, force=force), p, "B1b")
+            assert pair.kernel.launches == 1 and pair.plain_calls == 0
+            assert (step.even.launches, step.odd.launches) == (1, 1)
+        else:
+            assert step.kernel.launches == 1 and step.plain_calls == 0
+
+
+@pytest.mark.parametrize("cid,eq", ROUTE_CASES, ids=ROUTE_IDS)
+def test_collision_routes_nn_step_matches_plain_on_card(cuda, cid, eq):
+    """Each collision's one-kernel NN step (B10), A-B, A-A even and odd, on
+    the wall duct with the Carreau-Yasuda hook CY(0.1, 1, 2, 0.5), against
+    the plain hooked step on the same input at the step bounds."""
+    import dataclasses
+
+    from tnl_lbm_tpu_torch.kernels.fused_nn_step import make_fused_nn_step
+    from tnl_lbm_tpu_torch.ops.non_newtonian import CarreauYasuda, make_nn_forcing_hook
+    from torch_cases import nn_case
+
+    m, periodic, _, hper = nn_case("duct")
+    model = CarreauYasuda(0.1, 1.0, 2.0, 0.5)
+    for streaming in ("AB", "AA"):
+        cfg = dataclasses.replace(
+            interop.config_from_spec(**collision_spec(cid, streaming, eq)),
+            forcing_hook=make_nn_forcing_hook(model, periodic=hper))
+        step = make_fused_nn_step(cfg, interop.domain_from_numpy(m, periodic), model, hper,
+                                  cuda)
+        assert step._variant is None
+        f = seeded_state(cfg, m.shape, cuda, seed=17)
+        for parity in ((0,) if streaming == "AB" else (0, 1)):
+            p = step.plain(f, 0.02, force=(1e-5, 0.0, 0.0), parity=parity)
+            k = step(f, 0.02, force=(1e-5, 0.0, 0.0), parity=parity)
+            _close(k, p, (streaming, parity))
+            f = k[0]
+        assert step.plain_calls == 0
+
+
 @pytest.mark.parametrize("app", ["sim_1", "sim_2", "sim_3"])
 def test_ab_kernel_matches_plain_on_the_apps(cuda, app, tmp_path):
     """One A-B step of each app at resolution 2 (sim_2 with A-B streaming)."""

@@ -28,7 +28,9 @@
 //
 // Instances: CUM_WELL, CUM with eq_quadratic and CUM with eq_inv_cum on the
 // full set, and a lean CUM_WELL instance for a map of FLUID, WALL and
-// NOTHING (B1's site updates, the ring of 9 groups, no stages).
+// NOTHING (B1's site updates, the ring of 9 groups, no stages).  The other
+// collisions, and CUM with eq_entropic, are pair_coll.cuh's (one source per
+// family) on the same march and geometry.
 //
 // Bound: HBM bytes, one read and one write of f per pair (216 B/site), the
 // map and 16 B of rho and u: 233 B/site.  Registers: 608 threads a block

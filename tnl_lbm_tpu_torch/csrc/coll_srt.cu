@@ -1,7 +1,7 @@
-// The per-step kernels (B4, B2, B3; coll_step.cuh) of the SRT and BGK
-// family: SRT, SRT_MODIF_FORCE and SRT_WELL (collisions.cuh Srt,
-// SrtModifForce, SrtWell), BGK and BGK_WELL (Bgk, BgkWell).  Entry
-// tnl_lbm_coll_srt, collision index in that order.
+// The per-step kernels (B4, B2, B3; coll_step.cuh), the step's and the
+// force_field ones, of the SRT and BGK family: SRT, SRT_MODIF_FORCE and
+// SRT_WELL (collisions.cuh Srt, SrtModifForce, SrtWell), BGK and BGK_WELL
+// (Bgk, BgkWell).  Entry tnl_lbm_coll_srt, collision index in that order.
 
 #include "coll_step.cuh"
 
@@ -11,12 +11,7 @@ COLL_KERNELS(srt_well, lbm::SrtWell, true)
 COLL_KERNELS(bgk, lbm::Bgk, false)
 COLL_KERNELS(bgk_well, lbm::BgkWell, true)
 
-static const lbm::CollKernel SRT_FAMILY[][3] = {
-    {ab_step_srt_kernel, aa_even_srt_kernel, aa_odd_srt_kernel},
-    {ab_step_srt_modif_force_kernel, aa_even_srt_modif_force_kernel,
-     aa_odd_srt_modif_force_kernel},
-    {ab_step_srt_well_kernel, aa_even_srt_well_kernel, aa_odd_srt_well_kernel},
-    {ab_step_bgk_kernel, aa_even_bgk_kernel, aa_odd_bgk_kernel},
-    {ab_step_bgk_well_kernel, aa_even_bgk_well_kernel, aa_odd_bgk_well_kernel}};
+static const lbm::CollRow SRT_FAMILY[] = {COLL_ROW(srt), COLL_ROW(srt_modif_force),
+                                          COLL_ROW(srt_well), COLL_ROW(bgk), COLL_ROW(bgk_well)};
 
 COLL_ENTRY(tnl_lbm_coll_srt, SRT_FAMILY)

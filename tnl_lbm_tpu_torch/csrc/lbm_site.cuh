@@ -752,10 +752,14 @@ __device__ __forceinline__ void ab_pull(const float* __restrict__ f, uint8_t m, 
 
 // The params of a site with a per-site force (the force_field variants):
 // the homogeneous force of p plus the site's force from ff [3, X, Y, Z],
-// as the plain hooked step adds the hook's output to the body force.
-__device__ __forceinline__ ABParams site_params(const ABParams& p, const float* __restrict__ ff,
-                                                int64_t site, int64_t N) {
-  ABParams s = p;
+// as the plain hooked step adds the hook's output to the body force.  P is
+// ABParams, or the family instances' CollParams, whose viscosity,
+// equilibrium kind and KBC bits pass through; the collision takes the sum
+// as its force (the SRT and BGK families' forcing terms read it).
+template <class P>
+__device__ __forceinline__ P site_params(const P& p, const float* __restrict__ ff, int64_t site,
+                                         int64_t N) {
+  P s = p;
   s.fx = p.fx + ff[site];
   s.fy = p.fy + ff[N + site];
   s.fz = p.fz + ff[2 * N + site];

@@ -1,6 +1,11 @@
 // One-kernel non-Newtonian LBM step for D3Q27 in float32 (B10): the u*
 // pass, the strain rate, the rheology, the NN force and the full site
-// update in one launch, one kernel per mode (A-B, A-A even, A-A odd).
+// update in one launch, one kernel per mode (A-B, A-A even, A-A odd) and
+// collision.  This source holds the march (nn_step_block) and its cumulant
+// instances; nn_coll_srt.cu, nn_coll_clbm.cu and nn_coll_kbc.cu instantiate
+// the march for the other collisions (collisions.cuh) through nn_coll.cuh,
+// which includes this source with NN_STEP_MARCH_ONLY defined (the march
+// without the instances and entries below it).
 //
 // Replaces the Pallas kernel of tnl_lbm_tpu/kernels/fused_nn_step.py
 // make_fused_nn_step (build_call :188, pallas_call :522), which collapses
@@ -72,21 +77,27 @@ constexpr int MODE_AB = 0;
 constexpr int MODE_EVEN = 1;
 constexpr int MODE_ODD = 2;
 
-struct NNStepParams {
-  ABParams p;        // omega, homogeneous force, inflow, neumaier
+// PP: the site parameters, ABParams (the cumulant instances below) or
+// CollParams (the family instances of nn_coll.cuh).
+template <class PP>
+struct NNStepParamsT {
+  PP p;              // omega, homogeneous force, inflow, neumaier (CollParams: nu, eq, kbc)
   nn::Rheology r;    // the hook's model at the lattice viscosity
   int pbits;         // the domain's periodic axes (the DF reads)
   int nn_bits;       // the hook's periodic axes (the stencils)
   int has_nothing;   // a NOTHING site is present (the odd push drops onto it)
 };
+using NNStepParams = NNStepParamsT<ABParams>;
 
-template <bool WELL, int EQ, int MODE>
+// One block's march; C is the collision of the site update (lbm_site.cuh
+// site_collide), which takes the total force F + F_nn as its force.
+template <bool WELL, int EQ, int MODE, class C = Cum<WELL>, class PP = ABParams>
 __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
                                               float* __restrict__ fout,
                                               const uint8_t* __restrict__ map,
                                               float* __restrict__ rho_out,
                                               float* __restrict__ u_out, int X, int Y, int Z,
-                                              int seg_len, const NNStepParams& P) {
+                                              int seg_len, const NNStepParamsT<PP>& P) {
   extern __shared__ __align__(16) float smem[];
   const nn::March mr = nn::march(smem, true, X, Y, Z, P.nn_bits, seg_len);
   const int64_t YZ = (int64_t)Y * Z, N = X * YZ;
@@ -130,17 +141,17 @@ __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
       float F[3];
       nn::force_at(mr, P.r, p, x, ly, lz, mr.rho[(p % nn::RHO_PLANES) * nn::THREADS + threadIdx.x],
                    F);
-      ABParams ps = P.p;
+      PP ps = P.p;
       ps.fx = P.p.fx + F[0];
       ps.fy = P.p.fy + F[1];
       ps.fz = P.p.fz + F[2];
       float ux, uy, uz;
       if constexpr (MODE == MODE_AB) {
-        ab_site<WELL, EQ>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits, ps, ux, uy,
-                          uz);
+        ab_site<WELL, EQ, false, C>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits, ps,
+                                    ux, uy, uz);
       } else if constexpr (MODE == MODE_ODD) {
-        aa_odd_site<WELL, EQ, false>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits,
-                                     P.has_nothing != 0, ps, ux, uy, uz);
+        aa_odd_site<WELL, EQ, false, false, C>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z,
+                                               P.pbits, P.has_nothing != 0, ps, ux, uy, uz);
       } else {
         // the even update out of place: same site, opposite slots
         const int64_t site = ((int64_t)x * Y + y) * Z + z;
@@ -154,7 +165,7 @@ __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
           float v[Q];
 #pragma unroll
           for (int q = 0; q < Q; ++q) v[q] = f[q * N + site];
-          site_collide<WELL, EQ>(v, m, ps, r, ux, uy, uz);
+          site_collide<WELL, EQ, C>(v, m, ps, r, ux, uy, uz);
 #pragma unroll
           for (int q = 0; q < Q; ++q) fout[q * N + site] = v[opp(q)];
         }
@@ -167,6 +178,8 @@ __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
     __syncthreads();
   }
 }
+
+#ifndef NN_STEP_MARCH_ONLY
 
 // One kernel per (collision, equilibrium kind, mode), named so that the
 // -Xptxas -v report can be read per instance.
@@ -237,3 +250,5 @@ extern "C" int tnl_lbm_nn_info(int kind, int X, int Y, int Z, int* out) {
     return nn::launch_info(X, Y, Z, nn::STEP_BLOCKS_PER_SM, nn::STEP_SMEM_BYTES, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#endif  // NN_STEP_MARCH_ONLY

@@ -23,10 +23,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("aa_even.cu", "aa_odd.cu", "aa_pair.cu", "aa_pair_full.cu", "ab_step.cu",
            "ab_step_sitemajor.cu", "ade_step.cu", "coll_clbm.cu", "coll_kbc.cu", "coll_srt.cu",
-           "coupled_ab.cu", "coupled_aa.cu", "d2q9_step.cu", "nn_force.cu", "nn_step.cu",
-           "probes.cu")
+           "coupled_ab.cu", "coupled_aa.cu", "d2q9_step.cu", "nn_coll_clbm.cu", "nn_coll_kbc.cu",
+           "nn_coll_srt.cu", "nn_force.cu", "nn_step.cu", "pair_coll_clbm.cu",
+           "pair_coll_kbc.cu", "pair_coll_srt.cu", "probes.cu")
 HEADERS = ("lbm_site.cuh", "pair_march.cuh", "ade_site.cuh", "nn_site.cuh", "collisions.cuh",
-           "coll_step.cuh")
+           "coll_step.cuh", "nn_coll.cuh", "pair_coll.cuh")
+#: the C entries of the collision families, per kernel: the per-step kernels
+#: (B4, B2, B3; ``coll_step.cuh``), the one-kernel NN step (B10; ``nn_coll.cuh``)
+#: and the full-set pair (B1b; ``pair_coll.cuh``)
+FAMILIES = ("srt", "clbm", "kbc")
+COLL_ENTRIES = tuple(f"tnl_lbm_coll_{fam}" for fam in FAMILIES)
+NN_COLL_ENTRIES = tuple(f"tnl_lbm_nn_coll_{fam}" for fam in FAMILIES)
+PAIR_COLL_ENTRIES = tuple(f"tnl_lbm_pair_coll_{fam}" for fam in FAMILIES)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -109,10 +117,14 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_aa_pair_full_info.argtypes = [i, i, i, i, p]
     lib.tnl_lbm_ab_step.argtypes = [p] * 6 + [i] * 6 + [f] * 7 + [i, p]
     lib.tnl_lbm_ab_step_sitemajor.argtypes = [p] * 5 + [i] * 5 + [f] * 7 + [i, p]
-    for name in ("tnl_lbm_coll_srt", "tnl_lbm_coll_clbm", "tnl_lbm_coll_kbc"):
-        fn = getattr(lib, name)
-        fn.argtypes = [i] * 4 + [p] * 5 + [i] * 5 + [f] * 7 + [i, p]
-        fn.restype = i
+    families = ((COLL_ENTRIES, [i] * 5 + [p] * 6 + [i] * 5 + [f] * 7 + [i, p]),
+                (NN_COLL_ENTRIES, [i] * 4 + [p] * 5 + [i] * 6 + [f] * 7 + [i, i] + [f] * 6 + [p]),
+                (PAIR_COLL_ENTRIES, [i] * 3 + [p] * 5 + [i] * 6 + [f] * 7 + [i, i, p]))
+    for names, argtypes in families:
+        for name in names:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i
     lib.tnl_lbm_ade_step.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, p]
     lib.tnl_lbm_coupled_ab.argtypes = [p] * 11 + [i] * 7 + [f] * 7 + [i] + [f] * 3 + [p]
     lib.tnl_lbm_coupled_aa.argtypes = [p] * 10 + [i] * 10 + [f] * 7 + [i] + [f] * 2 + [p]

@@ -50,8 +50,9 @@ AA_CODES = AB_CODES - {GEO.OUTFLOW_RIGHT_INTERP}
 PAIR_CODES = frozenset({GEO.FLUID, GEO.WALL, GEO.NOTHING})
 
 #: the cumulant instances of ``tnl_lbm_ab_step`` / ``tnl_lbm_aa_even`` /
-#: ``tnl_lbm_aa_odd``, their C ``variant`` per (collision id, well, equilibrium
-#: kind).  B1b, B4s, B7, B8, B10 and the force_field instances have these only.
+#: ``tnl_lbm_aa_odd`` (and of B1b's and B10's cumulant sources), their C
+#: ``variant`` per (collision id, well, equilibrium kind).  B4s, B7 and B8 have
+#: these only.
 CUM_VARIANTS = {("CUM_WELL", True, "well"): 0, ("CUM", False, "quad"): 1,
                 ("CUM", False, "invcum"): 2}
 #: the A-A kernels' variant for CUM_WELL on a map of PAIR_CODES: the odd step's lean
@@ -60,10 +61,13 @@ _AA_LEAN_VARIANT = 3
 #: the one instance of the one-kernel A-A pair (B1)
 PAIR_VARIANT = ("CUM_WELL", True, "well")
 
-#: the other collisions of the per-step kernels (B4, B2, B3), in the sources of
-#: their families (``csrc/coll_srt.cu``, ``coll_clbm.cu``, ``coll_kbc.cu``): id ->
-#: (C entry, collision index within it, KBC variant bits: 1 the trace, 2 the heat
-#: flux, 4 its central moments).  Their lean instances only (mode 0).
+#: the other collisions of the per-step kernels (B4, B2, B3, the step and its
+#: force_field mode), in the sources of their families (``csrc/coll_srt.cu``,
+#: ``coll_clbm.cu``, ``coll_kbc.cu``): id -> (C entry, collision index within it,
+#: KBC variant bits: 1 the trace, 2 the heat flux, 4 its central moments).  The
+#: one-kernel NN step (B10, ``csrc/nn_coll_*.cu``) and the full-set pair (B1b,
+#: ``csrc/pair_coll_*.cu``) have the same rows under their own entries
+#: (``family_entry``).
 COLLISION_INSTANCES = {
     "SRT": ("tnl_lbm_coll_srt", 0, 0), "SRT_MODIF_FORCE": ("tnl_lbm_coll_srt", 1, 0),
     "SRT_WELL": ("tnl_lbm_coll_srt", 2, 0), "BGK": ("tnl_lbm_coll_srt", 3, 0),
@@ -72,6 +76,11 @@ COLLISION_INSTANCES = {
     **{f"KBC_{k}{n}": ("tnl_lbm_coll_kbc", 0, (n in (2, 4)) | 2 * (n in (3, 4)) | 4 * (k == "C"))
        for k in "NC" for n in (1, 2, 3, 4)},
 }
+#: CUM with eq_entropic, which only the family sources have: the cumulant
+#: cascade on total DFs with the equilibrium kind read at run time, row 3 of
+#: the moment-space family (``csrc/coll_clbm.cu`` ``Cum<false>``)
+CUM_ENTROPIC = ("CUM", False, "entropic")
+CUM_ENTROPIC_INSTANCE = ("tnl_lbm_coll_clbm", 3, 0)
 #: the collisions on deviation (well-conditioned) DFs
 WELL_COLLISIONS = frozenset({"CUM_WELL", "SRT_WELL", "BGK_WELL", "CLBM_WELL"})
 #: the C code of each equilibrium kind (``csrc/lbm_site.cuh`` EQ_*); the family
@@ -223,45 +232,61 @@ def _described(cfg: LBMConfig) -> str:
     return f"{name} with well={well}, equilibrium kind {kind!r}"
 
 
-def step_instance(cfg: LBMConfig) -> tuple:
-    """The lean instance of the per-step kernels (the A-B step B4, the A-A
-    even/odd steps B2, B3) for cfg: ``("cum", variant)`` for the cumulant
-    instances of ``CUM_VARIANTS``, or ``(C entry, collision index, equilibrium
-    code, KBC bits)`` for a collision of ``COLLISION_INSTANCES``.  A check of
-    the config alone, on any device; the rest raises."""
+def step_instance(cfg: LBMConfig, kernel: str | None = None) -> tuple:
+    """The instance of cfg's collision in the kernels that take the whole
+    D3Q27 set (the A-B step B4, the A-A even/odd steps B2, B3, their
+    force_field mode, the one-kernel NN step B10, the full-set pair B1b):
+    ``("cum", variant)`` for the cumulant instances of ``CUM_VARIANTS``, or
+    ``(C entry, collision index, equilibrium code, KBC bits)`` for a family
+    row: a collision of ``COLLISION_INSTANCES``, or CUM with eq_entropic
+    (``CUM_ENTROPIC_INSTANCE``).  The entry is the per-step kernels'
+    (``family_entry`` gives B10's and B1b's).  A check of the config alone,
+    on any device; the rest raises, naming ``kernel`` (by default the
+    per-step kernels of cfg's streaming)."""
     key = variant_key(cfg)
     if key in CUM_VARIANTS:
         return "cum", CUM_VARIANTS[key]
+    if key == CUM_ENTROPIC:
+        entry, index, kbc = CUM_ENTROPIC_INSTANCE
+        return entry, index, EQ_CODES["entropic"], kbc
     cid, well, kind = key
-    kernel = "A-A even/odd" if cfg.streaming == "AA" else "A-B"
+    kernel = kernel or ("the A-A even/odd kernel (B2, B3)" if cfg.streaming == "AA"
+                        else "the A-B kernel (B4)")
+    missing = f"{kernel} has no instance of {_described(cfg)}"
     if cid not in COLLISION_INSTANCES:
         raise NotImplementedError(
-            f"the {kernel} CUDA kernels take CUM_WELL with well=True, CUM with eq_quadratic or "
-            f"eq_inv_cum and well=False, and the collisions {sorted(COLLISION_INSTANCES)}; got "
-            f"{_described(cfg)} (CUM with eq_entropic: {OTHER_KERNELS_ROADMAP})")
+            f"{missing}: the D3Q27 kernels take CUM_WELL with well=True, CUM with "
+            f"eq_quadratic, eq_inv_cum or eq_entropic and well=False, and the collisions "
+            f"{sorted(COLLISION_INSTANCES)}")
     wants_well = cid in WELL_COLLISIONS
     if well != wants_well or (kind == "well") != wants_well:
         raise NotImplementedError(
-            f"the {kernel} CUDA kernels take {cid} with "
+            f"{missing}: {cid} runs with "
             + ("well=True and the well-conditioned equilibrium" if wants_well else
-               "well=False and eq_quadratic, eq_inv_cum or eq_entropic")
-            + f"; got {_described(cfg)}")
+               "well=False and eq_quadratic, eq_inv_cum or eq_entropic"))
     entry, index, kbc = COLLISION_INSTANCES[cid]
     return entry, index, EQ_CODES[kind], kbc
 
 
+def family_entry(instance: tuple, kernel: str) -> str:
+    """The C entry of a family instance (``step_instance``, whose entry is
+    the per-step kernels' ``tnl_lbm_coll_<family>``) in ``kernel``'s sources:
+    "nn" (B10, ``tnl_lbm_nn_coll_<family>``) or "pair" (B1b,
+    ``tnl_lbm_pair_coll_<family>``), whose rows are in the same order."""
+    return instance[0].replace("tnl_lbm_coll_", f"tnl_lbm_{kernel}_coll_")
+
+
 def cum_variant(cfg: LBMConfig, kernel: str) -> int:
     """The C variant of a kernel that has the cumulant instances only
-    (``CUM_VARIANTS``: B1b, B4s, B7, B8, B10, the force_field instances);
-    anything else raises naming ``OTHER_KERNELS_ROADMAP``.  A check of the
-    config alone, on any device."""
+    (``CUM_VARIANTS``: B4s, B7, B8); anything else raises naming
+    ``OTHER_KERNELS_ROADMAP``.  A check of the config alone, on any device."""
     key = variant_key(cfg)
     if key not in CUM_VARIANTS:
         raise NotImplementedError(
             f"{kernel} has instances of CUM_WELL with well=True and the well-conditioned "
             f"equilibrium, and of CUM with eq_quadratic or eq_inv_cum and well=False, only; "
-            f"got {_described(cfg)} (the per-step kernels take the other collisions; on "
-            f"this kernel: {OTHER_KERNELS_ROADMAP})")
+            f"got {_described(cfg)} (the per-step kernels, their force_field mode, B10 and "
+            f"B1b take the other collisions; on this kernel: {OTHER_KERNELS_ROADMAP})")
     return CUM_VARIANTS[key]
 
 
@@ -272,8 +297,8 @@ def check_pair_variant(cfg: LBMConfig) -> None:
         raise NotImplementedError(
             f"the A-A pair kernel (B1) has one instance: CUM_WELL with well=True and the "
             f"well-conditioned equilibrium; got {_described(cfg)} (the full-set pair, "
-            f"make_fused_pair_aa, takes the other cumulant variants; other collisions: "
-            f"{OTHER_KERNELS_ROADMAP})")
+            f"make_fused_pair_aa, takes the other collisions and equilibria; B1's one "
+            f"instance: {OTHER_KERNELS_ROADMAP})")
 
 
 def _check_kernel_config(cfg: LBMConfig, domain: Domain, device: torch.device) -> None:
@@ -374,7 +399,7 @@ def aa_variant(cfg: LBMConfig, codes, lean: bool = True, kernel: str = "B1b") ->
     """The A-A cumulant kernels' variant for (cfg, the codes present):
     ``_AA_LEAN_VARIANT`` for CUM_WELL on a map of FLUID/WALL/NOTHING when
     ``lean``, else the A-B step's variant (``cum_variant``, naming
-    ``kernel`` where it raises)."""
+    ``kernel`` where it raises: cfg must be one of ``CUM_VARIANTS``)."""
     variant = cum_variant(cfg, kernel)
     if lean and variant == 0 and codes <= PAIR_CODES:
         return _AA_LEAN_VARIANT
@@ -487,15 +512,14 @@ def _stream_bc_collide(lat, cfg, codes, do_coll_codes, shifted, m, nu, force,
 
 def kernel_instance(cfg: LBMConfig, force_field: bool, macro_only: bool, kernel: str) -> tuple:
     """The instance of a per-step kernel (B4, B2, B3) for cfg and a step
-    variant: ``step_instance`` in the lean mode; the cumulant instances
-    only with ``force_field`` (``cum_variant``); with ``macro_only``, which
-    does not collide, the u* pass of cfg's storage (variant 0 on deviation
-    DFs, 1 on total DFs).  On any device."""
-    if force_field:
-        return "cum", cum_variant(cfg, f"the force_field instances of {kernel}")
+    variant: ``step_instance`` for the step and its ``force_field`` mode
+    (naming ``kernel`` where it raises); with ``macro_only``, which does not
+    collide, the u* pass of cfg's storage (variant 0 on deviation DFs, 1 on
+    total DFs).  On any device."""
     if macro_only:
         return "cum", 0 if cfg.well else 1
-    return step_instance(cfg)
+    return step_instance(cfg, (f"the force_field instances of {kernel}" if force_field
+                               else None))
 
 
 #: the ``pattern`` argument of the family sources' entries: the A-B step, the
@@ -504,14 +528,17 @@ PATTERN_AB, PATTERN_EVEN, PATTERN_ODD = 0, 1, 2
 
 
 def launch_collision(lib, instance, pattern: int, f, fout, m, rho, u, shape, periodic,
-                     has_nothing: bool, nu: float, fvec, uvec, neumaier: int, stream_ptr) -> int:
-    """Launch a per-step kernel's instance of a collision of
-    ``COLLISION_INSTANCES`` (``instance`` from ``step_instance``) through its
-    family's C entry; returns the CUDA error code."""
+                     has_nothing: bool, nu: float, fvec, uvec, neumaier: int, stream_ptr,
+                     field=None) -> int:
+    """Launch a per-step kernel's family instance (``instance`` from
+    ``step_instance``) through its family's C entry, in the force_field mode
+    when ``field`` (the per-site force) is given; returns the CUDA error
+    code."""
     entry, index, eq_code, kbc = instance
     X, Y, Z = shape
-    return getattr(lib, entry)(pattern, index, eq_code, kbc, f.data_ptr(),
-                               None if fout is None else fout.data_ptr(), m.data_ptr(),
+    return getattr(lib, entry)(pattern, int(field is not None), index, eq_code, kbc,
+                               f.data_ptr(), None if fout is None else fout.data_ptr(),
+                               m.data_ptr(), None if field is None else field.data_ptr(),
                                rho.data_ptr(), u.data_ptr(), X, Y, Z, _periodic_bits(periodic),
                                int(has_nothing), nu, *fvec, *uvec, neumaier, stream_ptr)
 
@@ -555,8 +582,9 @@ class FusedStepAB:
     -> (f_new, rho, u)``.
 
     One A-B step (pull, the full 3D BC set, the config's collision: an
-    instance of ``csrc/ab_step.cu`` for CUM_WELL and CUM, of
-    ``csrc/coll_*.cu`` for the collisions of ``COLLISION_INSTANCES``) out of place:
+    instance of ``csrc/ab_step.cu`` for CUM_WELL and CUM with eq_quadratic or
+    eq_inv_cum, of ``csrc/coll_*.cu`` for the other collisions and CUM with
+    eq_entropic, ``step_instance``, in either variant) out of place:
     the result goes to a new tensor, or into ``out`` (a second state
     buffer, not ``f``), so a caller can ping-pong two buffers; rho and u
     go to new tensors, or into ``macro_out`` (a pair of buffers).  ``u_in``
@@ -675,7 +703,7 @@ class FusedStepAB:
         else:
             rc = launch_collision(lib, self._instance, PATTERN_AB, f, f_new, self.map, rho, u,
                                   self.shape, self.periodic, False, nu, fvec, uvec, neumaier,
-                                  stream_ptr)
+                                  stream_ptr, field)
         if rc != 0:
             raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
         self.kernel.launches += 1

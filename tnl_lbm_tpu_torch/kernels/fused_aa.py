@@ -18,17 +18,19 @@ d3q27/streaming_AA.h) alternates two parities on one state:
   read, the input planes staged ahead by bulk copies (TMA); the state
   optionally stored in float16 or bfloat16 (half storage, see
   :class:`FusedPairAA`).  It writes a new buffer.
-- **full-set pair** (:class:`FusedPairAAFull`, ``csrc/aa_pair_full.cu``): the
-  pair's x-march in one launch over the even/odd steps' site updates, with
-  their codes and variants.
+- **full-set pair** (:class:`FusedPairAAFull`, ``csrc/aa_pair_full.cu`` and
+  ``csrc/pair_coll_*.cu``): the pair's x-march in one launch over the
+  even/odd steps' site updates, with their codes and collisions.
 
 The even and odd steps take the A-B step's boundary set but
 OUTFLOW_RIGHT_INTERP (JAX ``fused_aa.py`` runs ``_stream_bc_collide`` on the
-A-B config) and its collisions: CUM_WELL, CUM with ``eq_quadratic`` or
-``eq_inv_cum``, and the collisions of ``kernels/fused.py
-COLLISION_INSTANCES`` (``csrc/coll_*.cu``).  The pair takes FLUID/WALL/NOTHING and CUM_WELL
+A-B config) and its collisions (``kernels/fused.py step_instance``):
+CUM_WELL, CUM with ``eq_quadratic`` or ``eq_inv_cum``, and in the family
+sources (``csrc/coll_*.cu``) the collisions of ``kernels/fused.py
+COLLISION_INSTANCES`` and CUM with ``eq_entropic``, in both modes (the step
+and force_field).  The pair takes FLUID/WALL/NOTHING and CUM_WELL
 (``kernels/fused.py PAIR_CODES``), the full-set pair the even and odd
-steps' codes and variants, in float32; :func:`make_dispatch_pair` picks the
+steps' codes and collisions, in float32; :func:`make_dispatch_pair` picks the
 one a run's pair dispatch launches.
 
 ``even_step_plain`` / ``odd_step_plain`` (and their composition,
@@ -61,12 +63,13 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     check_out,
     check_pair_variant,
     collision_id,
-    cum_variant,
+    family_entry,
     into,
     kernel_instance,
     launch_collision,
     macro_buffers,
     site_force,
+    step_instance,
     supports,
     variant_key,
     variant_mode,
@@ -157,11 +160,12 @@ class FusedStepAA:
     (``kernels/fused.py aa_variant``).
 
     Variants (JAX ``make_fused_step_aa``'s flags), each its own instance of
-    both kernels; neither has a lean instance, so they take the full-set
-    CUM_WELL one:
+    both kernels; neither has a lean instance, so CUM_WELL takes the
+    full-set one:
 
     - ``force_field``: ``force`` is a per-site [3, X, Y, Z] float32 tensor on
-      f's device plus the [3] host vector ``force_add`` at every site.  The
+      f's device plus the [3] host vector ``force_add`` at every site, the
+      collision's force too (every collision of ``step_instance``).  The
       odd step collides each site with the force of that site and pushes
       as the plain odd step does, so the edge-replicated layers carry the
       edge site's own post-collision DFs, which reproduces the JAX kernel's
@@ -265,7 +269,7 @@ class FusedStepAA:
             f_new = f if parity == 0 else (torch.empty_like(f) if out is None else out)
             rc = launch_collision(lib, self._instance, pattern, f, f_new, self.map, rho, u,
                                   self.shape, self.periodic, GEO.NOTHING in self.codes, nu, fvec,
-                                  uvec, neumaier, stream_ptr)
+                                  uvec, neumaier, stream_ptr, field)
             if rc != 0:
                 raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
             kernel.launches += 1
@@ -466,10 +470,13 @@ class FusedPairAAFull:
     ``out`` (a second state buffer, not ``f``, which is never written), so
     a caller can ping-pong two buffers and a CUDA graph replay the launch
     on fixed ones.  ``u_in`` and ``force`` are homogeneous [3] vectors given
-    as host values.  The codes and variants are the A-A even/odd steps' (all
-    but OUTFLOW_RIGHT_INTERP; CUM_WELL, CUM with eq_quadratic or
-    eq_inv_cum); on a map of FLUID, WALL and NOTHING the kernel runs its
-    lean CUM_WELL instance.  ``kernel`` counts the launches,
+    as host values.  The codes and collisions are the A-A even/odd steps'
+    (all but OUTFLOW_RIGHT_INTERP; ``kernels/fused.py step_instance``: the
+    cumulant instances in ``csrc/aa_pair_full.cu``, the rest in the family
+    sources ``csrc/pair_coll_*.cu``); on a map of FLUID, WALL and NOTHING
+    CUM_WELL runs the lean instance.  ``variant`` is the C variant of a
+    cumulant instance (a caller may set it to another one before a launch)
+    or the collision's id.  ``kernel`` counts the launches,
     ``plain_calls`` the CPU-path calls; ``seg_len`` is the x extent each
     block marches (None: the kernel's own choice), which the result does not
     depend on.
@@ -491,7 +498,9 @@ class FusedPairAAFull:
         self.kernel = CudaKernel("aa_pair_full", "tnl_lbm_tpu_torch/csrc/aa_pair_full.cu",
                                  "tnl_lbm_tpu/kernels/fused_aa.py:1274")
         self.plain_calls = 0
-        self.variant = aa_variant(cfg, self.codes, kernel="the full-set A-A pair (B1b)")
+        self._instance = step_instance(cfg, "the full-set A-A pair (B1b)")
+        self.variant = (aa_variant(cfg, self.codes) if self._instance[0] == "cum"
+                        else collision_id(cfg))
         if self.device.type == "cuda":
             _check_kernel_config(cfg, domain, self.device)
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
@@ -506,7 +515,9 @@ class FusedPairAAFull:
         if self.device.type != "cuda":
             raise ValueError("the pair kernel's geometry exists on a CUDA device only")
         out = (ctypes.c_int * len(_FULL_GEOMETRY_KEYS))()
-        rc = load_library().tnl_lbm_aa_pair_full_info(self.variant, *self.shape, out)
+        # a family instance has the full-set cumulant instances' geometry
+        variant = self.variant if self._instance[0] == "cum" else 0
+        rc = load_library().tnl_lbm_aa_pair_full_info(variant, *self.shape, out)
         if rc != 0:
             raise RuntimeError(f"tnl_lbm_aa_pair_full_info failed: CUDA error {rc}")
         geo = dict(zip(_FULL_GEOMETRY_KEYS, out))
@@ -557,13 +568,19 @@ class FusedPairAAFull:
         rho = u = None
         if self.with_macro:
             rho, u = macro_buffers(macro_out, (X, Y, Z), 3, f.dtype, f.device)
-        rc = load_library().tnl_lbm_aa_pair_full(
-            f.data_ptr(), f2.data_ptr(), self.map.data_ptr(),
-            None if rho is None else rho.data_ptr(), None if u is None else u.data_ptr(),
-            X, Y, Z, _periodic_bits(self.periodic), int(GEO.NOTHING in self.codes),
-            int(self.with_macro), self.variant, nu, *fvec, *uvec,
-            int(self.cfg.high_precision_rho), self.seg_len or 0,
-            ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream))
+        lib = load_library()
+        ptrs = (f.data_ptr(), f2.data_ptr(), self.map.data_ptr(),
+                None if rho is None else rho.data_ptr(), None if u is None else u.data_ptr())
+        rest = (X, Y, Z, _periodic_bits(self.periodic), int(GEO.NOTHING in self.codes),
+                int(self.with_macro))
+        tail = (*fvec, *uvec, int(self.cfg.high_precision_rho), self.seg_len or 0,
+                ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream))
+        if self._instance[0] == "cum":
+            rc = lib.tnl_lbm_aa_pair_full(*ptrs, *rest, self.variant, nu, *tail)
+        else:
+            _, index, eq_code, kbc = self._instance
+            rc = getattr(lib, family_entry(self._instance, "pair"))(
+                index, eq_code, kbc, *ptrs, *rest, nu, *tail)
         if rc != 0:
             raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
         self.kernel.launches += 1
@@ -586,9 +603,9 @@ def make_fused_pair_aa(cfg: LBMConfig, domain: Domain, device, with_macro: bool 
 def dispatch_pair_kind(cfg: LBMConfig, domain: Domain, store_dtype=None) -> str:
     """Which pair kernel pair dispatch runs for (cfg, domain): "B1" (the
     one-kernel pair) on a map of FLUID/WALL/NOTHING under its one instance
-    (``PAIR_VARIANT``), in any store dtype; "B1b" (the full-set pair) on
-    every other map and cumulant variant the A-A steps take, in float32.
-    A config neither has an instance of raises NotImplementedError.  Decided
+    (``PAIR_VARIANT``), in any store dtype; "B1b" (the full-set pair) for
+    every other config of ``step_instance`` on an A-A map, in float32.  A
+    config neither has an instance of raises NotImplementedError.  Decided
     from the config and the map, on any device; nothing is built."""
     if variant_key(cfg) == PAIR_VARIANT and supports(domain, "AA", pair=True):
         return "B1"
@@ -597,7 +614,7 @@ def dispatch_pair_kind(cfg: LBMConfig, domain: Domain, store_dtype=None) -> str:
             "half storage runs through the one-kernel pair, which takes FLUID, WALL and "
             "NOTHING under CUM_WELL; the full-set pair (B1b) that takes this map or "
             "collision has float32 instances only (16-bit B1b instances: ROADMAP B1h)")
-    cum_variant(cfg, "the full-set A-A pair (B1b)")
+    step_instance(cfg, "the full-set A-A pair (B1b)")
     if cfg.compute_dtype != torch.float32:
         raise NotImplementedError("the full-set pair computes in float32 only "
                                   "(f64 kernels: ROADMAP A8)")
@@ -609,8 +626,9 @@ def make_dispatch_pair(cfg: LBMConfig, domain: Domain, device, store_dtype=None)
     domain), as :func:`dispatch_pair_kind` picks it: the one-kernel pair
     (B1, :func:`make_fused_pair2_aa`) or the full-set pair (B1b,
     :func:`make_fused_pair_aa`).  The JAX package's pair takes every A-A map
-    but OUTFLOW_RIGHT_INTERP under every collision; a config neither kernel
-    has an instance of raises, on any device."""
+    but OUTFLOW_RIGHT_INTERP under every collision, and so do the two
+    together in float32; a config neither kernel has an instance of raises,
+    on any device."""
     if dispatch_pair_kind(cfg, domain, store_dtype) == "B1":
         return make_fused_pair2_aa(cfg, domain, device, store_dtype=store_dtype)
     return make_fused_pair_aa(cfg, domain, device)

@@ -3,10 +3,13 @@ force and the full site update in one launch per step.
 
 Counterpart of ``tnl_lbm_tpu/kernels/fused_nn_step.py``
 ``make_fused_nn_step`` and ``supports``.  :class:`FusedNNStep` launches
-``csrc/nn_step.cu`` - one kernel per mode: A-B, A-A even, A-A odd - on
-CUDA tensors, and runs its plain version on CPU tensors: the plain hooked
-step (``sim/step.py`` with ``make_nn_forcing_hook(model, periodic=
-nn_periodic)``).  It never runs the plain version in the kernel's place.
+``csrc/nn_step.cu`` (the cumulant instances) or ``csrc/nn_coll_*.cu`` (the
+other collisions and CUM with eq_entropic, ``kernels/fused.py
+step_instance``) - one kernel per mode: A-B, A-A even, A-A odd - on CUDA
+tensors, and runs its plain version on CPU tensors: the plain hooked step
+(``sim/step.py`` with ``make_nn_forcing_hook(model, periodic=
+nn_periodic)``), whose collision takes the body force plus the NN force, as
+the kernel's does.  It never runs the plain version in the kernel's place.
 
 The stencil's periodicity (``nn_periodic``) and the domain's are two flags:
 the DF reads follow the domain, the u*/S/mask stencil the hook.  The JAX
@@ -30,11 +33,12 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     _prep,
     _u_in3,
     check_out,
-    cum_variant,
+    family_entry,
     host_vector3,
     into,
     kernel_codes,
     macro_buffers,
+    step_instance,
 )
 from tnl_lbm_tpu_torch.kernels.fused_nn import nn_bits, rheology_args
 from tnl_lbm_tpu_torch.ops.boundary import GEO
@@ -99,7 +103,9 @@ class FusedNNStep:
         self.even = CudaKernel("nn_step_even", source, replaces)
         self.odd = CudaKernel("nn_step_odd", source, replaces)
         self.plain_calls = 0
-        self._variant = cum_variant(cfg, "the one-kernel NN step (B10)")
+        self._instance = step_instance(plain_cfg, "the one-kernel NN step (B10)")
+        #: the C variant of a cumulant instance (None for a family instance)
+        self._variant = self._instance[1] if self._instance[0] == "cum" else None
         if self.device.type == "cuda":
             _check_kernel_config(plain_cfg, domain, self.device)
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
@@ -143,12 +149,17 @@ class FusedNNStep:
         mode = _MODES[(self.streaming, parity)]
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
         kind, nu32, *consts = rheology_args(self.model, nu)
-        rc = lib.tnl_lbm_nn_step(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
-                                 rho.data_ptr(), u.data_ptr(), X, Y, Z,
-                                 _periodic_bits(self.periodic), nn_bits(self.nn_periodic),
-                                 int(GEO.NOTHING in self.codes), self._variant, mode, nu32,
-                                 *fvec, *uvec, int(self.cfg.high_precision_rho), kind, *consts,
-                                 stream_ptr)
+        ptrs = (f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(), rho.data_ptr(),
+                u.data_ptr())
+        bits = (X, Y, Z, _periodic_bits(self.periodic), nn_bits(self.nn_periodic),
+                int(GEO.NOTHING in self.codes))
+        tail = (nu32, *fvec, *uvec, int(self.cfg.high_precision_rho), kind, *consts, stream_ptr)
+        if self._variant is not None:
+            rc = lib.tnl_lbm_nn_step(*ptrs, *bits, self._variant, mode, *tail)
+        else:
+            _, index, eq_code, kbc = self._instance
+            rc = getattr(lib, family_entry(self._instance, "nn"))(mode, index, eq_code, kbc,
+                                                                  *ptrs, *bits, *tail)
         kernel = (self.ab, self.even, self.odd)[mode]
         if rc != 0:
             raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")

@@ -5,7 +5,9 @@ The reference folds per-site forcing into its production kernel through
 macro force channels: a pre-kernel computes u* (kernels.h:178-218), the hook
 (the non-Newtonian stress kernels, the IBM force solve) fills the channels,
 and the main kernel consumes them (kernels.h:92).  A hooked step here takes
-one of two routes, as the JAX package picks them:
+one of two routes, as the JAX package picks them (from the hook and the
+map, never the collision: every kernel of both routes has an instance of
+each D3Q27 collision of ``kernels/fused.py step_instance``):
 
 - **single kernel** (B10, ``kernels/fused_nn_step.py``): a hook made by
   ``make_nn_forcing_hook`` on a D3Q27 domain that ``fused_nn_step.supports``
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 
 from tnl_lbm_tpu_torch.kernels import fused_nn_step
-from tnl_lbm_tpu_torch.kernels.fused import cum_variant, make_fused_step
+from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
 from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
 from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_step_aa
 from tnl_lbm_tpu_torch.kernels.fused_nn import make_nn_force_kernel
@@ -83,10 +85,8 @@ class HookedStep:
         nn_model = getattr(hook, "nn_model", None)
         nn_periodic = getattr(hook, "nn_periodic", None)
         D = self.lat.D
-        if D == 3:
-            cum_variant(cfg_nohook, "the forcing-hook routes (B10; B4, B2, B3's macro_only and "
-                                    "force_field instances with B9)")
-
+        # each route's wrapper checks its instance of cfg's collision
+        # (kernels/fused.py step_instance) and raises naming its kernel
         self.nn_single = None
         if (single_kernel and D == 3 and nn_model is not None
                 and fused_nn_step.supports(cfg, domain, nn_periodic)):
