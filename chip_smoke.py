@@ -313,6 +313,31 @@ script exits non-zero without printing a result.
    on 96^3, both methods; ``python -m tnl_lbm_tpu_torch.ibm_tables``).
    B4's two instances add the res-4 run's launches to the record.
 
+11. double_and_profile (after the accuracy runs, whose float32 L1 it reads):
+   the float64 instances of sim_2's path and B4's profile instance.  The
+   instances' registers, spills and their SASS FP32, SFU and FP64
+   (DFMA, DADD, DMUL) slots per thread; each against its plain version
+   (float64 at |df| <= 1e-12, |drho| <= 2e-12, |du| <= 1e-12, float32 at
+   the step bounds): B4 float64 and B4's profile instance (float32,
+   float64; [3, 1, Y, Z] and [3, X, Y, Z] profiles) on ``bc_box((24, 20,
+   150))``, two steps with an inflow velocity and a force that float32
+   cannot hold; B2/B3 float64 on sim_2's res-2 duct (the lean odd
+   instance) and on ``aa_box``, four steps; B1 float64 on sim_2's res-2
+   duct and a 20x36x40 duct box in x segments of 7, closed, periodic in x
+   and z, and periodic (all fluid), two pairs.  Then each at 256^3 on CUDA
+   events (20 launches; plain: one call) beside P1: B4 float64 on the
+   bench duct A-B, B2, B3 and B1 float64 on the bench duct A-A, B4's
+   profile instances on sim_2 --velocity res 8 in turns with the vector
+   instance on the same map and state; bound at 465 B/site (float64) or
+   233 B plus the profile's bytes (float32), and in FP64-pipe slots.  Then
+   sim_2 res 2 ``--precision double`` to t = 50 s per step, in pairs,
+   under "auto" (its pick and probe times) and A-B: L1 within 5% of the
+   start-up solution at the same iteration, printed beside the float32
+   runs' L1 there; sim_2 ``--velocity`` res 4 (128^3), 100 steps through
+   ``Simulation._advance`` against the plain step on the card (1e-5 in
+   float32, 1e-10 in float64), and res 8 (256^3), 200 steps in float32 and
+   float64 with MLUPS.  The six record entries' launches are these runs'.
+
 The line before the last is the kernels' JSON record (bound_ms: the larger
 of the bytes over the published 3.35 TB/s and the FP32 instructions over
 the card's issue rate, one FP32-pipe slot each at 128 lanes an SM (MUFU
@@ -371,10 +396,14 @@ SIM1_AA_PLAIN_RES = 4  # sim_1 A-A kernel vs plain: the plain step's temporaries
 #: of a lane) and of the SFU (MUFU) on an H100; the card's SM count and
 #: maximum SM clock give the rates (``card_rates``)
 FP32_LANES, SFU_LANES = 128, 16
-#: SASS opcodes that take one FP32-pipe slot, and the SFU's
+#: lanes per SM of the FP64 pipe (every DFMA, DADD or DMUL one issue slot):
+#: half the FP32 pipe's, 34 TFLOP/s outside the tensor cores at 132 SMs
+FP64_LANES = 64
+#: SASS opcodes that take one FP32-pipe slot, the SFU's, and the FP64 pipe's
 FP32_PIPE_OPS = frozenset({"FADD", "FADD32I", "FMUL", "FMUL32I", "FFMA", "FFMA32I", "FMNMX",
                            "FMNMX32I"})
 SFU_OPS = frozenset({"MUFU"})
+FP64_PIPE_OPS = frozenset({"DFMA", "DADD", "DMUL"})
 #: the card's issue rates (``card_rates``), set by ``phase_device``
 RATES: dict = {}
 TOL_G, TOL_PHI = 1e-6, 2e-6
@@ -546,18 +575,20 @@ def gbps(bytes_per_site: float, ms: float) -> float:
 
 
 def card_rates(sms: int, max_sm_mhz: float) -> dict:
-    """FP32-pipe and SFU issue slots per second of a card with ``sms`` SMs
-    at ``max_sm_mhz``: FP32_LANES and SFU_LANES lanes per SM and clock."""
+    """FP32-pipe, SFU and FP64-pipe issue slots per second of a card with
+    ``sms`` SMs at ``max_sm_mhz``: FP32_LANES, SFU_LANES and FP64_LANES
+    lanes per SM and clock."""
     hz = max_sm_mhz * 1e6
     return {"sms": sms, "max_sm_mhz": max_sm_mhz, "fp32_per_s": sms * FP32_LANES * hz,
-            "sfu_per_s": sms * SFU_LANES * hz}
+            "sfu_per_s": sms * SFU_LANES * hz, "fp64_per_s": sms * FP64_LANES * hz}
 
 
-def ops_ms(fp32: float, mufu: float, rates: dict) -> float:
-    """The least time in ms for ``fp32`` FP32-pipe and ``mufu`` SFU
-    instructions (counted per lane): each pipe's count over its rate, the
-    slower pipe's."""
-    return max(fp32 / rates["fp32_per_s"], mufu / rates["sfu_per_s"]) * 1e3
+def ops_ms(fp32: float, mufu: float, rates: dict, fp64: float = 0.0) -> float:
+    """The least time in ms for ``fp32`` FP32-pipe, ``mufu`` SFU and ``fp64``
+    FP64-pipe instructions (counted per lane): each pipe's count over its
+    rate, the slowest pipe's."""
+    return max(fp32 / rates["fp32_per_s"], mufu / rates["sfu_per_s"],
+               fp64 / rates["fp64_per_s"]) * 1e3
 
 
 def phase_device() -> dict:
@@ -574,7 +605,8 @@ def phase_device() -> dict:
     log("device", name=repr(info["kind"]), count=info["count"], nvidia_smi=repr(smi),
         torch=torch.__version__, cuda=torch.version.cuda, sms=RATES["sms"],
         max_sm_mhz=RATES["max_sm_mhz"], fp32_slots_per_s=f"{RATES['fp32_per_s']:.4e}",
-        sfu_slots_per_s=f"{RATES['sfu_per_s']:.4e}")
+        sfu_slots_per_s=f"{RATES['sfu_per_s']:.4e}",
+        fp64_slots_per_s=f"{RATES['fp64_per_s']:.4e}")
     return info
 
 
@@ -609,11 +641,13 @@ def collision_tag(cid: str) -> str:
     return "kbc" if cid.startswith("KBC") else cid.lower()
 
 
-def count_sass_ops(sass: str, subroutines: bool = True) -> dict:
+def count_sass_ops(sass: str, subroutines: bool = True, fp64: bool = False) -> dict:
     """Per kernel of a ``cuobjdump -sass`` listing: (FP32-pipe instructions,
-    SFU instructions) per thread.  Every FADD, FMUL, FFMA and FMNMX, their
+    SFU instructions) per thread, and with ``fp64`` the FP64-pipe
+    instructions third.  Every FADD, FMUL, FFMA and FMNMX, their
     immediate forms too, is one slot of the FP32 pipe, whatever it
-    computes; every MUFU one of the SFU.  Every branch counts once, so for
+    computes; every MUFU one of the SFU; every DFMA, DADD and DMUL one of
+    the FP64 pipe.  Every branch counts once, so for
     a kernel without loops this bounds what one site issues from above.
     Without ``subroutines``, the code from the first target of the
     kernel's CALLs on is left out: the slow paths of the IEEE divisions and
@@ -640,7 +674,7 @@ def count_sass_ops(sass: str, subroutines: bool = True) -> dict:
         if m:  # a label, as nvdisasm-style listings give them
             funcs[current].append((None, m.group(1), ""))
     for name, body in funcs.items():
-        ops[name] = [0, 0]
+        ops[name] = [0, 0, 0] if fp64 else [0, 0]
         end = None
         if not subroutines:
             targets = set()
@@ -657,13 +691,15 @@ def count_sass_ops(sass: str, subroutines: bool = True) -> dict:
                 continue
             ops[name][0] += op in FP32_PIPE_OPS
             ops[name][1] += op in SFU_OPS
+            if fp64:
+                ops[name][2] += op in FP64_PIPE_OPS
     return {k: tuple(v) for k, v in ops.items()}
 
 
-def sass_fp32_ops(lib_path, names=None) -> dict:
-    """``count_sass_ops`` of the built library: of the kernels ``names``
-    (``cuobjdump -fun``) where given and the listing holds them all, else
-    of every kernel."""
+def sass_fp32_ops(lib_path, names=None, fp64: bool = False) -> dict:
+    """``count_sass_ops`` of the built library (``fp64``: with the FP64
+    pipe's count): of the kernels ``names`` (``cuobjdump -fun``) where given
+    and the listing holds them all, else of every kernel."""
     import os
 
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
@@ -671,11 +707,11 @@ def sass_fp32_ops(lib_path, names=None) -> dict:
     if names:
         some = subprocess.run([exe, "-sass", "-fun", ",".join(names), str(lib_path)],
                               capture_output=True, text=True)
-        ops = count_sass_ops(some.stdout) if some.returncode == 0 else {}
+        ops = count_sass_ops(some.stdout, fp64=fp64) if some.returncode == 0 else {}
         if all(n in ops for n in names):
             return ops
     return count_sass_ops(subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
-                                         text=True, check=True).stdout)
+                                         text=True, check=True).stdout, fp64=fp64)
 
 
 #: the kernels whose registers and spills the build phases log, and (but
@@ -3042,7 +3078,11 @@ def run_sim2(label: str, args: list):
     return sim, time.perf_counter() - t0
 
 
-def phase_accuracy() -> None:
+def phase_accuracy() -> dict:
+    """sim_2 res 2 to its end per step, in pairs (f32, f16, bf16) and A-B,
+    held to the start-up solution; the apps' kernel-vs-plain runs.  Returns
+    the f32 per-step and A-B runs' L1 by iteration, which the float64 runs
+    of ``phase_double_and_profile`` print beside theirs."""
     checked = {}
     for label, args in (("per_step", ["--streaming", "AA", "--use-fused", "--pair-dispatch", "off"]),
                         ("pair_f32", ["--streaming", "AA", "--use-fused", "--pair-dispatch", "on"])):
@@ -3087,10 +3127,13 @@ def phase_accuracy() -> None:
             or sim._step.kernel.launches <= 0):
         raise RuntimeError(f"sim_2 res 2 A-B: L1 {l1:e} not within 5% of the start-up "
                            f"solution's {l1_ref:e}")
+    ab = {it: l1 for it, l1, _ in sim.error_history}
+    del sim, checked
     for app, streaming in (("sim_1", "AB"), ("sim_3", "AB"), ("sim_1", "AA")):
         app_kernel_vs_plain(app, streaming)
     for streaming in ("AB", "AA"):
         coupled_app_kernel_vs_plain(streaming)
+    return {"per_step": per_step, "ab_step": ab}
 
 
 def coupled_app_kernel_vs_plain(streaming: str) -> None:
@@ -4945,6 +4988,415 @@ def phase_dispatch_and_checkpoint() -> dict:
     return {"walls": walls, "launch": launch, "mlups": mlups}
 
 
+#: float64 bounds of the kernel-vs-plain compares, and of the velocity duct's
+#: 100 steps against the plain run on the card (float32's: TOL_APP)
+F64_TOL = {"f": 1e-12, "rho": 2e-12, "u": 1e-12}
+F64_APP_TOL = 1e-10
+#: B/site of a float64 step or pair: 27 f64 in and out, the map, rho and u
+F64_BYTES = 465
+#: an inflow velocity and a force that float32 cannot hold
+U_IN64 = (0.0312345678901234, 0.0051234567890123, -0.0041234567890123)
+FORCE64 = (1.2345678901234e-5, 2.345678901234e-7, -3.45678901234e-7)
+#: the record's keys of this slice's instances -> their kernels (SASS names)
+F64_KERNELS = {"ab_step_f64": ("ab_step_f64_cum_well_kernel",),
+               "ab_step_profile": ("ab_step_profile_cum_well_kernel",),
+               "ab_step_f64_profile": ("ab_step_f64_profile_cum_well_kernel",),
+               "aa_even_f64": ("aa_even_f64_cum_well_kernel",),
+               "aa_odd_f64": ("aa_odd_f64_lean_kernel", "aa_odd_f64_cum_well_kernel"),
+               "aa_pair_f64": ("aa_pair_f64_kernel",)}
+#: sim_2 res 2's float64 runs end here (f32's at 200 s): their L1 is held to the
+#: start-up solution and beside the f32 runs' at the same iteration
+SIM2_F64_FINAL_TIME = 50.0
+VELOCITY_CHECK_RES, VELOCITY_CHECK_STEPS = 4, 100
+VELOCITY_RES, VELOCITY_STEPS = 8, 200
+
+
+def seeded_state64(shape, dtype, seed=7):
+    """CUM_WELL's equilibrium of a seeded developed state (rho 1 +- 0.01,
+    |u| ~ 0.02) computed in float64 on the card, in ``dtype``."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rho = 1 + 0.01 * torch.randn(shape, generator=gen, device=DEVICE, dtype=torch.float64)
+    u = 0.02 * torch.randn((3,) + tuple(shape), generator=gen, device=DEVICE, dtype=torch.float64)
+    cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AB", dtype="float64")
+    return cfg.eq(cfg.lat, rho, u).to(dtype).contiguous()
+
+
+def agree(out, plain, tol: dict, label: str) -> tuple:
+    """max |df|, |drho|, |du| of a launch against its plain version, held
+    to ``tol``."""
+    import torch
+
+    torch.cuda.synchronize()
+    d = tuple(max_diff(a, b) for a, b in zip(out, plain))
+    if not (d[0] <= tol["f"] and d[1] <= tol["rho"] and d[2] <= tol["u"]):
+        raise RuntimeError(f"{label}: kernel vs plain out of tolerance {tol}: {d}")
+    return d
+
+
+def f64_compares() -> dict:
+    """Each new instance against its plain version: B4 float64 and B4's
+    profile instance (float32, float64; [3, 1, Y, Z] and [3, X, Y, Z]) on
+    the box of every code, two steps; B2/B3 float64 on sim_2's res-2 duct
+    (the lean odd instance) and on the box of every A-A code, four steps;
+    B1 float64 on sim_2's res-2 duct and on a 20x36x40 box over x segments
+    of 7, per closed/periodic combination, two pairs.  Returns the record's
+    max |df| per key."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.apps import sim_2
+    from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair2_aa, make_fused_step_aa
+    from tnl_lbm_tpu_torch.ops.boundary import GEO
+    from torch_cases import aa_box, bc_box
+
+    err = dict.fromkeys(F64_KERNELS, 0.0)
+    tol32 = {"f": TOL_F, "rho": TOL_RHO, "u": TOL_U}
+    shape = (24, 20, 150)
+    box = interop.domain_from_numpy(bc_box(shape), (False, False, True))
+    rng = np.random.default_rng(3)
+    profiles = {p: 0.03 * rng.standard_normal((3, X) + shape[1:])
+                for p, X in (("1yz", 1), ("xyz", shape[0]))}
+    for dtype, tag in (("float64", "_f64"), ("float32", "")):
+        cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AB", dtype=dtype)
+        step = make_fused_step(cfg, box, DEVICE)
+        tol = F64_TOL if dtype == "float64" else tol32
+        for inflow in (("vector",) if dtype == "float64" else ()) + tuple(profiles):
+            u_in = np.asarray(U_IN64) if inflow == "vector" else profiles[inflow]
+            f = seeded_state64(shape, cfg.compute_dtype)
+            for it in range(2):
+                out = step(f, NU, u_in=u_in, force=FORCE64)
+                d = agree(out, step.plain(f, NU, u_in=u_in, force=FORCE64), tol,
+                          f"ab_step{tag} {inflow} step {it}")
+                f = out[0]
+            key = f"ab_step{tag}" + ("" if inflow == "vector" else "_profile")
+            err[key] = max(err[key], d[0])
+            log("double_and_profile", compare=key, inflow=inflow, shape="24x20x150",
+                max_df=d[0], max_drho=d[1], max_du=d[2])
+    res2 = sim_2.build(2, device=DEVICE, streaming="AA", precision="double",
+                       results_parent=WORK / "double_compare")
+    aa_cases = (("sim_2_res2", res2.domain),
+                ("aa_box", interop.domain_from_numpy(aa_box(shape), (False, False, True))))
+    cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AA", dtype="float64")
+    for label, dom in aa_cases:
+        step = make_fused_step_aa(cfg, dom, DEVICE)
+        f = seeded_state64(dom.shape, torch.float64)
+        for it in range(4):
+            plain = step.plain(f, NU, u_in=U_IN64, force=FORCE64, parity=it % 2)
+            out = step(f, NU, u_in=U_IN64, force=FORCE64, parity=it % 2)
+            d = agree(out, plain, F64_TOL, f"aa f64 {label} step {it}")
+            key = "aa_even_f64" if it % 2 == 0 else "aa_odd_f64"
+            err[key] = max(err[key], d[0])
+            f = out[0]
+        log("double_and_profile", compare="aa_f64", case=label, odd_instance=step.variant,
+            max_df=max(err["aa_even_f64"], err["aa_odd_f64"]))
+    pair_cases = [("sim_2_res2", res2.domain, None)]
+    m = np.zeros((20, 36, 40), np.uint8)  # sim_2's duct on a box no column tile divides
+    m[:, 1] = m[:, -2] = m[:, :, 1] = m[:, :, -2] = GEO.WALL
+    m[:, 0] = m[:, -1] = m[:, :, 0] = m[:, :, -1] = GEO.NOTHING
+    m[7, 9, 11] = GEO.NOTHING
+    for periodic in ((False, False, False), (True, False, True), (True, True, True)):
+        mm = m.copy()
+        if periodic == (True, True, True):
+            mm[:] = GEO.FLUID
+            mm[3, 4, 5] = GEO.NOTHING
+        pair_cases.append((f"box_{''.join('p' if p else 'c' for p in periodic)}",
+                           interop.domain_from_numpy(mm, periodic), 7))
+    for label, dom, seg_len in pair_cases:
+        pair = make_fused_pair2_aa(cfg, dom, DEVICE, seg_len=seg_len)
+        f = seeded_state64(dom.shape, torch.float64)
+        for it in range(2):
+            out = pair(f, NU, force=FORCE64)
+            d = agree(out, pair.plain(f, NU, force=FORCE64), F64_TOL, f"aa_pair_f64 {label}")
+            err["aa_pair_f64"] = max(err["aa_pair_f64"], d[0])
+            f = out[0]
+        log("double_and_profile", compare="aa_pair_f64", case=label, seg_len=seg_len or "auto",
+            geometry=json.dumps(pair.geometry()), max_df=d[0], max_drho=d[1], max_du=d[2])
+    del res2
+    torch.cuda.empty_cache()
+    return err
+
+
+def velocity_domain(res: int, precision: str):
+    """(cfg, domain, profile) of sim_2 --velocity at ``res`` without a run."""
+    from tnl_lbm_tpu_torch.apps import sim_2
+
+    sim = sim_2.build(res, device="cpu", use_forcing=False, precision=precision,
+                      results_parent=WORK / "velocity_domains")
+    return sim.cfg, sim.domain, sim.u_profile
+
+
+def f64_timings(floor_gbps: float, f64_ops: dict) -> dict:
+    """Each new instance at 256^3 on CUDA events (20 launches; plain: one
+    call): B4 float64 on the bench duct A-B; B2, B3 (lean) and B1 float64 on
+    the bench duct A-A; B4's profile instances (float32, float64) on sim_2
+    --velocity res 8, in turns with the vector instance on the same map and
+    state.  Returns key -> (ms, plain ms) and key -> (bytes per site, ops
+    per site)."""
+    import torch
+
+    from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair2_aa, make_fused_step_aa
+    from tnl_lbm_tpu_torch.ops.boundary import GEO
+
+    times, footprint = {}, {}
+    sites = float(np.prod(BENCH_SHAPE))
+    force = (FORCE_BENCH, 0.0, 0.0)
+
+    def record(key, ms, plain_ms, bytes_per_site, ops):
+        times[key] = (ms, plain_ms)
+        footprint[key] = (bytes_per_site, ops)
+        b, by = bound(bytes_per_site, ops)
+        log("double_and_profile", kernel=key, shape="256^3", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.2f}", gbps=f"{bytes_per_site * sites / ms / 1e6:.1f}",
+            share_of_p1=f"{bytes_per_site * sites / ms / 1e6 / floor_gbps:.3f}",
+            bound_ms=f"{b:.4f}", bound_by=by,
+            bytes_bound_ms=f"{bytes_per_site * sites / (HBM_PEAK_GBPS * 1e9) * 1e3:.4f}",
+            p1_bound_ms=f"{bytes_per_site * sites / (floor_gbps * 1e9) * 1e3:.4f}",
+            fp64_slots_per_site=ops[2], fp64_bound_ms=f"{ops_ms(0, 0, RATES, ops[2] * sites):.4f}",
+            fp32_slots_per_site=ops[0])
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    cfg, dom = flagship(BENCH_SHAPE, streaming="AB")
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float64)
+    step = make_fused_step(cfg, dom, DEVICE)
+    f = seeded_state64(BENCH_SHAPE, torch.float64)
+    out = torch.empty_like(f)
+    ms = time_ms(lambda: step(f, NU, force=force, out=out), reps=20)
+    del out
+    free()
+    plain_ms = time_ms(lambda: step.plain(f, NU, force=force), reps=1)
+    record("ab_step_f64", ms, plain_ms, F64_BYTES, f64_ops["ab_step_f64_cum_well_kernel"])
+    del step, f
+    free()
+
+    cfg, dom = flagship(BENCH_SHAPE, streaming="AA")
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float64)
+    step = make_fused_step_aa(cfg, dom, DEVICE)
+    pair = make_fused_pair2_aa(cfg, dom, DEVICE)
+    f = seeded_state64(BENCH_SHAPE, torch.float64)
+    out = torch.empty_like(f)
+    even_ms = time_ms(lambda: step(f, NU, force=force, parity=0), reps=20)
+    odd_ms = time_ms(lambda: step(f, NU, force=force, parity=1, out=out), reps=20)
+    pair_ms = time_ms(lambda: pair(f, NU, force=force, out=out), reps=20)
+    del out
+    free()
+    plain = {parity: time_ms(lambda: step.plain(f, NU, force=force, parity=parity), reps=1)
+             for parity in (0, 1)}
+    free()
+    pair_plain = time_ms(lambda: pair.plain(f, NU, force=force), reps=1)
+    lean = f64_ops["aa_odd_f64_lean_kernel"]
+    record("aa_even_f64", even_ms, plain[0], F64_BYTES, f64_ops["aa_even_f64_cum_well_kernel"])
+    record("aa_odd_f64", odd_ms, plain[1], F64_BYTES, lean)
+    record("aa_pair_f64", pair_ms, pair_plain, F64_BYTES, tuple(2 * v for v in lean))
+    log("double_and_profile", pair_f64_geometry=json.dumps(pair.geometry()),
+        b2_plus_b3_ms=f"{even_ms + odd_ms:.4f}", pair_over_b2_b3=f"{pair_ms / (even_ms + odd_ms):.3f}")
+    del step, pair, f
+    free()
+
+    for precision, key in (("single", "ab_step_profile"), ("double", "ab_step_f64_profile")):
+        cfg, dom, prof = velocity_domain(VELOCITY_RES, precision)
+        step = make_fused_step(cfg, dom, DEVICE)
+        prof = torch.as_tensor(prof, dtype=cfg.compute_dtype, device=DEVICE)
+        f = seeded_state64(dom.shape, cfg.compute_dtype)
+        out = torch.empty_like(f)
+        turns = in_turns({"vector": lambda: step(f, NU, u_in=U_IN64, out=out),
+                          "profile": lambda: step(f, NU, u_in=prof, out=out)}, rounds=3, reps=20)
+        del out
+        free()
+        plain_ms = time_ms(lambda: step.plain(f, NU, u_in=prof), reps=1)
+        n_in = int(np.isin(dom.map, (GEO.INFLOW_LEFT, GEO.INFLOW)).sum())
+        item = 4 if precision == "single" else 8
+        per_site = (AB_BYTES if precision == "single" else F64_BYTES) + 3 * item * n_in / sites
+        record(key, float(np.median(turns["profile"])), plain_ms, per_site,
+               f64_ops[F64_KERNELS[key][0]])
+        log("double_and_profile", in_turns=key, shape="256^3 (sim_2 --velocity res 8)",
+            profile_ms=" ".join(f"{t:.4f}" for t in turns["profile"]),
+            vector_ms=" ".join(f"{t:.4f}" for t in turns["vector"]),
+            profile_over_vector=f"{np.median(turns['profile']) / np.median(turns['vector']):.4f}",
+            inflow_sites=n_in)
+        del step, f, prof
+        free()
+    return {"times": times, "footprint": footprint}
+
+
+def sim2_counted(label: str, res: int, final_time: float | None = None,
+                 steps: int | None = None, **kw):
+    """sim_2 at ``res`` on the card through ``Simulation.run`` to
+    ``final_time`` or for ``steps`` steps, counted from the end of sim_init;
+    returns the run."""
+    from tnl_lbm_tpu_torch.apps import sim_2
+
+    sim = sim_2.build(res, device=DEVICE, use_fused=True, results_parent=WORK / label, **kw)
+    if final_time is not None:
+        sim.phys_final_time = final_time
+    if steps is not None:
+        sim.phys_final_time = steps * sim.domain.units.phys_dt
+    sim = counting_from_init(sim)
+    t0 = time.perf_counter()
+    if not sim.run():
+        raise RuntimeError(f"sim_2 {label} failed (NaN or refused)")
+    sim.wall_s = time.perf_counter() - t0
+    return sim
+
+
+def f64_launches(sim) -> dict:
+    """The record's keys of this slice -> a run's launches of them."""
+    from tnl_lbm_tpu_torch.kernels.fused import kernel_counters
+
+    got = {k.name: k.launches for k in kernel_counters(sim._step, sim._pair)}
+    return {key: got.get(key, 0) for key in F64_KERNELS}
+
+
+def sim2_double_runs(f32_l1: dict) -> dict:
+    """sim_2 res 2 --precision double per step, in pairs, under "auto" and
+    A-B, to SIM2_F64_FINAL_TIME: each run's last L1 within 5% of the analytic
+    start-up solution's at that iteration, beside the float32 run's L1 at
+    the same iteration (the reference's precision test); "auto"'s pick
+    logged.  Returns the runs' launches per key."""
+    launches = dict.fromkeys(F64_KERNELS, 0)
+    for label, kw in (("per_step", dict(streaming="AA", pair_dispatch=False)),
+                      ("pairs", dict(streaming="AA", pair_dispatch=True)),
+                      ("auto", dict(streaming="AA", pair_dispatch="auto")),
+                      ("ab_step", dict(streaming="AB"))):
+        sim = sim2_counted(f"sim2_f64_{label}", 2, SIM2_F64_FINAL_TIME, precision="double", **kw)
+        it, l1, l2 = sim.error_history[-1]
+        l1_ref = startup_l1(sim, it)
+        rel = abs(l1 / l1_ref - 1)
+        ref32 = f32_l1["ab_step" if label == "ab_step" else "per_step"]
+        run = f64_launches(sim)
+        plain = sim._step.plain_calls + (sim._pair.plain_calls if sim._pair else 0)
+        extra = {}
+        if label == "auto" and sim.pair_probe_ms is not None:  # None: no probe (a CPU rehearsal)
+            t_pair, t_steps = sim.pair_probe_ms
+            extra = dict(chose="pair" if sim.pair_dispatch else "per_step",
+                         probe_pair_ms=f"{t_pair:.4f}", probe_per_step_ms=f"{t_steps:.4f}")
+        log("double_and_profile", sim_2_res2_double=label, l1=f"{l1:.6e}", l2=f"{l2:.6e}",
+            iterations=it, wall_s=f"{sim.wall_s:.1f}", l1_startup_solution=f"{l1_ref:.6e}",
+            rel_to_startup=f"{rel:.2e}",
+            l1_f32_same_iteration=f"{ref32[it]:.6e}" if it in ref32 else "not probed",
+            l1_f64_over_f32=f"{l1 / ref32[it]:.6f}" if it in ref32 else "n/a",
+            plain_calls=plain, graph_replays=sim.graph_replays,
+            **{f"launches_{k}": v for k, v in run.items() if v}, **extra)
+        if sim.nan_detected or not rel <= 0.05 or plain or not any(run.values()):
+            raise RuntimeError(f"sim_2 res 2 double ({label}): L1 {l1:e} not within 5% of the "
+                               f"start-up solution's {l1_ref:e}, or no kernel launch")
+        for k, v in run.items():
+            launches[k] += v
+        del sim
+    return launches
+
+
+def velocity_runs() -> dict:
+    """sim_2 --velocity through B4's profile instance: at res 4 (128^3)
+    VELOCITY_CHECK_STEPS steps through ``Simulation._advance`` held to the
+    same steps of the plain step on the card (f, rho, u within 1e-5 in
+    float32, 1e-10 in float64); at res 8 (256^3, the full width)
+    VELOCITY_STEPS steps in float32 and float64, with MLUPS.  Returns the
+    runs' launches per key."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim_2
+
+    launches = dict.fromkeys(F64_KERNELS, 0)
+    for precision in ("single", "double"):
+        runs = {}
+        for fused in (True, False):
+            sim = sim_2.build(VELOCITY_CHECK_RES, device=DEVICE, use_forcing=False,
+                              precision=precision, use_fused=fused,
+                              results_parent=WORK / f"velocity_check_{precision}_{fused}")
+            sim.sim_init()
+            if fused:
+                sim._step.reset_counts()
+            sim._advance(VELOCITY_CHECK_STEPS)
+            runs[fused] = sim
+        kernel, plain = runs[True], runs[False]
+        tol = F64_APP_TOL if precision == "double" else TOL_APP
+        d = {n: max_diff(getattr(kernel, n), getattr(plain, n)) for n in ("f", "rho", "u")}
+        run = f64_launches(kernel)
+        log("double_and_profile", velocity_check=precision,
+            shape="x".join(map(str, kernel.domain.shape)), steps=VELOCITY_CHECK_STEPS,
+            max_df=d["f"], max_drho=d["rho"], max_du=d["u"], tol=tol,
+            plain_calls=kernel._step.plain_calls, max_u=float(kernel.u[0].abs().max()),
+            **{f"launches_{k}": v for k, v in run.items() if v})
+        if max(d.values()) > tol or kernel._step.plain_calls or not any(run.values()):
+            raise RuntimeError(f"sim_2 --velocity res {VELOCITY_CHECK_RES} {precision}: kernel "
+                               f"run vs plain run {d} beyond {tol}")
+        for k, v in run.items():
+            launches[k] += v
+        del kernel, plain, runs
+        torch.cuda.empty_cache()
+        sim = sim2_counted(f"velocity_res8_{precision}", VELOCITY_RES, steps=VELOCITY_STEPS,
+                           precision=precision, use_forcing=False)
+        ms_step, mlups, peak_gb = run_figures(sim)
+        run = f64_launches(sim)
+        finite = bool(torch.isfinite(sim.rho).all()) and bool(torch.isfinite(sim.u).all())
+        log("double_and_profile", velocity_run=precision,
+            shape="x".join(map(str, sim.domain.shape)), steps=sim.iterations,
+            ms_per_step=f"{ms_step:.4f}", mlups=f"{mlups:.1f}",
+            max_memory_allocated_gb=f"{peak_gb:.3f}", plain_calls=sim._step.plain_calls,
+            graph_replays=sim.graph_replays, finite=finite,
+            **{f"launches_{k}": v for k, v in run.items() if v})
+        if sim._step.plain_calls or not finite or not any(run.values()):
+            raise RuntimeError(f"sim_2 --velocity res {VELOCITY_RES} {precision}: plain calls, "
+                               f"non-finite output or no launch")
+        for k, v in run.items():
+            launches[k] += v
+        del sim
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_double_and_profile(floor_gbps: float, f32_l1: dict) -> dict:
+    """The float64 instances (B4, B2, B3, B1) and B4's profile instance:
+    compares, 256^3 timings, sim_2 res 2 --precision double and sim_2
+    --velocity (``f64_compares``, ``f64_timings``, ``sim2_double_runs``,
+    ``velocity_runs``).  Returns the record's kernels, errors, times and
+    footprints of this slice's keys."""
+    import torch
+
+    from tnl_lbm_tpu_torch.kernels.build import build_library, kernel_resources
+    from tnl_lbm_tpu_torch.kernels.fused import CudaKernel
+
+    path, ptxas = build_library()
+    res = kernel_resources(ptxas)
+    names = sorted({n for ns in F64_KERNELS.values() for n in ns})
+    f64_ops = sass_fp32_ops(path, names, fp64=True)
+    for name in names:
+        log("double_and_profile", kernel=name, **res[name], fp32_slots_per_thread=f64_ops[name][0],
+            mufu_per_thread=f64_ops[name][1], fp64_slots_per_thread=f64_ops[name][2])
+    err = f64_compares()
+    timed = f64_timings(floor_gbps, f64_ops)
+    launches = sim2_double_runs(f32_l1)
+    for k, v in velocity_runs().items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    sources = {"ab_step_profile": "ab_step.cu", "ab_step_f64": "f64_ab.cu",
+               "ab_step_f64_profile": "f64_ab.cu", "aa_even_f64": "f64_aa.cu",
+               "aa_odd_f64": "f64_aa.cu", "aa_pair_f64": "f64_pair.cu"}
+    replaces = {"ab_step_profile": "tnl_lbm_tpu/kernels/fused.py:585",
+                "ab_step_f64": "tnl_lbm_tpu/kernels/fused.py:585",
+                "ab_step_f64_profile": "tnl_lbm_tpu/kernels/fused.py:585",
+                "aa_even_f64": "tnl_lbm_tpu/kernels/fused_aa.py:408",
+                "aa_odd_f64": "tnl_lbm_tpu/kernels/fused_aa.py:287",
+                "aa_pair_f64": "tnl_lbm_tpu/kernels/fused_aa.py:1115"}
+    kernels = {key: CudaKernel(key, f"tnl_lbm_tpu_torch/csrc/{sources[key]}", replaces[key],
+                               launches[key]) for key in F64_KERNELS}
+    for key, k in kernels.items():
+        if k.launches <= 0:
+            raise RuntimeError(f"{key} was not launched on sim_2's float64 or velocity paths")
+    resources = {key: {n: res[n] for n in F64_KERNELS[key]} for key in F64_KERNELS}
+    return {"kernels": kernels, "err": err, "times": timed["times"],
+            "footprint": timed["footprint"], "resources": resources}
+
+
 def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
     """(bytes per site, (FP32-pipe, SFU) instructions per site) of each
     kernel at its timed 256^3 inputs (B5: 8192 x 2048, as many sites,
@@ -4990,11 +5442,13 @@ def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
 def bound(bytes_per_site: float, ops_per_site: tuple, sites: float | None = None,
           rates: dict | None = None) -> tuple[float, str]:
     """The least time in ms at ``sites`` (256^3 unless given): the bytes
-    over the published HBM rate, or the (FP32-pipe, SFU) instructions over
-    the card's issue rates (``RATES``), whichever is larger."""
+    over the published HBM rate, or the (FP32-pipe, SFU[, FP64-pipe])
+    instructions over the card's issue rates (``RATES``), whichever is
+    larger."""
     sites = float(np.prod(BENCH_SHAPE)) if sites is None else sites
     t_bytes = bytes_per_site * sites / (HBM_PEAK_GBPS * 1e9) * 1e3
-    t_ops = ops_ms(ops_per_site[0] * sites, ops_per_site[1] * sites, rates or RATES)
+    fp64 = ops_per_site[2] if len(ops_per_site) > 2 else 0
+    t_ops = ops_ms(ops_per_site[0] * sites, ops_per_site[1] * sites, rates or RATES, fp64 * sites)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -5100,8 +5554,11 @@ def main() -> int:
     t_dispatch = time.perf_counter()
     phase_dispatch_and_checkpoint()
     t_dispatch = time.perf_counter() - t_dispatch
-    phase_accuracy()
+    f32_l1 = phase_accuracy()
+    double = phase_double_and_profile(floor, f32_l1)
+    kernels.update(double["kernels"])
     err = {**steps["err"], **pairs["err"], **probe["err"], **ab["err"], **layouts["err"],
+           **double["err"],
            "d2q9_step": max(compare_2d_err, timed_2d["err"])}
     for key in ("aa_even", "aa_odd"):
         err[key] = max(err[key], aa_codes_err, main_path["err"][key], collisions["err"][key])
@@ -5122,10 +5579,11 @@ def main() -> int:
     times = {**steps["times"], **pairs["times"], **probe["times"], **ab["times"],
              **layouts["times"],
              **timed["times"], **timed_aa["times"], "d2q9_step": timed_2d["time"],
-             **hooked["times"], "d2q9_step_force_field": hooked_2d["time"],
+             **hooked["times"], "d2q9_step_force_field": hooked_2d["time"], **double["times"],
              "d2q9_chunk": (chunk_timing["chunk_ms_per_launch"], chunk_timing["chunk_plain_ms"])}
     kernels.update(probe["kernels"])
     footprint = kernel_footprints(ops, timed_2d["bytes"], hooked_2d["bytes"])
+    footprint.update(double["footprint"])
     record = {"kernels": []}
     for key, k in kernels.items():
         entry = {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
@@ -5152,6 +5610,13 @@ def main() -> int:
             r = built["res"][NN_INSTANCES[key]]
             entry.update(registers=r["registers"], spill_stores=r.get("spill_stores", 0),
                          smem_bytes=geo["smem_bytes"], seg_len=geo["seg_len"])
+        if key in double["resources"]:  # this slice's instances: ptxas per kernel, bound parts
+            r = double["resources"][key]
+            entry.update(registers={n: v["registers"] for n, v in r.items()},
+                         spill_stores={n: v.get("spill_stores", 0) for n, v in r.items()},
+                         smem_bytes={n: v["smem"] for n, v in r.items()},
+                         bound_bytes_per_site=footprint[key][0],
+                         fp64_slots_per_site=footprint[key][1][2])
         if key in COLLISION_KERNELS:  # the family sources' instances (csrc/coll_*.cu)
             entry["instances"] = collisions["instances"][key] + routes["instances"][key]
         if key in ROUTE_KERNELS and key != "aa_pair_full":  # the family instances

@@ -119,8 +119,8 @@ def cuda_inflow_left(f, vx, vy, vz):
         stmt = re.sub(r'FN\("([mzp]{3})"\)',
                       lambda mt: f"f[{index[sum(3 ** (2 - a) * digit[c] for a, c in enumerate(mt.group(1)))]}]",
                       stmt)
-        stmt = re.sub(r"^const float ", "", stmt)
-        stmt = re.sub(r"(\d+\.\d*)f\b", r"\1", stmt)
+        stmt = re.sub(r"^const (?:float|real) ", "", stmt)
+        stmt = re.sub(r"real\((\d+\.\d*)\)|(\d+\.\d*)f\b", r"\1\2", stmt)
         exec(stmt, {}, env)
     return np.stack(env["f"]), env["rho"]
 
@@ -219,15 +219,20 @@ def test_ab_step_refuses_what_it_does_not_implement(monkeypatch):
         make_fused_step(interop.config_from_spec(**spec_of("CUM_WELL", "AA")), dom, "cpu")
     step = make_fused_step(cfg, dom, "cpu")
     f = torch.zeros((27,) + m.shape)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        step(f, NU, u_in=np.zeros((3,) + m.shape))
+    # a per-site inflow profile: CUM_WELL's step has the profile instance, CUM's not
+    cum = make_fused_step(interop.config_from_spec(**spec_of("CUM", "AB")), dom, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Bprof"):
+        cum(f, NU, u_in=np.zeros((3,) + m.shape))
     with pytest.raises(NotImplementedError, match="force_field"):
         step(f, NU, force=np.zeros((3,) + m.shape))
     with pytest.raises(ValueError):
         step(f, NU, out=f)
-    # on a card the kernel takes f32 CUM_WELL / CUM only, and names the rest
+    # on a card the kernel takes f32 CUM_WELL / CUM and f64 CUM_WELL only, and names the rest
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    bad = (interop.config_from_spec(**{**spec_of("CUM_WELL", "AB"), "dtype": "float64"}),
+    with pytest.raises(NotImplementedError, match="ROADMAP Bf64"):
+        make_fused_step(interop.config_from_spec(**{**spec_of("CUM", "AB"), "dtype": "float64"}),
+                        dom, "cuda")
+    bad = (interop.config_from_spec(**{**spec_of("CUM", "AB"), "dtype": "float64"}),
            interop.config_from_spec(**{**spec_of("CUM", "AB"), "eq": "EQ_WELL"}),
            interop.config_from_spec(**{**spec_of("CUM_WELL", "AB"), "well": False}),
            interop.config_from_spec(**{**spec_of("CUM", "AB"), "collision_id": "CUM_WELL"}))

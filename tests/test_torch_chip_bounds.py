@@ -147,3 +147,22 @@ def test_site_ops_source_has_a_kernel_per_collision_id():
     assert {int(k) for _, _, k, _ in kernels} == set(range(8))  # N1-N4, C1-C4 and the rest
     assert "moments_local<WELL>(v, p.fx, p.fy, p.fz, false," in text
     assert "moments_local<WELL>(v, p.fx, p.fy, p.fz, true," in so.source(neumaier=True)
+
+
+def test_fp64_pipe_counts_its_own_slots():
+    """With ``fp64`` every DFMA, DADD and DMUL is one slot of the FP64 pipe,
+    which has half the FP32 pipe's lanes (34 TFLOP/s at 132 SMs and
+    1980 MHz, DFMA as two operations); the bound takes the slowest pipe."""
+    sass = SASS.replace("HFMA2 R16", "DFMA R16").replace("IMAD R10", "DMUL R10")
+    assert cs.count_sass_ops(sass, fp64=True) == {"toy_kernel": (7, 1, 3),
+                                                 "other_kernel": (1, 2, 0)}
+    assert cs.count_sass_ops(sass) == {"toy_kernel": (7, 1), "other_kernel": (1, 2)}
+    rates = cs.card_rates(132, 1980.0)
+    assert rates["fp64_per_s"] == pytest.approx(132 * 64 * 1.98e9)
+    assert 2 * rates["fp64_per_s"] == pytest.approx(33.45e12, rel=1e-3)
+    sites = 256 ** 3
+    ms, by = cs.bound(465.0, (0, 0, 2300), rates=rates)  # a float64 site: bytes bind
+    assert by == "bytes" and ms == pytest.approx(465 * sites / 3.35e12 * 1e3)
+    ms, by = cs.bound(465.0, (821, 0, 3000), rates=rates)
+    assert by == "operations" and ms == pytest.approx(3000 * sites / rates["fp64_per_s"] * 1e3)
+    assert cs.ops_ms(0, 0, rates, 2300 * sites) > cs.ops_ms(2300 * sites, 0, rates)

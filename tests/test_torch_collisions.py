@@ -419,7 +419,8 @@ def test_auto_pair_dispatch_stays_per_step_without_a_pair_instance(tmp_path, mon
     assert sim._pair_dispatch_capable() and not sim._pair_has_instance()
     sim._resolve_pair_dispatch()
     assert sim.pair_dispatch is False and sim._pair is None
-    with pytest.raises(NotImplementedError, match="float32 only"):
+    with pytest.raises(NotImplementedError, match="float32 only: its float64 instances are "
+                                                  "ROADMAP Bf64"):
         build(True, "explicit").sim_init()
     for tag, spec32 in (("cum_well", ("CUM_WELL", "EQ_WELL", True, "AA")),
                         ("srt_well", ("SRT_WELL", "EQ_WELL", True, "AA"))):

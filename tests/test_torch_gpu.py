@@ -513,8 +513,11 @@ def test_ab_kernel_writes_into_out_and_rejects_bad_input(cuda):
         step(torch.zeros((27, 8, 16, 9), device=cuda), 0.02)
     with pytest.raises(NotImplementedError):
         step(f.double(), 0.02)
-    with pytest.raises(NotImplementedError):
-        step(f, 0.02, u_in=torch.zeros((3,) + m.shape))
+    # a per-site profile: CUM_WELL's step has the profile instance, CUM's not
+    cum = make_fused_step(interop.config_from_spec("CUM", "EQ", False, "AB"),
+                          interop.domain_from_numpy(m, periodic), cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP Bprof"):
+        cum(f, 0.02, u_in=torch.zeros((3,) + m.shape))
     for spec in (("CUM_WELL", "EQ_WELL", False), ("CUM", "EQ_WELL", False)):
         with pytest.raises(NotImplementedError):
             make_fused_step(interop.config_from_spec(*spec, "AB"),
@@ -1476,3 +1479,167 @@ def test_sim_ibm_in_chunks_equals_the_run_per_step(cuda, tmp_path):
     for name in ("f", "rho", "u"):
         a, b = getattr(chunked, name), getattr(per_step, name)
         assert float((a - b).abs().max()) <= 1e-5, name
+
+
+# ------------------------------ the float64 instances and B4's profile instance
+
+F64_TOL = {"f": 1e-12, "rho": 2e-12, "u": 1e-12}
+F32_TOL = {"f": 1e-6, "rho": 2e-6, "u": 1e-6}
+#: an inflow velocity and a force that float32 cannot hold
+U_IN64 = (0.0312345678901234, 0.0051234567890123, -0.0041234567890123)
+FORCE64 = (1.2345678901234e-5, 2.345678901234e-7, -3.45678901234e-7)
+
+
+def cum_well(streaming, dtype):
+    return interop.config_from_spec("CUM_WELL", "EQ_WELL", True, streaming, dtype=dtype)
+
+
+def seeded64(shape, device, dtype=torch.float64, seed=7):
+    """Well-conditioned DFs at a seeded developed state, built in float64."""
+    rng = np.random.default_rng(seed)
+    rho = torch.from_numpy(1 + 0.01 * rng.standard_normal(shape)).to(device)
+    u = torch.from_numpy(0.02 * rng.standard_normal((3,) + shape)).to(device)
+    cfg = cum_well("AB", "float64")
+    return cfg.eq(cfg.lat, rho, u).to(dtype).contiguous()
+
+
+def within(kernel_out, plain_out, tol, what):
+    torch.cuda.synchronize()
+    for name, a, b in zip(("f", "rho", "u"), kernel_out, plain_out):
+        d = float((a.double() - b.double()).abs().max())
+        assert d <= tol[name], (what, name, d)
+
+
+@pytest.mark.parametrize("dtype,profile", [("float64", None), ("float64", "1yz"),
+                                           ("float64", "xyz"), ("float32", "1yz"),
+                                           ("float32", "xyz")])
+def test_ab_f64_and_profile_instances_match_plain_on_card(cuda, dtype, profile):
+    """B4's float64 step and its profile instance (float32 and float64) on
+    the box of every code with Z past one block, two steps each from the
+    same input on both sides, against the plain version: float64 at 1e-12,
+    float32 at the step bounds.  A profile [3, 1, Y, Z] or [3, X, Y, Z] on
+    the card is read in place through its strides."""
+    shape = (24, 20, 150)
+    m = bc_box(shape)
+    step = make_fused_step(cum_well("AB", dtype), interop.domain_from_numpy(
+        m, (False, False, True)), cuda)
+    dt = torch.float64 if dtype == "float64" else torch.float32
+    u_in = np.asarray(U_IN64)
+    if profile is not None:
+        X = shape[0] if profile == "xyz" else 1
+        u_in = torch.from_numpy(0.03 * np.random.default_rng(3).standard_normal(
+            (3, X) + shape[1:])).to(cuda, dt)
+    f = seeded64(shape, cuda, dt)
+    tol = F64_TOL if dtype == "float64" else F32_TOL
+    for it in range(2):
+        out = step(f, 0.02, u_in=u_in, force=FORCE64)
+        within(out, step.plain(f, 0.02, u_in=u_in, force=FORCE64), tol, f"step {it}")
+        assert out[0].dtype == dt
+        f = out[0]
+    kernel = step.kernel if profile is None else step.profile
+    assert kernel.launches == 2 and step.plain_calls == 0
+    assert kernel.name == "ab_step" + ("_f64" if dtype == "float64" else "") + (
+        "_profile" if profile else "")
+
+
+@pytest.mark.parametrize("kind", ["duct", "aa_box"])
+def test_aa_f64_instances_match_plain_on_card(cuda, kind):
+    """B2 and B3's float64 CUM_WELL steps, the odd step's lean instance on
+    sim_2's duct and the full-set one on the box of every A-A code, four
+    alternating steps from the same input on both sides at 1e-12."""
+    if kind == "duct":
+        shape, periodic = (32, 64, 64), (True, False, False)
+        m = duct(shape, True)
+    else:
+        shape, periodic = (24, 20, 150), (False, False, True)
+        m = aa_box(shape)
+    step = make_fused_step_aa(cum_well("AA", "float64"), interop.domain_from_numpy(m, periodic),
+                              cuda)
+    assert step.variant == (3 if kind == "duct" else 0)
+    f = seeded64(shape, cuda)
+    for it in range(4):
+        fp = step.plain(f, 0.02, u_in=U_IN64, force=FORCE64, parity=it % 2)
+        out = step(f.clone() if it % 2 == 0 else f, 0.02, u_in=U_IN64, force=FORCE64,
+                   parity=it % 2)
+        within(out, fp, F64_TOL, f"step {it}")
+        f = out[0]
+    assert step.even.launches == step.odd.launches == 2 and step.plain_calls == 0
+
+
+@pytest.mark.parametrize("periodic", PERIODIC,
+                         ids=["".join("p" if p else "c" for p in per) for per in PERIODIC])
+@pytest.mark.parametrize("seg_len", [None, 7], ids=["auto_segments", "segments_of_7"])
+def test_pair_f64_matches_plain_on_card(cuda, periodic, seg_len):
+    """B1's float64 instance (8 x 16 column tiles, no stages) on a 20x36x40
+    box, which no column tile divides, with NOTHING sites, per periodic
+    combination and in x segments of 7: two pairs from the same input on
+    both sides at 1e-12; NOTHING sites keep their bits."""
+    shape = (20, 36, 40)
+    m = duct(shape, True)
+    m[7, 9, 11] = GEO.NOTHING
+    if periodic == (True, True, True):
+        m[:] = GEO.FLUID
+        m[3, 4, 5] = GEO.NOTHING
+    pair = make_fused_pair2_aa(cum_well("AA", "float64"), interop.domain_from_numpy(m, periodic),
+                               cuda, seg_len=seg_len)
+    assert pair.store_dtype == torch.float64 and pair.kernel.name == "aa_pair_f64"
+    geo = pair.geometry()
+    assert (geo["ty"], geo["tz"], geo["stages"], geo["threads"]) == (8, 16, 0, 320)
+    f = f0 = seeded64(shape, cuda)
+    for it in range(2):
+        out = pair(f, 0.02, force=FORCE64)
+        within(out, pair.plain(f, 0.02, force=FORCE64), F64_TOL, f"pair {it}")
+        f = out[0]
+    keep = torch.as_tensor(m == GEO.NOTHING, device=cuda)
+    assert torch.equal(f[:, keep], f0[:, keep])
+    assert pair.kernel.launches == 2 and pair.plain_calls == 0
+
+
+def test_f64_graph_route_keeps_the_profile_in_float64(cuda, tmp_path):
+    """sim_2 --velocity --precision double at res 1 on the card: the chunks
+    run as CUDA graphs through B4's float64 profile instance, whose profile
+    on the card is the host profile in float64 (``_device_input``), and the
+    replayed chunks equal the same chunks run eagerly, bit for bit."""
+    from tnl_lbm_tpu_torch.apps import sim_2
+
+    sim = sim_2.build(1, device=cuda, use_forcing=False, precision="double", use_fused=True,
+                      results_parent=tmp_path)
+    sim.sim_init()
+    for _ in range(3):
+        sim._advance(10)
+    assert sim.graph_replays >= 1 and sim._step.profile.launches == 30
+    prof = sim._device_input(sim.u_profile)
+    assert prof.dtype == torch.float64 and prof.device.type == "cuda"
+    assert torch.equal(prof.cpu(), torch.from_numpy(sim.u_profile))
+    start, bufs, it = fields(sim), (sim.f, sim._spare), sim.iterations
+    for _ in range(2):
+        sim._advance(10)
+    graph = fields(sim)
+    sim.f, sim._spare = bufs
+    for n, t in start.items():
+        getattr(sim, n).copy_(t)
+    sim.iterations = it
+    sim._graph_chunk = sim._chunk
+    for _ in range(2):
+        sim._advance(10)
+    for n, t in graph.items():
+        assert torch.equal(t, getattr(sim, n)), n
+    assert sim._step.plain_calls == 0 and sim._step.kernel.launches == 0
+
+
+def test_float64_state_never_reaches_a_float32_entry_on_card(cuda):
+    """A float32 kernel refuses a float64 state and a float64 one a float32
+    state; neither launches."""
+    m, periodic = duct((8, 16, 8), True), (True, False, False)
+    for streaming in ("AB", "AA"):
+        make = make_fused_step if streaming == "AB" else make_fused_step_aa
+        s32 = make(cum_well(streaming, "float32"), interop.domain_from_numpy(m, periodic), cuda)
+        s64 = make(cum_well(streaming, "float64"), interop.domain_from_numpy(m, periodic), cuda)
+        for step, dt in ((s32, torch.float64), (s64, torch.float32)):
+            with pytest.raises(NotImplementedError):
+                step(torch.zeros((27, 8, 16, 8), device=cuda, dtype=dt), 0.02, parity=1)
+    pair = make_fused_pair2_aa(cum_well("AA", "float64"), interop.domain_from_numpy(m, periodic),
+                               cuda)
+    with pytest.raises(ValueError):
+        pair(torch.zeros((27, 8, 16, 8), device=cuda), 0.02)
+    assert pair.kernel.launches == 0

@@ -139,7 +139,7 @@ def test_two_kernel_pair_refusals():
         pair(torch.zeros((27, 10, 10, 8)), NU)  # not the domain's [Q, X, Y, Z] state
     with pytest.raises(ValueError):
         pair(f.double(), NU)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Bprof"):
         pair(f, NU, u_in=np.zeros((3, 8, 8, 8), np.float32))  # a per-site inflow profile
     with pytest.raises(ValueError, match="seg_len"):
         port_pair("CUM_WELL", m, periodic, seg_len=0)

@@ -196,7 +196,7 @@ def test_pair_writes_into_out_and_refuses_bad_calls():
         pair(f, NU, out=f)
     with pytest.raises(ValueError):
         pair(f.half(), NU)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Bprof"):
         pair(f, NU, u_in=np.zeros((3, 1, 16, 8)))
     with pytest.raises(NotImplementedError, match="A13"):
         pair(f, NU, bflags=np.ones(6))
@@ -380,7 +380,7 @@ def test_pair_dispatch_picks_b1_or_b1b_and_refuses_what_neither_builds(tmp_path)
     wide = Simulation(interop.config_from_spec(**{**spec("AA", "CUM"), "dtype": "float64"}), dom,
                       device="cpu", sim_id="f64", results_parent=tmp_path, use_fused=True,
                       pair_dispatch=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Bf64"):
         wide.sim_init()
     auto = sim_1_aa(tmp_path, "auto", tag="auto")
     auto.sim_init()

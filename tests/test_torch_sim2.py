@@ -2,12 +2,16 @@
 the JAX sim_2 (A-A, XLA step) over the same steps, plus the analytic
 start-up reference that the chip smoke test holds the res-2 run to."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from tnl_lbm_tpu.apps import sim_2 as jsim_2
 from tnl_lbm_tpu_torch.apps import sim_2
+from tnl_lbm_tpu_torch.ops import collision as pcol
+from tnl_lbm_tpu_torch.ops import equilibrium as peq
 
 FINAL_TIME = 0.3
 
@@ -56,11 +60,14 @@ def test_duct_profiles_match_jax():
 
 def test_fused_ab_is_not_ported(tmp_path):
     """What of the A-B step (B4) is still not ported refuses in a run: a
-    per-site inflow profile (ROADMAP A8) raises at the first step."""
+    per-site inflow profile outside its CUM_WELL step (ROADMAP Bprof; sim_2's
+    duct under CUM with the quadratic equilibrium) raises at the first step."""
     sim = sim_2.build(1, device="cpu", streaming="AB", use_fused=True, final_time=0.05,
                       results_parent=tmp_path)
+    sim.cfg = dataclasses.replace(sim.cfg, collision=pcol.collide_cum, well=False,
+                                  eq=peq.eq_quadratic)
     sim.update_inflow = lambda phys_time: np.zeros((3,) + sim.domain.shape, np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Bprof"):
         sim.run()
     assert sim.iterations == 0
 

@@ -535,9 +535,13 @@ H100_SMS = 132
 
 def source_constants(name: str) -> dict:
     """The integer constants of a kernel source under csrc/ (each a number,
-    or a sum, product or quotient of the ones before it)."""
+    or a sum, product or quotient of the ones before it), as a float32 source
+    sees them: the ``#ifdef LBM_F64`` branches, which only the float64
+    sources compile, left out."""
     consts: dict = {}
-    for decl in re.findall(r"^\s*constexpr int ([^;]+);", (CSRC / name).read_text(), re.M):
+    text = re.sub(r"^#ifdef LBM_F64\n(?:(?!#else|#endif).*\n)*(?:#else|#endif)\n", "",
+                  (CSRC / name).read_text(), flags=re.M)
+    for decl in re.findall(r"^\s*constexpr int ([^;]+);", text, re.M):
         for item in decl.split(","):
             if "=" not in item:
                 continue

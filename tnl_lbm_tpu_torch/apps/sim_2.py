@@ -1,18 +1,25 @@
 """sim_2: square-duct verification (counterpart of ``tnl_lbm_tpu/apps/sim_2.py``).
 
-Laminar flow in a square duct, periodic in x and driven by a body force,
-checked against the Fourier-series analytic solution with L1/L2 error
-norms and the dynamic steady-state stopping criterion (reference
-sim_NSE/sim_2.cu:63-113, 193-257).
+Laminar flow in a square duct, periodic in x and driven by a body force, or
+fed by the analytic profile at an inflow (INFLOW_LEFT at x = 0,
+OUTFLOW_RIGHT_INTERP at x = X - 1; ``--velocity``), checked against the
+Fourier-series analytic solution with L1/L2 error norms and the dynamic
+steady-state stopping criterion (reference sim_NSE/sim_2.cu:63-113,
+193-257).  ``--precision double`` computes in float64, the reference's
+SP-vs-DP precision test (sim_2.cu:483-487).
 
 Usage: python -m tnl_lbm_tpu_torch.apps.sim_2 RES [--device cuda|cpu]
        [--streaming AB|AA] [--use-fused] [--pair-dispatch auto|on|off]
-       [--storage full|f16|bf16] [--precision single|double] [--final-time T]
-       [--results-dir DIR]
+       [--storage full|f16|bf16] [--precision single|double] [--velocity]
+       [--final-time T] [--results-dir DIR]
 
 ``--storage f16|bf16`` keeps the state in 16 bits between steps (half
 storage, on the one-kernel A-A pair only) and implies ``--streaming AA
---use-fused --pair-dispatch on``.
+--use-fused --pair-dispatch on``.  Two combinations raise where the JAX
+driver runs its XLA step (ROADMAP §C): ``--velocity --streaming AA
+--use-fused`` (the A-A kernels take no OUTFLOW_RIGHT_INTERP, and no inflow
+profile) and ``--storage f16|bf16 --precision double`` (16-bit storage
+under float64 compute, ROADMAP Bh64).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from tnl_lbm_tpu_torch.ops import collision as col
 from tnl_lbm_tpu_torch.ops import equilibrium as eqlib
 from tnl_lbm_tpu_torch.ops.boundary import GEO
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
-from tnl_lbm_tpu_torch.sim.obstacles import set_boundary_y, set_boundary_z
+from tnl_lbm_tpu_torch.sim.obstacles import set_boundary_x, set_boundary_y, set_boundary_z
 from tnl_lbm_tpu_torch.sim.state import PRINT, PROBE1, Simulation
 from tnl_lbm_tpu_torch.utils.units import Lattice
 
@@ -101,9 +108,10 @@ def duct_errors(ux: np.ndarray, analytical: np.ndarray, units) -> tuple[float, f
 class Sim2(Simulation):
     """Duct verification state with error probes + dynamic stopping."""
 
-    def __init__(self, *args, fx_lbm=0.0, analytical=None, **kw):
+    def __init__(self, *args, fx_lbm=0.0, u_profile=None, analytical=None, **kw):
         super().__init__(*args, **kw)
         self.fx_lbm = fx_lbm
+        self.u_profile = u_profile  # [3, 1, Y, Z] inflow profile or None
         self.analytical = analytical  # [Y, Z] lattice-unit ux
         self.l1_history = [1.0] * 10
         self._err_idx = 0
@@ -115,6 +123,9 @@ class Sim2(Simulation):
         if self.fx_lbm:
             return np.array([self.fx_lbm, 0.0, 0.0])
         return None
+
+    def update_inflow(self, phys_time):
+        return self.u_profile
 
     def probe1(self):
         """L1/L2 error vs analytic + dynamic stopping (reference sim_2.cu:193-257)."""
@@ -137,14 +148,31 @@ class Sim2(Simulation):
         )
 
 
-def build(resolution: int = 2, *, device, precision: str = "single", storage: str = "full",
-          final_time: float = 200.0, results_parent=".", streaming: str = "AB",
-          use_fused: bool = False, pair_dispatch="auto") -> Sim2:
-    """The body-force duct at ``resolution`` (lattice 32 x 32r x 32r) on
-    ``device``; ``storage`` "f16"/"bf16" stores the state in 16 bits (it
-    needs the A-A pair path)."""
+def build(resolution: int = 2, *, device, use_forcing: bool = True, precision: str = "single",
+          storage: str = "full", final_time: float = 200.0, results_parent=".",
+          streaming: str = "AB", use_fused: bool = False, pair_dispatch="auto") -> Sim2:
+    """The body-force duct at ``resolution`` (lattice 32 x 32r x 32r,
+    periodic in x) on ``device``, or with ``use_forcing=False`` the
+    velocity-inflow duct (32r x 32r x 32r: the analytic profile [3, 1, Y, Z]
+    at INFLOW_LEFT, x = 0, OUTFLOW_RIGHT_INTERP at x = X - 1, no force);
+    ``precision`` "double" computes in float64; ``storage`` "f16"/"bf16"
+    stores the state in 16 bits (it needs the A-A pair path).  The
+    combinations the kernels do not take where the JAX driver runs its XLA
+    step raise: the velocity duct under A-A with the kernels, and 16-bit
+    storage under float64 compute (ROADMAP §C)."""
+    if not use_forcing and streaming == "AA" and use_fused:
+        raise NotImplementedError(
+            "sim_2 --velocity --streaming AA --use-fused: the A-A kernels take no "
+            "OUTFLOW_RIGHT_INTERP (the JAX kernels' supports refuses it under A-A, "
+            "tnl_lbm_tpu/kernels/fused.py:49-53) and no inflow profile (ROADMAP Bprof); the "
+            "JAX driver runs its XLA step there, the port refuses (ROADMAP §C)")
+    if storage != "full" and precision == "double":
+        raise NotImplementedError(
+            "sim_2 --storage f16|bf16 --precision double: 16-bit storage under float64 "
+            "compute has no kernel (ROADMAP Bh64); the JAX driver runs its XLA step there, the "
+            "port refuses (ROADMAP §C)")
     block_size = 32
-    X = block_size
+    X = block_size if use_forcing else block_size * resolution
     Y = Z = block_size * resolution
 
     lbm_viscosity = 0.001
@@ -155,7 +183,7 @@ def build(resolution: int = 2, *, device, precision: str = "single", storage: st
     units = Lattice(global_size=(X, Y, Z), phys_origin=(0, 0, 0),
                     phys_dl=phys_dl, phys_dt=phys_dt, phys_viscosity=phys_viscosity)
     dom = Domain(lat=D3Q27, units=units, map=np.zeros((X, Y, Z), np.uint8),
-                 periodic=(True, False, False))
+                 periodic=(use_forcing, False, False))
     set_boundary_z(dom, 1, GEO.WALL)
     set_boundary_z(dom, Z - 2, GEO.WALL)
     set_boundary_y(dom, 1, GEO.WALL)
@@ -164,9 +192,17 @@ def build(resolution: int = 2, *, device, precision: str = "single", storage: st
     set_boundary_z(dom, Z - 1, GEO.NOTHING)
     set_boundary_y(dom, 0, GEO.NOTHING)
     set_boundary_y(dom, Y - 1, GEO.NOTHING)
+    if not use_forcing:
+        set_boundary_x(dom, 0, GEO.INFLOW_LEFT)
+        set_boundary_x(dom, X - 1, GEO.OUTFLOW_RIGHT_INTERP)
 
     fx_lbm = units.phys2lbm_force(1e-4)
     analytical = duct_analytical_ux(Y, Z, fx_lbm, lbm_viscosity)
+    u_profile = None
+    if not use_forcing:
+        # the steady profile of the forced duct enters at x = 0, no force
+        u_profile = np.zeros((3, 1, Y, Z), np.float64)
+        u_profile[0, 0] = analytical
 
     # well-conditioned cumulant: deviation DF storage keeps the tiny duct
     # forcing well above float32 round-off
@@ -181,7 +217,8 @@ def build(resolution: int = 2, *, device, precision: str = "single", storage: st
         # probes compare with the analytic solution either way
         storage_dtype={"full": None, "f16": torch.float16, "bf16": torch.bfloat16}[storage],
     )
-    sim_id = f"sim_2_CUM_{precision}_forcing_strong_res_{resolution}_nd_1"
+    sim_id = (f"sim_2_CUM_{precision}_{'forcing' if use_forcing else 'velocity'}_strong_res_"
+              f"{resolution}_nd_1")
     if storage != "full":
         sim_id += f"_store_{storage}"
     sim = Sim2(
@@ -190,7 +227,8 @@ def build(resolution: int = 2, *, device, precision: str = "single", storage: st
         sim_id=sim_id,
         results_parent=results_parent,
         phys_final_time=final_time,
-        fx_lbm=fx_lbm,
+        fx_lbm=fx_lbm if use_forcing else 0.0,
+        u_profile=u_profile,
         analytical=analytical,
         steps_per_dispatch=10,
         use_fused=use_fused,
@@ -207,6 +245,9 @@ def main(argv=None) -> Sim2:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when no card is present")
     p.add_argument("--precision", choices=["single", "double"], default="single")
+    p.add_argument("--velocity", action="store_true",
+                   help="profile inflow (INFLOW_LEFT, OUTFLOW_RIGHT_INTERP) instead of a body "
+                        "force")
     p.add_argument("--final-time", type=float, default=200.0)
     p.add_argument("--results-dir", default=".")
     p.add_argument("--streaming", choices=["AB", "AA"], default="AB")
@@ -225,6 +266,7 @@ def main(argv=None) -> Sim2:
     sim = build(
         args.resolution,
         device=args.device,
+        use_forcing=not args.velocity,
         precision=args.precision,
         storage=args.storage,
         final_time=args.final_time,

@@ -91,6 +91,27 @@ AB_STEP_KERNEL(ab_step_force_field_cum_invcum_kernel, false, EQ_INVCUM, true)
 AB_MACRO_KERNEL(ab_macro_well_kernel, true)
 AB_MACRO_KERNEL(ab_macro_total_kernel, false)
 
+// The profile instance (CUM_WELL, the step): the inflow velocity of each
+// INFLOW_LEFT and INFLOW site read from a per-site field (lbm_site.cuh
+// Profile, inflow_params), for sim_2's profile inflow; every other site as
+// the vector instance.  The JAX Pallas kernel takes a [3] vector only; the
+// JAX driver runs a profile on its XLA step (tnl_lbm_tpu/sim/state.py
+// _uin_fallback_step), the function of fused.py _stream_bc_collide with a
+// u_in_field per site, which this instance computes.  Bound: the vector
+// instance's 233 B/site plus 12 B at each inflow site.
+extern "C" __global__ void __launch_bounds__(THREADS)
+    ab_step_profile_cum_well_kernel(const float* __restrict__ f, float* __restrict__ fout,
+                                    const uint8_t* __restrict__ map, float* __restrict__ rho,
+                                    float* __restrict__ u, int Y, int Z, int periodic_bits,
+                                    ABParams p, Profile prof) {
+  const int z = blockIdx.x * blockDim.x + threadIdx.x;
+  if (z >= Z) return;
+  float ux, uy, uz;
+  ab_site<true, EQ_WELL, false, Cum<true>, ABParams, true>(
+      f, fout, map, rho, u, blockIdx.z, blockIdx.y, z, gridDim.z, Y, Z, periodic_bits, p, ux, uy,
+      uz, nullptr, prof);
+}
+
 // Launches on `stream`; returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for an unknown variant or mode.  pbits (periodic
 // axes): bit 0 x, bit 1 y, bit 2 z.  variant: 0 CUM_WELL (well-conditioned
@@ -115,5 +136,22 @@ extern "C" int tnl_lbm_ab_step(const float* f, float* fout, const uint8_t* map, 
   const dim3 grid((Z + block - 1) / block, Y, X);
   kernels[mode][variant]<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       f, fout, map, ff, rho, u, Y, Z, pbits, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The profile instance on `stream`: prof is the [3, ...] field, its element
+// strides (component, x, y, z; 0 on a broadcast axis).  Returns
+// cudaGetLastError() of the launch, or cudaErrorInvalidValue without a field.
+extern "C" int tnl_lbm_ab_step_profile(const float* f, float* fout, const uint8_t* map,
+                                       float* rho, float* u, int X, int Y, int Z, int pbits,
+                                       float nu, float fx, float fy, float fz, const float* prof,
+                                       long long sa, long long sx, long long sy, long long sz,
+                                       int neumaier, void* stream) {
+  if (prof == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const ABParams p{1.0f / (3.0f * nu + 0.5f), fx, fy, fz, 0.0f, 0.0f, 0.0f, neumaier};
+  const int block = Z >= THREADS ? THREADS : ((Z + 31) / 32) * 32;
+  const dim3 grid((Z + block - 1) / block, Y, X);
+  ab_step_profile_cum_well_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      f, fout, map, rho, u, Y, Z, pbits, p, Profile{prof, sa, sx, sy, sz});
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,9 +20,16 @@
 //
 // One thread owns one site; its 27 DFs live in registers (every array
 // index below is a compile-time constant once the loops are unrolled).
-// All arithmetic is float32: every literal carries the f suffix, since a
-// double literal would promote the cascade to FP64.  nvcc does not fold
-// x * 0.0f or x + 0.0f under IEEE rules, so the terms that are structurally
+// All arithmetic is in `real`: float32, or float64 in a source that defines
+// LBM_F64 before it includes this header (the float64 instances,
+// f64_ab.cu, f64_aa.cu, f64_pair.cu).  Every literal is written real(...),
+// since a bare double literal would promote a float32 cascade to FP64; for
+// float each is the float literal it replaced, so the float32 code is
+// unchanged.  A float64 source's code lives in namespace lbm_f64 (the
+// macro below renames lbm there), so no inline function or constant of the
+// float32 sources shares its name with one of another type in the
+// library.  nvcc does not fold
+// x * 0 or x + 0 under IEEE rules, so the terms that are structurally
 // zero in this configuration (cumulants of order >= 3 relaxed to
 // equilibrium, Geier 2017 limiters and anti-aliasing off, omega2 = 1) are
 // folded out by hand, as the JAX package folds them at trace time.
@@ -31,7 +38,21 @@
 
 #include <cstdint>
 
+#ifdef LBM_F64
+#define lbm lbm_f64
+#endif
+
 namespace lbm {
+
+#ifdef LBM_F64
+using real = double;
+__device__ __forceinline__ double abs_r(double x) { return fabs(x); }
+__device__ __forceinline__ double sqrt_r(double x) { return sqrt(x); }
+#else
+using real = float;
+__device__ __forceinline__ float abs_r(float x) { return fabsf(x); }
+__device__ __forceinline__ float sqrt_r(float x) { return sqrtf(x); }
+#endif
 
 constexpr int Q = 27;
 
@@ -159,11 +180,11 @@ __host__ __device__ constexpr int mirror(int q, int a) {
 
 // Lattice weight of direction q: 8/27, 2/27, 1/54, 1/216 by the number of
 // nonzero components.
-__host__ __device__ constexpr float weight(int q) {
-  return (cx(q) != 0) + (cy(q) != 0) + (cz(q) != 0) == 0   ? 8.0f / 27.0f
-         : (cx(q) != 0) + (cy(q) != 0) + (cz(q) != 0) == 1 ? 2.0f / 27.0f
-         : (cx(q) != 0) + (cy(q) != 0) + (cz(q) != 0) == 2 ? 1.0f / 54.0f
-                                                             : 1.0f / 216.0f;
+__host__ __device__ constexpr real weight(int q) {
+  return (cx(q) != 0) + (cy(q) != 0) + (cz(q) != 0) == 0   ? real(8.0) / real(27.0)
+         : (cx(q) != 0) + (cy(q) != 0) + (cz(q) != 0) == 1 ? real(2.0) / real(27.0)
+         : (cx(q) != 0) + (cy(q) != 0) + (cz(q) != 0) == 2 ? real(1.0) / real(54.0)
+                                                             : real(1.0) / real(216.0);
 }
 
 // Weight offsets of the well-conditioned cascade (collision.py
@@ -173,80 +194,80 @@ __host__ __device__ constexpr float weight(int q) {
 // y level by (ix, order g): g = 0 -> 2/3 (centre) or 1/6, g = 2 -> 2/9 or
 // 1/18, g = 1 -> none; x level by (order b, order g): (0,0) -> 1,
 // (0,2)/(2,0) -> 1/3, (2,2) -> 1/9, any order 1 -> none.
-__host__ __device__ constexpr float z_offset(int ix, int iy) {
+__host__ __device__ constexpr real z_offset(int ix, int iy) {
   const int m = (ix != 1) + (iy != 1);
-  return m == 0 ? 4.0f / 9.0f : (m == 1 ? 1.0f / 9.0f : 1.0f / 36.0f);
+  return m == 0 ? real(4.0) / real(9.0) : (m == 1 ? real(1.0) / real(9.0) : real(1.0) / real(36.0));
 }
 __host__ __device__ constexpr bool y_has_offset(int g) { return g != 1; }
-__host__ __device__ constexpr float y_offset(int ix, int g) {
-  return g == 0 ? (ix == 1 ? 2.0f / 3.0f : 1.0f / 6.0f)
-                : (ix == 1 ? 2.0f / 9.0f : 1.0f / 18.0f);
+__host__ __device__ constexpr real y_offset(int ix, int g) {
+  return g == 0 ? (ix == 1 ? real(2.0) / real(3.0) : real(1.0) / real(6.0))
+                : (ix == 1 ? real(2.0) / real(9.0) : real(1.0) / real(18.0));
 }
 __host__ __device__ constexpr bool x_has_offset(int b, int g) { return b != 1 && g != 1; }
-__host__ __device__ constexpr float x_offset(int b, int g) {
-  return (b == 0 && g == 0) ? 1.0f : ((b == 0 || g == 0) ? 1.0f / 3.0f : 1.0f / 9.0f);
+__host__ __device__ constexpr real x_offset(int b, int g) {
+  return (b == 0 && g == 0) ? real(1.0) : ((b == 0 || g == 0) ? real(1.0) / real(3.0) : real(1.0) / real(9.0));
 }
 
 // One axis of the forward central-moment cascade (Geier 2015 eqs. 6-8;
 // collision.py _forward_axis): (f-, f0, f+) -> (k0, k1, k2).
-__device__ __forceinline__ void fwd_axis(float fm, float fz, float fp, float v,
-                                         bool has_off, float K0,
-                                         float& k0, float& k1, float& k2) {
-  const float s = fp + fm;
-  const float d = fp - fm;
+__device__ __forceinline__ void fwd_axis(real fm, real fz, real fp, real v,
+                                         bool has_off, real K0,
+                                         real& k0, real& k1, real& k2) {
+  const real s = fp + fm;
+  const real d = fp - fm;
   k0 = s + fz;
-  const float t = v * (has_off ? k0 + K0 : k0);
-  const float w = v * d;
+  const real t = v * (has_off ? k0 + K0 : k0);
+  const real w = v * d;
   k1 = d - t;
   k2 = (s - (w + w)) + v * t;
 }
 
 // One axis of the inverse cascade (eqs. 88-90; collision.py _backward_axis).
-__device__ __forceinline__ void bwd_axis(float k0, float k1, float k2, float v,
-                                         bool has_off, float K0,
-                                         float& fm, float& fz, float& fp) {
-  const float b = v * (has_off ? k0 + K0 : k0);
-  const float a = v * b;
-  const float t = v * k1;
-  const float s = ((a + t) + t) + k2;
-  const float w = b + k1;
+__device__ __forceinline__ void bwd_axis(real k0, real k1, real k2, real v,
+                                         bool has_off, real K0,
+                                         real& fm, real& fz, real& fp) {
+  const real b = v * (has_off ? k0 + K0 : k0);
+  const real a = v * b;
+  const real t = v * k1;
+  const real s = ((a + t) + t) + k2;
+  const real w = b + k1;
   fz = k0 - s;
-  fm = 0.5f * (s - w);
-  fp = 0.5f * (s + w);
+  fm = real(0.5) * (s - w);
+  fp = real(0.5) * (s + w);
 }
 
 // bwd_axis with k2 == 0 (and no offset).
-__device__ __forceinline__ void bwd_axis_k2z(float k0, float k1, float v,
-                                             float& fm, float& fz, float& fp) {
-  const float b = v * k0;
-  const float a = v * b;
-  const float t = v * k1;
-  const float s = (a + t) + t;
-  const float w = b + k1;
+__device__ __forceinline__ void bwd_axis_k2z(real k0, real k1, real v,
+                                             real& fm, real& fz, real& fp) {
+  const real b = v * k0;
+  const real a = v * b;
+  const real t = v * k1;
+  const real s = (a + t) + t;
+  const real w = b + k1;
   fz = k0 - s;
-  fm = 0.5f * (s - w);
-  fp = 0.5f * (s + w);
+  fm = real(0.5) * (s - w);
+  fp = real(0.5) * (s + w);
 }
 
 // bwd_axis with k1 == 0.
-__device__ __forceinline__ void bwd_axis_k1z(float k0, float k2, float v,
-                                             bool has_off, float K0,
-                                             float& fm, float& fz, float& fp) {
-  const float b = v * (has_off ? k0 + K0 : k0);
-  const float s = v * b + k2;
+__device__ __forceinline__ void bwd_axis_k1z(real k0, real k2, real v,
+                                             bool has_off, real K0,
+                                             real& fm, real& fz, real& fp) {
+  const real b = v * (has_off ? k0 + K0 : k0);
+  const real s = v * b + k2;
   fz = k0 - s;
-  fm = 0.5f * (s - b);
-  fp = 0.5f * (s + b);
+  fm = real(0.5) * (s - b);
+  fp = real(0.5) * (s + b);
 }
 
 // bwd_axis with k0 == k2 == 0 (and no offset).
-__device__ __forceinline__ void bwd_axis_k1only(float k1, float v,
-                                                float& fm, float& fz, float& fp) {
-  const float t = v * k1;
-  const float s = t + t;
+__device__ __forceinline__ void bwd_axis_k1only(real k1, real v,
+                                                real& fm, real& fz, real& fp) {
+  const real t = v * k1;
+  const real s = t + t;
   fz = -s;
-  fm = 0.5f * (s - k1);
-  fp = 0.5f * (s + k1);
+  fm = real(0.5) * (s - k1);
+  fp = real(0.5) * (s + k1);
 }
 
 // Cumulant collision (collision.py collide_cum with its defaults), in place
@@ -256,24 +277,24 @@ __device__ __forceinline__ void bwd_axis_k1only(float k1, float v,
 // offsets enter only where WELL holds; without it the axis transforms get
 // has_off = false and fold to the plain cascade.
 template <bool WELL>
-__device__ __forceinline__ void collide_cum(float (&f)[Q], float rho, float ux, float uy,
-                                            float uz, float omega1) {
+__device__ __forceinline__ void collide_cum(real (&f)[Q], real rho, real ux, real uy,
+                                            real uz, real omega1) {
   // forward: z, then y, then x
-  float kz[3][3][3];  // [ix][iy][order z]
+  real kz[3][3][3];  // [ix][iy][order z]
 #pragma unroll
   for (int ix = 0; ix < 3; ++ix)
 #pragma unroll
     for (int iy = 0; iy < 3; ++iy)
       fwd_axis(f[dir_index(ix, iy, 0)], f[dir_index(ix, iy, 1)], f[dir_index(ix, iy, 2)],
                uz, WELL, z_offset(ix, iy), kz[ix][iy][0], kz[ix][iy][1], kz[ix][iy][2]);
-  float ky[3][3][3];  // [ix][order z][order y]
+  real ky[3][3][3];  // [ix][order z][order y]
 #pragma unroll
   for (int ix = 0; ix < 3; ++ix)
 #pragma unroll
     for (int g = 0; g < 3; ++g)
       fwd_axis(kz[ix][0][g], kz[ix][1][g], kz[ix][2][g], uy, WELL && y_has_offset(g),
                y_offset(ix, g), ky[ix][g][0], ky[ix][g][1], ky[ix][g][2]);
-  float k[3][3][3];  // [order x][order y][order z]; only orders <= 2 are used
+  real k[3][3][3];  // [order x][order y][order z]; only orders <= 2 are used
 #pragma unroll
   for (int b = 0; b < 3; ++b)
 #pragma unroll
@@ -281,82 +302,82 @@ __device__ __forceinline__ void collide_cum(float (&f)[Q], float rho, float ux, 
       fwd_axis(ky[0][g][b], ky[1][g][b], ky[2][g][b], ux, WELL && x_has_offset(b, g),
                x_offset(b, g), k[0][b][g], k[1][b][g], k[2][b][g]);
 
-  const float k000 = k[0][0][0];
-  const float C110 = k[1][1][0], C101 = k[1][0][1], C011 = k[0][1][1];
-  const float C200 = k[2][0][0], C020 = k[0][2][0], C002 = k[0][0][2];
-  const float inv_rho = 1.0f / rho;
-  const float third = 1.0f / 3.0f;
-  const float o1 = omega1;
+  const real k000 = k[0][0][0];
+  const real C110 = k[1][1][0], C101 = k[1][0][1], C011 = k[0][1][1];
+  const real C200 = k[2][0][0], C020 = k[0][2][0], C002 = k[0][0][2];
+  const real inv_rho = real(1.0) / rho;
+  const real third = real(1.0) / real(3.0);
+  const real o1 = omega1;
 
   // second order (Geier 2017 eqs. 33-35, omega2 = 1, no anti-aliasing)
-  const float ks110 = (1.0f - o1) * C110;
-  const float ks101 = (1.0f - o1) * C101;
-  const float ks011 = (1.0f - o1) * C011;
-  const float eq33 = (1.0f - o1) * (C200 - C020);
-  const float eq34 = (1.0f - o1) * (C200 - C002);
-  const float eq35 = k000;
-  const float ks200 = (eq33 + eq34 + eq35) / 3.0f;
-  const float ks020 = (-2.0f * eq33 + eq34 + eq35) / 3.0f;
-  const float ks002 = (eq33 - 2.0f * eq34 + eq35) / 3.0f;
+  const real ks110 = (real(1.0) - o1) * C110;
+  const real ks101 = (real(1.0) - o1) * C101;
+  const real ks011 = (real(1.0) - o1) * C011;
+  const real eq33 = (real(1.0) - o1) * (C200 - C020);
+  const real eq34 = (real(1.0) - o1) * (C200 - C002);
+  const real eq35 = k000;
+  const real ks200 = (eq33 + eq34 + eq35) / real(3.0);
+  const real ks020 = (-real(2.0) * eq33 + eq34 + eq35) / real(3.0);
+  const real ks002 = (eq33 - real(2.0) * eq34 + eq35) / real(3.0);
   // orders 3, 5 and the order-3 products feeding orders 5-6 are zero
-  float ks211, ks121, ks112, ks220, ks022, ks202, ks222;
+  real ks211, ks121, ks112, ks220, ks022, ks202, ks222;
   if constexpr (WELL) {
     // the shifted-space inverses of orders 4 and 6 (col_cum_well.h eqs. 53-56)
-    ks211 = ((ks200 + third) * ks011 + 2.0f * ks101 * ks110) * inv_rho;
-    ks121 = ((ks020 + third) * ks101 + 2.0f * ks110 * ks011) * inv_rho;
-    ks112 = ((ks002 + third) * ks110 + 2.0f * ks011 * ks101) * inv_rho;
-    ks220 = (ks020 * ks200 + 2.0f * ks110 * ks110 + (ks020 + ks200) * third) * inv_rho
-            - k000 * inv_rho / 9.0f;
-    ks022 = (ks002 * ks020 + 2.0f * ks011 * ks011 + (ks002 + ks020) * third) * inv_rho
-            - k000 * inv_rho / 9.0f;
-    ks202 = (ks200 * ks002 + 2.0f * ks101 * ks101 + (ks200 + ks002) * third) * inv_rho
-            - k000 * inv_rho / 9.0f;
-    const float sum_ks2 = ks200 + ks020 + ks002;
-    const float sum_ks22 = ks022 + ks202 + ks220;
-    const float sum_sq_s = ks101 * ks101 + ks011 * ks011 + ks110 * ks110;
-    const float sum_pairs_s = ks200 * ks020 + ks200 * ks002 + ks020 * ks002;
+    ks211 = ((ks200 + third) * ks011 + real(2.0) * ks101 * ks110) * inv_rho;
+    ks121 = ((ks020 + third) * ks101 + real(2.0) * ks110 * ks011) * inv_rho;
+    ks112 = ((ks002 + third) * ks110 + real(2.0) * ks011 * ks101) * inv_rho;
+    ks220 = (ks020 * ks200 + real(2.0) * ks110 * ks110 + (ks020 + ks200) * third) * inv_rho
+            - k000 * inv_rho / real(9.0);
+    ks022 = (ks002 * ks020 + real(2.0) * ks011 * ks011 + (ks002 + ks020) * third) * inv_rho
+            - k000 * inv_rho / real(9.0);
+    ks202 = (ks200 * ks002 + real(2.0) * ks101 * ks101 + (ks200 + ks002) * third) * inv_rho
+            - k000 * inv_rho / real(9.0);
+    const real sum_ks2 = ks200 + ks020 + ks002;
+    const real sum_ks22 = ks022 + ks202 + ks220;
+    const real sum_sq_s = ks101 * ks101 + ks011 * ks011 + ks110 * ks110;
+    const real sum_pairs_s = ks200 * ks020 + ks200 * ks002 + ks020 * ks002;
     ks222 =
         (ks200 * ks022 + ks020 * ks202 + ks002 * ks220
-         + 4.0f * (ks011 * ks211 + ks101 * ks121 + ks110 * ks112)
-         + sum_ks2 / 9.0f + sum_ks22 * third) * inv_rho
-        - (16.0f * ks110 * ks101 * ks011
-           + 4.0f * (ks101 * ks101 * ks020 + ks011 * ks011 * ks200 + ks110 * ks110 * ks002)
-           + 2.0f * ks200 * ks020 * ks002
-           + (4.0f / 3.0f) * sum_sq_s + (2.0f / 3.0f) * sum_pairs_s + (2.0f / 9.0f) * sum_ks2)
+         + real(4.0) * (ks011 * ks211 + ks101 * ks121 + ks110 * ks112)
+         + sum_ks2 / real(9.0) + sum_ks22 * third) * inv_rho
+        - (real(16.0) * ks110 * ks101 * ks011
+           + real(4.0) * (ks101 * ks101 * ks020 + ks011 * ks011 * ks200 + ks110 * ks110 * ks002)
+           + real(2.0) * ks200 * ks020 * ks002
+           + (real(4.0) / real(3.0)) * sum_sq_s + (real(2.0) / real(3.0)) * sum_pairs_s + (real(2.0) / real(9.0)) * sum_ks2)
           * inv_rho * inv_rho
-        - (k000 * k000 - k000) / 27.0f * inv_rho * inv_rho;
+        - (k000 * k000 - k000) / real(27.0) * inv_rho * inv_rho;
   } else {
     // the inverses of orders 4 and 6 on total DFs (Geier 2015 eqs. 81-84)
-    ks211 = (ks200 * ks011 + 2.0f * ks101 * ks110) * inv_rho;
-    ks121 = (ks020 * ks101 + 2.0f * ks110 * ks011) * inv_rho;
-    ks112 = (ks002 * ks110 + 2.0f * ks011 * ks101) * inv_rho;
-    ks220 = (ks020 * ks200 + 2.0f * ks110 * ks110) * inv_rho;
-    ks022 = (ks002 * ks020 + 2.0f * ks011 * ks011) * inv_rho;
-    ks202 = (ks200 * ks002 + 2.0f * ks101 * ks101) * inv_rho;
+    ks211 = (ks200 * ks011 + real(2.0) * ks101 * ks110) * inv_rho;
+    ks121 = (ks020 * ks101 + real(2.0) * ks110 * ks011) * inv_rho;
+    ks112 = (ks002 * ks110 + real(2.0) * ks011 * ks101) * inv_rho;
+    ks220 = (ks020 * ks200 + real(2.0) * ks110 * ks110) * inv_rho;
+    ks022 = (ks002 * ks020 + real(2.0) * ks011 * ks011) * inv_rho;
+    ks202 = (ks200 * ks002 + real(2.0) * ks101 * ks101) * inv_rho;
     ks222 =
         (ks200 * ks022 + ks020 * ks202 + ks002 * ks220
-         + 4.0f * (ks011 * ks211 + ks101 * ks121 + ks110 * ks112)) * inv_rho
-        - (16.0f * ks110 * ks101 * ks011
-           + 4.0f * (ks101 * ks101 * ks020 + ks011 * ks011 * ks200 + ks110 * ks110 * ks002)
-           + 2.0f * ks200 * ks020 * ks002)
+         + real(4.0) * (ks011 * ks211 + ks101 * ks121 + ks110 * ks112)) * inv_rho
+        - (real(16.0) * ks110 * ks101 * ks011
+           + real(4.0) * (ks101 * ks101 * ks020 + ks011 * ks011 * ks200 + ks110 * ks110 * ks002)
+           + real(2.0) * ks200 * ks020 * ks002)
           * inv_rho * inv_rho;
   }
 
   // inverse x: post-collision moments ks[a][b][g] per (b, g); the first
   // order is negated (trapezoidal forcing, col_cum.h:341-345)
-  float bx[3][3][3];  // [ix][order y][order z]
+  real bx[3][3][3];  // [ix][order y][order z]
   bwd_axis(k000, -k[1][0][0], ks200, ux, WELL, x_offset(0, 0), bx[0][0][0], bx[1][0][0], bx[2][0][0]);
   bwd_axis_k2z(-k[0][1][0], ks110, ux, bx[0][1][0], bx[1][1][0], bx[2][1][0]);
   bwd_axis_k1z(ks020, ks220, ux, WELL, x_offset(2, 0), bx[0][2][0], bx[1][2][0], bx[2][2][0]);
   bwd_axis_k2z(-k[0][0][1], ks101, ux, bx[0][0][1], bx[1][0][1], bx[2][0][1]);
-  bwd_axis_k1z(ks011, ks211, ux, false, 0.0f, bx[0][1][1], bx[1][1][1], bx[2][1][1]);
+  bwd_axis_k1z(ks011, ks211, ux, false, real(0.0), bx[0][1][1], bx[1][1][1], bx[2][1][1]);
   bwd_axis_k1only(ks121, ux, bx[0][2][1], bx[1][2][1], bx[2][2][1]);
   bwd_axis_k1z(ks002, ks202, ux, WELL, x_offset(0, 2), bx[0][0][2], bx[1][0][2], bx[2][0][2]);
   bwd_axis_k1only(ks112, ux, bx[0][1][2], bx[1][1][2], bx[2][1][2]);
   bwd_axis_k1z(ks022, ks222, ux, WELL, x_offset(2, 2), bx[0][2][2], bx[1][2][2], bx[2][2][2]);
 
   // inverse y, then z
-  float by[3][3][3];  // [ix][iy][order z]
+  real by[3][3][3];  // [ix][iy][order z]
 #pragma unroll
   for (int ix = 0; ix < 3; ++ix)
 #pragma unroll
@@ -375,8 +396,8 @@ __device__ __forceinline__ void collide_cum(float (&f)[Q], float rho, float ux, 
 template <bool WELL>
 struct Cum {
   template <class P>
-  __device__ __forceinline__ static void collide(float (&f)[Q], float rho, float ux, float uy,
-                                                 float uz, const P& p) {
+  __device__ __forceinline__ static void collide(real (&f)[Q], real rho, real ux, real uy,
+                                                 real uz, const P& p) {
     collide_cum<WELL>(f, rho, ux, uy, uz, p.omega1);
   }
 };
@@ -385,18 +406,18 @@ struct Cum {
 // summed over q in order (fused.py _moments_local); neumaier selects the
 // compensated sum (reference USE_HIGH_PRECISION_RHO, d3q27/common.h:19-28).
 template <bool WELL>
-__device__ __forceinline__ void moments_local(const float (&f)[Q], float fx, float fy, float fz,
-                                              bool neumaier, float& rho,
-                                              float& ux, float& uy, float& uz) {
-  float r;
+__device__ __forceinline__ void moments_local(const real (&f)[Q], real fx, real fy, real fz,
+                                              bool neumaier, real& rho,
+                                              real& ux, real& uy, real& uz) {
+  real r;
   if (neumaier) {
-    float s = f[0];
-    float comp = 0.0f;
+    real s = f[0];
+    real comp = real(0.0);
 #pragma unroll
     for (int q = 1; q < Q; ++q) {
-      const float x = f[q];
-      const float t = s + x;
-      comp = comp + (fabsf(s) >= fabsf(x) ? (s - t) + x : (x - t) + s);
+      const real x = f[q];
+      const real t = s + x;
+      comp = comp + (abs_r(s) >= abs_r(x) ? (s - t) + x : (x - t) + s);
       s = t;
     }
     r = s + comp;
@@ -405,26 +426,26 @@ __device__ __forceinline__ void moments_local(const float (&f)[Q], float fx, flo
 #pragma unroll
     for (int q = 1; q < Q; ++q) r = r + f[q];
   }
-  if constexpr (WELL) rho = r + 1.0f; else rho = r;
-  float jx = 0.0f, jy = 0.0f, jz = 0.0f;
+  if constexpr (WELL) rho = r + real(1.0); else rho = r;
+  real jx = real(0.0), jy = real(0.0), jz = real(0.0);
 #pragma unroll
   for (int q = 1; q < Q; ++q) {
     if (cx(q) > 0) jx = jx + f[q]; else if (cx(q) < 0) jx = jx - f[q];
     if (cy(q) > 0) jy = jy + f[q]; else if (cy(q) < 0) jy = jy - f[q];
     if (cz(q) > 0) jz = jz + f[q]; else if (cz(q) < 0) jz = jz - f[q];
   }
-  ux = (jx + 0.5f * fx) / rho;
-  uy = (jy + 0.5f * fy) / rho;
-  uz = (jz + 0.5f * fz) / rho;
+  ux = (jx + real(0.5) * fx) / rho;
+  uy = (jy + real(0.5) * fy) / rho;
+  uz = (jz + real(0.5) * fz) / rho;
 }
 
 // Pull-side BC transform (fused.py _pull_transform): full-way bounce-back
 // swaps every direction with its opposite on WALL sites.
-__device__ __forceinline__ void pull_transform(float (&f)[Q], uint8_t m) {
+__device__ __forceinline__ void pull_transform(real (&f)[Q], uint8_t m) {
   if (m == GEO_WALL) {
 #pragma unroll
     for (int q = 1; q < Q; q += 2) {
-      const float t = f[q];
+      const real t = f[q];
       f[q] = f[q + 1];
       f[q + 1] = t;
     }
@@ -432,8 +453,8 @@ __device__ __forceinline__ void pull_transform(float (&f)[Q], uint8_t m) {
 }
 
 struct SiteParams {
-  float omega1;      // 1 / (3 nu + 0.5)
-  float fx, fy, fz;  // homogeneous body force
+  real omega1;      // 1 / (3 nu + 0.5)
+  real fx, fy, fz;  // homogeneous body force
   int neumaier;      // compensated density sum
 };
 
@@ -468,15 +489,15 @@ __device__ __forceinline__ void push_targets(int s, int c, int n, bool periodic,
 // exit; (rho, u) are the macro outputs (WALL and NOTHING sites report
 // rho = 1, u = 0).  P is SiteParams or ABParams.
 template <class P>
-__device__ __forceinline__ void stream_bc_collide(float (&f)[Q], uint8_t m, const P& p,
-                                                  float& rho, float& ux, float& uy, float& uz) {
+__device__ __forceinline__ void stream_bc_collide(real (&f)[Q], uint8_t m, const P& p,
+                                                  real& rho, real& ux, real& uy, real& uz) {
   pull_transform(f, m);
   moments_local<true>(f, p.fx, p.fy, p.fz, p.neumaier != 0, rho, ux, uy, uz);
   if (m == GEO_FLUID) {
-    collide_cum<true>(f, rho == 0.0f ? 1.0f : rho, ux, uy, uz, p.omega1);
+    collide_cum<true>(f, rho == real(0.0) ? real(1.0) : rho, ux, uy, uz, p.omega1);
   } else {
-    rho = 1.0f;
-    ux = uy = uz = 0.0f;
+    rho = real(1.0);
+    ux = uy = uz = real(0.0);
   }
 }
 
@@ -492,8 +513,8 @@ constexpr int EQ_ENTROPIC = 3;
 constexpr int EQ_DYN = -1;
 
 // c_q . u with the zero components left out.
-__device__ __forceinline__ float c_dot(int q, float ux, float uy, float uz) {
-  float s = 0.0f;
+__device__ __forceinline__ real c_dot(int q, real ux, real uy, real uz) {
+  real s = real(0.0);
   bool any = false;
   if (cx(q) != 0) { s = cx(q) > 0 ? ux : -ux; any = true; }
   if (cy(q) != 0) { s = any ? (cy(q) > 0 ? s + uy : s - uy) : (cy(q) > 0 ? uy : -uy); any = true; }
@@ -503,36 +524,36 @@ __device__ __forceinline__ float c_dot(int q, float ux, float uy, float uz) {
 
 // One axis factor of the inverse-cumulant equilibrium (equilibrium.py
 // eq_inv_cum): c = 0 -> (2 - 3 v^2) / 3, c = +-1 -> (3 v^2 +- 3 v + 1) / 6.
-__device__ __forceinline__ float invcum_factor(int c, float v) {
-  return c == 0 ? (2.0f - 3.0f * v * v) / 3.0f
-                : (c > 0 ? (3.0f * v * v + 3.0f * v + 1.0f) / 6.0f
-                         : (3.0f * v * v - 3.0f * v + 1.0f) / 6.0f);
+__device__ __forceinline__ real invcum_factor(int c, real v) {
+  return c == 0 ? (real(2.0) - real(3.0) * v * v) / real(3.0)
+                : (c > 0 ? (real(3.0) * v * v + real(3.0) * v + real(1.0)) / real(6.0)
+                         : (real(3.0) * v * v - real(3.0) * v + real(1.0)) / real(6.0));
 }
 
 // One axis factor of the entropic equilibrium (equilibrium.py eq_entropic),
 // s = sqrt(1 + 3 v^2): c = 0 -> (2/3) (2 - s), c = +-1 -> (1/6) (2 - s)
 // ((2 v + s) / (1 - v))^{+-1}.  IEEE sqrt and division (no fast math).
-__device__ __forceinline__ float entropic_factor(int c, float v) {
-  const float s = sqrtf(1.0f + 3.0f * v * v);
-  const float base = 2.0f - s;
-  if (c == 0) return (2.0f / 3.0f) * base;
-  const float r = (2.0f * v + s) / (1.0f - v);
-  return c > 0 ? (1.0f / 6.0f) * base * r : (1.0f / 6.0f) * base / r;
+__device__ __forceinline__ real entropic_factor(int c, real v) {
+  const real s = sqrt_r(real(1.0) + real(3.0) * v * v);
+  const real base = real(2.0) - s;
+  if (c == 0) return (real(2.0) / real(3.0)) * base;
+  const real r = (real(2.0) * v + s) / (real(1.0) - v);
+  return c > 0 ? (real(1.0) / real(6.0)) * base * r : (real(1.0) / real(6.0)) * base / r;
 }
 
 // Equilibrium component q of kind EQ at (rho, u) (fused.py _eq_local).
 template <int EQ>
-__device__ __forceinline__ float eq_q(int q, float rho, float ux, float uy, float uz) {
+__device__ __forceinline__ real eq_q(int q, real rho, real ux, real uy, real uz) {
   if constexpr (EQ == EQ_INVCUM) {
     return rho * invcum_factor(cx(q), ux) * invcum_factor(cy(q), uy) * invcum_factor(cz(q), uz);
   } else if constexpr (EQ == EQ_ENTROPIC) {
     return rho * entropic_factor(cx(q), ux) * entropic_factor(cy(q), uy) *
            entropic_factor(cz(q), uz);
   } else {
-    const float uu = ux * ux + uy * uy + uz * uz;
-    const float cu = c_dot(q, ux, uy, uz);
-    const float feq = rho * (1.0f + 3.0f * cu + 4.5f * cu * cu - 1.5f * uu);
-    if constexpr (EQ == EQ_WELL) return weight(q) * (feq - 1.0f);
+    const real uu = ux * ux + uy * uy + uz * uz;
+    const real cu = c_dot(q, ux, uy, uz);
+    const real feq = rho * (real(1.0) + real(3.0) * cu + real(4.5) * cu * cu - real(1.5) * uu);
+    if constexpr (EQ == EQ_WELL) return weight(q) * (feq - real(1.0));
     else return weight(q) * feq;
   }
 }
@@ -540,7 +561,7 @@ __device__ __forceinline__ float eq_q(int q, float rho, float ux, float uy, floa
 // Symmetry plane (boundary.py sym_table(3), apply_symmetry): the incoming
 // components with c[AXIS] == SIGN take their mirror image's value.
 template <int AXIS, int SIGN>
-__device__ __forceinline__ void sym_mirror(float (&f)[Q]) {
+__device__ __forceinline__ void sym_mirror(real (&f)[Q]) {
 #pragma unroll
   for (int q = 1; q < Q; ++q)
     if (cq(q, AXIS) == SIGN) f[q] = f[mirror(q, AXIS)];
@@ -549,7 +570,7 @@ __device__ __forceinline__ void sym_mirror(float (&f)[Q]) {
 // Pull-side transforms after the streaming reads (fused.py _pull_transform):
 // the WALL swap and the six symmetry planes.  The outflow pull rules are
 // reads, done by the kernel.
-__device__ __forceinline__ void pull_transform_ab(float (&f)[Q], uint8_t m) {
+__device__ __forceinline__ void pull_transform_ab(real (&f)[Q], uint8_t m) {
   switch (m) {
     case GEO_WALL: pull_transform(f, m); break;
     case GEO_SYM_TOP: sym_mirror<2, -1>(f); break;
@@ -566,45 +587,45 @@ __device__ __forceinline__ void pull_transform_ab(float (&f)[Q], uint8_t m) {
 // inflow_left_moment_bc; reference d3q27/bc.h:77-128) on total DFs: the 9
 // unknown c_x = +1 DFs are rebuilt from the prescribed velocity and the
 // known DFs, which are only read; returns the density.
-__device__ __forceinline__ float inflow_left_moment(float (&f)[Q], float vx, float vy,
-                                                    float vz) {
+__device__ __forceinline__ real inflow_left_moment(real (&f)[Q], real vx, real vy,
+                                                    real vz) {
 #define FN(name) f[QConst<qn(name)>::value]
-  const float g_zd = ((FN("zpp") + FN("zmm")) + FN("zpm")) + FN("zmp");
-  const float g_za = ((FN("zpz") + FN("zmz")) + FN("zzp")) + FN("zzm");
-  const float g_zb = ((FN("zzp") + FN("zzm")) + FN("zpz")) + FN("zmz");
-  const float g_md = ((FN("mpp") + FN("mmm")) + FN("mpm")) + FN("mmp");
-  const float g_ma = ((FN("mpz") + FN("mmz")) + FN("mzp")) + FN("mzm");
-  const float s_zero = (FN("zzz") + g_zd) + g_za;
-  const float s_minus = (FN("mzz") + g_md) + g_ma;
-  const float rho = (s_zero + 2.0f * s_minus) / (1.0f - vx);
+  const real g_zd = ((FN("zpp") + FN("zmm")) + FN("zpm")) + FN("zmp");
+  const real g_za = ((FN("zpz") + FN("zmz")) + FN("zzp")) + FN("zzm");
+  const real g_zb = ((FN("zzp") + FN("zzm")) + FN("zpz")) + FN("zmz");
+  const real g_md = ((FN("mpp") + FN("mmm")) + FN("mpm")) + FN("mmp");
+  const real g_ma = ((FN("mpz") + FN("mmz")) + FN("mzp")) + FN("mzm");
+  const real s_zero = (FN("zzz") + g_zd) + g_za;
+  const real s_minus = (FN("mzz") + g_md) + g_ma;
+  const real rho = (s_zero + real(2.0) * s_minus) / (real(1.0) - vx);
 
-  const float m100 = rho * vx;
-  const float m010 = rho * vy;
-  const float m001 = rho * vz;
-  const float m011 = rho * vy * vz;
-  const float m020 = rho / 3.0f + rho * vy * vy;
-  const float m002 = rho / 3.0f + rho * vz * vz;
-  const float m021 = rho * vz / 3.0f + rho * vy * vy * vz;
-  const float m012 = rho * vy / 3.0f + rho * vy * vz * vz;
-  const float m022 = rho / 9.0f + rho / 3.0f * (vy * vy + vz * vz) + rho * vy * vy * vz * vz;
+  const real m100 = rho * vx;
+  const real m010 = rho * vy;
+  const real m001 = rho * vz;
+  const real m011 = rho * vy * vz;
+  const real m020 = rho / real(3.0) + rho * vy * vy;
+  const real m002 = rho / real(3.0) + rho * vz * vz;
+  const real m021 = rho * vz / real(3.0) + rho * vy * vy * vz;
+  const real m012 = rho * vy / real(3.0) + rho * vy * vz * vz;
+  const real m022 = rho / real(9.0) + rho / real(3.0) * (vy * vy + vz * vz) + rho * vy * vy * vz * vz;
 
-  FN("pzz") = m100 + (m022 - (m020 + m002)) + FN("mzz") + (g_zd + g_zb) + 2.0f * (g_md + g_ma);
-  FN("ppz") = 0.5f * ((m020 - m022) + (-m012 + m010)) - (FN("mpz") + FN("zpz"));
-  FN("pmz") = 0.5f * ((m020 - m022) + (m012 - m010)) - (FN("mmz") + FN("zmz"));
-  FN("pzp") = 0.5f * ((m002 - m022) + (-m021 + m001)) - (FN("mzp") + FN("zzp"));
-  FN("pzm") = 0.5f * ((m002 - m022) + (m021 - m001)) - (FN("mzm") + FN("zzm"));
-  FN("ppp") = 0.25f * ((m022 + m011) + (m021 + m012)) - (FN("mpp") + FN("zpp"));
-  FN("ppm") = 0.25f * ((m022 - m011) + (-m021 + m012)) - (FN("mpm") + FN("zpm"));
-  FN("pmp") = 0.25f * ((m022 - m011) + (m021 - m012)) - (FN("mmp") + FN("zmp"));
-  FN("pmm") = 0.25f * ((m022 + m011) + (-m021 - m012)) - (FN("mmm") + FN("zmm"));
+  FN("pzz") = m100 + (m022 - (m020 + m002)) + FN("mzz") + (g_zd + g_zb) + real(2.0) * (g_md + g_ma);
+  FN("ppz") = real(0.5) * ((m020 - m022) + (-m012 + m010)) - (FN("mpz") + FN("zpz"));
+  FN("pmz") = real(0.5) * ((m020 - m022) + (m012 - m010)) - (FN("mmz") + FN("zmz"));
+  FN("pzp") = real(0.5) * ((m002 - m022) + (-m021 + m001)) - (FN("mzp") + FN("zzp"));
+  FN("pzm") = real(0.5) * ((m002 - m022) + (m021 - m001)) - (FN("mzm") + FN("zzm"));
+  FN("ppp") = real(0.25) * ((m022 + m011) + (m021 + m012)) - (FN("mpp") + FN("zpp"));
+  FN("ppm") = real(0.25) * ((m022 - m011) + (-m021 + m012)) - (FN("mpm") + FN("zpm"));
+  FN("pmp") = real(0.25) * ((m022 - m011) + (m021 - m012)) - (FN("mmp") + FN("zmp"));
+  FN("pmm") = real(0.25) * ((m022 + m011) + (-m021 - m012)) - (FN("mmm") + FN("zmm"));
 #undef FN
   return rho;
 }
 
 struct ABParams {
-  float omega1;            // 1 / (3 nu + 0.5)
-  float fx, fy, fz;        // homogeneous body force
-  float uin_x, uin_y, uin_z;  // inflow velocity (INFLOW, INFLOW_LEFT)
+  real omega1;            // 1 / (3 nu + 0.5)
+  real fx, fy, fz;        // homogeneous body force
+  real uin_x, uin_y, uin_z;  // inflow velocity (INFLOW, INFLOW_LEFT)
   int neumaier;            // compensated density sum
 };
 
@@ -614,7 +635,7 @@ struct ABParams {
 // central moments).  A type of its own, so that the cumulant kernels'
 // parameters stay as they were.
 struct CollParams : ABParams {
-  float nu;
+  real nu;
   int eq;
   int kbc;
 };
@@ -625,8 +646,8 @@ struct CollParams : ABParams {
 // their moments; both are updated in place.  P is ABParams, or CollParams
 // (EQ_DYN).
 template <bool WELL, int EQ, class P>
-__device__ __forceinline__ void ab_boundary(float (&f)[Q], uint8_t m, const P& p,
-                                            float& rho, float& ux, float& uy, float& uz) {
+__device__ __forceinline__ void ab_boundary(real (&f)[Q], uint8_t m, const P& p,
+                                            real& rho, real& ux, real& uy, real& uz) {
   if constexpr (EQ == EQ_DYN) {
     // the kind is uniform over the launch: one branch for every thread
     if (p.eq == EQ_INVCUM)
@@ -656,26 +677,26 @@ __device__ __forceinline__ void ab_boundary(float (&f)[Q], uint8_t m, const P& p
     }
     case GEO_INFLOW:
 #pragma unroll
-      for (int q = 0; q < Q; ++q) f[q] = eq_q<EQ>(q, 1.0f, p.uin_x, p.uin_y, p.uin_z);
-      rho = 1.0f;
+      for (int q = 0; q < Q; ++q) f[q] = eq_q<EQ>(q, real(1.0), p.uin_x, p.uin_y, p.uin_z);
+      rho = real(1.0);
       ux = p.uin_x;
       uy = p.uin_y;
       uz = p.uin_z;
       break;
     case GEO_OUTFLOW_EQ:
 #pragma unroll
-      for (int q = 0; q < Q; ++q) f[q] = eq_q<EQ>(q, 1.0f, ux, uy, uz);
-      rho = 1.0f;
+      for (int q = 0; q < Q; ++q) f[q] = eq_q<EQ>(q, real(1.0), ux, uy, uz);
+      rho = real(1.0);
       break;
     case GEO_OUTFLOW_RIGHT:
-      rho = 1.0f;
+      rho = real(1.0);
       break;
     case GEO_OUTFLOW_RIGHT_INTERP:
       // equilibrium decomposition toward rho_out = 1 (reference bc.h:138-143)
 #pragma unroll
       for (int q = 0; q < Q; ++q)
-        f[q] = (f[q] + eq_q<EQ>(q, 1.0f, ux, uy, uz)) - eq_q<EQ>(q, rho, ux, uy, uz);
-      rho = 1.0f;
+        f[q] = (f[q] + eq_q<EQ>(q, real(1.0), ux, uy, uz)) - eq_q<EQ>(q, rho, ux, uy, uz);
+      rho = real(1.0);
       break;
     default:
       break;
@@ -691,22 +712,28 @@ __device__ __forceinline__ void ab_boundary(float (&f)[Q], uint8_t m, const P& p
 // report rho = 1, u = 0.  The outflow pull rules are reads, done by the
 // caller.  P is ABParams, or the family instances' CollParams.
 template <bool WELL, int EQ, class C = Cum<WELL>, class P = ABParams>
-__device__ __forceinline__ void site_collide(float (&v)[Q], uint8_t m, const P& p,
-                                             float& rho, float& ux, float& uy, float& uz) {
+__device__ __forceinline__ void site_collide(real (&v)[Q], uint8_t m, const P& p,
+                                             real& rho, real& ux, real& uy, real& uz) {
   pull_transform_ab(v, m);
   moments_local<WELL>(v, p.fx, p.fy, p.fz, p.neumaier != 0, rho, ux, uy, uz);
   ab_boundary<WELL, EQ>(v, m, p, rho, ux, uy, uz);
-  if (collides(m)) C::collide(v, rho == 0.0f ? 1.0f : rho, ux, uy, uz, p);
+  if (collides(m)) C::collide(v, rho == real(0.0) ? real(1.0) : rho, ux, uy, uz, p);
   if (m == GEO_WALL || m == GEO_NOTHING) {
-    rho = 1.0f;
-    ux = uy = uz = 0.0f;
+    rho = real(1.0);
+    ux = uy = uz = real(0.0);
   }
 }
 
 // speed of sound of the interpolated outflow (streaming.py SPEED_OF_SOUND)
-// and 1 - it, each rounded once to float
+// and 1 - it: in float32 each rounded once to float, in float64 as the
+// plain version computes them (the literal and 1 - it in double)
+#ifdef LBM_F64
+constexpr double CS = 0.5773502691896257;
+constexpr double ONE_MINUS_CS = 1.0 - CS;
+#else
 constexpr float CS = 0.5773502691896257f;
 constexpr float ONE_MINUS_CS = 0.4226497308103743f;
+#endif
 
 // The A-B read at (x, y, z) with code m (fused.py _pull_transform's reads):
 // pull f_q from x - c_q (wrapped on periodic axes, clamped to the edge site
@@ -714,9 +741,9 @@ constexpr float ONE_MINUS_CS = 0.4226497308103743f;
 // OUTFLOW_RIGHT_INTERP: the c_x = -1 components blend x-1 and x).  A row
 // away from the x and y faces takes a short path with plain offsets; only
 // z needs the wrap/clamp rule there.  Offsets are 64-bit.
-__device__ __forceinline__ void ab_pull(const float* __restrict__ f, uint8_t m, int x, int y,
+__device__ __forceinline__ void ab_pull(const real* __restrict__ f, uint8_t m, int x, int y,
                                         int z, int X, int Y, int Z, int periodic_bits,
-                                        float (&v)[Q]) {
+                                        real (&v)[Q]) {
   const int64_t N = (int64_t)X * Y * Z;
   const int64_t site = ((int64_t)x * Y + y) * Z + z;
   const bool px = periodic_bits & 1, py = periodic_bits & 2, pz = periodic_bits & 4;
@@ -741,7 +768,7 @@ __device__ __forceinline__ void ab_pull(const float* __restrict__ f, uint8_t m, 
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int64_t yz = (int64_t)neighbour(y, -cy(q), Y, py) * Z + neighbour(z, -cz(q), Z, pz);
-      const float from_xm = f[q * N + xm * sx + yz];
+      const real from_xm = f[q * N + xm * sx + yz];
       if (m == GEO_OUTFLOW_RIGHT)
         v[q] = from_xm;
       else if (cx(q) == -1)
@@ -757,12 +784,37 @@ __device__ __forceinline__ void ab_pull(const float* __restrict__ f, uint8_t m, 
 // equilibrium kind and KBC bits pass through; the collision takes the sum
 // as its force (the SRT and BGK families' forcing terms read it).
 template <class P>
-__device__ __forceinline__ P site_params(const P& p, const float* __restrict__ ff, int64_t site,
+__device__ __forceinline__ P site_params(const P& p, const real* __restrict__ ff, int64_t site,
                                          int64_t N) {
   P s = p;
   s.fx = p.fx + ff[site];
   s.fy = p.fy + ff[N + site];
   s.fz = p.fz + ff[2 * N + site];
+  return s;
+}
+
+// A per-site inflow velocity (the profile instances of the A-B step):
+// component a at (x, y, z) is u[a sa + x sx + y sy + z sz], in elements, so
+// a profile that broadcasts to [3, X, Y, Z] (sim_2's [3, 1, Y, Z]) is read
+// in place with stride 0 on its broadcast axes.
+struct Profile {
+  const real* u;
+  int64_t sa, sx, sy, sz;
+};
+
+// The params of a site under an inflow profile: p with the site's own
+// inflow velocity where the code reads one (INFLOW_LEFT, INFLOW); three
+// loads at those sites only (fused.py _stream_bc_collide's u_in_field).
+template <class P>
+__device__ __forceinline__ P inflow_params(const P& p, const Profile& prof, uint8_t m, int x,
+                                           int y, int z) {
+  P s = p;
+  if (m == GEO_INFLOW_LEFT || m == GEO_INFLOW) {
+    const real* u = prof.u + x * prof.sx + y * prof.sy + z * prof.sz;
+    s.uin_x = u[0];
+    s.uin_y = u[prof.sa];
+    s.uin_z = u[2 * prof.sa];
+  }
   return s;
 }
 
@@ -775,36 +827,40 @@ __device__ __forceinline__ P site_params(const P& p, const float* __restrict__ f
 // code collides.  Writes fout, rho_out and u_out at the site and returns
 // the velocity it reported in (ux, uy, uz): NOTHING sites keep their stored
 // DFs, WALL and NOTHING sites report rho = 1, u = 0.  FF (the force_field
-// variant) adds the site's force from ff to p's.  A row away from the x
+// variant) adds the site's force from ff to p's; PROF (the profile
+// instances) reads the inflow velocity of an INFLOW_LEFT or INFLOW site from
+// prof in place of p's.  A row away from the x
 // and y faces takes a short path with plain offsets; only z needs the
 // wrap/clamp rule there.  Offsets are 64-bit.  The reads are ab_pull's,
 // written out here: with the call in their place B7's instances took 88
 // registers instead of 80 and ran 1.8% slower (tests/main_paths_ab.py:
 // sim_coupled res 8 lost 5-7% MLUPS).  C is the collision (site_collide).
-template <bool WELL, int EQ, bool FF = false, class C = Cum<WELL>, class P = ABParams>
-__device__ __forceinline__ void ab_site(const float* __restrict__ f, float* __restrict__ fout,
+template <bool WELL, int EQ, bool FF = false, class C = Cum<WELL>, class P = ABParams,
+          bool PROF = false>
+__device__ __forceinline__ void ab_site(const real* __restrict__ f, real* __restrict__ fout,
                                         const uint8_t* __restrict__ map,
-                                        float* __restrict__ rho_out, float* __restrict__ u_out,
+                                        real* __restrict__ rho_out, real* __restrict__ u_out,
                                         int x, int y, int z, int X, int Y, int Z,
                                         int periodic_bits, const P& p,
-                                        float& ux, float& uy, float& uz,
-                                        const float* __restrict__ ff = nullptr) {
+                                        real& ux, real& uy, real& uz,
+                                        const real* __restrict__ ff = nullptr,
+                                        Profile prof = Profile{}) {
   const int64_t N = (int64_t)X * Y * Z;
   const int64_t site = ((int64_t)x * Y + y) * Z + z;
   const bool px = periodic_bits & 1, py = periodic_bits & 2, pz = periodic_bits & 4;
   const int64_t sx = (int64_t)Y * Z, sy = Z;
 
   const uint8_t m = map[site];
-  float v[Q];
+  real v[Q];
   if (m == GEO_NOTHING) {
     // inert ghost site: its stored DFs, rho = 1, u = 0
 #pragma unroll
     for (int q = 0; q < Q; ++q) fout[q * N + site] = f[q * N + site];
-    rho_out[site] = 1.0f;
-    u_out[site] = 0.0f;
-    u_out[N + site] = 0.0f;
-    u_out[2 * N + site] = 0.0f;
-    ux = uy = uz = 0.0f;
+    rho_out[site] = real(1.0);
+    u_out[site] = real(0.0);
+    u_out[N + site] = real(0.0);
+    u_out[2 * N + site] = real(0.0);
+    ux = uy = uz = real(0.0);
     return;
   }
   const bool row_inside = x > 0 && x < X - 1 && y > 0 && y < Y - 1;
@@ -827,15 +883,17 @@ __device__ __forceinline__ void ab_site(const float* __restrict__ f, float* __re
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int64_t yz = (int64_t)neighbour(y, -cy(q), Y, py) * Z + neighbour(z, -cz(q), Z, pz);
-      const float from_xm = f[q * N + xm * sx + yz];
+      const real from_xm = f[q * N + xm * sx + yz];
       if (m == GEO_OUTFLOW_RIGHT)
         v[q] = from_xm;
       else if (cx(q) == -1)
         v[q] = CS * from_xm + ONE_MINUS_CS * f[q * N + (int64_t)x * sx + yz];
     }
   }
-  float rho;
-  if constexpr (FF)
+  real rho;
+  if constexpr (PROF)
+    site_collide<WELL, EQ, C>(v, m, inflow_params(p, prof, m, x, y, z), rho, ux, uy, uz);
+  else if constexpr (FF)
     site_collide<WELL, EQ, C>(v, m, site_params(p, ff, site, N), rho, ux, uy, uz);
   else
     site_collide<WELL, EQ, C>(v, m, p, rho, ux, uy, uz);
@@ -853,11 +911,11 @@ __device__ __forceinline__ void ab_site(const float* __restrict__ f, float* __re
 // written to rho_out / u_out.  Every code takes it, NOTHING too; no BC
 // overrides the moments.
 template <bool WELL>
-__device__ __forceinline__ void macro_site(float (&v)[Q], uint8_t m, const ABParams& p,
-                                           float* __restrict__ rho_out,
-                                           float* __restrict__ u_out, int64_t site, int64_t N) {
+__device__ __forceinline__ void macro_site(real (&v)[Q], uint8_t m, const ABParams& p,
+                                           real* __restrict__ rho_out,
+                                           real* __restrict__ u_out, int64_t site, int64_t N) {
   pull_transform_ab(v, m);
-  float rho, ux, uy, uz;
+  real rho, ux, uy, uz;
   moments_local<WELL>(v, p.fx, p.fy, p.fz, p.neumaier != 0, rho, ux, uy, uz);
   rho_out[site] = rho;
   u_out[site] = ux;
@@ -877,17 +935,17 @@ __device__ __forceinline__ void macro_site(float (&v)[Q], uint8_t m, const ABPar
 // reported velocity in (ux, uy, uz).  FF adds the site's force from ff; C
 // is the collision (site_collide).
 template <bool WELL, int EQ, bool FF = false, class C = Cum<WELL>, class P = ABParams>
-__device__ __forceinline__ void aa_even_site(float* __restrict__ f,
+__device__ __forceinline__ void aa_even_site(real* __restrict__ f,
                                              const uint8_t* __restrict__ map,
-                                             float* __restrict__ rho_out,
-                                             float* __restrict__ u_out, int64_t site, int64_t N,
-                                             const P& p, float& ux, float& uy,
-                                             float& uz, const float* __restrict__ ff = nullptr) {
+                                             real* __restrict__ rho_out,
+                                             real* __restrict__ u_out, int64_t site, int64_t N,
+                                             const P& p, real& ux, real& uy,
+                                             real& uz, const real* __restrict__ ff = nullptr) {
   const uint8_t m = map[site];
-  float rho = 1.0f;
-  ux = uy = uz = 0.0f;
+  real rho = real(1.0);
+  ux = uy = uz = real(0.0);
   if (m != GEO_NOTHING) {
-    float v[Q];
+    real v[Q];
 #pragma unroll
     for (int q = 0; q < Q; ++q) v[q] = f[q * N + site];
     if constexpr (FF)
@@ -910,9 +968,9 @@ __device__ __forceinline__ void aa_even_site(float* __restrict__ f,
 // offsets); LEAN (a FLUID/WALL/NOTHING map) has no outflow.  A row away
 // from the x and y faces takes a short path with plain x and y offsets.
 template <bool LEAN>
-__device__ __forceinline__ void aa_odd_pull(const float* __restrict__ f, uint8_t m, int x, int y,
+__device__ __forceinline__ void aa_odd_pull(const real* __restrict__ f, uint8_t m, int x, int y,
                                             int z, int X, int Y, int Z, int periodic_bits,
-                                            float (&v)[Q]) {
+                                            real (&v)[Q]) {
   const int64_t N = (int64_t)X * Y * Z;
   const int64_t site = ((int64_t)x * Y + y) * Z + z;
   const bool px = periodic_bits & 1, py = periodic_bits & 2, pz = periodic_bits & 4;
@@ -970,20 +1028,20 @@ __device__ __forceinline__ void aa_odd_pull(const float* __restrict__ f, uint8_t
 // (site_collide).
 template <bool WELL, int EQ, bool LEAN, bool FF = false, class C = Cum<WELL>,
           class P = ABParams>
-__device__ __forceinline__ void aa_odd_site(const float* __restrict__ f, float* __restrict__ fout,
+__device__ __forceinline__ void aa_odd_site(const real* __restrict__ f, real* __restrict__ fout,
                                             const uint8_t* __restrict__ map,
-                                            float* __restrict__ rho_out,
-                                            float* __restrict__ u_out, int x, int y, int z, int X,
+                                            real* __restrict__ rho_out,
+                                            real* __restrict__ u_out, int x, int y, int z, int X,
                                             int Y, int Z, int periodic_bits, bool has_nothing,
-                                            const P& p, float& ux, float& uy, float& uz,
-                                            const float* __restrict__ ff = nullptr) {
+                                            const P& p, real& ux, real& uy, real& uz,
+                                            const real* __restrict__ ff = nullptr) {
   const int64_t N = (int64_t)X * Y * Z;
   const int64_t site = ((int64_t)x * Y + y) * Z + z;
   const bool px = periodic_bits & 1, py = periodic_bits & 2, pz = periodic_bits & 4;
   const bool row_inside = x > 0 && x < X - 1 && y > 0 && y < Y - 1;
   const int64_t sx = (int64_t)Y * Z, sy = Z;
 
-  float v[Q];
+  real v[Q];
   if (row_inside) {
 #pragma unroll
     for (int q = 0; q < Q; ++q)
@@ -1005,7 +1063,7 @@ __device__ __forceinline__ void aa_odd_site(const float* __restrict__ f, float* 
       v[q] = f[opp(q) * N + xm * sx + (int64_t)neighbour(y, -cy(q), Y, py) * Z +
                neighbour(z, -cz(q), Z, pz)];
   }
-  float rho;
+  real rho;
   if constexpr (LEAN) stream_bc_collide(v, m, p, rho, ux, uy, uz);
   else if constexpr (FF) site_collide<WELL, EQ, C>(v, m, site_params(p, ff, site, N), rho, ux, uy, uz);
   else site_collide<WELL, EQ, C>(v, m, p, rho, ux, uy, uz);

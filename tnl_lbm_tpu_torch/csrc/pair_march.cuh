@@ -60,11 +60,17 @@
 namespace lbm {
 namespace march {
 
+#ifdef LBM_F64
+// float64 (f64_pair.cu): a half-width tile, so that a block of 6 even and
+// 4 odd warps holds a thread's double site update in registers
+constexpr int TY = 8, TZ = 16;
+#else
 constexpr int TY = 8, TZ = 32;               // column tile
+#endif
 constexpr int WY = TY + 2, WZ = TZ + 2;      // window plane
 constexpr int WSITES = WY * WZ;              // 340
 constexpr int TILE_SITES = TY * TZ;          // 256
-constexpr int EVEN_THREADS = 352;            // 11 warps, one thread per window site
+constexpr int EVEN_THREADS = (WSITES + 31) / 32 * 32;  // 352: 11 warps, one thread per window site
 constexpr int ODD_THREADS = TILE_SITES;      // 8 warps, one thread per tile site
 constexpr int THREADS = EVEN_THREADS + ODD_THREADS;  // 608: 96 registers a thread
 constexpr int NSTAGES = 2;                   // staged input planes, one in flight
@@ -72,9 +78,9 @@ constexpr int SEG_MAX = 32;                  // x planes a block marches at most
 constexpr int GROUP = 9;                     // slots of one c_x class
 constexpr int P_GROUPS = 2, Z_GROUPS = 3, M_GROUPS = 4;  // c_x = +1, 0, -1
 constexpr int RING_GROUPS = P_GROUPS + Z_GROUPS + M_GROUPS;  // 9
-constexpr int RING_BYTES = RING_GROUPS * GROUP * WSITES * (int)sizeof(float);  // 110,160
+constexpr int RING_BYTES = RING_GROUPS * GROUP * WSITES * (int)sizeof(real);  // 110,160
 constexpr int OUT_GROUPS = 4;                // groups of each class with OUTFLOW_RIGHT pulls
-constexpr int OUT_RING_BYTES = 3 * OUT_GROUPS * GROUP * WSITES * (int)sizeof(float);  // 146,880
+constexpr int OUT_RING_BYTES = 3 * OUT_GROUPS * GROUP * WSITES * (int)sizeof(real);  // 146,880
 constexpr int CODE_PLANES = 5;
 constexpr int HANDOFF = 4;                   // plane barriers between the even and odd warps
 constexpr int CODE_BYTES = CODE_PLANES * WSITES;
@@ -122,18 +128,20 @@ inline int auto_seg_len(int X, int Y, int Z) {
   return std::min(SEG_MAX, (X + segs - 1) / segs);
 }
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+// A stored value in the compute type (real), and back.  The 16-bit stores
+// serve float32 compute only (a float64 state is stored in float64).
+__device__ __forceinline__ real widen(real v) { return v; }
+__device__ __forceinline__ real widen(__half v) { return __half2float(v); }
+__device__ __forceinline__ real widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename S>
-__device__ __forceinline__ S narrow(float v);
+__device__ __forceinline__ S narrow(real v);
 template <>
-__device__ __forceinline__ float narrow<float>(float v) { return v; }
+__device__ __forceinline__ real narrow<real>(real v) { return v; }
 template <>
-__device__ __forceinline__ __half narrow<__half>(float v) { return __float2half_rn(v); }
+__device__ __forceinline__ __half narrow<__half>(real v) { return __float2half_rn(v); }
 template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(real v) {
   return __float2bfloat16_rn(v);
 }
 
@@ -240,8 +248,8 @@ template <class Site>
 __device__ __forceinline__ void pair_march(const typename Site::Store* __restrict__ f,
                                            typename Site::Store* __restrict__ fout,
                                            const uint8_t* __restrict__ map,
-                                           float* __restrict__ rho_out,
-                                           float* __restrict__ u_out, int X, int Y, int Z,
+                                           real* __restrict__ rho_out,
+                                           real* __restrict__ u_out, int X, int Y, int Z,
                                            int periodic_bits, int has_nothing, int with_macro,
                                            int seg_len, int staged,
                                            const typename Site::Params& p) {
@@ -251,7 +259,7 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
   constexpr int MG = Site::OUTFLOW ? OUT_GROUPS : M_GROUPS;
   constexpr int RB = row_bytes<S>(), SB = stage_bytes<S>();
   extern __shared__ __align__(16) unsigned char smem[];
-  float* ring = reinterpret_cast<float*>(smem);  // [PG + ZG + MG][GROUP][WSITES]
+  real* ring = reinterpret_cast<real*>(smem);  // [PG + ZG + MG][GROUP][WSITES]
   uint8_t* codes = smem + (Site::OUTFLOW ? OUT_RING_BYTES : RING_BYTES);  // [CODE_PLANES][WSITES]
   unsigned char* stages = smem + STAGE_OFFSET;   // [NSTAGES][Q][WY][RB]
   __shared__ uint64_t full[NSTAGES];  // stage landed: EVEN_THREADS arrivals and its bytes
@@ -327,7 +335,7 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
         if (Site::STAGED && staged) mbar_wait(&full[i % NSTAGES], (i / NSTAGES) & 1);
         const uint8_t m = mnext;
         if (i + 1 < n_even) mnext = map[neighbour(xs - 1, i + 1, X, px) * YZ + yz];
-        float v[Q];
+        real v[Q];
         if (Site::STAGED && staged) {
           const unsigned char* st = stages + (i % NSTAGES) * SB + soff;
 #pragma unroll
@@ -340,13 +348,13 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
 #pragma unroll
           for (int q = 0; q < Q; ++q, src += n) v[q] = widen(*src);
         }
-        float* ringP = ring + (i % PG) * GROUP * WSITES;
-        float* ringZ = ring + (PG + i % ZG) * GROUP * WSITES;
-        float* ringM = ring + (PG + ZG + i % MG) * GROUP * WSITES;
+        real* ringP = ring + (i % PG) * GROUP * WSITES;
+        real* ringZ = ring + (PG + i % ZG) * GROUP * WSITES;
+        real* ringM = ring + (PG + ZG + i % MG) * GROUP * WSITES;
         if (m == GEO_NOTHING) {  // its DFs as they are
 #pragma unroll
           for (int r = 0; r < Q; ++r) {
-            float* grp = cx(r) > 0 ? ringP : (cx(r) == 0 ? ringZ : ringM);
+            real* grp = cx(r) > 0 ? ringP : (cx(r) == 0 ? ringZ : ringM);
             grp[group_slot(r) * WSITES + t] = v[r];
           }
           if (i >= 1 && i + 1 < n_even && lyw >= 1 && lyw <= ny && lzw >= 1 && lzw <= nz) {
@@ -360,7 +368,7 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
           Site::even(v, m, p);
 #pragma unroll
           for (int r = 0; r < Q; ++r) {
-            float* grp = cx(r) > 0 ? ringP : (cx(r) == 0 ? ringZ : ringM);
+            real* grp = cx(r) > 0 ? ringP : (cx(r) == 0 ? ringZ : ringM);
             grp[group_slot(r) * WSITES + t] = v[opp(r)];
           }
         }
@@ -392,32 +400,32 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
     if (mine) {
       // neighbour pull, collide, push
       const int64_t site = (int64_t)x * YZ + (int64_t)y * Z + z;
-      const float* ringP = ring + ((o + 1) % PG) * GROUP * WSITES;
-      const float* ringZ = ring + (PG + o % ZG) * GROUP * WSITES;
-      const float* ringM = ring + (PG + ZG + (o - 1) % MG) * GROUP * WSITES;
-      float v[Q];
+      const real* ringP = ring + ((o + 1) % PG) * GROUP * WSITES;
+      const real* ringZ = ring + (PG + o % ZG) * GROUP * WSITES;
+      const real* ringM = ring + (PG + ZG + (o - 1) % MG) * GROUP * WSITES;
+      real v[Q];
 #pragma unroll
       for (int q = 0; q < Q; ++q) {
         const int r = opp(q);
-        const float* grp = cx(r) > 0 ? ringP : (cx(r) == 0 ? ringZ : ringM);
+        const real* grp = cx(r) > 0 ? ringP : (cx(r) == 0 ? ringZ : ringM);
         v[q] = grp[group_slot(r) * WSITES + wc - cy(q) * WZ - cz(q)];
       }
       const uint8_t m = codes[(o % CODE_PLANES) * WSITES + wc];
       if constexpr (Site::OUTFLOW) {
         if (m == GEO_OUTFLOW_RIGHT) {
           // every direction from plane o - 1 (x - 1, wrapped or clamped)
-          const float* prevP = ring + ((o - 1) % PG) * GROUP * WSITES;
-          const float* prevZ = ring + (PG + (o - 1) % ZG) * GROUP * WSITES;
+          const real* prevP = ring + ((o - 1) % PG) * GROUP * WSITES;
+          const real* prevZ = ring + (PG + (o - 1) % ZG) * GROUP * WSITES;
 #pragma unroll
           for (int q = 0; q < Q; ++q) {
             const int r = opp(q);
-            const float* grp = cx(r) > 0 ? prevP : (cx(r) == 0 ? prevZ : ringM);
+            const real* grp = cx(r) > 0 ? prevP : (cx(r) == 0 ? prevZ : ringM);
             v[q] = grp[group_slot(r) * WSITES + wc - cy(q) * WZ - cz(q)];
           }
         }
       }
       mbar_arrive(&odd_done[(o - 1) % HANDOFF]);  // the ring is read: the even warps may go on
-      float rho, ux, uy, uz;
+      real rho, ux, uy, uz;
       Site::odd(v, m, p, rho, ux, uy, uz);
 
       // The strides, opaque to the compiler inside the iteration: the 27

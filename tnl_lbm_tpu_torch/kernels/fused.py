@@ -89,6 +89,16 @@ WELL_COLLISIONS = frozenset({"CUM_WELL", "SRT_WELL", "BGK_WELL", "CLBM_WELL"})
 EQ_CODES = {"quad": 0, "well": 1, "invcum": 2, "entropic": 3}
 #: the ROADMAP entry a kernel without an instance of a config names
 OTHER_KERNELS_ROADMAP = "ROADMAP Bcol"
+#: the float64 instances: the per-step kernels' (B4, B2, B3) CUM_WELL step
+#: (``csrc/f64_ab.cu``, ``f64_aa.cu``) and the pair's (B1, ``f64_pair.cu``);
+#: the ROADMAP entry of the float64 instances still to port, and of 16-bit
+#: storage under float64 compute
+F64_INSTANCE = ("cum", CUM_VARIANTS[("CUM_WELL", True, "well")])
+F64_ROADMAP = "ROADMAP Bf64"
+HALF_F64_ROADMAP = "ROADMAP Bh64"
+#: the ROADMAP entry of the per-site inflow profiles the kernels do not take:
+#: B4 takes one in its CUM_WELL step (the profile instances), the rest not yet
+PROFILE_ROADMAP = "ROADMAP Bprof"
 
 
 @dataclasses.dataclass
@@ -165,10 +175,17 @@ def supports(domain: Domain, streaming: str = "AB", pair: bool = False) -> bool:
     return domain.codes_present() <= kernel_codes(streaming, pair)
 
 
-def host_vector3(value, what: str, roadmap: str) -> tuple[float, float, float]:
-    """A homogeneous [3] input (u_in, force) as three float32-rounded Python
-    floats; None is zero.  A CUDA tensor is refused rather than read back
-    to the host once per step; a per-site field raises naming ``roadmap``."""
+#: numpy's type of each compute dtype the kernels take
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def host_vector3(value, what: str, roadmap: str,
+                 dtype=torch.float32) -> tuple[float, float, float]:
+    """A homogeneous [3] input (u_in, force) as three Python floats rounded
+    to the compute ``dtype`` (float32, or float64, which keeps a double
+    input as given); None is zero.  A CUDA tensor is refused rather than
+    read back to the host once per step; a per-site field raises naming
+    ``roadmap``."""
     if value is None:
         return (0.0, 0.0, 0.0)
     if torch.is_tensor(value):
@@ -179,15 +196,38 @@ def host_vector3(value, what: str, roadmap: str) -> tuple[float, float, float]:
     arr = np.asarray(value)
     if arr.shape != (3,):
         raise NotImplementedError(f"a per-site {what} field is not taken here ({roadmap})")
-    return tuple(float(v) for v in arr.astype(np.float32))
+    return tuple(float(v) for v in arr.astype(_NP_DTYPES.get(dtype, np.float32)))
 
 
-def _force3(force) -> tuple[float, float, float]:
-    return host_vector3(force, "force", "the force_field variants take one")
+def _force3(force, dtype=torch.float32) -> tuple[float, float, float]:
+    return host_vector3(force, "force", "the force_field variants take one", dtype)
 
 
-def _u_in3(u_in) -> tuple[float, float, float]:
-    return host_vector3(u_in, "inflow velocity", "inflow profiles: ROADMAP A8")
+def _u_in3(u_in, dtype=torch.float32) -> tuple[float, float, float]:
+    return host_vector3(u_in, "inflow velocity",
+                        f"per-site inflow profiles: the A-B step's CUM_WELL instance takes "
+                        f"one; {PROFILE_ROADMAP}", dtype)
+
+
+def inflow_profile(u_in, shape, device, dtype) -> torch.Tensor:
+    """A per-site inflow profile (a tensor or host array [3, ...] that
+    broadcasts to [3, X, Y, Z], sim_2's [3, 1, Y, Z]) as a [3, X, Y, Z] view
+    on ``device`` in ``dtype``: zero strides on its broadcast axes, so the
+    kernel reads it in place.  A host profile is copied to ``device`` (the
+    driver caches its copies, ``Simulation._device_input``); one on another
+    device raises."""
+    if not torch.is_tensor(u_in):
+        u_in = torch.as_tensor(np.asarray(u_in), device=device)
+    elif u_in.device.type == "cpu" and torch.device(device).type != "cpu":
+        u_in = u_in.to(device)
+    elif u_in.device != torch.device(device):
+        raise ValueError(f"the inflow profile is on {u_in.device}, f on {device}")
+    prof = u_in.to(dtype)
+    if prof.dim() > 4 or prof.shape[0] != 3:
+        raise ValueError(f"an inflow profile is [3, ...] broadcasting to [3, {shape}], "
+                         f"got {tuple(prof.shape)}")
+    prof = prof.reshape((3,) + (1,) * (4 - prof.dim()) + tuple(prof.shape[1:]))
+    return prof.expand((3,) + tuple(shape))
 
 
 def _periodic_bits(periodic) -> int:
@@ -301,15 +341,37 @@ def check_pair_variant(cfg: LBMConfig) -> None:
             f"instance: {OTHER_KERNELS_ROADMAP})")
 
 
-def _check_kernel_config(cfg: LBMConfig, domain: Domain, device: torch.device) -> None:
+def refuse_f64(cfg: LBMConfig, kernel: str) -> None:
+    """Refuse a float64 config on a kernel without a float64 instance of it,
+    naming ``F64_ROADMAP``."""
+    if cfg.compute_dtype == torch.float64:
+        raise NotImplementedError(
+            f"{kernel} has no float64 instance of {_described(cfg)}: the float64 instances "
+            f"are the CUM_WELL step of B4, B2 and B3 and the pair B1 on FLUID/WALL/NOTHING; "
+            f"the others: {F64_ROADMAP}")
+
+
+def check_dtype(f, cfg: LBMConfig) -> None:
+    """A launch takes a state of the config's compute dtype only: a float64
+    state never reaches a float32 entry, nor a float32 one a float64 entry."""
+    if f.dtype != cfg.compute_dtype:
+        raise NotImplementedError(f"f is {f.dtype}, the kernel was built for "
+                                  f"{cfg.compute_dtype}: its instances take that state only")
+
+
+def _check_kernel_config(cfg: LBMConfig, domain: Domain, device: torch.device,
+                         kernel: str = "this CUDA kernel", f64: bool = False) -> None:
     """Refuse, at build time on a CUDA device, what every CUDA kernel
-    refuses: no card, a compute dtype but float32, a grid too large.  Each
-    kernel checks its instances itself."""
+    refuses: no card, a compute dtype but float32 and float64, float64 where
+    the kernel (``kernel``) has no float64 instance of cfg (``f64``: it has
+    one), a grid too large.  Each kernel checks its instances itself."""
     if not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but no CUDA device is available")
-    if cfg.compute_dtype != torch.float32:
-        raise NotImplementedError("the CUDA kernels compute in float32 only "
-                                  "(f64 kernels: ROADMAP A8)")
+    if cfg.compute_dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(f"the CUDA kernels compute in float32 or float64, not "
+                                  f"{cfg.compute_dtype}")
+    if not f64:
+        refuse_f64(cfg, kernel)
     X, Y, _ = domain.shape
     if X > _MAX_GRID_YZ or Y > _MAX_GRID_YZ:
         raise ValueError(f"X and Y must be <= {_MAX_GRID_YZ} for the kernel grid")
@@ -587,10 +649,18 @@ class FusedStepAB:
     eq_entropic, ``step_instance``, in either variant) out of place:
     the result goes to a new tensor, or into ``out`` (a second state
     buffer, not ``f``), so a caller can ping-pong two buffers; rho and u
-    go to new tensors, or into ``macro_out`` (a pair of buffers).  ``u_in``
-    and ``force`` are homogeneous [3] vectors, given as host values;
-    ``parity`` is accepted for the common step contract and ignored.
-    ``kernel`` counts the launches, ``plain_calls`` the CPU-path calls.
+    go to new tensors, or into ``macro_out`` (a pair of buffers).  ``force``
+    is a homogeneous [3] vector given as host values; ``u_in`` is one too,
+    or, in the CUM_WELL step, a per-site inflow profile broadcastable to
+    [3, X, Y, Z] (sim_2's [3, 1, Y, Z]; a tensor on f's device is read in
+    place through its strides, a host one copied there at each call): the
+    profile instance (``profile`` counts its launches), which the other
+    instances do not have (``PROFILE_ROADMAP``).  The state computes in the
+    config's dtype: float32, or float64 in the CUM_WELL step (its instances
+    in ``csrc/f64_ab.cu``; the others raise on the card naming
+    ``F64_ROADMAP``).  ``parity`` is accepted for the common step contract
+    and ignored.  ``kernel`` counts the launches, ``plain_calls`` the
+    CPU-path calls.
 
     Variants (JAX ``make_fused_step``'s flags), each its own kernel instance:
 
@@ -615,37 +685,61 @@ class FusedStepAB:
         self.periodic = domain.periodic
         self.force_field, self.macro_only = force_field, macro_only
         self._mode, suffix = variant_mode(force_field, macro_only)
-        self.kernel = CudaKernel("ab_step" + suffix, "tnl_lbm_tpu_torch/csrc/ab_step.cu",
-                                 "tnl_lbm_tpu/kernels/fused.py:585")
-        self.plain_calls = 0
         self._instance = kernel_instance(cfg, force_field, macro_only, "the A-B step (B4)")
+        #: the CUM_WELL step: the instance with float64 and profile instances
+        self._cum_well_step = self._instance == F64_INSTANCE and self._mode == MODE_STEP
+        self._f64 = cfg.compute_dtype == torch.float64
+        tag, source = (("_f64", "f64_ab.cu") if self._f64 and self._cum_well_step
+                       else ("", "ab_step.cu"))
+        replaces = "tnl_lbm_tpu/kernels/fused.py:585"
+        self.kernel = CudaKernel("ab_step" + tag + suffix, "tnl_lbm_tpu_torch/csrc/" + source,
+                                 replaces)
+        self.profile = (CudaKernel(f"ab_step{tag}_profile", "tnl_lbm_tpu_torch/csrc/" + source,
+                                   replaces) if self._cum_well_step else None)
+        self.plain_calls = 0
         if self.device.type == "cuda":
-            _check_kernel_config(cfg, domain, self.device)
+            _check_kernel_config(cfg, domain, self.device, "the A-B step (B4)",
+                                 f64=self._cum_well_step)
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:
         self.kernel.launches = self.plain_calls = 0
+        if self.profile is not None:
+            self.profile.launches = 0
 
     def _forces(self, f, force, force_add):
         """(the per-site field or None, the homogeneous three floats)."""
+        dt = self.cfg.compute_dtype
         if self.force_field:
-            return check_force_field(force, 3, self.shape, f.device), _force3(force_add)
+            return check_force_field(force, 3, self.shape, f.device), _force3(force_add, dt)
         if force_add is not None:
             raise ValueError("force_add belongs to the force_field variant")
-        return None, _force3(force)
+        return None, _force3(force, dt)
+
+    def _inflow(self, u_in, device):
+        """(the per-site profile as a [3, X, Y, Z] view on ``device``, or
+        None; the homogeneous three floats, zero with a profile)."""
+        if u_in is None or (u_in.dim() if torch.is_tensor(u_in) else np.ndim(u_in)) <= 1:
+            return None, _u_in3(u_in, self.cfg.compute_dtype)
+        if not self._cum_well_step:
+            raise NotImplementedError(
+                f"the A-B step (B4) takes a per-site inflow profile in its CUM_WELL step only, "
+                f"not in {_described(self.cfg)} or the force_field and macro_only variants "
+                f"({PROFILE_ROADMAP})")
+        return inflow_profile(u_in, self.shape, device, self.cfg.compute_dtype), (0.0, 0.0, 0.0)
 
     def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None,
                  force_add=None, macro_out=None):
         del parity
         field, fvec = self._forces(f, force, force_add)
-        uvec = _u_in3(u_in)
+        prof, uvec = self._inflow(u_in, f.device)
         if out is not None and self.macro_only:
             raise ValueError("the u* pass writes no state")
         check_out(out, f)
         if f.device.type == "cuda":
-            return self._launch(f, float(nu), field, fvec, uvec, out, macro_out)
+            return self._launch(f, float(nu), field, fvec, uvec, out, macro_out, prof)
         self.plain_calls += 1
-        f_new, rho, u = self._plain(f, nu, fvec, uvec, field)
+        f_new, rho, u = self._plain(f, nu, fvec, uvec if prof is None else prof, field)
         rho, u = into(macro_out, rho, u)
         if self.macro_only:
             return rho, u
@@ -660,12 +754,14 @@ class FusedStepAB:
         against on the card; it counts no call."""
         del parity
         field, fvec = self._forces(f, force, force_add)
-        f_new, rho, u = self._plain(f, nu, fvec, _u_in3(u_in), field)
+        prof, uvec = self._inflow(u_in, f.device)
+        f_new, rho, u = self._plain(f, nu, fvec, uvec if prof is None else prof, field)
         return (rho, u) if self.macro_only else (f_new, rho, u)
 
     def _plain(self, f, nu, fvec, uvec, field=None):
         """The step on ``pad_halo``-pulled whole arrays (``field``: the
-        force_field variant's per-site force); f untouched."""
+        force_field variant's per-site force; ``uvec``: three floats or the
+        [3, X, Y, Z] profile); f untouched."""
         S = tuple(f.shape[1:])
         fpad = stream.pad_halo(f, self.periodic)
 
@@ -677,11 +773,10 @@ class FusedStepAB:
                                   self.map.to(f.device), nu, force, u_in=uvec,
                                   macro_only=self.macro_only)
 
-    def _launch(self, f, nu, field, fvec, uvec, out, macro_out):
+    def _launch(self, f, nu, field, fvec, uvec, out, macro_out, prof=None):
         if self.device.type != "cuda" or f.device != self.map.device:
             raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
-        if f.dtype != torch.float32:
-            raise NotImplementedError("the CUDA kernels take float32 state only")
+        check_dtype(f, self.cfg)
         X, Y, Z = self.shape
         if tuple(f.shape) != (self.lat.Q, X, Y, Z) or not f.is_contiguous():
             raise ValueError(f"f must be a contiguous [{self.lat.Q}, {X}, {Y}, {Z}] tensor, "
@@ -693,7 +788,18 @@ class FusedStepAB:
         rho, u = macro_buffers(macro_out, (X, Y, Z), 3, f.dtype, f.device)
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
         neumaier = int(self.cfg.high_precision_rho)
-        if self._instance[0] == "cum":
+        pbits = _periodic_bits(self.periodic)
+        kernel = self.kernel if prof is None else self.profile
+        prof_args = (None, 0, 0, 0, 0) if prof is None else (prof.data_ptr(), *prof.stride())
+        if self._f64:  # the CUM_WELL step, the only float64 instance (_check_kernel_config)
+            rc = lib.tnl_lbm_ab_step_f64(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
+                                         rho.data_ptr(), u.data_ptr(), X, Y, Z, pbits, nu, *fvec,
+                                         *uvec, *prof_args, neumaier, stream_ptr)
+        elif prof is not None:
+            rc = lib.tnl_lbm_ab_step_profile(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
+                                             rho.data_ptr(), u.data_ptr(), X, Y, Z, pbits, nu,
+                                             *fvec, *prof_args, neumaier, stream_ptr)
+        elif self._instance[0] == "cum":
             rc = lib.tnl_lbm_ab_step(f.data_ptr(), None if f_new is None else f_new.data_ptr(),
                                      self.map.data_ptr(),
                                      None if field is None else field.data_ptr(), rho.data_ptr(),
@@ -705,8 +811,8 @@ class FusedStepAB:
                                   self.shape, self.periodic, False, nu, fvec, uvec, neumaier,
                                   stream_ptr, field)
         if rc != 0:
-            raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
-        self.kernel.launches += 1
+            raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
+        kernel.launches += 1
         return (rho, u) if self.macro_only else (f_new, rho, u)
 
 
@@ -773,7 +879,7 @@ class FusedStepSiteMajor:
         self.plain_calls = 0
         self._variant = cum_variant(cfg, "the site-major A-B step (B4s)")
         if self.device.type == "cuda":
-            _check_kernel_config(cfg, domain, self.device)
+            _check_kernel_config(cfg, domain, self.device, "the site-major A-B step (B4s)")
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:

@@ -72,7 +72,7 @@ def _refusal(cfg: LBMConfig, domain: Domain, codes=None) -> str | None:
     if (cfg.collision, False) not in _VARIANTS:
         return f"collision {getattr(cfg.collision, '__name__', cfg.collision)} (SRT and CLBM only)"
     if cfg.compute_dtype != torch.float32 or cfg.storage_dtype is not None:
-        return "a state other than float32"
+        return "a state other than float32 (its float64 instances: ROADMAP Bf64)"
     if cfg.forcing_hook is not None:
         return "a forcing hook (make_hooked_fused_step runs it)"
     codes = domain.codes_present() if codes is None else codes

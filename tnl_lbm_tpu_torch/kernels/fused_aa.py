@@ -17,12 +17,14 @@ d3q27/streaming_AA.h) alternates two parities on one state:
   each plane kept on chip in float32 in a ring of the slots later odd pulls
   read, the input planes staged ahead by bulk copies (TMA); the state
   optionally stored in float16 or bfloat16 (half storage, see
-  :class:`FusedPairAA`).  It writes a new buffer.
+  :class:`FusedPairAA`), or computed and stored in float64
+  (``csrc/f64_pair.cu``).  It writes a new buffer.
 - **full-set pair** (:class:`FusedPairAAFull`, ``csrc/aa_pair_full.cu`` and
   ``csrc/pair_coll_*.cu``): the pair's x-march in one launch over the
   even/odd steps' site updates, with their codes and collisions.
 
-The even and odd steps take the A-B step's boundary set but
+The even and odd steps (also in float64 under CUM_WELL, ``csrc/f64_aa.cu``)
+take the A-B step's boundary set but
 OUTFLOW_RIGHT_INTERP (JAX ``fused_aa.py`` runs ``_stream_bc_collide`` on the
 A-B config) and its collisions (``kernels/fused.py step_instance``):
 CUM_WELL, CUM with ``eq_quadratic`` or ``eq_inv_cum``, and in the family
@@ -48,9 +50,15 @@ import torch
 
 from tnl_lbm_tpu_torch.kernels.build import load_library
 from tnl_lbm_tpu_torch.kernels.fused import (
+    F64_INSTANCE,
+    F64_ROADMAP,
+    HALF_F64_ROADMAP,
+    MODE_STEP,
     PAIR_VARIANT,
     PATTERN_EVEN,
     PATTERN_ODD,
+    PROFILE_ROADMAP,
+    _AA_LEAN_VARIANT,
     CudaKernel,
     _check_kernel_config,
     _force3,
@@ -59,6 +67,7 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     _stream_bc_collide,
     _u_in3,
     aa_variant,
+    check_dtype,
     check_force_field,
     check_out,
     check_pair_variant,
@@ -82,7 +91,8 @@ from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 #: planes (csrc/pair_march.cuh TY, TZ, NSTAGES)
 PAIR_COLUMN = (8, 32)
 PAIR_STAGES = 2
-#: keys of :meth:`FusedPairAA.geometry` (csrc/aa_pair.cu tnl_lbm_aa_pair_info)
+#: keys of :meth:`FusedPairAA.geometry` (csrc/aa_pair.cu tnl_lbm_aa_pair_info; the
+#: float64 pair's, csrc/f64_pair.cu tnl_lbm_aa_pair_f64_info, add "threads")
 _GEOMETRY_KEYS = ("smem_bytes", "stages", "ty", "tz", "seg_len", "segments", "columns",
                   "staged")
 #: keys of :meth:`FusedPairAAFull.geometry` (csrc/aa_pair_full.cu tnl_lbm_aa_pair_full_info)
@@ -157,7 +167,10 @@ class FusedStepAA:
     count the kernel launches, ``plain_calls`` the CPU-path calls.
     ``lean=False`` keeps the kernels' full-set CUM_WELL instance on a map of
     FLUID/WALL/NOTHING, where the odd step would take its lean one
-    (``kernels/fused.py aa_variant``).
+    (``kernels/fused.py aa_variant``).  The state computes in the config's
+    dtype: float32, or float64 in the CUM_WELL step, full-set and lean
+    (``csrc/f64_aa.cu``; the other float64 instances raise on the card
+    naming ``F64_ROADMAP``).
 
     Variants (JAX ``make_fused_step_aa``'s flags), each its own instance of
     both kernels; neither has a lean instance, so CUM_WELL takes the
@@ -186,19 +199,25 @@ class FusedStepAA:
         self.periodic = domain.periodic
         self.force_field, self.macro_only = force_field, macro_only
         self._mode, suffix = variant_mode(force_field, macro_only)
-        self.even = CudaKernel("aa_even" + suffix, "tnl_lbm_tpu_torch/csrc/aa_even.cu",
-                               "tnl_lbm_tpu/kernels/fused_aa.py:408")
-        self.odd = CudaKernel("aa_odd" + suffix, "tnl_lbm_tpu_torch/csrc/aa_odd.cu",
-                              "tnl_lbm_tpu/kernels/fused_aa.py:287")
         self.plain_calls = 0
         self._instance = kernel_instance(cfg, force_field, macro_only,
                                          "the A-A even/odd steps (B2, B3)")
+        #: the CUM_WELL step, whose instances have float64 ones
+        cum_well_step = self._instance == F64_INSTANCE and self._mode == MODE_STEP
         if self._instance[0] == "cum" and not (force_field or macro_only):
             self._instance = ("cum", aa_variant(cfg, self.codes, lean))
         #: the C variant of a cumulant instance, or the id of another collision
         self.variant = self._instance[1] if self._instance[0] == "cum" else collision_id(cfg)
+        self._f64 = cfg.compute_dtype == torch.float64 and cum_well_step
+        even_src, odd_src, tag = (("f64_aa.cu", "f64_aa.cu", "_f64") if self._f64
+                                  else ("aa_even.cu", "aa_odd.cu", ""))
+        self.even = CudaKernel("aa_even" + tag + suffix, "tnl_lbm_tpu_torch/csrc/" + even_src,
+                               "tnl_lbm_tpu/kernels/fused_aa.py:408")
+        self.odd = CudaKernel("aa_odd" + tag + suffix, "tnl_lbm_tpu_torch/csrc/" + odd_src,
+                              "tnl_lbm_tpu/kernels/fused_aa.py:287")
         if self.device.type == "cuda":
-            _check_kernel_config(cfg, domain, self.device)
+            _check_kernel_config(cfg, domain, self.device, "the A-A even/odd steps (B2, B3)",
+                                 f64=cum_well_step)
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:
@@ -206,16 +225,17 @@ class FusedStepAA:
 
     def _forces(self, f, force, force_add):
         """(the per-site field or None, the homogeneous three floats)."""
+        dt = self.cfg.compute_dtype
         if self.force_field:
-            return check_force_field(force, 3, self.shape, f.device), _force3(force_add)
+            return check_force_field(force, 3, self.shape, f.device), _force3(force_add, dt)
         if force_add is not None:
             raise ValueError("force_add belongs to the force_field variant")
-        return None, _force3(force)
+        return None, _force3(force, dt)
 
     def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None,
                  out=None, macro_out=None):
         field, fvec = self._forces(f, force, force_add)
-        uvec = _u_in3(u_in)
+        uvec = _u_in3(u_in, self.cfg.compute_dtype)
         if out is not None and self.macro_only:
             raise ValueError("the u* pass writes no state")
         check_out(out, f)
@@ -238,7 +258,8 @@ class FusedStepAA:
         or (rho0, u0) for the u* pass; f untouched.  The CPU path, and the
         oracle the kernels are held against on the card; it counts no call."""
         field, fvec = self._forces(f, force, force_add)
-        f_new, rho, u = self._plain(f, nu, fvec, _u_in3(u_in), parity, field)
+        f_new, rho, u = self._plain(f, nu, fvec, _u_in3(u_in, self.cfg.compute_dtype), parity,
+                                    field)
         return (rho, u) if self.macro_only else (f_new, rho, u)
 
     def _plain(self, f, nu, fvec, uvec, parity, field=None):
@@ -253,8 +274,7 @@ class FusedStepAA:
     def _launch(self, f, nu, field, fvec, uvec, parity, out, macro_out):
         if self.device.type != "cuda" or f.device != self.map.device:
             raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
-        if f.dtype != torch.float32:
-            raise NotImplementedError("the CUDA kernels take float32 state only")
+        check_dtype(f, self.cfg)
         X, Y, Z = self.shape
         if tuple(f.shape) != (self.lat.Q, X, Y, Z) or not f.is_contiguous():
             raise ValueError(f"f must be a contiguous [{self.lat.Q}, {X}, {Y}, {Z}] tensor, "
@@ -264,6 +284,25 @@ class FusedStepAA:
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
         neumaier = int(self.cfg.high_precision_rho)
         ff = None if field is None else field.data_ptr()
+        if self._f64:  # the CUM_WELL step, the only float64 instances (_check_kernel_config)
+            if parity == 0:
+                rc = lib.tnl_lbm_aa_even_f64(f.data_ptr(), self.map.data_ptr(), rho.data_ptr(),
+                                             u.data_ptr(), X, Y, Z, nu, *fvec, *uvec, neumaier,
+                                             stream_ptr)
+                kernel, f_new = self.even, f
+            else:
+                f_new = torch.empty_like(f) if out is None else out
+                rc = lib.tnl_lbm_aa_odd_f64(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
+                                            rho.data_ptr(), u.data_ptr(), X, Y, Z,
+                                            _periodic_bits(self.periodic),
+                                            int(GEO.NOTHING in self.codes),
+                                            int(self.variant == _AA_LEAN_VARIANT), nu, *fvec,
+                                            *uvec, neumaier, stream_ptr)
+                kernel = self.odd
+            if rc != 0:
+                raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
+            kernel.launches += 1
+            return f_new, rho, u
         if self._instance[0] != "cum":
             pattern, kernel = (PATTERN_EVEN, self.even) if parity == 0 else (PATTERN_ODD, self.odd)
             f_new = f if parity == 0 else (torch.empty_like(f) if out is None else out)
@@ -317,6 +356,9 @@ class FusedPairAA:
     the state rests in 16 bits and every operation runs in float32; the
     intermediate between the two steps is never narrowed, and NOTHING sites
     keep their stored bits.  It needs well-conditioned (deviation) DFs.
+    A float64 config runs the float64 pair (``csrc/f64_pair.cu``), its state
+    stored in float64; 16-bit storage under float64 compute raises on the
+    card naming ``HALF_F64_ROADMAP``.
 
     ``seg_len`` is the x extent each block of the kernel marches (None: the
     kernel's own choice, 32 planes, fewer where the column tiles alone do
@@ -347,12 +389,20 @@ class FusedPairAA:
         check_pair_variant(cfg)
         self.shape = domain.shape
         self.periodic = domain.periodic
+        self._f64 = cfg.compute_dtype == torch.float64
         self._store_code, tag = _STORE_CODES.get(store, (None, str(store)))
-        self.kernel = CudaKernel(f"aa_pair_{tag}", "tnl_lbm_tpu_torch/csrc/aa_pair.cu",
+        source = "aa_pair.cu"
+        if self._f64 and store == torch.float64:
+            tag, source = "f64", "f64_pair.cu"
+        self.kernel = CudaKernel(f"aa_pair_{tag}", "tnl_lbm_tpu_torch/csrc/" + source,
                                  "tnl_lbm_tpu/kernels/fused_aa.py:1115")
         self.plain_calls = 0
         if self.device.type == "cuda":
-            _check_kernel_config(cfg, domain, self.device)
+            if self._f64 and store != torch.float64:
+                raise NotImplementedError(
+                    f"the A-A pair (B1) has no {store} storage under float64 compute: its "
+                    f"float64 instance stores the state in float64 ({HALF_F64_ROADMAP})")
+            _check_kernel_config(cfg, domain, self.device, "the A-A pair (B1)", f64=True)
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:
@@ -366,9 +416,15 @@ class FusedPairAA:
         ``seg_len`` is set)."""
         if self.device.type != "cuda":
             raise ValueError("the pair kernel's geometry exists on a CUDA device only")
-        out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
-        load_library().tnl_lbm_aa_pair_info(self._store_code, *self.shape, out)
-        geo = dict(zip(_GEOMETRY_KEYS, out))
+        if self._f64:
+            keys = _GEOMETRY_KEYS + ("threads",)
+            out = (ctypes.c_int * len(keys))()
+            load_library().tnl_lbm_aa_pair_f64_info(*self.shape, out)
+        else:
+            keys = _GEOMETRY_KEYS
+            out = (ctypes.c_int * len(keys))()
+            load_library().tnl_lbm_aa_pair_info(self._store_code, *self.shape, out)
+        geo = dict(zip(keys, out))
         if self.seg_len is not None:
             X = self.shape[0]
             geo.update(seg_len=self.seg_len, segments=-(-X // self.seg_len))
@@ -379,14 +435,16 @@ class FusedPairAA:
             raise NotImplementedError("per-shard boundary flags are not ported yet "
                                       "(ROADMAP A13)")
         if u_in is not None and np.ndim(u_in) > 1:
-            raise NotImplementedError("per-site inflow profiles are not ported yet (ROADMAP A8)")
+            raise NotImplementedError(f"the A-A pair (B1) takes no per-site inflow profile "
+                                      f"({PROFILE_ROADMAP})")
         check_out(out, f)
         if macro_out is not None and not self.with_macro:
             raise ValueError("a pair built with_macro=False writes no rho and u")
         if f.dtype != self.store_dtype:
             raise ValueError(f"f is {f.dtype}, the pair stores {self.store_dtype}")
         if f.device.type == "cuda":
-            return self._launch(f, float(nu), _force3(force), out, macro_out)
+            return self._launch(f, float(nu), _force3(force, self.cfg.compute_dtype), out,
+                                macro_out)
         self.plain_calls += 1
         f_new, rho, u = self.plain(f, nu, force=force)
         if out is not None:
@@ -399,7 +457,7 @@ class FusedPairAA:
         """The pair's plain PyTorch version on f's device: the odd step of
         the even step of the widened state, narrowed (f untouched, no call
         counted)."""
-        fvec = _force3(force)
+        fvec = _force3(force, self.cfg.compute_dtype)
         m = self.map.to(f.device)
         fw = from_storage(f, self.cfg.compute_dtype)
         ev, _, _ = even_step_plain(self.cfg, self.codes, self.do_coll_codes, fw, m, nu, fvec)
@@ -421,12 +479,19 @@ class FusedPairAA:
         if self.with_macro:
             rho, u = macro_buffers(macro_out, (X, Y, Z), 3, self.cfg.compute_dtype, f.device)
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
-        args = (f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
+        ptrs = (f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
                 rho.data_ptr() if rho is not None else None,
                 u.data_ptr() if u is not None else None, X, Y, Z,
                 _periodic_bits(self.periodic), int(GEO.NOTHING in self.codes),
-                int(self.with_macro), self._store_code, nu, *fvec,
-                int(self.cfg.high_precision_rho))
+                int(self.with_macro))
+        if self._f64:  # stored in float64 (the constructor refused 16-bit storage)
+            rc = lib.tnl_lbm_aa_pair_f64(*ptrs, nu, *fvec, int(self.cfg.high_precision_rho),
+                                         self.seg_len or 0, stream_ptr)
+            if rc != 0:
+                raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
+            self.kernel.launches += 1
+            return f_new, rho, u
+        args = (*ptrs, self._store_code, nu, *fvec, int(self.cfg.high_precision_rho))
         if self.seg_len is None:
             rc = lib.tnl_lbm_aa_pair(*args, stream_ptr)
         else:
@@ -502,7 +567,7 @@ class FusedPairAAFull:
         self.variant = (aa_variant(cfg, self.codes) if self._instance[0] == "cum"
                         else collision_id(cfg))
         if self.device.type == "cuda":
-            _check_kernel_config(cfg, domain, self.device)
+            _check_kernel_config(cfg, domain, self.device, "the full-set A-A pair (B1b)")
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:
@@ -526,7 +591,8 @@ class FusedPairAAFull:
         return geo
 
     def __call__(self, f, nu, u_in=None, force=None, out=None, macro_out=None):
-        uvec, fvec = _u_in3(u_in), _force3(force)
+        dt = self.cfg.compute_dtype
+        uvec, fvec = _u_in3(u_in, dt), _force3(force, dt)
         self._check(f)
         check_out(out, f)
         if macro_out is not None and not self.with_macro:
@@ -547,7 +613,8 @@ class FusedPairAAFull:
         counted."""
         self._check(f)
         m = self.map.to(f.device)
-        uvec, fvec = _u_in3(u_in), _force3(force)
+        dt = self.cfg.compute_dtype
+        uvec, fvec = _u_in3(u_in, dt), _force3(force, dt)
         ev, _, _ = even_step_plain(self.cfg, self.codes, self.do_coll_codes, f, m, nu, fvec, uvec)
         f2, rho, u = odd_step_plain(self.cfg, self.codes, self.do_coll_codes, self.periodic, ev,
                                     m, nu, fvec, uvec)
@@ -603,11 +670,19 @@ def make_fused_pair_aa(cfg: LBMConfig, domain: Domain, device, with_macro: bool 
 def dispatch_pair_kind(cfg: LBMConfig, domain: Domain, store_dtype=None) -> str:
     """Which pair kernel pair dispatch runs for (cfg, domain): "B1" (the
     one-kernel pair) on a map of FLUID/WALL/NOTHING under its one instance
-    (``PAIR_VARIANT``), in any store dtype; "B1b" (the full-set pair) for
-    every other config of ``step_instance`` on an A-A map, in float32.  A
-    config neither has an instance of raises NotImplementedError.  Decided
-    from the config and the map, on any device; nothing is built."""
+    (``PAIR_VARIANT``), in any store dtype under float32 compute and stored
+    in float64 under float64 compute; "B1b" (the full-set pair) for every
+    other config of ``step_instance`` on an A-A map, in float32.  A config
+    neither has an instance of raises NotImplementedError, naming its
+    ROADMAP item (16-bit storage under float64: ``HALF_F64_ROADMAP``;
+    float64 on B1b's maps and collisions: ``F64_ROADMAP``).  Decided from
+    the config and the map, on any device; nothing is built."""
     if variant_key(cfg) == PAIR_VARIANT and supports(domain, "AA", pair=True):
+        if (cfg.compute_dtype == torch.float64 and store_dtype is not None
+                and store_dtype != torch.float64):
+            raise NotImplementedError(
+                f"16-bit storage under float64 compute: the A-A pair (B1) stores a float64 "
+                f"state in float64 ({HALF_F64_ROADMAP})")
         return "B1"
     if store_dtype is not None and store_dtype != cfg.compute_dtype:
         raise NotImplementedError(
@@ -616,8 +691,8 @@ def dispatch_pair_kind(cfg: LBMConfig, domain: Domain, store_dtype=None) -> str:
             "collision has float32 instances only (16-bit B1b instances: ROADMAP B1h)")
     step_instance(cfg, "the full-set A-A pair (B1b)")
     if cfg.compute_dtype != torch.float32:
-        raise NotImplementedError("the full-set pair computes in float32 only "
-                                  "(f64 kernels: ROADMAP A8)")
+        raise NotImplementedError(f"the full-set pair (B1b) computes in float32 only: its "
+                                  f"float64 instances are {F64_ROADMAP}")
     return "B1b"
 
 

@@ -331,8 +331,8 @@ def check_ade_kernel_config(cfg: LBMConfig, domain: Domain) -> None:
         raise NotImplementedError(f"ADE collision {getattr(cfg.collision, '__name__', '?')} has "
                                   f"no CUDA instance")
     if cfg.compute_dtype != torch.float32:
-        raise NotImplementedError("the CUDA kernels compute in float32 only "
-                                  "(f64 kernels: ROADMAP A8)")
+        raise NotImplementedError("the ADE step (B6) computes in float32 only: its float64 "
+                                  "instances are ROADMAP Bf64")
     X, Y, _ = domain.shape
     if X > _MAX_GRID_YZ or Y > _MAX_GRID_YZ:
         raise ValueError(f"X and Y must be <= {_MAX_GRID_YZ} for the kernel grid")

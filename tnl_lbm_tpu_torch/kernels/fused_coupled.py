@@ -37,6 +37,7 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     _periodic_bits,
     _u_in3,
     cum_variant,
+    refuse_f64,
 )
 from tnl_lbm_tpu_torch.kernels.fused_aa import FusedStepAA
 from tnl_lbm_tpu_torch.kernels.fused_ade import (
@@ -71,6 +72,8 @@ class FusedCoupledAB:
             raise ValueError("the one-kernel coupled step is A-B; the A-A coupled pair is "
                              "make_fused_coupled_step_aa")
         self._nse_variant = cum_variant(cfg, "the coupled A-B step (B7)")
+        if torch.device(device).type == "cuda":  # its NSE half's float64 step is B4's alone
+            refuse_f64(cfg, "the coupled A-B step (B7)")
         self.nse = FusedStepAB(cfg, domain, device)
         self.ade = FusedStepADE(ade_cfg, ade_domain, device,
                                 variable_diffusion=variable_diffusion,
@@ -215,6 +218,8 @@ class FusedCoupledAA:
             raise NotImplementedError("OUTFLOW_RIGHT_INTERP requires the A-B pattern; the A-B "
                                       "coupled kernel (make_fused_coupled_step) takes it")
         cum_variant(cfg, "the A-A coupled pair (B8)")
+        if torch.device(device).type == "cuda":  # its NSE half's float64 steps are B2/B3's alone
+            refuse_f64(cfg, "the A-A coupled pair (B8)")
         self.nse = FusedStepAA(cfg, domain, device, lean=False)
         # the ADE wrapper is A-B; only its checks, operands and tables are used
         self.ade = FusedStepADE(dataclasses.replace(ade_cfg, streaming="AB"), ade_domain, device,

@@ -110,6 +110,9 @@ class NNForce:
             raise ValueError(f"rho/u are on {rho.device}/{u.device}, the kernel was built for "
                              f"{self.device}")
         for t, shape in ((rho, (X, Y, Z)), (u, (3, X, Y, Z))):
+            if t.dtype == torch.float64:
+                raise NotImplementedError("the NN force kernel (B9) computes in float32 only: "
+                                          "its float64 instance is ROADMAP Bf64")
             if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
                 raise ValueError(f"the NN force kernel takes contiguous float32 {shape} "
                                  f"tensors, got {tuple(t.shape)} {t.dtype}")

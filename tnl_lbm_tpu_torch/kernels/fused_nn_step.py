@@ -107,7 +107,7 @@ class FusedNNStep:
         #: the C variant of a cumulant instance (None for a family instance)
         self._variant = self._instance[1] if self._instance[0] == "cum" else None
         if self.device.type == "cuda":
-            _check_kernel_config(plain_cfg, domain, self.device)
+            _check_kernel_config(plain_cfg, domain, self.device, "the one-kernel NN step (B10)")
         self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
 
     def reset_counts(self) -> None:

@@ -904,13 +904,15 @@ class Simulation:
         return tuple(None if t is None else t.data_ptr() for t in bufs)
 
     def _device_input(self, u_in):
-        """A host inflow profile ([D, ...]) as a tensor on the card, made once
-        per value: a capture may copy nothing from the host."""
+        """A host inflow profile ([D, ...]) as a tensor on the card in the
+        compute dtype, made once per value: a capture may copy nothing from
+        the host, and a float64 run's profile keeps its double values."""
         if u_in is None or torch.is_tensor(u_in) and u_in.device.type != "cpu":
             return u_in
         if _ndim(u_in) <= 1:
             return u_in  # a vector reaches the kernels as host floats
-        arr = np.ascontiguousarray(to_host(u_in), dtype=np.float32)
+        dtype = torch.empty((), dtype=self.cfg.compute_dtype).numpy().dtype
+        arr = np.ascontiguousarray(to_host(u_in), dtype=dtype)
         key = (arr.shape, arr.tobytes())
         hit = self._device_inputs.get(key)
         if hit is None:
