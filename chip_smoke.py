@@ -641,14 +641,13 @@ def collision_tag(cid: str) -> str:
     return "kbc" if cid.startswith("KBC") else cid.lower()
 
 
-def count_sass_ops(sass: str, subroutines: bool = True, fp64: bool = False) -> dict:
+def count_sass_ops(sass: str, subroutines: bool = True) -> dict:
     """Per kernel of a ``cuobjdump -sass`` listing: (FP32-pipe instructions,
-    SFU instructions) per thread, and with ``fp64`` the FP64-pipe
-    instructions third.  Every FADD, FMUL, FFMA and FMNMX, their
-    immediate forms too, is one slot of the FP32 pipe, whatever it
-    computes; every MUFU one of the SFU; every DFMA, DADD and DMUL one of
-    the FP64 pipe.  Every branch counts once, so for
-    a kernel without loops this bounds what one site issues from above.
+    SFU instructions, FP64-pipe instructions) per thread.  Every FADD, FMUL,
+    FFMA and FMNMX, their immediate forms too, is one slot of the FP32
+    pipe, whatever it computes; every MUFU one of the SFU; every DFMA, DADD
+    and DMUL one of the FP64 pipe.  Every branch counts once, so for a
+    kernel without loops this bounds what one site issues from above.
     Without ``subroutines``, the code from the first target of the
     kernel's CALLs on is left out: the slow paths of the IEEE divisions and
     square roots, placed after the kernel's body, which only zero,
@@ -674,7 +673,7 @@ def count_sass_ops(sass: str, subroutines: bool = True, fp64: bool = False) -> d
         if m:  # a label, as nvdisasm-style listings give them
             funcs[current].append((None, m.group(1), ""))
     for name, body in funcs.items():
-        ops[name] = [0, 0, 0] if fp64 else [0, 0]
+        ops[name] = [0, 0, 0]
         end = None
         if not subroutines:
             targets = set()
@@ -691,15 +690,14 @@ def count_sass_ops(sass: str, subroutines: bool = True, fp64: bool = False) -> d
                 continue
             ops[name][0] += op in FP32_PIPE_OPS
             ops[name][1] += op in SFU_OPS
-            if fp64:
-                ops[name][2] += op in FP64_PIPE_OPS
+            ops[name][2] += op in FP64_PIPE_OPS
     return {k: tuple(v) for k, v in ops.items()}
 
 
-def sass_fp32_ops(lib_path, names=None, fp64: bool = False) -> dict:
-    """``count_sass_ops`` of the built library (``fp64``: with the FP64
-    pipe's count): of the kernels ``names`` (``cuobjdump -fun``) where given
-    and the listing holds them all, else of every kernel."""
+def sass_fp32_ops(lib_path, names=None) -> dict:
+    """``count_sass_ops`` of the built library: of the kernels ``names``
+    (``cuobjdump -fun``) where given and the listing holds them all, else of
+    every kernel."""
     import os
 
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
@@ -707,11 +705,11 @@ def sass_fp32_ops(lib_path, names=None, fp64: bool = False) -> dict:
     if names:
         some = subprocess.run([exe, "-sass", "-fun", ",".join(names), str(lib_path)],
                               capture_output=True, text=True)
-        ops = count_sass_ops(some.stdout, fp64=fp64) if some.returncode == 0 else {}
+        ops = count_sass_ops(some.stdout) if some.returncode == 0 else {}
         if all(n in ops for n in names):
             return ops
     return count_sass_ops(subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
-                                         text=True, check=True).stdout, fp64=fp64)
+                                         text=True, check=True).stdout)
 
 
 #: the kernels whose registers and spills the build phases log, and (but
@@ -785,7 +783,7 @@ def phase_build_rest(built: dict) -> None:
     site_ops, site_all = count_sass_ops(site_sass, subroutines=False), count_sass_ops(site_sass)
     site_ops = {cid: site_ops[collision_site_ops.kernel_name(cid)]
                 for cid in collision_site_ops.COLLISION_INSTANCES}
-    for cid, (fp32, sfu) in site_ops.items():
+    for cid, (fp32, sfu, _) in site_ops.items():
         whole = site_all[collision_site_ops.kernel_name(cid)]
         log("build", fluid_site=cid, fp32_slots=fp32, mufu=sfu, fp32_slots_with_slow_paths=whole[0],
             mufu_with_slow_paths=whole[1])
@@ -5040,7 +5038,8 @@ def agree(out, plain, tol: dict, label: str) -> tuple:
 def f64_compares() -> dict:
     """Each new instance against its plain version: B4 float64 and B4's
     profile instance (float32, float64; [3, 1, Y, Z] and [3, X, Y, Z]) on
-    the box of every code, two steps; B2/B3 float64 on sim_2's res-2 duct
+    the box of every code, and B4 float64 on sim_2's res-2 A-B duct, two
+    steps; B2/B3 float64 on sim_2's res-2 duct
     (the lean odd instance) and on the box of every A-A code, four steps;
     B1 float64 on sim_2's res-2 duct and on a 20x36x40 box over x segments
     of 7, per closed/periodic combination, two pairs.  Returns the record's
@@ -5061,22 +5060,29 @@ def f64_compares() -> dict:
     rng = np.random.default_rng(3)
     profiles = {p: 0.03 * rng.standard_normal((3, X) + shape[1:])
                 for p, X in (("1yz", 1), ("xyz", shape[0]))}
+    # sim_2 res 2's A-B duct, the map of its --precision double A-B run
+    res2_ab = sim_2.build(2, device="cpu", streaming="AB", precision="double",
+                          results_parent=WORK / "double_compare_ab").domain
     for dtype, tag in (("float64", "_f64"), ("float32", "")):
         cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AB", dtype=dtype)
-        step = make_fused_step(cfg, box, DEVICE)
         tol = F64_TOL if dtype == "float64" else tol32
-        for inflow in (("vector",) if dtype == "float64" else ()) + tuple(profiles):
-            u_in = np.asarray(U_IN64) if inflow == "vector" else profiles[inflow]
-            f = seeded_state64(shape, cfg.compute_dtype)
-            for it in range(2):
-                out = step(f, NU, u_in=u_in, force=FORCE64)
-                d = agree(out, step.plain(f, NU, u_in=u_in, force=FORCE64), tol,
-                          f"ab_step{tag} {inflow} step {it}")
-                f = out[0]
-            key = f"ab_step{tag}" + ("" if inflow == "vector" else "_profile")
-            err[key] = max(err[key], d[0])
-            log("double_and_profile", compare=key, inflow=inflow, shape="24x20x150",
-                max_df=d[0], max_drho=d[1], max_du=d[2])
+        cases = [("24x20x150", box, (("vector",) if dtype == "float64" else ()) + tuple(profiles))]
+        if dtype == "float64":
+            cases.append(("sim_2_res2", res2_ab, ("vector",)))
+        for label, dom, inflows in cases:
+            step = make_fused_step(cfg, dom, DEVICE)
+            for inflow in inflows:
+                u_in = np.asarray(U_IN64) if inflow == "vector" else profiles[inflow]
+                f = seeded_state64(dom.shape, cfg.compute_dtype)
+                for it in range(2):
+                    out = step(f, NU, u_in=u_in, force=FORCE64)
+                    d = agree(out, step.plain(f, NU, u_in=u_in, force=FORCE64), tol,
+                              f"ab_step{tag} {label} {inflow} step {it}")
+                    f = out[0]
+                key = f"ab_step{tag}" + ("" if inflow == "vector" else "_profile")
+                err[key] = max(err[key], d[0])
+                log("double_and_profile", compare=key, inflow=inflow, case=label,
+                    max_df=d[0], max_drho=d[1], max_du=d[2])
     res2 = sim_2.build(2, device=DEVICE, streaming="AA", precision="double",
                        results_parent=WORK / "double_compare")
     aa_cases = (("sim_2_res2", res2.domain),
@@ -5131,21 +5137,40 @@ def velocity_domain(res: int, precision: str):
 
 
 def f64_timings(floor_gbps: float, f64_ops: dict) -> dict:
-    """Each new instance at 256^3 on CUDA events (20 launches; plain: one
-    call): B4 float64 on the bench duct A-B; B2, B3 (lean) and B1 float64 on
-    the bench duct A-A; B4's profile instances (float32, float64) on sim_2
-    --velocity res 8, in turns with the vector instance on the same map and
-    state.  Returns key -> (ms, plain ms) and key -> (bytes per site, ops
-    per site)."""
+    """Each new instance at 256^3: one launch held to its plain version on
+    the same input (``agree``, the float64 bounds; the float32 profile
+    instance at the step bounds), then timed on CUDA events (20 launches;
+    plain: one call): B4 float64 on the bench duct A-B; B2, B3 (lean) and B1
+    float64 on the bench duct A-A; B4's profile instances (float32, float64)
+    on sim_2 --velocity res 8, in turns with the vector instance on the same
+    map and state.  Returns key -> (ms, plain ms), key -> (bytes per site,
+    ops per site) and key -> max |df| at 256^3."""
     import torch
 
     from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
     from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair2_aa, make_fused_step_aa
     from tnl_lbm_tpu_torch.ops.boundary import GEO
 
-    times, footprint = {}, {}
+    times, footprint, err = {}, {}, {}
     sites = float(np.prod(BENCH_SHAPE))
     force = (FORCE_BENCH, 0.0, 0.0)
+    tol32 = {"f": TOL_F, "rho": TOL_RHO, "u": TOL_U}
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def check(key, launch, plain, tol=F64_TOL):
+        """The plain call first, alone beside the input (its whole-array
+        temporaries peak there), then one launch on the same input."""
+        want = plain()
+        free()
+        d = agree(launch(), want, tol, f"{key} at 256^3")
+        err[key] = d[0]
+        log("double_and_profile", compare=key, shape="256^3", max_df=d[0], max_drho=d[1],
+            max_du=d[2])
+        del want
+        free()
 
     def record(key, ms, plain_ms, bytes_per_site, ops):
         times[key] = (ms, plain_ms)
@@ -5160,14 +5185,11 @@ def f64_timings(floor_gbps: float, f64_ops: dict) -> dict:
             fp64_slots_per_site=ops[2], fp64_bound_ms=f"{ops_ms(0, 0, RATES, ops[2] * sites):.4f}",
             fp32_slots_per_site=ops[0])
 
-    def free():
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-
     cfg, dom = flagship(BENCH_SHAPE, streaming="AB")
     cfg = dataclasses.replace(cfg, compute_dtype=torch.float64)
     step = make_fused_step(cfg, dom, DEVICE)
     f = seeded_state64(BENCH_SHAPE, torch.float64)
+    check("ab_step_f64", lambda: step(f, NU, force=force), lambda: step.plain(f, NU, force=force))
     out = torch.empty_like(f)
     ms = time_ms(lambda: step(f, NU, force=force, out=out), reps=20)
     del out
@@ -5182,6 +5204,11 @@ def f64_timings(floor_gbps: float, f64_ops: dict) -> dict:
     step = make_fused_step_aa(cfg, dom, DEVICE)
     pair = make_fused_pair2_aa(cfg, dom, DEVICE)
     f = seeded_state64(BENCH_SHAPE, torch.float64)
+    # the even step runs in place: after its check f holds its output
+    for key, parity in (("aa_even_f64", 0), ("aa_odd_f64", 1)):
+        check(key, lambda: step(f, NU, force=force, parity=parity),
+              lambda: step.plain(f, NU, force=force, parity=parity))
+    check("aa_pair_f64", lambda: pair(f, NU, force=force), lambda: pair.plain(f, NU, force=force))
     out = torch.empty_like(f)
     even_ms = time_ms(lambda: step(f, NU, force=force, parity=0), reps=20)
     odd_ms = time_ms(lambda: step(f, NU, force=force, parity=1, out=out), reps=20)
@@ -5206,6 +5233,8 @@ def f64_timings(floor_gbps: float, f64_ops: dict) -> dict:
         step = make_fused_step(cfg, dom, DEVICE)
         prof = torch.as_tensor(prof, dtype=cfg.compute_dtype, device=DEVICE)
         f = seeded_state64(dom.shape, cfg.compute_dtype)
+        check(key, lambda: step(f, NU, u_in=prof), lambda: step.plain(f, NU, u_in=prof),
+              F64_TOL if precision == "double" else tol32)
         out = torch.empty_like(f)
         turns = in_turns({"vector": lambda: step(f, NU, u_in=U_IN64, out=out),
                           "profile": lambda: step(f, NU, u_in=prof, out=out)}, rounds=3, reps=20)
@@ -5224,7 +5253,7 @@ def f64_timings(floor_gbps: float, f64_ops: dict) -> dict:
             inflow_sites=n_in)
         del step, f, prof
         free()
-    return {"times": times, "footprint": footprint}
+    return {"times": times, "footprint": footprint, "err": err}
 
 
 def sim2_counted(label: str, res: int, final_time: float | None = None,
@@ -5368,7 +5397,7 @@ def phase_double_and_profile(floor_gbps: float, f32_l1: dict) -> dict:
     path, ptxas = build_library()
     res = kernel_resources(ptxas)
     names = sorted({n for ns in F64_KERNELS.values() for n in ns})
-    f64_ops = sass_fp32_ops(path, names, fp64=True)
+    f64_ops = sass_fp32_ops(path, names)
     for name in names:
         log("double_and_profile", kernel=name, **res[name], fp32_slots_per_thread=f64_ops[name][0],
             mufu_per_thread=f64_ops[name][1], fp64_slots_per_thread=f64_ops[name][2])
@@ -5393,6 +5422,7 @@ def phase_double_and_profile(floor_gbps: float, f32_l1: dict) -> dict:
         if k.launches <= 0:
             raise RuntimeError(f"{key} was not launched on sim_2's float64 or velocity paths")
     resources = {key: {n: res[n] for n in F64_KERNELS[key]} for key in F64_KERNELS}
+    err = {key: max(err[key], timed["err"][key]) for key in F64_KERNELS}
     return {"kernels": kernels, "err": err, "times": timed["times"],
             "footprint": timed["footprint"], "resources": resources}
 

@@ -44,9 +44,9 @@ SASS = """
 
 def test_sass_counts_one_fp32_slot_per_instruction():
     """FFMA counts once, as FADD and FMUL do (the pipe issues it in one slot),
-    predicated instructions too; MUFU goes to the SFU; integer, FP64 and
-    half-precision instructions to neither."""
-    assert cs.count_sass_ops(SASS) == {"toy_kernel": (7, 1), "other_kernel": (1, 2)}
+    predicated instructions too; MUFU goes to the SFU, DADD to the FP64
+    pipe; integer and half-precision instructions to none."""
+    assert cs.count_sass_ops(SASS) == {"toy_kernel": (7, 1, 1), "other_kernel": (1, 2, 0)}
 
 
 def test_bound_counts_issue_slots_at_the_cards_rates():
@@ -119,8 +119,8 @@ def test_sass_counts_leave_out_the_slow_paths_on_request(listing):
     ``subroutines`` the code from the CALL's target on is left out, and
     the call's own block and the body after it still count."""
     sass = CALLS[listing]
-    assert cs.count_sass_ops(sass) == {"div_kernel": (4, 2)}
-    assert cs.count_sass_ops(sass, subroutines=False) == {"div_kernel": (2, 1)}
+    assert cs.count_sass_ops(sass) == {"div_kernel": (4, 2, 0)}
+    assert cs.count_sass_ops(sass, subroutines=False) == {"div_kernel": (2, 1, 0)}
     assert cs.count_sass_ops(SASS, subroutines=False) == cs.count_sass_ops(SASS)
 
 
@@ -150,13 +150,11 @@ def test_site_ops_source_has_a_kernel_per_collision_id():
 
 
 def test_fp64_pipe_counts_its_own_slots():
-    """With ``fp64`` every DFMA, DADD and DMUL is one slot of the FP64 pipe,
+    """Every DFMA, DADD and DMUL is one slot of the FP64 pipe,
     which has half the FP32 pipe's lanes (34 TFLOP/s at 132 SMs and
     1980 MHz, DFMA as two operations); the bound takes the slowest pipe."""
     sass = SASS.replace("HFMA2 R16", "DFMA R16").replace("IMAD R10", "DMUL R10")
-    assert cs.count_sass_ops(sass, fp64=True) == {"toy_kernel": (7, 1, 3),
-                                                 "other_kernel": (1, 2, 0)}
-    assert cs.count_sass_ops(sass) == {"toy_kernel": (7, 1), "other_kernel": (1, 2)}
+    assert cs.count_sass_ops(sass) == {"toy_kernel": (7, 1, 3), "other_kernel": (1, 2, 0)}
     rates = cs.card_rates(132, 1980.0)
     assert rates["fp64_per_s"] == pytest.approx(132 * 64 * 1.98e9)
     assert 2 * rates["fp64_per_s"] == pytest.approx(33.45e12, rel=1e-3)

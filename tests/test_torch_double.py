@@ -10,8 +10,9 @@ step or pair at a time.  Float64 bounds: |df| <= 1e-12, |drho| <= 2e-12,
 |du| <= 1e-12; float32 ones the JAX kernel suite's
 (tests/test_fused_kernel.py:65-67).  The JAX side is ``make_step``, the XLA
 step that the JAX suite holds its Pallas kernels to, and that the JAX
-driver runs for an inflow profile; ``-m slow`` runs the JAX Pallas kernels
-themselves in interpret mode (20-40 s each).  Also: the two float32
+driver runs for an inflow profile; B1's plain version also against the JAX
+Pallas pair in interpret mode, and ``-m slow`` B4's and B2/B3's against
+their Pallas kernels (~20 s each).  Also: the two float32
 roundings a float64 run must not take (``host_vector3``,
 ``Simulation._device_input``), the refusal of every float64 config outside
 the ported instances, naming its ROADMAP item, and a float64 run's
@@ -243,38 +244,45 @@ def test_pair_f64_plain_matches_jax_over_two_segments():
 
 # ------------------------------------------ the Pallas kernels, interpret mode
 
-@pytest.mark.slow
-def test_f64_plain_versions_match_jax_pallas_interpret():
+@pytest.mark.parametrize("kernel", [pytest.param("B4", marks=pytest.mark.slow),
+                                    pytest.param("B2_B3", marks=pytest.mark.slow), "B1"])
+def test_f64_plain_versions_match_jax_pallas_interpret(kernel):
     """B4, B2/B3 and B1 float64 plain versions against the JAX Pallas
-    kernels in interpret mode, one step (a pair) each."""
+    kernels in interpret mode, one step (a pair) each.  B1, the quickest
+    (~10-17 s on one core), runs in the default suite; B4 and B2/B3 (~20 s
+    each) under ``-m slow``."""
     from tnl_lbm_tpu.kernels.fused import make_fused_step as j_ab
     from tnl_lbm_tpu.kernels.fused_aa import from_padded_aa, to_padded_aa
     from tnl_lbm_tpu.kernels.fused_aa import make_fused_pair2_aa as j_pair
     from tnl_lbm_tpu.kernels.fused_aa import make_fused_step_aa as j_aa
 
-    m, periodic = bc_box((8, 16, 8)), (False, False, True)
-    f0 = seeded_state(m.shape)
-    out = j_ab(*jax_side("AB", m, periodic))(jnp.asarray(f0), NU, jnp.asarray(U_IN64),
-                                            jnp.asarray(FORCE64))
-    step = make_fused_step(*port_side("AB", m, periodic), "cpu")
-    assert_close(out, step(torch.from_numpy(f0), NU, u_in=np.asarray(U_IN64), force=FORCE64),
-                 F64, "B4")
-    m, periodic = aa_box((8, 16, 8)), (False, False, True)
-    jaa = j_aa(*jax_side("AA", m, periodic), tile_even=(8, 8), tile_odd=(8, 8))
-    step = make_fused_step_aa(*port_side("AA", m, periodic), "cpu")
-    fj, fp = jnp.asarray(f0), torch.from_numpy(f0.copy())
-    for parity in (0, 1):
-        fj, rj, uj = jaa(fj, NU, u_in=jnp.asarray(U_IN64), force=jnp.asarray(FORCE64),
-                         parity=parity)
-        fp, rp, up = step(fp, NU, u_in=np.asarray(U_IN64), force=FORCE64, parity=parity)
-        assert_close((fj, rj, uj), (fp, rp, up), F64, f"B2/B3 parity {parity}")
-    m, periodic = duct((16, 16, 16))
-    f0 = seeded_state(m.shape)
-    fj, rj, uj = j_pair(*jax_side("AA", m, periodic), tile=(4, 8))(
-        to_padded_aa(jnp.asarray(f0), periodic), NU, force=jnp.asarray(FORCE64))
-    pair = make_fused_pair2_aa(*port_side("AA", m, periodic), "cpu")
-    assert_close((from_padded_aa(fj, m.shape[-1]), rj, uj),
-                 pair(torch.from_numpy(f0), NU, force=FORCE64), F64, "B1")
+    if kernel == "B4":
+        m, periodic = bc_box((8, 16, 8)), (False, False, True)
+        f0 = seeded_state(m.shape)
+        out = j_ab(*jax_side("AB", m, periodic))(jnp.asarray(f0), NU, jnp.asarray(U_IN64),
+                                                jnp.asarray(FORCE64))
+        step = make_fused_step(*port_side("AB", m, periodic), "cpu")
+        assert_close(out, step(torch.from_numpy(f0), NU, u_in=np.asarray(U_IN64),
+                               force=FORCE64), F64, "B4")
+    elif kernel == "B2_B3":
+        m, periodic = aa_box((8, 16, 8)), (False, False, True)
+        f0 = seeded_state(m.shape)
+        jaa = j_aa(*jax_side("AA", m, periodic), tile_even=(8, 8), tile_odd=(8, 8))
+        step = make_fused_step_aa(*port_side("AA", m, periodic), "cpu")
+        fj, fp = jnp.asarray(f0), torch.from_numpy(f0.copy())
+        for parity in (0, 1):
+            fj, rj, uj = jaa(fj, NU, u_in=jnp.asarray(U_IN64), force=jnp.asarray(FORCE64),
+                             parity=parity)
+            fp, rp, up = step(fp, NU, u_in=np.asarray(U_IN64), force=FORCE64, parity=parity)
+            assert_close((fj, rj, uj), (fp, rp, up), F64, f"B2/B3 parity {parity}")
+    else:
+        m, periodic = duct((16, 16, 16))
+        f0 = seeded_state(m.shape)
+        fj, rj, uj = j_pair(*jax_side("AA", m, periodic), tile=(4, 8))(
+            to_padded_aa(jnp.asarray(f0), periodic), NU, force=jnp.asarray(FORCE64))
+        pair = make_fused_pair2_aa(*port_side("AA", m, periodic), "cpu")
+        assert_close((from_padded_aa(fj, m.shape[-1]), rj, uj),
+                     pair(torch.from_numpy(f0), NU, force=FORCE64), F64, "B1")
 
 
 # ----------------------------------------------- Simulation's profile input

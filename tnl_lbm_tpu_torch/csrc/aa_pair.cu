@@ -155,13 +155,13 @@ extern "C" int tnl_lbm_aa_pair_smem_bytes() { return smem_bytes<float>(); }
 // The launch geometry for a store code and a shape: out[0] dynamic shared
 // memory per block (bytes), [1] stages, [2] TY, [3] TZ, [4] the automatic
 // x segment length, [5] segments, [6] column tiles, [7] 1 if a state of
-// this shape (16-byte aligned) is staged.
+// this shape (16-byte aligned) is staged, [8] threads per block.
 extern "C" int tnl_lbm_aa_pair_info(int store, int X, int Y, int Z, int* out) {
   const int seg = auto_seg_len(X, Y, Z);
   const int vec = store == 0 ? 4 : 8;
-  const int vals[8] = {store_smem(store), NSTAGES, TY, TZ, seg, (X + seg - 1) / seg,
-                       column_tiles(Y, Z), Z % vec == 0};
-  for (int k = 0; k < 8; ++k) out[k] = vals[k];
+  const int vals[9] = {store_smem(store), NSTAGES, TY, TZ, seg, (X + seg - 1) / seg,
+                       column_tiles(Y, Z), Z % vec == 0, THREADS};
+  for (int k = 0; k < 9; ++k) out[k] = vals[k];
   return 0;
 }
 

@@ -139,19 +139,24 @@ extern "C" int tnl_lbm_ab_step(const float* f, float* fout, const uint8_t* map, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The profile instance on `stream`: prof is the [3, ...] field, its element
-// strides (component, x, y, z; 0 on a broadcast axis).  Returns
-// cudaGetLastError() of the launch, or cudaErrorInvalidValue without a field.
-extern "C" int tnl_lbm_ab_step_profile(const float* f, float* fout, const uint8_t* map,
-                                       float* rho, float* u, int X, int Y, int Z, int pbits,
-                                       float nu, float fx, float fy, float fz, const float* prof,
-                                       long long sa, long long sx, long long sy, long long sz,
-                                       int neumaier, void* stream) {
-  if (prof == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const ABParams p{1.0f / (3.0f * nu + 0.5f), fx, fy, fz, 0.0f, 0.0f, 0.0f, neumaier};
+// The CUM_WELL step on `stream`, as f64_ab.cu's tnl_lbm_ab_step_f64 takes
+// it: prof null, the vector instance with (uin_x, uin_y, uin_z); else the
+// profile instance, prof the [3, ...] field with its element strides
+// (component, x, y, z; 0 on a broadcast axis), and the uin arguments
+// unused.  Returns cudaGetLastError() of the launch.
+extern "C" int tnl_lbm_ab_step_well(const float* f, float* fout, const uint8_t* map, float* rho,
+                                    float* u, int X, int Y, int Z, int pbits, float nu, float fx,
+                                    float fy, float fz, float uin_x, float uin_y, float uin_z,
+                                    const float* prof, long long sa, long long sx, long long sy,
+                                    long long sz, int neumaier, void* stream) {
+  const ABParams p{1.0f / (3.0f * nu + 0.5f), fx, fy, fz, uin_x, uin_y, uin_z, neumaier};
   const int block = Z >= THREADS ? THREADS : ((Z + 31) / 32) * 32;
   const dim3 grid((Z + block - 1) / block, Y, X);
-  ab_step_profile_cum_well_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      f, fout, map, rho, u, Y, Z, pbits, p, Profile{prof, sa, sx, sy, sz});
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (prof == nullptr)
+    ab_step_cum_well_kernel<<<grid, block, 0, s>>>(f, fout, map, nullptr, rho, u, Y, Z, pbits, p);
+  else
+    ab_step_profile_cum_well_kernel<<<grid, block, 0, s>>>(f, fout, map, rho, u, Y, Z, pbits, p,
+                                                           Profile{prof, sa, sx, sy, sz});
   return static_cast<int>(cudaGetLastError());
 }

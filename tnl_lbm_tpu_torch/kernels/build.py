@@ -118,7 +118,7 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_aa_pair_full_info.argtypes = [i, i, i, i, p]
     lib.tnl_lbm_ab_step.argtypes = [p] * 6 + [i] * 6 + [f] * 7 + [i, p]
     lib.tnl_lbm_ab_step_sitemajor.argtypes = [p] * 5 + [i] * 5 + [f] * 7 + [i, p]
-    lib.tnl_lbm_ab_step_profile.argtypes = [p] * 5 + [i] * 4 + [f] * 4 + [p] + [ll] * 4 + [i, p]
+    lib.tnl_lbm_ab_step_well.argtypes = [p] * 5 + [i] * 4 + [f] * 7 + [p] + [ll] * 4 + [i, p]
     # the float64 instances (f64_*.cu): every real argument a C double
     lib.tnl_lbm_ab_step_f64.argtypes = [p] * 5 + [i] * 4 + [d] * 7 + [p] + [ll] * 4 + [i, p]
     lib.tnl_lbm_aa_even_f64.argtypes = [p] * 4 + [i] * 3 + [d] * 7 + [i, p]
@@ -155,7 +155,7 @@ def load_library() -> ctypes.CDLL:
                lib.tnl_lbm_aa_pair_segmented, lib.tnl_lbm_aa_pair_info,
                lib.tnl_lbm_window_copy_stages,
                lib.tnl_lbm_aa_pair_full, lib.tnl_lbm_aa_pair_full_info, lib.tnl_lbm_ab_step,
-               lib.tnl_lbm_ab_step_sitemajor, lib.tnl_lbm_ab_step_profile,
+               lib.tnl_lbm_ab_step_sitemajor, lib.tnl_lbm_ab_step_well,
                lib.tnl_lbm_ab_step_f64, lib.tnl_lbm_aa_even_f64, lib.tnl_lbm_aa_odd_f64,
                lib.tnl_lbm_aa_pair_f64, lib.tnl_lbm_aa_pair_f64_info, lib.tnl_lbm_element_pipeline,
                lib.tnl_lbm_window_copy,

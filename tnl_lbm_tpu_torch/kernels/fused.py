@@ -176,7 +176,7 @@ def supports(domain: Domain, streaming: str = "AB", pair: bool = False) -> bool:
 
 
 #: numpy's type of each compute dtype the kernels take
-_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 def host_vector3(value, what: str, roadmap: str,
@@ -196,7 +196,7 @@ def host_vector3(value, what: str, roadmap: str,
     arr = np.asarray(value)
     if arr.shape != (3,):
         raise NotImplementedError(f"a per-site {what} field is not taken here ({roadmap})")
-    return tuple(float(v) for v in arr.astype(_NP_DTYPES.get(dtype, np.float32)))
+    return tuple(float(v) for v in arr.astype(NP_DTYPES.get(dtype, np.float32)))
 
 
 def _force3(force, dtype=torch.float32) -> tuple[float, float, float]:
@@ -791,14 +791,13 @@ class FusedStepAB:
         pbits = _periodic_bits(self.periodic)
         kernel = self.kernel if prof is None else self.profile
         prof_args = (None, 0, 0, 0, 0) if prof is None else (prof.data_ptr(), *prof.stride())
-        if self._f64:  # the CUM_WELL step, the only float64 instance (_check_kernel_config)
-            rc = lib.tnl_lbm_ab_step_f64(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
-                                         rho.data_ptr(), u.data_ptr(), X, Y, Z, pbits, nu, *fvec,
-                                         *uvec, *prof_args, neumaier, stream_ptr)
-        elif prof is not None:
-            rc = lib.tnl_lbm_ab_step_profile(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
-                                             rho.data_ptr(), u.data_ptr(), X, Y, Z, pbits, nu,
-                                             *fvec, *prof_args, neumaier, stream_ptr)
+        if self._f64 or prof is not None:
+            # the CUM_WELL step's entries (the only float64 instance, _check_kernel_config):
+            # its vector instance with prof null, else its profile instance
+            entry = lib.tnl_lbm_ab_step_f64 if self._f64 else lib.tnl_lbm_ab_step_well
+            rc = entry(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(), rho.data_ptr(),
+                       u.data_ptr(), X, Y, Z, pbits, nu, *fvec, *uvec, *prof_args, neumaier,
+                       stream_ptr)
         elif self._instance[0] == "cum":
             rc = lib.tnl_lbm_ab_step(f.data_ptr(), None if f_new is None else f_new.data_ptr(),
                                      self.map.data_ptr(),

@@ -91,10 +91,10 @@ from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 #: planes (csrc/pair_march.cuh TY, TZ, NSTAGES)
 PAIR_COLUMN = (8, 32)
 PAIR_STAGES = 2
-#: keys of :meth:`FusedPairAA.geometry` (csrc/aa_pair.cu tnl_lbm_aa_pair_info; the
-#: float64 pair's, csrc/f64_pair.cu tnl_lbm_aa_pair_f64_info, add "threads")
+#: keys of :meth:`FusedPairAA.geometry` (csrc/aa_pair.cu tnl_lbm_aa_pair_info,
+#: csrc/f64_pair.cu tnl_lbm_aa_pair_f64_info)
 _GEOMETRY_KEYS = ("smem_bytes", "stages", "ty", "tz", "seg_len", "segments", "columns",
-                  "staged")
+                  "staged", "threads")
 #: keys of :meth:`FusedPairAAFull.geometry` (csrc/aa_pair_full.cu tnl_lbm_aa_pair_full_info)
 _FULL_GEOMETRY_KEYS = ("smem_bytes", "ring_groups", "ty", "tz", "seg_len", "segments",
                        "columns", "threads")
@@ -284,48 +284,35 @@ class FusedStepAA:
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
         neumaier = int(self.cfg.high_precision_rho)
         ff = None if field is None else field.data_ptr()
+        pbits, has_nothing = _periodic_bits(self.periodic), int(GEO.NOTHING in self.codes)
+        kernel = self.even if parity == 0 else self.odd
+        if parity == 0:
+            f_new = f
+        else:
+            f_new = None if self.macro_only else (torch.empty_like(f) if out is None else out)
         if self._f64:  # the CUM_WELL step, the only float64 instances (_check_kernel_config)
             if parity == 0:
                 rc = lib.tnl_lbm_aa_even_f64(f.data_ptr(), self.map.data_ptr(), rho.data_ptr(),
                                              u.data_ptr(), X, Y, Z, nu, *fvec, *uvec, neumaier,
                                              stream_ptr)
-                kernel, f_new = self.even, f
             else:
-                f_new = torch.empty_like(f) if out is None else out
                 rc = lib.tnl_lbm_aa_odd_f64(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
-                                            rho.data_ptr(), u.data_ptr(), X, Y, Z,
-                                            _periodic_bits(self.periodic),
-                                            int(GEO.NOTHING in self.codes),
-                                            int(self.variant == _AA_LEAN_VARIANT), nu, *fvec,
-                                            *uvec, neumaier, stream_ptr)
-                kernel = self.odd
-            if rc != 0:
-                raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
-            kernel.launches += 1
-            return f_new, rho, u
-        if self._instance[0] != "cum":
-            pattern, kernel = (PATTERN_EVEN, self.even) if parity == 0 else (PATTERN_ODD, self.odd)
-            f_new = f if parity == 0 else (torch.empty_like(f) if out is None else out)
-            rc = launch_collision(lib, self._instance, pattern, f, f_new, self.map, rho, u,
-                                  self.shape, self.periodic, GEO.NOTHING in self.codes, nu, fvec,
-                                  uvec, neumaier, stream_ptr, field)
-            if rc != 0:
-                raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
-            kernel.launches += 1
-            return f_new, rho, u
-        if parity == 0:
+                                            rho.data_ptr(), u.data_ptr(), X, Y, Z, pbits,
+                                            has_nothing, int(self.variant == _AA_LEAN_VARIANT),
+                                            nu, *fvec, *uvec, neumaier, stream_ptr)
+        elif self._instance[0] != "cum":
+            rc = launch_collision(lib, self._instance, PATTERN_EVEN if parity == 0 else PATTERN_ODD,
+                                  f, f_new, self.map, rho, u, self.shape, self.periodic,
+                                  has_nothing, nu, fvec, uvec, neumaier, stream_ptr, field)
+        elif parity == 0:
             rc = lib.tnl_lbm_aa_even(f.data_ptr(), self.map.data_ptr(), ff, rho.data_ptr(),
                                      u.data_ptr(), X, Y, Z, self.variant, self._mode, nu, *fvec,
                                      *uvec, neumaier, stream_ptr)
-            kernel, f_new = self.even, f
         else:
-            f_new = None if self.macro_only else (torch.empty_like(f) if out is None else out)
             rc = lib.tnl_lbm_aa_odd(f.data_ptr(), None if f_new is None else f_new.data_ptr(),
                                     self.map.data_ptr(), ff, rho.data_ptr(), u.data_ptr(),
-                                    X, Y, Z, _periodic_bits(self.periodic),
-                                    int(GEO.NOTHING in self.codes), self.variant, self._mode,
+                                    X, Y, Z, pbits, has_nothing, self.variant, self._mode,
                                     nu, *fvec, *uvec, neumaier, stream_ptr)
-            kernel = self.odd
         if rc != 0:
             raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
         kernel.launches += 1
@@ -416,15 +403,13 @@ class FusedPairAA:
         ``seg_len`` is set)."""
         if self.device.type != "cuda":
             raise ValueError("the pair kernel's geometry exists on a CUDA device only")
+        lib = load_library()
+        out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
         if self._f64:
-            keys = _GEOMETRY_KEYS + ("threads",)
-            out = (ctypes.c_int * len(keys))()
-            load_library().tnl_lbm_aa_pair_f64_info(*self.shape, out)
+            lib.tnl_lbm_aa_pair_f64_info(*self.shape, out)
         else:
-            keys = _GEOMETRY_KEYS
-            out = (ctypes.c_int * len(keys))()
-            load_library().tnl_lbm_aa_pair_info(self._store_code, *self.shape, out)
-        geo = dict(zip(keys, out))
+            lib.tnl_lbm_aa_pair_info(self._store_code, *self.shape, out)
+        geo = dict(zip(_GEOMETRY_KEYS, out))
         if self.seg_len is not None:
             X = self.shape[0]
             geo.update(seg_len=self.seg_len, segments=-(-X // self.seg_len))
@@ -484,18 +469,15 @@ class FusedPairAA:
                 u.data_ptr() if u is not None else None, X, Y, Z,
                 _periodic_bits(self.periodic), int(GEO.NOTHING in self.codes),
                 int(self.with_macro))
+        neumaier = int(self.cfg.high_precision_rho)
         if self._f64:  # stored in float64 (the constructor refused 16-bit storage)
-            rc = lib.tnl_lbm_aa_pair_f64(*ptrs, nu, *fvec, int(self.cfg.high_precision_rho),
-                                         self.seg_len or 0, stream_ptr)
-            if rc != 0:
-                raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
-            self.kernel.launches += 1
-            return f_new, rho, u
-        args = (*ptrs, self._store_code, nu, *fvec, int(self.cfg.high_precision_rho))
-        if self.seg_len is None:
-            rc = lib.tnl_lbm_aa_pair(*args, stream_ptr)
+            rc = lib.tnl_lbm_aa_pair_f64(*ptrs, nu, *fvec, neumaier, self.seg_len or 0,
+                                         stream_ptr)
+        elif self.seg_len is None:
+            rc = lib.tnl_lbm_aa_pair(*ptrs, self._store_code, nu, *fvec, neumaier, stream_ptr)
         else:
-            rc = lib.tnl_lbm_aa_pair_segmented(*args, self.seg_len, stream_ptr)
+            rc = lib.tnl_lbm_aa_pair_segmented(*ptrs, self._store_code, nu, *fvec, neumaier,
+                                               self.seg_len, stream_ptr)
         if rc != 0:
             raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
         self.kernel.launches += 1

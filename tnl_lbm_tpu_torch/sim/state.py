@@ -71,7 +71,7 @@ import torch
 from tnl_lbm_tpu_torch.io import native
 from tnl_lbm_tpu_torch.io.series import VtiTimeSeries
 from tnl_lbm_tpu_torch.io.vtk import write_vti
-from tnl_lbm_tpu_torch.kernels.fused import kernel_counters, make_fused_step, supports
+from tnl_lbm_tpu_torch.kernels.fused import NP_DTYPES, kernel_counters, make_fused_step, supports
 from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
 from tnl_lbm_tpu_torch.ops import moments as mom
 from tnl_lbm_tpu_torch.sim import checkpoint as ckpt
@@ -911,8 +911,7 @@ class Simulation:
             return u_in
         if _ndim(u_in) <= 1:
             return u_in  # a vector reaches the kernels as host floats
-        dtype = torch.empty((), dtype=self.cfg.compute_dtype).numpy().dtype
-        arr = np.ascontiguousarray(to_host(u_in), dtype=dtype)
+        arr = np.ascontiguousarray(to_host(u_in), dtype=NP_DTYPES[self.cfg.compute_dtype])
         key = (arr.shape, arr.tobytes())
         hit = self._device_inputs.get(key)
         if hit is None:
