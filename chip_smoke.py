@@ -5137,14 +5137,16 @@ def velocity_domain(res: int, precision: str):
 
 
 def f64_timings(floor_gbps: float, f64_ops: dict) -> dict:
-    """Each new instance at 256^3: one launch held to its plain version on
-    the same input (``agree``, the float64 bounds; the float32 profile
-    instance at the step bounds), then timed on CUDA events (20 launches;
-    plain: one call): B4 float64 on the bench duct A-B; B2, B3 (lean) and B1
+    """Each new instance at 256^3, timed on CUDA events (20 launches;
+    plain: one call), then one launch held to its plain version on the same
+    input (``agree``, the float64 bounds; the float32 profile instance at
+    the step bounds): B4 float64 on the bench duct A-B; B2, B3 (lean) and B1
     float64 on the bench duct A-A; B4's profile instances (float32, float64)
     on sim_2 --velocity res 8, in turns with the vector instance on the same
-    map and state.  Returns key -> (ms, plain ms), key -> (bytes per site,
-    ops per site) and key -> max |df| at 256^3."""
+    map and state.  The check comes after the timing: timed after the plain
+    call's whole-array temporaries, B4 and B2 float64 read 3-4% slower in
+    every turn.  Returns key -> (ms, plain ms), key -> (bytes per site, ops
+    per site) and key -> max |df| at 256^3."""
     import torch
 
     from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
@@ -5189,13 +5191,13 @@ def f64_timings(floor_gbps: float, f64_ops: dict) -> dict:
     cfg = dataclasses.replace(cfg, compute_dtype=torch.float64)
     step = make_fused_step(cfg, dom, DEVICE)
     f = seeded_state64(BENCH_SHAPE, torch.float64)
-    check("ab_step_f64", lambda: step(f, NU, force=force), lambda: step.plain(f, NU, force=force))
     out = torch.empty_like(f)
     ms = time_ms(lambda: step(f, NU, force=force, out=out), reps=20)
     del out
     free()
     plain_ms = time_ms(lambda: step.plain(f, NU, force=force), reps=1)
     record("ab_step_f64", ms, plain_ms, F64_BYTES, f64_ops["ab_step_f64_cum_well_kernel"])
+    check("ab_step_f64", lambda: step(f, NU, force=force), lambda: step.plain(f, NU, force=force))
     del step, f
     free()
 
@@ -5204,11 +5206,6 @@ def f64_timings(floor_gbps: float, f64_ops: dict) -> dict:
     step = make_fused_step_aa(cfg, dom, DEVICE)
     pair = make_fused_pair2_aa(cfg, dom, DEVICE)
     f = seeded_state64(BENCH_SHAPE, torch.float64)
-    # the even step runs in place: after its check f holds its output
-    for key, parity in (("aa_even_f64", 0), ("aa_odd_f64", 1)):
-        check(key, lambda: step(f, NU, force=force, parity=parity),
-              lambda: step.plain(f, NU, force=force, parity=parity))
-    check("aa_pair_f64", lambda: pair(f, NU, force=force), lambda: pair.plain(f, NU, force=force))
     out = torch.empty_like(f)
     even_ms = time_ms(lambda: step(f, NU, force=force, parity=0), reps=20)
     odd_ms = time_ms(lambda: step(f, NU, force=force, parity=1, out=out), reps=20)
@@ -5225,6 +5222,12 @@ def f64_timings(floor_gbps: float, f64_ops: dict) -> dict:
     record("aa_pair_f64", pair_ms, pair_plain, F64_BYTES, tuple(2 * v for v in lean))
     log("double_and_profile", pair_f64_geometry=json.dumps(pair.geometry()),
         b2_plus_b3_ms=f"{even_ms + odd_ms:.4f}", pair_over_b2_b3=f"{pair_ms / (even_ms + odd_ms):.3f}")
+    free()
+    # the even step runs in place: after its check f holds its output
+    for key, parity in (("aa_even_f64", 0), ("aa_odd_f64", 1)):
+        check(key, lambda: step(f, NU, force=force, parity=parity),
+              lambda: step.plain(f, NU, force=force, parity=parity))
+    check("aa_pair_f64", lambda: pair(f, NU, force=force), lambda: pair.plain(f, NU, force=force))
     del step, pair, f
     free()
 
@@ -5233,8 +5236,6 @@ def f64_timings(floor_gbps: float, f64_ops: dict) -> dict:
         step = make_fused_step(cfg, dom, DEVICE)
         prof = torch.as_tensor(prof, dtype=cfg.compute_dtype, device=DEVICE)
         f = seeded_state64(dom.shape, cfg.compute_dtype)
-        check(key, lambda: step(f, NU, u_in=prof), lambda: step.plain(f, NU, u_in=prof),
-              F64_TOL if precision == "double" else tol32)
         out = torch.empty_like(f)
         turns = in_turns({"vector": lambda: step(f, NU, u_in=U_IN64, out=out),
                           "profile": lambda: step(f, NU, u_in=prof, out=out)}, rounds=3, reps=20)
@@ -5251,6 +5252,9 @@ def f64_timings(floor_gbps: float, f64_ops: dict) -> dict:
             vector_ms=" ".join(f"{t:.4f}" for t in turns["vector"]),
             profile_over_vector=f"{np.median(turns['profile']) / np.median(turns['vector']):.4f}",
             inflow_sites=n_in)
+        free()
+        check(key, lambda: step(f, NU, u_in=prof), lambda: step.plain(f, NU, u_in=prof),
+              F64_TOL if precision == "double" else tol32)
         del step, f, prof
         free()
     return {"times": times, "footprint": footprint, "err": err}
