@@ -5144,9 +5144,9 @@ def f64_timings(floor_gbps: float, f64_ops: dict) -> dict:
     float64 on the bench duct A-A; B4's profile instances (float32, float64)
     on sim_2 --velocity res 8, in turns with the vector instance on the same
     map and state.  The check comes after the timing: timed after the plain
-    call's whole-array temporaries, B4 and B2 float64 read 3-4% slower in
-    every turn.  Returns key -> (ms, plain ms), key -> (bytes per site, ops
-    per site) and key -> max |df| at 256^3."""
+    call's whole-array temporaries, B4 and B2 float64 read up to 5% slower
+    (``tests/f64_timing_order.py``).  Returns key -> (ms, plain ms), key ->
+    (bytes per site, ops per site) and key -> max |df| at 256^3."""
     import torch
 
     from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
