@@ -338,6 +338,31 @@ script exits non-zero without printing a result.
    float32, 1e-10 in float64), and res 8 (256^3), 200 steps in float32 and
    float64 with MLUPS.  The six record entries' launches are these runs'.
 
+12. sharded (last): the sharded lattice on one card, its plans putting N
+   shards on N x ``cuda:0`` (``parallel/sharded.py``): each haloed mode
+   against its plain version on every shard's block at the step bounds
+   (float64 at 1e-12) - B4 float32 on sim_2 res 8's map on 2 y-shards
+   (CUM_WELL) and on sim_1's and sim_3's res-2 maps on 2 x 2 (CUM with
+   eq_inv_cum, eq_quadratic), B4 float64 (sim_2 res 8), B3's lean instance
+   (sim_2 res 8) and its full set (sim_1 res 2 on 2 x 2); the three haloed
+   kernels timed at sim_2 res 8's shard block (32 x 128 x 256, 20 launches;
+   plain: 3 calls) with their bound (the haloed block read, the block
+   written, the map and rho and u, or the FP32/FP64 slots of every thread);
+   then N shards against one, 100 steps through ``Simulation`` from rest:
+   sim_2 res 8 A-B unsharded, on 1, on choose_plan's 2 and 4, and on its
+   uneven 3; A-A per step on 1 and 2; sim_1 res 4 A-A on 1 and 2 x 2 - the
+   N-shard f, rho and u bit for bit the one-shard run's (or the difference
+   printed and within the step bounds), each run's ms per step, MLUPS, peak
+   memory and halo exchange on CUDA events; where the machine has more than
+   one card, sim_2 res 8 over them too; then the apps through their
+   ``main`` with ``--sharded`` over the machine's cards: sim_2 res 2 A-B to
+   t = 10 s, its L1 within 5% of the start-up solution and equal to the
+   unsharded A-B run's (run to the same time) at its last probe, sim_2 res 2
+   ``--scaling weak_1d`` and ``weak_3d``, ``--precision double`` and
+   ``--streaming AA``, sim_1 res 2 A-B and ``--streaming AA``, sim_3 res 2,
+   each through the haloed kernels with no plain call.  The three record
+   entries' launches are these runs'.
+
 The line before the last is the kernels' JSON record (bound_ms: the larger
 of the bytes over the published 3.35 TB/s and the FP32 instructions over
 the card's issue rate, one FP32-pipe slot each at 128 lanes an SM (MUFU
@@ -5431,6 +5456,371 @@ def phase_double_and_profile(floor_gbps: float, f32_l1: dict) -> dict:
             "footprint": timed["footprint"], "resources": resources}
 
 
+#: the sharded lattice's haloed kernels (csrc/halo_step.cu, f64_ab.cu): record
+#: key -> their instances in the library
+HALO_KERNELS = {"ab_step_halo": ("ab_halo_cum_well_kernel", "ab_halo_cum_quad_kernel",
+                                 "ab_halo_cum_invcum_kernel"),
+                "ab_step_f64_halo": ("ab_halo_f64_cum_well_kernel",),
+                "aa_odd_halo": ("aa_odd_halo_lean_kernel", "aa_odd_halo_cum_well_kernel",
+                                "aa_odd_halo_cum_quad_kernel", "aa_odd_halo_cum_invcum_kernel")}
+HALO_REPLACES = {"ab_step_halo": "tnl_lbm_tpu/kernels/fused.py:585",
+                 "ab_step_f64_halo": "tnl_lbm_tpu/kernels/fused.py:585",
+                 "aa_odd_halo": "tnl_lbm_tpu/kernels/fused_aa.py:287"}
+#: sim_2's resolution of the sharded runs (32 x 256 x 256) and their steps
+SHARDED_RES, SHARDED_STEPS = 8, 100
+#: sim_1's resolution of the sharded A-A run on the 2 x 2 plan (512 x 128 x 128)
+SHARDED_SIM1_RES = 4
+#: sim_2 res 2 --sharded runs to this time for the start-up check (~9 200 steps)
+SHARDED_FINAL_TIME = 10.0
+
+
+def seeded_cfg_state(cfg, shape, seed=7):
+    """cfg's equilibrium of a seeded developed state (rho 1 +- 0.01, |u| ~
+    0.02) computed in float64 on the card, in cfg's compute dtype."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rho = 1 + 0.01 * torch.randn(shape, generator=gen, device=DEVICE, dtype=torch.float64)
+    u = 0.02 * torch.randn((3,) + tuple(shape), generator=gen, device=DEVICE, dtype=torch.float64)
+    return cfg.eq(cfg.lat, rho, u).to(cfg.compute_dtype).contiguous()
+
+
+def card_plan(counts, devices=None):
+    """A ShardPlan of prod(counts) shards over x, y, z, every one on the
+    card (``devices``: each shard's own)."""
+    from tnl_lbm_tpu_torch.parallel.sharded import Mesh, ShardPlan
+
+    grid = np.empty(int(np.prod(counts)), dtype=object)
+    grid[:] = devices or [DEVICE + ":0"] * grid.size
+    return ShardPlan(Mesh(grid.reshape(counts), ("x", "y", "z")), ("x", "y", "z"))
+
+
+def sharded_app(app, res: int, streaming: str, plan, label: str, precision="single"):
+    """An app's Simulation at ``res`` with the kernels, per step, under
+    ``plan`` (None: unsharded), counted from the end of sim_init."""
+    from tnl_lbm_tpu_torch.apps import sim_1, sim_2
+
+    where = WORK / "sharded" / label
+    if app == "sim_2":
+        sim = sim_2.build(res, device=DEVICE, streaming=streaming, use_fused=True,
+                          precision=precision, pair_dispatch=False, results_parent=where)
+    else:
+        sim = sim_1.build(res, device=DEVICE, streaming=streaming, use_fused=True,
+                          pair_dispatch=False, results_parent=where)
+    sim.plan = plan
+    return counting_from_init(sim)
+
+
+def sharded_step(sim):
+    """The kernels' sharded step of a run (inside the uneven step's wrapper)."""
+    step = sim._step
+    return step if hasattr(step, "exchange") else step.kernels[0]
+
+
+def halo_launches(sim) -> dict:
+    """Launches of the haloed kernels in a sharded Simulation's run."""
+    step = sharded_step(sim).local_step
+    if hasattr(step, "odd"):
+        return {"aa_odd_halo": step.odd.launches, "aa_even": step.even.launches}
+    key = "ab_step_f64_halo" if step.kernel.name == "ab_step_f64_halo" else "ab_step_halo"
+    return {key: step.kernel.launches}
+
+
+def sharded_fields(sim):
+    """(f, rho, u) of a run, gathered where it is sharded."""
+    f = sim.f.gather() if sim.plan is not None else sim.f
+    return f, sim.rho, sim.u
+
+
+def halo_compares() -> dict:
+    """Each haloed mode against its plain version on the card, every shard
+    of the block, one call from a seeded state: B4 float32 (CUM_WELL on
+    sim_2 res 8's map on 2 y-shards; CUM with eq_inv_cum on sim_1 res 2's and
+    with eq_quadratic on sim_3 res 2's maps on 2 x 2), B4 float64 (CUM_WELL,
+    sim_2 res 8, 2 y-shards), B3's lean instance (sim_2 res 8) and full set
+    (sim_1 res 2, 2 x 2).  Returns key -> max |df| (and prints each)."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim_1, sim_2, sim_3
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+
+    def domain(app, res, streaming, precision="single"):
+        where = WORK / "sharded" / "cmp"
+        if app is sim_2:
+            s = sim_2.build(res, device=DEVICE, streaming=streaming, precision=precision,
+                            results_parent=where)
+        elif app is sim_1:
+            s = sim_1.build(res, device=DEVICE, streaming=streaming, results_parent=where)
+        else:
+            s = sim_3.build(res, device=DEVICE, results_parent=where)
+        return s.cfg, s.domain
+
+    cases = (("ab_step_halo", "sim_2 res 8 CUM_WELL y2", sim_2, SHARDED_RES, "AB", "single", (1, 2, 1)),
+             ("ab_step_halo", "sim_1 res 2 CUM invcum x2y2", sim_1, 2, "AB", "single", (2, 2, 1)),
+             ("ab_step_halo", "sim_3 res 2 CUM quad x2y2", sim_3, 2, "AB", "single", (2, 2, 1)),
+             ("ab_step_f64_halo", "sim_2 res 8 CUM_WELL f64 y2", sim_2, SHARDED_RES, "AB", "double",
+              (1, 2, 1)),
+             ("aa_odd_halo", "sim_2 res 8 lean y2", sim_2, SHARDED_RES, "AA", "single", (1, 2, 1)),
+             ("aa_odd_halo", "sim_1 res 2 full set x2y2", sim_1, 2, "AA", "single", (2, 2, 1)))
+    err = {}
+    for key, label, app, res, streaming, precision, counts in cases:
+        cfg, dom = domain(app, res, streaming, precision)
+        plan = card_plan(counts)
+        make = sh.make_sharded_fused_step if streaming == "AB" else sh.make_sharded_fused_step_aa
+        step = make(cfg, dom, plan)
+        f = plan.shard_field(seeded_cfg_state(cfg, dom.shape), like_f=True)
+        halo = step.exchange(f)
+        ls = step.local_step
+        worst = [0.0, 0.0, 0.0]
+        for k in range(plan.n_shards):
+            kw = ({"map_arr_in": step.maps.blocks[k]} if streaming == "AB" else
+                  {"parity": 1, "map_ring_in": step.rings[k], "bflags": step.bflags[k]})
+            uin = (0.01, 0.0, 0.0)
+            out = ls(halo[k], NU, u_in=uin, force=(FORCE_SMALL, 0.0, 0.0), **kw)
+            plain = ls.plain(halo[k], NU, u_in=uin, force=(FORCE_SMALL, 0.0, 0.0), **kw)
+            worst = [max(w, max_diff(a, b)) for w, a, b in zip(worst, out, plain)]
+            del out, plain
+        tol = (1e-12, 2e-12, 1e-12) if precision == "double" else (TOL_F, TOL_RHO, TOL_U)
+        kernel = ls.kernel if streaming == "AB" else ls.odd
+        log("sharded", compare=repr(label), kernel=kernel.name, shards=plan.n_shards,
+            block="x".join(map(str, ls.shape)), max_df=f"{worst[0]:.3e}",
+            max_drho=f"{worst[1]:.3e}", max_du=f"{worst[2]:.3e}", launches=kernel.launches,
+            plain_calls=ls.plain_calls)
+        if any(w > t for w, t in zip(worst, tol)) or kernel.launches != plan.n_shards \
+                or ls.plain_calls:
+            raise RuntimeError(f"sharded compare {label}: {kernel.name} against its plain "
+                               f"version {worst} beyond {tol}, or not launched once a shard")
+        err[key] = max(err.get(key, 0.0), worst[0])
+        del step, f, halo
+        torch.cuda.empty_cache()
+    return err
+
+
+def halo_kernel_times(ops: dict) -> dict:
+    """The haloed kernels at sim_2 res 8's shard shape on 2 y-shards (block
+    32 x 128 x 256), each on a seeded state, 20 launches on CUDA events
+    (plain: 3 calls), with their bound: the haloed block's reads, the
+    block's writes, the map (B3: its ring) and rho and u, against the FP32
+    (FP64) slots of every thread (B3: the block and its ring) over the
+    card's issue rates.  Returns key -> (ms, plain ms, bound ms, bound_by)."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim_2
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+
+    out = {}
+    for key, streaming, precision, name in (
+            ("ab_step_halo", "AB", "single", "ab_halo_cum_well_kernel"),
+            ("ab_step_f64_halo", "AB", "double", "ab_halo_f64_cum_well_kernel"),
+            ("aa_odd_halo", "AA", "single", "aa_odd_halo_lean_kernel")):
+        s = sim_2.build(SHARDED_RES, device=DEVICE, streaming=streaming, precision=precision,
+                        results_parent=WORK / "sharded" / "times")
+        cfg, dom = s.cfg, s.domain
+        plan = card_plan((1, 2, 1))
+        step = (sh.make_sharded_fused_step if streaming == "AB"
+                else sh.make_sharded_fused_step_aa)(cfg, dom, plan)
+        f = plan.shard_field(seeded_cfg_state(cfg, dom.shape), like_f=True)
+        halo = step.exchange(f)[0]
+        ls = step.local_step
+        X, Y, Z = ls.shape
+        fout = torch.empty_like(f.blocks[0])
+        macro = (torch.empty((X, Y, Z), dtype=fout.dtype, device=fout.device),
+                 torch.empty((3, X, Y, Z), dtype=fout.dtype, device=fout.device))
+        kw = ({"map_arr_in": step.maps.blocks[0]} if streaming == "AB" else
+              {"parity": 1, "map_ring_in": step.rings[0], "bflags": step.bflags[0]})
+        ms = time_ms(lambda: ls(halo, NU, force=(FORCE_SMALL, 0.0, 0.0), out=fout,
+                                macro_out=macro, **kw), 20)
+        plain_ms = time_ms(lambda: ls.plain(halo, NU, force=(FORCE_SMALL, 0.0, 0.0), **kw), 3)
+        item = fout.element_size()
+        sites, w = X * Y * Z, 1 if streaming == "AB" else 2
+        threads = sites if streaming == "AB" else (X + 2) * (Y + 2) * Z
+        read = 27 * item * (X + 2 * w) * (Y + 2 * w) * Z + threads * (w > 1) + sites * (w == 1)
+        moved = read + (27 + 4) * item * sites
+        per_thread = ops[name]
+        b_ms, b_by = bound(moved / sites, tuple(v * threads / sites for v in per_thread), sites)
+        out[key] = (ms, plain_ms, b_ms, b_by)
+        log("sharded", timing=key, kernel=name, block=f"{X}x{Y}x{Z}", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+            bytes_moved=moved, fp32_slots_per_thread=per_thread[0],
+            fp64_slots_per_thread=per_thread[2])
+        del step, f, halo, fout, macro
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_runs() -> tuple[dict, dict]:
+    """N shards against one on one card: sim_2 res 8 A-B on 1 (and
+    unsharded), choose_plan's 2 and 4 and its uneven 3; sim_2 res 8 A-A per
+    step on 1 and 2; sim_1 res 4 A-A on 1 and 2 x 2; SHARDED_STEPS steps each
+    through ``Simulation._advance`` from rest, the N-shard fields held to
+    the one-shard run's (bit for bit, or the difference printed and within
+    the step bounds).  Each run's ms per step, MLUPS, peak memory and, where
+    it is sharded, its halo exchange on CUDA events.  Returns the haloed
+    kernels' launches and the runs' figures."""
+    import torch
+
+    from tnl_lbm_tpu_torch.parallel.sharded import choose_plan
+
+    launches = {k: 0 for k in HALO_KERNELS}
+    figures = {}
+    cuda0 = DEVICE + ":0"
+    groups = (("sim_2", SHARDED_RES, "AB", (("unsharded", None), ("1", (1, 1, 1)), ("2", 2),
+                                             ("4", 4), ("3 uneven", 3))),
+              ("sim_2", SHARDED_RES, "AA", (("1", (1, 1, 1)), ("2", 2))),
+              ("sim_1", SHARDED_SIM1_RES, "AA", (("1", (1, 1, 1)), ("2x2", (2, 2, 1)))))
+    for app, res, streaming, plans in groups:
+        kept = {}  # the group's unsharded and one-shard fields
+        for name, spec in plans:
+            label = f"{app}_res{res}_{streaming}_{name.replace(' ', '_')}"
+            sim = sharded_app(app, res, streaming, None, label)
+            plan = (None if spec is None else card_plan(spec) if isinstance(spec, tuple)
+                    else choose_plan(sim.domain, [cuda0] * spec))
+            sim.plan = plan
+            sim.sim_init()
+            sim._advance(SHARDED_STEPS)
+            ms_step, mlups, peak = run_figures(sim)
+            fields = sharded_fields(sim)
+            halo_ms, diffs = None, None
+            if plan is None:
+                kept["unsharded"] = fields
+            else:
+                for k, v in halo_launches(sim).items():
+                    if k in launches:
+                        launches[k] += v
+                halo_ms = time_ms(lambda: sharded_step(sim).exchange(sim.f), 20)
+                if "one" in kept:
+                    diffs = [max_diff(a, b) for a, b in zip(fields, kept["one"])]
+                else:
+                    kept["one"] = fields
+                    if "unsharded" in kept:
+                        d = [max_diff(a, b) for a, b in zip(fields, kept["unsharded"])]
+                        log("sharded", run=label, vs_unsharded_kernels_max_df=f"{d[0]:.3e}",
+                            max_drho=f"{d[1]:.3e}", max_du=f"{d[2]:.3e}")
+            figures[label] = {"ms_per_step": ms_step, "mlups": mlups, "peak_gb": peak,
+                              "halo_ms": halo_ms, "counts": None if plan is None else plan.counts}
+            log("sharded", run=label, plan="unsharded" if plan is None else
+                "x".join(map(str, plan.counts)), steps=sim.iterations,
+                ms_per_step=f"{ms_step:.4f}", mlups=f"{mlups:.1f}",
+                max_memory_allocated_gb=f"{peak:.3f}",
+                halo_exchange_ms="n/a" if halo_ms is None else f"{halo_ms:.4f}",
+                **({} if diffs is None else {"vs_one_shard_max_df": f"{diffs[0]:.3e}",
+                                             "max_drho": f"{diffs[1]:.3e}",
+                                             "max_du": f"{diffs[2]:.3e}",
+                                             "bit_equal": all(d == 0 for d in diffs)}))
+            if diffs is not None and any(d > t for d, t in zip(diffs, (TOL_F, TOL_RHO, TOL_U))):
+                raise RuntimeError(f"{label}: {diffs} from the one-shard run, beyond the step "
+                                   f"bounds")
+            if not all(bool(torch.isfinite(t).all()) for t in fields):
+                raise RuntimeError(f"{label}: non-finite fields")
+            del sim, fields
+            torch.cuda.empty_cache()
+        del kept
+    if torch.cuda.device_count() > 1:
+        sim = sharded_app("sim_2", SHARDED_RES, "AB", None, "cards")
+        plan = sim.plan = choose_plan(sim.domain)
+        sim.sim_init()
+        sim._advance(SHARDED_STEPS)
+        ms_step, mlups, peak = run_figures(sim)
+        halo_ms = time_ms(lambda: sharded_step(sim).exchange(sim.f), 20)
+        launches["ab_step_halo"] += halo_launches(sim)["ab_step_halo"]
+        figures["cards"] = {"ms_per_step": ms_step, "mlups": mlups, "halo_ms": halo_ms,
+                            "counts": plan.counts}
+        log("sharded", run="sim_2 res 8 AB over the cards", plan="x".join(map(str, plan.counts)),
+            devices=",".join(str(d) for d in plan.devices), ms_per_step=f"{ms_step:.4f}",
+            mlups=f"{mlups:.1f}", halo_exchange_ms=f"{halo_ms:.4f}")
+        del sim
+    return launches, figures
+
+
+def sharded_apps() -> dict:
+    """The apps' ``--sharded`` through their ``main``, over the machine's
+    cards: sim_2 res 2 A-B (``--scaling strong``) to t = SHARDED_FINAL_TIME,
+    its L1 within 5% of the start-up solution at its last probe and equal to
+    the unsharded A-B run's there (run here to the same time); then short
+    runs of ``--scaling weak_1d`` and ``weak_3d``, ``--precision double``
+    A-B, ``--streaming AA``, and sim_1 res 2 (A-B and ``--streaming AA``)
+    and sim_3 res 2 ``--sharded``, each through the haloed kernels (launches
+    > 0, no plain call).  Returns the haloed kernels' launches."""
+    from tnl_lbm_tpu_torch.apps import sim_1, sim_3
+
+    launches = {k: 0 for k in HALO_KERNELS}
+
+    def counted(sim, label):
+        ls = sharded_step(sim).local_step
+        got = halo_launches(sim)
+        for k, v in got.items():
+            if k in launches:
+                launches[k] += v
+        log("sharded", app=label, iterations=sim.iterations, plan="x".join(map(str, sim.plan.counts)),
+            **{f"launches_{k}": v for k, v in got.items()}, plain_calls=ls.plain_calls)
+        if ls.plain_calls or min(got.values()) <= 0 or sim.nan_detected:
+            raise RuntimeError(f"{label}: not through the haloed kernels (or NaN)")
+
+    ref, _ = run_sim2("unsharded_strong", ["--use-fused", "--final-time",
+                                          str(SHARDED_FINAL_TIME)])
+    ab_l1 = {it: l1 for it, l1, _ in ref.error_history}
+    del ref
+    sim, wall = run_sim2("sharded_strong", ["--sharded", "--use-fused", "--final-time",
+                                            str(SHARDED_FINAL_TIME)])
+    it, l1, _ = sim.error_history[-1]
+    l1_ref = startup_l1(sim, it)
+    rel = abs(l1 / l1_ref - 1)
+    same = ab_l1.get(it)
+    log("sharded", app="sim_2 res 2 --sharded --use-fused", l1=f"{l1:.6e}", iterations=it,
+        wall_s=f"{wall:.1f}", l1_startup_solution=f"{l1_ref:.6e}", rel_to_startup=f"{rel:.2e}",
+        l1_unsharded_same_iteration="not probed" if same is None else f"{same:.6e}",
+        equal_to_unsharded=same == l1)
+    counted(sim, "sim_2 res 2 strong")
+    if not rel <= 0.05 or same is None or abs(l1 - same) > 1e-6 * abs(same):
+        raise RuntimeError(f"sim_2 --sharded res 2: L1 {l1:e} against the start-up "
+                           f"solution's {l1_ref:e} and the unsharded run's {same}")
+    for label, args in (("weak_1d", ["--scaling", "weak_1d"]), ("weak_3d", ["--scaling", "weak_3d"]),
+                        ("double", ["--precision", "double"]), ("aa", ["--streaming", "AA"])):
+        sim, _ = run_sim2(f"sharded_{label}", ["--sharded", "--use-fused", "--final-time", "1",
+                                               *args])
+        counted(sim, f"sim_2 res 2 --sharded {' '.join(args)}")
+    for app, args in ((sim_1, []), (sim_1, ["--streaming", "AA"]), (sim_3, [])):
+        sim = app.main(["2", "--device", DEVICE, "--sharded", "--final-time", "0.0005"
+                        if app is sim_1 else "0.01", *args, "--results-dir",
+                        str(WORK / "sharded" / f"{app.__name__.rsplit('.', 1)[1]}_{len(args)}")])
+        counted(sim, f"{app.__name__.rsplit('.', 1)[1]} res 2 --sharded {' '.join(args)}")
+    return launches
+
+
+def phase_sharded() -> dict:
+    """The sharded lattice on the card (``halo_compares``, ``halo_kernel_times``,
+    ``sharded_runs``, ``sharded_apps``).  Returns the record's kernels,
+    errors, times and bounds of the haloed kernels."""
+    import torch
+
+    from tnl_lbm_tpu_torch.kernels.build import build_library, kernel_resources
+    from tnl_lbm_tpu_torch.kernels.fused import CudaKernel
+
+    path, ptxas = build_library()
+    res = kernel_resources(ptxas)
+    names = sorted({n for ns in HALO_KERNELS.values() for n in ns})
+    ops = sass_fp32_ops(path, names)
+    for name in names:
+        log("sharded", kernel=name, **res[name], fp32_slots_per_thread=ops[name][0],
+            fp64_slots_per_thread=ops[name][2])
+    err = halo_compares()
+    times = halo_kernel_times(ops)
+    launches, figures = sharded_runs()
+    for k, v in sharded_apps().items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    sources = {"ab_step_halo": "halo_step.cu", "ab_step_f64_halo": "f64_ab.cu",
+               "aa_odd_halo": "halo_step.cu"}
+    kernels = {key: CudaKernel(key, f"tnl_lbm_tpu_torch/csrc/{sources[key]}", HALO_REPLACES[key],
+                               launches[key]) for key in HALO_KERNELS}
+    for key, k in kernels.items():
+        if k.launches <= 0:
+            raise RuntimeError(f"{key} was not launched on the sharded paths")
+    resources = {key: {n: res[n] for n in HALO_KERNELS[key]} for key in HALO_KERNELS}
+    return {"kernels": kernels, "err": err, "times": times, "figures": figures,
+            "resources": resources}
+
+
 def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
     """(bytes per site, (FP32-pipe, SFU) instructions per site) of each
     kernel at its timed 256^3 inputs (B5: 8192 x 2048, as many sites,
@@ -5591,8 +5981,10 @@ def main() -> int:
     f32_l1 = phase_accuracy()
     double = phase_double_and_profile(floor, f32_l1)
     kernels.update(double["kernels"])
+    sharded = phase_sharded()
+    kernels.update(sharded["kernels"])
     err = {**steps["err"], **pairs["err"], **probe["err"], **ab["err"], **layouts["err"],
-           **double["err"],
+           **double["err"], **sharded["err"],
            "d2q9_step": max(compare_2d_err, timed_2d["err"])}
     for key in ("aa_even", "aa_odd"):
         err[key] = max(err[key], aa_codes_err, main_path["err"][key], collisions["err"][key])
@@ -5614,6 +6006,7 @@ def main() -> int:
              **layouts["times"],
              **timed["times"], **timed_aa["times"], "d2q9_step": timed_2d["time"],
              **hooked["times"], "d2q9_step_force_field": hooked_2d["time"], **double["times"],
+             **{k: v[:2] for k, v in sharded["times"].items()},
              "d2q9_chunk": (chunk_timing["chunk_ms_per_launch"], chunk_timing["chunk_plain_ms"])}
     kernels.update(probe["kernels"])
     footprint = kernel_footprints(ops, timed_2d["bytes"], hooked_2d["bytes"])
@@ -5631,6 +6024,14 @@ def main() -> int:
                          sync_floor_ms_per_step=chunk_timing["sync_floor_ms_per_step"],
                          step_ms_per_launch_128x32=chunk_timing["step_event_ms_per_launch"],
                          cluster=chunk_timing["cluster"])
+        elif key in sharded["times"]:  # at sim_2 res 8's shard block, the haloed reads
+            bound_ms, bound_by = sharded["times"][key][2:]
+            r = sharded["resources"][key]
+            entry.update(shape="32x128x256 block of 2 y-shards",
+                         registers={n: v["registers"] for n, v in r.items()},
+                         spill_stores={n: v.get("spill_stores", 0) for n, v in r.items()})
+            if key == "ab_step_halo":
+                entry["runs"] = sharded["figures"]
         else:
             bound_ms, bound_by = bound(*footprint[key])
         if key == "nn_force":  # |dF| above; its gate is relative to max |F|

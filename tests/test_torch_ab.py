@@ -206,10 +206,18 @@ def test_ab_step_refuses_what_it_does_not_implement(monkeypatch):
     m, periodic = channel("box")
     dom = interop.domain_from_numpy(m, periodic)
     cfg = interop.config_from_spec(**spec_of("CUM_WELL", "AB"))
-    for kw, item in (({"prepadded": True}, "A13"), ({"local_shape": m.shape}, "A13"),
-                     ({"with_macro": False}, "A7")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            make_fused_step(cfg, dom, "cpu", **kw)
+    # the haloed block of the sharded step: the cumulant steps' instances;
+    # a family collision, the force_field / macro_only variants and a
+    # local_shape without prepadded are refused
+    assert make_fused_step(cfg, dom, "cpu", prepadded=True).kernel.name == "ab_step_halo"
+    srt = interop.config_from_spec("SRT", "EQ", False, "AB")
+    for c, kw in ((srt, {}), (cfg, {"force_field": True}), (cfg, {"macro_only": True})):
+        with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
+            make_fused_step(c, dom, "cpu", prepadded=True, **kw)
+    with pytest.raises(ValueError, match="prepadded"):
+        make_fused_step(cfg, dom, "cpu", local_shape=m.shape)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        make_fused_step(cfg, dom, "cpu", with_macro=False)
     for kw, name in (({"force_field": True}, "ab_step_force_field"),
                      ({"macro_only": True}, "ab_step_macro_only")):
         assert make_fused_step(cfg, dom, "cpu", **kw).kernel.name == name

@@ -135,10 +135,13 @@ def test_sim_3_cli_runs_on_the_cpu(tmp_path):
 
 
 def test_app_options_that_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        sim_1.main(["1", "--device", "cpu", "--sharded", "--results-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        sim_3.main(["1", "--device", "cpu", "--sharded", "--results-dir", str(tmp_path)])
+    # --sharded runs (tests/test_torch_sharded.py); the sharded pair does not yet
+    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
+        sim_1.main(["1", "--device", "cpu", "--sharded", "--streaming", "AA", "--pair-dispatch",
+                    "on", "--results-dir", str(tmp_path / "pair")])
+    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
+        sim_1.build(1, device="cpu", sharded=True, streaming="AA", pair_dispatch=True,
+                    results_parent=tmp_path / "pair2", devices=["cpu", "cpu"]).sim_init()
     # A-A with the kernels runs through the even/odd kernels' plain versions
     # here ("auto" is per step on the CPU); the plain A-A step runs too
     sim = sim_1.main(["1", "--device", "cpu", "--streaming", "AA", "--use-fused",

@@ -1643,3 +1643,92 @@ def test_float64_state_never_reaches_a_float32_entry_on_card(cuda):
     with pytest.raises(ValueError):
         pair(torch.zeros((27, 8, 16, 8), device=cuda), 0.02)
     assert pair.kernel.launches == 0
+
+
+# ------------------------------------------------ the sharded lattice (A13a)
+
+def card_plan(counts, device):
+    """A plan of prod(counts) shards, every one on ``device``."""
+    from tnl_lbm_tpu_torch.parallel.sharded import Mesh, ShardPlan
+
+    devices = np.empty(int(np.prod(counts)), dtype=object)
+    devices[:] = [device] * devices.size
+    return ShardPlan(Mesh(devices.reshape(counts), ("x", "y", "z")), ("x", "y", "z"))
+
+
+HALO_SPECS = {"cum_well": ("CUM_WELL", "EQ_WELL", True), "cum_quad": ("CUM", "EQ", False),
+              "cum_invcum": ("CUM", "EQ_INV_CUM", False)}
+
+
+def halo_cases():
+    """(name, map, periodic, streaming, spec, dtype) of the haloed kernels'
+    compares: every code of each pattern and sim_2's duct (the lean odd
+    instance)."""
+    box = bc_box((12, 16, 10))
+    for spec in HALO_SPECS:
+        yield f"bc_box_{spec}", box, (False, False, True), "AB", spec, "float32"
+        yield f"aa_box_{spec}", aa_box(box.shape), (False, False, True), "AA", spec, "float32"
+    yield "bc_box_cum_well_f64", box, (False, False, True), "AB", "cum_well", "float64"
+    yield "duct_lean", duct((8, 16, 16), True), (True, False, False), "AA", "cum_well", "float32"
+
+
+@pytest.mark.parametrize("counts", [(2, 2, 1), (1, 2, 1)], ids=["x2y2", "y2"])
+@pytest.mark.parametrize("case", list(halo_cases()), ids=lambda c: c[0])
+def test_halo_kernels_match_plain_on_card(cuda, case, counts):
+    """B4 and B3 on each shard's haloed block against their plain versions
+    on the card, the step bounds (float64: 1e-12)."""
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+
+    _, m, periodic, streaming, spec, dtype = case
+    cfg = interop.config_from_spec(*HALO_SPECS[spec], streaming, dtype=dtype)
+    dom = interop.domain_from_numpy(m, periodic)
+    plan = card_plan(counts, cuda)
+    make = sh.make_sharded_fused_step if streaming == "AB" else sh.make_sharded_fused_step_aa
+    step = make(cfg, dom, plan)
+    rng = np.random.default_rng(4)
+    rho = torch.from_numpy(1 + 0.01 * rng.standard_normal(m.shape))
+    u = torch.from_numpy(0.02 * rng.standard_normal((3,) + m.shape))
+    f = plan.shard_field(cfg.eq(cfg.lat, rho, u).to(cfg.compute_dtype), like_f=True)
+    halo = step.exchange(f)
+    ls = step.local_step
+    tol = (1e-12, 2e-12, 1e-12) if dtype == "float64" else (1e-6, 2e-6, 1e-6)
+    for k in range(plan.n_shards):
+        kw = ({"map_arr_in": step.maps.blocks[k]} if streaming == "AB" else
+              {"parity": 1, "map_ring_in": step.rings[k], "bflags": step.bflags[k]})
+        out = ls(halo[k], 0.02, u_in=U_IN, force=(1e-5, 0.0, 0.0), **kw)
+        plain = ls.plain(halo[k], 0.02, u_in=U_IN, force=(1e-5, 0.0, 0.0), **kw)
+        for a, b, t in zip(out, plain, tol):
+            assert float((a.double() - b.double()).abs().max()) <= t
+    kernel = ls.kernel if streaming == "AB" else ls.odd
+    assert kernel.name.endswith("_halo") and kernel.launches == plan.n_shards
+    assert ls.plain_calls == 0
+
+
+@pytest.mark.parametrize("streaming", ["AB", "AA"])
+def test_sharded_runs_equal_one_shard_on_card(cuda, streaming, tmp_path):
+    """sim_2 res 1 with the kernels, 20 steps through Simulation on 1, 2
+    (y) and 4 (x/y) shards of one card: the same f, rho and u bit for bit,
+    and within the step bounds of the unsharded kernels' run."""
+    from tnl_lbm_tpu_torch.apps import sim_2
+
+    runs = {}
+    for name, counts in (("none", None), ("one", (1, 1, 1)), ("y2", (1, 2, 1)),
+                         ("x2y2", (2, 2, 1))):
+        sim = sim_2.build(1, device=cuda, streaming=streaming, use_fused=True,
+                          results_parent=tmp_path / name, final_time=0.08)
+        if counts is not None:
+            sim = sim_2.Sim2(sim.cfg, sim.domain, device=cuda, sim_id=name,
+                             results_parent=tmp_path / name, phys_final_time=0.08,
+                             fx_lbm=sim.fx_lbm, analytical=sim.analytical, use_fused=True,
+                             steps_per_dispatch=10, plan=card_plan(counts, cuda))
+        sim.run()
+        f = sim.f.gather() if counts is not None else sim.f
+        runs[name] = (f, sim.rho, sim.u, sim.iterations)
+        if counts is not None:
+            assert sim._step.local_step.plain_calls == 0
+    assert {r[3] for r in runs.values()} == {20}
+    for name in ("y2", "x2y2"):
+        for a, b in zip(runs[name][:3], runs["one"][:3]):
+            assert torch.equal(a, b), name
+    for a, b, t in zip(runs["one"][:3], runs["none"][:3], (1e-6, 2e-6, 1e-6)):
+        assert float((a - b).abs().max()) <= t

@@ -38,7 +38,7 @@ def build(resolution: int = 1, final_time: float = 0.5, results_parent=".",
           use_fused: bool = False, sharded: bool = False, *, device) -> Sim2D1:
     """The channel at ``resolution`` (lattice 128r x 32r) on ``device``."""
     if sharded:
-        raise NotImplementedError("the sharded lattice is not ported yet (ROADMAP A13)")
+        raise NotImplementedError("the sharded lattice is not ported yet (ROADMAP A13b)")
     X = 128 * resolution
     Y = 32 * resolution
     lbm_viscosity = 1e-5  # reference sim2d_1.cu:123
@@ -84,7 +84,7 @@ def main(argv=None) -> Sim2D1:
     p.add_argument("--results-dir", default=".")
     p.add_argument("--use-fused", action="store_true", help="run the D2Q9 kernel (B5)")
     p.add_argument("--sharded", action="store_true",
-                   help="shard the lattice over the cards (not ported yet: ROADMAP A13)")
+                   help="shard the lattice over the cards (not ported yet: ROADMAP A13b)")
     args = p.parse_args(argv)
     sim = build(args.resolution, args.final_time, args.results_dir, use_fused=args.use_fused,
                 sharded=args.sharded, device=args.device)

@@ -329,7 +329,7 @@ def build(resolution: int = 1, object_file: str | None = None, enable_bouzidi: b
           sharded: bool = False, *, device) -> Sim2D2:
     """The statistics channel at ``resolution`` (lattice 128r x 32r) on ``device``."""
     if sharded:
-        raise NotImplementedError("the sharded lattice is not ported yet (ROADMAP A13)")
+        raise NotImplementedError("the sharded lattice is not ported yet (ROADMAP A13b)")
     units = channel_units(resolution)
     dom = channel_domain(units, object_file, enable_bouzidi)
     cfg = LBMConfig(lat=D2Q9, collision=col2.collide_clbm_2d)
@@ -356,7 +356,7 @@ def main(argv=None) -> Sim2D2:
                    help="torch device; 'cuda' raises when no card is present")
     p.add_argument("--no-bouzidi", action="store_true")
     p.add_argument("--sharded", action="store_true",
-                   help="shard the lattice over the cards (not ported yet: ROADMAP A13)")
+                   help="shard the lattice over the cards (not ported yet: ROADMAP A13b)")
     p.add_argument("--final-time", type=float, default=8.0)
     p.add_argument("--stat-start", type=float, default=2.0)
     p.add_argument("--stat-end", type=float, default=None)

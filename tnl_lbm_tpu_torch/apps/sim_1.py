@@ -15,7 +15,10 @@ streaming through the A-B kernel (B4), A-A through the even and odd
 kernels (B2, B3) one step a launch, or in pairs through the full-set pair
 (B1b, one launch a pair) with ``--pair-dispatch on``, or where the
 default "auto" times the pair faster on a card (on the CPU "auto" runs
-per step).  ``--no-fused`` runs the plain step.
+per step).  ``--no-fused`` runs the plain step.  ``--sharded`` shards the
+lattice over the machine's cards (``parallel/sharded.py choose_plan``; on
+the CPU over the one device), A-B through B4 on haloed blocks, A-A
+through B2 and B3 on haloed blocks.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from tnl_lbm_tpu_torch.models import D3Q27
 from tnl_lbm_tpu_torch.ops import collision as col
 from tnl_lbm_tpu_torch.ops import equilibrium as eqlib
 from tnl_lbm_tpu_torch.ops.boundary import GEO
+from tnl_lbm_tpu_torch.parallel.sharded import app_devices, choose_plan
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.sim.obstacles import set_boundary_x, set_boundary_y, set_boundary_z
 from tnl_lbm_tpu_torch.sim.state import (
@@ -51,10 +55,9 @@ class Sim1(Simulation):
 
 def build(resolution: int = 1, final_time: float = 1.0, results_parent=".", streaming="AB",
           use_fused: bool = True, pair_dispatch="auto", sharded: bool = False, *,
-          device) -> Sim1:
-    """The channel at ``resolution`` (lattice 128r x 32r x 32r) on ``device``."""
-    if sharded:
-        raise NotImplementedError("the sharded lattice is not ported yet (ROADMAP A13)")
+          device, devices=None) -> Sim1:
+    """The channel at ``resolution`` (lattice 128r x 32r x 32r) on ``device``;
+    ``sharded`` plans it over ``devices`` (by default ``app_devices``)."""
     X = 128 * resolution
     Y = 32 * resolution
     Z = Y
@@ -92,9 +95,11 @@ def build(resolution: int = 1, final_time: float = 1.0, results_parent=".", stre
 
     cfg = LBMConfig(lat=D3Q27, collision=col.collide_cum, eq=eqlib.eq_inv_cum,
                     streaming=streaming)
+    plan = choose_plan(dom, devices or app_devices(device)) if sharded else None
     sim = Sim1(cfg, dom, device=device, sim_id=f"sim_1_res{resolution:02d}",
                steps_per_dispatch=10, results_parent=results_parent,
-               phys_final_time=final_time, use_fused=use_fused, pair_dispatch=pair_dispatch)
+               phys_final_time=final_time, use_fused=use_fused, pair_dispatch=pair_dispatch,
+               plan=plan)
     sim.lbm_inflow_vx = units.phys2lbm_velocity(phys_velocity)
     sim.cnt[PRINT].period = 0.001
     sim.cnt[VTK2D].period = 0.001
@@ -124,7 +129,7 @@ def main(argv=None) -> Sim1:
                        help="run the CUDA kernels (the default)")
     fused.add_argument("--no-fused", action="store_true", help="run the plain PyTorch step")
     p.add_argument("--sharded", action="store_true",
-                   help="shard the lattice over the cards (not ported yet: ROADMAP A13)")
+                   help="shard the lattice over the machine's cards")
     p.add_argument("--pair-dispatch", choices=["auto", "on", "off"], default="auto",
                    help="A-A only: two steps per dispatch via the one-kernel pair")
     args = p.parse_args(argv)

@@ -11,7 +11,17 @@ SP-vs-DP precision test (sim_2.cu:483-487).
 Usage: python -m tnl_lbm_tpu_torch.apps.sim_2 RES [--device cuda|cpu]
        [--streaming AB|AA] [--use-fused] [--pair-dispatch auto|on|off]
        [--storage full|f16|bf16] [--precision single|double] [--velocity]
+       [--sharded] [--scaling strong|weak_1d|weak_3d]
        [--final-time T] [--results-dir DIR]
+
+``--sharded`` shards the lattice over the machine's cards
+(``parallel/sharded.py choose_plan``; on the CPU over the one device): with
+``--use-fused`` A-B through B4 on haloed blocks, A-A per step through B2
+and B3 on haloed blocks (pair dispatch "auto" stays per step; "on" and
+``--storage f16|bf16`` raise, the sharded pair being ROADMAP A13b).
+``--scaling`` sizes the lattice by the device count n (1 without
+``--sharded``), as the JAX app does: strong keeps it, weak_1d makes x n
+times longer, weak_3d scales each axis by the cube root of n.
 
 ``--storage f16|bf16`` keeps the state in 16 bits between steps (half
 storage, on the one-kernel A-A pair only) and implies ``--streaming AA
@@ -33,6 +43,7 @@ from tnl_lbm_tpu_torch.models import D3Q27
 from tnl_lbm_tpu_torch.ops import collision as col
 from tnl_lbm_tpu_torch.ops import equilibrium as eqlib
 from tnl_lbm_tpu_torch.ops.boundary import GEO
+from tnl_lbm_tpu_torch.parallel.sharded import app_devices, choose_plan
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.sim.obstacles import set_boundary_x, set_boundary_y, set_boundary_z
 from tnl_lbm_tpu_torch.sim.state import PRINT, PROBE1, Simulation
@@ -148,13 +159,18 @@ class Sim2(Simulation):
         )
 
 
-def build(resolution: int = 2, *, device, use_forcing: bool = True, precision: str = "single",
-          storage: str = "full", final_time: float = 200.0, results_parent=".",
+def build(resolution: int = 2, *, device, use_forcing: bool = True, scaling: str = "strong",
+          precision: str = "single", storage: str = "full", final_time: float = 200.0,
+          results_parent=".", n_devices: int = 1, sharded: bool = False, devices=None,
           streaming: str = "AB", use_fused: bool = False, pair_dispatch="auto") -> Sim2:
     """The body-force duct at ``resolution`` (lattice 32 x 32r x 32r,
     periodic in x) on ``device``, or with ``use_forcing=False`` the
     velocity-inflow duct (32r x 32r x 32r: the analytic profile [3, 1, Y, Z]
     at INFLOW_LEFT, x = 0, OUTFLOW_RIGHT_INTERP at x = X - 1, no force);
+    ``scaling`` sizes it by ``n_devices`` (JAX ``apps/sim_2.py`` build:
+    weak_1d x times n, weak_3d every axis times the cube root of n, with
+    the periods and the final time of weak_3d scaled alike);
+    ``sharded`` plans it over ``devices`` (by default ``app_devices``);
     ``precision`` "double" computes in float64; ``storage`` "f16"/"bf16"
     stores the state in 16 bits (it needs the A-A pair path).  The
     combinations the kernels do not take where the JAX driver runs its XLA
@@ -174,6 +190,11 @@ def build(resolution: int = 2, *, device, use_forcing: bool = True, precision: s
     block_size = 32
     X = block_size if use_forcing else block_size * resolution
     Y = Z = block_size * resolution
+    if scaling == "weak_1d":
+        X *= n_devices
+    elif scaling == "weak_3d":
+        factor = n_devices ** (1.0 / 3.0)
+        X, Y, Z = (int(round(v * factor)) for v in (X, Y, Z))
 
     lbm_viscosity = 0.001
     phys_viscosity = 1.5e-5
@@ -217,8 +238,8 @@ def build(resolution: int = 2, *, device, use_forcing: bool = True, precision: s
         # probes compare with the analytic solution either way
         storage_dtype={"full": None, "f16": torch.float16, "bf16": torch.bfloat16}[storage],
     )
-    sim_id = (f"sim_2_CUM_{precision}_{'forcing' if use_forcing else 'velocity'}_strong_res_"
-              f"{resolution}_nd_1")
+    sim_id = (f"sim_2_CUM_{precision}_{'forcing' if use_forcing else 'velocity'}_{scaling}_res_"
+              f"{resolution}_nd_{n_devices}")
     if storage != "full":
         sim_id += f"_store_{storage}"
     sim = Sim2(
@@ -233,9 +254,15 @@ def build(resolution: int = 2, *, device, use_forcing: bool = True, precision: s
         steps_per_dispatch=10,
         use_fused=use_fused,
         pair_dispatch=pair_dispatch,
+        plan=choose_plan(dom, devices or app_devices(device)) if sharded else None,
     )
     sim.cnt[PRINT].period = 10.0
     sim.cnt[PROBE1].period = 1.0
+    if scaling == "weak_3d":
+        factor = (Y - 2) / float(block_size * resolution - 2) * resolution / 2
+        sim.cnt[PRINT].period /= factor
+        sim.cnt[PROBE1].period /= factor
+        sim.phys_final_time /= factor
     return sim
 
 
@@ -258,15 +285,24 @@ def main(argv=None) -> Sim2:
     p.add_argument("--storage", choices=["full", "f16", "bf16"], default="full",
                    help="16-bit at-rest DF storage on the A-A pair path (FP16S; implies "
                         "--streaming AA --use-fused --pair-dispatch on)")
+    p.add_argument("--sharded", action="store_true",
+                   help="shard the lattice over the machine's cards")
+    p.add_argument("--scaling", choices=["strong", "weak_1d", "weak_3d"], default="strong",
+                   help="size the lattice by the device count (weak_1d: x; weak_3d: every axis)")
     args = p.parse_args(argv)
     if args.storage != "full":
         # half storage exists only on the one-kernel A-A pair path
         args.streaming, args.use_fused, args.pair_dispatch = "AA", True, "on"
 
+    devices = app_devices(args.device) if args.sharded else None
     sim = build(
         args.resolution,
         device=args.device,
         use_forcing=not args.velocity,
+        scaling=args.scaling,
+        n_devices=len(devices) if args.sharded else 1,
+        sharded=args.sharded,
+        devices=devices,
         precision=args.precision,
         storage=args.storage,
         final_time=args.final_time,

@@ -7,7 +7,11 @@ outflow (OUTFLOW_RIGHT_INTERP, A-B only), walls on the y and z faces, a 2D
 cut at mid z.
 
 Usage: python -m tnl_lbm_tpu_torch.apps.sim_3 [RES] [--re RE]
-       [--device cuda|cpu] [--no-fused] [--final-time T] [--results-dir DIR]
+       [--device cuda|cpu] [--no-fused] [--sharded] [--final-time T] [--results-dir DIR]
+
+``--sharded`` shards the lattice over the machine's cards
+(``parallel/sharded.py choose_plan``; on the CPU over the one device),
+through B4 on haloed blocks.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 from tnl_lbm_tpu_torch.models import D3Q27
 from tnl_lbm_tpu_torch.ops import collision as col
 from tnl_lbm_tpu_torch.ops.boundary import GEO
+from tnl_lbm_tpu_torch.parallel.sharded import app_devices, choose_plan
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.sim.obstacles import (
     draw_sphere,
@@ -38,10 +43,9 @@ class Sim3(Simulation):
 
 
 def build(resolution: int = 1, re: float = 100.0, final_time: float = 1.0, results_parent=".",
-          use_fused: bool = True, sharded: bool = False, *, device) -> Sim3:
-    """The sphere channel at ``resolution`` (lattice 128r x 32r x 32r) on ``device``."""
-    if sharded:
-        raise NotImplementedError("the sharded lattice is not ported yet (ROADMAP A13)")
+          use_fused: bool = True, sharded: bool = False, *, device, devices=None) -> Sim3:
+    """The sphere channel at ``resolution`` (lattice 128r x 32r x 32r) on ``device``;
+    ``sharded`` plans it over ``devices`` (by default ``app_devices``)."""
     X = 128 * resolution
     Y = Z = 32 * resolution
     lbm_viscosity = 1e-2
@@ -66,9 +70,10 @@ def build(resolution: int = 1, re: float = 100.0, final_time: float = 1.0, resul
     draw_sphere(dom, center, sphere_d / 2, GEO.WALL)
 
     cfg = LBMConfig(lat=D3Q27, collision=col.collide_cum)
+    plan = choose_plan(dom, devices or app_devices(device)) if sharded else None
     sim = Sim3(cfg, dom, device=device, sim_id=f"sim_3_res{resolution:02d}_re{int(re)}",
                steps_per_dispatch=10, results_parent=results_parent,
-               phys_final_time=final_time, use_fused=use_fused)
+               phys_final_time=final_time, use_fused=use_fused, plan=plan)
     sim.lbm_inflow_vx = units.phys2lbm_velocity(phys_velocity)
     sim.cnt[PRINT].period = final_time / 100
     sim.cnt[VTK2D].period = final_time / 10
@@ -83,7 +88,7 @@ def main(argv=None) -> Sim3:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when no card is present")
     p.add_argument("--sharded", action="store_true",
-                   help="shard the lattice over the cards (not ported yet: ROADMAP A13)")
+                   help="shard the lattice over the machine's cards")
     p.add_argument("--final-time", type=float, default=1.0)
     p.add_argument("--results-dir", default=".")
     p.add_argument("--no-fused", action="store_true", help="run the plain PyTorch step")

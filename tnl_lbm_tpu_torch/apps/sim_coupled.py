@@ -51,7 +51,7 @@ def build(resolution: int = 1, final_time: float = 1.0, results_parent=".",
     """The plume channel at ``resolution`` on ``device``."""
     if sharded:
         raise NotImplementedError("the sharded coupled lattices are not ported yet "
-                                  "(ROADMAP A13)")
+                                  "(ROADMAP A13b)")
     X = 64 * resolution
     Y = 32 * resolution
     Z = 32 * resolution
@@ -106,7 +106,7 @@ def main(argv=None) -> SimCoupled:
                    help="run the CUDA kernels (the coupled kernel of the streaming pattern)")
     p.add_argument("--streaming", choices=["AB", "AA"], default="AB")
     p.add_argument("--sharded", action="store_true",
-                   help="shard both lattices over the cards (not ported yet: ROADMAP A13)")
+                   help="shard both lattices over the cards (not ported yet: ROADMAP A13b)")
     args = p.parse_args(argv)
     if args.resolution < 1:
         p.error("resolution must be at least 1")

@@ -72,7 +72,7 @@ def build(resolution: int = 1, dirac: str = "phi2", method: str = "modified",
     """The cylinder channel at ``resolution`` (lattice 96r x 32r x 32r) on ``device``."""
     if sharded:
         raise NotImplementedError("the sharded lattice and the sharded IBM hook are not "
-                                  "ported yet (ROADMAP A13)")
+                                  "ported yet (ROADMAP A13b)")
     X = 96 * resolution
     Y = 32 * resolution
     Z = 32 * resolution
@@ -132,7 +132,7 @@ def main(argv=None) -> SimIBM:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when no card is present")
     p.add_argument("--sharded", action="store_true",
-                   help="shard the lattice over the cards (not ported yet: ROADMAP A13)")
+                   help="shard the lattice over the cards (not ported yet: ROADMAP A13b)")
     p.add_argument("--final-time", type=float, default=0.5)
     p.add_argument("--results-dir", default=".")
     p.add_argument("--no-fused", action="store_true",

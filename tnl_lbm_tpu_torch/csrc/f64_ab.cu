@@ -50,6 +50,20 @@ constexpr int THREADS = 128;
 AB_F64_KERNEL(ab_step_f64_cum_well_kernel, false)
 AB_F64_KERNEL(ab_step_f64_profile_cum_well_kernel, true)
 
+// The vector instance on a shard's haloed block (the sharded A-B step, as
+// halo_step.cu's float32 instances): f [27, X+2, Y+2, Z], the rest the
+// block [X, Y, Z] (lbm_site.cuh ab_halo_site).  Bound as the step's, with
+// the haloed block's reads.
+extern "C" __global__ void __launch_bounds__(THREADS)
+    ab_halo_f64_cum_well_kernel(const double* __restrict__ f, double* __restrict__ fout,
+                                const uint8_t* __restrict__ map, double* __restrict__ rho,
+                                double* __restrict__ u, int Y, int Z, int pz, ABParams p) {
+  const int z = blockIdx.x * blockDim.x + threadIdx.x;
+  if (z >= Z) return;
+  ab_halo_site<true, EQ_WELL>(f, fout, map, rho, u, blockIdx.z, blockIdx.y, z, gridDim.z, Y, Z,
+                              pz != 0, p);
+}
+
 // Launches on `stream`; returns cudaGetLastError() of the launch.  pbits
 // (periodic axes): bit 0 x, bit 1 y, bit 2 z.  prof null: the vector
 // instance with (uin_x, uin_y, uin_z); else the profile instance, prof the
@@ -71,5 +85,21 @@ extern "C" int tnl_lbm_ab_step_f64(const double* f, double* fout, const uint8_t*
   else
     ab_step_f64_profile_cum_well_kernel<<<grid, block, 0, s>>>(
         f, fout, map, rho, u, Y, Z, pbits, p, Profile{prof, sa, sx, sy, sz});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The haloed vector instance on `stream` (halo_step.cu tnl_lbm_ab_step_halo's
+// arguments in double, without the variant); returns cudaGetLastError() of
+// the launch.
+extern "C" int tnl_lbm_ab_step_f64_halo(const double* f, double* fout, const uint8_t* map,
+                                        double* rho, double* u, int X, int Y, int Z, int pz,
+                                        double nu, double fx, double fy, double fz,
+                                        double uin_x, double uin_y, double uin_z, int neumaier,
+                                        void* stream) {
+  const ABParams p{1.0 / (3.0 * nu + 0.5), fx, fy, fz, uin_x, uin_y, uin_z, neumaier};
+  const int block = Z >= THREADS ? THREADS : ((Z + 31) / 32) * 32;
+  const dim3 grid((Z + block - 1) / block, Y, X);
+  ab_halo_f64_cum_well_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      f, fout, map, rho, u, Y, Z, pz, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1108,4 +1108,168 @@ __device__ __forceinline__ void aa_odd_site(const real* __restrict__ f, real* __
   u_out[2 * N + site] = uz;
 }
 
+
+// ------------------------------------------------- the sharded lattice's steps
+
+// One A-B site update on a haloed shard block (the sharded A-B step's B4;
+// JAX make_fused_step with prepadded=True, local_shape=(X, Y, Z)): f is
+// [Q, X + 2, Y + 2, Z], the shard's block with a 1-wide x/y halo at origin
+// (1, 1, 0); fout, the map, rho and u are the block itself, [X, Y, Z] (the
+// map is not haloed: the outflow pulls from x-1 read f only).  Every x and
+// y neighbour read comes from the halo, with no wrap or clamp on those axes;
+// z keeps ab_site's wrap/clamp rule (pz).  The reads and the arithmetic are
+// ab_site's, so a shard's site is the unsharded step's site bit for bit
+// where the halo holds what the unsharded step reads there: the neighbour
+// shard's layers, or at a non-periodic global face the edge-replicated ones.
+template <bool WELL, int EQ>
+__device__ __forceinline__ void ab_halo_site(const real* __restrict__ f, real* __restrict__ fout,
+                                             const uint8_t* __restrict__ map,
+                                             real* __restrict__ rho_out,
+                                             real* __restrict__ u_out, int x, int y, int z, int X,
+                                             int Y, int Z, bool pz, const ABParams& p) {
+  const int64_t N = (int64_t)X * Y * Z;
+  const int64_t site = ((int64_t)x * Y + y) * Z + z;
+  const int64_t Yh = Y + 2, sx = Yh * Z, sy = Z;
+  const int64_t Nh = (int64_t)(X + 2) * sx;
+  const int64_t sh = ((int64_t)(x + 1) * Yh + (y + 1)) * Z + z;
+  const uint8_t m = map[site];
+  if (m == GEO_NOTHING) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) fout[q * N + site] = f[q * Nh + sh];
+    rho_out[site] = real(1.0);
+    u_out[site] = real(0.0);
+    u_out[N + site] = real(0.0);
+    u_out[2 * N + site] = real(0.0);
+    return;
+  }
+  real v[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    v[q] = f[q * Nh + sh - cx(q) * sx - cy(q) * sy + (neighbour(z, -cz(q), Z, pz) - z)];
+  if (m == GEO_OUTFLOW_RIGHT || m == GEO_OUTFLOW_RIGHT_INTERP) {
+    // the outflow pull rules read x-1 (and x) in place of x - c_x
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int64_t yz = sh - cy(q) * sy + (neighbour(z, -cz(q), Z, pz) - z);
+      const real from_xm = f[q * Nh + yz - sx];
+      if (m == GEO_OUTFLOW_RIGHT)
+        v[q] = from_xm;
+      else if (cx(q) == -1)
+        v[q] = CS * from_xm + ONE_MINUS_CS * f[q * Nh + yz];
+    }
+  }
+  real rho, ux, uy, uz;
+  site_collide<WELL, EQ>(v, m, p, rho, ux, uy, uz);
+#pragma unroll
+  for (int q = 0; q < Q; ++q) fout[q * N + site] = v[q];
+  rho_out[site] = rho;
+  u_out[site] = ux;
+  u_out[N + site] = uy;
+  u_out[2 * N + site] = uz;
+}
+
+// Destinations along a sharded axis of the haloed odd push from local
+// coordinate s (in [-1, n], the block and its ring) with velocity c: t0 =
+// s + c where it lies in the block [0, n), else -1; t1 = s itself where s
+// is the block's first layer on a global low face and c = +1, or its last
+// layer on a global high face and c = -1 (the edge-replicated layer of
+// push_targets), else -1.
+__device__ __forceinline__ void block_targets(int s, int c, int n, bool glo, bool ghi, int& t0,
+                                              int& t1) {
+  const int t = s + c;
+  t0 = (t >= 0 && t < n) ? t : -1;
+  t1 = ((c > 0 && s == 0 && glo) || (c < 0 && s == n - 1 && ghi)) ? s : -1;
+}
+
+// One A-A odd site update on a haloed shard block (the sharded A-A step's
+// B3; JAX _build_odd_call with prepadded=True, its map_ring_in and bflags):
+// f is [Q, X + 4, Y + 4, Z], the shard's block with a 2-wide x/y halo at
+// origin (2, 2, 0); ring is the map of the block and its 1-wide x/y ring,
+// [X + 2, Y + 2, Z] at origin (1, 1, 0); fout, rho and u are the block.
+// One thread per source site (x, y) in [-1, X] x [-1, Y]: the ring's sites
+// are the neighbour shards' edge sites, collided again here, so that their
+// pushes into the block need no exchange after the collision.  The read and
+// the collision are aa_odd_site's.  The push writes destinations inside the
+// block only: s + c_q, and on a global non-periodic face (gbits: bit 0 the
+// low x face, 1 the high x face, 2 low y, 3 high y) also the layer s
+// itself, which is aa_odd_site's edge replication; a ring site on such a
+// face pushes nothing (its layer is the edge-replicated one).  z keeps
+// aa_odd_site's rules (pz).  Pushes aimed at a NOTHING site of the block are
+// dropped and its own thread restores its stored DFs.  A row away from the
+// block's x and y faces takes a short path, as in aa_odd_site: there only
+// z has targets to choose.
+template <bool WELL, int EQ, bool LEAN>
+__device__ __forceinline__ void aa_odd_halo_site(const real* __restrict__ f,
+                                                 real* __restrict__ fout,
+                                                 const uint8_t* __restrict__ ring,
+                                                 real* __restrict__ rho_out,
+                                                 real* __restrict__ u_out, int x, int y, int z,
+                                                 int X, int Y, int Z, bool pz, int gbits,
+                                                 bool has_nothing, const ABParams& p) {
+  const bool gxl = gbits & 1, gxh = gbits & 2, gyl = gbits & 4, gyh = gbits & 8;
+  if ((x < 0 && gxl) || (x >= X && gxh) || (y < 0 && gyl) || (y >= Y && gyh)) return;
+  const int64_t N = (int64_t)X * Y * Z;
+  const int64_t Yh = Y + 4, sx = Yh * Z, sy = Z;
+  const int64_t Nh = (int64_t)(X + 4) * sx;
+  const int64_t sh = ((int64_t)(x + 2) * Yh + (y + 2)) * Z + z;
+  const int64_t Yr = Y + 2;
+  const uint8_t m = ring[((int64_t)(x + 1) * Yr + (y + 1)) * Z + z];
+  real v[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    v[q] = f[opp(q) * Nh + sh - cx(q) * sx - cy(q) * sy + (neighbour(z, -cz(q), Z, pz) - z)];
+  if (!LEAN && m == GEO_OUTFLOW_RIGHT) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      v[q] = f[opp(q) * Nh + sh - sx - cy(q) * sy + (neighbour(z, -cz(q), Z, pz) - z)];
+  }
+  real rho, ux, uy, uz;
+  if constexpr (LEAN) stream_bc_collide(v, m, p, rho, ux, uy, uz);
+  else site_collide<WELL, EQ>(v, m, p, rho, ux, uy, uz);
+
+  if (x > 0 && x < X - 1 && y > 0 && y < Y - 1) {
+    // a row away from the block's x and y faces: every x/y destination lies
+    // in the block, and only z takes push_targets' rules
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      int tz0, tz1;
+      push_targets(z, cz(q), Z, pz, tz0, tz1);
+      const int64_t row = ((int64_t)(x + cx(q)) * Y + (y + cy(q))) * Z;
+      const int64_t rrow = ((int64_t)(x + 1 + cx(q)) * Yr + (y + 1 + cy(q))) * Z;
+      if (tz0 >= 0 && !(has_nothing && ring[rrow + tz0] == GEO_NOTHING))
+        fout[q * N + row + tz0] = v[q];
+      if (tz1 >= 0 && !(has_nothing && ring[rrow + tz1] == GEO_NOTHING))
+        fout[q * N + row + tz1] = v[q];
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      int tx[2], ty[2], tz[2];
+      block_targets(x, cx(q), X, gxl, gxh, tx[0], tx[1]);
+      block_targets(y, cy(q), Y, gyl, gyh, ty[0], ty[1]);
+      push_targets(z, cz(q), Z, pz, tz[0], tz[1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            if (tx[i] >= 0 && ty[j] >= 0 && tz[k] >= 0 &&
+                !(has_nothing &&
+                  ring[((int64_t)(tx[i] + 1) * Yr + (ty[j] + 1)) * Z + tz[k]] == GEO_NOTHING))
+              fout[q * N + ((int64_t)tx[i] * Y + ty[j]) * Z + tz[k]] = v[q];
+    }
+  }
+  if (x < 0 || x >= X || y < 0 || y >= Y) return;  // a ring site: its own outputs are not ours
+  const int64_t site = ((int64_t)x * Y + y) * Z + z;
+  if (m == GEO_NOTHING) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) fout[q * N + site] = f[q * Nh + sh];
+  }
+  rho_out[site] = rho;
+  u_out[site] = ux;
+  u_out[N + site] = uy;
+  u_out[2 * N + site] = uz;
+}
+
 }  // namespace lbm

@@ -35,7 +35,7 @@ says so (``reads_host``), and the driver runs a chunk of its steps eagerly
 
 The sharded methods of the JAX class (``sharded_hook``,
 ``compute_forces_sharded``, ``interpolate_sharded``, ``spread_sharded``)
-ride with the sharded lattice (ROADMAP A13).
+ride with the sharded lattice (ROADMAP A13b).
 """
 
 from __future__ import annotations

@@ -24,8 +24,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("aa_even.cu", "aa_odd.cu", "aa_pair.cu", "aa_pair_full.cu", "ab_step.cu",
            "ab_step_sitemajor.cu", "ade_step.cu", "coll_clbm.cu", "coll_kbc.cu", "coll_srt.cu",
            "coupled_ab.cu", "coupled_aa.cu", "d2q9_step.cu", "f64_aa.cu", "f64_ab.cu",
-           "f64_pair.cu", "nn_coll_clbm.cu", "nn_coll_kbc.cu", "nn_coll_srt.cu", "nn_force.cu",
-           "nn_step.cu", "pair_coll_clbm.cu", "pair_coll_kbc.cu", "pair_coll_srt.cu", "probes.cu")
+           "f64_pair.cu", "halo_step.cu", "nn_coll_clbm.cu", "nn_coll_kbc.cu", "nn_coll_srt.cu",
+           "nn_force.cu", "nn_step.cu", "pair_coll_clbm.cu", "pair_coll_kbc.cu",
+           "pair_coll_srt.cu", "probes.cu")
 HEADERS = ("lbm_site.cuh", "pair_march.cuh", "ade_site.cuh", "nn_site.cuh", "collisions.cuh",
            "coll_step.cuh", "nn_coll.cuh", "pair_coll.cuh")
 #: the C entries of the collision families, per kernel: the per-step kernels
@@ -125,6 +126,10 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_aa_odd_f64.argtypes = [p] * 5 + [i] * 6 + [d] * 7 + [i, p]
     lib.tnl_lbm_aa_pair_f64.argtypes = [p] * 5 + [i] * 6 + [d] * 4 + [i, i, p]
     lib.tnl_lbm_aa_pair_f64_info.argtypes = [i, i, i, p]
+    # the sharded lattice's haloed steps (halo_step.cu; f64_ab.cu's float64 one)
+    lib.tnl_lbm_ab_step_halo.argtypes = [p] * 5 + [i] * 5 + [f] * 7 + [i, p]
+    lib.tnl_lbm_aa_odd_halo.argtypes = [p] * 5 + [i] * 7 + [f] * 7 + [i, p]
+    lib.tnl_lbm_ab_step_f64_halo.argtypes = [p] * 5 + [i] * 4 + [d] * 7 + [i, p]
     families = ((COLL_ENTRIES, [i] * 5 + [p] * 6 + [i] * 5 + [f] * 7 + [i, p]),
                 (NN_COLL_ENTRIES, [i] * 4 + [p] * 5 + [i] * 6 + [f] * 7 + [i, i] + [f] * 6 + [p]),
                 (PAIR_COLL_ENTRIES, [i] * 3 + [p] * 5 + [i] * 6 + [f] * 7 + [i, i, p]))
@@ -158,6 +163,7 @@ def load_library() -> ctypes.CDLL:
                lib.tnl_lbm_ab_step_sitemajor, lib.tnl_lbm_ab_step_well,
                lib.tnl_lbm_ab_step_f64, lib.tnl_lbm_aa_even_f64, lib.tnl_lbm_aa_odd_f64,
                lib.tnl_lbm_aa_pair_f64, lib.tnl_lbm_aa_pair_f64_info, lib.tnl_lbm_element_pipeline,
+               lib.tnl_lbm_ab_step_halo, lib.tnl_lbm_aa_odd_halo, lib.tnl_lbm_ab_step_f64_halo,
                lib.tnl_lbm_window_copy,
                lib.tnl_lbm_ade_step, lib.tnl_lbm_coupled_ab, lib.tnl_lbm_coupled_aa,
                lib.tnl_lbm_d2q9_step, lib.tnl_lbm_d2q9_chunk, lib.tnl_lbm_d2q9_chunk_info,

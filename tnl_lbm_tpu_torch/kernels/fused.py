@@ -15,8 +15,10 @@ offsets - the only layout-dependent piece, supplied by the caller.
 
 :class:`FusedStepAB` launches ``csrc/ab_step.cu`` on CUDA tensors and runs
 its plain version on CPU tensors; it never runs the plain version in the
-kernel's place.  :class:`FusedStepSiteMajor` is the same step on the
-site-major layout [X, Y, QPAD, Z] (``csrc/ab_step_sitemajor.cu``).
+kernel's place; with ``prepadded=True`` it is the sharded step's B4 on a
+shard's haloed block (``csrc/halo_step.cu``).  :class:`FusedStepSiteMajor`
+is the same step on the site-major layout [X, Y, QPAD, Z]
+(``csrc/ab_step_sitemajor.cu``).
 """
 
 from __future__ import annotations
@@ -99,6 +101,13 @@ HALF_F64_ROADMAP = "ROADMAP Bh64"
 #: the ROADMAP entry of the per-site inflow profiles the kernels do not take:
 #: B4 takes one in its CUM_WELL step (the profile instances), the rest not yet
 PROFILE_ROADMAP = "ROADMAP Bprof"
+#: the ROADMAP entry of the sharded lattice's parts still to port
+SHARDED_ROADMAP = "ROADMAP A13b"
+#: the cumulant variants with haloed instances (csrc/halo_step.cu): the A-B
+#: step's three, the A-A odd step's three and its lean one; in float64 the
+#: A-B step's CUM_WELL one (csrc/f64_ab.cu)
+HALO_AB_VARIANTS = frozenset({0, 1, 2})
+HALO_ODD_VARIANTS = frozenset({0, 1, 2, _AA_LEAN_VARIANT})
 
 
 @dataclasses.dataclass
@@ -672,16 +681,29 @@ class FusedStepAB:
       force=None) -> (rho0, u0)``: pull, the outflow pull rules, the WALL
       swap and the symmetry mirrors, the moments with the homogeneous
       force; no collision, no f output, no inflow/outflow macro override.
+
+    ``prepadded=True`` is the sharded step's B4 (JAX ``make_fused_step``
+    with ``prepadded`` and ``local_shape``): f is a shard's block of
+    ``local_shape`` (the domain's by default) with a 1-wide x/y halo,
+    [Q, X+2, Y+2, Z], every x/y neighbour read taken from the halo and z
+    wrapped or clamped as the domain says; each call gives the block's map
+    (``map_arr_in``, uint8 [X, Y, Z] on f's device, the codes the domain
+    has), and the step writes the block's f, rho and u (``kernel`` counts
+    the launches of ``csrc/halo_step.cu``, in float64 of ``f64_ab.cu``).
+    It has the cumulant steps' instances (CUM_WELL, also in float64; CUM
+    with eq_quadratic or eq_inv_cum), with a homogeneous inflow velocity;
+    the rest raises naming ``SHARDED_ROADMAP``.
     """
 
     def __init__(self, cfg: LBMConfig, domain: Domain, device, force_field: bool = False,
-                 macro_only: bool = False):
+                 macro_only: bool = False, prepadded: bool = False, local_shape=None):
         if cfg.streaming != "AB":
             raise ValueError("make_fused_step needs streaming='AB'")
         self.cfg = cfg
         self.device = torch.device(device)
         self.lat, self.codes, self.do_coll_codes = _prep(cfg, domain)
-        self.shape = domain.shape
+        self.prepadded = prepadded
+        self.shape = tuple(local_shape) if local_shape is not None else domain.shape
         self.periodic = domain.periodic
         self.force_field, self.macro_only = force_field, macro_only
         self._mode, suffix = variant_mode(force_field, macro_only)
@@ -692,15 +714,49 @@ class FusedStepAB:
         tag, source = (("_f64", "f64_ab.cu") if self._f64 and self._cum_well_step
                        else ("", "ab_step.cu"))
         replaces = "tnl_lbm_tpu/kernels/fused.py:585"
+        if prepadded:
+            self._check_halo_instance()
+            suffix, source = "_halo", "f64_ab.cu" if self._f64 else "halo_step.cu"
         self.kernel = CudaKernel("ab_step" + tag + suffix, "tnl_lbm_tpu_torch/csrc/" + source,
                                  replaces)
         self.profile = (CudaKernel(f"ab_step{tag}_profile", "tnl_lbm_tpu_torch/csrc/" + source,
-                                   replaces) if self._cum_well_step else None)
+                                   replaces) if self._cum_well_step and not prepadded else None)
         self.plain_calls = 0
         if self.device.type == "cuda":
             _check_kernel_config(cfg, domain, self.device, "the A-B step (B4)",
                                  f64=self._cum_well_step)
-        self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
+        self.map = (None if prepadded else
+                    torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device))
+
+    def _check_halo_instance(self) -> None:
+        """Refuse, on any device, a config the haloed step has no instance of."""
+        cum = self._instance[0] == "cum" and self._instance[1] in HALO_AB_VARIANTS
+        if self._mode != MODE_STEP or not cum or (self._f64 and not self._cum_well_step):
+            raise NotImplementedError(
+                f"the sharded A-B step (B4 on a haloed block) has the cumulant steps' instances "
+                f"(CUM_WELL, also in float64; CUM with eq_quadratic or eq_inv_cum), not "
+                f"{_described(self.cfg)} in {self.cfg.compute_dtype}"
+                + (" or the force_field / macro_only variants" if self._mode != MODE_STEP
+                   else "") + f" ({SHARDED_ROADMAP})")
+
+    def _block_map(self, f, map_arr_in):
+        """The haloed step's map of this call: a uint8 [X, Y, Z] on f's device."""
+        m = map_arr_in
+        if (not torch.is_tensor(m) or m.dtype != torch.uint8 or m.device != f.device
+                or tuple(m.shape) != self.shape or not m.is_contiguous()):
+            raise ValueError(f"the haloed step takes the block's map at each call (map_arr_in): "
+                             f"a contiguous uint8 {list(self.shape)} tensor on {f.device}")
+        return m
+
+    def _check_halo(self, f, out) -> None:
+        X, Y, Z = self.shape
+        want = (self.lat.Q, X + 2, Y + 2, Z)
+        if tuple(f.shape) != want or not f.is_contiguous():
+            raise ValueError(f"f must be a contiguous {list(want)} haloed block, "
+                             f"got {tuple(f.shape)}")
+        if out is not None and (tuple(out.shape) != (self.lat.Q, X, Y, Z) or out.dtype != f.dtype
+                                or out.device != f.device or not out.is_contiguous()):
+            raise ValueError("out must be a contiguous state block of the local shape")
 
     def reset_counts(self) -> None:
         self.kernel.launches = self.plain_calls = 0
@@ -721,6 +777,9 @@ class FusedStepAB:
         None; the homogeneous three floats, zero with a profile)."""
         if u_in is None or (u_in.dim() if torch.is_tensor(u_in) else np.ndim(u_in)) <= 1:
             return None, _u_in3(u_in, self.cfg.compute_dtype)
+        if self.prepadded:
+            raise NotImplementedError(f"the sharded A-B step takes a homogeneous inflow velocity "
+                                      f"only ({SHARDED_ROADMAP}, {PROFILE_ROADMAP})")
         if not self._cum_well_step:
             raise NotImplementedError(
                 f"the A-B step (B4) takes a per-site inflow profile in its CUM_WELL step only, "
@@ -729,12 +788,15 @@ class FusedStepAB:
         return inflow_profile(u_in, self.shape, device, self.cfg.compute_dtype), (0.0, 0.0, 0.0)
 
     def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None,
-                 force_add=None, macro_out=None):
+                 force_add=None, macro_out=None, map_arr_in=None):
         del parity
         field, fvec = self._forces(f, force, force_add)
         prof, uvec = self._inflow(u_in, f.device)
         if out is not None and self.macro_only:
             raise ValueError("the u* pass writes no state")
+        if self.prepadded:
+            return self._halo_step(f, nu, fvec, uvec, out, macro_out,
+                                   self._block_map(f, map_arr_in))
         check_out(out, f)
         if f.device.type == "cuda":
             return self._launch(f, float(nu), field, fvec, uvec, out, macro_out, prof)
@@ -747,7 +809,8 @@ class FusedStepAB:
             f_new = out.copy_(f_new)
         return f_new, rho, u
 
-    def plain(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None):
+    def plain(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None,
+              map_arr_in=None):
         """The step's plain PyTorch version on f's device: (f_new, rho, u),
         or (rho0, u0) for the u* pass; f untouched (``parity`` is ignored,
         as by the step).  The CPU path, and the oracle the kernel is held
@@ -755,6 +818,9 @@ class FusedStepAB:
         del parity
         field, fvec = self._forces(f, force, force_add)
         prof, uvec = self._inflow(u_in, f.device)
+        if self.prepadded:
+            self._check_halo(f, None)
+            return self._plain_halo(f, nu, fvec, uvec, self._block_map(f, map_arr_in))
         f_new, rho, u = self._plain(f, nu, fvec, uvec if prof is None else prof, field)
         return (rho, u) if self.macro_only else (f_new, rho, u)
 
@@ -772,6 +838,44 @@ class FusedStepAB:
         return _stream_bc_collide(self.lat, self.cfg, self.codes, self.do_coll_codes, shifted,
                                   self.map.to(f.device), nu, force, u_in=uvec,
                                   macro_only=self.macro_only)
+
+    def _plain_halo(self, fpad, nu, fvec, uvec, m):
+        """The haloed step in plain PyTorch: the block's pulls read the x/y
+        halo and a z pad of the domain's rule; the rest is the step's."""
+        X, Y, Z = self.shape
+        fz = stream.pad_halo(fpad, (True, True, self.periodic[2]))[:, 1:-1, 1:-1]
+
+        def shifted(q, offs):
+            ox, oy, oz = offs
+            return fz[q, 1 + ox : 1 + ox + X, 1 + oy : 1 + oy + Y, 1 + oz : 1 + oz + Z]
+
+        return _stream_bc_collide(self.lat, self.cfg, self.codes, self.do_coll_codes, shifted,
+                                  m, nu, fvec, u_in=uvec)
+
+    def _halo_step(self, f, nu, fvec, uvec, out, macro_out, m):
+        """The haloed step: its kernel on a CUDA tensor, else its plain version."""
+        self._check_halo(f, out)
+        if f.device.type != "cuda":
+            self.plain_calls += 1
+            f_new, rho, u = self._plain_halo(f, nu, fvec, uvec, m)
+            rho, u = into(macro_out, rho, u)
+            return (f_new if out is None else out.copy_(f_new)), rho, u
+        check_dtype(f, self.cfg)
+        X, Y, Z = self.shape
+        lib = load_library()
+        f_new = (torch.empty((self.lat.Q, X, Y, Z), dtype=f.dtype, device=f.device)
+                 if out is None else out)
+        rho, u = macro_buffers(macro_out, (X, Y, Z), 3, f.dtype, f.device)
+        stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
+        entry = lib.tnl_lbm_ab_step_f64_halo if self._f64 else lib.tnl_lbm_ab_step_halo
+        variant = () if self._f64 else (self._instance[1],)
+        rc = entry(f.data_ptr(), f_new.data_ptr(), m.data_ptr(), rho.data_ptr(), u.data_ptr(),
+                   X, Y, Z, int(self.periodic[2]), *variant, float(nu), *fvec, *uvec,
+                   int(self.cfg.high_precision_rho), stream_ptr)
+        if rc != 0:
+            raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
+        self.kernel.launches += 1
+        return f_new, rho, u
 
     def _launch(self, f, nu, field, fvec, uvec, out, macro_out, prof=None):
         if self.device.type != "cuda" or f.device != self.map.device:
@@ -822,17 +926,17 @@ def make_fused_step(cfg: LBMConfig, domain: Domain, device, with_macro: bool = T
     with its ``force_field`` and ``macro_only`` variants.
 
     The JAX function's TPU knobs (``tile``, ``tiles_per_program``) shape
-    its VMEM windows and have no counterpart here.  Not ported yet:
-    ``prepadded`` and ``local_shape`` (the sharded path, ROADMAP A13), and
-    ``with_macro=False``, the benchmark variant without the rho/u writes
-    (ROADMAP A7).
+    its VMEM windows and have no counterpart here.  ``prepadded`` (with the
+    block's ``local_shape``) is the sharded step's haloed block.  Not ported
+    yet: ``with_macro=False``, the benchmark variant without the rho/u
+    writes (ROADMAP A7).
     """
-    if prepadded or local_shape is not None:
-        raise NotImplementedError("prepadded / local_shape (the sharded A-B step) are not "
-                                  "ported yet (ROADMAP A13)")
+    if local_shape is not None and not prepadded:
+        raise ValueError("local_shape is the haloed block's shape: it needs prepadded=True")
     if not with_macro:
         raise NotImplementedError("with_macro=False is not ported yet (ROADMAP A7)")
-    return FusedStepAB(cfg, domain, device, force_field=force_field, macro_only=macro_only)
+    return FusedStepAB(cfg, domain, device, force_field=force_field, macro_only=macro_only,
+                       prepadded=prepadded, local_shape=local_shape)
 
 
 #: components per site of the site-major layout: Q padded to 32 with zeros

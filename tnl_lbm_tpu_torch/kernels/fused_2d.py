@@ -406,8 +406,8 @@ def make_fused_step_2d(cfg: LBMConfig, domain: Domain, device, force_field: bool
     Raises NotImplementedError for a config that :func:`supports_2d`
     refuses.  ``force_field`` builds the per-site-force variant.  Not
     ported yet: ``local_shape``, the sharded path's block with its halo
-    ring (ROADMAP A13)."""
+    ring (ROADMAP A13b)."""
     if local_shape is not None:
         raise NotImplementedError("B5's local_shape (the sharded 2D step) is not ported yet "
-                                  "(ROADMAP A13)")
+                                  "(ROADMAP A13b)")
     return FusedStep2D(cfg, domain, device, force_field=force_field)

@@ -57,9 +57,12 @@ from tnl_lbm_tpu_torch.kernels.fused import (
     PAIR_VARIANT,
     PATTERN_EVEN,
     PATTERN_ODD,
+    HALO_ODD_VARIANTS,
     PROFILE_ROADMAP,
+    SHARDED_ROADMAP,
     _AA_LEAN_VARIANT,
     CudaKernel,
+    _described,
     _check_kernel_config,
     _force3,
     _periodic_bits,
@@ -155,6 +158,44 @@ def odd_step_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, f, m, nu, for
     return pushed, rho, u
 
 
+def odd_step_halo_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, fpad, ring, faces, nu,
+                        force, u_in=(0.0, 0.0, 0.0)):
+    """The A-A odd step on a shard's haloed block in plain PyTorch (B3's
+    haloed mode): ``fpad`` is the block with a 2-wide x/y halo [Q, X+4,
+    Y+4, Z], ``ring`` the map of the block and its 1-wide ring [X+2, Y+2,
+    Z], ``faces`` (x low, x high, y low, y high) the block's faces that are
+    non-periodic faces of the domain.  The block and its ring collide from
+    the halo; on those faces the ring's post-collision layer becomes the
+    edge layer's (the edge replication of the unsharded push); the push
+    into the block is then the pull of the ring block, z padded as the
+    domain says.  Returns the block's (f_new, rho, u); fpad untouched."""
+    lat = cfg.lat
+    opp = np.asarray(lat.opp)
+    Xr, Yr, Z = ring.shape
+    fz = stream.pad_halo(fpad, (True, True, periodic[2]))[:, 1:-1, 1:-1]
+
+    def shifted(q, offs):
+        ox, oy, oz = offs
+        return fz[int(opp[q]), 1 + ox : 1 + ox + Xr, 1 + oy : 1 + oy + Yr, 1 + oz : 1 + oz + Z]
+
+    f_post, rho, u = _stream_bc_collide(lat, cfg, codes, do_coll_codes, shifted, ring, nu, force,
+                                        u_in=u_in, defer_nothing=True)
+    xl, xh, yl, yh = faces
+    if xl:
+        f_post[:, 0] = f_post[:, 1]
+    if xh:
+        f_post[:, -1] = f_post[:, -2]
+    if yl:
+        f_post[:, :, 0] = f_post[:, :, 1]
+    if yh:
+        f_post[:, :, -1] = f_post[:, :, -2]
+    post = stream.pad_halo(f_post, (True, True, periodic[2]))[:, 1:-1, 1:-1]
+    pushed = stream.pull(lat, post, (Xr - 2, Yr - 2, Z))
+    if GEO.NOTHING in codes:
+        pushed = torch.where(ring[1:-1, 1:-1] == int(GEO.NOTHING), fpad[:, 2:-2, 2:-2], pushed)
+    return pushed, rho[1:-1, 1:-1], u[:, 1:-1, 1:-1]
+
+
 class FusedStepAA:
     """``step(f, nu, u_in=None, force=None, parity=0, out=None, macro_out=None)
     -> (f, rho, u)``.
@@ -186,16 +227,30 @@ class FusedStepAA:
     - ``macro_only``: the u* pre-pass, ``step(...) -> (rho0, u0)``, the
       parity's read, the WALL swap, the symmetry mirrors and the moments
       with the homogeneous force; f is not written.
+
+    ``prepadded=True`` is the sharded step's (JAX ``make_fused_step_aa``
+    with ``prepadded`` and ``local_shape``, its call's ``map_ring_in`` and
+    ``bflags``): the even step (B2, unchanged) on a shard's block of
+    ``local_shape`` with the block's map (``map_arr_in``, uint8 [X, Y, Z] on
+    f's device); the odd step (B3's haloed mode, ``csrc/halo_step.cu``,
+    counted by ``odd``) on the block with a 2-wide x/y halo [Q, X+4, Y+4, Z],
+    the map of the block and its 1-wide ring (``map_ring_in`` [X+2, Y+2, Z])
+    and six face flags (``bflags``: x low, x high, y low, y high, z low, z
+    high, 1 where the block holds the domain's face), writing the block.  It
+    has the float32 cumulant instances, lean and full set; the rest raises
+    naming ``SHARDED_ROADMAP``.
     """
 
     def __init__(self, cfg: LBMConfig, domain: Domain, device, lean: bool = True,
-                 force_field: bool = False, macro_only: bool = False):
+                 force_field: bool = False, macro_only: bool = False, prepadded: bool = False,
+                 local_shape=None):
         if cfg.streaming != "AA":
             raise ValueError("make_fused_step_aa needs streaming='AA'")
         self.cfg = cfg
         self.device = torch.device(device)
         self.lat, self.codes, self.do_coll_codes = _prep(cfg, domain)
-        self.shape = domain.shape
+        self.prepadded = prepadded
+        self.shape = tuple(local_shape) if local_shape is not None else domain.shape
         self.periodic = domain.periodic
         self.force_field, self.macro_only = force_field, macro_only
         self._mode, suffix = variant_mode(force_field, macro_only)
@@ -213,12 +268,23 @@ class FusedStepAA:
                                   else ("aa_even.cu", "aa_odd.cu", ""))
         self.even = CudaKernel("aa_even" + tag + suffix, "tnl_lbm_tpu_torch/csrc/" + even_src,
                                "tnl_lbm_tpu/kernels/fused_aa.py:408")
+        if prepadded:
+            if (self._mode != MODE_STEP or self._instance[0] != "cum" or self._f64
+                    or self.variant not in HALO_ODD_VARIANTS):
+                raise NotImplementedError(
+                    f"the sharded A-A step (B3 on a haloed block) has the float32 cumulant "
+                    f"instances, lean and full set, not {_described(cfg)} in "
+                    f"{cfg.compute_dtype}"
+                    + (" or the force_field / macro_only variants" if self._mode != MODE_STEP
+                       else "") + f" ({SHARDED_ROADMAP})")
+            suffix, odd_src = "_halo", "halo_step.cu"
         self.odd = CudaKernel("aa_odd" + tag + suffix, "tnl_lbm_tpu_torch/csrc/" + odd_src,
                               "tnl_lbm_tpu/kernels/fused_aa.py:287")
         if self.device.type == "cuda":
             _check_kernel_config(cfg, domain, self.device, "the A-A even/odd steps (B2, B3)",
                                  f64=cum_well_step)
-        self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
+        self.map = (None if prepadded else
+                    torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device))
 
     def reset_counts(self) -> None:
         self.even.launches = self.odd.launches = self.plain_calls = 0
@@ -233,16 +299,20 @@ class FusedStepAA:
         return None, _force3(force, dt)
 
     def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None,
-                 out=None, macro_out=None):
+                 out=None, macro_out=None, map_arr_in=None, map_ring_in=None, bflags=None):
         field, fvec = self._forces(f, force, force_add)
         uvec = _u_in3(u_in, self.cfg.compute_dtype)
         if out is not None and self.macro_only:
             raise ValueError("the u* pass writes no state")
+        if self.prepadded and parity == 1:
+            return self._odd_halo(f, nu, fvec, uvec, out, macro_out,
+                                  self._block_map(f, map_ring_in, 2), bflags)
+        m = self._block_map(f, map_arr_in, 0) if self.prepadded else self.map
         check_out(out, f)
         if f.device.type == "cuda":
-            return self._launch(f, float(nu), field, fvec, uvec, parity, out, macro_out)
+            return self._launch(f, float(nu), field, fvec, uvec, parity, out, macro_out, m)
         self.plain_calls += 1
-        f_new, rho, u = self._plain(f, nu, fvec, uvec, parity, field)
+        f_new, rho, u = self._plain(f, nu, fvec, uvec, parity, field, m)
         rho, u = into(macro_out, rho, u)
         if self.macro_only:
             return rho, u
@@ -253,17 +323,82 @@ class FusedStepAA:
             f_new = out.copy_(f_new)
         return f_new, rho, u
 
-    def plain(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None):
+    def plain(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None,
+              map_arr_in=None, map_ring_in=None, bflags=None):
         """The step's plain PyTorch version on f's device: (f_new, rho, u),
         or (rho0, u0) for the u* pass; f untouched.  The CPU path, and the
         oracle the kernels are held against on the card; it counts no call."""
         field, fvec = self._forces(f, force, force_add)
-        f_new, rho, u = self._plain(f, nu, fvec, _u_in3(u_in, self.cfg.compute_dtype), parity,
-                                    field)
+        uvec = _u_in3(u_in, self.cfg.compute_dtype)
+        if self.prepadded and parity == 1:
+            self._check_halo(f, None)
+            return self._plain_odd_halo(f, nu, fvec, uvec, self._block_map(f, map_ring_in, 2),
+                                        bflags)
+        m = self._block_map(f, map_arr_in, 0) if self.prepadded else self.map
+        f_new, rho, u = self._plain(f, nu, fvec, uvec, parity, field, m)
         return (rho, u) if self.macro_only else (f_new, rho, u)
 
-    def _plain(self, f, nu, fvec, uvec, parity, field=None):
-        m = self.map.to(f.device)
+    def _block_map(self, f, m, ring: int):
+        """A haloed call's map: the block's (``ring`` 0) or the block's with
+        its 1-wide ring (``ring`` 2), a contiguous uint8 tensor on f's device."""
+        want = (self.shape[0] + ring, self.shape[1] + ring, self.shape[2])
+        if (not torch.is_tensor(m) or m.dtype != torch.uint8 or m.device != f.device
+                or tuple(m.shape) != want or not m.is_contiguous()):
+            raise ValueError(f"the haloed step takes the block's map at each call: "
+                             f"{'map_ring_in' if ring else 'map_arr_in'}, a contiguous uint8 "
+                             f"{list(want)} tensor on {f.device}")
+        return m
+
+    def _faces(self, bflags) -> tuple:
+        """(x low, x high, y low, y high): the block's faces that are
+        non-periodic faces of the domain, from the six ``bflags``."""
+        if bflags is None or len(bflags) != 6:
+            raise ValueError("the haloed odd step takes six face flags (bflags)")
+        return tuple(bool(float(bflags[i]) > 0) and not self.periodic[i // 2] for i in range(4))
+
+    def _check_halo(self, f, out) -> None:
+        X, Y, Z = self.shape
+        want = (self.lat.Q, X + 4, Y + 4, Z)
+        if tuple(f.shape) != want or not f.is_contiguous():
+            raise ValueError(f"f must be a contiguous {list(want)} block with its 2-wide halo, "
+                             f"got {tuple(f.shape)}")
+        if out is not None and (tuple(out.shape) != (self.lat.Q, X, Y, Z) or out.dtype != f.dtype
+                                or out.device != f.device or not out.is_contiguous()):
+            raise ValueError("out must be a contiguous state block of the local shape")
+
+    def _plain_odd_halo(self, f, nu, fvec, uvec, ring, bflags):
+        return odd_step_halo_plain(self.cfg, self.codes, self.do_coll_codes, self.periodic, f,
+                                   ring, self._faces(bflags), nu, fvec, uvec)
+
+    def _odd_halo(self, f, nu, fvec, uvec, out, macro_out, ring, bflags):
+        """The haloed odd step: its kernel on a CUDA tensor, else its plain version."""
+        self._check_halo(f, out)
+        faces = self._faces(bflags)
+        if f.device.type != "cuda":
+            self.plain_calls += 1
+            f_new, rho, u = self._plain_odd_halo(f, nu, fvec, uvec, ring, bflags)
+            rho, u = into(macro_out, rho, u)
+            return (f_new if out is None else out.copy_(f_new)), rho, u
+        check_dtype(f, self.cfg)
+        X, Y, Z = self.shape
+        lib = load_library()
+        f_new = (torch.empty((self.lat.Q, X, Y, Z), dtype=f.dtype, device=f.device)
+                 if out is None else out)
+        rho, u = macro_buffers(macro_out, (X, Y, Z), 3, f.dtype, f.device)
+        stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
+        gbits = sum(1 << i for i, g in enumerate(faces) if g)
+        rc = lib.tnl_lbm_aa_odd_halo(f.data_ptr(), f_new.data_ptr(), ring.data_ptr(),
+                                     rho.data_ptr(), u.data_ptr(), X, Y, Z,
+                                     int(self.periodic[2]), gbits,
+                                     int(GEO.NOTHING in self.codes), self.variant, float(nu),
+                                     *fvec, *uvec, int(self.cfg.high_precision_rho), stream_ptr)
+        if rc != 0:
+            raise RuntimeError(f"{self.odd.name} launch failed: CUDA error {rc}")
+        self.odd.launches += 1
+        return f_new, rho, u
+
+    def _plain(self, f, nu, fvec, uvec, parity, field=None, m=None):
+        m = (self.map if m is None else m).to(f.device)
         force = fvec if field is None else site_force(field, fvec)
         if parity == 0:
             return even_step_plain(self.cfg, self.codes, self.do_coll_codes, f, m, nu, force,
@@ -271,8 +406,8 @@ class FusedStepAA:
         return odd_step_plain(self.cfg, self.codes, self.do_coll_codes, self.periodic,
                               f, m, nu, force, uvec, macro_only=self.macro_only)
 
-    def _launch(self, f, nu, field, fvec, uvec, parity, out, macro_out):
-        if self.device.type != "cuda" or f.device != self.map.device:
+    def _launch(self, f, nu, field, fvec, uvec, parity, out, macro_out, m):
+        if self.device.type != "cuda" or f.device != m.device:
             raise ValueError(f"f is on {f.device}, the step was built for {self.device}")
         check_dtype(f, self.cfg)
         X, Y, Z = self.shape
@@ -292,25 +427,25 @@ class FusedStepAA:
             f_new = None if self.macro_only else (torch.empty_like(f) if out is None else out)
         if self._f64:  # the CUM_WELL step, the only float64 instances (_check_kernel_config)
             if parity == 0:
-                rc = lib.tnl_lbm_aa_even_f64(f.data_ptr(), self.map.data_ptr(), rho.data_ptr(),
+                rc = lib.tnl_lbm_aa_even_f64(f.data_ptr(), m.data_ptr(), rho.data_ptr(),
                                              u.data_ptr(), X, Y, Z, nu, *fvec, *uvec, neumaier,
                                              stream_ptr)
             else:
-                rc = lib.tnl_lbm_aa_odd_f64(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(),
+                rc = lib.tnl_lbm_aa_odd_f64(f.data_ptr(), f_new.data_ptr(), m.data_ptr(),
                                             rho.data_ptr(), u.data_ptr(), X, Y, Z, pbits,
                                             has_nothing, int(self.variant == _AA_LEAN_VARIANT),
                                             nu, *fvec, *uvec, neumaier, stream_ptr)
         elif self._instance[0] != "cum":
             rc = launch_collision(lib, self._instance, PATTERN_EVEN if parity == 0 else PATTERN_ODD,
-                                  f, f_new, self.map, rho, u, self.shape, self.periodic,
+                                  f, f_new, m, rho, u, self.shape, self.periodic,
                                   has_nothing, nu, fvec, uvec, neumaier, stream_ptr, field)
         elif parity == 0:
-            rc = lib.tnl_lbm_aa_even(f.data_ptr(), self.map.data_ptr(), ff, rho.data_ptr(),
+            rc = lib.tnl_lbm_aa_even(f.data_ptr(), m.data_ptr(), ff, rho.data_ptr(),
                                      u.data_ptr(), X, Y, Z, self.variant, self._mode, nu, *fvec,
                                      *uvec, neumaier, stream_ptr)
         else:
             rc = lib.tnl_lbm_aa_odd(f.data_ptr(), None if f_new is None else f_new.data_ptr(),
-                                    self.map.data_ptr(), ff, rho.data_ptr(), u.data_ptr(),
+                                    m.data_ptr(), ff, rho.data_ptr(), u.data_ptr(),
                                     X, Y, Z, pbits, has_nothing, self.variant, self._mode,
                                     nu, *fvec, *uvec, neumaier, stream_ptr)
         if rc != 0:
@@ -320,12 +455,18 @@ class FusedStepAA:
 
 
 def make_fused_step_aa(cfg: LBMConfig, domain: Domain, device, force_field: bool = False,
-                       macro_only: bool = False, lean: bool = True) -> FusedStepAA:
+                       macro_only: bool = False, lean: bool = True, prepadded: bool = False,
+                       local_shape=None) -> FusedStepAA:
     """A-A step for (cfg, domain) on ``device``: see :class:`FusedStepAA`,
     with its ``force_field`` (per-site force) and ``macro_only`` (u*
-    pre-pass) variants."""
+    pre-pass) variants, and with ``prepadded`` (and the block's
+    ``local_shape``) the sharded step's haloed mode.  The JAX function's
+    ``z_halo`` (z-sharded meshes) and force ring are not ported yet
+    (ROADMAP A13b)."""
+    if local_shape is not None and not prepadded:
+        raise ValueError("local_shape is the haloed block's shape: it needs prepadded=True")
     return FusedStepAA(cfg, domain, device, lean=lean, force_field=force_field,
-                       macro_only=macro_only)
+                       macro_only=macro_only, prepadded=prepadded, local_shape=local_shape)
 
 
 class FusedPairAA:
@@ -418,7 +559,7 @@ class FusedPairAA:
     def __call__(self, f, nu, u_in=None, force=None, out=None, bflags=None, macro_out=None):
         if bflags is not None:
             raise NotImplementedError("per-shard boundary flags are not ported yet "
-                                      "(ROADMAP A13)")
+                                      "(ROADMAP A13b)")
         if u_in is not None and np.ndim(u_in) > 1:
             raise NotImplementedError(f"the A-A pair (B1) takes no per-site inflow profile "
                                       f"({PROFILE_ROADMAP})")
@@ -494,11 +635,11 @@ def make_fused_pair2_aa(cfg: LBMConfig, domain: Domain, device, store_dtype=None
     ``map_mode``, ``zprofile``, ``even_band``, ``vmem_limit_mb``,
     ``_debug_dma``) shape its padded VMEM pipeline and have no counterpart
     here; its sharded knobs (``local_shape``, ``prepadded``, ``z_halo`` and
-    the call's ``bflags``) are not ported yet (ROADMAP A13).
+    the call's ``bflags``) are not ported yet (ROADMAP A13b).
     """
     if local_shape is not None or prepadded or z_halo:
         raise NotImplementedError("the sharded pair (local_shape, prepadded, z_halo) is not "
-                                  "ported yet (ROADMAP A13)")
+                                  "ported yet (ROADMAP A13b)")
     return FusedPairAA(cfg, domain, device, store_dtype=store_dtype, with_macro=with_macro,
                        seg_len=seg_len)
 

@@ -373,10 +373,10 @@ def make_fused_ade_step(cfg: LBMConfig, domain: Domain, device, variable_diffusi
 
     The JAX function's TPU knobs (``tile``, ``tiles_per_program``) shape its
     VMEM windows and have no counterpart here; its sharded knobs
-    ``prepadded`` and ``local_shape`` are not ported yet (ROADMAP A13).
+    ``prepadded`` and ``local_shape`` are not ported yet (ROADMAP A13b).
     """
     if prepadded or local_shape is not None:
         raise NotImplementedError("prepadded / local_shape (the sharded ADE step) are not "
-                                  "ported yet (ROADMAP A13)")
+                                  "ported yet (ROADMAP A13b)")
     return FusedStepADE(cfg, domain, device, variable_diffusion=variable_diffusion,
                         transfer_coeff=transfer_coeff)

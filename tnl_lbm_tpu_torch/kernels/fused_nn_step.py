@@ -174,11 +174,11 @@ def make_fused_nn_step(cfg: LBMConfig, domain: Domain, model, nn_periodic, devic
     :class:`FusedNNStep`.  The JAX function's TPU knobs (``tile``,
     ``tiles_per_program``, ``vmem_budget``) shape its VMEM windows and have
     no counterpart here.  Not ported yet: ``prepadded`` and ``local_shape``
-    (the sharded NN step, ROADMAP A13) and ``with_macro=False`` (ROADMAP
+    (the sharded NN step, ROADMAP A13b) and ``with_macro=False`` (ROADMAP
     A7)."""
     if prepadded or local_shape is not None:
         raise NotImplementedError("prepadded / local_shape (the sharded NN step) are not "
-                                  "ported yet (ROADMAP A13)")
+                                  "ported yet (ROADMAP A13b)")
     if not with_macro:
         raise NotImplementedError("with_macro=False is not ported yet (ROADMAP A7)")
     return FusedNNStep(cfg, domain, model, nn_periodic, device)

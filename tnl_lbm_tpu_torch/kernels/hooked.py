@@ -29,7 +29,7 @@ each D3Q27 collision of ``kernels/fused.py step_instance``):
 The TPU pipeline's shared halo pad (``share_pad``, ``prepadded``,
 ``_pad_once``) has no counterpart: the port's kernels clamp and wrap in
 the kernel.  The sharded hooked step (``make_sharded_hooked_fused_step``)
-is ROADMAP A13.
+is ROADMAP A13b.
 """
 
 from __future__ import annotations

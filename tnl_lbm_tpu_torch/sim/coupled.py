@@ -33,7 +33,7 @@ dropped after ``sim_init`` on the A-B path: that is how B7 is held against
 the two launches.
 
 The kernel paths ping-pong two preallocated f buffers and two g buffers.
-Mixed patterns with ``use_fused`` and a sharded plan (ROADMAP A13) raise.
+Mixed patterns with ``use_fused`` and a sharded plan (ROADMAP A13b) raise.
 A checkpoint saves g beside f (``checkpoint_arrays_extra``), and a resumed
 run takes g from it and phi as its density (JAX ``sim/coupled.py:55-67``).
 The coupled loop advances one step per dispatch, as the JAX one does: it
@@ -66,7 +66,7 @@ class CoupledSimulation(Simulation):
                  phi_inflow: float | None = None, plan=None, **kw):
         if plan is not None:
             raise NotImplementedError("the sharded coupled lattices are not ported yet "
-                                      "(ROADMAP A13)")
+                                      "(ROADMAP A13b)")
         super().__init__(cfg, domain, **kw)
         self.ade_cfg = ade_cfg
         self.ade_domain = ade_domain

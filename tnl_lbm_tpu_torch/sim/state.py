@@ -54,6 +54,19 @@ and replay it after that, the counterpart of the JAX scan's one device
 program; elsewhere the same chunk runs eagerly, and so does a chunk whose
 forcing hook reads the host (the IBM solve): there alone the chunk is not
 one device program where the JAX scan is.
+
+Under a ``plan`` (``parallel/sharded.py``; JAX ``Simulation(plan=...)``)
+the state, rho, u and the statistics windows are ShardedFields, one block
+per shard on its device, made at ``sim_init``; with ``use_fused`` the 3D
+A-B steps run through the sharded A-B step (B4 on haloed blocks; a lattice
+the mesh does not divide pads and crops) and the A-A steps through the
+sharded even/odd steps (B2, and B3 on haloed blocks), else through the
+plain sharded step.  ``self.rho`` and ``self.u`` read the shards' blocks
+gathered on ``device`` (the outputs, the probes, the NaN scan); each PRINT
+logs the halo traffic to the profile log.  Under a plan every step is
+dispatched from Python (no chunk, no CUDA graph: ``_scan_chunk_args``),
+pair dispatch "auto" keeps per-step dispatch, and "on" or half storage
+raise (the sharded pair, ROADMAP A13b).
 """
 
 from __future__ import annotations
@@ -74,6 +87,7 @@ from tnl_lbm_tpu_torch.io.vtk import write_vti
 from tnl_lbm_tpu_torch.kernels.fused import NP_DTYPES, kernel_counters, make_fused_step, supports
 from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
 from tnl_lbm_tpu_torch.ops import moments as mom
+from tnl_lbm_tpu_torch.parallel.sharded import A13B, ShardedField
 from tnl_lbm_tpu_torch.sim import checkpoint as ckpt
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig, initial_dfs
 from tnl_lbm_tpu_torch.sim.step import make_step
@@ -248,10 +262,15 @@ class Simulation:
         steps_per_dispatch: int = 1,
         use_fused: bool = False,
         pair_dispatch: bool | str = "auto",
+        plan=None,
     ):
         self.cfg = cfg
         self.domain = domain
         self.device = resolve_device(device)
+        #: the ShardPlan of a sharded run (parallel/sharded.py), or None
+        self.plan = plan
+        for dev in plan.devices if plan is not None else ():
+            resolve_device(dev)
         self.id = sim_id
         self.results_dir = Path(results_parent) / f"results_{sim_id}"
         self.wall_time_limit = wall_time_limit
@@ -333,6 +352,31 @@ class Simulation:
         self._vtk_series = {}
 
     # ------------------------------------------------------------------ hooks
+    @property
+    def rho(self):
+        """Density [*S]; under a plan the shards' blocks gathered on ``device``."""
+        return self._macro(0)
+
+    @rho.setter
+    def rho(self, value):
+        self._rho, self._gathered = value, None
+
+    @property
+    def u(self):
+        """Velocity [D, *S]; under a plan the shards' blocks gathered on ``device``."""
+        return self._macro(1)
+
+    @u.setter
+    def u(self, value):
+        self._u, self._gathered = value, None
+
+    def _macro(self, i: int):
+        if not isinstance(self._rho, ShardedField):
+            return (self._rho, self._u)[i]
+        if self._gathered is None:  # once per step at most
+            self._gathered = (self._rho.gather(self.device), self._u.gather(self.device))
+        return self._gathered[i]
+
     def update_inflow(self, phys_time: float):
         """Inflow velocity for this step, or None: a [D] vector, or a
         profile broadcastable to [D, *S] (a tensor on the run's device
@@ -407,6 +451,9 @@ class Simulation:
         is built without ``storage_dtype`` (the pair loop widens the state
         at the end of each chunk)."""
         cfg = dataclasses.replace(self.cfg, storage_dtype=None)
+        if self.plan is not None:
+            self._step = self._sharded_step(cfg)
+            return
         if not self.use_fused:
             self._step = make_step(cfg, self.domain)
             return
@@ -429,6 +476,26 @@ class Simulation:
         from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_step_aa
 
         self._step = make_fused_step_aa(cfg, self.domain, self.device)
+
+    def _sharded_step(self, cfg):
+        """The step of a sharded run (JAX ``Simulation.__init__`` under a
+        plan): with the kernels, the 3D A-B step (B4 on haloed blocks, padded
+        and cropped where the mesh does not divide the lattice) or the A-A
+        steps (B2, B3 on haloed blocks); without them the plain sharded
+        step.  What the sharded lattice does not take yet raises."""
+        from tnl_lbm_tpu_torch.parallel import sharded as sh
+
+        if not self.use_fused:
+            return sh.make_sharded_step(cfg, self.domain, self.plan)
+        if cfg.forcing_hook is not None or cfg.lat.D != 3:
+            raise NotImplementedError(f"the sharded {'hooked' if cfg.forcing_hook else '2D'} "
+                                      f"steps are not ported yet ({A13B})")
+        if cfg.streaming == "AA":
+            return sh.make_sharded_fused_step_aa(cfg, self.domain, self.plan)
+        if self.plan.divisible(self.domain):
+            return sh.make_sharded_fused_step(cfg, self.domain, self.plan)
+        return sh._make_uneven_sharded_step(cfg, self.domain, self.plan,
+                                            inner_builder=sh.make_sharded_fused_step)
 
     def _build_pair(self):
         """The pair kernel of pair dispatch (``make_dispatch_pair``): B1 on a
@@ -486,7 +553,18 @@ class Simulation:
         "auto" measures both dispatches on a CUDA device and keeps the
         faster, and is per-step on the CPU (the plain versions are no
         production path).  A pair kernel that fails to build or launch
-        raises: there is no fallback."""
+        raises: there is no fallback.  Under a plan "auto" keeps per-step
+        dispatch, and "on" or half storage raise: the sharded pair is not
+        ported yet."""
+        if self.plan is not None:
+            if self.cfg.storage_dtype is not None or self.pair_dispatch is True:
+                raise NotImplementedError(f"pair dispatch and half storage under a plan need the "
+                                          f"sharded A-A pair, not ported yet ({A13B})")
+            if self.pair_dispatch == "auto" and self._pair_dispatch_capable():
+                self.log.info("pair-dispatch auto: the sharded pair is not ported yet (%s) -> "
+                              "per-step dispatch under the plan", A13B)
+            self.pair_dispatch = False
+            return
         if self.cfg.storage_dtype is not None:
             # half storage exists only on the pair path; falling back to the
             # full-width per-step kernels would ignore the precision request
@@ -580,11 +658,15 @@ class Simulation:
         else:
             self._restored_arrays = None
             self.f = initial_dfs(self.cfg, self.domain, self.device)
+        if self.plan is not None:
+            self._shard_state()
         self._alloc_stats()
         self._stat_n = torch.zeros(2, dtype=self.cfg.compute_dtype, device=self.device)
         self._initial_macro()
         self._resolve_pair_dispatch()
-        if self.use_fused:
+        if self.plan is not None:
+            self._spare = self.f.empty_like() if self.use_fused else None
+        elif self.use_fused:
             if self._pair_dispatch_ok() and self.cfg.storage_dtype is not None:
                 self._narrow = tuple(torch.empty(self.f.shape, dtype=self.cfg.storage_dtype,
                                                  device=self.device) for _ in range(2))
@@ -592,6 +674,19 @@ class Simulation:
                 self._spare = torch.empty_like(self.f)
         self._glups_prev_time = time.time()
         self._t_wall_start = time.time()
+
+    def _shard_state(self):
+        """The state and any statistics window as the plan's ShardedFields
+        (fields the mesh does not divide tile the step's padded extent)."""
+        padded = self._step.padded_shape
+
+        def shard(t):
+            return None if t is None else self.plan.shard_field(t, like_f=True,
+                                                                padded_shape=padded)
+
+        self.f = shard(self.f)
+        self.vm, self.vm2 = shard(self.vm), shard(self.vm2)
+        self.vm_b, self.vm2_b = shard(self.vm_b), shard(self.vm2_b)
 
     def _resume(self, arrays: dict, meta: dict):
         """Take the state, counters and statistics of a checkpoint (either
@@ -627,10 +722,20 @@ class Simulation:
         """Macro fields of the initial state without advancing (reference
         computeInitialMacro, lbm_block.hpp:252-277): the buffers the kernel
         routes write rho and u into from then on."""
-        rho, u = mom.density_velocity(self.cfg.lat, self.f, well=self.cfg.well,
-                                      high_precision=self.cfg.high_precision_rho)
         dt = self.cfg.compute_dtype
-        self.rho, self.u = rho.to(dt).contiguous(), u.to(dt).contiguous()
+
+        def macro(f):
+            rho, u = mom.density_velocity(self.cfg.lat, f, well=self.cfg.well,
+                                          high_precision=self.cfg.high_precision_rho)
+            return rho.to(dt).contiguous(), u.to(dt).contiguous()
+
+        if isinstance(self.f, ShardedField):
+            parts = [macro(b) for b in self.f.blocks]
+            S, D = tuple(self.domain.shape), self.cfg.lat.D
+            self.rho = ShardedField(self.plan, [p[0] for p in parts], S, self.f.padded)
+            self.u = ShardedField(self.plan, [p[1] for p in parts], (D,) + S, self.f.padded)
+        else:
+            self.rho, self.u = macro(self.f)
 
     # ------------------------------------------------------------ statistics
     def _update_stats(self, u, vm, vm2, n):
@@ -640,6 +745,10 @@ class Simulation:
         the device, advanced by one, so that a replayed chunk divides by
         the count of its own step."""
         D = self.cfg.lat.D
+        if isinstance(u, ShardedField):  # block by block, the host's count
+            for ub, vb, v2b in zip(u.blocks, vm.blocks, vm2.blocks):
+                self._update_stats(ub, vb, v2b, torch.tensor(float(n), dtype=ub.dtype))
+            return
         denom = 1.0 / (n + 1.0)
         delta = u - vm
         vm.add_(delta * denom)
@@ -658,6 +767,11 @@ class Simulation:
                             (self.collect_stats2, "vm_b", "vm2_b")):
             if on and getattr(self, vm) is None:
                 for name, rows in ((vm, D), (vm2, D * (D + 1) // 2)):
+                    if self.plan is not None:  # zero blocks like the state's
+                        blocks = [b.new_zeros((rows,) + b.shape[1:]) for b in self.f.blocks]
+                        setattr(self, name, ShardedField(self.plan, blocks, (rows,) + shape,
+                                                         self.f.padded))
+                        continue
                     setattr(self, name, torch.zeros((rows,) + shape, dtype=self.cfg.compute_dtype,
                                                     device=self.device))
 
@@ -671,7 +785,8 @@ class Simulation:
                 continue
             if getattr(self, vm) is None:
                 self._alloc_stats()
-            self._update_stats(self.u, getattr(self, vm), getattr(self, vm2), self._stat_n[k])
+            n = getattr(self, name) if self.plan is not None else self._stat_n[k]
+            self._update_stats(self._u, getattr(self, vm), getattr(self, vm2), n)
             if counts:
                 setattr(self, name, getattr(self, name) + 1)
 
@@ -734,8 +849,9 @@ class Simulation:
             self.f, self.rho, self.u = self._step(self.f, nu, u_in=u_in, force=force,
                                                   parity=parity, **kw)
             return
+        self._gathered = None
         f_new, _, _ = self._step(self.f, nu, u_in=u_in, force=force, parity=parity,
-                                 out=self._spare, macro_out=(self.rho, self.u), **kw)
+                                 out=self._spare, macro_out=(self._rho, self._u), **kw)
         if f_new is not self.f:  # out of place: the old state is the next spare
             self._spare, self.f = self.f, f_new
 
@@ -765,7 +881,8 @@ class Simulation:
                 self._advance_scan(n_steps, nu, *args)
             else:
                 self._advance_steps(n_steps, nu, uin0)
-        synchronize(self.device)
+        for dev in {self.device, *(self.plan.devices if self.plan is not None else ())}:
+            synchronize(dev)
         self._compute_time += time.perf_counter() - t0
 
     def _advance_steps(self, n_steps: int, nu: float, uin0=_UNSET):
@@ -794,7 +911,7 @@ class Simulation:
         as often as the loop the chunk replaces would, until two differ;
         sameness is identity first - sim2d_3's cached profile on the card
         needs no read-back - then equal values)."""
-        if (n_steps < 4
+        if (n_steps < 4 or self.plan is not None
                 or (self.collect_stats and self.vm is None)
                 or (self.collect_stats2 and self.vm_b is None)):
             return None
@@ -1168,6 +1285,14 @@ class Simulation:
             frac = t / self.phys_final_time
             eta = f" ETA {(now - self._t_wall_start) * (1 - frac) / frac:.0f}s"
         self.log.info("iter %d t=%.6g GLUPS=%.4f%s", it, t, glups, eta)
+        if self.plan is not None and d_it > 0 and d_t > 0:
+            # the halo bytes of the plan's exchange (JAX state.py: the
+            # reference's MPI statistics, lbm.hpp:238-279)
+            from tnl_lbm_tpu_torch.parallel.profiling import halo_traffic
+
+            self.prof.info(halo_traffic(self.domain, self.plan,
+                                        itemsize=self._rho.dtype.itemsize,
+                                        subset=not self.use_fused).log_line(d_it, d_t))
         self._glups_prev_iter = it
         self._glups_prev_time = now
 

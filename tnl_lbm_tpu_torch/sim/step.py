@@ -75,11 +75,12 @@ def as_vector(lat, arr, dtype, device) -> torch.Tensor:
     return a
 
 
-def make_step(cfg: LBMConfig, domain: Domain):
+def make_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=None):
     """Build the per-step function for (cfg, domain).
 
-    Returns ``step(f, nu, u_in=None, force=None, parity=0, hook_consts=None)
-    -> (f_new, rho, u)`` with ``parity`` the A-A parity (ignored for A-B).
+    Returns ``step(f, nu, u_in=None, force=None, parity=0, hook_consts=None,
+    map_arr=None, bouzidi_arr=None) -> (f_new, rho, u)`` with ``parity``
+    the A-A parity (ignored for A-B).
     ``u_in`` (a [D] vector or a per-site profile broadcastable to [D, *S])
     feeds the INFLOW and INFLOW_LEFT codes, ``force`` is the body force (a
     [D] vector or a [D, *S] field).  On a D2Q9 lattice FLUID_NEAR_WALL
@@ -93,21 +94,37 @@ def make_step(cfg: LBMConfig, domain: Domain):
     moments and the collision.  ``step.ustar(f, force=None, parity=0) ->
     (rho0, u0, fluid)`` is that u* pass alone (reference kernels.h:178-218),
     the first phase of ``kernels/hooked.py``'s pipeline.
+
+    The sharded step (``parallel/sharded.py make_sharded_step``) runs it on
+    every shard's block: ``local_shape`` is the block's shape,
+    ``pad_halo(f, comps)`` its halo pad (by default the edge/wrap pad of
+    the whole lattice; ``comps`` tells a direction-subset exchange which
+    components a pull reads: "own" for the pull, "opp" for the A-A odd
+    read, "all" where Bouzidi reads others), and ``map_arr`` /
+    ``bouzidi_arr`` the block's map and thetas at each call.
     """
     check_supported(cfg, domain)
     lat = cfg.lat
     D = lat.D
-    S = domain.shape
+    S = tuple(local_shape) if local_shape is not None else domain.shape
+    if pad_halo is None:
+        def pad_halo(f, comps="all"):
+            return stream.pad_halo(f, domain.periodic)
     dtype = cfg.compute_dtype
     codes = domain.codes_present()
     opp = np.asarray(lat.opp)
     do_coll_codes = sorted(int(c) for c in (bc.collision_mask_codes(D) & codes))
     sym_codes = [c for c in codes if c in bc.sym_table(D)]
     bouzidi = GEO.FLUID_NEAR_WALL in codes and domain.bouzidi is not None
+    # the components each pull reads off the halo (JAX make_step's subset hint)
+    comps_pull = "all" if GEO.FLUID_NEAR_WALL in codes else "own"
+    comps_pull_aa = "all" if GEO.FLUID_NEAR_WALL in codes else "opp"
     maps = {}
 
-    def _map(device):
-        """(map, thetas) on ``device``, made once."""
+    def _map(device, map_arr=None, bouzidi_arr=None):
+        """(map, thetas) on ``device``, made once, or the call's own."""
+        if map_arr is not None:
+            return map_arr, bouzidi_arr if bouzidi else None
         m = maps.get(device)
         if m is None:
             bz = (torch.as_tensor(np.asarray(domain.bouzidi), dtype=dtype, device=device)
@@ -119,7 +136,7 @@ def make_step(cfg: LBMConfig, domain: Domain):
         """Post-streaming DFs at every site, with the outflow and Bouzidi pull rules."""
         if cfg.streaming == "AA" and parity == 0:
             return f  # even step: same site, same direction
-        fpad = stream.pad_halo(f, domain.periodic)
+        fpad = pad_halo(f, comps=comps_pull_aa if cfg.streaming == "AA" else comps_pull)
         if cfg.streaming == "AA":
             f_in = stream.pull_from(lat, fpad, S, opp)
         else:
@@ -154,8 +171,9 @@ def make_step(cfg: LBMConfig, domain: Domain):
         m = masks.get(GEO.FLUID)
         return m if m is not None else torch.zeros(S, dtype=torch.bool, device=device)
 
-    def step(f, nu, u_in=None, force=None, parity: int = 0, hook_consts=None):
-        map_arr, thetas = _map(f.device)
+    def step(f, nu, u_in=None, force=None, parity: int = 0, hook_consts=None, map_arr=None,
+             bouzidi_arr=None):
+        map_arr, thetas = _map(f.device, map_arr, bouzidi_arr)
         masks = {c: map_arr == int(c) for c in codes}
         do_coll = torch.isin(map_arr, torch.as_tensor(do_coll_codes, device=f.device))
 
@@ -190,7 +208,7 @@ def make_step(cfg: LBMConfig, domain: Domain):
                 f_out = f_post[torch.tensor(opp.tolist(), dtype=torch.long, device=f.device)]
             else:
                 # push = pull of the edge/wrap-padded post-collision field
-                f_out = stream.pull(lat, stream.pad_halo(f_post, domain.periodic), S)
+                f_out = stream.pull(lat, pad_halo(f_post, comps="own"), S)
         else:
             f_out = f_post
 
@@ -205,11 +223,11 @@ def make_step(cfg: LBMConfig, domain: Domain):
                 u_out = torch.where(masks[c], torch.zeros_like(u), u_out)
         return f_out.contiguous(), rho_out, u_out
 
-    def ustar(f, force=None, parity: int = 0):
+    def ustar(f, force=None, parity: int = 0, map_arr=None, bouzidi_arr=None):
         """The u* pass: (rho0, u0, fluid) - the moments with the body force
         of the pulled, wall/symmetry-transformed DFs, before the
         inflow/outflow macro overrides (the hook's input in ``step``)."""
-        map_arr, thetas = _map(f.device)
+        map_arr, thetas = _map(f.device, map_arr, bouzidi_arr)
         masks = {c: map_arr == int(c) for c in codes}
         f_in = _transformed(f, parity, masks, thetas)
         force_b = as_vector(lat, force, dtype, f.device) if force is not None else None

@@ -116,11 +116,11 @@ def make_ade_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=Non
     ordered like lat.names[1:]) marking links that cross the phase
     interface.  ``phi_in=None`` leaves the INFLOW sites as streamed.  The
     sharded knobs ``pad_halo`` and ``local_shape`` are not ported yet
-    (ROADMAP A13).
+    (ROADMAP A13b).
     """
     if pad_halo is not None or local_shape is not None:
         raise NotImplementedError("pad_halo / local_shape (the sharded ADE step) are not "
-                                  "ported yet (ROADMAP A13)")
+                                  "ported yet (ROADMAP A13b)")
     lat = cfg.lat
     S = domain.shape
     dtype = cfg.compute_dtype
