@@ -5596,13 +5596,58 @@ def halo_compares() -> dict:
     return err
 
 
+def halo_reads(lat, codes, w: int, periodic_z: bool, faces=None) -> tuple[int, int, int]:
+    """(distinct f elements read, threads, colliding threads) of a haloed
+    kernel on this map: ``codes`` is the map at each thread's site, the
+    block [X, Y, Z] for the A-B step (w = 1), the block and its 1-wide ring
+    [X + 2, Y + 2, Z] for the odd step (w = 2), whose ring sites on the
+    block's non-periodic domain faces (``faces``: x low, x high, y low, y
+    high) return at once.  A thread pulls one element of each component at
+    s - c_q (the odd step: of component opp(q)), so in x and y no two
+    threads read the same one and the halo gives only the components that
+    point into the threads' sites; a non-periodic z clamps, so two threads
+    read the first and last planes; a NOTHING site of the A-B step reads its
+    own 27 in place of the pull, one of the odd step's block both
+    (``lbm_site.cuh`` ``ab_halo_site``, ``aa_odd_halo_site``; no outflow
+    site, whose pulls read x - 1)."""
+    from tnl_lbm_tpu_torch.ops.boundary import GEO
+
+    nothing = codes == int(GEO.NOTHING)
+    Xt, Yt, Z = codes.shape
+    active = np.ones(codes.shape, dtype=bool)
+    if faces is not None:
+        for flag, edge in zip(faces, (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1])):
+            if flag:
+                active[edge] = False
+    own = nothing if faces is None else nothing[1:-1, 1:-1]
+    pulls = active & ~nothing if faces is None else active
+    X, Y = own.shape[:2]
+    seen = np.zeros((X + 2 * w, Y + 2 * w, Z), dtype=bool)
+    total = 0
+    for cx, cy, cz in np.asarray(lat.c, dtype=int):
+        # thread z reads plane neighbour(z, -cz): mark plane p for every z that reads it
+        shifted = np.roll(pulls, -cz, axis=2) if periodic_z or cz == 0 else np.zeros_like(pulls)
+        if not periodic_z and cz == 1:
+            shifted[:, :, :-1] = pulls[:, :, 1:]
+            shifted[:, :, 0] |= pulls[:, :, 0]
+        elif not periodic_z and cz == -1:
+            shifted[:, :, 1:] = pulls[:, :, :-1]
+            shifted[:, :, -1] |= pulls[:, :, -1]
+        seen[:] = False
+        seen[1 - cx:1 - cx + Xt, 1 - cy:1 - cy + Yt] = shifted  # threads at origin 1
+        seen[w:w + X, w:w + Y] |= own
+        total += int(seen.sum())
+    return total, int(active.sum()), int((active & ~nothing).sum())
+
+
 def halo_kernel_times(ops: dict) -> dict:
     """The haloed kernels at sim_2 res 8's shard shape on 2 y-shards (block
-    32 x 128 x 256), each on a seeded state, 20 launches on CUDA events
-    (plain: 3 calls), with their bound: the haloed block's reads, the
-    block's writes, the map (B3: its ring) and rho and u, against the FP32
-    (FP64) slots of every thread (B3: the block and its ring) over the
-    card's issue rates.  Returns key -> (ms, plain ms, bound ms, bound_by)."""
+    32 x 128 x 256, shard 0), each on a seeded state, 20 launches on CUDA
+    events (plain: 3 calls), with their bound: the distinct f elements the
+    threads read (``halo_reads``, on shard 0's map), the block's writes,
+    rho and u, the map at each thread's site, against the FP32 (FP64) slots
+    of every thread that collides over the card's issue rates.  Returns key -> (ms, plain ms, bound
+    ms, bound_by)."""
     import torch
 
     from tnl_lbm_tpu_torch.apps import sim_2
@@ -5632,16 +5677,22 @@ def halo_kernel_times(ops: dict) -> dict:
                                 macro_out=macro, **kw), 20)
         plain_ms = time_ms(lambda: ls.plain(halo, NU, force=(FORCE_SMALL, 0.0, 0.0), **kw), 3)
         item = fout.element_size()
-        sites, w = X * Y * Z, 1 if streaming == "AB" else 2
-        threads = sites if streaming == "AB" else (X + 2) * (Y + 2) * Z
-        read = 27 * item * (X + 2 * w) * (Y + 2 * w) * Z + threads * (w > 1) + sites * (w == 1)
-        moved = read + (27 + 4) * item * sites
+        sites = X * Y * Z
+        if streaming == "AB":
+            reads, threads, colliding = halo_reads(cfg.lat, step.maps.blocks[0].cpu().numpy(), 1,
+                                                   bool(dom.periodic[2]))
+        else:
+            reads, threads, colliding = halo_reads(cfg.lat, step.rings[0].cpu().numpy(), 2,
+                                                   bool(dom.periodic[2]),
+                                                   ls._faces(step.bflags[0]))
+        moved = item * reads + (27 + 4) * item * sites + threads
         per_thread = ops[name]
-        b_ms, b_by = bound(moved / sites, tuple(v * threads / sites for v in per_thread), sites)
+        b_ms, b_by = bound(moved / sites, tuple(v * colliding / sites for v in per_thread), sites)
         out[key] = (ms, plain_ms, b_ms, b_by)
         log("sharded", timing=key, kernel=name, block=f"{X}x{Y}x{Z}", ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
-            bytes_moved=moved, fp32_slots_per_thread=per_thread[0],
+            bytes_moved=moved, bytes_per_site=f"{moved / sites:.3f}", threads=threads,
+            colliding_threads=colliding, f_elements_read=reads, fp32_slots_per_thread=per_thread[0],
             fp64_slots_per_thread=per_thread[2])
         del step, f, halo, fout, macro
         torch.cuda.empty_cache()
@@ -5649,10 +5700,13 @@ def halo_kernel_times(ops: dict) -> dict:
 
 
 def sharded_runs() -> tuple[dict, dict]:
-    """N shards against one on one card: sim_2 res 8 A-B on 1 (and
-    unsharded), choose_plan's 2 and 4 and its uneven 3; sim_2 res 8 A-A per
-    step on 1 and 2; sim_1 res 4 A-A on 1 and 2 x 2; SHARDED_STEPS steps each
-    through ``Simulation._advance`` from rest, the N-shard fields held to
+    """N shards against one on one card: sim_2 res 8 A-B unsharded and on
+    1, choose_plan's 2 and 4 and its uneven 3; sim_2 res 8 A-A per step
+    unsharded and on 1 and 2; sim_1 res 4 A-A unsharded and on 1 and 2 x 2;
+    where the machine has more than one card, each group also over 2 cards
+    and over every card.  SHARDED_STEPS steps each through
+    ``Simulation._advance`` from rest; the one-shard and the multi-card
+    fields held to the unsharded kernels' run, the other one-card runs' to
     the one-shard run's (bit for bit, or the difference printed and within
     the step bounds).  Each run's ms per step, MLUPS, peak memory and, where
     it is sharded, its halo exchange on CUDA events.  Returns the haloed
@@ -5664,23 +5718,28 @@ def sharded_runs() -> tuple[dict, dict]:
     launches = {k: 0 for k in HALO_KERNELS}
     figures = {}
     cuda0 = DEVICE + ":0"
+    n_cards = torch.cuda.device_count()
+    cards = [(f"{k} cards", [f"{DEVICE}:{i}" for i in range(k)])
+             for k in sorted({2, n_cards}) if n_cards > 1]
     groups = (("sim_2", SHARDED_RES, "AB", (("unsharded", None), ("1", (1, 1, 1)), ("2", 2),
-                                             ("4", 4), ("3 uneven", 3))),
-              ("sim_2", SHARDED_RES, "AA", (("1", (1, 1, 1)), ("2", 2))),
-              ("sim_1", SHARDED_SIM1_RES, "AA", (("1", (1, 1, 1)), ("2x2", (2, 2, 1)))))
+                                             ("4", 4), ("3 uneven", 3), *cards)),
+              ("sim_2", SHARDED_RES, "AA", (("unsharded", None), ("1", (1, 1, 1)), ("2", 2),
+                                             *cards)),
+              ("sim_1", SHARDED_SIM1_RES, "AA", (("unsharded", None), ("1", (1, 1, 1)),
+                                                  ("2x2", (2, 2, 1)), *cards)))
     for app, res, streaming, plans in groups:
         kept = {}  # the group's unsharded and one-shard fields
         for name, spec in plans:
             label = f"{app}_res{res}_{streaming}_{name.replace(' ', '_')}"
             sim = sharded_app(app, res, streaming, None, label)
             plan = (None if spec is None else card_plan(spec) if isinstance(spec, tuple)
-                    else choose_plan(sim.domain, [cuda0] * spec))
+                    else choose_plan(sim.domain, spec if isinstance(spec, list) else [cuda0] * spec))
             sim.plan = plan
             sim.sim_init()
             sim._advance(SHARDED_STEPS)
             ms_step, mlups, peak = run_figures(sim)
             fields = sharded_fields(sim)
-            halo_ms, diffs = None, None
+            halo_ms, diffs, against = None, None, None
             if plan is None:
                 kept["unsharded"] = fields
             else:
@@ -5688,47 +5747,31 @@ def sharded_runs() -> tuple[dict, dict]:
                     if k in launches:
                         launches[k] += v
                 halo_ms = time_ms(lambda: sharded_step(sim).exchange(sim.f), 20)
-                if "one" in kept:
-                    diffs = [max_diff(a, b) for a, b in zip(fields, kept["one"])]
-                else:
+                against = ("unsharded" if name == "1" or isinstance(spec, list) else "one")
+                if name == "1":
                     kept["one"] = fields
-                    if "unsharded" in kept:
-                        d = [max_diff(a, b) for a, b in zip(fields, kept["unsharded"])]
-                        log("sharded", run=label, vs_unsharded_kernels_max_df=f"{d[0]:.3e}",
-                            max_drho=f"{d[1]:.3e}", max_du=f"{d[2]:.3e}")
+                diffs = [max_diff(a, b) for a, b in zip(fields, kept[against])]
             figures[label] = {"ms_per_step": ms_step, "mlups": mlups, "peak_gb": peak,
                               "halo_ms": halo_ms, "counts": None if plan is None else plan.counts}
             log("sharded", run=label, plan="unsharded" if plan is None else
-                "x".join(map(str, plan.counts)), steps=sim.iterations,
-                ms_per_step=f"{ms_step:.4f}", mlups=f"{mlups:.1f}",
+                "x".join(map(str, plan.counts)),
+                devices="n/a" if plan is None else ",".join(sorted({str(d) for d in plan.devices})),
+                steps=sim.iterations, ms_per_step=f"{ms_step:.4f}", mlups=f"{mlups:.1f}",
                 max_memory_allocated_gb=f"{peak:.3f}",
                 halo_exchange_ms="n/a" if halo_ms is None else f"{halo_ms:.4f}",
-                **({} if diffs is None else {"vs_one_shard_max_df": f"{diffs[0]:.3e}",
+                **({} if diffs is None else {"against": against,
+                                             "max_df": f"{diffs[0]:.3e}",
                                              "max_drho": f"{diffs[1]:.3e}",
                                              "max_du": f"{diffs[2]:.3e}",
                                              "bit_equal": all(d == 0 for d in diffs)}))
             if diffs is not None and any(d > t for d, t in zip(diffs, (TOL_F, TOL_RHO, TOL_U))):
-                raise RuntimeError(f"{label}: {diffs} from the one-shard run, beyond the step "
+                raise RuntimeError(f"{label}: {diffs} from the {against} run, beyond the step "
                                    f"bounds")
             if not all(bool(torch.isfinite(t).all()) for t in fields):
                 raise RuntimeError(f"{label}: non-finite fields")
             del sim, fields
             torch.cuda.empty_cache()
         del kept
-    if torch.cuda.device_count() > 1:
-        sim = sharded_app("sim_2", SHARDED_RES, "AB", None, "cards")
-        plan = sim.plan = choose_plan(sim.domain)
-        sim.sim_init()
-        sim._advance(SHARDED_STEPS)
-        ms_step, mlups, peak = run_figures(sim)
-        halo_ms = time_ms(lambda: sharded_step(sim).exchange(sim.f), 20)
-        launches["ab_step_halo"] += halo_launches(sim)["ab_step_halo"]
-        figures["cards"] = {"ms_per_step": ms_step, "mlups": mlups, "halo_ms": halo_ms,
-                            "counts": plan.counts}
-        log("sharded", run="sim_2 res 8 AB over the cards", plan="x".join(map(str, plan.counts)),
-            devices=",".join(str(d) for d in plan.devices), ms_per_step=f"{ms_step:.4f}",
-            mlups=f"{mlups:.1f}", halo_exchange_ms=f"{halo_ms:.4f}")
-        del sim
     return launches, figures
 
 

@@ -52,8 +52,9 @@ AB_F64_KERNEL(ab_step_f64_profile_cum_well_kernel, true)
 
 // The vector instance on a shard's haloed block (the sharded A-B step, as
 // halo_step.cu's float32 instances): f [27, X+2, Y+2, Z], the rest the
-// block [X, Y, Z] (lbm_site.cuh ab_halo_site).  Bound as the step's, with
-// the haloed block's reads.
+// block [X, Y, Z] (lbm_site.cuh ab_halo_site).  Bound as the step's: each
+// thread reads 27 distinct elements, the halo's in place of the block
+// edge's that leave it (halo_step.cu).
 extern "C" __global__ void __launch_bounds__(THREADS)
     ab_halo_f64_cum_well_kernel(const double* __restrict__ f, double* __restrict__ fout,
                                 const uint8_t* __restrict__ map, double* __restrict__ rho,

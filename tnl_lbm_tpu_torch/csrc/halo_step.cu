@@ -26,12 +26,16 @@
 // lean instance on its FLUID/WALL/NOTHING duct; sim_1: CUM with eq_inv_cum;
 // sim_3: CUM with eq_quadratic).  The float64 A-B instance is in f64_ab.cu.
 //
-// Bound: HBM bytes.  Per site of the block and step the A-B kernel reads
-// 27 f32 of the haloed block (216 B times (X+2)(Y+2) / XY) and writes 27
-// (216 B), and moves the map and rho and u (17 B); the odd kernel reads the
-// block with its 2-wide halo and the ring's map and writes the same.  The
-// halo exchange (tnl_lbm_tpu_torch/parallel/sharded.py) is a copy of its
-// own.  Same design as the unsharded kernels: z along threadIdx.x, so that
+// Bound: HBM bytes.  A thread pulls one element of each component, at
+// s - c_q, so no two threads read the same one in x and y: the halo gives
+// only the components that point into the threads' sites (9 of 27 a face
+// site of the A-B halo; 18 on the odd step's inner ring and 9 on its
+// outer), and the A-B block's edge sites lose those that leave it.  So the
+// A-B kernel reads 108 B a site, as the unsharded step, writes 108 B, and
+// moves the map and rho and u (17 B); the odd kernel reads 108 B for each
+// of its threads (the block and its ring) and the ring's map, and writes
+// the same (chip_smoke.py halo_reads counts it on the map).  The halo
+// exchange (tnl_lbm_tpu_torch/parallel/sharded.py) is a copy of its own.  Same design as the unsharded kernels: z along threadIdx.x, so that
 // each component's reads and writes are contiguous runs of a warp; the
 // cascade in registers, no shared memory.
 

@@ -19,10 +19,10 @@ lattice_decomposition.h).  The port keeps that design in one process:
 
 The steps:
 
-- :func:`make_sharded_step`, the plain step per shard (``sim/step.py`` with
-  the collective halo pad of ``parallel/halo.py``), each shard in a thread
-  of its own as ``shard_map`` runs one program per device: the CPU path
-  and the oracle of the kernels' sharded steps;
+- :func:`make_sharded_step`, the plain step per shard (``sim/step.py``'s
+  two stages, each after the halo pad of ``parallel/halo.py`` over every
+  shard's block): the CPU path and the oracle of the kernels' sharded
+  steps;
 - :func:`make_sharded_fused_step`, the A-B step (B4) on each shard's block
   with a 1-wide x/y halo;
 - :func:`make_sharded_fused_step_aa`, the A-A steps: the even step (B2) on
@@ -41,7 +41,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
-import threading
 
 import numpy as np
 import torch
@@ -383,58 +382,6 @@ def _halo_exchange(plan: ShardPlan, blocks, adim: int, axis: int, per: bool, w: 
     return _fill_halos(plan, blocks, bufs, w, (axis,), periodic, lead)
 
 
-# ------------------------------------------------------- shards in lockstep
-
-class _Collective:
-    """A call every shard's thread makes with its own value; each gets its
-    part of ``combine`` of all of them (the counterpart of a collective
-    inside ``shard_map``).  The last thread to arrive runs ``combine``."""
-
-    def __init__(self, n: int):
-        self._barrier = threading.Barrier(n)
-        self._slots = [None] * n
-        self._out = None
-
-    def __call__(self, k: int, value, combine):
-        self._slots[k] = value
-        if self._barrier.wait() == 0:
-            self._out = combine(list(self._slots))
-        self._barrier.wait()
-        out = self._out[k]
-        self._barrier.wait()  # every part is read before the next call overwrites it
-        return out
-
-    def abort(self):
-        self._barrier.abort()
-
-
-def _spmd(n: int, fn) -> list:
-    """``fn(k, collective)`` for every shard k, each in a thread of its own,
-    as ``shard_map`` runs one program per device; the results in shard
-    order.  A failing shard breaks the collective and its error is raised."""
-    coll = _Collective(n)
-    if n == 1:
-        return [fn(0, coll)]
-    results, errors = [None] * n, []
-
-    def body(k):
-        try:
-            results[k] = fn(k, coll)
-        except BaseException as exc:  # noqa: BLE001 - re-raised below
-            errors.append(exc)
-            coll.abort()
-
-    threads = [threading.Thread(target=body, args=(k,)) for k in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        first = [e for e in errors if not isinstance(e, threading.BrokenBarrierError)]
-        raise (first or errors)[0]
-    return results
-
-
 def _global_input(arr, lat, shape, dtype):
     """A [D] vector as it is; a [D, ...] field broadcast to [D, *shape]."""
     if arr is None or (arr.dim() if torch.is_tensor(arr) else np.ndim(arr)) <= 1:
@@ -447,11 +394,14 @@ def _global_input(arr, lat, shape, dtype):
 def make_sharded_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan):
     """``step(f, nu, u_in=None, force=None, parity=0) -> (f, rho, u)`` on
     ShardedFields of ``plan``: the plain step (``sim/step.py``) on every
-    shard's block in lockstep, its halo pads the collective pad of
-    ``parallel/halo.py`` (JAX ``make_sharded_step``).  ``u_in`` and
-    ``force`` are [D] vectors or fields broadcastable to [D, *S].  A lattice
-    the mesh does not divide runs through ``_make_uneven_sharded_step``
-    (A-B).  The step's ``padded_shape`` is the extent its fields tile."""
+    shard's block, one shard after the other, its halos from the halo pad
+    of ``parallel/halo.py`` over every shard's block (JAX
+    ``make_sharded_step``): the pad of f before the collision, and on the
+    A-A odd step the pad of the post-collision field before the push.
+    ``u_in`` and ``force`` are [D] vectors or fields broadcastable to
+    [D, *S].  A lattice the mesh does not divide runs through
+    ``_make_uneven_sharded_step`` (A-B).  The step's ``padded_shape`` is
+    the extent its fields tile."""
     from tnl_lbm_tpu_torch.parallel.halo import make_halo_pad
 
     if not plan.divisible(domain):
@@ -466,36 +416,34 @@ def make_sharded_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan):
     subset_ok = domain.bouzidi is None and (
         not ({GEO.OUTFLOW_RIGHT, GEO.OUTFLOW_RIGHT_INTERP} & codes) or local_shape[0] >= 2)
     pad = make_halo_pad(plan, domain.periodic, lat=cfg.lat if subset_ok else None)
-    ctx = threading.local()
-
-    def pad_halo(f, comps="all"):
-        return ctx.collective(ctx.k, f, lambda fs: pad(fs, comps))
-
-    local_step = make_step(cfg, domain, pad_halo=pad_halo, local_shape=local_shape)
+    local_step = make_step(cfg, domain, local_shape=local_shape)
     maps = plan.shard_field(domain.map.astype(np.int64), like_f=False)
     thetas = (plan.shard_field(np.asarray(domain.bouzidi), like_f=True)
               if domain.bouzidi is not None else None)
     dtype = cfg.compute_dtype
+    aa = cfg.streaming == "AA"
 
     def step(f: ShardedField, nu, u_in=None, force=None, parity: int = 0):
         u_in = _global_input(u_in, cfg.lat, domain.shape, dtype)
         force = _global_input(force, cfg.lat, domain.shape, dtype)
         u_sh = plan.shard_field(u_in, like_f=True) if _is_field(u_in) else None
         f_sh = plan.shard_field(force, like_f=True) if _is_field(force) else None
-
-        def run(k, coll):
-            ctx.k, ctx.collective = k, coll
-            bz = None if thetas is None else thetas.blocks[k].to(dtype)
-            return local_step(f.blocks[k], nu,
-                              u_in=u_in if u_sh is None else u_sh.blocks[k],
-                              force=force if f_sh is None else f_sh.blocks[k],
-                              parity=parity, map_arr=maps.blocks[k], bouzidi_arr=bz)
-
-        outs = _spmd(plan.n_shards, run)
+        n = plan.n_shards
+        fpads = pad(f.blocks, local_step.pull_comps) if not aa or parity else [None] * n
+        mids = [local_step.collide(
+                    f.blocks[k], nu, u_in=u_in if u_sh is None else u_sh.blocks[k],
+                    force=force if f_sh is None else f_sh.blocks[k], parity=parity,
+                    map_arr=maps.blocks[k],
+                    bouzidi_arr=None if thetas is None else thetas.blocks[k].to(dtype),
+                    fpad=fpads[k])
+                for k in range(n)]
+        posts = pad([m[0] for m in mids], "own") if aa and parity else [None] * n
+        fs = [local_step.stream_out(f.blocks[k], m[0], m[3], parity, posts[k])
+              for k, m in enumerate(mids)]
         D = cfg.lat.D
-        return (ShardedField(plan, [o[0] for o in outs], f.shape, f.padded),
-                ShardedField(plan, [o[1] for o in outs], domain.shape),
-                ShardedField(plan, [o[2] for o in outs], (D,) + domain.shape))
+        return (ShardedField(plan, fs, f.shape, f.padded),
+                ShardedField(plan, [m[1] for m in mids], domain.shape),
+                ShardedField(plan, [m[2] for m in mids], (D,) + domain.shape))
 
     step.padded_shape = domain.shape
     return step

@@ -75,7 +75,7 @@ def as_vector(lat, arr, dtype, device) -> torch.Tensor:
     return a
 
 
-def make_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=None):
+def make_step(cfg: LBMConfig, domain: Domain, local_shape=None):
     """Build the per-step function for (cfg, domain).
 
     Returns ``step(f, nu, u_in=None, force=None, parity=0, hook_consts=None,
@@ -96,20 +96,21 @@ def make_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=None):
     the first phase of ``kernels/hooked.py``'s pipeline.
 
     The sharded step (``parallel/sharded.py make_sharded_step``) runs it on
-    every shard's block: ``local_shape`` is the block's shape,
-    ``pad_halo(f, comps)`` its halo pad (by default the edge/wrap pad of
-    the whole lattice; ``comps`` tells a direction-subset exchange which
-    components a pull reads: "own" for the pull, "opp" for the A-A odd
-    read, "all" where Bouzidi reads others), and ``map_arr`` /
-    ``bouzidi_arr`` the block's map and thetas at each call.
+    every shard's block in two stages, with a halo exchange before each:
+    ``step.collide(f, ..., fpad=None) -> (f_post, rho, u, masks)`` and
+    ``step.stream_out(f, f_post, masks, parity, post_pad=None) -> f_new``.
+    ``local_shape`` is the block's shape; ``fpad`` is f with its 1-wide
+    halo and ``post_pad`` the A-A odd step's f_post with its halo (by
+    default the edge/wrap pad of the whole lattice); ``step.pull_comps``
+    tells a direction-subset exchange which components the pull reads
+    ("own", "opp" for the A-A odd read, "all" where Bouzidi reads others;
+    the push reads "own"); ``map_arr`` / ``bouzidi_arr`` are the block's
+    map and thetas at each call.
     """
     check_supported(cfg, domain)
     lat = cfg.lat
     D = lat.D
     S = tuple(local_shape) if local_shape is not None else domain.shape
-    if pad_halo is None:
-        def pad_halo(f, comps="all"):
-            return stream.pad_halo(f, domain.periodic)
     dtype = cfg.compute_dtype
     codes = domain.codes_present()
     opp = np.asarray(lat.opp)
@@ -132,11 +133,13 @@ def make_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=None):
             m = maps[device] = (torch.as_tensor(domain.map.astype(np.int64), device=device), bz)
         return m
 
-    def _stream_in(f, parity, masks, thetas):
-        """Post-streaming DFs at every site, with the outflow and Bouzidi pull rules."""
+    def _stream_in(f, parity, masks, thetas, fpad=None):
+        """Post-streaming DFs at every site, with the outflow and Bouzidi
+        pull rules; ``fpad``: f with its halo, by default the lattice's pad."""
         if cfg.streaming == "AA" and parity == 0:
             return f  # even step: same site, same direction
-        fpad = pad_halo(f, comps=comps_pull_aa if cfg.streaming == "AA" else comps_pull)
+        if fpad is None:
+            fpad = stream.pad_halo(f, domain.periodic)
         if cfg.streaming == "AA":
             f_in = stream.pull_from(lat, fpad, S, opp)
         else:
@@ -157,9 +160,9 @@ def make_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=None):
                                stream.bouzidi(lat, shifted, f_in, thetas), f_in)
         return f_in
 
-    def _transformed(f, parity, masks, thetas):
+    def _transformed(f, parity, masks, thetas, fpad=None):
         """The pulled DFs after the pure f transforms (WALL swap, symmetry mirrors)."""
-        f_in = _stream_in(f, parity, masks, thetas)
+        f_in = _stream_in(f, parity, masks, thetas, fpad)
         if GEO.WALL in codes:
             f_in = bc.apply_bounce_back(lat, f_in, masks[GEO.WALL])
         for c in sym_codes:
@@ -171,13 +174,14 @@ def make_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=None):
         m = masks.get(GEO.FLUID)
         return m if m is not None else torch.zeros(S, dtype=torch.bool, device=device)
 
-    def step(f, nu, u_in=None, force=None, parity: int = 0, hook_consts=None, map_arr=None,
-             bouzidi_arr=None):
+    def collide(f, nu, u_in=None, force=None, parity: int = 0, hook_consts=None, map_arr=None,
+                bouzidi_arr=None, fpad=None):
+        """The step up to the collision: (f_post, rho, u, masks)."""
         map_arr, thetas = _map(f.device, map_arr, bouzidi_arr)
         masks = {c: map_arr == int(c) for c in codes}
         do_coll = torch.isin(map_arr, torch.as_tensor(do_coll_codes, device=f.device))
 
-        f_in = _transformed(f, parity, masks, thetas)
+        f_in = _transformed(f, parity, masks, thetas, fpad)
         u_in_b = as_vector(lat, u_in, dtype, f.device) if u_in is not None else None
         force_b = as_vector(lat, force, dtype, f.device) if force is not None else None
 
@@ -203,25 +207,37 @@ def make_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=None):
         f_post = cfg.collision(lat, f_in, rho_safe, u, nu, force=force_b)
         f_post = torch.where(do_coll, f_post, f_in)
 
+        rho_out, u_out = rho, u
+        for c in (GEO.WALL, GEO.NOTHING):
+            if c in codes:
+                rho_out = torch.where(masks[c], one, rho_out)
+                u_out = torch.where(masks[c], torch.zeros_like(u), u_out)
+        return f_post, rho_out, u_out, masks
+
+    def stream_out(f, f_post, masks, parity: int = 0, post_pad=None):
+        """The new state from ``collide``'s f_post: the A-A push (its odd
+        step from ``post_pad``, by default the lattice's pad of f_post)."""
         if cfg.streaming == "AA":
             if parity == 0:
                 f_out = f_post[torch.tensor(opp.tolist(), dtype=torch.long, device=f.device)]
             else:
                 # push = pull of the edge/wrap-padded post-collision field
-                f_out = stream.pull(lat, pad_halo(f_post, comps="own"), S)
+                if post_pad is None:
+                    post_pad = stream.pad_halo(f_post, domain.periodic)
+                f_out = stream.pull(lat, post_pad, S)
         else:
             f_out = f_post
 
         # inert ghost sites keep their previous DFs (reference bc.h:54-61,254-257)
         if GEO.NOTHING in codes:
             f_out = torch.where(masks[GEO.NOTHING], f, f_out)
+        return f_out.contiguous()
 
-        rho_out, u_out = rho, u
-        for c in (GEO.WALL, GEO.NOTHING):
-            if c in codes:
-                rho_out = torch.where(masks[c], one, rho_out)
-                u_out = torch.where(masks[c], torch.zeros_like(u), u_out)
-        return f_out.contiguous(), rho_out, u_out
+    def step(f, nu, u_in=None, force=None, parity: int = 0, hook_consts=None, map_arr=None,
+             bouzidi_arr=None):
+        f_post, rho, u, masks = collide(f, nu, u_in, force, parity, hook_consts, map_arr,
+                                        bouzidi_arr)
+        return stream_out(f, f_post, masks, parity), rho, u
 
     def ustar(f, force=None, parity: int = 0, map_arr=None, bouzidi_arr=None):
         """The u* pass: (rho0, u0, fluid) - the moments with the body force
@@ -236,4 +252,6 @@ def make_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=None):
         return rho0, u0, _fluid(masks, f.device)
 
     step.ustar = ustar
+    step.collide, step.stream_out = collide, stream_out
+    step.pull_comps = comps_pull_aa if cfg.streaming == "AA" else comps_pull
     return step
