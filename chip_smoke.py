@@ -5830,10 +5830,427 @@ def sharded_apps() -> dict:
     return launches
 
 
+#: the sharded pair's haloed kernels (csrc/aa_pair.cu, f64_pair.cu,
+#: aa_pair_full.cu) and B3's float64 haloed odd step (csrc/f64_aa.cu): record
+#: key -> (their instances in the library, source, the Pallas call replaced)
+PAIR_HALO_KERNELS = {
+    **{f"aa_pair_halo_{s}": ((f"aa_pair_halo_{s}_kernel",), "aa_pair.cu",
+                             "tnl_lbm_tpu/kernels/fused_aa.py:1115") for s in STORES},
+    "aa_pair_halo_f64": (("aa_pair_halo_f64_kernel",), "f64_pair.cu",
+                         "tnl_lbm_tpu/kernels/fused_aa.py:1115"),
+    "aa_pair_full_halo": (tuple(f"aa_pair_full_halo_{n}_kernel"
+                                for n in ("lean", "cum_well", "cum_quad", "cum_invcum")),
+                          "aa_pair_full.cu", "tnl_lbm_tpu/kernels/fused_aa.py:1274"),
+    "aa_odd_f64_halo": (("aa_odd_halo_f64_lean_kernel", "aa_odd_halo_f64_cum_well_kernel"),
+                        "f64_aa.cu", "tnl_lbm_tpu/kernels/fused_aa.py:287"),
+}
+#: the block the haloed pairs are timed on: the 256^3 bench duct on 2 y-shards
+PAIR_HALO_TIMED = (1, 2, 1)
+#: pairs of the sharded 256^3 runs, and sim_2 res 2's final time for the
+#: apps' sharded A-A runs in pairs (~920 steps)
+SHARDED_PAIRS, SHARDED_PAIR_FINAL_TIME = 50, 1.0
+
+
+def pair_halo_launches(sim) -> dict:
+    """Launches of the new haloed kernels in a sharded Simulation's run: the
+    sharded pair's, and B3's float64 haloed odd step's."""
+    out = {}
+    if sim._pair is not None:
+        out[sim._pair.local_step.kernel.name] = sim._pair.local_step.kernel.launches
+    odd = getattr(sharded_step(sim).local_step, "odd", None)
+    if odd is not None and odd.name == "aa_odd_f64_halo":
+        out["aa_odd_f64_halo"] = odd.launches
+    return out
+
+
+def sharded_pair_of(cfg, dom, plan, full=False, store_dtype=None):
+    """The sharded pair over the dispatch's kernel, or over B1b where
+    ``full`` (its lean instance on a FLUID/WALL/NOTHING map)."""
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_pair_aa
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+
+    if not full:
+        return sh.make_sharded_fused_pair2_aa(cfg, dom, plan, store_dtype=store_dtype)
+    local = make_fused_pair_aa(cfg, dom, plan.device(0), prepadded=True,
+                               local_shape=plan.local_shape(dom))
+    return sh.ShardedFusedPairAA(plan, dom, local)
+
+
+def pair_halo_compares() -> dict:
+    """Each new haloed instance against its plain version on every shard's
+    block, one call from a seeded state, on 2 x 2: B1 per store dtype and
+    in float64 on sim_2 res 8's map, B1b's lean instance there, its invcum
+    instance on sim_1 res 2's A-A map, its CUM_WELL and quadratic ones on a
+    box of every A-A code; B3 float64 haloed (lean on sim_2 res 8 double on
+    2 y-shards, the full set on the box).  float32: the step bounds; 16-bit
+    f: a ulp plus 2e-8, at most 0.1% differing (``state_agrees``); float64:
+    1e-12.  Returns key -> max |df|."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.apps import sim_1, sim_2
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+    from tnl_lbm_tpu_torch.utils.dtypes import state_agrees
+    from torch_cases import U_IN, aa_box
+
+    where = WORK / "sharded" / "pair_cmp"
+    s2 = {p: sim_2.build(SHARDED_RES, device=DEVICE, streaming="AA", precision=p,
+                         results_parent=where) for p in ("single", "double")}
+    s1 = sim_1.build(2, device=DEVICE, streaming="AA", results_parent=where)
+    box_map = aa_box((24, 20, 150))
+    box = interop.domain_from_numpy(box_map, (False, False, True))
+    spec = {"cum_well": ("CUM_WELL", "EQ_WELL", True), "cum_quad": ("CUM", "EQ", False)}
+    cases = [(f"aa_pair_halo_{s}", f"sim_2 res 8 {s} x2y2", s2["single"].cfg, s2["single"].domain,
+              s, False, (2, 2, 1)) for s in STORES]
+    cases += [("aa_pair_halo_f64", "sim_2 res 8 double x2y2", s2["double"].cfg,
+               s2["double"].domain, "f32", False, (2, 2, 1)),
+              ("aa_pair_full_halo", "sim_2 res 8 lean x2y2", s2["single"].cfg, s2["single"].domain,
+               "f32", True, (2, 2, 1)),
+              ("aa_pair_full_halo", "sim_1 res 2 invcum x2y2", s1.cfg, s1.domain, "f32", True,
+               (2, 2, 1))]
+    cases += [("aa_pair_full_halo", f"aa_box {k} x2y2",
+               interop.config_from_spec(*v, "AA"), box, "f32", True, (2, 2, 1))
+              for k, v in spec.items()]
+    err = {}
+    for key, label, cfg, dom, store, full, counts in cases:
+        plan = card_plan(counts)
+        sd = store_dtype(store) if store != "f32" else None
+        pair = sharded_pair_of(cfg, dom, plan, full, sd)
+        ls = pair.local_step
+        fp = pair.pad(plan.shard_field(seeded_cfg_state(cfg, dom.shape), like_f=True))
+        pair.exchange(fp)
+        worst, agree = [0.0, 0.0, 0.0], True
+        for k in range(plan.n_shards):
+            kw = {"map_pad_in": pair.pad_maps[k], "bflags": pair.bflags[k], "u_in": U_IN,
+                  "force": (FORCE_SMALL, 0.0, 0.0)}
+            out = ls(fp.blocks[k], NU, **kw)
+            plain = ls.plain(fp.blocks[k], NU, **kw)
+            a, b = out[0][:, 2:-2, 2:-2], plain[0][:, 2:-2, 2:-2]
+            if sd is not None:
+                agree = agree and state_agrees(a, b, sd)
+            worst = [max(w, max_diff(x, y)) for w, x, y in zip(worst, (a,) + out[1:],
+                                                               (b,) + plain[1:])]
+            del out, plain, a, b
+        tol = ((1e-12, 2e-12, 1e-12) if cfg.compute_dtype == torch.float64 else
+               (float("inf") if sd is not None else TOL_F, TOL_RHO, TOL_U))
+        log("sharded", compare=repr(label), kernel=ls.kernel.name, shards=plan.n_shards,
+            block="x".join(map(str, ls.shape)), max_df=f"{worst[0]:.3e}",
+            max_drho=f"{worst[1]:.3e}", max_du=f"{worst[2]:.3e}",
+            **({} if sd is None else {"state_agrees": agree}), launches=ls.kernel.launches,
+            plain_calls=ls.plain_calls, variant=getattr(ls, "variant", "n/a"))
+        if (not agree or any(w > t for w, t in zip(worst, tol))
+                or ls.kernel.launches != plan.n_shards or ls.plain_calls):
+            raise RuntimeError(f"sharded pair compare {label}: {ls.kernel.name} against its "
+                               f"plain version {worst} beyond {tol}, or not launched once a shard")
+        err[key] = max(err.get(key, 0.0), worst[0])
+        del pair, fp
+        torch.cuda.empty_cache()
+    for label, dom, counts in (("sim_2 res 8 double lean y2", s2["double"].domain, (1, 2, 1)),
+                               ("aa_box double full x2y2", box, (2, 2, 1))):
+        cfg = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AA", dtype="float64")
+        plan = card_plan(counts)
+        step = sh.make_sharded_fused_step_aa(cfg, dom, plan)
+        halo = step.exchange(plan.shard_field(seeded_cfg_state(cfg, dom.shape), like_f=True))
+        ls, worst = step.local_step, [0.0, 0.0, 0.0]
+        for k in range(plan.n_shards):
+            kw = {"parity": 1, "map_ring_in": step.rings[k], "bflags": step.bflags[k],
+                  "u_in": U_IN, "force": (FORCE_SMALL, 0.0, 0.0)}
+            worst = [max(w, max_diff(a, b)) for w, a, b in zip(worst, ls(halo[k], NU, **kw),
+                                                               ls.plain(halo[k], NU, **kw))]
+        log("sharded", compare=repr(label), kernel=ls.odd.name, shards=plan.n_shards,
+            block="x".join(map(str, ls.shape)), max_df=f"{worst[0]:.3e}",
+            max_drho=f"{worst[1]:.3e}", max_du=f"{worst[2]:.3e}", launches=ls.odd.launches,
+            plain_calls=ls.plain_calls, variant=ls.variant)
+        if (any(w > t for w, t in zip(worst, (1e-12, 2e-12, 1e-12)))
+                or ls.odd.launches != plan.n_shards or ls.plain_calls):
+            raise RuntimeError(f"sharded compare {label}: {ls.odd.name} {worst} beyond 1e-12, "
+                               f"or not launched once a shard")
+        err["aa_odd_f64_halo"] = max(err.get("aa_odd_f64_halo", 0.0), worst[0])
+        del step, halo
+        torch.cuda.empty_cache()
+    return err
+
+
+def pair_halo_sites_read(shape, faces) -> int:
+    """Sites of a haloed pair's input the march reads on a block of
+    ``shape``: the block and its 2-wide x/y halo, but on a face of the
+    domain (``faces``: x low, x high, y low, y high) the window reads clamp
+    to the edge layer, so that halo is not read."""
+    X, Y, Z = shape
+    xl, xh, yl, yh = (int(bool(f)) for f in faces)
+    return (X + 4 - 2 * xl - 2 * xh) * (Y + 4 - 2 * yl - 2 * yh) * Z
+
+
+def pair_halo_times(ops: dict) -> dict:
+    """The new haloed kernels on shard 0's block of the 256^3 bench duct on
+    2 y-shards (256 x 128 x 256: the x halos wrap, the y-high halo is the
+    neighbour's, the y-low face the domain's), each on a seeded state, 20
+    launches on CUDA events (plain: one call), beside the unsharded kernel
+    on a block of that shape and map (``unsharded_ms``), with their bound:
+    the pairs read 27 values and a code at every site of
+    ``pair_halo_sites_read`` and write the block's 27 values, rho and u;
+    their FP32 (FP64) work is two lean site updates a block site (the odd
+    kernel's SASS count a thread).  B3's float64 haloed odd step is bounded
+    as ``halo_kernel_times`` bounds B3.  Returns key -> (ms, plain ms,
+    bound ms, bound_by, unsharded ms)."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.kernels.fused_aa import (make_fused_pair2_aa, make_fused_pair_aa,
+                                                    make_fused_step_aa)
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+
+    out = {}
+    plan = card_plan(PAIR_HALO_TIMED)
+    force = (FORCE_BENCH, 0.0, 0.0)
+    for key in ("aa_pair_halo_f32", "aa_pair_halo_f16", "aa_pair_halo_bf16", "aa_pair_halo_f64",
+                "aa_pair_full_halo", "aa_odd_f64_halo"):
+        f64 = key.endswith("f64") or key == "aa_odd_f64_halo"
+        store = key.rsplit("_", 1)[1] if key.startswith("aa_pair_halo_") and not f64 else "f32"
+        cfg, dom = flagship(BENCH_SHAPE, store)
+        if f64:
+            cfg = dataclasses.replace(cfg, compute_dtype=torch.float64)
+        Xl, Yl, Z = plan.local_shape(dom)
+        block = interop.domain_from_numpy(dom.map[:Xl, :Yl], dom.periodic)
+        sd = cfg.storage_dtype
+        state = seeded_cfg_state(cfg, dom.shape)
+        item = 2 if sd is not None else (8 if f64 else 4)
+        citem = 8 if f64 else 4
+        sites = Xl * Yl * Z
+        if key == "aa_odd_f64_halo":
+            step = sh.make_sharded_fused_step_aa(cfg, dom, plan)
+            halo = step.exchange(plan.shard_field(state, like_f=True))[0]
+            ls = step.local_step
+            del state
+            fout = torch.empty((27, Xl, Yl, Z), dtype=torch.float64, device=DEVICE)
+            macro = (torch.empty((Xl, Yl, Z), dtype=torch.float64, device=DEVICE),
+                     torch.empty((3, Xl, Yl, Z), dtype=torch.float64, device=DEVICE))
+            kw = {"parity": 1, "map_ring_in": step.rings[0], "bflags": step.bflags[0]}
+            ms = time_ms(lambda: ls(halo, NU, force=force, out=fout, macro_out=macro, **kw), 20)
+            plain_ms = time_ms(lambda: ls.plain(halo, NU, force=force, **kw), 1)
+            one = make_fused_step_aa(cfg, block, DEVICE)
+            fb = fout.clone()
+            unsharded_ms = time_ms(lambda: one(fb, NU, force=force, parity=1, out=fout,
+                                               macro_out=macro), 20)
+            reads, threads, colliding = halo_reads(cfg.lat, step.rings[0].cpu().numpy(), 2,
+                                                   bool(dom.periodic[2]), ls._faces(step.bflags[0]))
+            moved = citem * reads + (27 + 4) * citem * sites + threads
+            per = tuple(v * colliding / sites for v in ops["aa_odd_halo_f64_lean_kernel"])
+            del step, halo, fout, macro, one, fb
+        else:
+            pair = sharded_pair_of(cfg, dom, plan, key == "aa_pair_full_halo", sd)
+            fp = pair.pad(plan.shard_field(state, like_f=True))
+            del state
+            pair.exchange(fp)
+            ls = pair.local_step
+            src = fp.blocks[0]
+            dst = torch.empty_like(src)
+            macro = (torch.empty((Xl, Yl, Z), dtype=cfg.compute_dtype, device=DEVICE),
+                     torch.empty((3, Xl, Yl, Z), dtype=cfg.compute_dtype, device=DEVICE))
+            kw = {"map_pad_in": pair.pad_maps[0], "bflags": pair.bflags[0], "force": force}
+            ms = time_ms(lambda: ls(src, NU, out=dst, macro_out=macro, **kw), 20)
+            plain_ms = time_ms(lambda: ls.plain(src, NU, **kw), 1)
+            one = (make_fused_pair_aa(cfg, block, DEVICE) if key == "aa_pair_full_halo" else
+                   make_fused_pair2_aa(cfg, block, DEVICE, store_dtype=sd))
+            fb = src[:, 2:-2, 2:-2].contiguous()
+            fo = torch.empty_like(fb)
+            unsharded_ms = time_ms(lambda: one(fb, NU, force=force, out=fo, macro_out=macro), 20)
+            read_sites = pair_halo_sites_read((Xl, Yl, Z), ls._faces(pair.bflags[0]))
+            moved = (27 * item + 1) * read_sites + (27 * item + 4 * citem) * sites
+            name = "aa_odd_f64_lean_kernel" if f64 else "aa_odd_kernel"
+            per = tuple(2 * v for v in ops[name])
+            del pair, fp, src, dst, macro, one, fb, fo
+        b_ms, b_by = bound(moved / sites, per, sites)
+        out[key] = (ms, plain_ms, b_ms, b_by, unsharded_ms)
+        log("sharded", timing=key, kernel=ls.odd.name if key == "aa_odd_f64_halo" else
+            ls.kernel.name, block=f"{Xl}x{Yl}x{Z}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            unsharded_kernel_same_block_ms=f"{unsharded_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+            bound_by=b_by, bytes_moved=moved, bytes_per_site=f"{moved / sites:.3f}",
+            fp32_slots_per_site=f"{per[0]:.1f}", fp64_slots_per_site=f"{per[2]:.1f}"
+            if len(per) > 2 else "0")
+        torch.cuda.empty_cache()
+    return out
+
+
+def bench_duct_sim(storage, plan, label, pair_dispatch=True):
+    """The 256^3 bench duct's Simulation with the kernels, in pairs where
+    ``pair_dispatch``, under ``plan`` (None: unsharded), counted from the end
+    of sim_init."""
+    from tnl_lbm_tpu_torch.sim.state import Simulation
+
+    class BenchDuct(Simulation):
+        def body_force(self, phys_time):
+            return np.array([FORCE_BENCH, 0.0, 0.0])
+
+    cfg, dom = flagship(BENCH_SHAPE, storage)
+    return counting_from_init(BenchDuct(
+        cfg, dom, device=DEVICE, sim_id=f"sharded_pair_{label}",
+        results_parent=WORK / "sharded" / "pairs", steps_per_dispatch=10, use_fused=True,
+        pair_dispatch=pair_dispatch, plan=plan))
+
+
+def sharded_pair_runs() -> tuple[dict, dict]:
+    """The main path at full width under a plan: the 256^3 bench duct
+    through ``Simulation`` in SHARDED_PAIRS pairs per store dtype,
+    unsharded (B1) and on choose_plan's 2 shards and on 2 x 2 of one card
+    (B1 on haloed blocks), each sharded run bit for bit the unsharded one;
+    sim_1 res 4 A-A in pairs on 2 x 2 (B1b on haloed blocks) bit for bit the
+    unsharded B1b pair's run; where the machine has several cards, each
+    also over every card.  Each run's ms per pair, MLUPS, peak memory and,
+    sharded, the slab exchange on CUDA events.  Returns the new kernels'
+    launches and the runs' figures."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim_1
+    from tnl_lbm_tpu_torch.parallel.sharded import choose_plan
+
+    launches = {k: 0 for k in PAIR_HALO_KERNELS}
+    figures = {}
+    n_cards = torch.cuda.device_count()
+    cards = [f"{DEVICE}:{i}" for i in range(n_cards)]
+
+    def record(sim, label, ref):
+        ms_step, mlups, peak = run_figures(sim)
+        f = sim.f.gather() if sim.plan is not None else sim.f
+        fields = (f, sim.rho, sim.u)
+        exchange_ms = diffs = None
+        if sim.plan is not None:
+            for k, v in pair_halo_launches(sim).items():
+                launches[k] += v
+            exchange_ms = time_ms(lambda: sim._pair.exchange(sim._narrow[0]), 20)
+            diffs = [max_diff(a, b) for a, b in zip(fields, ref)]
+        ls = sim._pair.local_step if sim.plan is not None else sim._pair
+        figures[label] = {"ms_per_pair": 2 * ms_step, "mlups": mlups, "peak_gb": peak,
+                          "exchange_ms": exchange_ms,
+                          "counts": None if sim.plan is None else sim.plan.counts}
+        log("sharded", pair_run=label, plan="unsharded" if sim.plan is None else
+            "x".join(map(str, sim.plan.counts)), devices="n/a" if sim.plan is None else
+            ",".join(sorted({str(d) for d in sim.plan.devices})), steps=sim.iterations,
+            ms_per_pair=f"{2 * ms_step:.4f}", mlups=f"{mlups:.1f}",
+            max_memory_allocated_gb=f"{peak:.3f}", kernel=ls.kernel.name,
+            launches=ls.kernel.launches, plain_calls=ls.plain_calls,
+            slab_exchange_ms="n/a" if exchange_ms is None else f"{exchange_ms:.4f}",
+            **({} if diffs is None else {"max_df": f"{diffs[0]:.3e}", "max_drho": f"{diffs[1]:.3e}",
+                                         "max_du": f"{diffs[2]:.3e}",
+                                         "bit_equal": all(d == 0 for d in diffs)}))
+        if ls.plain_calls or ls.kernel.launches <= 0 or (diffs is not None and any(diffs)):
+            raise RuntimeError(f"{label}: not bit for bit the unsharded pair run ({diffs}), or "
+                               f"not through the kernel")
+        if not all(bool(torch.isfinite(t).all()) for t in fields):
+            raise RuntimeError(f"{label}: non-finite fields")
+        return fields
+
+    for store in STORES:
+        sim = bench_duct_sim(store, None, f"{store}_unsharded")
+        sim.sim_init()
+        sim._advance(2 * SHARDED_PAIRS)
+        ref = record(sim, f"bench_256_{store}_unsharded", None)
+        del sim
+        plans = [("2", lambda d: choose_plan(d, [DEVICE + ":0"] * 2)),
+                 ("2x2", lambda d: card_plan((2, 2, 1)))]
+        if n_cards > 1:
+            plans.append((f"{n_cards}_cards", lambda d: choose_plan(d, cards)))
+        for name, make in plans:
+            sim = bench_duct_sim(store, None, f"{store}_{name}")
+            sim.plan = make(sim.domain)
+            sim.sim_init()
+            sim._advance(2 * SHARDED_PAIRS)
+            record(sim, f"bench_256_{store}_{name}", ref)
+            del sim
+            torch.cuda.empty_cache()
+        del ref
+        torch.cuda.empty_cache()
+    plans = [("unsharded", None), ("2x2", card_plan((2, 2, 1)))]
+    if n_cards > 1:
+        plans.append((f"{n_cards}_cards", "cards"))
+    ref = None
+    for name, plan in plans:
+        sim = counting_from_init(sim_1.build(SHARDED_SIM1_RES, device=DEVICE, streaming="AA",
+                                             use_fused=True, pair_dispatch=True,
+                                             results_parent=WORK / "sharded" / f"sim1_{name}"))
+        sim.plan = choose_plan(sim.domain, cards) if plan == "cards" else plan
+        sim.sim_init()
+        sim._advance(2 * SHARDED_PAIRS)
+        fields = record(sim, f"sim_1_res{SHARDED_SIM1_RES}_AA_pairs_{name}", ref)
+        ref = fields if ref is None else ref
+        del sim
+        torch.cuda.empty_cache()
+    return launches, figures
+
+
+def sharded_pair_apps() -> dict:
+    """sim_2 res 8 A-A under "auto" on 2 shards (the probe's times beside
+    both routes' longer chains, ``auto_choice``), then sim_2 res 2
+    ``--sharded`` through its ``main``: A-A in pairs (``--pair-dispatch
+    on``) and ``--storage f16``, each with its L1 at the last probe equal to
+    the unsharded run's; ``--precision double --streaming AA`` in pairs (B1
+    f64 haloed) and per step (B3 f64 haloed).  Returns the new kernels'
+    launches."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim_2
+    from tnl_lbm_tpu_torch.parallel.sharded import choose_plan
+
+    launches = {k: 0 for k in PAIR_HALO_KERNELS}
+    sim = counting_from_init(sim_2.build(SHARDED_RES, device=DEVICE, streaming="AA",
+                                         use_fused=True, pair_dispatch="auto",
+                                         results_parent=WORK / "sharded" / "auto"))
+    sim.plan = choose_plan(sim.domain, [DEVICE + ":0"] * 2)
+    sim.sim_init()
+    auto_choice(sim, f"sim_2 res {SHARDED_RES} on {'x'.join(map(str, sim.plan.counts))}")
+    for k in (sim._step, sim._pair):  # the run's launches, not the timed chains'
+        if k is not None:
+            k.reset_counts()
+    sim._advance(SHARDED_STEPS)
+    for k, v in pair_halo_launches(sim).items():
+        launches[k] += v
+    del sim
+    torch.cuda.empty_cache()
+    aa = ["--streaming", "AA", "--use-fused"]
+    for label, args in (("aa_pairs", aa + ["--pair-dispatch", "on"]),
+                        ("f16", ["--storage", "f16"])):
+        ref, _ = run_sim2(f"unsharded_pair_{label}", args + ["--final-time",
+                                                             str(SHARDED_PAIR_FINAL_TIME)])
+        want = {it: l1 for it, l1, _ in ref.error_history}
+        del ref
+        sim, _ = run_sim2(f"sharded_pair_{label}", ["--sharded", *args, "--final-time",
+                                                    str(SHARDED_PAIR_FINAL_TIME)])
+        it, l1, _ = sim.error_history[-1]
+        got = pair_halo_launches(sim)
+        log("sharded", app=f"sim_2 res 2 --sharded {' '.join(args)}", iterations=it,
+            plan="x".join(map(str, sim.plan.counts)), l1=f"{l1:.6e}",
+            l1_unsharded=want.get(it, "not probed"), equal=want.get(it) == l1,
+            **{f"launches_{k}": v for k, v in got.items()})
+        if want.get(it) != l1 or not got or min(got.values()) <= 0 or sim._pair.local_step.plain_calls:
+            raise RuntimeError(f"sim_2 res 2 --sharded {args}: L1 {l1} against the unsharded "
+                               f"run's {want.get(it)}, or not through the sharded pair")
+        for k, v in got.items():
+            launches[k] += v
+        del sim
+    for label, pd, kernel in (("double_pairs", "on", "aa_pair_halo_f64"),
+                              ("double_steps", "off", "aa_odd_f64_halo")):
+        sim, _ = run_sim2(f"sharded_{label}", ["--sharded", "--precision", "double", *aa,
+                                               "--pair-dispatch", pd, "--final-time",
+                                               str(SHARDED_PAIR_FINAL_TIME)])
+        got = pair_halo_launches(sim)
+        log("sharded", app=f"sim_2 res 2 --sharded --precision double --streaming AA "
+            f"--pair-dispatch {pd}", iterations=sim.iterations, l1=f"{sim.error_history[-1][1]:.6e}",
+            **{f"launches_{k}": v for k, v in got.items()})
+        if got.get(kernel, 0) <= 0 or sim.nan_detected:
+            raise RuntimeError(f"sim_2 --sharded --precision double {label}: not through the "
+                               f"haloed float64 kernels")
+        for k, v in got.items():
+            launches[k] += v
+        del sim
+    return launches
+
+
 def phase_sharded() -> dict:
     """The sharded lattice on the card (``halo_compares``, ``halo_kernel_times``,
-    ``sharded_runs``, ``sharded_apps``).  Returns the record's kernels,
-    errors, times and bounds of the haloed kernels."""
+    ``sharded_runs``, ``sharded_apps``), then the sharded pair
+    (``pair_halo_compares``, ``pair_halo_times``, ``sharded_pair_runs``,
+    ``sharded_pair_apps``).  Returns the record's kernels, errors, times and
+    bounds of the haloed kernels."""
     import torch
 
     from tnl_lbm_tpu_torch.kernels.build import build_library, kernel_resources
@@ -5841,7 +6258,10 @@ def phase_sharded() -> dict:
 
     path, ptxas = build_library()
     res = kernel_resources(ptxas)
-    names = sorted({n for ns in HALO_KERNELS.values() for n in ns})
+    instances = {**{k: v for k, v in HALO_KERNELS.items()},
+                 **{k: v[0] for k, v in PAIR_HALO_KERNELS.items()}}
+    names = sorted({n for ns in instances.values() for n in ns}
+                   | {"aa_odd_kernel", "aa_odd_f64_lean_kernel"})
     ops = sass_fp32_ops(path, names)
     for name in names:
         log("sharded", kernel=name, **res[name], fp32_slots_per_thread=ops[name][0],
@@ -5852,16 +6272,29 @@ def phase_sharded() -> dict:
     for k, v in sharded_apps().items():
         launches[k] += v
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    err.update(pair_halo_compares())
+    times.update(pair_halo_times(ops))
+    pair_launches, pair_figures = sharded_pair_runs()
+    for k, v in sharded_pair_apps().items():
+        pair_launches[k] += v
+    launches.update(pair_launches)
+    log("sharded", sharded_pair_seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
     sources = {"ab_step_halo": "halo_step.cu", "ab_step_f64_halo": "f64_ab.cu",
-               "aa_odd_halo": "halo_step.cu"}
-    kernels = {key: CudaKernel(key, f"tnl_lbm_tpu_torch/csrc/{sources[key]}", HALO_REPLACES[key],
-                               launches[key]) for key in HALO_KERNELS}
+               "aa_odd_halo": "halo_step.cu", **{k: v[1] for k, v in PAIR_HALO_KERNELS.items()}}
+    replaces = {**HALO_REPLACES, **{k: v[2] for k, v in PAIR_HALO_KERNELS.items()}}
+    kernels = {key: CudaKernel(key, f"tnl_lbm_tpu_torch/csrc/{sources[key]}", replaces[key],
+                               launches[key]) for key in instances}
     for key, k in kernels.items():
         if k.launches <= 0:
             raise RuntimeError(f"{key} was not launched on the sharded paths")
-    resources = {key: {n: res[n] for n in HALO_KERNELS[key]} for key in HALO_KERNELS}
+    resources = {key: {n: res[n] for n in instances[key]} for key in instances}
+    shapes = {key: ("256x128x256 block of the 256^3 bench duct on 2 y-shards"
+                    if key in PAIR_HALO_KERNELS else "32x128x256 block of 2 y-shards")
+              for key in instances}
     return {"kernels": kernels, "err": err, "times": times, "figures": figures,
-            "resources": resources}
+            "pair_figures": pair_figures, "resources": resources, "shapes": shapes}
 
 
 def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
@@ -6067,14 +6500,18 @@ def main() -> int:
                          sync_floor_ms_per_step=chunk_timing["sync_floor_ms_per_step"],
                          step_ms_per_launch_128x32=chunk_timing["step_event_ms_per_launch"],
                          cluster=chunk_timing["cluster"])
-        elif key in sharded["times"]:  # at sim_2 res 8's shard block, the haloed reads
-            bound_ms, bound_by = sharded["times"][key][2:]
+        elif key in sharded["times"]:  # at a shard's block, the haloed reads
+            bound_ms, bound_by = sharded["times"][key][2:4]
             r = sharded["resources"][key]
-            entry.update(shape="32x128x256 block of 2 y-shards",
+            entry.update(shape=sharded["shapes"][key],
                          registers={n: v["registers"] for n, v in r.items()},
                          spill_stores={n: v.get("spill_stores", 0) for n, v in r.items()})
+            if len(sharded["times"][key]) > 4:  # the unsharded kernel on a block of that shape
+                entry["unsharded_ms_same_block"] = sharded["times"][key][4]
             if key == "ab_step_halo":
                 entry["runs"] = sharded["figures"]
+            if key == "aa_pair_halo_f32":
+                entry["runs"] = sharded["pair_figures"]
         else:
             bound_ms, bound_by = bound(*footprint[key])
         if key == "nn_force":  # |dF| above; its gate is relative to max |F|

@@ -18,7 +18,7 @@ from tnl_lbm_tpu.apps import sim_3 as jsim_3
 from tnl_lbm_tpu.io import native
 from tnl_lbm_tpu.io.series import VtiTimeSeries as JVtiTimeSeries
 from tnl_lbm_tpu.sim import make_step as j_make_step
-from tnl_lbm_tpu_torch.apps import sim_1, sim_3
+from tnl_lbm_tpu_torch.apps import sim2d_1, sim_1, sim_3, sim_ibm
 from tnl_lbm_tpu_torch.io.series import VtiTimeSeries
 from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
 from tnl_lbm_tpu_torch.sim import make_step
@@ -135,13 +135,14 @@ def test_sim_3_cli_runs_on_the_cpu(tmp_path):
 
 
 def test_app_options_that_raise(tmp_path):
-    # --sharded runs (tests/test_torch_sharded.py); the sharded pair does not yet
+    # --sharded runs on the 3D apps, in pairs too (tests/test_torch_sharded.py,
+    # tests/test_torch_sharded_pair.py); the 2D and IBM apps' sharded lattice does not yet
     with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-        sim_1.main(["1", "--device", "cpu", "--sharded", "--streaming", "AA", "--pair-dispatch",
-                    "on", "--results-dir", str(tmp_path / "pair")])
+        sim2d_1.main(["1", "--device", "cpu", "--sharded", "--use-fused", "--final-time", "0.002",
+                      "--results-dir", str(tmp_path / "pair")])
     with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-        sim_1.build(1, device="cpu", sharded=True, streaming="AA", pair_dispatch=True,
-                    results_parent=tmp_path / "pair2", devices=["cpu", "cpu"]).sim_init()
+        sim_ibm.main(["1", "--device", "cpu", "--sharded", "--final-time", "0.002",
+                      "--results-dir", str(tmp_path / "pair2")])
     # A-A with the kernels runs through the even/odd kernels' plain versions
     # here ("auto" is per step on the CPU); the plain A-A step runs too
     sim = sim_1.main(["1", "--device", "cpu", "--streaming", "AA", "--use-fused",

@@ -1670,6 +1670,10 @@ def halo_cases():
         yield f"aa_box_{spec}", aa_box(box.shape), (False, False, True), "AA", spec, "float32"
     yield "bc_box_cum_well_f64", box, (False, False, True), "AB", "cum_well", "float64"
     yield "duct_lean", duct((8, 16, 16), True), (True, False, False), "AA", "cum_well", "float32"
+    yield "aa_box_cum_well_f64", aa_box(box.shape), (False, False, True), "AA", "cum_well", \
+        "float64"
+    yield "duct_lean_f64", duct((8, 16, 16), True), (True, False, False), "AA", "cum_well", \
+        "float64"
 
 
 @pytest.mark.parametrize("counts", [(2, 2, 1), (1, 2, 1)], ids=["x2y2", "y2"])
@@ -1732,3 +1736,99 @@ def test_sharded_runs_equal_one_shard_on_card(cuda, streaming, tmp_path):
             assert torch.equal(a, b), name
     for a, b, t in zip(runs["one"][:3], runs["none"][:3], (1e-6, 2e-6, 1e-6)):
         assert float((a - b).abs().max()) <= t
+
+
+# ------------------------------------------- the sharded pair (A13b, part 1)
+
+def pair_halo_cases():
+    """(name, map, periodic, spec, dtype, store) of the pairs' haloed
+    instances: B1 on sim_2's duct per store dtype and in float64 (a Z the
+    16-bit stages take, and one they do not), B1b's cumulant instances on a
+    box of every A-A code (OUTFLOW_RIGHT on the x seams of an x cut) and its
+    lean one on sim_1's kind of channel."""
+    for store in ("f32", "f16", "bf16"):
+        yield f"duct_{store}", duct((8, 16, 16), True), (True, False, False), "cum_well", \
+            "float32", store
+    yield "duct_f32_z12", duct((8, 16, 12), True), (True, True, False), "cum_well", "float32", \
+        "f32"
+    yield "duct_f16_z12", duct((8, 16, 12), True), (True, False, False), "cum_well", "float32", \
+        "f16"
+    yield "duct_f64", duct((8, 16, 16), True), (True, False, False), "cum_well", "float64", "f64"
+    box = aa_box((12, 16, 10))
+    for spec in HALO_SPECS:
+        yield f"aa_box_{spec}", box, (False, False, True), spec, "float32", "f32"
+    m, periodic = channel("inflow_outflow", (12, 16, 8))
+    m[5:7, 1:-1, 1:-1] = GEO.OUTFLOW_RIGHT  # on both sides of an x cut's seam
+    yield "channel_outflow_seam_invcum", m, periodic, "cum_invcum", "float32", "f32"
+    yield "duct_lean_periodic_y", duct((12, 16, 8), False), (False, True, True), "cum_well", \
+        "float32", "f32"
+
+
+@pytest.mark.parametrize("seg_len", [None, 3], ids=["auto_seg", "seg3"])
+@pytest.mark.parametrize("counts", [(2, 2, 1), (1, 2, 1)], ids=["x2y2", "y2"])
+@pytest.mark.parametrize("case", list(pair_halo_cases()), ids=lambda c: c[0])
+def test_pair_halo_kernels_match_plain_on_card(cuda, case, counts, seg_len):
+    """B1 and B1b in their haloed mode on each shard's block against their
+    plain versions on the card (float32: the step bounds; 16-bit: a ulp plus
+    2e-8, at most 0.1% differing; float64: 1e-12), the interior written and
+    the output's halo never; x segments of the march's own choice and of 3
+    planes."""
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+
+    name, m, periodic, spec, dtype, store = case
+    cfg = interop.config_from_spec(*HALO_SPECS[spec], "AA", dtype=dtype)
+    store_dtype = {"f16": torch.float16, "bf16": torch.bfloat16}.get(store)
+    dom = interop.domain_from_numpy(m, periodic)
+    plan = card_plan(counts, cuda)
+    pair = sh.make_sharded_fused_pair2_aa(cfg, dom, plan, store_dtype=store_dtype)
+    ls = pair.local_step
+    ls.seg_len = seg_len
+    rng = np.random.default_rng(5)
+    rho = torch.from_numpy(1 + 0.01 * rng.standard_normal(m.shape))
+    u = torch.from_numpy(0.02 * rng.standard_normal((3,) + m.shape))
+    f = plan.shard_field(cfg.eq(cfg.lat, rho, u).to(cfg.compute_dtype), like_f=True)
+    fpad = pair.pad(f)
+    pair.exchange(fpad)
+    for k in range(plan.n_shards):
+        kw = {"map_pad_in": pair.pad_maps[k], "bflags": pair.bflags[k]}
+        out = torch.full_like(fpad.blocks[k], 7.0)
+        got = ls(fpad.blocks[k], 0.02, u_in=U_IN, force=(1e-5, 0.0, 0.0), out=out, **kw)
+        plain = ls.plain(fpad.blocks[k], 0.02, u_in=U_IN, force=(1e-5, 0.0, 0.0), **kw)
+        assert got[0] is out
+        ring = torch.ones_like(out, dtype=torch.bool)
+        ring[:, 2:-2, 2:-2] = False
+        assert bool((out[ring] == 7.0).all()), "the output's halo was written"
+        inner = (slice(None), slice(2, -2), slice(2, -2))
+        if store_dtype is not None:
+            assert state_agrees(out[inner], plain[0][inner], store_dtype), name
+        tol = (1e-12, 2e-12, 1e-12) if dtype == "float64" else (1e-6, 2e-6, 1e-6)
+        for a, b, t in zip((out[inner],) + tuple(got[1:]), (plain[0][inner],) + tuple(plain[1:]),
+                           tol):
+            if store_dtype is None or a.dim() < 4:
+                assert float((a.double() - b.double()).abs().max()) <= t, name
+    assert ls.kernel.launches == plan.n_shards and ls.plain_calls == 0
+    assert "halo" in ls.kernel.name
+
+
+@pytest.mark.parametrize("store", ["f32", "f16", "bf16"])
+def test_sharded_pair_runs_equal_unsharded_pair_on_card(cuda, store, tmp_path):
+    """sim_2 res 1 in pairs through Simulation, unsharded (B1) and on 2 (y)
+    and 2 x 2 shards of one card (B1 on haloed blocks): the same f, rho and
+    u bit for bit."""
+    from tnl_lbm_tpu_torch.apps import sim_2
+
+    runs = {}
+    for name, counts in (("none", None), ("y2", (1, 2, 1)), ("x2y2", (2, 2, 1))):
+        sim = sim_2.build(1, device=cuda, streaming="AA", use_fused=True, pair_dispatch=True,
+                          storage="full" if store == "f32" else store,
+                          results_parent=tmp_path / name, final_time=0.08)
+        sim.plan = None if counts is None else card_plan(counts, cuda)
+        sim.sim_init()
+        sim._advance(20)
+        runs[name] = (sim.f.gather() if counts else sim.f, sim.rho, sim.u)
+        if counts is not None:
+            ls = sim._pair.local_step
+            assert ls.kernel.launches == 10 * sim.plan.n_shards and ls.plain_calls == 0
+    for name in ("y2", "x2y2"):
+        for a, b in zip(runs[name], runs["none"]):
+            assert torch.equal(a, b), name

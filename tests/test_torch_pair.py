@@ -198,11 +198,14 @@ def test_pair_writes_into_out_and_refuses_bad_calls():
         pair(f.half(), NU)
     with pytest.raises(NotImplementedError, match="ROADMAP Bprof"):
         pair(f, NU, u_in=np.zeros((3, 1, 16, 8)))
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(ValueError, match="prepadded"):  # the haloed pair's flags
         pair(f, NU, bflags=np.ones(6))
-    for kw in ({"prepadded": True}, {"local_shape": (8, 16, 8)}, {"z_halo": 2}):
+    for kw in ({"prepadded": True, "z_halo": 2}, {"local_shape": (8, 16, 8), "z_halo": 2},
+               {"z_halo": 2}):
         with pytest.raises(NotImplementedError, match="A13"):
             port_pair("duct", **kw)
+    with pytest.raises(ValueError, match="prepadded=True"):
+        port_pair("duct", local_shape=(8, 16, 8))
     with pytest.raises(TypeError):
         port_pair("duct", tile=(8, 32))
     with pytest.raises(ValueError):

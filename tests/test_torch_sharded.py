@@ -271,7 +271,8 @@ def test_sharded_kernel_steps_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="A13b"):
         sh.make_sharded_fused_step(interop.config_from_spec("SRT", "EQ", False, "AB"), dom,
                                    cpu_plan((2, 1, 1)))
-    aa = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, "AA", dtype="float64")
+    # float64 takes B3's haloed CUM_WELL instances; the family collisions do not
+    aa = interop.config_from_spec("SRT", "EQ", False, "AA", dtype="float64")
     with pytest.raises(NotImplementedError, match="A13b"):
         sh.make_sharded_fused_step_aa(aa, dom, cpu_plan((2, 1, 1)))
     with pytest.raises(NotImplementedError, match="A13b"):

@@ -18,7 +18,9 @@ default "auto" times the pair faster on a card (on the CPU "auto" runs
 per step).  ``--no-fused`` runs the plain step.  ``--sharded`` shards the
 lattice over the machine's cards (``parallel/sharded.py choose_plan``; on
 the CPU over the one device), A-B through B4 on haloed blocks, A-A
-through B2 and B3 on haloed blocks.
+through B2 and B3 on haloed blocks, or in pairs (``--pair-dispatch on``,
+or "auto" on a card) through the sharded pair: B1b on persistent haloed
+blocks.
 """
 
 from __future__ import annotations

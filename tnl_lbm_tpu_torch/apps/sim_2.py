@@ -17,8 +17,10 @@ Usage: python -m tnl_lbm_tpu_torch.apps.sim_2 RES [--device cuda|cpu]
 ``--sharded`` shards the lattice over the machine's cards
 (``parallel/sharded.py choose_plan``; on the CPU over the one device): with
 ``--use-fused`` A-B through B4 on haloed blocks, A-A per step through B2
-and B3 on haloed blocks (pair dispatch "auto" stays per step; "on" and
-``--storage f16|bf16`` raise, the sharded pair being ROADMAP A13b).
+and B3 on haloed blocks (in single or double precision), or in pairs
+through the sharded pair (B1 on persistent haloed blocks): "on" and
+``--storage f16|bf16`` take it, "auto" times it against per step on the
+card and stays per step on the CPU.
 ``--scaling`` sizes the lattice by the device count n (1 without
 ``--sharded``), as the JAX app does: strong keeps it, weak_1d makes x n
 times longer, weak_3d scales each axis by the cube root of n.

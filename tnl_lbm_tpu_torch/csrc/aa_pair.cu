@@ -70,6 +70,16 @@
 // stages take 198 KB (16-bit: 164 KB): one block of 608 threads per SM, 96
 // registers a thread, a few bytes of it spilled.  Offsets into a state
 // are 64-bit; offsets within one plane (Y Z < 2^31 sites) are 32-bit.
+//
+// The haloed instances (aa_pair_halo_*_kernel, tnl_lbm_aa_pair_halo): the
+// sharded pair's kernel on one shard's block (JAX make_fused_pair2_aa with
+// prepadded=True, local_shape and its call's map_pad_in and bflags,
+// fused_aa.py:593, :1144-1155; make_sharded_fused_pair2_aa,
+// tnl_lbm_tpu/parallel/sharded.py:1109).  f, fout and the map are the block
+// with a 2-wide x/y halo, [27, X+4, Y+4, Z]; the march walks the block and
+// its 1-wide ring (pair_march.cuh, HALO) and writes the block's interior
+// only.  Bound as above for the block's sites, plus the halo's and the
+// ring's reads (chip_smoke.py halo_reads).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -119,6 +129,20 @@ AA_PAIR_KERNEL(aa_pair_f32_kernel, float)
 AA_PAIR_KERNEL(aa_pair_f16_kernel, __half)
 AA_PAIR_KERNEL(aa_pair_bf16_kernel, __nv_bfloat16)
 
+#define AA_PAIR_HALO_KERNEL(NAME, S)                                                         \
+  extern "C" __global__ void __launch_bounds__(THREADS, 1)                                  \
+      NAME(const S* __restrict__ f, S* __restrict__ fout, const uint8_t* __restrict__ map,  \
+           float* __restrict__ rho, float* __restrict__ u, int X, int Y, int Z,             \
+           int periodic_bits, int has_nothing, int with_macro, int seg_len, int staged,     \
+           int gbits, SiteParams p) {                                                       \
+    pair_march<PairSite<S>, true>(f, fout, map, rho, u, X, Y, Z, periodic_bits,             \
+                                  has_nothing, with_macro, seg_len, staged, p, gbits);      \
+  }
+
+AA_PAIR_HALO_KERNEL(aa_pair_halo_f32_kernel, float)
+AA_PAIR_HALO_KERNEL(aa_pair_halo_f16_kernel, __half)
+AA_PAIR_HALO_KERNEL(aa_pair_halo_bf16_kernel, __nv_bfloat16)
+
 namespace {
 
 template <typename S>
@@ -144,6 +168,31 @@ int launch(PairKernel<S> kernel, const void* f, void* fout, const uint8_t* map, 
   kernel<<<blocks, THREADS, smem_bytes<S>(), stream>>>(
       static_cast<const S*>(f), static_cast<S*>(fout), map, rho, u, X, Y, Z, periodic_bits,
       has_nothing, with_macro, seg_len, staged, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+using PairHaloKernel = void (*)(const S*, S*, const uint8_t*, float*, float*, int, int, int, int,
+                                int, int, int, int, int, SiteParams);
+
+// The haloed launch: the march over the block and its ring, (X + 2) x (Y + 2).
+// The shared-memory opt-in is made at every launch: a card keeps it for
+// itself, and a sharded run launches on each shard's card.
+template <typename S>
+int launch_halo(PairHaloKernel<S> kernel, const void* f, void* fout, const uint8_t* map,
+                float* rho, float* u, int X, int Y, int Z, int pz, int gbits, int has_nothing,
+                int with_macro, int seg_len, const SiteParams& p, cudaStream_t stream) {
+  const cudaError_t opted = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<S>());
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  if ((int64_t)(Y + 4) * Z > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (seg_len <= 0) seg_len = auto_seg_len(X + 2, Y + 2, Z);
+  constexpr int VEC = 16 / (int)sizeof(S);
+  const int staged = Z % VEC == 0 && reinterpret_cast<uintptr_t>(f) % 16 == 0;
+  const int blocks = column_tiles(Y + 2, Z) * ((X + 2 + seg_len - 1) / seg_len);
+  kernel<<<blocks, THREADS, smem_bytes<S>(), stream>>>(
+      static_cast<const S*>(f), static_cast<S*>(fout), map, rho, u, X, Y, Z, pz ? 4 : 0,
+      has_nothing, with_macro, seg_len, staged, gbits, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,4 +247,33 @@ extern "C" int tnl_lbm_aa_pair(const void* f, void* fout, const uint8_t* map, fl
                                float fy, float fz, int neumaier, void* stream) {
   return tnl_lbm_aa_pair_segmented(f, fout, map, rho, u, X, Y, Z, periodic_bits, has_nothing,
                                    with_macro, store, nu, fx, fy, fz, neumaier, 0, stream);
+}
+
+// The haloed pair on one shard's block on `stream`: f, fout and map
+// [27 or 1, X+4, Y+4, Z] (the block of X x Y x Z sites at origin (2, 2, 0)),
+// rho and u the block; pz: z periodic; gbits: the block's faces on
+// non-periodic domain faces (bit 0 low x, 1 high x, 2 low y, 3 high y);
+// store, nu, the force, neumaier and seg_len (of the march over X + 2
+// planes) as tnl_lbm_aa_pair_segmented's.  Writes the interior of fout
+// only.  Returns the CUDA error of the launch (0 on success).
+extern "C" int tnl_lbm_aa_pair_halo(const void* f, void* fout, const uint8_t* map, float* rho,
+                                    float* u, int X, int Y, int Z, int pz, int gbits,
+                                    int has_nothing, int with_macro, int store, float nu,
+                                    float fx, float fy, float fz, int neumaier, int seg_len,
+                                    void* stream) {
+  const SiteParams p{1.0f / (3.0f * nu + 0.5f), fx, fy, fz, neumaier};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (store) {
+    case 0:
+      return launch_halo<float>(aa_pair_halo_f32_kernel, f, fout, map, rho, u, X, Y, Z, pz,
+                                gbits, has_nothing, with_macro, seg_len, p, s);
+    case 1:
+      return launch_halo<__half>(aa_pair_halo_f16_kernel, f, fout, map, rho, u, X, Y, Z, pz,
+                                 gbits, has_nothing, with_macro, seg_len, p, s);
+    case 2:
+      return launch_halo<__nv_bfloat16>(aa_pair_halo_bf16_kernel, f, fout, map, rho, u, X, Y, Z,
+                                        pz, gbits, has_nothing, with_macro, seg_len, p, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

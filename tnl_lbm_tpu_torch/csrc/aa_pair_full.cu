@@ -37,6 +37,13 @@
 // leave at most 104 a thread; the full-set site update spills beyond that
 // (the ptxas report, PERF.md).  Offsets into a state are 64-bit; offsets
 // within one plane (Y Z < 2^31 sites) are 32-bit.
+//
+// The haloed instances (aa_pair_full_halo_*_kernel,
+// tnl_lbm_aa_pair_full_halo): the sharded pair on one shard's block for
+// these four variants (the sharded pair of tnl_lbm_tpu/parallel/sharded.py:
+// 1109 runs the JAX pair on every A-A map), on pair_march.cuh's haloed
+// mode: f, fout and the map [27, X+4, Y+4, Z], the interior written.  The
+// family sources (pair_coll_*.cu) have no haloed instances.
 
 #include <cuda_runtime.h>
 
@@ -104,6 +111,21 @@ AA_PAIR_FULL_KERNEL(aa_pair_full_cum_quad_kernel, FullQuad)
 AA_PAIR_FULL_KERNEL(aa_pair_full_cum_invcum_kernel, FullInvCum)
 AA_PAIR_FULL_KERNEL(aa_pair_full_lean_kernel, LeanSite)
 
+#define AA_PAIR_FULL_HALO_KERNEL(NAME, SITE)                                                  \
+  extern "C" __global__ void __launch_bounds__(THREADS, 1)                                   \
+      NAME(const float* __restrict__ f, float* __restrict__ fout,                             \
+           const uint8_t* __restrict__ map, float* __restrict__ rho, float* __restrict__ u,   \
+           int X, int Y, int Z, int periodic_bits, int has_nothing, int with_macro,          \
+           int seg_len, int gbits, ABParams p) {                                              \
+    pair_march<SITE, true>(f, fout, map, rho, u, X, Y, Z, periodic_bits, has_nothing,         \
+                           with_macro, seg_len, 0, p, gbits);                                 \
+  }
+
+AA_PAIR_FULL_HALO_KERNEL(aa_pair_full_halo_cum_well_kernel, FullWell)
+AA_PAIR_FULL_HALO_KERNEL(aa_pair_full_halo_cum_quad_kernel, FullQuad)
+AA_PAIR_FULL_HALO_KERNEL(aa_pair_full_halo_cum_invcum_kernel, FullInvCum)
+AA_PAIR_FULL_HALO_KERNEL(aa_pair_full_halo_lean_kernel, LeanSite)
+
 namespace {
 
 using FullKernel = void (*)(const float*, float*, const uint8_t*, float*, float*, int, int, int,
@@ -111,6 +133,13 @@ using FullKernel = void (*)(const float*, float*, const uint8_t*, float*, float*
 
 const FullKernel KERNELS[4] = {aa_pair_full_cum_well_kernel, aa_pair_full_cum_quad_kernel,
                                aa_pair_full_cum_invcum_kernel, aa_pair_full_lean_kernel};
+
+using FullHaloKernel = void (*)(const float*, float*, const uint8_t*, float*, float*, int, int,
+                                int, int, int, int, int, int, ABParams);
+
+const FullHaloKernel HALO_KERNELS[4] = {
+    aa_pair_full_halo_cum_well_kernel, aa_pair_full_halo_cum_quad_kernel,
+    aa_pair_full_halo_cum_invcum_kernel, aa_pair_full_halo_lean_kernel};
 
 // Dynamic shared memory of one block of a variant: the ring (12 groups with
 // the outflow pull, 9 on the lean map) and the codes.
@@ -159,5 +188,33 @@ extern "C" int tnl_lbm_aa_pair_full(const float* f, float* fout, const uint8_t* 
   const int blocks = column_tiles(Y, Z) * ((X + seg_len - 1) / seg_len);
   KERNELS[variant]<<<blocks, THREADS, full_smem(variant), static_cast<cudaStream_t>(stream)>>>(
       f, fout, map, rho, u, X, Y, Z, periodic_bits, has_nothing, with_macro, seg_len, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The haloed pair on one shard's block on `stream`: f, fout and map
+// [27 or 1, X+4, Y+4, Z], rho and u the block; pz: z periodic; gbits: the
+// block's faces on non-periodic domain faces (bit 0 low x, 1 high x, 2 low
+// y, 3 high y); the rest as tnl_lbm_aa_pair_full's (seg_len of the march
+// over X + 2 planes).  Writes the interior of fout only.
+extern "C" int tnl_lbm_aa_pair_full_halo(const float* f, float* fout, const uint8_t* map,
+                                         float* rho, float* u, int X, int Y, int Z, int pz,
+                                         int gbits, int has_nothing, int with_macro, int variant,
+                                         float nu, float fx, float fy, float fz, float uin_x,
+                                         float uin_y, float uin_z, int neumaier, int seg_len,
+                                         void* stream) {
+  if (variant < 0 || variant > 3 || (rho == nullptr) != (u == nullptr) ||
+      (with_macro != 0) != (rho != nullptr) || (int64_t)(Y + 4) * Z > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // opted in at every launch: a card keeps the attribute for itself, and a
+  // sharded run launches on each shard's card
+  const cudaError_t opted = cudaFuncSetAttribute(
+      HALO_KERNELS[variant], cudaFuncAttributeMaxDynamicSharedMemorySize, full_smem(variant));
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  if (seg_len <= 0) seg_len = auto_seg_len(X + 2, Y + 2, Z);
+  const ABParams p{1.0f / (3.0f * nu + 0.5f), fx, fy, fz, uin_x, uin_y, uin_z, neumaier};
+  const int blocks = column_tiles(Y + 2, Z) * ((X + 2 + seg_len - 1) / seg_len);
+  HALO_KERNELS[variant]<<<blocks, THREADS, full_smem(variant),
+                          static_cast<cudaStream_t>(stream)>>>(
+      f, fout, map, rho, u, X, Y, Z, pz ? 4 : 0, has_nothing, with_macro, seg_len, gbits, p);
   return static_cast<int>(cudaGetLastError());
 }

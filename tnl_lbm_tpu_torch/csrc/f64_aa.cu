@@ -17,6 +17,13 @@
 // step; the site's FP64 work as for the A-B step (f64_ab.cu).  Same design
 // as the float32 kernels: z along threadIdx.x, no shared memory, the odd
 // step's pushes by the one-writer rule of push_targets.
+//
+// The haloed odd instances (aa_odd_halo_f64_*_kernel, tnl_lbm_aa_odd_halo_f64):
+// the sharded A-A step's odd step on a shard's block in float64, as
+// halo_step.cu's float32 ones (lbm_site.cuh aa_odd_halo_site): f
+// [27, X+4, Y+4, Z], the map ring [X+2, Y+2, Z], the rest the block; lean
+// and full set.  They replace the same Pallas call (fused_aa.py:287) with
+// prepadded=True, map_ring_in and bflags, in float64.
 
 #define LBM_F64
 
@@ -56,6 +63,21 @@ extern "C" __global__ void __launch_bounds__(THREADS)
 
 AA_ODD_F64_KERNEL(aa_odd_f64_cum_well_kernel, false)
 AA_ODD_F64_KERNEL(aa_odd_f64_lean_kernel, true)
+
+#define AA_ODD_HALO_F64_KERNEL(NAME, LEAN)                                                    \
+  extern "C" __global__ void __launch_bounds__(THREADS)                                      \
+      NAME(const double* __restrict__ f, double* __restrict__ fout,                           \
+           const uint8_t* __restrict__ ring, double* __restrict__ rho, double* __restrict__ u,\
+           int X, int Y, int Z, int pz, int gbits, int has_nothing, ABParams p) {            \
+    const int z = blockIdx.x * blockDim.x + threadIdx.x;                                      \
+    if (z >= Z) return;                                                                       \
+    aa_odd_halo_site<true, EQ_WELL, LEAN>(f, fout, ring, rho, u, (int)blockIdx.z - 1,         \
+                                          (int)blockIdx.y - 1, z, X, Y, Z, pz != 0, gbits,    \
+                                          has_nothing != 0, p);                               \
+  }
+
+AA_ODD_HALO_F64_KERNEL(aa_odd_halo_f64_cum_well_kernel, false)
+AA_ODD_HALO_F64_KERNEL(aa_odd_halo_f64_lean_kernel, true)
 
 namespace {
 
@@ -98,5 +120,28 @@ extern "C" int tnl_lbm_aa_odd_f64(const double* f, double* fout, const uint8_t* 
   else
     aa_odd_f64_cum_well_kernel<<<grid, block, 0, s>>>(f, fout, map, rho, u, Y, Z, periodic_bits,
                                                       has_nothing, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The haloed odd step on a block of X x Y x Z sites on `stream`: f
+// [27, X+4, Y+4, Z], ring [X+2, Y+2, Z], fout, rho, u of the block; pz, gbits
+// and has_nothing as halo_step.cu tnl_lbm_aa_odd_halo's; lean 1 the
+// FLUID/WALL/NOTHING instance, 0 the full A-A code set.  Returns
+// cudaGetLastError() of the launch.
+extern "C" int tnl_lbm_aa_odd_halo_f64(const double* f, double* fout, const uint8_t* ring,
+                                       double* rho, double* u, int X, int Y, int Z, int pz,
+                                       int gbits, int has_nothing, int lean, double nu, double fx,
+                                       double fy, double fz, double uin_x, double uin_y,
+                                       double uin_z, int neumaier, void* stream) {
+  const dim3 block = block_of(Z);
+  const dim3 grid((Z + block.x - 1) / block.x, Y + 2, X + 2);
+  const ABParams p = params(nu, fx, fy, fz, uin_x, uin_y, uin_z, neumaier);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (lean)
+    aa_odd_halo_f64_lean_kernel<<<grid, block, 0, s>>>(f, fout, ring, rho, u, X, Y, Z, pz, gbits,
+                                                       has_nothing, p);
+  else
+    aa_odd_halo_f64_cum_well_kernel<<<grid, block, 0, s>>>(f, fout, ring, rho, u, X, Y, Z, pz,
+                                                           gbits, has_nothing, p);
   return static_cast<int>(cudaGetLastError());
 }

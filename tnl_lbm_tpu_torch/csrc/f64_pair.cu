@@ -28,6 +28,11 @@
 // plus the map and 32 B of rho and u: 465 B/site a pair; the two site
 // updates' FP64 work (2.4 collisions a site with the window halo) on the
 // FP64 pipe, half the FP32 pipe's lanes (chip_smoke.py card_rates).
+//
+// The haloed instance (aa_pair_halo_f64_kernel, tnl_lbm_aa_pair_f64_halo):
+// the sharded pair on one shard's block, as aa_pair.cu's haloed instances
+// (pair_march.cuh, HALO): f, fout and the map [27, X+4, Y+4, Z], the
+// interior written.
 
 #define LBM_F64
 
@@ -74,6 +79,16 @@ extern "C" __global__ void __launch_bounds__(THREADS, 1)
                           seg_len, 0, p);
 }
 
+extern "C" __global__ void __launch_bounds__(THREADS, 1)
+    aa_pair_halo_f64_kernel(const double* __restrict__ f, double* __restrict__ fout,
+                            const uint8_t* __restrict__ map, double* __restrict__ rho,
+                            double* __restrict__ u, int X, int Y, int Z, int periodic_bits,
+                            int has_nothing, int with_macro, int seg_len, int gbits,
+                            SiteParams p) {
+  pair_march<PairSiteF64, true>(f, fout, map, rho, u, X, Y, Z, periodic_bits, has_nothing,
+                                with_macro, seg_len, 0, p, gbits);
+}
+
 // The launch geometry for a shape: out[0] dynamic shared memory per block
 // (bytes), [1] stages (0), [2] TY, [3] TZ, [4] the automatic x segment
 // length, [5] segments, [6] column tiles, [7] staged (0), [8] threads.
@@ -102,5 +117,25 @@ extern "C" int tnl_lbm_aa_pair_f64(const double* f, double* fout, const uint8_t*
   const int blocks = column_tiles(Y, Z) * ((X + seg_len - 1) / seg_len);
   aa_pair_f64_kernel<<<blocks, THREADS, SMEM_F64, static_cast<cudaStream_t>(stream)>>>(
       f, fout, map, rho, u, X, Y, Z, periodic_bits, has_nothing, with_macro, seg_len, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The haloed pair on one shard's block on `stream` (aa_pair.cu
+// tnl_lbm_aa_pair_halo's arguments in double, without the store code).
+extern "C" int tnl_lbm_aa_pair_f64_halo(const double* f, double* fout, const uint8_t* map,
+                                        double* rho, double* u, int X, int Y, int Z, int pz,
+                                        int gbits, int has_nothing, int with_macro, double nu,
+                                        double fx, double fy, double fz, int neumaier,
+                                        int seg_len, void* stream) {
+  // opted in at every launch: a card keeps the attribute for itself
+  const cudaError_t opted = cudaFuncSetAttribute(
+      aa_pair_halo_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_F64);
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  if ((int64_t)(Y + 4) * Z > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (seg_len <= 0) seg_len = auto_seg_len(X + 2, Y + 2, Z);
+  const SiteParams p{1.0 / (3.0 * nu + 0.5), fx, fy, fz, neumaier};
+  const int blocks = column_tiles(Y + 2, Z) * ((X + 2 + seg_len - 1) / seg_len);
+  aa_pair_halo_f64_kernel<<<blocks, THREADS, SMEM_F64, static_cast<cudaStream_t>(stream)>>>(
+      f, fout, map, rho, u, X, Y, Z, pz ? 4 : 0, has_nothing, with_macro, seg_len, gbits, p);
   return static_cast<int>(cudaGetLastError());
 }

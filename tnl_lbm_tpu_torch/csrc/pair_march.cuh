@@ -45,6 +45,21 @@
 // partial: their high halo is the site just past the tile's last, and
 // their threads beyond the domain are masked.  An instance without the
 // stages (Site::STAGED false) has the even warps read global memory.
+//
+// The haloed mode (HALO true: the sharded pair, one launch per shard's
+// block).  The state in and out is the block of X x Y x Z sites with a
+// 2-wide x/y halo, [Q][X + 4][Y + 4][Z], and so is the map (the neighbour
+// shards' codes in the halo); rho and u are the block's [X][Y][Z].  The
+// march walks the block and its 1-wide x/y ring, (X + 2) x (Y + 2) sites at
+// origin -1, as the unsharded march walks its domain: the even planes and
+// window rows reach the halo's outer layer and never wrap, the ring's
+// sites collide the neighbour shards' edge sites again and push into the
+// block only, and the block's sites push into the block only.  `gbits`
+// (bit 0 x low, 1 x high, 2 y low, 3 y high) marks the block's faces that
+// are non-periodic faces of the domain: there the window reads clamp to the
+// block's edge layer (the unsharded march's clamp), the ring's sites do not
+// collide, and the edge sites' pushes edge-replicate (HFace).  z keeps the
+// unsharded wrap or clamp.  Nothing is written to the output's halo.
 
 #pragma once
 
@@ -237,14 +252,51 @@ __device__ __forceinline__ Face face(int s, int n, bool periodic, int64_t stride
   return a;
 }
 
+// The haloed mode's row of extended coordinate e along an axis of n block
+// sites (the block and its ring at origin -1): its index in the 2-wide
+// haloed layout, clamped to the block's edge layer on a face of the domain
+// that is not periodic (glo, ghi).
+__device__ __forceinline__ int halo_row(int e, int n, bool glo, bool ghi) {
+  int b = e - 1;
+  if (glo && b < 0) b = 0;
+  if (ghi && b >= n) b = n - 1;
+  return b + 2;
+}
+
+// One axis of a push in the haloed mode from block coordinate s in
+// [-1, n] (Face's interface): a target exists where it lies in the block
+// [0, n), and on a face of the domain that is not periodic (glo, ghi) the
+// edge layer's push outwards lands on s too.
+struct HFace {
+  int64_t step;
+  bool mid_ok, lo_ok, hi_ok, lo_rep, hi_rep;
+  __device__ __forceinline__ bool ok(int c) const {
+    return c == 0 ? mid_ok : (c < 0 ? lo_ok : hi_ok);
+  }
+  __device__ __forceinline__ int64_t delta(int c) const { return c * step; }
+  __device__ __forceinline__ int rep(int c) const { return c != 0 && (c < 0 ? lo_rep : hi_rep); }
+};
+
+__device__ __forceinline__ HFace hface(int s, int n, bool glo, bool ghi, int64_t stride) {
+  HFace a;
+  a.step = stride;
+  a.mid_ok = s >= 0 && s < n;
+  a.lo_ok = s >= 1 && s <= n;
+  a.hi_ok = s >= -1 && s <= n - 2;
+  a.lo_rep = ghi && s == n - 1;
+  a.hi_rep = glo && s == 0;
+  return a;
+}
+
 // The pair of one block over its column tile and x segment.  Site holds
 // the instance: Store (the state's storage type), Params (the site
 // parameters), STAGED (whether the staged load path is compiled; `staged`
 // then chooses it per launch), OUTFLOW (whether an odd OUTFLOW_RIGHT site
 // pulls all of plane o - 1, with OUT_GROUPS ring groups of each class), and
 // the site updates: even(v, m, p), on the DFs of a site that is not
-// NOTHING, and odd(v, m, p, rho, ux, uy, uz).
-template <class Site>
+// NOTHING, and odd(v, m, p, rho, ux, uy, uz).  HALO selects the haloed
+// mode (X, Y, Z the block's extent, gbits its domain faces; see above).
+template <class Site, bool HALO = false>
 __device__ __forceinline__ void pair_march(const typename Site::Store* __restrict__ f,
                                            typename Site::Store* __restrict__ fout,
                                            const uint8_t* __restrict__ map,
@@ -252,7 +304,7 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
                                            real* __restrict__ u_out, int X, int Y, int Z,
                                            int periodic_bits, int has_nothing, int with_macro,
                                            int seg_len, int staged,
-                                           const typename Site::Params& p) {
+                                           const typename Site::Params& p, int gbits = 0) {
   using S = typename Site::Store;
   constexpr int PG = Site::OUTFLOW ? OUT_GROUPS : P_GROUPS;
   constexpr int ZG = Site::OUTFLOW ? OUT_GROUPS : Z_GROUPS;
@@ -266,13 +318,19 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
 
   const bool px = periodic_bits & 1, py = periodic_bits & 2, pz = periodic_bits & 4;
   const int64_t YZ = (int64_t)Y * Z, N = X * YZ;
+  // the haloed mode: the extents the march walks (the block and its ring),
+  // the domain faces and the haloed layout's strides of f, fout and the map
+  // (rho and u keep the block's, YZ and N)
+  const int XM = HALO ? X + 2 : X, YM = HALO ? Y + 2 : Y;
+  const bool gxl = gbits & 1, gxh = gbits & 2, gyl = gbits & 4, gyh = gbits & 8;
+  const int64_t YZs = HALO ? (int64_t)(Y + 4) * Z : YZ, Ns = HALO ? (X + 4) * YZs : N;
   // block b: column tile b mod ncol of segment b / ncol, so the blocks that
   // run together walk the same x and share their halo rows in L2
-  const int nzt = (Z + TZ - 1) / TZ, ncol = ((Y + TY - 1) / TY) * nzt;
+  const int nzt = (Z + TZ - 1) / TZ, ncol = ((YM + TY - 1) / TY) * nzt;
   const int col = blockIdx.x % ncol, seg = blockIdx.x / ncol;
   const int y0 = (col / nzt) * TY, z0 = (col % nzt) * TZ;
-  const int ny = min(TY, Y - y0), nz = min(TZ, Z - z0);
-  const int xs = seg * seg_len, xe = min(xs + seg_len, X);
+  const int ny = min(TY, YM - y0), nz = min(TZ, Z - z0);
+  const int xs = seg * seg_len, xe = min(xs + seg_len, XM);
   const int n_even = xe - xs + 2;  // even planes xs - 1 .. xe
   const int t = threadIdx.x;
   const int zlo = neighbour(z0 - 1, 0, Z, pz), zhi = neighbour(z0 - 1, nz + 1, Z, pz);
@@ -297,7 +355,9 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
     const int lyw = t / WZ, lzw = t % WZ;
     const bool on = t < WSITES && lyw <= ny + 1 && lzw <= nz + 1;
     const int zg = neighbour(z0 - 1, lzw, Z, pz);
-    const int yz = neighbour(y0 - 1, lyw, Y, py) * Z + zg;  // Y Z < 2^31
+    int yz;  // Y Z < 2^31
+    if constexpr (HALO) yz = halo_row(y0 - 1 + lyw, Y, gyl, gyh) * Z + zg;
+    else yz = neighbour(y0 - 1, lyw, Y, py) * Z + zg;
     const int half = sizeof(S) == 2 ? 2 * (zg & 1) : 0;     // a halo's half in its word
     const int soff = lyw * RB + (lzw == 0 ? half
                                           : (lzw == nz + 1 ? hi_halo_byte<S>() + half
@@ -309,8 +369,13 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
     auto issue = [&](int j) {
       uint64_t* bar = &full[j % NSTAGES];
       if (copier) {
-        const S* src = f + neighbour(xs - 1, j, X, px) * YZ + (int64_t)(t / WY) * N +
-                       neighbour(y0 - 1, t % WY, Y, py) * (int64_t)Z;
+        const S* src;
+        if constexpr (HALO)
+          src = f + halo_row(xs - 1 + j, X, gxl, gxh) * YZs + (int64_t)(t / WY) * Ns +
+                halo_row(y0 - 1 + t % WY, Y, gyl, gyh) * (int64_t)Z;
+        else
+          src = f + neighbour(xs - 1, j, X, px) * YZ + (int64_t)(t / WY) * N +
+                neighbour(y0 - 1, t % WY, Y, py) * (int64_t)Z;
         unsigned char* dst = stages + (j % NSTAGES) * SB + t * RB;
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the last reads
         stage_row<S>(dst, src, z0, nz, zlo, zhi, 0, bar);
@@ -319,7 +384,12 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
     };
     if (Site::STAGED && staged)
       for (int j = 0; j < NSTAGES - 1 && j < n_even; ++j) issue(j);
-    uint8_t mnext = on ? map[neighbour(xs - 1, 0, X, px) * YZ + yz] : GEO_NOTHING;
+    // the offset of even plane i's window row in f and the map
+    auto plane = [&](int i) -> int64_t {
+      if constexpr (HALO) return halo_row(xs - 1 + i, X, gxl, gxh) * YZs;
+      else return neighbour(xs - 1, i, X, px) * YZ;
+    };
+    uint8_t mnext = on ? map[plane(0) + yz] : GEO_NOTHING;
 
     for (int i = 0; i < n_even; ++i) {
       if (Site::STAGED && staged && i + NSTAGES - 1 < n_even) {
@@ -334,7 +404,7 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
         // same-site read, opposite-slot result
         if (Site::STAGED && staged) mbar_wait(&full[i % NSTAGES], (i / NSTAGES) & 1);
         const uint8_t m = mnext;
-        if (i + 1 < n_even) mnext = map[neighbour(xs - 1, i + 1, X, px) * YZ + yz];
+        if (i + 1 < n_even) mnext = map[plane(i + 1) + yz];
         real v[Q];
         if (Site::STAGED && staged) {
           const unsigned char* st = stages + (i % NSTAGES) * SB + soff;
@@ -342,9 +412,9 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
           for (int q = 0; q < Q; ++q)
             v[q] = widen(*reinterpret_cast<const S*>(st + q * WY * RB));
         } else {
-          int64_t n = N;
+          int64_t n = Ns;
           asm volatile("" : "+l"(n));  // no 27 component offsets kept across the loop
-          const S* src = f + neighbour(xs - 1, i, X, px) * YZ + yz;
+          const S* src = f + plane(i) + yz;
 #pragma unroll
           for (int q = 0; q < Q; ++q, src += n) v[q] = widen(*src);
         }
@@ -359,10 +429,20 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
           }
           if (i >= 1 && i + 1 < n_even && lyw >= 1 && lyw <= ny && lzw >= 1 && lzw <= nz) {
             // a tile site of an odd plane: no push lands on it, and its
-            // output is its even output narrowed, the stored bits
-            S* dst = fout + (int64_t)(xs + i - 1) * YZ + yz;
+            // output is its even output narrowed, the stored bits (in the
+            // haloed mode a site of the block, not of its ring)
+            if constexpr (HALO) {
+              const int bx = xs + i - 2, by = y0 + lyw - 2;
+              if (bx >= 0 && bx < X && by >= 0 && by < Y) {
+                S* dst = fout + (bx + 2) * YZs + yz;
 #pragma unroll
-            for (int q = 0; q < Q; ++q) dst[q * N] = narrow<S>(v[q]);
+                for (int q = 0; q < Q; ++q) dst[q * Ns] = narrow<S>(v[q]);
+              }
+            } else {
+              S* dst = fout + (int64_t)(xs + i - 1) * YZ + yz;
+#pragma unroll
+              for (int q = 0; q < Q; ++q) dst[q * N] = narrow<S>(v[q]);
+            }
           }
         } else {
           Site::even(v, m, p);
@@ -385,19 +465,23 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
   // once even plane o + 1 is written
   const int ot = t - EVEN_THREADS, ly = ot / TZ, lz = ot % TZ;
   const int wc = (ly + 1) * WZ + lz + 1;
-  const bool mine = ly < ny && lz < nz;
-  const int y = y0 + ly, z = z0 + lz;
+  // the haloed mode's coordinates are the block's (the ring at -1 and X or Y)
+  const int y = y0 + ly - (HALO ? 1 : 0), z = z0 + lz;
+  // a ring site on a domain face does not collide (haloed mode)
+  const bool mine = ly < ny && lz < nz && !(HALO && ((y < 0 && gyl) || (y >= Y && gyh)));
   const bool y_inner = y > 0 && y < Y - 1, z_inner = z > 0 && z < Z - 1;
   for (int o = 1; o + 1 < n_even; ++o) {
     mbar_wait(&planes_done[(o + 1) % HANDOFF], ((o + 1) / HANDOFF) & 1);
-    const int x = xs + o - 1;
+    const int x = xs + o - 1 - (HALO ? 1 : 0);
     // the push path is the warp's: straight lines where every site is away
     // from the faces, z's edge rule alone where every site is away from the
     // x and y faces, else all three axes'
-    const bool warp_xy_inner = __all_sync(0xffffffffu, !mine || (y_inner && x > 0 && x < X - 1));
-    const bool warp_inner = __all_sync(0xffffffffu, !mine || (y_inner && z_inner && x > 0 &&
+    bool live = mine;
+    if constexpr (HALO) live = mine && !((x < 0 && gxl) || (x >= X && gxh));
+    const bool warp_xy_inner = __all_sync(0xffffffffu, !live || (y_inner && x > 0 && x < X - 1));
+    const bool warp_inner = __all_sync(0xffffffffu, !live || (y_inner && z_inner && x > 0 &&
                                                               x < X - 1));
-    if (mine) {
+    if (live) {
       // neighbour pull, collide, push
       const int64_t site = (int64_t)x * YZ + (int64_t)y * Z + z;
       const real* ringP = ring + ((o + 1) % PG) * GROUP * WSITES;
@@ -431,8 +515,8 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
       // The strides, opaque to the compiler inside the iteration: the 27
       // component offsets are then formed as the pushes go, not kept in
       // registers across the plane loop.
-      int64_t n = N;
-      int sx32 = (int)YZ, sy32 = Z;  // neighbour deltas within a component: |d| <= Y Z + Z + 1
+      int64_t n = Ns;
+      int sx32 = (int)YZs, sy32 = Z;  // neighbour deltas within a component: |d| <= Y Z + Z + 1
       asm volatile("" : "+l"(n), "+r"(sx32), "+r"(sy32));
       // pushes aimed at a NOTHING site are dropped: the even warps wrote
       // its output.  A target's code is the window's at the push's offset
@@ -442,7 +526,8 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
         return !has_nothing ||
                codes[((o + dx) % CODE_PLANES) * WSITES + wc + dy * WZ + dz] != GEO_NOTHING;
       };
-      S* fs = fout + site;  // component q's plane at this site
+      // component q's plane at this site
+      S* fs = fout + (HALO ? (int64_t)(x + 2) * YZs + (int64_t)(y + 2) * Z + z : site);
       if (warp_inner) {
         // every push lands at site + c_q: straight-line stores, no branches
         // when the map holds no NOTHING site
@@ -471,22 +556,41 @@ __device__ __forceinline__ void pair_march(const typename Site::Store* __restric
         // on a periodic axis, where that exists, and at a closed face whose
         // outer neighbour would push inwards also on s itself (the edge
         // replication), so a push has up to 8 targets: its primary one and,
-        // on the face sites only, those with the replicated axes at s.
-        const Face fx = face(x, X, px, YZ), fy = face(y, Y, py, Z), fz = face(z, Z, pz, 1);
+        // on the face sites only, those with the replicated axes at s.  The
+        // haloed mode's x and y land in the block only (HFace).
+        if constexpr (HALO) {
+          const HFace fx = hface(x, X, gxl, gxh, YZs), fy = hface(y, Y, gyl, gyh, Z);
+          const Face fz = face(z, Z, pz, 1);
 #pragma unroll
-        for (int q = 0; q < Q; ++q, fs += n) {
-          const bool okx = fx.ok(cx(q)), oky = fy.ok(cy(q)), okz = fz.ok(cz(q));
-          const int64_t dx = fx.delta(cx(q)), dy = fy.delta(cy(q)), dz = fz.delta(cz(q));
-          const int rep = fx.rep(cx(q)) | fy.rep(cy(q)) << 1 | fz.rep(cz(q)) << 2;
-          const S val = narrow<S>(v[q]);
-          if (okx && oky && okz && kept(cx(q), cy(q), cz(q))) fs[dx + dy + dz] = val;
-          for (int r = rep; r; r = (r - 1) & rep)  // the targets with the axes of r at s
-            if ((r & 1 || okx) && (r & 2 || oky) && (r & 4 || okz) &&
-                kept(r & 1 ? 0 : cx(q), r & 2 ? 0 : cy(q), r & 4 ? 0 : cz(q)))
-              fs[(r & 1 ? 0 : dx) + (r & 2 ? 0 : dy) + (r & 4 ? 0 : dz)] = val;
+          for (int q = 0; q < Q; ++q, fs += n) {
+            const bool okx = fx.ok(cx(q)), oky = fy.ok(cy(q)), okz = fz.ok(cz(q));
+            const int64_t dx = fx.delta(cx(q)), dy = fy.delta(cy(q)), dz = fz.delta(cz(q));
+            const int rep = fx.rep(cx(q)) | fy.rep(cy(q)) << 1 | fz.rep(cz(q)) << 2;
+            const S val = narrow<S>(v[q]);
+            if (okx && oky && okz && kept(cx(q), cy(q), cz(q))) fs[dx + dy + dz] = val;
+            for (int r = rep; r; r = (r - 1) & rep)
+              if ((r & 1 || okx) && (r & 2 || oky) && (r & 4 || okz) &&
+                  kept(r & 1 ? 0 : cx(q), r & 2 ? 0 : cy(q), r & 4 ? 0 : cz(q)))
+                fs[(r & 1 ? 0 : dx) + (r & 2 ? 0 : dy) + (r & 4 ? 0 : dz)] = val;
+          }
+        } else {
+          const Face fx = face(x, X, px, YZ), fy = face(y, Y, py, Z), fz = face(z, Z, pz, 1);
+#pragma unroll
+          for (int q = 0; q < Q; ++q, fs += n) {
+            const bool okx = fx.ok(cx(q)), oky = fy.ok(cy(q)), okz = fz.ok(cz(q));
+            const int64_t dx = fx.delta(cx(q)), dy = fy.delta(cy(q)), dz = fz.delta(cz(q));
+            const int rep = fx.rep(cx(q)) | fy.rep(cy(q)) << 1 | fz.rep(cz(q)) << 2;
+            const S val = narrow<S>(v[q]);
+            if (okx && oky && okz && kept(cx(q), cy(q), cz(q))) fs[dx + dy + dz] = val;
+            for (int r = rep; r; r = (r - 1) & rep)  // the targets with the axes of r at s
+              if ((r & 1 || okx) && (r & 2 || oky) && (r & 4 || okz) &&
+                  kept(r & 1 ? 0 : cx(q), r & 2 ? 0 : cy(q), r & 4 ? 0 : cz(q)))
+                fs[(r & 1 ? 0 : dx) + (r & 2 ? 0 : dy) + (r & 4 ? 0 : dz)] = val;
+          }
         }
       }
-      if (with_macro) {
+      // the haloed mode's ring sites write no rho and u
+      if (with_macro && (!HALO || (x >= 0 && x < X && y >= 0 && y < Y))) {
         rho_out[site] = rho;
         u_out[site] = ux;
         u_out[N + site] = uy;

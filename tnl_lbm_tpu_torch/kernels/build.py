@@ -130,6 +130,10 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_ab_step_halo.argtypes = [p] * 5 + [i] * 5 + [f] * 7 + [i, p]
     lib.tnl_lbm_aa_odd_halo.argtypes = [p] * 5 + [i] * 7 + [f] * 7 + [i, p]
     lib.tnl_lbm_ab_step_f64_halo.argtypes = [p] * 5 + [i] * 4 + [d] * 7 + [i, p]
+    lib.tnl_lbm_aa_odd_halo_f64.argtypes = [p] * 5 + [i] * 7 + [d] * 7 + [i, p]
+    lib.tnl_lbm_aa_pair_halo.argtypes = [p] * 5 + [i] * 8 + [f] * 4 + [i, i, p]
+    lib.tnl_lbm_aa_pair_f64_halo.argtypes = [p] * 5 + [i] * 7 + [d] * 4 + [i, i, p]
+    lib.tnl_lbm_aa_pair_full_halo.argtypes = [p] * 5 + [i] * 8 + [f] * 7 + [i, i, p]
     families = ((COLL_ENTRIES, [i] * 5 + [p] * 6 + [i] * 5 + [f] * 7 + [i, p]),
                 (NN_COLL_ENTRIES, [i] * 4 + [p] * 5 + [i] * 6 + [f] * 7 + [i, i] + [f] * 6 + [p]),
                 (PAIR_COLL_ENTRIES, [i] * 3 + [p] * 5 + [i] * 6 + [f] * 7 + [i, i, p]))

@@ -105,7 +105,9 @@ PROFILE_ROADMAP = "ROADMAP Bprof"
 SHARDED_ROADMAP = "ROADMAP A13b"
 #: the cumulant variants with haloed instances (csrc/halo_step.cu): the A-B
 #: step's three, the A-A odd step's three and its lean one; in float64 the
-#: A-B step's CUM_WELL one (csrc/f64_ab.cu)
+#: A-B step's CUM_WELL one (csrc/f64_ab.cu) and the odd step's CUM_WELL ones,
+#: lean and full set (csrc/f64_aa.cu); the pairs' haloed instances are B1's
+#: (csrc/aa_pair.cu, f64_pair.cu) and B1b's cumulant ones (csrc/aa_pair_full.cu)
 HALO_AB_VARIANTS = frozenset({0, 1, 2})
 HALO_ODD_VARIANTS = frozenset({0, 1, 2, _AA_LEAN_VARIANT})
 

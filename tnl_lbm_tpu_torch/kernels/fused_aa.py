@@ -196,6 +196,117 @@ def odd_step_halo_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, fpad, ri
     return pushed, rho[1:-1, 1:-1], u[:, 1:-1, 1:-1]
 
 
+def pair_halo_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, fpad, mpad, faces, nu,
+                    force, u_in=(0.0, 0.0, 0.0), store_dtype=None):
+    """The A-A pair on a shard's haloed block in plain PyTorch (the haloed
+    mode of B1 and B1b): ``fpad`` is the block with a 2-wide x/y halo [Q,
+    X+4, Y+4, Z] in the store dtype, ``mpad`` its map in the same layout,
+    ``faces`` (x low, x high, y low, y high) the block's faces that are
+    non-periodic faces of the domain.  The widened block and its halo take
+    the even step; on those faces the halo's even output becomes the edge
+    layer's (the clamp of the unsharded odd pull); ``odd_step_halo_plain``
+    then pushes into the block, narrowed.  Returns (f_new, rho, u): f_new is
+    ``fpad`` with the block's interior replaced (its halo as it was), rho
+    and u the block's; fpad untouched."""
+    ev, _, _ = even_step_plain(cfg, codes, do_coll_codes, from_storage(fpad, cfg.compute_dtype),
+                               mpad, nu, force, u_in)
+    xl, xh, yl, yh = faces
+    if xl:
+        ev[:, :2] = ev[:, 2:3]
+    if xh:
+        ev[:, -2:] = ev[:, -3:-2]
+    if yl:
+        ev[:, :, :2] = ev[:, :, 2:3]
+    if yh:
+        ev[:, :, -2:] = ev[:, :, -3:-2]
+    pushed, rho, u = odd_step_halo_plain(cfg, codes, do_coll_codes, periodic, ev,
+                                         mpad[1:-1, 1:-1], faces, nu, force, u_in)
+    f_new = fpad.clone()
+    f_new[:, 2:-2, 2:-2] = to_storage(pushed, store_dtype)
+    return f_new, rho, u
+
+
+def domain_faces(bflags, periodic) -> tuple:
+    """(x low, x high, y low, y high): a haloed block's faces that are
+    non-periodic faces of the domain, from its six ``bflags`` (x low, x high,
+    y low, y high, z low, z high; 1 where the block holds the domain's face)."""
+    if bflags is None or len(bflags) != 6:
+        raise ValueError("a haloed call takes six face flags (bflags)")
+    return tuple(bool(float(bflags[i]) > 0) and not periodic[i // 2] for i in range(4))
+
+
+def face_bits(faces) -> int:
+    """``domain_faces`` as the haloed kernels' ``gbits`` (bit 0 x low .. bit 3 y high)."""
+    return sum(1 << i for i, g in enumerate(faces) if g)
+
+
+class _HaloedPair:
+    """What the pairs' haloed mode shares (``prepadded=True``: the sharded
+    pair's kernel on one shard's block, JAX ``make_fused_pair2_aa`` with
+    ``prepadded`` and ``local_shape`` and its call's ``map_pad_in`` and
+    ``bflags``): the block's shape ``shape``, the checks of a call's state,
+    map and face flags, and the plain version.  The state in and out is the
+    block with a 2-wide x/y halo, [Q, X+4, Y+4, Z] in the store dtype, the
+    map (``map_pad_in``) a contiguous uint8 [X+4, Y+4, Z] tensor on f's
+    device holding the neighbour shards' codes in its halo, the six face
+    flags (``bflags``: x low, x high, y low, y high, z low, z high) 1 where
+    the block holds the domain's face; rho and u are the block's.  The
+    kernel writes the block's interior of ``out`` (a second such buffer)
+    and never its halo; the CPU path does the same."""
+
+    def _padded_map(self, f, m):
+        X, Y, Z = self.shape
+        want = (X + 4, Y + 4, Z)
+        if (not torch.is_tensor(m) or m.dtype != torch.uint8 or m.device != f.device
+                or tuple(m.shape) != want or not m.is_contiguous()):
+            raise ValueError(f"the haloed pair takes the block's map with its 2-wide halo at "
+                             f"each call: map_pad_in, a contiguous uint8 {list(want)} tensor on "
+                             f"{f.device}")
+        return m
+
+    def _faces(self, bflags) -> tuple:
+        return domain_faces(bflags, self.periodic)
+
+    def _check_padded(self, f, out, dtype) -> None:
+        X, Y, Z = self.shape
+        want = (self.lat.Q, X + 4, Y + 4, Z)
+        for name, t in (("f", f), ("out", out)):
+            if t is not None and (tuple(t.shape) != want or not t.is_contiguous()
+                                  or t.dtype != dtype or t.device != f.device):
+                raise ValueError(f"{name} must be a contiguous {dtype} {list(want)} block with "
+                                 f"its 2-wide halo on f's device, got {tuple(t.shape)} {t.dtype}")
+        if out is not None and out.data_ptr() == f.data_ptr():
+            raise ValueError("out must be another buffer than f")
+
+    def _halo_plain(self, f, nu, fvec, uvec, m, faces, store_dtype=None):
+        return pair_halo_plain(self.cfg, self.codes, self.do_coll_codes, self.periodic, f, m,
+                               faces, nu, fvec, uvec, store_dtype)
+
+    def _halo_cpu(self, f, nu, fvec, uvec, m, faces, out, macro_out, store_dtype=None):
+        """The CPU path of a haloed call: the plain version, the interior
+        into ``out`` where given."""
+        self.plain_calls += 1
+        f_new, rho, u = self._halo_plain(f, nu, fvec, uvec, m, faces, store_dtype)
+        if out is not None:
+            out[:, 2:-2, 2:-2].copy_(f_new[:, 2:-2, 2:-2])
+            f_new = out
+        if not self.with_macro:
+            return f_new, None, None
+        rho, u = into(macro_out, rho, u)
+        return f_new, rho, u
+
+
+def _haloed_knobs(prepadded: bool, local_shape, z_halo: int, domain: Domain) -> tuple:
+    """The block shape of a pair's haloed mode (the domain's without it),
+    after the refusals of the knobs it does not take."""
+    if z_halo:
+        raise NotImplementedError("the pair's z halo (z-sharded meshes) is not ported yet "
+                                  f"({SHARDED_ROADMAP})")
+    if local_shape is not None and not prepadded:
+        raise ValueError("local_shape is the haloed block's shape: it needs prepadded=True")
+    return tuple(local_shape) if local_shape is not None else domain.shape
+
+
 class FusedStepAA:
     """``step(f, nu, u_in=None, force=None, parity=0, out=None, macro_out=None)
     -> (f, rho, u)``.
@@ -237,8 +348,9 @@ class FusedStepAA:
     the map of the block and its 1-wide ring (``map_ring_in`` [X+2, Y+2, Z])
     and six face flags (``bflags``: x low, x high, y low, y high, z low, z
     high, 1 where the block holds the domain's face), writing the block.  It
-    has the float32 cumulant instances, lean and full set; the rest raises
-    naming ``SHARDED_ROADMAP``.
+    has the cumulant instances, lean and full set, in float32 and, for
+    CUM_WELL, in float64 (``csrc/f64_aa.cu``); the rest raises naming
+    ``SHARDED_ROADMAP``.
     """
 
     def __init__(self, cfg: LBMConfig, domain: Domain, device, lean: bool = True,
@@ -269,15 +381,14 @@ class FusedStepAA:
         self.even = CudaKernel("aa_even" + tag + suffix, "tnl_lbm_tpu_torch/csrc/" + even_src,
                                "tnl_lbm_tpu/kernels/fused_aa.py:408")
         if prepadded:
-            if (self._mode != MODE_STEP or self._instance[0] != "cum" or self._f64
+            if (self._mode != MODE_STEP or self._instance[0] != "cum"
                     or self.variant not in HALO_ODD_VARIANTS):
                 raise NotImplementedError(
-                    f"the sharded A-A step (B3 on a haloed block) has the float32 cumulant "
-                    f"instances, lean and full set, not {_described(cfg)} in "
-                    f"{cfg.compute_dtype}"
+                    f"the sharded A-A step (B3 on a haloed block) has the cumulant instances, "
+                    f"lean and full set (in float64 CUM_WELL's), not {_described(cfg)}"
                     + (" or the force_field / macro_only variants" if self._mode != MODE_STEP
                        else "") + f" ({SHARDED_ROADMAP})")
-            suffix, odd_src = "_halo", "halo_step.cu"
+            suffix, odd_src = "_halo", "f64_aa.cu" if self._f64 else "halo_step.cu"
         self.odd = CudaKernel("aa_odd" + tag + suffix, "tnl_lbm_tpu_torch/csrc/" + odd_src,
                               "tnl_lbm_tpu/kernels/fused_aa.py:287")
         if self.device.type == "cuda":
@@ -350,11 +461,7 @@ class FusedStepAA:
         return m
 
     def _faces(self, bflags) -> tuple:
-        """(x low, x high, y low, y high): the block's faces that are
-        non-periodic faces of the domain, from the six ``bflags``."""
-        if bflags is None or len(bflags) != 6:
-            raise ValueError("the haloed odd step takes six face flags (bflags)")
-        return tuple(bool(float(bflags[i]) > 0) and not self.periodic[i // 2] for i in range(4))
+        return domain_faces(bflags, self.periodic)
 
     def _check_halo(self, f, out) -> None:
         X, Y, Z = self.shape
@@ -386,12 +493,13 @@ class FusedStepAA:
                  if out is None else out)
         rho, u = macro_buffers(macro_out, (X, Y, Z), 3, f.dtype, f.device)
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
-        gbits = sum(1 << i for i, g in enumerate(faces) if g)
-        rc = lib.tnl_lbm_aa_odd_halo(f.data_ptr(), f_new.data_ptr(), ring.data_ptr(),
-                                     rho.data_ptr(), u.data_ptr(), X, Y, Z,
-                                     int(self.periodic[2]), gbits,
-                                     int(GEO.NOTHING in self.codes), self.variant, float(nu),
-                                     *fvec, *uvec, int(self.cfg.high_precision_rho), stream_ptr)
+        ptrs = (f.data_ptr(), f_new.data_ptr(), ring.data_ptr(), rho.data_ptr(), u.data_ptr(),
+                X, Y, Z, int(self.periodic[2]), face_bits(faces), int(GEO.NOTHING in self.codes))
+        tail = (float(nu), *fvec, *uvec, int(self.cfg.high_precision_rho), stream_ptr)
+        if self._f64:  # the CUM_WELL step's float64 instances, lean and full set
+            rc = lib.tnl_lbm_aa_odd_halo_f64(*ptrs, int(self.variant == _AA_LEAN_VARIANT), *tail)
+        else:
+            rc = lib.tnl_lbm_aa_odd_halo(*ptrs, self.variant, *tail)
         if rc != 0:
             raise RuntimeError(f"{self.odd.name} launch failed: CUDA error {rc}")
         self.odd.launches += 1
@@ -469,7 +577,7 @@ def make_fused_step_aa(cfg: LBMConfig, domain: Domain, device, force_field: bool
                        macro_only=macro_only, prepadded=prepadded, local_shape=local_shape)
 
 
-class FusedPairAA:
+class FusedPairAA(_HaloedPair):
     """``pair(f, nu, u_in=None, force=None, out=None, macro_out=None) -> (f_new, rho, u)``.
 
     Two A-A steps, even then odd, from an even parity.  ``f`` is the state
@@ -491,10 +599,16 @@ class FusedPairAA:
     ``seg_len`` is the x extent each block of the kernel marches (None: the
     kernel's own choice, 32 planes, fewer where the column tiles alone do
     not fill the card); the result does not depend on it.
+
+    ``prepadded=True`` is the sharded pair's haloed mode on a block of
+    ``local_shape`` (:class:`_HaloedPair`; the call takes ``map_pad_in`` and
+    ``bflags``, ``out`` is a haloed buffer; the kernels ``aa_pair_halo_*``
+    and ``aa_pair_halo_f64``, counted by ``kernel``).
     """
 
     def __init__(self, cfg: LBMConfig, domain: Domain, device, store_dtype=None,
-                 with_macro: bool = True, seg_len: int | None = None):
+                 with_macro: bool = True, seg_len: int | None = None, prepadded: bool = False,
+                 local_shape=None):
         if cfg.streaming != "AA":
             raise ValueError("make_fused_pair2_aa needs streaming='AA'")
         store = cfg.compute_dtype if store_dtype is None else store_dtype
@@ -515,14 +629,16 @@ class FusedPairAA:
         self.device = torch.device(device)
         self.lat, self.codes, self.do_coll_codes = _prep(cfg, domain, pair=True)
         check_pair_variant(cfg)
-        self.shape = domain.shape
+        self.prepadded = prepadded
+        self.shape = tuple(local_shape) if local_shape is not None else domain.shape
         self.periodic = domain.periodic
         self._f64 = cfg.compute_dtype == torch.float64
         self._store_code, tag = _STORE_CODES.get(store, (None, str(store)))
         source = "aa_pair.cu"
         if self._f64 and store == torch.float64:
             tag, source = "f64", "f64_pair.cu"
-        self.kernel = CudaKernel(f"aa_pair_{tag}", "tnl_lbm_tpu_torch/csrc/" + source,
+        self.kernel = CudaKernel(f"aa_pair_{'halo_' if prepadded else ''}{tag}",
+                                 "tnl_lbm_tpu_torch/csrc/" + source,
                                  "tnl_lbm_tpu/kernels/fused_aa.py:1115")
         self.plain_calls = 0
         if self.device.type == "cuda":
@@ -531,7 +647,8 @@ class FusedPairAA:
                     f"the A-A pair (B1) has no {store} storage under float64 compute: its "
                     f"float64 instance stores the state in float64 ({HALF_F64_ROADMAP})")
             _check_kernel_config(cfg, domain, self.device, "the A-A pair (B1)", f64=True)
-        self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
+        self.map = (None if prepadded else
+                    torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device))
 
     def reset_counts(self) -> None:
         self.kernel.launches = self.plain_calls = 0
@@ -556,18 +673,26 @@ class FusedPairAA:
             geo.update(seg_len=self.seg_len, segments=-(-X // self.seg_len))
         return geo
 
-    def __call__(self, f, nu, u_in=None, force=None, out=None, bflags=None, macro_out=None):
-        if bflags is not None:
-            raise NotImplementedError("per-shard boundary flags are not ported yet "
-                                      "(ROADMAP A13b)")
+    def __call__(self, f, nu, u_in=None, force=None, out=None, bflags=None, macro_out=None,
+                 map_pad_in=None):
         if u_in is not None and np.ndim(u_in) > 1:
             raise NotImplementedError(f"the A-A pair (B1) takes no per-site inflow profile "
                                       f"({PROFILE_ROADMAP})")
-        check_out(out, f)
         if macro_out is not None and not self.with_macro:
             raise ValueError("a pair built with_macro=False writes no rho and u")
         if f.dtype != self.store_dtype:
             raise ValueError(f"f is {f.dtype}, the pair stores {self.store_dtype}")
+        if self.prepadded:
+            faces, m = self._faces(bflags), self._padded_map(f, map_pad_in)
+            self._check_padded(f, out, self.store_dtype)
+            fvec = _force3(force, self.cfg.compute_dtype)
+            if f.device.type == "cuda":
+                return self._launch_halo(f, float(nu), fvec, m, faces, out, macro_out)
+            return self._halo_cpu(f, nu, fvec, (0.0, 0.0, 0.0), m, faces, out, macro_out,
+                                  self.store_dtype)
+        if bflags is not None or map_pad_in is not None:
+            raise ValueError("bflags and map_pad_in are the haloed pair's (prepadded=True)")
+        check_out(out, f)
         if f.device.type == "cuda":
             return self._launch(f, float(nu), _force3(force, self.cfg.compute_dtype), out,
                                 macro_out)
@@ -579,11 +704,18 @@ class FusedPairAA:
             rho, u = into(macro_out, rho, u)
         return f_new, rho, u
 
-    def plain(self, f, nu, force=None):
+    def plain(self, f, nu, force=None, map_pad_in=None, bflags=None, u_in=None):
         """The pair's plain PyTorch version on f's device: the odd step of
         the even step of the widened state, narrowed (f untouched, no call
-        counted)."""
+        counted; the haloed mode's: ``pair_halo_plain``).  ``u_in`` is taken
+        as the call takes it, and unused: the pair's map has no inflow."""
         fvec = _force3(force, self.cfg.compute_dtype)
+        if self.prepadded:
+            self._check_padded(f, None, self.store_dtype)
+            f_new, rho, u = self._halo_plain(f, nu, fvec, (0.0, 0.0, 0.0),
+                                             self._padded_map(f, map_pad_in),
+                                             self._faces(bflags), self.store_dtype)
+            return (f_new, rho, u) if self.with_macro else (f_new, None, None)
         m = self.map.to(f.device)
         fw = from_storage(f, self.cfg.compute_dtype)
         ev, _, _ = even_step_plain(self.cfg, self.codes, self.do_coll_codes, fw, m, nu, fvec)
@@ -624,27 +756,53 @@ class FusedPairAA:
         self.kernel.launches += 1
         return f_new, rho, u
 
+    def _launch_halo(self, f, nu, fvec, m, faces, out, macro_out):
+        if self.device.type != "cuda" or f.device.type != "cuda":
+            raise ValueError(f"f is on {f.device}, the pair was built for {self.device}")
+        X, Y, Z = self.shape
+        lib = load_library()
+        f_new = torch.empty_like(f) if out is None else out
+        rho = u = None
+        if self.with_macro:
+            rho, u = macro_buffers(macro_out, (X, Y, Z), 3, self.cfg.compute_dtype, f.device)
+        stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
+        ptrs = (f.data_ptr(), f_new.data_ptr(), m.data_ptr(),
+                rho.data_ptr() if rho is not None else None,
+                u.data_ptr() if u is not None else None, X, Y, Z, int(self.periodic[2]),
+                face_bits(faces), int(GEO.NOTHING in self.codes), int(self.with_macro))
+        neumaier = int(self.cfg.high_precision_rho)
+        if self._f64:  # stored in float64 (the constructor refused 16-bit storage)
+            rc = lib.tnl_lbm_aa_pair_f64_halo(*ptrs, nu, *fvec, neumaier, self.seg_len or 0,
+                                              stream_ptr)
+        else:
+            rc = lib.tnl_lbm_aa_pair_halo(*ptrs, self._store_code, nu, *fvec, neumaier,
+                                          self.seg_len or 0, stream_ptr)
+        if rc != 0:
+            raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
+        self.kernel.launches += 1
+        return f_new, rho, u
+
 
 def make_fused_pair2_aa(cfg: LBMConfig, domain: Domain, device, store_dtype=None,
                         with_macro: bool = True, *, local_shape=None, prepadded: bool = False,
                         z_halo: int = 0, seg_len: int | None = None) -> FusedPairAA:
     """One-kernel A-A pair for (cfg, domain) on ``device``: see :class:`FusedPairAA`
-    (``seg_len``: the kernel's x segment, a knob of the port's own).
+    (``seg_len``: the kernel's x segment, a knob of the port's own); with
+    ``prepadded`` (and the block's ``local_shape``) the sharded pair's
+    haloed mode.
 
     The JAX function's TPU knobs (``tile``, ``tiles_per_program``, ``window``,
     ``map_mode``, ``zprofile``, ``even_band``, ``vmem_limit_mb``,
     ``_debug_dma``) shape its padded VMEM pipeline and have no counterpart
-    here; its sharded knobs (``local_shape``, ``prepadded``, ``z_halo`` and
-    the call's ``bflags``) are not ported yet (ROADMAP A13b).
+    here; its ``z_halo`` (z-sharded meshes) is not ported yet (ROADMAP A13b).
     """
-    if local_shape is not None or prepadded or z_halo:
-        raise NotImplementedError("the sharded pair (local_shape, prepadded, z_halo) is not "
-                                  "ported yet (ROADMAP A13b)")
+    shape = _haloed_knobs(prepadded, local_shape, z_halo, domain)
     return FusedPairAA(cfg, domain, device, store_dtype=store_dtype, with_macro=with_macro,
-                       seg_len=seg_len)
+                       seg_len=seg_len, prepadded=prepadded,
+                       local_shape=shape if prepadded else None)
 
 
-class FusedPairAAFull:
+class FusedPairAAFull(_HaloedPair):
     """``pair(f, nu, u_in=None, force=None, out=None, macro_out=None) -> (f2, rho, u)``:
     two A-A steps, even then odd, in one launch with the A-A steps' codes
     and variants (JAX ``make_fused_pair_aa``, B1b).
@@ -668,10 +826,15 @@ class FusedPairAAFull:
     ``plain_calls`` the CPU-path calls; ``seg_len`` is the x extent each
     block marches (None: the kernel's own choice), which the result does not
     depend on.
+
+    ``prepadded=True`` is the sharded pair's haloed mode on a block of
+    ``local_shape`` (:class:`_HaloedPair`; the cumulant instances,
+    ``aa_pair_full_halo_*``: a family collision raises naming
+    ``SHARDED_ROADMAP``).
     """
 
     def __init__(self, cfg: LBMConfig, domain: Domain, device, with_macro: bool = True,
-                 seg_len: int | None = None):
+                 seg_len: int | None = None, prepadded: bool = False, local_shape=None):
         if cfg.streaming != "AA":
             raise ValueError("make_fused_pair_aa needs streaming='AA'")
         if seg_len is not None and seg_len < 1:
@@ -681,17 +844,24 @@ class FusedPairAAFull:
         self.seg_len = seg_len
         self.device = torch.device(device)
         self.lat, self.codes, self.do_coll_codes = _prep(cfg, domain)
-        self.shape = domain.shape
+        self.prepadded = prepadded
+        self.shape = tuple(local_shape) if local_shape is not None else domain.shape
         self.periodic = domain.periodic
-        self.kernel = CudaKernel("aa_pair_full", "tnl_lbm_tpu_torch/csrc/aa_pair_full.cu",
+        self.kernel = CudaKernel("aa_pair_full_halo" if prepadded else "aa_pair_full",
+                                 "tnl_lbm_tpu_torch/csrc/aa_pair_full.cu",
                                  "tnl_lbm_tpu/kernels/fused_aa.py:1274")
         self.plain_calls = 0
         self._instance = step_instance(cfg, "the full-set A-A pair (B1b)")
         self.variant = (aa_variant(cfg, self.codes) if self._instance[0] == "cum"
                         else collision_id(cfg))
+        if prepadded and self._instance[0] != "cum":
+            raise NotImplementedError(f"the full-set pair's haloed mode has the cumulant "
+                                      f"instances, not {_described(cfg)}: its family "
+                                      f"instances are {SHARDED_ROADMAP}")
         if self.device.type == "cuda":
             _check_kernel_config(cfg, domain, self.device, "the full-set A-A pair (B1b)")
-        self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
+        self.map = (None if prepadded else
+                    torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device))
 
     def reset_counts(self) -> None:
         self.kernel.launches = self.plain_calls = 0
@@ -713,13 +883,22 @@ class FusedPairAAFull:
             geo.update(seg_len=self.seg_len, segments=-(-self.shape[0] // self.seg_len))
         return geo
 
-    def __call__(self, f, nu, u_in=None, force=None, out=None, macro_out=None):
+    def __call__(self, f, nu, u_in=None, force=None, out=None, macro_out=None, map_pad_in=None,
+                 bflags=None):
         dt = self.cfg.compute_dtype
         uvec, fvec = _u_in3(u_in, dt), _force3(force, dt)
-        self._check(f)
-        check_out(out, f)
         if macro_out is not None and not self.with_macro:
             raise ValueError("a pair built with_macro=False writes no rho and u")
+        if self.prepadded:
+            faces, m = self._faces(bflags), self._padded_map(f, map_pad_in)
+            self._check_padded(f, out, dt)
+            if f.device.type == "cuda":
+                return self._launch_halo(f, float(nu), uvec, fvec, m, faces, out, macro_out)
+            return self._halo_cpu(f, nu, fvec, uvec, m, faces, out, macro_out)
+        if bflags is not None or map_pad_in is not None:
+            raise ValueError("bflags and map_pad_in are the haloed pair's (prepadded=True)")
+        self._check(f)
+        check_out(out, f)
         if f.device.type == "cuda":
             return self._launch(f, float(nu), uvec, fvec, out, macro_out)
         self.plain_calls += 1
@@ -730,14 +909,19 @@ class FusedPairAAFull:
             rho, u = into(macro_out, rho, u)
         return f2, rho, u
 
-    def plain(self, f, nu, u_in=None, force=None):
+    def plain(self, f, nu, u_in=None, force=None, map_pad_in=None, bflags=None):
         """The pair's plain PyTorch version on f's device: ``even_step_plain``
-        then ``odd_step_plain`` on the unpadded state; f untouched, no call
-        counted."""
-        self._check(f)
-        m = self.map.to(f.device)
+        then ``odd_step_plain`` on the unpadded state (the haloed mode's:
+        ``pair_halo_plain``); f untouched, no call counted."""
         dt = self.cfg.compute_dtype
         uvec, fvec = _u_in3(u_in, dt), _force3(force, dt)
+        if self.prepadded:
+            self._check_padded(f, None, dt)
+            f2, rho, u = self._halo_plain(f, nu, fvec, uvec, self._padded_map(f, map_pad_in),
+                                          self._faces(bflags))
+            return (f2, rho, u) if self.with_macro else (f2, None, None)
+        self._check(f)
+        m = self.map.to(f.device)
         ev, _, _ = even_step_plain(self.cfg, self.codes, self.do_coll_codes, f, m, nu, fvec, uvec)
         f2, rho, u = odd_step_plain(self.cfg, self.codes, self.do_coll_codes, self.periodic, ev,
                                     m, nu, fvec, uvec)
@@ -776,18 +960,42 @@ class FusedPairAAFull:
         self.kernel.launches += 1
         return f2, rho, u
 
+    def _launch_halo(self, f, nu, uvec, fvec, m, faces, out, macro_out):
+        if self.device.type != "cuda" or f.device.type != "cuda":
+            raise ValueError(f"f is on {f.device}, the pair was built for {self.device}")
+        X, Y, Z = self.shape
+        f2 = torch.empty_like(f) if out is None else out
+        rho = u = None
+        if self.with_macro:
+            rho, u = macro_buffers(macro_out, (X, Y, Z), 3, f.dtype, f.device)
+        rc = load_library().tnl_lbm_aa_pair_full_halo(
+            f.data_ptr(), f2.data_ptr(), m.data_ptr(), None if rho is None else rho.data_ptr(),
+            None if u is None else u.data_ptr(), X, Y, Z, int(self.periodic[2]),
+            face_bits(faces), int(GEO.NOTHING in self.codes), int(self.with_macro),
+            self.variant, nu, *fvec, *uvec, int(self.cfg.high_precision_rho), self.seg_len or 0,
+            ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
+        self.kernel.launches += 1
+        return f2, rho, u
+
 
 def make_fused_pair_aa(cfg: LBMConfig, domain: Domain, device, with_macro: bool = True,
-                       seg_len: int | None = None) -> FusedPairAAFull:
+                       seg_len: int | None = None, *, local_shape=None, prepadded: bool = False,
+                       z_halo: int = 0) -> FusedPairAAFull:
     """The A-A pair with the A-A steps' codes for (cfg, domain) on
     ``device``, one launch per pair: see :class:`FusedPairAAFull`
-    (``seg_len``: the kernel's x segment, a knob of the port's own).
+    (``seg_len``: the kernel's x segment, a knob of the port's own); with
+    ``prepadded`` (and the block's ``local_shape``) the sharded pair's
+    haloed mode, whose ``z_halo`` is not ported yet (ROADMAP A13b).
 
     The JAX function's TPU knobs (``tile_even``, ``k_even``, ``tile_odd``,
     ``k_odd``) shape its VMEM tiles and have no counterpart here, nor has
     its ``Z % 128 == 0`` condition (its even kernel's output DMA).
     """
-    return FusedPairAAFull(cfg, domain, device, with_macro=with_macro, seg_len=seg_len)
+    shape = _haloed_knobs(prepadded, local_shape, z_halo, domain)
+    return FusedPairAAFull(cfg, domain, device, with_macro=with_macro, seg_len=seg_len,
+                           prepadded=prepadded, local_shape=shape if prepadded else None)
 
 
 def dispatch_pair_kind(cfg: LBMConfig, domain: Domain, store_dtype=None) -> str:
@@ -819,14 +1027,15 @@ def dispatch_pair_kind(cfg: LBMConfig, domain: Domain, store_dtype=None) -> str:
     return "B1b"
 
 
-def make_dispatch_pair(cfg: LBMConfig, domain: Domain, device, store_dtype=None):
+def make_dispatch_pair(cfg: LBMConfig, domain: Domain, device, store_dtype=None, **haloed):
     """The pair kernel that ``Simulation``'s pair dispatch runs for (cfg,
     domain), as :func:`dispatch_pair_kind` picks it: the one-kernel pair
     (B1, :func:`make_fused_pair2_aa`) or the full-set pair (B1b,
     :func:`make_fused_pair_aa`).  The JAX package's pair takes every A-A map
     but OUTFLOW_RIGHT_INTERP under every collision, and so do the two
     together in float32; a config neither kernel has an instance of raises,
-    on any device."""
+    on any device.  ``haloed`` (``prepadded``, ``local_shape``) builds either
+    in its haloed mode."""
     if dispatch_pair_kind(cfg, domain, store_dtype) == "B1":
-        return make_fused_pair2_aa(cfg, domain, device, store_dtype=store_dtype)
-    return make_fused_pair_aa(cfg, domain, device)
+        return make_fused_pair2_aa(cfg, domain, device, store_dtype=store_dtype, **haloed)
+    return make_fused_pair_aa(cfg, domain, device, **haloed)

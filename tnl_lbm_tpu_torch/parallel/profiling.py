@@ -26,15 +26,20 @@ HOST_LINK_GBPS = 25.0
 
 @dataclasses.dataclass
 class HaloTraffic:
+    """The halo bytes and slabs a device exchanges per step, or per pair
+    where ``steps_per_exchange`` is 2 (the sharded pair's exchange: the
+    fields keep their names, per exchange)."""
     bytes_per_step_per_device: int
     messages_per_step_per_device: int
     n_devices: int
+    steps_per_exchange: int = 1
 
     def log_line(self, steps: int, seconds: float) -> str:
-        total = self.bytes_per_step_per_device * steps
+        unit = "step" if self.steps_per_exchange == 1 else "pair"
+        total = self.bytes_per_step_per_device * steps / self.steps_per_exchange
         gbps = total / seconds / 1e9 if seconds > 0 else 0.0
-        return (f"halo traffic: {self.bytes_per_step_per_device / 1e6:.2f} MB/step/device, "
-                f"{self.messages_per_step_per_device} slabs/step, "
+        return (f"halo traffic: {self.bytes_per_step_per_device / 1e6:.2f} MB/{unit}/device, "
+                f"{self.messages_per_step_per_device} slabs/{unit}, "
                 f"{gbps:.2f} GB/s/device over {steps} steps")
 
 
@@ -94,3 +99,23 @@ def halo_traffic(domain: Domain, plan, itemsize: int = 4, subset: bool = True) -
         messages += 2
     return HaloTraffic(bytes_per_step_per_device=total_bytes,
                        messages_per_step_per_device=messages, n_devices=plan.n_shards)
+
+
+def pair_halo_traffic(domain: Domain, plan, itemsize: int = 4) -> HaloTraffic:
+    """The halo bytes per pair and device of the sharded pair
+    (``parallel/sharded.py make_sharded_fused_pair2_aa``): two 2-wide slabs
+    of every component per sharded axis, each spanning the whole haloed
+    block across the other axis (the y slabs carry the x halos: JAX
+    ``_fill_axis``), in the state's store dtype (``itemsize``)."""
+    X, Y, Z = plan.local_shape(domain)
+    Q = domain.lat.Q
+    total_bytes = 0
+    messages = 0
+    for a, n in enumerate(plan.counts[:2]):
+        if n == 1:
+            continue
+        total_bytes += 2 * Q * 2 * ((Y if a == 0 else X) + 4) * Z * itemsize
+        messages += 2
+    return HaloTraffic(bytes_per_step_per_device=total_bytes,
+                       messages_per_step_per_device=messages, n_devices=plan.n_shards,
+                       steps_per_exchange=2)

@@ -28,12 +28,16 @@ The steps:
 - :func:`make_sharded_fused_step_aa`, the A-A steps: the even step (B2) on
   each shard's block as it is (same-site), the odd step (B3) on the block
   with a 2-wide x/y halo and its map with a 1-wide ring;
+- :func:`make_sharded_fused_pair2_aa`, the A-A pair (B1, or B1b on the
+  other A-A maps) on persistent haloed blocks: each shard's state lives in
+  a block with a 2-wide x/y halo (:func:`to_padded_aa_sharded`,
+  :func:`from_padded_aa_sharded`), and a pair refreshes only the halo slabs;
 - :func:`_make_uneven_sharded_step`, pad-and-crop for a lattice the mesh
   does not divide (A-B only, as in the JAX package).
 
-What is not ported yet raises naming its ROADMAP item: the sharded pair,
-z-sharded meshes on the kernels, the 2D, ADE, coupled, hooked and IBM steps
-(A13b); several processes (A13c).
+What is not ported yet raises naming its ROADMAP item: z-sharded meshes on
+the kernels, the 2D, ADE, coupled, hooked and IBM steps, the pair's family
+collisions (A13b); several processes (A13c).
 """
 
 from __future__ import annotations
@@ -308,7 +312,7 @@ def choose_plan(domain: Domain, devices=None, axis_weights=None,
 # ------------------------------------------------------------------ the halo
 
 def _halo_copies(plan: ShardPlan, blocks, bufs, w: int, axes, periodic, lead: int = 1,
-                 comps=None) -> list:
+                 comps=None, interior: bool = True) -> list:
     """The (destination, source) views whose copies, in order, fill each
     shard's buffer ``bufs[k]``: ``blocks[k]`` in its interior and w-wide
     halos on the lattice ``axes`` (the buffers are w wider on each side of
@@ -322,10 +326,11 @@ def _halo_copies(plan: ShardPlan, blocks, bufs, w: int, axes, periodic, lead: in
     axis and side, -1 low or +1 high, giving component indices) limits what
     comes from a neighbour to those components, the others taking the edge
     layer (``parallel/halo.py``'s direction subsets).  A copy between two
-    devices is a peer copy."""
+    devices is a peer copy.  ``interior=False`` leaves the interiors out:
+    the blocks already sit in their buffers (the sharded pair's layout)."""
     axes = tuple(axes)
     copies = []
-    for f, buf in zip(blocks, bufs):
+    for f, buf in zip(blocks, bufs) if interior else ():
         inner = buf
         for a in axes:
             inner = inner.narrow(lead + a, w, f.shape[lead + a])
@@ -729,3 +734,140 @@ def make_sharded_fused_step_aa(cfg: LBMConfig, domain: Domain, plan: ShardPlan,
     local_step = make_fused_step_aa(cfg, domain, plan.device(0), prepadded=True,
                                     local_shape=plan.local_shape(domain))
     return ShardedFusedStepAA(plan, domain, local_step)
+
+
+# ------------------------------------------------------------ the sharded pair
+
+def _pad_layout(plan: ShardPlan, domain: Domain) -> tuple:
+    """(the shape of one shard's haloed block [Q, Xl+4, Yl+4, Z], the global
+    shape of their concatenation [Q, nx (Xl+4), ny (Yl+4), Z])."""
+    Xl, Yl, Z = plan.local_shape(domain)
+    nx, ny = plan.counts[:2]
+    Q = domain.lat.Q
+    return (Q, Xl + 4, Yl + 4, Z), (Q, nx * (Xl + 4), ny * (Yl + 4), Z)
+
+
+def _pair_plan(plan: ShardPlan, domain: Domain, what: str) -> None:
+    """The sharded pair takes divisible x/y plans of the 3D lattice (JAX
+    ``_pair_dispatch_capable``: ``plan.divisible``)."""
+    if domain.lat.D != 3:
+        raise NotImplementedError(f"{what} is the 3D A-A pair's")
+    _xy_only(plan, what)
+    if not plan.divisible(domain):
+        raise NotImplementedError(f"{what} on a lattice the mesh does not divide is not ported "
+                                  f"({A13B}; the JAX pair needs plan.divisible too)")
+
+
+def to_padded_aa_sharded(f: ShardedField, plan: ShardPlan, domain: Domain, store_dtype=None,
+                         out: ShardedField | None = None) -> ShardedField:
+    """Plain sharded [Q, X, Y, Z] -> per-shard haloed blocks [Q, Xl+4,
+    Yl+4, Z] in the store dtype (``store_dtype``: narrowed as ``to_storage``
+    does; None keeps f's), their halos the blocks' edge layers until the
+    pair refreshes them (JAX ``to_padded_aa_sharded``; its y pad of 8 and
+    its lane pad are the TPU's and not ported).  ``out``: blocks of that
+    layout to write into."""
+    _pair_plan(plan, domain, "the sharded pair's layout")
+    block, whole = _pad_layout(plan, domain)
+    dtype = f.dtype if store_dtype is None else store_dtype
+    if out is None:
+        out = ShardedField(plan, [torch.empty(block, dtype=dtype, device=plan.device(k))
+                                  for k in range(plan.n_shards)], whole)
+    for b, p in zip(f.blocks, out.blocks):
+        p[:, 2:-2, 2:-2].copy_(b)  # narrowed by the copy (round to nearest even)
+        p[:, :2] = p[:, 2:3]
+        p[:, -2:] = p[:, -3:-2]
+        p[:, :, :2] = p[:, :, 2:3]
+        p[:, :, -2:] = p[:, :, -3:-2]
+    return out
+
+
+def from_padded_aa_sharded(fpad: ShardedField, plan: ShardPlan, domain: Domain, dtype=None,
+                           out: ShardedField | None = None) -> ShardedField:
+    """The inverse of ``to_padded_aa_sharded``: each block's interior,
+    widened to ``dtype`` where given (JAX ``from_padded_aa_sharded``), into
+    ``out`` (a plain sharded state) where given."""
+    if out is None:
+        out = ShardedField(plan, [torch.empty(b[:, 2:-2, 2:-2].shape,
+                                              dtype=dtype or b.dtype, device=b.device)
+                                  for b in fpad.blocks], (domain.lat.Q,) + domain.shape)
+    for p, b in zip(fpad.blocks, out.blocks):
+        b.copy_(p[:, 2:-2, 2:-2])
+    return out
+
+
+class ShardedFusedPairAA(_ShardedKernelStep):
+    """``pair(fpad, nu, u_in=None, force=None, out=None, macro_out=None) ->
+    (fpad_new, rho, u)`` on ShardedFields of haloed blocks
+    (``to_padded_aa_sharded``): two A-A steps per call.  Each call refreshes
+    the 2-wide x/y halo slabs of ``fpad``'s blocks in place (x first, then
+    y, the y slabs spanning the filled x halos, so corners route; a single
+    shard's periodic axis wraps its own edges, a non-periodic domain face
+    replicates the edge layer), then launches the pair's haloed mode on each
+    shard's block with its card current, into ``out`` (a second set of
+    haloed blocks) where given: the blocks' interiors, never their halos.
+    The maps with their 2-wide halos are made once (``pad_maps``), as are
+    each buffer set's slab copies.  A 16-bit state moves 16-bit slabs."""
+
+    def __init__(self, plan, domain, local_pair):
+        super().__init__(plan, domain, local_pair, 2)
+        m = self.maps.map(lambda b: b[None])
+        pad = _fill_halos(plan, m.blocks, padded_buffers(m.blocks, 2, (0, 1)), 2, (0, 1),
+                          domain.periodic)
+        #: each shard's map with the neighbours' codes in its 2-wide halo
+        self.pad_maps = [p[0] for p in pad]
+        self.bflags = [_bflags(plan, k) for k in range(plan.n_shards)]
+        self.store_dtype = getattr(local_pair, "store_dtype", local_pair.cfg.compute_dtype)
+
+    def exchange(self, fpad: ShardedField) -> list:
+        """Refresh the halo slabs of ``fpad``'s blocks in place; returns them."""
+        key = tuple(b.data_ptr() for b in fpad.blocks)
+        copies = self._copies.get(key)
+        if copies is None:
+            inner = [b[:, 2:-2, 2:-2] for b in fpad.blocks]
+            copies = _halo_copies(self.plan, inner, fpad.blocks, 2, (0, 1), self.domain.periodic,
+                                  interior=False)
+            self._copies[key] = copies
+            while len(self._copies) > 2:
+                self._copies.popitem(last=False)
+        for dst, src in copies:
+            dst.copy_(src)
+        return fpad.blocks
+
+    def __call__(self, fpad, nu, u_in=None, force=None, out=None, macro_out=None):
+        self.exchange(fpad)
+        outs, macros = self._outputs(fpad, out, macro_out)
+        results = [self._launch(k, fpad.blocks[k], nu, u_in=u_in, force=force, out=outs[k],
+                                macro_out=macros[k], map_pad_in=self.pad_maps[k],
+                                bflags=self.bflags[k])
+                   for k in range(self.plan.n_shards)]
+        return (self._state(fpad, results, out),) + tuple(self._macros(results, macro_out))
+
+    def pad(self, f: ShardedField, out: ShardedField | None = None) -> ShardedField:
+        """``f`` in this pair's layout and store dtype (``to_padded_aa_sharded``)."""
+        store = None if self.store_dtype == f.dtype else self.store_dtype
+        return to_padded_aa_sharded(f, self.plan, self.domain, store, out)
+
+    def unpad(self, fpad: ShardedField, out: ShardedField | None = None) -> ShardedField:
+        """The plain sharded state of ``fpad``, widened to the compute dtype."""
+        return from_padded_aa_sharded(fpad, self.plan, self.domain,
+                                      self.local_step.cfg.compute_dtype, out)
+
+
+def make_sharded_fused_pair2_aa(cfg: LBMConfig, domain: Domain, plan: ShardPlan,
+                                with_macro: bool = True, store_dtype=None) -> ShardedFusedPairAA:
+    """The sharded A-A pair (JAX ``make_sharded_fused_pair2_aa``): two steps
+    per call on persistent haloed blocks, the halos exchanged once per two
+    steps.  The local kernel is the one pair dispatch runs
+    (``fused_aa.make_dispatch_pair``): B1 in its store dtype on a map of
+    FLUID/WALL/NOTHING under CUM_WELL, else B1b's cumulant instances, each
+    in its haloed mode.  x/y meshes that divide the lattice; a z cut, an
+    uneven plan and B1b's family collisions raise naming A13b.  The JAX
+    function's TPU knobs (``tile``, ``tiles_per_program``) have no
+    counterpart."""
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_dispatch_pair
+
+    _pair_plan(plan, domain, "the sharded A-A pair (B1, B1b)")
+    local = make_dispatch_pair(cfg, domain, plan.device(0), store_dtype=store_dtype,
+                               with_macro=with_macro, prepadded=True,
+                               local_shape=plan.local_shape(domain))
+    return ShardedFusedPairAA(plan, domain, local)

@@ -64,9 +64,14 @@ sharded even/odd steps (B2, and B3 on haloed blocks), else through the
 plain sharded step.  ``self.rho`` and ``self.u`` read the shards' blocks
 gathered on ``device`` (the outputs, the probes, the NaN scan); each PRINT
 logs the halo traffic to the profile log.  Under a plan every step is
-dispatched from Python (no chunk, no CUDA graph: ``_scan_chunk_args``),
-pair dispatch "auto" keeps per-step dispatch, and "on" or half storage
-raise (the sharded pair, ROADMAP A13b).
+dispatched from Python (no chunk, no CUDA graph: ``_scan_chunk_args``).
+Pair dispatch under a plan that divides the lattice runs the sharded pair
+(``make_sharded_fused_pair2_aa``: B1 or B1b on persistent haloed blocks,
+the halo slabs exchanged once a pair), with the JAX rules: "on" and half
+storage build it, "auto" times it against the sharded per-step route on
+the card and stays per step on the CPU.  A run of pairs pads ``self.f``
+into the pair's two haloed buffers once (narrowed for half storage) and
+unpads the result into ``self.f``'s blocks at its end.
 """
 
 from __future__ import annotations
@@ -84,7 +89,8 @@ import torch
 from tnl_lbm_tpu_torch.io import native
 from tnl_lbm_tpu_torch.io.series import VtiTimeSeries
 from tnl_lbm_tpu_torch.io.vtk import write_vti
-from tnl_lbm_tpu_torch.kernels.fused import NP_DTYPES, kernel_counters, make_fused_step, supports
+from tnl_lbm_tpu_torch.kernels.fused import (NP_DTYPES, kernel_counters, make_fused_step,
+                                             step_instance, supports)
 from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
 from tnl_lbm_tpu_torch.ops import moments as mom
 from tnl_lbm_tpu_torch.parallel.sharded import A13B, ShardedField
@@ -337,7 +343,8 @@ class Simulation:
         #: the second state buffer of the out-of-place launches' ping-pong
         #: (every kernel route but a 16-bit pair state's), made at sim_init
         self._spare = None
-        #: a 16-bit pair state's two buffers in the store dtype
+        #: a 16-bit pair state's two buffers in the store dtype; under a plan
+        #: the sharded pair's two sets of haloed blocks
         self._narrow = None
         #: captured chunks by key (_graph_chunk), the memory pool they share
         #: and the stream they are captured on
@@ -500,11 +507,16 @@ class Simulation:
     def _build_pair(self):
         """The pair kernel of pair dispatch (``make_dispatch_pair``): B1 on a
         map of FLUID/WALL/NOTHING under CUM_WELL, in the store dtype; B1b,
-        one launch a pair with the A-A codes and variants, elsewhere.  A
-        config neither has an instance of raises."""
+        one launch a pair with the A-A codes and variants, elsewhere; under a
+        plan the sharded pair over either (``make_sharded_fused_pair2_aa``).
+        A config neither has an instance of raises."""
         from tnl_lbm_tpu_torch.kernels.fused_aa import make_dispatch_pair
+        from tnl_lbm_tpu_torch.parallel.sharded import make_sharded_fused_pair2_aa
 
-        if self._pair is None:
+        if self._pair is None and self.plan is not None:
+            self._pair = make_sharded_fused_pair2_aa(self.cfg, self.domain, self.plan,
+                                                     store_dtype=self.cfg.storage_dtype)
+        elif self._pair is None:
             self._pair = make_dispatch_pair(self.cfg, self.domain, self.device,
                                             store_dtype=self.cfg.storage_dtype)
         return self._pair
@@ -515,8 +527,10 @@ class Simulation:
         and every code of the map one the A-A kernels take.  Which pair
         kernel runs is ``_build_pair``'s, and "auto" asks
         ``_pair_has_instance`` whether one has an instance of the config;
-        outside this set every step runs on its own."""
-        return (self.use_fused
+        outside this set every step runs on its own.  Under a plan the plan
+        must divide the lattice (JAX: the sharded pair's ``plan.divisible``)."""
+        return ((self.plan is None or self.plan.divisible(self.domain))
+                and self.use_fused
                 and self.cfg.streaming == "AA"
                 and self.cfg.forcing_hook is None
                 and self.cfg.lat.D == 3
@@ -526,14 +540,18 @@ class Simulation:
     def _pair_has_instance(self) -> bool:
         """A pair kernel has an instance of the config on this map
         (``fused_aa.dispatch_pair_kind``): decided from the config, nothing
-        is built."""
+        is built; under a plan the sharded pair takes x/y meshes and B1b's
+        cumulant instances only."""
         from tnl_lbm_tpu_torch.kernels.fused_aa import dispatch_pair_kind
 
         try:
-            dispatch_pair_kind(self.cfg, self.domain, self.cfg.storage_dtype)
+            kind = dispatch_pair_kind(self.cfg, self.domain, self.cfg.storage_dtype)
         except NotImplementedError:
             return False
-        return True
+        if self.plan is None:
+            return True
+        return (self.plan.counts[2] == 1
+                and (kind == "B1" or step_instance(self.cfg, "the sharded pair")[0] == "cum"))
 
     def _hooks_need_per_step_state(self) -> bool:
         """True if a step hook is marked @needs_per_step_state."""
@@ -553,18 +571,8 @@ class Simulation:
         "auto" measures both dispatches on a CUDA device and keeps the
         faster, and is per-step on the CPU (the plain versions are no
         production path).  A pair kernel that fails to build or launch
-        raises: there is no fallback.  Under a plan "auto" keeps per-step
-        dispatch, and "on" or half storage raise: the sharded pair is not
-        ported yet."""
-        if self.plan is not None:
-            if self.cfg.storage_dtype is not None or self.pair_dispatch is True:
-                raise NotImplementedError(f"pair dispatch and half storage under a plan need the "
-                                          f"sharded A-A pair, not ported yet ({A13B})")
-            if self.pair_dispatch == "auto" and self._pair_dispatch_capable():
-                self.log.info("pair-dispatch auto: the sharded pair is not ported yet (%s) -> "
-                              "per-step dispatch under the plan", A13B)
-            self.pair_dispatch = False
-            return
+        raises: there is no fallback.  Under a plan the same rules hold for
+        the sharded pair."""
         if self.cfg.storage_dtype is not None:
             # half storage exists only on the pair path; falling back to the
             # full-width per-step kernels would ignore the precision request
@@ -621,9 +629,15 @@ class Simulation:
         state = self.cfg.eq(self.cfg.lat, rho.to(self.device), u.to(self.device))
         state = state.to(self.f.dtype).contiguous()
         del rho, u
-        bufs = [to_storage(state, self.cfg.storage_dtype).clone(), None]
-        bufs[1] = torch.empty_like(bufs[0])
+        if self.plan is not None:  # the sharded pair's haloed blocks, the steps' blocks
+            state = self.plan.shard_field(state, like_f=True)
+            bufs = [pair.pad(state), None]
+            bufs[1] = bufs[0].empty_like()
+        else:
+            bufs = [to_storage(state, self.cfg.storage_dtype).clone(), None]
+            bufs[1] = torch.empty_like(bufs[0])
         work = [state]
+        devices = self.plan.devices if self.plan is not None else [self.device]
 
         def run_pairs():
             for k in range(pairs):
@@ -641,6 +655,8 @@ class Simulation:
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
+            for dev in set(devices) - {self.device}:  # every shard's card done
+                synchronize(dev)
             end.record()
             end.synchronize()
             return start.elapsed_time(end) / pairs
@@ -666,6 +682,9 @@ class Simulation:
         self._resolve_pair_dispatch()
         if self.plan is not None:
             self._spare = self.f.empty_like() if self.use_fused else None
+            if self._pair_dispatch_ok():  # the sharded pair's two haloed buffers
+                first = self._pair.pad(self.f)
+                self._narrow = (first, first.empty_like())
         elif self.use_fused:
             if self._pair_dispatch_ok() and self.cfg.storage_dtype is not None:
                 self._narrow = tuple(torch.empty(self.f.shape, dtype=self.cfg.storage_dtype,
@@ -824,20 +843,27 @@ class Simulation:
         self._pair_done(wide, cur, spare)
 
     def _pair_buffers(self):
-        """(state, spare) of a pair loop, the state narrowed into its buffer."""
+        """(state, spare) of a pair loop, the state narrowed into its buffer
+        (under a plan: padded into the sharded pair's first haloed buffer)."""
         if self._narrow is None:
             return self.f, self._spare
-        self._narrow[0].copy_(self.f)
+        if self.plan is not None:
+            self._pair.pad(self.f, out=self._narrow[0])
+        else:
+            self._narrow[0].copy_(self.f)
         return self._narrow
 
     def _one_pair(self, cur, spare, nu, u_in, force):
+        self._gathered = None
         f_new, _, _ = self._pair(cur, nu, u_in=u_in, force=force, out=spare,
-                                 macro_out=(self.rho, self.u))
+                                 macro_out=(self._rho, self._u))
         return f_new, cur
 
     def _pair_done(self, wide, cur, spare):
         if self._narrow is None:
             self.f, self._spare = cur, spare
+        elif self.plan is not None:  # the interiors into the state's blocks, widened
+            self.f = self._pair.unpad(cur, out=wide)
         else:
             self.f = wide.copy_(cur)
 
@@ -1288,11 +1314,15 @@ class Simulation:
         if self.plan is not None and d_it > 0 and d_t > 0:
             # the halo bytes of the plan's exchange (JAX state.py: the
             # reference's MPI statistics, lbm.hpp:238-279)
-            from tnl_lbm_tpu_torch.parallel.profiling import halo_traffic
+            from tnl_lbm_tpu_torch.parallel.profiling import halo_traffic, pair_halo_traffic
 
-            self.prof.info(halo_traffic(self.domain, self.plan,
-                                        itemsize=self._rho.dtype.itemsize,
-                                        subset=not self.use_fused).log_line(d_it, d_t))
+            if self._pair_dispatch_ok():  # the pair's slabs, once a pair, in the store dtype
+                traffic = pair_halo_traffic(self.domain, self.plan,
+                                            itemsize=self._narrow[0].dtype.itemsize)
+            else:
+                traffic = halo_traffic(self.domain, self.plan, itemsize=self._rho.dtype.itemsize,
+                                       subset=not self.use_fused)
+            self.prof.info(traffic.log_line(d_it, d_t))
         self._glups_prev_iter = it
         self._glups_prev_time = now
 
