@@ -361,7 +361,28 @@ script exits non-zero without printing a result.
    ``--scaling weak_1d`` and ``weak_3d``, ``--precision double`` and
    ``--streaming AA``, sim_1 res 2 A-B and ``--streaming AA``, sim_3 res 2,
    each through the haloed kernels with no plain call.  The three record
-   entries' launches are these runs'.
+   entries' launches are these runs'.  Then the sharded pair (PR 20), and
+   then the sharded 2D and coupled lattices (``halo_2d_ade_compares``,
+   ``halo_2d_ade_times``, ``sharded_2d_ade_runs``, ``sharded_2d_ade_apps``):
+   B5 halo in its five variants on four 38 x 150 maps (Bouzidi rings,
+   profile or vector inflow) on 2 x 2 shards and on sim2d_3 res 64's
+   channel on 2 y-shards, B6 halo in each collision with a scalar nu and a
+   nu field on the three ADE maps (transfer flags) on 2 x 2 and on
+   sim_coupled res 8's map on 2 x-shards, each against its plain version
+   at the step bounds; both timed on a shard's block (8192 x 1024 of
+   sim2d_3 res 64 on 2 y-shards, 256^3 of sim_coupled res 8 on 2
+   x-shards) beside the unsharded kernel on a lattice of that block's
+   shape and map, with their bound (the distinct elements read,
+   ``halo_reads_2d``, ``halo_reads_ade``); then through ``Simulation``
+   from rest, bit for bit the unsharded runs: sim2d_3 res 64 (200 steps)
+   on 1, 2 and 2 x 2 shards, sim2d_2 res 1 with geometry 1 on uneven 3
+   shards (its statistics too), sim_coupled res 8 (100 steps)
+   "sharded-fused" on 2 shards against the unsharded B4-then-B6 run, each
+   with ms per step, MLUPS, peak memory and the exchanges' ms, and over 2
+   and every card where the machine has several; then ``sim2d_3
+   --sharded`` and ``sim_coupled --sharded --use-fused`` through their
+   ``main``.  The d2q9_step_halo and ade_step_halo entries' launches are
+   these runs' and apps'; ab_step_halo's add the coupled runs' NSE half.
 
 The line before the last is the kernels' JSON record (bound_ms: the larger
 of the bytes over the published 3.35 TB/s and the FP32 instructions over
@@ -6245,11 +6266,522 @@ def sharded_pair_apps() -> dict:
     return launches
 
 
+# ------------------------------ the sharded 2D and ADE steps (A13b, items 2 and 4)
+
+#: the sharded 2D and coupled lattices' haloed kernels: record key -> (their
+#: instances in the library, source, the Pallas call replaced)
+HALO_2D_ADE_KERNELS = {
+    "d2q9_step_halo": (("d2q9_halo_srt_kernel", "d2q9_halo_srt_force_kernel",
+                        "d2q9_halo_clbm_kernel", "d2q9_halo_srt_force_field_kernel",
+                        "d2q9_halo_clbm_force_field_kernel"), "d2q9_step.cu",
+                       "tnl_lbm_tpu/kernels/fused_2d.py:244"),
+    "ade_step_halo": (tuple(f"ade_halo_{c}_kernel" for c in ("srt", "mrt", "clbm", "clbm_rs")),
+                      "ade_step.cu", "tnl_lbm_tpu/kernels/fused_ade.py:338"),
+}
+#: sim2d_3's channel of the sharded 2D runs (8192 x 2048, TIME_2D_RES) and their steps
+SHARDED_2D_STEPS = 200
+#: sim2d_2 with geometry 1 (a geometry file: resolution 1, 128 x 32) on uneven 3
+#: shards: its steps
+SHARDED_2D2_STEPS = 400
+#: sim_coupled's sharded runs: COUPLED_RES (512 x 256 x 256), this many steps
+SHARDED_COUPLED_STEPS = 100
+#: the ADE block's halo widths (x, y): OUTFLOW_PE pulls x-2
+ADE_HALO = (2, 1)
+
+
+def plan_2d(counts, devices=None):
+    """A ShardPlan of prod(counts) shards of the 2D lattice over x, y, every
+    one on the card (``devices``: each shard's own)."""
+    from tnl_lbm_tpu_torch.parallel.sharded import Mesh, ShardPlan
+
+    grid = np.empty(int(np.prod(counts)), dtype=object)
+    grid[:] = devices or [DEVICE + ":0"] * grid.size
+    return ShardPlan(Mesh(grid.reshape(counts), ("x", "y")), ("x", "y"))
+
+
+def sim2d3_channel(label: str, plan=None):
+    """sim2d_3's channel at TIME_2D_RES with geometry 1's disk scaled in a
+    seeded Bouzidi ring (``time_2d_sim``'s), SHARDED_2D_STEPS steps, under
+    ``plan`` (None: unsharded), counted from sim_init; not run."""
+    from tnl_lbm_tpu_torch.apps import sim2d_3
+    from torch_cases import timing_disk_2d
+
+    where = WORK / "sharded" / label
+    sim = sim2d_3.build(TIME_2D_RES, None, results_parent=where, values_dir=where / "values",
+                        device=DEVICE)
+    timing_disk_2d(sim.domain)
+    sim.phys_final_time = SHARDED_2D_STEPS * sim.domain.units.phys_dt
+    sim.plan = plan
+    return counting_from_init(sim)
+
+
+def halo_2d_ade_compares() -> dict:
+    """B5 halo and B6 halo against their plain versions on the card, every
+    shard's haloed block, one call from a seeded state: B5 in each of its
+    five variants (SRT, SRT with force, CLBM, and the force_field SRT and
+    CLBM) on the 2D compares' four 38 x 150 maps (Bouzidi rings with -1
+    links, the periodic channel, a box of every code; profile or vector
+    inflow) on 2 x 2 shards, and on sim2d_3 res 64's channel on 2 y-shards;
+    B6 in each collision with a scalar nu and with a nu field on the three
+    ADE maps at 12 x 16 x 150 (the box's transfer flags packed from the
+    global map) on 2 x 2 shards, and on sim_coupled res 8's map on 2
+    x-shards.  Returns key -> max |df| (each compare logged)."""
+    import torch
+
+    from tnl_lbm_tpu_torch import interop
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+    from torch_cases import (ADE_COLLISIONS, ADE_KINDS, FORCE_2D, PHI_IN, TCOEF, U_IN_2D,
+                             ade_case, case_2d, parabolic_2d, seeded_2d, seeded_ade)
+
+    err = {"d2q9_step_halo": 0.0, "ade_step_halo": 0.0}
+
+    def check(key, label, ls, n, worst, tol):
+        log("sharded", compare=repr(label), kernel=ls.kernel.name, shards=n,
+            block="x".join(map(str, ls.shape)),
+            **{f"max_d{w}": f"{v:.3e}" for w, v in zip(("f", "rho", "u")
+                                                       if key.startswith("d2q9") else
+                                                       ("g", "phi"), worst)},
+            launches=ls.kernel.launches, plain_calls=ls.plain_calls)
+        if any(w > t for w, t in zip(worst, tol)) or ls.kernel.launches != n or ls.plain_calls:
+            raise RuntimeError(f"sharded compare {label}: {ls.kernel.name} against its plain "
+                               f"version {worst} beyond {tol}, or not launched once a shard")
+        err[key] = max(err[key], worst[0])
+
+    def b5(label, cfg, dom, plan, u_in, variant, f=None):
+        ff = variant.endswith("_ff")
+        step = sh.make_sharded_fused_step_2d(cfg, dom, plan, force_field=ff)
+        if f is None:
+            f = seeded_2d(cfg, dom.shape, DEVICE, seed=3)
+        fs = plan.shard_field(f, like_f=True)
+        profs = step._profile_blocks(u_in)
+        if ff:
+            gen = torch.Generator(device=DEVICE).manual_seed(9)
+            field = 1e-5 * torch.randn((2,) + tuple(dom.shape), generator=gen, device=DEVICE)
+            forces = plan.shard_field(field, like_f=True).blocks
+        else:
+            forces = [FORCE_2D if variant == "srt_force" else None] * plan.n_shards
+        halo = step.exchange(fs)
+        ls = step.local_step
+        worst = [0.0, 0.0, 0.0]
+        for k in range(plan.n_shards):
+            kw = dict(u_in=profs[k], force=forces[k], map_arr_in=step.maps.blocks[k],
+                      bouzidi_arr_in=None if step.thetas is None else step.thetas.blocks[k],
+                      **({"force_add": FORCE_2D} if ff else {}))
+            out = ls(halo[k], NU, **kw)
+            plain = ls.plain(halo[k], NU, **kw)
+            worst = [max(w, max_diff(a, b)) for w, a, b in zip(worst, out, plain)]
+            del out, plain
+        check("d2q9_step_halo", label, ls, plan.n_shards, worst, (TOL_F, TOL_RHO, TOL_U))
+
+    for kind in ("bouzidi", "box", "periodic", "channel"):
+        m, periodic, bz = case_2d(kind, (38, 150))
+        for variant in ("srt", "srt_force", "clbm", "srt_ff", "clbm_ff"):
+            cfg = interop.config_2d_from_spec("CLBM" if variant.startswith("clbm") else "SRT")
+            dom = interop.domain_from_numpy(m, periodic, lat=cfg.lat, bouzidi=bz)
+            u_in = (torch.tensor(parabolic_2d(150), dtype=torch.float32, device=DEVICE)
+                    if kind in ("bouzidi", "channel") else U_IN_2D)
+            b5(f"{kind} 38x150 {variant} x2y2", cfg, dom, plan_2d((2, 2)), u_in, variant)
+    sim = sim2d3_channel("cmp")
+    b5(f"sim2d_3 res {TIME_2D_RES} CLBM y2", sim.cfg, sim.domain, plan_2d((1, 2)),
+       sim.update_inflow(0.0), "clbm")
+    del sim
+
+    def b6(label, cfg, dom, plan, variable, g, u, nu):
+        step = sh.make_sharded_fused_ade_step(cfg, dom, plan, variable_diffusion=variable,
+                                              transfer_coeff=TCOEF)
+        gs, us = plan.shard_field(g, like_f=True), plan.shard_field(u, like_f=True)
+        nus = step._nu_blocks(nu if variable else NU_ADE)
+        halo = step.exchange(gs)
+        ls = step.local_step
+        worst = [0.0, 0.0]
+        for k in range(plan.n_shards):
+            kw = dict(phi_in=PHI_IN, map_arr_in=step.maps.blocks[k],
+                      tflags_in=None if step.tflags is None else step.tflags.blocks[k])
+            out = ls(halo[k], us.blocks[k], nus[k], **kw)
+            plain = ls.plain(halo[k], us.blocks[k], nus[k], **kw)
+            worst = [max(w, max_diff(a, b)) for w, a, b in zip(worst, out, plain)]
+            del out, plain
+        check("ade_step_halo", label, ls, plan.n_shards, worst, (TOL_G, TOL_PHI))
+
+    for kind in ADE_KINDS:
+        m, periodic = ade_case(kind, (12, 16, 150))
+        dom = interop.domain_from_numpy(m, periodic, lat=interop.D3Q7)
+        g, u, nu = seeded_ade(m.shape, DEVICE)
+        for collision in ADE_COLLISIONS:
+            cfg = interop.ade_config_from_spec(collision)
+            for variable in (False, True):
+                b6(f"{kind} 12x16x150 {collision} {'nu field' if variable else 'scalar nu'} "
+                   f"x2y2", cfg, dom, card_plan((2, 2, 1)), variable, g, u, nu)
+    from tnl_lbm_tpu_torch.apps import sim_coupled
+
+    sim = sim_coupled.build(COUPLED_RES, device=DEVICE, use_fused=True,
+                            results_parent=WORK / "sharded" / "cmp_coupled")
+    g, u, nu = seeded_ade(sim.ade_domain.shape, DEVICE)
+    b6(f"sim_coupled res {COUPLED_RES} CLBM x2", sim.ade_cfg, sim.ade_domain,
+       card_plan((2, 1, 1)), False, g, u, nu)
+    del sim, g, u, nu
+    torch.cuda.empty_cache()
+    return err
+
+
+def halo_reads_2d(codes, thetas: bool) -> tuple[int, int]:
+    """(distinct f elements read, threads that collide) of B5 halo on a
+    block whose map is ``codes`` [X, Y]: a thread pulls component q at
+    s - c_q (OUTFLOW_RIGHT every q from (x-1, y - c_y)), a NOTHING site reads
+    its own 9, a Bouzidi ring site (``thetas``) its own 9 and, for its
+    links, the pulls of opp(q) from s + c_q (which the pull of opp(q)
+    already reads); the ring [X+2, Y+2] gives what points into the block."""
+    from tnl_lbm_tpu_torch.models import D2Q9
+    from tnl_lbm_tpu_torch.ops.boundary import GEO
+
+    X, Y = codes.shape
+    nothing = codes == int(GEO.NOTHING)
+    outflow = codes == int(GEO.OUTFLOW_RIGHT)
+    own = nothing | ((codes == int(GEO.FLUID_NEAR_WALL)) if thetas else np.zeros_like(nothing))
+    pulls = ~nothing & ~outflow
+    total = 0
+    for cx, cy in np.asarray(D2Q9.c, dtype=int):
+        seen = np.zeros((X + 2, Y + 2), dtype=bool)
+        seen[1 - cx:1 - cx + X, 1 - cy:1 - cy + Y] |= pulls
+        seen[0:X, 1 - cy:1 - cy + Y] |= outflow
+        seen[1:1 + X, 1:1 + Y] |= own
+        total += int(seen.sum())
+    colliding = np.isin(codes, [int(GEO.FLUID), int(GEO.OUTFLOW_RIGHT),
+                                int(GEO.FLUID_NEAR_WALL)]).sum()
+    return total, int(colliding)
+
+
+def halo_reads_ade(codes, periodic_z: bool) -> tuple[int, int]:
+    """(distinct g elements read, threads that collide) of B6 halo on a
+    block whose map is ``codes`` [X, Y, Z] (ade_site_update's reads): a
+    thread pulls component q at s - c_q (OUTFLOW_RIGHT from x-1, OUTFLOW_PE
+    from s - c_q - x); a NOTHING, WALL_BODY or TRANSFER site also reads its
+    own 7, a TRANSFER site every component at each neighbour s - c_q (the
+    links it may take); the halo [X+4, Y+2, Z] gives what points into the
+    block, z wraps (or clamps)."""
+    from tnl_lbm_tpu_torch.models import D3Q7
+    from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO, TRANSFER_CODES
+
+    X, Y, Z = codes.shape
+    is_ = lambda *cs: np.isin(codes, [int(c) for c in cs])  # noqa: E731
+    nothing, right, pe = is_(ADEGEO.NOTHING), is_(ADEGEO.OUTFLOW_RIGHT), is_(ADEGEO.OUTFLOW_PE)
+    transfer = is_(*TRANSFER_CODES)
+    own = nothing | is_(ADEGEO.WALL_BODY) | transfer
+    plain = ~nothing & ~right & ~pe
+    c = np.asarray(D3Q7.c, dtype=int)
+
+    def mark(seen, mask, dx, dy, dz):
+        if dz and not periodic_z:  # clamped: the first and last planes read themselves
+            moved = np.zeros_like(mask)
+            if dz < 0:
+                moved[:, :, :-1] |= mask[:, :, 1:]
+                moved[:, :, 0] |= mask[:, :, 0]
+            else:
+                moved[:, :, 1:] |= mask[:, :, :-1]
+                moved[:, :, -1] |= mask[:, :, -1]
+        else:
+            moved = np.roll(mask, dz, axis=2)
+        seen[2 + dx:2 + dx + X, 1 + dy:1 + dy + Y] |= moved
+
+    total = 0
+    for q in range(7):
+        seen = np.zeros((X + 4, Y + 2, Z), dtype=bool)
+        dx, dy, dz = (-int(v) for v in c[q])
+        mark(seen, plain, dx, dy, dz)
+        mark(seen, right, -1, dy, dz)
+        mark(seen, pe, dx - 1, dy, dz)
+        mark(seen, own, 0, 0, 0)
+        for k in range(1, 7):  # a transfer site's neighbours
+            mark(seen, transfer, *(-int(v) for v in c[k]))
+        total += int(seen.sum())
+    colliding = is_(ADEGEO.FLUID, ADEGEO.PERIODIC, ADEGEO.SOLID, *TRANSFER_CODES,
+                    ADEGEO.OUTFLOW_RIGHT).sum()
+    return total, int(colliding)
+
+
+def halo_2d_ade_times(ops: dict) -> dict:
+    """B5 halo on shard 0's block of sim2d_3 res 64's channel on 2 y-shards
+    (8192 x 1024, CLBM, profile) and B6 halo on shard 0's block of
+    sim_coupled res 8's ADE map on 2 x-shards (256 x 256 x 256, CLBM,
+    scalar nu), each 20 launches on CUDA events from a seeded state, beside
+    the unsharded kernel on a lattice of that block's shape and map (its
+    periodic axes the domain's) and the plain version (3 calls).  Bound:
+    the distinct f/g elements the threads read (``halo_reads_2d``,
+    ``halo_reads_ade``), the block's writes and macro outputs, the map and
+    (B5) the thetas at the ring and the profile at the inflow, against the
+    FP32 slots of every thread that collides.  Returns key -> (ms, plain
+    ms, bound ms, bound_by, unsharded ms on the block)."""
+    import dataclasses as dc
+
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim_coupled
+    from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
+    from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
+    from tnl_lbm_tpu_torch.ops.boundary import GEO
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+    from torch_cases import PHI_IN, seeded_2d, seeded_ade
+
+    out = {}
+    sim = sim2d3_channel("times")
+    cfg, dom = sim.cfg, sim.domain
+    plan = plan_2d((1, 2))
+    step = sh.make_sharded_fused_step_2d(cfg, dom, plan)
+    f = plan.shard_field(seeded_2d(cfg, dom.shape, DEVICE, seed=3), like_f=True)
+    halo = step.exchange(f)[0]
+    ls = step.local_step
+    X, Y = ls.shape
+    prof = step._profile_blocks(sim.update_inflow(0.0))[0]
+    kw = dict(u_in=prof, map_arr_in=step.maps.blocks[0], bouzidi_arr_in=step.thetas.blocks[0])
+    fout = torch.empty_like(f.blocks[0])
+    macro = (torch.empty((X, Y), device=fout.device), torch.empty((2, X, Y), device=fout.device))
+    ms = time_ms(lambda: ls(halo, NU, out=fout, macro_out=macro, **kw), 20)
+    plain_ms = time_ms(lambda: ls.plain(halo, NU, **kw), 3)
+    codes = step.maps.blocks[0].cpu().numpy()
+    bdom = dc.replace(dom, units=dc.replace(dom.units, global_size=(X, Y)), map=codes.copy(),
+                      bouzidi=step.thetas.blocks[0].cpu().numpy())
+    one = make_fused_step_2d(cfg, bdom, DEVICE)
+    inner = f.blocks[0].contiguous()
+    fone = torch.empty_like(inner)
+    one_ms = time_ms(lambda: one(inner, NU, u_in=prof, out=fone), 20)
+    reads, colliding = halo_reads_2d(codes, True)
+    sites = X * Y
+    near = int((codes == int(GEO.FLUID_NEAR_WALL)).sum())
+    inflow = int((codes == int(GEO.INFLOW)).sum())
+    moved = 4 * reads + (9 + 3) * 4 * sites + sites + 32 * near + 8 * inflow
+    per_thread = ops["d2q9_halo_clbm_kernel"]
+    b_ms, b_by = bound(moved / sites, tuple(v * colliding / sites for v in per_thread), sites)
+    out["d2q9_step_halo"] = (ms, plain_ms, b_ms, b_by, one_ms)
+    log("sharded", timing="d2q9_step_halo", kernel="d2q9_halo_clbm_kernel", block=f"{X}x{Y}",
+        ms=f"{ms:.4f}", unsharded_ms_same_block=f"{one_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{b_ms:.4f}", bound_by=b_by, bytes_moved=moved,
+        bytes_per_site=f"{moved / sites:.3f}", f_elements_read=reads, colliding_threads=colliding,
+        fp32_slots_per_thread=per_thread[0], card=card_state())
+    del sim, step, f, halo, fout, macro, one, inner, fone
+    torch.cuda.empty_cache()
+
+    sim = sim_coupled.build(COUPLED_RES, device=DEVICE, use_fused=True,
+                            results_parent=WORK / "sharded" / "times_coupled")
+    cfg, dom = sim.ade_cfg, sim.ade_domain
+    del sim
+    plan = card_plan((2, 1, 1))
+    step = sh.make_sharded_fused_ade_step(cfg, dom, plan)
+    g, u, _ = seeded_ade(dom.shape, DEVICE)
+    gs, us = plan.shard_field(g, like_f=True), plan.shard_field(u, like_f=True)
+    del g, u
+    halo = step.exchange(gs)[0]
+    ls = step.local_step
+    X, Y, Z = ls.shape
+    kw = dict(phi_in=PHI_IN, map_arr_in=step.maps.blocks[0])
+    gout = torch.empty_like(gs.blocks[0])
+    ub = us.blocks[0]
+    ms = time_ms(lambda: ls(halo, ub, NU_ADE, out=gout, **kw), 20)
+    plain_ms = time_ms(lambda: ls.plain(halo, ub, NU_ADE, **kw), 3)
+    codes = step.maps.blocks[0].cpu().numpy()
+    bdom = dc.replace(dom, units=dc.replace(dom.units, global_size=(X, Y, Z)), map=codes.copy())
+    one = make_fused_ade_step(cfg, bdom, DEVICE)
+    inner = gs.blocks[0].contiguous()
+    gone = torch.empty_like(inner)
+    one_ms = time_ms(lambda: one(inner, ub, NU_ADE, phi_in=PHI_IN, out=gone), 20)
+    reads, colliding = halo_reads_ade(codes, bool(dom.periodic[2]))
+    sites = X * Y * Z
+    moved = 4 * reads + (7 + 3 + 1) * 4 * sites + sites
+    per_thread = ops["ade_halo_clbm_kernel"]
+    b_ms, b_by = bound(moved / sites, tuple(v * colliding / sites for v in per_thread), sites)
+    out["ade_step_halo"] = (ms, plain_ms, b_ms, b_by, one_ms)
+    log("sharded", timing="ade_step_halo", kernel="ade_halo_clbm_kernel", block=f"{X}x{Y}x{Z}",
+        ms=f"{ms:.4f}", unsharded_ms_same_block=f"{one_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{b_ms:.4f}", bound_by=b_by, bytes_moved=moved,
+        bytes_per_site=f"{moved / sites:.3f}", g_elements_read=reads, colliding_threads=colliding,
+        fp32_slots_per_thread=per_thread[0], card=card_state())
+    del step, gs, us, halo, gout, one, inner, gone
+    torch.cuda.empty_cache()
+    return out
+
+
+def halo_2d_ade_launches(sim) -> dict:
+    """Launches and plain calls of the haloed 2D/ADE kernels in a sharded run."""
+    step = sharded_step(sim).local_step
+    got = {"plain_calls": step.plain_calls}
+    if sim.cfg.lat.D == 2:
+        got["d2q9_step_halo"] = step.kernel.launches
+    else:
+        got["ab_step_halo"] = step.kernel.launches
+        got["ade_step_halo"] = sim._ade_step.local_step.kernel.launches
+        got["plain_calls"] += sim._ade_step.local_step.plain_calls
+    return got
+
+
+def sharded_2d_ade_group(label: str, runs, reference: str, fields, launches: dict,
+                         figures: dict, exchanges) -> None:
+    """Run each (name, build) of ``runs`` (build(name) -> a counted run, not
+    started; its plan None for the unsharded reference), hold every sharded
+    run's ``fields(sim)`` to the reference run's bit for bit, log ms/step,
+    MLUPS, peak memory and the exchanges' ms (``exchanges(sim)``: name ->
+    a function of no arguments), and add the haloed launches."""
+    import torch
+
+    kept = None
+    for name, build in runs:
+        sim = build(name)
+        if not sim.run():
+            raise RuntimeError(f"{label} {name} failed (NaN or refused)")
+        ms_step, mlups, peak = run_figures(sim)
+        got, same, halo = fields(sim), None, {}
+        if sim.plan is None:
+            kept = got
+        else:
+            counted = halo_2d_ade_launches(sim)
+            for k, v in counted.items():
+                if k in launches:
+                    launches[k] += v
+            if counted.pop("plain_calls") or \
+                    set(counted.values()) != {sim.iterations * sim.plan.n_shards}:
+                raise RuntimeError(f"{label} {name}: launches {counted} for {sim.iterations} "
+                                   f"steps on {sim.plan.n_shards} shards, or plain calls")
+            halo = {k: time_ms(fn, 20) for k, fn in exchanges(sim).items()}
+            same = all(torch.equal(a, b) for a, b in zip(got, kept))
+            diffs = [max_diff(a, b) for a, b in zip(got, kept)]
+        run = f"{label}_{name.replace(' ', '_')}"
+        figures[run] = {"ms_per_step": ms_step, "mlups": mlups, "peak_gb": peak,
+                        "exchange_ms": halo or None,
+                        "counts": None if sim.plan is None else sim.plan.counts,
+                        "bit_equal": same}
+        log("sharded", run=run, plan="unsharded" if sim.plan is None else
+            "x".join(map(str, sim.plan.counts)),
+            devices="n/a" if sim.plan is None else
+            ",".join(sorted({str(d) for d in sim.plan.devices})),
+            steps=sim.iterations, ms_per_step=f"{ms_step:.4f}", mlups=f"{mlups:.1f}",
+            max_memory_allocated_gb=f"{peak:.3f}",
+            **{f"{k}_exchange_ms": f"{v:.4f}" for k, v in halo.items()},
+            **({} if same is None else {"against": reference, "bit_equal": same,
+                                        "max_diffs": "/".join(f"{d:.3e}" for d in diffs)}))
+        if same is False:
+            raise RuntimeError(f"{label} {name}: not bit for bit the {reference} run: {diffs}")
+        if not all(bool(torch.isfinite(t).all()) for t in got):
+            raise RuntimeError(f"{label} {name}: non-finite fields")
+        del sim, got
+        torch.cuda.empty_cache()
+
+
+def sharded_2d_ade_runs() -> tuple[dict, dict]:
+    """The sharded 2D and coupled runs against their unsharded runs on the
+    card, bit for bit, through ``Simulation._advance`` from rest: sim2d_3
+    res 64's channel (SHARDED_2D_STEPS steps) on 1, 2 and 2 x 2 shards of
+    one card against the unsharded B5 run; sim2d_2 res 1 with geometry 1 on
+    uneven 3 shards against its unsharded run (its statistics sums too);
+    sim_coupled res 8 (SHARDED_COUPLED_STEPS steps) "sharded-fused" on 2
+    shards against the unsharded B4-then-B6 run (``two_kernel``); where the
+    machine has more than one card, each group also over 2 cards and over
+    every card.  Returns the haloed launches and the runs' figures."""
+    import torch
+
+    from tnl_lbm_tpu_torch.apps import sim2d_2, sim_coupled
+
+    launches = {"d2q9_step_halo": 0, "ade_step_halo": 0, "ab_step_halo": 0}
+    figures = {}
+    cuda0 = DEVICE + ":0"
+    n_cards = torch.cuda.device_count()
+    cards = [(f"{k} cards", [f"{DEVICE}:{i}" for i in range(k)])
+             for k in sorted({2, n_cards}) if n_cards > 1]
+
+    def plan2(spec):
+        return plan_2d(spec) if isinstance(spec, tuple) else plan_2d((len(spec), 1), spec)
+
+    def fields_2d(sim):
+        return (sim.f.gather() if sim.plan is not None else sim.f), sim.rho, sim.u
+
+    def exchange_2d(sim):
+        return {"f": lambda: sharded_step(sim).exchange(sim.f)}
+
+    specs = (("unsharded", None), ("1", (1, 1)), ("2", (2, 1)), ("2x2", (2, 2)), *cards)
+    sharded_2d_ade_group(
+        f"sim2d_3_res{TIME_2D_RES}",
+        [(n, lambda n, s=s: sim2d3_channel(f"s3_{n}", None if s is None else plan2(s)))
+         for n, s in specs], "unsharded", fields_2d, launches, figures, exchange_2d)
+
+    geos = golden_geometries()
+
+    def sim2d2(name, spec):
+        sim = sim2d_2.build(1, str(geos / "1.txt"), final_time=1.0,
+                            stat_start=0.0, results_parent=WORK / "sharded" / f"s2_{name}",
+                            device=DEVICE)
+        sim.phys_final_time = SHARDED_2D2_STEPS * sim.domain.units.phys_dt
+        sim.plan = None if spec is None else plan2(spec)
+        return counting_from_init(sim)
+
+    specs = (("unsharded", None), ("3 uneven", [cuda0] * 3), *cards)
+    sharded_2d_ade_group(
+        "sim2d_2_res1_geo1",
+        [(n, lambda n, s=s: sim2d2(n, s)) for n, s in specs], "unsharded",
+        lambda sim: fields_2d(sim) + (sim.sum_v,), launches, figures, exchange_2d)
+
+    def coupled(name, spec):
+        sim = sim_coupled.build(COUPLED_RES, device=DEVICE, use_fused=True,
+                                results_parent=WORK / "sharded" / f"c_{name}")
+        if spec is None:
+            two_kernel(sim)
+        else:
+            sim.plan = card_plan(spec) if isinstance(spec, tuple) else \
+                card_plan((len(spec), 1, 1), spec)
+        sim.phys_final_time = SHARDED_COUPLED_STEPS * sim.domain.units.phys_dt
+        return counting_from_init(sim)
+
+    def fields_coupled(sim):
+        if sim.plan is None:
+            return sim.f, sim.g, sim.rho, sim.u, sim.phi
+        return sim.f.gather(), sim.g.gather(), sim.rho, sim.u, sim.phi
+
+    def exchange_coupled(sim):
+        return {"f": lambda: sim._step.exchange(sim.f), "g": lambda: sim._ade_step.exchange(sim.g)}
+
+    specs = (("two-kernel", None), ("2", (2, 1, 1)), *cards)
+    sharded_2d_ade_group(
+        f"sim_coupled_res{COUPLED_RES}", [(n, lambda n, s=s: coupled(n, s)) for n, s in specs],
+        "two-kernel", fields_coupled, launches, figures, exchange_coupled)
+    return launches, figures
+
+
+def sharded_2d_ade_apps() -> dict:
+    """``sim2d_3 --sharded`` (res 1, geometry 1) and ``sim_coupled --sharded
+    --use-fused`` (res 2) through their ``main`` over the machine's cards,
+    each through the haloed kernels (launches > 0, no plain call).  Returns
+    their haloed launches."""
+    from tnl_lbm_tpu_torch.apps import sim2d_3, sim_coupled
+
+    launches = {"d2q9_step_halo": 0, "ade_step_halo": 0, "ab_step_halo": 0}
+    geos = golden_geometries()
+    for label, sim in (
+            ("sim2d_3 res 1 --sharded", lambda: sim2d_3.main(
+                ["1", str(geos / "1.txt"), "--device", DEVICE, "--sharded", "--final-time",
+                 "0.05", "--results-dir", str(WORK / "sharded" / "app_sim2d_3"),
+                 "--values-dir", str(WORK / "sharded" / "app_values")])),
+            ("sim_coupled res 2 --sharded --use-fused", lambda: sim_coupled.main(
+                ["2", "--device", DEVICE, "--sharded", "--use-fused", "--final-time", "0.01",
+                 "--results-dir", str(WORK / "sharded" / "app_coupled")]))):
+        sim = sim()
+        got = halo_2d_ade_launches(sim)
+        plain = got.pop("plain_calls")
+        for k, v in got.items():
+            launches[k] += v
+        log("sharded", app=label, iterations=sim.iterations,
+            plan="x".join(map(str, sim.plan.counts)),
+            **{f"launches_{k}": v for k, v in got.items()}, plain_calls=plain,
+            coupled_kernel=getattr(sim, "coupled_kernel", "n/a"))
+        if plain or min(got.values()) <= 0 or sim.nan_detected or sim.iterations <= 0:
+            raise RuntimeError(f"{label}: not through the haloed kernels (or NaN)")
+        del sim
+    return launches
+
+
+
 def phase_sharded() -> dict:
     """The sharded lattice on the card (``halo_compares``, ``halo_kernel_times``,
     ``sharded_runs``, ``sharded_apps``), then the sharded pair
     (``pair_halo_compares``, ``pair_halo_times``, ``sharded_pair_runs``,
-    ``sharded_pair_apps``).  Returns the record's kernels, errors, times and
+    ``sharded_pair_apps``), then the sharded 2D and coupled lattices
+    (``halo_2d_ade_compares``, ``halo_2d_ade_times``, ``sharded_2d_ade_runs``,
+    ``sharded_2d_ade_apps``).  Returns the record's kernels, errors, times and
     bounds of the haloed kernels."""
     import torch
 
@@ -6259,7 +6791,8 @@ def phase_sharded() -> dict:
     path, ptxas = build_library()
     res = kernel_resources(ptxas)
     instances = {**{k: v for k, v in HALO_KERNELS.items()},
-                 **{k: v[0] for k, v in PAIR_HALO_KERNELS.items()}}
+                 **{k: v[0] for k, v in PAIR_HALO_KERNELS.items()},
+                 **{k: v[0] for k, v in HALO_2D_ADE_KERNELS.items()}}
     names = sorted({n for ns in instances.values() for n in ns}
                    | {"aa_odd_kernel", "aa_odd_f64_lean_kernel"})
     ops = sass_fp32_ops(path, names)
@@ -6281,9 +6814,21 @@ def phase_sharded() -> dict:
     launches.update(pair_launches)
     log("sharded", sharded_pair_seconds=f"{time.perf_counter() - t0:.1f}")
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    err.update(halo_2d_ade_compares())
+    times.update(halo_2d_ade_times(ops))
+    launches_2d, figures_2d = sharded_2d_ade_runs()
+    for k, v in sharded_2d_ade_apps().items():
+        launches_2d[k] += v
+    launches["ab_step_halo"] += launches_2d.pop("ab_step_halo")  # the coupled runs' NSE half
+    launches.update(launches_2d)
+    log("sharded", sharded_2d_ade_seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
     sources = {"ab_step_halo": "halo_step.cu", "ab_step_f64_halo": "f64_ab.cu",
-               "aa_odd_halo": "halo_step.cu", **{k: v[1] for k, v in PAIR_HALO_KERNELS.items()}}
-    replaces = {**HALO_REPLACES, **{k: v[2] for k, v in PAIR_HALO_KERNELS.items()}}
+               "aa_odd_halo": "halo_step.cu", **{k: v[1] for k, v in PAIR_HALO_KERNELS.items()},
+               **{k: v[1] for k, v in HALO_2D_ADE_KERNELS.items()}}
+    replaces = {**HALO_REPLACES, **{k: v[2] for k, v in PAIR_HALO_KERNELS.items()},
+                **{k: v[2] for k, v in HALO_2D_ADE_KERNELS.items()}}
     kernels = {key: CudaKernel(key, f"tnl_lbm_tpu_torch/csrc/{sources[key]}", replaces[key],
                                launches[key]) for key in instances}
     for key, k in kernels.items():
@@ -6293,8 +6838,13 @@ def phase_sharded() -> dict:
     shapes = {key: ("256x128x256 block of the 256^3 bench duct on 2 y-shards"
                     if key in PAIR_HALO_KERNELS else "32x128x256 block of 2 y-shards")
               for key in instances}
+    shapes["d2q9_step_halo"] = (f"8192x1024 block of sim2d_3 res {TIME_2D_RES}'s channel on 2 "
+                                f"y-shards")
+    shapes["ade_step_halo"] = (f"256x256x256 block of sim_coupled res {COUPLED_RES}'s ADE "
+                               f"lattice on 2 x-shards")
     return {"kernels": kernels, "err": err, "times": times, "figures": figures,
-            "pair_figures": pair_figures, "resources": resources, "shapes": shapes}
+            "pair_figures": pair_figures, "figures_2d_ade": figures_2d, "resources": resources,
+            "shapes": shapes}
 
 
 def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
@@ -6512,6 +7062,10 @@ def main() -> int:
                 entry["runs"] = sharded["figures"]
             if key == "aa_pair_halo_f32":
                 entry["runs"] = sharded["pair_figures"]
+            if key in HALO_2D_ADE_KERNELS:
+                entry["runs"] = {run: v for run, v in sharded["figures_2d_ade"].items()
+                                 if run.startswith("sim_coupled" if key == "ade_step_halo"
+                                                   else "sim2d")}
         else:
             bound_ms, bound_by = bound(*footprint[key])
         if key == "nn_force":  # |dF| above; its gate is relative to max |F|

@@ -185,8 +185,12 @@ def test_b5_refuses_what_it_does_not_take():
     assert not supports_2d(hooked, dom)
     with pytest.raises(NotImplementedError, match="make_hooked_fused_step"):
         make_fused_step_2d(hooked, dom, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        make_fused_step_2d(cfg, dom, "cpu", local_shape=(8, 8))
+    # the sharded step's haloed block (tests/test_torch_sharded_2d_ade.py): its
+    # map comes with each call
+    halo = make_fused_step_2d(cfg, dom, "cpu", local_shape=(8, 8))
+    assert halo.prepadded and halo.kernel.name == "d2q9_step_halo"
+    with pytest.raises(ValueError, match="map_arr_in"):
+        halo(torch.zeros((9, 10, 10)), 0.02)
     step = make_fused_step_2d(cfg, dom, "cpu")
     f = torch.zeros((9, 16, 16))
     with pytest.raises(NotImplementedError, match="force_field"):
@@ -402,9 +406,18 @@ def test_2d_apps_cli_and_options(tmp_path, geos):
     sim = sim2d_1.main(["1", "--device", "cpu", "--final-time", "0.002", "--use-fused",
                         "--results-dir", str(tmp_path)])
     assert sim.iterations > 0 and sim._step.plain_calls == sim.iterations
-    for app in (sim2d_1, sim2d_2, sim2d_3):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            app.main(["1", "--device", "cpu", "--sharded", "--results-dir", str(tmp_path)])
+    # --sharded runs (on the CPU over the one device: one shard); a hook under
+    # a plan still raises (tests/test_torch_sharded_2d_ade.py holds N shards)
+    for app, args in ((sim2d_1, ["--use-fused", "--final-time", "0.002"]),
+                      (sim2d_2, [obj, "--final-time", "0.0025"]),
+                      (sim2d_3, [obj, "--final-time", "0.0025", "--values-dir",
+                                 str(tmp_path / "sv")])):
+        sim = app.main(["1", *args, "--device", "cpu", "--sharded", "--results-dir",
+                        str(tmp_path / "sharded")])
+        assert sim.plan is not None and sim.iterations > 0
+        assert sim._step.local_step.plain_calls == sim.iterations
+        with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
+            sim._sharded_step(dataclasses.replace(sim.cfg, forcing_hook=lambda *a, **k: None))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             sim2d_3.build(1, device="cuda", results_parent=tmp_path / "cuda")

@@ -206,8 +206,12 @@ def test_make_ade_step_refuses_outflow_pe_under_aa():
     jcfg, jdom = jax_side("SRT", ade_box(), (False, False, True), "AA")
     with pytest.raises(NotImplementedError, match="A-B"):
         jsa.make_ade_step(jcfg, jdom)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        psa.make_ade_step(*port_side("SRT", aa_box(), (False, False, True)), local_shape=(4, 4, 4))
+    # a shard's block (the plain sharded step, tests/test_torch_sharded_2d_ade.py)
+    # takes its map at each call
+    block = psa.make_ade_step(*port_side("SRT", aa_box(), (False, False, True)),
+                              local_shape=(4, 4, 4))
+    with pytest.raises(ValueError, match="map_arr"):
+        block(torch.zeros((7, 4, 4, 4)), torch.zeros((3, 4, 4, 4)), NU)
 
 
 def test_make_ade_step_leaves_inflow_without_phi_in_like_jax():
@@ -281,8 +285,12 @@ def test_fused_ade_wrapper_contract():
         step(g, u, nu)
     with pytest.raises(ValueError):
         step(g, u, NU, out=g)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        pfa.make_fused_ade_step(cfg, dom, "cpu", prepadded=True)
+    # the sharded step's haloed block (tests/test_torch_sharded_2d_ade.py): by
+    # default of the domain's shape, its map and flags given at each call
+    halo = pfa.make_fused_ade_step(cfg, dom, "cpu", prepadded=True)
+    assert halo.kernel.name == "ade_step_halo" and halo.shape == dom.shape
+    with pytest.raises(ValueError, match="map_arr_in"):
+        halo(g, u, NU)
     with pytest.raises(NotImplementedError, match="make_fused_coupled_step_aa"):
         pfa.make_fused_ade_step(interop.ade_config_from_spec("SRT", "AA"), dom, "cpu")
     with pytest.raises(NotImplementedError):

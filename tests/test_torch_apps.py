@@ -136,10 +136,12 @@ def test_sim_3_cli_runs_on_the_cpu(tmp_path):
 
 def test_app_options_that_raise(tmp_path):
     # --sharded runs on the 3D apps, in pairs too (tests/test_torch_sharded.py,
-    # tests/test_torch_sharded_pair.py); the 2D and IBM apps' sharded lattice does not yet
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-        sim2d_1.main(["1", "--device", "cpu", "--sharded", "--use-fused", "--final-time", "0.002",
-                      "--results-dir", str(tmp_path / "pair")])
+    # tests/test_torch_sharded_pair.py), and on the 2D ones through B5 halo
+    # (tests/test_torch_sharded_2d_ade.py); the IBM app's sharded lattice does not yet
+    sim = sim2d_1.main(["1", "--device", "cpu", "--sharded", "--use-fused", "--final-time",
+                        "0.002", "--results-dir", str(tmp_path / "pair")])
+    assert sim.plan.counts == (1, 1) and sim._step.local_step.kernel.name == "d2q9_step_halo"
+    assert sim._step.local_step.plain_calls == sim.iterations > 0
     with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
         sim_ibm.main(["1", "--device", "cpu", "--sharded", "--final-time", "0.002",
                       "--results-dir", str(tmp_path / "pair2")])

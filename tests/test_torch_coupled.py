@@ -34,6 +34,7 @@ from tnl_lbm_tpu_torch.kernels import fused_coupled
 from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
 from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
 from tnl_lbm_tpu_torch.kernels.fused_coupled import make_fused_coupled_step
+from tnl_lbm_tpu_torch.parallel import sharded as sh
 from tnl_lbm_tpu_torch.sim.coupled import CoupledSimulation
 from tnl_lbm_tpu_torch.sim.state import VTK2D
 
@@ -338,8 +339,15 @@ def test_sim_coupled_cli_runs_on_the_cpu(tmp_path):
 
 
 def test_sim_coupled_options_that_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        sim_coupled.main(["1", "--device", "cpu", "--sharded", "--results-dir", str(tmp_path)])
+    # --sharded runs (the plain sharded steps here, one shard on the CPU; N
+    # shards and "sharded-fused": tests/test_torch_sharded_2d_ade.py); the A-A
+    # kernels under a plan have no sharded ADE kernel and raise (ROADMAP §C)
+    sharded = sim_coupled.main(["1", "--device", "cpu", "--sharded", "--final-time", "0.002",
+                                "--results-dir", str(tmp_path / "sharded")])
+    assert sharded.coupled_kernel == "sharded" and sharded.iterations == 4
+    with pytest.raises(NotImplementedError, match="ROADMAP §C"):
+        sim_coupled.main(["1", "--device", "cpu", "--sharded", "--streaming", "AA",
+                          "--use-fused", "--results-dir", str(tmp_path / "aa_sharded")])
     # A-A with the kernels: the A-A coupled pair (B8), its plain version here
     fused = sim_coupled.main(["1", "--device", "cpu", "--streaming", "AA", "--use-fused",
                               "--final-time", "0.002", "--results-dir", str(tmp_path / "aa")])
@@ -365,9 +373,12 @@ def test_sim_coupled_options_that_raise(tmp_path):
     step = fused_coupled.make_fused_coupled_step_aa(sim.cfg, sim.domain, sim.ade_cfg,
                                                     sim.ade_domain, "cpu")
     assert step.plain_calls == 0 and step.even.launches == step.odd.launches == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        CoupledSimulation(sim.cfg, sim.domain, sim.ade_cfg, sim.ade_domain, plan=object(),
-                          device="cpu", results_parent=tmp_path / "plan")
+    # under a plan the A-A coupled pair has no sharded kernel path: sim_init raises
+    plan = sh.ShardPlan(sh.Mesh(["cpu", "cpu"], ("x",)), ("x", None, None))
+    planned = CoupledSimulation(sim.cfg, sim.domain, sim.ade_cfg, sim.ade_domain, plan=plan,
+                                device="cpu", results_parent=tmp_path / "plan", use_fused=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP §C"):
+        planned.sim_init()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             sim_coupled.build(1, device="cuda", results_parent=tmp_path / "cuda")

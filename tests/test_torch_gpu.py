@@ -1832,3 +1832,135 @@ def test_sharded_pair_runs_equal_unsharded_pair_on_card(cuda, store, tmp_path):
     for name in ("y2", "x2y2"):
         for a, b in zip(runs[name], runs["none"]):
             assert torch.equal(a, b), name
+
+
+# ----------------------------- the sharded 2D and ADE steps (A13b, items 2 and 4)
+
+@pytest.mark.parametrize("counts", [(2, 2, 1), (1, 2, 1), (2, 1, 1)], ids=["x2y2", "y2", "x2"])
+@pytest.mark.parametrize("variant", ["srt", "srt_force", "clbm", "srt_ff", "clbm_ff"])
+@pytest.mark.parametrize("kind,uin_kind", [("bouzidi", "profile"), ("box", "vector"),
+                                           ("periodic", "vector"), ("channel", "profile")])
+def test_halo_2d_kernel_matches_plain_on_card(cuda, kind, uin_kind, variant, counts):
+    """B5 halo, every variant, on each shard's haloed block of a 38 x 150
+    lattice against its plain version: Bouzidi thetas on the blocks, the
+    profile read through each block's strided view, the step bounds."""
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+
+    m, periodic, bz = case_2d(kind, (38, 150))
+    cfg = interop.config_2d_from_spec("CLBM" if variant.startswith("clbm") else "SRT")
+    dom = interop.domain_from_numpy(m, periodic, lat=cfg.lat, bouzidi=bz)
+    ff = variant.endswith("_ff")
+    plan = _plan_2d(counts[:2], cuda)
+    step = sh.make_sharded_fused_step_2d(cfg, dom, plan, force_field=ff)
+    f = plan.shard_field(seeded_2d(cfg, m.shape, cuda, seed=3), like_f=True)
+    u_in = (torch.tensor(parabolic_2d(150), dtype=torch.float32, device=cuda)
+            if uin_kind == "profile" else U_IN_2D)
+    profs = step._profile_blocks(u_in)
+    rng = np.random.default_rng(9)
+    field = torch.from_numpy((1e-5 * rng.standard_normal((2,) + m.shape)).astype(np.float32))
+    forces = plan.shard_field(field.to(cuda), like_f=True).blocks if ff else \
+        [FORCE_2D if variant == "srt_force" else None] * plan.n_shards
+    halo = step.exchange(f)
+    ls = step.local_step
+    for k in range(plan.n_shards):
+        kw = dict(u_in=profs[k], force=forces[k], map_arr_in=step.maps.blocks[k],
+                  bouzidi_arr_in=None if step.thetas is None else step.thetas.blocks[k])
+        if ff:
+            kw["force_add"] = FORCE_2D
+        out = ls(halo[k], 0.02, **kw)
+        plain = ls.plain(halo[k], 0.02, **kw)
+        for a, b, t in zip(out, plain, (1e-6, 2e-6, 1e-6)):
+            assert float((a - b).abs().max()) <= t
+    assert ls.kernel.name == "d2q9_step_halo" and ls.kernel.launches == plan.n_shards
+    assert ls.plain_calls == 0
+
+
+def _plan_2d(counts, device):
+    """A plan of prod(counts) shards of the 2D lattice, every one on ``device``."""
+    from tnl_lbm_tpu_torch.parallel.sharded import Mesh, ShardPlan
+
+    devices = np.empty(int(np.prod(counts)), dtype=object)
+    devices[:] = [device] * devices.size
+    return ShardPlan(Mesh(devices.reshape(counts), ("x", "y")), ("x", "y"))
+
+
+@pytest.mark.parametrize("counts", [(2, 2, 1), (1, 2, 1), (2, 1, 1)], ids=["x2y2", "y2", "x2"])
+@pytest.mark.parametrize("nu_kind", ["scalar", "field"])
+@pytest.mark.parametrize("collision", ADE_COLLISIONS)
+@pytest.mark.parametrize("kind", ADE_KINDS)
+def test_halo_ade_kernel_matches_plain_on_card(cuda, kind, collision, nu_kind, counts):
+    """B6 halo on each shard's haloed block of ``ade_case`` at 12 x 16 x 150
+    against its plain version: every code (the box's transfer flags packed
+    from the global map), a scalar nu or the blocks of a nu field."""
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+
+    m, periodic = ade_case(kind, (12, 16, 150))
+    cfg = interop.ade_config_from_spec(collision)
+    dom = interop.domain_from_numpy(m, periodic, lat=interop.D3Q7)
+    plan = card_plan(counts, cuda)
+    variable = nu_kind == "field"
+    step = sh.make_sharded_fused_ade_step(cfg, dom, plan, variable_diffusion=variable,
+                                          transfer_coeff=TCOEF)
+    g, u, nu = seeded_ade(m.shape, cuda)
+    g = plan.shard_field(g, like_f=True)
+    u = plan.shard_field(u, like_f=True)
+    nus = step._nu_blocks(nu if variable else 0.02)
+    halo = step.exchange(g)
+    ls = step.local_step
+    for k in range(plan.n_shards):
+        kw = dict(phi_in=PHI_IN, map_arr_in=step.maps.blocks[k],
+                  tflags_in=None if step.tflags is None else step.tflags.blocks[k])
+        out = ls(halo[k], u.blocks[k], nus[k], **kw)
+        plain = ls.plain(halo[k], u.blocks[k], nus[k], **kw)
+        assert float((out[0] - plain[0]).abs().max()) <= 1e-6
+        assert float((out[1] - plain[1]).abs().max()) <= 2e-6
+    assert ls.kernel.name == "ade_step_halo" and ls.kernel.launches == plan.n_shards
+    assert ls.plain_calls == 0 and (step.tflags is not None) == (kind == "box")
+
+
+def test_halo_2d_and_ade_runs_equal_unsharded_on_card(cuda, tmp_path):
+    """sim2d_3 res 1 (geometry 1, Bouzidi) on 2 and uneven 3 shards of one
+    card and sim_coupled res 1 "sharded-fused" on 2 shards: bit for bit the
+    unsharded B5 run and the unsharded B4-then-B6 run (the coupled kernel
+    dropped after sim_init), no plain call."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from tnl_lbm_tpu_torch.apps import sim2d_3, sim_coupled
+
+    geos = tmp_path / "geos"
+    root = Path(__file__).resolve().parents[1]
+    subprocess.run([sys.executable, str(root / "scripts" / "make_golden_geometries.py"),
+                    str(geos)], check=True, capture_output=True)
+    geo = str(geos / "1.txt")
+    runs = {}
+    for n in (None, 2, 3):
+        sim = sim2d_3.build(1, geo, final_time=0.05, results_parent=tmp_path / f"s{n}",
+                            values_dir=tmp_path / f"v{n}", sharded=n is not None,
+                            device=cuda, devices=[cuda] * (n or 1))
+        sim.run()
+        runs[n] = (sim.f.gather() if n else sim.f, sim.rho, sim.u)
+        if n:
+            step = sim._step if hasattr(sim._step, "exchange") else sim._step.kernels[0]
+            assert step.local_step.kernel.launches == n * sim.iterations
+            assert step.local_step.plain_calls == 0
+    for n in (2, 3):
+        for a, b in zip(runs[n], runs[None]):
+            assert torch.equal(a, b), n
+    coupled = {}
+    for n in (None, 2):
+        sim = sim_coupled.build(1, 0.01, tmp_path / f"c{n}", use_fused=True, device=cuda,
+                                sharded=n is not None, devices=[cuda] * (n or 1))
+        sim.sim_init()
+        if n is None:
+            sim._coupled_step = None  # B4 then B6
+        else:
+            assert sim.coupled_kernel == "sharded-fused"
+        sim._advance(10)
+        coupled[n] = tuple(x.gather() if n else x for x in (sim.f, sim.g)) + (sim.u, sim.phi)
+        if n:
+            assert sim._ade_step.local_step.kernel.launches == 2 * 10
+            assert sim._ade_step.local_step.plain_calls == 0
+    for a, b in zip(coupled[2], coupled[None]):
+        assert torch.equal(a, b)

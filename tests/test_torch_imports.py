@@ -31,7 +31,9 @@ def test_every_port_module_is_listed():
                  "tnl_lbm_tpu_torch.io.native", "tnl_lbm_tpu_torch.sim.checkpoint",
                  "tnl_lbm_tpu_torch.ibm.lagrange", "tnl_lbm_tpu_torch.ibm.sparse",
                  "tnl_lbm_tpu_torch.ibm.dirac", "tnl_lbm_tpu_torch.ibm.generators",
-                 "tnl_lbm_tpu_torch.apps.sim_ibm", "tnl_lbm_tpu_torch.ibm_tables"):
+                 "tnl_lbm_tpu_torch.apps.sim_ibm", "tnl_lbm_tpu_torch.ibm_tables",
+                 "tnl_lbm_tpu_torch.parallel.sharded", "tnl_lbm_tpu_torch.parallel.halo",
+                 "tnl_lbm_tpu_torch.parallel.profiling"):
         assert name in PORT_MODULES
 
 

@@ -6,10 +6,13 @@ on the y faces, a wall with a hole at x ~ 0.2 m, and a 2D cut at X/2
 written as VTK2D.
 
 Usage: python -m tnl_lbm_tpu_torch.apps.sim2d_1 [RES] [--device cuda|cpu]
-       [--use-fused] [--final-time T] [--results-dir DIR]
+       [--use-fused] [--sharded] [--final-time T] [--results-dir DIR]
 
 As in the JAX app, the plain step runs unless ``--use-fused`` asks for the
-D2Q9 kernel (B5).
+D2Q9 kernel (B5).  ``--sharded`` shards the lattice over the machine's
+cards (``parallel/sharded.py choose_plan``; on the CPU over the one
+device): B5 on haloed blocks with ``--use-fused``, else the plain sharded
+step.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 from tnl_lbm_tpu_torch.models import D2Q9
 from tnl_lbm_tpu_torch.ops import collision_2d as col2
 from tnl_lbm_tpu_torch.ops.boundary import GEO
+from tnl_lbm_tpu_torch.parallel.sharded import app_devices, choose_plan
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.sim.obstacles import set_boundary_x, set_boundary_y
 from tnl_lbm_tpu_torch.sim.state import PRINT, VTK2D, Probe2DCut, Simulation
@@ -35,10 +39,9 @@ class Sim2D1(Simulation):
 
 
 def build(resolution: int = 1, final_time: float = 0.5, results_parent=".",
-          use_fused: bool = False, sharded: bool = False, *, device) -> Sim2D1:
-    """The channel at ``resolution`` (lattice 128r x 32r) on ``device``."""
-    if sharded:
-        raise NotImplementedError("the sharded lattice is not ported yet (ROADMAP A13b)")
+          use_fused: bool = False, sharded: bool = False, *, device, devices=None) -> Sim2D1:
+    """The channel at ``resolution`` (lattice 128r x 32r) on ``device``;
+    ``sharded`` plans it over ``devices`` (by default ``app_devices``)."""
     X = 128 * resolution
     Y = 32 * resolution
     lbm_viscosity = 1e-5  # reference sim2d_1.cu:123
@@ -66,7 +69,8 @@ def build(resolution: int = 1, final_time: float = 0.5, results_parent=".",
     cfg = LBMConfig(lat=D2Q9, collision=col2.collide_clbm_2d)
     sim = Sim2D1(cfg, dom, device=device, sim_id=f"sim2d_1_res{resolution:02d}",
                  results_parent=results_parent, phys_final_time=final_time,
-                 use_fused=use_fused)
+                 use_fused=use_fused,
+                 plan=choose_plan(dom, devices or app_devices(device)) if sharded else None)
     sim.lbm_inflow_vx = units.phys2lbm_velocity(phys_velocity)
     sim.cnt[PRINT].period = 0.01
     sim.cnt[VTK2D].period = 0.05
@@ -84,7 +88,7 @@ def main(argv=None) -> Sim2D1:
     p.add_argument("--results-dir", default=".")
     p.add_argument("--use-fused", action="store_true", help="run the D2Q9 kernel (B5)")
     p.add_argument("--sharded", action="store_true",
-                   help="shard the lattice over the cards (not ported yet: ROADMAP A13b)")
+                   help="shard the lattice over the cards (on the CPU: over the one device)")
     args = p.parse_args(argv)
     sim = build(args.resolution, args.final_time, args.results_dir, use_fused=args.use_fused,
                 sharded=args.sharded, device=args.device)

@@ -40,6 +40,7 @@ from tnl_lbm_tpu_torch.apps.sim2d_3 import ParabolicInflow, channel_domain, chan
 from tnl_lbm_tpu_torch.models import D2Q9
 from tnl_lbm_tpu_torch.ops import collision_2d as col2
 from tnl_lbm_tpu_torch.ops.boundary import GEO
+from tnl_lbm_tpu_torch.parallel.sharded import app_devices, choose_plan
 from tnl_lbm_tpu_torch.sim.config import LBMConfig
 from tnl_lbm_tpu_torch.sim.state import PRINT, PROBE1, Simulation, to_host
 
@@ -326,17 +327,18 @@ class Sim2D2(ParabolicInflow, Simulation):
 def build(resolution: int = 1, object_file: str | None = None, enable_bouzidi: bool = True,
           final_time: float = 8.0, stat_start: float = 2.0, stat_end: float | None = None,
           results_parent=".", value_path: str | None = None, use_fused: bool = True,
-          sharded: bool = False, *, device) -> Sim2D2:
-    """The statistics channel at ``resolution`` (lattice 128r x 32r) on ``device``."""
-    if sharded:
-        raise NotImplementedError("the sharded lattice is not ported yet (ROADMAP A13b)")
+          sharded: bool = False, *, device, devices=None) -> Sim2D2:
+    """The statistics channel at ``resolution`` (lattice 128r x 32r) on
+    ``device``; ``sharded`` plans it over ``devices`` (by default
+    ``app_devices``)."""
     units = channel_units(resolution)
     dom = channel_domain(units, object_file, enable_bouzidi)
     cfg = LBMConfig(lat=D2Q9, collision=col2.collide_clbm_2d)
     obj = Path(object_file).stem if object_file else "none"
     sim = Sim2D2(cfg, dom, device=device, sim_id=f"sim2d_2_res{resolution:02d}_{obj}",
                  results_parent=results_parent, phys_final_time=final_time,
-                 steps_per_dispatch=10, use_fused=use_fused)
+                 steps_per_dispatch=10, use_fused=use_fused,
+                 plan=choose_plan(dom, devices or app_devices(device)) if sharded else None)
     sim.u_max_lbm = units.phys2lbm_velocity(1.5)
     sim.stats_start_time = stat_start
     sim.stats_end_time = (stat_end if stat_end is not None
@@ -356,7 +358,7 @@ def main(argv=None) -> Sim2D2:
                    help="torch device; 'cuda' raises when no card is present")
     p.add_argument("--no-bouzidi", action="store_true")
     p.add_argument("--sharded", action="store_true",
-                   help="shard the lattice over the cards (not ported yet: ROADMAP A13b)")
+                   help="shard the lattice over the cards (on the CPU: over the one device)")
     p.add_argument("--final-time", type=float, default=8.0)
     p.add_argument("--stat-start", type=float, default=2.0)
     p.add_argument("--stat-end", type=float, default=None)

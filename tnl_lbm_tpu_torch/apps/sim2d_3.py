@@ -8,10 +8,14 @@ energy integrated over the ROI x in [X/2, 3X/4), interior y, to
 geometry sweep (reference sim2d_3.cu:221-260).
 
 Usage: python -m tnl_lbm_tpu_torch.apps.sim2d_3 [RES] [OBJECT_FILE]
-       [--device cuda|cpu] [--no-bouzidi] [--final-time T] [--results-dir DIR]
-       [--values-dir DIR]
+       [--device cuda|cpu] [--no-bouzidi] [--sharded] [--final-time T]
+       [--results-dir DIR] [--values-dir DIR]
 
-Every step runs through the D2Q9 kernel (B5), as in the JAX app.
+Every step runs through the D2Q9 kernel (B5), as in the JAX app;
+``--sharded`` shards the lattice over the machine's cards
+(``parallel/sharded.py choose_plan``; on the CPU over the one device): B5
+on haloed blocks, padded and cropped where the plan does not divide the
+lattice.  The KE value reads the gathered velocity.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from tnl_lbm_tpu_torch.io.geometry import load_geometry_file
 from tnl_lbm_tpu_torch.models import D2Q9
 from tnl_lbm_tpu_torch.ops import collision_2d as col2
 from tnl_lbm_tpu_torch.ops.boundary import GEO
+from tnl_lbm_tpu_torch.parallel.sharded import app_devices, choose_plan
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.sim.obstacles import set_boundary_x, set_boundary_y
 from tnl_lbm_tpu_torch.sim.state import Simulation, to_host
@@ -118,10 +123,10 @@ def channel_domain(units: Lattice, object_file, enable_bouzidi: bool) -> Domain:
 
 def build(resolution: int = 1, object_file: str | None = None, enable_bouzidi: bool = True,
           final_time: float = 4.0, results_parent=".", values_dir="values",
-          use_fused: bool = True, sharded: bool = False, *, device) -> Sim2D3:
-    """The geometry channel at ``resolution`` (lattice 128r x 32r) on ``device``."""
-    if sharded:
-        raise NotImplementedError("the sharded lattice is not ported yet (ROADMAP A13b)")
+          use_fused: bool = True, sharded: bool = False, *, device, devices=None) -> Sim2D3:
+    """The geometry channel at ``resolution`` (lattice 128r x 32r) on
+    ``device``; ``sharded`` plans it over ``devices`` (by default
+    ``app_devices``)."""
     units = channel_units(resolution)
     dom = channel_domain(units, object_file, enable_bouzidi)
     cfg = LBMConfig(lat=D2Q9, collision=col2.collide_clbm_2d)
@@ -129,7 +134,8 @@ def build(resolution: int = 1, object_file: str | None = None, enable_bouzidi: b
     sim = Sim2D3(cfg, dom, device=device,
                  sim_id=f"sim2d_3_res{resolution:02d}_{Path(obj_name).stem}",
                  results_parent=results_parent, phys_final_time=final_time,
-                 steps_per_dispatch=20, use_fused=use_fused)
+                 steps_per_dispatch=20, use_fused=use_fused,
+                 plan=choose_plan(dom, devices or app_devices(device)) if sharded else None)
     sim.u_max_lbm = units.phys2lbm_velocity(1.5)
     sim.value_path = Path(values_dir) / f"value_{obj_name}"
     return sim
@@ -143,7 +149,7 @@ def main(argv=None) -> Sim2D3:
                    help="torch device; 'cuda' raises when no card is present")
     p.add_argument("--no-bouzidi", action="store_true")
     p.add_argument("--sharded", action="store_true",
-                   help="shard the lattice over the cards (not ported yet: ROADMAP A13b)")
+                   help="shard the lattice over the cards (on the CPU: over the one device)")
     p.add_argument("--final-time", type=float, default=4.0)
     p.add_argument("--results-dir", default=".")
     p.add_argument("--values-dir", default="values")

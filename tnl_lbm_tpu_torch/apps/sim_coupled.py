@@ -8,12 +8,16 @@ condition and the outflow uses Peclet extrapolation.  Lattice
 64r x 32r x 32r, periodic in z.
 
 Usage: python -m tnl_lbm_tpu_torch.apps.sim_coupled [RES] [--device cuda|cpu]
-       [--use-fused] [--streaming AB|AA] [--final-time T] [--results-dir DIR]
+       [--use-fused] [--streaming AB|AA] [--sharded] [--final-time T]
+       [--results-dir DIR]
 
 With ``--use-fused`` both lattices advance in one launch per step: of the
 coupled kernel (B7) with A-B streaming, of the A-A coupled pair's kernel of
-the step's parity (B8) with ``--streaming AA``.  ``--sharded`` is not
-ported yet and raises.
+the step's parity (B8) with ``--streaming AA``.  ``--sharded`` shards both
+lattices over the machine's cards (``parallel/sharded.py choose_plan`` on
+the NSE lattice; on the CPU over the one device): with ``--use-fused`` B4
+then B6 on haloed blocks each step ("sharded-fused"; ``--streaming AA``
+raises there, ROADMAP §C), else the plain sharded steps ("sharded").
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from tnl_lbm_tpu_torch.models import D3Q7, D3Q27
 from tnl_lbm_tpu_torch.ops import collision as col
 from tnl_lbm_tpu_torch.ops import collision_ade as cade
 from tnl_lbm_tpu_torch.ops.boundary import GEO
+from tnl_lbm_tpu_torch.parallel.sharded import app_devices, choose_plan
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.sim.coupled import CoupledSimulation
 from tnl_lbm_tpu_torch.sim.state import PRINT, VTK2D, Probe2DCut
@@ -47,11 +52,10 @@ class SimCoupled(CoupledSimulation):
 
 def build(resolution: int = 1, final_time: float = 1.0, results_parent=".",
           use_fused: bool = False, streaming: str = "AB", sharded: bool = False, *,
-          device) -> SimCoupled:
-    """The plume channel at ``resolution`` on ``device``."""
-    if sharded:
-        raise NotImplementedError("the sharded coupled lattices are not ported yet "
-                                  "(ROADMAP A13b)")
+          device, devices=None) -> SimCoupled:
+    """The plume channel at ``resolution`` on ``device``; ``sharded`` plans
+    both lattices over ``devices`` (by default ``app_devices``), as the JAX
+    app does, by the NSE lattice."""
     X = 64 * resolution
     Y = 32 * resolution
     Z = 32 * resolution
@@ -87,7 +91,8 @@ def build(resolution: int = 1, final_time: float = 1.0, results_parent=".",
     sim = SimCoupled(cfg, nse_dom, ade_cfg, ade_dom, ade_diffusion=5e-3, phi_inflow=1.0,
                      device=device, sim_id=f"sim_coupled_res{resolution:02d}",
                      results_parent=results_parent, phys_final_time=final_time,
-                     use_fused=use_fused)
+                     use_fused=use_fused,
+                     plan=choose_plan(nse_dom, devices or app_devices(device)) if sharded else None)
     sim.lbm_inflow_vx = units.phys2lbm_velocity(phys_velocity)
     sim.cnt[PRINT].period = final_time / 50
     sim.cnt[VTK2D].period = final_time / 10
@@ -106,7 +111,7 @@ def main(argv=None) -> SimCoupled:
                    help="run the CUDA kernels (the coupled kernel of the streaming pattern)")
     p.add_argument("--streaming", choices=["AB", "AA"], default="AB")
     p.add_argument("--sharded", action="store_true",
-                   help="shard both lattices over the cards (not ported yet: ROADMAP A13b)")
+                   help="shard both lattices over the cards (on the CPU: over the one device)")
     args = p.parse_args(argv)
     if args.resolution < 1:
         p.error("resolution must be at least 1")

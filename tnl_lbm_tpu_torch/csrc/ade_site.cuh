@@ -278,6 +278,42 @@ __device__ __forceinline__ void ade_site(const float* __restrict__ g, float* __r
   phi_out[site] = phi;
 }
 
+// The ADE site at (x, y, z) of a shard's X x Y x Z block (the sharded
+// lattice's B6): reads its stored g from the haloed block [7, X+4, Y+2, Z],
+// whose x halo is 2 wide (OUTFLOW_PE pulls x-2) and y halo 1 wide, each
+// holding the neighbouring shards' layers (or the wrap, or the edge
+// replicated on a domain face), so x and y are plain offsets; z is
+// unsharded and wraps or clamps as periodic_z says.  Everything else is
+// the block's own: map, nu_field, tflags and u are [X, Y, Z] (u [3, ...]),
+// and gout and phi_out are written there, as ade_site does.
+template <int COLL>
+__device__ __forceinline__ void ade_halo_site(const float* __restrict__ g,
+                                              float* __restrict__ gout,
+                                              const uint8_t* __restrict__ map,
+                                              const float* __restrict__ nu_field,
+                                              const uint8_t* __restrict__ tflags,
+                                              float* __restrict__ phi_out, int x, int y, int z,
+                                              int X, int Y, int Z, bool periodic_z,
+                                              const ADEParams& p, float ux, float uy, float uz) {
+  const int64_t N = (int64_t)X * Y * Z;
+  const int64_t site = ((int64_t)x * Y + y) * Z + z;
+  const int64_t NP = (int64_t)(X + 4) * (Y + 2) * Z;
+  const int64_t row = ((int64_t)(x + 2) * (Y + 2) + (y + 1)) * Z;  // (x, y, 0) in the block
+  const auto read = [&](int q, int dx, int dy, int dz) {
+    return g[q * NP + row + ((int64_t)dx * (Y + 2) + dy) * Z + neighbour(z, dz, Z, periodic_z)];
+  };
+  const uint8_t m = map[site];
+  const float omega = nu_field ? 1.0f / (0.5f + 4.0f * nu_field[site]) : p.omega;
+  const bool transfer = m == ADE_TRANSFER_FS || m == ADE_TRANSFER_SF || m == ADE_TRANSFER_SW;
+  const uint32_t tf = tflags && transfer ? tflags[site] : 0u;
+  float v[AQ];
+  float phi;
+  ade_site_update<COLL>(v, phi, read, m, tf, ux, uy, uz, omega, p);
+#pragma unroll
+  for (int q = 0; q < AQ; ++q) gout[q * N + site] = v[q];
+  phi_out[site] = phi;
+}
+
 // ----------------------------------------------------- A-A parities
 
 // One A-A even ADE site (fused_coupled.py even_kernel's ADE half;

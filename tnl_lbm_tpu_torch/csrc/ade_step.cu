@@ -77,3 +77,48 @@ extern "C" int tnl_lbm_ade_step(const float* g, float* gout, const uint8_t* map,
       g, gout, map, u, nu_field, tflags, phi, Y, Z, pbits, p);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The haloed step of the sharded lattice (JAX make_fused_ade_step with
+// prepadded and local_shape, run per shard by parallel/sharded.py
+// make_sharded_fused_ade_step): one thread per site of the X x Y x Z block,
+// reading the haloed block [7, X+4, Y+2, Z] (ade_site.cuh ade_halo_site).
+// The TPU layout's six extra y alignment rows have no counterpart.  Bound:
+// the block's 73 B/site (77 with a nu field) plus the ring's reads.
+#define ADE_HALO_KERNEL(NAME, COLL)                                                             \
+  extern "C" __global__ void __launch_bounds__(ADE_THREADS)                                    \
+      NAME(const float* __restrict__ g, float* __restrict__ gout,                               \
+           const uint8_t* __restrict__ map, const float* __restrict__ u,                        \
+           const float* __restrict__ nu_field, const uint8_t* __restrict__ tflags,              \
+           float* __restrict__ phi, int Y, int Z, int periodic_z, ADEParams p) {                \
+    const int z = blockIdx.x * blockDim.x + threadIdx.x;                                        \
+    if (z >= Z) return;                                                                         \
+    const int x = blockIdx.z, y = blockIdx.y, X = gridDim.z;                                    \
+    const int64_t N = (int64_t)X * Y * Z;                                                       \
+    const int64_t site = ((int64_t)x * Y + y) * Z + z;                                          \
+    ade_halo_site<COLL>(g, gout, map, nu_field, tflags, phi, x, y, z, X, Y, Z, periodic_z != 0, \
+                        p, u[site], u[N + site], u[2 * N + site]);                              \
+  }
+
+ADE_HALO_KERNEL(ade_halo_srt_kernel, ADE_SRT)
+ADE_HALO_KERNEL(ade_halo_mrt_kernel, ADE_MRT)
+ADE_HALO_KERNEL(ade_halo_clbm_kernel, ADE_CLBM)
+ADE_HALO_KERNEL(ade_halo_clbm_rs_kernel, ADE_CLBM_RS)
+
+// Launches the haloed step on `stream`: g is the haloed block [7, X+4, Y+2,
+// Z]; gout, map, u, nu_field, tflags and phi the block's own; periodic_z
+// whether z wraps; the rest as tnl_lbm_ade_step's.
+extern "C" int tnl_lbm_ade_step_halo(const float* g, float* gout, const uint8_t* map,
+                                     const float* u, const float* nu_field, const uint8_t* tflags,
+                                     float* phi, int X, int Y, int Z, int periodic_z, int variant,
+                                     float omega, float phi_in, float tcoef, void* stream) {
+  static const AdeKernel kernels[] = {ade_halo_srt_kernel, ade_halo_mrt_kernel,
+                                      ade_halo_clbm_kernel, ade_halo_clbm_rs_kernel};
+  if (variant < 0 || variant > 3 || X < 1 || Y < 1 || Z < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ADEParams p{omega, phi_in, tcoef};
+  const int block = Z >= ADE_THREADS ? ADE_THREADS : ((Z + 31) / 32) * 32;
+  const dim3 grid((Z + block - 1) / block, Y, X);
+  kernels[variant]<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      g, gout, map, u, nu_field, tflags, phi, Y, Z, periodic_z, p);
+  return static_cast<int>(cudaGetLastError());
+}

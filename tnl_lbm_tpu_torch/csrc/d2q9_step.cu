@@ -335,6 +335,53 @@ __device__ __forceinline__ void site_ff(const float* __restrict__ f, float* __re
   site<COLL, FORCE>(f, fout, map, rho_out, u_out, x, y, X, Y, periodic_bits, p);
 }
 
+// Where the haloed step (the sharded lattice's B5) reads the pre-streaming
+// DFs: a shard's block [9, X+2, Y+2] whose 1-wide ring holds the
+// neighbouring shards' edge layers (or the wrap, or the edge replicated on a
+// domain face), so every pull is a plain offset with no wrap or clamp; the
+// thetas are the block's own [8, X, Y].  s is the site's index in the
+// haloed block, sb in the block.
+struct HaloSrc {
+  const float* __restrict__ f;
+  const float* __restrict__ bz;
+  int64_t NP, N, s, sb;
+  int YP;
+  __device__ __forceinline__ float theta(int q) const { return bz[(q - 1) * N + sb]; }
+  __device__ __forceinline__ float at(int q, int dx, int dy) const {
+    return f[q * NP + s + dx * (int64_t)YP + dy];
+  }
+  __device__ __forceinline__ float inner(int q, int dx, int dy) const { return at(q, dx, dy); }
+  __device__ __forceinline__ float here(int q) const { return f[q * NP + s]; }
+};
+
+// One site (x, y) of an X x Y block through the haloed reads: its map code,
+// profile value and thetas at the block's own index, the new DFs, rho and u
+// into the block [9, X, Y] (ff: the force_field variant's per-site force
+// [2, X, Y], or null).
+template <int COLL, bool FORCE, bool FF>
+__device__ __forceinline__ void site_halo(const float* __restrict__ f, float* __restrict__ fout,
+                                          const uint8_t* __restrict__ map,
+                                          const float* __restrict__ ff,
+                                          float* __restrict__ rho_out, float* __restrict__ u_out,
+                                          int x, int y, int X, int Y, const Params& p0) {
+  const int64_t N = (int64_t)X * Y;
+  const int64_t sb = (int64_t)x * Y + y;
+  const int YP = Y + 2;
+  const HaloSrc src{f, p0.bz, (int64_t)(X + 2) * YP, N, (int64_t)(x + 1) * YP + y + 1, sb, YP};
+  Params p = p0;
+  if constexpr (FF) {
+    p.fx = p0.fx + ff[sb];
+    p.fy = p0.fy + ff[N + sb];
+  }
+  float v[Q], rho, ux, uy;
+  update<COLL, FORCE>(src, map[sb], x, y, X, Y, N, sb, p, v, rho, ux, uy);
+#pragma unroll
+  for (int q = 0; q < Q; ++q) fout[q * N + sb] = v[q];
+  rho_out[sb] = rho;
+  u_out[sb] = ux;
+  u_out[N + sb] = uy;
+}
+
 }  // namespace d2q9
 
 // One kernel per (collision, force, per-site force); named so that the
@@ -394,6 +441,58 @@ extern "C" int tnl_lbm_d2q9_step(const float* f, float* fout, const uint8_t* map
   const dim3 grid((Y + block - 1) / block, X);
   kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(f, fout, map, ff, rho, u, X, Y,
                                                                  pbits, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The haloed step of the sharded lattice (JAX make_fused_step_2d with
+// local_shape, run per shard by parallel/sharded.py make_sharded_fused_step_2d):
+// one thread per site of the X x Y block, reading the block with its 1-wide
+// ring [9, X+2, Y+2] (HaloSrc), the same five variants as the per-step
+// kernel.  Bound: the block's 85 B/site, plus the ring's reads (the
+// components that point into the block: 3 of 9 per ring site).
+#define D2Q9_HALO_KERNEL(NAME, COLL, FORCE, FF)                                             \
+  extern "C" __global__ void __launch_bounds__(d2q9::THREADS)                              \
+      NAME(const float* __restrict__ f, float* __restrict__ fout,                           \
+           const uint8_t* __restrict__ map, const float* __restrict__ ff,                   \
+           float* __restrict__ rho, float* __restrict__ u, int X, int Y, d2q9::Params p) {  \
+    const int y = blockIdx.x * blockDim.x + threadIdx.x;                                    \
+    if (y >= Y) return;                                                                     \
+    d2q9::site_halo<COLL, FORCE, FF>(f, fout, map, ff, rho, u, blockIdx.y, y, X, Y, p);    \
+  }
+
+D2Q9_HALO_KERNEL(d2q9_halo_srt_kernel, d2q9::SRT, false, false)
+D2Q9_HALO_KERNEL(d2q9_halo_srt_force_kernel, d2q9::SRT, true, false)
+D2Q9_HALO_KERNEL(d2q9_halo_clbm_kernel, d2q9::CLBM, false, false)
+D2Q9_HALO_KERNEL(d2q9_halo_srt_force_field_kernel, d2q9::SRT, true, true)
+D2Q9_HALO_KERNEL(d2q9_halo_clbm_force_field_kernel, d2q9::CLBM, false, true)
+
+// Launches the haloed step on `stream`: f is the haloed block [9, X+2, Y+2],
+// fout, map, ff, bz, rho and u the block's own (X x Y); the other arguments
+// as tnl_lbm_d2q9_step's (no periodic bits: the ring holds every neighbour;
+// the profile's strides are those of the block's view).
+extern "C" int tnl_lbm_d2q9_step_halo(const float* f, float* fout, const uint8_t* map,
+                                      const float* ff, const float* bz, const float* uin,
+                                      long long uin_sc, long long uin_sx, long long uin_sy,
+                                      float* rho, float* u, int X, int Y, int variant, float nu,
+                                      float fx, float fy, float uin_x, float uin_y, void* stream) {
+  using Kernel = void (*)(const float*, float*, const uint8_t*, const float*, float*, float*, int,
+                          int, d2q9::Params);
+  Kernel kernel;
+  switch (variant) {
+    case 0: kernel = d2q9_halo_srt_kernel; break;
+    case 1: kernel = d2q9_halo_srt_force_kernel; break;
+    case 2: kernel = d2q9_halo_clbm_kernel; break;
+    case 3: kernel = d2q9_halo_srt_force_field_kernel; break;
+    case 4: kernel = d2q9_halo_clbm_force_field_kernel; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((variant >= 3 && ff == nullptr) || X < 1 || Y < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const d2q9::Params p{1.0f / (3.0f * nu + 0.5f), fx, fy, uin_x, uin_y, uin,
+                       uin_sc, uin_sx, uin_sy, bz};
+  const int block = Y >= d2q9::THREADS ? d2q9::THREADS : ((Y + 31) / 32) * 32;
+  const dim3 grid((Y + block - 1) / block, X);
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(f, fout, map, ff, rho, u, X, Y, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -143,9 +143,11 @@ def load_library() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = i
     lib.tnl_lbm_ade_step.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, p]
+    lib.tnl_lbm_ade_step_halo.argtypes = [p] * 7 + [i] * 5 + [f] * 3 + [p]
     lib.tnl_lbm_coupled_ab.argtypes = [p] * 11 + [i] * 7 + [f] * 7 + [i] + [f] * 3 + [p]
     lib.tnl_lbm_coupled_aa.argtypes = [p] * 10 + [i] * 10 + [f] * 7 + [i] + [f] * 2 + [p]
     lib.tnl_lbm_d2q9_step.argtypes = [p] * 6 + [ll] * 3 + [p, p] + [i] * 4 + [f] * 5 + [p]
+    lib.tnl_lbm_d2q9_step_halo.argtypes = [p] * 6 + [ll] * 3 + [p, p] + [i] * 3 + [f] * 5 + [p]
     lib.tnl_lbm_d2q9_chunk.argtypes = [p] * 5 + [ll] * 3 + [p, p] + [i] * 4 + [f] * 5 + [i, p]
     lib.tnl_lbm_d2q9_chunk_info.argtypes = [i, i, i, p]
     lib.tnl_lbm_nn_force.argtypes = [p] * 4 + [i] * 5 + [f] * 7 + [p]
@@ -169,8 +171,9 @@ def load_library() -> ctypes.CDLL:
                lib.tnl_lbm_aa_pair_f64, lib.tnl_lbm_aa_pair_f64_info, lib.tnl_lbm_element_pipeline,
                lib.tnl_lbm_ab_step_halo, lib.tnl_lbm_aa_odd_halo, lib.tnl_lbm_ab_step_f64_halo,
                lib.tnl_lbm_window_copy,
-               lib.tnl_lbm_ade_step, lib.tnl_lbm_coupled_ab, lib.tnl_lbm_coupled_aa,
-               lib.tnl_lbm_d2q9_step, lib.tnl_lbm_d2q9_chunk, lib.tnl_lbm_d2q9_chunk_info,
+               lib.tnl_lbm_ade_step, lib.tnl_lbm_ade_step_halo, lib.tnl_lbm_coupled_ab,
+               lib.tnl_lbm_coupled_aa, lib.tnl_lbm_d2q9_step, lib.tnl_lbm_d2q9_step_halo,
+               lib.tnl_lbm_d2q9_chunk, lib.tnl_lbm_d2q9_chunk_info,
                lib.tnl_lbm_nn_force, lib.tnl_lbm_nn_step,
                lib.tnl_lbm_nn_info, lib.tnl_lbm_copy_permute,
                lib.tnl_lbm_pair_pipeline, lib.tnl_lbm_pair_pipeline_info,

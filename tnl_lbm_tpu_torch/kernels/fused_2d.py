@@ -156,9 +156,22 @@ class FusedStep2D:
     2D forcing hooks): ``force`` is a per-site [2, X, Y] float32 tensor on
     f's device, plus the [2] host vector ``force_add`` at every site; SRT
     always adds Guo's term with that per-site force.
+
+    ``prepadded=True`` is the sharded step's B5 (JAX ``make_fused_step_2d``
+    with ``local_shape``, which its sharded step gives the haloed extent):
+    f is a shard's block of ``local_shape`` with a 1-wide ring, [9, X+2,
+    Y+2], every pull read from the ring (no wrap, no clamp); each call gives
+    the block's map (``map_arr_in``, uint8 [X, Y] on f's device) and, where
+    the domain has Bouzidi thetas, the block's thetas (``bouzidi_arr_in``,
+    float32 [8, X, Y]); a profile is the block's [2, X, Y] view.  The step
+    writes the block's f, rho and u (``kernel`` counts the launches of
+    ``tnl_lbm_d2q9_step_halo``, every variant).  No site update reads a
+    neighbour's map code or theta (the Bouzidi and OUTFLOW_RIGHT pulls read
+    f alone), so the block's own map and thetas are all it needs.
     """
 
-    def __init__(self, cfg: LBMConfig, domain: Domain, device, force_field: bool = False):
+    def __init__(self, cfg: LBMConfig, domain: Domain, device, force_field: bool = False,
+                 prepadded: bool = False, local_shape=None):
         codes = domain.codes_present()
         reason = _refusal(cfg, domain, codes)
         if reason is not None:
@@ -170,10 +183,14 @@ class FusedStep2D:
         self.device = torch.device(device)
         self.codes = codes
         self.do_coll_codes = sorted(int(c) for c in (bc.collision_mask_codes(2) & codes))
-        self.shape = domain.shape
+        self.prepadded = prepadded
+        self.shape = tuple(local_shape) if local_shape is not None else domain.shape
         self.periodic = domain.periodic
         self.force_field = force_field
-        self.kernel = CudaKernel("d2q9_step" + ("_force_field" if force_field else ""),
+        #: the step reads Bouzidi thetas (at FLUID_NEAR_WALL sites)
+        self.has_thetas = GEO.FLUID_NEAR_WALL in codes and domain.bouzidi is not None
+        name = "d2q9_step_halo" if prepadded else "d2q9_step"
+        self.kernel = CudaKernel(name + ("_force_field" if force_field and not prepadded else ""),
                                  "tnl_lbm_tpu_torch/csrc/d2q9_step.cu",
                                  "tnl_lbm_tpu/kernels/fused_2d.py:244")
         self.plain_calls = 0
@@ -182,11 +199,13 @@ class FusedStep2D:
                 raise RuntimeError(f"device {device} requested but no CUDA device is available")
             if self.shape[0] > _MAX_GRID_Y:
                 raise ValueError(f"X must be <= {_MAX_GRID_Y} for the kernel grid")
-        self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
-        self.thetas = None
-        if GEO.FLUID_NEAR_WALL in codes and domain.bouzidi is not None:
-            self.thetas = torch.as_tensor(np.ascontiguousarray(domain.bouzidi, np.float32),
-                                          device=self.device)
+        self.map = self.thetas = None
+        if not prepadded:
+            self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8),
+                                       device=self.device)
+            if self.has_thetas:
+                self.thetas = torch.as_tensor(np.ascontiguousarray(domain.bouzidi, np.float32),
+                                              device=self.device)
 
     def reset_counts(self) -> None:
         self.kernel.launches = self.plain_calls = 0
@@ -218,11 +237,14 @@ class FusedStep2D:
         return None, _vector2(force, "force")
 
     def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None,
-                 force_add=None, macro_out=None):
+                 force_add=None, macro_out=None, map_arr_in=None, bouzidi_arr_in=None):
         del parity
         field, fvec = self._forces(f, force, force_add)
-        check_out(out, f)
         prof, uvec = self._profile(u_in, f.device)
+        if self.prepadded:
+            return self._halo_step(f, float(nu), field, fvec, force is not None, prof, uvec, out,
+                                   macro_out, *self._block_inputs(f, map_arr_in, bouzidi_arr_in))
+        check_out(out, f)
         if f.device.type == "cuda":
             return self._launch(f, float(nu), field, fvec, force is not None, prof, uvec, out,
                                 macro_out)
@@ -232,17 +254,81 @@ class FusedStep2D:
             f_new = out.copy_(f_new)
         return (f_new, *into(macro_out, rho, u))
 
-    def plain(self, f, nu, u_in=None, force=None, force_add=None):
+    def plain(self, f, nu, u_in=None, force=None, force_add=None, map_arr_in=None,
+              bouzidi_arr_in=None):
         """The step's plain PyTorch version on f's device: (f_new, rho, u),
         f untouched.  The CPU path, and the oracle the kernel is held
         against on the card; it counts no call."""
         prof, uvec = self._profile(u_in, f.device)
         field, fvec = self._forces(f, force, force_add)
+        if self.prepadded:
+            self._check_halo(f, None)
+            return self._plain(f, nu, field, fvec, force is not None, prof, uvec,
+                               *self._block_inputs(f, map_arr_in, bouzidi_arr_in))
         return self._plain(f, nu, field, fvec, force is not None, prof, uvec)
 
-    def _plain(self, f, nu, field, fvec, has_force, prof, uvec):
-        S = tuple(f.shape[1:])
-        fpad = stream.pad_halo(f, self.periodic)
+    def _block_inputs(self, f, map_arr_in, bouzidi_arr_in):
+        """(map, thetas) of a haloed step's call, checked: the block's own."""
+        X, Y = self.shape
+        m = map_arr_in
+        if (not torch.is_tensor(m) or m.dtype != torch.uint8 or m.device != f.device
+                or tuple(m.shape) != (X, Y) or not m.is_contiguous()):
+            raise ValueError(f"the haloed step takes the block's map at each call (map_arr_in): "
+                             f"a contiguous uint8 [{X}, {Y}] tensor on {f.device}")
+        t = bouzidi_arr_in
+        if self.has_thetas != (t is not None):
+            raise ValueError("the haloed step takes the block's thetas (bouzidi_arr_in) exactly "
+                             "where the domain has Bouzidi thetas")
+        if t is not None and (t.dtype != torch.float32 or t.device != f.device
+                              or tuple(t.shape) != (8, X, Y) or not t.is_contiguous()):
+            raise ValueError(f"bouzidi_arr_in must be a contiguous float32 [8, {X}, {Y}] tensor "
+                             f"on {f.device}")
+        return m, t
+
+    def _check_halo(self, f, out) -> None:
+        X, Y = self.shape
+        if tuple(f.shape) != (self.lat.Q, X + 2, Y + 2) or not f.is_contiguous():
+            raise ValueError(f"f must be a contiguous [{self.lat.Q}, {X + 2}, {Y + 2}] haloed "
+                             f"block, got {tuple(f.shape)}")
+        if out is not None and (tuple(out.shape) != (self.lat.Q, X, Y) or out.dtype != f.dtype
+                                or out.device != f.device or not out.is_contiguous()):
+            raise ValueError("out must be a contiguous state block of the local shape")
+
+    def _halo_step(self, f, nu, field, fvec, has_force, prof, uvec, out, macro_out, m, thetas):
+        """The haloed step: its kernel on a CUDA tensor, else its plain version."""
+        self._check_halo(f, out)
+        if f.device.type != "cuda":
+            self.plain_calls += 1
+            f_new, rho, u = self._plain(f, nu, field, fvec, has_force, prof, uvec, m, thetas)
+            rho, u = into(macro_out, rho, u)
+            return (f_new if out is None else out.copy_(f_new)), rho, u
+        if f.dtype != torch.float32:
+            raise NotImplementedError("the CUDA kernels take float32 state only")
+        X, Y = self.shape
+        f_new = torch.empty((self.lat.Q, X, Y), dtype=f.dtype, device=f.device) if out is None \
+            else out
+        rho, u = macro_buffers(macro_out, (X, Y), 2, f.dtype, f.device)
+        variant, ff, bz, uin, strides = self._launch_args(field, has_force, thetas, prof)
+        stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
+        rc = load_library().tnl_lbm_d2q9_step_halo(
+            f.data_ptr(), f_new.data_ptr(), m.data_ptr(), ff, bz, uin, *strides, rho.data_ptr(),
+            u.data_ptr(), X, Y, variant, nu, *fvec, *uvec, stream_ptr)
+        if rc != 0:
+            raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
+        self.kernel.launches += 1
+        return f_new, rho, u
+
+    def _plain(self, f, nu, field, fvec, has_force, prof, uvec, m=None, thetas=None):
+        """The step on whole arrays, f untouched: pulled from the lattice's
+        edge/wrap pad of f, or for a haloed block (``m``: its map) from its
+        ring."""
+        if m is None:
+            S = tuple(f.shape[1:])
+            fpad = stream.pad_halo(f, self.periodic)
+            m = self.map.to(f.device)
+            thetas = None if self.thetas is None else self.thetas.to(f.device)
+        else:
+            S, fpad = self.shape, f
 
         def shifted(q, offs):
             return stream._shift_slices(fpad[q], offs, S)
@@ -253,9 +339,8 @@ class FusedStep2D:
         else:
             force_col = (torch.tensor(fvec, dtype=f.dtype, device=f.device).reshape(2, 1, 1)
                          if has_force else None)
-        thetas = None if self.thetas is None else self.thetas.to(f.device)
         return _stream_bc_collide(self.lat, self.cfg, self.codes, self.do_coll_codes, shifted,
-                                  self.map.to(f.device), nu, fvec,
+                                  m, nu, fvec,
                                   u_in=uvec if prof is None else prof, thetas=thetas,
                                   collision_force=force_col)
 
@@ -280,12 +365,7 @@ class FusedStep2D:
         lib = load_library()
         f_new = torch.empty_like(f) if out is None else out
         rho, u = macro_buffers(macro_out, (X, Y), 2, f.dtype, f.device)
-        bz = 0 if self.thetas is None else self.thetas.data_ptr()
-        uin, strides = (0, (0, 0, 0)) if prof is None else (prof.data_ptr(), prof.stride())
-        if field is None:
-            variant, ff = _VARIANTS[(self.cfg.collision, has_force)], None
-        else:
-            variant, ff = _FF_VARIANTS[self.cfg.collision], field.data_ptr()
+        variant, ff, bz, uin, strides = self._launch_args(field, has_force, self.thetas, prof)
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
         rc = lib.tnl_lbm_d2q9_step(f.data_ptr(), f_new.data_ptr(), self.map.data_ptr(), ff, bz, uin,
                                    *strides, rho.data_ptr(), u.data_ptr(), X, Y, self.pbits(),
@@ -294,6 +374,15 @@ class FusedStep2D:
             raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
         self.kernel.launches += 1
         return f_new, rho, u
+
+    def _launch_args(self, field, has_force, thetas, prof) -> tuple:
+        """(variant, per-site force pointer or None, thetas pointer or 0,
+        profile pointer or 0, its strides) of a launch of either entry."""
+        bz = 0 if thetas is None else thetas.data_ptr()
+        uin, strides = (0, (0, 0, 0)) if prof is None else (prof.data_ptr(), prof.stride())
+        if field is None:
+            return _VARIANTS[(self.cfg.collision, has_force)], None, bz, uin, strides
+        return _FF_VARIANTS[self.cfg.collision], field.data_ptr(), bz, uin, strides
 
 
 class FusedChunk2D:
@@ -404,10 +493,10 @@ def make_fused_step_2d(cfg: LBMConfig, domain: Domain, device, force_field: bool
                        local_shape=None) -> FusedStep2D:
     """D2Q9 A-B step for (cfg, domain) on ``device``: see :class:`FusedStep2D`.
     Raises NotImplementedError for a config that :func:`supports_2d`
-    refuses.  ``force_field`` builds the per-site-force variant.  Not
-    ported yet: ``local_shape``, the sharded path's block with its halo
-    ring (ROADMAP A13b)."""
-    if local_shape is not None:
-        raise NotImplementedError("B5's local_shape (the sharded 2D step) is not ported yet "
-                                  "(ROADMAP A13b)")
-    return FusedStep2D(cfg, domain, device, force_field=force_field)
+    refuses.  ``force_field`` builds the per-site-force variant.
+    ``local_shape`` (X, Y) is the sharded step's block: the step takes the
+    block with its 1-wide ring, [9, X+2, Y+2] (JAX's ``local_shape`` is that
+    haloed extent, whose ring outputs it crops; the port computes the block
+    alone)."""
+    return FusedStep2D(cfg, domain, device, force_field=force_field,
+                       prepadded=local_shape is not None, local_shape=local_shape)

@@ -218,10 +218,23 @@ class FusedStepADE:
     ``variable_diffusion=True``, an [X, Y, Z] field; ``phi_in`` the inflow
     concentration as a host scalar; ``transfer_coeff`` is fixed at build
     time.  ``kernel`` counts the launches, ``plain_calls`` the CPU-path calls.
+
+    ``prepadded=True`` is the sharded step's B6 (JAX ``make_fused_ade_step``
+    with ``prepadded`` and ``local_shape``): g is a shard's block of
+    ``local_shape`` with a 2-wide x and a 1-wide y halo, [7, X+4, Y+2, Z]
+    (z unsharded, wrapped or clamped as the domain says; the TPU layout's
+    six extra y rows have no counterpart); ``u``, a nu field and the outputs
+    are the block's own.  Each call gives the block's map (``map_arr_in``,
+    uint8 [X, Y, Z]) and, where the domain has transfer codes, its packed
+    flags (``tflags_in``, uint8 [X, Y, Z], packed from the global map:
+    ``pack_transfer_flags``).  No site update reads a neighbour's map code
+    (WALL_BODY reads the site's own g, OUTFLOW_PE and the TRANSFER links the
+    neighbours' g), so the block's own map is all it needs.  ``kernel``
+    counts the launches of ``tnl_lbm_ade_step_halo``.
     """
 
     def __init__(self, cfg: LBMConfig, domain: Domain, device, variable_diffusion: bool = False,
-                 transfer_coeff: float = 0.0):
+                 transfer_coeff: float = 0.0, prepadded: bool = False, local_shape=None):
         lat = cfg.lat
         if lat.D != 3 or lat.Q != 7:
             raise ValueError("the ADE step is for the D3Q7 lattice")
@@ -234,30 +247,40 @@ class FusedStepADE:
             raise NotImplementedError(f"unsupported ADE codes {self.codes - SUPPORTED_ADE_CODES}")
         self.cfg, self.lat = cfg, lat
         self.device = torch.device(device)
-        self.shape = domain.shape
+        self.prepadded = prepadded
+        self.shape = tuple(local_shape) if local_shape is not None else domain.shape
         self.periodic = domain.periodic
         self.variable_diffusion = variable_diffusion
         self.transfer_coeff = float(transfer_coeff)
         self.sym_codes = sorted(c for c in self.codes if c in _SYM)
         self.do_coll_codes = sorted(int(c) for c in (_COLLIDING & self.codes))
         self.use_local_eq = cfg.collision is cade.collide_srt_ade
-        self.kernel = CudaKernel("ade_step", "tnl_lbm_tpu_torch/csrc/ade_step.cu",
+        self.kernel = CudaKernel("ade_step_halo" if prepadded else "ade_step",
+                                 "tnl_lbm_tpu_torch/csrc/ade_step.cu",
                                  "tnl_lbm_tpu/kernels/fused_ade.py:338")
         self.plain_calls = 0
         if self.device.type == "cuda":
             check_ade_kernel_config(cfg, domain)
         self.variant = ADE_VARIANTS.get(cfg.collision)
-        self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8), device=self.device)
-        # one byte per site: 6 bits are used
-        self.tflags = (torch.as_tensor(pack_transfer_flags(lat, domain.map).astype(np.uint8),
+        #: the domain has transfer codes: the step reads packed flags
+        self.has_transfer = bool(self.codes & TRANSFER_CODES)
+        self.map = self.tflags = None
+        if not prepadded:
+            self.map = torch.as_tensor(np.ascontiguousarray(domain.map, np.uint8),
                                        device=self.device)
-                       if self.codes & TRANSFER_CODES else None)
+            # one byte per site: 6 bits are used
+            if self.has_transfer:
+                self.tflags = torch.as_tensor(pack_transfer_flags(lat, domain.map).astype(np.uint8),
+                                              device=self.device)
 
     def reset_counts(self) -> None:
         self.kernel.launches = self.plain_calls = 0
 
-    def __call__(self, g, u, nu, phi_in=0.0, out=None):
+    def __call__(self, g, u, nu, phi_in=0.0, out=None, map_arr_in=None, tflags_in=None):
         phi_in = host_scalar(phi_in, "phi_in")
+        if self.prepadded:
+            return self._halo_step(g, u, nu, phi_in, out,
+                                   *self._block_inputs(g, map_arr_in, tflags_in))
         check_out(out, g)
         if g.device.type == "cuda":
             return self._launch(g, u, nu, phi_in, out)
@@ -267,11 +290,77 @@ class FusedStepADE:
             g_new = out.copy_(g_new)
         return g_new, phi
 
-    def plain(self, g, u, nu, phi_in=0.0):
+    def plain(self, g, u, nu, phi_in=0.0, map_arr_in=None, tflags_in=None):
         """The step's plain PyTorch version on g's device: (g_new, phi), g
         untouched.  The CPU path, and the oracle the kernel is held against
         on the card; it counts no call."""
+        if self.prepadded:
+            self._check_halo(g, None)
+            return self._plain_halo(g, u, self._nu(nu), host_scalar(phi_in, "phi_in"),
+                                    *self._block_inputs(g, map_arr_in, tflags_in))
         return self._plain(g, u, self._nu(nu), host_scalar(phi_in, "phi_in"))
+
+    def _block_inputs(self, g, map_arr_in, tflags_in):
+        """(map, flags) of a haloed step's call, checked: the block's own."""
+        for t, what in ((map_arr_in, "map_arr_in"), (tflags_in, "tflags_in")):
+            if t is None and (what == "map_arr_in" or self.has_transfer):
+                raise ValueError(f"the haloed step takes the block's {what} at each call")
+            if t is not None and (not torch.is_tensor(t) or t.dtype != torch.uint8
+                                  or t.device != g.device or tuple(t.shape) != self.shape
+                                  or not t.is_contiguous()):
+                raise ValueError(f"{what} must be a contiguous uint8 {list(self.shape)} tensor "
+                                 f"on {g.device}")
+        return map_arr_in, tflags_in if self.has_transfer else None
+
+    def _check_halo(self, g, out) -> None:
+        X, Y, Z = self.shape
+        want = (self.lat.Q, X + 4, Y + 2, Z)
+        if tuple(g.shape) != want or not g.is_contiguous():
+            raise ValueError(f"g must be a contiguous {list(want)} haloed block, "
+                             f"got {tuple(g.shape)}")
+        if out is not None and (tuple(out.shape) != (self.lat.Q, X, Y, Z) or out.dtype != g.dtype
+                                or out.device != g.device or not out.is_contiguous()):
+            raise ValueError("out must be a contiguous state block of the local shape")
+
+    def _plain_halo(self, gpad, u, nu, phi_in, m, tflags):
+        """The haloed step in plain PyTorch: the block's pulls read its x/y
+        halo and a z pad of the domain's rule; the rest is the step's."""
+        gz = pad_edge_or_wrap(gpad, (False, False, self.periodic[2]), (0, 0, 1))
+        X, Y, Z = self.shape
+
+        def shifted(q, offs):
+            ox, oy, oz = offs
+            return gz[q, 2 + ox : 2 + ox + X, 1 + oy : 1 + oy + Y, 1 + oz : 1 + oz + Z]
+
+        tf = None if tflags is None else tflags.to(torch.int32)
+        return _ade_tile_body(self.lat, self.codes, self.sym_codes, self.do_coll_codes,
+                              self.cfg.collision, self.use_local_eq, shifted, m, u, nu, phi_in,
+                              tf, self.transfer_coeff, self.lat.Q)
+
+    def _halo_step(self, g, u, nu, phi_in, out, m, tflags):
+        """The haloed step: its kernel on a CUDA tensor, else its plain version."""
+        self._check_halo(g, out)
+        if g.device.type != "cuda":
+            self.plain_calls += 1
+            g_new, phi = self._plain_halo(g, u, self._nu(nu), phi_in, m, tflags)
+            return (g_new if out is None else out.copy_(g_new)), phi
+        if g.dtype != torch.float32:
+            raise NotImplementedError("the CUDA kernels take float32 state only")
+        check_field(u, m, "u", (3,) + tuple(self.shape))
+        nu_ptr, omega, tf_ptr = self.kernel_args(nu, m, tflags)
+        X, Y, Z = self.shape
+        g_new = torch.empty((self.lat.Q, X, Y, Z), dtype=g.dtype, device=g.device) \
+            if out is None else out
+        phi = torch.empty((X, Y, Z), dtype=g.dtype, device=g.device)
+        stream = ctypes.c_void_p(torch.cuda.current_stream(g.device).cuda_stream)
+        rc = load_library().tnl_lbm_ade_step_halo(
+            g.data_ptr(), g_new.data_ptr(), m.data_ptr(), u.data_ptr(), nu_ptr, tf_ptr,
+            phi.data_ptr(), X, Y, Z, int(self.periodic[2]), self.variant, omega, phi_in,
+            self.transfer_coeff, stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
+        self.kernel.launches += 1
+        return g_new, phi
 
     def _nu(self, nu):
         """A scalar as a float; a field only with ``variable_diffusion``."""
@@ -293,16 +382,18 @@ class FusedStepADE:
                               self.cfg.collision, self.use_local_eq, shifted, m, u, nu, phi_in,
                               tf, self.transfer_coeff, self.lat.Q)
 
-    def kernel_args(self, nu):
+    def kernel_args(self, nu, like=None, tflags=None):
         """The ADE operands shared by the ADE and coupled kernels: (nu field
-        pointer or 0, omega for a scalar nu, flags pointer or 0)."""
+        pointer or 0, omega for a scalar nu, flags pointer or 0); a haloed
+        block's step gives its map (``like``) and flags."""
         nu = self._nu(nu)
         if torch.is_tensor(nu):
-            check_field(nu, self.map, "nu")
+            check_field(nu, self.map if like is None else like, "nu")
             nu_ptr, omega = nu.data_ptr(), 0.0
         else:
             nu_ptr, omega = 0, 1.0 / (0.5 + float(self.lat.i_cs2) * nu)
-        return nu_ptr, omega, 0 if self.tflags is None else self.tflags.data_ptr()
+        tflags = self.tflags if like is None else tflags
+        return nu_ptr, omega, 0 if tflags is None else tflags.data_ptr()
 
     def _launch(self, g, u, nu, phi_in, out):
         check_state(g, self.lat.Q, self.shape, self.map, "g")
@@ -372,11 +463,11 @@ def make_fused_ade_step(cfg: LBMConfig, domain: Domain, device, variable_diffusi
     """The ADE step for (cfg, domain) on ``device``: see :class:`FusedStepADE`.
 
     The JAX function's TPU knobs (``tile``, ``tiles_per_program``) shape its
-    VMEM windows and have no counterpart here; its sharded knobs
-    ``prepadded`` and ``local_shape`` are not ported yet (ROADMAP A13b).
+    VMEM windows and have no counterpart here.  ``prepadded`` (with the
+    block's ``local_shape``) is the sharded step's haloed block.
     """
-    if prepadded or local_shape is not None:
-        raise NotImplementedError("prepadded / local_shape (the sharded ADE step) are not "
-                                  "ported yet (ROADMAP A13b)")
+    if local_shape is not None and not prepadded:
+        raise ValueError("local_shape is the haloed block's shape: it needs prepadded=True")
     return FusedStepADE(cfg, domain, device, variable_diffusion=variable_diffusion,
-                        transfer_coeff=transfer_coeff)
+                        transfer_coeff=transfer_coeff, prepadded=prepadded,
+                        local_shape=local_shape)

@@ -32,12 +32,18 @@ The steps:
   other A-A maps) on persistent haloed blocks: each shard's state lives in
   a block with a 2-wide x/y halo (:func:`to_padded_aa_sharded`,
   :func:`from_padded_aa_sharded`), and a pair refreshes only the halo slabs;
+- :func:`make_sharded_fused_step_2d`, the D2Q9 step (B5) on each shard's
+  block with a 1-wide x/y ring;
+- :func:`make_sharded_ade_step`, the plain D3Q7 ADE step per shard (the
+  CPU path and the oracle), and :func:`make_sharded_fused_ade_step`, the
+  ADE step (B6) on each shard's block with a 2-wide x and a 1-wide y halo:
+  the two halves, with the NSE steps, of ``CoupledSimulation(plan=...)``;
 - :func:`_make_uneven_sharded_step`, pad-and-crop for a lattice the mesh
   does not divide (A-B only, as in the JAX package).
 
 What is not ported yet raises naming its ROADMAP item: z-sharded meshes on
-the kernels, the 2D, ADE, coupled, hooked and IBM steps, the pair's family
-collisions (A13b); several processes (A13c).
+the kernels, the hooked and IBM steps, the pair's family collisions
+(A13b); several processes (A13c).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tnl_lbm_tpu_torch.ops import moments as mom
 from tnl_lbm_tpu_torch.ops.boundary import GEO
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.sim.step import make_step
@@ -57,6 +64,11 @@ from tnl_lbm_tpu_torch.sim.step import make_step
 A13B = "ROADMAP A13b"
 
 AXIS_NAMES = ("x", "y", "z")
+
+
+def _block_of(plan, k: int, local) -> tuple:
+    """Shard k's slices of the lattice axes (blocks of ``local``)."""
+    return tuple(slice(i * L, (i + 1) * L) for i, L in zip(plan.block_index(k), local))
 
 
 class Mesh:
@@ -165,8 +177,7 @@ class ShardPlan:
         local = tuple(p // n for p, n in zip(padded, self.counts))
         blocks = []
         for k in range(self.n_shards):
-            sl = tuple(slice(i * L, (i + 1) * L) for i, L in zip(self.block_index(k), local))
-            part = t[(slice(None),) * lead + sl]
+            part = t[(slice(None),) * lead + _block_of(self, k, local)]
             blocks.append(torch.empty(part.shape, dtype=part.dtype,
                                       device=self.device(k)).copy_(part))
         return ShardedField(self, blocks, tuple(arr.shape), padded)
@@ -203,9 +214,7 @@ class ShardedField:
         out = torch.empty(lead_shape + self.padded, dtype=self.dtype, device=device)
         local = tuple(p // n for p, n in zip(self.padded, self.plan.counts))
         for k, b in enumerate(self.blocks):
-            sl = tuple(slice(i * L, (i + 1) * L)
-                       for i, L in zip(self.plan.block_index(k), local))
-            out[(slice(None),) * self.lead + sl].copy_(b)
+            out[(slice(None),) * self.lead + _block_of(self.plan, k, local)].copy_(b)
         if self.padded != self.shape[self.lead:]:
             out = out[(slice(None),) * self.lead
                       + tuple(slice(0, s) for s in self.shape[self.lead:])].contiguous()
@@ -311,14 +320,21 @@ def choose_plan(domain: Domain, devices=None, axis_weights=None,
 
 # ------------------------------------------------------------------ the halo
 
-def _halo_copies(plan: ShardPlan, blocks, bufs, w: int, axes, periodic, lead: int = 1,
+def _widths(w, axes) -> dict:
+    """Lattice axis -> halo width: ``w`` for every one of ``axes``, or one
+    width per axis of ``axes``."""
+    return {a: (w if isinstance(w, int) else w[i]) for i, a in enumerate(axes)}
+
+
+def _halo_copies(plan: ShardPlan, blocks, bufs, w, axes, periodic, lead: int = 1,
                  comps=None, interior: bool = True) -> list:
     """The (destination, source) views whose copies, in order, fill each
     shard's buffer ``bufs[k]``: ``blocks[k]`` in its interior and w-wide
     halos on the lattice ``axes`` (the buffers are w wider on each side of
-    those axes).  The sweeps run axis by axis, each after every shard's
-    previous one, and copy whole slabs of the neighbour's buffer, so the
-    later axes carry the earlier ones' halos: corners route through (JAX
+    those axes; ``w`` one width, or one per axis of ``axes``).  The sweeps
+    run axis by axis, each after every shard's previous one, and copy whole
+    slabs of the neighbour's buffer, so the later axes carry the earlier
+    ones' halos: corners route through (JAX
     ``_halo_exchange``'s sequential sweeps).  A halo layer is the neighbour
     shard's edge layers (around the ring on a periodic axis); on a
     non-periodic domain face it replicates the block's edge layer; an axis
@@ -329,13 +345,15 @@ def _halo_copies(plan: ShardPlan, blocks, bufs, w: int, axes, periodic, lead: in
     devices is a peer copy.  ``interior=False`` leaves the interiors out:
     the blocks already sit in their buffers (the sharded pair's layout)."""
     axes = tuple(axes)
+    ws = _widths(w, axes)
     copies = []
     for f, buf in zip(blocks, bufs) if interior else ():
         inner = buf
         for a in axes:
-            inner = inner.narrow(lead + a, w, f.shape[lead + a])
+            inner = inner.narrow(lead + a, ws[a], f.shape[lead + a])
         copies.append((inner, f))
     for a in axes:
+        w = ws[a]
         d = lead + a
         n = plan.counts[a]
         per = bool(periodic[a])
@@ -356,7 +374,7 @@ def _halo_copies(plan: ShardPlan, blocks, bufs, w: int, axes, periodic, lead: in
     return copies
 
 
-def _fill_halos(plan: ShardPlan, blocks, bufs, w: int, axes, periodic, lead: int = 1,
+def _fill_halos(plan: ShardPlan, blocks, bufs, w, axes, periodic, lead: int = 1,
                 comps=None) -> list:
     """Fill each shard's buffer with its block and its halos
     (``_halo_copies``); returns ``bufs``."""
@@ -365,13 +383,15 @@ def _fill_halos(plan: ShardPlan, blocks, bufs, w: int, axes, periodic, lead: int
     return bufs
 
 
-def padded_buffers(blocks, w: int, axes, lead: int = 1) -> list:
-    """A new buffer per block, w wider on each side of the lattice ``axes``."""
+def padded_buffers(blocks, w, axes, lead: int = 1) -> list:
+    """A new buffer per block, w wider on each side of the lattice ``axes``
+    (``w`` one width, or one per axis of ``axes``)."""
+    ws = _widths(w, tuple(axes))
     out = []
     for f in blocks:
         shape = list(f.shape)
         for a in axes:
-            shape[lead + a] += 2 * w
+            shape[lead + a] += 2 * ws[a]
         out.append(torch.empty(shape, dtype=f.dtype, device=f.device))
     return out
 
@@ -452,6 +472,78 @@ def make_sharded_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan):
 
     step.padded_shape = domain.shape
     return step
+
+
+def make_sharded_ade_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan):
+    """``step(g, u, nu, phi_in=None, transfer_dirs=None, transfer_coeff=0.0,
+    parity=0) -> (g_new, phi)`` on ShardedFields of the D3Q7 lattice (JAX
+    ``make_sharded_ade_step``, the ADE half of the reference's multi-GPU
+    coupled run): the plain ADE step (``sim/step_ade.py``) on every shard's
+    block, one shard after the other, in two stages, each after the halo pad
+    of ``parallel/halo.py`` over every shard's block with D3Q7's direction
+    subsets - g before the pull (and the pre-streaming phi for the transfer
+    links), and on the A-A odd step the post-collision field before the
+    push.  ``u`` is the NSE step's sharded velocity; ``nu`` a scalar or a
+    per-site field (a ShardedField, or a global [X, Y, Z] tensor);
+    ``transfer_dirs`` the [Q-1, X, Y, Z] flags, sharded or global.  As in
+    the JAX step, OUTFLOW_PE with a sharded y or z axis raises (its pull
+    pads its own 2-wide x halo from the block), and so does a local x width
+    under 3 there.  The CPU path and the oracle of the sharded ADE kernel;
+    on the card with the kernels it is never the path."""
+    from tnl_lbm_tpu_torch.parallel.halo import make_halo_pad
+    from tnl_lbm_tpu_torch.sim.step_ade import ADEGEO, make_ade_step
+
+    plan.check(domain)
+    codes = domain.codes_present()
+    if ADEGEO.OUTFLOW_PE in codes:
+        if any(plan.counts[a] > 1 for a in (1, 2)):
+            raise NotImplementedError("OUTFLOW_PE with a sharded y/z axis is not supported")
+        if plan.local_shape(domain)[0] < 3:
+            raise NotImplementedError("OUTFLOW_PE needs local x width >= 3")
+    pad = make_halo_pad(plan, domain.periodic, lat=cfg.lat)
+    local_step = make_ade_step(cfg, domain, local_shape=plan.local_shape(domain))
+    maps = plan.shard_field(domain.map.astype(np.int64), like_f=False)
+    has_transfer = bool(codes & {ADEGEO.TRANSFER_FS, ADEGEO.TRANSFER_SF, ADEGEO.TRANSFER_SW})
+    aa = cfg.streaming == "AA"
+    kept = {}  # like_f -> (a global per-site input, its blocks)
+
+    def blocks(arr, like_f: bool) -> list:
+        """A per-site input's blocks: a ShardedField's, or a global tensor's,
+        split at its first call and kept."""
+        if isinstance(arr, ShardedField):
+            return arr.blocks
+        got = kept.get(like_f)
+        if got is None or got[0] is not arr:
+            got = kept[like_f] = (arr, plan.shard_field(arr, like_f=like_f).blocks)
+        return got[1]
+
+    def step(g: ShardedField, u: ShardedField, nu, phi_in=None, transfer_dirs=None,
+             transfer_coeff=0.0, parity: int = 0):
+        n = plan.n_shards
+        nus = (blocks(nu, False) if isinstance(nu, ShardedField) or _is_site_field(nu)
+               else [nu] * n)
+        tdirs = (blocks(transfer_dirs, True) if has_transfer and transfer_dirs is not None
+                 else [None] * n)
+        pull = not aa or parity
+        gpads = pad(g.blocks, local_step.pull_comps) if pull else [None] * n
+        phipads = ([p[0] for p in pad([mom.density(cfg.lat, b)[None] for b in g.blocks], "all")]
+                   if has_transfer and transfer_dirs is not None and pull else [None] * n)
+        mids = [local_step.collide(g.blocks[k], u.blocks[k], nus[k], phi_in, tdirs[k],
+                                   transfer_coeff, parity, map_arr=maps.blocks[k],
+                                   gpad=gpads[k], phipad=phipads[k])
+                for k in range(n)]
+        posts = pad([m[0] for m in mids], "own") if aa and parity else [None] * n
+        outs = [local_step.stream_out(g.blocks[k], *mids[k], parity=parity, post_pad=posts[k])
+                for k in range(n)]
+        return (ShardedField(plan, [o[0] for o in outs], g.shape, g.padded),
+                ShardedField(plan, [o[1] for o in outs], domain.shape))
+
+    return step
+
+
+def _is_site_field(arr) -> bool:
+    """A per-site scalar field (a tensor or array of one or more dims)."""
+    return arr is not None and (arr.dim() if torch.is_tensor(arr) else np.ndim(arr)) > 0
 
 
 def _is_field(arr) -> bool:
@@ -587,9 +679,9 @@ class _ShardedKernelStep:
         self.local_step.reset_counts()
 
     def exchange(self, f: ShardedField) -> list:
-        """Each shard's block with its ``width``-wide x/y halo, in buffers
-        kept across steps (the halo exchange: one copy of every block and
-        its halo slabs)."""
+        """Each shard's block with its ``width``-wide x/y halo (one width, or
+        (x, y)), in buffers kept across steps (the halo exchange: one copy
+        of every block and its halo slabs)."""
         bufs = self._bufs.get(f.dtype)
         if bufs is None:
             bufs = self._bufs[f.dtype] = padded_buffers(f.blocks, self.width, (0, 1))
@@ -623,7 +715,7 @@ class _ShardedKernelStep:
             return macro_out
         S = self.domain.shape
         return (ShardedField(self.plan, [r[1] for r in results], S),
-                ShardedField(self.plan, [r[2] for r in results], (3,) + S))
+                ShardedField(self.plan, [r[2] for r in results], (len(S),) + S))
 
     def _state(self, f, results, out):
         """The new state: ``out``, or the launches' new blocks."""
@@ -734,6 +826,153 @@ def make_sharded_fused_step_aa(cfg: LBMConfig, domain: Domain, plan: ShardPlan,
     local_step = make_fused_step_aa(cfg, domain, plan.device(0), prepadded=True,
                                     local_shape=plan.local_shape(domain))
     return ShardedFusedStepAA(plan, domain, local_step)
+
+
+# ---------------------------------------------- the 2D and ADE kernels' steps
+
+class ShardedFusedStep2D(_ShardedKernelStep):
+    """``step(f, nu, u_in=None, force=None, parity=0, out=None, macro_out=None,
+    force_add=None) -> (f_new, rho, u)`` on ShardedFields of the D2Q9
+    lattice: per step the 1-wide x/y halo exchange, then the D2Q9 step (B5)
+    on each shard's haloed block (``make_fused_step_2d`` with
+    ``local_shape``), with the block's map and Bouzidi thetas (sharded once)
+    and its view of a per-site inflow profile.  ``force`` is a [2] vector,
+    or in the force_field variant the per-site [2, X, Y] force (a
+    ShardedField of the plan, or a global tensor split per call) with the
+    [2] vector ``force_add``."""
+
+    def __init__(self, plan, domain, local_step):
+        super().__init__(plan, domain, local_step, 1)
+        self.thetas = (plan.shard_field(np.ascontiguousarray(domain.bouzidi, np.float32),
+                                        like_f=True) if local_step.has_thetas else None)
+        #: (a profile's identity, the profile, each shard's view or copy of it):
+        #: holding the profile keeps its address from being reused by another
+        self._profiles = (None, None, None)
+
+    def _profile_blocks(self, u_in) -> list:
+        """Each shard's view of a per-site inflow profile (a [2, ...] tensor or
+        host array broadcasting to [2, X, Y]); a [2] vector or None as it is."""
+        n = self.plan.n_shards
+        if u_in is None or not _is_field(u_in):
+            return [u_in] * n
+        t = u_in if torch.is_tensor(u_in) else torch.as_tensor(np.asarray(u_in))
+        t = t.to(torch.float32)
+        t = t.reshape((2,) + (1,) * (3 - t.dim()) + tuple(t.shape[1:])).expand(
+            (2,) + tuple(self.domain.shape))
+        key = (t.device, t.data_ptr(), t._version, t.stride())
+        if self._profiles[0] != key:  # a view on the shard's device, else a copy kept
+            views = [t[(slice(None),) + _block_of(self.plan, k, self.local_step.shape)]
+                     for k in range(n)]
+            self._profiles = (key, t, [v if v.device == self.plan.device(k) else
+                                       v.to(self.plan.device(k)) for k, v in enumerate(views)])
+        return self._profiles[2]
+
+    def _force_blocks(self, force) -> list:
+        n = self.plan.n_shards
+        if not self.local_step.force_field:
+            return [force] * n
+        if isinstance(force, ShardedField):
+            return force.blocks
+        return self.plan.shard_field(force, like_f=True).blocks
+
+    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None, macro_out=None,
+                 force_add=None):
+        del parity
+        halo = self.exchange(f)
+        outs, macros = self._outputs(f, out, macro_out)
+        profs, forces = self._profile_blocks(u_in), self._force_blocks(force)
+        results = [self._launch(k, halo[k], nu, u_in=profs[k], force=forces[k], out=outs[k],
+                                macro_out=macros[k], force_add=force_add,
+                                map_arr_in=self.maps.blocks[k],
+                                bouzidi_arr_in=None if self.thetas is None
+                                else self.thetas.blocks[k])
+                   for k in range(self.plan.n_shards)]
+        return (self._state(f, results, out),) + tuple(self._macros(results, macro_out))
+
+
+def make_sharded_fused_step_2d(cfg: LBMConfig, domain: Domain, plan: ShardPlan,
+                               force_field: bool = False) -> ShardedFusedStep2D:
+    """The sharded D2Q9 step through B5 on haloed blocks (JAX
+    ``make_sharded_fused_step_2d``): an x/y plan that divides the lattice
+    (``_make_uneven_sharded_step`` wraps it for one that does not).  The
+    D2Q9 pull, Bouzidi's read one link off the wall and OUTFLOW_RIGHT's x-1
+    pull are one deep and read f alone, so one exchanged f ring serves, and
+    the kernel computes the block's sites only (the JAX kernel computes the
+    ring's too and crops them).  A config B5 refuses raises (ROADMAP §C)."""
+    from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
+
+    if domain.lat.D != 2:
+        raise ValueError("the sharded D2Q9 step is the 2D lattice's")
+    plan.check(domain)
+    local_step = make_fused_step_2d(cfg, domain, plan.device(0), force_field=force_field,
+                                    local_shape=plan.local_shape(domain))
+    return ShardedFusedStep2D(plan, domain, local_step)
+
+
+class ShardedFusedStepADE(_ShardedKernelStep):
+    """``step(g, u, nu, phi_in=0.0, out=None) -> (g_new, phi)`` on
+    ShardedFields of the D3Q7 lattice: per step the halo exchange, 2 wide
+    on x (OUTFLOW_PE pulls x-2) and 1 wide on y, then the ADE step (B6) on
+    each shard's haloed block (``make_fused_ade_step`` with ``prepadded``)
+    with the block's map and packed transfer flags (from the global map,
+    sharded once) and its part of ``u`` (the NSE step's sharded velocity).
+    ``nu`` is a scalar, or a per-site field: a ShardedField of the plan, or
+    a global [X, Y, Z] tensor, sharded at its first call and kept."""
+
+    def __init__(self, plan, domain, local_step):
+        from tnl_lbm_tpu_torch.kernels.fused_ade import pack_transfer_flags
+
+        super().__init__(plan, domain, local_step, (2, 1))
+        self.tflags = (plan.shard_field(pack_transfer_flags(domain.lat, domain.map)
+                                        .astype(np.uint8), like_f=False)
+                       if local_step.has_transfer else None)
+        self._nu = None  # (a global nu field, its blocks)
+
+    def _nu_blocks(self, nu) -> list:
+        if isinstance(nu, ShardedField):
+            return nu.blocks
+        if not torch.is_tensor(nu) or nu.dim() == 0:
+            return [nu] * self.plan.n_shards
+        if self._nu is None or self._nu[0] is not nu:
+            self._nu = (nu, self.plan.shard_field(nu, like_f=False).blocks)
+        return self._nu[1]
+
+    def __call__(self, g, u, nu, phi_in=0.0, out=None):
+        halo = self.exchange(g)
+        n = self.plan.n_shards
+        outs = out.blocks if out is not None else [None] * n
+        nus = self._nu_blocks(nu)
+        results = [self._launch(k, halo[k], u.blocks[k], nus[k], phi_in=phi_in, out=outs[k],
+                                map_arr_in=self.maps.blocks[k],
+                                tflags_in=None if self.tflags is None else self.tflags.blocks[k])
+                   for k in range(n)]
+        S = self.domain.shape
+        g_new = out if out is not None else ShardedField(self.plan, [r[0] for r in results],
+                                                         g.shape, g.padded)
+        return g_new, ShardedField(self.plan, [r[1] for r in results], S)
+
+
+def make_sharded_fused_ade_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan,
+                                variable_diffusion: bool = False,
+                                transfer_coeff: float = 0.0) -> ShardedFusedStepADE:
+    """The sharded ADE step through B6 on haloed blocks (JAX
+    ``make_sharded_fused_ade_step``; its TPU knobs ``tile`` and
+    ``tiles_per_program`` have no counterpart): an x/y plan that divides the
+    lattice, A-B streaming; a z cut raises (naming A13b), and so does a
+    local x width under 2 (the 2-wide x halo comes from one neighbour)."""
+    from tnl_lbm_tpu_torch.kernels.fused_ade import make_fused_ade_step
+
+    plan.check(domain)
+    _xy_only(plan, "the sharded ADE step (B6)")
+    local = plan.local_shape(domain)
+    if plan.counts[0] > 1 and local[0] < 2:
+        raise NotImplementedError(f"the sharded ADE step needs a local x width of 2 or more, "
+                                  f"got {local[0]}")
+    local_step = make_fused_ade_step(cfg, domain, plan.device(0),
+                                     variable_diffusion=variable_diffusion,
+                                     transfer_coeff=transfer_coeff, prepadded=True,
+                                     local_shape=local)
+    return ShardedFusedStepADE(plan, domain, local_step)
 
 
 # ------------------------------------------------------------ the sharded pair

@@ -39,7 +39,8 @@ single steps - a leftover odd step, or every step when pair dispatch is
 off or the map holds a code the A-A kernels refuse - through the even/odd
 kernels (``make_fused_step_aa``); without ``use_fused`` every step is the plain
 PyTorch step (``sim/step.py``).  ``pair_dispatch="auto"`` times both
-dispatches on a CUDA device and keeps the faster; half storage
+dispatches on a CUDA device and keeps the pair unless per-step dispatch
+is faster by more than ``PAIR_TIE``; half storage
 (``cfg.storage_dtype``) forces pair dispatch.  Everything runs on the
 ``device`` given; asking for a CUDA device without one raises.
 
@@ -60,9 +61,11 @@ the state, rho, u and the statistics windows are ShardedFields, one block
 per shard on its device, made at ``sim_init``; with ``use_fused`` the 3D
 A-B steps run through the sharded A-B step (B4 on haloed blocks; a lattice
 the mesh does not divide pads and crops) and the A-A steps through the
-sharded even/odd steps (B2, and B3 on haloed blocks), else through the
-plain sharded step.  ``self.rho`` and ``self.u`` read the shards' blocks
-gathered on ``device`` (the outputs, the probes, the NaN scan); each PRINT
+sharded even/odd steps (B2, and B3 on haloed blocks), the D2Q9 steps
+through the sharded D2Q9 step (B5 on haloed blocks, padded and cropped as
+the 3D A-B step is), else through the plain sharded step.  ``self.rho``
+and ``self.u`` read the shards' blocks gathered on ``device`` (the
+outputs, the probes, the NaN scan); each PRINT
 logs the halo traffic to the profile log.  Under a plan every step is
 dispatched from Python (no chunk, no CUDA graph: ``_scan_chunk_args``).
 Pair dispatch under a plan that divides the lattice runs the sharded pair
@@ -119,6 +122,13 @@ ALL_COUNTERS = (
 
 #: CUDA graphs one run keeps (start buffers x input values), oldest dropped first
 GRAPH_CACHE = 8
+
+#: "auto" keeps pair dispatch unless per-step dispatch is faster by more than
+#: this share: a pair makes half the launches (and under a plan half the halo
+#: exchanges), so where the two routes' device times tie the pair is the one
+#: the host's load slows least (a 2-shard sim_2 res 8 A-A run on an H100 read
+#: pair 0.81-0.82 ms, per step 0.80-1.23 ms from one run to the next)
+PAIR_TIE = 0.05
 
 # distinguishes "no inflow evaluated yet" from a None inflow
 _UNSET = object()
@@ -486,23 +496,27 @@ class Simulation:
 
     def _sharded_step(self, cfg):
         """The step of a sharded run (JAX ``Simulation.__init__`` under a
-        plan): with the kernels, the 3D A-B step (B4 on haloed blocks, padded
-        and cropped where the mesh does not divide the lattice) or the A-A
-        steps (B2, B3 on haloed blocks); without them the plain sharded
-        step.  What the sharded lattice does not take yet raises."""
+        plan): with the kernels, the 3D A-B step (B4 on haloed blocks), the
+        A-A steps (B2, B3 on haloed blocks) or the D2Q9 step (B5 on haloed
+        blocks; a D2Q9 config B5 refuses raises, ROADMAP §C), the A-B steps
+        padded and cropped where the mesh does not divide the lattice;
+        without them the plain sharded step.  What the sharded lattice does
+        not take yet (the hooked steps) raises."""
         from tnl_lbm_tpu_torch.parallel import sharded as sh
 
         if not self.use_fused:
             return sh.make_sharded_step(cfg, self.domain, self.plan)
-        if cfg.forcing_hook is not None or cfg.lat.D != 3:
-            raise NotImplementedError(f"the sharded {'hooked' if cfg.forcing_hook else '2D'} "
-                                      f"steps are not ported yet ({A13B})")
-        if cfg.streaming == "AA":
+        if cfg.forcing_hook is not None:
+            raise NotImplementedError(f"the sharded hooked steps are not ported yet ({A13B})")
+        if cfg.lat.D == 2:
+            builder = sh.make_sharded_fused_step_2d
+        elif cfg.streaming == "AA":
             return sh.make_sharded_fused_step_aa(cfg, self.domain, self.plan)
+        else:
+            builder = sh.make_sharded_fused_step
         if self.plan.divisible(self.domain):
-            return sh.make_sharded_fused_step(cfg, self.domain, self.plan)
-        return sh._make_uneven_sharded_step(cfg, self.domain, self.plan,
-                                            inner_builder=sh.make_sharded_fused_step)
+            return builder(cfg, self.domain, self.plan)
+        return sh._make_uneven_sharded_step(cfg, self.domain, self.plan, inner_builder=builder)
 
     def _build_pair(self):
         """The pair kernel of pair dispatch (``make_dispatch_pair``): B1 on a
@@ -569,7 +583,8 @@ class Simulation:
     def _resolve_pair_dispatch(self):
         """Resolve ``pair_dispatch`` to a bool.  Half storage forces it on;
         "auto" measures both dispatches on a CUDA device and keeps the
-        faster, and is per-step on the CPU (the plain versions are no
+        pair unless per-step is faster by more than ``PAIR_TIE``, and is
+        per-step on the CPU (the plain versions are no
         production path).  A pair kernel that fails to build or launch
         raises: there is no fallback.  Under a plan the same rules hold for
         the sharded pair."""
@@ -593,7 +608,7 @@ class Simulation:
         else:
             self.pair_probe_ms = self.time_pair_routes()
             t_pair, t_steps = self.pair_probe_ms
-            self.pair_dispatch = t_pair < t_steps
+            self.pair_dispatch = t_pair < t_steps * (1 + PAIR_TIE)
             self.log.info("pair-dispatch auto-probe: pair %.4f ms/pair vs per-step "
                           "%.4f ms/pair -> %s", t_pair, t_steps,
                           "pair dispatch" if self.pair_dispatch else "per-step dispatch")

@@ -114,15 +114,26 @@ def make_ade_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=Non
     ``u`` is the advecting velocity field [3, *S] (from the NSE lattice);
     ``transfer_dirs`` is a bool field [Q-1, *S] (per non-rest direction,
     ordered like lat.names[1:]) marking links that cross the phase
-    interface.  ``phi_in=None`` leaves the INFLOW sites as streamed.  The
-    sharded knobs ``pad_halo`` and ``local_shape`` are not ported yet
-    (ROADMAP A13b).
+    interface.  ``phi_in=None`` leaves the INFLOW sites as streamed.
+
+    The sharded knobs (JAX ``make_ade_step``): ``local_shape`` is a shard's
+    block shape, whose map comes with each call (``map_arr``), and
+    ``pad_halo(x, comps="all")`` gives an array [C, *S] its 1-wide halo (by
+    default the lattice's edge/wrap pad): of g before the pull (``comps``
+    the components the pull reads, "own", "opp" for the A-A odd read, or
+    "all" where OUTFLOW_RIGHT reads every one), of the pre-streaming phi for
+    the transfer links, and of the A-A odd step's post-collision field.
+    The plain sharded step (``parallel/sharded.py make_sharded_ade_step``)
+    runs the step in two stages on every shard's block, each after the
+    collective pad of every block, so it hands the pads in:
+    ``step.collide(g, u, nu, ..., gpad=None, phipad=None) -> (g_post, phi,
+    masks)`` and ``step.stream_out(g, g_post, phi, masks, parity,
+    post_pad=None) -> (g_new, phi)``; ``step.pull_comps`` names the pull's
+    components.  OUTFLOW_PE's pull pads its own 2-wide x halo from the
+    block, as the JAX step does.
     """
-    if pad_halo is not None or local_shape is not None:
-        raise NotImplementedError("pad_halo / local_shape (the sharded ADE step) are not "
-                                  "ported yet (ROADMAP A13b)")
     lat = cfg.lat
-    S = domain.shape
+    S = tuple(local_shape) if local_shape is not None else domain.shape
     dtype = cfg.compute_dtype
     codes = domain.codes_present()
     opp = np.asarray(lat.opp)
@@ -131,13 +142,20 @@ def make_ade_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=Non
     if cfg.streaming == "AA" and ADEGEO.OUTFLOW_PE in codes:
         raise NotImplementedError("OUTFLOW_PE requires the A-B pattern")
     periodic = domain.periodic
+    if pad_halo is None:
+        def pad_halo(x, comps="all"):
+            return stream.pad_halo(x, periodic)
+    # the components the pull reads off the halo (JAX make_ade_step's hint):
+    # OUTFLOW_RIGHT's pull-shift reads x-1 for every component
+    pull_comps = ("all" if ADEGEO.OUTFLOW_RIGHT in codes
+                  else ("opp" if cfg.streaming == "AA" else "own"))
 
-    def halo(f):
-        return stream.pad_halo(f, periodic)
-
-    def step(g, u, nu, phi_in=None, transfer_dirs=None, transfer_coeff=0.0,
-             parity: int = 0, map_arr=None):
+    def collide(g, u, nu, phi_in=None, transfer_dirs=None, transfer_coeff=0.0,
+                parity: int = 0, map_arr=None, gpad=None, phipad=None):
+        """The step up to the collision: (g_post, phi, masks)."""
         if map_arr is None:
+            if local_shape is not None:
+                raise ValueError("a block's step takes its map at each call (map_arr)")
             map_arr = torch.as_tensor(domain.map.astype(np.int64), device=g.device)
         masks = {c: map_arr == int(c) for c in codes}
         do_coll = torch.isin(map_arr, torch.as_tensor(do_coll_codes, device=g.device,
@@ -148,7 +166,8 @@ def make_ade_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=Non
         if cfg.streaming == "AA" and parity == 0:
             f_in = g
         else:
-            gpad = halo(g)
+            if gpad is None:
+                gpad = pad_halo(g, comps=pull_comps)
             if cfg.streaming == "AA":
                 f_in = stream.pull_from(lat, gpad, S, opp)
             else:
@@ -188,7 +207,8 @@ def make_ade_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=Non
         # conjugate transfer BCs (reference d3q7/bc.h:142-189)
         if codes & TRANSFER_CODES and transfer_dirs is not None:
             phi_tot = mom.density(lat, g_old)  # per-site scalar, pre-streaming
-            phipad = halo(phi_tot[None])[0]
+            if phipad is None:
+                phipad = pad_halo(phi_tot[None], comps="all")[0]
             rows = [f_in[0]]
             for q in range(1, lat.Q):
                 qo = int(opp[q])
@@ -218,21 +238,35 @@ def make_ade_step(cfg: LBMConfig, domain: Domain, pad_halo=None, local_shape=Non
             f_in = torch.where(masks[ADEGEO.OUTFLOW_PE], cfg.eq(lat, phi, u), f_in)
 
         f_post = cfg.collision(lat, f_in, phi, u, nu)
-        f_post = torch.where(do_coll, f_post, f_in)
+        return torch.where(do_coll, f_post, f_in), phi, masks
 
+    def stream_out(g, f_post, phi, masks, parity: int = 0, post_pad=None):
+        """The new state and phi from ``collide``'s outputs: the A-A push
+        (its odd step from ``post_pad``, by default the pad of f_post), the
+        NOTHING sites' old DFs and zero phi."""
         if cfg.streaming == "AA":
             if parity == 0:
-                g_out = f_post[opp_t]
+                g_out = f_post[torch.as_tensor(opp.tolist(), dtype=torch.long, device=g.device)]
             else:
-                g_out = stream.pull(lat, halo(f_post), S)
+                if post_pad is None:
+                    post_pad = pad_halo(f_post, comps="own")
+                g_out = stream.pull(lat, post_pad, S)
         else:
             g_out = f_post
 
         if ADEGEO.NOTHING in codes:
-            g_out = torch.where(masks[ADEGEO.NOTHING], g_old, g_out)
+            g_out = torch.where(masks[ADEGEO.NOTHING], g, g_out)
             phi = torch.where(masks[ADEGEO.NOTHING], torch.zeros_like(phi), phi)
         return g_out.contiguous(), phi
 
+    def step(g, u, nu, phi_in=None, transfer_dirs=None, transfer_coeff=0.0,
+             parity: int = 0, map_arr=None):
+        f_post, phi, masks = collide(g, u, nu, phi_in, transfer_dirs, transfer_coeff, parity,
+                                     map_arr)
+        return stream_out(g, f_post, phi, masks, parity)
+
+    step.collide, step.stream_out = collide, stream_out
+    step.pull_comps = pull_comps
     return step
 
 
