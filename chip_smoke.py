@@ -3249,14 +3249,16 @@ IBM_TABLE = ("phi2", 96, 4096, 10)  # dirac, n, points, steps of the table row
 
 
 def ibm_sim(res: int, label: str, steps: int, use_fused: bool = True, pinned: bool = False,
-            steps_per_dispatch: int = 1, timed: bool = False, collision: str | None = None):
+            steps_per_dispatch: int = 1, timed: bool = False, collision: str | None = None,
+            devices=None):
     """sim_ibm at ``res`` on the card, ``steps`` steps from the app's start,
     counted from the end of sim_init; ``pinned``: CG at IBM_PINNED
     iterations with a tolerance it never reaches; ``timed``: CUDA events
     around each step and the step's CG iterations and residual kept
     (``sim.step_log``: (start, end, iterations, residual)); ``collision``:
     an id of ``COLLISIONS_D3Q27`` in place of the app's CUM (the app's
-    quadratic equilibrium and total DFs kept)."""
+    quadratic equilibrium and total DFs kept); ``devices``: ``--sharded``
+    over them (the IBM's sharded hook)."""
     import torch
 
     from tnl_lbm_tpu_torch.apps import sim_ibm
@@ -3264,7 +3266,8 @@ def ibm_sim(res: int, label: str, steps: int, use_fused: bool = True, pinned: bo
 
     t0 = time.perf_counter()
     sim = sim_ibm.build(res, device=DEVICE, use_fused=use_fused,
-                        results_parent=WORK / "ibm" / label)
+                        results_parent=WORK / "ibm" / label, sharded=devices is not None,
+                        devices=devices)
     if collision is not None:
         sim.cfg = dataclasses.replace(sim.cfg, collision=COLLISIONS_D3Q27[collision])
     build_s = time.perf_counter() - t0
@@ -6775,14 +6778,490 @@ def sharded_2d_ade_apps() -> dict:
 
 
 
+# ------------------------------------------- the sharded hooked lattice (A13b item 2)
+
+#: the sharded hooked slice's haloed instances: JSON key (the wrapper's kernel
+#: name) -> (the instances, the source, the Pallas kernel they replace)
+HOOKED_HALO_KERNELS = {
+    "ab_step_force_field_halo": (tuple(f"ab_halo_ff_{v}_kernel" for v in NSE_VARIANTS),
+                                 "halo_step.cu", "tnl_lbm_tpu/kernels/fused.py:585"),
+    "ab_step_macro_only_halo": (("ab_halo_macro_well_kernel", "ab_halo_macro_total_kernel"),
+                                "halo_step.cu", "tnl_lbm_tpu/kernels/fused.py:585"),
+    "aa_odd_force_field_halo": (tuple(f"aa_odd_halo_ff_{v}_kernel" for v in NSE_VARIANTS),
+                                "halo_step.cu", "tnl_lbm_tpu/kernels/fused_aa.py:287"),
+    "aa_odd_macro_only_halo": (("aa_odd_halo_macro_well_kernel",
+                                "aa_odd_halo_macro_total_kernel"),
+                               "halo_step.cu", "tnl_lbm_tpu/kernels/fused_aa.py:287"),
+    "nn_force_halo": (("nn_force_halo_kernel",), "nn_force.cu",
+                      "tnl_lbm_tpu/kernels/fused_nn.py:232"),
+    **{f"nn_step_halo_{m}": (tuple(f"nn_step_halo_{m}_{v}_kernel" for v in NSE_VARIANTS),
+                             "nn_step_halo.cu", "tnl_lbm_tpu/kernels/fused_nn_step.py:522")
+       for m in ("ab", "even", "odd")},
+}
+#: the instance of each key that is timed (CUM_WELL, as the bench duct runs)
+HOOKED_HALO_TIMED = {k: v[0][0] for k, v in HOOKED_HALO_KERNELS.items()}
+#: the hooked duct's steps under a plan and the sim_ibm runs' steps
+SHARDED_HOOKED_STEPS = 20
+#: sim_ibm's resolution of its sharded run (384 x 128 x 128, 25 098 points)
+SHARDED_IBM_RES = 4
+#: the sharded IBM run's bound on max |du| against the unsharded run
+#: (tests/test_torch_ibm.py TOL_APP): its sums over the shards add in
+#: another order
+TOL_IBM_SHARDED = 1e-5
+
+
+def hooked_halo_cases():
+    """(label, cfg with the NN hook, domain, hook periodicity, plan counts)
+    of the haloed compares: the wall duct (periodic x; the x seams cut its
+    y and z walls) and the closed box with its obstacle walls (every face a
+    closed one; the y seam runs through an obstacle), on 2 x-shards and 2 x
+    2, CUM_WELL with each model of tests/torch_cases.py nn_case."""
+    from tnl_lbm_tpu_torch import interop
+    from torch_cases import nn_case
+
+    for kind in ("duct", "obstacle"):
+        m, periodic, model, per = nn_case(kind)
+        dom = interop.domain_from_numpy(m, periodic)
+        for streaming in ("AB", "AA"):
+            cfg = hooked_cfg(interop.config_from_spec("CUM_WELL", "EQ_WELL", True, streaming),
+                             model, per)
+            for counts in ((2, 1, 1), (2, 2, 1)):
+                yield (f"{kind} {streaming} {'x'.join(map(str, counts))}", cfg, dom, per,
+                       counts)
+
+
+def hooked_halo_compares() -> dict:
+    """Each haloed instance of this slice against its plain version on the
+    card, every shard's block, from a seeded state: B4 halo force_field (a
+    seeded per-site force) and macro_only, B3 halo force_field (the force
+    ring exchanged from the neighbours) and macro_only, B9 halo (u* from B4
+    halo's macro_only pass), B10 halo in its three modes; the step bounds
+    (B9: TOL_F of max |F|).  Returns key -> max |df| (B9: |dF|)."""
+    import dataclasses as dc
+
+    import torch
+
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+
+    err = {k: 0.0 for k in HOOKED_HALO_KERNELS}
+    fadd = (FORCE_SMALL, 0.0, 0.0)
+
+    def held(key, label, kernel, ls, pairs, nk, rel=False):
+        """(f, rho, u) of a step, (rho, u) of a u* pass, or F (``rel``: within
+        TOL_F of max |F|) against the plain version's."""
+        worst = None
+        for out, plain in pairs:
+            out = out if isinstance(out, tuple) else (out,)
+            plain = plain if isinstance(plain, tuple) else (plain,)
+            worst = [max(w, max_diff(a, b)) for w, a, b in
+                     zip(worst or [0.0] * len(out), out, plain)]
+            if rel:
+                nn_force_diff(out[0], plain[0], label)
+        tol = (float("inf"),) if rel else (TOL_F, TOL_RHO, TOL_U)[3 - len(worst):]
+        names = ("max_dF",) if rel else ("max_df", "max_drho", "max_du")[3 - len(worst):]
+        log("sharded_hooked", compare=repr(label), kernel=kernel.name, shards=nk,
+            **{n: f"{w:.3e}" for n, w in zip(names, worst)}, launches=kernel.launches,
+            plain_calls=ls.plain_calls)
+        if any(w > t for w, t in zip(worst, tol)) or kernel.launches != nk or ls.plain_calls:
+            raise RuntimeError(f"sharded hooked compare {label}: {kernel.name} against its "
+                               f"plain version {worst}, or not launched once a shard")
+        err[key] = max(err[key], worst[0])
+
+    for label, cfg, dom, per, counts in hooked_halo_cases():
+        plan = card_plan(counts)
+        nk = plan.n_shards
+        nohook = dc.replace(cfg, forcing_hook=None)
+        f = plan.shard_field(seeded_cfg_state(cfg, dom.shape), like_f=True)
+        field = plan.shard_field(seeded_field((3,) + dom.shape, 31), like_f=True)
+        if cfg.streaming == "AB":
+            ff = sh.make_sharded_fused_step(nohook, dom, plan, force_field=True)
+            mo = sh.make_sharded_fused_step(nohook, dom, plan, macro_only=True)
+            halo = ff.exchange(f)
+            kw = [{"map_arr_in": ff.maps.blocks[k]} for k in range(nk)]
+            pairs = [(ff.local_step(halo[k], NU, force=field.blocks[k], force_add=fadd, **kw[k]),
+                      ff.local_step.plain(halo[k], NU, force=field.blocks[k], force_add=fadd,
+                                          **kw[k])) for k in range(nk)]
+            held("ab_step_force_field_halo", label, ff.local_step.kernel, ff.local_step, pairs,
+                 nk)
+            pairs = [(mo.local_step(halo[k], NU, force=fadd, **kw[k]),
+                      mo.local_step.plain(halo[k], NU, force=fadd, **kw[k])) for k in range(nk)]
+            held("ab_step_macro_only_halo", label, mo.local_step.kernel, mo.local_step, pairs, nk)
+        else:
+            ff = sh.make_sharded_fused_step_aa(nohook, dom, plan, force_field=True)
+            mo = sh.make_sharded_fused_step_aa(nohook, dom, plan, macro_only=True)
+            halo, ring = ff.exchange(f), ff.force_ring(field)
+            kw = [{"parity": 1, "map_ring_in": ff.rings[k], "bflags": ff.bflags[k]}
+                  for k in range(nk)]
+            pairs = [(ff.local_step(halo[k], NU, force_add=fadd, force_ring_in=ring[k], **kw[k]),
+                      ff.local_step.plain(halo[k], NU, force_add=fadd, force_ring_in=ring[k],
+                                          **kw[k])) for k in range(nk)]
+            held("aa_odd_force_field_halo", label, ff.local_step.odd, ff.local_step, pairs, nk)
+            pairs = [(mo.local_step(halo[k], NU, force=fadd, **kw[k]),
+                      mo.local_step.plain(halo[k], NU, force=fadd, **kw[k])) for k in range(nk)]
+            held("aa_odd_macro_only_halo", label, mo.local_step.odd, mo.local_step, pairs, nk)
+        # B9 halo on the u* of the macro pass (its plain version's, so both read one input)
+        model = cfg.forcing_hook.nn_model
+        nnf = sh.make_sharded_nn_force(model, dom, plan, per)
+        rho0, u0 = mo(f, NU, force=fadd, parity=1 if cfg.streaming == "AA" else 0)
+        upads = nnf.exchange(u0, periodic=nnf.nn_periodic)
+        kw = [{"map_pad_in": nnf.map_pads[k], "bflags": nnf.bflags[k]} for k in range(nk)]
+        pairs = [(nnf.local_step(rho0.blocks[k], upads[k], NU, **kw[k]),
+                  nnf.local_step.plain(rho0.blocks[k], upads[k], NU, **kw[k]))
+                 for k in range(nk)]
+        held("nn_force_halo", label, nnf.local_step.kernel, nnf.local_step, pairs, nk, rel=True)
+        # B10 halo in each mode of the pattern
+        one = sh.make_sharded_fused_nn_step(cfg, dom, plan, model, per)
+        ls = one.local_step
+        for parity in ((0, 1) if cfg.streaming == "AA" else (0,)):
+            w = ls.halo_width(parity)
+            halo, mpads = one.exchange(f, width=w), one.map_halo(w)
+            kw = [{"parity": parity, "map_pad_in": mpads[k], "bflags": one.bflags[k]}
+                  for k in range(nk)]
+            ls.reset_counts()
+            pairs = [(ls(halo[k], NU, force=fadd, **kw[k]), ls.plain(halo[k], NU, force=fadd,
+                                                                    **kw[k]))
+                     for k in range(nk)]
+            mode = "ab" if cfg.streaming == "AB" else ("even", "odd")[parity]
+            held(f"nn_step_halo_{mode}", f"{label} {mode}", getattr(ls, mode), ls, pairs, nk)
+        del f, field, halo, ff, mo, one, nnf
+        torch.cuda.empty_cache()
+    return err
+
+
+def dilate_xy(mask, n: int = 1):
+    """``mask`` [X', Y', Z] grown by n face steps along x and y (the arrays
+    are padded by n on x and y)."""
+    out = np.pad(mask, ((n, n), (n, n), (0, 0)))
+    for _ in range(n):
+        grown = out.copy()
+        grown[1:] |= out[:-1]
+        grown[:-1] |= out[1:]
+        grown[:, 1:] |= out[:, :-1]
+        grown[:, :-1] |= out[:, 1:]
+        out = grown
+    return out
+
+
+def hooked_halo_times(ops: dict, err: dict) -> dict:
+    """This slice's haloed instances (CUM_WELL) on shard 0's block of the
+    256^3 bench duct with the hook on 2 y-shards (256 x 128 x 256), each 20
+    launches on CUDA events from a seeded state, beside the unsharded kernel
+    on a lattice of that block's shape and map (its x periodic as the
+    duct's) and the plain version (1 call).  Bound: the distinct elements
+    the threads read (f by ``halo_reads``; B9's u and mask on the block and
+    the two sites beyond it along x or y, which its stencils reach; B10's f
+    by ``halo_reads`` over the u* sites, two beyond the updated ones), the
+    block's writes and macro outputs and the map, against the FP32 slots of
+    every thread.  The kernel's last output is held to the plain call's
+    (f, rho, u of a step, rho and u of a u* pass within TOL_F, TOL_RHO and
+    TOL_U; B9's F within TOL_F of max |F|), so the march's segment and tile
+    seams are checked at this size; ``err``'s entries grow to the larger
+    difference.  Returns key -> (ms, plain ms, bound ms, bound_by,
+    unsharded ms on the block)."""
+    import dataclasses as dc
+
+    import torch
+
+    from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
+    from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_step_aa
+    from tnl_lbm_tpu_torch.kernels.fused_nn import make_nn_force_kernel
+    from tnl_lbm_tpu_torch.kernels.fused_nn_step import make_fused_nn_step
+    from tnl_lbm_tpu_torch.ops.boundary import GEO
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+
+    out = {}
+    fadd = (FORCE_SMALL, 0.0, 0.0)
+    plan = card_plan((1, 2, 1))
+    for streaming in ("AB", "AA"):
+        cfg, dom = flagship(BENCH_SHAPE, streaming=streaming)
+        per = dom.periodic
+        cfg = hooked_cfg(cfg, NN_BENCH_MODEL, per)
+        model = cfg.forcing_hook.nn_model
+        nohook = dc.replace(cfg, forcing_hook=None)
+        f = plan.shard_field(seeded_cfg_state(cfg, dom.shape), like_f=True)
+        X, Y, Z = plan.local_shape(dom)
+        sites = X * Y * Z
+        codes_blk = np.ascontiguousarray(dom.map[:, :Y])
+        bdom = dc.replace(dom, units=dc.replace(dom.units, global_size=(X, Y, Z)),
+                          map=codes_blk.copy())
+        inner = f.blocks[0].contiguous()
+        fone = torch.empty_like(inner)
+        field = seeded_field((3, X, Y, Z), 33)
+        macro = (torch.empty((X, Y, Z), device=inner.device),
+                 torch.empty((3, X, Y, Z), device=inner.device))
+        no_nothing = np.where(codes_blk == int(GEO.NOTHING), int(GEO.FLUID), codes_blk)
+        timed = []
+        mk = sh.make_sharded_fused_step if streaming == "AB" else sh.make_sharded_fused_step_aa
+        one_mk = make_fused_step if streaming == "AB" else make_fused_step_aa
+        ff, mo = mk(nohook, dom, plan, force_field=True), mk(nohook, dom, plan, macro_only=True)
+        halo = ff.exchange(f)[0]
+        if streaming == "AB":
+            kw = {"map_arr_in": ff.maps.blocks[0]}
+            reads, threads, colliding = halo_reads(cfg.lat, codes_blk, 1, bool(per[2]))
+            mreads = halo_reads(cfg.lat, no_nothing, 1, bool(per[2]))[0]
+            timed += [("ab_step_force_field_halo", ff.local_step,
+                       dict(force=field, force_add=fadd, out=fone, macro_out=macro, **kw),
+                       one_mk(nohook, bdom, DEVICE, force_field=True),
+                       dict(force=field, force_add=fadd, out=torch.empty_like(inner)),
+                       4 * reads + (27 + 4 + 3) * 4 * sites + threads, colliding),
+                      ("ab_step_macro_only_halo", mo.local_step,
+                       dict(force=fadd, macro_out=macro, **kw),
+                       one_mk(nohook, bdom, DEVICE, macro_only=True), dict(force=fadd),
+                       4 * mreads + 4 * 4 * sites + sites, 0)]
+        else:
+            ring = ff.force_ring(plan.shard_field(torch.zeros((3,) + dom.shape, device=DEVICE),
+                                                  like_f=True))[0]
+            kw = {"parity": 1, "map_ring_in": ff.rings[0], "bflags": ff.bflags[0]}
+            faces = ff.local_step._faces(ff.bflags[0])
+            reads, threads, colliding = halo_reads(cfg.lat, ff.rings[0].cpu().numpy(), 2,
+                                                   bool(per[2]), faces)
+            mreads = halo_reads(cfg.lat, no_nothing, 1, bool(per[2]))[0]
+            timed += [("aa_odd_force_field_halo", ff.local_step,
+                       dict(force_add=fadd, force_ring_in=ring, out=fone, macro_out=macro, **kw),
+                       one_mk(nohook, bdom, DEVICE, force_field=True),
+                       dict(force=field, force_add=fadd, parity=1, out=torch.empty_like(inner)),
+                       4 * reads + 12 * threads + (27 + 4) * 4 * sites + threads, colliding),
+                      ("aa_odd_macro_only_halo", mo.local_step,
+                       dict(force=fadd, macro_out=macro, **kw),
+                       one_mk(nohook, bdom, DEVICE, macro_only=True), dict(force=fadd, parity=1),
+                       4 * mreads + 4 * 4 * sites + sites, 0)]
+        nn1 = sh.make_sharded_fused_nn_step(cfg, dom, plan, model, per)
+        one_nn = make_fused_nn_step(cfg, bdom, model, per, DEVICE)
+        for parity in ((0, 1) if streaming == "AA" else (0,)):
+            w = nn1.local_step.halo_width(parity)
+            hw = nn1.exchange(f, width=w)[0]
+            mp = nn1.map_halo(w)[0]
+            mode = "ab" if streaming == "AB" else ("even", "odd")[parity]
+            ring = int(mode == "odd")
+            region = np.ones((X + 2 * ring, Y + 2 * ring, Z), dtype=bool)
+            ustar = dilate_xy(region, 2)
+            ucodes = np.full(ustar.shape, int(GEO.FLUID), np.int64)
+            if mode == "even":
+                nreads = 27 * int(ustar.sum())
+            else:
+                nreads = halo_reads(cfg.lat, ucodes, 1, bool(per[2]))[0]
+            timed.append((f"nn_step_halo_{mode}", nn1.local_step,
+                          dict(force=fadd, parity=parity, out=fone, macro_out=macro,
+                               map_pad_in=mp, bflags=nn1.bflags[0]),
+                          one_nn, dict(force=fadd, parity=parity, out=torch.empty_like(inner)),
+                          4 * nreads + int(ustar.sum()) + (27 + 4) * 4 * sites,
+                          int(region.sum()), hw))
+        if streaming == "AB":
+            nnf = sh.make_sharded_nn_force(model, dom, plan, per)
+            rho0, u0 = mo(f, NU, force=fadd)
+            upad = nnf.exchange(u0, periodic=nnf.nn_periodic)[0]
+            reach = int(dilate_xy(np.ones((X, Y, Z), dtype=bool), 2).sum())
+            timed.append(("nn_force_halo", nnf.local_step,
+                          dict(map_pad_in=nnf.map_pads[0], bflags=nnf.bflags[0]),
+                          make_nn_force_kernel(model, bdom, DEVICE, periodic=per), {},
+                          (12 + 1) * reach + (4 + 12) * sites, sites,
+                          (rho0.blocks[0], upad)))
+        for item in timed:
+            key, ls, kwk, one, kwo, moved, threads_ops = item[:7]
+            args = item[7] if len(item) > 7 else halo
+            got = {}
+            where = f"{key} at the {X}x{Y}x{Z} block"
+            if key == "nn_force_halo":
+                rho_b, u_b = args
+                ms = time_ms(lambda: got.update(k=ls(rho_b, u_b, NU, out=field, **kwk)), 20)
+                plain_ms = time_ms(lambda: got.update(p=ls.plain(rho_b, u_b, NU, **kwk)), 1)
+                worst = [nn_force_diff(got["k"], got["p"], where)[0]]
+                r1, u1 = macro[0].copy_(rho_b), u_b[:, 2:-2, 2:-2].contiguous()
+                one_ms = time_ms(lambda: one(r1, u1, NU, out=field), 20)
+            else:
+                a = args if torch.is_tensor(args) else halo
+                pk = {k: v for k, v in kwk.items() if k not in ("out", "macro_out")}
+                ms = time_ms(lambda: got.update(k=ls(a, NU, **kwk)), 20)
+                plain_ms = time_ms(lambda: got.update(p=ls.plain(a, NU, **pk)), 1)
+                worst = [max_diff(x, y) for x, y in zip(got["k"], got["p"])]
+                tol = (TOL_F, TOL_RHO, TOL_U)[3 - len(worst):]
+                if len(got["k"]) != len(got["p"]) or any(w > t for w, t in zip(worst, tol)):
+                    raise RuntimeError(f"sharded hooked compare {where}: against its plain "
+                                       f"version {worst}")
+                one_ms = time_ms(lambda: one(inner, NU, **kwo), 20)
+            err[key] = max(err[key], worst[0])
+            del got
+            name = HOOKED_HALO_TIMED[key]
+            per_thread = ops[name]
+            b_ms, b_by = bound(moved / sites, tuple(v * threads_ops / sites for v in per_thread),
+                               sites)
+            out[key] = (ms, plain_ms, b_ms, b_by, one_ms)
+            log("sharded_hooked", timing=key, kernel=name, block=f"{X}x{Y}x{Z}", ms=f"{ms:.4f}",
+                unsharded_ms_same_block=f"{one_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                bound_ms=f"{b_ms:.4f}", bound_by=b_by, bytes_moved=moved,
+                bytes_per_site=f"{moved / sites:.3f}", fp32_slots_per_thread=per_thread[0],
+                max_diff_to_plain=",".join(f"{w:.3e}" for w in worst), card=card_state())
+        del f, inner, fone, field, macro, ff, mo, halo, nn1, one_nn, timed
+        torch.cuda.empty_cache()
+    return out
+
+
+def hooked_duct_run(streaming: str, single: bool, devices, label: str):
+    """The 256^3 bench duct with the Carreau-Yasuda hook (``nn_bench_sim``)
+    for SHARDED_HOOKED_STEPS steps from rest, unsharded (``devices`` None) or
+    under choose_plan over ``devices``, counted from the end of sim_init."""
+    from tnl_lbm_tpu_torch.parallel.sharded import choose_plan
+
+    sim = nn_bench_sim(streaming, single, label=label, run=False)
+    sim.phys_final_time = SHARDED_HOOKED_STEPS * sim.domain.units.phys_dt
+    sim.plan = None if devices is None else choose_plan(sim.domain, devices)
+    if not sim.run() or sim.iterations != SHARDED_HOOKED_STEPS:
+        raise RuntimeError(f"sharded hooked run {label} failed ({sim.iterations} steps)")
+    return sim
+
+
+def hooked_halo_launches(sim) -> dict:
+    """Launches of this slice's kernels (and B2's modes) in a sharded hooked
+    run, by the wrappers' kernel names, and the run's plain calls."""
+    step = sim._step if hasattr(sim._step, "route") else sim._step.kernels[0]
+    counts = {k.name: k.launches for w in step.kernels for k in cuda_kernels(w)}
+    return counts, step.plain_calls
+
+
+def sharded_hooked_runs() -> tuple[dict, dict]:
+    """The hooked 256^3 duct (scripts/bench_hooked.py:56-69, Carreau-Yasuda
+    0.1, 1, 2, 0.5) A-B and A-A, single kernel (B10 halo) and pipeline (the
+    hook built without ``periodic``, so the pipeline runs: B4 halo or B2 and
+    B3 halo, B9 halo), SHARDED_HOOKED_STEPS steps each, on choose_plan's 2
+    shards of one card, and where the machine has more cards over 2 and over
+    every card, each equal to its unsharded run bit for bit (f, rho, u);
+    then sim_ibm res SHARDED_IBM_RES with --sharded on the same plans
+    against its unsharded run (max |du| within TOL_IBM_SHARDED, the CG
+    iteration counts equal).  Each sharded run launches its kernels, never
+    a plain version.  Returns (launches of this slice's kernels and B2's
+    modes by JSON key, the runs' figures)."""
+    import torch
+
+    launches = {k: 0 for k in HOOKED_HALO_KERNELS}
+    launches.update(aa_even_force_field=0, aa_even_macro_only=0)
+    figures = {}
+    n_cards = torch.cuda.device_count()
+    cuda0 = DEVICE + ":0"
+    plans = [("2", [cuda0] * 2)] + [(f"{k} cards", [f"{DEVICE}:{i}" for i in range(k)])
+                                     for k in sorted({2, n_cards}) if n_cards > 1]
+    for streaming in ("AB", "AA"):
+        for single in (True, False):
+            tag = f"hooked_duct_{streaming}_{'single' if single else 'pipeline'}"
+            one = hooked_duct_run(streaming, single, None, f"{tag}_unsharded")
+            ref = (one.f.clone(), one.rho.clone(), one.u.clone())
+            ms_one = run_figures(one)[0]
+            del one
+            torch.cuda.empty_cache()
+            for name, devices in plans:
+                label = f"{tag}_{name.replace(' ', '_')}"
+                sim = hooked_duct_run(streaming, single, devices, label)
+                ms_step, mlups, peak = run_figures(sim)
+                counts, plain = hooked_halo_launches(sim)
+                fields = sharded_fields(sim)
+                equal = all(torch.equal(a, b) for a, b in zip(fields, ref))
+                figures[label] = {"ms_per_step": ms_step, "unsharded_ms_per_step": ms_one,
+                                  "mlups": mlups, "peak_gb": peak, "bit_equal": equal,
+                                  "counts": sim.plan.counts, "route": sim._step.route}
+                log("sharded_hooked", run=label, plan="x".join(map(str, sim.plan.counts)),
+                    route=sim._step.route, steps=sim.iterations, ms_per_step=f"{ms_step:.4f}",
+                    unsharded_ms_per_step=f"{ms_one:.4f}", mlups=f"{mlups:.1f}",
+                    max_memory_allocated_gb=f"{peak:.3f}", bit_equal=equal, plain_calls=plain,
+                    **{f"launches_{k}": v for k, v in counts.items()})
+                if not equal or plain:
+                    raise RuntimeError(f"{label}: not bit for bit its unsharded run, or a plain "
+                                       f"call ({plain})")
+                for k, v in counts.items():
+                    if k in launches:
+                        launches[k] += v
+                del sim, fields
+                torch.cuda.empty_cache()
+            del ref
+    # sim_ibm with the IBM's sharded hook on the same plans
+    one = ibm_sim(SHARDED_IBM_RES, "sharded_ref", SHARDED_HOOKED_STEPS, timed=True)
+    u_ref, cg_ref = one.u.clone(), [r[2] for r in one.step_log]
+    del one
+    torch.cuda.empty_cache()
+    for name, devices in plans:
+        tag = name.replace(" ", "_")
+        sim = ibm_sim(SHARDED_IBM_RES, f"sharded_{tag}", SHARDED_HOOKED_STEPS, timed=True,
+                      devices=devices)
+        ms_step, mlups, peak = run_figures(sim)
+        counts, plain = hooked_halo_launches(sim)
+        cg = [r[2] for r in sim.step_log]
+        du = max_diff(sim.u, u_ref)
+        label = f"sim_ibm_res{SHARDED_IBM_RES}_{tag}"
+        figures[label] = {"ms_per_step": ms_step, "mlups": mlups, "peak_gb": peak,
+                          "max_du": du, "cg_iterations_equal": cg == cg_ref}
+        log("sharded_hooked", run=label, plan="x".join(map(str, sim.plan.counts)),
+            steps=sim.iterations, ms_per_step=f"{ms_step:.4f}", mlups=f"{mlups:.1f}",
+            max_du=f"{du:.3e}", cg_iterations=",".join(map(str, cg)),
+            cg_iterations_unsharded=",".join(map(str, cg_ref)), plain_calls=plain,
+            **{f"launches_{k}": v for k, v in counts.items()})
+        if du > TOL_IBM_SHARDED or cg != cg_ref or plain:
+            raise RuntimeError(f"{label}: max |du| {du} beyond {TOL_IBM_SHARDED}, CG counts "
+                               f"{cg} against {cg_ref}, or a plain call ({plain})")
+        for k, v in counts.items():
+            if k in launches:
+                launches[k] += v
+        del sim
+        torch.cuda.empty_cache()
+    return launches, figures
+
+
+def sharded_hooked_2d_run() -> tuple[int, dict]:
+    """sim2d_3 res TIME_2D_RES's channel (``sim2d3_channel``) with the
+    Carreau-Yasuda hook (NN_BENCH_MODEL, wrapped as the domain) for
+    SHARDED_HOOKED_STEPS steps through ``Simulation`` on 2 x-shards of one
+    card against its unsharded hooked run: per step the plain u* pass on
+    each shard's block from B5 halo's exchange, the hook on the gathered
+    lattice, B5 halo's force_field mode.  f, rho and u within
+    TOL_IBM_SHARDED: a block's plain sums over q round otherwise than the
+    whole lattice's, so the runs are not bit for bit.  Returns (B5 halo's
+    launches, the run's figures)."""
+    import torch
+
+    def run(label, plan):
+        sim = sim2d3_channel(f"hooked_2d_{label}", plan)
+        sim.cfg = hooked_cfg(sim.cfg, NN_BENCH_MODEL, sim.domain.periodic)
+        sim.phys_final_time = SHARDED_HOOKED_STEPS * sim.domain.units.phys_dt
+        if not sim.run() or sim.iterations != SHARDED_HOOKED_STEPS:
+            raise RuntimeError(f"sharded hooked 2D run {label} failed ({sim.iterations} steps)")
+        return sim
+
+    one = run("unsharded", None)
+    ref = (one.f.clone(), one.rho.clone(), one.u.clone())
+    ms_one = run_figures(one)[0]
+    del one
+    torch.cuda.empty_cache()
+    sim = run("2", plan_2d((2, 1)))
+    ms_step, mlups, peak = run_figures(sim)
+    launches = sim._step.base.local_step.kernel.launches
+    plain = sim._step.plain_calls
+    diffs = [max_diff(a, b) for a, b in zip(sharded_fields(sim), ref)]
+    label = f"sim2d_3_res{TIME_2D_RES}_hooked_2"
+    figures = {label: {"ms_per_step": ms_step, "unsharded_ms_per_step": ms_one, "mlups": mlups,
+                       "peak_gb": peak, "max_df": diffs[0], "max_drho": diffs[1],
+                       "max_du": diffs[2], "route": sim._step.route}}
+    log("sharded_hooked", run=label, plan="x".join(map(str, sim.plan.counts)),
+        route=sim._step.route, steps=sim.iterations, ms_per_step=f"{ms_step:.4f}",
+        unsharded_ms_per_step=f"{ms_one:.4f}", mlups=f"{mlups:.1f}",
+        max_memory_allocated_gb=f"{peak:.3f}", max_df=f"{diffs[0]:.3e}",
+        max_drho=f"{diffs[1]:.3e}", max_du=f"{diffs[2]:.3e}", plain_calls=plain,
+        launches_d2q9_step_halo=launches)
+    if max(diffs) > TOL_IBM_SHARDED or plain or launches != SHARDED_HOOKED_STEPS * 2:
+        raise RuntimeError(f"{label}: f, rho, u {diffs} beyond {TOL_IBM_SHARDED} of the "
+                           f"unsharded run, a plain call ({plain}) or {launches} launches")
+    del sim, ref
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
 def phase_sharded() -> dict:
     """The sharded lattice on the card (``halo_compares``, ``halo_kernel_times``,
     ``sharded_runs``, ``sharded_apps``), then the sharded pair
     (``pair_halo_compares``, ``pair_halo_times``, ``sharded_pair_runs``,
     ``sharded_pair_apps``), then the sharded 2D and coupled lattices
     (``halo_2d_ade_compares``, ``halo_2d_ade_times``, ``sharded_2d_ade_runs``,
-    ``sharded_2d_ade_apps``).  Returns the record's kernels, errors, times and
-    bounds of the haloed kernels."""
+    ``sharded_2d_ade_apps``), then the sharded hooked lattice
+    (``hooked_halo_compares``, ``hooked_halo_times``, ``sharded_hooked_runs``,
+    ``sharded_hooked_2d_run``).  Returns the record's kernels, errors, times
+    and bounds of the haloed kernels, and the launches of B2's force_field
+    and macro_only modes on the sharded hooked runs."""
     import torch
 
     from tnl_lbm_tpu_torch.kernels.build import build_library, kernel_resources
@@ -6792,7 +7271,8 @@ def phase_sharded() -> dict:
     res = kernel_resources(ptxas)
     instances = {**{k: v for k, v in HALO_KERNELS.items()},
                  **{k: v[0] for k, v in PAIR_HALO_KERNELS.items()},
-                 **{k: v[0] for k, v in HALO_2D_ADE_KERNELS.items()}}
+                 **{k: v[0] for k, v in HALO_2D_ADE_KERNELS.items()},
+                 **{k: v[0] for k, v in HOOKED_HALO_KERNELS.items()}}
     names = sorted({n for ns in instances.values() for n in ns}
                    | {"aa_odd_kernel", "aa_odd_f64_lean_kernel"})
     ops = sass_fp32_ops(path, names)
@@ -6824,11 +7304,25 @@ def phase_sharded() -> dict:
     launches.update(launches_2d)
     log("sharded", sharded_2d_ade_seconds=f"{time.perf_counter() - t0:.1f}")
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    err.update(hooked_halo_compares())
+    times.update(hooked_halo_times(ops, err))
+    launches_hooked, figures_hooked = sharded_hooked_runs()
+    b2_launches = {k: launches_hooked.pop(k) for k in ("aa_even_force_field",
+                                                       "aa_even_macro_only")}
+    launches.update(launches_hooked)
+    launches_2d_hooked, figures_2d_hooked = sharded_hooked_2d_run()
+    launches["d2q9_step_halo"] += launches_2d_hooked
+    figures_hooked.update(figures_2d_hooked)
+    log("sharded", sharded_hooked_seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
     sources = {"ab_step_halo": "halo_step.cu", "ab_step_f64_halo": "f64_ab.cu",
                "aa_odd_halo": "halo_step.cu", **{k: v[1] for k, v in PAIR_HALO_KERNELS.items()},
                **{k: v[1] for k, v in HALO_2D_ADE_KERNELS.items()}}
+    sources.update({k: v[1] for k, v in HOOKED_HALO_KERNELS.items()})
     replaces = {**HALO_REPLACES, **{k: v[2] for k, v in PAIR_HALO_KERNELS.items()},
-                **{k: v[2] for k, v in HALO_2D_ADE_KERNELS.items()}}
+                **{k: v[2] for k, v in HALO_2D_ADE_KERNELS.items()},
+                **{k: v[2] for k, v in HOOKED_HALO_KERNELS.items()}}
     kernels = {key: CudaKernel(key, f"tnl_lbm_tpu_torch/csrc/{sources[key]}", replaces[key],
                                launches[key]) for key in instances}
     for key, k in kernels.items():
@@ -6842,9 +7336,11 @@ def phase_sharded() -> dict:
                                 f"y-shards")
     shapes["ade_step_halo"] = (f"256x256x256 block of sim_coupled res {COUPLED_RES}'s ADE "
                                f"lattice on 2 x-shards")
+    for key in HOOKED_HALO_KERNELS:
+        shapes[key] = "256x128x256 block of the 256^3 hooked bench duct on 2 y-shards"
     return {"kernels": kernels, "err": err, "times": times, "figures": figures,
             "pair_figures": pair_figures, "figures_2d_ade": figures_2d, "resources": resources,
-            "shapes": shapes}
+            "shapes": shapes, "figures_hooked": figures_hooked, "b2_launches": b2_launches}
 
 
 def kernel_footprints(ops: dict, b5_bytes: float, b5_ff_bytes: float) -> dict:
@@ -7009,6 +7505,8 @@ def main() -> int:
     kernels.update(double["kernels"])
     sharded = phase_sharded()
     kernels.update(sharded["kernels"])
+    for key, n in sharded["b2_launches"].items():  # B2's modes on the sharded hooked runs
+        kernels[key] = dataclasses.replace(kernels[key], launches=kernels[key].launches + n)
     err = {**steps["err"], **pairs["err"], **probe["err"], **ab["err"], **layouts["err"],
            **double["err"], **sharded["err"],
            "d2q9_step": max(compare_2d_err, timed_2d["err"])}
@@ -7066,6 +7564,8 @@ def main() -> int:
                 entry["runs"] = {run: v for run, v in sharded["figures_2d_ade"].items()
                                  if run.startswith("sim_coupled" if key == "ade_step_halo"
                                                    else "sim2d")}
+            if key == "nn_step_halo_ab":
+                entry["runs"] = sharded["figures_hooked"]
         else:
             bound_ms, bound_by = bound(*footprint[key])
         if key == "nn_force":  # |dF| above; its gate is relative to max |F|
@@ -7074,7 +7574,7 @@ def main() -> int:
             geo = pairs["geometry"][key]
             entry.update(registers=built["res"][f"{key}_kernel"]["registers"],
                          smem_bytes=geo["smem_bytes"], stages=geo["stages"])
-        if key == "nn_force" or key.startswith("nn_step_"):  # the march's resources at 256^3
+        if key in ("nn_force", "nn_step_ab", "nn_step_even", "nn_step_odd"):  # the march at 256^3
             geo = built["nn_geometry"]["nn_force" if key == "nn_force" else "nn_step"]
             r = built["res"][NN_INSTANCES[key]]
             entry.update(registers=r["registers"], spill_stores=r.get("spill_stores", 0),

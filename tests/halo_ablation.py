@@ -68,9 +68,9 @@ def main() -> int:
     with ThreadPoolExecutor(len(MIN_BLOCKS)) as ex:
         for n, so, regs in ex.map(build, MIN_BLOCKS):
             lib = ctypes.CDLL(str(so))
-            lib.tnl_lbm_ab_step_halo.argtypes = [p] * 5 + [i] * 5 + [f] * 7 + [i, p]
+            lib.tnl_lbm_ab_step_halo.argtypes = [p] * 6 + [i] * 6 + [f] * 7 + [i, p]
             lib.tnl_lbm_ab_step_halo.restype = i
-            lib.tnl_lbm_aa_odd_halo.argtypes = [p] * 5 + [i] * 7 + [f] * 7 + [i, p]
+            lib.tnl_lbm_aa_odd_halo.argtypes = [p] * 6 + [i] * 8 + [f] * 7 + [i, p]
             lib.tnl_lbm_aa_odd_halo.restype = i
             libs[f"min_blocks_{n}"] = lib
             print(f"[ptxas] min_blocks={n} " + " ".join(f"{k}:{r}regs/{s}B" for k, s, r in regs),
@@ -92,15 +92,15 @@ def main() -> int:
         ref = None
         for name, lib in libs.items():
             if streaming == "AB":
-                args = (halo.data_ptr(), fo.data_ptr(), step.maps.blocks[0].data_ptr(),
-                        rho.data_ptr(), u.data_ptr(), X, Y, Z, 0, 0, nu, fx, 0.0, 0.0, 0.0, 0.0,
-                        0.0, 0, stream)
+                args = (halo.data_ptr(), fo.data_ptr(), step.maps.blocks[0].data_ptr(), None,
+                        rho.data_ptr(), u.data_ptr(), X, Y, Z, 0, 0, 0, nu, fx, 0.0, 0.0, 0.0,
+                        0.0, 0.0, 0, stream)
                 run = lambda lib=lib, a=args: lib.tnl_lbm_ab_step_halo(*a)  # noqa: E731
             else:
                 gbits = sum(1 << k for k, g in enumerate(ls._faces(step.bflags[0])) if g)
-                args = (halo.data_ptr(), fo.data_ptr(), step.rings[0].data_ptr(), rho.data_ptr(),
-                        u.data_ptr(), X, Y, Z, 0, gbits, 1, ls.variant, nu, fx, 0.0, 0.0, 0.0,
-                        0.0, 0.0, 0, stream)
+                args = (halo.data_ptr(), fo.data_ptr(), step.rings[0].data_ptr(), None,
+                        rho.data_ptr(), u.data_ptr(), X, Y, Z, 0, gbits, 1, ls.variant, 0, nu, fx,
+                        0.0, 0.0, 0.0, 0.0, 0.0, 0, stream)
                 run = lambda lib=lib, a=args: lib.tnl_lbm_aa_odd_halo(*a)  # noqa: E731
             ms = cs.time_ms(run, 20)
             run()

@@ -72,7 +72,7 @@ ODD_SITE = ("        aa_odd_site<WELL, EQ, false, false, C>(f, fout, map, rho_ou
 EVEN_SITE = "        if (m == GEO_NOTHING) {"
 FORCE_STEP = "      float F[3];\n      nn::force_at("
 STRAIN_FORCE = "    if (q >= 1 && q <= L + 2) nn::strain_plane(m, q);"
-FORCE_B9 = "      nn::force_at(m, r, p, m.xs + p - 2, ly, lz, rho_s, out);"
+FORCE_B9 = "      nn::force_at<HALO>(m, r, p, m.xs + p - 2, ly, lz, rho_s, out);"
 #: what stands in for a site update that is dropped: F kept alive
 NO_SITE = "        rho_out[((int64_t)x * Y + y) * Z + z] = ps.fx + ps.fy + ps.fz;"
 SEG_MAX = "constexpr int SEG_MAX = 32;"

@@ -407,7 +407,8 @@ def test_2d_apps_cli_and_options(tmp_path, geos):
                         "--results-dir", str(tmp_path)])
     assert sim.iterations > 0 and sim._step.plain_calls == sim.iterations
     # --sharded runs (on the CPU over the one device: one shard); a hook under
-    # a plan still raises (tests/test_torch_sharded_2d_ade.py holds N shards)
+    # a plan builds the sharded hooked step (tests/test_torch_sharded_hooked.py
+    # and tests/test_torch_sharded_2d_ade.py hold N shards)
     for app, args in ((sim2d_1, ["--use-fused", "--final-time", "0.002"]),
                       (sim2d_2, [obj, "--final-time", "0.0025"]),
                       (sim2d_3, [obj, "--final-time", "0.0025", "--values-dir",
@@ -416,8 +417,9 @@ def test_2d_apps_cli_and_options(tmp_path, geos):
                         str(tmp_path / "sharded")])
         assert sim.plan is not None and sim.iterations > 0
         assert sim._step.local_step.plain_calls == sim.iterations
-        with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-            sim._sharded_step(dataclasses.replace(sim.cfg, forcing_hook=lambda *a, **k: None))
+        hooked = sim._sharded_step(dataclasses.replace(sim.cfg,
+                                                       forcing_hook=lambda *a, **k: None))
+        assert getattr(hooked, "route", "pipeline") == "pipeline" and hooked.padded_shape
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             sim2d_3.build(1, device="cuda", results_parent=tmp_path / "cuda")

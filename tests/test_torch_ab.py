@@ -206,12 +206,17 @@ def test_ab_step_refuses_what_it_does_not_implement(monkeypatch):
     m, periodic = channel("box")
     dom = interop.domain_from_numpy(m, periodic)
     cfg = interop.config_from_spec(**spec_of("CUM_WELL", "AB"))
-    # the haloed block of the sharded step: the cumulant steps' instances;
-    # a family collision, the force_field / macro_only variants and a
-    # local_shape without prepadded are refused
+    # the haloed block of the sharded step: the cumulant steps' instances, and
+    # in float32 their force_field / macro_only modes; a family collision,
+    # the float64 modes and a local_shape without prepadded are refused
     assert make_fused_step(cfg, dom, "cpu", prepadded=True).kernel.name == "ab_step_halo"
+    for kw, name in (({"force_field": True}, "ab_step_force_field_halo"),
+                     ({"macro_only": True}, "ab_step_macro_only_halo")):
+        assert make_fused_step(cfg, dom, "cpu", prepadded=True, **kw).kernel.name == name
     srt = interop.config_from_spec("SRT", "EQ", False, "AB")
-    for c, kw in ((srt, {}), (cfg, {"force_field": True}), (cfg, {"macro_only": True})):
+    f64 = interop.config_from_spec(**{**spec_of("CUM_WELL", "AB"), "dtype": "float64"})
+    for c, kw in ((srt, {}), (srt, {"force_field": True}), (f64, {"force_field": True}),
+                  (f64, {"macro_only": True})):
         with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
             make_fused_step(c, dom, "cpu", prepadded=True, **kw)
     with pytest.raises(ValueError, match="prepadded"):

@@ -136,15 +136,18 @@ def test_sim_3_cli_runs_on_the_cpu(tmp_path):
 
 def test_app_options_that_raise(tmp_path):
     # --sharded runs on the 3D apps, in pairs too (tests/test_torch_sharded.py,
-    # tests/test_torch_sharded_pair.py), and on the 2D ones through B5 halo
-    # (tests/test_torch_sharded_2d_ade.py); the IBM app's sharded lattice does not yet
+    # tests/test_torch_sharded_pair.py), on the 2D ones through B5 halo
+    # (tests/test_torch_sharded_2d_ade.py) and on the IBM app through the
+    # sharded hooked pipeline (tests/test_torch_sharded_hooked.py)
     sim = sim2d_1.main(["1", "--device", "cpu", "--sharded", "--use-fused", "--final-time",
                         "0.002", "--results-dir", str(tmp_path / "pair")])
     assert sim.plan.counts == (1, 1) and sim._step.local_step.kernel.name == "d2q9_step_halo"
     assert sim._step.local_step.plain_calls == sim.iterations > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-        sim_ibm.main(["1", "--device", "cpu", "--sharded", "--final-time", "0.002",
-                      "--results-dir", str(tmp_path / "pair2")])
+    sim = sim_ibm.main(["1", "--device", "cpu", "--sharded", "--final-time", "0.002",
+                        "--results-dir", str(tmp_path / "pair2")])
+    assert sim.plan.counts == (1, 1, 1) and sim._step.route == "pipeline"
+    assert sim.iterations == 3 and sim._step.base.local_step.kernel.name == \
+        "ab_step_force_field_halo"
     # A-A with the kernels runs through the even/odd kernels' plain versions
     # here ("auto" is per step on the CPU); the plain A-A step runs too
     sim = sim_1.main(["1", "--device", "cpu", "--streaming", "AA", "--use-fused",

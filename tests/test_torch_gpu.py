@@ -1964,3 +1964,122 @@ def test_halo_2d_and_ade_runs_equal_unsharded_on_card(cuda, tmp_path):
             assert sim._ade_step.local_step.plain_calls == 0
     for a, b in zip(coupled[2], coupled[None]):
         assert torch.equal(a, b)
+
+
+# ------------------------------ the sharded hooked lattice (A13b, item 2)
+
+@pytest.mark.parametrize("counts", [(2, 2, 1), (2, 1, 1)], ids=["x2y2", "x2"])
+@pytest.mark.parametrize("kind", ["duct", "obstacle"])
+@pytest.mark.parametrize("streaming", ["AB", "AA"])
+def test_hooked_halo_kernels_match_plain_on_card(cuda, streaming, kind, counts):
+    """This slice's haloed instances on every shard's block against their
+    plain versions on the card: B4 halo (A-B) or B3 halo (A-A odd, the force
+    ring from the neighbours) in the force_field and macro_only modes, B9
+    halo on their u*, B10 halo in each mode of the pattern; the step bounds
+    (B9: 1e-6 of max |F|), on the wall duct (the x seams cut its walls) and
+    the closed box whose y seam runs through its obstacle."""
+    import dataclasses
+
+    from tnl_lbm_tpu_torch.ops.non_newtonian import make_nn_forcing_hook
+    from tnl_lbm_tpu_torch.parallel import sharded as sh
+    from torch_cases import NN_MODELS, nn_case, nn_state
+
+    m, periodic, model, per = nn_case(kind)
+    dom = interop.domain_from_numpy(m, periodic)
+    nohook = interop.config_from_spec("CUM_WELL", "EQ_WELL", True, streaming)
+    cfg = dataclasses.replace(nohook, forcing_hook=make_nn_forcing_hook(NN_MODELS[model],
+                                                                        periodic=per))
+    plan = card_plan(counts, cuda)
+    n = plan.n_shards
+    rho, u = nn_state(m.shape, 3)
+    f = plan.shard_field(cfg.eq(cfg.lat, torch.from_numpy(rho), torch.from_numpy(u))
+                         .contiguous(), like_f=True)
+    rng = np.random.default_rng(5)
+    field = plan.shard_field((1e-5 * rng.standard_normal((3,) + m.shape)).astype(np.float32),
+                             like_f=True)
+    fadd = (1e-5, 0.0, 0.0)
+    tol = (1e-6, 2e-6, 1e-6)
+
+    def held(ls, kernel, pairs):
+        for out, plain in pairs:
+            for a, b, t in zip(out, plain, tol):
+                assert float((a.double() - b.double()).abs().max()) <= t, kernel.name
+        assert kernel.launches == n and ls.plain_calls == 0
+
+    mk = sh.make_sharded_fused_step if streaming == "AB" else sh.make_sharded_fused_step_aa
+    ff, mo = mk(nohook, dom, plan, force_field=True), mk(nohook, dom, plan, macro_only=True)
+    halo = ff.exchange(f)
+    if streaming == "AB":
+        kw = [{"map_arr_in": ff.maps.blocks[k]} for k in range(n)]
+        fkw = [{"force": field.blocks[k]} for k in range(n)]
+        kernels = (ff.local_step.kernel, mo.local_step.kernel)
+    else:
+        ring = ff.force_ring(field)
+        kw = [{"parity": 1, "map_ring_in": ff.rings[k], "bflags": ff.bflags[k]}
+              for k in range(n)]
+        fkw = [{"force_ring_in": ring[k]} for k in range(n)]
+        kernels = (ff.local_step.odd, mo.local_step.odd)
+    held(ff.local_step, kernels[0],
+         [(ff.local_step(halo[k], 0.02, force_add=fadd, **fkw[k], **kw[k]),
+           ff.local_step.plain(halo[k], 0.02, force_add=fadd, **fkw[k], **kw[k]))
+          for k in range(n)])
+    held(mo.local_step, kernels[1],
+         [(mo.local_step(halo[k], 0.02, force=fadd, **kw[k]),
+           mo.local_step.plain(halo[k], 0.02, force=fadd, **kw[k])) for k in range(n)])
+    nnf = sh.make_sharded_nn_force(NN_MODELS[model], dom, plan, per)
+    rho0, u0 = mo(f, 0.02, force=fadd, parity=1 if streaming == "AA" else 0)
+    upads = nnf.exchange(u0, periodic=nnf.nn_periodic)
+    for k in range(n):
+        kw9 = {"map_pad_in": nnf.map_pads[k], "bflags": nnf.bflags[k]}
+        got = nnf.local_step(rho0.blocks[k], upads[k], 0.02, **kw9)
+        want = nnf.local_step.plain(rho0.blocks[k], upads[k], 0.02, **kw9)
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert nnf.local_step.kernel.launches == n and nnf.local_step.plain_calls == 0
+    one = sh.make_sharded_fused_nn_step(cfg, dom, plan, NN_MODELS[model], per)
+    ls = one.local_step
+    for parity in ((0, 1) if streaming == "AA" else (0,)):
+        w = ls.halo_width(parity)
+        hw, mp = one.exchange(f, width=w), one.map_halo(w)
+        ls.reset_counts()
+        kwn = [{"parity": parity, "map_pad_in": mp[k], "bflags": one.bflags[k]}
+               for k in range(n)]
+        mode = "ab" if streaming == "AB" else ("even", "odd")[parity]
+        held(ls, getattr(ls, mode), [(ls(hw[k], 0.02, force=fadd, **kwn[k]),
+                                      ls.plain(hw[k], 0.02, force=fadd, **kwn[k]))
+                                     for k in range(n)])
+
+
+@pytest.mark.parametrize("single", [True, False], ids=["single_kernel", "pipeline"])
+@pytest.mark.parametrize("streaming", ["AB", "AA"])
+def test_sharded_hooked_duct_equals_unsharded_on_card(cuda, streaming, single, tmp_path):
+    """The hooked bench duct (64^3, Carreau-Yasuda 0.1, 1, 2, 0.5 as
+    scripts/bench_hooked.py) through Simulation, 10 steps, on 2 shards of one
+    card against its unsharded run, bit for bit: the single-kernel route
+    (B10 halo; the hook wrapped as the domain) and the pipeline (B4 halo or
+    B2 and B3 halo, B9 halo; the hook built without ``periodic``)."""
+    import dataclasses
+
+    from tnl_lbm_tpu_torch import bench
+    from tnl_lbm_tpu_torch.ops.non_newtonian import make_nn_forcing_hook
+    from tnl_lbm_tpu_torch.parallel.sharded import choose_plan
+    from tnl_lbm_tpu_torch.sim.state import Simulation
+    from torch_cases import NN_MODELS
+
+    class Duct(Simulation):
+        def body_force(self, phys_time):
+            return np.array([1e-5, 0.0, 0.0])
+
+    cfg, dom = bench.flagship((64, 64, 64))
+    cfg = dataclasses.replace(cfg, streaming=streaming, forcing_hook=make_nn_forcing_hook(
+        NN_MODELS["cy"], periodic=dom.periodic if single else None))
+    runs = []
+    for plan in (None, choose_plan(dom, [cuda] * 2)):
+        sim = Duct(cfg, dom, device=cuda, sim_id="duct", results_parent=tmp_path / str(plan),
+                   phys_final_time=10 * dom.units.phys_dt, use_fused=True, plan=plan)
+        sim.run()
+        assert sim.iterations == 10
+        assert sim._step.route == ("single_kernel" if single else "pipeline")
+        assert sim._step.plain_calls == 0
+        runs.append((sim.f.gather() if plan is not None else sim.f, sim.rho, sim.u))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

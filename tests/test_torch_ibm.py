@@ -490,8 +490,13 @@ def test_sim_ibm_cli_and_its_refusals(tmp_path):
                         str(tmp_path), "--no-fused"])
     assert sim.iterations == 3
     assert bool(torch.isfinite(sim.u).all())
-    with pytest.raises(NotImplementedError, match="A13"):
-        sim_ibm.main(["1", "--device", "cpu", "--sharded", "--results-dir", str(tmp_path)])
+    # --sharded plans over the one CPU device with the IBM's sharded hook
+    # (tests/test_torch_sharded_hooked.py holds two shards)
+    two = sim_ibm.main(["1", "--device", "cpu", "--sharded", "--final-time", "0.002",
+                        "--results-dir", str(tmp_path / "sharded"), "--no-fused"])
+    assert two.plan.counts == (1, 1, 1) and two.iterations == 3
+    assert getattr(two.cfg.forcing_hook, "shard_local", False)
+    assert torch.equal(two.u, sim.u)
 
 
 def test_ibm_table_rows_on_the_cpu():

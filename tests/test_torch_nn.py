@@ -337,7 +337,15 @@ def test_hooked_route_matches_jax_rule(streaming):
     across the hook's periodicity against the domain's, the codes (an
     OUTFLOW_RIGHT site; A-B also OUTFLOW_RIGHT_INTERP), the pinning flag
     and an IBM-style hook without the NN markers; else the pipeline, which
-    B9 joins for an NN hook."""
+    B9 joins for an NN hook.  Under a plan that leaves z uncut
+    make_sharded_hooked_fused_step takes B10 halo by the same rule (JAX
+    hooked.py:317-323), B9 halo joining its pipeline; a z cut raises
+    naming A13b."""
+    from tnl_lbm_tpu_torch.kernels.hooked import make_sharded_hooked_fused_step
+
+    from test_torch_sharded import cpu_plan
+
+    plan = cpu_plan((2, 1, 1))
     plain_hook = lambda lat, rho, u, nu, fluid: torch.zeros_like(u)  # noqa: E731
     jplain_hook = lambda lat, rho, u, nu, fluid: jnp.zeros_like(u)  # noqa: E731
     seen = set()
@@ -354,6 +362,8 @@ def test_hooked_route_matches_jax_rule(streaming):
                     step = make_hooked_fused_step(cfg, dom, "cpu", **flags)
                     assert (step.route == "single_kernel") == want, (kind, per, extra_code, flags)
                     assert step.nn_force is not None
+                    sharded = make_sharded_hooked_fused_step(cfg, dom, plan, **flags)
+                    assert sharded.route == step.route and sharded.nn_force is not None
                     seen.add(want)
     assert seen == {True, False}
     jcfg, jdom, cfg, dom, _, _ = hooked_pair("duct", streaming)
@@ -361,6 +371,11 @@ def test_hooked_route_matches_jax_rule(streaming):
     cfg = dataclasses.replace(cfg, forcing_hook=plain_hook)
     step = make_hooked_fused_step(cfg, dom, "cpu")
     assert not j_routes_single(jcfg, jdom) and step.route == "pipeline" and step.nn_force is None
+    sharded = make_sharded_hooked_fused_step(cfg, dom, plan)
+    assert sharded.route == "pipeline" and sharded.nn_force is None
+    _, _, cfg, dom, _, _ = hooked_pair("duct", streaming)
+    with pytest.raises(NotImplementedError, match="A13b"):
+        make_sharded_hooked_fused_step(cfg, dom, cpu_plan((1, 1, 2)))
 
 
 def test_per_site_force_takes_the_pipeline_and_b10_refuses_it():

@@ -275,9 +275,10 @@ def test_sharded_kernel_steps_refuse_what_is_not_ported():
     aa = interop.config_from_spec("SRT", "EQ", False, "AA", dtype="float64")
     with pytest.raises(NotImplementedError, match="A13b"):
         sh.make_sharded_fused_step_aa(aa, dom, cpu_plan((2, 1, 1)))
-    with pytest.raises(NotImplementedError, match="A13b"):
-        sh.make_sharded_fused_step_aa(dataclasses.replace(cfg, streaming="AA"), dom,
-                                      cpu_plan((2, 1, 1)), force_field=True)
+    # the force_field mode with the force ring is the sharded hooked pipeline's
+    ff = sh.make_sharded_fused_step_aa(dataclasses.replace(cfg, streaming="AA"), dom,
+                                       cpu_plan((2, 1, 1)), force_field=True)
+    assert ff.local_step.force_field and ff.local_step.odd.name == "aa_odd_force_field_halo"
 
 
 @pytest.mark.parametrize("shape,counts,periodic", (

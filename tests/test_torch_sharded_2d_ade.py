@@ -20,7 +20,8 @@ virtual CPU devices.  Held:
 - a sharded coupled checkpoint (f and g) loads in JAX, and a JAX one
   resumes in the port;
 - the refusals: ``use_fused`` A-A coupled under a plan (ROADMAP §C), the
-  hooked steps under a plan (A13b), the plain step's OUTFLOW_PE rules.
+  z cuts of the kernel steps (A13b), the plain step's OUTFLOW_PE rules; a
+  hook under a plan takes the sharded hooked steps.
 
 ``-m slow`` holds the sharded kernel steps to the JAX fused sharded steps
 in Pallas interpret mode.
@@ -335,13 +336,26 @@ def test_sim2d_apps_sharded_equal_unsharded(tmp_path, geos):
 
 
 def test_sim2d_hooks_and_refused_configs_under_a_plan(tmp_path):
-    """A forcing hook under a plan keeps raising (ROADMAP A13b), and a D2Q9
-    config B5 refuses raises there as unsharded (float64: Bf64)."""
+    """A forcing hook under a plan takes the sharded hooked pipeline (the u*
+    pass on the haloed blocks, the hook on the gathered lattice, then B5
+    halo's force_field mode), which equals the unsharded hooked step within
+    2 ulp of the largest value (a block's plain sums over q round their
+    tails otherwise than the whole lattice's); a D2Q9 config B5 refuses
+    raises there as unsharded (float64: Bf64)."""
+    from tnl_lbm_tpu_torch.kernels.hooked import make_hooked_fused_step
+
     sim = sim2d_1.build(1, 0.002, tmp_path, device="cpu", use_fused=True, sharded=True,
                         devices=["cpu", "cpu"])
-    hooked = dataclasses.replace(sim.cfg, forcing_hook=lambda *a, **k: None)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        sim._sharded_step(hooked)
+    hook = lambda lat, rho, u, nu, fluid: 1e-4 * u * rho  # noqa: E731
+    hooked = dataclasses.replace(sim.cfg, forcing_hook=hook)
+    step = sim._sharded_step(hooked)
+    assert step.route == "pipeline" and step.base.local_step.kernel.name.endswith("_halo")
+    one = make_hooked_fused_step(hooked, sim.domain, "cpu")
+    f0 = seeded_2d(sim.cfg, sim.domain.shape, "cpu", 3)
+    a = one(f0, NU, force=FORCE_2D)
+    b = step(sim.plan.shard_field(f0, like_f=True), NU, force=FORCE_2D)
+    for x, y in zip(a, b):
+        assert float((x - y.gather()).abs().max()) <= 2.4e-7 * float(x.abs().max())
     f64 = dataclasses.replace(sim.cfg, compute_dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="Bf64"):
         sim._sharded_step(f64)

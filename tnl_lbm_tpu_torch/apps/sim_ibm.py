@@ -6,7 +6,12 @@ Wu-Shu velocity-correction force solved each step in the forcing hook
 (``ibm/lagrange.py``).  With ``use_fused`` a step is the hooked pipeline
 (``kernels/hooked.py``): the A-B u* pass (B4 macro_only), the IBM solve as
 tensor ops, the A-B force_field step (B4) with the inflow vector; without
-it the plain hooked step.  It writes
+it the plain hooked step.  ``--sharded`` plans the lattice over the
+machine's cards (``parallel/sharded.py choose_plan``; on the CPU over the
+one device) with the IBM's ownership-partitioned hook (``IBM.sharded_hook``):
+the same pipeline on the shards' haloed blocks (B4 halo's macro_only and
+force_field modes), or the plain sharded hooked step without the kernels.
+It writes
 - the Lagrangian point cloud as VTK POLYDATA with each 2D cut (reference
   vtk_writer.h + state.hpp:76-113 writeVTKs_points), and
 - the integrated body force (drag) to the "ibm" logger each PROBE1 period
@@ -14,7 +19,7 @@ it the plain hooked step.  It writes
 
 Usage: python -m tnl_lbm_tpu_torch.apps.sim_ibm [RES] [--dirac phi2]
        [--method modified|original] [--device cuda|cpu] [--no-fused]
-       [--final-time T] [--results-dir DIR]
+       [--sharded] [--final-time T] [--results-dir DIR]
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from tnl_lbm_tpu_torch.io.vtk import write_points_vtk
 from tnl_lbm_tpu_torch.models import D3Q27
 from tnl_lbm_tpu_torch.ops import collision as col
 from tnl_lbm_tpu_torch.ops.boundary import GEO
+from tnl_lbm_tpu_torch.parallel.sharded import app_devices, choose_plan
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
 from tnl_lbm_tpu_torch.sim.obstacles import set_boundary_x, set_boundary_y, set_boundary_z
 from tnl_lbm_tpu_torch.sim.state import PRINT, PROBE1, VTK2D, Probe2DCut, Simulation
@@ -68,11 +74,11 @@ class SimIBM(Simulation):
 
 def build(resolution: int = 1, dirac: str = "phi2", method: str = "modified",
           final_time: float = 0.5, results_parent=".", use_fused: bool = True,
-          sharded: bool = False, *, device) -> SimIBM:
-    """The cylinder channel at ``resolution`` (lattice 96r x 32r x 32r) on ``device``."""
-    if sharded:
-        raise NotImplementedError("the sharded lattice and the sharded IBM hook are not "
-                                  "ported yet (ROADMAP A13b)")
+          sharded: bool = False, devices=None, *, device) -> SimIBM:
+    """The cylinder channel at ``resolution`` (lattice 96r x 32r x 32r) on
+    ``device``; ``sharded`` plans it over ``devices`` (by default
+    ``app_devices(device)``) with the IBM's sharded hook (JAX
+    ``apps/sim_ibm.py:110-116``)."""
     X = 96 * resolution
     Y = 32 * resolution
     Z = 32 * resolution
@@ -112,9 +118,17 @@ def build(resolution: int = 1, dirac: str = "phi2", method: str = "modified",
         ibm.m, lo, hi,
     )
 
-    cfg = LBMConfig(lat=D3Q27, collision=col.collide_cum, forcing_hook=ibm.forcing_hook())
+    plan = None
+    if sharded:
+        # the ownership-partitioned IBM: each shard samples and spreads the
+        # stencil nodes its block holds, the partial sums added
+        plan = choose_plan(dom, devices or app_devices(device))
+        hook = ibm.sharded_hook(plan, dom.shape)
+    else:
+        hook = ibm.forcing_hook()
+    cfg = LBMConfig(lat=D3Q27, collision=col.collide_cum, forcing_hook=hook)
     sim = SimIBM(cfg, dom, device=device, sim_id=sim_id, results_parent=results_parent,
-                 phys_final_time=final_time, use_fused=use_fused)
+                 phys_final_time=final_time, use_fused=use_fused, plan=plan)
     sim.ibm = ibm
     sim.lbm_inflow_vx = units.phys2lbm_velocity(phys_velocity)
     sim.cnt[PRINT].period = final_time / 50
@@ -132,7 +146,7 @@ def main(argv=None) -> SimIBM:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when no card is present")
     p.add_argument("--sharded", action="store_true",
-                   help="shard the lattice over the cards (not ported yet: ROADMAP A13b)")
+                   help="shard the lattice over the machine's cards (the CPU: its one device)")
     p.add_argument("--final-time", type=float, default=0.5)
     p.add_argument("--results-dir", default=".")
     p.add_argument("--no-fused", action="store_true",

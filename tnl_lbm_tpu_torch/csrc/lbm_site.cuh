@@ -1113,26 +1113,31 @@ __device__ __forceinline__ void aa_odd_site(const real* __restrict__ f, real* __
 
 // One A-B site update on a haloed shard block (the sharded A-B step's B4;
 // JAX make_fused_step with prepadded=True, local_shape=(X, Y, Z)): f is
-// [Q, X + 2, Y + 2, Z], the shard's block with a 1-wide x/y halo at origin
-// (1, 1, 0); fout, the map, rho and u are the block itself, [X, Y, Z] (the
-// map is not haloed: the outflow pulls from x-1 read f only).  Every x and
-// y neighbour read comes from the halo, with no wrap or clamp on those axes;
-// z keeps ab_site's wrap/clamp rule (pz).  The reads and the arithmetic are
-// ab_site's, so a shard's site is the unsharded step's site bit for bit
-// where the halo holds what the unsharded step reads there: the neighbour
-// shard's layers, or at a non-periodic global face the edge-replicated ones.
-template <bool WELL, int EQ>
+// [Q, X + 2H, Y + 2H, Z], the shard's block with an H-wide x/y halo at origin
+// (H, H, 0) (H = 1 for B4, 3 for the one-kernel NN step's A-B mode); fout,
+// rho and u are the block itself, [X, Y, Z]; the map is the block's (HM = 0:
+// the outflow pulls from x-1 read f only) or the block with an HM-wide halo.
+// Every x and y neighbour read comes from the halo, with no wrap or clamp on
+// those axes; z keeps ab_site's wrap/clamp rule (pz).  The reads and the
+// arithmetic are ab_site's, so a shard's site is the unsharded step's site
+// bit for bit where the halo holds what the unsharded step reads there: the
+// neighbour shard's layers, or at a non-periodic global face the
+// edge-replicated ones.  FF (the force_field mode) adds the site's force
+// from ff, the block's [3, X, Y, Z], to p's.
+template <bool WELL, int EQ, int H = 1, int HM = 0, bool FF = false>
 __device__ __forceinline__ void ab_halo_site(const real* __restrict__ f, real* __restrict__ fout,
                                              const uint8_t* __restrict__ map,
                                              real* __restrict__ rho_out,
                                              real* __restrict__ u_out, int x, int y, int z, int X,
-                                             int Y, int Z, bool pz, const ABParams& p) {
+                                             int Y, int Z, bool pz, const ABParams& p,
+                                             const real* __restrict__ ff = nullptr) {
   const int64_t N = (int64_t)X * Y * Z;
   const int64_t site = ((int64_t)x * Y + y) * Z + z;
-  const int64_t Yh = Y + 2, sx = Yh * Z, sy = Z;
-  const int64_t Nh = (int64_t)(X + 2) * sx;
-  const int64_t sh = ((int64_t)(x + 1) * Yh + (y + 1)) * Z + z;
-  const uint8_t m = map[site];
+  const int64_t Yh = Y + 2 * H, sx = Yh * Z, sy = Z;
+  const int64_t Nh = (int64_t)(X + 2 * H) * sx;
+  const int64_t sh = ((int64_t)(x + H) * Yh + (y + H)) * Z + z;
+  const uint8_t m =
+      map[HM == 0 ? site : ((int64_t)(x + HM) * (Y + 2 * HM) + (y + HM)) * Z + z];
   if (m == GEO_NOTHING) {
 #pragma unroll
     for (int q = 0; q < Q; ++q) fout[q * N + site] = f[q * Nh + sh];
@@ -1159,13 +1164,81 @@ __device__ __forceinline__ void ab_halo_site(const real* __restrict__ f, real* _
     }
   }
   real rho, ux, uy, uz;
-  site_collide<WELL, EQ>(v, m, p, rho, ux, uy, uz);
+  if constexpr (FF)
+    site_collide<WELL, EQ>(v, m, site_params(p, ff, site, N), rho, ux, uy, uz);
+  else
+    site_collide<WELL, EQ>(v, m, p, rho, ux, uy, uz);
 #pragma unroll
   for (int q = 0; q < Q; ++q) fout[q * N + site] = v[q];
   rho_out[site] = rho;
   u_out[site] = ux;
   u_out[N + site] = uy;
   u_out[2 * N + site] = uz;
+}
+
+// The A-B read of a haloed array at haloed offset sh (ab_halo_site's reads:
+// x and y neighbours from the halo, sx the haloed x stride, Nh the haloed
+// component stride; z wrapped or clamped by pz), with the outflow pull rules.
+__device__ __forceinline__ void ab_halo_pull(const real* __restrict__ f, uint8_t m, int64_t sh,
+                                             int64_t sx, int64_t Nh, int z, int Z, bool pz,
+                                             real (&v)[Q]) {
+  const int64_t sy = Z;
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    v[q] = f[q * Nh + sh - cx(q) * sx - cy(q) * sy + (neighbour(z, -cz(q), Z, pz) - z)];
+  if (m == GEO_OUTFLOW_RIGHT || m == GEO_OUTFLOW_RIGHT_INTERP) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int64_t yz = sh - cy(q) * sy + (neighbour(z, -cz(q), Z, pz) - z);
+      const real from_xm = f[q * Nh + yz - sx];
+      if (m == GEO_OUTFLOW_RIGHT)
+        v[q] = from_xm;
+      else if (cx(q) == -1)
+        v[q] = CS * from_xm + ONE_MINUS_CS * f[q * Nh + yz];
+    }
+  }
+}
+
+// The A-A odd read of a haloed array at haloed offset sh (aa_odd_halo_site's
+// reads): f_in[q] = f[opp q](s - c_q), OUTFLOW_RIGHT pulling f[opp q](x-1,
+// y - c_y, z - c_z).
+__device__ __forceinline__ void aa_odd_halo_pull(const real* __restrict__ f, uint8_t m,
+                                                 int64_t sh, int64_t sx, int64_t Nh, int z,
+                                                 int Z, bool pz, real (&v)[Q]) {
+  const int64_t sy = Z;
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    v[q] = f[opp(q) * Nh + sh - cx(q) * sx - cy(q) * sy + (neighbour(z, -cz(q), Z, pz) - z)];
+  if (m == GEO_OUTFLOW_RIGHT) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      v[q] = f[opp(q) * Nh + sh - sx - cy(q) * sy + (neighbour(z, -cz(q), Z, pz) - z)];
+  }
+}
+
+// The u* pre-pass at a site of a haloed shard block (the macro_only mode of
+// the sharded steps): the A-B read (ODD false: f has a 1-wide halo, the map
+// is the block's) or the A-A odd read (ODD true: f has a 2-wide halo, the map
+// is the block with its 1-wide ring), then macro_site at the block's site.
+template <bool WELL, bool ODD>
+__device__ __forceinline__ void halo_macro_site(const real* __restrict__ f,
+                                                const uint8_t* __restrict__ map,
+                                                real* __restrict__ rho_out,
+                                                real* __restrict__ u_out, int x, int y, int z,
+                                                int X, int Y, int Z, bool pz, const ABParams& p) {
+  constexpr int H = ODD ? 2 : 1, HM = ODD ? 1 : 0;
+  const int64_t N = (int64_t)X * Y * Z;
+  const int64_t site = ((int64_t)x * Y + y) * Z + z;
+  const int64_t Yh = Y + 2 * H, sx = Yh * Z;
+  const int64_t Nh = (int64_t)(X + 2 * H) * sx;
+  const int64_t sh = ((int64_t)(x + H) * Yh + (y + H)) * Z + z;
+  const uint8_t m = map[((int64_t)(x + HM) * (Y + 2 * HM) + (y + HM)) * Z + z];
+  real v[Q];
+  if constexpr (ODD)
+    aa_odd_halo_pull(f, m, sh, sx, Nh, z, Z, pz, v);
+  else
+    ab_halo_pull(f, m, sh, sx, Nh, z, Z, pz, v);
+  macro_site<WELL>(v, m, p, rho_out, u_out, site, N);
 }
 
 // Destinations along a sharded axis of the haloed odd push from local
@@ -1183,9 +1256,10 @@ __device__ __forceinline__ void block_targets(int s, int c, int n, bool glo, boo
 
 // One A-A odd site update on a haloed shard block (the sharded A-A step's
 // B3; JAX _build_odd_call with prepadded=True, its map_ring_in and bflags):
-// f is [Q, X + 4, Y + 4, Z], the shard's block with a 2-wide x/y halo at
-// origin (2, 2, 0); ring is the map of the block and its 1-wide x/y ring,
-// [X + 2, Y + 2, Z] at origin (1, 1, 0); fout, rho and u are the block.
+// f is [Q, X + 2H, Y + 2H, Z], the shard's block with an H-wide x/y halo at
+// origin (H, H, 0) (H = 2 for B3, 4 for the one-kernel NN step's odd mode);
+// ring is the map of the block and its HR-wide x/y ring, [X + 2HR, Y + 2HR,
+// Z] at origin (HR, HR, 0) (HR = 1 for B3); fout, rho and u are the block.
 // One thread per source site (x, y) in [-1, X] x [-1, Y]: the ring's sites
 // are the neighbour shards' edge sites, collided again here, so that their
 // pushes into the block need no exchange after the collision.  The read and
@@ -1197,23 +1271,28 @@ __device__ __forceinline__ void block_targets(int s, int c, int n, bool glo, boo
 // aa_odd_site's rules (pz).  Pushes aimed at a NOTHING site of the block are
 // dropped and its own thread restores its stored DFs.  A row away from the
 // block's x and y faces takes a short path, as in aa_odd_site: there only
-// z has targets to choose.
-template <bool WELL, int EQ, bool LEAN>
+// z has targets to choose.  FF (the force_field mode) adds the site's force
+// from ff, the block and its ring in the ring's layout [3, X + 2HR, Y + 2HR,
+// Z]: a ring site collides with the neighbour shard's force there (the JAX
+// force ring, sharded.py:1055-1077).
+template <bool WELL, int EQ, bool LEAN, int H = 2, int HR = 1, bool FF = false>
 __device__ __forceinline__ void aa_odd_halo_site(const real* __restrict__ f,
                                                  real* __restrict__ fout,
                                                  const uint8_t* __restrict__ ring,
                                                  real* __restrict__ rho_out,
                                                  real* __restrict__ u_out, int x, int y, int z,
                                                  int X, int Y, int Z, bool pz, int gbits,
-                                                 bool has_nothing, const ABParams& p) {
+                                                 bool has_nothing, const ABParams& p,
+                                                 const real* __restrict__ ff = nullptr) {
   const bool gxl = gbits & 1, gxh = gbits & 2, gyl = gbits & 4, gyh = gbits & 8;
   if ((x < 0 && gxl) || (x >= X && gxh) || (y < 0 && gyl) || (y >= Y && gyh)) return;
   const int64_t N = (int64_t)X * Y * Z;
-  const int64_t Yh = Y + 4, sx = Yh * Z, sy = Z;
-  const int64_t Nh = (int64_t)(X + 4) * sx;
-  const int64_t sh = ((int64_t)(x + 2) * Yh + (y + 2)) * Z + z;
-  const int64_t Yr = Y + 2;
-  const uint8_t m = ring[((int64_t)(x + 1) * Yr + (y + 1)) * Z + z];
+  const int64_t Yh = Y + 2 * H, sx = Yh * Z, sy = Z;
+  const int64_t Nh = (int64_t)(X + 2 * H) * sx;
+  const int64_t sh = ((int64_t)(x + H) * Yh + (y + H)) * Z + z;
+  const int64_t Yr = Y + 2 * HR;
+  const int64_t rs = ((int64_t)(x + HR) * Yr + (y + HR)) * Z + z;
+  const uint8_t m = ring[rs];
   real v[Q];
 #pragma unroll
   for (int q = 0; q < Q; ++q)
@@ -1225,6 +1304,9 @@ __device__ __forceinline__ void aa_odd_halo_site(const real* __restrict__ f,
   }
   real rho, ux, uy, uz;
   if constexpr (LEAN) stream_bc_collide(v, m, p, rho, ux, uy, uz);
+  else if constexpr (FF)
+    site_collide<WELL, EQ>(v, m, site_params(p, ff, rs, (int64_t)(X + 2 * HR) * Yr * Z), rho,
+                           ux, uy, uz);
   else site_collide<WELL, EQ>(v, m, p, rho, ux, uy, uz);
 
   if (x > 0 && x < X - 1 && y > 0 && y < Y - 1) {
@@ -1235,7 +1317,7 @@ __device__ __forceinline__ void aa_odd_halo_site(const real* __restrict__ f,
       int tz0, tz1;
       push_targets(z, cz(q), Z, pz, tz0, tz1);
       const int64_t row = ((int64_t)(x + cx(q)) * Y + (y + cy(q))) * Z;
-      const int64_t rrow = ((int64_t)(x + 1 + cx(q)) * Yr + (y + 1 + cy(q))) * Z;
+      const int64_t rrow = ((int64_t)(x + HR + cx(q)) * Yr + (y + HR + cy(q))) * Z;
       if (tz0 >= 0 && !(has_nothing && ring[rrow + tz0] == GEO_NOTHING))
         fout[q * N + row + tz0] = v[q];
       if (tz1 >= 0 && !(has_nothing && ring[rrow + tz1] == GEO_NOTHING))
@@ -1256,7 +1338,8 @@ __device__ __forceinline__ void aa_odd_halo_site(const real* __restrict__ f,
           for (int k = 0; k < 2; ++k)
             if (tx[i] >= 0 && ty[j] >= 0 && tz[k] >= 0 &&
                 !(has_nothing &&
-                  ring[((int64_t)(tx[i] + 1) * Yr + (ty[j] + 1)) * Z + tz[k]] == GEO_NOTHING))
+                  ring[((int64_t)(tx[i] + HR) * Yr + (ty[j] + HR)) * Z + tz[k]] ==
+                      GEO_NOTHING))
               fout[q * N + ((int64_t)tx[i] * Y + ty[j]) * Z + tz[k]] = v[q];
     }
   }

@@ -45,13 +45,22 @@
 #include "nn_site.cuh"
 
 
-extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_SM)
-    nn_force_kernel(const float* __restrict__ rho, const float* __restrict__ u,
-                    const uint8_t* __restrict__ map, float* __restrict__ F, int X, int Y, int Z,
-                    int nn_bits, int seg_len, nn::Rheology r) {
+// The march of a block.  HALO (B9 halo): u and the map hold the shard's
+// block with a 2-wide x/y halo, [3, X+4, Y+4, Z] and [X+4, Y+4, Z], rho and F
+// the block [X, Y, Z]; h the halo's geometry (nn_site.cuh Halo).
+template <bool HALO>
+__device__ __forceinline__ void nn_force_march(const float* __restrict__ rho,
+                                               const float* __restrict__ u,
+                                               const uint8_t* __restrict__ map,
+                                               float* __restrict__ F, int X, int Y, int Z,
+                                               int nn_bits, int seg_len, const nn::Rheology& r,
+                                               const nn::Halo& h) {
   extern __shared__ __align__(16) float smem[];
-  const nn::March m = nn::march(smem, false, X, Y, Z, nn_bits, seg_len);
+  const nn::March m = nn::march<HALO>(smem, false, X, Y, Z, nn_bits, seg_len, h);
   const int64_t YZ = (int64_t)Y * Z, N = X * YZ;
+  // the strides of u and the map: the haloed block's in the haloed mode
+  const int64_t YZu = HALO ? (int64_t)(Y + 2 * h.H) * Z : YZ;
+  const int64_t Nu = HALO ? (int64_t)(X + 2 * h.H) * YZu : N;
   const int L = m.xe - m.xs;
   int ly, lz;
   const bool mine = nn::tile_site(m, ly, lz);
@@ -62,7 +71,7 @@ extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_S
     float uv[nn::U_PER_THREAD][3];
     bool fl[nn::U_PER_THREAD];
     if (load) {
-      const int64_t xo = (int64_t)nn::plane_x(m, j) * YZ;
+      const int64_t xo = (int64_t)nn::plane_x<HALO>(m, j) * YZu;
 #pragma unroll
       for (int k = 0; k < nn::U_PER_THREAD; ++k) {
         const int i = nn::u_slot_of(threadIdx.x, k);
@@ -70,7 +79,7 @@ extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_S
         const unsigned yz = m.uyz[i];
         const int64_t s = xo + (int64_t)(yz >> 16) * Z + (yz & 0xffff);
 #pragma unroll
-        for (int b = 0; b < 3; ++b) uv[k][b] = u[b * N + s];
+        for (int b = 0; b < 3; ++b) uv[k][b] = u[b * Nu + s];
         fl[k] = map[s] == lbm::GEO_FLUID;
       }
     }
@@ -82,7 +91,7 @@ extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_S
     if (q >= 1 && q <= L + 2) nn::strain_plane(m, q);
     if (force) {
       float out[3];
-      nn::force_at(m, r, p, m.xs + p - 2, ly, lz, rho_s, out);
+      nn::force_at<HALO>(m, r, p, m.xs + p - 2, ly, lz, rho_s, out);
 #pragma unroll
       for (int b = 0; b < 3; ++b) F[b * N + s] = out[b];
     }
@@ -95,6 +104,21 @@ extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_S
     }
     __syncthreads();
   }
+}
+
+extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_SM)
+    nn_force_kernel(const float* __restrict__ rho, const float* __restrict__ u,
+                    const uint8_t* __restrict__ map, float* __restrict__ F, int X, int Y, int Z,
+                    int nn_bits, int seg_len, nn::Rheology r) {
+  nn_force_march<false>(rho, u, map, F, X, Y, Z, nn_bits, seg_len, r, nn::Halo{});
+}
+
+// B9 halo: the march over a shard's block (nn_force_march<true>).
+extern "C" __global__ void __launch_bounds__(nn::THREADS, nn::FORCE_BLOCKS_PER_SM)
+    nn_force_halo_kernel(const float* __restrict__ rho, const float* __restrict__ u,
+                         const uint8_t* __restrict__ map, float* __restrict__ F, int X, int Y,
+                         int Z, int nn_bits, int seg_len, nn::Rheology r, nn::Halo h) {
+  nn_force_march<true>(rho, u, map, F, X, Y, Z, nn_bits, seg_len, r, h);
 }
 
 // Launches on `stream`; returns cudaGetLastError() of the launch.  nn_bits:
@@ -115,6 +139,33 @@ extern "C" int tnl_lbm_nn_force(const float* rho, const float* u, const uint8_t*
   nn_force_kernel<<<l.blocks, nn::THREADS, nn::FORCE_SMEM_BYTES,
                     static_cast<cudaStream_t>(stream)>>>(rho, u, map, F, X, Y, Z, nn_bits,
                                                          l.seg_len, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B9 halo on `stream`: the NN force on a shard's block of X x Y x Z sites
+// from u [3, X+4, Y+4, Z] and the map [X+4, Y+4, Z] with their 2-wide x/y
+// halos (u* one site beyond the block gives S there, S one beyond gives F)
+// and rho [X, Y, Z], into F [3, X, Y, Z].  nn_bits: the hook's periodic
+// axes (z alone is read: x and y come from the halo); gbits: the block's
+// closed faces (bit 0 low x, 1 high x, 2 low y, 3 high y), faces of the
+// domain on which the hook does not wrap, where u, the mask and S
+// edge-replicate as in the unsharded kernel.  Returns cudaGetLastError().
+extern "C" int tnl_lbm_nn_force_halo(const float* rho, const float* u, const uint8_t* map,
+                                     float* F, int X, int Y, int Z, int nn_bits, int gbits,
+                                     int model, float nu, float nu0_minus_nu, float lam, float a,
+                                     float expo, float k0, float k1, void* stream) {
+  if (model != nn::CARREAU_YASUDA && model != nn::CASSON)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (Y + 4 > 65535 || Z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const nn::Rheology r{model, nu, nu0_minus_nu, lam, a, expo, k0, k1};
+  const cudaError_t err = cudaFuncSetAttribute(
+      nn_force_halo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, nn::FORCE_SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const nn::Halo h{2, 2, 0, 0, X, Y, gbits};
+  const nn::Launch l = nn::launch(X, Y, Z, nn::FORCE_BLOCKS_PER_SM);
+  nn_force_halo_kernel<<<l.blocks, nn::THREADS, nn::FORCE_SMEM_BYTES,
+                         static_cast<cudaStream_t>(stream)>>>(rho, u, map, F, X, Y, Z, nn_bits,
+                                                              l.seg_len, r, h);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,6 +39,19 @@
 //     planes on either side, clamped to the plane itself at a closed face of
 //     the hook (the same edge replication, taken by the reader).
 //
+// The haloed mode (HALO, the sharded lattice's B9 and B10 on a shard's
+// block; JAX make_sharded_fused_nn_step, the GSPMD hook of
+// make_sharded_hooked_fused_step): the arrays hold the block with an H-wide
+// x/y halo (Halo), the neighbour shards' layers, and the march walks a region
+// of block coordinates - the block, or for B10's odd mode the block and its
+// 1-site ring where a face is a seam.  A coordinate is the block coordinate
+// itself, read from the halo, except on a closed face (a face of the domain
+// on which the hook does not wrap, gbits), where it is clamped to the edge
+// as in the unsharded march: the seams read neighbour data, the domain's
+// closed faces edge-replicate u, the mask and S.  z keeps the unsharded
+// rule.  The coordinates of slots no region site reads are clamped into
+// the halo (lim), never outside the arrays.
+//
 // The lags let one step's three parts run between the same two barriers:
 // each ring plane a step writes was last read in an earlier step (the CPU
 // model in tests/test_torch_nn_march.py checks every lifetime).  Each u, S
@@ -238,6 +251,27 @@ static inline int launch_info(int X, int Y, int Z, int blocks_per_sm, int smem_b
   return 0;
 }
 
+// The haloed mode's geometry (HALO): the arrays' halo width, the region's
+// origin and the block's extent in block coordinates, the closed faces (bit
+// 0 low x, 1 high x, 2 low y, 3 high y) and how far beyond the block a slot
+// coordinate may lie (lim: H less the one site a u* pull reads beyond it).
+struct Halo {
+  int H, lim;
+  int ox, oy;
+  int bX, bY;
+  int gbits;
+};
+
+// Block coordinate g along axis a (0 x, 1 y) as an index of the haloed
+// arrays: clamped to the edge on a closed face, kept in the halo elsewhere.
+__host__ __device__ __forceinline__ int hcoord(const Halo& h, int g, int a) {
+  const int n = a == 0 ? h.bX : h.bY;
+  if (((h.gbits >> (2 * a)) & 1) && g < 0) g = 0;
+  if (((h.gbits >> (2 * a + 1)) & 1) && g >= n) g = n - 1;
+  g = g < -h.lim ? -h.lim : (g > n - 1 + h.lim ? n - 1 + h.lim : g);
+  return g + h.H;
+}
+
 // A block's march: its rings and slot tables carved from the dynamic shared
 // memory, its tile and its segment.  The slot tables hold what is fixed for
 // the whole march, so that no thread keeps it in registers across the site
@@ -251,8 +285,9 @@ struct March {
   uint8_t* fluid;  // [U_PLANES][U_SLOTS]: map == FLUID
   int y0, z0;      // the tile's first site
   int xs, xe;      // the segment
-  int X, Y, Z;
+  int X, Y, Z;     // the region's extent (HALO: the march's region; else the lattice)
   bool per[3];     // the hook's periodic axes
+  Halo h;          // HALO: the haloed arrays and the region
 };
 
 // Slot pass k of thread t: u slots in order; S slots in order on the first
@@ -264,8 +299,11 @@ __device__ __forceinline__ int s_slot_of(int t, int k) {
 }
 
 // The block's march; fills the slot tables and ends in a block barrier.
+// HALO: X and Y are the region's extent, h its geometry; a u slot's table
+// entry holds its y as an index of the haloed arrays.
+template <bool HALO = false>
 __device__ __forceinline__ March march(void* smem, bool with_rho, int X, int Y, int Z,
-                                       int nn_bits, int seg_len) {
+                                       int nn_bits, int seg_len, Halo h = Halo{}) {
   March m;
   m.u = static_cast<float*>(smem);
   m.S = m.u + U_PLANES * 3 * U_SLOTS;
@@ -287,12 +325,26 @@ __device__ __forceinline__ March march(void* smem, bool with_rho, int X, int Y, 
   m.z0 = (col % nzt) * TZ;
   m.xs = seg * seg_len;
   m.xe = min(m.xs + seg_len, X);
-  for (int i = threadIdx.x; i < U_SLOTS; i += THREADS)
-    m.uyz[i] = unsigned(canonical(m.y0 + i / UZ - 2, Y, m.per[1])) << 16 |
-               unsigned(canonical(m.z0 + i % UZ - 2, Z, m.per[2]));
-  for (int i = threadIdx.x; i < S_SLOTS; i += THREADS)
-    m.scu[i] = (clamped(m.y0 + i / SZ - 1, Y, m.per[1]) - m.y0 + 2) * UZ +
-               (clamped(m.z0 + i % SZ - 1, Z, m.per[2]) - m.z0 + 2);
+  if constexpr (HALO) {
+    m.h = h;
+    const int yb = h.oy + m.y0;  // the tile's first y in block coordinates
+    for (int i = threadIdx.x; i < U_SLOTS; i += THREADS)
+      m.uyz[i] = unsigned(hcoord(h, yb + i / UZ - 2, 1)) << 16 |
+                 unsigned(canonical(m.z0 + i % UZ - 2, Z, m.per[2]));
+    for (int i = threadIdx.x; i < S_SLOTS; i += THREADS) {
+      int y = yb + i / SZ - 1;  // S is replicated from the edge on a closed y face only
+      if ((h.gbits & 4) && y < 0) y = 0;
+      if ((h.gbits & 8) && y >= h.bY) y = h.bY - 1;
+      m.scu[i] = (y - yb + 2) * UZ + (clamped(m.z0 + i % SZ - 1, Z, m.per[2]) - m.z0 + 2);
+    }
+  } else {
+    for (int i = threadIdx.x; i < U_SLOTS; i += THREADS)
+      m.uyz[i] = unsigned(canonical(m.y0 + i / UZ - 2, Y, m.per[1])) << 16 |
+                 unsigned(canonical(m.z0 + i % UZ - 2, Z, m.per[2]));
+    for (int i = threadIdx.x; i < S_SLOTS; i += THREADS)
+      m.scu[i] = (clamped(m.y0 + i / SZ - 1, Y, m.per[1]) - m.y0 + 2) * UZ +
+                 (clamped(m.z0 + i % SZ - 1, Z, m.per[2]) - m.z0 + 2);
+  }
   __syncthreads();
   return m;
 }
@@ -304,8 +356,12 @@ __device__ __forceinline__ bool tile_site(const March& m, int& ly, int& lz) {
   return m.y0 + ly < m.Y && m.z0 + lz < m.Z;
 }
 
-// The canonical x of plane p (x = xs - 2 + p) under the hook's periodicity.
+// The canonical x of plane p (x = xs - 2 + p) under the hook's periodicity;
+// HALO: the plane's x (block coordinate ox + xs - 2 + p) as an index of the
+// haloed arrays.
+template <bool HALO = false>
 __device__ __forceinline__ int plane_x(const March& m, int p) {
+  if constexpr (HALO) return hcoord(m.h, m.h.ox + m.xs - 2 + p, 0);
   return canonical(m.xs - 2 + p, m.X, m.per[0]);
 }
 
@@ -351,13 +407,20 @@ __device__ __forceinline__ void strain_plane(const March& m, int q) {
   }
 }
 
-// F at tile site (ly, lz) of plane p (x = xs - 2 + p, in the domain) with
-// density rho.
+// F at tile site (ly, lz) of plane p (x = xs - 2 + p, in the domain; HALO:
+// x its block coordinate) with density rho.
+template <bool HALO = false>
 __device__ __forceinline__ void force_at(const March& m, const Rheology& r, int p, int x, int ly,
                                          int lz, float rho, float (&F)[3]) {
   // along x the S neighbours of a closed face are the face plane itself
-  const int pm = (!m.per[0] && x == 0) ? p : p - 1;
-  const int pp = (!m.per[0] && x == m.X - 1) ? p : p + 1;
+  int pm, pp;
+  if constexpr (HALO) {
+    pm = ((m.h.gbits & 1) && x == 0) ? p : p - 1;
+    pp = ((m.h.gbits & 2) && x == m.h.bX - 1) ? p : p + 1;
+  } else {
+    pm = (!m.per[0] && x == 0) ? p : p - 1;
+    pp = (!m.per[0] && x == m.X - 1) ? p : p + 1;
+  }
   const float* S[3] = {m.S + (pm % S_PLANES) * 6 * S_SLOTS, m.S + (p % S_PLANES) * 6 * S_SLOTS,
                        m.S + (pp % S_PLANES) * 6 * S_SLOTS};
   const uint8_t* fl[3] = {m.fluid + ((p - 1) % U_PLANES) * U_SLOTS,

@@ -89,23 +89,41 @@ struct NNStepParamsT {
 };
 using NNStepParams = NNStepParamsT<ABParams>;
 
+// B10 halo's x/y halo of f and the map per mode (A-B, even, odd;
+// nn_step_halo.cu says why these widths)
+constexpr int NN_HALO_AB = 3, NN_HALO_EVEN = 2, NN_HALO_ODD = 4;
+
 // One block's march; C is the collision of the site update (lbm_site.cuh
-// site_collide), which takes the total force F + F_nn as its force.
-template <bool WELL, int EQ, int MODE, class C = Cum<WELL>, class PP = ABParams>
+// site_collide), which takes the total force F + F_nn as its force.  HALO
+// (B10 halo, nn_step_halo.cu; the cumulant collisions): the march over the
+// region of h (nn_site.cuh Halo), X and Y the region's extent, f and the map
+// the shard's block with the mode's NN_HALO_* wide x/y halo, fout, rho and u
+// the block [h.bX, h.bY, Z].
+template <bool WELL, int EQ, int MODE, class C = Cum<WELL>, class PP = ABParams,
+          bool HALO = false>
 __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
                                               float* __restrict__ fout,
                                               const uint8_t* __restrict__ map,
                                               float* __restrict__ rho_out,
                                               float* __restrict__ u_out, int X, int Y, int Z,
-                                              int seg_len, const NNStepParamsT<PP>& P) {
+                                              int seg_len, const NNStepParamsT<PP>& P,
+                                              const nn::Halo& h = nn::Halo{}) {
+  constexpr int H = !HALO ? 0
+                          : (MODE == MODE_AB ? NN_HALO_AB
+                                             : (MODE == MODE_EVEN ? NN_HALO_EVEN : NN_HALO_ODD));
   extern __shared__ __align__(16) float smem[];
-  const nn::March mr = nn::march(smem, true, X, Y, Z, P.nn_bits, seg_len);
-  const int64_t YZ = (int64_t)Y * Z, N = X * YZ;
+  const nn::March mr = nn::march<HALO>(smem, true, X, Y, Z, P.nn_bits, seg_len, h);
+  // the block's extent, the strides of f and the map (with their halo) and
+  // of the outputs (the block's)
+  const int BX = HALO ? h.bX : X, BY = HALO ? h.bY : Y;
+  const int64_t YZ = (int64_t)(BY + 2 * H) * Z, N = (BX + 2 * H) * YZ;
+  const int64_t Nb = (int64_t)BX * BY * Z;
+  const bool pz = P.pbits & 4;
   const int L = mr.xe - mr.xs;
   for (int j = 0; j < L + nn::F_LAG + 2; ++j) {
-    // 1. u* of plane j, at the canonical coordinates
+    // 1. u* of plane j, at the canonical coordinates (HALO: the haloed ones)
     if (j < L + 4) {
-      const int x = nn::plane_x(mr, j);
+      const int x = nn::plane_x<HALO>(mr, j);
 #pragma unroll 1
       for (int k = 0; k < nn::U_PER_THREAD; ++k) {
         const int i = nn::u_slot_of(threadIdx.x, k);
@@ -115,9 +133,15 @@ __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
         const uint8_t m = map[site];
         float v[Q];
         if constexpr (MODE == MODE_AB) {
-          ab_pull(f, m, x, y, z, X, Y, Z, P.pbits, v);
+          if constexpr (HALO)
+            ab_halo_pull(f, m, site, YZ, N, z, Z, pz, v);
+          else
+            ab_pull(f, m, x, y, z, X, Y, Z, P.pbits, v);
         } else if constexpr (MODE == MODE_ODD) {
-          aa_odd_pull<false>(f, m, x, y, z, X, Y, Z, P.pbits, v);
+          if constexpr (HALO)
+            aa_odd_halo_pull(f, m, site, YZ, N, z, Z, pz, v);
+          else
+            aa_odd_pull<false>(f, m, x, y, z, X, Y, Z, P.pbits, v);
         } else {
 #pragma unroll
           for (int q = 0; q < Q; ++q) v[q] = f[q * N + site];
@@ -133,46 +157,56 @@ __device__ __forceinline__ void nn_step_block(const float* __restrict__ f,
     // 2. S of plane j - 2
     const int q = j - nn::S_LAG;
     if (q >= 1 && q <= L + 2) nn::strain_plane(mr, q);
-    // 3. the NN force and the site update of the mode at plane j - 4
+    // 3. the NN force and the site update of the mode at plane j - 4 (HALO:
+    // x and y block coordinates)
     const int p = j - nn::F_LAG;
     int ly, lz;
     if (p >= 2 && p <= L + 1 && nn::tile_site(mr, ly, lz)) {
-      const int x = mr.xs + p - 2, y = mr.y0 + ly, z = mr.z0 + lz;
+      const int x = (HALO ? h.ox : 0) + mr.xs + p - 2, y = (HALO ? h.oy : 0) + mr.y0 + ly;
+      const int z = mr.z0 + lz;
       float F[3];
-      nn::force_at(mr, P.r, p, x, ly, lz, mr.rho[(p % nn::RHO_PLANES) * nn::THREADS + threadIdx.x],
-                   F);
+      nn::force_at<HALO>(mr, P.r, p, x, ly, lz,
+                         mr.rho[(p % nn::RHO_PLANES) * nn::THREADS + threadIdx.x], F);
       PP ps = P.p;
       ps.fx = P.p.fx + F[0];
       ps.fy = P.p.fy + F[1];
       ps.fz = P.p.fz + F[2];
       float ux, uy, uz;
       if constexpr (MODE == MODE_AB) {
-        ab_site<WELL, EQ, false, C>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits, ps,
-                                    ux, uy, uz);
+        if constexpr (HALO)
+          ab_halo_site<WELL, EQ, H, H>(f, fout, map, rho_out, u_out, x, y, z, BX, BY, Z, pz, ps);
+        else
+          ab_site<WELL, EQ, false, C>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z, P.pbits,
+                                      ps, ux, uy, uz);
       } else if constexpr (MODE == MODE_ODD) {
-        aa_odd_site<WELL, EQ, false, false, C>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z,
-                                               P.pbits, P.has_nothing != 0, ps, ux, uy, uz);
+        if constexpr (HALO)
+          aa_odd_halo_site<WELL, EQ, false, H, H>(f, fout, map, rho_out, u_out, x, y, z, BX, BY,
+                                                  Z, pz, h.gbits, P.has_nothing != 0, ps);
+        else
+          aa_odd_site<WELL, EQ, false, false, C>(f, fout, map, rho_out, u_out, x, y, z, X, Y, Z,
+                                                 P.pbits, P.has_nothing != 0, ps, ux, uy, uz);
       } else {
         // the even update out of place: same site, opposite slots
-        const int64_t site = ((int64_t)x * Y + y) * Z + z;
-        const uint8_t m = map[site];
+        const int64_t site = ((int64_t)x * BY + y) * Z + z;
+        const int64_t sh = ((int64_t)(x + H) * (BY + 2 * H) + (y + H)) * Z + z;
+        const uint8_t m = map[sh];
         float r = 1.0f;
         ux = uy = uz = 0.0f;
         if (m == GEO_NOTHING) {
 #pragma unroll
-          for (int q = 0; q < Q; ++q) fout[q * N + site] = f[q * N + site];
+          for (int q = 0; q < Q; ++q) fout[q * Nb + site] = f[q * N + sh];
         } else {
           float v[Q];
 #pragma unroll
-          for (int q = 0; q < Q; ++q) v[q] = f[q * N + site];
+          for (int q = 0; q < Q; ++q) v[q] = f[q * N + sh];
           site_collide<WELL, EQ, C>(v, m, ps, r, ux, uy, uz);
 #pragma unroll
-          for (int q = 0; q < Q; ++q) fout[q * N + site] = v[opp(q)];
+          for (int q = 0; q < Q; ++q) fout[q * Nb + site] = v[opp(q)];
         }
         rho_out[site] = r;
         u_out[site] = ux;
-        u_out[N + site] = uy;
-        u_out[2 * N + site] = uz;
+        u_out[Nb + site] = uy;
+        u_out[2 * Nb + site] = uz;
       }
     }
     __syncthreads();

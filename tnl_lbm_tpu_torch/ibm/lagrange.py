@@ -33,9 +33,14 @@ the host cannot be captured in a CUDA graph: the hook of ``forcing_hook``
 says so (``reads_host``), and the driver runs a chunk of its steps eagerly
 (``sim/state.py``).
 
-The sharded methods of the JAX class (``sharded_hook``,
-``compute_forces_sharded``, ``interpolate_sharded``, ``spread_sharded``)
-ride with the sharded lattice (ROADMAP A13b).
+The sharded methods (JAX ``lagrange.py:628-740``: ``sharded_hook``,
+``compute_forces_sharded``, ``interpolate_sharded``, ``spread_sharded``) keep
+the cloud and the compact solve on the solver's device and partition the
+Eulerian work by node ownership: a stencil node belongs to the one shard
+whose block holds it, each shard samples and spreads its own nodes, and the
+JAX ``psum`` over the mesh is a sum of the shards' partial sums on the plan's
+first device, in shard order (so a sharded run adds in another order than
+the unsharded one: equal to float tolerance, not bit for bit).
 """
 
 from __future__ import annotations
@@ -544,6 +549,136 @@ class IBM:
             del lat, nu, fluid_mask
             return self.compute_forces(u, rho, consts=consts)
 
+        hook.consts = self.hook_consts()
+        hook.reads_host = True
+        return hook
+
+    # ------------------------------------------------------- distributed IBM
+    # The reference runs IBM inside its multi-GPU step (state.hpp:995-1015,
+    # kernels.h:178-218, lagrange_3D.hpp:632-852); JAX keeps the cloud
+    # replicated and partitions the Eulerian work by node ownership (one psum
+    # of [u, 3] completes the node velocities).  Here the shards are blocks of
+    # one process: their partial sums are added on the plan's first device.
+
+    @staticmethod
+    def _local_ids(plan, shape, k: int):
+        """(offsets [3], local extents [3]) of shard k's block."""
+        exts = [shape[a] // plan.counts[a] for a in range(3)]
+        idx = plan.block_index(k)
+        return [idx[a] * exts[a] for a in range(3)], exts
+
+    def _owned_c(self, plan, shape, nodes, k: int):
+        """Shard k's local coordinates of ``nodes`` [..., 3] (clipped into its
+        block) and which of them its block holds, on ``nodes``' device."""
+        offs, exts = self._local_ids(plan, shape, k)
+        loc, inside = [], None
+        for a in range(3):
+            g = torch.clamp(nodes[..., a], 0, shape[a] - 1)
+            lc = g - offs[a]
+            ok = (lc >= 0) & (lc < exts[a])
+            inside = ok if inside is None else inside & ok
+            loc.append(torch.clamp(lc, 0, exts[a] - 1))
+        return loc, inside, exts
+
+    def _psum(self, parts, device):
+        """The shards' partial sums added on ``device``, in shard order (the
+        JAX psum)."""
+        total = parts[0].to(device)
+        for part in parts[1:]:
+            total = total + part.to(device)
+        return total
+
+    def interpolate_sharded(self, field, plan, shape, consts=None) -> torch.Tensor:
+        """M u of a sharded field (a ShardedField or its blocks, [C, Xl, Yl,
+        Zl] each) -> [m, C] on the plan's first device: each shard's partial
+        sum over the stencil nodes it owns, the partials added."""
+        w, nodes = self._cw(consts)
+        blocks = getattr(field, "blocks", field)
+        parts = []
+        for k, blk in enumerate(blocks):
+            (ix, iy, iz), inside, _ = self._owned_c(plan, shape, nodes.to(blk.device), k)
+            vals = blk[:, ix, iy, iz]  # [C, m, s^3]
+            wl = (w.to(blk.device) * inside).to(blk.dtype)
+            parts.append(torch.sum(vals * wl[None], dim=-1).T)
+        return self._psum(parts, plan.device(0))
+
+    def spread_sharded(self, vals, plan, shape, consts=None) -> list:
+        """M^T x onto every shard's block: [C, Xl, Yl, Zl] per shard, each
+        spreading only the stencil nodes it owns."""
+        w, nodes = self._cw(consts)
+        out = []
+        for k in range(plan.n_shards):
+            dev = plan.device(k)
+            (ix, iy, iz), inside, (lx, ly, lz) = self._owned_c(plan, shape, nodes.to(dev), k)
+            flat = (ix * ly + iy) * lz + iz  # [m, s^3] local flat ids
+            v = vals.to(dev)
+            contrib = (w.to(dev) * inside).to(v.dtype)[..., None] * v[:, None, :]
+            C = v.shape[1]
+            acc = torch.zeros((lx * ly * lz, C), dtype=v.dtype, device=dev)
+            acc.index_add_(0, flat.reshape(-1), contrib.reshape(-1, C))
+            out.append(acc.T.reshape((C, lx, ly, lz)))
+        return out
+
+    def compute_forces_sharded(self, u_star, rho, plan, shape, consts=None) -> list:
+        """The force solve on a sharded lattice: ``compute_forces``'s math with
+        the sampling and spreading partitioned by node ownership and the
+        compact solve on the solver's device.  ``u_star`` and ``rho`` are
+        ShardedFields (or their blocks); returns each shard's force block."""
+        shape = tuple(shape)
+        ub = getattr(u_star, "blocks", u_star)
+        rb = getattr(rho, "blocks", rho)
+        c = consts if consts is not None else self.hook_consts()
+        if shape == self.grid_shape and c.get("unodes") is not None:
+            un = c["unodes"]  # [u, 3] global integer coordinates, unique
+            parts, owned = [], []
+            for k, blk in enumerate(ub):
+                (lx, ly, lz), inside, exts = self._owned_c(plan, shape, un.to(blk.device), k)
+                vals = blk[:, lx, ly, lz]  # [C, u]
+                parts.append(torch.where(inside[None], vals, torch.zeros((), dtype=vals.dtype,
+                                                                         device=vals.device)))
+                owned.append(((lx, ly, lz), inside, exts))
+            ug = self._psum(parts, un.device).T  # [u, C]
+            y, iters, rel = self._solve_compact(ug, c)
+            self._log_cg(iters, rel)
+            out = []
+            for blk, r, ((lx, ly, lz), inside, exts) in zip(ub, rb, owned):
+                dev = blk.device
+                contrib = torch.where(inside, 1.0, 0.0).to(dev)[:, None] * (2.0 * y.to(dev))
+                flat = (lx * exts[1] + ly) * exts[2] + lz  # [u] local flat ids
+                acc = torch.zeros((exts[0] * exts[1] * exts[2], blk.shape[0]), dtype=blk.dtype,
+                                  device=dev)
+                acc.index_add_(0, flat, contrib.to(blk.dtype))
+                out.append(acc.T.reshape((blk.shape[0],) + tuple(exts)) * r[None])
+            return out
+
+        # the generic shape: matrix-free, the sharded operators at each iteration
+        b = -self.interpolate_sharded(ub, plan, shape, consts)
+        if self.use_ll_velocity:
+            b = b + torch.as_tensor(self.prescribed_velocity, dtype=b.dtype, device=b.device)
+        if self.method == "modified":
+            def matvec(x):
+                return self._ell_matvec(x, c)
+        else:
+            def matvec(x):
+                return self.interpolate_sharded(self.spread_sharded(x, plan, shape, consts),
+                                                plan, shape, consts)
+        x, iters, rel = self._cg(matvec, b, diag=c.get("diag"))
+        self._log_cg(iters, rel)
+        return [blk * r[None] for blk, r in zip(self.spread_sharded(2.0 * x, plan, shape, consts),
+                                                rb)]
+
+    def sharded_hook(self, plan, shape):
+        """``LBMConfig.forcing_hook`` for a sharded run (JAX ``sharded_hook``):
+        ``shard_local``, so the sharded steps hand it the u* moments as
+        ShardedFields of ``plan`` and take back the force's blocks
+        (``compute_forces_sharded``).  It keeps ``consts`` and ``reads_host``
+        (the CG reads its condition on the host), as ``forcing_hook``'s."""
+
+        def hook(lat, rho, u, nu, fluid_mask, consts=None):
+            del lat, nu, fluid_mask
+            return self.compute_forces_sharded(u, rho, plan, tuple(shape), consts=consts)
+
+        hook.shard_local = True
         hook.consts = self.hook_consts()
         hook.reads_host = True
         return hook

@@ -25,8 +25,8 @@ SOURCES = ("aa_even.cu", "aa_odd.cu", "aa_pair.cu", "aa_pair_full.cu", "ab_step.
            "ab_step_sitemajor.cu", "ade_step.cu", "coll_clbm.cu", "coll_kbc.cu", "coll_srt.cu",
            "coupled_ab.cu", "coupled_aa.cu", "d2q9_step.cu", "f64_aa.cu", "f64_ab.cu",
            "f64_pair.cu", "halo_step.cu", "nn_coll_clbm.cu", "nn_coll_kbc.cu", "nn_coll_srt.cu",
-           "nn_force.cu", "nn_step.cu", "pair_coll_clbm.cu", "pair_coll_kbc.cu",
-           "pair_coll_srt.cu", "probes.cu")
+           "nn_force.cu", "nn_step.cu", "nn_step_halo.cu", "pair_coll_clbm.cu",
+           "pair_coll_kbc.cu", "pair_coll_srt.cu", "probes.cu")
 HEADERS = ("lbm_site.cuh", "pair_march.cuh", "ade_site.cuh", "nn_site.cuh", "collisions.cuh",
            "coll_step.cuh", "nn_coll.cuh", "pair_coll.cuh")
 #: the C entries of the collision families, per kernel: the per-step kernels
@@ -127,8 +127,8 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_aa_pair_f64.argtypes = [p] * 5 + [i] * 6 + [d] * 4 + [i, i, p]
     lib.tnl_lbm_aa_pair_f64_info.argtypes = [i, i, i, p]
     # the sharded lattice's haloed steps (halo_step.cu; f64_ab.cu's float64 one)
-    lib.tnl_lbm_ab_step_halo.argtypes = [p] * 5 + [i] * 5 + [f] * 7 + [i, p]
-    lib.tnl_lbm_aa_odd_halo.argtypes = [p] * 5 + [i] * 7 + [f] * 7 + [i, p]
+    lib.tnl_lbm_ab_step_halo.argtypes = [p] * 6 + [i] * 6 + [f] * 7 + [i, p]
+    lib.tnl_lbm_aa_odd_halo.argtypes = [p] * 6 + [i] * 8 + [f] * 7 + [i, p]
     lib.tnl_lbm_ab_step_f64_halo.argtypes = [p] * 5 + [i] * 4 + [d] * 7 + [i, p]
     lib.tnl_lbm_aa_odd_halo_f64.argtypes = [p] * 5 + [i] * 7 + [d] * 7 + [i, p]
     lib.tnl_lbm_aa_pair_halo.argtypes = [p] * 5 + [i] * 8 + [f] * 4 + [i, i, p]
@@ -153,6 +153,9 @@ def load_library() -> ctypes.CDLL:
     lib.tnl_lbm_nn_force.argtypes = [p] * 4 + [i] * 5 + [f] * 7 + [p]
     lib.tnl_lbm_nn_step.argtypes = [p] * 5 + [i] * 8 + [f] * 7 + [i, i] + [f] * 6 + [p]
     lib.tnl_lbm_nn_info.argtypes = [i, i, i, i, p]
+    # the sharded lattice's NN kernels (nn_force.cu's B9 halo, nn_step_halo.cu's B10 halo)
+    lib.tnl_lbm_nn_force_halo.argtypes = [p] * 4 + [i] * 6 + [f] * 7 + [p]
+    lib.tnl_lbm_nn_step_halo.argtypes = [p] * 5 + [i] * 9 + [f] * 7 + [i, i] + [f] * 6 + [p]
     lib.tnl_lbm_copy_permute.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.tnl_lbm_pair_pipeline.argtypes = [p, p] + [i] * 6 + [p]
     lib.tnl_lbm_pair_pipeline_info.argtypes = [i, i, i, i, p]
@@ -175,7 +178,8 @@ def load_library() -> ctypes.CDLL:
                lib.tnl_lbm_coupled_aa, lib.tnl_lbm_d2q9_step, lib.tnl_lbm_d2q9_step_halo,
                lib.tnl_lbm_d2q9_chunk, lib.tnl_lbm_d2q9_chunk_info,
                lib.tnl_lbm_nn_force, lib.tnl_lbm_nn_step,
-               lib.tnl_lbm_nn_info, lib.tnl_lbm_copy_permute,
+               lib.tnl_lbm_nn_info, lib.tnl_lbm_nn_force_halo, lib.tnl_lbm_nn_step_halo,
+               lib.tnl_lbm_copy_permute,
                lib.tnl_lbm_pair_pipeline, lib.tnl_lbm_pair_pipeline_info,
                lib.tnl_lbm_pair_compute_only, lib.tnl_lbm_pair_compute_only_info,
                lib.tnl_lbm_aa_pair_smem_bytes):

@@ -693,8 +693,10 @@ class FusedStepAB:
     has), and the step writes the block's f, rho and u (``kernel`` counts
     the launches of ``csrc/halo_step.cu``, in float64 of ``f64_ab.cu``).
     It has the cumulant steps' instances (CUM_WELL, also in float64; CUM
-    with eq_quadratic or eq_inv_cum), with a homogeneous inflow velocity;
-    the rest raises naming ``SHARDED_ROADMAP``.
+    with eq_quadratic or eq_inv_cum), with a homogeneous inflow velocity,
+    and in float32 their ``force_field`` (the block's [3, X, Y, Z] force)
+    and ``macro_only`` modes, the hooked pipeline's under a plan; the rest
+    raises naming ``SHARDED_ROADMAP``.
     """
 
     def __init__(self, cfg: LBMConfig, domain: Domain, device, force_field: bool = False,
@@ -718,7 +720,7 @@ class FusedStepAB:
         replaces = "tnl_lbm_tpu/kernels/fused.py:585"
         if prepadded:
             self._check_halo_instance()
-            suffix, source = "_halo", "f64_ab.cu" if self._f64 else "halo_step.cu"
+            suffix, source = suffix + "_halo", "f64_ab.cu" if self._f64 else "halo_step.cu"
         self.kernel = CudaKernel("ab_step" + tag + suffix, "tnl_lbm_tpu_torch/csrc/" + source,
                                  replaces)
         self.profile = (CudaKernel(f"ab_step{tag}_profile", "tnl_lbm_tpu_torch/csrc/" + source,
@@ -733,12 +735,13 @@ class FusedStepAB:
     def _check_halo_instance(self) -> None:
         """Refuse, on any device, a config the haloed step has no instance of."""
         cum = self._instance[0] == "cum" and self._instance[1] in HALO_AB_VARIANTS
-        if self._mode != MODE_STEP or not cum or (self._f64 and not self._cum_well_step):
+        if not cum or (self._f64 and not self._cum_well_step):
             raise NotImplementedError(
                 f"the sharded A-B step (B4 on a haloed block) has the cumulant steps' instances "
-                f"(CUM_WELL, also in float64; CUM with eq_quadratic or eq_inv_cum), not "
-                f"{_described(self.cfg)} in {self.cfg.compute_dtype}"
-                + (" or the force_field / macro_only variants" if self._mode != MODE_STEP
+                f"(CUM_WELL, also in float64; CUM with eq_quadratic or eq_inv_cum; their "
+                f"force_field and macro_only modes in float32), not {_described(self.cfg)} "
+                f"in {self.cfg.compute_dtype}"
+                + (" in the force_field / macro_only mode" if self._mode != MODE_STEP
                    else "") + f" ({SHARDED_ROADMAP})")
 
     def _block_map(self, f, map_arr_in):
@@ -798,7 +801,7 @@ class FusedStepAB:
             raise ValueError("the u* pass writes no state")
         if self.prepadded:
             return self._halo_step(f, nu, fvec, uvec, out, macro_out,
-                                   self._block_map(f, map_arr_in))
+                                   self._block_map(f, map_arr_in), field)
         check_out(out, f)
         if f.device.type == "cuda":
             return self._launch(f, float(nu), field, fvec, uvec, out, macro_out, prof)
@@ -822,7 +825,9 @@ class FusedStepAB:
         prof, uvec = self._inflow(u_in, f.device)
         if self.prepadded:
             self._check_halo(f, None)
-            return self._plain_halo(f, nu, fvec, uvec, self._block_map(f, map_arr_in))
+            f_new, rho, u = self._plain_halo(f, nu, fvec, uvec, self._block_map(f, map_arr_in),
+                                             field)
+            return (rho, u) if self.macro_only else (f_new, rho, u)
         f_new, rho, u = self._plain(f, nu, fvec, uvec if prof is None else prof, field)
         return (rho, u) if self.macro_only else (f_new, rho, u)
 
@@ -841,9 +846,10 @@ class FusedStepAB:
                                   self.map.to(f.device), nu, force, u_in=uvec,
                                   macro_only=self.macro_only)
 
-    def _plain_halo(self, fpad, nu, fvec, uvec, m):
+    def _plain_halo(self, fpad, nu, fvec, uvec, m, field=None):
         """The haloed step in plain PyTorch: the block's pulls read the x/y
-        halo and a z pad of the domain's rule; the rest is the step's."""
+        halo and a z pad of the domain's rule; the rest is the step's (the
+        u* pass's with ``macro_only``: (None, rho0, u0))."""
         X, Y, Z = self.shape
         fz = stream.pad_halo(fpad, (True, True, self.periodic[2]))[:, 1:-1, 1:-1]
 
@@ -851,33 +857,44 @@ class FusedStepAB:
             ox, oy, oz = offs
             return fz[q, 1 + ox : 1 + ox + X, 1 + oy : 1 + oy + Y, 1 + oz : 1 + oz + Z]
 
+        force = fvec if field is None else site_force(field, fvec)
         return _stream_bc_collide(self.lat, self.cfg, self.codes, self.do_coll_codes, shifted,
-                                  m, nu, fvec, u_in=uvec)
+                                  m, nu, force, u_in=uvec, macro_only=self.macro_only)
 
-    def _halo_step(self, f, nu, fvec, uvec, out, macro_out, m):
+    def _halo_step(self, f, nu, fvec, uvec, out, macro_out, m, field=None):
         """The haloed step: its kernel on a CUDA tensor, else its plain version."""
         self._check_halo(f, out)
         if f.device.type != "cuda":
             self.plain_calls += 1
-            f_new, rho, u = self._plain_halo(f, nu, fvec, uvec, m)
+            f_new, rho, u = self._plain_halo(f, nu, fvec, uvec, m, field)
             rho, u = into(macro_out, rho, u)
+            if self.macro_only:
+                return rho, u
             return (f_new if out is None else out.copy_(f_new)), rho, u
         check_dtype(f, self.cfg)
         X, Y, Z = self.shape
         lib = load_library()
-        f_new = (torch.empty((self.lat.Q, X, Y, Z), dtype=f.dtype, device=f.device)
-                 if out is None else out)
+        f_new = None
+        if not self.macro_only:
+            f_new = (torch.empty((self.lat.Q, X, Y, Z), dtype=f.dtype, device=f.device)
+                     if out is None else out)
         rho, u = macro_buffers(macro_out, (X, Y, Z), 3, f.dtype, f.device)
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
-        entry = lib.tnl_lbm_ab_step_f64_halo if self._f64 else lib.tnl_lbm_ab_step_halo
-        variant = () if self._f64 else (self._instance[1],)
-        rc = entry(f.data_ptr(), f_new.data_ptr(), m.data_ptr(), rho.data_ptr(), u.data_ptr(),
-                   X, Y, Z, int(self.periodic[2]), *variant, float(nu), *fvec, *uvec,
-                   int(self.cfg.high_precision_rho), stream_ptr)
+        tail = (float(nu), *fvec, *uvec, int(self.cfg.high_precision_rho), stream_ptr)
+        if self._f64:  # the CUM_WELL step's float64 instance
+            rc = lib.tnl_lbm_ab_step_f64_halo(f.data_ptr(), f_new.data_ptr(), m.data_ptr(),
+                                              rho.data_ptr(), u.data_ptr(), X, Y, Z,
+                                              int(self.periodic[2]), *tail)
+        else:
+            rc = lib.tnl_lbm_ab_step_halo(f.data_ptr(), None if f_new is None else f_new.data_ptr(),
+                                          m.data_ptr(), None if field is None else field.data_ptr(),
+                                          rho.data_ptr(), u.data_ptr(), X, Y, Z,
+                                          int(self.periodic[2]), self._instance[1], self._mode,
+                                          *tail)
         if rc != 0:
             raise RuntimeError(f"{self.kernel.name} launch failed: CUDA error {rc}")
         self.kernel.launches += 1
-        return f_new, rho, u
+        return (rho, u) if self.macro_only else (f_new, rho, u)
 
     def _launch(self, f, nu, field, fvec, uvec, out, macro_out, prof=None):
         if self.device.type != "cuda" or f.device != self.map.device:

@@ -159,16 +159,19 @@ def odd_step_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, f, m, nu, for
 
 
 def odd_step_halo_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, fpad, ring, faces, nu,
-                        force, u_in=(0.0, 0.0, 0.0)):
+                        force, u_in=(0.0, 0.0, 0.0), macro_only: bool = False):
     """The A-A odd step on a shard's haloed block in plain PyTorch (B3's
     haloed mode): ``fpad`` is the block with a 2-wide x/y halo [Q, X+4,
     Y+4, Z], ``ring`` the map of the block and its 1-wide ring [X+2, Y+2,
     Z], ``faces`` (x low, x high, y low, y high) the block's faces that are
-    non-periodic faces of the domain.  The block and its ring collide from
-    the halo; on those faces the ring's post-collision layer becomes the
-    edge layer's (the edge replication of the unsharded push); the push
-    into the block is then the pull of the ring block, z padded as the
-    domain says.  Returns the block's (f_new, rho, u); fpad untouched."""
+    non-periodic faces of the domain; ``force`` 3 scalars or 3 per-site
+    fields of the ring block (the force ring of the force_field mode).  The
+    block and its ring collide from the halo; on those faces the ring's
+    post-collision layer becomes the edge layer's (the edge replication of
+    the unsharded push); the push into the block is then the pull of the
+    ring block, z padded as the domain says.  Returns the block's (f_new,
+    rho, u), or with ``macro_only`` the u* pass's (None, rho0, u0); fpad
+    untouched."""
     lat = cfg.lat
     opp = np.asarray(lat.opp)
     Xr, Yr, Z = ring.shape
@@ -179,7 +182,9 @@ def odd_step_halo_plain(cfg: LBMConfig, codes, do_coll_codes, periodic, fpad, ri
         return fz[int(opp[q]), 1 + ox : 1 + ox + Xr, 1 + oy : 1 + oy + Yr, 1 + oz : 1 + oz + Z]
 
     f_post, rho, u = _stream_bc_collide(lat, cfg, codes, do_coll_codes, shifted, ring, nu, force,
-                                        u_in=u_in, defer_nothing=True)
+                                        u_in=u_in, defer_nothing=True, macro_only=macro_only)
+    if macro_only:
+        return None, rho[1:-1, 1:-1], u[:, 1:-1, 1:-1]
     xl, xh, yl, yh = faces
     if xl:
         f_post[:, 0] = f_post[:, 1]
@@ -349,7 +354,11 @@ class FusedStepAA:
     and six face flags (``bflags``: x low, x high, y low, y high, z low, z
     high, 1 where the block holds the domain's face), writing the block.  It
     has the cumulant instances, lean and full set, in float32 and, for
-    CUM_WELL, in float64 (``csrc/f64_aa.cu``); the rest raises naming
+    CUM_WELL, in float64 (``csrc/f64_aa.cu``), and in float32 the cumulant
+    instances of both variants: ``force_field``, whose odd step takes the
+    force of the block and its 1-wide ring (``force_ring_in`` [3, X+2, Y+2,
+    Z], the JAX call's ``force_ring_in``: a ring site collides with the
+    neighbour shard's force), and ``macro_only``; the rest raises naming
     ``SHARDED_ROADMAP``.
     """
 
@@ -381,15 +390,19 @@ class FusedStepAA:
         self.even = CudaKernel("aa_even" + tag + suffix, "tnl_lbm_tpu_torch/csrc/" + even_src,
                                "tnl_lbm_tpu/kernels/fused_aa.py:408")
         if prepadded:
-            if (self._mode != MODE_STEP or self._instance[0] != "cum"
-                    or self.variant not in HALO_ODD_VARIANTS):
+            if (self._instance[0] != "cum" or self.variant not in HALO_ODD_VARIANTS
+                    or (self._mode != MODE_STEP and cfg.compute_dtype != torch.float32)):
                 raise NotImplementedError(
                     f"the sharded A-A step (B3 on a haloed block) has the cumulant instances, "
-                    f"lean and full set (in float64 CUM_WELL's), not {_described(cfg)}"
-                    + (" or the force_field / macro_only variants" if self._mode != MODE_STEP
+                    f"lean and full set (in float64 CUM_WELL's; their force_field and "
+                    f"macro_only modes in float32), not {_described(cfg)} in "
+                    f"{cfg.compute_dtype}"
+                    + (" in the force_field / macro_only mode" if self._mode != MODE_STEP
                        else "") + f" ({SHARDED_ROADMAP})")
-            suffix, odd_src = "_halo", "f64_aa.cu" if self._f64 else "halo_step.cu"
-        self.odd = CudaKernel("aa_odd" + tag + suffix, "tnl_lbm_tpu_torch/csrc/" + odd_src,
+            odd_suffix, odd_src = suffix + "_halo", "f64_aa.cu" if self._f64 else "halo_step.cu"
+        else:
+            odd_suffix = suffix
+        self.odd = CudaKernel("aa_odd" + tag + odd_suffix, "tnl_lbm_tpu_torch/csrc/" + odd_src,
                               "tnl_lbm_tpu/kernels/fused_aa.py:287")
         if self.device.type == "cuda":
             _check_kernel_config(cfg, domain, self.device, "the A-A even/odd steps (B2, B3)",
@@ -400,24 +413,39 @@ class FusedStepAA:
     def reset_counts(self) -> None:
         self.even.launches = self.odd.launches = self.plain_calls = 0
 
-    def _forces(self, f, force, force_add):
-        """(the per-site field or None, the homogeneous three floats)."""
+    def _forces(self, f, force, force_add, ring=None):
+        """(the per-site field or None, the homogeneous three floats); the
+        haloed odd step's field is the force ring ``ring``."""
         dt = self.cfg.compute_dtype
         if self.force_field:
+            if ring is not None:
+                X, Y, Z = self.shape
+                return (check_force_field(ring, 3, (X + 2, Y + 2, Z), f.device),
+                        _force3(force_add, dt))
             return check_force_field(force, 3, self.shape, f.device), _force3(force_add, dt)
         if force_add is not None:
             raise ValueError("force_add belongs to the force_field variant")
         return None, _force3(force, dt)
 
+    def _ring_force(self, parity, force_ring_in):
+        """The force ring of a haloed odd force_field call (None elsewhere)."""
+        if not (self.prepadded and parity == 1 and self.force_field):
+            return None
+        if force_ring_in is None:
+            raise ValueError("the haloed odd force_field step takes the force of the block and "
+                             "its 1-wide ring (force_ring_in)")
+        return force_ring_in
+
     def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None,
-                 out=None, macro_out=None, map_arr_in=None, map_ring_in=None, bflags=None):
-        field, fvec = self._forces(f, force, force_add)
+                 out=None, macro_out=None, map_arr_in=None, map_ring_in=None, bflags=None,
+                 force_ring_in=None):
+        field, fvec = self._forces(f, force, force_add, self._ring_force(parity, force_ring_in))
         uvec = _u_in3(u_in, self.cfg.compute_dtype)
         if out is not None and self.macro_only:
             raise ValueError("the u* pass writes no state")
         if self.prepadded and parity == 1:
             return self._odd_halo(f, nu, fvec, uvec, out, macro_out,
-                                  self._block_map(f, map_ring_in, 2), bflags)
+                                  self._block_map(f, map_ring_in, 2), bflags, field)
         m = self._block_map(f, map_arr_in, 0) if self.prepadded else self.map
         check_out(out, f)
         if f.device.type == "cuda":
@@ -435,16 +463,17 @@ class FusedStepAA:
         return f_new, rho, u
 
     def plain(self, f, nu, u_in=None, force=None, parity: int = 0, force_add=None,
-              map_arr_in=None, map_ring_in=None, bflags=None):
+              map_arr_in=None, map_ring_in=None, bflags=None, force_ring_in=None):
         """The step's plain PyTorch version on f's device: (f_new, rho, u),
         or (rho0, u0) for the u* pass; f untouched.  The CPU path, and the
         oracle the kernels are held against on the card; it counts no call."""
-        field, fvec = self._forces(f, force, force_add)
+        field, fvec = self._forces(f, force, force_add, self._ring_force(parity, force_ring_in))
         uvec = _u_in3(u_in, self.cfg.compute_dtype)
         if self.prepadded and parity == 1:
             self._check_halo(f, None)
-            return self._plain_odd_halo(f, nu, fvec, uvec, self._block_map(f, map_ring_in, 2),
-                                        bflags)
+            f_new, rho, u = self._plain_odd_halo(f, nu, fvec, uvec,
+                                                 self._block_map(f, map_ring_in, 2), bflags, field)
+            return (rho, u) if self.macro_only else (f_new, rho, u)
         m = self._block_map(f, map_arr_in, 0) if self.prepadded else self.map
         f_new, rho, u = self._plain(f, nu, fvec, uvec, parity, field, m)
         return (rho, u) if self.macro_only else (f_new, rho, u)
@@ -473,37 +502,48 @@ class FusedStepAA:
                                 or out.device != f.device or not out.is_contiguous()):
             raise ValueError("out must be a contiguous state block of the local shape")
 
-    def _plain_odd_halo(self, f, nu, fvec, uvec, ring, bflags):
+    def _plain_odd_halo(self, f, nu, fvec, uvec, ring, bflags, field=None):
+        force = fvec if field is None else site_force(field, fvec)
         return odd_step_halo_plain(self.cfg, self.codes, self.do_coll_codes, self.periodic, f,
-                                   ring, self._faces(bflags), nu, fvec, uvec)
+                                   ring, self._faces(bflags), nu, force, uvec,
+                                   macro_only=self.macro_only)
 
-    def _odd_halo(self, f, nu, fvec, uvec, out, macro_out, ring, bflags):
+    def _odd_halo(self, f, nu, fvec, uvec, out, macro_out, ring, bflags, field=None):
         """The haloed odd step: its kernel on a CUDA tensor, else its plain version."""
         self._check_halo(f, out)
         faces = self._faces(bflags)
         if f.device.type != "cuda":
             self.plain_calls += 1
-            f_new, rho, u = self._plain_odd_halo(f, nu, fvec, uvec, ring, bflags)
+            f_new, rho, u = self._plain_odd_halo(f, nu, fvec, uvec, ring, bflags, field)
             rho, u = into(macro_out, rho, u)
+            if self.macro_only:
+                return rho, u
             return (f_new if out is None else out.copy_(f_new)), rho, u
         check_dtype(f, self.cfg)
         X, Y, Z = self.shape
         lib = load_library()
-        f_new = (torch.empty((self.lat.Q, X, Y, Z), dtype=f.dtype, device=f.device)
-                 if out is None else out)
+        f_new = None
+        if not self.macro_only:
+            f_new = (torch.empty((self.lat.Q, X, Y, Z), dtype=f.dtype, device=f.device)
+                     if out is None else out)
         rho, u = macro_buffers(macro_out, (X, Y, Z), 3, f.dtype, f.device)
         stream_ptr = ctypes.c_void_p(torch.cuda.current_stream(f.device).cuda_stream)
-        ptrs = (f.data_ptr(), f_new.data_ptr(), ring.data_ptr(), rho.data_ptr(), u.data_ptr(),
-                X, Y, Z, int(self.periodic[2]), face_bits(faces), int(GEO.NOTHING in self.codes))
+        fout = None if f_new is None else f_new.data_ptr()
+        bits = (X, Y, Z, int(self.periodic[2]), face_bits(faces), int(GEO.NOTHING in self.codes))
         tail = (float(nu), *fvec, *uvec, int(self.cfg.high_precision_rho), stream_ptr)
         if self._f64:  # the CUM_WELL step's float64 instances, lean and full set
-            rc = lib.tnl_lbm_aa_odd_halo_f64(*ptrs, int(self.variant == _AA_LEAN_VARIANT), *tail)
+            rc = lib.tnl_lbm_aa_odd_halo_f64(f.data_ptr(), fout, ring.data_ptr(), rho.data_ptr(),
+                                             u.data_ptr(), *bits,
+                                             int(self.variant == _AA_LEAN_VARIANT), *tail)
         else:
-            rc = lib.tnl_lbm_aa_odd_halo(*ptrs, self.variant, *tail)
+            rc = lib.tnl_lbm_aa_odd_halo(f.data_ptr(), fout, ring.data_ptr(),
+                                         None if field is None else field.data_ptr(),
+                                         rho.data_ptr(), u.data_ptr(), *bits, self.variant,
+                                         self._mode, *tail)
         if rc != 0:
             raise RuntimeError(f"{self.odd.name} launch failed: CUDA error {rc}")
         self.odd.launches += 1
-        return f_new, rho, u
+        return (rho, u) if self.macro_only else (f_new, rho, u)
 
     def _plain(self, f, nu, fvec, uvec, parity, field=None, m=None):
         m = (self.map if m is None else m).to(f.device)
@@ -568,9 +608,9 @@ def make_fused_step_aa(cfg: LBMConfig, domain: Domain, device, force_field: bool
     """A-A step for (cfg, domain) on ``device``: see :class:`FusedStepAA`,
     with its ``force_field`` (per-site force) and ``macro_only`` (u*
     pre-pass) variants, and with ``prepadded`` (and the block's
-    ``local_shape``) the sharded step's haloed mode.  The JAX function's
-    ``z_halo`` (z-sharded meshes) and force ring are not ported yet
-    (ROADMAP A13b)."""
+    ``local_shape``) the sharded step's haloed mode, its odd force_field call
+    with the force ring (``force_ring_in``).  The JAX function's ``z_halo``
+    (z-sharded meshes) is not ported yet (ROADMAP A13b)."""
     if local_shape is not None and not prepadded:
         raise ValueError("local_shape is the haloed block's shape: it needs prepadded=True")
     return FusedStepAA(cfg, domain, device, lean=lean, force_field=force_field,

@@ -164,3 +164,74 @@ def make_nn_forcing_hook(model, nu: float | None = None, periodic=None):
     hook.nn_model = model
     hook.nn_periodic = periodic
     return hook
+
+
+def _clamp_closed(t: torch.Tensor, closed, off: int, lead: int) -> torch.Tensor:
+    """``t`` (x/y at dims lead, lead + 1; the block ``off`` layers from each
+    side) with the layers beyond each closed face (x low, x high, y low, y
+    high) replaced by the face's edge layer: the coordinate clamped."""
+    t = t.clone()
+    for i, c in enumerate(closed):
+        if not c or off == 0:
+            continue
+        d = lead + i // 2
+        n = t.shape[d]
+        if i % 2 == 0:
+            t.narrow(d, 0, off).copy_(t.narrow(d, off, 1).expand_as(t.narrow(d, 0, off)))
+        else:
+            t.narrow(d, n - off, off).copy_(
+                t.narrow(d, n - off - 1, 1).expand_as(t.narrow(d, n - off, off)))
+    return t
+
+
+def _pad_z(t: torch.Tensor, periodic_z: bool) -> torch.Tensor:
+    """A 1-layer pad of the last axis (z): wrapped, or the edge replicated."""
+    n = t.shape[-1]
+    lo, hi = ((t.narrow(-1, n - 1, 1), t.narrow(-1, 0, 1)) if periodic_z
+              else (t.narrow(-1, 0, 1), t.narrow(-1, n - 1, 1)))
+    return torch.cat([lo, t, hi], dim=-1)
+
+
+def nn_force_haloed(model, rho, u, nu_lattice, fluid_mask, closed, periodic_z=False,
+                    ring: int = 0):
+    """The forcing hook of ``make_nn_forcing_hook`` on a shard's block and its
+    ``ring``-site x/y ring (the plain version of the NN kernels' haloed mode):
+    ``u`` [3, ...] and ``fluid_mask`` hold that region with a 2-wide x/y halo
+    of the neighbour shards' values, ``rho`` the region itself.  On a closed
+    face (``closed``: x low, x high, y low, y high; a face of the domain the
+    hook does not wrap) u, the mask and S take the edge layer's values, the
+    hook's edge replication; z is padded by the hook's own rule.  The sums
+    and products are the hook's, site by site."""
+    D = 3
+    E = ring + 2  # the block's offset in u and the mask
+    u = _clamp_closed(u, closed, E, 1)
+    fl = _clamp_closed(fluid_mask, closed, E, 0)
+    shape_s = (u.shape[1] - 2, u.shape[2] - 2, u.shape[3])
+    upz, flz = _pad_z(u, periodic_z), _pad_z(fl, periodic_z)
+    fl_s = {(a, s): _neighbor(flz, D, a, s, shape_s) for a in range(D) for s in (+1, -1)}
+    center = u[:, 1:-1, 1:-1]
+    grad = {(a, b): _wall_aware_derivative(upz[b], fl_s[(a, +1)], fl_s[(a, -1)], D, a, shape_s,
+                                           center[b])
+            for a in range(D) for b in range(D)}
+    S = {}
+    for a in range(D):
+        for b in range(a, D):
+            S[(a, b)] = 0.5 * (grad[(a, b)] + grad[(b, a)]) if a != b else grad[(a, a)]
+    S = {k: _clamp_closed(v, closed, E - 1, 0) for k, v in S.items()}
+    S_c = {k: v[1:-1, 1:-1] for k, v in S.items()}
+    gamma = shear_rate_magnitude(S_c, D)
+    nu_eff = model(nu_lattice, gamma)
+    shape_f = tuple(rho.shape)
+    fl_f = {(a, s): _neighbor(_pad_z(fl[1:-1, 1:-1], periodic_z), D, a, s, shape_f)
+            for a in range(D) for s in (+1, -1)}
+    fluid_c = fl[2:-2, 2:-2]
+    rows = []
+    zero = torch.zeros_like(rho)
+    for b in range(D):
+        div_b = 0.0
+        for a in range(D):
+            k = (min(a, b), max(a, b))
+            div_b = div_b + _wall_aware_derivative(_pad_z(S[k], periodic_z), fl_f[(a, +1)],
+                                                   fl_f[(a, -1)], D, a, shape_f, S_c[k])
+        rows.append(torch.where(fluid_c, 2 * (nu_eff - nu_lattice) * div_b * rho, zero))
+    return torch.stack(rows)

@@ -21,13 +21,20 @@ The steps:
 
 - :func:`make_sharded_step`, the plain step per shard (``sim/step.py``'s
   two stages, each after the halo pad of ``parallel/halo.py`` over every
-  shard's block): the CPU path and the oracle of the kernels' sharded
-  steps;
+  shard's block), with a forcing hook evaluated on the gathered lattice or,
+  for a ``shard_local`` hook (IBM's ``sharded_hook``), on the shards'
+  blocks: the CPU path and the oracle of the kernels' sharded steps;
 - :func:`make_sharded_fused_step`, the A-B step (B4) on each shard's block
-  with a 1-wide x/y halo;
+  with a 1-wide x/y halo, and its force_field and macro_only modes (the
+  hooked pipeline, ``kernels/hooked.py make_sharded_hooked_fused_step``);
 - :func:`make_sharded_fused_step_aa`, the A-A steps: the even step (B2) on
   each shard's block as it is (same-site), the odd step (B3) on the block
-  with a 2-wide x/y halo and its map with a 1-wide ring;
+  with a 2-wide x/y halo and its map with a 1-wide ring; in force_field
+  mode the odd step's force ring comes from the neighbour shards;
+- :func:`make_sharded_nn_force`, the NN force (B9) on each shard's block of
+  u* with a 2-wide x/y halo, and :func:`make_sharded_fused_nn_step`, the
+  one-kernel NN step (B10) on each shard's block with the halo its stencil
+  chain reads (3, 2 or 4 wide: A-B, even, odd);
 - :func:`make_sharded_fused_pair2_aa`, the A-A pair (B1, or B1b on the
   other A-A maps) on persistent haloed blocks: each shard's state lives in
   a block with a 2-wide x/y halo (:func:`to_padded_aa_sharded`,
@@ -42,8 +49,8 @@ The steps:
   does not divide (A-B only, as in the JAX package).
 
 What is not ported yet raises naming its ROADMAP item: z-sharded meshes on
-the kernels, the hooked and IBM steps, the pair's family collisions
-(A13b); several processes (A13c).
+the kernels and the pair's family collisions (A13b); several processes
+(A13c).
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ import torch
 from tnl_lbm_tpu_torch.ops import moments as mom
 from tnl_lbm_tpu_torch.ops.boundary import GEO
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig
-from tnl_lbm_tpu_torch.sim.step import make_step
+from tnl_lbm_tpu_torch.sim.step import as_vector, make_step
 
 #: the ROADMAP item of the sharded steps that are not ported yet
 A13B = "ROADMAP A13b"
@@ -417,23 +424,32 @@ def _global_input(arr, lat, shape, dtype):
 
 
 def make_sharded_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan):
-    """``step(f, nu, u_in=None, force=None, parity=0) -> (f, rho, u)`` on
-    ShardedFields of ``plan``: the plain step (``sim/step.py``) on every
-    shard's block, one shard after the other, its halos from the halo pad
-    of ``parallel/halo.py`` over every shard's block (JAX
-    ``make_sharded_step``): the pad of f before the collision, and on the
-    A-A odd step the pad of the post-collision field before the push.
-    ``u_in`` and ``force`` are [D] vectors or fields broadcastable to
+    """``step(f, nu, u_in=None, force=None, parity=0, hook_consts=None) ->
+    (f, rho, u)`` on ShardedFields of ``plan``: the plain step
+    (``sim/step.py``) on every shard's block, one shard after the other,
+    its halos from the halo pad of ``parallel/halo.py`` over every shard's
+    block (JAX ``make_sharded_step``): the pad of f before the collision,
+    and on the A-A odd step the pad of the post-collision field before the
+    push.  ``u_in`` and ``force`` are [D] vectors or fields broadcastable to
     [D, *S].  A lattice the mesh does not divide runs through
     ``_make_uneven_sharded_step`` (A-B).  The step's ``padded_shape`` is
-    the extent its fields tile."""
+    the extent its fields tile.
+
+    A forcing hook (JAX ``make_sharded_step`` :360-400) is evaluated on the
+    u* moments and its force added to the body force, as the plain step
+    does: a hook without ``shard_local`` on the whole lattice, gathered on
+    the plan's first device (JAX: GSPMD over the global arrays), its force
+    sharded back; a ``shard_local`` hook (IBM's ``sharded_hook``) on the
+    shards' blocks: it takes the u* moments and the fluid mask as
+    ShardedFields of the plan and returns the force as one (or as its
+    blocks), summing what crosses the shards itself."""
     from tnl_lbm_tpu_torch.parallel.halo import make_halo_pad
 
     if not plan.divisible(domain):
         return _make_uneven_sharded_step(cfg, domain, plan)
     plan.check(domain)
     if cfg.forcing_hook is not None:
-        raise NotImplementedError(f"a sharded step with a forcing hook is not ported yet ({A13B})")
+        return _make_sharded_hooked_step(cfg, domain, plan)
     codes = domain.codes_present()
     local_shape = plan.local_shape(domain)
     # direction-subset exchange unless a pull reads other components' halos
@@ -448,13 +464,17 @@ def make_sharded_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan):
     dtype = cfg.compute_dtype
     aa = cfg.streaming == "AA"
 
-    def step(f: ShardedField, nu, u_in=None, force=None, parity: int = 0):
+    def step(f: ShardedField, nu, u_in=None, force=None, parity: int = 0, fpads=None):
         u_in = _global_input(u_in, cfg.lat, domain.shape, dtype)
-        force = _global_input(force, cfg.lat, domain.shape, dtype)
         u_sh = plan.shard_field(u_in, like_f=True) if _is_field(u_in) else None
-        f_sh = plan.shard_field(force, like_f=True) if _is_field(force) else None
+        if isinstance(force, ShardedField):
+            f_sh = force
+        else:
+            force = _global_input(force, cfg.lat, domain.shape, dtype)
+            f_sh = plan.shard_field(force, like_f=True) if _is_field(force) else None
         n = plan.n_shards
-        fpads = pad(f.blocks, local_step.pull_comps) if not aa or parity else [None] * n
+        if fpads is None:
+            fpads = pad(f.blocks, local_step.pull_comps) if not aa or parity else [None] * n
         mids = [local_step.collide(
                     f.blocks[k], nu, u_in=u_in if u_sh is None else u_sh.blocks[k],
                     force=force if f_sh is None else f_sh.blocks[k], parity=parity,
@@ -471,7 +491,73 @@ def make_sharded_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan):
                 ShardedField(plan, [m[2] for m in mids], (D,) + domain.shape))
 
     step.padded_shape = domain.shape
+    step.pad, step.local_step, step.maps = pad, local_step, maps
     return step
+
+
+def _make_sharded_hooked_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan):
+    """The plain sharded step with a forcing hook (``make_sharded_step``):
+    the u* pass, the hook and the plain sharded step without it, the hook's
+    force plus the body force as its per-site force."""
+    hook = cfg.forcing_hook
+    lat, dtype = cfg.lat, cfg.compute_dtype
+    has_consts = getattr(hook, "consts", None) is not None
+    cfg_nohook = dataclasses.replace(cfg, forcing_hook=None)
+    inner = make_sharded_step(cfg_nohook, domain, plan)
+    aa = cfg.streaming == "AA"
+    if getattr(hook, "shard_local", False):
+        fluid = plan.shard_field((domain.map == int(GEO.FLUID)), like_f=False)
+
+        def local_step(f, nu, u_in=None, force=None, parity: int = 0, hook_consts=None):
+            """The hook on the shards' blocks: each block's u* from the pad of f
+            (the JAX local step's hook input), the hook on them all."""
+            ls, n = inner.local_step, plan.n_shards
+            fpads = inner.pad(f.blocks, ls.pull_comps) if not aa or parity else [None] * n
+            fb = _global_input(force, lat, domain.shape, dtype)
+            fbs = plan.shard_field(fb, like_f=True).blocks if _is_field(fb) else [fb] * n
+            parts = [ls.ustar(f.blocks[k], force=fbs[k], parity=parity, map_arr=inner.maps.blocks[k],
+                              fpad=fpads[k]) for k in range(n)]
+            rho0 = ShardedField(plan, [q[0] for q in parts], domain.shape)
+            u0 = ShardedField(plan, [q[1] for q in parts], (lat.D,) + domain.shape)
+            kw = {"consts": hook_consts} if has_consts else {}
+            extra = _blocks_of(hook(lat, rho0, u0, nu, fluid, **kw))
+            total = [e.to(dtype) if fbs[k] is None
+                     else as_vector(lat, fbs[k], dtype, e.device) + e.to(dtype)
+                     for k, e in enumerate(extra)]
+            return inner(f, nu, u_in=u_in, force=ShardedField(plan, total, (lat.D,) + domain.shape),
+                         parity=parity, fpads=fpads)
+
+        local_step.padded_shape = domain.shape
+        return local_step
+
+    ustar = make_step(cfg_nohook, domain).ustar
+
+    def hooked_step(f, nu, u_in=None, force=None, parity: int = 0, hook_consts=None):
+        """The hook on the gathered lattice (JAX's GSPMD evaluation)."""
+        dev = plan.device(0)
+        field = _is_field(force)
+        fvec = None if field else force
+        rho0, u0, fl = ustar(_padded_global(f, dev), force=fvec, parity=parity)
+        if field:
+            fb = torch.as_tensor(force, dtype=dtype, device=dev)
+            u0 = u0 + fb / (2 * torch.clamp_min(rho0, 1e-12))
+        kw = {"consts": hook_consts} if has_consts else {}
+        extra = hook(lat, rho0, u0, nu, fl, **kw).to(dtype)
+        if force is not None:
+            fb = torch.as_tensor(np.asarray(force) if not torch.is_tensor(force) else force,
+                                 dtype=dtype, device=dev)
+            if fb.dim() == 1:
+                fb = fb.reshape((lat.D,) + (1,) * lat.D)
+            extra = extra + fb
+        return inner(f, nu, u_in=u_in, force=extra, parity=parity)
+
+    hooked_step.padded_shape = domain.shape
+    return hooked_step
+
+
+def _blocks_of(out) -> list:
+    """A shard-local hook's output as blocks: a ShardedField's, or the list."""
+    return out.blocks if isinstance(out, ShardedField) else list(out)
 
 
 def make_sharded_ade_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan):
@@ -569,9 +655,6 @@ def _make_uneven_sharded_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan,
         raise NotImplementedError(
             "uneven (non-divisible) decomposition requires A-B streaming; use streaming='AB' "
             "or a mesh-divisible lattice")
-    if cfg.forcing_hook is not None:
-        raise NotImplementedError(f"an uneven sharded step with a forcing hook is not ported "
-                                  f"yet ({A13B})")
     inner_builder = inner_builder or make_sharded_step
     S = domain.shape
     Sp = list(plan.padded_shape(domain))
@@ -580,6 +663,22 @@ def _make_uneven_sharded_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan,
             Sp[a] += n
     Sp = tuple(Sp)
     pads = [(0, p - s) for s, p in zip(S, Sp)]
+    hook = cfg.forcing_hook
+    if hook is not None and not getattr(hook, "shard_local", False):
+        # on the padded lattice the hook's stencils would read the ghost
+        # layers' u* and rho where the unpadded step's edge pads stand (JAX
+        # :269-290): the hook runs on the true extent, its force padded out
+        # by edge replication (the ghost sites' outputs are cropped)
+        crop = tuple(slice(0, s) for s in S)
+
+        def uneven_hook(lat, rho0, u0, nu, fluid, **kw):
+            out = hook(lat, rho0[crop], u0[(slice(None),) + crop], nu, fluid[crop], **kw)
+            return _edge_pad(out, [p for _, p in pads])
+
+        for attr in ("consts", "reads_host"):
+            if getattr(hook, attr, None) is not None:
+                setattr(uneven_hook, attr, getattr(hook, attr))
+        cfg = dataclasses.replace(cfg, forcing_hook=uneven_hook)
     units_p = dataclasses.replace(domain.units, global_size=Sp)
     map_p = np.pad(domain.map, pads, mode="edge")
     bz_p = (np.pad(domain.bouzidi, [(0, 0)] + pads, mode="edge")
@@ -626,10 +725,23 @@ def _make_uneven_sharded_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan,
     return step
 
 
-def _padded_global(field: ShardedField) -> torch.Tensor:
-    """A field's blocks assembled over its padded extent, ghosts included."""
+def _padded_global(field: ShardedField, device=None) -> torch.Tensor:
+    """A field's blocks assembled over its padded extent, ghosts included,
+    on ``device`` (by default the first shard's)."""
     whole = ShardedField(field.plan, field.blocks, field.shape[: field.lead] + field.padded)
-    return whole.gather()
+    return whole.gather(device)
+
+
+def _edge_pad(t: torch.Tensor, highs) -> torch.Tensor:
+    """[C, *S] padded by ``highs[a]`` layers at the high end of each spatial
+    axis a, each a copy of the last layer."""
+    lead = t.dim() - len(highs)
+    for a, n in enumerate(highs):
+        if n:
+            d = lead + a
+            t = torch.cat([t, t.narrow(d, t.shape[d] - 1, 1).expand(
+                *t.shape[:d], n, *t.shape[d + 1:])], dim=d)
+    return t
 
 
 def _true(x: ShardedField, lead: int, S: tuple) -> ShardedField:
@@ -678,29 +790,62 @@ class _ShardedKernelStep:
     def reset_counts(self) -> None:
         self.local_step.reset_counts()
 
-    def exchange(self, f: ShardedField) -> list:
-        """Each shard's block with its ``width``-wide x/y halo (one width, or
-        (x, y)), in buffers kept across steps (the halo exchange: one copy
-        of every block and its halo slabs)."""
-        bufs = self._bufs.get(f.dtype)
+    def exchange(self, f: ShardedField, width=None, periodic=None) -> list:
+        """Each shard's block with its ``width``-wide x/y halo (by default the
+        step's; one width, or (x, y)) under ``periodic`` (by default the
+        domain's), in buffers kept across steps (the halo exchange: one copy
+        of every block and its halo slabs).  The copies of the last two sets
+        of blocks (a run ping-pongs two states) are kept for each width and
+        periodicity."""
+        width = self.width if width is None else width
+        periodic = tuple(self.domain.periodic if periodic is None else periodic)
+        lead = len(f.shape) - len(self.domain.shape)
+        bkey = (f.dtype, tuple(f.blocks[0].shape[:lead]), width, periodic)
+        bufs = self._bufs.get(bkey)
         if bufs is None:
-            bufs = self._bufs[f.dtype] = padded_buffers(f.blocks, self.width, (0, 1))
-        key = tuple(b.data_ptr() for b in f.blocks)
+            bufs = self._bufs[bkey] = padded_buffers(f.blocks, width, (0, 1), lead)
+        key = (bkey, tuple(b.data_ptr() for b in f.blocks))
         copies = self._copies.get(key)
         if copies is None:
-            copies = _halo_copies(self.plan, f.blocks, bufs, self.width, (0, 1),
-                                  self.domain.periodic)
+            copies = _halo_copies(self.plan, f.blocks, bufs, width, (0, 1), periodic, lead)
             self._copies[key] = copies
-            while len(self._copies) > 2:
-                self._copies.popitem(last=False)
+            if len([k for k in self._copies if k[0] == bkey]) > 2:
+                del self._copies[next(k for k in self._copies if k[0] == bkey)]
         for dst, src in copies:
             dst.copy_(src)
         return bufs
+
+    def map_halo(self, width: int, periodic=None) -> list:
+        """Each shard's map with a ``width``-wide x/y halo of the neighbours'
+        codes (edge-replicated on a closed domain face), made once."""
+        periodic = tuple(self.domain.periodic if periodic is None else periodic)
+        key = ("map", width, periodic)
+        if key not in self._bufs:
+            m = self.maps.map(lambda b: b[None])
+            pads = _fill_halos(self.plan, m.blocks, padded_buffers(m.blocks, width, (0, 1)),
+                               width, (0, 1), periodic)
+            self._bufs[key] = [q[0].contiguous() for q in pads]
+        return self._bufs[key]
+
+    def field_blocks(self, field) -> list:
+        """A per-site [3, *S] input's blocks: a ShardedField's, or a global
+        tensor's, split per call."""
+        if isinstance(field, ShardedField):
+            return field.blocks
+        return self.plan.shard_field(field, like_f=True).blocks
 
     def _launch(self, k: int, *args, **kwargs):
         """The local step on shard k's block, with shard k's card current."""
         with _on(self.plan.device(k)):
             return self.local_step(*args, **kwargs)
+
+    def _macro_only(self, results, macro_out):
+        """(rho0, u0) of a u* pass: ``macro_out``, or the launches' blocks."""
+        if macro_out is not None:
+            return macro_out
+        S = self.domain.shape
+        return (ShardedField(self.plan, [r[0] for r in results], S),
+                ShardedField(self.plan, [r[1] for r in results], (len(S),) + S))
 
     def _outputs(self, f: ShardedField, out, macro_out):
         n = self.plan.n_shards
@@ -725,19 +870,31 @@ class _ShardedKernelStep:
 
 
 class ShardedFusedStepAB(_ShardedKernelStep):
-    """``step(f, nu, u_in=None, force=None, parity=0, out=None, macro_out=None)
-    -> (f_new, rho, u)`` on ShardedFields: per step the 1-wide x/y halo
-    exchange, then the A-B step (B4) on each shard's haloed block
-    (``make_fused_step`` with ``prepadded=True``), its output into ``out``
-    and ``macro_out`` where given (ShardedFields like f and rho/u)."""
+    """``step(f, nu, u_in=None, force=None, parity=0, out=None, macro_out=None,
+    force_add=None) -> (f_new, rho, u)`` on ShardedFields: per step the
+    1-wide x/y halo exchange, then the A-B step (B4) on each shard's haloed
+    block (``make_fused_step`` with ``prepadded=True``), its output into
+    ``out`` and ``macro_out`` where given (ShardedFields like f and rho/u).
+    In the force_field mode ``force`` is the per-site [3, X, Y, Z] force (a
+    ShardedField of the plan, or a global tensor split per call) and
+    ``force_add`` the [3] body force added at every site; the macro_only
+    mode is the u* pass, ``-> (rho0, u0)``.  ``halo``: f's haloed blocks
+    when the caller has exchanged them already (the hooked pipeline's two
+    passes over one state)."""
 
-    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None, macro_out=None):
+    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None, macro_out=None,
+                 force_add=None, halo=None):
         del parity
-        halo = self.exchange(f)
+        ls, n = self.local_step, self.plan.n_shards
+        halo = self.exchange(f) if halo is None else halo
         outs, macros = self._outputs(f, out, macro_out)
-        results = [self._launch(k, halo[k], nu, u_in=u_in, force=force, out=outs[k],
-                                macro_out=macros[k], map_arr_in=self.maps.blocks[k])
-                   for k in range(self.plan.n_shards)]
+        forces = self.field_blocks(force) if ls.force_field else [force] * n
+        kw = {"force_add": force_add} if ls.force_field else {}
+        results = [self._launch(k, halo[k], nu, u_in=u_in, force=forces[k], out=outs[k],
+                                macro_out=macros[k], map_arr_in=self.maps.blocks[k], **kw)
+                   for k in range(n)]
+        if ls.macro_only:
+            return self._macro_only(results, macro_out)
         return (self._state(f, results, out),) + tuple(self._macros(results, macro_out))
 
 
@@ -746,52 +903,74 @@ def make_sharded_fused_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan,
                             macro_only: bool = False) -> ShardedFusedStepAB:
     """The sharded A-B step through B4 on haloed blocks (JAX
     ``make_sharded_fused_step``; its TPU knobs ``tile`` and
-    ``tiles_per_program`` have no counterpart): x/y meshes; a z cut, and the
-    force_field and macro_only variants of the hooked steps, raise naming
-    A13b."""
+    ``tiles_per_program`` have no counterpart): x/y meshes, a z cut raises
+    naming A13b; the force_field and macro_only modes are the hooked
+    pipeline's (JAX :847-951)."""
     from tnl_lbm_tpu_torch.kernels.fused import make_fused_step
 
     plan.check(domain)
     _xy_only(plan, "the sharded A-B step (B4)")
-    if force_field or macro_only:
-        raise NotImplementedError(f"the sharded force_field / macro_only A-B steps (the hooked "
-                                  f"routes) are not ported yet ({A13B})")
     local_step = make_fused_step(cfg, domain, plan.device(0), with_macro=with_macro,
-                                 prepadded=True, local_shape=plan.local_shape(domain))
+                                 prepadded=True, local_shape=plan.local_shape(domain),
+                                 force_field=force_field, macro_only=macro_only)
     return ShardedFusedStepAB(plan, domain, local_step, 1)
 
 
 class ShardedFusedStepAA(_ShardedKernelStep):
-    """``step(f, nu, u_in=None, force=None, parity=0, out=None, macro_out=None)
-    -> (f, rho, u)`` on ShardedFields: parity 0 the even step (B2) on every
-    shard's block in place (same-site: no exchange); parity 1 the 2-wide x/y
-    halo exchange, then the odd step (B3) on each shard's haloed block with
-    its map ring and boundary flags, into ``out`` where given."""
+    """``step(f, nu, u_in=None, force=None, parity=0, out=None, macro_out=None,
+    force_add=None) -> (f, rho, u)`` on ShardedFields: parity 0 the even
+    step (B2) on every shard's block in place (same-site: no exchange);
+    parity 1 the 2-wide x/y halo exchange, then the odd step (B3) on each
+    shard's haloed block with its map ring and boundary flags, into ``out``
+    where given.  In the force_field mode ``force`` is the per-site [3, X,
+    Y, Z] force (a ShardedField or a global tensor) and ``force_add`` the
+    [3] body force; the odd step takes the force of each block and its
+    1-wide ring from the neighbour shards (JAX :1055-1077: a ring site's
+    collision feeds a push into the block, so it takes the neighbour's
+    force, not the edge's).  The macro_only mode is the u* pass, ``->
+    (rho0, u0)``.  ``halo``: the odd step's haloed blocks of f when the
+    caller has exchanged them already."""
 
     def __init__(self, plan, domain, local_step):
         super().__init__(plan, domain, local_step, 2)
         # each shard's map with its 1-wide x/y ring (neighbours' codes, or the
         # edge replicated on a domain face), and which of its faces are
         # non-periodic faces of the domain (JAX bflags)
-        m = self.maps.map(lambda b: b[None])
-        ring = _fill_halos(plan, m.blocks, padded_buffers(m.blocks, 1, (0, 1)), 1, (0, 1),
-                           domain.periodic)
-        self.rings = [r[0].contiguous() for r in ring]
+        self.rings = self.map_halo(1)
         self.bflags = [_bflags(plan, k) for k in range(plan.n_shards)]
 
-    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None, macro_out=None):
+    def force_ring(self, force) -> list:
+        """Each shard's force with its 1-wide x/y ring of the neighbours' force
+        (the domain's periodicity; edge-replicated on a closed face, where no
+        ring site collides)."""
+        field = force if isinstance(force, ShardedField) else self.plan.shard_field(
+            force, like_f=True)
+        return self.exchange(field, width=1)
+
+    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None, macro_out=None,
+                 force_add=None, halo=None):
+        ls, n = self.local_step, self.plan.n_shards
         outs, macros = self._outputs(f, out, macro_out)
-        n = self.plan.n_shards
+        kw = {"force_add": force_add} if ls.force_field else {}
         if parity == 0:
-            results = [self._launch(k, f.blocks[k], nu, u_in=u_in, force=force, parity=0,
-                                    macro_out=macros[k], map_arr_in=self.maps.blocks[k])
+            forces = self.field_blocks(force) if ls.force_field else [force] * n
+            results = [self._launch(k, f.blocks[k], nu, u_in=u_in, force=forces[k], parity=0,
+                                    macro_out=macros[k], map_arr_in=self.maps.blocks[k], **kw)
                        for k in range(n)]
+            if ls.macro_only:
+                return self._macro_only(results, macro_out)
             return (f,) + tuple(self._macros(results, macro_out))
-        halo = self.exchange(f)
+        if ls.force_field:
+            kw["force_ring_in"] = self.force_ring(force)
+            force = None
+        halo = self.exchange(f) if halo is None else halo
         results = [self._launch(k, halo[k], nu, u_in=u_in, force=force, parity=1, out=outs[k],
                                 macro_out=macros[k], map_ring_in=self.rings[k],
-                                bflags=self.bflags[k])
+                                bflags=self.bflags[k],
+                                **{a: (v[k] if a == "force_ring_in" else v) for a, v in kw.items()})
                    for k in range(n)]
+        if ls.macro_only:
+            return self._macro_only(results, macro_out)
         return (self._state(f, results, out),) + tuple(self._macros(results, macro_out))
 
 
@@ -811,21 +990,101 @@ def make_sharded_fused_step_aa(cfg: LBMConfig, domain: Domain, plan: ShardPlan,
                                with_macro: bool = True, force_field: bool = False,
                                macro_only: bool = False) -> ShardedFusedStepAA:
     """The sharded A-A step through B2 on each shard's block and B3 on its
-    haloed block (JAX ``make_sharded_fused_step_aa``): x/y meshes.  A z cut,
-    the force ring (``force_field``) and the u* pass (``macro_only``) raise
-    naming A13b."""
+    haloed block (JAX ``make_sharded_fused_step_aa``): x/y meshes, a z cut
+    raises naming A13b; the force_field mode (with the force ring) and the
+    u* pass (macro_only) are the hooked pipeline's."""
     from tnl_lbm_tpu_torch.kernels.fused_aa import make_fused_step_aa
 
     plan.check(domain)
     _xy_only(plan, "the sharded A-A step (B2, B3)")
-    if force_field or macro_only:
-        raise NotImplementedError(f"the sharded A-A force ring (force_field) and u* pass "
-                                  f"(macro_only) are not ported yet ({A13B})")
     if not with_macro:
         raise NotImplementedError("with_macro=False is not ported yet (ROADMAP A7)")
     local_step = make_fused_step_aa(cfg, domain, plan.device(0), prepadded=True,
-                                    local_shape=plan.local_shape(domain))
+                                    local_shape=plan.local_shape(domain),
+                                    force_field=force_field, macro_only=macro_only)
     return ShardedFusedStepAA(plan, domain, local_step)
+
+
+# --------------------------------------------------- the NN kernels' steps
+
+class ShardedNNForce(_ShardedKernelStep):
+    """``force(rho0, u0, nu) -> F`` on ShardedFields: the NN force of a
+    Carreau-Yasuda or Casson model (B9 halo, ``make_nn_force_kernel`` with
+    ``prepadded``) on each shard's block of the u* moments, from u0 with a
+    2-wide x/y halo and the map with the same halo, both exchanged under the
+    hook's periodicity (its own, which may differ from the domain's); the
+    block's faces on an axis the hook does not wrap clamp.  The sharded
+    hooked pipeline's NN hook: JAX evaluates the hook in XLA on the global
+    arrays, which GSPMD partitions."""
+
+    def __init__(self, plan, domain, local_force):
+        super().__init__(plan, domain, local_force, 2)
+        per = local_force.periodic
+        self.nn_periodic = tuple(per) if per is not None else (False,) * 3
+        self.map_pads = self.map_halo(2, self.nn_periodic)
+        self.bflags = [_bflags(plan, k) for k in range(plan.n_shards)]
+
+    def __call__(self, rho0: ShardedField, u0: ShardedField, nu) -> ShardedField:
+        upads = self.exchange(u0, periodic=self.nn_periodic)
+        blocks = [self._launch(k, rho0.blocks[k], upads[k], nu, map_pad_in=self.map_pads[k],
+                               bflags=self.bflags[k]) for k in range(self.plan.n_shards)]
+        return ShardedField(self.plan, blocks, u0.shape)
+
+
+def make_sharded_nn_force(model, domain: Domain, plan: ShardPlan, periodic=None) -> ShardedNNForce:
+    """The NN force of ``model`` with the stencil periodicity ``periodic``
+    on the shards' blocks (B9 halo): x/y plans, a z cut raises naming
+    A13b."""
+    from tnl_lbm_tpu_torch.kernels.fused_nn import make_nn_force_kernel
+
+    plan.check(domain)
+    _xy_only(plan, "the sharded NN force (B9)")
+    local = make_nn_force_kernel(model, domain, plan.device(0), periodic=periodic,
+                                 prepadded=True, local_shape=plan.local_shape(domain))
+    return ShardedNNForce(plan, domain, local)
+
+
+class ShardedFusedNNStep(_ShardedKernelStep):
+    """``step(f, nu, u_in=None, force=None, parity=0, out=None, macro_out=None)
+    -> (f_new, rho, u)`` on ShardedFields: the one-kernel NN step (B10 halo,
+    ``make_fused_nn_step`` with ``prepadded``) on each shard's block, fed by
+    one halo exchange of f per step, as wide as the mode's stencil chain
+    reads (3 A-B, 2 even, 4 odd: ``fused_nn_step.HALO_WIDTHS``), with the
+    map's halo of that width (made once) and the face flags that gate the
+    in-kernel edge fixes on the closed faces.  Out of place in every mode,
+    as the unsharded step; a homogeneous [3] body force only (JAX
+    ``make_sharded_fused_nn_step``)."""
+
+    def __init__(self, plan, domain, local_step):
+        super().__init__(plan, domain, local_step, None)
+        self.bflags = [_bflags(plan, k) for k in range(plan.n_shards)]
+
+    def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None, macro_out=None):
+        ls = self.local_step
+        w = ls.halo_width(parity)
+        halo = self.exchange(f, width=w)
+        mpads = self.map_halo(w)
+        outs, macros = self._outputs(f, out, macro_out)
+        results = [self._launch(k, halo[k], nu, u_in=u_in, force=force, parity=parity,
+                                out=outs[k], macro_out=macros[k], map_pad_in=mpads[k],
+                                bflags=self.bflags[k])
+                   for k in range(self.plan.n_shards)]
+        return (self._state(f, results, out),) + tuple(self._macros(results, macro_out))
+
+
+def make_sharded_fused_nn_step(cfg: LBMConfig, domain: Domain, plan: ShardPlan, model,
+                               nn_periodic, with_macro: bool = True) -> ShardedFusedNNStep:
+    """The sharded one-kernel NN step (JAX ``make_sharded_fused_nn_step``;
+    its TPU knobs ``tile`` and ``tiles_per_program`` have no counterpart):
+    x/y plans that divide the lattice, a z cut raises naming A13b."""
+    from tnl_lbm_tpu_torch.kernels.fused_nn_step import make_fused_nn_step
+
+    plan.check(domain)
+    _xy_only(plan, "the sharded one-kernel NN step (B10)")
+    local = make_fused_nn_step(cfg, domain, model, nn_periodic, plan.device(0),
+                               with_macro=with_macro, prepadded=True,
+                               local_shape=plan.local_shape(domain))
+    return ShardedFusedNNStep(plan, domain, local)
 
 
 # ---------------------------------------------- the 2D and ADE kernels' steps
@@ -839,7 +1098,8 @@ class ShardedFusedStep2D(_ShardedKernelStep):
     and its view of a per-site inflow profile.  ``force`` is a [2] vector,
     or in the force_field variant the per-site [2, X, Y] force (a
     ShardedField of the plan, or a global tensor split per call) with the
-    [2] vector ``force_add``."""
+    [2] vector ``force_add``.  ``halo``: the exchange of f already made
+    (the sharded hooked step's u* pass reads it too)."""
 
     def __init__(self, plan, domain, local_step):
         super().__init__(plan, domain, local_step, 1)
@@ -867,20 +1127,14 @@ class ShardedFusedStep2D(_ShardedKernelStep):
                                        v.to(self.plan.device(k)) for k, v in enumerate(views)])
         return self._profiles[2]
 
-    def _force_blocks(self, force) -> list:
-        n = self.plan.n_shards
-        if not self.local_step.force_field:
-            return [force] * n
-        if isinstance(force, ShardedField):
-            return force.blocks
-        return self.plan.shard_field(force, like_f=True).blocks
-
     def __call__(self, f, nu, u_in=None, force=None, parity: int = 0, out=None, macro_out=None,
-                 force_add=None):
+                 force_add=None, halo=None):
         del parity
-        halo = self.exchange(f)
+        halo = self.exchange(f) if halo is None else halo
         outs, macros = self._outputs(f, out, macro_out)
-        profs, forces = self._profile_blocks(u_in), self._force_blocks(force)
+        profs = self._profile_blocks(u_in)
+        forces = (self.field_blocks(force) if self.local_step.force_field
+                  else [force] * self.plan.n_shards)
         results = [self._launch(k, halo[k], nu, u_in=profs[k], force=forces[k], out=outs[k],
                                 macro_out=macros[k], force_add=force_add,
                                 map_arr_in=self.maps.blocks[k],
@@ -1049,11 +1303,8 @@ class ShardedFusedPairAA(_ShardedKernelStep):
 
     def __init__(self, plan, domain, local_pair):
         super().__init__(plan, domain, local_pair, 2)
-        m = self.maps.map(lambda b: b[None])
-        pad = _fill_halos(plan, m.blocks, padded_buffers(m.blocks, 2, (0, 1)), 2, (0, 1),
-                          domain.periodic)
         #: each shard's map with the neighbours' codes in its 2-wide halo
-        self.pad_maps = [p[0] for p in pad]
+        self.pad_maps = self.map_halo(2)
         self.bflags = [_bflags(plan, k) for k in range(plan.n_shards)]
         self.store_dtype = getattr(local_pair, "store_dtype", local_pair.cfg.compute_dtype)
 

@@ -96,7 +96,7 @@ from tnl_lbm_tpu_torch.kernels.fused import (NP_DTYPES, kernel_counters, make_fu
                                              step_instance, supports)
 from tnl_lbm_tpu_torch.kernels.fused_2d import make_fused_step_2d
 from tnl_lbm_tpu_torch.ops import moments as mom
-from tnl_lbm_tpu_torch.parallel.sharded import A13B, ShardedField
+from tnl_lbm_tpu_torch.parallel.sharded import ShardedField
 from tnl_lbm_tpu_torch.sim import checkpoint as ckpt
 from tnl_lbm_tpu_torch.sim.config import Domain, LBMConfig, initial_dfs
 from tnl_lbm_tpu_torch.sim.step import make_step
@@ -500,14 +500,26 @@ class Simulation:
         A-A steps (B2, B3 on haloed blocks) or the D2Q9 step (B5 on haloed
         blocks; a D2Q9 config B5 refuses raises, ROADMAP §C), the A-B steps
         padded and cropped where the mesh does not divide the lattice;
-        without them the plain sharded step.  What the sharded lattice does
-        not take yet (the hooked steps) raises."""
+        without them the plain sharded step.  A forcing hook takes the
+        sharded hooked routes (JAX state.py:360-385): divisible plans through
+        ``make_sharded_hooked_fused_step``, A-B plans that do not divide the
+        lattice padded and cropped around it; a z cut raises naming A13b.
+        The haloed kernels take a homogeneous inflow velocity; where the JAX
+        ``Simulation``'s ``_vector_uin_only`` sends a per-site profile to its
+        plain sharded step, they raise (ROADMAP A13b, Bprof): a plain step on
+        the card is not a path."""
         from tnl_lbm_tpu_torch.parallel import sharded as sh
 
         if not self.use_fused:
             return sh.make_sharded_step(cfg, self.domain, self.plan)
         if cfg.forcing_hook is not None:
-            raise NotImplementedError(f"the sharded hooked steps are not ported yet ({A13B})")
+            from tnl_lbm_tpu_torch.kernels.hooked import make_sharded_hooked_fused_step
+
+            sh._xy_only(self.plan, "the sharded hooked steps")
+            if self.plan.divisible(self.domain):
+                return make_sharded_hooked_fused_step(cfg, self.domain, self.plan)
+            return sh._make_uneven_sharded_step(cfg, self.domain, self.plan,
+                                                inner_builder=make_sharded_hooked_fused_step)
         if cfg.lat.D == 2:
             builder = sh.make_sharded_fused_step_2d
         elif cfg.streaming == "AA":

@@ -239,13 +239,14 @@ def make_step(cfg: LBMConfig, domain: Domain, local_shape=None):
                                         bouzidi_arr)
         return stream_out(f, f_post, masks, parity), rho, u
 
-    def ustar(f, force=None, parity: int = 0, map_arr=None, bouzidi_arr=None):
+    def ustar(f, force=None, parity: int = 0, map_arr=None, bouzidi_arr=None, fpad=None):
         """The u* pass: (rho0, u0, fluid) - the moments with the body force
         of the pulled, wall/symmetry-transformed DFs, before the
-        inflow/outflow macro overrides (the hook's input in ``step``)."""
+        inflow/outflow macro overrides (the hook's input in ``step``);
+        ``fpad`` as ``collide``'s."""
         map_arr, thetas = _map(f.device, map_arr, bouzidi_arr)
         masks = {c: map_arr == int(c) for c in codes}
-        f_in = _transformed(f, parity, masks, thetas)
+        f_in = _transformed(f, parity, masks, thetas, fpad)
         force_b = as_vector(lat, force, dtype, f.device) if force is not None else None
         rho0, u0 = mom.density_velocity(lat, f_in, force=force_b, well=cfg.well,
                                         high_precision=cfg.high_precision_rho)
